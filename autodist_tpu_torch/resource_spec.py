@@ -1,0 +1,581 @@
+"""Cluster/topology description.
+
+PyTorch counterpart of ``autodist_tpu/resource_spec.py``: parses a
+``resource_spec.yml`` describing the machines (GPU hosts and their cards),
+SSH access groups, chief designation, and network bandwidth, plus the
+multi-level ``topology:`` section.
+
+Device naming follows the ``ip:TYPE:index`` convention, with ``GPU`` as the
+accelerator type, e.g. ``10.0.0.1:GPU:0``. ``tpus:``/``chips:`` entries in a
+yaml written for the JAX package parse as accelerators too.
+
+What differs from the JAX module: :meth:`ResourceSpec.from_local` counts
+``torch.cuda.device_count()`` (or one CPU for ``device="cpu"``) instead of
+JAX devices, and accelerators are ``GPU`` devices.
+"""
+import os
+from enum import Enum
+from typing import Dict, List, Optional
+
+import yaml
+
+from autodist_tpu_torch.utils import logging
+
+# Default inter-node bandwidth when unspecified: 1 GbE, in bytes/sec
+# (mirrors reference resource_spec.py:209-215).
+DEFAULT_NETWORK_BANDWIDTH_GBPS = 1
+# Default ICI link bandwidth per direction for a v4-like slice, bytes/sec.
+DEFAULT_ICI_BANDWIDTH_GBPS = 400
+# Per-chip HBM capacity by generation, bytes (public figures); "cpu" is
+# host-RAM order for the CPU-mesh development path. The single source of
+# truth for every memory budget in the system — the cost model's
+# feasibility gate and the ADT5xx static HBM analyzer both read it
+# through ResourceSpec.chip_hbm_bytes().
+CHIP_HBM_BYTES = {
+    "v2": 8e9,
+    "v3": 16e9,
+    "v4": 32e9,
+    "v5e": 16e9,
+    "v5p": 95e9,
+    "v6e": 32e9,
+    "h100": 80e9,
+    "cpu": 64e9,
+}
+
+
+class DeviceType(Enum):
+    CPU = "CPU"
+    # accelerator cards; ``TPU`` names in JAX-package yamls normalize here
+    GPU = "GPU"
+
+
+# ----------------------------------------------------- multi-level topology
+
+
+class TopologyConfigError(ValueError):
+    """A ``topology:`` entry holds a value that cannot mean anything.
+
+    Raised at spec-parse time instead of tracebacking mid-build: a typo'd
+    ``chips_per_host: 0`` (or a bandwidth of ``-25``) that survived into
+    the cost model would surface as a ZeroDivisionError three layers deep
+    with no mention of the yaml knob that caused it. Mirrors
+    the JAX package's ``ElasticConfigError`` named-knob
+    message shape so operators grep one pattern."""
+
+    def __init__(self, knob: str, raw, why: str):
+        self.knob = knob
+        self.raw = raw
+        super().__init__(
+            "invalid %s=%r: %s (unset it, or set a valid value)"
+            % (knob, raw, why))
+
+
+class TopologyLevel:
+    """One link level of the physical hierarchy, innermost (fastest)
+    first: ``name`` ("ici", "dcn", ...), ``bandwidth_gbps`` per link and
+    direction, and an optional per-step ``budget_ms`` the ADT523 lint
+    checks per-level byte estimates against."""
+
+    def __init__(self, name: str, bandwidth_gbps: float,
+                 budget_ms: Optional[float] = None):
+        self.name = str(name)
+        self.bandwidth_gbps = float(bandwidth_gbps)
+        self.budget_ms = float(budget_ms) if budget_ms is not None else None
+
+    @property
+    def bandwidth_bytes_s(self) -> float:
+        return self.bandwidth_gbps * 1e9 / 8.0
+
+    def to_dict(self) -> dict:
+        d = {"name": self.name, "bandwidth_gbps": self.bandwidth_gbps}
+        if self.budget_ms is not None:
+            d["budget_ms"] = self.budget_ms
+        return d
+
+    def __repr__(self):
+        return "TopologyLevel(%s, %.3g Gbps)" % (self.name,
+                                                 self.bandwidth_gbps)
+
+
+class Topology:
+    """First-class multi-level device topology: ``hosts`` x
+    ``chips_per_host`` chips with one :class:`TopologyLevel` per link
+    tier, innermost first (level 0 = intra-host ICI, level 1 = the
+    inter-host network). Device index ``i`` lives on host
+    ``i // chips_per_host`` — the contiguous layout every mesh builder
+    here emits, and what :meth:`host_of` encodes for the analyzer.
+
+    Loudly validated (:class:`TopologyConfigError`) at construction: a
+    malformed hierarchy must fail at spec-parse time with the named yaml
+    knob, not traceback mid-build."""
+
+    def __init__(self, hosts: int, chips_per_host: int,
+                 levels: List[TopologyLevel]):
+        if not isinstance(hosts, int) or hosts < 1:
+            raise TopologyConfigError("topology.hosts", hosts,
+                                      "must be a positive integer")
+        if not isinstance(chips_per_host, int) or chips_per_host < 1:
+            raise TopologyConfigError("topology.chips_per_host",
+                                      chips_per_host,
+                                      "must be a positive integer")
+        if not levels:
+            raise TopologyConfigError("topology.levels", levels,
+                                      "at least one link level is required")
+        if hosts > 1 and len(levels) < 2:
+            raise TopologyConfigError(
+                "topology.levels", [lv.name for lv in levels],
+                "a %d-host topology needs an inter-host level (got only "
+                "the intra-host level)" % hosts)
+        seen = set()
+        for i, lv in enumerate(levels):
+            knob = "topology.levels[%d].bandwidth_gbps" % i
+            bw = lv.bandwidth_gbps
+            if not (bw > 0) or bw != bw or bw == float("inf"):
+                raise TopologyConfigError(
+                    knob, bw, "per-level link bandwidth must be a positive "
+                    "finite number")
+            if lv.budget_ms is not None and not lv.budget_ms > 0:
+                raise TopologyConfigError(
+                    "topology.levels[%d].budget_ms" % i, lv.budget_ms,
+                    "per-level budget must be a positive number of "
+                    "milliseconds")
+            if lv.name in seen:
+                raise TopologyConfigError("topology.levels[%d].name" % i,
+                                          lv.name, "duplicate level name")
+            seen.add(lv.name)
+        self.hosts = hosts
+        self.chips_per_host = chips_per_host
+        self.levels = list(levels)
+
+    # ------------------------------------------------------------- geometry
+
+    @property
+    def num_devices(self) -> int:
+        return self.hosts * self.chips_per_host
+
+    def host_of(self, device_index: int) -> int:
+        """Host holding device ``device_index`` (contiguous layout)."""
+        if not 0 <= device_index < self.num_devices:
+            raise TopologyConfigError(
+                "topology", device_index,
+                "device index out of range for a %dx%d topology"
+                % (self.hosts, self.chips_per_host))
+        return device_index // self.chips_per_host
+
+    @property
+    def intra_level(self) -> TopologyLevel:
+        """The innermost (intra-host) link level."""
+        return self.levels[0]
+
+    @property
+    def inter_level(self) -> Optional[TopologyLevel]:
+        """The inter-host link level; ``None`` on a single-level spec."""
+        return self.levels[1] if len(self.levels) > 1 else None
+
+    def level_bandwidth_bytes_s(self, name: str) -> float:
+        for lv in self.levels:
+            if lv.name == name:
+                return lv.bandwidth_bytes_s
+        raise TopologyConfigError("topology.levels", name,
+                                  "no such level (have %s)"
+                                  % [lv.name for lv in self.levels])
+
+    # -------------------------------------------------------- serialization
+
+    def to_dict(self) -> dict:
+        return {"hosts": self.hosts, "chips_per_host": self.chips_per_host,
+                "levels": [lv.to_dict() for lv in self.levels]}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "Topology":
+        """Parse one ``topology:`` section. Accepts ``chips_per_host`` or
+        a total ``chips`` count (which must divide evenly across
+        ``hosts`` — satellite of ADT524); levels are dicts of
+        ``name``/``bandwidth_gbps``(/``budget_ms``), innermost first."""
+        if not isinstance(d, dict):
+            raise TopologyConfigError("topology", d,
+                                      "must be a mapping of hosts/"
+                                      "chips_per_host/levels")
+        try:
+            hosts = int(d.get("hosts", 1))
+        except (TypeError, ValueError):
+            raise TopologyConfigError("topology.hosts", d.get("hosts"),
+                                      "must be a positive integer")
+        if "chips_per_host" in d:
+            try:
+                cph = int(d["chips_per_host"])
+            except (TypeError, ValueError):
+                raise TopologyConfigError("topology.chips_per_host",
+                                          d["chips_per_host"],
+                                          "must be a positive integer")
+        elif "chips" in d:
+            try:
+                chips = int(d["chips"])
+            except (TypeError, ValueError):
+                raise TopologyConfigError("topology.chips", d["chips"],
+                                          "must be a positive integer")
+            if hosts < 1:
+                raise TopologyConfigError("topology.hosts", hosts,
+                                          "must be a positive integer")
+            if chips < 1 or chips % hosts != 0:
+                raise TopologyConfigError(
+                    "topology.chips", chips,
+                    "total chip count must divide evenly across %d host(s)"
+                    % hosts)
+            cph = chips // hosts
+        else:
+            raise TopologyConfigError(
+                "topology", sorted(d), "one of chips_per_host or chips is "
+                "required")
+        raw_levels = d.get("levels")
+        if not isinstance(raw_levels, (list, tuple)) or not raw_levels:
+            raise TopologyConfigError("topology.levels", raw_levels,
+                                      "must be a non-empty list of link "
+                                      "levels (innermost first)")
+        levels = []
+        for i, entry in enumerate(raw_levels):
+            if not isinstance(entry, dict) or "bandwidth_gbps" not in entry:
+                raise TopologyConfigError(
+                    "topology.levels[%d]" % i, entry,
+                    "each level needs name and bandwidth_gbps")
+            try:
+                bw = float(entry["bandwidth_gbps"])
+            except (TypeError, ValueError):
+                raise TopologyConfigError(
+                    "topology.levels[%d].bandwidth_gbps" % i,
+                    entry["bandwidth_gbps"], "must be a number")
+            budget = entry.get("budget_ms")
+            if budget is not None:
+                try:
+                    budget = float(budget)
+                except (TypeError, ValueError):
+                    raise TopologyConfigError(
+                        "topology.levels[%d].budget_ms" % i,
+                        entry.get("budget_ms"), "must be a number")
+            levels.append(TopologyLevel(
+                entry.get("name", "level%d" % i), bw, budget))
+        return cls(hosts, cph, levels)
+
+    @classmethod
+    def from_yaml(cls, path: str) -> "Topology":
+        """Load a topology from a yaml file — either a bare topology
+        mapping or a full resource spec with a ``topology:`` section (the
+        analysis CLI's ``--topology FILE`` input)."""
+        if not os.path.isfile(path):
+            raise TopologyConfigError("topology", path,
+                                      "topology spec file not found")
+        with open(path, "r") as f:
+            d = yaml.safe_load(f) or {}
+        if not isinstance(d, dict):
+            raise TopologyConfigError("topology", path,
+                                      "topology yaml must be a mapping")
+        return cls.from_dict(d.get("topology", d))
+
+    def __repr__(self):
+        return "Topology(%d hosts x %d chips, levels=%s)" % (
+            self.hosts, self.chips_per_host,
+            [lv.name for lv in self.levels])
+
+
+class DeviceSpec:
+    """One device: ``<host>:<TYPE>:<index>``."""
+
+    def __init__(self, host: str, device_type: DeviceType = DeviceType.GPU,
+                 device_index: int = 0):
+        self.host = host
+        self.device_type = device_type
+        self.device_index = int(device_index)
+
+    def name_string(self) -> str:
+        return "{}:{}:{}".format(self.host, self.device_type.value, self.device_index)
+
+    @classmethod
+    def from_string(cls, s: str) -> "DeviceSpec":
+        parts = s.split(":")
+        if len(parts) == 1:
+            return cls(parts[0], DeviceType.CPU, 0)
+        if len(parts) == 2:
+            # "host:0" => accelerator index
+            return cls(parts[0], DeviceType.GPU, int(parts[1]))
+        host, typ, idx = parts[0], parts[1].upper(), parts[2]
+        if typ == "TPU":  # names written for the JAX package
+            typ = "GPU"
+        return cls(host, DeviceType[typ], int(idx))
+
+    def __eq__(self, other):
+        return isinstance(other, DeviceSpec) and self.name_string() == other.name_string()
+
+    def __hash__(self):
+        return hash(self.name_string())
+
+    def __repr__(self):
+        return "DeviceSpec({})".format(self.name_string())
+
+
+class SSHConfig:
+    """One SSH access group (reference resource_spec.py:291-331)."""
+
+    def __init__(self, info: dict):
+        self.username = info.get("username", "")
+        self.port = int(info.get("port", 22))
+        self.python_venv = info.get("python_venv", "")
+        self.key_file = info.get("key_file", "")
+        self.pkey = None
+        self.env = dict(info.get("env", {}))
+        # "ssh" (default) or "local": local routes remote_exec/remote_copy
+        # through bash/cp on this machine — colocated processes (tests,
+        # single-host multi-process, loopback nodes) launch for real
+        # without an sshd
+        self.transport = info.get("transport", "ssh")
+        self.env.setdefault("PYTHONNOUSERSITE", "True")
+
+
+class SSHConfigMap(dict):
+    def __init__(self, info: Optional[dict], node_groups: Dict[str, str]):
+        super().__init__()
+        info = info or {}
+        for group, conf in info.items():
+            self[group] = SSHConfig(conf)
+        self._node_groups = node_groups
+
+    def for_host(self, host: str) -> Optional[SSHConfig]:
+        group = self._node_groups.get(host)
+        return self.get(group) if group else None
+
+
+class _Node:
+    def __init__(self, entry: dict):
+        self.address = str(entry["address"])
+        # chips/tpus/gpus are synonyms; value may be a count or a list of indices
+        raw = entry.get("tpus", entry.get("chips", entry.get("gpus", 0)))
+        if isinstance(raw, int):
+            self.gpu_indices = list(range(raw))
+        else:
+            self.gpu_indices = sorted(int(i) for i in (raw or []))
+        raw_cpus = entry.get("cpus", [0])
+        if isinstance(raw_cpus, int):
+            self.cpu_indices = list(range(raw_cpus))
+        else:
+            self.cpu_indices = sorted(int(i) for i in (raw_cpus or []))
+        self.chief = bool(entry.get("chief", False))
+        self.ssh_config = entry.get("ssh_config")
+        self.network_bandwidth_gbps = float(
+            entry.get("network_bandwidth", DEFAULT_NETWORK_BANDWIDTH_GBPS))
+
+
+class ResourceSpec:
+    """Parsed cluster description.
+
+    Construct from a yaml file path (``ResourceSpec("spec.yml")``), a dict
+    (``ResourceSpec.from_dict``), or the local process's visible devices
+    (``ResourceSpec.from_local``).
+    """
+
+    def __init__(self, resource_file: Optional[str] = None):
+        self._nodes: "Dict[str, _Node]" = {}
+        self._ssh_config_map = SSHConfigMap({}, {})
+        self._chief_address: Optional[str] = None
+        self._slice_info: dict = {}
+        self._topology: Optional[Topology] = None
+        if resource_file is not None:
+            if not os.path.isfile(resource_file):
+                raise FileNotFoundError("resource spec file not found: %s" % resource_file)
+            with open(resource_file, "r") as f:
+                self._from_dict(yaml.safe_load(f) or {})
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "ResourceSpec":
+        spec = cls()
+        spec._from_dict(d)
+        return spec
+
+    @classmethod
+    def from_local(cls, device: str = "cuda") -> "ResourceSpec":
+        """Build a single-node spec from this process's devices: every
+        visible CUDA card for ``device="cuda"``, one CPU for
+        ``device="cpu"``. Raises when CUDA is asked for and no card is
+        visible (an entry point never continues on the CPU unasked)."""
+        import torch
+        if str(device).startswith("cuda"):
+            n = torch.cuda.device_count()
+            if n == 0:
+                raise RuntimeError(
+                    "ResourceSpec.from_local(device=%r): no CUDA device is "
+                    "visible; pass device='cpu' to run on the CPU" % device)
+            d = {"nodes": [{"address": "127.0.0.1", "chief": True,
+                            "gpus": n, "cpus": [0]}],
+                 "slice": {"type": "h100"}}
+        elif str(device) == "cpu":
+            d = {"nodes": [{"address": "127.0.0.1", "chief": True,
+                            "gpus": 0, "cpus": [0]}]}
+        else:
+            raise ValueError("device must be 'cuda', 'cuda:N' or 'cpu', "
+                             "got %r" % (device,))
+        return cls.from_dict(d)
+
+    def _from_dict(self, d: dict):
+        nodes = d.get("nodes", [])
+        if not nodes:
+            raise ValueError("resource spec has no nodes")
+        node_groups = {}
+        for entry in nodes:
+            node = _Node(entry)
+            if node.address in self._nodes:
+                raise ValueError("duplicate node address: %s" % node.address)
+            self._nodes[node.address] = node
+            if node.ssh_config:
+                node_groups[node.address] = node.ssh_config
+            if node.chief:
+                if self._chief_address is not None:
+                    raise ValueError("multiple chief nodes")
+                self._chief_address = node.address
+        if self._chief_address is None:
+            # single-node clusters don't need an explicit chief
+            if len(self._nodes) == 1:
+                self._chief_address = next(iter(self._nodes))
+            else:
+                raise ValueError("multi-node resource spec must mark one node chief: true")
+        self._ssh_config_map = SSHConfigMap(d.get("ssh", {}), node_groups)
+        self._slice_info = dict(d.get("slice", {}))
+        if d.get("topology") is not None:
+            # loud validation at parse time (TopologyConfigError names the
+            # yaml knob) — a malformed hierarchy must never reach the cost
+            # model as a traceback mid-build
+            self._topology = Topology.from_dict(d["topology"])
+        logging.debug("ResourceSpec: %d nodes, chief=%s", len(self._nodes), self._chief_address)
+
+    # ------------------------------------------------------------------ props
+
+    @property
+    def chief(self) -> str:
+        return self._chief_address
+
+    @property
+    def node_addresses(self) -> List[str]:
+        return sorted(self._nodes.keys())
+
+    @property
+    def num_nodes(self) -> int:
+        return len(self._nodes)
+
+    @property
+    def gpu_devices(self) -> List[DeviceSpec]:
+        out = []
+        for addr in self.node_addresses:
+            for idx in self._nodes[addr].gpu_indices:
+                out.append(DeviceSpec(addr, DeviceType.GPU, idx))
+        return out
+
+    @property
+    def cpu_devices(self) -> List[DeviceSpec]:
+        out = []
+        for addr in self.node_addresses:
+            for idx in self._nodes[addr].cpu_indices:
+                out.append(DeviceSpec(addr, DeviceType.CPU, idx))
+        return out
+
+    @property
+    def devices(self) -> List[DeviceSpec]:
+        """All compute devices: GPU cards where present, else CPUs (so
+        CPU-only specs still run the full strategy path, mirroring the
+        reference's r2/r5 CPU-only specs)."""
+        out = []
+        for addr in self.node_addresses:
+            node = self._nodes[addr]
+            if node.gpu_indices:
+                out.extend(DeviceSpec(addr, DeviceType.GPU, i) for i in node.gpu_indices)
+            else:
+                out.extend(DeviceSpec(addr, DeviceType.CPU, i) for i in node.cpu_indices)
+        return out
+
+    @property
+    def num_gpus(self) -> int:
+        return len(self.gpu_devices)
+
+    @property
+    def ssh_config_map(self) -> SSHConfigMap:
+        return self._ssh_config_map
+
+    @property
+    def slice_info(self) -> dict:
+        return self._slice_info
+
+    def network_bandwidth_gbps(self, address: str) -> float:
+        return self._nodes[address].network_bandwidth_gbps
+
+    def topology(self) -> Optional[Topology]:
+        """The explicit multi-level topology (``topology:`` section), or
+        ``None`` when the spec declares none — per-level collective
+        pricing and the ADT52x analyzer only engage on an explicit
+        hierarchy, so flat single-level specs price exactly as before."""
+        return self._topology
+
+    def set_topology(self, topology: Optional[Topology]) -> "ResourceSpec":
+        """Attach (or clear) the multi-level topology in place — the
+        analysis CLI's ``--topology FILE`` hook. Returns self."""
+        self._topology = topology
+        return self
+
+    def ici_bandwidth_gbps(self) -> float:
+        return float(self._slice_info.get("ici_bandwidth", DEFAULT_ICI_BANDWIDTH_GBPS))
+
+    def chip_kind(self) -> str:
+        """Card generation of this cluster ("h100", ..., or "cpu"), from
+        ``slice.type`` in the yaml; accelerator clusters with no declared
+        type default to h100, cardless specs to the CPU development
+        path."""
+        kind = str(self._slice_info.get("type", "")).lower()
+        for k in sorted(CHIP_HBM_BYTES, key=len, reverse=True):
+            if k != "cpu" and k in kind:
+                return k
+        return "h100" if self.num_gpus else "cpu"
+
+    def chip_hbm_bytes(self) -> float:
+        """Per-chip HBM capacity in bytes — the memory budget one device's
+        params + optimizer state + activations + collective scratch must
+        fit. Overridable per cluster via ``slice.hbm_gib`` in the yaml
+        (e.g. a partial-HBM MIG-style reservation); defaults to the
+        generation's public figure."""
+        override = self._slice_info.get("hbm_gib")
+        if override is not None:
+            return float(override) * (1 << 30)
+        return CHIP_HBM_BYTES[self.chip_kind()]
+
+    def node_gpu_count(self, address: str) -> int:
+        return len(self._nodes[address].gpu_indices)
+
+    def node_cpu_count(self, address: str) -> int:
+        return len(self._nodes[address].cpu_indices)
+
+    def is_single_node(self) -> bool:
+        return len(self._nodes) == 1
+
+    def without_nodes(self, addresses) -> "ResourceSpec":
+        """A copy with ``addresses`` removed — the sync-elastic
+        reduced-world restart path (a permanently lost worker is dropped
+        and the job resumes on the survivors). The chief is never
+        removable: its death ends the job outright."""
+        drop = {a for a in addresses if a}
+        if not drop:
+            return self
+        if self._chief_address in drop:
+            raise ValueError("cannot exclude the chief node %s"
+                             % self._chief_address)
+        unknown = drop - set(self._nodes)
+        if unknown:
+            logging.warning("excluded nodes %s not in the resource spec",
+                            sorted(unknown))
+        spec = ResourceSpec()
+        spec._nodes = {a: n for a, n in self._nodes.items() if a not in drop}
+        spec._chief_address = self._chief_address
+        spec._ssh_config_map = self._ssh_config_map
+        spec._slice_info = dict(self._slice_info)
+        spec._topology = self._topology
+        logging.warning("resource spec reduced: dropped %s, %d node(s) "
+                        "remain", sorted(drop & set(self._nodes)),
+                        len(spec._nodes))
+        return spec
+
+    def __repr__(self):
+        return "ResourceSpec(nodes=%s, chief=%s, gpus=%d)" % (
+            self.node_addresses, self.chief, self.num_gpus)
