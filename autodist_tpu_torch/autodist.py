@@ -1,8 +1,10 @@
 """AutoDist entry point (PyTorch counterpart of ``autodist_tpu/autodist.py``).
 
     ad = AutoDist(strategy_builder=strategy.AllReduce())          # on cuda
-    runner = ad.build(loss_fn, optimizer, params, example_batch)
+    runner = ad.build(loss_fn, functools.partial(torch.optim.Adam, lr=1e-3),
+                      params, example_batch)
     runner.init(params)
+    metrics = runner.run(batch)            # one training step: {"loss": ...}
 
 capture -> strategy build -> compile -> lowering, with the JAX package's
 one-instance-per-process registry. The port runs one process on one
@@ -101,8 +103,10 @@ class AutoDist:
               has_aux: bool = False, apply_fn: Optional[Callable] = None,
               trainable_filter: Optional[Callable] = None) -> Runner:
         """Capture + strategy build + compile + lowering; returns an
-        uninitialized Runner. ``optimizer`` is recorded on the model item:
-        its state and its step belong to the training slice."""
+        uninitialized Runner. ``optimizer`` is a ``torch.optim`` factory
+        (``functools.partial(torch.optim.Adam, lr=1e-3)``, or None for a
+        runner that only serves): the model item records its ``(name,
+        kwargs)`` and the lowered step applies it (``optim.py``)."""
         item = ModelItem(loss_fn=loss_fn, optimizer=optimizer, params=params,
                          example_batch=example_batch, has_aux=has_aux,
                          apply_fn=apply_fn,

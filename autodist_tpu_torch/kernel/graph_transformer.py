@@ -3,12 +3,19 @@ executes.
 
 PyTorch counterpart of ``autodist_tpu/kernel/graph_transformer.py``. JAX
 lowers the plan to jitted SPMD programs; the port runs eagerly on one
-device, so a "program" here is a Python callable that executes under
-``torch.inference_mode()`` with the same ``(state, ps_vals, batch)``
-signature the JAX programs have. This slice carries the serving programs
-(:meth:`DistributedStep.predict_program`, :meth:`DistributedStep.
-decode_program`); the training step, its gradient all-reduce and the
-optimizer apply are the next slice.
+device, so a "program" here is a Python callable with the signature the
+JAX program has. :class:`DistributedStep` carries:
+
+- the training step (``__call__``): the one-replica branch of the JAX
+  ``local_step`` — loss and grads over the full params, non-trainable
+  variables held still, the optimizer apply, ``{"loss": ...}`` metrics;
+- :meth:`DistributedStep.evaluate`: forward-only metrics;
+- the serving programs (:meth:`DistributedStep.predict_program`,
+  :meth:`DistributedStep.decode_program`), run under
+  ``torch.inference_mode()``.
+
+The gradient all-reduce across replicas is a later slice: the transform
+raises for a plan with more than one replica.
 """
 from typing import Callable, Dict, Optional
 
@@ -68,14 +75,21 @@ class ForwardProgram:
         return self._mask
 
 
+def _clone(tree):
+    return pytree.tree_map(
+        lambda t: t.clone() if isinstance(t, torch.Tensor) else t, tree)
+
+
 class DistributedStep:
-    """The executable plan on one device: parameter state init, and the
-    serving programs built from user functions."""
+    """The executable plan on one device: parameter state init, the
+    training step, evaluation and the serving programs built from user
+    functions."""
 
     def __init__(self, *, strategy: Strategy, model_item, device,
                  metadata: Optional[dict] = None):
         self.strategy = strategy
         self.model_item = model_item
+        self.optimizer = model_item.optimizer_spec
         self.device = torch.device(device)
         self.metadata = metadata or {}
         self.num_replicas = 1
@@ -88,7 +102,10 @@ class DistributedStep:
     def init_state(self, params, opt_state=None) -> TrainState:
         """Place ``params`` (``{name: tensor or numpy}``) on the device as
         float32 masters — the JAX package keeps f32 params and casts at
-        compute (flax ``param_dtype``), and so does the port."""
+        compute (flax ``param_dtype``), and so does the port — and create
+        the optimizer state beside them (or place the given
+        ``opt_state``). The state owns copies: the step updates them in
+        place and the caller's tensors never move."""
         missing = set(self.model_item.var_infos) - set(params)
         if missing:
             raise ValueError("init params lack variables %s"
@@ -96,11 +113,73 @@ class DistributedStep:
         placed = {}
         for name, value in params.items():
             t = torch.as_tensor(value)
-            if t.is_floating_point():
-                t = t.float()
-            placed[name] = t.to(self.device).contiguous()
+            placed[name] = t.to(self.device,
+                                torch.float32 if t.is_floating_point()
+                                else t.dtype, copy=True).contiguous()
+        if opt_state is not None:
+            opt_state = pytree.tree_map(
+                lambda t: (t.to(self.device, copy=True)
+                           if isinstance(t, torch.Tensor) else t), opt_state)
+        elif self.optimizer is not None:
+            opt_state = self.optimizer.init(placed)
         return TrainState(step=0, params=placed, opt_state=opt_state,
                           sync_state={})
+
+    def _loss(self, params, batch):
+        out = self.model_item.loss_fn(params, batch)
+        if self.model_item.has_aux:
+            return out
+        return out, None
+
+    def _metrics(self, loss, aux):
+        metrics = {"loss": loss.detach()}
+        if aux is not None:
+            metrics["aux"] = pytree.tree_map(
+                lambda a: a.detach() if isinstance(a, torch.Tensor) else a,
+                aux)
+        return metrics
+
+    def __call__(self, state: TrainState, batch, donate: bool = True):
+        """One training step on a batch already on the device: loss and
+        grads of the trainable variables, the optimizer apply, and
+        ``(new_state, {"loss": ...})``. Non-trainable variables get no
+        update, so they and their optimizer moments never move (the JAX
+        step's zero gradients and masked updates). ``donate=True`` updates
+        ``state``'s tensors in place (the JAX program donates them);
+        ``donate=False`` leaves them as they were."""
+        if self.optimizer is None:
+            raise ValueError("this runner was built without an optimizer: "
+                             "pass one to AutoDist.build to train")
+        if not donate:
+            state = TrainState(step=state.step, params=_clone(state.params),
+                               opt_state=_clone(state.opt_state),
+                               sync_state=state.sync_state)
+        trainable = self.model_item.trainable_var_names
+        with tel.span("dstep.dispatch", "dstep", fused=False):
+            full = dict(state.params)
+            for n in trainable:
+                full[n] = state.params[n].detach().requires_grad_()
+            with torch.enable_grad():
+                loss, aux = self._loss(full, batch)
+                grads = torch.autograd.grad(
+                    loss, [full[n] for n in trainable], allow_unused=True) \
+                    if trainable else ()
+            grads = {n: (g if g is not None
+                         else torch.zeros_like(state.params[n]))
+                     for n, g in zip(trainable, grads)}
+            with torch.no_grad():
+                opt_state = self.optimizer.update(grads, state.opt_state,
+                                                  state.params)
+            metrics = self._metrics(loss, aux)
+        tel.counter_add("dstep.dispatches")
+        return TrainState(step=state.step + 1, params=state.params,
+                          opt_state=opt_state,
+                          sync_state=state.sync_state), metrics
+
+    def evaluate(self, state: TrainState, batch):
+        """Forward-only metrics: no grads, no optimizer."""
+        with torch.no_grad(), tel.span("dstep.evaluate", "dstep"):
+            return self._metrics(*self._loss(state.params, batch))
 
     def gather_params(self, state: TrainState) -> dict:
         """The full params in their original names (one device holds them

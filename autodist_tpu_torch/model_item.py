@@ -12,6 +12,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from autodist_tpu_torch import optim
 from autodist_tpu_torch.utils import logging
 
 
@@ -47,9 +48,12 @@ class VarInfo:
 class ModelItem:
     """The captured program + metadata handed to strategy builders.
 
-    ``loss_fn(params, batch) -> scalar`` over a flat ``{name: tensor}``
-    params mapping. Only ``loss_fn`` capture exists in the port so far;
-    ``optimizer`` is recorded for the training slice."""
+    ``loss_fn(params, batch) -> scalar`` (or ``(scalar, aux)`` with
+    ``has_aux``) over a flat ``{name: tensor}`` params mapping.
+    ``optimizer`` is a ``torch.optim`` factory; its ``(name, kwargs)`` are
+    recorded (``optimizer_name``/``optimizer_args``, as ``patch.py``
+    records optax constructors) in ``optimizer_spec``, which the step
+    applies."""
 
     def __init__(self,
                  loss_fn: Optional[Callable] = None,
@@ -64,6 +68,11 @@ class ModelItem:
         self.loss_fn = loss_fn
         self.apply_fn = apply_fn
         self.optimizer = optimizer
+        self.optimizer_spec = optim.capture(optimizer)
+        self.optimizer_name: Optional[str] = (
+            self.optimizer_spec.name if self.optimizer_spec else None)
+        self.optimizer_args: Dict = (
+            dict(self.optimizer_spec.kwargs) if self.optimizer_spec else {})
         self.params = params
         self.example_batch = example_batch
         self.has_aux = has_aux
@@ -95,6 +104,15 @@ class ModelItem:
         if self._var_infos is None:
             self.prepare()
         return self._var_infos
+
+    @property
+    def opt_state_spec(self) -> Optional[dict]:
+        """Shapes of the optimizer state for these variables (None without
+        an optimizer) — the JAX item's ``eval_shape(optimizer.init)``."""
+        if self.optimizer_spec is None:
+            return None
+        return self.optimizer_spec.state_spec(
+            {n: v.shape for n, v in self.var_infos.items()})
 
     @property
     def trainable_var_names(self) -> List[str]:

@@ -172,19 +172,21 @@ def make_train_setup(config: Optional[LMConfig] = None, seq_len: int = 128,
                      attention: str = "auto", lean_head="auto"):
     """``(loss_fn, params, example_batch, apply_fn)`` as in the JAX module.
 
-    ``attention``: "auto"/"default" (reference attention) or "flash" (the
-    flash kernel; forward only until the backward kernels are ported).
-    The JAX "auto" switch to flash at seq >= 8192 was measured on a TPU;
-    the port sets its own switch from H100 runs later. ``lean_head``: the
-    chunked cross-entropy head is the training slice's; only the plain
-    loss exists so far, so ``True`` raises and "auto"/False use it."""
+    ``attention``: "flash" routes every layer through the flash kernels
+    (forward and both backward kernels); "auto" and "default" use the
+    reference attention. The JAX "auto" switch to flash at seq >= 8192
+    was measured on a TPU; the port sets its own switch from H100 runs
+    later. ``lean_head``: True routes the loss through the chunked
+    cross-entropy (``ops.xent.chunked_softmax_xent``) on the hidden
+    states, so the [tokens, vocab] f32 logits never materialize; "auto"
+    (default) engages it at vocab >= 32768. Same math to float
+    tolerance."""
     from autodist_tpu_torch.ops.flash_attention import make_flash_attn_fn
+    from autodist_tpu_torch.ops.xent import chunked_softmax_xent
     cfg = config or LMConfig()
-    if lean_head is True:
-        raise NotImplementedError(
-            "the lean chunked-xent head (ops/xent.py) comes with the "
-            "training slice of the port")
-    if lean_head not in ("auto", False):
+    if lean_head == "auto":
+        lean_head = cfg.vocab_size >= 32768
+    elif not isinstance(lean_head, bool):
         raise ValueError("lean_head must be True, False or 'auto', got %r"
                          % (lean_head,))
     if seq_len > cfg.max_seq_len:
@@ -200,6 +202,15 @@ def make_train_setup(config: Optional[LMConfig] = None, seq_len: int = 128,
     def loss_fn(params, batch):
         tokens = torch.as_tensor(batch["tokens"])
         targets = tokens[:, 1:].long()
+        if lean_head:
+            h = apply(model, params, tokens[:, :-1], method="hidden")
+            # the port's Dense weight is [out, in]; the chunked head takes
+            # the JAX kernel layout [in, out], read in place through .t()
+            nll = chunked_softmax_xent(
+                h.reshape(-1, cfg.d_model),
+                params["lm_head.weight"].float().t(),
+                params["lm_head.bias"].float(), targets.reshape(-1))
+            return nll.mean()
         logits = apply(model, params, tokens[:, :-1])
         logp = torch.log_softmax(logits, dim=-1)
         nll = -torch.gather(logp, -1, targets[..., None])[..., 0]

@@ -1,26 +1,32 @@
-"""Flash attention: exact fused attention through a hand-written CUDA
-kernel for Hopper.
+"""Flash attention: exact fused attention through hand-written CUDA
+kernels for Hopper, forward and backward.
 
-PyTorch counterpart of ``autodist_tpu/ops/flash_attention.py``. The JAX
-module holds three Pallas kernels; this slice ports the forward:
+PyTorch counterpart of ``autodist_tpu/ops/flash_attention.py``, whose three
+Pallas kernels each have a counterpart here:
 
 - :func:`flash_fwd` wraps ``csrc/flash_fwd.cu`` (sm_90a), which replaces
-  ``autodist_tpu/ops/flash_attention.py::_fwd_kernel``. It computes the
-  online-softmax forward and the per-row log-sum-exp, with the causal flag,
-  optional ``(q_seg, kv_seg)`` segment ids, ``NEG_INF = -1e30`` masking and
-  the empty-row rule (a row with no visible key gives 0 and lse 0). Decode
-  is bound by bytes: it reads each live K/V row once — 33.5 MB a layer at
-  32 slots x 256 rows x 16 heads x 64 dims in bf16, about 10 us at
-  3.35 TB/s — and the kernel skips tiles past every row's cursor.
-- :func:`flash_fwd_reference` is its plain PyTorch version: the same tile
-  loop (64 kv rows a tile) in f32, the same masks and empty-row rule.
+  ``_fwd_kernel``: the online-softmax forward and the per-row log-sum-exp,
+  with the causal flag, optional ``(q_seg, kv_seg)`` segment ids,
+  ``NEG_INF = -1e30`` masking and the empty-row rule (a row with no
+  visible key gives 0 and lse 0). Decode reads each live K/V row once and
+  the kernel skips tiles past every row's cursor; its times against its
+  byte bound are in ``PERF.md``.
+- :func:`flash_bwd_dq` and :func:`flash_bwd_dkdv` wrap the two kernels of
+  ``csrc/flash_bwd.cu``, which replace ``_dq_kernel`` and ``_dkdv_kernel``
+  with their rounding points (dS rounded to k's dtype for dQ; P rounded
+  to dO's dtype for dV and dS to q's dtype for dK).
+- ``flash_*_reference`` are their plain PyTorch versions: the same tile
+  loops in f32, the same masks, rounding points and empty-row rule.
 
-The wrapper takes the plain version only for CPU tensors. For CUDA tensors
-it launches the kernel or raises; nothing falls back. The backward kernels
-(``_dq_kernel``, ``_dkdv_kernel``) come with the training slice, so the
-port's :func:`flash_attention` is forward-only for now.
+Each wrapper takes the plain version only for CPU tensors. For CUDA
+tensors it launches the kernel or raises; nothing falls back. Each launch
+adds one to the wrapper's ``launches`` count. :func:`flash_attention` is
+differentiable: its autograd function runs the forward kernel, then
+delta = rowsum(dO * O) in f32 and the two backward kernels, as the JAX
+``custom_vjp`` does; segment ids get no gradient.
 
-Layout: ``[batch, seq, heads, head_dim]``; segment ids ``[batch, seq]``.
+Layout: ``[batch, seq, heads, head_dim]``; segment ids ``[batch, seq]``;
+lse and delta ``[batch, heads, seq]`` float32.
 """
 import ctypes
 import math
@@ -29,7 +35,8 @@ import torch
 
 NEG_INF = -1e30    # finite stand-in for -inf, as in the TPU kernel
 HEAD_DIM = 64      # the head width the CUDA kernel is compiled for
-BLOCK_K = 64       # kv rows per tile, in the kernel and its plain version
+BLOCK_K = 64       # kv rows per tile, in the kernels and their plain versions
+BLOCK_Q = 64       # query rows per tile of the dK/dV kernel and its plain version
 
 
 def _pick_block(seq: int, want: int) -> int:
@@ -45,7 +52,8 @@ def _pick_block(seq: int, want: int) -> int:
 
 def _check(q, k, v, q_seg, kv_seg):
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
-        raise ValueError("flash_fwd takes [B, S, H, D] q, k, v; got %s %s %s"
+        raise ValueError("flash attention takes [B, S, H, D] q, k, v; got "
+                         "%s %s %s"
                          % (tuple(q.shape), tuple(k.shape), tuple(v.shape)))
     B, _, H, D = q.shape
     if k.shape != v.shape or k.shape[0] != B or k.shape[2] != H \
@@ -61,6 +69,23 @@ def _check(q, k, v, q_seg, kv_seg):
                               or tuple(kv_seg.shape) != (B, k.shape[1])):
         raise ValueError("segment ids must be [B, Sq] and [B, Sk], got %s %s"
                          % (tuple(q_seg.shape), tuple(kv_seg.shape)))
+
+
+def _masked(s, q0, k0, causal, q_seg, kv_seg):
+    """Score tile ``s`` [B, H, nq, nk] for query rows ``q0 + i`` and key
+    rows ``k0 + j`` with its invisible entries set to ``NEG_INF`` (the
+    TPU kernels' ``_mask_val``)."""
+    nq, nk = s.shape[-2:]
+    dev = s.device
+    mask = torch.ones((nq, nk), dtype=torch.bool, device=dev)
+    if causal:
+        rows = torch.arange(q0, q0 + nq, device=dev)[:, None]
+        cols = torch.arange(k0, k0 + nk, device=dev)[None, :]
+        mask = rows >= cols
+    if q_seg is not None:
+        mask = mask & (q_seg[:, None, q0:q0 + nq, None]
+                       == kv_seg[:, None, None, k0:k0 + nk])
+    return torch.where(mask, s, torch.full_like(s, NEG_INF))
 
 
 def flash_fwd_reference(q, k, v, q_seg=None, kv_seg=None,
@@ -80,19 +105,11 @@ def flash_fwd_reference(q, k, v, q_seg=None, kv_seg=None,
     m = torch.full((B, H, Sq, 1), NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((B, H, Sq, 1), dtype=torch.float32, device=dev)
     acc = torch.zeros((B, H, Sq, D), dtype=torch.float32, device=dev)
-    rows = torch.arange(Sq, device=dev)[:, None]
     for k0 in range(0, Sk, BLOCK_K):
         kb = kt[:, :, k0:k0 + BLOCK_K].float()
         vb = vt[:, :, k0:k0 + BLOCK_K]
         s = torch.matmul(qf, kb.transpose(-1, -2)) * scale  # [B, H, Sq, bk]
-        mask = torch.ones(s.shape[-2:], dtype=torch.bool, device=dev)
-        if causal:
-            cols = torch.arange(k0, k0 + kb.shape[2], device=dev)[None, :]
-            mask = rows >= cols
-        if q_seg is not None:
-            mask = mask & (q_seg[:, None, :, None]
-                           == kv_seg[:, None, None, k0:k0 + kb.shape[2]])
-        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+        s = _masked(s, 0, k0, causal, q_seg, kv_seg)
         m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
         p = torch.exp(s - m_new)
         p = torch.where(m_new > NEG_INF * 0.5, p, torch.zeros_like(p))
@@ -106,23 +123,114 @@ def flash_fwd_reference(q, k, v, q_seg=None, kv_seg=None,
     return out.contiguous(), lse
 
 
+def _check_bwd(q, k, v, do, lse, delta, q_seg, kv_seg):
+    _check(q, k, v, q_seg, kv_seg)
+    B, Sq, H, _ = q.shape
+    if do.shape != q.shape or do.dtype != q.dtype:
+        raise ValueError("dout %s %s must match q %s %s"
+                         % (tuple(do.shape), do.dtype, tuple(q.shape),
+                            q.dtype))
+    for name, t in (("lse", lse), ("delta", delta)):
+        if tuple(t.shape) != (B, H, Sq) or t.dtype != torch.float32:
+            raise ValueError("%s must be float32 [B, H, Sq] = %s, got %s %s"
+                             % (name, (B, H, Sq), tuple(t.shape), t.dtype))
+
+
+def flash_bwd_delta(out, do):
+    """delta = rowsum(dO * O) in f32, ``[B, H, Sq]`` — what the JAX
+    ``_bwd`` computes outside its kernels."""
+    return (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def flash_bwd_dq_reference(q, k, v, do, lse, delta, q_seg=None, kv_seg=None,
+                           causal: bool = False):
+    """Plain PyTorch version of :func:`flash_bwd_dq` (``_dq_kernel``): for
+    every query row, loop over kv tiles of ``BLOCK_K`` rows, recompute
+    p = exp(s - lse), form ds = (p * (dp - delta) * scale) rounded to k's
+    dtype and accumulate dq += ds k in f32. Returns dq ``[B, Sq, H, D]``
+    in q's dtype."""
+    _check_bwd(q, k, v, do, lse, delta, q_seg, kv_seg)
+    Sk, D = k.shape[1], q.shape[3]
+    scale = 1.0 / math.sqrt(D)
+    qf = q.permute(0, 2, 1, 3).float()                    # [B, H, Sq, D]
+    dof = do.permute(0, 2, 1, 3).float()
+    kt, vt = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+    lse_, delta_ = lse[..., None], delta[..., None]       # [B, H, Sq, 1]
+    acc = torch.zeros(qf.shape, dtype=torch.float32, device=q.device)
+    for k0 in range(0, Sk, BLOCK_K):
+        kb = kt[:, :, k0:k0 + BLOCK_K].float()
+        vb = vt[:, :, k0:k0 + BLOCK_K].float()
+        s = _masked(torch.matmul(qf, kb.transpose(-1, -2)) * scale, 0, k0,
+                    causal, q_seg, kv_seg)
+        p = torch.exp(s - lse_)
+        dp = torch.matmul(dof, vb.transpose(-1, -2))
+        ds = (p * (dp - delta_) * scale).to(k.dtype).float()
+        acc = acc + torch.matmul(ds, kb)
+    return acc.to(q.dtype).permute(0, 2, 1, 3).contiguous()
+
+
+def flash_bwd_dkdv_reference(q, k, v, do, lse, delta, q_seg=None,
+                             kv_seg=None, causal: bool = False):
+    """Plain PyTorch version of :func:`flash_bwd_dkdv` (``_dkdv_kernel``):
+    for every kv row, loop over query tiles of ``BLOCK_Q`` rows, recompute
+    e = exp(s - lse), accumulate dv += p^T dO with p = e rounded to dO's
+    dtype, and dk += ds^T q with ds = (e * (dp - delta) * scale) rounded to
+    q's dtype, both in f32. Returns ``(dk, dv)`` ``[B, Sk, H, D]`` in k's
+    and v's dtype."""
+    _check_bwd(q, k, v, do, lse, delta, q_seg, kv_seg)
+    Sq, D = q.shape[1], q.shape[3]
+    scale = 1.0 / math.sqrt(D)
+    qt, dot = q.permute(0, 2, 1, 3), do.permute(0, 2, 1, 3)
+    kf = k.permute(0, 2, 1, 3).float()                    # [B, H, Sk, D]
+    vf = v.permute(0, 2, 1, 3).float()
+    dk = torch.zeros(kf.shape, dtype=torch.float32, device=q.device)
+    dv = torch.zeros(kf.shape, dtype=torch.float32, device=q.device)
+    for q0 in range(0, Sq, BLOCK_Q):
+        qb = qt[:, :, q0:q0 + BLOCK_Q].float()
+        dob = dot[:, :, q0:q0 + BLOCK_Q].float()
+        lse_ = lse[:, :, q0:q0 + BLOCK_Q, None]
+        delta_ = delta[:, :, q0:q0 + BLOCK_Q, None]
+        s = _masked(torch.matmul(qb, kf.transpose(-1, -2)) * scale, q0, 0,
+                    causal, q_seg, kv_seg)                # [B, H, bq, Sk]
+        e = torch.exp(s - lse_)
+        p = e.to(do.dtype).float()
+        dv = dv + torch.matmul(p.transpose(-1, -2), dob)
+        dp = torch.matmul(dob, vf.transpose(-1, -2))
+        ds = (e * (dp - delta_) * scale).to(q.dtype).float()
+        dk = dk + torch.matmul(ds.transpose(-1, -2), qb)
+    return (dk.to(k.dtype).permute(0, 2, 1, 3).contiguous(),
+            dv.to(v.dtype).permute(0, 2, 1, 3).contiguous())
+
+
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_lib = None
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# C signature of each entry point: (library, function, argtypes)
+_ENTRY = {
+    "flash_fwd": ("flash_fwd", "adt_flash_fwd",
+                  [_I] + [_P] * 7 + [_I] * 5 + [_LL] * 9
+                  + [_I, ctypes.c_float, _P]),
+    "flash_bwd_dq": ("flash_bwd", "adt_flash_bwd_dq",
+                     [_I] + [_P] * 9 + [_I] * 5 + [_LL] * 12
+                     + [_I, ctypes.c_float, _P]),
+    "flash_bwd_dkdv": ("flash_bwd", "adt_flash_bwd_dkdv",
+                       [_I] + [_P] * 10 + [_I] * 5 + [_LL] * 12
+                       + [_I, ctypes.c_float, _P]),
+}
+_fns = {}
 
 
-def _kernel():
-    """The built library with its C signature declared (first use builds
-    ``csrc/flash_fwd.cu`` with nvcc)."""
-    global _lib
-    if _lib is None:
+def _kernel(name):
+    """Entry point ``name`` of its built library, C signature declared
+    (the first use builds ``csrc/<library>.cu`` with nvcc)."""
+    fn = _fns.get(name)
+    if fn is None:
         from autodist_tpu_torch.utils import cuda_build
-        lib = cuda_build.load("flash_fwd")
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.adt_flash_fwd.argtypes = ([i] + [p] * 7 + [i] * 5 + [ll] * 9
-                                      + [i, ctypes.c_float, p])
-        lib.adt_flash_fwd.restype = i
-        _lib = lib
-    return _lib
+        lib, sym, argtypes = _ENTRY[name]
+        fn = getattr(cuda_build.load(lib), sym)
+        fn.argtypes = argtypes
+        fn.restype = _I
+        _fns[name] = fn
+    return fn
 
 
 def _kernel_view(x):
@@ -134,6 +242,40 @@ def _kernel_view(x):
     return x if ok else x.contiguous()
 
 
+def _cuda_args(name, q, k, v, q_seg, kv_seg, *more):
+    """Checks shared by the wrappers on the CUDA route; returns the segment
+    ids as contiguous int32 (or None)."""
+    if q.device.type != "cuda":
+        raise ValueError("%s runs on cuda or cpu tensors, got %s"
+                         % (name, q.device))
+    _check(q, k, v, q_seg, kv_seg)
+    D = q.shape[3]
+    if D != HEAD_DIM:
+        raise ValueError("the CUDA %s kernel is built for head_dim %d, got %d"
+                         % (name, HEAD_DIM, D))
+    if q.dtype not in _DTYPE_CODE:
+        raise ValueError("the CUDA %s kernel takes float32 or bfloat16, got "
+                         "%s" % (name, q.dtype))
+    segs = () if q_seg is None else (q_seg, kv_seg)
+    if any(t.device != q.device for t in (k, v, *segs, *more)):
+        raise ValueError("%s inputs must share one device" % name)
+    if q_seg is None:
+        return None, None
+    return (q_seg.to(torch.int32).contiguous(),
+            kv_seg.to(torch.int32).contiguous())
+
+
+def _launch(name, *args):
+    rc = _kernel(name)(*args)
+    if rc != 0:
+        raise RuntimeError("%s kernel launch failed (cudaError %d)"
+                           % (name, rc))
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def flash_fwd(q, k, v, q_seg=None, kv_seg=None, causal: bool = False):
     """Flash-attention forward: ``(out [B, Sq, H, D], lse [B, H, Sq] f32)``
     for q ``[B, Sq, H, D]`` and k/v ``[B, Sk, H, D]`` (f32 or bf16, D = 64
@@ -143,25 +285,9 @@ def flash_fwd(q, k, v, q_seg=None, kv_seg=None, causal: bool = False):
     ``flash_fwd.launches``)."""
     if q.device.type == "cpu":
         return flash_fwd_reference(q, k, v, q_seg, kv_seg, causal)
-    if q.device.type != "cuda":
-        raise ValueError("flash_fwd runs on cuda or cpu tensors, got %s"
-                         % q.device)
-    _check(q, k, v, q_seg, kv_seg)
+    q_seg, kv_seg = _cuda_args("flash_fwd", q, k, v, q_seg, kv_seg)
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
-    if D != HEAD_DIM:
-        raise ValueError("the CUDA flash_fwd kernel is built for head_dim "
-                         "%d, got %d" % (HEAD_DIM, D))
-    if q.dtype not in _DTYPE_CODE:
-        raise ValueError("the CUDA flash_fwd kernel takes float32 or "
-                         "bfloat16, got %s" % q.dtype)
-    if any(t.device != q.device for t in (k, v)) or (
-            q_seg is not None and (q_seg.device != q.device
-                                   or kv_seg.device != q.device)):
-        raise ValueError("flash_fwd inputs must share one device")
-    if q_seg is not None:
-        q_seg = q_seg.to(torch.int32).contiguous()
-        kv_seg = kv_seg.to(torch.int32).contiguous()
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     if B == 0 or Sq == 0 or H == 0:
@@ -169,22 +295,114 @@ def flash_fwd(q, k, v, q_seg=None, kv_seg=None, causal: bool = False):
     if Sk == 0:
         raise ValueError("flash_fwd needs at least one key row")
     q, k, v = _kernel_view(q), _kernel_view(k), _kernel_view(v)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = _kernel().adt_flash_fwd(
-        _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        q_seg.data_ptr() if q_seg is not None else None,
-        kv_seg.data_ptr() if kv_seg is not None else None,
-        out.data_ptr(), lse.data_ptr(), B, H, Sq, Sk, D,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        int(bool(causal)), 1.0 / math.sqrt(D), stream)
-    if rc != 0:
-        raise RuntimeError("flash_fwd kernel launch failed (cudaError %d)"
-                           % rc)
+    _launch("flash_fwd", _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), _ptr(q_seg), _ptr(kv_seg), out.data_ptr(),
+            lse.data_ptr(), B, H, Sq, Sk, D, *q.stride()[:3],
+            *k.stride()[:3], *v.stride()[:3], int(bool(causal)),
+            1.0 / math.sqrt(D), torch.cuda.current_stream(q.device).cuda_stream)
     flash_fwd.launches += 1
     return out, lse
 
 
 flash_fwd.launches = 0
+
+
+def _bwd_launch_args(name, q, k, v, do, lse, delta, q_seg, kv_seg):
+    """Checked, kernel-readable inputs of a backward launch, or None when
+    there is nothing to compute."""
+    q_seg, kv_seg = _cuda_args(name, q, k, v, q_seg, kv_seg, do, lse, delta)
+    _check_bwd(q, k, v, do, lse, delta, q_seg, kv_seg)
+    if q.shape[1] == 0 or k.shape[1] == 0 or q.shape[0] == 0 \
+            or q.shape[2] == 0:
+        return None
+    q, k, v, do = (_kernel_view(t) for t in (q, k, v, do))
+    return (q, k, v, do, lse.contiguous(), delta.contiguous(), q_seg, kv_seg)
+
+
+def _bwd_tail(q, k, v, do, causal):
+    B, Sq, H, D = q.shape
+    return (B, H, Sq, k.shape[1], D, *q.stride()[:3], *k.stride()[:3],
+            *v.stride()[:3], *do.stride()[:3], int(bool(causal)),
+            1.0 / math.sqrt(D),
+            torch.cuda.current_stream(q.device).cuda_stream)
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, q_seg=None, kv_seg=None,
+                 causal: bool = False):
+    """dQ of flash attention (``_dq_kernel``) from the forward's inputs,
+    its lse ``[B, H, Sq]`` and delta = rowsum(dO * O) ``[B, H, Sq]`` (both
+    f32). CPU tensors take :func:`flash_bwd_dq_reference`; CUDA tensors
+    launch ``csrc/flash_bwd.cu``'s dQ kernel (each launch adds one to
+    ``flash_bwd_dq.launches``)."""
+    if q.device.type == "cpu":
+        return flash_bwd_dq_reference(q, k, v, do, lse, delta, q_seg, kv_seg,
+                                      causal)
+    dq = torch.zeros(q.shape, dtype=q.dtype, device=q.device)
+    args = _bwd_launch_args("flash_bwd_dq", q, k, v, do, lse, delta, q_seg,
+                            kv_seg)
+    if args is None:
+        return dq
+    q, k, v, do, lse, delta, q_seg, kv_seg = args
+    _launch("flash_bwd_dq", _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            _ptr(q_seg), _ptr(kv_seg), dq.data_ptr(),
+            *_bwd_tail(q, k, v, do, causal))
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+flash_bwd_dq.launches = 0
+
+
+def flash_bwd_dkdv(q, k, v, do, lse, delta, q_seg=None, kv_seg=None,
+                   causal: bool = False):
+    """``(dK, dV)`` of flash attention (``_dkdv_kernel``), inputs as
+    :func:`flash_bwd_dq`. CPU tensors take
+    :func:`flash_bwd_dkdv_reference`; CUDA tensors launch
+    ``csrc/flash_bwd.cu``'s dK/dV kernel (each launch adds one to
+    ``flash_bwd_dkdv.launches``)."""
+    if q.device.type == "cpu":
+        return flash_bwd_dkdv_reference(q, k, v, do, lse, delta, q_seg,
+                                        kv_seg, causal)
+    dk = torch.zeros(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.zeros(v.shape, dtype=v.dtype, device=v.device)
+    args = _bwd_launch_args("flash_bwd_dkdv", q, k, v, do, lse, delta, q_seg,
+                            kv_seg)
+    if args is None:
+        return dk, dv
+    q, k, v, do, lse, delta, q_seg, kv_seg = args
+    _launch("flash_bwd_dkdv", _DTYPE_CODE[q.dtype], q.data_ptr(),
+            k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), _ptr(q_seg), _ptr(kv_seg), dk.data_ptr(),
+            dv.data_ptr(), *_bwd_tail(q, k, v, do, causal))
+    flash_bwd_dkdv.launches += 1
+    return dk, dv
+
+
+flash_bwd_dkdv.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The JAX ``_flash`` custom_vjp: the forward kernel saves q, k, v, out
+    and lse; the backward forms delta in f32 and runs the dQ and dK/dV
+    kernels. Segment ids and the causal flag get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_seg, kv_seg, causal):
+        out, lse = flash_fwd(q, k, v, q_seg, kv_seg, causal)
+        ctx.save_for_backward(q, k, v, out, lse, q_seg, kv_seg)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse, q_seg, kv_seg = ctx.saved_tensors
+        do = do.to(q.dtype)
+        delta = flash_bwd_delta(out, do)
+        dq = flash_bwd_dq(q, k, v, do, lse, delta, q_seg, kv_seg, ctx.causal)
+        dk, dv = flash_bwd_dkdv(q, k, v, do, lse, delta, q_seg, kv_seg,
+                                ctx.causal)
+        return dq, dk, dv, None, None, None
 
 
 def _tileable(q, k, block_q, block_k):
@@ -222,7 +440,7 @@ def flash_attention(q, k, v, causal: bool = False, segment_ids=None,
             seg_mask = (q_seg[:, :, None] == kv_seg[:, None, :])[:, None]
             mask = seg_mask if mask is None else (mask & seg_mask)
         return reference_attention(q, k, v, mask)
-    return flash_fwd(q, k, v, q_seg, kv_seg, causal)[0]
+    return _FlashAttention.apply(q, k, v, q_seg, kv_seg, bool(causal))
 
 
 def make_flash_attn_fn(causal: bool = True, block_q: int = 128,

@@ -6,9 +6,10 @@ process on one device, so there is one replica and nothing to split:
 - **feed**: numpy leaves (and Python scalars) of a batch pytree become
   tensors on the runner's device; tensors are moved there when they live
   elsewhere and pass through untouched when they are already there.
-- **fetch**: tensor leaves come back as numpy arrays. numpy has no
-  bfloat16, so bfloat16 leaves come back as float32 (exact: every
-  bfloat16 value is a float32 value).
+- **fetch**: tensor leaves (step metrics, serving outputs) come back as
+  numpy arrays; a scalar such as the loss as a 0-d array, which
+  ``float()`` reads. numpy has no bfloat16, so bfloat16 leaves come back
+  as float32 (exact: every bfloat16 value is a float32 value).
 """
 from typing import Any
 

@@ -1,15 +1,17 @@
 """autodist_tpu_torch flash attention vs the JAX package's.
 
-The port's plain version of the CUDA forward kernel (the path CPU tensors
-take) against the JAX Pallas kernel run in interpret mode on the CPU, as
-tests/test_flash_attention.py runs it, on the same numpy inputs. The
-kernel itself runs only on a card: the ``cuda``-marked test holds it
-against the plain version there and skips here.
+The port's plain versions of the CUDA kernels (the path CPU tensors take)
+against the JAX Pallas kernels run in interpret mode on the CPU, as
+tests/test_flash_attention.py runs them, on the same numpy inputs: the
+forward (out, lse) and, through autograd, the gradients dq, dk, dv of the
+backward kernels. The kernels themselves run only on a card:
+tests/test_torch_cuda_kernels.py holds them against their plain versions
+there.
 
 Tolerances: 2e-5 in float32 (the JAX package's flash-decode bound,
 tests/test_decode.py — blocked online softmax reassociates the f32
-reduction); 2e-2 in bfloat16 (8 mantissa bits, accumulation in another
-order).
+reduction; the gradients agree to ~1e-6); 2e-2 in bfloat16 (8 mantissa
+bits, accumulation in another order).
 """
 import numpy as np
 import pytest
@@ -202,25 +204,147 @@ def test_cpu_tensors_take_the_plain_version_and_others_raise():
         tfa.flash_fwd(q, k, v, torch.zeros(1, 16, dtype=torch.int32), None)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
-                                       (torch.bfloat16, 2e-2)])
-def test_cuda_kernel_matches_plain_version(dtype, tol):
-    """On a card: the CUDA kernel vs its plain version at the lm1b decode
-    shape, reading a strided layer view of a layer-stacked cache."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    cache = torch.randn((32, 2, 256, 16, 64), generator=gen,
-                        device="cuda").to(dtype)
-    q = torch.randn((32, 1, 16, 64), generator=gen, device="cuda").to(dtype)
-    cursor = torch.randint(0, 256, (32,), generator=gen, device="cuda")
-    q_seg = torch.ones((32, 1), dtype=torch.int32, device="cuda")
-    kv_seg = (torch.arange(256, device="cuda")[None] <= cursor[:, None]).int()
-    before = tfa.flash_fwd.launches
-    out, lse = tfa.flash_fwd(q, cache[:, 0], cache[:, 1], q_seg, kv_seg)
-    assert tfa.flash_fwd.launches == before + 1
-    ref, ref_lse = tfa.flash_fwd_reference(q, cache[:, 0], cache[:, 1],
-                                           q_seg, kv_seg)
-    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
-    torch.testing.assert_close(lse, ref_lse, atol=tol, rtol=tol)
+# ------------------------------------------------------------- backward
+
+
+def _jax_grads(q, k, v, do, causal, segment_ids, dtype=None):
+    """dq, dk, dv of sum(flash_attention(q, k, v) * do) through the JAX
+    Pallas kernels (interpret mode), as float32 numpy."""
+    import jax
+    import jax.numpy as jnp
+    cast = (lambda x: jnp.asarray(x)) if dtype is None else \
+        (lambda x: jnp.asarray(x, dtype))
+    dot = cast(do)
+
+    def loss(q, k, v):
+        out = jfa.flash_attention(q, k, v, causal, segment_ids, 64, 64)
+        return jnp.sum((out * dot).astype(jnp.float32))
+    grads = jax.grad(loss, (0, 1, 2))(cast(q), cast(k), cast(v))
+    return [np.asarray(g.astype(jnp.float32)) for g in grads]
+
+
+def _port_grads(q, k, v, do, causal, segment_ids, dtype=torch.float32):
+    tq, tk, tv = (_t(x, dtype).requires_grad_() for x in (q, k, v))
+    out = tfa.flash_attention(tq, tk, tv, causal, segment_ids)
+    grads = torch.autograd.grad(out, (tq, tk, tv), _t(do, dtype))
+    assert all(g.dtype == dtype for g in grads)
+    return [g.float().numpy() for g in grads]
+
+
+@pytest.mark.parametrize("segments", [None, "packed"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_grads_match_reference(causal, segments):
+    """dq, dk, dv of the port's differentiable flash_attention (plain
+    versions of the dQ and dK/dV kernels) vs the JAX kernels' grads
+    (padding segments: test_padding_mask_matches_reference)."""
+    b, s, h, d = 1, 128, 2, 32
+    q, k, v, do = (_rand((b, s, h, d), seed=10 + i) for i in range(4))
+    seg = _segments(segments, b, s)
+    got = _port_grads(q, k, v, do, causal, seg)
+    want = _jax_grads(q, k, v, do, causal, seg)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, atol=TOL, rtol=TOL)
+
+
+def test_uneven_lengths_grads_match_jax():
+    """Sq != Sk, both tileable: 64 queries over 192 keys."""
+    q, do = _rand((1, 64, 2, 32), seed=0), _rand((1, 64, 2, 32), seed=3)
+    k, v = _rand((1, 192, 2, 32), seed=1), _rand((1, 192, 2, 32), seed=2)
+    got = _port_grads(q, k, v, do, False, None)
+    want = _jax_grads(q, k, v, do, False, None)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_padding_mask_matches_reference(causal):
+    """The attn_fn adapter's key-padding mask becomes segment ids in both
+    packages: outputs and grads agree."""
+    import jax
+    import jax.numpy as jnp
+    b, s, h, d = 2, 64, 2, 16
+    q, k, v, do = (_rand((b, s, h, d), seed=20 + i) for i in range(4))
+    valid = np.ones((b, s), bool)
+    valid[1, 45:] = False
+    mask = valid[:, None, None, :]
+    tq, tk, tv = (_t(x).requires_grad_() for x in (q, k, v))
+    out = tfa.make_flash_attn_fn(causal=causal)(tq, tk, tv,
+                                                torch.as_tensor(mask))
+    got = torch.autograd.grad(out, (tq, tk, tv), _t(do))
+    attn = jfa.make_flash_attn_fn(causal=causal)
+
+    def loss(q, k, v):
+        return jnp.sum(attn(q, k, v, mask) * do)
+    want = jax.grad(loss, (0, 1, 2))(*(jnp.asarray(x) for x in (q, k, v)))
+    np.testing.assert_allclose(out.detach().numpy(),
+                               np.asarray(attn(q, k, v, mask)),
+                               atol=TOL, rtol=TOL)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=TOL,
+                                   rtol=TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_bfloat16_grads_match_f32_reference(causal):
+    """bf16 grads of the port vs the JAX kernels' bf16 grads (the same
+    rounding points: dS rounded to k's dtype for dQ, P to dO's and dS to
+    q's for dK/dV), at 2e-2."""
+    import jax.numpy as jnp
+    b, s, h, d = 1, 128, 2, 32
+    q, k, v, do = (_rand((b, s, h, d), seed=30 + i) for i in range(4))
+    got = _port_grads(q, k, v, do, causal, None, torch.bfloat16)
+    want = _jax_grads(q, k, v, do, causal, None, jnp.bfloat16)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, atol=2e-2, rtol=2e-2)
+
+
+def test_empty_query_rows_emit_zeros_with_zero_grads():
+    """Query rows whose segment matches no key: 0 output and 0 grads (lse
+    0 makes exp(NEG_INF - lse) vanish), and those rows' keys get nothing
+    from them — as in the JAX kernels."""
+    b, s, h, d = 1, 64, 2, 16
+    q, k, v, do = (_rand((b, s, h, d), seed=40 + i) for i in range(4))
+    kv_seg = np.zeros((b, s), np.int32)
+    q_seg = kv_seg.copy()
+    q_seg[0, [3, 40]] = 5
+    got = _port_grads(q, k, v, do, True, (q_seg, kv_seg))
+    assert float(np.abs(got[0][0, [3, 40]]).max()) == 0.0
+    want = _jax_grads(q, k, v, do, True, (q_seg, kv_seg))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_bwd_references_match_jax_bwd(causal):
+    """flash_bwd_dq_reference / flash_bwd_dkdv_reference against the JAX
+    ``_bwd`` (both Pallas backward kernels) on the same residuals, with
+    packed segments and an empty query row."""
+    b, s, h, d = 1, 128, 2, 32
+    q, k, v, do = (_rand((b, s, h, d), seed=50 + i) for i in range(4))
+    seg = _segments("packed", b, s)
+    q_seg = seg.copy()
+    q_seg[0, 7] = 9                      # no key carries segment 9
+    tq, tk, tv, tdo = (_t(x) for x in (q, k, v, do))
+    tqs, tks = _t(q_seg, torch.int32), _t(seg, torch.int32)
+    out, lse = tfa.flash_fwd(tq, tk, tv, tqs, tks, causal)
+    delta = tfa.flash_bwd_delta(out, tdo)
+    dq = tfa.flash_bwd_dq_reference(tq, tk, tv, tdo, lse, delta, tqs, tks,
+                                    causal)
+    dk, dv = tfa.flash_bwd_dkdv_reference(tq, tk, tv, tdo, lse, delta, tqs,
+                                          tks, causal)
+    bhsd = [np.transpose(x, (0, 2, 1, 3)) for x in (q, k, v)]
+    res = (*bhsd, np.transpose(out.numpy(), (0, 2, 1, 3)),
+           lse.numpy()[..., None], q_seg, seg)
+    want = jfa._bwd(causal, 64, 64, res, do)
+    for g, w in zip((dq, dk, dv), want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=TOL,
+                                   rtol=TOL)
+    assert float(dq[0, 7].abs().max()) == 0.0
+    # the CPU wrappers are the plain versions, and launch nothing
+    before = (tfa.flash_bwd_dq.launches, tfa.flash_bwd_dkdv.launches)
+    assert torch.equal(tfa.flash_bwd_dq(tq, tk, tv, tdo, lse, delta, tqs,
+                                        tks, causal), dq)
+    assert all(torch.equal(a, b_) for a, b_ in zip(tfa.flash_bwd_dkdv(
+        tq, tk, tv, tdo, lse, delta, tqs, tks, causal), (dk, dv)))
+    assert (tfa.flash_bwd_dq.launches,
+            tfa.flash_bwd_dkdv.launches) == before
