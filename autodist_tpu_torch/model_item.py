@@ -69,10 +69,6 @@ class ModelItem:
         self.apply_fn = apply_fn
         self.optimizer = optimizer
         self.optimizer_spec = optim.capture(optimizer)
-        self.optimizer_name: Optional[str] = (
-            self.optimizer_spec.name if self.optimizer_spec else None)
-        self.optimizer_args: Dict = (
-            dict(self.optimizer_spec.kwargs) if self.optimizer_spec else {})
         self.params = params
         self.example_batch = example_batch
         self.has_aux = has_aux
@@ -104,6 +100,14 @@ class ModelItem:
         if self._var_infos is None:
             self.prepare()
         return self._var_infos
+
+    @property
+    def optimizer_name(self) -> Optional[str]:
+        return self.optimizer_spec.name if self.optimizer_spec else None
+
+    @property
+    def optimizer_args(self) -> Dict:
+        return dict(self.optimizer_spec.kwargs) if self.optimizer_spec else {}
 
     @property
     def opt_state_spec(self) -> Optional[dict]:

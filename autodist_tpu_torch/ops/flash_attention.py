@@ -243,12 +243,11 @@ def _kernel_view(x):
 
 
 def _cuda_args(name, q, k, v, q_seg, kv_seg, *more):
-    """Checks shared by the wrappers on the CUDA route; returns the segment
-    ids as contiguous int32 (or None)."""
+    """Checks shared by the wrappers on the CUDA route, after their shape
+    checks; returns the segment ids as contiguous int32 (or None)."""
     if q.device.type != "cuda":
         raise ValueError("%s runs on cuda or cpu tensors, got %s"
                          % (name, q.device))
-    _check(q, k, v, q_seg, kv_seg)
     D = q.shape[3]
     if D != HEAD_DIM:
         raise ValueError("the CUDA %s kernel is built for head_dim %d, got %d"
@@ -285,6 +284,7 @@ def flash_fwd(q, k, v, q_seg=None, kv_seg=None, causal: bool = False):
     ``flash_fwd.launches``)."""
     if q.device.type == "cpu":
         return flash_fwd_reference(q, k, v, q_seg, kv_seg, causal)
+    _check(q, k, v, q_seg, kv_seg)
     q_seg, kv_seg = _cuda_args("flash_fwd", q, k, v, q_seg, kv_seg)
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
@@ -310,8 +310,8 @@ flash_fwd.launches = 0
 def _bwd_launch_args(name, q, k, v, do, lse, delta, q_seg, kv_seg):
     """Checked, kernel-readable inputs of a backward launch, or None when
     there is nothing to compute."""
-    q_seg, kv_seg = _cuda_args(name, q, k, v, q_seg, kv_seg, do, lse, delta)
     _check_bwd(q, k, v, do, lse, delta, q_seg, kv_seg)
+    q_seg, kv_seg = _cuda_args(name, q, k, v, q_seg, kv_seg, do, lse, delta)
     if q.shape[1] == 0 or k.shape[1] == 0 or q.shape[0] == 0 \
             or q.shape[2] == 0:
         return None
@@ -337,11 +337,11 @@ def flash_bwd_dq(q, k, v, do, lse, delta, q_seg=None, kv_seg=None,
     if q.device.type == "cpu":
         return flash_bwd_dq_reference(q, k, v, do, lse, delta, q_seg, kv_seg,
                                       causal)
-    dq = torch.zeros(q.shape, dtype=q.dtype, device=q.device)
     args = _bwd_launch_args("flash_bwd_dq", q, k, v, do, lse, delta, q_seg,
                             kv_seg)
     if args is None:
-        return dq
+        return torch.zeros(q.shape, dtype=q.dtype, device=q.device)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)  # every row
     q, k, v, do, lse, delta, q_seg, kv_seg = args
     _launch("flash_bwd_dq", _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
             v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
@@ -364,12 +364,13 @@ def flash_bwd_dkdv(q, k, v, do, lse, delta, q_seg=None, kv_seg=None,
     if q.device.type == "cpu":
         return flash_bwd_dkdv_reference(q, k, v, do, lse, delta, q_seg,
                                         kv_seg, causal)
-    dk = torch.zeros(k.shape, dtype=k.dtype, device=k.device)
-    dv = torch.zeros(v.shape, dtype=v.dtype, device=v.device)
     args = _bwd_launch_args("flash_bwd_dkdv", q, k, v, do, lse, delta, q_seg,
                             kv_seg)
     if args is None:
-        return dk, dv
+        return (torch.zeros(k.shape, dtype=k.dtype, device=k.device),
+                torch.zeros(v.shape, dtype=v.dtype, device=v.device))
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)  # every row
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     q, k, v, do, lse, delta, q_seg, kv_seg = args
     _launch("flash_bwd_dkdv", _DTYPE_CODE[q.dtype], q.data_ptr(),
             k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),

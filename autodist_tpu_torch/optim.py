@@ -13,10 +13,11 @@ package does on the same numbers: bias-corrected moments, eps outside
 the square root, ``eps_root = 0`` (torch.optim.Adam computes the same
 update).
 
-Options with no optax.adam counterpart (weight decay, amsgrad, maximize)
-raise rather than train differently; torch's implementation switches
-(``foreach``, ``fused``, ``capturable``, ``differentiable``) are accepted
-and ignored. The state is optax's: a step ``count`` and the moments
+Only ``lr``, ``betas`` and ``eps`` are free. Every other option (weight
+decay, amsgrad, maximize, and torch's implementation switches such as
+``foreach`` or ``fused``, which the port's own update would not honour)
+must keep torch's default, or :func:`capture` raises rather than train
+differently. The state is optax's: a step ``count`` and the moments
 ``mu``/``nu`` beside each variable on the device, created by
 :meth:`OptimizerSpec.init`. The update runs as ``torch._foreach_*`` ops
 over all variables and writes the parameters in place (the JAX step
@@ -29,17 +30,14 @@ from typing import Any, Dict, Optional
 
 import torch
 
-_IMPL_SWITCHES = ("foreach", "fused", "capturable", "differentiable")
-# torch.optim.Adam's options, with the value each must keep (None: free)
-_OPTIONS = {"lr": None, "betas": None, "eps": None, "weight_decay": 0,
-            "amsgrad": False, "maximize": False}
+# the options of torch.optim.Adam the update honours, with their defaults
 _DEFAULTS = {"lr": 1e-3, "betas": (0.9, 0.999), "eps": 1e-8}
 
 
 @dataclasses.dataclass(frozen=True)
 class OptimizerSpec:
     """A captured optimizer: its name and the keyword arguments the user
-    passed (``ModelItem.optimizer_name``/``optimizer_args``)."""
+    passed."""
     name: str
     kwargs: Dict[str, Any]
 
@@ -115,13 +113,9 @@ def capture(optimizer) -> Optional[OptimizerSpec]:
     sig = inspect.signature(fn)
     sig.bind_partial(None, **kwargs)          # unknown keywords raise
     for key, value in kwargs.items():
-        if key in _IMPL_SWITCHES:
-            continue
-        # options outside the table must keep torch's default
-        fixed = _OPTIONS.get(key, sig.parameters[key].default)
-        if (key not in _OPTIONS or fixed is not None) and value != fixed:
+        fixed = sig.parameters[key].default
+        if key not in _DEFAULTS and value != fixed:
             raise ValueError(
                 "torch.optim.Adam(%s=%r) has no optax.adam counterpart the "
                 "port applies; leave it at %r" % (key, value, fixed))
-    return OptimizerSpec("adam", {k: v for k, v in kwargs.items()
-                                  if k not in _IMPL_SWITCHES})
+    return OptimizerSpec("adam", kwargs)

@@ -14,10 +14,10 @@ result line):
    PyTorch library call computing the same function: the forward at the
    decode shape (f32 at 2e-5, the JAX package's flash-decode bound; bf16
    at 2e-2 atol/rtol: bf16 inputs, f32 accumulation in another order),
-   then the two backward kernels at the training shape [64, 128, 16, 64]
-   and a smaller shape with segments and an empty query row (f32 2e-5,
-   bf16 2e-2, each as an error relative to the plain version's largest
-   magnitude);
+   then at the training shape [64, 128, 16, 64] and a smaller shape with
+   segments and an empty query row (out and lse, the same bounds), and the
+   two backward kernels at those two shapes (f32 2e-5, bf16 2e-2, each as
+   an error relative to the plain version's largest magnitude);
 3. serve lm1b at full width in bf16 through the entry points a user calls
    (``AutoDist(...).build`` -> ``Runner.init`` -> ``DecodeEngine`` with
    ``decode_attn="flash"``): 64 prompts of mixed lengths through 32 slots;
@@ -260,14 +260,17 @@ def kernel_phase(card):
 
 
 def bwd_kernel_phase(card):
-    """Both backward kernels vs their plain versions; returns their two
-    records (without main-path launch counts)."""
+    """Both backward kernels vs their plain versions, and the forward kernel
+    at the training shape (whose out and lse feed them) vs its own; returns
+    the two backward records (without main-path launch counts) and the
+    forward's numbers at the training shape."""
     import torch
     import torch.nn.functional as F
     from autodist_tpu_torch.ops import flash_attention as fa
 
-    print("phase 2b: flash_bwd_dq, flash_bwd_dkdv vs their plain versions")
-    errs = {"flash_bwd_dq": [], "flash_bwd_dkdv": []}
+    print("phase 2b: flash_fwd at the training shape, flash_bwd_dq, "
+          "flash_bwd_dkdv vs their plain versions")
+    errs = {"flash_fwd": [], "flash_bwd_dq": [], "flash_bwd_dkdv": []}
     train_shape = (TRAIN_BATCH, TRAIN_SEQ, HEADS, HEAD_DIM)
     for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
         tag = str(dtype).replace("torch.", "")
@@ -285,6 +288,12 @@ def bwd_kernel_phase(card):
                 ("[8,256,16,64] causal+segments+empty row", small,
                  (q_empty, seg))):
             out, lse = fa.flash_fwd(q, k, v, *segs, causal=True)
+            ref, ref_lse = fa.flash_fwd_reference(q, k, v, *segs,
+                                                  causal=True)
+            torch.cuda.synchronize()
+            errs["flash_fwd"].append(max(
+                check_close("out %s %s" % (tag, name), out, ref, tol),
+                check_close("lse %s %s" % (tag, name), lse, ref_lse, tol)))
             delta = fa.flash_bwd_delta(out, do)
             args = (q, k, v, do, lse, delta, *segs)
             dq = fa.flash_bwd_dq(*args, causal=True)
@@ -321,6 +330,8 @@ def bwd_kernel_phase(card):
                  lambda: fa.flash_bwd_dkdv_reference(*args, causal=True), 3)}
     fwd_before = fa.flash_fwd.launches
     fwd_ms = cuda_time_ms(lambda: fa.flash_fwd(q, k, v, causal=True), 20)
+    fwd_plain_ms = cuda_time_ms(
+        lambda: fa.flash_fwd_reference(q, k, v, causal=True), 3)
     fa.flash_fwd.launches = fwd_before
     fa.flash_bwd_dq.launches, fa.flash_bwd_dkdv.launches = before
     # library yardstick: the backward of SDPA (its own fused kernel, which
@@ -336,12 +347,21 @@ def bwd_kernel_phase(card):
 
     sdpa_fwd_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
         qh, kh, vh, is_causal=True), 20)
-    print("  flash_fwd bf16 [64,128,16,64] causal (the training shape): "
-          "kernel %.4f ms, sdpa %.4f ms [%s]" % (fwd_ms, sdpa_fwd_ms, card))
 
     n = TRAIN_BATCH * TRAIN_SEQ * HEADS * HEAD_DIM      # elements a tensor
     rows = TRAIN_BATCH * HEADS * TRAIN_SEQ              # lse / delta rows
     live = TRAIN_BATCH * HEADS * TRAIN_SEQ * (TRAIN_SEQ + 1) // 2  # causal
+    # forward: q, k, v read once, out and lse written once; s and p.v
+    fwd_bytes = (3 * n + n) * 2 + rows * 4
+    fwd_flops = 2 * 2 * live * HEAD_DIM
+    fwd = record("flash_fwd", max(errs["flash_fwd"]), fwd_ms, fwd_plain_ms,
+                 sdpa_fwd_ms, fwd_bytes / H100_BYTES_PER_S * 1e3,
+                 fwd_flops / H100_BF16_FLOPS * 1e3)
+    print("  flash_fwd bf16 [64,128,16,64] causal (the training shape): "
+          "kernel %.4f ms, plain %.4f ms, sdpa %.4f ms, bound %.4f ms (%s: "
+          "%.1f MB, %.2f GFLOP) [%s]"
+          % (fwd_ms, fwd_plain_ms, sdpa_fwd_ms, fwd["bound_ms"],
+             fwd["bound_by"], fwd_bytes / 1e6, fwd_flops / 1e9, card))
     work = {  # (bytes: inputs read once + outputs written once, flops)
         "flash_bwd_dq": ((4 * n + n) * 2 + 2 * rows * 4,
                          3 * 2 * live * HEAD_DIM),    # s, dp, dq products
@@ -360,7 +380,7 @@ def bwd_kernel_phase(card):
                  rec["bound_ms"], rec["bound_by"], nbytes / 1e6,
                  flops / 1e9, card))
         records.append(rec)
-    return records
+    return records, fwd
 
 
 # ------------------------------------------------------------- phase 3/4
@@ -620,7 +640,8 @@ def main():
                 print("  %s: %s" % (name, line.strip()))
 
     records = {"flash_fwd": kernel_phase(card)}
-    for rec in bwd_kernel_phase(card):
+    bwd_records, fwd_train = bwd_kernel_phase(card)
+    for rec in bwd_records:
         records[rec["name"]] = rec
 
     # phase 3 — lm1b at full width, bf16, flash decode
@@ -703,15 +724,23 @@ def main():
     train_launches = train_phase(card)
     train_parity_phase()
 
-    # launches on the main paths: flash_fwd runs in both serving (decode)
-    # and training, the backward kernels in training
-    by_path = {"flash_fwd": {"serve": serve_launches,
-                             "train": train_launches["flash_fwd"]},
-               "flash_bwd_dq": {"train": train_launches["flash_bwd_dq"]},
-               "flash_bwd_dkdv": {"train": train_launches["flash_bwd_dkdv"]}}
+    # flash_fwd runs on both main paths, serving (decode) and training, the
+    # backward kernels in training. Each record's top-level numbers are its
+    # first path's; "by_path" gives each path's launches, times and bound
+    timed = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms")
+    fwd = records["flash_fwd"]
+    by_path = {"flash_fwd": {"serve": (serve_launches, fwd),
+                             "train": (train_launches["flash_fwd"],
+                                       fwd_train)}}
+    for name in ("flash_bwd_dq", "flash_bwd_dkdv"):
+        by_path[name] = {"train": (train_launches[name], records[name])}
     for name, rec in records.items():
-        rec["launches"] = sum(by_path[name].values())
-        rec["launches_by_path"] = by_path[name]
+        rec["by_path"] = {path: dict({"launches": n},
+                                     **{key: r[key] for key in timed})
+                          for path, (n, r) in by_path[name].items()}
+        rec["launches"] = sum(n for n, _ in by_path[name].values())
+    fwd["max_abs_err"] = max(fwd["max_abs_err"], fwd_train["max_abs_err"])
 
     import autodist_tpu_torch as adt
     adt.reset()

@@ -131,6 +131,8 @@ def test_optimizer_capture_records_name_and_kwargs():
                                    "nu": {"w": (2, 3)}}
     with pytest.raises(ValueError, match="weight_decay"):
         optim.capture(functools.partial(torch.optim.Adam, weight_decay=0.1))
+    with pytest.raises(ValueError, match="foreach"):   # not silently dropped
+        optim.capture(functools.partial(torch.optim.Adam, foreach=True))
     with pytest.raises(ValueError, match="optax.adam"):
         optim.capture(torch.optim.SGD)
     with pytest.raises(TypeError):
