@@ -26,26 +26,52 @@
 //
 // Design. The TPU kernels carry their f32 accumulators in VMEM across a
 // sequential grid axis; here blocks run in no order, so each block owns a
-// tile of 16 rows (four warps, four rows each) and loops over the other
-// operand's 64-row tiles itself, staged in shared memory as f32 with a
-// padded leading dimension (lane j reads row j without bank conflicts).
-// Each lane owns score columns j and j + 32 of its row and output columns
-// d and d + 32, kept in registers across the loop. Ragged edges are
-// masked. Tiles with no visible entry are skipped before they are read:
-// causal tiles past the diagonal, and tiles whose segment-id range cannot
-// meet the block's (_tile_live's range test).
+// tile of rows and loops over the other operand's 64-row tiles itself,
+// holding its outputs in registers. Ragged edges are masked. Tiles with no
+// visible entry are skipped before they are read: causal tiles past the
+// diagonal, and tiles whose segment-id range cannot meet the block's
+// (_tile_live's range test). Two designs, chosen by the variant code:
+//
+// - flash_bwd_dkdv_mma_kernel (bf16 dK/dV): one block of four warps owns
+//   64 key rows, 16 per warp; K and V load once as bf16, Q and dO tiles of
+//   64 rows (with their lse, delta and ids) are double-buffered with
+//   cp.async. With the keys as the M dimension, S^T = K Q^T and
+//   dP^T = V dO^T, then dV += P^T dO and dK += dS^T Q all run on the
+//   tensor cores (mma.sync m16n8k16, bf16 operands through ldmatrix, f32
+//   accumulators); P and dS are rounded to bf16 (the TPU points) and
+//   repacked from the accumulators into A fragments in registers, and dO
+//   and Q serve as B both as stored and through ldmatrix.trans. dK and dV
+//   stay in f32 registers and are written once. As in the forward, only
+//   tiles at an edge, with ids or on the diagonal are masked, and the
+//   scale is folded into the exponent; three blocks share an SM.
+// - flash_bwd_dq_kernel (both dtypes) and flash_bwd_dkdv_kernel (f32, and
+//   the earlier bf16 design): scalar FMA over tiles staged in shared memory
+//   as f32 with a padded leading dimension; a block owns 16 rows (four
+//   warps, four rows each), each lane two score and two output columns.
+//   f32 stays here: on the tensor cores f32 operands would be TF32, about
+//   three digits, and the f32 paths are held to 2e-5.
 //
 // Bound. At lm1b training ([64, 128, 16, 64] bf16, causal) both kernels are
 // bound by bytes on this card (about 85 MB for dQ and 102 MB for dK/dV,
-// each input read once and each output written once, against 3.3 and
-// 4.4 GFLOP over the live causal half). This first version is scalar FMA
-// on f32 tiles; tensor cores (wgmma), TMA and a fused single-pass
-// backward are later work. Its times are in PERF.md.
+// each input read once and each output written once, 0.025 and 0.030 ms
+// at 3.35 TB/s, against 3.3 and 4.4 GFLOP over the live causal half). The
+// tensor-core dK/dV design removes what held the scalar one back
+// (shared-memory operand loads for every FMA, f32 staging, 16-row tiles
+// that re-read Q and dO eight times at S = 128, loads not overlapped with
+// compute). What still holds it above the byte bound: 168 registers a
+// thread (two 16 x 64 f32 accumulators and the score tiles) leave three
+// blocks, twelve warps, on an SM to hide the latency of blocks that live
+// for one or two query tiles, and each score element costs an exp2 and a
+// handful of instructions beside the four products. wgmma and TMA would
+// raise the product rate, which is not the limit here. Times are in
+// PERF.md.
 
 #include <climits>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -475,23 +501,317 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-int launch(bool dq, int dtype, const Args& a, int D, int rows,
+// ------------------------------------------- bf16 tensor-core dK/dV design
+
+constexpr int kKM = 64;  // key rows per block of the mma kernel, 16 a warp
+constexpr int kMmaThreads = (kKM / 16) * 32;
+constexpr float kLog2e = 1.4426950408889634f;
+using adt_mma::kLDS;
+using bf16 = __nv_bfloat16;
+
+struct __align__(16) DkdvSmem {
+  bf16 k[kKM * kLDS];        // K once; the dK rows on the way out
+  bf16 v[kKM * kLDS];        // V once; the dV rows on the way out
+  bf16 q[2][kTile * kLDS];   // double-buffered Q tiles
+  bf16 o[2][kTile * kLDS];   // double-buffered dO tiles
+  float lse[2][kTile];       // their lse, delta and segment ids
+  float delta[2][kTile];
+  int qseg[2][kTile];
+};
+
+// The first query tile at or after q that sees a key of the block (rows
+// from k0, ids in [k_lo, k_hi]), or Sq when none is left. Warp-uniform:
+// each warp reduces the ids itself.
+__device__ __forceinline__ int next_q_tile(const Args& a, const int* q_seg,
+                                           int q, int k0, int k_lo,
+                                           int k_hi) {
+  for (; q < a.Sq; q += kTile) {
+    const int q_valid = min(kTile, a.Sq - q);
+    if (a.causal && q + q_valid - 1 < k0) continue;
+    if (q_seg == nullptr) return q;
+    int lo, hi;
+    adt_mma::warp_id_range(q_seg + q, q_valid, &lo, &hi);
+    if (k_hi >= lo && k_lo <= hi) return q;
+  }
+  return a.Sq;
+}
+
+// Start the copies of query tile q0 (Q, dO rows, their lse, delta and
+// segment ids) into buffer buf; rows past Sq are zeroed.
+__device__ __forceinline__ void load_q_tile(DkdvSmem& sm, const Args& a,
+                                            const bf16* qb, const bf16* ob,
+                                            long long row_base,
+                                            const int* q_seg, int q0,
+                                            int buf) {
+  using adt_mma::cp_async_4;
+  const int q_valid = min(kTile, a.Sq - q0);
+  adt_mma::load_rows_async<kTile, kMmaThreads>(
+      sm.q[buf], qb + static_cast<long long>(q0) * a.q_ss, a.q_ss, q_valid);
+  adt_mma::load_rows_async<kTile, kMmaThreads>(
+      sm.o[buf], ob + static_cast<long long>(q0) * a.o_ss, a.o_ss, q_valid);
+  if (threadIdx.x < kTile) {
+    const int j = threadIdx.x;
+    const bool ok = j < q_valid;
+    const long long row = row_base + q0 + (ok ? j : 0);
+    cp_async_4(&sm.lse[buf][j], a.lse + row, ok);
+    cp_async_4(&sm.delta[buf][j], a.delta + row, ok);
+    if (q_seg != nullptr)
+      cp_async_4(&sm.qseg[buf][j], q_seg + q0 + (ok ? j : 0), ok);
+  }
+}
+
+// dK and dV for 64 key rows a block, 16 a warp, with the keys as the M
+// dimension of every product: per query tile S^T = K Q^T and
+// dP^T = V dO^T, then dV += P^T dO and dK += dS^T Q, each 32 query
+// columns at a time so the score accumulators stay small.
+// Three blocks an SM: capped so (168 registers, no spills) it ran faster
+// at the lm1b training shape than uncapped (two blocks an SM) or capped
+// for four blocks (spills).
+__global__ void __launch_bounds__(kMmaThreads, 3)
+    flash_bwd_dkdv_mma_kernel(const Args a) {
+  using namespace adt_mma;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  DkdvSmem& sm = *reinterpret_cast<DkdvSmem*>(smem_raw);
+
+  const int k0 = blockIdx.x * kKM;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;  // accumulator row, column pair
+  const int k_valid = min(kKM, a.Sk - k0);
+  const int wrow = warp * 16;           // the warp's first key in the block
+  const bool active = wrow < k_valid;   // uniform across the warp
+
+  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.k_sb +
+                   static_cast<long long>(k0) * a.k_ss + h * a.k_sh;
+  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.v_sb +
+                   static_cast<long long>(k0) * a.v_ss + h * a.v_sh;
+  const bf16* qb = static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const bf16* ob = static_cast<const bf16*>(a.dout) + b * a.o_sb + h * a.o_sh;
+  const int* q_seg = a.q_seg == nullptr
+                         ? nullptr
+                         : a.q_seg + static_cast<long long>(b) * a.Sq;
+  const long long row_base = (static_cast<long long>(b) * a.H + h) * a.Sq;
+
+  // the block's key id range, and the ids of this lane's two key rows
+  int k_lo = 0, k_hi = 0, ks_row[2] = {0, 0};
+  if (q_seg != nullptr) {
+    const int* ks = a.kv_seg + static_cast<long long>(b) * a.Sk + k0;
+    warp_id_range(ks, k_valid, &k_lo, &k_hi);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = wrow + g + 8 * i;
+      ks_row[i] = r < k_valid ? ks[r] : 0;
+    }
+  }
+
+  load_rows_async<kKM, kMmaThreads>(sm.k, kb, a.k_ss, k_valid);
+  load_rows_async<kKM, kMmaThreads>(sm.v, vb, a.v_ss, k_valid);
+  cp_async_commit();
+  // causal: query rows before k0 see none of this block's keys, so the
+  // loop starts at the tile holding row k0
+  int qt = next_q_tile(a, q_seg, a.causal ? (k0 / kTile) * kTile : 0, k0,
+                       k_lo, k_hi);
+  if (qt < a.Sq) load_q_tile(sm, a, qb, ob, row_base, q_seg, qt, 0);
+  cp_async_commit();
+  cp_async_wait<1>();  // K and V have landed; the first q tile may not
+  __syncthreads();
+
+  uint32_t kf[kD / 16][4], vf[kD / 16][4];  // the warp's K, V rows
+  if (active) {
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk) {
+      load_a(kf[kk], sm.k, wrow, kk * 16);
+      load_a(vf[kk], sm.v, wrow, kk * 16);
+    }
+  }
+  const float sl2 = a.scale * kLog2e;  // exp(scale * x) = exp2(sl2 * x)
+  // key rows g and g + 8 of the warp, columns 8 * j + 2 * t (+1)
+  float dk[kD / 8][4], dv[kD / 8][4];
+#pragma unroll
+  for (int j = 0; j < kD / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      dk[j][e] = 0.f;
+      dv[j][e] = 0.f;
+    }
+
+  int buf = 0;
+  while (qt < a.Sq) {
+    const int qn = next_q_tile(a, q_seg, qt + kTile, k0, k_lo, k_hi);
+    // in flight while this tile computes
+    if (qn < a.Sq) load_q_tile(sm, a, qb, ob, row_base, q_seg, qn, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+
+    if (active) {
+      const bf16* qs = sm.q[buf];
+      const bf16* os = sm.o[buf];
+      const int q_valid = min(kTile, a.Sq - qt);
+#pragma unroll
+      for (int hq = 0; hq < kTile / 32; ++hq) {
+        const int c0 = hq * 32;  // the 32 query columns of this pass
+        float st[4][4], dpt[4][4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            st[j][e] = 0.f;
+            dpt[j][e] = 0.f;
+          }
+        // S^T = K Q^T and dP^T = V dO^T: Q and dO rows are the columns of
+        // B, read as stored
+#pragma unroll
+        for (int kk = 0; kk < kD / 16; ++kk) {
+#pragma unroll
+          for (int jp = 0; jp < 2; ++jp) {
+            uint32_t bq[4], bo[4];
+            load_b_nk(bq, qs, c0 + jp * 16, kk * 16);
+            load_b_nk(bo, os, c0 + jp * 16, kk * 16);
+            mma_16816(st[2 * jp], kf[kk], bq[0], bq[1]);
+            mma_16816(st[2 * jp + 1], kf[kk], bq[2], bq[3]);
+            mma_16816(dpt[2 * jp], vf[kk], bo[0], bo[1]);
+            mma_16816(dpt[2 * jp + 1], vf[kk], bo[2], bo[3]);
+          }
+        }
+        // mask in the accumulator layout (keys are rows, queries columns),
+        // only where the pass needs it: at a ragged edge, with segment ids,
+        // or where it crosses the causal diagonal of the warp's keys.
+        // Column c of row i is visible iff lo[i] <= c <= hi (and the ids
+        // match), c counted from c0 + 2 * t.
+        const int cb = c0 + 2 * t;
+        if (q_valid < kTile || k_valid < kKM || q_seg != nullptr ||
+            (a.causal && qt + c0 < k0 + wrow + 15)) {
+          const int hi = q_valid - 1 - cb;
+          int lo[2];
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int key = k0 + wrow + g + 8 * i;
+            lo[i] = key >= a.Sk ? INT_MAX
+                                : (a.causal ? key - qt : 0) - cb;
+          }
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int c = 8 * j + (e & 1);
+              bool ok = c >= lo[e >> 1] && c <= hi;
+              if (q_seg != nullptr)
+                ok = ok && sm.qseg[buf][cb + c] == ks_row[e >> 1];
+              if (!ok) st[j][e] = kNegInf;
+            }
+          }
+        }
+        // st becomes e = exp(scale * s - lse), computed as
+        // exp2(sl2 * s - lse2) with lse2 = lse * log2(e), and dpt becomes
+        // dS = e * (dP - delta) * scale, lse and delta per column
+        // (_dkdv_kernel's points: P is e rounded to dO's dtype, dS is
+        // rounded to q's dtype, both bf16 here and rounded at the repack
+        // below)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+#pragma unroll
+          for (int b2 = 0; b2 < 2; ++b2) {
+            const int c = cb + 8 * j + b2;
+            const float lse2 = sm.lse[buf][c] * kLog2e;
+            const float delta = sm.delta[buf][c];
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              const int e = 2 * i + b2;
+              const float ex = exp2f(fmaf(st[j][e], sl2, -lse2));
+              st[j][e] = ex;
+              dpt[j][e] = ex * (dpt[j][e] - delta) * a.scale;
+            }
+          }
+        }
+        // dV += P^T dO and dK += dS^T Q: the queries are the k dimension,
+        // P and dS come from the accumulators in registers, dO and Q rows
+        // through ldmatrix.trans
+#pragma unroll
+        for (int kq = 0; kq < 2; ++kq) {
+          uint32_t pa[4], da[4];
+          acc_to_a(pa, st[2 * kq], st[2 * kq + 1]);
+          acc_to_a(da, dpt[2 * kq], dpt[2 * kq + 1]);
+#pragma unroll
+          for (int dp = 0; dp < kD / 16; ++dp) {
+            uint32_t bo[4], bq[4];
+            load_b_kn(bo, os, c0 + kq * 16, dp * 16);
+            load_b_kn(bq, qs, c0 + kq * 16, dp * 16);
+            mma_16816(dv[2 * dp], pa, bo[0], bo[1]);
+            mma_16816(dv[2 * dp + 1], pa, bo[2], bo[3]);
+            mma_16816(dk[2 * dp], da, bq[0], bq[1]);
+            mma_16816(dk[2 * dp + 1], da, bq[2], bq[3]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // the next iteration's loads overwrite this buffer
+    qt = qn;
+    buf ^= 1;
+  }
+  cp_async_wait<0>();
+
+  if (!active) return;
+  // dK, dV rounded to bf16, staged in the warp's own K and V rows (no
+  // other warp reads them) so each lane stores 16 contiguous bytes
+#pragma unroll
+  for (int j = 0; j < kD / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int off = (wrow + g + 8 * i) * kLDS + 8 * j + 2 * t;
+      *reinterpret_cast<uint32_t*>(sm.k + off) =
+          pack_bf16(dk[j][2 * i], dk[j][2 * i + 1]);
+      *reinterpret_cast<uint32_t*>(sm.v + off) =
+          pack_bf16(dv[j][2 * i], dv[j][2 * i + 1]);
+    }
+  __syncwarp();
+  bf16* dko = static_cast<bf16*>(a.dk);
+  bf16* dvo = static_cast<bf16*>(a.dv);
+#pragma unroll
+  for (int it = 0; it < 4; ++it) {
+    const int c = lane + 32 * it;
+    const int r = wrow + (c >> 3);
+    const int col = (c & 7) * 8;
+    if (r < k_valid) {
+      const long long off =
+          ((static_cast<long long>(b) * a.Sk + k0 + r) * a.H + h) * kD + col;
+      *reinterpret_cast<uint4*>(dko + off) =
+          *reinterpret_cast<const uint4*>(sm.k + r * kLDS + col);
+      *reinterpret_cast<uint4*>(dvo + off) =
+          *reinterpret_cast<const uint4*>(sm.v + r * kLDS + col);
+    }
+  }
+}
+
+// variant: 0 = scalar f32, 1 = scalar bf16, 2 = mma.sync bf16 (dK/dV only)
+int launch(bool dq, int variant, const Args& a, int D, int rows,
            void* stream) {
   if (D != kD || a.B <= 0 || a.H <= 0 || a.Sq <= 0 || a.Sk <= 0 ||
       a.B > 65535 || a.H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((rows + kRows - 1) / kRows, a.H, a.B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
+  if (variant == 0) {
     if (dq)
       flash_bwd_dq_kernel<float><<<grid, kThreads, 0, s>>>(a);
     else
       flash_bwd_dkdv_kernel<float><<<grid, kThreads, 0, s>>>(a);
-  } else if (dtype == 1) {
+  } else if (variant == 1) {
     if (dq)
       flash_bwd_dq_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(a);
     else
       flash_bwd_dkdv_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(a);
+  } else if (variant == 2 && !dq) {
+    // above 48 KB, dynamic shared memory needs the kernel's consent
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        flash_bwd_dkdv_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(sizeof(DkdvSmem)));
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    const dim3 mma_grid((rows + kKM - 1) / kKM, a.H, a.B);
+    flash_bwd_dkdv_mma_kernel<<<mma_grid, kMmaThreads, sizeof(DkdvSmem), s>>>(
+        a);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -500,36 +820,37 @@ int launch(bool dq, int dtype, const Args& a, int D, int rows,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Strides are in elements (q, k, v, then
-// dout, each b, s, h). q_seg and kv_seg are both null or both [B, Sq] /
-// [B, Sk] contiguous int32. Each returns cudaGetLastError() after its
-// launch (0 = launched).
+// variant: 0 = scalar f32, 1 = scalar bf16, and for dK/dV 2 = mma.sync
+// bf16 (the wrapper's _dkdv_variant picks it). Strides are in elements (q,
+// k, v, then dout, each b, s, h). q_seg and kv_seg are both null or both
+// [B, Sq] / [B, Sk] contiguous int32. Each returns cudaGetLastError() after
+// its launch (0 = launched).
 extern "C" int adt_flash_bwd_dq(
-    int dtype, const void* q, const void* k, const void* v, const void* dout,
-    const float* lse, const float* delta, const int* q_seg, const int* kv_seg,
-    void* dq, int B, int H, int Sq, int Sk, int D, long long q_sb,
-    long long q_ss, long long q_sh, long long k_sb, long long k_ss,
-    long long k_sh, long long v_sb, long long v_ss, long long v_sh,
-    long long o_sb, long long o_ss, long long o_sh, int causal, float scale,
-    void* stream) {
+    int variant, const void* q, const void* k, const void* v,
+    const void* dout, const float* lse, const float* delta, const int* q_seg,
+    const int* kv_seg, void* dq, int B, int H, int Sq, int Sk, int D,
+    long long q_sb, long long q_ss, long long q_sh, long long k_sb,
+    long long k_ss, long long k_sh, long long v_sb, long long v_ss,
+    long long v_sh, long long o_sb, long long o_ss, long long o_sh,
+    int causal, float scale, void* stream) {
   const Args a{q,    k,    v,    dout, lse,  delta, q_seg, kv_seg,
                dq,   nullptr, nullptr, B, H, Sq, Sk,
                q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
                o_sb, o_ss, o_sh, causal, scale};
-  return launch(true, dtype, a, D, Sq, stream);
+  return launch(true, variant, a, D, Sq, stream);
 }
 
 extern "C" int adt_flash_bwd_dkdv(
-    int dtype, const void* q, const void* k, const void* v, const void* dout,
-    const float* lse, const float* delta, const int* q_seg, const int* kv_seg,
-    void* dk, void* dv, int B, int H, int Sq, int Sk, int D, long long q_sb,
-    long long q_ss, long long q_sh, long long k_sb, long long k_ss,
-    long long k_sh, long long v_sb, long long v_ss, long long v_sh,
-    long long o_sb, long long o_ss, long long o_sh, int causal, float scale,
-    void* stream) {
+    int variant, const void* q, const void* k, const void* v,
+    const void* dout, const float* lse, const float* delta, const int* q_seg,
+    const int* kv_seg, void* dk, void* dv, int B, int H, int Sq, int Sk,
+    int D, long long q_sb, long long q_ss, long long q_sh, long long k_sb,
+    long long k_ss, long long k_sh, long long v_sb, long long v_ss,
+    long long v_sh, long long o_sb, long long o_ss, long long o_sh,
+    int causal, float scale, void* stream) {
   const Args a{q,    k,    v,    dout, lse,  delta, q_seg, kv_seg,
                nullptr, dk, dv, B, H, Sq, Sk,
                q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
                o_sb, o_ss, o_sh, causal, scale};
-  return launch(false, dtype, a, D, Sk, stream);
+  return launch(false, variant, a, D, Sk, stream);
 }

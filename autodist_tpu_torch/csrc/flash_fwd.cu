@@ -14,30 +14,59 @@
 // layer's slice of the [slots, layers, T, H, D] cache in place; o is a
 // contiguous [B, Sq, H, D], lse a contiguous [B, H, Sq] f32.
 //
-// Design. One thread block per (q tile of 16 rows, head, batch): four
-// warps, four query rows each. The block loops over kv tiles of 64 rows,
-// staged in shared memory as f32; m, l and the two output columns each
-// lane owns stay in registers across the loop (the TPU kernel carries
-// them in VMEM scratch across a sequential grid axis instead). Ragged
-// edges are masked here, so Sq and Sk need not divide the tiles and a
-// decode step passes its one query as Sq = 1. Tiles with no visible entry
-// are skipped before their K/V are read: causal tiles above the diagonal
-// end the loop, and with segment ids a tile whose id range cannot meet
-// the query tile's (_tile_live's range test) is skipped — in decode this
-// is every tile past the slot's cursor, so a slot reads only its live
-// prefix.
+// Both designs loop over kv tiles of 64 rows inside the block, carrying m,
+// l and the output accumulator in registers (the TPU kernel carries them
+// in VMEM scratch across a sequential grid axis instead). Ragged edges are
+// masked here, so Sq and Sk need not divide the tiles and a decode step
+// passes its one query as Sq = 1. Tiles with no visible entry are skipped
+// before their K/V are read: causal tiles above the diagonal end the loop,
+// and with segment ids a tile whose id range cannot meet the query tile's
+// (_tile_live's range test) is skipped — in decode this is every tile past
+// the slot's cursor, so a slot reads only its live prefix.
 //
-// Bound. Decode is bound by bytes: it must read each live K and V row once
-// (2 * slots * T * H * D * 2 B = 33.5 MB a layer at slots 32, T 256, H 16,
-// D 64 in bf16, about 10 us at 3.35 TB/s, less where cursors are short);
-// its operations are 4 * slots * T * H * D = 34 MFLOP, far below the
-// compute bound. This first kernel is scalar FMA on f32 tiles; tensor
-// cores (wgmma), TMA and a split-KV decode grid are later work.
+// Two designs, chosen by the caller through the variant code:
+//
+// - flash_fwd_mma_kernel (bf16): one block of four warps owns 64 query
+//   rows, 16 per warp. Q is staged once in shared memory as bf16; K/V
+//   tiles of 64 rows are double-buffered with cp.async, so tile j + 1
+//   loads while tile j computes. S = Q K^T and O += P V run on the tensor
+//   cores (mma.sync m16n8k16, bf16 operands through ldmatrix, f32
+//   accumulators); P is rounded to bf16 (the TPU rounding point) and
+//   repacked from the S accumulators into the A fragment of P V in
+//   registers; row max and sum reduce over a quad of lanes. Shared memory
+//   rows are padded to 72 elements, so ldmatrix is free of bank conflicts.
+//   Past the products the kernel is bound by its per-element instructions,
+//   so it masks only tiles at the ragged edge, with segment ids or on the
+//   causal diagonal (one compare a element against a per-row limit),
+//   folds the scale into the exponent (one FFMA and one exp2 a element),
+//   and skips the 16-column slices of a diagonal tile that none of a
+//   warp's rows can see.
+// - flash_fwd_kernel (f32, and the earlier bf16 design): scalar FMA over
+//   tiles staged as f32, one block per 16 query rows. f32 stays here: on
+//   the tensor cores f32 operands would be TF32, about three digits, and
+//   the f32 paths are held to 2e-5.
+//
+// Bound. The forward is bound by bytes on this card at both main-path
+// shapes. Training [64, 128, 16, 64] bf16 causal: q, k, v read once and
+// out, lse written once are 67.6 MB, 0.0202 ms at 3.35 TB/s, against
+// 2.16 GFLOP over the live causal half (0.0022 ms at the 989 TFLOP/s bf16
+// peak). Decode (32 slots, T 256, H 16, D 64, bf16): each live K and V row
+// read once, at most 33.5 MB a layer, against 34 MFLOP. The tensor-core
+// design removes what held the scalar one back (shared-memory operand
+// loads for every FMA, f32 staging, 16-row tiles that re-read K/V eight
+// times at S = 128, loads not overlapped with compute). What still holds
+// it above the byte bound is the short life of a block at S = 128 (one or
+// two kv tiles) against the latency of its first loads, and the softmax's
+// instructions beside the products; 128-row blocks and a persistent grid
+// were measured no faster (PERF.md). wgmma and TMA would raise the product
+// rate, which is not the limit here.
 
 #include <climits>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -296,12 +325,280 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Args a) {
   }
 }
 
+// ------------------------------------------------- bf16 tensor-core design
+
+constexpr int kBM = 64;   // query rows per block of the mma kernel
+constexpr int kMmaWarps = kBM / 16;
+constexpr int kMmaThreads = kMmaWarps * 32;
+constexpr float kLog2e = 1.4426950408889634f;
+using adt_mma::kLDS;
+using bf16 = __nv_bfloat16;
+
+struct __align__(16) MmaSmem {
+  bf16 q[kBM * kLDS];       // Q once; the output rows on the way out
+  bf16 k[2][kBK * kLDS];    // double-buffered K tiles
+  bf16 v[2][kBK * kLDS];    // double-buffered V tiles
+  int kseg[2][kBK];         // their segment ids
+};
+
+// The first kv tile at or after k that holds a visible entry for query
+// rows up to q_last with ids in [q_lo, q_hi], or Sk when none is left.
+// Warp-uniform: each warp reduces the ids itself.
+__device__ __forceinline__ int next_kv_tile(const Args& a, const int* kv_seg,
+                                            int k, int q_last, int q_lo,
+                                            int q_hi) {
+  for (; k < a.Sk; k += kBK) {
+    if (a.causal && q_last < k) return a.Sk;
+    if (kv_seg == nullptr) return k;
+    int lo, hi;
+    adt_mma::warp_id_range(kv_seg + k, min(kBK, a.Sk - k), &lo, &hi);
+    if (q_hi >= lo && q_lo <= hi) return k;
+  }
+  return a.Sk;
+}
+
+// Start the copies of kv tile k0 (K, V rows and their segment ids) into
+// buffer buf; rows past Sk are zeroed.
+__device__ __forceinline__ void load_kv(MmaSmem& sm, const Args& a,
+                                        const bf16* kb, const bf16* vb,
+                                        const int* kv_seg, int k0, int buf) {
+  const int k_valid = min(kBK, a.Sk - k0);
+  adt_mma::load_rows_async<kBK, kMmaThreads>(
+      sm.k[buf], kb + static_cast<long long>(k0) * a.k_ss, a.k_ss, k_valid);
+  adt_mma::load_rows_async<kBK, kMmaThreads>(
+      sm.v[buf], vb + static_cast<long long>(k0) * a.v_ss, a.v_ss, k_valid);
+  if (kv_seg != nullptr && threadIdx.x < kBK) {
+    const int j = threadIdx.x;
+    adt_mma::cp_async_4(&sm.kseg[buf][j], kv_seg + k0 + (j < k_valid ? j : 0),
+                        j < k_valid);
+  }
+}
+
+__global__ void __launch_bounds__(kMmaThreads)
+    flash_fwd_mma_kernel(const Args a) {
+  using namespace adt_mma;
+  __shared__ MmaSmem sm;
+
+  const int q0 = blockIdx.x * kBM;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;  // accumulator row, column pair
+  const int q_valid = min(kBM, a.Sq - q0);
+  const int q_last = q0 + q_valid - 1;
+  const int wrow = warp * 16;           // the warp's first row in the block
+  const bool active = wrow < q_valid;   // uniform across the warp
+
+  const bf16* qb = static_cast<const bf16*>(a.q) + b * a.q_sb +
+                   static_cast<long long>(q0) * a.q_ss + h * a.q_sh;
+  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.k_sb + h * a.k_sh;
+  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.v_sb + h * a.v_sh;
+  const int* kv_seg = a.kv_seg == nullptr
+                          ? nullptr
+                          : a.kv_seg + static_cast<long long>(b) * a.Sk;
+
+  // the query tile's id range, and the ids of this lane's two rows
+  int q_lo = 0, q_hi = 0, qs_row[2] = {0, 0};
+  if (kv_seg != nullptr) {
+    const int* qs = a.q_seg + static_cast<long long>(b) * a.Sq + q0;
+    warp_id_range(qs, q_valid, &q_lo, &q_hi);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = wrow + g + 8 * i;
+      qs_row[i] = r < q_valid ? qs[r] : 0;
+    }
+  }
+
+  load_rows_async<kBM, kMmaThreads>(sm.q, qb, a.q_ss, q_valid);
+  cp_async_commit();
+  int kt = next_kv_tile(a, kv_seg, 0, q_last, q_lo, q_hi);
+  if (kt < a.Sk) load_kv(sm, a, kb, vb, kv_seg, kt, 0);
+  cp_async_commit();
+  cp_async_wait<1>();  // Q has landed; the first kv tile may be in flight
+  __syncthreads();
+
+  uint32_t qf[kD / 16][4];  // the warp's 16 Q rows as A fragments
+  if (active) {
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk) load_a(qf[kk], sm.q, wrow, kk * 16);
+  }
+
+  // rows g and g + 8 of the warp: running max of the unscaled scores,
+  // this lane's share of the row sum, and O columns 8 * j + 2 * t (+1)
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  const float sl2 = a.scale * kLog2e;  // exp(scale * x) = exp2(sl2 * x)
+  float o[kD / 8][4];
+#pragma unroll
+  for (int j = 0; j < kD / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+
+  int buf = 0;
+  while (kt < a.Sk) {
+    const int kn = next_kv_tile(a, kv_seg, kt + kBK, q_last, q_lo, q_hi);
+    // in flight while this tile computes
+    if (kn < a.Sk) load_kv(sm, a, kb, vb, kv_seg, kn, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+
+    // the columns of this tile that any of the warp's rows can see by
+    // position; 16-column slices at or past it hold no visible entry, so
+    // their products are skipped (the mask below zeroes their p)
+    const int k_valid = min(kBK, a.Sk - kt);
+    const int ncols = min(k_valid, a.causal ? q0 + wrow + 16 - kt : kBK);
+    if (active && ncols > 0) {
+      const bf16* ks = sm.k[buf];
+      const bf16* vs = sm.v[buf];
+      float s[kBK / 8][4];
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+      // S = Q K^T: K rows are the columns of B, read as stored
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk) {
+#pragma unroll
+        for (int jp = 0; jp < kBK / 16; ++jp) {
+          if (jp * 16 >= ncols) continue;
+          uint32_t bk[4];
+          load_b_nk(bk, ks, jp * 16, kk * 16);
+          mma_16816(s[2 * jp], qf[kk], bk[0], bk[1]);
+          mma_16816(s[2 * jp + 1], qf[kk], bk[2], bk[3]);
+        }
+      }
+
+      // mask in the accumulator layout, only where a tile needs it: at
+      // the ragged edge, with segment ids, or where it crosses the causal
+      // diagonal of the warp's rows. Column c of row i is visible iff
+      // c <= lim[i] (and the ids match).
+      const bool crosses = a.causal && kt + kBK - 1 > q0 + wrow;
+      if (k_valid < kBK || kv_seg != nullptr || crosses) {
+        int lim[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          lim[i] = min(k_valid - 1,
+                       a.causal ? q0 + wrow + g + 8 * i - kt : kBK) -
+                   2 * t;
+#pragma unroll
+        for (int j = 0; j < kBK / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            bool ok = 8 * j + (e & 1) <= lim[e >> 1];
+            if (kv_seg != nullptr)
+              ok = ok && qs_row[e >> 1] ==
+                             sm.kseg[buf][8 * j + 2 * t + (e & 1)];
+            if (!ok) s[j][e] = kNegInf;
+          }
+        }
+      }
+      // the online softmax on unscaled scores, the scale folded into the
+      // exponent: p = exp(scale * (s - m)) = exp2(sl2 * s - sl2 * m)
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+      float corr[2], msl[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float m_new = fmaxf(m[i], quad_max(mx[i]));
+        corr[i] = exp2f((m[i] - m_new) * sl2);
+        m[i] = m_new;
+        // no visible key so far: exp(NEG_INF - NEG_INF) = 1 would average
+        // garbage into the row, so its p must be 0 (empty rows emit 0);
+        // every score of such a row is NEG_INF, and a huge subtrahend
+        // sends exp2 to 0
+        msl[i] = m_new > kNegInf * 0.5f ? m_new * sl2 : -kNegInf;
+      }
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = exp2f(fmaf(s[j][e], sl2, -msl[e >> 1]));
+          s[j][e] = p;
+          sum[e >> 1] += p;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + sum[i];
+#pragma unroll
+      for (int j = 0; j < kD / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[j][e] *= corr[e >> 1];
+
+      // O += P V: P (rounded to bf16) from the S accumulators, V rows are
+      // the k dimension of B, read through ldmatrix.trans
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+        if (kk * 16 >= ncols) continue;
+        uint32_t pa[4];
+        acc_to_a(pa, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+        for (int dp = 0; dp < kD / 16; ++dp) {
+          uint32_t bv[4];
+          load_b_kn(bv, vs, kk * 16, dp * 16);
+          mma_16816(o[2 * dp], pa, bv[0], bv[1]);
+          mma_16816(o[2 * dp + 1], pa, bv[2], bv[3]);
+        }
+      }
+    }
+    __syncthreads();  // the next iteration's loads overwrite this buffer
+    kt = kn;
+    buf ^= 1;
+  }
+  cp_async_wait<0>();
+
+  if (!active) return;
+  // O / l rounded to bf16, staged in the warp's own Q rows (no other warp
+  // reads them) so each lane stores 16 contiguous bytes
+  float denom[2], inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] = quad_sum(l[i]);
+    denom[i] = fmaxf(l[i], 1e-30f);
+    inv[i] = 1.f / denom[i];
+  }
+#pragma unroll
+  for (int j = 0; j < kD / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      *reinterpret_cast<uint32_t*>(sm.q + (wrow + g + 8 * i) * kLDS + 8 * j +
+                                   2 * t) =
+          pack_bf16(o[j][2 * i] * inv[i], o[j][2 * i + 1] * inv[i]);
+  __syncwarp();
+  bf16* ob = static_cast<bf16*>(a.o);
+#pragma unroll
+  for (int it = 0; it < 4; ++it) {
+    const int c = lane + 32 * it;
+    const int r = wrow + (c >> 3);
+    const int col = (c & 7) * 8;
+    if (r < q_valid)
+      *reinterpret_cast<uint4*>(
+          ob + ((static_cast<long long>(b) * a.Sq + q0 + r) * a.H + h) * kD +
+          col) = *reinterpret_cast<const uint4*>(sm.q + r * kLDS + col);
+  }
+  if (t == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = wrow + g + 8 * i;
+      // empty rows record lse = 0 (the TPU kernel's rule: the backward
+      // recomputes p = exp(s - lse), which must vanish for them)
+      if (r < q_valid)
+        a.lse[(static_cast<long long>(b) * a.H + h) * a.Sq + q0 + r] =
+            l[i] > 0.f ? m[i] * a.scale + logf(denom[i]) : 0.f;
+    }
+  }
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Strides are in elements. q_seg and
+// variant: 0 = scalar f32, 1 = scalar bf16, 2 = mma.sync bf16 (the
+// wrapper's _fwd_variant picks it). Strides are in elements. q_seg and
 // kv_seg are both null or both [B, Sq] / [B, Sk] contiguous int32.
 // Returns cudaGetLastError() after the launch (0 = launched).
-extern "C" int adt_flash_fwd(int dtype, const void* q, const void* k,
+extern "C" int adt_flash_fwd(int variant, const void* q, const void* k,
                              const void* v, const int* q_seg,
                              const int* kv_seg, void* o, float* lse, int B,
                              int H, int Sq, int Sk, int D, long long q_sb,
@@ -315,12 +612,15 @@ extern "C" int adt_flash_fwd(int dtype, const void* q, const void* k,
   Args a{q,    k,    v,    q_seg, kv_seg, o,    lse,  B,      H,
          Sq,   Sk,   q_sb, q_ss,  q_sh,   k_sb, k_ss, k_sh,   v_sb,
          v_ss, v_sh, causal, scale};
-  const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
+  const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
+  if (variant == 0) {
     flash_fwd_kernel<float><<<grid, kThreads, 0, s>>>(a);
-  } else if (dtype == 1) {
+  } else if (variant == 1) {
     flash_fwd_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(a);
+  } else if (variant == 2) {
+    const dim3 mma_grid((Sq + kBM - 1) / kBM, H, B);
+    flash_fwd_mma_kernel<<<mma_grid, kMmaThreads, 0, s>>>(a);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

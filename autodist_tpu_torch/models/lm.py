@@ -257,7 +257,11 @@ def make_decode_setup(config: Optional[LMConfig] = None,
             out["logits"] = logits
         return out
 
-    def init_dstate(slots: int, device="cpu"):
+    def init_dstate(slots: int, device=None):
+        # the entry points' device rule: None is cuda, which raises
+        # without a card rather than build the cache on the CPU
+        from autodist_tpu_torch.autodist import resolve_device
+        device = resolve_device(device)
         cache_shape = (slots, cfg.num_layers, cfg.max_seq_len,
                        cfg.num_heads, cfg.head_dim)
         return {"k": torch.zeros(cache_shape, dtype=cfg.dtype, device=device),

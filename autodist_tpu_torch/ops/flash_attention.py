@@ -18,9 +18,21 @@ Pallas kernels each have a counterpart here:
 - ``flash_*_reference`` are their plain PyTorch versions: the same tile
   loops in f32, the same masks, rounding points and empty-row rule.
 
+Each kernel comes in designs (variants), picked by a fixed rule on the
+dtype in one pure function per kernel: :func:`_fwd_variant`,
+:func:`_dq_variant`, :func:`_dkdv_variant`. bf16 forward and dK/dV run
+``"mma.sync bf16"`` (64-row tiles on the tensor cores, ``csrc/
+mma_bf16.cuh``); f32 runs ``"scalar f32"`` (tensor cores would round f32
+operands to TF32, and the f32 paths are held to 2e-5); dQ runs its scalar
+design in both dtypes. ``variant=`` names a design explicitly: the
+earlier scalar bf16 designs stay reachable that way so that
+``chip_smoke.py`` times them beside the new ones in one run. Nothing picks
+a design on a failure.
+
 Each wrapper takes the plain version only for CPU tensors. For CUDA
 tensors it launches the kernel or raises; nothing falls back. Each launch
-adds one to the wrapper's ``launches`` count. :func:`flash_attention` is
+adds one to the wrapper's ``launches`` count and to its
+``launches_by_variant[variant]``. :func:`flash_attention` is
 differentiable: its autograd function runs the forward kernel, then
 delta = rowsum(dO * O) in f32 and the two backward kernels, as the JAX
 ``custom_vjp`` does; segment ids get no gradient.
@@ -202,7 +214,47 @@ def flash_bwd_dkdv_reference(q, k, v, do, lse, delta, q_seg=None,
             dv.to(v.dtype).permute(0, 2, 1, 3).contiguous())
 
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# the designs each C entry point takes, by its variant code
+VARIANT_CODE = {"scalar f32": 0, "scalar bf16": 1, "mma.sync bf16": 2}
+_VARIANT_DTYPE = {"scalar f32": torch.float32, "scalar bf16": torch.bfloat16,
+                  "mma.sync bf16": torch.bfloat16}
+
+
+def _fwd_variant(dtype) -> str:
+    """The forward's design for q of ``dtype``: the tensor-core kernel for
+    bf16 at every length (at the lm1b decode step, Sq = 1, it is no slower
+    than the scalar bf16 design; ``PERF.md``), the scalar one for f32."""
+    return "mma.sync bf16" if dtype == torch.bfloat16 else "scalar f32"
+
+
+def _dq_variant(dtype) -> str:
+    """dQ's design: its scalar kernel in both dtypes."""
+    return "scalar bf16" if dtype == torch.bfloat16 else "scalar f32"
+
+
+def _dkdv_variant(dtype) -> str:
+    """dK/dV's design: the tensor-core kernel for bf16, the scalar one for
+    f32."""
+    return "mma.sync bf16" if dtype == torch.bfloat16 else "scalar f32"
+
+
+def _pick(name, rule, variant, dtype):
+    """``variant`` if given (checked against the designs and the dtype),
+    else ``rule``'s pick."""
+    if variant is None:
+        return rule
+    if _VARIANT_DTYPE.get(variant) != dtype:
+        raise ValueError("%s has no variant %r for %s (its variants: %s)"
+                         % (name, variant, dtype, ", ".join(VARIANT_CODE)))
+    return variant
+
+
+def _count(fn, variant):
+    fn.launches += 1
+    fn.launches_by_variant[variant] = \
+        fn.launches_by_variant.get(variant, 0) + 1
+
+
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C signature of each entry point: (library, function, argtypes)
 _ENTRY = {
@@ -252,7 +304,7 @@ def _cuda_args(name, q, k, v, q_seg, kv_seg, *more):
     if D != HEAD_DIM:
         raise ValueError("the CUDA %s kernel is built for head_dim %d, got %d"
                          % (name, HEAD_DIM, D))
-    if q.dtype not in _DTYPE_CODE:
+    if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError("the CUDA %s kernel takes float32 or bfloat16, got "
                          "%s" % (name, q.dtype))
     segs = () if q_seg is None else (q_seg, kv_seg)
@@ -275,17 +327,20 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def flash_fwd(q, k, v, q_seg=None, kv_seg=None, causal: bool = False):
+def flash_fwd(q, k, v, q_seg=None, kv_seg=None, causal: bool = False,
+              variant=None):
     """Flash-attention forward: ``(out [B, Sq, H, D], lse [B, H, Sq] f32)``
     for q ``[B, Sq, H, D]`` and k/v ``[B, Sk, H, D]`` (f32 or bf16, D = 64
     on CUDA; any strides with d contiguous), optional int32 segment ids
     ``[B, Sq]``/``[B, Sk]``. CPU tensors take :func:`flash_fwd_reference`;
-    CUDA tensors launch ``csrc/flash_fwd.cu`` (each launch adds one to
-    ``flash_fwd.launches``)."""
+    CUDA tensors launch ``csrc/flash_fwd.cu`` in the design
+    :func:`_fwd_variant` picks, or ``variant`` (each launch adds one to
+    ``flash_fwd.launches`` and ``flash_fwd.launches_by_variant``)."""
     if q.device.type == "cpu":
         return flash_fwd_reference(q, k, v, q_seg, kv_seg, causal)
     _check(q, k, v, q_seg, kv_seg)
     q_seg, kv_seg = _cuda_args("flash_fwd", q, k, v, q_seg, kv_seg)
+    variant = _pick("flash_fwd", _fwd_variant(q.dtype), variant, q.dtype)
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
@@ -295,16 +350,17 @@ def flash_fwd(q, k, v, q_seg=None, kv_seg=None, causal: bool = False):
     if Sk == 0:
         raise ValueError("flash_fwd needs at least one key row")
     q, k, v = _kernel_view(q), _kernel_view(k), _kernel_view(v)
-    _launch("flash_fwd", _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
+    _launch("flash_fwd", VARIANT_CODE[variant], q.data_ptr(), k.data_ptr(),
             v.data_ptr(), _ptr(q_seg), _ptr(kv_seg), out.data_ptr(),
             lse.data_ptr(), B, H, Sq, Sk, D, *q.stride()[:3],
             *k.stride()[:3], *v.stride()[:3], int(bool(causal)),
             1.0 / math.sqrt(D), torch.cuda.current_stream(q.device).cuda_stream)
-    flash_fwd.launches += 1
+    _count(flash_fwd, variant)
     return out, lse
 
 
 flash_fwd.launches = 0
+flash_fwd.launches_by_variant = {}
 
 
 def _bwd_launch_args(name, q, k, v, do, lse, delta, q_seg, kv_seg):
@@ -332,8 +388,9 @@ def flash_bwd_dq(q, k, v, do, lse, delta, q_seg=None, kv_seg=None,
     """dQ of flash attention (``_dq_kernel``) from the forward's inputs,
     its lse ``[B, H, Sq]`` and delta = rowsum(dO * O) ``[B, H, Sq]`` (both
     f32). CPU tensors take :func:`flash_bwd_dq_reference`; CUDA tensors
-    launch ``csrc/flash_bwd.cu``'s dQ kernel (each launch adds one to
-    ``flash_bwd_dq.launches``)."""
+    launch ``csrc/flash_bwd.cu``'s dQ kernel in the design
+    :func:`_dq_variant` picks (each launch adds one to
+    ``flash_bwd_dq.launches`` and ``flash_bwd_dq.launches_by_variant``)."""
     if q.device.type == "cpu":
         return flash_bwd_dq_reference(q, k, v, do, lse, delta, q_seg, kv_seg,
                                       causal)
@@ -343,44 +400,50 @@ def flash_bwd_dq(q, k, v, do, lse, delta, q_seg=None, kv_seg=None,
         return torch.zeros(q.shape, dtype=q.dtype, device=q.device)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)  # every row
     q, k, v, do, lse, delta, q_seg, kv_seg = args
-    _launch("flash_bwd_dq", _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
+    variant = _dq_variant(q.dtype)
+    _launch("flash_bwd_dq", VARIANT_CODE[variant], q.data_ptr(), k.data_ptr(),
             v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             _ptr(q_seg), _ptr(kv_seg), dq.data_ptr(),
             *_bwd_tail(q, k, v, do, causal))
-    flash_bwd_dq.launches += 1
+    _count(flash_bwd_dq, variant)
     return dq
 
 
 flash_bwd_dq.launches = 0
+flash_bwd_dq.launches_by_variant = {}
 
 
 def flash_bwd_dkdv(q, k, v, do, lse, delta, q_seg=None, kv_seg=None,
-                   causal: bool = False):
+                   causal: bool = False, variant=None):
     """``(dK, dV)`` of flash attention (``_dkdv_kernel``), inputs as
     :func:`flash_bwd_dq`. CPU tensors take
     :func:`flash_bwd_dkdv_reference`; CUDA tensors launch
-    ``csrc/flash_bwd.cu``'s dK/dV kernel (each launch adds one to
-    ``flash_bwd_dkdv.launches``)."""
+    ``csrc/flash_bwd.cu``'s dK/dV kernel in the design
+    :func:`_dkdv_variant` picks, or ``variant`` (each launch adds one to
+    ``flash_bwd_dkdv.launches`` and ``flash_bwd_dkdv.launches_by_variant``)."""
     if q.device.type == "cpu":
         return flash_bwd_dkdv_reference(q, k, v, do, lse, delta, q_seg,
                                         kv_seg, causal)
     args = _bwd_launch_args("flash_bwd_dkdv", q, k, v, do, lse, delta, q_seg,
                             kv_seg)
+    variant = _pick("flash_bwd_dkdv", _dkdv_variant(q.dtype), variant,
+                    q.dtype)
     if args is None:
         return (torch.zeros(k.shape, dtype=k.dtype, device=k.device),
                 torch.zeros(v.shape, dtype=v.dtype, device=v.device))
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)  # every row
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     q, k, v, do, lse, delta, q_seg, kv_seg = args
-    _launch("flash_bwd_dkdv", _DTYPE_CODE[q.dtype], q.data_ptr(),
+    _launch("flash_bwd_dkdv", VARIANT_CODE[variant], q.data_ptr(),
             k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), _ptr(q_seg), _ptr(kv_seg), dk.data_ptr(),
             dv.data_ptr(), *_bwd_tail(q, k, v, do, causal))
-    flash_bwd_dkdv.launches += 1
+    _count(flash_bwd_dkdv, variant)
     return dk, dv
 
 
 flash_bwd_dkdv.launches = 0
+flash_bwd_dkdv.launches_by_variant = {}
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -3,12 +3,14 @@ with ``ctypes``.
 
 Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds), named
-by a hash of its source, under ``autodist_tpu_torch/build/`` (git-ignored).
+by a hash of its source, every ``csrc/*.cuh`` header it may include and
+the nvcc flags, under ``autodist_tpu_torch/build/`` (git-ignored).
 :func:`build` starts one ``nvcc`` per source, all at once, and waits for
 them; :func:`load` builds what is missing and returns the loaded library.
 Nothing here runs at import time.
 """
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -40,10 +42,15 @@ def nvcc_path() -> str:
                        "the port's CUDA kernels build from source at first use")
 
 
-def library_path(name: str) -> str:
-    src = os.path.join(CSRC_DIR, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+def library_path(name: str, csrc_dir: str = CSRC_DIR) -> str:
+    """The library that ``csrc_dir/<name>.cu`` builds into: its name hashes
+    the source, every header of ``csrc_dir`` (a header edit must not reuse
+    a stale library) and the nvcc flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [os.path.join(csrc_dir, name + ".cu")] + \
+            sorted(glob.glob(os.path.join(csrc_dir, "*.cuh"))):
+        with open(path, "rb") as f:
+            digest.update(os.path.basename(path).encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, "lib%s-%s.so" % (name,
                                                     digest.hexdigest()[:16]))
 

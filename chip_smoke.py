@@ -8,9 +8,13 @@ nvcc and PyTorch for CUDA. Phases, each fatal on failure (exit code 1, no
 result line):
 
 1. build every CUDA kernel of the paths from ``autodist_tpu_torch/csrc``
-   (one nvcc per source, started together) and print the card;
-2. hold each kernel against its plain PyTorch version at the shapes the
-   main paths give it and time the kernel, the plain version and one
+   (one nvcc per source, started together), print each kernel's
+   registers, shared memory and spills, and print the card;
+2. hold each kernel, in each design (variant) its dispatch rule picks —
+   ``mma.sync bf16`` on the tensor cores for the bf16 forward and dK/dV,
+   ``scalar f32`` for f32, ``scalar bf16`` for the bf16 dQ — against its
+   plain PyTorch version at the shapes the main paths give it, and time
+   the kernel, the earlier scalar bf16 design, the plain version and one
    PyTorch library call computing the same function: the forward at the
    decode shape (f32 at 2e-5, the JAX package's flash-decode bound; bf16
    at 2e-2 atol/rtol: bf16 inputs, f32 accumulation in another order),
@@ -22,15 +26,16 @@ result line):
    (``AutoDist(...).build`` -> ``Runner.init`` -> ``DecodeEngine`` with
    ``decode_attn="flash"``): 64 prompts of mixed lengths through 32 slots;
    every future resolves, no errors, and the kernel ran exactly 8 times a
-   decode step;
+   decode step, all in its bf16 design;
 4. the same model in f32: flash decode and reference decode give the same
    tokens, and both equal greedy full recompute;
 5. train lm1b at full width in bf16 (seq 128, batch 64, lean head, flash
    attention) through ``AutoDist(...).build`` -> ``Runner.init`` ->
    ``Runner.run``: 2 warm-up and 10 timed Adam steps on one random batch;
    every loss finite, the last below the first, each of the three kernels
-   launched 8 times a step, the f32 master params moved; then a device
-   profile of 3 more steps;
+   launched 8 times a step, the forward's and dK/dV's launches all on the
+   tensor-core design, the f32 master params moved; then a device profile
+   of 3 more steps;
 6. the same model in f32 at batch 8: 3 Adam steps with flash attention and
    3 with the reference attention from the same init agree in loss and
    params.
@@ -38,9 +43,11 @@ result line):
 The last two lines of standard output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
 """
+import contextlib
 import functools
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -62,6 +69,36 @@ KERNEL_SOURCES = {
     "flash_bwd_dkdv": ("autodist_tpu_torch/csrc/flash_bwd.cu",
                        "autodist_tpu/ops/flash_attention.py:252"),
 }
+
+
+# the design each kernel runs on the bf16 main paths, and the time per
+# launch of the scalar design it replaced, a call each (NVIDIA H100 80GB
+# HBM3, 700 W; PERF.md's kernel table, "earlier time")
+MAIN_DESIGN = {"flash_fwd": "mma.sync bf16", "flash_bwd_dq": "scalar bf16",
+               "flash_bwd_dkdv": "mma.sync bf16"}
+EARLIER_MS = {("flash_fwd", "serve"): 0.0566, ("flash_fwd", "train"): 0.3163,
+              ("flash_bwd_dq", "train"): 0.4402,
+              ("flash_bwd_dkdv", "train"): 0.5747}
+
+
+def ptxas_usage(log):
+    """(kernel, "registers, shared memory, spills") for each kernel that
+    ``nvcc -Xptxas -v`` reported on (static shared memory only: the
+    dynamic shared memory a launch asks for is not in it)."""
+    out, kernel, spills = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"entry function '_Z\w*?\d+(flash_\w+?kernel)(I(\d+)"
+                      r"(__nv_bfloat16)|If)?", line)
+        if m:
+            kernel = m.group(1) + ("<bf16>" if m.group(4) else
+                                   "<float>" if m.group(2) else "")
+        elif "spill" in line:
+            spills = line.strip()
+        elif "registers" in line and kernel:
+            usage = line.split(":", 1)[1].strip()
+            out.append((kernel, "%s; %s" % (usage, spills)))
+            kernel = None
+    return out
 
 
 def fail(msg):
@@ -101,18 +138,78 @@ def cuda_time_ms(fn, iters, repeats=5):
     return statistics.median(times)
 
 
+def device_ms(fn, iters):
+    """Device time of one ``fn()`` call: the durations of the device events
+    (kernels, copies, fills) that ``iters`` calls launch, from a
+    torch.profiler trace after two warm-up calls, summed and divided by
+    ``iters``. Unlike :func:`cuda_time_ms` it leaves out the host's time
+    between launches, which for a kernel of tens of microseconds behind a
+    Python wrapper can be longer than the kernel itself."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not events:
+        fail("the profiler saw no device time for a timed call")
+    return sum(e.time_range.end - e.time_range.start
+               for e in events) / iters / 1e3
+
+
+def timed(fn, iters):
+    """(device ms, ms a call with host dispatch) of one ``fn()`` call."""
+    return device_ms(fn, iters), cuda_time_ms(fn, iters)
+
+
 def max_err(a, b):
     return float((a.float() - b.float()).abs().max())
 
 
-def record(name, max_abs_err, ms, plain_ms, library_ms, t_bytes, t_ops):
-    """One entry of the kernels' JSON line (launches filled in later)."""
+def kernels():
+    from autodist_tpu_torch.ops import flash_attention as fa
+    return (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkdv)
+
+
+def reset_counts():
+    for kern in kernels():
+        kern.launches = 0
+        kern.launches_by_variant = {}
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches made to compare or time a kernel do not count toward the
+    main paths' numbers: the counts are restored on the way out."""
+    saved = [(k.launches, dict(k.launches_by_variant)) for k in kernels()]
+    try:
+        yield
+    finally:
+        for kern, (n, by_variant) in zip(kernels(), saved):
+            kern.launches = n
+            kern.launches_by_variant = by_variant
+
+
+def record(name, path, max_abs_err, ms, plain_ms, library_ms, t_bytes,
+           t_ops, call_ms):
+    """One entry of the kernels' JSON line for ``path``'s shape (launches
+    filled in later). ``ms``, ``plain_ms`` and ``library_ms`` are device
+    times (:func:`device_ms`); ``call_ms`` is the kernel's time a call
+    with its wrapper's host dispatch (:func:`cuda_time_ms`)."""
     source, replaces = KERNEL_SOURCES[name]
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": 0, "max_abs_err": max_abs_err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library_ms}
+            "library_ms": library_ms, "call_ms": call_ms,
+            "design": MAIN_DESIGN[name],
+            "design_launches": 0, "earlier_ms": EARLIER_MS[(name, path)]}
 
 
 def check_rel(name, got, want, tol):
@@ -168,8 +265,9 @@ def segs_for(cursor):
 
 
 def kernel_phase(card):
-    """Kernel vs plain version; returns the flash_fwd record (without its
-    main-path launch count). ``card`` tags the timing line."""
+    """Kernel vs plain version; returns the flash_fwd record at the decode
+    shape (without its main-path launch count). ``card`` tags the timing
+    line."""
     import torch
     import torch.nn.functional as F
     from autodist_tpu_torch.ops import flash_attention as fa
@@ -177,7 +275,8 @@ def kernel_phase(card):
     errs = []
     print("phase 2: flash_fwd vs flash_fwd_reference")
     for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
-        tag = str(dtype).replace("torch.", "")
+        tag = "%s, %s" % (str(dtype).replace("torch.", ""),
+                          fa._fwd_variant(dtype))
         q, k, v, cursor = decode_inputs(dtype, seed=1)
         q_seg, kv_seg = segs_for(cursor)
         layer = 3
@@ -186,9 +285,9 @@ def kernel_phase(card):
         ref, ref_lse = fa.flash_fwd_reference(q[:, None], k[:, layer],
                                               v[:, layer], q_seg, kv_seg)
         torch.cuda.synchronize()
-        errs.append(check_close("decode %s out [32,1,256,16,64]" % tag,
+        errs.append(check_close("decode out [32,1,256,16,64] (%s)" % tag,
                                 out, ref, tol))
-        check_close("decode %s lse" % tag, lse, ref_lse, tol)
+        check_close("decode lse (%s)" % tag, lse, ref_lse, tol)
 
         gen = torch.Generator(device="cuda").manual_seed(2)
         shape = (8, 256, HEADS, HEAD_DIM)   # [B, S, H, D] = [8,16,256,64]
@@ -205,9 +304,10 @@ def kernel_phase(card):
             ref, ref_lse = fa.flash_fwd_reference(pq, pk, pv, qs, ks,
                                                   causal=True)
             torch.cuda.synchronize()
-            errs.append(check_close("prefill %s %s" % (tag, name), out, ref,
+            errs.append(check_close("prefill %s (%s)" % (name, tag), out, ref,
                                     tol))
-            check_close("prefill %s %s lse" % (tag, name), lse, ref_lse, tol)
+            check_close("prefill %s lse (%s)" % (name, tag), lse, ref_lse,
+                        tol)
             if name == "causal+empty row":
                 if bool(out[:, 5].float().abs().max() != 0) or \
                         bool(lse[:, :, 5].abs().max() != 0):
@@ -231,15 +331,21 @@ def kernel_phase(card):
                 f(i)
         return run
 
-    launches_before = fa.flash_fwd.launches
-    ms = cuda_time_ms(over_layers(lambda i: fa.flash_fwd(
-        q1, k[:, i], v[:, i], q_seg, kv_seg)), 20) / LAYERS
-    plain_ms = cuda_time_ms(over_layers(lambda i: fa.flash_fwd_reference(
-        q1, k[:, i], v[:, i], q_seg, kv_seg)), 5) / LAYERS
-    library_ms = cuda_time_ms(over_layers(
-        lambda i: F.scaled_dot_product_attention(qh, kh[i], vh[i],
-                                                 attn_mask=mask)), 20) / LAYERS
-    fa.flash_fwd.launches = launches_before  # comparison launches do not count
+    def per_layer(f, iters):
+        return [t / LAYERS for t in timed(over_layers(f), iters)]
+
+    with uncounted():   # kernel, earlier design, kernel again, in turns
+        ms, call_ms = per_layer(lambda i: fa.flash_fwd(
+            q1, k[:, i], v[:, i], q_seg, kv_seg), 20)
+        earlier_ms, earlier_call_ms = per_layer(lambda i: fa.flash_fwd(
+            q1, k[:, i], v[:, i], q_seg, kv_seg, variant="scalar bf16"), 20)
+        ms_again, _ = per_layer(lambda i: fa.flash_fwd(
+            q1, k[:, i], v[:, i], q_seg, kv_seg), 20)
+        plain_ms, _ = per_layer(lambda i: fa.flash_fwd_reference(
+            q1, k[:, i], v[:, i], q_seg, kv_seg), 5)
+        library_ms, library_call_ms = per_layer(
+            lambda i: F.scaled_dot_product_attention(qh, kh[i], vh[i],
+                                                     attn_mask=mask), 20)
 
     live_rows = int((cursor.long() + 1).sum())
     itemsize = 2
@@ -251,19 +357,23 @@ def kernel_phase(card):
     t_bytes = bytes_moved / H100_BYTES_PER_S * 1e3
     t_ops = flops / H100_BF16_FLOPS * 1e3
     bound_ms = max(t_bytes, t_ops)
-    print("  decode bf16 [32,1,256,16,64] (%d live rows): kernel %.4f ms, "
-          "plain %.4f ms, sdpa %.4f ms, bound %.4f ms (%s) [%s]"
-          % (live_rows, ms, plain_ms, library_ms, bound_ms,
+    print("  decode bf16 [32,1,256,16,64] (%d live rows), device ms (a call "
+          "with host dispatch): kernel (%s) %.4f (%.4f), again %.4f; earlier "
+          "design (scalar bf16) %.4f (%.4f); plain %.4f; sdpa %.4f (%.4f); "
+          "bound %.4f (%s) [%s]"
+          % (live_rows, fa._fwd_variant(torch.bfloat16), ms, call_ms,
+             ms_again, earlier_ms, earlier_call_ms, plain_ms, library_ms,
+             library_call_ms, bound_ms,
              "bytes" if t_bytes >= t_ops else "operations", card))
-    return record("flash_fwd", max(errs), ms, plain_ms, library_ms, t_bytes,
-                  t_ops)
+    return record("flash_fwd", "serve", max(errs), ms, plain_ms, library_ms,
+                  t_bytes, t_ops, call_ms)
 
 
 def bwd_kernel_phase(card):
     """Both backward kernels vs their plain versions, and the forward kernel
     at the training shape (whose out and lse feed them) vs its own; returns
     the two backward records (without main-path launch counts) and the
-    forward's numbers at the training shape."""
+    forward's record at the training shape."""
     import torch
     import torch.nn.functional as F
     from autodist_tpu_torch.ops import flash_attention as fa
@@ -274,6 +384,9 @@ def bwd_kernel_phase(card):
     train_shape = (TRAIN_BATCH, TRAIN_SEQ, HEADS, HEAD_DIM)
     for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
         tag = str(dtype).replace("torch.", "")
+        designs = {"flash_fwd": fa._fwd_variant(dtype),
+                   "flash_bwd_dq": fa._dq_variant(dtype),
+                   "flash_bwd_dkdv": fa._dkdv_variant(dtype)}
         gen = torch.Generator(device="cuda").manual_seed(4)
         train = [torch.randn(train_shape, generator=gen, device="cuda")
                  .to(dtype) for _ in range(4)]
@@ -291,9 +404,10 @@ def bwd_kernel_phase(card):
             ref, ref_lse = fa.flash_fwd_reference(q, k, v, *segs,
                                                   causal=True)
             torch.cuda.synchronize()
+            what = "%s %s (%s)" % (tag, name, designs["flash_fwd"])
             errs["flash_fwd"].append(max(
-                check_close("out %s %s" % (tag, name), out, ref, tol),
-                check_close("lse %s %s" % (tag, name), lse, ref_lse, tol)))
+                check_close("out " + what, out, ref, tol),
+                check_close("lse " + what, lse, ref_lse, tol)))
             delta = fa.flash_bwd_delta(out, do)
             args = (q, k, v, do, lse, delta, *segs)
             dq = fa.flash_bwd_dq(*args, causal=True)
@@ -302,85 +416,95 @@ def bwd_kernel_phase(card):
             dk_ref, dv_ref = fa.flash_bwd_dkdv_reference(*args, causal=True)
             torch.cuda.synchronize()
             errs["flash_bwd_dq"].append(check_rel(
-                "dq %s %s" % (tag, name), dq, dq_ref, tol))
-            for g, r, what in ((dk, dk_ref, "dk"), (dv, dv_ref, "dv")):
+                "dq %s %s (%s)" % (tag, name, designs["flash_bwd_dq"]), dq,
+                dq_ref, tol))
+            for g, r, grad in ((dk, dk_ref, "dk"), (dv, dv_ref, "dv")):
                 errs["flash_bwd_dkdv"].append(check_rel(
-                    "%s %s %s" % (what, tag, name), g, r, tol))
+                    "%s %s %s (%s)" % (grad, tag, name,
+                                       designs["flash_bwd_dkdv"]),
+                    g, r, tol))
             if segs[0] is not None:
                 if bool(dq[:, 5].float().abs().max() != 0):
                     fail("an empty query row did not get a 0 gradient")
                 print("  empty query row: dq 0")
 
     # timing at the training shape, bf16 causal (4 x 16.8 MB of inputs, so
-    # L2 holds at most part of them, as for a layer of the main path)
+    # L2 holds at most part of them, as for a layer of the main path); the
+    # kernels' designs in turns with the earlier scalar bf16 ones
     gen = torch.Generator(device="cuda").manual_seed(5)
     q, k, v, do = (torch.randn(train_shape, generator=gen, device="cuda")
                    .to(torch.bfloat16) for _ in range(4))
-    out, lse = fa.flash_fwd(q, k, v, causal=True)
-    delta = fa.flash_bwd_delta(out, do)
-    args = (q, k, v, do, lse, delta)
-    before = (fa.flash_bwd_dq.launches, fa.flash_bwd_dkdv.launches)
-    ms = {"flash_bwd_dq": cuda_time_ms(
-              lambda: fa.flash_bwd_dq(*args, causal=True), 20),
-          "flash_bwd_dkdv": cuda_time_ms(
-              lambda: fa.flash_bwd_dkdv(*args, causal=True), 20)}
-    plain = {"flash_bwd_dq": cuda_time_ms(
-                 lambda: fa.flash_bwd_dq_reference(*args, causal=True), 3),
-             "flash_bwd_dkdv": cuda_time_ms(
-                 lambda: fa.flash_bwd_dkdv_reference(*args, causal=True), 3)}
-    fwd_before = fa.flash_fwd.launches
-    fwd_ms = cuda_time_ms(lambda: fa.flash_fwd(q, k, v, causal=True), 20)
-    fwd_plain_ms = cuda_time_ms(
-        lambda: fa.flash_fwd_reference(q, k, v, causal=True), 3)
-    fa.flash_fwd.launches = fwd_before
-    fa.flash_bwd_dq.launches, fa.flash_bwd_dkdv.launches = before
-    # library yardstick: the backward of SDPA (its own fused kernel, which
-    # computes dq, dk and dv together), asked for each kernel's outputs
+    with uncounted():
+        out, lse = fa.flash_fwd(q, k, v, causal=True)
+        delta = fa.flash_bwd_delta(out, do)
+        args = (q, k, v, do, lse, delta)
+        calls = {
+            "flash_fwd": lambda **kw: fa.flash_fwd(q, k, v, causal=True,
+                                                   **kw),
+            "flash_bwd_dq": lambda: fa.flash_bwd_dq(*args, causal=True),
+            "flash_bwd_dkdv": lambda **kw: fa.flash_bwd_dkdv(
+                *args, causal=True, **kw)}
+        ms, call, earlier, again = {}, {}, {}, {}
+        for name in ("flash_fwd", "flash_bwd_dkdv"):   # in turns
+            ms[name], call[name] = timed(calls[name], 20)
+            earlier[name] = timed(
+                lambda: calls[name](variant="scalar bf16"), 20)
+            again[name] = device_ms(calls[name], 20)
+        ms["flash_bwd_dq"], call["flash_bwd_dq"] = timed(
+            calls["flash_bwd_dq"], 20)
+        plain = {"flash_fwd": device_ms(
+                     lambda: fa.flash_fwd_reference(q, k, v, causal=True), 3),
+                 "flash_bwd_dq": device_ms(
+                     lambda: fa.flash_bwd_dq_reference(*args, causal=True),
+                     3),
+                 "flash_bwd_dkdv": device_ms(
+                     lambda: fa.flash_bwd_dkdv_reference(*args, causal=True),
+                     3)}
+    # library yardstick: SDPA's forward, and its backward (its own fused
+    # kernel, which computes dq, dk and dv together) asked for each
+    # kernel's outputs
     qh, kh, vh = (x.transpose(1, 2).detach().requires_grad_()
                   for x in (q, k, v))
     oh = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
     doh = do.transpose(1, 2)
-    library = {"flash_bwd_dq": cuda_time_ms(lambda: torch.autograd.grad(
+    library = {"flash_fwd": timed(
+                   lambda: F.scaled_dot_product_attention(
+                       qh, kh, vh, is_causal=True), 20),
+               "flash_bwd_dq": timed(lambda: torch.autograd.grad(
                    oh, (qh,), doh, retain_graph=True), 20),
-               "flash_bwd_dkdv": cuda_time_ms(lambda: torch.autograd.grad(
+               "flash_bwd_dkdv": timed(lambda: torch.autograd.grad(
                    oh, (kh, vh), doh, retain_graph=True), 20)}
-
-    sdpa_fwd_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
-        qh, kh, vh, is_causal=True), 20)
 
     n = TRAIN_BATCH * TRAIN_SEQ * HEADS * HEAD_DIM      # elements a tensor
     rows = TRAIN_BATCH * HEADS * TRAIN_SEQ              # lse / delta rows
     live = TRAIN_BATCH * HEADS * TRAIN_SEQ * (TRAIN_SEQ + 1) // 2  # causal
-    # forward: q, k, v read once, out and lse written once; s and p.v
-    fwd_bytes = (3 * n + n) * 2 + rows * 4
-    fwd_flops = 2 * 2 * live * HEAD_DIM
-    fwd = record("flash_fwd", max(errs["flash_fwd"]), fwd_ms, fwd_plain_ms,
-                 sdpa_fwd_ms, fwd_bytes / H100_BYTES_PER_S * 1e3,
-                 fwd_flops / H100_BF16_FLOPS * 1e3)
-    print("  flash_fwd bf16 [64,128,16,64] causal (the training shape): "
-          "kernel %.4f ms, plain %.4f ms, sdpa %.4f ms, bound %.4f ms (%s: "
-          "%.1f MB, %.2f GFLOP) [%s]"
-          % (fwd_ms, fwd_plain_ms, sdpa_fwd_ms, fwd["bound_ms"],
-             fwd["bound_by"], fwd_bytes / 1e6, fwd_flops / 1e9, card))
     work = {  # (bytes: inputs read once + outputs written once, flops)
+        "flash_fwd": ((3 * n + n) * 2 + rows * 4,     # q, k, v; out, lse
+                      2 * 2 * live * HEAD_DIM),       # s, p.v
         "flash_bwd_dq": ((4 * n + n) * 2 + 2 * rows * 4,
                          3 * 2 * live * HEAD_DIM),    # s, dp, dq products
         "flash_bwd_dkdv": ((4 * n + 2 * n) * 2 + 2 * rows * 4,
                            4 * 2 * live * HEAD_DIM)}  # s, dp, dv, dk
-    records = []
+    records = {}
     for name, (nbytes, flops) in work.items():
         t_bytes = nbytes / H100_BYTES_PER_S * 1e3
         t_ops = flops / H100_BF16_FLOPS * 1e3
-        rec = record(name, max(errs[name]), ms[name], plain[name],
-                     library[name], t_bytes, t_ops)
-        print("  %s bf16 [64,128,16,64] causal: kernel %.4f ms, plain %.4f "
-              "ms, sdpa backward %.4f ms, bound %.4f ms (%s: %.1f MB, "
-              "%.2f GFLOP) [%s]"
-              % (name, rec["ms"], rec["plain_ms"], rec["library_ms"],
-                 rec["bound_ms"], rec["bound_by"], nbytes / 1e6,
-                 flops / 1e9, card))
-        records.append(rec)
-    return records, fwd
+        rec = record(name, "train", max(errs[name]), ms[name], plain[name],
+                     library[name][0], t_bytes, t_ops, call[name])
+        turns = ""
+        if name in earlier:
+            turns = ("; again %.4f; earlier design (scalar bf16) %.4f (%.4f)"
+                     % (again[name], *earlier[name]))
+        print("  %s bf16 [64,128,16,64] causal, device ms (a call with host "
+              "dispatch): kernel (%s) %.4f (%.4f)%s; plain %.4f; sdpa %s "
+              "%.4f (%.4f); bound %.4f (%s: %.1f MB, %.2f GFLOP) [%s]"
+              % (name, rec["design"], rec["ms"], rec["call_ms"], turns,
+                 rec["plain_ms"],
+                 "forward" if name == "flash_fwd" else "backward",
+                 *library[name], rec["bound_ms"], rec["bound_by"],
+                 nbytes / 1e6, flops / 1e9, card))
+        records[name] = rec
+    return records
 
 
 # ------------------------------------------------------------- phase 3/4
@@ -429,8 +553,8 @@ def device_profile(run, label):
 def serve(cfg, loss_fn, params, batch, decode_attn, dcfg, prompts,
           profile_prompts=None):
     """Build -> init -> DecodeEngine through the public entry points;
-    returns (results, engine stats, wall seconds, flash_fwd launches in
-    the timed run, runner)."""
+    returns (results, engine stats, wall seconds, flash_fwd's launches by
+    design in the timed run, runner)."""
     import torch
     import autodist_tpu_torch as adt
     from autodist_tpu_torch import strategy
@@ -448,13 +572,16 @@ def serve(cfg, loss_fn, params, batch, decode_attn, dcfg, prompts,
         engine.warmup()
         torch.cuda.synchronize()
         from autodist_tpu_torch.ops import flash_attention as fa
-        fa.flash_fwd.launches = 0
+        reset_counts()
         t0 = time.perf_counter()
         futures = [engine.submit(p) for p in prompts]
         results = [f.result(timeout=600) for f in futures]
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = fa.flash_fwd.launches
+        launches = dict(fa.flash_fwd.launches_by_variant)
+        if sum(launches.values()) != fa.flash_fwd.launches:
+            fail("flash_fwd's launches by design do not add up: %r vs %d"
+                 % (launches, fa.flash_fwd.launches))
         stats = engine.stats()
         if profile_prompts:
             def submit_all():
@@ -497,12 +624,11 @@ def train_flops_per_step(cfg, n_params):
 
 def train_phase(card):
     """Phase 5: lm1b full width, bf16, lean head, flash attention. Returns
-    the launches of each kernel over the phase's steps."""
+    each kernel's launches by design over the phase's steps."""
     import math
     import statistics
     import torch
     from autodist_tpu_torch.models import lm
-    from autodist_tpu_torch.ops import flash_attention as fa
     print("phase 5: lm1b full width (bf16, seq %d, batch %d, lean head, "
           "flash) through AutoDist -> Runner.init -> Runner.run"
           % (TRAIN_SEQ, TRAIN_BATCH))
@@ -513,9 +639,7 @@ def train_phase(card):
     n_params = sum(int(p.numel()) for p in params.values())
     print("  %d parameters (random, seed 0), setup %.1f s"
           % (n_params, time.perf_counter() - t0))
-    kernels = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkdv)
-    for kern in kernels:
-        kern.launches = 0
+    reset_counts()
     warmup, timed = 2, 10
     losses, times = [], []
     torch.cuda.reset_peak_memory_stats()
@@ -525,7 +649,7 @@ def train_phase(card):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         losses.append(float(metrics["loss"]))
-    launches = {k.__name__: k.launches for k in kernels}
+    launches = {k.__name__: dict(k.launches_by_variant) for k in kernels()}
     steps = warmup + timed
     print("  losses: %s" % " ".join("%.4f" % x for x in losses))
     if not all(math.isfinite(x) for x in losses):
@@ -533,10 +657,13 @@ def train_phase(card):
     if not losses[-1] < losses[0]:
         fail("training: the loss did not fall (%.4f -> %.4f)"
              % (losses[0], losses[-1]))
-    for name, n in launches.items():
-        if n != cfg.num_layers * steps:
-            fail("training: %s launched %d times over %d steps (want %d)"
-                 % (name, n, steps, cfg.num_layers * steps))
+    for kern in kernels():
+        want = {MAIN_DESIGN[kern.__name__]: cfg.num_layers * steps}
+        if kern.launches != cfg.num_layers * steps or \
+                launches[kern.__name__] != want:
+            fail("training: %s launched %d times over %d steps, by design "
+                 "%r (want %r)" % (kern.__name__, kern.launches, steps,
+                                   launches[kern.__name__], want))
     final = runner.gather_params()
     if any(t.dtype != torch.float32 for t in final.values()):
         fail("training: the master params are not all float32")
@@ -583,7 +710,15 @@ def train_parity_phase():
     got = {}
     for attention in ("flash", "default"):
         runner, _, batch = train_runner(cfg, 8, attention)
+        reset_counts()
         losses = [float(runner.run(batch)["loss"]) for _ in range(steps)]
+        designs = {k.__name__: dict(k.launches_by_variant)
+                   for k in kernels()}
+        if attention == "flash" and any(
+                d != {"scalar f32": cfg.num_layers * steps}
+                for d in designs.values()):
+            fail("training parity: the f32 flash kernels ran %r (want "
+                 "scalar f32, 8 a step)" % (designs,))
         got[attention] = (losses, runner.gather_params())
         print("  %-8s losses %s" % (attention,
                                     " ".join("%.6f" % x for x in losses)))
@@ -634,15 +769,14 @@ def main():
         fail(str(e))
     print("phase 1: built %s in %.1f s" % (", ".join(cuda_build.KERNELS),
                                            time.perf_counter() - t0))
+    if not cuda_build.build_logs:
+        print("  (the libraries were built before this run: no ptxas report)")
     for name, log in cuda_build.build_logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                print("  %s: %s" % (name, line.strip()))
+        for kernel, usage in ptxas_usage(log):
+            print("  %s: %s: %s" % (name, kernel, usage))
 
-    records = {"flash_fwd": kernel_phase(card)}
-    bwd_records, fwd_train = bwd_kernel_phase(card)
-    for rec in bwd_records:
-        records[rec["name"]] = rec
+    fwd_serve = kernel_phase(card)
+    records = bwd_kernel_phase(card)
 
     # phase 3 — lm1b at full width, bf16, flash decode
     import numpy as np
@@ -675,13 +809,14 @@ def main():
         if toks.shape != (32,) or toks.min() < 0 or \
                 toks.max() >= cfg.vocab_size or r["prompt_len"] != len(p):
             fail("serving: a result has the wrong shape or ids: %r" % (r,))
-    if launches != cfg.num_layers * steps or steps == 0:
-        fail("flash_fwd launched %d times over %d decode steps (want %d)"
-             % (launches, steps, cfg.num_layers * steps))
+    want = {MAIN_DESIGN["flash_fwd"]: cfg.num_layers * steps}
+    if launches != want or steps == 0:
+        fail("flash_fwd launched %r over %d decode steps (want %r)"
+             % (launches, steps, want))
     serve_launches = launches
     generated = sum(len(r["tokens"]) for r in results)
     print("  %d prompts, %d tokens in %.3f s: %.1f tokens/s, %d decode "
-          "steps, token p50 %.3f ms p99 %.3f ms, flash_fwd launches %d "
+          "steps, token p50 %.3f ms p99 %.3f ms, flash_fwd launches %r "
           "(= %d x %d steps) [%s]"
           % (len(prompts), generated, wall, generated / wall, steps,
              stats["token_p50_ms"], stats["token_p99_ms"], launches,
@@ -694,11 +829,14 @@ def main():
     dcfg8 = DecodeConfig(slots=8, max_new_tokens=8, prefill_len=64)
     got = {}
     for attn in ("flash", "reference"):
-        res, st, _, _, runner = serve(cfg32, loss_fn, params, batch, attn,
-                                      dcfg8, prompts8)
+        res, st, _, f32_launches, runner = serve(
+            cfg32, loss_fn, params, batch, attn, dcfg8, prompts8)
         if st["errors"] != 0 or st["completed"] != len(prompts8):
             fail("parity %s: %d errors, %d completed"
                  % (attn, st["errors"], st["completed"]))
+        if attn == "flash" and set(f32_launches) != {"scalar f32"}:
+            fail("f32 flash decode ran the designs %r (want scalar f32)"
+                 % (f32_launches,))
         got[attn] = [list(map(int, r["tokens"])) for r in res]
     if got["flash"] != got["reference"]:
         fail("flash and reference decode differ: %r vs %r"
@@ -718,29 +856,34 @@ def main():
             if want != toks:
                 fail("decode diverged from greedy recompute: %r vs %r"
                      % (toks, want))
-    print("  8 prompts: flash == reference token for token; 4 checked "
-          "against greedy full recompute")
+    print("  8 prompts: flash (scalar f32) == reference token for token; 4 "
+          "checked against greedy full recompute")
 
     train_launches = train_phase(card)
     train_parity_phase()
 
     # flash_fwd runs on both main paths, serving (decode) and training, the
     # backward kernels in training. Each record's top-level numbers are its
-    # first path's; "by_path" gives each path's launches, times and bound
-    timed = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-             "library_ms")
-    fwd = records["flash_fwd"]
-    by_path = {"flash_fwd": {"serve": (serve_launches, fwd),
+    # first path's; "by_path" gives each path's launches, design, times and
+    # bound; "launches" and "design_launches" sum over the paths
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "call_ms", "design", "earlier_ms")
+    by_path = {"flash_fwd": {"serve": (serve_launches, fwd_serve),
                              "train": (train_launches["flash_fwd"],
-                                       fwd_train)}}
+                                       records["flash_fwd"])}}
     for name in ("flash_bwd_dq", "flash_bwd_dkdv"):
         by_path[name] = {"train": (train_launches[name], records[name])}
+    records["flash_fwd"] = dict(fwd_serve, max_abs_err=max(
+        fwd_serve["max_abs_err"], records["flash_fwd"]["max_abs_err"]))
     for name, rec in records.items():
-        rec["by_path"] = {path: dict({"launches": n},
-                                     **{key: r[key] for key in timed})
-                          for path, (n, r) in by_path[name].items()}
-        rec["launches"] = sum(n for n, _ in by_path[name].values())
-    fwd["max_abs_err"] = max(fwd["max_abs_err"], fwd_train["max_abs_err"])
+        rec["by_path"] = {
+            path: dict({"launches": sum(n.values()),
+                        "design_launches": n.get(r["design"], 0)},
+                       **{key: r[key] for key in keys})
+            for path, (n, r) in by_path[name].items()}
+        rec["launches"] = sum(p["launches"] for p in rec["by_path"].values())
+        rec["design_launches"] = sum(p["design_launches"]
+                                     for p in rec["by_path"].values())
 
     import autodist_tpu_torch as adt
     adt.reset()

@@ -38,8 +38,11 @@ def test_cuda_kernel_matches_plain_version(dtype, tol):
     q_seg = torch.ones((32, 1), dtype=torch.int32, device="cuda")
     kv_seg = (torch.arange(256, device="cuda")[None] <= cursor[:, None]).int()
     before = tfa.flash_fwd.launches
+    variant = tfa._fwd_variant(dtype)
+    by_variant = tfa.flash_fwd.launches_by_variant.get(variant, 0)
     out, lse = tfa.flash_fwd(q, cache[:, 0], cache[:, 1], q_seg, kv_seg)
     assert tfa.flash_fwd.launches == before + 1
+    assert tfa.flash_fwd.launches_by_variant[variant] == by_variant + 1
     ref, ref_lse = tfa.flash_fwd_reference(q, cache[:, 0], cache[:, 1],
                                            q_seg, kv_seg)
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
@@ -86,8 +89,12 @@ def test_cuda_bwd_kernel_matches_plain_version(kernel, dtype, tol, case):
     args, segs = _bwd_inputs(dtype, sq, sk, causal, segments)
     fn = getattr(tfa, kernel)
     before = fn.launches
+    variant = (tfa._dq_variant if kernel == "flash_bwd_dq"
+               else tfa._dkdv_variant)(dtype)
+    by_variant = fn.launches_by_variant.get(variant, 0)
     got = fn(*args, *segs, causal=causal)
     assert fn.launches == before + 1
+    assert fn.launches_by_variant[variant] == by_variant + 1
     want = getattr(tfa, kernel + "_reference")(*args, *segs, causal=causal)
     got, want = (x if isinstance(x, tuple) else (x,) for x in (got, want))
     for g, w in zip(got, want):
@@ -121,3 +128,93 @@ def test_cuda_flash_attention_grads_go_through_the_kernels():
                 *tfa.flash_bwd_dkdv_reference(*args, causal=True))
     for g, w in zip(grads, want):
         torch.testing.assert_close(g, w, atol=2e-5, rtol=2e-5)
+
+
+# (name, q rows, kv rows, causal): the training shape, a length no tile
+# divides and fewer queries than keys
+_FWD_CASES = [("train", 128, 128, True), ("ragged", 200, 200, True),
+              ("uneven", 72, 200, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("segments", [False, True],
+                         ids=["plain", "segments+empty row"])
+@pytest.mark.parametrize("case", _FWD_CASES, ids=[c[0] for c in _FWD_CASES])
+@pytest.mark.parametrize("dtype,tol,variant", [
+    (torch.float32, 2e-5, None), (torch.bfloat16, 2e-2, None),
+    (torch.bfloat16, 2e-2, "scalar bf16")])
+def test_cuda_forward_designs_match_plain_version(dtype, tol, variant, case,
+                                                  segments):
+    """The forward in the design its rule picks (and the earlier scalar
+    bf16 design, named) vs its plain version: out and lse, ragged edges,
+    segments, and an empty query row giving 0 and lse 0."""
+    _need_card()
+    _, sq, sk, causal = case
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    q = torch.randn((4, sq, 16, 64), generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn((4, sk, 16, 64), generator=gen, device="cuda")
+            .to(dtype) for _ in range(2))
+    segs = (None, None)
+    if segments:
+        seg = (torch.arange(sk, device="cuda") >= 50).int()[None].repeat(
+            4, 1).contiguous()
+        q_seg = seg[:, :sq].clone()
+        q_seg[:, 9] = 7                  # an empty query row
+        segs = (q_seg, seg)
+    want_variant = variant or tfa._fwd_variant(dtype)
+    by_variant = tfa.flash_fwd.launches_by_variant.get(want_variant, 0)
+    out, lse = tfa.flash_fwd(q, k, v, *segs, causal=causal, variant=variant)
+    assert tfa.flash_fwd.launches_by_variant[want_variant] == by_variant + 1
+    ref, ref_lse = tfa.flash_fwd_reference(q, k, v, *segs, causal=causal)
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, ref_lse, atol=tol, rtol=tol)
+    if segments:
+        assert float(out[:, 9].float().abs().max()) == 0.0
+        assert float(lse[:, :, 9].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _BWD_CASES, ids=[c[0] for c in _BWD_CASES])
+def test_cuda_earlier_bf16_dkdv_design_matches_plain_version(case):
+    """The scalar bf16 dK/dV design, named explicitly (the comparison the
+    chip smoke times), still agrees with its plain version."""
+    _need_card()
+    _, sq, sk, causal, segments = case
+    args, segs = _bwd_inputs(torch.bfloat16, sq, sk, causal, segments)
+    got = tfa.flash_bwd_dkdv(*args, *segs, causal=causal,
+                             variant="scalar bf16")
+    want = tfa.flash_bwd_dkdv_reference(*args, *segs, causal=causal)
+    for g, w in zip(got, want):
+        scale = float(w.float().abs().max())
+        assert float((g.float() - w.float()).abs().max()) <= 2e-2 * scale
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_grads_go_through_the_tensor_core_kernels():
+    """Autograd through flash_attention in bf16 with a strided dO: the
+    forward and dK/dV run their tensor-core designs, dQ its scalar one,
+    and the gradients match the plain versions (2e-2 of max|ref|)."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v = (torch.randn((2, 128, 16, 64), generator=gen, device="cuda")
+               .to(torch.bfloat16).requires_grad_() for _ in range(3))
+    do = torch.randn((2, 16, 128, 64), generator=gen, device="cuda").to(
+        torch.bfloat16).transpose(1, 2)   # strided dO
+    kernels = (tfa.flash_fwd, tfa.flash_bwd_dq, tfa.flash_bwd_dkdv)
+    variants = ("mma.sync bf16", "scalar bf16", "mma.sync bf16")
+    before = [f.launches_by_variant.get(n, 0)
+              for f, n in zip(kernels, variants)]
+    out = tfa.flash_attention(q, k, v, causal=True)
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    assert [f.launches_by_variant[n] - b for f, n, b
+            in zip(kernels, variants, before)] == [1, 1, 1]
+    with torch.no_grad():
+        ref_out, lse = tfa.flash_fwd_reference(q, k, v, causal=True)
+        args = (q, k, v, do.contiguous(), lse,
+                tfa.flash_bwd_delta(ref_out, do))
+        want = (tfa.flash_bwd_dq_reference(*args, causal=True),
+                *tfa.flash_bwd_dkdv_reference(*args, causal=True))
+    for g, w in zip(grads, want):
+        assert g.dtype == torch.bfloat16
+        scale = float(w.float().abs().max())
+        assert float((g.float() - w.float()).abs().max()) <= 2e-2 * scale

@@ -348,3 +348,66 @@ def test_bwd_references_match_jax_bwd(causal):
         tq, tk, tv, tdo, lse, delta, tqs, tks, causal), (dk, dv)))
     assert (tfa.flash_bwd_dq.launches,
             tfa.flash_bwd_dkdv.launches) == before
+
+
+# ------------------------------------------------------------- designs
+
+
+# (name, query rows): the lm1b decode step, the training shape and a
+# length no tile divides
+_RULE_SHAPES = [("decode", 1), ("training", 128), ("ragged", 200)]
+
+
+@pytest.mark.parametrize("dtype,want", [(torch.bfloat16, "mma.sync bf16"),
+                                        (torch.float32, "scalar f32")])
+def test_variant_rules_put_bf16_on_tensor_cores_and_f32_on_scalar(dtype,
+                                                                  want):
+    """The fixed dispatch rules, on the dtype alone (the same at the
+    decode, training and ragged lengths): bf16 forward and dK/dV on the
+    tensor-core design, f32 on the scalar one (TF32 would break the f32
+    2e-5 bound), dQ on its scalar design in both dtypes."""
+    assert tfa._fwd_variant(dtype) == want
+    assert tfa._dkdv_variant(dtype) == want
+    assert tfa._dq_variant(dtype) == (
+        "scalar bf16" if dtype == torch.bfloat16 else "scalar f32")
+    for v in (tfa._fwd_variant(dtype), tfa._dkdv_variant(dtype),
+              tfa._dq_variant(dtype)):
+        assert v in tfa.VARIANT_CODE
+
+
+def test_explicit_variant_must_match_the_dtype():
+    assert tfa._pick("flash_fwd", "scalar f32", None,
+                     torch.float32) == "scalar f32"
+    assert tfa._pick("flash_fwd", "mma.sync bf16", "scalar bf16",
+                     torch.bfloat16) == "scalar bf16"
+    with pytest.raises(ValueError, match="no variant"):
+        tfa._pick("flash_fwd", "scalar f32", "mma.sync bf16", torch.float32)
+    with pytest.raises(ValueError, match="no variant"):
+        tfa._pick("flash_bwd_dkdv", "scalar f32", "wgmma", torch.float32)
+
+
+@pytest.mark.parametrize("shape", _RULE_SHAPES, ids=[s[0] for s in
+                                                     _RULE_SHAPES])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cpu_wrappers_take_the_plain_versions_whatever_the_rule(dtype,
+                                                                shape):
+    """On CPU tensors every wrapper is its plain version, whichever design
+    the rule would pick on a card: equal results, no launch counted."""
+    _, sq = shape
+    sk = 72 if sq == 1 else sq
+    q, do = (_t(_rand((1, sq, 1, 64), seed=60 + i), dtype) for i in range(2))
+    k, v = (_t(_rand((1, sk, 1, 64), seed=62 + i), dtype) for i in range(2))
+    kernels = (tfa.flash_fwd, tfa.flash_bwd_dq, tfa.flash_bwd_dkdv)
+    before = [(f.launches, dict(f.launches_by_variant)) for f in kernels]
+    out, lse = tfa.flash_fwd(q, k, v, causal=sq > 1)
+    ref, ref_lse = tfa.flash_fwd_reference(q, k, v, causal=sq > 1)
+    assert torch.equal(out, ref) and torch.equal(lse, ref_lse)
+    delta = tfa.flash_bwd_delta(out, do)
+    args = (q, k, v, do, lse, delta)
+    assert torch.equal(tfa.flash_bwd_dq(*args, causal=sq > 1),
+                       tfa.flash_bwd_dq_reference(*args, causal=sq > 1))
+    for g, w in zip(tfa.flash_bwd_dkdv(*args, causal=sq > 1),
+                    tfa.flash_bwd_dkdv_reference(*args, causal=sq > 1)):
+        assert torch.equal(g, w)
+    assert [(f.launches, dict(f.launches_by_variant))
+            for f in kernels] == before

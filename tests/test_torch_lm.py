@@ -169,7 +169,7 @@ def test_greedy_prefill_and_decode_match_jax_tokens(models, decode_attn):
     with torch.inference_mode():
         pre = setup.prefill_fn(tparams, {"tokens": torch.as_tensor(toks),
                                          "length": torch.as_tensor(plen)})
-        dstate = setup.init_dstate(len(prompts))
+        dstate = setup.init_dstate(len(prompts), device="cpu")
         dstate.update(k=pre["k"].clone(), v=pre["v"].clone(),
                       token=pre["next_token"],
                       cursor=torch.as_tensor(plen),
@@ -182,3 +182,17 @@ def test_greedy_prefill_and_decode_match_jax_tokens(models, decode_attn):
             for i in range(len(prompts)):
                 generated[i].append(int(out["next_token"][i]))
     assert generated == jax_greedy(japply, jparams, prompts, 6)
+
+
+def test_init_dstate_follows_the_entry_points_device_rule(monkeypatch):
+    """``init_dstate`` builds the cache where it is told; with no device it
+    takes the entry points' default, cuda, and raises when no card is
+    visible rather than build a CPU cache under a CUDA runner."""
+    setup = tlm.make_decode_setup(tlm.LMConfig.tiny())
+    dstate = setup.init_dstate(2, device="cpu")
+    assert set(dstate) == {"k", "v", "token", "cursor", "alive"}
+    assert all(t.device.type == "cpu" for t in dstate.values())
+    assert dstate["k"].shape[0] == 2
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        setup.init_dstate(2)
