@@ -22,6 +22,7 @@ from autodist_tpu_torch.resource_spec import ResourceSpec
 from autodist_tpu_torch.runtime.runner import Runner
 from autodist_tpu_torch.strategy.base import Strategy, StrategyCompiler
 from autodist_tpu_torch.utils import logging
+from autodist_tpu_torch.utils.device import resolve_device
 
 _DEFAULT_AUTODIST = {}
 
@@ -52,20 +53,6 @@ def reset():
         engine.close()
     from autodist_tpu_torch.telemetry import spans as _tspans
     _tspans.reset()
-
-
-def resolve_device(device=None) -> torch.device:
-    """The entry points' device rule: ``None`` means ``cuda``, and a CUDA
-    device with no card visible raises — nothing falls back to the CPU
-    unless the caller asked for it."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "autodist_tpu_torch runs on a CUDA device by default and none "
-            "is available; pass device='cpu' to run on the CPU")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError("device must be cuda or cpu, got %r" % (device,))
-    return dev
 
 
 class AutoDist:

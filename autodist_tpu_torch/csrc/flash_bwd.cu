@@ -44,18 +44,18 @@
 //   stay in f32 registers and are written once. As in the forward, only
 //   tiles at an edge, with ids or on the diagonal are masked, and the
 //   scale is folded into the exponent; three blocks share an SM.
-// - flash_bwd_dq_kernel (both dtypes) and flash_bwd_dkdv_kernel (f32, and
-//   the earlier bf16 design): scalar FMA over tiles staged in shared memory
-//   as f32 with a padded leading dimension; a block owns 16 rows (four
-//   warps, four rows each), each lane two score and two output columns.
-//   f32 stays here: on the tensor cores f32 operands would be TF32, about
-//   three digits, and the f32 paths are held to 2e-5.
+// - flash_bwd_dq_kernel (both dtypes) and flash_bwd_dkdv_kernel (f32):
+//   scalar FMA over tiles staged in shared memory as f32 with a padded
+//   leading dimension; a block owns 16 rows (four warps, four rows each),
+//   each lane two score and two output columns. f32 dK/dV stays here: on
+//   the tensor cores f32 operands would be TF32, about three digits, and
+//   the f32 paths are held to 2e-5.
 //
 // Bound. At lm1b training ([64, 128, 16, 64] bf16, causal) both kernels are
 // bound by bytes on this card (about 85 MB for dQ and 102 MB for dK/dV,
 // each input read once and each output written once, 0.025 and 0.030 ms
 // at 3.35 TB/s, against 3.3 and 4.4 GFLOP over the live causal half). The
-// tensor-core dK/dV design removes what held the scalar one back
+// tensor-core dK/dV design removes what held the scalar design back
 // (shared-memory operand loads for every FMA, f32 staging, 16-row tiles
 // that re-read Q and dO eight times at S = 128, loads not overlapped with
 // compute). What still holds it above the byte bound: 168 registers a
@@ -335,7 +335,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dkdv_kernel(const Args a) {
   __shared__ float k_s[kRows * kD];
@@ -358,15 +357,16 @@ __global__ void __launch_bounds__(kThreads)
   const int k_valid = min(kRows, a.Sk - k0);
   const bool has_seg = a.q_seg != nullptr;
 
-  const T* kb = static_cast<const T*>(a.k) + b * a.k_sb +
-                static_cast<long long>(k0) * a.k_ss + h * a.k_sh;
-  const T* vb = static_cast<const T*>(a.v) + b * a.v_sb +
-                static_cast<long long>(k0) * a.v_ss + h * a.v_sh;
-  const T* qb = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const T* ob = static_cast<const T*>(a.dout) + b * a.o_sb + h * a.o_sh;
+  const float* kb = static_cast<const float*>(a.k) + b * a.k_sb +
+                    static_cast<long long>(k0) * a.k_ss + h * a.k_sh;
+  const float* vb = static_cast<const float*>(a.v) + b * a.v_sb +
+                    static_cast<long long>(k0) * a.v_ss + h * a.v_sh;
+  const float* qb = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const float* ob =
+      static_cast<const float*>(a.dout) + b * a.o_sb + h * a.o_sh;
 
-  load_tile<T, kD>(k_s, kb, a.k_ss, kRows, k_valid);
-  load_tile<T, kD>(v_s, vb, a.v_ss, kRows, k_valid);
+  load_tile<float, kD>(k_s, kb, a.k_ss, kRows, k_valid);
+  load_tile<float, kD>(v_s, vb, a.v_ss, kRows, k_valid);
   if (threadIdx.x < kRows) {
     const int r = threadIdx.x;
     kseg_s[r] = (has_seg && r < k_valid)
@@ -409,10 +409,10 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
 
-    load_tile<T, kLD>(q_s, qb + static_cast<long long>(q0) * a.q_ss, a.q_ss,
-                      kTile, q_valid);
-    load_tile<T, kLD>(do_s, ob + static_cast<long long>(q0) * a.o_ss, a.o_ss,
-                      kTile, q_valid);
+    load_tile<float, kLD>(q_s, qb + static_cast<long long>(q0) * a.q_ss,
+                          a.q_ss, kTile, q_valid);
+    load_tile<float, kLD>(do_s, ob + static_cast<long long>(q0) * a.o_ss,
+                          a.o_ss, kTile, q_valid);
     for (int j = threadIdx.x; j < kTile; j += kThreads) {
       lse_s[j] = j < q_valid ? a.lse[row_base + q0 + j] : 0.f;
       delta_s[j] = j < q_valid ? a.delta[row_base + q0 + j] : 0.f;
@@ -458,12 +458,12 @@ __global__ void __launch_bounds__(kThreads)
         const float e0 = expf(s0 - lse_s[lane]);
         const float e1 = expf(s1 - lse_s[lane + 32]);
         // _dkdv_kernel: p = exp(s - lse).astype(do.dtype) for dV, and
-        // ds = (exp(s - lse) * (dp - delta) * scale).astype(q.dtype)
-        p_s[warp][lane] = round_to<T>(e0);
-        p_s[warp][lane + 32] = round_to<T>(e1);
-        ds_s[warp][lane] = round_to<T>(e0 * (dp0 - delta_s[lane]) * a.scale);
-        ds_s[warp][lane + 32] =
-            round_to<T>(e1 * (dp1 - delta_s[lane + 32]) * a.scale);
+        // ds = (exp(s - lse) * (dp - delta) * scale).astype(q.dtype), both
+        // exact in f32
+        p_s[warp][lane] = e0;
+        p_s[warp][lane + 32] = e1;
+        ds_s[warp][lane] = e0 * (dp0 - delta_s[lane]) * a.scale;
+        ds_s[warp][lane + 32] = e1 * (dp1 - delta_s[lane + 32]) * a.scale;
         __syncwarp();
         float gk0 = dk0[i], gk1 = dk1[i], gv0 = dv0[i], gv1 = dv1[i];
 #pragma unroll 8
@@ -485,18 +485,18 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();  // the next tile overwrites q_s, do_s, lse_s, qseg_s
   }
 
-  T* dk = static_cast<T*>(a.dk);
-  T* dv = static_cast<T*>(a.dv);
+  float* dk = static_cast<float*>(a.dk);
+  float* dv = static_cast<float*>(a.dv);
 #pragma unroll
   for (int i = 0; i < kRowsPerWarp; ++i) {
     const int c = warp * kRowsPerWarp + i;
     if (c < k_valid) {
       const long long off =
           ((static_cast<long long>(b) * a.Sk + k0 + c) * a.H + h) * kD;
-      dk[off + lane] = from_float<T>(dk0[i]);
-      dk[off + lane + 32] = from_float<T>(dk1[i]);
-      dv[off + lane] = from_float<T>(dv0[i]);
-      dv[off + lane + 32] = from_float<T>(dv1[i]);
+      dk[off + lane] = dk0[i];
+      dk[off + lane + 32] = dk1[i];
+      dv[off + lane] = dv0[i];
+      dv[off + lane + 32] = dv1[i];
     }
   }
 }
@@ -785,7 +785,8 @@ __global__ void __launch_bounds__(kMmaThreads, 3)
   }
 }
 
-// variant: 0 = scalar f32, 1 = scalar bf16, 2 = mma.sync bf16 (dK/dV only)
+// variant: 0 = scalar f32, 1 = scalar bf16 (dQ only), 2 = mma.sync bf16
+// (dK/dV only)
 int launch(bool dq, int variant, const Args& a, int D, int rows,
            void* stream) {
   if (D != kD || a.B <= 0 || a.H <= 0 || a.Sq <= 0 || a.Sk <= 0 ||
@@ -797,15 +798,13 @@ int launch(bool dq, int variant, const Args& a, int D, int rows,
     if (dq)
       flash_bwd_dq_kernel<float><<<grid, kThreads, 0, s>>>(a);
     else
-      flash_bwd_dkdv_kernel<float><<<grid, kThreads, 0, s>>>(a);
-  } else if (variant == 1) {
-    if (dq)
-      flash_bwd_dq_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(a);
-    else
-      flash_bwd_dkdv_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(a);
+      flash_bwd_dkdv_kernel<<<grid, kThreads, 0, s>>>(a);
+  } else if (variant == 1 && dq) {
+    flash_bwd_dq_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(a);
   } else if (variant == 2 && !dq) {
-    // above 48 KB, dynamic shared memory needs the kernel's consent
-    static const cudaError_t attr = cudaFuncSetAttribute(
+    // above 48 KB, dynamic shared memory needs the kernel's consent; the
+    // attribute belongs to the current device, so it is set every launch
+    const cudaError_t attr = cudaFuncSetAttribute(
         flash_bwd_dkdv_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(sizeof(DkdvSmem)));
     if (attr != cudaSuccess) return static_cast<int>(attr);
@@ -820,9 +819,9 @@ int launch(bool dq, int variant, const Args& a, int D, int rows,
 
 }  // namespace
 
-// variant: 0 = scalar f32, 1 = scalar bf16, and for dK/dV 2 = mma.sync
-// bf16 (the wrapper's _dkdv_variant picks it). Strides are in elements (q,
-// k, v, then dout, each b, s, h). q_seg and kv_seg are both null or both
+// variant: 0 = scalar f32, and 1 = scalar bf16 for dQ, 2 = mma.sync bf16
+// for dK/dV (the wrapper's _dq_variant and _dkdv_variant pick it). Strides
+// are in elements (q, k, v, then dout, each b, s, h). q_seg and kv_seg are both null or both
 // [B, Sq] / [B, Sk] contiguous int32. Each returns cudaGetLastError() after
 // its launch (0 = launched).
 extern "C" int adt_flash_bwd_dq(

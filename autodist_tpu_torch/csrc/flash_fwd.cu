@@ -41,10 +41,10 @@
 //   folds the scale into the exponent (one FFMA and one exp2 a element),
 //   and skips the 16-column slices of a diagonal tile that none of a
 //   warp's rows can see.
-// - flash_fwd_kernel (f32, and the earlier bf16 design): scalar FMA over
-//   tiles staged as f32, one block per 16 query rows. f32 stays here: on
-//   the tensor cores f32 operands would be TF32, about three digits, and
-//   the f32 paths are held to 2e-5.
+// - flash_fwd_kernel (f32): scalar FMA over tiles in shared memory, one
+//   block per 16 query rows. f32 stays here: on the tensor cores f32
+//   operands would be TF32, about three digits, and the f32 paths are held
+//   to 2e-5.
 //
 // Bound. The forward is bound by bytes on this card at both main-path
 // shapes. Training [64, 128, 16, 64] bf16 causal: q, k, v read once and
@@ -52,9 +52,9 @@
 // 2.16 GFLOP over the live causal half (0.0022 ms at the 989 TFLOP/s bf16
 // peak). Decode (32 slots, T 256, H 16, D 64, bf16): each live K and V row
 // read once, at most 33.5 MB a layer, against 34 MFLOP. The tensor-core
-// design removes what held the scalar one back (shared-memory operand
-// loads for every FMA, f32 staging, 16-row tiles that re-read K/V eight
-// times at S = 128, loads not overlapped with compute). What still holds
+// design removes what held the scalar design back in bf16 (shared-memory
+// operand loads for every FMA, f32 staging, 16-row tiles that re-read K/V
+// eight times at S = 128, loads not overlapped with compute). What still holds
 // it above the byte bound is the short life of a block at S = 128 (one or
 // two kv tiles) against the latency of its first loads, and the softmax's
 // instructions beside the products; 128-row blocks and a persistent grid
@@ -94,28 +94,6 @@ struct Args {
   float scale;
 };
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// p rounded to the value dtype, as the TPU kernel's p.astype(v.dtype)
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_float(from_float<T>(x));
-}
-
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)
@@ -129,35 +107,28 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// Stage `rows` rows of kD elements (row r at base + r * row_stride, its
-// elements contiguous and 16-byte aligned) into shared memory as f32 with
-// leading dimension LD; rows >= valid are zero-filled.
-template <typename T, int LD>
-__device__ __forceinline__ void load_tile(float* dst, const T* base,
+// Stage `rows` rows of kD floats (row r at base + r * row_stride, its
+// elements contiguous and 16-byte aligned) into shared memory with leading
+// dimension LD; rows >= valid are zero-filled.
+template <int LD>
+__device__ __forceinline__ void load_tile(float* dst, const float* base,
                                           long long row_stride, int rows,
                                           int valid) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kChunks = kD / kVec;
+  constexpr int kChunks = kD / 4;
   for (int c = threadIdx.x; c < rows * kChunks; c += kThreads) {
     const int r = c / kChunks;
-    const int col = (c % kChunks) * kVec;
-    float vals[kVec];
-    if (r < valid) {
-      const uint4 raw =
-          *reinterpret_cast<const uint4*>(base + r * row_stride + col);
-      const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-      for (int i = 0; i < kVec; ++i) vals[i] = to_float(e[i]);
-    } else {
-#pragma unroll
-      for (int i = 0; i < kVec; ++i) vals[i] = 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < kVec; ++i) dst[r * LD + col + i] = vals[i];
+    const int col = (c % kChunks) * 4;
+    float4 vals = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r < valid)
+      vals = *reinterpret_cast<const float4*>(base + r * row_stride + col);
+    float* d = dst + r * LD + col;
+    d[0] = vals.x;
+    d[1] = vals.y;
+    d[2] = vals.z;
+    d[3] = vals.w;
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Args a) {
   __shared__ float q_s[kBQ * kD];
   __shared__ float k_s[kBK * (kD + 1)];  // +1: lane j reads row j, no conflicts
@@ -175,12 +146,12 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Args a) {
   const int q_valid = min(kBQ, a.Sq - q0);
   const bool has_seg = a.q_seg != nullptr;
 
-  const T* qb = static_cast<const T*>(a.q) + b * a.q_sb +
-                static_cast<long long>(q0) * a.q_ss + h * a.q_sh;
-  const T* kb = static_cast<const T*>(a.k) + b * a.k_sb + h * a.k_sh;
-  const T* vb = static_cast<const T*>(a.v) + b * a.v_sb + h * a.v_sh;
+  const float* qb = static_cast<const float*>(a.q) + b * a.q_sb +
+                    static_cast<long long>(q0) * a.q_ss + h * a.q_sh;
+  const float* kb = static_cast<const float*>(a.k) + b * a.k_sb + h * a.k_sh;
+  const float* vb = static_cast<const float*>(a.v) + b * a.v_sb + h * a.v_sh;
 
-  load_tile<T, kD>(q_s, qb, a.q_ss, kBQ, q_valid);
+  load_tile<kD>(q_s, qb, a.q_ss, kBQ, q_valid);
   if (threadIdx.x < kBQ) {
     const int r = threadIdx.x;
     qseg_s[r] = (has_seg && r < q_valid)
@@ -238,10 +209,10 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Args a) {
       }
     }
 
-    load_tile<T, kD + 1>(k_s, kb + static_cast<long long>(k0) * a.k_ss,
-                         a.k_ss, kBK, k_valid);
-    load_tile<T, kD>(v_s, vb + static_cast<long long>(k0) * a.v_ss, a.v_ss,
-                     kBK, k_valid);
+    load_tile<kD + 1>(k_s, kb + static_cast<long long>(k0) * a.k_ss, a.k_ss,
+                      kBK, k_valid);
+    load_tile<kD>(v_s, vb + static_cast<long long>(k0) * a.v_ss, a.v_ss, kBK,
+                  k_valid);
     __syncthreads();
 
 #pragma unroll
@@ -286,8 +257,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Args a) {
         }
         const float corr = expf(m[i] - m_new);
         l[i] = l[i] * corr + warp_sum(p0 + p1);
-        p_s[warp][lane] = round_to<T>(p0);
-        p_s[warp][lane + 32] = round_to<T>(p1);
+        p_s[warp][lane] = p0;  // p.astype(v.dtype) is exact in f32
+        p_s[warp][lane + 32] = p1;
         __syncwarp();
         float a0 = acc0[i] * corr, a1 = acc1[i] * corr;
 #pragma unroll 8
@@ -305,16 +276,17 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Args a) {
     __syncthreads();  // the next tile overwrites k_s, v_s, kseg_s, live_s
   }
 
-  T* ob = static_cast<T*>(a.o);
+  float* ob = static_cast<float*>(a.o);
 #pragma unroll
   for (int i = 0; i < kRowsPerWarp; ++i) {
     const int r = warp * kRowsPerWarp + i;
     if (r < q_valid) {
       const int row = q0 + r;
       const float denom = fmaxf(l[i], 1e-30f);
-      T* orow = ob + ((static_cast<long long>(b) * a.Sq + row) * a.H + h) * kD;
-      orow[lane] = from_float<T>(acc0[i] / denom);
-      orow[lane + 32] = from_float<T>(acc1[i] / denom);
+      float* orow =
+          ob + ((static_cast<long long>(b) * a.Sq + row) * a.H + h) * kD;
+      orow[lane] = acc0[i] / denom;
+      orow[lane + 32] = acc1[i] / denom;
       if (lane == 0) {
         // empty rows record lse = 0 (the TPU kernel's rule: the backward
         // recomputes p = exp(s - lse), which must vanish for them)
@@ -594,9 +566,10 @@ __global__ void __launch_bounds__(kMmaThreads)
 
 }  // namespace
 
-// variant: 0 = scalar f32, 1 = scalar bf16, 2 = mma.sync bf16 (the
-// wrapper's _fwd_variant picks it). Strides are in elements. q_seg and
-// kv_seg are both null or both [B, Sq] / [B, Sk] contiguous int32.
+// variant: 0 = scalar f32, 2 = mma.sync bf16 (the wrapper's _fwd_variant
+// picks it; 1, dQ's scalar bf16 design, has no forward). Strides are in
+// elements. q_seg and kv_seg are both null or both [B, Sq] / [B, Sk]
+// contiguous int32.
 // Returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int adt_flash_fwd(int variant, const void* q, const void* k,
                              const void* v, const int* q_seg,
@@ -615,9 +588,7 @@ extern "C" int adt_flash_fwd(int variant, const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   if (variant == 0) {
-    flash_fwd_kernel<float><<<grid, kThreads, 0, s>>>(a);
-  } else if (variant == 1) {
-    flash_fwd_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(a);
+    flash_fwd_kernel<<<grid, kThreads, 0, s>>>(a);
   } else if (variant == 2) {
     const dim3 mma_grid((Sq + kBM - 1) / kBM, H, B);
     flash_fwd_mma_kernel<<<mma_grid, kMmaThreads, 0, s>>>(a);

@@ -26,6 +26,7 @@ from torch import nn
 from autodist_tpu_torch.models.layers import (Dense, LayerNorm, SparseEmbed,
                                               TransformerBlock, apply,
                                               causal_mask)
+from autodist_tpu_torch.utils.device import resolve_device
 
 
 @dataclasses.dataclass
@@ -260,7 +261,6 @@ def make_decode_setup(config: Optional[LMConfig] = None,
     def init_dstate(slots: int, device=None):
         # the entry points' device rule: None is cuda, which raises
         # without a card rather than build the cache on the CPU
-        from autodist_tpu_torch.autodist import resolve_device
         device = resolve_device(device)
         cache_shape = (slots, cfg.num_layers, cfg.max_seq_len,
                        cfg.num_heads, cfg.head_dim)

@@ -24,10 +24,7 @@ dtype in one pure function per kernel: :func:`_fwd_variant`,
 ``"mma.sync bf16"`` (64-row tiles on the tensor cores, ``csrc/
 mma_bf16.cuh``); f32 runs ``"scalar f32"`` (tensor cores would round f32
 operands to TF32, and the f32 paths are held to 2e-5); dQ runs its scalar
-design in both dtypes. ``variant=`` names a design explicitly: the
-earlier scalar bf16 designs stay reachable that way so that
-``chip_smoke.py`` times them beside the new ones in one run. Nothing picks
-a design on a failure.
+design in both dtypes. Nothing picks a design on a failure.
 
 Each wrapper takes the plain version only for CPU tensors. For CUDA
 tensors it launches the kernel or raises; nothing falls back. Each launch
@@ -214,16 +211,16 @@ def flash_bwd_dkdv_reference(q, k, v, do, lse, delta, q_seg=None,
             dv.to(v.dtype).permute(0, 2, 1, 3).contiguous())
 
 
-# the designs each C entry point takes, by its variant code
+# the designs the C entry points take, by their variant code ("scalar
+# bf16" is dQ's only, "mma.sync bf16" the forward's and dK/dV's)
 VARIANT_CODE = {"scalar f32": 0, "scalar bf16": 1, "mma.sync bf16": 2}
-_VARIANT_DTYPE = {"scalar f32": torch.float32, "scalar bf16": torch.bfloat16,
-                  "mma.sync bf16": torch.bfloat16}
 
 
 def _fwd_variant(dtype) -> str:
     """The forward's design for q of ``dtype``: the tensor-core kernel for
-    bf16 at every length (at the lm1b decode step, Sq = 1, it is no slower
-    than the scalar bf16 design; ``PERF.md``), the scalar one for f32."""
+    bf16 at every length (at the lm1b decode step, Sq = 1, it measured
+    faster than the scalar design it replaced; ``PERF.md``), the scalar
+    one for f32."""
     return "mma.sync bf16" if dtype == torch.bfloat16 else "scalar f32"
 
 
@@ -236,17 +233,6 @@ def _dkdv_variant(dtype) -> str:
     """dK/dV's design: the tensor-core kernel for bf16, the scalar one for
     f32."""
     return "mma.sync bf16" if dtype == torch.bfloat16 else "scalar f32"
-
-
-def _pick(name, rule, variant, dtype):
-    """``variant`` if given (checked against the designs and the dtype),
-    else ``rule``'s pick."""
-    if variant is None:
-        return rule
-    if _VARIANT_DTYPE.get(variant) != dtype:
-        raise ValueError("%s has no variant %r for %s (its variants: %s)"
-                         % (name, variant, dtype, ", ".join(VARIANT_CODE)))
-    return variant
 
 
 def _count(fn, variant):
@@ -327,20 +313,19 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def flash_fwd(q, k, v, q_seg=None, kv_seg=None, causal: bool = False,
-              variant=None):
+def flash_fwd(q, k, v, q_seg=None, kv_seg=None, causal: bool = False):
     """Flash-attention forward: ``(out [B, Sq, H, D], lse [B, H, Sq] f32)``
     for q ``[B, Sq, H, D]`` and k/v ``[B, Sk, H, D]`` (f32 or bf16, D = 64
     on CUDA; any strides with d contiguous), optional int32 segment ids
     ``[B, Sq]``/``[B, Sk]``. CPU tensors take :func:`flash_fwd_reference`;
     CUDA tensors launch ``csrc/flash_fwd.cu`` in the design
-    :func:`_fwd_variant` picks, or ``variant`` (each launch adds one to
+    :func:`_fwd_variant` picks (each launch adds one to
     ``flash_fwd.launches`` and ``flash_fwd.launches_by_variant``)."""
     if q.device.type == "cpu":
         return flash_fwd_reference(q, k, v, q_seg, kv_seg, causal)
     _check(q, k, v, q_seg, kv_seg)
     q_seg, kv_seg = _cuda_args("flash_fwd", q, k, v, q_seg, kv_seg)
-    variant = _pick("flash_fwd", _fwd_variant(q.dtype), variant, q.dtype)
+    variant = _fwd_variant(q.dtype)
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
@@ -414,26 +399,25 @@ flash_bwd_dq.launches_by_variant = {}
 
 
 def flash_bwd_dkdv(q, k, v, do, lse, delta, q_seg=None, kv_seg=None,
-                   causal: bool = False, variant=None):
+                   causal: bool = False):
     """``(dK, dV)`` of flash attention (``_dkdv_kernel``), inputs as
     :func:`flash_bwd_dq`. CPU tensors take
     :func:`flash_bwd_dkdv_reference`; CUDA tensors launch
     ``csrc/flash_bwd.cu``'s dK/dV kernel in the design
-    :func:`_dkdv_variant` picks, or ``variant`` (each launch adds one to
+    :func:`_dkdv_variant` picks (each launch adds one to
     ``flash_bwd_dkdv.launches`` and ``flash_bwd_dkdv.launches_by_variant``)."""
     if q.device.type == "cpu":
         return flash_bwd_dkdv_reference(q, k, v, do, lse, delta, q_seg,
                                         kv_seg, causal)
     args = _bwd_launch_args("flash_bwd_dkdv", q, k, v, do, lse, delta, q_seg,
                             kv_seg)
-    variant = _pick("flash_bwd_dkdv", _dkdv_variant(q.dtype), variant,
-                    q.dtype)
     if args is None:
         return (torch.zeros(k.shape, dtype=k.dtype, device=k.device),
                 torch.zeros(v.shape, dtype=v.dtype, device=v.device))
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)  # every row
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     q, k, v, do, lse, delta, q_seg, kv_seg = args
+    variant = _dkdv_variant(q.dtype)
     _launch("flash_bwd_dkdv", VARIANT_CODE[variant], q.data_ptr(),
             k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), _ptr(q_seg), _ptr(kv_seg), dk.data_ptr(),

@@ -13,15 +13,20 @@ result line):
 2. hold each kernel, in each design (variant) its dispatch rule picks —
    ``mma.sync bf16`` on the tensor cores for the bf16 forward and dK/dV,
    ``scalar f32`` for f32, ``scalar bf16`` for the bf16 dQ — against its
-   plain PyTorch version at the shapes the main paths give it, and time
-   the kernel, the earlier scalar bf16 design, the plain version and one
-   PyTorch library call computing the same function: the forward at the
-   decode shape (f32 at 2e-5, the JAX package's flash-decode bound; bf16
-   at 2e-2 atol/rtol: bf16 inputs, f32 accumulation in another order),
-   then at the training shape [64, 128, 16, 64] and a smaller shape with
-   segments and an empty query row (out and lse, the same bounds), and the
-   two backward kernels at those two shapes (f32 2e-5, bf16 2e-2, each as
-   an error relative to the plain version's largest magnitude);
+   plain PyTorch version at the shapes the main paths give it: the
+   forward at the decode shape (f32 at 2e-5, the JAX package's
+   flash-decode bound; bf16 at 2e-2 atol/rtol: bf16 inputs, f32
+   accumulation in another order), then (2b) at the training shape
+   [64, 128, 16, 64] and a smaller shape with segments and an empty query
+   row (out and lse, the same bounds), and the two backward kernels at
+   those two shapes (f32 2e-5, bf16 2e-2, each as an error relative to the
+   plain version's largest magnitude);
+2c. (run after phase 4, so that its profiler sessions do not precede
+   phase 3's timed serving, which is bound by host dispatch) time each
+   kernel at the decode and training shapes, in device time from a
+   profiler trace and as a call with host dispatch, beside its plain
+   version, one PyTorch library call computing the same function and its
+   bound;
 3. serve lm1b at full width in bf16 through the entry points a user calls
    (``AutoDist(...).build`` -> ``Runner.init`` -> ``DecodeEngine`` with
    ``decode_attn="flash"``): 64 prompts of mixed lengths through 32 slots;
@@ -71,14 +76,9 @@ KERNEL_SOURCES = {
 }
 
 
-# the design each kernel runs on the bf16 main paths, and the time per
-# launch of the scalar design it replaced, a call each (NVIDIA H100 80GB
-# HBM3, 700 W; PERF.md's kernel table, "earlier time")
+# the design each kernel runs on the bf16 main paths
 MAIN_DESIGN = {"flash_fwd": "mma.sync bf16", "flash_bwd_dq": "scalar bf16",
                "flash_bwd_dkdv": "mma.sync bf16"}
-EARLIER_MS = {("flash_fwd", "serve"): 0.0566, ("flash_fwd", "train"): 0.3163,
-              ("flash_bwd_dq", "train"): 0.4402,
-              ("flash_bwd_dkdv", "train"): 0.5747}
 
 
 def ptxas_usage(log):
@@ -196,9 +196,9 @@ def uncounted():
             kern.launches_by_variant = by_variant
 
 
-def record(name, path, max_abs_err, ms, plain_ms, library_ms, t_bytes,
-           t_ops, call_ms):
-    """One entry of the kernels' JSON line for ``path``'s shape (launches
+def record(name, max_abs_err, ms, plain_ms, library_ms, t_bytes, t_ops,
+           call_ms):
+    """One entry of the kernels' JSON line for one path's shape (launches
     filled in later). ``ms``, ``plain_ms`` and ``library_ms`` are device
     times (:func:`device_ms`); ``call_ms`` is the kernel's time a call
     with its wrapper's host dispatch (:func:`cuda_time_ms`)."""
@@ -208,8 +208,7 @@ def record(name, path, max_abs_err, ms, plain_ms, library_ms, t_bytes,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": library_ms, "call_ms": call_ms,
-            "design": MAIN_DESIGN[name],
-            "design_launches": 0, "earlier_ms": EARLIER_MS[(name, path)]}
+            "design": MAIN_DESIGN[name], "design_launches": 0}
 
 
 def check_rel(name, got, want, tol):
@@ -264,12 +263,10 @@ def segs_for(cursor):
     return q_seg, kv_seg
 
 
-def kernel_phase(card):
-    """Kernel vs plain version; returns the flash_fwd record at the decode
-    shape (without its main-path launch count). ``card`` tags the timing
-    line."""
+def kernel_phase():
+    """Phase 2: flash_fwd vs its plain version at the decode and prefill
+    shapes; returns the largest error of the outputs."""
     import torch
-    import torch.nn.functional as F
     from autodist_tpu_torch.ops import flash_attention as fa
 
     errs = []
@@ -313,9 +310,19 @@ def kernel_phase(card):
                         bool(lse[:, :, 5].abs().max() != 0):
                     fail("an empty query row did not give 0 output, 0 lse")
                 print("  empty query row: output 0, lse 0")
+    return max(errs)
 
-    # timing at the decode shape, bf16, rotating over the 8 layers' cache
-    # slices as the main path does (268 MB per cache half > the 50 MB L2)
+
+def decode_timing(card, err):
+    """flash_fwd at the decode shape, timed beside its plain version, SDPA
+    and its bound; returns its record (``err`` its largest error, without
+    its main-path launch count). ``card`` tags the timing line."""
+    import torch
+    import torch.nn.functional as F
+    from autodist_tpu_torch.ops import flash_attention as fa
+
+    # bf16, rotating over the 8 layers' cache slices as the main path does
+    # (268 MB per cache half > the 50 MB L2)
     q, k, v, cursor = decode_inputs(torch.bfloat16, seed=3)
     q_seg, kv_seg = segs_for(cursor)
     q1 = q[:, None]
@@ -334,12 +341,8 @@ def kernel_phase(card):
     def per_layer(f, iters):
         return [t / LAYERS for t in timed(over_layers(f), iters)]
 
-    with uncounted():   # kernel, earlier design, kernel again, in turns
+    with uncounted():
         ms, call_ms = per_layer(lambda i: fa.flash_fwd(
-            q1, k[:, i], v[:, i], q_seg, kv_seg), 20)
-        earlier_ms, earlier_call_ms = per_layer(lambda i: fa.flash_fwd(
-            q1, k[:, i], v[:, i], q_seg, kv_seg, variant="scalar bf16"), 20)
-        ms_again, _ = per_layer(lambda i: fa.flash_fwd(
             q1, k[:, i], v[:, i], q_seg, kv_seg), 20)
         plain_ms, _ = per_layer(lambda i: fa.flash_fwd_reference(
             q1, k[:, i], v[:, i], q_seg, kv_seg), 5)
@@ -358,24 +361,20 @@ def kernel_phase(card):
     t_ops = flops / H100_BF16_FLOPS * 1e3
     bound_ms = max(t_bytes, t_ops)
     print("  decode bf16 [32,1,256,16,64] (%d live rows), device ms (a call "
-          "with host dispatch): kernel (%s) %.4f (%.4f), again %.4f; earlier "
-          "design (scalar bf16) %.4f (%.4f); plain %.4f; sdpa %.4f (%.4f); "
-          "bound %.4f (%s) [%s]"
+          "with host dispatch): kernel (%s) %.4f (%.4f); plain %.4f; sdpa "
+          "%.4f (%.4f); bound %.4f (%s) [%s]"
           % (live_rows, fa._fwd_variant(torch.bfloat16), ms, call_ms,
-             ms_again, earlier_ms, earlier_call_ms, plain_ms, library_ms,
-             library_call_ms, bound_ms,
+             plain_ms, library_ms, library_call_ms, bound_ms,
              "bytes" if t_bytes >= t_ops else "operations", card))
-    return record("flash_fwd", "serve", max(errs), ms, plain_ms, library_ms,
-                  t_bytes, t_ops, call_ms)
+    return record("flash_fwd", err, ms, plain_ms, library_ms, t_bytes, t_ops,
+                  call_ms)
 
 
-def bwd_kernel_phase(card):
-    """Both backward kernels vs their plain versions, and the forward kernel
-    at the training shape (whose out and lse feed them) vs its own; returns
-    the two backward records (without main-path launch counts) and the
-    forward's record at the training shape."""
+def bwd_kernel_phase():
+    """Phase 2b: both backward kernels vs their plain versions, and the
+    forward kernel at the training shape (whose out and lse feed them) vs
+    its own; returns each kernel's errors."""
     import torch
-    import torch.nn.functional as F
     from autodist_tpu_torch.ops import flash_attention as fa
 
     print("phase 2b: flash_fwd at the training shape, flash_bwd_dq, "
@@ -427,10 +426,20 @@ def bwd_kernel_phase(card):
                 if bool(dq[:, 5].float().abs().max() != 0):
                     fail("an empty query row did not get a 0 gradient")
                 print("  empty query row: dq 0")
+    return errs
 
-    # timing at the training shape, bf16 causal (4 x 16.8 MB of inputs, so
-    # L2 holds at most part of them, as for a layer of the main path); the
-    # kernels' designs in turns with the earlier scalar bf16 ones
+
+def train_timing(card, errs):
+    """The three kernels at the training shape, each timed beside its plain
+    version, SDPA and its bound; returns their records (``errs`` their
+    errors, without main-path launch counts). ``card`` tags the lines."""
+    import torch
+    import torch.nn.functional as F
+    from autodist_tpu_torch.ops import flash_attention as fa
+
+    # bf16 causal (4 x 16.8 MB of inputs, so L2 holds at most part of
+    # them, as for a layer of the main path)
+    train_shape = (TRAIN_BATCH, TRAIN_SEQ, HEADS, HEAD_DIM)
     gen = torch.Generator(device="cuda").manual_seed(5)
     q, k, v, do = (torch.randn(train_shape, generator=gen, device="cuda")
                    .to(torch.bfloat16) for _ in range(4))
@@ -439,19 +448,12 @@ def bwd_kernel_phase(card):
         delta = fa.flash_bwd_delta(out, do)
         args = (q, k, v, do, lse, delta)
         calls = {
-            "flash_fwd": lambda **kw: fa.flash_fwd(q, k, v, causal=True,
-                                                   **kw),
+            "flash_fwd": lambda: fa.flash_fwd(q, k, v, causal=True),
             "flash_bwd_dq": lambda: fa.flash_bwd_dq(*args, causal=True),
-            "flash_bwd_dkdv": lambda **kw: fa.flash_bwd_dkdv(
-                *args, causal=True, **kw)}
-        ms, call, earlier, again = {}, {}, {}, {}
-        for name in ("flash_fwd", "flash_bwd_dkdv"):   # in turns
-            ms[name], call[name] = timed(calls[name], 20)
-            earlier[name] = timed(
-                lambda: calls[name](variant="scalar bf16"), 20)
-            again[name] = device_ms(calls[name], 20)
-        ms["flash_bwd_dq"], call["flash_bwd_dq"] = timed(
-            calls["flash_bwd_dq"], 20)
+            "flash_bwd_dkdv": lambda: fa.flash_bwd_dkdv(*args, causal=True)}
+        ms, call = {}, {}
+        for name, fn in calls.items():
+            ms[name], call[name] = timed(fn, 20)
         plain = {"flash_fwd": device_ms(
                      lambda: fa.flash_fwd_reference(q, k, v, causal=True), 3),
                  "flash_bwd_dq": device_ms(
@@ -489,16 +491,12 @@ def bwd_kernel_phase(card):
     for name, (nbytes, flops) in work.items():
         t_bytes = nbytes / H100_BYTES_PER_S * 1e3
         t_ops = flops / H100_BF16_FLOPS * 1e3
-        rec = record(name, "train", max(errs[name]), ms[name], plain[name],
+        rec = record(name, max(errs[name]), ms[name], plain[name],
                      library[name][0], t_bytes, t_ops, call[name])
-        turns = ""
-        if name in earlier:
-            turns = ("; again %.4f; earlier design (scalar bf16) %.4f (%.4f)"
-                     % (again[name], *earlier[name]))
         print("  %s bf16 [64,128,16,64] causal, device ms (a call with host "
-              "dispatch): kernel (%s) %.4f (%.4f)%s; plain %.4f; sdpa %s "
+              "dispatch): kernel (%s) %.4f (%.4f); plain %.4f; sdpa %s "
               "%.4f (%.4f); bound %.4f (%s: %.1f MB, %.2f GFLOP) [%s]"
-              % (name, rec["design"], rec["ms"], rec["call_ms"], turns,
+              % (name, rec["design"], rec["ms"], rec["call_ms"],
                  rec["plain_ms"],
                  "forward" if name == "flash_fwd" else "backward",
                  *library[name], rec["bound_ms"], rec["bound_by"],
@@ -775,8 +773,8 @@ def main():
         for kernel, usage in ptxas_usage(log):
             print("  %s: %s: %s" % (name, kernel, usage))
 
-    fwd_serve = kernel_phase(card)
-    records = bwd_kernel_phase(card)
+    fwd_err = kernel_phase()
+    bwd_errs = bwd_kernel_phase()
 
     # phase 3 — lm1b at full width, bf16, flash decode
     import numpy as np
@@ -859,6 +857,13 @@ def main():
     print("  8 prompts: flash (scalar f32) == reference token for token; 4 "
           "checked against greedy full recompute")
 
+    # the kernels' timings come after phase 3's timed serving: the
+    # profiler sessions that give their device times would otherwise run
+    # before it, and phase 3's decode tokens/s is bound by host dispatch
+    print("phase 2c: kernel timings at the decode and training shapes")
+    fwd_serve = decode_timing(card, fwd_err)
+    records = train_timing(card, bwd_errs)
+
     train_launches = train_phase(card)
     train_parity_phase()
 
@@ -867,7 +872,7 @@ def main():
     # first path's; "by_path" gives each path's launches, design, times and
     # bound; "launches" and "design_launches" sum over the paths
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "call_ms", "design", "earlier_ms")
+            "library_ms", "call_ms", "design")
     by_path = {"flash_fwd": {"serve": (serve_launches, fwd_serve),
                              "train": (train_launches["flash_fwd"],
                                        records["flash_fwd"])}}

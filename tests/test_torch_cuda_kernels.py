@@ -140,14 +140,12 @@ _FWD_CASES = [("train", 128, 128, True), ("ragged", 200, 200, True),
 @pytest.mark.parametrize("segments", [False, True],
                          ids=["plain", "segments+empty row"])
 @pytest.mark.parametrize("case", _FWD_CASES, ids=[c[0] for c in _FWD_CASES])
-@pytest.mark.parametrize("dtype,tol,variant", [
-    (torch.float32, 2e-5, None), (torch.bfloat16, 2e-2, None),
-    (torch.bfloat16, 2e-2, "scalar bf16")])
-def test_cuda_forward_designs_match_plain_version(dtype, tol, variant, case,
-                                                  segments):
-    """The forward in the design its rule picks (and the earlier scalar
-    bf16 design, named) vs its plain version: out and lse, ragged edges,
-    segments, and an empty query row giving 0 and lse 0."""
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_cuda_forward_designs_match_plain_version(dtype, tol, case, segments):
+    """The forward in the design its rule picks vs its plain version: out
+    and lse, ragged edges, segments, and an empty query row giving 0 and
+    lse 0."""
     _need_card()
     _, sq, sk, causal = case
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -161,32 +159,16 @@ def test_cuda_forward_designs_match_plain_version(dtype, tol, variant, case,
         q_seg = seg[:, :sq].clone()
         q_seg[:, 9] = 7                  # an empty query row
         segs = (q_seg, seg)
-    want_variant = variant or tfa._fwd_variant(dtype)
-    by_variant = tfa.flash_fwd.launches_by_variant.get(want_variant, 0)
-    out, lse = tfa.flash_fwd(q, k, v, *segs, causal=causal, variant=variant)
-    assert tfa.flash_fwd.launches_by_variant[want_variant] == by_variant + 1
+    variant = tfa._fwd_variant(dtype)
+    by_variant = tfa.flash_fwd.launches_by_variant.get(variant, 0)
+    out, lse = tfa.flash_fwd(q, k, v, *segs, causal=causal)
+    assert tfa.flash_fwd.launches_by_variant[variant] == by_variant + 1
     ref, ref_lse = tfa.flash_fwd_reference(q, k, v, *segs, causal=causal)
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(lse, ref_lse, atol=tol, rtol=tol)
     if segments:
         assert float(out[:, 9].float().abs().max()) == 0.0
         assert float(lse[:, :, 9].abs().max()) == 0.0
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", _BWD_CASES, ids=[c[0] for c in _BWD_CASES])
-def test_cuda_earlier_bf16_dkdv_design_matches_plain_version(case):
-    """The scalar bf16 dK/dV design, named explicitly (the comparison the
-    chip smoke times), still agrees with its plain version."""
-    _need_card()
-    _, sq, sk, causal, segments = case
-    args, segs = _bwd_inputs(torch.bfloat16, sq, sk, causal, segments)
-    got = tfa.flash_bwd_dkdv(*args, *segs, causal=causal,
-                             variant="scalar bf16")
-    want = tfa.flash_bwd_dkdv_reference(*args, *segs, causal=causal)
-    for g, w in zip(got, want):
-        scale = float(w.float().abs().max())
-        assert float((g.float() - w.float()).abs().max()) <= 2e-2 * scale
 
 
 @pytest.mark.cuda

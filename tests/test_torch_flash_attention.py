@@ -375,17 +375,6 @@ def test_variant_rules_put_bf16_on_tensor_cores_and_f32_on_scalar(dtype,
         assert v in tfa.VARIANT_CODE
 
 
-def test_explicit_variant_must_match_the_dtype():
-    assert tfa._pick("flash_fwd", "scalar f32", None,
-                     torch.float32) == "scalar f32"
-    assert tfa._pick("flash_fwd", "mma.sync bf16", "scalar bf16",
-                     torch.bfloat16) == "scalar bf16"
-    with pytest.raises(ValueError, match="no variant"):
-        tfa._pick("flash_fwd", "scalar f32", "mma.sync bf16", torch.float32)
-    with pytest.raises(ValueError, match="no variant"):
-        tfa._pick("flash_bwd_dkdv", "scalar f32", "wgmma", torch.float32)
-
-
 @pytest.mark.parametrize("shape", _RULE_SHAPES, ids=[s[0] for s in
                                                      _RULE_SHAPES])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -196,3 +196,19 @@ def test_init_dstate_follows_the_entry_points_device_rule(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         setup.init_dstate(2)
+
+
+@pytest.mark.parametrize("device,want", [
+    ("cpu", "cpu"), (torch.device("cpu"), "cpu"), (None, RuntimeError),
+    ("cuda", RuntimeError), ("meta", ValueError)])
+def test_resolve_device_rule_without_a_card(monkeypatch, device, want):
+    """The rule ``init_dstate`` and ``AutoDist`` share: the CPU only when
+    asked for, cuda by default, which raises when no card is visible, and
+    no other device type."""
+    from autodist_tpu_torch.utils.device import resolve_device
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    if isinstance(want, str):
+        assert resolve_device(device) == torch.device(want)
+    else:
+        with pytest.raises(want):
+            resolve_device(device)
