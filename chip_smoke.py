@@ -21,10 +21,11 @@ result line):
    row (out and lse, the same bounds), and the two backward kernels at
    those two shapes (f32 2e-5, bf16 2e-2, each as an error relative to the
    plain version's largest magnitude);
-2c. (run after phase 4, so that its profiler sessions do not precede
-   phase 3's timed serving, which is bound by host dispatch) time each
-   kernel at the decode and training shapes, in device time from a
-   profiler trace and as a call with host dispatch, beside its plain
+2c. (run after phase 4, so that phase 3's timed serving, which is bound
+   by host dispatch, runs first in the process) time each kernel at the
+   decode and training shapes, in device time (calls queued back to back
+   behind a sleep kernel, CUDA events) and as a call with host dispatch,
+   beside its plain
    version, one PyTorch library call computing the same function and its
    bound;
 3. serve lm1b at full width in bf16 through the entry points a user calls
@@ -138,29 +139,42 @@ def cuda_time_ms(fn, iters, repeats=5):
     return statistics.median(times)
 
 
-def device_ms(fn, iters):
-    """Device time of one ``fn()`` call: the durations of the device events
-    (kernels, copies, fills) that ``iters`` calls launch, from a
-    torch.profiler trace after two warm-up calls, summed and divided by
-    ``iters``. Unlike :func:`cuda_time_ms` it leaves out the host's time
-    between launches, which for a kernel of tens of microseconds behind a
-    Python wrapper can be longer than the kernel itself."""
+def device_ms(fn, iters, repeats=5):
+    """Device time of one ``fn()`` call, without the host's time between
+    launches (which for a kernel of tens of microseconds behind a Python
+    wrapper can be longer than the kernel itself): a sleep kernel holds the
+    card while the host queues ``iters`` calls, so that they run back to
+    back, and CUDA events around the calls time them. If the card reached
+    the first event before the host had queued the last call, the sleep
+    was too short (or the launch queue full) and the run is taken again
+    with a longer sleep, then with fewer calls. The median over
+    ``repeats`` runs, after two warm-up calls."""
+    import statistics
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     fn()
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    cycles, times = 4 * 10 ** 7, []       # about 20 ms at 2 GHz
+    while len(times) < repeats:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
         for _ in range(iters):
             fn()
+        end.record()
+        held = not start.query()          # the card still sleeps
         torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not events:
-        fail("the profiler saw no device time for a timed call")
-    return sum(e.time_range.end - e.time_range.start
-               for e in events) / iters / 1e3
+        if held:
+            times.append(start.elapsed_time(end) / iters)
+        elif cycles < 2 ** 4 * 4 * 10 ** 7:
+            cycles *= 2
+        elif iters > 1:
+            iters //= 2
+        else:
+            fail("the host could not queue one timed call behind a %d-cycle "
+                 "sleep" % cycles)
+    return statistics.median(times)
 
 
 def timed(fn, iters):
@@ -857,9 +871,8 @@ def main():
     print("  8 prompts: flash (scalar f32) == reference token for token; 4 "
           "checked against greedy full recompute")
 
-    # the kernels' timings come after phase 3's timed serving: the
-    # profiler sessions that give their device times would otherwise run
-    # before it, and phase 3's decode tokens/s is bound by host dispatch
+    # the kernels' timings come after phase 3's timed serving, whose decode
+    # tokens/s is bound by host dispatch, so that it runs first
     print("phase 2c: kernel timings at the decode and training shapes")
     fwd_serve = decode_timing(card, fwd_err)
     records = train_timing(card, bwd_errs)
