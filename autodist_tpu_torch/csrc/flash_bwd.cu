@@ -785,8 +785,265 @@ __global__ void __launch_bounds__(kMmaThreads, 3)
   }
 }
 
-// variant: 0 = scalar f32, 1 = scalar bf16 (dQ only), 2 = mma.sync bf16
-// (dK/dV only)
+// ---------------------------------------------- bf16 tensor-core dQ design
+
+constexpr int kQM = 64;  // query rows per block of the dQ kernel, 16 a warp
+
+struct __align__(16) DqSmem {
+  // double-buffered K and V tiles; before the loop the second pair holds
+  // the block's Q and dO rows on their way into registers, and after it
+  // the first K buffer holds the dQ rows on their way out
+  bf16 k[2][kTile * kLDS];
+  bf16 v[2][kTile * kLDS];
+  int kseg[2][kTile];  // the tiles' segment ids
+};
+
+// The first kv tile at or after k that holds a visible entry for query
+// rows up to q_last with ids in [q_lo, q_hi], or Sk when none is left.
+// Warp-uniform: each warp reduces the ids itself.
+__device__ __forceinline__ int next_kv_tile(const Args& a, const int* kv_seg,
+                                            int k, int q_last, int q_lo,
+                                            int q_hi) {
+  for (; k < a.Sk; k += kTile) {
+    if (a.causal && q_last < k) return a.Sk;
+    if (kv_seg == nullptr) return k;
+    int lo, hi;
+    adt_mma::warp_id_range(kv_seg + k, min(kTile, a.Sk - k), &lo, &hi);
+    if (q_hi >= lo && q_lo <= hi) return k;
+  }
+  return a.Sk;
+}
+
+// Start the copies of kv tile k0 (K, V rows and their segment ids) into
+// buffer buf; rows past Sk are zeroed.
+__device__ __forceinline__ void load_kv_tile(DqSmem& sm, const Args& a,
+                                             const bf16* kb, const bf16* vb,
+                                             const int* kv_seg, int k0,
+                                             int buf) {
+  const int k_valid = min(kTile, a.Sk - k0);
+  adt_mma::load_rows_async<kTile, kMmaThreads>(
+      sm.k[buf], kb + static_cast<long long>(k0) * a.k_ss, a.k_ss, k_valid);
+  adt_mma::load_rows_async<kTile, kMmaThreads>(
+      sm.v[buf], vb + static_cast<long long>(k0) * a.v_ss, a.v_ss, k_valid);
+  if (kv_seg != nullptr && threadIdx.x < kTile) {
+    const int j = threadIdx.x;
+    adt_mma::cp_async_4(&sm.kseg[buf][j], kv_seg + k0 + (j < k_valid ? j : 0),
+                        j < k_valid);
+  }
+}
+
+// dQ for 64 query rows a block, 16 a warp: per kv tile, each 32 keys at a
+// time, S = Q K^T and dP = dO V^T, then dQ += dS K with dS repacked from
+// the dP accumulators into A fragments. kLateFirst launches the later
+// query blocks (more kv tiles under the causal mask) first.
+template <bool kLateFirst>
+__global__ void __launch_bounds__(kMmaThreads, 3)
+    flash_bwd_dq_mma_kernel(const Args a) {
+  using namespace adt_mma;
+  __shared__ DqSmem sm;
+
+  const int qblock = kLateFirst ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int q0 = qblock * kQM;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;  // accumulator row, column pair
+  const int q_valid = min(kQM, a.Sq - q0);
+  const int q_last = q0 + q_valid - 1;
+  const int wrow = warp * 16;           // the warp's first row in the block
+  const bool active = wrow < q_valid;   // uniform across the warp
+
+  const bf16* qb = static_cast<const bf16*>(a.q) + b * a.q_sb +
+                   static_cast<long long>(q0) * a.q_ss + h * a.q_sh;
+  const bf16* ob = static_cast<const bf16*>(a.dout) + b * a.o_sb +
+                   static_cast<long long>(q0) * a.o_ss + h * a.o_sh;
+  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.k_sb + h * a.k_sh;
+  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.v_sb + h * a.v_sh;
+  const int* kv_seg = a.kv_seg == nullptr
+                          ? nullptr
+                          : a.kv_seg + static_cast<long long>(b) * a.Sk;
+
+  // the block's query id range, and the ids of this lane's two rows
+  int q_lo = 0, q_hi = 0, qs_row[2] = {0, 0};
+  if (kv_seg != nullptr) {
+    const int* qs = a.q_seg + static_cast<long long>(b) * a.Sq + q0;
+    warp_id_range(qs, q_valid, &q_lo, &q_hi);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = wrow + g + 8 * i;
+      qs_row[i] = r < q_valid ? qs[r] : 0;
+    }
+  }
+  // lse (times log2 e) and delta of the lane's rows g and g + 8; rows past
+  // Sq get 0 and 0, and with their zero Q and dO a zero dS
+  float lse2[2], dlt[2];
+  const long long row_base =
+      (static_cast<long long>(b) * a.H + h) * a.Sq + q0;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = wrow + g + 8 * i;
+    lse2[i] = r < q_valid ? a.lse[row_base + r] * kLog2e : 0.f;
+    dlt[i] = r < q_valid ? a.delta[row_base + r] : 0.f;
+  }
+
+  load_rows_async<kQM, kMmaThreads>(sm.k[1], qb, a.q_ss, q_valid);
+  load_rows_async<kQM, kMmaThreads>(sm.v[1], ob, a.o_ss, q_valid);
+  cp_async_commit();
+  int kt = next_kv_tile(a, kv_seg, 0, q_last, q_lo, q_hi);
+  if (kt < a.Sk) load_kv_tile(sm, a, kb, vb, kv_seg, kt, 0);
+  cp_async_commit();
+  cp_async_wait<1>();  // Q and dO have landed; the first kv tile may not
+  __syncthreads();
+
+  uint32_t qf[kD / 16][4], of[kD / 16][4];  // the warp's Q, dO rows
+  if (active) {
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk) {
+      load_a(qf[kk], sm.k[1], wrow, kk * 16);
+      load_a(of[kk], sm.v[1], wrow, kk * 16);
+    }
+  }
+  __syncthreads();  // the loop's first prefetch overwrites buffer 1
+
+  const float sl2 = a.scale * kLog2e;  // exp(scale * x) = exp2(sl2 * x)
+  // rows g and g + 8 of the warp, dQ columns 8 * j + 2 * t (+1)
+  float dq[kD / 8][4];
+#pragma unroll
+  for (int j = 0; j < kD / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[j][e] = 0.f;
+
+  int buf = 0;
+  while (kt < a.Sk) {
+    const int kn = next_kv_tile(a, kv_seg, kt + kTile, q_last, q_lo, q_hi);
+    // in flight while this tile computes
+    if (kn < a.Sk) load_kv_tile(sm, a, kb, vb, kv_seg, kn, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+
+    if (active) {
+      const bf16* ks = sm.k[buf];
+      const bf16* vs = sm.v[buf];
+      const int k_valid = min(kTile, a.Sk - kt);
+#pragma unroll
+      for (int hk = 0; hk < kTile / 32; ++hk) {
+        const int c0 = hk * 32;  // the 32 keys of this pass
+        // keys past the ragged edge, or above the causal diagonal of all
+        // the warp's rows, add nothing: p = 0 there
+        if (c0 >= k_valid || (a.causal && kt + c0 > q0 + wrow + 15)) continue;
+        float s[4][4], dp[4][4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            s[j][e] = 0.f;
+            dp[j][e] = 0.f;
+          }
+        // S = Q K^T and dP = dO V^T: K and V rows are the columns of B,
+        // read as stored
+#pragma unroll
+        for (int kk = 0; kk < kD / 16; ++kk) {
+#pragma unroll
+          for (int jp = 0; jp < 2; ++jp) {
+            uint32_t bk[4], bv[4];
+            load_b_nk(bk, ks, c0 + jp * 16, kk * 16);
+            load_b_nk(bv, vs, c0 + jp * 16, kk * 16);
+            mma_16816(s[2 * jp], qf[kk], bk[0], bk[1]);
+            mma_16816(s[2 * jp + 1], qf[kk], bk[2], bk[3]);
+            mma_16816(dp[2 * jp], of[kk], bv[0], bv[1]);
+            mma_16816(dp[2 * jp + 1], of[kk], bv[2], bv[3]);
+          }
+        }
+        // mask in the accumulator layout, only where the pass needs it: at
+        // the ragged edge, with segment ids, or where it crosses the causal
+        // diagonal of the warp's rows. Column c of row i is visible iff
+        // c <= lim[i] (and the ids match), c counted from c0 + 2 * t.
+        const int cb = c0 + 2 * t;
+        if (c0 + 32 > k_valid || kv_seg != nullptr ||
+            (a.causal && kt + c0 + 31 > q0 + wrow)) {
+          int lim[2];
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            lim[i] = min(k_valid - 1,
+                         a.causal ? q0 + wrow + g + 8 * i - kt : kTile) -
+                     cb;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int c = 8 * j + (e & 1);
+              bool ok = c <= lim[e >> 1];
+              if (kv_seg != nullptr)
+                ok = ok && qs_row[e >> 1] == sm.kseg[buf][cb + c];
+              if (!ok) s[j][e] = kNegInf;
+            }
+          }
+        }
+        // p = exp(scale * s - lse) = exp2(sl2 * s - lse2), and dp becomes
+        // dS = p * (dP - delta) * scale (_dq_kernel's dS, rounded to k's
+        // dtype, bf16, at the repack below). An empty row has lse 0 and
+        // every s NEG_INF, so exp2 gets a huge negative argument and its p
+        // is exactly 0 with no select.
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = e >> 1;
+            const float p = exp2f(fmaf(s[j][e], sl2, -lse2[i]));
+            dp[j][e] = p * (dp[j][e] - dlt[i]) * a.scale;
+          }
+        // dQ += dS K: the keys are the k dimension, dS comes from the
+        // accumulators in registers, K rows through ldmatrix.trans
+#pragma unroll
+        for (int kq = 0; kq < 2; ++kq) {
+          uint32_t da[4];
+          acc_to_a(da, dp[2 * kq], dp[2 * kq + 1]);
+#pragma unroll
+          for (int dd = 0; dd < kD / 16; ++dd) {
+            uint32_t bk[4];
+            load_b_kn(bk, ks, c0 + kq * 16, dd * 16);
+            mma_16816(dq[2 * dd], da, bk[0], bk[1]);
+            mma_16816(dq[2 * dd + 1], da, bk[2], bk[3]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // the next iteration's loads overwrite this buffer
+    kt = kn;
+    buf ^= 1;
+  }
+  cp_async_wait<0>();
+
+  if (!active) return;
+  // dQ rounded to bf16, staged in the warp's own rows of the first K
+  // buffer (every warp is past the loop's last barrier, and no copy is in
+  // flight) so each lane stores 16 contiguous bytes
+  bf16* st = sm.k[0];
+#pragma unroll
+  for (int j = 0; j < kD / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      *reinterpret_cast<uint32_t*>(st + (wrow + g + 8 * i) * kLDS + 8 * j +
+                                   2 * t) =
+          pack_bf16(dq[j][2 * i], dq[j][2 * i + 1]);
+  __syncwarp();
+  bf16* dqo = static_cast<bf16*>(a.dq);
+#pragma unroll
+  for (int it = 0; it < 4; ++it) {
+    const int c = lane + 32 * it;
+    const int r = wrow + (c >> 3);
+    const int col = (c & 7) * 8;
+    if (r < q_valid)
+      *reinterpret_cast<uint4*>(
+          dqo + ((static_cast<long long>(b) * a.Sq + q0 + r) * a.H + h) * kD +
+          col) = *reinterpret_cast<const uint4*>(st + r * kLDS + col);
+  }
+}
+
+// variant: 0 = scalar f32, 1 = scalar bf16 (dQ only), 2 = mma.sync bf16,
+// 3 = dQ's mma.sync bf16 with the query blocks in launch order
 int launch(bool dq, int variant, const Args& a, int D, int rows,
            void* stream) {
   if (D != kD || a.B <= 0 || a.H <= 0 || a.Sq <= 0 || a.Sk <= 0 ||
@@ -801,6 +1058,12 @@ int launch(bool dq, int variant, const Args& a, int D, int rows,
       flash_bwd_dkdv_kernel<<<grid, kThreads, 0, s>>>(a);
   } else if (variant == 1 && dq) {
     flash_bwd_dq_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(a);
+  } else if ((variant == 2 || variant == 3) && dq) {
+    const dim3 mma_grid((rows + kQM - 1) / kQM, a.H, a.B);
+    if (variant == 2)
+      flash_bwd_dq_mma_kernel<true><<<mma_grid, kMmaThreads, 0, s>>>(a);
+    else
+      flash_bwd_dq_mma_kernel<false><<<mma_grid, kMmaThreads, 0, s>>>(a);
   } else if (variant == 2 && !dq) {
     // above 48 KB, dynamic shared memory needs the kernel's consent; the
     // attribute belongs to the current device, so it is set every launch

@@ -20,11 +20,11 @@ Pallas kernels each have a counterpart here:
 
 Each kernel comes in designs (variants), picked by a fixed rule on the
 dtype in one pure function per kernel: :func:`_fwd_variant`,
-:func:`_dq_variant`, :func:`_dkdv_variant`. bf16 forward and dK/dV run
-``"mma.sync bf16"`` (64-row tiles on the tensor cores, ``csrc/
-mma_bf16.cuh``); f32 runs ``"scalar f32"`` (tensor cores would round f32
-operands to TF32, and the f32 paths are held to 2e-5); dQ runs its scalar
-design in both dtypes. Nothing picks a design on a failure.
+:func:`_dq_variant`, :func:`_dkdv_variant`. All three run
+``"mma.sync bf16"`` in bf16 (64-row tiles on the tensor cores, ``csrc/
+mma_bf16.cuh``) and ``"scalar f32"`` in f32 (tensor cores would round f32
+operands to TF32, and the f32 paths are held to 2e-5). Nothing picks a
+design on a failure.
 
 Each wrapper takes the plain version only for CPU tensors. For CUDA
 tensors it launches the kernel or raises; nothing falls back. Each launch
@@ -212,7 +212,8 @@ def flash_bwd_dkdv_reference(q, k, v, do, lse, delta, q_seg=None,
 
 
 # the designs the C entry points take, by their variant code ("scalar
-# bf16" is dQ's only, "mma.sync bf16" the forward's and dK/dV's)
+# bf16" is dQ's only, used by no rule: the bf16 dQ design the tensor-core
+# one replaced)
 VARIANT_CODE = {"scalar f32": 0, "scalar bf16": 1, "mma.sync bf16": 2}
 
 
@@ -225,8 +226,9 @@ def _fwd_variant(dtype) -> str:
 
 
 def _dq_variant(dtype) -> str:
-    """dQ's design: its scalar kernel in both dtypes."""
-    return "scalar bf16" if dtype == torch.bfloat16 else "scalar f32"
+    """dQ's design: the tensor-core kernel for bf16, the scalar one for
+    f32."""
+    return "mma.sync bf16" if dtype == torch.bfloat16 else "scalar f32"
 
 
 def _dkdv_variant(dtype) -> str:

@@ -11,9 +11,8 @@ result line):
    (one nvcc per source, started together), print each kernel's
    registers, shared memory and spills, and print the card;
 2. hold each kernel, in each design (variant) its dispatch rule picks —
-   ``mma.sync bf16`` on the tensor cores for the bf16 forward and dK/dV,
-   ``scalar f32`` for f32, ``scalar bf16`` for the bf16 dQ — against its
-   plain PyTorch version at the shapes the main paths give it: the
+   ``mma.sync bf16`` on the tensor cores for bf16, ``scalar f32`` for
+   f32 — against its plain PyTorch version at the shapes the main paths give it: the
    forward at the decode shape (f32 at 2e-5, the JAX package's
    flash-decode bound; bf16 at 2e-2 atol/rtol: bf16 inputs, f32
    accumulation in another order), then (2b) at the training shape
@@ -27,7 +26,9 @@ result line):
    behind a sleep kernel, CUDA events) and as a call with host dispatch,
    beside its plain
    version, one PyTorch library call computing the same function and its
-   bound;
+   bound; dQ also in its earlier ``scalar bf16`` design and with its
+   query blocks in launch order, and ``flash_bwd_delta`` (four PyTorch
+   ops) beside its byte bound;
 3. serve lm1b at full width in bf16 through the entry points a user calls
    (``AutoDist(...).build`` -> ``Runner.init`` -> ``DecodeEngine`` with
    ``decode_attn="flash"``): 64 prompts of mixed lengths through 32 slots;
@@ -39,9 +40,8 @@ result line):
    attention) through ``AutoDist(...).build`` -> ``Runner.init`` ->
    ``Runner.run``: 2 warm-up and 10 timed Adam steps on one random batch;
    every loss finite, the last below the first, each of the three kernels
-   launched 8 times a step, the forward's and dK/dV's launches all on the
-   tensor-core design, the f32 master params moved; then a device profile
-   of 3 more steps;
+   launched 8 times a step, all on the tensor-core design, the f32 master
+   params moved; then a device profile of 3 more steps;
 6. the same model in f32 at batch 8: 3 Adam steps with flash attention and
    3 with the reference attention from the same init agree in loss and
    params.
@@ -78,8 +78,14 @@ KERNEL_SOURCES = {
 
 
 # the design each kernel runs on the bf16 main paths
-MAIN_DESIGN = {"flash_fwd": "mma.sync bf16", "flash_bwd_dq": "scalar bf16",
+MAIN_DESIGN = {"flash_fwd": "mma.sync bf16", "flash_bwd_dq": "mma.sync bf16",
                "flash_bwd_dkdv": "mma.sync bf16"}
+# the CUDA function each kernel's main design runs, as ptxas names it
+DESIGN_FUNCTION = {"flash_fwd": "flash_fwd_mma_kernel",
+                   "flash_bwd_dq": "flash_bwd_dq_mma_kernel<true>",
+                   "flash_bwd_dkdv": "flash_bwd_dkdv_mma_kernel"}
+# C variant codes of dQ designs no rule picks, timed beside the main one
+DQ_SCALAR_BF16, DQ_LAUNCH_ORDER = 1, 3
 
 
 def ptxas_usage(log):
@@ -89,10 +95,12 @@ def ptxas_usage(log):
     out, kernel, spills = [], None, ""
     for line in log.splitlines():
         m = re.search(r"entry function '_Z\w*?\d+(flash_\w+?kernel)(I(\d+)"
-                      r"(__nv_bfloat16)|If)?", line)
+                      r"(__nv_bfloat16)|If|ILb([01])E)?", line)
         if m:
-            kernel = m.group(1) + ("<bf16>" if m.group(4) else
-                                   "<float>" if m.group(2) else "")
+            kernel = m.group(1) + (
+                "<bf16>" if m.group(4) else
+                "<%s>" % ("true" if m.group(5) == "1" else "false")
+                if m.group(5) else "<float>" if m.group(2) else "")
         elif "spill" in line:
             spills = line.strip()
         elif "registers" in line and kernel:
@@ -516,7 +524,46 @@ def train_timing(card, errs):
                  *library[name], rec["bound_ms"], rec["bound_by"],
                  nbytes / 1e6, flops / 1e9, card))
         records[name] = rec
+
+    # dQ in the designs no rule picks, beside the main one: each checked
+    # against the main design's dQ on these inputs, then timed
+    with uncounted():
+        dq = fa.flash_bwd_dq(*args, causal=True)
+        for label, code in (("scalar bf16", DQ_SCALAR_BF16),
+                            ("mma.sync bf16, query blocks in launch order",
+                             DQ_LAUNCH_ORDER)):
+            got = dq_in_design(code, *args)
+            torch.cuda.synchronize()
+            check_rel("dq (%s) vs dq (%s)" % (label, MAIN_DESIGN[
+                "flash_bwd_dq"]), got, dq, 2e-2)
+            d_ms, c_ms = timed(lambda: dq_in_design(code, *args), 20)
+            print("  flash_bwd_dq bf16 [64,128,16,64] causal in design %s, "
+                  "device ms (a call with host dispatch): %.4f (%.4f) [%s]"
+                  % (label, d_ms, c_ms, card))
+        # delta = rowsum(dO * O) in f32: four PyTorch ops the backward runs
+        # before the two kernels; reads O and dO, writes [B, H, S] f32
+        d_ms, c_ms = timed(lambda: fa.flash_bwd_delta(out, do), 20)
+        nbytes = 2 * n * 2 + rows * 4
+        print("  flash_bwd_delta bf16 [64,128,16,64], device ms (a call with "
+              "host dispatch): %.4f (%.4f); bound %.4f (bytes: %.1f MB) [%s]"
+              % (d_ms, c_ms, nbytes / H100_BYTES_PER_S * 1e3, nbytes / 1e6,
+                 card))
     return records
+
+
+def dq_in_design(code, q, k, v, do, lse, delta, causal=True):
+    """dQ from ``csrc/flash_bwd.cu`` in the design of C variant ``code``,
+    launched as :func:`flash_bwd_dq` launches its rule's design (not
+    counted)."""
+    import torch
+    from autodist_tpu_torch.ops import flash_attention as fa
+    q, k, v, do, lse, delta, _, _ = fa._bwd_launch_args(
+        "flash_bwd_dq", q, k, v, do, lse, delta, None, None)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    fa._launch("flash_bwd_dq", code, q.data_ptr(), k.data_ptr(),
+               v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+               None, None, dq.data_ptr(), *fa._bwd_tail(q, k, v, do, causal))
+    return dq
 
 
 # ------------------------------------------------------------- phase 3/4
@@ -783,8 +830,10 @@ def main():
                                            time.perf_counter() - t0))
     if not cuda_build.build_logs:
         print("  (the libraries were built before this run: no ptxas report)")
+    usage_of = {}
     for name, log in cuda_build.build_logs.items():
         for kernel, usage in ptxas_usage(log):
+            usage_of[kernel] = usage
             print("  %s: %s: %s" % (name, kernel, usage))
 
     fwd_err = kernel_phase()
@@ -902,6 +951,9 @@ def main():
         rec["launches"] = sum(p["launches"] for p in rec["by_path"].values())
         rec["design_launches"] = sum(p["design_launches"]
                                      for p in rec["by_path"].values())
+        # registers, static shared memory and spills of the design's
+        # function (dK/dV's shared memory is dynamic: DkdvSmem)
+        rec["ptxas"] = usage_of.get(DESIGN_FUNCTION[name], "not reported")
 
     import autodist_tpu_torch as adt
     adt.reset()

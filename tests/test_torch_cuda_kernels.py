@@ -49,22 +49,30 @@ def test_cuda_kernel_matches_plain_version(dtype, tol):
     torch.testing.assert_close(lse, ref_lse, atol=tol, rtol=tol)
 
 
-# (name, q rows, kv rows, causal, segments): the lm1b training shape, a
-# length no tile divides (200 = 12.5 x 16 = 3.125 x 64, tileable by the
-# JAX rule with 8-row blocks), fewer queries than keys, and segments with
-# an empty query row
-_BWD_CASES = [("train", 128, 128, True, False),
-              ("ragged", 200, 200, True, False),
-              ("uneven", 72, 200, False, False),
-              ("segments", 128, 128, True, True)]
+# (name, q rows, kv rows, causal, segments, strided): the lm1b training
+# shape, a length no tile divides (200 = 12.5 x 16 = 3.125 x 64, tileable
+# by the JAX rule with 8-row blocks), fewer queries than keys, segments
+# with an empty query row, and q, k, v, dO as strided views (slices of one
+# [B, S, 4, H, D] tensor: d contiguous, rows 16-byte aligned)
+_BWD_CASES = [("train", 128, 128, True, False, False),
+              ("ragged", 200, 200, True, False, False),
+              ("uneven", 72, 200, False, False, False),
+              ("segments", 128, 128, True, True, False),
+              ("strided", 200, 200, True, False, True)]
 
 
-def _bwd_inputs(dtype, sq, sk, causal, segments):
+def _bwd_inputs(dtype, sq, sk, causal, segments, strided=False):
     gen = torch.Generator(device="cuda").manual_seed(0)
-    q, do = (torch.randn((4, sq, 16, 64), generator=gen, device="cuda")
-             .to(dtype) for _ in range(2))
-    k, v = (torch.randn((4, sk, 16, 64), generator=gen, device="cuda")
-            .to(dtype) for _ in range(2))
+    if strided:
+        qkvo = torch.randn((4, sq, 4, 16, 64), generator=gen,
+                           device="cuda").to(dtype)
+        q, k, v, do = qkvo.unbind(2)
+        assert not q.is_contiguous()
+    else:
+        q, do = (torch.randn((4, sq, 16, 64), generator=gen, device="cuda")
+                 .to(dtype) for _ in range(2))
+        k, v = (torch.randn((4, sk, 16, 64), generator=gen, device="cuda")
+                .to(dtype) for _ in range(2))
     segs = (None, None)
     if segments:
         seg = (torch.arange(sk, device="cuda") >= 50).int()[None].repeat(
@@ -82,11 +90,11 @@ def _bwd_inputs(dtype, sq, sk, causal, segments):
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("kernel", ["flash_bwd_dq", "flash_bwd_dkdv"])
 def test_cuda_bwd_kernel_matches_plain_version(kernel, dtype, tol, case):
-    """Each backward kernel vs its plain version; an empty query row gets
-    a zero dQ."""
+    """Each backward kernel, in the design its rule picks, vs its plain
+    version; an empty query row gets a zero dQ."""
     _need_card()
-    _, sq, sk, causal, segments = case
-    args, segs = _bwd_inputs(dtype, sq, sk, causal, segments)
+    _, sq, sk, causal, segments, strided = case
+    args, segs = _bwd_inputs(dtype, sq, sk, causal, segments, strided)
     fn = getattr(tfa, kernel)
     before = fn.launches
     variant = (tfa._dq_variant if kernel == "flash_bwd_dq"
@@ -174,8 +182,8 @@ def test_cuda_forward_designs_match_plain_version(dtype, tol, case, segments):
 @pytest.mark.cuda
 def test_cuda_bf16_grads_go_through_the_tensor_core_kernels():
     """Autograd through flash_attention in bf16 with a strided dO: the
-    forward and dK/dV run their tensor-core designs, dQ its scalar one,
-    and the gradients match the plain versions (2e-2 of max|ref|)."""
+    forward, dQ and dK/dV all run their tensor-core designs, and the
+    gradients match the plain versions (2e-2 of max|ref|)."""
     _need_card()
     gen = torch.Generator(device="cuda").manual_seed(3)
     q, k, v = (torch.randn((2, 128, 16, 64), generator=gen, device="cuda")
@@ -183,7 +191,7 @@ def test_cuda_bf16_grads_go_through_the_tensor_core_kernels():
     do = torch.randn((2, 16, 128, 64), generator=gen, device="cuda").to(
         torch.bfloat16).transpose(1, 2)   # strided dO
     kernels = (tfa.flash_fwd, tfa.flash_bwd_dq, tfa.flash_bwd_dkdv)
-    variants = ("mma.sync bf16", "scalar bf16", "mma.sync bf16")
+    variants = ("mma.sync bf16",) * 3
     before = [f.launches_by_variant.get(n, 0)
               for f, n in zip(kernels, variants)]
     out = tfa.flash_attention(q, k, v, causal=True)

@@ -350,6 +350,43 @@ def test_bwd_references_match_jax_bwd(causal):
             tfa.flash_bwd_dkdv.launches) == before
 
 
+@pytest.mark.parametrize("causal", [False, True])
+def test_bwd_references_match_jax_bwd_bf16_at_kernel_width(causal):
+    """The bf16 plain versions against the JAX ``_bwd`` in bf16 at the
+    CUDA kernels' head width (D = 64) and a length no 64-row tile divides
+    (S = 200, which the JAX rule tiles by 8), with packed segments and an
+    empty query row: the same rounding points (dS to k's dtype for dQ; P
+    to dO's, dS to q's for dK/dV), sums in another order, at 2e-2."""
+    import jax.numpy as jnp
+    b, s, h, d = 1, 200, 1, 64
+    q, k, v, do = (_rand((b, s, h, d), seed=70 + i) for i in range(4))
+    seg = _segments("packed", b, s)
+    q_seg = seg.copy()
+    q_seg[0, 150] = 9                    # no key carries segment 9
+    tq, tk, tv, tdo = (_t(x, torch.bfloat16) for x in (q, k, v, do))
+    tqs, tks = _t(q_seg, torch.int32), _t(seg, torch.int32)
+    out, lse = tfa.flash_fwd(tq, tk, tv, tqs, tks, causal)
+    delta = tfa.flash_bwd_delta(out, tdo)
+    dq = tfa.flash_bwd_dq_reference(tq, tk, tv, tdo, lse, delta, tqs, tks,
+                                    causal)
+    dk, dv = tfa.flash_bwd_dkdv_reference(tq, tk, tv, tdo, lse, delta, tqs,
+                                          tks, causal)
+    assert dq.dtype == dk.dtype == dv.dtype == torch.bfloat16
+
+    def bf16(x):                         # [B, S, H, D] torch -> [B, H, S, D]
+        return jnp.asarray(np.transpose(x.float().numpy(), (0, 2, 1, 3)),
+                           jnp.bfloat16)
+    res = (bf16(tq), bf16(tk), bf16(tv), bf16(out), lse.numpy()[..., None],
+           q_seg, seg)
+    want = jfa._bwd(causal, 64, 64, res,
+                    jnp.asarray(tdo.float().numpy(), jnp.bfloat16))
+    for g, w in zip((dq, dk, dv), want):
+        np.testing.assert_allclose(g.float().numpy(),
+                                   np.asarray(w.astype(jnp.float32)),
+                                   atol=2e-2, rtol=2e-2)
+    assert float(dq[0, 150].float().abs().max()) == 0.0
+
+
 # ------------------------------------------------------------- designs
 
 
@@ -363,13 +400,12 @@ _RULE_SHAPES = [("decode", 1), ("training", 128), ("ragged", 200)]
 def test_variant_rules_put_bf16_on_tensor_cores_and_f32_on_scalar(dtype,
                                                                   want):
     """The fixed dispatch rules, on the dtype alone (the same at the
-    decode, training and ragged lengths): bf16 forward and dK/dV on the
-    tensor-core design, f32 on the scalar one (TF32 would break the f32
-    2e-5 bound), dQ on its scalar design in both dtypes."""
+    decode, training and ragged lengths): the bf16 forward, dQ and dK/dV
+    on the tensor-core design, f32 on the scalar one (TF32 would break the
+    f32 2e-5 bound)."""
     assert tfa._fwd_variant(dtype) == want
     assert tfa._dkdv_variant(dtype) == want
-    assert tfa._dq_variant(dtype) == (
-        "scalar bf16" if dtype == torch.bfloat16 else "scalar f32")
+    assert tfa._dq_variant(dtype) == want
     for v in (tfa._fwd_variant(dtype), tfa._dkdv_variant(dtype),
               tfa._dq_variant(dtype)):
         assert v in tfa.VARIANT_CODE
