@@ -834,16 +834,15 @@ __device__ __forceinline__ void load_kv_tile(DqSmem& sm, const Args& a,
 
 // dQ for 64 query rows a block, 16 a warp: per kv tile, each 32 keys at a
 // time, S = Q K^T and dP = dO V^T, then dQ += dS K with dS repacked from
-// the dP accumulators into A fragments. kLateFirst launches the later
-// query blocks (more kv tiles under the causal mask) first.
-template <bool kLateFirst>
-__global__ void __launch_bounds__(kMmaThreads, 3)
+// the dP accumulators into A fragments. kMinBlocks: blocks an SM the
+// register cap must allow.
+template <int kMinBlocks>
+__global__ void __launch_bounds__(kMmaThreads, kMinBlocks)
     flash_bwd_dq_mma_kernel(const Args a) {
   using namespace adt_mma;
   __shared__ DqSmem sm;
 
-  const int qblock = kLateFirst ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
-  const int q0 = qblock * kQM;
+  const int q0 = blockIdx.x * kQM;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int warp = threadIdx.x / 32;
@@ -1042,8 +1041,8 @@ __global__ void __launch_bounds__(kMmaThreads, 3)
   }
 }
 
-// variant: 0 = scalar f32, 1 = scalar bf16 (dQ only), 2 = mma.sync bf16,
-// 3 = dQ's mma.sync bf16 with the query blocks in launch order
+// variant: 0 = scalar f32, 1 = scalar bf16 (dQ only), 2 = mma.sync bf16;
+// dQ's mma.sync bf16 capped for 2 (3) or 4 (4) blocks an SM
 int launch(bool dq, int variant, const Args& a, int D, int rows,
            void* stream) {
   if (D != kD || a.B <= 0 || a.H <= 0 || a.Sq <= 0 || a.Sk <= 0 ||
@@ -1058,12 +1057,14 @@ int launch(bool dq, int variant, const Args& a, int D, int rows,
       flash_bwd_dkdv_kernel<<<grid, kThreads, 0, s>>>(a);
   } else if (variant == 1 && dq) {
     flash_bwd_dq_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(a);
-  } else if ((variant == 2 || variant == 3) && dq) {
+  } else if (variant >= 2 && variant <= 4 && dq) {
     const dim3 mma_grid((rows + kQM - 1) / kQM, a.H, a.B);
     if (variant == 2)
-      flash_bwd_dq_mma_kernel<true><<<mma_grid, kMmaThreads, 0, s>>>(a);
+      flash_bwd_dq_mma_kernel<3><<<mma_grid, kMmaThreads, 0, s>>>(a);
+    else if (variant == 3)
+      flash_bwd_dq_mma_kernel<2><<<mma_grid, kMmaThreads, 0, s>>>(a);
     else
-      flash_bwd_dq_mma_kernel<false><<<mma_grid, kMmaThreads, 0, s>>>(a);
+      flash_bwd_dq_mma_kernel<4><<<mma_grid, kMmaThreads, 0, s>>>(a);
   } else if (variant == 2 && !dq) {
     // above 48 KB, dynamic shared memory needs the kernel's consent; the
     // attribute belongs to the current device, so it is set every launch

@@ -26,9 +26,9 @@ result line):
    behind a sleep kernel, CUDA events) and as a call with host dispatch,
    beside its plain
    version, one PyTorch library call computing the same function and its
-   bound; dQ also in its earlier ``scalar bf16`` design and with its
-   query blocks in launch order, and ``flash_bwd_delta`` (four PyTorch
-   ops) beside its byte bound;
+   bound; dQ also in its earlier ``scalar bf16`` design and under other
+   register caps, and ``flash_bwd_delta`` (four PyTorch ops) beside its
+   byte bound;
 3. serve lm1b at full width in bf16 through the entry points a user calls
    (``AutoDist(...).build`` -> ``Runner.init`` -> ``DecodeEngine`` with
    ``decode_attn="flash"``): 64 prompts of mixed lengths through 32 slots;
@@ -82,10 +82,12 @@ MAIN_DESIGN = {"flash_fwd": "mma.sync bf16", "flash_bwd_dq": "mma.sync bf16",
                "flash_bwd_dkdv": "mma.sync bf16"}
 # the CUDA function each kernel's main design runs, as ptxas names it
 DESIGN_FUNCTION = {"flash_fwd": "flash_fwd_mma_kernel",
-                   "flash_bwd_dq": "flash_bwd_dq_mma_kernel<true>",
+                   "flash_bwd_dq": "flash_bwd_dq_mma_kernel<3>",
                    "flash_bwd_dkdv": "flash_bwd_dkdv_mma_kernel"}
 # C variant codes of dQ designs no rule picks, timed beside the main one
-DQ_SCALAR_BF16, DQ_LAUNCH_ORDER = 1, 3
+DQ_OTHER_DESIGNS = (("scalar bf16", 1),
+                    ("mma.sync bf16, capped for 2 blocks an SM", 3),
+                    ("mma.sync bf16, capped for 4 blocks an SM", 4))
 
 
 def ptxas_usage(log):
@@ -95,11 +97,10 @@ def ptxas_usage(log):
     out, kernel, spills = [], None, ""
     for line in log.splitlines():
         m = re.search(r"entry function '_Z\w*?\d+(flash_\w+?kernel)(I(\d+)"
-                      r"(__nv_bfloat16)|If|ILb([01])E)?", line)
+                      r"(__nv_bfloat16)|If|ILi(\d+)E)?", line)
         if m:
             kernel = m.group(1) + (
-                "<bf16>" if m.group(4) else
-                "<%s>" % ("true" if m.group(5) == "1" else "false")
+                "<bf16>" if m.group(4) else "<%s>" % m.group(5)
                 if m.group(5) else "<float>" if m.group(2) else "")
         elif "spill" in line:
             spills = line.strip()
@@ -529,9 +530,7 @@ def train_timing(card, errs):
     # against the main design's dQ on these inputs, then timed
     with uncounted():
         dq = fa.flash_bwd_dq(*args, causal=True)
-        for label, code in (("scalar bf16", DQ_SCALAR_BF16),
-                            ("mma.sync bf16, query blocks in launch order",
-                             DQ_LAUNCH_ORDER)):
+        for label, code in DQ_OTHER_DESIGNS:
             got = dq_in_design(code, *args)
             torch.cuda.synchronize()
             check_rel("dq (%s) vs dq (%s)" % (label, MAIN_DESIGN[
