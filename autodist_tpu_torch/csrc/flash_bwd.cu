@@ -1,13 +1,15 @@
 // flash_bwd.cu — FlashAttention backward for NVIDIA Hopper (sm_90a).
 //
 // Two kernels, one per TPU kernel of autodist_tpu/ops/flash_attention.py's
-// backward (both launched by _bwd through pl.pallas_call):
+// backward (both launched by _bwd through pl.pallas_call), each in a bf16
+// and an f32 design:
 //
-// - flash_bwd_dq_kernel replaces _dq_kernel: for a tile of query rows it
-//   recomputes P = exp(S - lse) tile by tile over the keys, forms
-//   dP = dO V^T and dS = P * (dP - delta) * scale rounded to k's dtype, and
-//   accumulates dQ += dS K in f32.
-// - flash_bwd_dkdv_kernel replaces _dkdv_kernel: for a tile of key rows it
+// - dQ (flash_bwd_dq_mma_kernel, flash_bwd_dq_kernel) replaces _dq_kernel:
+//   for a tile of query rows it recomputes P = exp(S - lse) tile by tile
+//   over the keys, forms dP = dO V^T and dS = P * (dP - delta) * scale
+//   rounded to k's dtype, and accumulates dQ += dS K in f32.
+// - dK/dV (flash_bwd_dkdv_mma_kernel, flash_bwd_dkdv_kernel) replaces
+//   _dkdv_kernel: for a tile of key rows it
 //   loops over the queries, accumulating dV += P^T dO (P rounded to dO's
 //   dtype) and dK += dS^T Q (dS from the unrounded exp(S - lse), rounded to
 //   q's dtype), both in f32.
@@ -32,39 +34,54 @@
 // diagonal, and tiles whose segment-id range cannot meet the block's
 // (_tile_live's range test). Two designs, chosen by the variant code:
 //
+// - flash_bwd_dq_mma_kernel (bf16 dQ): one block of four warps owns 64
+//   query rows, 16 per warp. Q and dO pass once through shared memory
+//   (the second K/V buffers, before the loop) into A fragments that stay
+//   in registers, beside each row's lse and delta; K and V tiles of 64
+//   rows (with their ids) are double-buffered with cp.async. Per 32 keys,
+//   S = Q K^T and dP = dO V^T run on the tensor cores (mma.sync m16n8k16,
+//   bf16 operands through ldmatrix, f32 accumulators; K and V rows are
+//   the columns of B as stored), dS = exp(S - lse) (dP - delta) scale is
+//   rounded to bf16 (the TPU point) and repacked from the accumulators
+//   into A fragments in registers, and dQ += dS K reads K through
+//   ldmatrix.trans. dQ stays in f32 registers and is written once, staged
+//   through shared memory so each lane stores 16 contiguous bytes. Keys
+//   past the edge or above the diagonal of all the warp's rows are skipped
+//   32 at a time; only passes at an edge, with ids or on the diagonal are
+//   masked, and the scale is folded into the exponent; four blocks share
+//   an SM.
 // - flash_bwd_dkdv_mma_kernel (bf16 dK/dV): one block of four warps owns
 //   64 key rows, 16 per warp; K and V load once as bf16, Q and dO tiles of
 //   64 rows (with their lse, delta and ids) are double-buffered with
 //   cp.async. With the keys as the M dimension, S^T = K Q^T and
 //   dP^T = V dO^T, then dV += P^T dO and dK += dS^T Q all run on the
-//   tensor cores (mma.sync m16n8k16, bf16 operands through ldmatrix, f32
-//   accumulators); P and dS are rounded to bf16 (the TPU points) and
+//   tensor cores; P and dS are rounded to bf16 (the TPU points) and
 //   repacked from the accumulators into A fragments in registers, and dO
 //   and Q serve as B both as stored and through ldmatrix.trans. dK and dV
-//   stay in f32 registers and are written once. As in the forward, only
-//   tiles at an edge, with ids or on the diagonal are masked, and the
-//   scale is folded into the exponent; three blocks share an SM.
-// - flash_bwd_dq_kernel (both dtypes) and flash_bwd_dkdv_kernel (f32):
-//   scalar FMA over tiles staged in shared memory as f32 with a padded
-//   leading dimension; a block owns 16 rows (four warps, four rows each),
-//   each lane two score and two output columns. f32 dK/dV stays here: on
-//   the tensor cores f32 operands would be TF32, about three digits, and
-//   the f32 paths are held to 2e-5.
+//   stay in f32 registers and are written once. Masks and the exponent as
+//   in dQ; three blocks share an SM.
+// - flash_bwd_dq_kernel and flash_bwd_dkdv_kernel (f32): scalar FMA over
+//   tiles staged in shared memory with a padded leading dimension; a block
+//   owns 16 rows (four warps, four rows each), each lane two score and two
+//   output columns. f32 stays here: on the tensor cores f32 operands would
+//   be TF32, about three digits, and the f32 paths are held to 2e-5.
 //
 // Bound. At lm1b training ([64, 128, 16, 64] bf16, causal) both kernels are
 // bound by bytes on this card (about 85 MB for dQ and 102 MB for dK/dV,
 // each input read once and each output written once, 0.025 and 0.030 ms
 // at 3.35 TB/s, against 3.3 and 4.4 GFLOP over the live causal half). The
-// tensor-core dK/dV design removes what held the scalar design back
-// (shared-memory operand loads for every FMA, f32 staging, 16-row tiles
-// that re-read Q and dO eight times at S = 128, loads not overlapped with
-// compute). What still holds it above the byte bound: 168 registers a
-// thread (two 16 x 64 f32 accumulators and the score tiles) leave three
-// blocks, twelve warps, on an SM to hide the latency of blocks that live
-// for one or two query tiles, and each score element costs an exp2 and a
-// handful of instructions beside the four products. wgmma and TMA would
-// raise the product rate, which is not the limit here. Times are in
-// PERF.md.
+// tensor-core designs remove what held the scalar ones back (shared-memory
+// operand loads for every FMA, f32 staging, dS through shared memory,
+// 16-row tiles that re-read the looped operand eight times at S = 128,
+// loads not overlapped with compute). What still holds them above the
+// byte bound: at S = 128 a block lives for one or two tiles of the looped
+// operand, so the first tile's load latency is exposed and is hidden only
+// by the other blocks of its SM, which the registers limit (dQ 128 a
+// thread, four blocks; dK/dV 168, three); and each score element costs an
+// exp2 and a handful of instructions beside the three or four products.
+// Launching dQ's later (heavier, under the causal mask) query blocks first
+// measured no faster than launch order. wgmma and TMA would raise the
+// product rate, which is not the limit here. Times are in PERF.md.
 
 #include <climits>
 #include <cuda_bf16.h>
@@ -105,53 +122,25 @@ struct Args {
   float scale;
 };
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// x rounded to T, as the TPU kernels' .astype(dtype) before a product
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_float(from_float<T>(x));
-}
-
-// Stage `rows` rows of kD elements (row r at base + r * row_stride, its
-// elements contiguous and 16-byte aligned) into shared memory as f32 with
-// leading dimension LD; rows >= valid are zero-filled.
-template <typename T, int LD>
-__device__ __forceinline__ void load_tile(float* dst, const T* base,
+// Stage `rows` rows of kD f32 (row r at base + r * row_stride, its
+// elements contiguous and 16-byte aligned) into shared memory with leading
+// dimension LD; rows >= valid are zero-filled.
+template <int LD>
+__device__ __forceinline__ void load_tile(float* dst, const float* base,
                                           long long row_stride, int rows,
                                           int valid) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kChunks = kD / kVec;
+  constexpr int kChunks = kD / 4;
   for (int c = threadIdx.x; c < rows * kChunks; c += kThreads) {
     const int r = c / kChunks;
-    const int col = (c % kChunks) * kVec;
-    float vals[kVec];
-    if (r < valid) {
-      const uint4 raw =
-          *reinterpret_cast<const uint4*>(base + r * row_stride + col);
-      const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-      for (int i = 0; i < kVec; ++i) vals[i] = to_float(e[i]);
-    } else {
-#pragma unroll
-      for (int i = 0; i < kVec; ++i) vals[i] = 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < kVec; ++i) dst[r * LD + col + i] = vals[i];
+    const int col = (c % kChunks) * 4;
+    const float4 vals =
+        r < valid ? *reinterpret_cast<const float4*>(base + r * row_stride +
+                                                     col)
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
+    dst[r * LD + col] = vals.x;
+    dst[r * LD + col + 1] = vals.y;
+    dst[r * LD + col + 2] = vals.z;
+    dst[r * LD + col + 3] = vals.w;
   }
 }
 
@@ -188,7 +177,6 @@ __device__ __forceinline__ void row_range(const int* seg_s, int valid,
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dq_kernel(const Args a) {
   __shared__ float q_s[kRows * kD];
@@ -210,15 +198,15 @@ __global__ void __launch_bounds__(kThreads)
   const int q_valid = min(kRows, a.Sq - q0);
   const bool has_seg = a.q_seg != nullptr;
 
-  const T* qb = static_cast<const T*>(a.q) + b * a.q_sb +
-                static_cast<long long>(q0) * a.q_ss + h * a.q_sh;
-  const T* ob = static_cast<const T*>(a.dout) + b * a.o_sb +
-                static_cast<long long>(q0) * a.o_ss + h * a.o_sh;
-  const T* kb = static_cast<const T*>(a.k) + b * a.k_sb + h * a.k_sh;
-  const T* vb = static_cast<const T*>(a.v) + b * a.v_sb + h * a.v_sh;
+  const float* qb = static_cast<const float*>(a.q) + b * a.q_sb +
+                    static_cast<long long>(q0) * a.q_ss + h * a.q_sh;
+  const float* ob = static_cast<const float*>(a.dout) + b * a.o_sb +
+                    static_cast<long long>(q0) * a.o_ss + h * a.o_sh;
+  const float* kb = static_cast<const float*>(a.k) + b * a.k_sb + h * a.k_sh;
+  const float* vb = static_cast<const float*>(a.v) + b * a.v_sb + h * a.v_sh;
 
-  load_tile<T, kD>(q_s, qb, a.q_ss, kRows, q_valid);
-  load_tile<T, kD>(do_s, ob, a.o_ss, kRows, q_valid);
+  load_tile<kD>(q_s, qb, a.q_ss, kRows, q_valid);
+  load_tile<kD>(do_s, ob, a.o_ss, kRows, q_valid);
   if (threadIdx.x < kRows) {
     const int r = threadIdx.x;
     const bool ok = r < q_valid;
@@ -259,10 +247,10 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
 
-    load_tile<T, kLD>(k_s, kb + static_cast<long long>(k0) * a.k_ss, a.k_ss,
-                      kTile, k_valid);
-    load_tile<T, kLD>(v_s, vb + static_cast<long long>(k0) * a.v_ss, a.v_ss,
-                      kTile, k_valid);
+    load_tile<kLD>(k_s, kb + static_cast<long long>(k0) * a.k_ss, a.k_ss,
+                   kTile, k_valid);
+    load_tile<kLD>(v_s, vb + static_cast<long long>(k0) * a.v_ss, a.v_ss,
+                   kTile, k_valid);
     __syncthreads();
 
 #pragma unroll
@@ -303,9 +291,10 @@ __global__ void __launch_bounds__(kThreads)
         if (!ok1) s1 = kNegInf;
         const float lse = lse_s[r], delta = delta_s[r];
         const float p0 = expf(s0 - lse), p1 = expf(s1 - lse);
-        // _dq_kernel: ds = (p * (dp - delta) * scale).astype(k.dtype)
-        ds_s[warp][lane] = round_to<T>(p0 * (dp0 - delta) * a.scale);
-        ds_s[warp][lane + 32] = round_to<T>(p1 * (dp1 - delta) * a.scale);
+        // _dq_kernel: ds = (p * (dp - delta) * scale).astype(k.dtype),
+        // exact in f32
+        ds_s[warp][lane] = p0 * (dp0 - delta) * a.scale;
+        ds_s[warp][lane + 32] = p1 * (dp1 - delta) * a.scale;
         __syncwarp();
         float a0 = acc0[i], a1 = acc1[i];
 #pragma unroll 8
@@ -322,15 +311,15 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();  // the next tile overwrites k_s, v_s, kseg_s, live_s
   }
 
-  T* out = static_cast<T*>(a.dq);
+  float* out = static_cast<float*>(a.dq);
 #pragma unroll
   for (int i = 0; i < kRowsPerWarp; ++i) {
     const int r = warp * kRowsPerWarp + i;
     if (r < q_valid) {
-      T* orow =
+      float* orow =
           out + ((static_cast<long long>(b) * a.Sq + q0 + r) * a.H + h) * kD;
-      orow[lane] = from_float<T>(acc0[i]);
-      orow[lane + 32] = from_float<T>(acc1[i]);
+      orow[lane] = acc0[i];
+      orow[lane + 32] = acc1[i];
     }
   }
 }
@@ -365,8 +354,8 @@ __global__ void __launch_bounds__(kThreads)
   const float* ob =
       static_cast<const float*>(a.dout) + b * a.o_sb + h * a.o_sh;
 
-  load_tile<float, kD>(k_s, kb, a.k_ss, kRows, k_valid);
-  load_tile<float, kD>(v_s, vb, a.v_ss, kRows, k_valid);
+  load_tile<kD>(k_s, kb, a.k_ss, kRows, k_valid);
+  load_tile<kD>(v_s, vb, a.v_ss, kRows, k_valid);
   if (threadIdx.x < kRows) {
     const int r = threadIdx.x;
     kseg_s[r] = (has_seg && r < k_valid)
@@ -409,10 +398,10 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
 
-    load_tile<float, kLD>(q_s, qb + static_cast<long long>(q0) * a.q_ss,
-                          a.q_ss, kTile, q_valid);
-    load_tile<float, kLD>(do_s, ob + static_cast<long long>(q0) * a.o_ss,
-                          a.o_ss, kTile, q_valid);
+    load_tile<kLD>(q_s, qb + static_cast<long long>(q0) * a.q_ss, a.q_ss,
+                   kTile, q_valid);
+    load_tile<kLD>(do_s, ob + static_cast<long long>(q0) * a.o_ss, a.o_ss,
+                   kTile, q_valid);
     for (int j = threadIdx.x; j < kTile; j += kThreads) {
       lse_s[j] = j < q_valid ? a.lse[row_base + q0 + j] : 0.f;
       delta_s[j] = j < q_valid ? a.delta[row_base + q0 + j] : 0.f;
@@ -834,10 +823,11 @@ __device__ __forceinline__ void load_kv_tile(DqSmem& sm, const Args& a,
 
 // dQ for 64 query rows a block, 16 a warp: per kv tile, each 32 keys at a
 // time, S = Q K^T and dP = dO V^T, then dQ += dS K with dS repacked from
-// the dP accumulators into A fragments. kMinBlocks: blocks an SM the
-// register cap must allow.
-template <int kMinBlocks>
-__global__ void __launch_bounds__(kMmaThreads, kMinBlocks)
+// the dP accumulators into A fragments.
+// Four blocks an SM: capped so (128 registers, no spills) it ran faster at
+// the lm1b training shape than uncapped or capped for three (154
+// registers, three blocks an SM).
+__global__ void __launch_bounds__(kMmaThreads, 4)
     flash_bwd_dq_mma_kernel(const Args a) {
   using namespace adt_mma;
   __shared__ DqSmem sm;
@@ -1041,8 +1031,7 @@ __global__ void __launch_bounds__(kMmaThreads, kMinBlocks)
   }
 }
 
-// variant: 0 = scalar f32, 1 = scalar bf16 (dQ only), 2 = mma.sync bf16;
-// dQ's mma.sync bf16 capped for 2 (3) or 4 (4) blocks an SM
+// variant: 0 = scalar f32, 2 = mma.sync bf16
 int launch(bool dq, int variant, const Args& a, int D, int rows,
            void* stream) {
   if (D != kD || a.B <= 0 || a.H <= 0 || a.Sq <= 0 || a.Sk <= 0 ||
@@ -1052,20 +1041,13 @@ int launch(bool dq, int variant, const Args& a, int D, int rows,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (variant == 0) {
     if (dq)
-      flash_bwd_dq_kernel<float><<<grid, kThreads, 0, s>>>(a);
+      flash_bwd_dq_kernel<<<grid, kThreads, 0, s>>>(a);
     else
       flash_bwd_dkdv_kernel<<<grid, kThreads, 0, s>>>(a);
-  } else if (variant == 1 && dq) {
-    flash_bwd_dq_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(a);
-  } else if (variant >= 2 && variant <= 4 && dq) {
+  } else if (variant == 2 && dq) {
     const dim3 mma_grid((rows + kQM - 1) / kQM, a.H, a.B);
-    if (variant == 2)
-      flash_bwd_dq_mma_kernel<3><<<mma_grid, kMmaThreads, 0, s>>>(a);
-    else if (variant == 3)
-      flash_bwd_dq_mma_kernel<2><<<mma_grid, kMmaThreads, 0, s>>>(a);
-    else
-      flash_bwd_dq_mma_kernel<4><<<mma_grid, kMmaThreads, 0, s>>>(a);
-  } else if (variant == 2 && !dq) {
+    flash_bwd_dq_mma_kernel<<<mma_grid, kMmaThreads, 0, s>>>(a);
+  } else if (variant == 2) {
     // above 48 KB, dynamic shared memory needs the kernel's consent; the
     // attribute belongs to the current device, so it is set every launch
     const cudaError_t attr = cudaFuncSetAttribute(
@@ -1083,11 +1065,11 @@ int launch(bool dq, int variant, const Args& a, int D, int rows,
 
 }  // namespace
 
-// variant: 0 = scalar f32, and 1 = scalar bf16 for dQ, 2 = mma.sync bf16
-// for dK/dV (the wrapper's _dq_variant and _dkdv_variant pick it). Strides
-// are in elements (q, k, v, then dout, each b, s, h). q_seg and kv_seg are both null or both
-// [B, Sq] / [B, Sk] contiguous int32. Each returns cudaGetLastError() after
-// its launch (0 = launched).
+// variant: 0 = scalar f32, 2 = mma.sync bf16 (the wrapper's _dq_variant
+// and _dkdv_variant pick it; 1, the removed scalar bf16 designs' code, is
+// refused). Strides are in elements (q, k, v, then dout, each b, s, h).
+// q_seg and kv_seg are both null or both [B, Sq] / [B, Sk] contiguous
+// int32. Each returns cudaGetLastError() after its launch (0 = launched).
 extern "C" int adt_flash_bwd_dq(
     int variant, const void* q, const void* k, const void* v,
     const void* dout, const float* lse, const float* delta, const int* q_seg,

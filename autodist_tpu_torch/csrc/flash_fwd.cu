@@ -567,9 +567,9 @@ __global__ void __launch_bounds__(kMmaThreads)
 }  // namespace
 
 // variant: 0 = scalar f32, 2 = mma.sync bf16 (the wrapper's _fwd_variant
-// picks it; 1, dQ's scalar bf16 design, has no forward). Strides are in
-// elements. q_seg and kv_seg are both null or both [B, Sq] / [B, Sk]
-// contiguous int32.
+// picks it; 1, the removed scalar bf16 designs' code, is refused). Strides
+// are in elements. q_seg and kv_seg are both null or both [B, Sq] /
+// [B, Sk] contiguous int32.
 // Returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int adt_flash_fwd(int variant, const void* q, const void* k,
                              const void* v, const int* q_seg,

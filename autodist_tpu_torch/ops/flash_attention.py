@@ -211,10 +211,9 @@ def flash_bwd_dkdv_reference(q, k, v, do, lse, delta, q_seg=None,
             dv.to(v.dtype).permute(0, 2, 1, 3).contiguous())
 
 
-# the designs the C entry points take, by their variant code ("scalar
-# bf16" is dQ's only, used by no rule: the bf16 dQ design the tensor-core
-# one replaced)
-VARIANT_CODE = {"scalar f32": 0, "scalar bf16": 1, "mma.sync bf16": 2}
+# the designs the C entry points take, by their variant code (1 was the
+# scalar bf16 designs', removed once the tensor-core ones measured faster)
+VARIANT_CODE = {"scalar f32": 0, "mma.sync bf16": 2}
 
 
 def _fwd_variant(dtype) -> str:

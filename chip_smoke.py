@@ -26,9 +26,8 @@ result line):
    behind a sleep kernel, CUDA events) and as a call with host dispatch,
    beside its plain
    version, one PyTorch library call computing the same function and its
-   bound; dQ also in its earlier ``scalar bf16`` design and under other
-   register caps, and ``flash_bwd_delta`` (four PyTorch ops) beside its
-   byte bound;
+   bound; and ``flash_bwd_delta`` (four PyTorch ops, which the backward
+   runs before its two kernels) beside its byte bound;
 3. serve lm1b at full width in bf16 through the entry points a user calls
    (``AutoDist(...).build`` -> ``Runner.init`` -> ``DecodeEngine`` with
    ``decode_attn="flash"``): 64 prompts of mixed lengths through 32 slots;
@@ -82,12 +81,8 @@ MAIN_DESIGN = {"flash_fwd": "mma.sync bf16", "flash_bwd_dq": "mma.sync bf16",
                "flash_bwd_dkdv": "mma.sync bf16"}
 # the CUDA function each kernel's main design runs, as ptxas names it
 DESIGN_FUNCTION = {"flash_fwd": "flash_fwd_mma_kernel",
-                   "flash_bwd_dq": "flash_bwd_dq_mma_kernel<3>",
+                   "flash_bwd_dq": "flash_bwd_dq_mma_kernel",
                    "flash_bwd_dkdv": "flash_bwd_dkdv_mma_kernel"}
-# C variant codes of dQ designs no rule picks, timed beside the main one
-DQ_OTHER_DESIGNS = (("scalar bf16", 1),
-                    ("mma.sync bf16, capped for 2 blocks an SM", 3),
-                    ("mma.sync bf16, capped for 4 blocks an SM", 4))
 
 
 def ptxas_usage(log):
@@ -96,12 +91,9 @@ def ptxas_usage(log):
     dynamic shared memory a launch asks for is not in it)."""
     out, kernel, spills = [], None, ""
     for line in log.splitlines():
-        m = re.search(r"entry function '_Z\w*?\d+(flash_\w+?kernel)(I(\d+)"
-                      r"(__nv_bfloat16)|If|ILi(\d+)E)?", line)
+        m = re.search(r"entry function '_Z\w*?\d+(flash_\w+?kernel)", line)
         if m:
-            kernel = m.group(1) + (
-                "<bf16>" if m.group(4) else "<%s>" % m.group(5)
-                if m.group(5) else "<float>" if m.group(2) else "")
+            kernel = m.group(1)
         elif "spill" in line:
             spills = line.strip()
         elif "registers" in line and kernel:
@@ -526,43 +518,14 @@ def train_timing(card, errs):
                  nbytes / 1e6, flops / 1e9, card))
         records[name] = rec
 
-    # dQ in the designs no rule picks, beside the main one: each checked
-    # against the main design's dQ on these inputs, then timed
-    with uncounted():
-        dq = fa.flash_bwd_dq(*args, causal=True)
-        for label, code in DQ_OTHER_DESIGNS:
-            got = dq_in_design(code, *args)
-            torch.cuda.synchronize()
-            check_rel("dq (%s) vs dq (%s)" % (label, MAIN_DESIGN[
-                "flash_bwd_dq"]), got, dq, 2e-2)
-            d_ms, c_ms = timed(lambda: dq_in_design(code, *args), 20)
-            print("  flash_bwd_dq bf16 [64,128,16,64] causal in design %s, "
-                  "device ms (a call with host dispatch): %.4f (%.4f) [%s]"
-                  % (label, d_ms, c_ms, card))
-        # delta = rowsum(dO * O) in f32: four PyTorch ops the backward runs
-        # before the two kernels; reads O and dO, writes [B, H, S] f32
-        d_ms, c_ms = timed(lambda: fa.flash_bwd_delta(out, do), 20)
-        nbytes = 2 * n * 2 + rows * 4
-        print("  flash_bwd_delta bf16 [64,128,16,64], device ms (a call with "
-              "host dispatch): %.4f (%.4f); bound %.4f (bytes: %.1f MB) [%s]"
-              % (d_ms, c_ms, nbytes / H100_BYTES_PER_S * 1e3, nbytes / 1e6,
-                 card))
+    # delta = rowsum(dO * O) in f32: four PyTorch ops the backward runs
+    # before the two kernels; reads O and dO, writes [B, H, S] f32
+    d_ms, c_ms = timed(lambda: fa.flash_bwd_delta(out, do), 20)
+    nbytes = 2 * n * 2 + rows * 4
+    print("  flash_bwd_delta bf16 [64,128,16,64], device ms (a call with host "
+          "dispatch): %.4f (%.4f); bound %.4f (bytes: %.1f MB) [%s]"
+          % (d_ms, c_ms, nbytes / H100_BYTES_PER_S * 1e3, nbytes / 1e6, card))
     return records
-
-
-def dq_in_design(code, q, k, v, do, lse, delta, causal=True):
-    """dQ from ``csrc/flash_bwd.cu`` in the design of C variant ``code``,
-    launched as :func:`flash_bwd_dq` launches its rule's design (not
-    counted)."""
-    import torch
-    from autodist_tpu_torch.ops import flash_attention as fa
-    q, k, v, do, lse, delta, _, _ = fa._bwd_launch_args(
-        "flash_bwd_dq", q, k, v, do, lse, delta, None, None)
-    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    fa._launch("flash_bwd_dq", code, q.data_ptr(), k.data_ptr(),
-               v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-               None, None, dq.data_ptr(), *fa._bwd_tail(q, k, v, do, causal))
-    return dq
 
 
 # ------------------------------------------------------------- phase 3/4
