@@ -313,39 +313,6 @@ struct __align__(16) MmaSmem {
   int kseg[2][kBK];         // their segment ids
 };
 
-// The first kv tile at or after k that holds a visible entry for query
-// rows up to q_last with ids in [q_lo, q_hi], or Sk when none is left.
-// Warp-uniform: each warp reduces the ids itself.
-__device__ __forceinline__ int next_kv_tile(const Args& a, const int* kv_seg,
-                                            int k, int q_last, int q_lo,
-                                            int q_hi) {
-  for (; k < a.Sk; k += kBK) {
-    if (a.causal && q_last < k) return a.Sk;
-    if (kv_seg == nullptr) return k;
-    int lo, hi;
-    adt_mma::warp_id_range(kv_seg + k, min(kBK, a.Sk - k), &lo, &hi);
-    if (q_hi >= lo && q_lo <= hi) return k;
-  }
-  return a.Sk;
-}
-
-// Start the copies of kv tile k0 (K, V rows and their segment ids) into
-// buffer buf; rows past Sk are zeroed.
-__device__ __forceinline__ void load_kv(MmaSmem& sm, const Args& a,
-                                        const bf16* kb, const bf16* vb,
-                                        const int* kv_seg, int k0, int buf) {
-  const int k_valid = min(kBK, a.Sk - k0);
-  adt_mma::load_rows_async<kBK, kMmaThreads>(
-      sm.k[buf], kb + static_cast<long long>(k0) * a.k_ss, a.k_ss, k_valid);
-  adt_mma::load_rows_async<kBK, kMmaThreads>(
-      sm.v[buf], vb + static_cast<long long>(k0) * a.v_ss, a.v_ss, k_valid);
-  if (kv_seg != nullptr && threadIdx.x < kBK) {
-    const int j = threadIdx.x;
-    adt_mma::cp_async_4(&sm.kseg[buf][j], kv_seg + k0 + (j < k_valid ? j : 0),
-                        j < k_valid);
-  }
-}
-
 __global__ void __launch_bounds__(kMmaThreads)
     flash_fwd_mma_kernel(const Args a) {
   using namespace adt_mma;
@@ -382,10 +349,20 @@ __global__ void __launch_bounds__(kMmaThreads)
     }
   }
 
+  // the next kv tile with a visible entry at or after k, and the start of
+  // the copies of tile k0 into buffer buf
+  auto next_kv = [&](int k) {
+    return next_kv_tile(k, a.Sk, a.causal, q_last, kv_seg, q_lo, q_hi);
+  };
+  auto load_kv = [&](int k0, int buf) {
+    load_kv_async<kMmaThreads>(sm.k[buf], sm.v[buf], sm.kseg[buf], kb, a.k_ss,
+                               vb, a.v_ss, kv_seg, k0, a.Sk);
+  };
+
   load_rows_async<kBM, kMmaThreads>(sm.q, qb, a.q_ss, q_valid);
   cp_async_commit();
-  int kt = next_kv_tile(a, kv_seg, 0, q_last, q_lo, q_hi);
-  if (kt < a.Sk) load_kv(sm, a, kb, vb, kv_seg, kt, 0);
+  int kt = next_kv(0);
+  if (kt < a.Sk) load_kv(kt, 0);
   cp_async_commit();
   cp_async_wait<1>();  // Q has landed; the first kv tile may be in flight
   __syncthreads();
@@ -408,9 +385,9 @@ __global__ void __launch_bounds__(kMmaThreads)
 
   int buf = 0;
   while (kt < a.Sk) {
-    const int kn = next_kv_tile(a, kv_seg, kt + kBK, q_last, q_lo, q_hi);
+    const int kn = next_kv(kt + kBK);
     // in flight while this tile computes
-    if (kn < a.Sk) load_kv(sm, a, kb, vb, kv_seg, kn, buf ^ 1);
+    if (kn < a.Sk) load_kv(kn, buf ^ 1);
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();

@@ -7,7 +7,9 @@
 //   the register fragments of mma.sync;
 // - mma.sync.m16n8k16 with bf16 operands and f32 accumulators;
 // - the repack of two f32 accumulator tiles into a bf16 A fragment, so a
-//   product's result feeds the next product without leaving registers.
+//   product's result feeds the next product without leaving registers;
+// - the loop over K/V tiles that the forward and dQ share: which tile is
+//   next (causal and segment-id skips) and the start of its copies.
 //
 // Fragment layout of m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16 x 16, row): a[0] = A[g][2t..2t+1],   a[1] = A[g+8][2t..2t+1],
@@ -30,6 +32,7 @@
 namespace adt_mma {
 
 constexpr int kLDS = 64 + 8;  // padded leading dimension, in elements
+constexpr int kKvRows = 64;   // rows of a K/V tile the kernels loop over
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -170,6 +173,43 @@ __device__ __forceinline__ void warp_id_range(const int* seg, int n, int* lo,
   }
   *lo = __reduce_min_sync(0xffffffffu, a);
   *hi = __reduce_max_sync(0xffffffffu, z);
+}
+
+// The first K/V tile at or after row k (of Sk) that holds a visible entry
+// for query rows up to q_last (under the causal mask, if causal) with
+// segment ids in [q_lo, q_hi] (if kv_seg is not null), or Sk when none is
+// left. Every lane of the warp calls it and gets the same tile.
+__device__ __forceinline__ int next_kv_tile(int k, int Sk, bool causal,
+                                            int q_last, const int* kv_seg,
+                                            int q_lo, int q_hi) {
+  for (; k < Sk; k += kKvRows) {
+    if (causal && q_last < k) return Sk;
+    if (kv_seg == nullptr) return k;
+    int lo, hi;
+    warp_id_range(kv_seg + k, min(kKvRows, Sk - k), &lo, &hi);
+    if (q_hi >= lo && q_lo <= hi) return k;
+  }
+  return Sk;
+}
+
+// Start the copies of the K/V tile at row k0 (of Sk): K rows into k, V
+// rows into v and, if kv_seg is not null, their segment ids into seg; rows
+// past Sk are zeroed. Every thread of the block (kThreadsT of them, at
+// least kKvRows) calls it.
+template <int kThreadsT>
+__device__ __forceinline__ void load_kv_async(
+    __nv_bfloat16* k, __nv_bfloat16* v, int* seg, const __nv_bfloat16* k_src,
+    long long k_stride, const __nv_bfloat16* v_src, long long v_stride,
+    const int* kv_seg, int k0, int Sk) {
+  const int valid = min(kKvRows, Sk - k0);
+  load_rows_async<kKvRows, kThreadsT>(
+      k, k_src + static_cast<long long>(k0) * k_stride, k_stride, valid);
+  load_rows_async<kKvRows, kThreadsT>(
+      v, v_src + static_cast<long long>(k0) * v_stride, v_stride, valid);
+  if (kv_seg != nullptr && threadIdx.x < kKvRows) {
+    const int j = threadIdx.x;
+    cp_async_4(seg + j, kv_seg + k0 + (j < valid ? j : 0), j < valid);
+  }
 }
 
 // Row max and row sum over the four lanes of a quad (the lanes that hold
