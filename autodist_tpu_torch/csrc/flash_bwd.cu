@@ -786,6 +786,7 @@ struct __align__(16) DqSmem {
   bf16 v[2][kTile * kLDS];
   int kseg[2][kTile];  // the tiles' segment ids
 };
+static_assert(kTile == adt_mma::kKvRows, "load_kv_async fills kTile rows");
 
 // dQ for 64 query rows a block, 16 a warp: per kv tile, each 32 keys at a
 // time, S = Q K^T and dP = dO V^T, then dQ += dS K with dS repacked from
@@ -1042,8 +1043,8 @@ int launch(bool dq, int variant, const Args& a, int D, int rows,
 }  // namespace
 
 // variant: 0 = scalar f32, 2 = mma.sync bf16 (the wrapper's _dq_variant
-// and _dkdv_variant pick it; 1, the removed scalar bf16 designs' code, is
-// refused). Strides are in elements (q, k, v, then dout, each b, s, h).
+// and _dkdv_variant pick it); any other code is refused. Strides are in
+// elements (q, k, v, then dout, each b, s, h).
 // q_seg and kv_seg are both null or both [B, Sq] / [B, Sk] contiguous
 // int32. Each returns cudaGetLastError() after its launch (0 = launched).
 extern "C" int adt_flash_bwd_dq(

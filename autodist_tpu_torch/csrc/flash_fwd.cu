@@ -312,6 +312,7 @@ struct __align__(16) MmaSmem {
   bf16 v[2][kBK * kLDS];    // double-buffered V tiles
   int kseg[2][kBK];         // their segment ids
 };
+static_assert(kBK == adt_mma::kKvRows, "load_kv_async fills kBK rows");
 
 __global__ void __launch_bounds__(kMmaThreads)
     flash_fwd_mma_kernel(const Args a) {
@@ -544,9 +545,8 @@ __global__ void __launch_bounds__(kMmaThreads)
 }  // namespace
 
 // variant: 0 = scalar f32, 2 = mma.sync bf16 (the wrapper's _fwd_variant
-// picks it; 1, the removed scalar bf16 designs' code, is refused). Strides
-// are in elements. q_seg and kv_seg are both null or both [B, Sq] /
-// [B, Sk] contiguous int32.
+// picks it); any other code is refused. Strides are in elements. q_seg
+// and kv_seg are both null or both [B, Sq] / [B, Sk] contiguous int32.
 // Returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int adt_flash_fwd(int variant, const void* q, const void* k,
                              const void* v, const int* q_seg,

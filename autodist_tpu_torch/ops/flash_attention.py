@@ -211,8 +211,7 @@ def flash_bwd_dkdv_reference(q, k, v, do, lse, delta, q_seg=None,
             dv.to(v.dtype).permute(0, 2, 1, 3).contiguous())
 
 
-# the designs the C entry points take, by their variant code (1 was the
-# scalar bf16 designs', removed once the tensor-core ones measured faster)
+# the designs the C entry points take, by their variant code
 VARIANT_CODE = {"scalar f32": 0, "mma.sync bf16": 2}
 
 

@@ -12,8 +12,8 @@ result line):
    registers, shared memory and spills, and print the card;
 2. hold each kernel, in each design (variant) its dispatch rule picks —
    ``mma.sync bf16`` on the tensor cores for bf16, ``scalar f32`` for
-   f32 — against its plain PyTorch version at the shapes the main paths give it: the
-   forward at the decode shape (f32 at 2e-5, the JAX package's
+   f32 — against its plain PyTorch version at the shapes the main paths
+   give it: the forward at the decode shape (f32 at 2e-5, the JAX package's
    flash-decode bound; bf16 at 2e-2 atol/rtol: bf16 inputs, f32
    accumulation in another order), then (2b) at the training shape
    [64, 128, 16, 64] and a smaller shape with segments and an empty query
