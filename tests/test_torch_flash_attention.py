@@ -314,17 +314,29 @@ def test_empty_query_rows_emit_zeros_with_zero_grads():
         np.testing.assert_allclose(g, w, atol=TOL, rtol=TOL)
 
 
-@pytest.mark.parametrize("causal", [False, True])
-def test_bwd_references_match_jax_bwd(causal):
+# (causal, dtype): f32 at a small width at TOL, and bf16 at the CUDA
+# kernels' head width (D = 64) and a length no 64-row tile divides
+# (S = 200, which the JAX rule tiles by 8) at 2e-2
+@pytest.mark.parametrize("causal,dtype", [
+    pytest.param(False, torch.float32, id="False"),
+    pytest.param(True, torch.float32, id="True"),
+    pytest.param(False, torch.bfloat16, id="bf16-False"),
+    pytest.param(True, torch.bfloat16, id="bf16-True")])
+def test_bwd_references_match_jax_bwd(causal, dtype):
     """flash_bwd_dq_reference / flash_bwd_dkdv_reference against the JAX
     ``_bwd`` (both Pallas backward kernels) on the same residuals, with
-    packed segments and an empty query row."""
-    b, s, h, d = 1, 128, 2, 32
-    q, k, v, do = (_rand((b, s, h, d), seed=50 + i) for i in range(4))
+    packed segments and an empty query row. In bf16 both sides round at
+    the same points (dS to k's dtype for dQ; P to dO's, dS to q's for
+    dK/dV) and sum in another order."""
+    import jax.numpy as jnp
+    bf16 = dtype == torch.bfloat16
+    b, s, h, d = (1, 200, 1, 64) if bf16 else (1, 128, 2, 32)
+    tol, empty, seed = (2e-2, 150, 70) if bf16 else (TOL, 7, 50)
+    q, k, v, do = (_rand((b, s, h, d), seed=seed + i) for i in range(4))
     seg = _segments("packed", b, s)
     q_seg = seg.copy()
-    q_seg[0, 7] = 9                      # no key carries segment 9
-    tq, tk, tv, tdo = (_t(x) for x in (q, k, v, do))
+    q_seg[0, empty] = 9                  # no key carries segment 9
+    tq, tk, tv, tdo = (_t(x, dtype) for x in (q, k, v, do))
     tqs, tks = _t(q_seg, torch.int32), _t(seg, torch.int32)
     out, lse = tfa.flash_fwd(tq, tk, tv, tqs, tks, causal)
     delta = tfa.flash_bwd_delta(out, tdo)
@@ -332,14 +344,21 @@ def test_bwd_references_match_jax_bwd(causal):
                                     causal)
     dk, dv = tfa.flash_bwd_dkdv_reference(tq, tk, tv, tdo, lse, delta, tqs,
                                           tks, causal)
-    bhsd = [np.transpose(x, (0, 2, 1, 3)) for x in (q, k, v)]
-    res = (*bhsd, np.transpose(out.numpy(), (0, 2, 1, 3)),
-           lse.numpy()[..., None], q_seg, seg)
-    want = jfa._bwd(causal, 64, 64, res, do)
+    assert dq.dtype == dk.dtype == dv.dtype == dtype
+    jdtype = jnp.bfloat16 if bf16 else jnp.float32
+
+    def bhsd(x):                         # [B, S, H, D] torch -> [B, H, S, D]
+        return jnp.asarray(np.transpose(x.float().numpy(), (0, 2, 1, 3)),
+                           jdtype)
+    res = (bhsd(tq), bhsd(tk), bhsd(tv), bhsd(out), lse.numpy()[..., None],
+           q_seg, seg)
+    want = jfa._bwd(causal, 64, 64, res,
+                    jnp.asarray(tdo.float().numpy(), jdtype))
     for g, w in zip((dq, dk, dv), want):
-        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=TOL,
-                                   rtol=TOL)
-    assert float(dq[0, 7].abs().max()) == 0.0
+        np.testing.assert_allclose(g.float().numpy(),
+                                   np.asarray(w.astype(jnp.float32)),
+                                   atol=tol, rtol=tol)
+    assert float(dq[0, empty].float().abs().max()) == 0.0
     # the CPU wrappers are the plain versions, and launch nothing
     before = (tfa.flash_bwd_dq.launches, tfa.flash_bwd_dkdv.launches)
     assert torch.equal(tfa.flash_bwd_dq(tq, tk, tv, tdo, lse, delta, tqs,
@@ -348,43 +367,6 @@ def test_bwd_references_match_jax_bwd(causal):
         tq, tk, tv, tdo, lse, delta, tqs, tks, causal), (dk, dv)))
     assert (tfa.flash_bwd_dq.launches,
             tfa.flash_bwd_dkdv.launches) == before
-
-
-@pytest.mark.parametrize("causal", [False, True])
-def test_bwd_references_match_jax_bwd_bf16_at_kernel_width(causal):
-    """The bf16 plain versions against the JAX ``_bwd`` in bf16 at the
-    CUDA kernels' head width (D = 64) and a length no 64-row tile divides
-    (S = 200, which the JAX rule tiles by 8), with packed segments and an
-    empty query row: the same rounding points (dS to k's dtype for dQ; P
-    to dO's, dS to q's for dK/dV), sums in another order, at 2e-2."""
-    import jax.numpy as jnp
-    b, s, h, d = 1, 200, 1, 64
-    q, k, v, do = (_rand((b, s, h, d), seed=70 + i) for i in range(4))
-    seg = _segments("packed", b, s)
-    q_seg = seg.copy()
-    q_seg[0, 150] = 9                    # no key carries segment 9
-    tq, tk, tv, tdo = (_t(x, torch.bfloat16) for x in (q, k, v, do))
-    tqs, tks = _t(q_seg, torch.int32), _t(seg, torch.int32)
-    out, lse = tfa.flash_fwd(tq, tk, tv, tqs, tks, causal)
-    delta = tfa.flash_bwd_delta(out, tdo)
-    dq = tfa.flash_bwd_dq_reference(tq, tk, tv, tdo, lse, delta, tqs, tks,
-                                    causal)
-    dk, dv = tfa.flash_bwd_dkdv_reference(tq, tk, tv, tdo, lse, delta, tqs,
-                                          tks, causal)
-    assert dq.dtype == dk.dtype == dv.dtype == torch.bfloat16
-
-    def bf16(x):                         # [B, S, H, D] torch -> [B, H, S, D]
-        return jnp.asarray(np.transpose(x.float().numpy(), (0, 2, 1, 3)),
-                           jnp.bfloat16)
-    res = (bf16(tq), bf16(tk), bf16(tv), bf16(out), lse.numpy()[..., None],
-           q_seg, seg)
-    want = jfa._bwd(causal, 64, 64, res,
-                    jnp.asarray(tdo.float().numpy(), jnp.bfloat16))
-    for g, w in zip((dq, dk, dv), want):
-        np.testing.assert_allclose(g.float().numpy(),
-                                   np.asarray(w.astype(jnp.float32)),
-                                   atol=2e-2, rtol=2e-2)
-    assert float(dq[0, 150].float().abs().max()) == 0.0
 
 
 # ------------------------------------------------------------- designs
