@@ -15,6 +15,20 @@ import torch
 from autodist_tpu_torch import optim
 from autodist_tpu_torch.utils import logging
 
+# flax's ``batch_stats`` collection (BatchNorm running statistics) in the
+# port's ``.``-joined names: ``batch_stats.<module path>.mean`` / ``.var``
+# (``convert.params_from_jax`` writes them so, ``models/resnet.py`` makes
+# them so)
+BATCH_STATS_PREFIX = "batch_stats."
+
+
+def default_trainable(name: str) -> bool:
+    """The default ``trainable_filter``: every variable trains except the
+    ``batch_stats`` collection, whose statistics are not weights (the JAX
+    item's default, ``autodist_tpu/model_item.py``)."""
+    return not (name.startswith(BATCH_STATS_PREFIX)
+                or "." + BATCH_STATS_PREFIX in name)
+
 
 def dtype_name(dtype) -> str:
     """numpy-style dtype name of a torch or numpy dtype (``"float32"``,
@@ -72,7 +86,7 @@ class ModelItem:
         self.params = params
         self.example_batch = example_batch
         self.has_aux = has_aux
-        self.trainable_filter = trainable_filter or (lambda name: True)
+        self.trainable_filter = trainable_filter or default_trainable
         self._var_infos: Optional[Dict[str, VarInfo]] = None
 
     def prepare(self) -> "ModelItem":

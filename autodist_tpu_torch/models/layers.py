@@ -28,6 +28,14 @@ def _param(*shape) -> nn.Parameter:
     return nn.Parameter(torch.empty(*shape), requires_grad=False)
 
 
+def lecun_normal_(t: torch.Tensor, fan_in: int, gen: torch.Generator):
+    """flax's default kernel init (``lecun_normal``): a normal truncated at
+    two standard deviations, scaled so that the variance is 1/fan_in."""
+    std = math.sqrt(1.0 / fan_in) / .87962566103423978
+    return nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std,
+                                 generator=gen)
+
+
 class Dense(nn.Module):
     """flax ``nn.Dense``/``DenseGeneral`` over the flattened feature axes:
     ``weight [out, in]`` and ``bias [out]`` in float32, computed in

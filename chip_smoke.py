@@ -15,19 +15,23 @@ result line):
    f32 — against its plain PyTorch version at the shapes the main paths
    give it: the forward at the decode shape (f32 at 2e-5, the JAX package's
    flash-decode bound; bf16 at 2e-2 atol/rtol: bf16 inputs, f32
-   accumulation in another order), then (2b) at the training shape
+   accumulation in another order), then (2b) at the lm1b training shape
    [64, 128, 16, 64] and a smaller shape with segments and an empty query
    row (out and lse, the same bounds), and the two backward kernels at
    those two shapes (f32 2e-5, bf16 2e-2, each as an error relative to the
-   plain version's largest magnitude);
+   plain version's largest magnitude); then all three at the bert_base
+   shape [128, 128, 12, 64], non-causal, with key-padding segment ids of
+   lengths 64-128 drawn from a seed (one row of 64, so whole 64-row tiles
+   are skipped), bf16 at batch 128 and f32 at batch 16, the same bounds;
 2c. (run after phase 4, so that phase 3's timed serving, which is bound
    by host dispatch, runs first in the process) time each kernel at the
-   decode and training shapes, in device time (calls queued back to back
+   decode, lm1b training and bert_base shapes (bert with the all-ones
+   mask the bench batch has), in device time (calls queued back to back
    behind a sleep kernel, CUDA events) and as a call with host dispatch,
-   beside its plain
-   version, one PyTorch library call computing the same function and its
-   bound; and ``flash_bwd_delta`` (four PyTorch ops, which the backward
-   runs before its two kernels) beside its byte bound;
+   beside its plain version, one PyTorch library call computing the same
+   function (SDPA, with the segments as a boolean mask where there are
+   any) and its bound; and ``flash_bwd_delta`` (four PyTorch ops, which
+   the backward runs before its two kernels) beside its byte bound;
 3. serve lm1b at full width in bf16 through the entry points a user calls
    (``AutoDist(...).build`` -> ``Runner.init`` -> ``DecodeEngine`` with
    ``decode_attn="flash"``): 64 prompts of mixed lengths through 32 slots;
@@ -43,7 +47,24 @@ result line):
    params moved; then a device profile of 3 more steps;
 6. the same model in f32 at batch 8: 3 Adam steps with flash attention and
    3 with the reference attention from the same init agree in loss and
-   params.
+   params;
+7. train bert_base at full width in bf16 (seq 128, batch 128, the bench
+   batch with its all-ones mask) the same way with ``attention="flash"``:
+   each kernel launched 12 times a step, all on the tensor-core design,
+   with a device profile of 3 steps; then the same with
+   ``attention="xla"`` (the plain attention) in the same process;
+8. train resnet50 at full width (bf16 convs, f32 params and BatchNorm,
+   image 224, batch 256) the same way: every BatchNorm ``mean``/``var``
+   bit-equal before and after the steps, a device profile of 3 steps;
+9. bert_base at full width in f32, batch 8, with ragged key padding and
+   ``mlm_weights`` on real tokens only: 3 Adam steps with flash attention
+   and 3 with the plain attention from the same init agree in loss and
+   params at phase 6's bounds.
+
+TF32 is off for the whole run (``torch.backends.cuda.matmul`` and
+``cudnn``): float32 is computed in float32, as the f32 checks' 2e-5 and
+parity bounds need; the bf16 paths are not affected except their float32
+GEMMs (the lm1b and bert heads), which run as full float32.
 
 The last two lines of standard output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
@@ -66,6 +87,9 @@ H100_BF16_FLOPS = 989e12
 
 DECODE_SLOTS, DECODE_T, HEADS, HEAD_DIM, LAYERS = 32, 256, 16, 64, 8
 TRAIN_BATCH, TRAIN_SEQ = 64, 128
+# the bench configurations of bert_base and resnet50 (bench.py:106-115)
+BERT_BATCH, BERT_SEQ, BERT_HEADS, BERT_LAYERS = 128, 128, 12, 12
+RESNET_BATCH, RESNET_IMAGE = 256, 224
 KERNEL_SOURCES = {
     "flash_fwd": ("autodist_tpu_torch/csrc/flash_fwd.cu",
                   "autodist_tpu/ops/flash_attention.py:97"),
@@ -79,6 +103,17 @@ KERNEL_SOURCES = {
 # the design each kernel runs on the bf16 main paths
 MAIN_DESIGN = {"flash_fwd": "mma.sync bf16", "flash_bwd_dq": "mma.sync bf16",
                "flash_bwd_dkdv": "mma.sync bf16"}
+# device kernels by kind, for the profiles' summary: the first kind with a
+# word in the kernel's name
+KERNEL_KINDS = (
+    ("flash", ("flash_",)),
+    ("gemm/conv", ("gemm", "xmma", "nvjet", "cutlass", "conv", "cudnn",
+                   "fprop", "dgrad", "wgrad", "implicit")),
+    ("adam (foreach)", ("multi_tensor_apply",)),
+    ("reduce/norm/softmax", ("reduce", "norm", "SoftMax", "softmax")),
+    ("copy/cast", ("copy", "Memcpy")),
+    ("elementwise", ("elementwise",)),
+)
 # the CUDA function each kernel's main design runs, as ptxas names it
 DESIGN_FUNCTION = {"flash_fwd": "flash_fwd_mma_kernel",
                    "flash_bwd_dq": "flash_bwd_dq_mma_kernel",
@@ -444,74 +479,145 @@ def bwd_kernel_phase():
     return errs
 
 
-def train_timing(card, errs):
-    """The three kernels at the training shape, each timed beside its plain
-    version, SDPA and its bound; returns their records (``errs`` their
-    errors, without main-path launch counts). ``card`` tags the lines."""
+def bert_segments(batch, seed):
+    """Key-padding segment ids [batch, BERT_SEQ] on the card (1 real, 0
+    padding) with lengths from ``seed`` in [64, 128]: row 0 has 64 real
+    keys, so its real query tile skips the all-padding key tile and its
+    padding query tile the real one; row 1 is not padded."""
+    import numpy as np
+    import torch
+    lengths = np.random.RandomState(seed).randint(64, BERT_SEQ + 1, batch)
+    lengths[0], lengths[1] = 64, BERT_SEQ
+    seg = (np.arange(BERT_SEQ)[None] < lengths[:, None]).astype(np.int32)
+    return torch.as_tensor(seg, device="cuda")
+
+
+def bert_kernel_phase():
+    """Phase 2b at the bert_base shape: the three kernels, non-causal, with
+    ragged key-padding segment ids, vs their plain versions (bf16 at the
+    bench batch, f32 at batch 16); returns each kernel's errors."""
+    import torch
+    from autodist_tpu_torch.ops import flash_attention as fa
+
+    print("phase 2b: the three kernels at the bert_base shape [%d, %d, %d, "
+          "%d], non-causal, ragged key padding as segment ids"
+          % (BERT_BATCH, BERT_SEQ, BERT_HEADS, HEAD_DIM))
+    errs = {"flash_fwd": [], "flash_bwd_dq": [], "flash_bwd_dkdv": []}
+    for dtype, tol, batch in ((torch.float32, 2e-5, 16),
+                              (torch.bfloat16, 2e-2, BERT_BATCH)):
+        shape = (batch, BERT_SEQ, BERT_HEADS, HEAD_DIM)
+        what = "%s [%d,%d,%d,%d] padding" % (
+            str(dtype).replace("torch.", ""), *shape)
+        gen = torch.Generator(device="cuda").manual_seed(6)
+        q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
+                       .to(dtype) for _ in range(4))
+        seg = bert_segments(batch, seed=7)
+        out, lse = fa.flash_fwd(q, k, v, seg, seg)
+        ref, ref_lse = fa.flash_fwd_reference(q, k, v, seg, seg)
+        torch.cuda.synchronize()
+        design = " (%s)" % fa._fwd_variant(dtype)
+        errs["flash_fwd"].append(max(
+            check_close("out " + what + design, out, ref, tol),
+            check_close("lse " + what + design, lse, ref_lse, tol)))
+        args = (q, k, v, do, lse, fa.flash_bwd_delta(out, do), seg, seg)
+        dq = fa.flash_bwd_dq(*args)
+        dk, dv = fa.flash_bwd_dkdv(*args)
+        dq_ref = fa.flash_bwd_dq_reference(*args)
+        dk_ref, dv_ref = fa.flash_bwd_dkdv_reference(*args)
+        torch.cuda.synchronize()
+        errs["flash_bwd_dq"].append(check_rel(
+            "dq %s (%s)" % (what, fa._dq_variant(dtype)), dq, dq_ref, tol))
+        for g, r, grad in ((dk, dk_ref, "dk"), (dv, dv_ref, "dv")):
+            errs["flash_bwd_dkdv"].append(check_rel(
+                "%s %s (%s)" % (grad, what, fa._dkdv_variant(dtype)), g, r,
+                tol))
+    return errs
+
+
+def kernel_timing(card, errs, shape, causal, seg, label):
+    """The three kernels at ``shape`` [B, S, H, D] in bf16 (``causal``,
+    segment ids ``seg`` [B, S] or None), each timed beside its plain
+    version, SDPA computing the same function and its bound; returns their
+    records (``errs`` their errors, without main-path launch counts), and
+    prints ``flash_bwd_delta``'s time beside its byte bound. ``label``
+    and ``card`` tag the lines."""
     import torch
     import torch.nn.functional as F
     from autodist_tpu_torch.ops import flash_attention as fa
 
-    # bf16 causal (4 x 16.8 MB of inputs, so L2 holds at most part of
-    # them, as for a layer of the main path)
-    train_shape = (TRAIN_BATCH, TRAIN_SEQ, HEADS, HEAD_DIM)
+    B, S, H, D = shape
     gen = torch.Generator(device="cuda").manual_seed(5)
-    q, k, v, do = (torch.randn(train_shape, generator=gen, device="cuda")
+    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
                    .to(torch.bfloat16) for _ in range(4))
+    segs = (seg, seg) if seg is not None else (None, None)
     with uncounted():
-        out, lse = fa.flash_fwd(q, k, v, causal=True)
+        out, lse = fa.flash_fwd(q, k, v, *segs, causal=causal)
         delta = fa.flash_bwd_delta(out, do)
-        args = (q, k, v, do, lse, delta)
+        args = (q, k, v, do, lse, delta, *segs)
         calls = {
-            "flash_fwd": lambda: fa.flash_fwd(q, k, v, causal=True),
-            "flash_bwd_dq": lambda: fa.flash_bwd_dq(*args, causal=True),
-            "flash_bwd_dkdv": lambda: fa.flash_bwd_dkdv(*args, causal=True)}
+            "flash_fwd": lambda: fa.flash_fwd(q, k, v, *segs, causal=causal),
+            "flash_bwd_dq": lambda: fa.flash_bwd_dq(*args, causal=causal),
+            "flash_bwd_dkdv": lambda: fa.flash_bwd_dkdv(*args,
+                                                        causal=causal)}
         ms, call = {}, {}
         for name, fn in calls.items():
             ms[name], call[name] = timed(fn, 20)
         plain = {"flash_fwd": device_ms(
-                     lambda: fa.flash_fwd_reference(q, k, v, causal=True), 3),
+                     lambda: fa.flash_fwd_reference(q, k, v, *segs,
+                                                    causal=causal), 3),
                  "flash_bwd_dq": device_ms(
-                     lambda: fa.flash_bwd_dq_reference(*args, causal=True),
+                     lambda: fa.flash_bwd_dq_reference(*args, causal=causal),
                      3),
                  "flash_bwd_dkdv": device_ms(
-                     lambda: fa.flash_bwd_dkdv_reference(*args, causal=True),
+                     lambda: fa.flash_bwd_dkdv_reference(*args,
+                                                         causal=causal),
                      3)}
     # library yardstick: SDPA's forward, and its backward (its own fused
     # kernel, which computes dq, dk and dv together) asked for each
-    # kernel's outputs
+    # kernel's outputs; segments become a boolean [B, 1, S, S] mask
+    mask = None if seg is None else \
+        (seg[:, None, :, None] == seg[:, None, None, :])
     qh, kh, vh = (x.transpose(1, 2).detach().requires_grad_()
                   for x in (q, k, v))
-    oh = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                              is_causal=causal)
+    oh = sdpa()
     doh = do.transpose(1, 2)
-    library = {"flash_fwd": timed(
-                   lambda: F.scaled_dot_product_attention(
-                       qh, kh, vh, is_causal=True), 20),
+    library = {"flash_fwd": timed(sdpa, 20),
                "flash_bwd_dq": timed(lambda: torch.autograd.grad(
                    oh, (qh,), doh, retain_graph=True), 20),
                "flash_bwd_dkdv": timed(lambda: torch.autograd.grad(
                    oh, (kh, vh), doh, retain_graph=True), 20)}
 
-    n = TRAIN_BATCH * TRAIN_SEQ * HEADS * HEAD_DIM      # elements a tensor
-    rows = TRAIN_BATCH * HEADS * TRAIN_SEQ              # lse / delta rows
-    live = TRAIN_BATCH * HEADS * TRAIN_SEQ * (TRAIN_SEQ + 1) // 2  # causal
+    n = B * S * H * D                   # elements a tensor
+    rows = B * H * S                    # lse / delta rows
+    # visible (query, key) pairs, counted from this run's masks
+    if seg is not None:
+        live = H * int((seg[:, :, None] == seg[:, None, :]).sum())
+    elif causal:
+        live = B * H * S * (S + 1) // 2
+    else:
+        live = B * H * S * S
+    seg_bytes = 0 if seg is None else 2 * B * S * 4
     work = {  # (bytes: inputs read once + outputs written once, flops)
-        "flash_fwd": ((3 * n + n) * 2 + rows * 4,     # q, k, v; out, lse
-                      2 * 2 * live * HEAD_DIM),       # s, p.v
-        "flash_bwd_dq": ((4 * n + n) * 2 + 2 * rows * 4,
-                         3 * 2 * live * HEAD_DIM),    # s, dp, dq products
-        "flash_bwd_dkdv": ((4 * n + 2 * n) * 2 + 2 * rows * 4,
-                           4 * 2 * live * HEAD_DIM)}  # s, dp, dv, dk
+        "flash_fwd": ((3 * n + n) * 2 + rows * 4 + seg_bytes,  # q,k,v; o,lse
+                      2 * 2 * live * D),                   # s, p.v
+        "flash_bwd_dq": ((4 * n + n) * 2 + 2 * rows * 4 + seg_bytes,
+                         3 * 2 * live * D),                # s, dp, dq
+        "flash_bwd_dkdv": ((4 * n + 2 * n) * 2 + 2 * rows * 4 + seg_bytes,
+                           4 * 2 * live * D)}              # s, dp, dv, dk
     records = {}
     for name, (nbytes, flops) in work.items():
         t_bytes = nbytes / H100_BYTES_PER_S * 1e3
         t_ops = flops / H100_BF16_FLOPS * 1e3
         rec = record(name, max(errs[name]), ms[name], plain[name],
                      library[name][0], t_bytes, t_ops, call[name])
-        print("  %s bf16 [64,128,16,64] causal, device ms (a call with host "
-              "dispatch): kernel (%s) %.4f (%.4f); plain %.4f; sdpa %s "
-              "%.4f (%.4f); bound %.4f (%s: %.1f MB, %.2f GFLOP) [%s]"
-              % (name, rec["design"], rec["ms"], rec["call_ms"],
+        print("  %s bf16 %s, device ms (a call with host dispatch): kernel "
+              "(%s) %.4f (%.4f); plain %.4f; sdpa %s %.4f (%.4f); bound "
+              "%.4f (%s: %.1f MB, %.2f GFLOP) [%s]"
+              % (name, label, rec["design"], rec["ms"], rec["call_ms"],
                  rec["plain_ms"],
                  "forward" if name == "flash_fwd" else "backward",
                  *library[name], rec["bound_ms"], rec["bound_by"],
@@ -522,9 +628,10 @@ def train_timing(card, errs):
     # before the two kernels; reads O and dO, writes [B, H, S] f32
     d_ms, c_ms = timed(lambda: fa.flash_bwd_delta(out, do), 20)
     nbytes = 2 * n * 2 + rows * 4
-    print("  flash_bwd_delta bf16 [64,128,16,64], device ms (a call with host "
-          "dispatch): %.4f (%.4f); bound %.4f (bytes: %.1f MB) [%s]"
-          % (d_ms, c_ms, nbytes / H100_BYTES_PER_S * 1e3, nbytes / 1e6, card))
+    print("  flash_bwd_delta bf16 %s, device ms (a call with host dispatch): "
+          "%.4f (%.4f); bound %.4f (bytes: %.1f MB) [%s]"
+          % (label, d_ms, c_ms, nbytes / H100_BYTES_PER_S * 1e3,
+             nbytes / 1e6, card))
     return records
 
 
@@ -569,6 +676,26 @@ def device_profile(run, label):
                                     key=lambda kv: -kv[1][0])[:10]:
         print("    %6.2f%% of device time  %5d calls  %s"
               % (100 * dev / total, count, key[:90]))
+    kinds = {}
+    for key, (dev, _) in by_name.items():
+        kind = next((k for k, words in KERNEL_KINDS if any(
+            w in key for w in words)), "other")
+        kinds[kind] = kinds.get(kind, 0.0) + dev
+    print("    by kind: %s" % ", ".join(
+        "%s %.1f%%" % (k, 100 * t / total)
+        for k, t in sorted(kinds.items(), key=lambda kv: -kv[1])))
+    # each kernel under the PyTorch op that launched it (an op's own
+    # device time, not its children's)
+    ops = []
+    for e in prof.key_averages():
+        own = getattr(e, "self_device_time_total", None)
+        if own is None:
+            own = getattr(e, "self_cuda_time_total", 0.0)
+        if own > 0:
+            ops.append((own, e.count, e.key))
+    print("    by op: %s" % ", ".join(
+        "%s %.1f%% (%d calls)" % (key, 100 * own / total, count)
+        for own, count, key in sorted(ops, reverse=True)[:8]))
 
 
 def serve(cfg, loss_fn, params, batch, decode_attn, dcfg, prompts,
@@ -614,29 +741,93 @@ def serve(cfg, loss_fn, params, batch, decode_attn, dcfg, prompts,
     return results, stats, wall, launches, runner
 
 
-def train_runner(cfg, batch_size, attention):
-    """Build -> init through the public entry points; returns (runner,
-    init params on the host, batch)."""
+def build_runner(loss_fn, params, batch):
+    """Build -> init through the public entry points, on the card."""
     import torch
     import autodist_tpu_torch as adt
     from autodist_tpu_torch import strategy
-    from autodist_tpu_torch.models import lm
-    loss_fn, params, batch, _ = lm.make_train_setup(
-        cfg, seq_len=TRAIN_SEQ, batch_size=batch_size, seed=0,
-        attention=attention, lean_head=True)
     adt.reset()
     ad = adt.AutoDist(strategy_builder=strategy.AllReduce())
     runner = ad.build(loss_fn, functools.partial(torch.optim.Adam, lr=1e-3),
                       params, batch)
     runner.init(params)
-    return runner, params, batch
+    return runner
+
+
+def train_runner(cfg, batch_size, attention):
+    """lm1b's runner; returns (runner, init params on the host, batch)."""
+    from autodist_tpu_torch.models import lm
+    loss_fn, params, batch, _ = lm.make_train_setup(
+        cfg, seq_len=TRAIN_SEQ, batch_size=batch_size, seed=0,
+        attention=attention, lean_head=True)
+    return build_runner(loss_fn, params, batch), params, batch
+
+
+def timed_steps(runner, batch, label, warmup=2, steps=10):
+    """``warmup`` + ``steps`` training steps, each ended by a sync; fails
+    unless every loss is finite and the last is below the first. Returns
+    (the timed steps' seconds, each kernel's launches by design over all
+    the steps); the counts are set to 0 just before the first step."""
+    import math
+    import torch
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for _ in range(warmup + steps):
+        t0 = time.perf_counter()
+        metrics = runner.run(batch)      # sync: reads the loss back
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+    launches = {k.__name__: dict(k.launches_by_variant) for k in kernels()}
+    print("  losses: %s" % " ".join("%.4f" % x for x in losses))
+    if not all(math.isfinite(x) for x in losses):
+        fail("%s: a loss is not finite: %r" % (label, losses))
+    if not losses[-1] < losses[0]:
+        fail("%s: the loss did not fall (%.4f -> %.4f)"
+             % (label, losses[0], losses[-1]))
+    return times[warmup:], launches
+
+
+def check_launches(label, launches, per_step, steps, design=None):
+    """Each kernel launched ``per_step`` times a step over ``steps`` steps,
+    all in ``design`` (default: its main design)."""
+    for kern in kernels():
+        name = kern.__name__
+        want = {(design or MAIN_DESIGN[name]): per_step * steps}
+        if launches[name] != want:
+            fail("%s: %s launched %r over %d steps (want %r)"
+                 % (label, name, launches[name], steps, want))
+
+
+def report_steps(label, times, items, unit, flops, card, launches):
+    """Step p50 (min-max), items a second, MFU and peak memory; returns the
+    p50 in ms."""
+    import statistics
+    import torch
+    p50 = statistics.median(times)
+    print("  %s, %d steps: step p50 %.2f ms (min %.2f, max %.2f), %.0f %s/s, "
+          "%.2f TFLOP/step, MFU %.2f%% of %.0f TFLOP/s bf16, peak memory "
+          "%.2f GB, launches %s [%s]"
+          % (label, len(times), p50 * 1e3, min(times) * 1e3,
+             max(times) * 1e3, items / p50, unit, flops / 1e12,
+             100 * flops / p50 / H100_BF16_FLOPS, H100_BF16_FLOPS / 1e12,
+             torch.cuda.max_memory_allocated() / 1e9, launches, card))
+    return p50 * 1e3
+
+
+def profile_steps(runner, batch, label, steps=3):
+    def run():
+        for _ in range(steps):
+            runner.run(batch)
+    device_profile(run, "%d %s steps" % (steps, label))
 
 
 def train_flops_per_step(cfg, n_params):
-    """Closed-form training FLOPs of one step: 6 x tokens x (parameters
-    outside the two embedding tables, lm_head included) plus the attention
-    products, 12 x layers x seq x d_model per token (PaLM's count, which
-    ignores the causal half)."""
+    """Closed-form training FLOPs of one lm1b step: 6 x tokens x
+    (parameters outside the two embedding tables, lm_head included) plus
+    the attention products, 12 x layers x seq x d_model per token (PaLM's
+    count, which ignores the causal half)."""
     tokens = TRAIN_BATCH * TRAIN_SEQ
     dense = n_params - (cfg.vocab_size + cfg.max_seq_len) * cfg.d_model
     return 6 * tokens * dense + 12 * cfg.num_layers * TRAIN_SEQ * \
@@ -646,8 +837,6 @@ def train_flops_per_step(cfg, n_params):
 def train_phase(card):
     """Phase 5: lm1b full width, bf16, lean head, flash attention. Returns
     each kernel's launches by design over the phase's steps."""
-    import math
-    import statistics
     import torch
     from autodist_tpu_torch.models import lm
     print("phase 5: lm1b full width (bf16, seq %d, batch %d, lean head, "
@@ -660,31 +849,9 @@ def train_phase(card):
     n_params = sum(int(p.numel()) for p in params.values())
     print("  %d parameters (random, seed 0), setup %.1f s"
           % (n_params, time.perf_counter() - t0))
-    reset_counts()
-    warmup, timed = 2, 10
-    losses, times = [], []
-    torch.cuda.reset_peak_memory_stats()
-    for _ in range(warmup + timed):
-        t0 = time.perf_counter()
-        metrics = runner.run(batch)      # sync: reads the loss back
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        losses.append(float(metrics["loss"]))
-    launches = {k.__name__: dict(k.launches_by_variant) for k in kernels()}
-    steps = warmup + timed
-    print("  losses: %s" % " ".join("%.4f" % x for x in losses))
-    if not all(math.isfinite(x) for x in losses):
-        fail("training: a loss is not finite: %r" % (losses,))
-    if not losses[-1] < losses[0]:
-        fail("training: the loss did not fall (%.4f -> %.4f)"
-             % (losses[0], losses[-1]))
-    for kern in kernels():
-        want = {MAIN_DESIGN[kern.__name__]: cfg.num_layers * steps}
-        if kern.launches != cfg.num_layers * steps or \
-                launches[kern.__name__] != want:
-            fail("training: %s launched %d times over %d steps, by design "
-                 "%r (want %r)" % (kern.__name__, kern.launches, steps,
-                                   launches[kern.__name__], want))
+    times, launches = timed_steps(runner, batch, "lm1b training")
+    check_launches("lm1b training", launches, cfg.num_layers,
+                   2 + len(times))
     final = runner.gather_params()
     if any(t.dtype != torch.float32 for t in final.values()):
         fail("training: the master params are not all float32")
@@ -696,61 +863,27 @@ def train_phase(card):
              if not torch.equal(final[n].cpu(), params[n])]
     if len(moved) != 5:
         fail("training: some params did not move (moved: %r)" % moved)
-    p50 = statistics.median(times[warmup:])
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    flops = train_flops_per_step(cfg, n_params)
-    print("  %d steps: step p50 %.2f ms (min %.2f, max %.2f), %.0f tokens/s, "
-          "%.1f examples/s, %.2f TFLOP/step, MFU %.2f%% of %.0f TFLOP/s bf16, "
-          "peak memory %.2f GB, launches %s [%s]"
-          % (timed, p50 * 1e3, min(times[warmup:]) * 1e3,
-             max(times[warmup:]) * 1e3, tokens / p50, TRAIN_BATCH / p50,
-             flops / 1e12, 100 * flops / p50 / H100_BF16_FLOPS,
-             H100_BF16_FLOPS / 1e12, torch.cuda.max_memory_allocated() / 1e9,
-             launches, card))
+    report_steps("lm1b", times, TRAIN_BATCH * TRAIN_SEQ, "tokens",
+                 train_flops_per_step(cfg, n_params), card, launches)
     stats = runner.step_stats()
     print("  step_stats: first_step_s %s steady_median_s %s goodput %s"
           % (stats["first_step_s"], stats["steady_median_s"],
              stats["goodput"]))
-
-    def three_steps():
-        for _ in range(3):
-            runner.run(batch)
-    device_profile(three_steps, "3 training steps")
+    profile_steps(runner, batch, "training")
     return launches
 
 
-def train_parity_phase():
-    """Phase 6: lm1b full width in f32, batch 8: 3 Adam steps with flash
-    attention (the three kernels) vs 3 with the reference attention."""
-    import torch
-    from autodist_tpu_torch.models import lm
-    print("phase 6: lm1b full width (f32, seq %d, batch 8): flash vs "
-          "reference attention, 3 Adam steps each" % TRAIN_SEQ)
-    cfg = lm.LMConfig.lm1b()
-    steps, lr = 3, 1e-3
-    got = {}
-    for attention in ("flash", "default"):
-        runner, _, batch = train_runner(cfg, 8, attention)
-        reset_counts()
-        losses = [float(runner.run(batch)["loss"]) for _ in range(steps)]
-        designs = {k.__name__: dict(k.launches_by_variant)
-                   for k in kernels()}
-        if attention == "flash" and any(
-                d != {"scalar f32": cfg.num_layers * steps}
-                for d in designs.values()):
-            fail("training parity: the f32 flash kernels ran %r (want "
-                 "scalar f32, 8 a step)" % (designs,))
-        got[attention] = (losses, runner.gather_params())
-        print("  %-8s losses %s" % (attention,
-                                    " ".join("%.6f" % x for x in losses)))
-    (lf, pf), (lr_, pr) = got["flash"], got["default"]
+def check_parity(label, got, steps, lr=1e-3):
+    """Two runs from one init, ``got[attention] = (losses, final params)``
+    for "flash" and the plain path: losses within 1e-4 relative; params
+    within 2 x steps x lr each and 1e-6 on average. Adam moves every
+    element by up to lr a step whatever its gradient's size, so an element
+    whose gradient is at the rounding-noise level (the key biases'
+    gradient is zero analytically) may step either way."""
+    (lf, pf), (lr_, pr) = got.values()
     for a, b in zip(lf, lr_):
         if abs(a - b) > 1e-4 * abs(b):
-            fail("training parity: losses differ (%r vs %r)" % (lf, lr_))
-    # Adam moves every element by up to lr a step whatever its gradient's
-    # size, so an element whose gradient is at the rounding-noise level
-    # (the key biases' gradient is zero analytically) may step either way:
-    # each element is held to 2 x steps x lr, and the mean to 1e-6
+            fail("%s: losses differ (%r vs %r)" % (label, lf, lr_))
     worst, total, count = 0.0, 0.0, 0
     for name in pf:
         d = (pf[name] - pr[name]).abs()
@@ -758,11 +891,193 @@ def train_parity_phase():
         total += float(d.double().sum())
         count += d.numel()
     mean = total / count
-    print("  params after %d steps: max |flash - reference| %.3e (bound "
-          "%.0e), mean %.3e (bound 1e-06)" % (steps, worst,
-                                              2 * steps * lr, mean))
+    print("  params after %d steps: max |flash - plain| %.3e (bound %.0e), "
+          "mean %.3e (bound 1e-06)" % (steps, worst, 2 * steps * lr, mean))
     if worst > 2 * steps * lr or mean > 1e-6:
-        fail("training parity: params differ beyond the bounds")
+        fail("%s: params differ beyond the bounds" % label)
+
+
+def parity_runs(label, make_runner, attentions, layers, steps=3):
+    """3 Adam steps with each attention from the same init; the flash run
+    must launch every kernel ``layers`` times a step, all ``scalar f32``."""
+    got = {}
+    for attention in attentions:
+        runner, batch = make_runner(attention)
+        reset_counts()
+        losses = [float(runner.run(batch)["loss"]) for _ in range(steps)]
+        if attention == "flash":
+            check_launches(label, {k.__name__: dict(k.launches_by_variant)
+                                   for k in kernels()}, layers, steps,
+                           design="scalar f32")
+        got[attention] = (losses, runner.gather_params())
+        print("  %-8s losses %s" % (attention,
+                                    " ".join("%.6f" % x for x in losses)))
+    check_parity(label, got, steps)
+
+
+def train_parity_phase():
+    """Phase 6: lm1b full width in f32, batch 8: 3 Adam steps with flash
+    attention (the three kernels) vs 3 with the reference attention."""
+    from autodist_tpu_torch.models import lm
+    print("phase 6: lm1b full width (f32, seq %d, batch 8): flash vs "
+          "reference attention, 3 Adam steps each" % TRAIN_SEQ)
+    cfg = lm.LMConfig.lm1b()
+    parity_runs("training parity",
+                lambda attention: train_runner(cfg, 8, attention)[::2],
+                ("flash", "default"), cfg.num_layers)
+
+
+def bert_setup(dtype, batch_size, attention, ragged=False):
+    """(runner, init params, batch, config) of bert_base at seq 128;
+    ``ragged`` pads the batch from a seed (lengths 64-128) and weighs
+    real tokens only."""
+    from autodist_tpu_torch.models import bert
+    cfg = bert.BertConfig.base(dtype=dtype)
+    loss_fn, params, batch, _ = bert.make_train_setup(
+        cfg, seq_len=BERT_SEQ, batch_size=batch_size, seed=0,
+        attention=attention)
+    if ragged:
+        mask = bert_segments(batch_size, seed=9).cpu().numpy()
+        batch = dict(batch, attention_mask=mask,
+                     mlm_weights=batch["mlm_weights"] * mask)
+    return build_runner(loss_fn, params, batch), params, batch, cfg
+
+
+def bert_flops_per_step(cfg, n_params):
+    """Closed-form training FLOPs of one bert_base step: 6 x tokens x
+    (parameters outside the three embedding tables, the MLM head
+    included) plus 12 x layers x seq x hidden per token for attention."""
+    tokens = BERT_BATCH * BERT_SEQ
+    tables = (cfg.vocab_size + cfg.max_position + cfg.type_vocab_size) * \
+        cfg.hidden_size
+    return 6 * tokens * (n_params - tables) + 12 * cfg.num_layers * \
+        BERT_SEQ * cfg.hidden_size * tokens
+
+
+def bert_train_phase(card):
+    """Phase 7: bert_base full width, bf16, the bench batch, with flash
+    attention and then the plain attention. Returns (the flash run's
+    launches by design, {attention: step p50 ms})."""
+    import torch
+    print("phase 7: bert_base full width (bf16, seq %d, batch %d) through "
+          "AutoDist -> Runner.init -> Runner.run, attention flash then xla"
+          % (BERT_SEQ, BERT_BATCH))
+    p50, flash_launches = {}, None
+    for attention in ("flash", "xla"):
+        t0 = time.perf_counter()
+        runner, params, batch, cfg = bert_setup(torch.bfloat16, BERT_BATCH,
+                                                attention)
+        torch.cuda.synchronize()
+        n_params = sum(int(p.numel()) for p in params.values())
+        print("  %s: %d parameters (random, seed 0), setup %.1f s"
+              % (attention, n_params, time.perf_counter() - t0))
+        label = "bert_base %s" % attention
+        times, launches = timed_steps(runner, batch, label)
+        if attention == "flash":
+            check_launches(label, launches, cfg.num_layers, 2 + len(times))
+            flash_launches = launches
+        elif any(launches.values()):
+            fail("%s launched a flash kernel: %r" % (label, launches))
+        final = runner.gather_params()
+        for name in ("encoder.word_embeddings.embedding",
+                     "encoder.layer_0.MultiHeadAttention_0.query.weight",
+                     "mlm_output.weight"):
+            if torch.equal(final[name].cpu(), params[name]):
+                fail("%s: %s did not move" % (label, name))
+        p50[attention] = report_steps(
+            label, times, BERT_BATCH * BERT_SEQ, "tokens",
+            bert_flops_per_step(cfg, n_params), card, launches)
+        profile_steps(runner, batch, label)
+        if attention == "flash":
+            # the wrapper turns each layer's [B, 1, 1, S] mask into segment
+            # ids (a slice and an int cast) in every layer's forward
+            mask = torch.as_tensor(batch["attention_mask"],
+                                   device="cuda")[:, None, None, :].bool()
+            seg_ms = cuda_time_ms(lambda: mask[:, 0, 0, :].int(), 50)
+            print("  segment ids from the mask: %.4f ms a layer (a call with "
+                  "host dispatch), %.3f ms a step over %d layers"
+                  % (seg_ms, seg_ms * cfg.num_layers, cfg.num_layers))
+    print("  flash vs xla at bert_base seq %d, batch %d: step p50 %.2f vs "
+          "%.2f ms [%s]" % (BERT_SEQ, BERT_BATCH, p50["flash"], p50["xla"],
+                            card))
+    return flash_launches, p50
+
+
+def resnet_flops_per_image(model):
+    """Closed-form forward FLOPs of one image (2 per multiply-add) of the
+    convs and the head, from each layer's output shape (a forward on the
+    meta device)."""
+    import torch
+    from autodist_tpu_torch.models import resnet
+    from autodist_tpu_torch.models.layers import Dense
+    total = []
+
+    def hook(mod, inputs, out):
+        total.append(2 * out.numel() * mod.weight.shape[1]
+                     * (mod.kernel ** 2 if isinstance(mod, resnet.Conv)
+                        else 1))
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, (resnet.Conv, Dense))]
+    try:
+        model(torch.empty((1, RESNET_IMAGE, RESNET_IMAGE, 3),
+                          device="meta"))
+    finally:
+        for h in hooks:
+            h.remove()
+    return sum(total)
+
+
+def resnet_phase(card):
+    """Phase 8: resnet50 full width, bf16 convs, image 224, batch 256."""
+    import torch
+    from autodist_tpu_torch.model_item import BATCH_STATS_PREFIX
+    from autodist_tpu_torch.models import resnet
+    print("phase 8: resnet50 full width (bf16 convs, f32 params, image %d, "
+          "batch %d) through AutoDist -> Runner.init -> Runner.run"
+          % (RESNET_IMAGE, RESNET_BATCH))
+    t0 = time.perf_counter()
+    loss_fn, params, batch, _ = resnet.make_train_setup(
+        resnet.ResNet50, image_size=RESNET_IMAGE, batch_size=RESNET_BATCH,
+        dtype=torch.bfloat16, seed=0)
+    runner = build_runner(loss_fn, params, batch)
+    torch.cuda.synchronize()
+    n_params = sum(int(p.numel()) for n, p in params.items()
+                   if not n.startswith(BATCH_STATS_PREFIX))
+    print("  %d parameters and %d BatchNorm statistics (random, seed 0), "
+          "setup %.1f s" % (n_params, sum(
+              int(p.numel()) for n, p in params.items()
+              if n.startswith(BATCH_STATS_PREFIX)),
+              time.perf_counter() - t0))
+    times, launches = timed_steps(runner, batch, "resnet50")
+    final = runner.gather_params()
+    stats = [n for n in final if n.startswith(BATCH_STATS_PREFIX)]
+    moved = [n for n in stats if not torch.equal(final[n].cpu(), params[n])]
+    if not stats or moved:
+        fail("resnet50: BatchNorm statistics moved: %r" % moved[:5])
+    with torch.device("meta"):
+        model = resnet.ResNet50(num_classes=1000)
+    for name in ("conv_init.weight", "bn_init.weight", "%s_%d.Conv_2.weight"
+                 % (model.block_name, model.num_blocks - 1), "head.weight"):
+        if torch.equal(final[name].cpu(), params[name]):
+            fail("resnet50: %s did not move" % name)
+    print("  %d BatchNorm mean/var tensors bit-equal before and after the "
+          "steps" % len(stats))
+    flops = 3 * RESNET_BATCH * resnet_flops_per_image(model)
+    report_steps("resnet50", times, RESNET_BATCH, "images", flops, card,
+                 launches)
+    profile_steps(runner, batch, "resnet50")
+
+
+def bert_parity_phase():
+    """Phase 9: bert_base full width in f32, batch 8, ragged padding: 3 Adam
+    steps with flash attention vs 3 with the plain attention."""
+    import torch
+    print("phase 9: bert_base full width (f32, seq %d, batch 8, ragged "
+          "padding, mlm_weights on real tokens): flash vs xla attention, 3 "
+          "Adam steps each" % BERT_SEQ)
+    parity_runs("bert parity", lambda attention: bert_setup(
+        torch.float32, 8, attention, ragged=True)[:3:2], ("flash", "xla"),
+        BERT_LAYERS)
 
 
 def main():
@@ -800,6 +1115,7 @@ def main():
 
     fwd_err = kernel_phase()
     bwd_errs = bwd_kernel_phase()
+    bert_errs = bert_kernel_phase()
 
     # phase 3 — lm1b at full width, bf16, flash decode
     import numpy as np
@@ -884,38 +1200,52 @@ def main():
 
     # the kernels' timings come after phase 3's timed serving, whose decode
     # tokens/s is bound by host dispatch, so that it runs first
-    print("phase 2c: kernel timings at the decode and training shapes")
+    print("phase 2c: kernel timings at the decode, lm1b training and "
+          "bert_base shapes")
     fwd_serve = decode_timing(card, fwd_err)
-    records = train_timing(card, bwd_errs)
+    train_records = kernel_timing(
+        card, bwd_errs, (TRAIN_BATCH, TRAIN_SEQ, HEADS, HEAD_DIM), True,
+        None, "[64,128,16,64] causal")
+    bert_records = kernel_timing(
+        card, bert_errs, (BERT_BATCH, BERT_SEQ, BERT_HEADS, HEAD_DIM), False,
+        torch.ones((BERT_BATCH, BERT_SEQ), dtype=torch.int32, device="cuda"),
+        "[128,128,12,64] all-ones mask")
 
     train_launches = train_phase(card)
     train_parity_phase()
+    bert_launches, _ = bert_train_phase(card)
+    resnet_phase(card)
+    bert_parity_phase()
 
-    # flash_fwd runs on both main paths, serving (decode) and training, the
-    # backward kernels in training. Each record's top-level numbers are its
-    # first path's; "by_path" gives each path's launches, design, times and
-    # bound; "launches" and "design_launches" sum over the paths
+    # flash_fwd runs on the three main paths, serving (decode), lm1b and
+    # bert training, the backward kernels on the two training paths. Each
+    # record's top-level numbers are its first path's, its max_abs_err the
+    # largest over its paths; "by_path" gives each path's launches,
+    # design, times and bound; "launches" and "design_launches" sum over
+    # the paths
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "call_ms", "design")
-    by_path = {"flash_fwd": {"serve": (serve_launches, fwd_serve),
-                             "train": (train_launches["flash_fwd"],
-                                       records["flash_fwd"])}}
-    for name in ("flash_bwd_dq", "flash_bwd_dkdv"):
-        by_path[name] = {"train": (train_launches[name], records[name])}
-    records["flash_fwd"] = dict(fwd_serve, max_abs_err=max(
-        fwd_serve["max_abs_err"], records["flash_fwd"]["max_abs_err"]))
-    for name, rec in records.items():
+    by_path = {"flash_fwd": {"serve": (serve_launches, fwd_serve)},
+               "flash_bwd_dq": {}, "flash_bwd_dkdv": {}}
+    for name, paths in by_path.items():
+        paths["train"] = (train_launches[name], train_records[name])
+        paths["bert"] = (bert_launches[name], bert_records[name])
+    records = {}
+    for name, paths in by_path.items():
+        rec = dict(next(iter(paths.values()))[1], max_abs_err=max(
+            r["max_abs_err"] for _, r in paths.values()))
         rec["by_path"] = {
             path: dict({"launches": sum(n.values()),
                         "design_launches": n.get(r["design"], 0)},
                        **{key: r[key] for key in keys})
-            for path, (n, r) in by_path[name].items()}
+            for path, (n, r) in paths.items()}
         rec["launches"] = sum(p["launches"] for p in rec["by_path"].values())
         rec["design_launches"] = sum(p["design_launches"]
                                      for p in rec["by_path"].values())
         # registers, static shared memory and spills of the design's
         # function (dK/dV's shared memory is dynamic: DkdvSmem)
         rec["ptxas"] = usage_of.get(DESIGN_FUNCTION[name], "not reported")
+        records[name] = rec
 
     import autodist_tpu_torch as adt
     adt.reset()

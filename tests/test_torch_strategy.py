@@ -61,3 +61,31 @@ def test_model_item_reads_a_state_dict():
     assert item.total_bytes() == 3 * 4 * 4 + 4 * 4 + 2 * 2
     with pytest.raises(TypeError, match="state_dict"):
         ModelItem(loss_fn=lambda p, b: 0.0, params=[1]).prepare()
+
+
+def test_model_item_default_filter_freezes_batch_stats_as_jax_does():
+    """The default ``trainable_filter`` keeps flax's ``batch_stats``
+    collection from training, under the port's ``.``-joined names, as the
+    JAX item's default does under its ``/``-joined ones."""
+    from autodist_tpu.model_item import ModelItem as JModelItem
+    names = ["params/bn_init/scale", "batch_stats/bn_init/mean",
+             "batch_stats/BottleneckBlock_0/norm_proj/var",
+             "params/head/kernel", "outer/batch_stats/m/var",
+             "params/batch_statsx/kernel"]
+    jitem = JModelItem(loss_fn=lambda p, b: 0.0)
+    titem = ModelItem(loss_fn=lambda p, b: 0.0)
+    for name in names:
+        port = name[len("params/"):] if name.startswith("params/") else name
+        port = port.replace("/", ".")
+        assert titem.trainable_filter(port) == jitem.trainable_filter(name), \
+            name
+    params = {"bn_init.weight": torch.ones(4),
+              "batch_stats.bn_init.mean": torch.zeros(4),
+              "batch_stats.bn_init.var": torch.ones(4)}
+    item = ModelItem(loss_fn=lambda p, b: 0.0, params=params).prepare()
+    assert item.trainable_var_names == ["bn_init.weight"]
+    assert not item.var_infos["batch_stats.bn_init.var"].trainable
+    # an explicit filter still decides alone
+    item = ModelItem(loss_fn=lambda p, b: 0.0, params=params,
+                     trainable_filter=lambda n: True).prepare()
+    assert len(item.trainable_var_names) == 3
