@@ -159,7 +159,6 @@ class ResNet(nn.Module):
                  num_classes: int = 1000, num_filters: int = 64,
                  dtype: Any = torch.float32):
         super().__init__()
-        self.dtype = dtype
         self.apply_lock = threading.Lock()
         self.conv_init = Conv(3, num_filters, 7, 2, padding=3, dtype=dtype)
         self.bn_init = BatchNorm(num_filters)
@@ -196,7 +195,7 @@ ResNetTiny = functools.partial(ResNet, stage_sizes=[1, 1],
                                block_cls=BasicBlock, num_filters=8)
 
 
-def module_names(params: dict) -> dict:
+def _module_names(params: dict) -> dict:
     """The params mapping under the module's own names: ``batch_stats.X``
     -> ``X`` (the tensors themselves, so gradients reach the caller's)."""
     n = len(BATCH_STATS_PREFIX)
@@ -243,7 +242,7 @@ def make_train_setup(model_cls=ResNet50, num_classes: int = 1000,
     params = init_params(model, seed)
 
     def forward(p, image):
-        return apply(model, module_names(p), torch.as_tensor(image))
+        return apply(model, _module_names(p), torch.as_tensor(image))
 
     def loss_fn(params, batch):
         logits = forward(params, batch["image"])

@@ -545,6 +545,8 @@ def kernel_timing(card, errs, shape, causal, seg, label):
     import torch.nn.functional as F
     from autodist_tpu_torch.ops import flash_attention as fa
 
+    # four bf16 inputs of 16.8 MB (lm1b's shape) or 25.2 MB (bert's), so
+    # L2 holds at most part of them, as for a layer of the main path
     B, S, H, D = shape
     gen = torch.Generator(device="cuda").manual_seed(5)
     q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
@@ -684,14 +686,13 @@ def device_profile(run, label):
     print("    by kind: %s" % ", ".join(
         "%s %.1f%%" % (k, 100 * t / total)
         for k, t in sorted(kinds.items(), key=lambda kv: -kv[1])))
-    # each kernel under the PyTorch op that launched it (an op's own
-    # device time, not its children's)
+    # each kernel under the host-side PyTorch op that launched it (an op's
+    # own device time, not its children's); the profiler also lists the
+    # kernels themselves, which are left out
     ops = []
     for e in prof.key_averages():
-        own = getattr(e, "self_device_time_total", None)
-        if own is None:
-            own = getattr(e, "self_cuda_time_total", 0.0)
-        if own > 0:
+        own = getattr(e, "self_device_time_total", 0.0)
+        if own > 0 and e.device_type != DeviceType.CUDA:
             ops.append((own, e.count, e.key))
     print("    by op: %s" % ", ".join(
         "%s %.1f%% (%d calls)" % (key, 100 * own / total, count)
@@ -956,8 +957,8 @@ def bert_flops_per_step(cfg, n_params):
 
 def bert_train_phase(card):
     """Phase 7: bert_base full width, bf16, the bench batch, with flash
-    attention and then the plain attention. Returns (the flash run's
-    launches by design, {attention: step p50 ms})."""
+    attention and then the plain attention. Returns the flash run's
+    launches by design."""
     import torch
     print("phase 7: bert_base full width (bf16, seq %d, batch %d) through "
           "AutoDist -> Runner.init -> Runner.run, attention flash then xla"
@@ -1000,7 +1001,7 @@ def bert_train_phase(card):
     print("  flash vs xla at bert_base seq %d, batch %d: step p50 %.2f vs "
           "%.2f ms [%s]" % (BERT_SEQ, BERT_BATCH, p50["flash"], p50["xla"],
                             card))
-    return flash_launches, p50
+    return flash_launches
 
 
 def resnet_flops_per_image(model):
@@ -1213,7 +1214,7 @@ def main():
 
     train_launches = train_phase(card)
     train_parity_phase()
-    bert_launches, _ = bert_train_phase(card)
+    bert_launches = bert_train_phase(card)
     resnet_phase(card)
     bert_parity_phase()
 

@@ -52,13 +52,15 @@ def test_cuda_kernel_matches_plain_version(dtype, tol):
 # (name, q rows, kv rows, causal, segments, strided): the lm1b training
 # shape, a length no tile divides (200 = 12.5 x 16 = 3.125 x 64, tileable
 # by the JAX rule with 8-row blocks), fewer queries than keys, segments
-# with an empty query row, and q, k, v, dO as strided views (slices of one
-# [B, S, 4, H, D] tensor: d contiguous, rows 16-byte aligned)
-_BWD_CASES = [("train", 128, 128, True, False, False),
-              ("ragged", 200, 200, True, False, False),
-              ("uneven", 72, 200, False, False, False),
-              ("segments", 128, 128, True, True, False),
-              ("strided", 200, 200, True, False, True)]
+# with an empty query row, q, k, v, dO as strided views (slices of one
+# [B, S, 4, H, D] tensor: d contiguous, rows 16-byte aligned), and BERT's
+# non-causal key padding (a row of 64 real keys skips whole 64-row tiles)
+_BWD_CASES = [("train", 128, 128, True, None, False),
+              ("ragged", 200, 200, True, None, False),
+              ("uneven", 72, 200, False, None, False),
+              ("segments", 128, 128, True, "empty row", False),
+              ("strided", 200, 200, True, None, True),
+              ("padding", 128, 128, False, "padding", False)]
 
 
 def _bwd_inputs(dtype, sq, sk, causal, segments, strided=False):
@@ -74,12 +76,17 @@ def _bwd_inputs(dtype, sq, sk, causal, segments, strided=False):
         k, v = (torch.randn((4, sk, 16, 64), generator=gen, device="cuda")
                 .to(dtype) for _ in range(2))
     segs = (None, None)
-    if segments:
+    if segments == "empty row":
         seg = (torch.arange(sk, device="cuda") >= 50).int()[None].repeat(
             4, 1).contiguous()
         q_seg = seg[:, :sq].clone()
         q_seg[:, 9] = 7                  # an empty query row
         segs = (q_seg, seg)
+    elif segments == "padding":          # BERT's key padding: 1 real, 0 pad
+        lengths = torch.tensor([64, 128, 100, 70], device="cuda")
+        seg = (torch.arange(sk, device="cuda")[None]
+               < lengths[:, None]).int()
+        segs = (seg, seg)
     out, lse = tfa.flash_fwd_reference(q, k, v, *segs, causal=causal)
     return (q, k, v, do, lse, tfa.flash_bwd_delta(out, do)), segs
 
@@ -108,7 +115,7 @@ def test_cuda_bwd_kernel_matches_plain_version(kernel, dtype, tol, case):
     for g, w in zip(got, want):
         scale = float(w.float().abs().max())
         assert float((g.float() - w.float()).abs().max()) <= tol * scale
-    if segments and kernel == "flash_bwd_dq":
+    if segments == "empty row" and kernel == "flash_bwd_dq":
         assert float(got[0][:, 9].float().abs().max()) == 0.0
 
 

@@ -200,6 +200,8 @@ def test_params_from_jax_conv_and_batchnorm_leaves():
     assert tuple(w.shape) == (4, 2, 3, 5)                   # OIHW
     for o, i, h, x in ((0, 0, 0, 0), (3, 1, 2, 4), (1, 0, 2, 3)):
         assert float(w[o, i, h, x]) == float(kernel[h, x, i, o])
+    # back to HWIO, bit for bit
+    assert np.array_equal(w.numpy().transpose(2, 3, 1, 0), kernel)
     assert float(out["batch_stats.blk.BatchNorm_0.var"][0]) == 2.0
     # the params subtree alone converts as before
     assert sorted(params_from_jax(tree["params"])) == sorted(
