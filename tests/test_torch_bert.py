@@ -18,7 +18,8 @@ float32 on the CPU at ``BertConfig.tiny()``, seq 32, batch 4:
 - three ``Runner.run`` Adam steps against three JAX AllReduce steps
   (losses 1e-5). The JAX runner is given a one-device resource spec: the
   MLM loss divides by the batch's weight sum, so the mean of per-device
-  losses over the session's 8 virtual devices would be another function;
+  losses over the test run's 8 virtual CPU devices would be another
+  function;
 - the AllReduce plan's JSON bytes against the JAX plan for the same
   variable list.
 """
