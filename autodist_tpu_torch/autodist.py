@@ -7,16 +7,29 @@
     metrics = runner.run(batch)            # one training step: {"loss": ...}
 
 capture -> strategy build -> compile -> lowering, with the JAX package's
-one-instance-per-process registry. The port runs one process on one
-device; entry points run on ``cuda`` unless the caller passes
-``device="cpu"``, and raise when no card is visible rather than continue
-on the CPU.
+one-instance-per-process registry.
+
+Data parallelism is one process a replica: the caller creates the default
+``torch.distributed`` process group (``torchrun``, or
+``torch.multiprocessing`` with the ``spawn`` start method and a
+``FileStore`` or TCP address), each process builds its ``AutoDist`` and
+calls the same entry points, and the port runs on the group it finds —
+its rank and world size, its backend (the port never picks one). With no
+group there is one replica. The plan must name one replica a rank (the
+resource spec; ranks sharing one card list its index twice). Entry
+points run on ``cuda`` — ``cuda:<local rank>`` for a rank, the local rank
+being ``LOCAL_RANK`` as torchrun sets it, else the rank — unless the
+caller passes a device, and raise when that card is not visible rather
+than continue on the CPU or another card.
 """
+import os
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 
 from autodist_tpu_torch.kernel.graph_transformer import GraphTransformer
+from autodist_tpu_torch.kernel.replicator import ReplicaInfo
 from autodist_tpu_torch.model_item import ModelItem
 from autodist_tpu_torch.resource_spec import ResourceSpec
 from autodist_tpu_torch.runtime.runner import Runner
@@ -55,19 +68,33 @@ def reset():
     _tspans.reset()
 
 
+def process_group_replicas() -> ReplicaInfo:
+    """This process's rank and the world size of the default process
+    group; one replica when no group is initialized."""
+    if dist.is_available() and dist.is_initialized():
+        return ReplicaInfo(dist.get_world_size(), dist.get_rank())
+    return ReplicaInfo()
+
+
 class AutoDist:
     def __init__(self, resource_spec_file: Optional[str] = None,
                  strategy_builder=None,
                  resource_spec: Optional[ResourceSpec] = None,
                  device=None):
-        self._device = resolve_device(device)
+        self._replicas = process_group_replicas()
+        local_rank = None
+        if self._replicas.num_replicas > 1:
+            local_rank = int(os.environ.get("LOCAL_RANK",
+                                            self._replicas.rank))
+        self._device = resolve_device(device, local_rank)
         if resource_spec is not None:
             self._resource_spec = resource_spec
         elif resource_spec_file is not None:
             self._resource_spec = ResourceSpec(resource_spec_file)
         else:
             self._resource_spec = ResourceSpec.from_local(
-                "cpu" if self._device.type == "cpu" else "cuda")
+                "cpu" if self._device.type == "cpu" else "cuda",
+                replicas=self._replicas.num_replicas)
         if strategy_builder is None:
             # the JAX package defaults to PSLoadBalancing, which the port
             # has not reached; AllReduce is the builder it has
@@ -93,7 +120,8 @@ class AutoDist:
         uninitialized Runner. ``optimizer`` is a ``torch.optim`` factory
         (``functools.partial(torch.optim.Adam, lr=1e-3)``, or None for a
         runner that only serves): the model item records its ``(name,
-        kwargs)`` and the lowered step applies it (``optim.py``)."""
+        kwargs)`` and the lowered step applies it (``optim.py``). Raises
+        when the plan's replica count is not the group's world size."""
         item = ModelItem(loss_fn=loss_fn, optimizer=optimizer, params=params,
                          example_batch=example_batch, has_aux=has_aux,
                          apply_fn=apply_fn,
@@ -103,7 +131,8 @@ class AutoDist:
         compiled = StrategyCompiler(item, self._resource_spec).compile(
             strategy)
         logging.info("compiled %r", compiled)
-        dstep = GraphTransformer(compiled, item, self._device).transform()
+        dstep = GraphTransformer(compiled, item, self._device,
+                                 self._replicas).transform()
         self._runner = Runner(dstep)
         return self._runner
 

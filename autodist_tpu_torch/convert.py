@@ -19,6 +19,10 @@ these layouts:
   ``ModelItem``'s default filter keeps from training.
 
 Any other leaf or collection raises.
+
+``jax_name(name, shape)`` inverts the naming half of these rules: the
+JAX item's name for a port variable (``ModelItem`` keys collectives and
+the variable order on it).
 """
 import numpy as np
 import torch
@@ -86,3 +90,48 @@ def params_from_jax(np_tree) -> dict:
             out[prefix + ".".join(path[:-1] + (name,))] = torch.from_numpy(
                 np.array(value, dtype=np.float32, order="C", copy=True))
     return out
+
+
+def jax_name(name: str, shape) -> str:
+    """The JAX package's variable name for the port's ``name`` (of a
+    variable of ``shape``), as its ``ModelItem`` spells it over a flax
+    variables tree: ``.`` becomes ``/`` under the collection
+    (``params/``, or ``batch_stats/`` for names under
+    ``BATCH_STATS_PREFIX``), and a ``weight`` leaf becomes ``scale`` when
+    it is 1-D (LayerNorm, BatchNorm) and ``kernel`` otherwise (Dense,
+    DenseGeneral, Conv) — the inverse of :func:`_param_leaf`'s names."""
+    collection = "params"
+    if name.startswith(BATCH_STATS_PREFIX):
+        collection, name = "batch_stats", name[len(BATCH_STATS_PREFIX):]
+    parts = name.split(".")
+    if parts[-1] == "weight":
+        parts[-1] = "scale" if len(tuple(shape)) == 1 else "kernel"
+    return "/".join([collection] + parts)
+
+
+def to_jax_layout(t: torch.Tensor, name: str) -> torch.Tensor:
+    """The port's tensor ``t`` of the variable the JAX package calls
+    ``name`` (:func:`jax_name`), as a view in the flax leaf's element
+    order: a kernel's ``weight [out, in]`` as ``[in, out]`` (which also
+    flattens as the DenseGeneral ``[d, H, D]`` and ``[H, D, d]`` kernels
+    do) and a conv's OIHW as HWIO; every other leaf as it is. Gradient
+    buckets concatenate in this order, so the int8 wire's scale blocks
+    hold the same elements in both packages."""
+    if name.endswith("/kernel"):
+        if t.dim() == 2:
+            return t.t()
+        if t.dim() == 4:
+            return t.permute(2, 3, 1, 0)
+    return t
+
+
+def from_jax_layout(flat: torch.Tensor, shape, name: str) -> torch.Tensor:
+    """Inverse of :func:`to_jax_layout`: the flat vector in the flax
+    leaf's element order, as the port's contiguous tensor of ``shape``."""
+    shape = tuple(shape)
+    if name.endswith("/kernel") and len(shape) == 2:
+        return flat.reshape(shape[1], shape[0]).t().contiguous()
+    if name.endswith("/kernel") and len(shape) == 4:
+        o, i, h, w = shape
+        return flat.reshape(h, w, i, o).permute(3, 2, 0, 1).contiguous()
+    return flat.reshape(shape)

@@ -2,30 +2,46 @@
 executes.
 
 PyTorch counterpart of ``autodist_tpu/kernel/graph_transformer.py``. JAX
-lowers the plan to jitted SPMD programs; the port runs eagerly on one
-device, so a "program" here is a Python callable with the signature the
-JAX program has. :class:`DistributedStep` carries:
+lowers the plan to jitted SPMD programs over a device mesh; the port runs
+eagerly, one process a replica (the ranks of the ``torch.distributed``
+group the caller created, ``kernel/replicator.py``), so a "program" here
+is a Python callable with the signature the JAX program has.
+:class:`DistributedStep` carries:
 
-- the training step (``__call__``): the one-replica branch of the JAX
-  ``local_step`` — loss and grads over the full params, non-trainable
-  variables held still, the optimizer apply, ``{"loss": ...}`` metrics;
+- the training step (``__call__``): the JAX ``local_step`` — loss and
+  grads of this rank's shard of the batch, then, with more than one
+  replica, the epilogue gradient sync: the concatenated buckets of
+  compressed variables (``parallel/collectives.py``), then the
+  per-variable synchronizers, each a mean over the replicas; frozen
+  variables held still; the optimizer apply; ``{"loss": ...}`` metrics
+  averaged over the replicas. One replica issues no collective;
 - :meth:`DistributedStep.evaluate`: forward-only metrics;
 - the serving programs (:meth:`DistributedStep.predict_program`,
   :meth:`DistributedStep.decode_program`), run under
-  ``torch.inference_mode()``.
+  ``torch.inference_mode()``, on one replica.
 
-The gradient all-reduce across replicas is a later slice: the transform
-raises for a plan with more than one replica.
+Lookup-indexed tables that the JAX package would sync over its sparse
+(ids, values) wire are synced dense here, outside the buckets, as that
+wire leaves them (ROADMAP A item 8). With more than one replica the
+transform refuses, by name, the plan features the port has not reached.
 """
 from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.utils import _pytree as pytree
 
+from autodist_tpu_torch.kernel.replicator import ReplicaInfo
+from autodist_tpu_torch.kernel.synchronization.all_reduce_synchronizer \
+    import AllReduceSynchronizer
+from autodist_tpu_torch.kernel.synchronization.synchronizer import \
+    all_reduce_sum
+from autodist_tpu_torch.parallel import collectives
 from autodist_tpu_torch.strategy.base import Strategy
 from autodist_tpu_torch.telemetry import spans as tel
 from autodist_tpu_torch.train_state import TrainState
+from autodist_tpu_torch.utils import logging
 
 
 def _leading_rows(tree) -> int:
@@ -80,24 +96,123 @@ def _clone(tree):
         lambda t: t.clone() if isinstance(t, torch.Tensor) else t, tree)
 
 
+def sparse_wire_vars(item, replicas: ReplicaInfo) -> set:
+    """The tables the JAX lowering would sync over its sparse (ids,
+    values) wire at ``replicas.num_replicas`` > 1
+    (``autodist_tpu/kernel/graph_transformer.py:1140-1262``): trainable
+    lookup-indexed variables with no other differentiable use, whose
+    gathered pairs — ids looked up per replica x replicas x (features +
+    1) — undercut the dense gradient (rows x features). The lookups are
+    traced against one replica's shard of the example batch."""
+    from autodist_tpu_torch.model_item import trace_lookups
+    candidates = {n for n, v in item.var_infos.items()
+                  if v.sparse and v.trainable}
+    if not candidates or item.example_batch is None:
+        return set()
+    loss = item.loss_fn
+    if item.has_aux:
+        loss = lambda p, b: item.loss_fn(p, b)[0]  # noqa: E731
+
+    def local(leaf):
+        shape = np.shape(leaf)
+        if not shape:
+            return leaf
+        return leaf[:replicas.local_shape(shape)[0]]
+    try:
+        lookups, dense_uses = trace_lookups(
+            loss, item.params, pytree.tree_map(local, item.example_batch))
+    except Exception as e:  # noqa: BLE001 — routing is best-effort
+        logging.warning("sparse-wire discovery failed (%s); every table "
+                        "syncs in the dense plan", e)
+        return set()
+    out = set()
+    for n in sorted(candidates & set(lookups) - dense_uses):
+        shape = item.var_infos[n].shape
+        feat = max(1, int(np.prod(shape[1:] or (1,))))
+        sparse_elems = sum(lookups[n]) * replicas.num_replicas * (feat + 1)
+        if sparse_elems < int(shape[0]) * feat:
+            out.add(n)
+    return out
+
+
 class DistributedStep:
-    """The executable plan on one device: parameter state init, the
-    training step, evaluation and the serving programs built from user
-    functions."""
+    """The executable plan on this process's device: parameter state init,
+    the training step with its gradient sync, evaluation and the serving
+    programs built from user functions."""
 
     def __init__(self, *, strategy: Strategy, model_item, device,
-                 metadata: Optional[dict] = None):
+                 metadata: Optional[dict] = None,
+                 replica_info: Optional[ReplicaInfo] = None):
         self.strategy = strategy
         self.model_item = model_item
         self.optimizer = model_item.optimizer_spec
         self.device = torch.device(device)
         self.metadata = metadata or {}
-        self.num_replicas = 1
+        self.replica_info = replica_info or ReplicaInfo()
+        self.num_replicas = self.replica_info.num_replicas
         # no host-resident parameter-server variables in this slice: the
         # serving engine's snapshot is always the empty mapping
         self.ps_store = None
         self._predict_progs: Dict[tuple, ForwardProgram] = {}
         self._decode_progs: Dict[tuple, ForwardProgram] = {}
+        self.syncs: Dict[str, AllReduceSynchronizer] = {}
+        self.buckets = []
+        self.sparse_wire = frozenset()
+        if self.num_replicas > 1:
+            self._build_synchronizers()
+
+    def _build_synchronizers(self):
+        """Per-variable synchronizer kernels from the node configs, and
+        the buckets of the concatable compressed ones (the JAX
+        ``_build_synchronizers`` and ``make_buckets`` call). NoneCompressor
+        variables all-reduce one by one; the sparse-wire tables keep out
+        of both, as in the JAX lowering."""
+        N, item = self.num_replicas, self.model_item
+        self.sparse_wire = frozenset(sparse_wire_vars(item, self.replica_info))
+        for node in self.strategy.node_config:
+            info = item.var_infos.get(node.var_name)
+            if (info is None or not info.trainable
+                    or node.var_name in self.sparse_wire):
+                continue
+            self.syncs[node.var_name] = AllReduceSynchronizer(
+                node.var_name, node.synchronizer, N,
+                collective_name=info.collective_name)
+        compressed = {n: s for n, s in self.syncs.items()
+                      if s.compressor.name != "NoneCompressor"}
+        self.buckets, _ = collectives.make_buckets(compressed,
+                                                   item.var_infos)
+        self._bucketed = {n for b in self.buckets for n in b.var_names}
+        # one data axis: the default group, all N ranks
+        self._ring_axes = ((None, N),)
+
+    def _sync_state_init(self) -> dict:
+        """Compressor states on the device, one copy per rank (the JAX
+        ``sync_state_init`` without its leading device axis)."""
+        st = {"bucket": {}, "var": {}}
+        for b in self.buckets:
+            s = b.make_compressor().state_init((b.total_size,), b.dtype)
+            if s is not None:
+                st["bucket"][b.key] = s.to(self.device)
+        for n, s in self.syncs.items():
+            if n in self._bucketed:
+                continue
+            info = self.model_item.var_infos[n]
+            init = s.state_init(tuple(info.shape), info.dtype)
+            if init is not None:
+                st["var"][n] = pytree.tree_map(
+                    lambda t: t.to(self.device), init)
+        return {k: v for k, v in st.items() if v}
+
+    @staticmethod
+    def _psum(x):
+        return all_reduce_sum(x)
+
+    def _broadcast(self, tree):
+        """Rank 0's values in every replica: the counterpart of placing a
+        replicated value on the mesh."""
+        for t in pytree.tree_leaves(tree):
+            if isinstance(t, torch.Tensor):
+                dist.broadcast(t, src=0)
 
     def init_state(self, params, opt_state=None) -> TrainState:
         """Place ``params`` (``{name: tensor or numpy}``) on the device as
@@ -122,8 +237,13 @@ class DistributedStep:
                            if isinstance(t, torch.Tensor) else t), opt_state)
         elif self.optimizer is not None:
             opt_state = self.optimizer.init(placed)
+        sync_state = {}
+        if self.num_replicas > 1:
+            self._broadcast(placed)
+            self._broadcast(opt_state)
+            sync_state = self._sync_state_init()
         return TrainState(step=0, params=placed, opt_state=opt_state,
-                          sync_state={})
+                          sync_state=sync_state)
 
     def _loss(self, params, batch):
         out = self.model_item.loss_fn(params, batch)
@@ -132,19 +252,66 @@ class DistributedStep:
         return out, None
 
     def _metrics(self, loss, aux):
-        metrics = {"loss": loss.detach()}
+        """``{"loss": ..., "aux": ...}``; with more than one replica the
+        mean over the replicas (floats; the max for integers), as the
+        JAX step's pmean/pmax, so every rank returns the same values."""
+        def reduce(a):
+            if not isinstance(a, torch.Tensor):
+                return a
+            a = a.detach()
+            if self.num_replicas == 1:
+                return a
+            if a.is_floating_point():
+                return (self._psum(a.reshape(-1)) / self.num_replicas
+                        ).reshape(a.shape)
+            out = a.reshape(-1).clone()
+            dist.all_reduce(out, op=dist.ReduceOp.MAX)
+            return out.reshape(a.shape)
+        metrics = {"loss": reduce(loss)}
         if aux is not None:
-            metrics["aux"] = pytree.tree_map(
-                lambda a: a.detach() if isinstance(a, torch.Tensor) else a,
-                aux)
+            metrics["aux"] = pytree.tree_map(reduce, aux)
         return metrics
 
+    def _sync_grads(self, grads, sync_state):
+        """The JAX ``local_step`` epilogue over N > 1 replicas: the
+        sparse-wire tables' dense mean, the buckets, then the per-variable
+        synchronizers, each a mean over the replicas; returns the synced
+        gradients and the new ``sync_state``."""
+        N = self.num_replicas
+        new_bucket = dict(sync_state.get("bucket", {}))
+        new_var = dict(sync_state.get("var", {}))
+        synced = {}
+        # the JAX lowering ships these as (ids, values) pairs; the port
+        # sends the dense gradient (ROADMAP A item 8), the same mean
+        for n in sorted(self.sparse_wire):
+            synced[n] = self._psum(grads[n]) / N
+        for b in self.buckets:
+            out, nst = collectives.bucket_reduce(
+                b, grads, new_bucket.get(b.key), self._psum, N,
+                ring_axes=self._ring_axes)
+            synced.update(out)
+            if nst is not None:
+                new_bucket[b.key] = nst
+        for n, s in self.syncs.items():
+            if n in self._bucketed or n in synced:
+                continue
+            synced[n], nst = s.sync(grads[n], new_var.get(n))
+            if nst is not None:
+                new_var[n] = nst
+        new_sync = dict(sync_state)
+        for key, value in (("bucket", new_bucket), ("var", new_var)):
+            if value:
+                new_sync[key] = value
+        return synced, new_sync
+
     def __call__(self, state: TrainState, batch, donate: bool = True):
-        """One training step on a batch already on the device: loss and
-        grads of the trainable variables, the optimizer apply, and
-        ``(new_state, {"loss": ...})``. Non-trainable variables get no
-        update, so they and their optimizer moments never move (the JAX
-        step's zero gradients and masked updates). ``donate=True`` updates
+        """One training step on this rank's shard of the batch, already on
+        the device: loss and grads of the trainable variables, with more
+        than one replica their sync (:meth:`_sync_grads`), the optimizer
+        apply, and ``(new_state, {"loss": ...})``. Non-trainable variables
+        get no update, so they and their optimizer moments never move (the
+        JAX step's zero gradients and masked updates, exactly: a zero
+        Adam moment gives a zero update). ``donate=True`` updates
         ``state``'s tensors in place (the JAX program donates them);
         ``donate=False`` leaves them as they were."""
         if self.optimizer is None:
@@ -153,7 +320,7 @@ class DistributedStep:
         if not donate:
             state = TrainState(step=state.step, params=_clone(state.params),
                                opt_state=_clone(state.opt_state),
-                               sync_state=state.sync_state)
+                               sync_state=_clone(state.sync_state))
         trainable = self.model_item.trainable_var_names
         with tel.span("dstep.dispatch", "dstep", fused=False):
             full = dict(state.params)
@@ -167,14 +334,19 @@ class DistributedStep:
             grads = {n: (g if g is not None
                          else torch.zeros_like(state.params[n]))
                      for n, g in zip(trainable, grads)}
+            sync_state = state.sync_state
             with torch.no_grad():
+                if self.num_replicas > 1:
+                    with tel.span("dstep.grad_sync", "dstep"):
+                        grads, sync_state = self._sync_grads(grads,
+                                                             sync_state)
                 opt_state = self.optimizer.update(grads, state.opt_state,
                                                   state.params)
             metrics = self._metrics(loss, aux)
         tel.counter_add("dstep.dispatches")
         return TrainState(step=state.step + 1, params=state.params,
                           opt_state=opt_state,
-                          sync_state=state.sync_state), metrics
+                          sync_state=sync_state), metrics
 
     def evaluate(self, state: TrainState, batch):
         """Forward-only metrics: no grads, no optimizer."""
@@ -182,13 +354,20 @@ class DistributedStep:
             return self._metrics(*self._loss(state.params, batch))
 
     def gather_params(self, state: TrainState) -> dict:
-        """The full params in their original names (one device holds them
-        whole, so this is the state's own mapping, copied shallowly)."""
+        """The full params in their original names: this replica's, which
+        equal every other's (each device holds them whole, so this is the
+        state's own mapping, copied shallowly)."""
         return dict(state.params)
 
     def pull_ps(self) -> dict:
         """Current host-PS values: none in this slice."""
         return {}
+
+    def _one_replica(self, what: str):
+        if self.num_replicas > 1:
+            raise NotImplementedError(
+                "%s with %d replicas: the port serves on one replica so far "
+                "(ROADMAP A item 10)" % (what, self.num_replicas))
 
     def _run(self, fn, state, payload):
         with torch.inference_mode(), tel.span("dstep.dispatch", "dstep",
@@ -213,6 +392,7 @@ class DistributedStep:
         is accepted for signature parity: eager programs free a request's
         buffers when the caller drops them."""
         del donate_batch
+        self._one_replica("predict_program")
         if example_batch is None:
             example_batch = self.model_item.example_batch
         _, spec = pytree.tree_flatten(example_batch)
@@ -241,6 +421,7 @@ class DistributedStep:
         new buffers; eager PyTorch writes the new rows into the same
         storage, so steady-state decode holds one cache allocation).
         Output leaves whose leading dim is the slot count are per-slot."""
+        self._one_replica("decode_program")
         _, spec = pytree.tree_flatten(example_dstate)
         key = (decode_fn, str(spec))
         if key not in self._decode_progs:
@@ -253,21 +434,63 @@ class DistributedStep:
 
 
 class GraphTransformer:
-    """Builds the :class:`DistributedStep` for a compiled strategy on one
-    device (the JAX ``GraphTransformer.transform``)."""
+    """Builds the :class:`DistributedStep` for a compiled strategy on this
+    process's device (the JAX ``GraphTransformer.transform``).
+    ``replica_info`` gives the replica count (the default process group's
+    world size) and this process's rank; the plan must name as many
+    replicas."""
 
-    def __init__(self, compiled_strategy: Strategy, model_item, device):
+    def __init__(self, compiled_strategy: Strategy, model_item, device,
+                 replica_info: Optional[ReplicaInfo] = None):
         self._strategy = compiled_strategy
         self._item = model_item
         self._device = device
+        self._replicas = replica_info or ReplicaInfo()
+
+    def _refuse_unported(self):
+        """Plan features whose N > 1 lowering the port has not reached
+        raise, naming the ROADMAP item that ports them; none is ignored."""
+        gc = self._strategy.graph_config
+
+        def refuse(what, item):
+            raise NotImplementedError(
+                "%s with %d replicas is not ported yet (ROADMAP A item %d)"
+                % (what, self._replicas.num_replicas, item))
+        if gc.overlap:
+            refuse("overlap=True (the overlapped gradient-sync schedule)", 7)
+        if (gc.compute_dtype or "f32") != "f32":
+            refuse("compute_dtype=%r" % gc.compute_dtype, 7)
+        if gc.mesh_shape or gc.seq_axis or gc.batch_axes:
+            refuse("a mesh beyond the data axis (mesh_shape/seq_axis/"
+                   "batch_axes)", 9)
+        hosts = {r.split(":")[0] for r in gc.replicas}
+        for node in self._strategy.node_config:
+            if node.partitioner or node.part_configs:
+                refuse("the partitioned layout of %s" % node.var_name, 7)
+            cfg = node.synchronizer
+            if cfg is None or cfg.kind == "PS":
+                refuse("the PS synchronizer of %s" % node.var_name, 8)
+            if cfg.kind != "AllReduce":
+                refuse("the %s synchronizer of %s" % (cfg.kind,
+                                                      node.var_name), 7)
+            if cfg.schedule == "rhd":
+                refuse("schedule='rhd' on %s" % node.var_name, 7)
+            if (cfg.schedule == "hier" or cfg.spec == "DCN") and \
+                    len(hosts) > 1:
+                refuse("the hierarchical psum (schedule='hier' or "
+                       "spec='DCN' across hosts) on %s" % node.var_name, 7)
 
     def transform(self) -> DistributedStep:
         replicas = len(self._strategy.graph_config.replicas)
+        if replicas != self._replicas.num_replicas:
+            raise ValueError(
+                "the plan has %d replicas but the process group has %d "
+                "ranks: describe one replica a rank in the resource spec "
+                "(two ranks sharing one card list its index twice)"
+                % (replicas, self._replicas.num_replicas))
         if replicas > 1:
-            raise NotImplementedError(
-                "the port runs one replica on one device so far (plan has "
-                "%d); multi-device data parallelism is a later slice"
-                % replicas)
+            self._refuse_unported()
         return DistributedStep(strategy=self._strategy,
                                model_item=self._item, device=self._device,
-                               metadata={"replicas": 1})
+                               metadata={"replicas": replicas},
+                               replica_info=self._replicas)

@@ -3,14 +3,21 @@
 PyTorch counterpart of ``autodist_tpu/model_item.py``. The JAX module
 flattens a params pytree and mines a jaxpr for gather-indexed (sparse)
 variables; here params arrive as a flat mapping of names to tensors (a
-``state_dict``) and every variable is dense — the sparse (ids, values)
-wire belongs to a later slice of the port.
+``state_dict``), and the sparse variables are found by a traced forward
+(:func:`trace_lookups`). Each variable also carries its name in the JAX
+package's spelling (``VarInfo.collective_name``, ``convert.jax_name``):
+the variables are listed in the JAX item's order (sorted-pytree order of
+those names), and collectives are keyed on them, so the two packages'
+plans bucket the same variables in the same order.
 """
 import dataclasses
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.overrides import TorchFunctionMode
+from torch.utils import _pytree as pytree
 
 from autodist_tpu_torch import optim
 from autodist_tpu_torch.utils import logging
@@ -46,7 +53,13 @@ class VarInfo:
     shape: Tuple[int, ...]
     dtype: str
     trainable: bool = True
-    sparse: bool = False
+    sparse: bool = False  # embedding-like (lookup-indexed) variable
+    # the JAX item's name for this variable (``convert.jax_name``); the
+    # collective keys and the variable order follow it. "" = ``name``
+    collective_name: str = ""
+
+    def __post_init__(self):
+        self.collective_name = self.collective_name or self.name
 
     @property
     def byte_size(self) -> int:
@@ -57,6 +70,107 @@ class VarInfo:
     @property
     def num_elements(self) -> int:
         return int(np.prod(self.shape or (1,)))
+
+
+# ---------------------------------------------------------- sparse detection
+
+# the port's table lookups: ``models/layers.py::SparseEmbed`` and any other
+# ``F.embedding``; their ``weight`` argument is the table
+_LOOKUPS = frozenset({F.embedding, torch.embedding})
+# shape- and value-preserving ops a table may pass through on its way to a
+# lookup (casts, views) — the JAX walker's transparent primitives
+_TRANSPARENT = frozenset({
+    torch.Tensor.to, torch.Tensor.float, torch.Tensor.bfloat16,
+    torch.Tensor.half, torch.Tensor.double, torch.Tensor.type,
+    torch.Tensor.view, torch.Tensor.reshape, torch.reshape,
+    torch.Tensor.contiguous, torch.Tensor.detach})
+
+
+class _LookupTap(TorchFunctionMode):
+    """Records, for each traced params tensor (``roots``: id -> name),
+    the ids count of every lookup it is the table of, and whether it had
+    another tensor-producing use (a tied head, weight sharing)."""
+
+    def __init__(self, roots: Dict[int, str]):
+        super().__init__()
+        self.roots = {k: {v} for k, v in roots.items()}
+        self.lookups: Dict[str, List[int]] = {}
+        self.dense_uses: set = set()
+        self._keep = []   # aliases stay alive, so their ids stay unique
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if func in _LOOKUPS:
+            ids = args[0] if args else kwargs["input"]
+            table = args[1] if len(args) > 1 else kwargs["weight"]
+            for name in self.roots.get(id(table), ()):
+                self.lookups.setdefault(name, []).append(int(ids.numel()))
+            return out
+        used = set()
+        for leaf in pytree.tree_leaves((args, kwargs)):
+            if isinstance(leaf, torch.Tensor):
+                used |= self.roots.get(id(leaf), set())
+        if used and isinstance(out, torch.Tensor):
+            if func in _TRANSPARENT:
+                self.roots.setdefault(id(out), set()).update(used)
+                self._keep.append(out)
+            else:
+                self.dense_uses |= used
+        return out
+
+
+def trace_lookups(loss_fn: Callable, params, example_batch
+                  ) -> Tuple[Dict[str, List[int]], set]:
+    """Trace ``loss_fn(params, example_batch)`` once on fake tensors (no
+    data, no device work, no kernel launch: every tensor reports the CPU,
+    so the ops' plain versions run as shape functions) and return
+    ``(lookups, dense_uses)``: for each variable that is the table of a
+    lookup, the ids count of each lookup; and the variables with any
+    other tensor-producing use. The counterpart of the JAX package's
+    ``detect_sparse_vars`` jaxpr walk and its sparse-wire tap shapes."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    def fake_leaf(leaf):
+        if isinstance(leaf, (torch.Tensor, np.ndarray, np.generic)):
+            return torch.empty(tuple(leaf.shape),
+                               dtype=_torch_dtype(leaf.dtype))
+        return leaf
+    mode = FakeTensorMode()
+    with mode:
+        fake = {n: fake_leaf(t) for n, t in params.items()}
+        batch = pytree.tree_map(fake_leaf, example_batch)
+    tap = _LookupTap({id(t): n for n, t in fake.items()})
+    with mode, tap, torch.no_grad():
+        loss_fn(fake, batch)
+    return tap.lookups, tap.dense_uses
+
+
+def _torch_dtype(dtype) -> torch.dtype:
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return getattr(torch, str(np.dtype(dtype)))
+
+
+def detect_sparse_vars(loss_fn: Callable, params, example_batch) -> set:
+    """Names of params that are the table of a lookup in the forward pass.
+    Best-effort, as in the JAX package: a loss that cannot be traced on
+    fake tensors leaves every variable dense, with a warning."""
+    try:
+        lookups, _ = trace_lookups(loss_fn, params, example_batch)
+    except Exception as e:  # noqa: BLE001 — detection is best-effort
+        logging.warning(
+            "sparse-var detection failed (%s: %s); treating ALL vars dense "
+            "— embedding tables then take the int8 wire when it is asked "
+            "for; fix the trace failure or mark them via VarInfo.sparse",
+            type(e).__name__, e)
+        return set()
+    return set(lookups)
+
+
+def _jax_order_key(info: "VarInfo"):
+    """Sorted-pytree order of the JAX item: by the path of the JAX name."""
+    return tuple(info.collective_name.split("/"))
 
 
 class ModelItem:
@@ -90,23 +204,33 @@ class ModelItem:
         self._var_infos: Optional[Dict[str, VarInfo]] = None
 
     def prepare(self) -> "ModelItem":
-        """Collect variable metadata from the params mapping."""
+        """Collect variable metadata from the params mapping, in the JAX
+        item's order, with the sparse flags of a traced forward (when
+        there is an example batch to trace with)."""
+        from autodist_tpu_torch.convert import jax_name
         if self.params is None:
             raise ValueError("ModelItem.prepare() requires params")
         if not isinstance(self.params, dict):
             raise TypeError("params must be a flat {name: tensor} mapping "
                             "(a state_dict), got %s"
                             % type(self.params).__name__)
-        infos: Dict[str, VarInfo] = {}
-        for name, leaf in self.params.items():
-            infos[name] = VarInfo(
-                name=name,
-                shape=tuple(leaf.shape),
-                dtype=dtype_name(leaf.dtype),
-                trainable=bool(self.trainable_filter(name)),
-            )
-        self._var_infos = infos
-        logging.debug("ModelItem.prepare: %d vars", len(infos))
+        sparse = set()
+        if self.example_batch is not None:
+            loss = self.loss_fn
+            if self.has_aux:
+                loss = lambda p, b: self.loss_fn(p, b)[0]  # noqa: E731
+            sparse = detect_sparse_vars(loss, self.params, self.example_batch)
+        infos = [VarInfo(name=name,
+                         shape=tuple(leaf.shape),
+                         dtype=dtype_name(leaf.dtype),
+                         trainable=bool(self.trainable_filter(name)),
+                         sparse=name in sparse,
+                         collective_name=jax_name(name, tuple(leaf.shape)))
+                 for name, leaf in self.params.items()]
+        self._var_infos = {i.name: i for i in sorted(infos,
+                                                     key=_jax_order_key)}
+        logging.debug("ModelItem.prepare: %d vars (%d sparse)", len(infos),
+                      len(sparse))
         return self
 
     @property
@@ -135,6 +259,10 @@ class ModelItem:
     @property
     def trainable_var_names(self) -> List[str]:
         return [n for n, v in self.var_infos.items() if v.trainable]
+
+    @property
+    def sparse_var_names(self) -> List[str]:
+        return [n for n, v in self.var_infos.items() if v.sparse]
 
     def total_bytes(self) -> int:
         return sum(v.byte_size for v in self.var_infos.values())

@@ -346,7 +346,8 @@ class SSHConfigMap(dict):
 class _Node:
     def __init__(self, entry: dict):
         self.address = str(entry["address"])
-        # chips/tpus/gpus are synonyms; value may be a count or a list of indices
+        # chips/tpus/gpus are synonyms; value may be a count or a list of
+        # indices, and an index listed twice is two replicas on one card
         raw = entry.get("tpus", entry.get("chips", entry.get("gpus", 0)))
         if isinstance(raw, int):
             self.gpu_indices = list(range(raw))
@@ -390,11 +391,15 @@ class ResourceSpec:
         return spec
 
     @classmethod
-    def from_local(cls, device: str = "cuda") -> "ResourceSpec":
+    def from_local(cls, device: str = "cuda",
+                   replicas: int = 1) -> "ResourceSpec":
         """Build a single-node spec from this process's devices: every
-        visible CUDA card for ``device="cuda"``, one CPU for
-        ``device="cpu"``. Raises when CUDA is asked for and no card is
-        visible (an entry point never continues on the CPU unasked)."""
+        visible CUDA card for ``device="cuda"``, and ``replicas`` CPUs
+        (one a process of the group) for ``device="cpu"``. Raises when
+        CUDA is asked for and no card is visible (an entry point never
+        continues on the CPU unasked). Ranks that share a card are never
+        inferred: a spec that lists the card's index once a rank says so
+        (``{"gpus": [0, 0]}``)."""
         import torch
         if str(device).startswith("cuda"):
             n = torch.cuda.device_count()
@@ -407,7 +412,7 @@ class ResourceSpec:
                  "slice": {"type": "h100"}}
         elif str(device) == "cpu":
             d = {"nodes": [{"address": "127.0.0.1", "chief": True,
-                            "gpus": 0, "cpus": [0]}]}
+                            "gpus": 0, "cpus": list(range(replicas))}]}
         else:
             raise ValueError("device must be 'cuda', 'cuda:N' or 'cpu', "
                              "got %r" % (device,))

@@ -1,8 +1,12 @@
 """Runner — owns a DistributedStep and its state, and executes programs.
 
-PyTorch counterpart of ``autodist_tpu/runtime/runner.py``, on one device:
-:meth:`Runner.init` places the parameters and the optimizer state on the
-device; :meth:`Runner.run` takes one training step on a host batch;
+PyTorch counterpart of ``autodist_tpu/runtime/runner.py``, one runner a
+replica (a process of the ``torch.distributed`` group, or the process
+alone): :meth:`Runner.init` places the parameters and the optimizer state
+on the device, equal in every replica; :meth:`Runner.run` takes one
+training step on the host-global batch, of which each replica trains on
+its own rows, and returns the metrics averaged over the replicas, the
+same on every rank;
 :meth:`Runner.fit` and :meth:`Runner.evaluate` loop over batches;
 :meth:`Runner.step_stats` reports step wall times; :meth:`Runner.predict`
 runs a forward fetch program, and the serving engines (``serving/``)
@@ -82,7 +86,8 @@ class Runner:
 
     def __init__(self, distributed_step):
         self._dstep = distributed_step
-        self._remapper = Remapper(distributed_step.device)
+        self._remapper = Remapper(distributed_step.device,
+                                  distributed_step.replica_info)
         self.state: Optional[TrainState] = None
         # _step_count counts optimizer applies (microsteps); with no fused
         # supersteps in the port, each run() is one of each
@@ -106,11 +111,14 @@ class Runner:
 
     def init(self, params, opt_state=None) -> TrainState:
         """Initialize the state on the device from ``params``
-        (``{name: tensor or numpy}``)."""
+        (``{name: tensor or numpy}``). With more than one replica every
+        rank calls it, and every replica starts from rank 0's values."""
         self.state = self._dstep.init_state(params, opt_state)
         return self.state
 
     def gather_params(self) -> dict:
+        """The full params in their original names: this replica's, which
+        equal every other replica's."""
         if self.state is None:
             raise RuntimeError("Runner.gather_params before init()")
         return self._dstep.gather_params(self.state)
@@ -132,7 +140,9 @@ class Runner:
 
     def run(self, batch, state: Optional[TrainState] = None,
             sync: bool = True) -> Any:
-        """One training step on a host batch. ``sync=True`` (default)
+        """One training step on a host batch, the global one: with N
+        replicas each rank trains on its N-th of the rows and every rank
+        gets the same metrics. ``sync=True`` (default)
         returns host metrics, paying one device-to-host copy a step.
         ``sync=False`` returns a :class:`MetricsHandle` that copies them
         when read; the step's wall time then measures its dispatch, not
@@ -170,13 +180,13 @@ class Runner:
                 del self._recent_step_s[:len(self._recent_step_s) // 2]
 
     def step_stats(self) -> dict:
-        """Wall-time statistics over this runner's steps, with the JAX
-        runner's keys for one device: ``first_step_s`` (first-use kernel
-        builds included), the ``steady_*`` percentiles over recent steps,
-        ``goodput`` (the share of total stepping time the steps would
-        have needed at the steady median) and ``telemetry`` counters. The
-        shape is stable: ``steady_*``/``goodput`` are None before a
-        second step."""
+        """Wall-time statistics over this runner's steps (each rank times
+        its own), with the JAX runner's keys: ``first_step_s`` (first-use
+        kernel builds included), the ``steady_*`` percentiles over recent
+        steps, ``goodput`` (the share of total stepping time the steps
+        would have needed at the steady median) and ``telemetry``
+        counters. The shape is stable: ``steady_*``/``goodput`` are None
+        before a second step."""
         micro, sup = self._step_count, self._superstep_count
         out = {"steps": micro, "supersteps": sup, "microsteps": micro,
                "total_s": round(self._total_step_s, 6),

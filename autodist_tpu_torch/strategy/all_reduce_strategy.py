@@ -4,11 +4,10 @@ PyTorch counterpart of ``autodist_tpu/strategy/all_reduce_strategy.py``:
 every variable gets an ``AllReduceSynchronizer``; variables are grouped in
 index order into buckets of ``chunk_size`` (group id = idx // chunk_size).
 The plan is framework-free, so the builder emits the same nodes as the JAX
-one for the same variable list and spec. On one GPU the plan has one
-replica; the gradient all-reduce it describes belongs to the training
-slice, which the port has not reached yet.
+one for the same variable list and spec. The lowering runs the plan with
+one process a replica (``kernel/graph_transformer.py``).
 """
-from autodist_tpu_torch import const
+from autodist_tpu_torch.parallel.collectives import wire_quantizable
 from autodist_tpu_torch.strategy.base import (AllReduceSynchronizer,
                                               GraphConfig, Strategy,
                                               StrategyBuilder, VarConfig)
@@ -16,22 +15,6 @@ from autodist_tpu_torch.strategy.base import (AllReduceSynchronizer,
 
 def replica_devices(resource_spec):
     return [d.name_string() for d in resource_spec.devices]
-
-
-def wire_quantizable(info, min_block: bool = False) -> bool:
-    """The int8 wire codec's eligibility gate (a copy of
-    ``autodist_tpu/parallel/collectives.py::wire_quantizable``): dense
-    float variables only, and with ``min_block`` at least one
-    ``ADT_WIRE_BLOCK`` scale block."""
-    if info is None or getattr(info, "sparse", False):
-        return False
-    if not str(getattr(info, "dtype", "float32")).startswith(
-            ("float", "bfloat")):
-        return False
-    if min_block and getattr(info, "num_elements", 0) < max(
-            int(const.ENV.ADT_WIRE_BLOCK.val), 1):
-        return False
-    return True
 
 
 class AllReduce(StrategyBuilder):

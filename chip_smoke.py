@@ -59,7 +59,25 @@ result line):
 9. bert_base at full width in f32, batch 8, with ragged key padding and
    ``mlm_weights`` on real tokens only: 3 Adam steps with flash attention
    and 3 with the plain attention from the same init agree in loss and
-   params at phase 6's bounds.
+   params at phase 6's bounds;
+10. data parallelism, N = 2: two ranks spawned on ``cuda:0`` in a gloo
+   group created from a ``FileStore`` (NCCL refuses two ranks on one
+   card; a resource spec listing GPU 0 twice says the two replicas share
+   it), each through ``AutoDist(...).build`` -> ``Runner.init`` ->
+   ``Runner.run`` with the global batch: (a) bert_base bf16 at full width
+   (seq 128, global batch 128, 64 a rank, flash, ``AllReduce()`` at chunk
+   128), 3 steps with the fp32 wire, then 3 with ``wire_dtype="int8"``
+   (two Int8CompressorEF buckets) from a fresh init: every loss finite
+   and the same on both ranks, both ranks' params ``torch.equal`` after
+   the steps, each kernel launched 12 times a step a rank on its
+   tensor-core design, the embedding tables outside the int8 buckets;
+   step p50 and the payload bytes a step handed to the collectives;
+   (b) the int8 two-phase all-reduce on CUDA over one bucket-sized vector
+   with a NaN block, bit-equal to the numpy mirror of the codec, and the
+   torch codec bit-equal to ``quant_wire_np``; (c) lm1b in f32 at global
+   batch 8 with flash attention: the 2 ranks' 3 Adam steps against this
+   process's 1 rank on the whole batch, at phase 6's bounds. A failure in
+   either rank fails the run.
 
 TF32 is off for the whole run (``torch.backends.cuda.matmul`` and
 ``cudnn``): float32 is computed in float32, as the f32 checks' 2e-5 and
@@ -875,12 +893,12 @@ def train_phase(card):
 
 
 def check_parity(label, got, steps, lr=1e-3):
-    """Two runs from one init, ``got[attention] = (losses, final params)``
-    for "flash" and the plain path: losses within 1e-4 relative; params
-    within 2 x steps x lr each and 1e-6 on average. Adam moves every
-    element by up to lr a step whatever its gradient's size, so an element
-    whose gradient is at the rounding-noise level (the key biases'
-    gradient is zero analytically) may step either way."""
+    """Two runs from one init, ``got[label] = (losses, final params)``
+    (flash and the plain path; or two replica counts): losses within 1e-4
+    relative; params within 2 x steps x lr each and 1e-6 on average. Adam
+    moves every element by up to lr a step whatever its gradient's size,
+    so an element whose gradient is at the rounding-noise level (the key
+    biases' gradient is zero analytically) may step either way."""
     (lf, pf), (lr_, pr) = got.values()
     for a, b in zip(lf, lr_):
         if abs(a - b) > 1e-4 * abs(b):
@@ -892,8 +910,9 @@ def check_parity(label, got, steps, lr=1e-3):
         total += float(d.double().sum())
         count += d.numel()
     mean = total / count
-    print("  params after %d steps: max |flash - plain| %.3e (bound %.0e), "
-          "mean %.3e (bound 1e-06)" % (steps, worst, 2 * steps * lr, mean))
+    print("  params after %d steps: max |%s - %s| %.3e (bound %.0e), "
+          "mean %.3e (bound 1e-06)" % (steps, *got, worst, 2 * steps * lr,
+                                       mean))
     if worst > 2 * steps * lr or mean > 1e-6:
         fail("%s: params differ beyond the bounds" % label)
 
@@ -1081,6 +1100,261 @@ def bert_parity_phase():
         BERT_LAYERS)
 
 
+# ------------------------------------------------------------- phase 10
+
+
+DP_RANKS = 2
+# two replicas of one card: the index listed once a rank, never inferred
+DP_SPEC = {"nodes": [{"address": "127.0.0.1", "chief": True,
+                      "gpus": [0] * DP_RANKS}]}
+
+
+def dp_runner(loss_fn, params, batch, **strategy_kw):
+    """Build -> init through the public entry points on ``cuda:0``, one
+    replica of the process group's DP_RANKS."""
+    import torch
+    import autodist_tpu_torch as adt
+    from autodist_tpu_torch import strategy
+    from autodist_tpu_torch.resource_spec import ResourceSpec
+    adt.reset()
+    ad = adt.AutoDist(strategy_builder=strategy.AllReduce(**strategy_kw),
+                      resource_spec=ResourceSpec.from_dict(DP_SPEC),
+                      device="cuda:0")
+    runner = ad.build(loss_fn, functools.partial(torch.optim.Adam, lr=1e-3),
+                      params, batch)
+    runner.init(params)
+    return runner
+
+
+def ranks_equal(params):
+    """Whether every rank holds bit-equal params: rank 0's, broadcast,
+    against this rank's, with ``torch.equal``."""
+    import torch
+    import torch.distributed as dist
+    mine = torch.cat([t.reshape(-1) for t in params.values()])
+    ref = mine.clone()
+    dist.broadcast(ref, src=0)
+    return bool(torch.equal(mine, ref))
+
+
+def two_phase_np(xs, block):
+    """The int8 two-phase all-reduce of the per-rank vectors ``xs``, in
+    numpy from the codec's mirror (``quant_wire_np`` / ``dequant_wire_np``):
+    each rank's padded chunks quantized blockwise, each chunk's f32
+    dequant-sum over the ranks in rank order, requantized and
+    dequantized."""
+    import numpy as np
+    from autodist_tpu_torch.parallel.collectives import (dequant_wire_np,
+                                                         quant_wire_np)
+    n, L = len(xs), xs[0].shape[0]
+    chunk = -(-(-(-L // n)) // block) * block
+    deq = []
+    for x in xs:
+        w = quant_wire_np(np.pad(x, (0, n * chunk - L)), block)
+        deq.append(dequant_wire_np(w, (n, chunk)))
+    out = []
+    for c in range(n):
+        acc = deq[0][c]
+        for d in deq[1:]:
+            acc = acc + d[c]
+        out.append(dequant_wire_np(quant_wire_np(acc, block), (chunk,)))
+    return np.concatenate(out)[:L]
+
+
+def dp_vector(rank, length):
+    import numpy as np
+    rng = np.random.RandomState(100 + rank)
+    x = (rng.randn(length) * np.exp(rng.randn(length))).astype(np.float32)
+    if rank == 1:
+        x[3 * 256 + 5] = np.nan           # one NaN block
+    return x
+
+
+def dp_child(rank, store, out_dir):
+    """One rank of phase 10 (spawned): join the gloo group, run (a)-(c)'s
+    rank side, write this rank's results to ``out_dir``."""
+    import math
+    import statistics
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, HERE)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(store, DP_RANKS),
+                            rank=rank, world_size=DP_RANKS)
+    import autodist_tpu_torch as adt
+    from autodist_tpu_torch.models import bert, lm
+    from autodist_tpu_torch.parallel import collectives
+    from autodist_tpu_torch.telemetry import spans as tel
+    out = {"rank": rank, "bert": {}}
+    cfg = bert.BertConfig.base(dtype=torch.bfloat16)
+    loss_fn, params, batch, _ = bert.make_train_setup(
+        cfg, seq_len=BERT_SEQ, batch_size=BERT_BATCH, seed=0,
+        attention="flash")
+    for wire in ("fp32", "int8"):
+        runner = dp_runner(loss_fn, params, batch, wire_dtype=wire)
+        dstep = runner.distributed_step
+        reset_counts()
+        sent = tel.counters().get("sync.wire_bytes", 0.0)
+        losses, times = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            losses.append(float(runner.run(batch)["loss"]))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        launches = {k.__name__: dict(k.launches_by_variant)
+                    for k in kernels()}
+        check_launches("phase 10 bert_base %s wire, rank %d" % (wire, rank),
+                       launches, cfg.num_layers, 3)
+        if not all(math.isfinite(x) for x in losses):
+            fail("phase 10: rank %d %s wire: a loss is not finite: %r"
+                 % (rank, wire, losses))
+        tables = [n for b in dstep.buckets for n in b.var_names
+                  if n.endswith(".embedding")]
+        out["bert"][wire] = {
+            "losses": losses, "p50_ms": statistics.median(times) * 1e3,
+            "times_ms": [t * 1e3 for t in times], "launches": launches,
+            "wire_bytes_per_step": (tel.counters().get(
+                "sync.wire_bytes", 0.0) - sent) / 3,
+            "buckets": [(b.key, len(b.var_names), b.total_size)
+                        for b in dstep.buckets],
+            "tables_in_buckets": tables,
+            "per_var_syncs": len(dstep.syncs) - sum(
+                len(b.var_names) for b in dstep.buckets),
+            "params_equal": ranks_equal(runner.gather_params()),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del runner, dstep
+        adt.reset()
+    del params
+    torch.cuda.empty_cache()
+    # (b) the int8 two-phase codec on CUDA, one bucket's length
+    length = out["bert"]["int8"]["buckets"][0][2]
+    xs = [dp_vector(r, length) for r in range(DP_RANKS)]
+    got = collectives.int8_block_all_reduce(
+        torch.from_numpy(xs[rank]).cuda(), None, DP_RANKS).cpu().numpy()
+    want = two_phase_np(xs, collectives.wire_block_size())
+    wire = collectives.quant_wire(torch.from_numpy(xs[rank]).cuda())
+    mirror = collectives.quant_wire_np(xs[rank])
+    out["codec"] = {
+        "length": length,
+        "two_phase_equal": bool(np.array_equal(got, want, equal_nan=True)),
+        "nan_out": bool(np.isnan(got).any()),
+        "quant_equal": bool(np.array_equal(wire["q"].cpu().numpy(),
+                                           mirror["q"])
+                            and np.array_equal(wire["s"].cpu().numpy(),
+                                               mirror["s"], equal_nan=True))}
+    # (c) lm1b f32, global batch 8, flash
+    lcfg = lm.LMConfig.lm1b()
+    loss_fn, params, batch, _ = lm.make_train_setup(
+        lcfg, seq_len=TRAIN_SEQ, batch_size=8, seed=0, attention="flash",
+        lean_head=True)
+    runner = dp_runner(loss_fn, params, batch)
+    out["lm1b"] = {"losses": [float(runner.run(batch)["loss"])
+                              for _ in range(3)]}
+    final = runner.gather_params()
+    out["lm1b"]["params_equal"] = ranks_equal(final)
+    if rank == 0:
+        torch.save({n: t.cpu() for n, t in final.items()},
+                   os.path.join(out_dir, "lm1b_2ranks.pt"))
+    adt.reset()
+    with open(os.path.join(out_dir, "rank%d.json" % rank), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def dp_phase(card):
+    """Phase 10: N = 2 data parallelism, two ranks on cuda:0 over gloo.
+    Returns each kernel's launches over both ranks' bert_base steps."""
+    import gc
+    import tempfile
+    import torch
+    import torch.multiprocessing as mp
+    import autodist_tpu_torch as adt
+    from autodist_tpu_torch.models import lm
+    print("phase 10: N = %d data parallelism on cuda:0 over gloo: bert_base "
+          "bf16 (seq %d, global batch %d) fp32 then int8 wire; the int8 "
+          "two-phase codec; lm1b f32 (global batch 8) 2 ranks vs 1"
+          % (DP_RANKS, BERT_SEQ, BERT_BATCH))
+    # (c)'s one-rank reference, in this process, first
+    cfg = lm.LMConfig.lm1b()
+    loss_fn, params, batch, _ = lm.make_train_setup(
+        cfg, seq_len=TRAIN_SEQ, batch_size=8, seed=0, attention="flash",
+        lean_head=True)
+    runner = build_runner(loss_fn, params, batch)
+    one = ([float(runner.run(batch)["loss"]) for _ in range(3)],
+           {n: t.cpu() for n, t in runner.gather_params().items()})
+    del runner, params
+    adt.reset()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            mp.start_processes(dp_child, args=(os.path.join(tmp, "store"),
+                                               tmp),
+                               nprocs=DP_RANKS, start_method="spawn")
+        except Exception as e:  # noqa: BLE001 — a rank failed
+            fail("phase 10: a rank failed: %s" % (str(e).strip()[-2000:],))
+        res = []
+        for r in range(DP_RANKS):
+            with open(os.path.join(tmp, "rank%d.json" % r)) as f:
+                res.append(json.load(f))
+        two = (res[0]["lm1b"]["losses"],
+               torch.load(os.path.join(tmp, "lm1b_2ranks.pt")))
+    print("  two ranks ran in %.1f s" % (time.perf_counter() - t0))
+    launches = {}
+    for wire in ("fp32", "int8"):
+        r0, r1 = (r["bert"][wire] for r in res)
+        if r0["losses"] != r1["losses"]:
+            fail("phase 10 %s wire: the ranks' losses differ: %r vs %r"
+                 % (wire, r0["losses"], r1["losses"]))
+        if not (r0["params_equal"] and r1["params_equal"]):
+            fail("phase 10 %s wire: the ranks' params are not bit-equal"
+                 % wire)
+        if r0["tables_in_buckets"]:
+            fail("phase 10 %s wire: embedding tables in a bucket: %r"
+                 % (wire, r0["tables_in_buckets"]))
+        want = 2 if wire == "int8" else 0
+        if len(r0["buckets"]) != want:
+            fail("phase 10 %s wire: %d buckets (want %d): %r"
+                 % (wire, len(r0["buckets"]), want, r0["buckets"]))
+        for r in (r0, r1):
+            for name, by in r["launches"].items():
+                for design, n in by.items():
+                    launches.setdefault(name, {})
+                    launches[name][design] = \
+                        launches[name].get(design, 0) + n
+        print("  bert_base %s wire: losses %s (both ranks), params "
+              "bit-equal; step p50 %.1f / %.1f ms (ranks 0 / 1; steps %s "
+              "ms), %.1f MB a step a rank handed to the collectives, %d "
+              "buckets %r, %d per-variable syncs, peak %.2f GB a rank [%s]"
+              % (wire, " ".join("%.4f" % x for x in r0["losses"]),
+                 r0["p50_ms"], r1["p50_ms"],
+                 " ".join("%.1f" % t for t in r0["times_ms"]),
+                 r0["wire_bytes_per_step"] / 1e6, len(r0["buckets"]),
+                 [(k, n) for k, n, _ in r0["buckets"]],
+                 r0["per_var_syncs"], r0["peak_gb"], card))
+    for r in res:
+        codec = r["codec"]
+        if not (codec["two_phase_equal"] and codec["quant_equal"]
+                and codec["nan_out"]):
+            fail("phase 10: rank %d: the int8 codec on CUDA disagrees with "
+                 "its numpy mirror: %r" % (r["rank"], codec))
+    print("  int8 two-phase all-reduce on CUDA over %d elements (one bucket, "
+          "a NaN block): bit-equal to the numpy mirror on both ranks; "
+          "quant_wire bit-equal to quant_wire_np" % res[0]["codec"]["length"])
+    if res[0]["lm1b"]["losses"] != res[1]["lm1b"]["losses"] or not all(
+            r["lm1b"]["params_equal"] for r in res):
+        fail("phase 10 lm1b: the ranks disagree")
+    print("  lm1b f32: 1 rank losses %s, 2 ranks %s"
+          % (" ".join("%.6f" % x for x in one[0]),
+             " ".join("%.6f" % x for x in two[0])))
+    check_parity("phase 10 lm1b 2 ranks vs 1", {"1 rank": one,
+                                                 "2 ranks": two}, 3)
+    return launches
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "autodist_tpu_torch", "csrc")):
         fail("autodist_tpu_torch/ is not beside chip_smoke.py — run it from "
@@ -1217,6 +1491,7 @@ def main():
     bert_launches = bert_train_phase(card)
     resnet_phase(card)
     bert_parity_phase()
+    dp_launches = dp_phase(card)
 
     # flash_fwd runs on the three main paths, serving (decode), lm1b and
     # bert training, the backward kernels on the two training paths. Each
@@ -1240,6 +1515,12 @@ def main():
                         "design_launches": n.get(r["design"], 0)},
                        **{key: r[key] for key in keys})
             for path, (n, r) in paths.items()}
+        # phase 10's bert_base steps, both ranks: launches only (its shape
+        # per rank is [64, 128, 12, 64], not timed)
+        dp = dp_launches.get(name, {})
+        rec["by_path"]["bert_dp"] = {
+            "launches": sum(dp.values()),
+            "design_launches": dp.get(rec["design"], 0)}
         rec["launches"] = sum(p["launches"] for p in rec["by_path"].values())
         rec["design_launches"] = sum(p["design_launches"]
                                      for p in rec["by_path"].values())

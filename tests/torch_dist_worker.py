@@ -1,0 +1,153 @@
+"""Multi-process jobs for the port's data-parallel tests, with no JAX.
+
+The tests (``tests/test_torch_collectives.py``,
+``tests/test_torch_data_parallel.py``) compute their JAX references in
+the pytest process and hand numpy arrays to :func:`launch`, which starts
+``world`` processes with the ``spawn`` start method. Each process joins a
+gloo group made from a ``FileStore`` in the test's temporary directory
+(no TCP port, so parallel test workers cannot clash), runs one job of
+:data:`JOBS` on one torch thread and writes its result as a pickle of
+numpy arrays; :func:`launch` returns the results in rank order. This
+module imports torch and the port only: the spawned processes import it
+and nothing of the tests.
+"""
+import functools
+import os
+import pickle
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+LR = 1e-3
+
+
+def launch(job: str, world: int, tmpdir, payload, device: str = "cpu"):
+    """Run ``JOBS[job](payload, device)`` on ``world`` gloo ranks; returns
+    each rank's result. A failure in any rank raises here with its
+    traceback."""
+    tmpdir = str(tmpdir)
+    store = os.path.join(tmpdir, "store_%s" % job)
+    if os.path.exists(store):
+        os.remove(store)
+    mp.start_processes(_entry, args=(job, world, store, payload, device,
+                                     tmpdir),
+                       nprocs=world, start_method="spawn")
+    out = []
+    for rank in range(world):
+        with open(os.path.join(tmpdir, "%s_%d.pkl" % (job, rank)), "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def _entry(rank, job, world, store, payload, device, tmpdir):
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        result = JOBS[job](payload, device)
+        with open(os.path.join(tmpdir, "%s_%d.pkl" % (job, rank)), "wb") as f:
+            pickle.dump(result, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _np(tree):
+    from torch.utils import _pytree as pytree
+    return pytree.tree_map(
+        lambda t: t.detach().cpu().numpy() if isinstance(t, torch.Tensor)
+        else t, tree)
+
+
+def _t(tree, device):
+    from torch.utils import _pytree as pytree
+    return pytree.tree_map(
+        lambda a: torch.as_tensor(a).to(device)
+        if isinstance(a, np.ndarray) else a, tree)
+
+
+# -------------------------------------------------------------- the jobs
+
+
+def compressor_job(payload, device):
+    """Each case's compressor (or the int8 two-phase all-reduce) on this
+    rank's row of ``x`` and ``state``; returns ``{case: (reduced,
+    new_state)}``. ``armed`` cases arm the int8 compressors' two-phase
+    reduce over the default group, as ``bucket_reduce`` does."""
+    from autodist_tpu_torch.kernel.synchronization import compressor as C
+    from autodist_tpu_torch.kernel.synchronization.synchronizer import \
+        all_reduce_sum
+    from autodist_tpu_torch.parallel import collectives
+    rank, world = dist.get_rank(), dist.get_world_size()
+    out = {}
+    for case in payload:
+        x = torch.as_tensor(case["x"][rank]).to(device)
+        state = case.get("state")
+        state = _t({k: v[rank] for k, v in state.items()}
+                   if isinstance(state, dict) else
+                   (state[rank] if state is not None else None), device)
+        if case["compressor"] == "int8_block_all_reduce":
+            out[case["name"]] = (collectives.int8_block_all_reduce(
+                x, None, world), None)
+            continue
+        comp = C.create(case["compressor"], case.get("var_name", ""))
+        if case.get("armed"):
+            comp.ring_axes = ((None, world),)
+        reduced, new_state = comp.reduce(x, state, all_reduce_sum)
+        out[case["name"]] = (reduced, new_state)
+    return _np(out)
+
+
+def _setup(model: str, seq_len: int, batch_size: int, attention: str):
+    from autodist_tpu_torch.models import bert, lm
+    if model == "lm":
+        return lm.make_train_setup(lm.LMConfig.tiny(), seq_len=seq_len,
+                                   batch_size=batch_size,
+                                   attention=attention, lean_head=True)
+    return bert.make_train_setup(bert.BertConfig.tiny(), seq_len=seq_len,
+                                 batch_size=batch_size, attention=attention)
+
+
+def train_job(payload, device):
+    """Each run of ``payload`` (a list) in turn: ``Runner.run`` steps of
+    the port's AllReduce plan on the global batches, from the given init.
+    Returns, for each run, the losses, an ``evaluate`` of the first batch
+    before the steps,
+    the final params, the bucket keys and members, the sparse-wire
+    tables, the ``sync_state`` keys and the runner's step count."""
+    return [_train_one(run, device) for run in payload]
+
+
+def _train_one(payload, device):
+    import autodist_tpu_torch as adt
+    from autodist_tpu_torch import strategy
+    from autodist_tpu_torch.resource_spec import ResourceSpec
+    world = dist.get_world_size()
+    loss_fn, _, example, _ = _setup(payload["model"], payload["seq_len"],
+                                    payload["batch_size"],
+                                    payload["attention"])
+    init = {n: torch.as_tensor(v) for n, v in payload["init"].items()}
+    spec = ResourceSpec.from_dict({"nodes": [{
+        "address": "127.0.0.1", "chief": True,
+        "cpus": list(range(world))}]})
+    ad = adt.AutoDist(strategy_builder=strategy.AllReduce(
+        **payload.get("strategy", {})), resource_spec=spec, device=device)
+    runner = ad.build(loss_fn, functools.partial(torch.optim.Adam, lr=LR),
+                      init, payload.get("example", example))
+    runner.init(init)
+    dstep = runner.distributed_step
+    evaluated = runner.evaluate(payload["batches"][:1])["loss"]
+    losses = [float(runner.run(b)["loss"]) for b in payload["batches"]]
+    state = runner.state
+    out = {"losses": losses, "eval": float(evaluated),
+           "params": _np(runner.gather_params()),
+           "buckets": [(b.key, list(b.var_names)) for b in dstep.buckets],
+           "sparse_wire": sorted(dstep.sparse_wire),
+           "sync_state": {k: sorted(v) for k, v in state.sync_state.items()},
+           "steps": runner.step_stats()["steps"]}
+    adt.reset()
+    return out
+
+
+JOBS = {"compressors": compressor_job, "train": train_job}
