@@ -23,7 +23,19 @@ Any other leaf or collection raises.
 ``jax_name(name, shape)`` inverts the naming half of these rules: the
 JAX item's name for a port variable (``ModelItem`` keys collectives and
 the variable order on it).
+
+The other direction writes checkpoints in the JAX package's layout
+(``checkpoint/saver.py``): :func:`params_to_jax`,
+:func:`opt_state_to_jax` and :func:`sync_state_to_jax` give flat
+``{JAX name: numpy}`` mappings in flax's names, shapes and element order,
+and the ``*_from_jax`` functions read them back. A flat port tensor does
+not say how flax shaped it (``[H*D, d]`` is a ``[d, H, D]`` DenseGeneral
+kernel only with the head count), so the params the port's models make
+and :func:`params_from_jax` returns are a :class:`FlaxParams`, which
+remembers those shapes (``flax_shapes``); ``ModelItem`` keeps them.
 """
+from typing import Dict, Optional
+
 import numpy as np
 import torch
 
@@ -71,12 +83,24 @@ def _stats_leaf(path, arr):
                      % "/".join(path))
 
 
-def params_from_jax(np_tree) -> dict:
+class FlaxParams(dict):
+    """A port params mapping (``{name: tensor}``) that remembers
+    ``flax_shapes``: the flax shape of each leaf whose shape the generic
+    rule of :func:`flax_shape` does not give back (DenseGeneral kernels
+    and biases). ``dict(params)`` drops them."""
+
+    def __init__(self, *args, flax_shapes: Optional[dict] = None, **kw):
+        super().__init__(*args, **kw)
+        self.flax_shapes = {n: tuple(s) for n, s in (flax_shapes or {}
+                                                     ).items()}
+
+
+def params_from_jax(np_tree) -> FlaxParams:
     if hasattr(np_tree, "get") and "params" in np_tree:
         collections = dict(np_tree)
     else:
         collections = {"params": np_tree}
-    out = {}
+    out = FlaxParams()
     for collection, tree in collections.items():
         if collection == "params":
             rule, prefix = _param_leaf, ""
@@ -87,8 +111,11 @@ def params_from_jax(np_tree) -> dict:
                              % (collection,))
         for path, arr in _flatten(tree):
             name, value = rule(path, arr)
-            out[prefix + ".".join(path[:-1] + (name,))] = torch.from_numpy(
+            name = prefix + ".".join(path[:-1] + (name,))
+            out[name] = torch.from_numpy(
                 np.array(value, dtype=np.float32, order="C", copy=True))
+            if flax_shape(name, value.shape) != arr.shape:
+                out.flax_shapes[name] = arr.shape
     return out
 
 
@@ -135,3 +162,166 @@ def from_jax_layout(flat: torch.Tensor, shape, name: str) -> torch.Tensor:
         o, i, h, w = shape
         return flat.reshape(h, w, i, o).permute(3, 2, 0, 1).contiguous()
     return flat.reshape(shape)
+
+
+def flax_shape(name: str, shape, flax_shapes: Optional[dict] = None):
+    """The flax shape of the port's variable ``name`` of ``shape``: its
+    entry in ``flax_shapes``, else a kernel's ``[out, in]`` as ``[in,
+    out]`` and OIHW as HWIO, else ``shape``."""
+    if flax_shapes and name in flax_shapes:
+        return tuple(flax_shapes[name])
+    shape = tuple(shape)
+    if jax_name(name, shape).endswith("/kernel"):
+        if len(shape) == 2:
+            return shape[::-1]
+        if len(shape) == 4:
+            o, i, h, w = shape
+            return (h, w, i, o)
+    return shape
+
+
+def leaf_to_jax(t: torch.Tensor, name: str,
+                flax_shapes: Optional[dict] = None) -> np.ndarray:
+    """A host copy of the port's variable ``name`` (or a state leaf of its
+    shape) in flax's shape and element order. The layout is changed where
+    ``t`` lives, then copied to the host, so the copy owns its memory."""
+    t = t.detach()
+    host = to_jax_layout(t, jax_name(name, t.shape)).contiguous().to(
+        "cpu", copy=True)
+    return host.numpy().reshape(flax_shape(name, t.shape, flax_shapes))
+
+
+def leaf_from_jax(arr: np.ndarray, name: str, shape,
+                  device=None) -> torch.Tensor:
+    """Inverse of :func:`leaf_to_jax`: the flax-laid-out ``arr`` as the
+    port's float32 tensor of ``shape`` on ``device`` (default: the CPU,
+    sharing ``arr``'s memory where no layout change is needed). The
+    layout is changed on ``device``, after the copy there."""
+    shape = tuple(shape)
+    if arr.size != int(np.prod(shape)):
+        raise ValueError("%s: %s elements in the checkpoint, the model's %s "
+                         "has %d" % (name, arr.shape, shape,
+                                     int(np.prod(shape))))
+    flat = torch.from_numpy(np.ascontiguousarray(arr, np.float32)).reshape(-1)
+    if device is not None:
+        flat = flat.to(device)
+    return from_jax_layout(flat, shape, jax_name(name, shape))
+
+
+def params_to_jax(params: dict, flax_shapes: Optional[dict] = None
+                  ) -> Dict[str, np.ndarray]:
+    """The port's params as the flat ``{JAX name: numpy}`` mapping the JAX
+    package's saver writes (``params/...``, ``batch_stats/...``), in
+    flax's shapes: Dense kernels ``[in, out]``, DenseGeneral kernels 3-D,
+    convs HWIO, LayerNorm/BatchNorm ``scale``. ``flax_shapes`` defaults to
+    the mapping's own (:class:`FlaxParams`)."""
+    if flax_shapes is None:
+        flax_shapes = getattr(params, "flax_shapes", {})
+    return {jax_name(n, t.shape): leaf_to_jax(t, n, flax_shapes)
+            for n, t in params.items()}
+
+
+def jax_shapes(shapes: Dict[str, tuple], flax_shapes: Optional[dict] = None
+               ) -> Dict[str, tuple]:
+    """``{JAX name: flax shape}`` of the port's ``{name: shape}``."""
+    return {jax_name(n, s): flax_shape(n, s, flax_shapes)
+            for n, s in shapes.items()}
+
+
+# optax.adam's state flattened as the JAX saver writes it: the chain's
+# first element, ``ScaleByAdamState(count, mu, nu)``
+_ADAM = "0/"
+
+
+def opt_state_to_jax(opt_state: dict, flax_shapes: Optional[dict] = None
+                     ) -> Dict[str, np.ndarray]:
+    """The port's Adam state as optax.adam's flattened state: ``0/count``
+    (int32), ``0/mu/<JAX name>`` and ``0/nu/<JAX name>`` in the params'
+    flax shapes."""
+    out = {_ADAM + "count": np.asarray(int(opt_state["count"]), np.int32)}
+    for slot in ("mu", "nu"):
+        for n, t in opt_state[slot].items():
+            out["%s%s/%s" % (_ADAM, slot, jax_name(n, t.shape))] = \
+                leaf_to_jax(t, n, flax_shapes)
+    return out
+
+
+def opt_state_template(shapes: Dict[str, tuple],
+                       flax_shapes: Optional[dict] = None) -> Dict[str, tuple]:
+    """``{name: shape}`` of :func:`opt_state_to_jax` for variables of
+    ``shapes``."""
+    out = {_ADAM + "count": ()}
+    for slot in ("mu", "nu"):
+        out.update({"%s%s/%s" % (_ADAM, slot, k): v
+                    for k, v in jax_shapes(shapes, flax_shapes).items()})
+    return out
+
+
+def opt_state_from_jax(flat: Dict[str, np.ndarray],
+                       shapes: Dict[str, tuple], device=None) -> dict:
+    """Inverse of :func:`opt_state_to_jax`: the port's ``{"count", "mu",
+    "nu"}`` for variables of ``shapes``, its tensors on ``device``
+    (:func:`leaf_from_jax`)."""
+    out = {"count": int(flat[_ADAM + "count"])}
+    for slot in ("mu", "nu"):
+        out[slot] = {n: leaf_from_jax(
+            flat["%s%s/%s" % (_ADAM, slot, jax_name(n, s))], n, s, device)
+            for n, s in shapes.items()}
+    return out
+
+
+def sync_state_to_jax(sync_state: dict, var_infos: dict,
+                      flax_shapes: Optional[dict] = None
+                      ) -> Dict[str, np.ndarray]:
+    """The gathered compressor states (every leaf ``[N, ...]``, row r
+    rank r's) as the JAX package's flattened sync state: ``bucket/<key>``
+    (buckets are already in the flax element order) and ``var/<JAX
+    name>[/<field>]``, whose leaves of the variable's shape are laid out
+    as flax lays the variable out."""
+    out = {"bucket/" + k: t.detach().to("cpu", copy=True).numpy()
+           for k, t in sync_state.get("bucket", {}).items()}
+    for n, leaf in sync_state.get("var", {}).items():
+        info = var_infos[n]
+        fields = leaf.items() if isinstance(leaf, dict) else (("", leaf),)
+        for field, t in fields:
+            if tuple(t.shape[1:]) == tuple(info.shape):
+                rows = [leaf_to_jax(row, n, flax_shapes) for row in t]
+            else:
+                rows = [row.detach().to("cpu", copy=True).numpy()
+                        for row in t]
+            key = "var/" + info.collective_name + ("/" + field if field
+                                                   else "")
+            out[key] = np.stack(rows)
+    return out
+
+
+def sync_state_from_jax(flat: Dict[str, np.ndarray], var_infos: dict,
+                        flax_shapes: Optional[dict] = None) -> dict:
+    """Inverse of :func:`sync_state_to_jax`: the port's tree of ``[N,
+    ...]`` CPU tensors. Raises ``KeyError`` on a name that is neither a
+    bucket nor a variable of ``var_infos``."""
+    by_jax = {i.collective_name: n for n, i in var_infos.items()}
+    out: dict = {}
+    for key, arr in sorted(flat.items()):
+        top, _, rest = key.partition("/")
+        if top == "bucket" and rest:
+            out.setdefault("bucket", {})[rest] = torch.from_numpy(
+                np.array(arr, copy=True))
+            continue
+        jname = max((j for j in by_jax if rest == j
+                     or rest.startswith(j + "/")), key=len, default=None)
+        if top != "var" or jname is None:
+            raise KeyError("sync state entry %r names no bucket or variable "
+                           "of this model" % key)
+        name, field = by_jax[jname], rest[len(jname) + 1:]
+        shape = tuple(var_infos[name].shape)
+        if tuple(arr.shape[1:]) == flax_shape(name, shape, flax_shapes):
+            t = torch.stack([leaf_from_jax(row, name, shape) for row in arr])
+        else:
+            t = torch.from_numpy(np.array(arr, copy=True))
+        var = out.setdefault("var", {})
+        if field:
+            var.setdefault(name, {})[field] = t
+        else:
+            var[name] = t
+    return out

@@ -91,6 +91,25 @@ class ForwardProgram:
         return self._mask
 
 
+def _named_leaves(tree, prefix="") -> dict:
+    """``{"a/b": leaf}`` of a tree of nested dicts."""
+    if not isinstance(tree, dict):
+        return {prefix: tree}
+    out = {}
+    for k, v in tree.items():
+        out.update(_named_leaves(v, "%s/%s" % (prefix, k) if prefix else k))
+    return out
+
+
+def _map_named(fn, tree, prefix=""):
+    """``tree`` with each leaf replaced by ``fn(name, leaf)`` (names as
+    :func:`_named_leaves` gives them)."""
+    if not isinstance(tree, dict):
+        return fn(prefix, tree)
+    return {k: _map_named(fn, v, "%s/%s" % (prefix, k) if prefix else k)
+            for k, v in tree.items()}
+
+
 def _clone(tree):
     return pytree.tree_map(
         lambda t: t.clone() if isinstance(t, torch.Tensor) else t, tree)
@@ -214,13 +233,20 @@ class DistributedStep:
             if isinstance(t, torch.Tensor):
                 dist.broadcast(t, src=0)
 
-    def init_state(self, params, opt_state=None) -> TrainState:
+    def init_state(self, params, opt_state=None,
+                   sync_state=None) -> TrainState:
         """Place ``params`` (``{name: tensor or numpy}``) on the device as
         float32 masters — the JAX package keeps f32 params and casts at
         compute (flax ``param_dtype``), and so does the port — and create
         the optimizer state beside them (or place the given
         ``opt_state``). The state owns copies: the step updates them in
-        place and the caller's tensors never move."""
+        place and the caller's tensors never move. With more than one
+        replica, every replica takes rank 0's params and optimizer state
+        and its own compressor state: row r of a given ``sync_state``
+        (the gathered ``[N, ...]`` tree a checkpoint holds,
+        :meth:`gather_sync_state`) for rank r, or a fresh one. A
+        ``sync_state`` whose tree does not fit this plan is replaced by a
+        fresh one, with a warning."""
         missing = set(self.model_item.var_infos) - set(params)
         if missing:
             raise ValueError("init params lack variables %s"
@@ -237,13 +263,32 @@ class DistributedStep:
                            if isinstance(t, torch.Tensor) else t), opt_state)
         elif self.optimizer is not None:
             opt_state = self.optimizer.init(placed)
-        sync_state = {}
+        sync = self._sync_state_init() if self.num_replicas > 1 else {}
+        if sync_state is not None:
+            sync = self._own_row(sync_state, sync)
         if self.num_replicas > 1:
             self._broadcast(placed)
             self._broadcast(opt_state)
-            sync_state = self._sync_state_init()
         return TrainState(step=0, params=placed, opt_state=opt_state,
-                          sync_state=sync_state)
+                          sync_state=sync)
+
+    def _own_row(self, gathered, fresh):
+        """This rank's row of a gathered ``[N, ...]`` compressor-state
+        tree, on the device; ``fresh`` when the tree does not fit this
+        plan (other buckets or synchronizers, another replica count)."""
+        got, want = _named_leaves(gathered), _named_leaves(fresh)
+        fits = got.keys() == want.keys() and all(
+            tuple(got[k].shape) == (self.num_replicas,) + tuple(w.shape)
+            for k, w in want.items())
+        if not fits:
+            logging.warning(
+                "sync state in checkpoint incompatible with the current "
+                "strategy (%d replicas, buckets %s); reinitializing",
+                self.num_replicas, sorted(fresh.get("bucket", {})))
+            return fresh
+        rank = self.replica_info.rank
+        return _map_named(lambda k, w: got[k][rank].to(
+            self.device, w.dtype, copy=True), fresh)
 
     def _loss(self, params, batch):
         out = self.model_item.loss_fn(params, batch)
@@ -358,6 +403,26 @@ class DistributedStep:
         equal every other's (each device holds them whole, so this is the
         state's own mapping, copied shallowly)."""
         return dict(state.params)
+
+    def gather_opt_state(self, state: TrainState):
+        """The optimizer state in the original names and layout: this
+        replica's, which equals every other's (the state's own tensors,
+        on the device)."""
+        return state.opt_state
+
+    def gather_sync_state(self, state: TrainState):
+        """Every replica's compressor state, each leaf ``[N, ...]`` with
+        row r rank r's (the JAX package keeps this leading device axis in
+        its checkpoints): an ``all_gather`` a leaf with more than one
+        replica, which every rank must join; the state itself with a
+        leading axis of 1 with one replica."""
+        def gather(t):
+            if self.num_replicas == 1:
+                return t[None]
+            parts = [torch.empty_like(t) for _ in range(self.num_replicas)]
+            dist.all_gather(parts, t.contiguous())
+            return torch.stack(parts)
+        return pytree.tree_map(gather, state.sync_state)
 
     def pull_ps(self) -> dict:
         """Current host-PS values: none in this slice."""

@@ -201,6 +201,9 @@ class ModelItem:
         self.example_batch = example_batch
         self.has_aux = has_aux
         self.trainable_filter = trainable_filter or default_trainable
+        # flax's shapes of the leaves the port flattens (DenseGeneral),
+        # from a ``convert.FlaxParams``: checkpoints and exports write them
+        self.flax_shapes = dict(getattr(params, "flax_shapes", None) or {})
         self._var_infos: Optional[Dict[str, VarInfo]] = None
 
     def prepare(self) -> "ModelItem":
@@ -266,4 +269,28 @@ class ModelItem:
 
     def total_bytes(self) -> int:
         return sum(v.byte_size for v in self.var_infos.values())
+
+    def to_spec_dict(self) -> dict:
+        """The JAX item's spec-level serialization, spelled as the JAX
+        package spells it: variables under their JAX names in flax's
+        shapes, the optimizer under optax's name and argument names
+        (``lr`` -> ``learning_rate``, ``betas`` -> ``b1``/``b2``)."""
+        from autodist_tpu_torch.convert import flax_shape
+        args = {}
+        for key, value in self.optimizer_args.items():
+            if key == "betas":
+                args.update(b1=repr(value[0]), b2=repr(value[1]))
+            else:
+                args["learning_rate" if key == "lr" else key] = repr(value)
+        return {
+            "vars": [{"name": v.collective_name,
+                      "shape": list(flax_shape(v.name, v.shape,
+                                               self.flax_shapes)),
+                      "dtype": v.dtype, "trainable": v.trainable,
+                      "sparse": v.sparse} for v in self.var_infos.values()],
+            "optimizer_name": self.optimizer_name,
+            "optimizer_args": args,
+            "has_aux": self.has_aux,
+            "mode": "loss_fn",
+        }
 

@@ -5,7 +5,7 @@ Every model exposes ``make_train_setup(...) -> (loss_fn, params,
 example_batch, apply_fn)``, plugging directly into
 ``AutoDist.build(loss_fn, optimizer, params, example_batch)``.
 """
-from autodist_tpu_torch.models import bert, lm, resnet
+from autodist_tpu_torch.models import bert, cnn, lm, resnet
 
 
 def _bert(cfg_ctor, **kw):
@@ -18,6 +18,11 @@ REGISTRY = {
     "resnet50": lambda **kw: resnet.make_train_setup(resnet.ResNet50, **kw),
     "resnet101": lambda **kw: resnet.make_train_setup(resnet.ResNet101,
                                                       **kw),
+    "vgg16": lambda **kw: resnet.make_train_setup(cnn.VGG16, **kw),
+    "inceptionv3": lambda **kw: resnet.make_train_setup(
+        cnn.InceptionV3, **{"image_size": 299, **kw}),
+    "densenet121": lambda **kw: resnet.make_train_setup(cnn.DenseNet121,
+                                                        **kw),
     "bert_base": lambda **kw: _bert(bert.BertConfig.base, **kw),
     "bert_large": lambda **kw: _bert(bert.BertConfig.large, **kw),
     "lm": lambda **kw: lm.make_train_setup(**kw),

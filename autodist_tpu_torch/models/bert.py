@@ -22,9 +22,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from autodist_tpu_torch.convert import FlaxParams
 from autodist_tpu_torch.models.layers import (Dense, LayerNorm, SparseEmbed,
                                               TransformerBlock, apply,
-                                              lecun_normal_)
+                                              lecun_normal_, flax_shapes)
 
 
 @dataclasses.dataclass
@@ -122,14 +123,15 @@ def make_model(config: BertConfig, attn_fn=None) -> BertForMLM:
 
 
 def init_params(config: BertConfig, seed: int = 0) -> dict:
-    """A float32 ``{name: tensor}`` init on the CPU from a seeded
-    ``torch.Generator``, in flax's distributions: Dense weights
-    ``lecun_normal`` (fan_in = the weight's ``in`` dim), embedding tables
-    normal with std 1/sqrt(features), zero biases, unit layer-norm
-    scales."""
+    """A float32 :class:`~autodist_tpu_torch.convert.FlaxParams` init
+    (``{name: tensor}`` with the attention projections' flax shapes) on
+    the CPU from a seeded ``torch.Generator``, in flax's distributions:
+    Dense weights ``lecun_normal`` (fan_in = the weight's ``in`` dim),
+    embedding tables normal with std 1/sqrt(features), zero biases, unit
+    layer-norm scales."""
     with torch.device("meta"):
-        names = [(n, tuple(p.shape))
-                 for n, p in BertForMLM(config).named_parameters()]
+        model = BertForMLM(config)
+    names = [(n, tuple(p.shape)) for n, p in model.named_parameters()]
     gen = torch.Generator().manual_seed(int(seed))
     params = {}
     for name, shape in names:
@@ -142,7 +144,7 @@ def init_params(config: BertConfig, seed: int = 0) -> dict:
         else:
             t = lecun_normal_(torch.empty(shape), shape[1], gen)
         params[name] = t
-    return params
+    return FlaxParams(params, flax_shapes=flax_shapes(model))
 
 
 def make_train_setup(config: Optional[BertConfig] = None, seq_len: int = 128,

@@ -120,6 +120,17 @@ class MultiHeadAttention(nn.Module):
         self.value = Dense(d_model, width, dtype)
         self.out = Dense(width, d_model, dtype)
 
+    def flax_shapes(self) -> dict:
+        """flax's shapes of the projections, DenseGeneral over the heads:
+        q/k/v kernels ``[d, H, D]`` and biases ``[H, D]``, the ``out``
+        kernel ``[H, D, d]``."""
+        d, heads = self.out.weight.shape[0], (self.num_heads, self.head_dim)
+        out = {"out.weight": heads + (d,)}
+        for proj in ("query", "key", "value"):
+            out[proj + ".weight"] = (d,) + heads
+            out[proj + ".bias"] = heads
+        return out
+
     def forward(self, x, mask=None, cache=None, cursor=None, alive=None,
                 return_kv=False):
         B, S = x.shape[0], x.shape[1]
@@ -202,6 +213,18 @@ class TransformerBlock(nn.Module):
         if cache is not None or return_kv:
             return x, kv
         return x
+
+
+def flax_shapes(model: nn.Module) -> dict:
+    """``{param name: flax shape}`` of the leaves of ``model`` that flax
+    shapes otherwise than ``convert.flax_shape``'s generic rule: its
+    attention projections (:meth:`MultiHeadAttention.flax_shapes`)."""
+    out = {}
+    for prefix, mod in model.named_modules():
+        if isinstance(mod, MultiHeadAttention):
+            out.update({"%s.%s" % (prefix, k): v
+                        for k, v in mod.flax_shapes().items()})
+    return out
 
 
 def apply(module: nn.Module, params: dict, *args, **kwargs):

@@ -23,9 +23,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from autodist_tpu_torch.convert import FlaxParams
 from autodist_tpu_torch.models.layers import (Dense, LayerNorm, SparseEmbed,
                                               TransformerBlock, apply,
-                                              causal_mask)
+                                              causal_mask, flax_shapes)
 from autodist_tpu_torch.utils.device import resolve_device
 
 
@@ -142,12 +143,14 @@ class TransformerLM(nn.Module):
 
 
 def init_params(config: LMConfig, seed: int = 0) -> dict:
-    """A float32 ``{name: tensor}`` init on the CPU from a seeded
-    ``torch.Generator``: normal weights with std 1/sqrt(fan_in) (tables:
-    1/sqrt(features)), zero biases, unit layer-norm scales."""
+    """A float32 :class:`~autodist_tpu_torch.convert.FlaxParams` init
+    (``{name: tensor}`` with the attention projections' flax shapes) on
+    the CPU from a seeded ``torch.Generator``: normal weights with std
+    1/sqrt(fan_in) (tables: 1/sqrt(features)), zero biases, unit
+    layer-norm scales."""
     with torch.device("meta"):
-        names = [(n, tuple(p.shape))
-                 for n, p in TransformerLM(config).named_parameters()]
+        model = TransformerLM(config)
+    names = [(n, tuple(p.shape)) for n, p in model.named_parameters()]
     gen = torch.Generator().manual_seed(int(seed))
     params = {}
     for name, shape in names:
@@ -158,7 +161,7 @@ def init_params(config: LMConfig, seed: int = 0) -> dict:
         else:
             t = torch.randn(shape, generator=gen) / math.sqrt(shape[1])
         params[name] = t
-    return params
+    return FlaxParams(params, flax_shapes=flax_shapes(model))
 
 
 def make_model(config: LMConfig, attn_fn=None,

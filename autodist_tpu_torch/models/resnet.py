@@ -22,6 +22,7 @@ or the stride-2 max pool pads 0 before and 1 after at an even size (56 ->
 28). :class:`Conv` and :func:`max_pool_same` pad so, explicitly.
 """
 import functools
+import inspect
 import threading
 from typing import Any, Sequence
 
@@ -236,9 +237,14 @@ def make_train_setup(model_cls=ResNet50, num_classes: int = 1000,
                      dtype=torch.bfloat16, seed: int = 0):
     """``(loss_fn, params, example_batch, apply_fn)`` as in the JAX module:
     softmax cross-entropy over float32 logits, averaged over the batch,
-    with BatchNorm in inference mode (statistics from the params)."""
+    with BatchNorm in inference mode (statistics from the params). Also
+    the setup of ``models/cnn.py``'s models; a model whose width depends
+    on the image (VGG's ``flatten`` classifier) gets ``image_size``."""
+    kw = {}
+    if "image_size" in inspect.signature(model_cls).parameters:
+        kw["image_size"] = image_size
     with torch.device("meta"):
-        model = model_cls(num_classes=num_classes, dtype=dtype)
+        model = model_cls(num_classes=num_classes, dtype=dtype, **kw)
     params = init_params(model, seed)
 
     def forward(p, image):

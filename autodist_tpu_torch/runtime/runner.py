@@ -10,9 +10,11 @@ same on every rank;
 :meth:`Runner.fit` and :meth:`Runner.evaluate` loop over batches;
 :meth:`Runner.step_stats` reports step wall times; :meth:`Runner.predict`
 runs a forward fetch program, and the serving engines (``serving/``)
-drive the runner's ``distributed_step`` and ``remapper``. The JAX
-runner's fused supersteps, checkpoints, sentinel, elastic and preemption
-planes belong to later slices of the port.
+drive the runner's ``distributed_step`` and ``remapper``. Checkpoints
+(``checkpoint/``) are written by ``fit(save_every=...)`` and restored by
+``init`` under ``ADT_AUTO_RESUME``. The JAX runner's fused supersteps,
+sentinel, elastic and preemption planes belong to later slices of the
+port.
 """
 import itertools
 import statistics
@@ -22,6 +24,7 @@ from typing import Any, Optional
 import numpy as np
 from torch.utils import _pytree as pytree
 
+from autodist_tpu_torch import const
 from autodist_tpu_torch.remapper import Remapper
 from autodist_tpu_torch.telemetry import spans as tel
 from autodist_tpu_torch.train_state import TrainState
@@ -112,7 +115,37 @@ class Runner:
     def init(self, params, opt_state=None) -> TrainState:
         """Initialize the state on the device from ``params``
         (``{name: tensor or numpy}``). With more than one replica every
-        rank calls it, and every replica starts from rank 0's values."""
+        rank calls it, and every replica starts from rank 0's values.
+
+        Under ``ADT_AUTO_RESUME`` the newest valid checkpoint in
+        ``ADT_CKPT_DIR`` (one either package wrote) is restored instead:
+        torn and damaged steps are skipped (``latest_checkpoint``), and the
+        restore falls back further if damage only shows while reading.
+        With no valid checkpoint one replica warns and starts fresh; more
+        than one raise, since peers restoring different steps would
+        diverge."""
+        if const.ENV.ADT_AUTO_RESUME.val:
+            from autodist_tpu_torch.checkpoint import latest_checkpoint
+            directory = const.ENV.ADT_CKPT_DIR.val
+            _, saver = latest_checkpoint(directory)
+            problem = "no valid checkpoint in %s" % directory
+            if saver is not None:
+                try:
+                    _, step = saver.restore(self)
+                except FileNotFoundError as e:
+                    # every candidate was skipped as torn/corrupt
+                    problem = str(e)
+                else:
+                    logging.warning("ADT_AUTO_RESUME: restored step %d "
+                                    "from %s", step, directory)
+                    return self.state
+            if self._dstep.num_replicas > 1:
+                raise RuntimeError(
+                    "ADT_AUTO_RESUME: %s on this process — peers restoring "
+                    "different steps would diverge, refusing to start "
+                    "fresh (`python -m autodist_tpu_torch.checkpoint ls "
+                    "--dir %s` inspects it)" % (problem, directory))
+            logging.warning("ADT_AUTO_RESUME: %s; starting fresh", problem)
         self.state = self._dstep.init_state(params, opt_state)
         return self.state
 
@@ -213,20 +246,46 @@ class Runner:
         return out
 
     def fit(self, batches, steps: Optional[int] = None,
-            callbacks: Optional[list] = None) -> list:
+            callbacks: Optional[list] = None, save_every: int = 0,
+            saver=None, fuse_steps: int = 1, metrics_every: int = 1) -> list:
         """Train over an iterable of host batches, one :meth:`run` each;
         ``steps`` bounds an endless iterable without consuming a batch past
         the bound, ``callbacks`` are called as ``cb(step_index, metrics)``.
-        Returns the per-step host metrics."""
+        ``save_every=N`` checkpoints every N steps, and once at the end
+        when the last window was partial, through ``saver`` — by default
+        an async :class:`~autodist_tpu_torch.checkpoint.saver.Saver` on
+        ``ADT_CKPT_DIR``, which ``ADT_AUTO_RESUME`` resumes from. A pending
+        write is joined before ``fit`` returns or raises, and a failed one
+        raises. Returns the per-step host metrics. The fused engine
+        (``fuse_steps``, ``metrics_every``) is ROADMAP A item 6."""
+        if fuse_steps != 1 or metrics_every != 1:
+            raise NotImplementedError(
+                "fit(fuse_steps=%d, metrics_every=%d): fused supersteps are "
+                "not ported yet (ROADMAP A item 6)"
+                % (fuse_steps, metrics_every))
+        if save_every > 0 and saver is None:
+            from autodist_tpu_torch.checkpoint.saver import Saver
+            saver = Saver(directory=const.ENV.ADT_CKPT_DIR.val,
+                          async_save=True)
         history = []
         bounded = batches if steps is None else itertools.islice(batches,
                                                                  steps)
-        with tel.span("runner.fit", "runner"):
-            for i, batch in enumerate(bounded):
-                metrics = self.run(batch)
-                history.append(metrics)
-                for cb in (callbacks or ()):
-                    cb(i, metrics)
+        with tel.span("runner.fit", "runner", save_every=save_every):
+            try:
+                for i, batch in enumerate(bounded):
+                    metrics = self.run(batch)
+                    history.append(metrics)
+                    for cb in (callbacks or ()):
+                        cb(i, metrics)
+                    if save_every > 0 and (i + 1) % save_every == 0:
+                        saver.save(self)
+                if save_every > 0 and history and \
+                        len(history) % save_every != 0:
+                    saver.save(self)  # the final partial window
+            finally:
+                # a failed async write must surface, on every exit path
+                if saver is not None:
+                    saver.wait()
         return history
 
     def evaluate(self, batches, steps: Optional[int] = None) -> dict:

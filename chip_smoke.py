@@ -77,7 +77,28 @@ result line):
    torch codec bit-equal to ``quant_wire_np``; (c) lm1b in f32 at global
    batch 8 with flash attention: the 2 ranks' 3 Adam steps against this
    process's 1 rank on the whole batch, at phase 6's bounds. A failure in
-   either rank fails the run.
+   either rank fails the run;
+11. checkpoints on the card: bert_base bf16 at full width (seq 128,
+   batch 128, flash) trains 4 random batches through ``Runner.fit(
+   save_every=2)`` with the default async ``Saver`` on a temporary
+   ``ADT_CKPT_DIR`` (run A); a new runner resumes by ``ADT_AUTO_RESUME``
+   in ``Runner.init`` (the newest, step 4) and then by
+   ``restore(ckpt-2)``, each ``torch.equal`` to run A's state at that
+   step (params, Adam moments, count, step), and its steps 3-4 give run
+   A's losses and state bit for bit (run B). Both runs are in PyTorch's
+   deterministic mode: ``F.embedding``'s CUDA backward sums a repeated
+   index's rows in a varying order, which the phase shows by taking one
+   step's gradients twice in each mode. Each kernel 12 launches a
+   step on its tensor-core design; ``python -m
+   autodist_tpu_torch.checkpoint fsck`` exits 0 on the directory; the
+   files' bytes, the save's time in ``save()`` and in the background
+   writer, and the share of the write hidden behind the steps;
+12. the cnn family at full width: VGG16 (image 224), InceptionV3 (299)
+   and DenseNet121 (224), bf16 convs, f32 params and BatchNorm, batch 64,
+   2 warm-up and 5 timed Adam steps each: every loss finite, every
+   BatchNorm ``mean``/``var`` bit-equal before and after, every other
+   variable moved; step p50 (min-max), images/s, MFU, peak memory and a
+   device profile of 3 steps by kind.
 
 TF32 is off for the whole run (``torch.backends.cuda.matmul`` and
 ``cudnn``): float32 is computed in float32, as the f32 checks' 2e-5 and
@@ -782,9 +803,10 @@ def train_runner(cfg, batch_size, attention):
     return build_runner(loss_fn, params, batch), params, batch
 
 
-def timed_steps(runner, batch, label, warmup=2, steps=10):
+def timed_steps(runner, batch, label, warmup=2, steps=10, must_fall=True):
     """``warmup`` + ``steps`` training steps, each ended by a sync; fails
-    unless every loss is finite and the last is below the first. Returns
+    unless every loss is finite and (``must_fall``) the last is below the
+    first. Returns
     (the timed steps' seconds, each kernel's launches by design over all
     the steps); the counts are set to 0 just before the first step."""
     import math
@@ -802,7 +824,7 @@ def timed_steps(runner, batch, label, warmup=2, steps=10):
     print("  losses: %s" % " ".join("%.4f" % x for x in losses))
     if not all(math.isfinite(x) for x in losses):
         fail("%s: a loss is not finite: %r" % (label, losses))
-    if not losses[-1] < losses[0]:
+    if must_fall and not losses[-1] < losses[0]:
         fail("%s: the loss did not fall (%.4f -> %.4f)"
              % (label, losses[0], losses[-1]))
     return times[warmup:], launches
@@ -1023,10 +1045,10 @@ def bert_train_phase(card):
     return flash_launches
 
 
-def resnet_flops_per_image(model):
+def forward_flops_per_image(model, image=RESNET_IMAGE):
     """Closed-form forward FLOPs of one image (2 per multiply-add) of the
-    convs and the head, from each layer's output shape (a forward on the
-    meta device)."""
+    convs and Dense layers, from each layer's output shape (a forward on
+    the meta device)."""
     import torch
     from autodist_tpu_torch.models import resnet
     from autodist_tpu_torch.models.layers import Dense
@@ -1039,8 +1061,7 @@ def resnet_flops_per_image(model):
     hooks = [m.register_forward_hook(hook) for m in model.modules()
              if isinstance(m, (resnet.Conv, Dense))]
     try:
-        model(torch.empty((1, RESNET_IMAGE, RESNET_IMAGE, 3),
-                          device="meta"))
+        model(torch.empty((1, image, image, 3), device="meta"))
     finally:
         for h in hooks:
             h.remove()
@@ -1082,7 +1103,7 @@ def resnet_phase(card):
             fail("resnet50: %s did not move" % name)
     print("  %d BatchNorm mean/var tensors bit-equal before and after the "
           "steps" % len(stats))
-    flops = 3 * RESNET_BATCH * resnet_flops_per_image(model)
+    flops = 3 * RESNET_BATCH * forward_flops_per_image(model)
     report_steps("resnet50", times, RESNET_BATCH, "images", flops, card,
                  launches)
     profile_steps(runner, batch, "resnet50")
@@ -1355,6 +1376,303 @@ def dp_phase(card):
     return launches
 
 
+
+# ------------------------------------------------------------- phase 11
+
+
+RESUME_STEPS, RESUME_EVERY = 4, 2
+
+
+def bert_batches(cfg, n, seed):
+    """``n`` bert_base batches in the bench batch's format (all-ones mask,
+    ``mlm_weights`` on 15% of the tokens), drawn from ``seed``."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    shape = (BERT_BATCH, BERT_SEQ)
+    return [{"input_ids": rng.randint(0, cfg.vocab_size, shape).astype(
+                np.int32),
+             "token_type_ids": np.zeros(shape, np.int32),
+             "attention_mask": np.ones(shape, np.int32),
+             "labels": rng.randint(0, cfg.vocab_size, shape).astype(
+                 np.int32),
+             "mlm_weights": (rng.rand(*shape) < 0.15).astype(np.float32)}
+            for _ in range(n)]
+
+
+def state_copy(runner):
+    """The runner's state, copied on the card: step, count, params, mu,
+    nu."""
+    st = runner.state
+    return {"step": st.step, "count": st.opt_state["count"],
+            "params": {n: t.clone() for n, t in st.params.items()},
+            "mu": {n: t.clone() for n, t in st.opt_state["mu"].items()},
+            "nu": {n: t.clone() for n, t in st.opt_state["nu"].items()}}
+
+
+def states_equal(label, got, want):
+    """``torch.equal`` over every tensor of two :func:`state_copy`s, and
+    the same step and count; fails naming every tensor that differs."""
+    import torch
+    if (got["step"], got["count"]) != (want["step"], want["count"]):
+        fail("%s: step/count %r vs %r" % (label, (got["step"], got["count"]),
+                                          (want["step"], want["count"])))
+    differ = ["%s %s (max |diff| %.3e)" % (part, n, max_err(got[part][n], t))
+              for part in ("params", "mu", "nu")
+              for n, t in want[part].items()
+              if not torch.equal(got[part][n], t)]
+    if differ:
+        fail("%s: %d tensors differ: %s" % (label, len(differ),
+                                            "; ".join(differ[:10])))
+
+
+def grad_repeats(loss_fn, params, batch):
+    """The variables whose gradient differs between two runs of the same
+    step (``torch.autograd.grad`` of the loss at ``params`` on ``batch``),
+    with the largest difference: ``[(name, max |diff|)]``."""
+    import torch
+    leaves = {n: t.detach().requires_grad_() for n, t in params.items()}
+    device = next(iter(leaves.values())).device
+    placed = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+    def grads():
+        return torch.autograd.grad(loss_fn(leaves, placed),
+                                   list(leaves.values()))
+    with uncounted():
+        a, b = grads(), grads()
+    return [(n, max_err(x, y)) for n, x, y in zip(leaves, a, b)
+            if not torch.equal(x, y)]
+
+
+def resume_phase(card):
+    """Phase 11: bert_base bf16 saved and resumed on the card. Returns
+    each kernel's launches by design over the phase's steps (run A's 4
+    and run B's 2)."""
+    import subprocess
+    import tempfile
+    import torch
+    import autodist_tpu_torch as adt
+    from autodist_tpu_torch.checkpoint import Saver
+    from autodist_tpu_torch.models import bert
+    from autodist_tpu_torch.telemetry import spans as tel
+    print("phase 11: bert_base full width (bf16, seq %d, batch %d, flash) "
+          "saved every %d of %d steps by Runner.fit, resumed by "
+          "ADT_AUTO_RESUME and restore(ckpt-2)"
+          % (BERT_SEQ, BERT_BATCH, RESUME_EVERY, RESUME_STEPS))
+    cfg = bert.BertConfig.base(dtype=torch.bfloat16)
+    loss_fn, params, batch, _ = bert.make_train_setup(
+        cfg, seq_len=BERT_SEQ, batch_size=BERT_BATCH, seed=0,
+        attention="flash")
+    n_params = sum(int(p.numel()) for p in params.values())
+    batches = bert_batches(cfg, RESUME_STEPS, seed=11)
+    env = {k: os.environ.get(k) for k in ("ADT_CKPT_DIR", "ADT_AUTO_RESUME")}
+    launches = {}
+
+    def add_launches():
+        for kern in kernels():
+            by = launches.setdefault(kern.__name__, {})
+            for design, n in kern.launches_by_variant.items():
+                by[design] = by.get(design, 0) + n
+
+    with tempfile.TemporaryDirectory() as ckdir:
+        os.environ["ADT_CKPT_DIR"] = ckdir
+        # F.embedding's CUDA backward sums the rows of a repeated index in
+        # an order that varies from run to run (measured below), so the
+        # bitwise comparison of runs A and B runs in PyTorch's
+        # deterministic mode, which picks its deterministic kernel
+        torch.use_deterministic_algorithms(True)
+        try:
+            # run A: 4 steps, the default async saver at steps 2 and 4
+            runner = build_runner(loss_fn, params, batch)
+            saved, losses, stamps = {}, [], []
+
+            def on_step(i, metrics):
+                torch.cuda.synchronize()
+                stamps.append(time.perf_counter())
+                losses.append(float(metrics["loss"]))
+                if (i + 1) % RESUME_EVERY == 0:
+                    saved[i + 1] = state_copy(runner)
+            tel.configure("1")
+            reset_counts()
+            t0 = time.perf_counter()
+            runner.fit(iter(batches), callbacks=[on_step],
+                       save_every=RESUME_EVERY)
+            fit_s = time.perf_counter() - t0
+            add_launches()
+            check_launches("phase 11 run A", launches, cfg.num_layers,
+                           RESUME_STEPS)
+            rec = tel.get_recorder()
+            spans = {name: [d * 1e3 for d in rec.durations_s(name)]
+                     for name in ("ckpt.gather", "ckpt.to_host", "ckpt.write",
+                                  "ckpt.gc", "ckpt.wait")}
+            save_hist = tel.histograms().get("ckpt.save_ms", {})
+            tel.configure(None)
+            metas = sorted(f for f in os.listdir(ckdir)
+                           if f.endswith(".meta.json"))
+            if metas != ["ckpt-2.meta.json", "ckpt-4.meta.json"]:
+                fail("phase 11: fit(save_every=2) committed %r" % metas)
+            for m in metas:
+                with open(os.path.join(ckdir, m)) as f:
+                    files = json.load(f)["files"]
+                print("  %s: %s" % (m[:-len(".meta.json")], ", ".join(
+                    "%s %d bytes" % (k.split(".", 1)[1], v["bytes"])
+                    for k, v in sorted(files.items()))))
+            write_ms = sum(spans["ckpt.write"]) + sum(spans["ckpt.gc"])
+            sync_ms = sum(spans["ckpt.gather"]) + sum(spans["ckpt.to_host"])
+            wait_ms = sum(spans["ckpt.wait"])
+            print("  run A: losses %s; fit %.1f ms for %d steps (step ends "
+                  "at %s ms); %d parameters"
+                  % (" ".join("%.4f" % x for x in losses), fit_s * 1e3,
+                     RESUME_STEPS, " ".join("%.1f" % ((t - t0) * 1e3)
+                                            for t in stamps), n_params))
+            print("  saves: in save() (gather + copy to the host in the JAX "
+                  "layout) %s ms; background write + gc %s ms; ckpt.save_ms "
+                  "count %s sum %.1f ms; the steps waited %s ms on the "
+                  "writer: %.1f%% of the write hidden behind the steps [%s]"
+                  % ([round(x, 1) for x in spans["ckpt.to_host"]],
+                     [round(x, 1) for x in spans["ckpt.write"]],
+                     save_hist.get("count"), save_hist.get("sum", 0.0),
+                     [round(x, 1) for x in spans["ckpt.wait"]],
+                     100 * (1 - wait_ms / max(write_ms, 1e-9)), card))
+            if sync_ms <= 0 or write_ms <= 0:
+                fail("phase 11: the save's spans were not recorded")
+            out = subprocess.run(
+                [sys.executable, "-m", "autodist_tpu_torch.checkpoint",
+                 "fsck", "--dir", ckdir], capture_output=True, text=True,
+                cwd=HERE, timeout=600)
+            print("  fsck: exit %d: %s" % (out.returncode,
+                                           out.stdout.strip().splitlines()
+                                           [-1] if out.stdout else ""))
+            if out.returncode != 0:
+                fail("phase 11: fsck exited %d: %s" % (out.returncode,
+                                                       out.stderr[-2000:]))
+            del runner
+            adt.reset()
+            # run B: a new runner, resumed from the newest checkpoint by
+            # ADT_AUTO_RESUME, then explicitly from ckpt-2
+            os.environ["ADT_AUTO_RESUME"] = "1"
+            t1 = time.perf_counter()
+            runner = build_runner(loss_fn, params, batch)
+            torch.cuda.synchronize()
+            resume_s = time.perf_counter() - t1
+            states_equal("phase 11 auto-resume", state_copy(runner),
+                         saved[4])
+            t1 = time.perf_counter()
+            Saver(ckdir).restore(runner, os.path.join(ckdir, "ckpt-2"))
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t1
+            states_equal("phase 11 restore(ckpt-2)", state_copy(runner),
+                         saved[2])
+            reset_counts()
+            again = [float(runner.run(b)["loss"])
+                     for b in batches[RESUME_EVERY:]]
+            add_launches()
+            check_launches("phase 11 runs A and B", launches,
+                           cfg.num_layers, RESUME_STEPS + len(again))
+            if again != losses[RESUME_EVERY:]:
+                fail("phase 11: steps 3-4 after the restore give losses %r, "
+                     "the run without it %r" % (again,
+                                                losses[RESUME_EVERY:]))
+            states_equal("phase 11 steps 3-4 after the restore",
+                         state_copy(runner), saved[4])
+            print("  run B: ADT_AUTO_RESUME restored step 4 in %.1f ms "
+                  "(build, init and read), restore(ckpt-2) %.1f ms, both "
+                  "torch.equal to run A's state there; steps 3-4 losses %s "
+                  "and state bit-equal to run A's (deterministic mode); "
+                  "launches %r [%s]"
+                  % (resume_s * 1e3, restore_s * 1e3,
+                     " ".join("%.4f" % x for x in again), launches, card))
+            # why the deterministic mode: one step's gradients, twice from
+            # the same state, in the default mode and in deterministic mode
+            for mode in (False, True):
+                torch.use_deterministic_algorithms(mode)
+                differ = grad_repeats(loss_fn, runner.state.params,
+                                      batches[-1])
+                print("  the same step's gradients twice, deterministic "
+                      "mode %s: %d of %d variables differ %s"
+                      % (mode, len(differ), len(params), differ))
+                if mode and differ:
+                    fail("phase 11: gradients differ in deterministic mode")
+        finally:
+            torch.use_deterministic_algorithms(False)
+            for k, v in env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+            adt.reset()
+    return launches
+
+
+# ------------------------------------------------------------- phase 12
+
+
+CNN_BATCH, CNN_STEPS = 64, 5
+CNN_MODELS = (("vgg16", 224), ("inceptionv3", 299), ("densenet121", 224))
+CNN_CLASSES = {"vgg16": "VGG16", "inceptionv3": "InceptionV3",
+               "densenet121": "DenseNet121"}
+
+
+def cnn_phase(card):
+    """Phase 12: VGG16, InceptionV3 and DenseNet121 at full width, bf16
+    convs, f32 params and BatchNorm, batch 64: 2 warm-up and 5 timed Adam
+    steps each, BatchNorm statistics bit-equal after them, a device
+    profile of 3 steps."""
+    import gc
+    import torch
+    import autodist_tpu_torch as adt
+    from autodist_tpu_torch import models
+    from autodist_tpu_torch.model_item import BATCH_STATS_PREFIX
+    from autodist_tpu_torch.models import cnn
+    print("phase 12: the cnn family at full width (bf16 convs, f32 params "
+          "and BatchNorm, batch %d) through AutoDist -> Runner.init -> "
+          "Runner.run" % CNN_BATCH)
+    for name, image in CNN_MODELS:
+        t0 = time.perf_counter()
+        loss_fn, params, batch, _ = models.make_train_setup(
+            name, image_size=image, batch_size=CNN_BATCH,
+            dtype=torch.bfloat16, seed=0)
+        runner = build_runner(loss_fn, params, batch)
+        torch.cuda.synchronize()
+        stats = [n for n in params if n.startswith(BATCH_STATS_PREFIX)]
+        n_params = sum(int(p.numel()) for n, p in params.items()
+                       if n not in stats)
+        print("  %s (image %d): %d parameters and %d BatchNorm statistics "
+              "(random, seed 0), setup %.1f s" % (
+                  name, image, n_params,
+                  sum(int(params[n].numel()) for n in stats),
+                  time.perf_counter() - t0))
+        # Adam at 1e-3 on one random batch need not lower these models'
+        # loss within 7 steps (VGG16's and InceptionV3's spike in their
+        # first steps); finite losses are required
+        times, launches = timed_steps(runner, batch, name,
+                                      steps=CNN_STEPS, must_fall=False)
+        if any(launches.values()):
+            fail("%s launched a flash kernel: %r" % (name, launches))
+        final = runner.gather_params()
+        moved = [n for n in stats if not torch.equal(final[n].cpu(),
+                                                     params[n])]
+        if not stats or moved:
+            fail("%s: BatchNorm statistics moved: %r" % (name, moved[:5]))
+        frozen = [n for n in params if n not in stats
+                  and torch.equal(final[n].cpu(), params[n])]
+        if frozen:
+            fail("%s: params did not move: %r" % (name, frozen[:5]))
+        print("  %s: %d BatchNorm mean/var tensors bit-equal before and "
+              "after the steps, every other variable moved"
+              % (name, len(stats)))
+        kw = {"image_size": image} if name == "vgg16" else {}
+        with torch.device("meta"):
+            model = getattr(cnn, CNN_CLASSES[name])(num_classes=1000, **kw)
+        flops = 3 * CNN_BATCH * forward_flops_per_image(model, image)
+        report_steps(name, times, CNN_BATCH, "images", flops, card,
+                     launches)
+        profile_steps(runner, batch, name)
+        del runner, params, final
+        adt.reset()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "autodist_tpu_torch", "csrc")):
         fail("autodist_tpu_torch/ is not beside chip_smoke.py — run it from "
@@ -1492,6 +1810,8 @@ def main():
     resnet_phase(card)
     bert_parity_phase()
     dp_launches = dp_phase(card)
+    resume_launches = resume_phase(card)
+    cnn_phase(card)
 
     # flash_fwd runs on the three main paths, serving (decode), lm1b and
     # bert training, the backward kernels on the two training paths. Each
@@ -1521,6 +1841,12 @@ def main():
         rec["by_path"]["bert_dp"] = {
             "launches": sum(dp.values()),
             "design_launches": dp.get(rec["design"], 0)}
+        # phase 11's bert_base steps (run A's 4, run B's 2 after the
+        # restore): launches only, at the bert path's shape
+        resumed = resume_launches.get(name, {})
+        rec["by_path"]["bert_resume"] = {
+            "launches": sum(resumed.values()),
+            "design_launches": resumed.get(rec["design"], 0)}
         rec["launches"] = sum(p["launches"] for p in rec["by_path"].values())
         rec["design_launches"] = sum(p["design_launches"]
                                      for p in rec["by_path"].values())

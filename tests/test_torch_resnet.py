@@ -233,13 +233,16 @@ def test_same_padding_is_flax_s():
 @pytest.mark.parametrize("name", sorted(models.REGISTRY))
 def test_registry_builds_each_model(name, monkeypatch):
     """Each registered name builds at full width (small batches, and small
-    images for the ResNets) and its loss is finite on its example batch.
+    images for the CNNs) and its loss is finite on its example batch.
     bert_large's 366M-parameter init (20 s and 3 GB on a CPU) is left out:
     its entry is checked for the config it passes, and the model for its
     size."""
     kw = {"resnet18": dict(image_size=32, batch_size=2),
           "resnet50": dict(image_size=32, batch_size=2),
           "resnet101": dict(image_size=32, batch_size=2),
+          "vgg16": dict(image_size=32, batch_size=2),
+          "inceptionv3": dict(image_size=75, batch_size=2),
+          "densenet121": dict(image_size=32, batch_size=2),
           "bert_base": dict(seq_len=16, batch_size=2),
           "lm": dict(seq_len=16, batch_size=2)}
     if name == "bert_large":
@@ -261,4 +264,4 @@ def test_registry_builds_each_model(name, monkeypatch):
 
 def test_registry_rejects_an_unknown_name():
     with pytest.raises(ValueError, match="unknown model"):
-        models.make_train_setup("vgg16")
+        models.make_train_setup("ncf")

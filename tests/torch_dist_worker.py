@@ -1,8 +1,9 @@
 """Multi-process jobs for the port's data-parallel tests, with no JAX.
 
 The tests (``tests/test_torch_collectives.py``,
-``tests/test_torch_data_parallel.py``) compute their JAX references in
-the pytest process and hand numpy arrays to :func:`launch`, which starts
+``tests/test_torch_data_parallel.py``, ``tests/test_torch_checkpoint.py``)
+compute their JAX references in the pytest process and hand numpy arrays
+to :func:`launch`, which starts
 ``world`` processes with the ``spawn`` start method. Each process joins a
 gloo group made from a ``FileStore`` in the test's temporary directory
 (no TCP port, so parallel test workers cannot clash), runs one job of
@@ -150,4 +151,73 @@ def _train_one(payload, device):
     return out
 
 
-JOBS = {"compressors": compressor_job, "train": train_job}
+def ckpt_job(payload, device):
+    """Checkpoints at N ranks, one payload (``train_job``'s keys and four
+    batches): (1) restore ``jax_path`` (a JAX package checkpoint) and
+    take step 3; (2) from ``init``, 2 steps, save into ``dir`` (rank 0
+    writes), steps 3 and 4, restore the save and steps 3 and 4 again; (3)
+    ``ADT_AUTO_RESUME`` over an empty directory, then over ``dir``.
+    Returns each part's losses, params, saved paths and states."""
+    import autodist_tpu_torch as adt
+    from autodist_tpu_torch import strategy
+    from autodist_tpu_torch.checkpoint import Saver
+    from autodist_tpu_torch.resource_spec import ResourceSpec
+    from autodist_tpu_torch.telemetry import spans as tel
+    from autodist_tpu_torch.convert import FlaxParams
+    world = dist.get_world_size()
+    loss_fn, params, example, _ = _setup(payload["model"],
+                                         payload["seq_len"],
+                                         payload["batch_size"],
+                                         payload["attention"])
+    # the attention projections' flax shapes, which the files are in
+    init = FlaxParams({n: torch.as_tensor(v)
+                       for n, v in payload["init"].items()},
+                      flax_shapes=params.flax_shapes)
+    b = payload["batches"]
+    spec = ResourceSpec.from_dict({"nodes": [{
+        "address": "127.0.0.1", "chief": True,
+        "cpus": list(range(world))}]})
+    ad = adt.AutoDist(strategy_builder=strategy.AllReduce(
+        **payload.get("strategy", {})), resource_spec=spec, device=device)
+    runner = ad.build(loss_fn, functools.partial(torch.optim.Adam, lr=LR),
+                      init, example)
+    out = {}
+    runner.init(init)
+    _, step = Saver(payload["jax_dir"]).restore(runner)
+    out["from_jax"] = {"step": step,
+                       "sync_state": _np(runner.state.sync_state),
+                       "loss": float(runner.run(b[2])["loss"]),
+                       "params": _np(runner.gather_params())}
+    runner.init(init)
+    losses = [float(runner.run(x)["loss"]) for x in b[:2]]
+    saver = Saver(payload["dir"])
+    path = saver.save(runner)
+    saves = tel.counters().get("ckpt.saves", 0.0)
+    saved_sync = _np(runner.state.sync_state)
+    losses += [float(runner.run(x)["loss"]) for x in b[2:]]
+    final = _np(runner.gather_params())
+    _, step = saver.restore(runner, os.path.join(payload["dir"], "ckpt-2"))
+    restored_sync = _np(runner.state.sync_state)
+    again = [float(runner.run(x)["loss"]) for x in b[2:]]
+    out["own"] = {"losses": losses, "path": path, "saves": saves,
+                  "step": step, "params": final, "again": again,
+                  "params_again": _np(runner.gather_params()),
+                  "saved_sync": saved_sync, "restored_sync": restored_sync}
+    os.environ["ADT_AUTO_RESUME"] = "1"
+    try:
+        os.environ["ADT_CKPT_DIR"] = payload["empty_dir"]
+        try:
+            runner.init(init)
+            out["resume_empty"] = "started fresh"
+        except RuntimeError as e:
+            out["resume_empty"] = str(e)
+        os.environ["ADT_CKPT_DIR"] = payload["dir"]
+        runner.init(init)
+        out["resume_step"] = runner.state.step
+    finally:
+        del os.environ["ADT_AUTO_RESUME"], os.environ["ADT_CKPT_DIR"]
+    adt.reset()
+    return out
+
+
+JOBS = {"compressors": compressor_job, "train": train_job, "ckpt": ckpt_job}
