@@ -6,6 +6,14 @@
     runner.init(params)
     metrics = runner.run(batch)            # one training step: {"loss": ...}
 
+or, the JAX package's other entry points:
+
+    step = ad.function(loss_fn, optimizer=..., params=params)
+    metrics = step(batch)                  # builds and inits at the first call
+    session = ad.create_distributed_session(loss_fn, optimizer, params,
+                                            example_batch)
+    runner = ad.build_step(step_fn, state, example_batch)   # opaque step
+
 capture -> strategy build -> compile -> lowering, with the JAX package's
 one-instance-per-process registry.
 
@@ -32,7 +40,7 @@ from autodist_tpu_torch.kernel.graph_transformer import GraphTransformer
 from autodist_tpu_torch.kernel.replicator import ReplicaInfo
 from autodist_tpu_torch.model_item import ModelItem
 from autodist_tpu_torch.resource_spec import ResourceSpec
-from autodist_tpu_torch.runtime.runner import Runner
+from autodist_tpu_torch.runtime.runner import Runner, WrappedSession
 from autodist_tpu_torch.strategy.base import Strategy, StrategyCompiler
 from autodist_tpu_torch.utils import logging
 from autodist_tpu_torch.utils.device import resolve_device
@@ -134,6 +142,70 @@ class AutoDist:
         dstep = GraphTransformer(compiled, item, self._device,
                                  self._replicas).transform()
         self._runner = Runner(dstep)
+        return self._runner
+
+    def build_step(self, step_fn: Callable, state, example_batch) -> Runner:
+        """Opaque-step capture mode: distribute a hand-written
+        ``step_fn(state, batch) -> (new_state, metrics)`` over the user's
+        whole training state (params and optimizer state bundled however
+        the user likes, a tree of dicts, lists and tuples of tensors); the
+        framework never looks inside the step, so it runs as given, and
+        ``Runner.fit(fuse_steps=k)`` captures it like any step. The
+        strategy names the state's leaves by their paths, as the JAX
+        package does. The opaque step hides its gradients, so host-PS is
+        refused and compressors are ignored (warned), as in the JAX
+        package; with more than one replica the port cannot sync them at
+        all and refuses (ROADMAP A item 13). Returns an uninitialized
+        Runner: ``runner.init(state)``."""
+        item = ModelItem(step_fn=step_fn, params=state,
+                         example_batch=example_batch).prepare()
+        strategy: Strategy = self._strategy_builder.build(
+            item, self._resource_spec)
+        compiled = StrategyCompiler(item, self._resource_spec).compile(
+            strategy)
+        logging.info("compiled %r (step_fn mode)", compiled)
+        dstep = GraphTransformer(compiled, item, self._device,
+                                 self._replicas).transform()
+        self._runner = Runner(dstep)
+        return self._runner
+
+    def function(self, loss_fn: Callable, *, optimizer, params,
+                 example_batch=None, has_aux: bool = False) -> Callable:
+        """TF2-style stepping function: builds and inits at the first call
+        (that call's batch is the example, unless ``example_batch`` is
+        given), then every call runs one distributed step and returns the
+        host metrics. ``stepper.get_runner()`` is the runner (None before
+        the first call)."""
+        box = {}
+
+        def stepper(batch):
+            if "runner" not in box:
+                ex = example_batch if example_batch is not None else batch
+                runner = self.build(loss_fn, optimizer, params, ex, has_aux)
+                runner.init(params)
+                box["runner"] = runner
+            return box["runner"].run(batch)
+
+        stepper.get_runner = lambda: box.get("runner")
+        return stepper
+
+    def create_distributed_session(self, loss_fn=None, optimizer=None,
+                                   params=None, example_batch=None,
+                                   has_aux: bool = False) -> WrappedSession:
+        """Session facade over this instance's runner, built and inited
+        from ``loss_fn``/``optimizer``/``params`` when there is none
+        yet."""
+        if self._runner is None:
+            if loss_fn is None:
+                raise ValueError("no model built; pass loss_fn/optimizer/"
+                                 "params")
+            runner = self.build(loss_fn, optimizer, params, example_batch,
+                                has_aux)
+            runner.init(params)
+        return WrappedSession(self._runner)
+
+    @property
+    def runner(self) -> Optional[Runner]:
         return self._runner
 
     def close(self):

@@ -29,10 +29,12 @@ import zipfile
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
+import torch
 
 from autodist_tpu_torch import const, convert
 from autodist_tpu_torch.checkpoint import integrity
 from autodist_tpu_torch.checkpoint.integrity import CheckpointDamaged
+from autodist_tpu_torch.model_item import flatten_state, unflatten_state
 from autodist_tpu_torch.runtime.faultinject import checkpoint_fault
 from autodist_tpu_torch.telemetry import spans as tel
 from autodist_tpu_torch.train_state import TrainState
@@ -77,6 +79,32 @@ def _flat_to_tree(template: Dict[str, tuple], flat: Dict[str, np.ndarray]
                              % (n, flat[n].shape, tuple(want)))
         out[n] = flat[n]
     return out
+
+
+def _user_state_to_host(tree) -> Dict[str, np.ndarray]:
+    """A step_fn state tree as host arrays under its ``/``-joined paths
+    (bfloat16 leaves as float32: numpy has no bfloat16)."""
+    out = {}
+    for name, leaf in flatten_state(tree):
+        t = torch.as_tensor(leaf).detach()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        out[name] = t.to("cpu", copy=True).numpy()
+    return out
+
+
+def _user_state_from_flat(template, path: str, device=None):
+    """The step_fn state tree of ``template``'s structure, leaf dtypes and
+    shapes from a checkpoint's params file, its tensors on ``device``."""
+    leaves = dict(flatten_state(template))
+    flat = _flat_to_tree({n: np.shape(v) for n, v in leaves.items()},
+                         _read_npz(path + ".params.npz"))
+    placed = {}
+    for n, v in leaves.items():
+        dtype = v.dtype if isinstance(v, torch.Tensor) else \
+            torch.as_tensor(np.asarray(v)).dtype
+        placed[n] = torch.as_tensor(flat[n]).to(device or "cpu", dtype)
+    return unflatten_state(template, placed)
 
 
 def _skip_unhealthy(status) -> bool:
@@ -226,10 +254,16 @@ class Saver:
             return None
         with tel.span("ckpt.to_host", "ckpt"):
             opt = dstep.gather_opt_state(state)
-            trees = [(".params.npz", convert.params_to_jax(
-                dstep.gather_params(state), item.flax_shapes)),
-                (".opt.npz", {} if opt is None else
-                 convert.opt_state_to_jax(opt, item.flax_shapes))]
+            if item.step_fn is not None:
+                # an opaque step's state saves under its own paths, as the
+                # JAX saver flattens it; the step owns its optimizer
+                trees = [(".params.npz", _user_state_to_host(
+                    dstep.gather_params(state))), (".opt.npz", {})]
+            else:
+                trees = [(".params.npz", convert.params_to_jax(
+                    dstep.gather_params(state), item.flax_shapes)),
+                    (".opt.npz", {} if opt is None else
+                     convert.opt_state_to_jax(opt, item.flax_shapes))]
             sync_flat = convert.sync_state_to_jax(sync, item.var_infos,
                                                   item.flax_shapes)
             if sync_flat:
@@ -402,10 +436,13 @@ class Saver:
         item = dstep.model_item
         # the arrays go to the card as they are read, and change layout
         # there (a host transpose of a large kernel is the slow part)
-        params = self.restore_params(item.params, path, dstep.device)
-        shapes = {n: tuple(t.shape) for n, t in params.items()}
+        if item.step_fn is not None:
+            params = _user_state_from_flat(item.params, path, dstep.device)
+        else:
+            params = self.restore_params(item.params, path, dstep.device)
         opt_state = None
         if item.optimizer_spec is not None:
+            shapes = {n: tuple(t.shape) for n, t in params.items()}
             flat = _flat_to_tree(
                 convert.opt_state_template(shapes, item.flax_shapes),
                 _read_npz(path + ".opt.npz"))

@@ -261,8 +261,9 @@ def opt_state_from_jax(flat: Dict[str, np.ndarray],
                        shapes: Dict[str, tuple], device=None) -> dict:
     """Inverse of :func:`opt_state_to_jax`: the port's ``{"count", "mu",
     "nu"}`` for variables of ``shapes``, its tensors on ``device``
-    (:func:`leaf_from_jax`)."""
-    out = {"count": int(flat[_ADAM + "count"])}
+    (:func:`leaf_from_jax`; the count an int32 0-d tensor)."""
+    count = torch.tensor(int(flat[_ADAM + "count"]), dtype=torch.int32)
+    out = {"count": count if device is None else count.to(device)}
     for slot in ("mu", "nu"):
         out[slot] = {n: leaf_from_jax(
             flat["%s%s/%s" % (_ADAM, slot, jax_name(n, s))], n, s, device)

@@ -1008,6 +1008,8 @@ __global__ void __launch_bounds__(kMmaThreads, 4)
   }
 }
 
+constexpr int kMaxDevices = 64;
+
 // variant: 0 = scalar f32, 2 = mma.sync bf16
 int launch(bool dq, int variant, const Args& a, int D, int rows,
            void* stream) {
@@ -1026,11 +1028,21 @@ int launch(bool dq, int variant, const Args& a, int D, int rows,
     flash_bwd_dq_mma_kernel<<<mma_grid, kMmaThreads, 0, s>>>(a);
   } else if (variant == 2) {
     // above 48 KB, dynamic shared memory needs the kernel's consent; the
-    // attribute belongs to the current device, so it is set every launch
-    const cudaError_t attr = cudaFuncSetAttribute(
-        flash_bwd_dkdv_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(sizeof(DkdvSmem)));
-    if (attr != cudaSuccess) return static_cast<int>(attr);
+    // attribute belongs to the current device, so it is set at the first
+    // launch on each device (a launch captured into a CUDA graph comes
+    // after its warm-up launch, so the capture never sets it)
+    static bool consented[kMaxDevices] = {};
+    int dev = 0;
+    const cudaError_t got = cudaGetDevice(&dev);
+    if (got != cudaSuccess) return static_cast<int>(got);
+    if (dev >= kMaxDevices || !consented[dev]) {
+      const cudaError_t attr = cudaFuncSetAttribute(
+          flash_bwd_dkdv_mma_kernel,
+          cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(sizeof(DkdvSmem)));
+      if (attr != cudaSuccess) return static_cast<int>(attr);
+      if (dev < kMaxDevices) consented[dev] = true;
+    }
     const dim3 mma_grid((rows + kKM - 1) / kKM, a.H, a.B);
     flash_bwd_dkdv_mma_kernel<<<mma_grid, kMmaThreads, sizeof(DkdvSmem), s>>>(
         a);

@@ -15,6 +15,13 @@ is a Python callable with the signature the JAX program has.
   per-variable synchronizers, each a mean over the replicas; frozen
   variables held still; the optimizer apply; ``{"loss": ...}`` metrics
   averaged over the replicas. One replica issues no collective;
+- the fused superstep (:meth:`DistributedStep.multi_step`,
+  :meth:`DistributedStep.run_multi`): k microsteps in one dispatch, on
+  ``cuda`` one replay of a CUDA graph (``kernel/superstep.py``), on the
+  CPU the k-step loop;
+- in step_fn mode (``AutoDist.build_step``) the user's opaque
+  ``step_fn(state, batch) -> (new_state, metrics)`` in place of the
+  loss, grads and optimizer, on one replica;
 - :meth:`DistributedStep.evaluate`: forward-only metrics;
 - the serving programs (:meth:`DistributedStep.predict_program`,
   :meth:`DistributedStep.decode_program`), run under
@@ -115,6 +122,45 @@ def _clone(tree):
         lambda t: t.clone() if isinstance(t, torch.Tensor) else t, tree)
 
 
+def _clone_state(state: TrainState) -> TrainState:
+    return TrainState(step=state.step, params=_clone(state.params),
+                      opt_state=_clone(state.opt_state),
+                      sync_state=_clone(state.sync_state))
+
+
+def _detach(leaf):
+    return leaf.detach() if isinstance(leaf, torch.Tensor) else leaf
+
+
+def _stack(*leaves):
+    """One metric over k microsteps, ``[k, ...]``: tensors stack where they
+    live; host values (a constant the step returns) stack on the host."""
+    if all(isinstance(t, torch.Tensor) for t in leaves):
+        return torch.stack(leaves)
+    return np.stack([np.asarray(t) for t in leaves])
+
+
+def _lead_dims(tree) -> set:
+    return {int(np.shape(t)[0]) for t in pytree.tree_leaves(tree)
+            if np.ndim(t) >= 1}
+
+
+def _step_fn_output(out, template):
+    """``(new_state, metrics)`` of a step_fn's return value, the state in
+    the template's structure; refused (the JAX lowering's ``ValueError``)
+    unless it is such a pair whose state has the template's leaves."""
+    from autodist_tpu_torch.model_item import flatten_state, unflatten_state
+    if not (isinstance(out, tuple) and len(out) == 2):
+        raise ValueError("step_fn must return (new_state, metrics); got %s"
+                         % type(out).__name__)
+    got = dict(flatten_state(out[0]))
+    want = [n for n, _ in flatten_state(template)]
+    if sorted(got) != sorted(want):
+        raise ValueError("step_fn's new_state leaves %s do not match the "
+                         "state template's %s" % (sorted(got), sorted(want)))
+    return unflatten_state(template, got), out[1]
+
+
 def sparse_wire_vars(item, replicas: ReplicaInfo) -> set:
     """The tables the JAX lowering would sync over its sparse (ids,
     values) wire at ``replicas.num_replicas`` > 1
@@ -175,6 +221,13 @@ class DistributedStep:
         self._predict_progs: Dict[tuple, ForwardProgram] = {}
         self._decode_progs: Dict[tuple, ForwardProgram] = {}
         self.syncs: Dict[str, AllReduceSynchronizer] = {}
+        # dispatches: a step, or a fused superstep of k microsteps
+        self.dispatches = 0
+        # the CUDA graphs of the fused supersteps, by (k, feed structure
+        # and shapes, donate), and the eager microsteps their captures ran
+        # first to warm up
+        self._graphs: Dict[tuple, object] = {}
+        self.warmup_microsteps = 0
         self.buckets = []
         self.sparse_wire = frozenset()
         if self.num_replicas > 1:
@@ -247,6 +300,8 @@ class DistributedStep:
         :meth:`gather_sync_state`) for rank r, or a fresh one. A
         ``sync_state`` whose tree does not fit this plan is replaced by a
         fresh one, with a warning."""
+        if self.model_item.step_fn is not None:
+            return self._init_user_state(params)
         missing = set(self.model_item.var_infos) - set(params)
         if missing:
             raise ValueError("init params lack variables %s"
@@ -272,6 +327,21 @@ class DistributedStep:
         return TrainState(step=0, params=placed, opt_state=opt_state,
                           sync_state=sync)
 
+    def _init_user_state(self, state) -> TrainState:
+        """step_fn mode: the user's state tree on the device, each leaf a
+        copy in its own dtype (the opaque step owns its optimizer, so
+        there is no optimizer or compressor state beside it)."""
+        from autodist_tpu_torch.model_item import flatten_state, unflatten_state
+        want = [n for n, _ in flatten_state(self.model_item.params)]
+        leaves = dict(flatten_state(state))
+        if sorted(leaves) != sorted(want):
+            raise ValueError("init state leaves %s do not match the state "
+                             "template's %s" % (sorted(leaves), sorted(want)))
+        placed = {n: torch.as_tensor(v).to(self.device, copy=True)
+                  for n, v in leaves.items()}
+        return TrainState(step=0, params=unflatten_state(
+            self.model_item.params, placed), opt_state={}, sync_state={})
+
     def _own_row(self, gathered, fresh):
         """This rank's row of a gathered ``[N, ...]`` compressor-state
         tree, on the device; ``fresh`` when the tree does not fit this
@@ -291,6 +361,10 @@ class DistributedStep:
             self.device, w.dtype, copy=True), fresh)
 
     def _loss(self, params, batch):
+        if self.model_item.loss_fn is None:
+            raise ValueError("this runner lowers an opaque step_fn, which "
+                             "has no loss to evaluate: use loss_fn mode "
+                             "(AutoDist.build)")
         out = self.model_item.loss_fn(params, batch)
         if self.model_item.has_aux:
             return out
@@ -349,49 +423,153 @@ class DistributedStep:
                 new_sync[key] = value
         return synced, new_sync
 
-    def __call__(self, state: TrainState, batch, donate: bool = True):
-        """One training step on this rank's shard of the batch, already on
-        the device: loss and grads of the trainable variables, with more
-        than one replica their sync (:meth:`_sync_grads`), the optimizer
-        apply, and ``(new_state, {"loss": ...})``. Non-trainable variables
-        get no update, so they and their optimizer moments never move (the
-        JAX step's zero gradients and masked updates, exactly: a zero
-        Adam moment gives a zero update). ``donate=True`` updates
-        ``state``'s tensors in place (the JAX program donates them);
-        ``donate=False`` leaves them as they were."""
-        if self.optimizer is None:
-            raise ValueError("this runner was built without an optimizer: "
-                             "pass one to AutoDist.build to train")
-        if not donate:
-            state = TrainState(step=state.step, params=_clone(state.params),
-                               opt_state=_clone(state.opt_state),
-                               sync_state=_clone(state.sync_state))
-        trainable = self.model_item.trainable_var_names
-        with tel.span("dstep.dispatch", "dstep", fused=False):
-            full = dict(state.params)
-            for n in trainable:
-                full[n] = state.params[n].detach().requires_grad_()
+    def _step(self, state: TrainState, batch):
+        """One microstep on ``state``, with no span and no dispatch count:
+        ``(new_state, metrics)``. In loss_fn mode the loss and grads of
+        the trainable variables, with more than one replica their sync
+        (:meth:`_sync_grads`), and the optimizer apply, in place on
+        ``state``'s tensors. In step_fn mode the user's ``step_fn(state,
+        batch) -> (new_state, metrics)`` as given (its metrics detached).
+        Nothing here reads a value back to the host, so a CUDA graph can
+        hold it (:mod:`~autodist_tpu_torch.kernel.superstep`)."""
+        item = self.model_item
+        if item.step_fn is not None:
             with torch.enable_grad():
-                loss, aux = self._loss(full, batch)
-                grads = torch.autograd.grad(
-                    loss, [full[n] for n in trainable], allow_unused=True) \
-                    if trainable else ()
-            grads = {n: (g if g is not None
-                         else torch.zeros_like(state.params[n]))
-                     for n, g in zip(trainable, grads)}
-            sync_state = state.sync_state
-            with torch.no_grad():
-                if self.num_replicas > 1:
-                    with tel.span("dstep.grad_sync", "dstep"):
-                        grads, sync_state = self._sync_grads(grads,
-                                                             sync_state)
-                opt_state = self.optimizer.update(grads, state.opt_state,
-                                                  state.params)
-            metrics = self._metrics(loss, aux)
-        tel.counter_add("dstep.dispatches")
+                new_user, metrics = _step_fn_output(
+                    item.step_fn(state.params, batch), item.params)
+            return TrainState(step=state.step + 1, params=new_user,
+                              opt_state=state.opt_state,
+                              sync_state=state.sync_state), \
+                pytree.tree_map(_detach, metrics)
+        trainable = item.trainable_var_names
+        full = dict(state.params)
+        for n in trainable:
+            full[n] = state.params[n].detach().requires_grad_()
+        with torch.enable_grad():
+            loss, aux = self._loss(full, batch)
+            grads = torch.autograd.grad(
+                loss, [full[n] for n in trainable], allow_unused=True) \
+                if trainable else ()
+        grads = {n: (g if g is not None
+                     else torch.zeros_like(state.params[n]))
+                 for n, g in zip(trainable, grads)}
+        sync_state = state.sync_state
+        with torch.no_grad():
+            if self.num_replicas > 1:
+                with tel.span("dstep.grad_sync", "dstep"):
+                    grads, sync_state = self._sync_grads(grads, sync_state)
+            opt_state = self.optimizer.update(grads, state.opt_state,
+                                              state.params)
         return TrainState(step=state.step + 1, params=state.params,
                           opt_state=opt_state,
-                          sync_state=sync_state), metrics
+                          sync_state=sync_state), self._metrics(loss, aux)
+
+    def _check_trainable(self):
+        if self.optimizer is None and self.model_item.step_fn is None:
+            raise ValueError("this runner was built without an optimizer: "
+                             "pass one to AutoDist.build to train")
+
+    def __call__(self, state: TrainState, batch, donate: bool = True):
+        """One training step on this rank's shard of the batch, already on
+        the device (:meth:`_step`): ``(new_state, metrics)``.
+        Non-trainable variables get no update, so they and their optimizer
+        moments never move (the JAX step's zero gradients and masked
+        updates, exactly: a zero Adam moment gives a zero update).
+        ``donate=True`` updates ``state``'s tensors in place (the JAX
+        program donates them); ``donate=False`` leaves them as they
+        were."""
+        self._check_trainable()
+        if not donate:
+            state = _clone_state(state)
+        with tel.span("dstep.dispatch", "dstep", fused=False):
+            out = self._step(state, batch)
+        self.dispatches += 1
+        tel.counter_add("dstep.dispatches")
+        return out
+
+    def multi_step(self, k: int, donate: bool = True) -> Callable:
+        """The fused k-microstep program (the JAX ``multi_step``): returns
+        ``fused(state, ps_vals, ps_opt, stacked_batch) -> (new_state,
+        new_ps_vals, new_ps_opt, stacked_metrics)`` over a stacked ``[k,
+        ...]`` batch on the device, with the metrics stacked ``[k, ...]``
+        and left on the device. The port has no host-PS, so ``ps_vals``
+        and ``ps_opt`` are ``{}`` in and out.
+
+        On ``cuda`` a call replays ONE CUDA graph that holds the k
+        microsteps, captured at the first call for each (k, feed
+        structure, shapes and dtypes, donate) — the JAX package's
+        per-shape compile (:class:`~autodist_tpu_torch.kernel.superstep.
+        GraphedSuperstep`); a capture that fails raises. On the CPU it is
+        the plain k-step loop in one call, the per-step :meth:`_step` k
+        times. ``donate=False`` leaves ``state`` as it was. Most callers
+        want :meth:`run_multi`, which counts the dispatch."""
+        if k < 1:
+            raise ValueError("multi_step needs k >= 1, got %d" % k)
+        self._check_trainable()
+        if self.device.type == "cuda" and self.num_replicas > 1:
+            raise NotImplementedError(
+                "fused supersteps with %d replicas on cuda: a CUDA graph "
+                "cannot hold gloo's host-staged collectives, and NCCL "
+                "capture waits for a machine with more than one card "
+                "(ROADMAP A item 12)" % self.num_replicas)
+
+        def fused(state, ps_vals, ps_opt, stacked_batch):
+            del ps_vals, ps_opt  # no host-PS in the port
+            lead = _lead_dims(stacked_batch)
+            if lead and lead != {k}:
+                raise ValueError(
+                    "multi_step(k=%d) fed a stacked batch with leading "
+                    "dim(s) %s" % (k, sorted(lead)))
+            if self.device.type == "cuda":
+                new_state, metrics = self._graphed(
+                    state, stacked_batch, k, donate)
+            else:
+                if not donate:
+                    state = _clone_state(state)
+                new_state, metrics = self._loop(state, stacked_batch, k)
+            return new_state, {}, {}, metrics
+        return fused
+
+    def _loop(self, state: TrainState, stacked_batch, k: int):
+        """k microsteps of :meth:`_step` over the rows of a stacked feed;
+        ``(new_state, metrics stacked [k, ...])``."""
+        per_step = []
+        for i in range(k):
+            state, metrics = self._step(
+                state, pytree.tree_map(lambda t, i=i: t[i], stacked_batch))
+            per_step.append(metrics)
+        return state, pytree.tree_map(_stack, *per_step)
+
+    def _graphed(self, state, stacked_batch, k, donate):
+        from autodist_tpu_torch.kernel.superstep import GraphedSuperstep
+        leaves, spec = pytree.tree_flatten(stacked_batch)
+        key = (k, str(spec), tuple((tuple(t.shape), t.dtype)
+                                   for t in leaves), donate)
+        graph = self._graphs.get(key)
+        if graph is None:
+            graph = GraphedSuperstep(self, state, stacked_batch, k)
+            self._graphs[key] = graph
+            self.warmup_microsteps += graph.warmup_microsteps
+        return graph.replay(state, stacked_batch, donate)
+
+    def run_multi(self, state: TrainState, stacked_batch,
+                  donate: bool = True):
+        """Run one superstep (k = the stacked batch's leading dim) as ONE
+        dispatch (:meth:`multi_step`); returns ``(new_state,
+        stacked_metrics)`` with the metrics still on the device — the
+        caller decides when to pay the readback."""
+        lead = _lead_dims(stacked_batch)
+        if len(lead) > 1:
+            raise ValueError(
+                "stacked batch has mismatched leading (microstep) dims %s"
+                % sorted(lead))
+        k = next(iter(lead), 1)
+        fn = self.multi_step(k, donate)
+        with tel.span("dstep.dispatch", "dstep", fused=True):
+            new_state, _, _, metrics = fn(state, {}, {}, stacked_batch)
+        self.dispatches += 1
+        tel.counter_add("dstep.dispatches")
+        return new_state, metrics
 
     def evaluate(self, state: TrainState, batch):
         """Forward-only metrics: no grads, no optimizer."""
@@ -401,7 +579,10 @@ class DistributedStep:
     def gather_params(self, state: TrainState) -> dict:
         """The full params in their original names: this replica's, which
         equal every other's (each device holds them whole, so this is the
-        state's own mapping, copied shallowly)."""
+        state's own mapping, copied shallowly); in step_fn mode the user's
+        state tree itself."""
+        if self.model_item.step_fn is not None:
+            return state.params
         return dict(state.params)
 
     def gather_opt_state(self, state: TrainState):
@@ -423,6 +604,10 @@ class DistributedStep:
             dist.all_gather(parts, t.contiguous())
             return torch.stack(parts)
         return pytree.tree_map(gather, state.sync_state)
+
+    def close(self):
+        """Drop the captured supersteps and their memory."""
+        self._graphs.clear()
 
     def pull_ps(self) -> dict:
         """Current host-PS values: none in this slice."""
@@ -545,6 +730,47 @@ class GraphTransformer:
                 refuse("the hierarchical psum (schedule='hier' or "
                        "spec='DCN' across hosts) on %s" % node.var_name, 7)
 
+    def _check_step_fn(self, replicas: int):
+        """step_fn mode (the JAX ``_transform_step_fn``'s refusals): the
+        opaque step hides the gradients that host-PS intercepts (refused)
+        and compressors act on (warned and ignored); with more than one
+        replica the port cannot see the gradients to sync them at all —
+        the JAX lowering leaves that to GSPMD's batch sharding, which has
+        no eager counterpart — so that is refused by name. The step's
+        output structure is checked on a trace over fake tensors."""
+        if replicas > 1:
+            raise NotImplementedError(
+                "build_step (an opaque step_fn) with %d replicas: the port "
+                "cannot see the step's gradients to sync them over the "
+                "replicas (ROADMAP A item 13); use loss_fn mode "
+                "(AutoDist.build)" % replicas)
+        ps = sorted(n.var_name for n in self._strategy.node_config
+                    if n.synchronizer is not None
+                    and n.synchronizer.kind == "PS")
+        if ps:
+            raise ValueError(
+                "step_fn capture mode cannot lower host-PS strategies "
+                "(vars %s): the opaque step hides the gradients the PS "
+                "path intercepts. Use loss_fn mode, or an AllReduce "
+                "strategy." % ps)
+        for node in self._strategy.node_config:
+            comp = getattr(node.synchronizer, "compressor", None)
+            if comp and comp != "NoneCompressor":
+                logging.warning(
+                    "step_fn mode ignores compressor %s on %s — no "
+                    "gradient interception on the opaque path", comp,
+                    node.var_name)
+        from autodist_tpu_torch.model_item import trace_step_fn
+        item = self._item
+        try:
+            out = trace_step_fn(item.step_fn, item.params, item.example_batch)
+        except Exception as e:  # noqa: BLE001 — the check runs every step
+            logging.warning("step_fn could not be traced on fake tensors "
+                            "(%s: %s); its output is checked at the first "
+                            "step", type(e).__name__, e)
+            return
+        _step_fn_output(out, item.params)
+
     def transform(self) -> DistributedStep:
         replicas = len(self._strategy.graph_config.replicas)
         if replicas != self._replicas.num_replicas:
@@ -553,7 +779,9 @@ class GraphTransformer:
                 "ranks: describe one replica a rank in the resource spec "
                 "(two ranks sharing one card list its index twice)"
                 % (replicas, self._replicas.num_replicas))
-        if replicas > 1:
+        if self._item.step_fn is not None:
+            self._check_step_fn(replicas)
+        elif replicas > 1:
             self._refuse_unported()
         return DistributedStep(strategy=self._strategy,
                                model_item=self._item, device=self._device,

@@ -37,6 +37,49 @@ def default_trainable(name: str) -> bool:
                 or "." + BATCH_STATS_PREFIX in name)
 
 
+def step_fn_trainable(name: str) -> bool:
+    """The default ``trainable_filter`` in step_fn mode, over the state's
+    ``/``-joined paths: the JAX item's default, which leaves a
+    ``batch_stats`` collection out."""
+    return not (name.startswith("batch_stats/") or "/batch_stats/" in name)
+
+
+def flatten_state(tree, prefix: str = "") -> List[Tuple[str, object]]:
+    """``(path, leaf)`` pairs of a state tree of dicts, lists and tuples,
+    named and ordered as the JAX package's ``flatten_with_names`` names a
+    pytree: ``/``-joined keys (list and tuple items by index), the keys
+    of each dict sorted."""
+    if isinstance(tree, dict):
+        items = [(str(k), tree[k]) for k in sorted(tree)]
+    elif isinstance(tree, (list, tuple)):
+        items = [(str(i), v) for i, v in enumerate(tree)]
+    else:
+        return [(prefix, tree)]
+    out = []
+    for key, value in items:
+        out.extend(flatten_state(value, prefix + "/" + key if prefix
+                                 else key))
+    return out
+
+
+def unflatten_state(template, leaves: Dict[str, object], prefix: str = ""):
+    """The tree of ``template``'s structure holding ``leaves[path]`` at
+    each path (:func:`flatten_state`'s names), built of plain dicts,
+    lists and tuples (a dict subclass in the template, such as a
+    ``convert.FlaxParams``, becomes a dict: ``torch.utils._pytree`` takes
+    an unregistered subclass for a leaf)."""
+    def sub(key):
+        return prefix + "/" + key if prefix else key
+    if isinstance(template, dict):
+        return {k: unflatten_state(v, leaves, sub(str(k)))
+                for k, v in template.items()}
+    if isinstance(template, (list, tuple)):
+        items = [unflatten_state(v, leaves, sub(str(i)))
+                 for i, v in enumerate(template)]
+        return items if isinstance(template, list) else tuple(items)
+    return leaves[prefix]
+
+
 def dtype_name(dtype) -> str:
     """numpy-style dtype name of a torch or numpy dtype (``"float32"``,
     ``"bfloat16"``, ``"int32"``) — the spelling ``VarInfo.dtype`` uses in
@@ -146,6 +189,31 @@ def trace_lookups(loss_fn: Callable, params, example_batch
     return tap.lookups, tap.dense_uses
 
 
+def trace_step_fn(step_fn: Callable, state, example_batch):
+    """``step_fn(state, example_batch)`` run once on fake tensors (no data,
+    no device work: every tensor reports the CPU), for the structure of
+    what it returns."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    def fake_leaf(leaf):
+        if isinstance(leaf, (torch.Tensor, np.ndarray, np.generic)):
+            return torch.empty(tuple(leaf.shape),
+                               dtype=_torch_dtype(leaf.dtype))
+        return leaf
+    mode = FakeTensorMode()
+    with mode:
+        fake_state = unflatten_state(state, {
+            n: fake_leaf(v) for n, v in flatten_state(state)})
+        batch = pytree.tree_map(fake_leaf, example_batch)
+        return step_fn(fake_state, batch)
+
+
+def _leaf_dtype(leaf):
+    if isinstance(leaf, (torch.Tensor, np.ndarray, np.generic)):
+        return leaf.dtype
+    return np.asarray(leaf).dtype
+
+
 def _torch_dtype(dtype) -> torch.dtype:
     if isinstance(dtype, torch.dtype):
         return dtype
@@ -176,12 +244,22 @@ def _jax_order_key(info: "VarInfo"):
 class ModelItem:
     """The captured program + metadata handed to strategy builders.
 
-    ``loss_fn(params, batch) -> scalar`` (or ``(scalar, aux)`` with
-    ``has_aux``) over a flat ``{name: tensor}`` params mapping.
-    ``optimizer`` is a ``torch.optim`` factory; its ``(name, kwargs)`` are
-    recorded (``optimizer_name``/``optimizer_args``, as ``patch.py``
-    records optax constructors) in ``optimizer_spec``, which the step
-    applies."""
+    Two capture modes, as in the JAX package:
+
+    * ``loss_fn`` mode: ``loss_fn(params, batch) -> scalar`` (or
+      ``(scalar, aux)`` with ``has_aux``) over a flat ``{name: tensor}``
+      params mapping. ``optimizer`` is a ``torch.optim`` factory; its
+      ``(name, kwargs)`` are recorded (``optimizer_name``/
+      ``optimizer_args``, as ``patch.py`` records optax constructors) in
+      ``optimizer_spec``, which the step applies.
+    * ``step_fn`` mode: an opaque ``step_fn(state, batch) -> (new_state,
+      metrics)`` over the user's whole training state (``params``: a tree
+      of dicts, lists and tuples of tensors, params and optimizer state
+      bundled however the user likes). Its variables are the state's
+      leaves, named by their paths as the JAX item names them
+      (:func:`flatten_state`), so a builder emits the JAX plan for the
+      same tree. Lowered by ``GraphTransformer`` (entry:
+      ``AutoDist.build_step``)."""
 
     def __init__(self,
                  loss_fn: Optional[Callable] = None,
@@ -190,17 +268,20 @@ class ModelItem:
                  example_batch=None,
                  has_aux: bool = False,
                  apply_fn: Optional[Callable] = None,
-                 trainable_filter: Optional[Callable[[str], bool]] = None):
-        if loss_fn is None:
-            raise ValueError("ModelItem needs loss_fn")
+                 trainable_filter: Optional[Callable[[str], bool]] = None,
+                 step_fn: Optional[Callable] = None):
+        if loss_fn is None and step_fn is None:
+            raise ValueError("ModelItem needs loss_fn or step_fn")
         self.loss_fn = loss_fn
+        self.step_fn = step_fn
         self.apply_fn = apply_fn
         self.optimizer = optimizer
         self.optimizer_spec = optim.capture(optimizer)
         self.params = params
         self.example_batch = example_batch
         self.has_aux = has_aux
-        self.trainable_filter = trainable_filter or default_trainable
+        self.trainable_filter = trainable_filter or (
+            default_trainable if step_fn is None else step_fn_trainable)
         # flax's shapes of the leaves the port flattens (DenseGeneral),
         # from a ``convert.FlaxParams``: checkpoints and exports write them
         self.flax_shapes = dict(getattr(params, "flax_shapes", None) or {})
@@ -213,6 +294,13 @@ class ModelItem:
         from autodist_tpu_torch.convert import jax_name
         if self.params is None:
             raise ValueError("ModelItem.prepare() requires params")
+        if self.step_fn is not None:
+            infos = [VarInfo(name=name, shape=tuple(np.shape(leaf)),
+                             dtype=dtype_name(_leaf_dtype(leaf)),
+                             trainable=bool(self.trainable_filter(name)))
+                     for name, leaf in flatten_state(self.params)]
+            self._var_infos = {i.name: i for i in infos}
+            return self
         if not isinstance(self.params, dict):
             raise TypeError("params must be a flat {name: tensor} mapping "
                             "(a state_dict), got %s"
@@ -274,8 +362,15 @@ class ModelItem:
         """The JAX item's spec-level serialization, spelled as the JAX
         package spells it: variables under their JAX names in flax's
         shapes, the optimizer under optax's name and argument names
-        (``lr`` -> ``learning_rate``, ``betas`` -> ``b1``/``b2``)."""
+        (``lr`` -> ``learning_rate``, ``betas`` -> ``b1``/``b2``). A
+        step_fn item's variables are its state's leaves, named and shaped
+        as they are."""
         from autodist_tpu_torch.convert import flax_shape
+
+        def shape(v):
+            if self.step_fn is not None:
+                return list(v.shape)
+            return list(flax_shape(v.name, v.shape, self.flax_shapes))
         args = {}
         for key, value in self.optimizer_args.items():
             if key == "betas":
@@ -284,13 +379,12 @@ class ModelItem:
                 args["learning_rate" if key == "lr" else key] = repr(value)
         return {
             "vars": [{"name": v.collective_name,
-                      "shape": list(flax_shape(v.name, v.shape,
-                                               self.flax_shapes)),
+                      "shape": shape(v),
                       "dtype": v.dtype, "trainable": v.trainable,
                       "sparse": v.sparse} for v in self.var_infos.values()],
             "optimizer_name": self.optimizer_name,
             "optimizer_args": args,
             "has_aux": self.has_aux,
-            "mode": "loss_fn",
+            "mode": "loss_fn" if self.step_fn is None else "step_fn",
         }
 

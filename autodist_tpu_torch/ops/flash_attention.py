@@ -29,10 +29,11 @@ design on a failure.
 Each wrapper takes the plain version only for CPU tensors. For CUDA
 tensors it launches the kernel or raises; nothing falls back. Each launch
 adds one to the wrapper's ``launches`` count and to its
-``launches_by_variant[variant]``. :func:`flash_attention` is
-differentiable: its autograd function runs the forward kernel, then
-delta = rowsum(dO * O) in f32 and the two backward kernels, as the JAX
-``custom_vjp`` does; segment ids get no gradient.
+``launches_by_variant[variant]``; a replayed CUDA graph adds the
+launches its capture recorded (:func:`add_launch_counts`).
+:func:`flash_attention` is differentiable: its autograd function runs the
+forward kernel, then delta = rowsum(dO * O) in f32 and the two backward
+kernels, as the JAX ``custom_vjp`` does; segment ids get no gradient.
 
 Layout: ``[batch, seq, heads, head_dim]``; segment ids ``[batch, seq]``;
 lse and delta ``[batch, heads, seq]`` float32.
@@ -428,6 +429,34 @@ def flash_bwd_dkdv(q, k, v, do, lse, delta, q_seg=None, kv_seg=None,
 
 flash_bwd_dkdv.launches = 0
 flash_bwd_dkdv.launches_by_variant = {}
+
+
+# the wrappers that count their kernels' launches
+COUNTED = (flash_fwd, flash_bwd_dq, flash_bwd_dkdv)
+
+
+def launch_counts() -> dict:
+    """``{wrapper name: {design: launches}}``, a copy."""
+    return {fn.__name__: dict(fn.launches_by_variant) for fn in COUNTED}
+
+
+def set_launch_counts(counts: dict):
+    """Set every wrapper's counts to ``counts`` (as
+    :func:`launch_counts` gives them)."""
+    for fn in COUNTED:
+        fn.launches_by_variant = dict(counts.get(fn.__name__, {}))
+        fn.launches = sum(fn.launches_by_variant.values())
+
+
+def add_launch_counts(counts: dict):
+    """Add launches the wrappers did not see: those of a replayed CUDA
+    graph, which launches the kernels its capture recorded
+    (``kernel/superstep.py``)."""
+    for fn in COUNTED:
+        for variant, n in counts.get(fn.__name__, {}).items():
+            fn.launches += n
+            fn.launches_by_variant[variant] = \
+                fn.launches_by_variant.get(variant, 0) + n
 
 
 class _FlashAttention(torch.autograd.Function):

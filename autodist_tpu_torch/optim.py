@@ -17,11 +17,22 @@ Only ``lr``, ``betas`` and ``eps`` are free. Every other option (weight
 decay, amsgrad, maximize, and torch's implementation switches such as
 ``foreach`` or ``fused``, which the port's own update would not honour)
 must keep torch's default, or :func:`capture` raises rather than train
-differently. The state is optax's: a step ``count`` and the moments
-``mu``/``nu`` beside each variable on the device, created by
-:meth:`OptimizerSpec.init`. The update runs as ``torch._foreach_*`` ops
-over all variables and writes the parameters in place (the JAX step
-donates its state and returns new buffers).
+differently. The state is optax's: a step ``count`` (an int32 0-d
+tensor) and the moments ``mu``/``nu`` beside each variable on the device,
+created by :meth:`OptimizerSpec.init`. The update runs as
+``torch._foreach_*`` ops over all variables and writes the parameters,
+the moments and the count in place (the JAX step donates its state and
+returns new buffers). Nothing in it reads a value back to the host: the
+count is incremented on the device and the bias corrections ``1 -
+b**count`` are computed there, so one captured CUDA graph of the update
+applies the right correction at every replay. They are computed in
+float64 and applied as float32 reciprocals, the arithmetic the update
+had when the count was a host int (PyTorch's CUDA kernels multiply by
+the reciprocal of a Python float divisor). optax computes them in
+float32; on the card that changes the rounding of every step, and
+``chip_smoke.py`` phase 7's fixed-batch bert_base run, whose loss
+spikes at step 10, then ends above its first loss. Both are within the
+optax parity test's bounds.
 """
 import dataclasses
 import functools
@@ -32,6 +43,7 @@ import torch
 
 # the options of torch.optim.Adam the update honours, with their defaults
 _DEFAULTS = {"lr": 1e-3, "betas": (0.9, 0.999), "eps": 1e-8}
+_INT32_MAX = 2 ** 31 - 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,8 +62,10 @@ class OptimizerSpec:
         return {"count": (), "mu": dict(shapes), "nu": dict(shapes)}
 
     def init(self, params: Dict[str, torch.Tensor]) -> dict:
-        """optax ``init``: count 0 and zero moments beside each variable."""
-        return {"count": 0,
+        """optax ``init``: an int32 count of 0 and zero moments beside
+        each variable, on the variables' device."""
+        device = next(iter(params.values())).device if params else None
+        return {"count": torch.zeros((), dtype=torch.int32, device=device),
                 "mu": {n: torch.zeros_like(t) for n, t in params.items()},
                 "nu": {n: torch.zeros_like(t) for n, t in params.items()}}
 
@@ -61,9 +75,11 @@ class OptimizerSpec:
         ``params`` and ``state``; returns the state (count + 1). Variables
         outside ``grads`` (not trainable) and their moments stay as they
         are, as the JAX step's zero gradients and masked updates leave
-        them."""
+        them. The count is incremented in place, saturating at the int32
+        maximum as optax's ``safe_increment`` does."""
         names = list(grads)
-        count = state["count"] + 1
+        count = state["count"]
+        count.add_((count < _INT32_MAX).to(count.dtype))
         ps = [params[n] for n in names]
         gs = [grads[n] for n in names]
         lr = float(self._hp("lr"))
@@ -75,8 +91,13 @@ class OptimizerSpec:
         torch._foreach_add_(mus, gs, alpha=1.0 - b1)
         torch._foreach_mul_(nus, b2)
         torch._foreach_addcmul_(nus, gs, gs, value=1.0 - b2)
-        upd = torch._foreach_div(mus, 1.0 - b1 ** count)    # bias-corrected
-        den = torch._foreach_div(nus, 1.0 - b2 ** count)
+        # the bias corrections 1 - b**count, on the device (a replayed
+        # CUDA graph reads the count there), applied as float32
+        # reciprocals of their float64 values: the arithmetic of dividing
+        # by a Python float on the card, as the update did with a host
+        # count (see the module docstring)
+        upd = torch._foreach_mul(mus, _reciprocal_correction(b1, count))
+        den = torch._foreach_mul(nus, _reciprocal_correction(b2, count))
         torch._foreach_sqrt_(den)
         torch._foreach_add_(den, eps)                       # eps outside
         torch._foreach_div_(upd, den)
@@ -86,6 +107,15 @@ class OptimizerSpec:
         new = dict(state)
         new["count"] = count
         return new
+
+
+def _reciprocal_correction(beta: float, count: torch.Tensor) -> torch.Tensor:
+    """``1 / (1 - beta**count)`` as a float32 0-d tensor beside ``count``,
+    computed in float64."""
+    steps = count.to(torch.float64)
+    corr = 1 - torch.full((), beta, dtype=torch.float64,
+                          device=count.device).pow(steps)
+    return (1 / corr).to(torch.float32)
 
 
 def capture(optimizer) -> Optional[OptimizerSpec]:

@@ -9,8 +9,11 @@ process (``kernel/replicator.py::ReplicaInfo``):
   indivisible leading dim raises the JAX package's ``ValueError``;
   scalars are replicated. numpy leaves (and Python scalars) become
   tensors on the runner's device; tensors are moved there when they live
-  elsewhere and pass through untouched when they are already there.
-  With one replica nothing is split.
+  elsewhere. With one replica nothing is split. A stacked ``[k, ...]``
+  feed of the fused superstep splits from dim 1 (:meth:`Remapper.
+  remap_feed_stack`), and a rank may feed its own shard
+  (:meth:`Remapper.remap_feed_local`). Tensors this remapper placed
+  (``data.DevicePrefetcher``'s) pass through untouched.
 - **fetch**: tensor leaves (step metrics, serving outputs) come back as
   numpy arrays; a scalar such as the loss as a 0-d array, which
   ``float()`` reads. The step's metrics are already reduced over the
@@ -32,23 +35,90 @@ class Remapper:
         self.device = torch.device(device)
         self.replica_info = replica_info or ReplicaInfo()
         self.num_replicas = self.replica_info.num_replicas
+        # marks the tensors this remapper placed, with their layout
+        self._token = object()
 
-    def _local(self, leaf):
-        """This rank's rows of a leaf (the leaf itself with one replica)."""
-        if self.num_replicas == 1 or np.ndim(leaf) == 0:
+    def _local(self, leaf, dim: int = 0):
+        """This rank's rows of a leaf along ``dim`` (the leaf itself with
+        one replica, or a leaf with no such dim)."""
+        if self.num_replicas == 1 or np.ndim(leaf) <= dim:
             return leaf
-        return leaf[self.replica_info.local_rows(np.shape(leaf)[0])]
+        rows = self.replica_info.local_rows(np.shape(leaf)[dim])
+        return leaf[(slice(None),) * dim + (rows,)]
+
+    def _placed(self, leaf, layout: str) -> bool:
+        """True for a tensor this remapper placed on its device in
+        ``layout`` (``"step"`` or ``"stacked"``): it passes through."""
+        return (isinstance(leaf, torch.Tensor)
+                and getattr(leaf, "_adt_layout", None) == (self._token,
+                                                           layout))
+
+    def mark_placed(self, tree, stacked: bool = False):
+        """Mark the tensors of ``tree`` (this rank's shard, on the device)
+        as placed, so that :meth:`remap_feed` (or :meth:`remap_feed_stack`
+        with ``stacked``) passes them through untouched."""
+        layout = ("stacked" if stacked else "step")
+        for leaf in pytree.tree_leaves(tree):
+            if isinstance(leaf, torch.Tensor):
+                leaf._adt_layout = (self._token, layout)
+        return tree
+
+    def shard_host(self, batch, stacked: bool = False):
+        """This rank's shard of every leaf of ``batch``, where it lives:
+        rows split from dim 0, or from dim 1 of a ``stacked`` ``[k, ...]``
+        feed, whose dim 0 is the microstep dim and is never split."""
+        dim = 1 if stacked else 0
+
+        def shard(leaf):
+            if isinstance(leaf, torch.Tensor):
+                return self._local(leaf, dim)
+            if isinstance(leaf, (np.ndarray, np.generic, int, float, bool)):
+                return np.asarray(self._local(np.asarray(leaf), dim))
+            return leaf
+        return pytree.tree_map(shard, batch)
+
+    def _place(self, batch, layout: str, split: bool):
+        stacked = layout == "stacked"
+
+        def place(leaf):
+            if self._placed(leaf, layout):
+                return leaf
+            if split:
+                leaf = self.shard_host(leaf, stacked)
+            if isinstance(leaf, torch.Tensor):
+                return leaf.to(self.device)
+            if isinstance(leaf, np.ndarray):
+                return torch.as_tensor(leaf, device=self.device)
+            return leaf
+        return self.mark_placed(pytree.tree_map(place, batch), stacked)
 
     def remap_feed(self, batch) -> Any:
-        """This rank's shard of every leaf of ``batch``, on the device."""
-        def place(leaf):
-            if isinstance(leaf, torch.Tensor):
-                return self._local(leaf).to(self.device)
-            if isinstance(leaf, (np.ndarray, np.generic, int, float, bool)):
-                return torch.as_tensor(np.asarray(self._local(
-                    np.asarray(leaf))), device=self.device)
-            return leaf
-        return pytree.tree_map(place, batch)
+        """This rank's shard of every leaf of ``batch``, on the device.
+        Leaves this remapper already placed (``data.DevicePrefetcher``'s)
+        pass through untouched."""
+        return self._place(batch, "step", split=True)
+
+    def remap_feed_stack(self, stacked_batch) -> Any:
+        """Place a STACKED ``[k, ...]`` batch for the fused superstep:
+        dim 0 is the microstep dim, never split over the ranks; the
+        per-rank split applies from dim 1. One transfer feeds k
+        microsteps. Leaves already placed stacked pass through; a scalar
+        leaf raises (every leaf needs the leading ``[k]`` dim)."""
+        for path, leaf in pytree.tree_flatten_with_path(stacked_batch)[0]:
+            if np.ndim(leaf) == 0:
+                raise ValueError(
+                    "stacked feed %r is a scalar — every leaf needs the "
+                    "leading [k] microstep dim" % pytree.keystr(path))
+        return self._place(stacked_batch, "stacked", split=True)
+
+    def remap_feed_local(self, local_batch) -> Any:
+        """Place a PROCESS-LOCAL batch as this rank's shard of the global
+        batch: each rank loads only its own rows (for one,
+        ``RecordFileDataset(shard=(rank, world_size))``) instead of every
+        rank holding the whole global batch; nothing is split. The result
+        is marked placed, so ``run``/``remap_feed`` pass it through. With
+        one replica, the same as :meth:`remap_feed`."""
+        return self._place(local_batch, "step", split=False)
 
     def remap_fetch(self, fetched) -> Any:
         """Bring step outputs to the host as numpy arrays."""

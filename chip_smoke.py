@@ -98,7 +98,35 @@ result line):
    2 warm-up and 5 timed Adam steps each: every loss finite, every
    BatchNorm ``mean``/``var`` bit-equal before and after, every other
    variable moved; step p50 (min-max), images/s, MFU, peak memory and a
-   device profile of 3 steps by kind.
+   device profile of 3 steps by kind;
+13. the user API, fused supersteps and the input plane, at full width:
+   (a) lm1b bf16 (seq 128, batch 64, flash, lean head) trained on the
+   repository's own docs (``README.md`` + ``docs/``) written into an ADT1
+   record file, read by the native loader (``RecordFileDataset``, built
+   from the checkout's C++ source), stacked and copied to the card by
+   ``DevicePrefetcher(stack=4)`` (pinned buffers, side stream), and run
+   by ``fit(fuse_steps=4, metrics_every=2)`` for 16 microsteps: 4
+   dispatches (replays of one captured CUDA graph) against 16, 2
+   readbacks against 16, ``step_stats`` supersteps 4 and microsteps 16,
+   each kernel 8 launches a microstep on its tensor-core design (the
+   replays' and the capture's one warm-up microstep), finite and falling
+   losses; the same 16 batches per step from the same init agree in
+   losses and params, bit for bit or at phase 6's bounds (printed which);
+   (b) bert_base bf16 (phase 7's batch size) through ``ad.function`` (3
+   steps) and ``create_distributed_session().run`` (3 more), bit-equal to
+   ``build`` + ``Runner.run`` from the same init in deterministic mode;
+   (c) a hand-written ``build_step`` step on lm1b (its own Adam) through
+   ``fit(fuse_steps=4)``, against its own per-step loop; (d) InceptionV3
+   (299) and DenseNet121 (224) at batch 64, fused k = 4 against the
+   per-step loop on a batch on the card: ms a microstep p50 (min-max), the
+   idle share of one superstep (or step) in a device trace, peak memory,
+   BatchNorm statistics bit-equal, losses within 2e-2; (e) resnet50 at
+   batch 256 fed through ``DevicePrefetcher`` against the pageable feed,
+   6 steps of ``fit(metrics_every=6)`` each: the host-to-device copies'
+   share of device time, their streams, and
+   the share of their time that overlaps kernels on another stream
+   (fatal unless the prefetcher's copies run off the kernels' stream and
+   overlap them).
 
 TF32 is off for the whole run (``torch.backends.cuda.matmul`` and
 ``cudnn``): float32 is computed in float32, as the f32 checks' 2e-5 and
@@ -266,23 +294,27 @@ def kernels():
     return (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkdv)
 
 
+def launch_counts():
+    """Each kernel's launches by design, a copy."""
+    from autodist_tpu_torch.ops import flash_attention as fa
+    return fa.launch_counts()
+
+
 def reset_counts():
-    for kern in kernels():
-        kern.launches = 0
-        kern.launches_by_variant = {}
+    from autodist_tpu_torch.ops import flash_attention as fa
+    fa.set_launch_counts({})
 
 
 @contextlib.contextmanager
 def uncounted():
     """Launches made to compare or time a kernel do not count toward the
     main paths' numbers: the counts are restored on the way out."""
-    saved = [(k.launches, dict(k.launches_by_variant)) for k in kernels()]
+    from autodist_tpu_torch.ops import flash_attention as fa
+    saved = fa.launch_counts()
     try:
         yield
     finally:
-        for kern, (n, by_variant) in zip(kernels(), saved):
-            kern.launches = n
-            kern.launches_by_variant = by_variant
+        fa.set_launch_counts(saved)
 
 
 def record(name, max_abs_err, ms, plain_ms, library_ms, t_bytes, t_ops,
@@ -820,7 +852,7 @@ def timed_steps(runner, batch, label, warmup=2, steps=10, must_fall=True):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         losses.append(float(metrics["loss"]))
-    launches = {k.__name__: dict(k.launches_by_variant) for k in kernels()}
+    launches = launch_counts()
     print("  losses: %s" % " ".join("%.4f" % x for x in losses))
     if not all(math.isfinite(x) for x in losses):
         fail("%s: a loss is not finite: %r" % (label, losses))
@@ -948,8 +980,7 @@ def parity_runs(label, make_runner, attentions, layers, steps=3):
         reset_counts()
         losses = [float(runner.run(batch)["loss"]) for _ in range(steps)]
         if attention == "flash":
-            check_launches(label, {k.__name__: dict(k.launches_by_variant)
-                                   for k in kernels()}, layers, steps,
+            check_launches(label, launch_counts(), layers, steps,
                            design="scalar f32")
         got[attention] = (losses, runner.gather_params())
         print("  %-8s losses %s" % (attention,
@@ -1224,8 +1255,7 @@ def dp_child(rank, store, out_dir):
             losses.append(float(runner.run(batch)["loss"]))
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
-        launches = {k.__name__: dict(k.launches_by_variant)
-                    for k in kernels()}
+        launches = launch_counts()
         check_launches("phase 10 bert_base %s wire, rank %d" % (wire, rank),
                        launches, cfg.num_layers, 3)
         if not all(math.isfinite(x) for x in losses):
@@ -1403,7 +1433,7 @@ def state_copy(runner):
     """The runner's state, copied on the card: step, count, params, mu,
     nu."""
     st = runner.state
-    return {"step": st.step, "count": st.opt_state["count"],
+    return {"step": st.step, "count": int(st.opt_state["count"]),
             "params": {n: t.clone() for n, t in st.params.items()},
             "mu": {n: t.clone() for n, t in st.opt_state["mu"].items()},
             "nu": {n: t.clone() for n, t in st.opt_state["nu"].items()}}
@@ -1673,6 +1703,487 @@ def cnn_phase(card):
         torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------- phase 13
+
+
+FUSE_K, FUSED_MICROSTEPS, METRICS_EVERY = 4, 16, 2
+CNN_FUSED = (("inceptionv3", 299), ("densenet121", 224))
+
+
+def device_trace(run):
+    """Run ``run()`` under torch.profiler and return the device events of
+    its trace, ``[(category, name, stream, start us, end us)]``: kernels,
+    copies and fills."""
+    import tempfile
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+    return [(e["cat"], e.get("name", ""), e.get("args", {}).get("stream"),
+             float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)))
+            for e in trace.get("traceEvents", [])
+            if e.get("ph") == "X" and e.get("cat") in (
+                "kernel", "gpu_memcpy", "gpu_memset")]
+
+
+def merged(intervals):
+    """The union of ``[(start, end)]`` as disjoint sorted intervals."""
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def overlap_us(spans, union):
+    """Time of ``spans`` that lies inside the disjoint ``union``."""
+    total = 0.0
+    for a, b in spans:
+        for c, d in union:
+            total += max(0.0, min(b, d) - max(a, c))
+    return total
+
+
+def idle_share(run):
+    """The device's idle share of the window of ``run()`` (wall clock),
+    from a device trace; None when the profiler saw no device event."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    events = device_trace(run)
+    window_us = (time.perf_counter() - t0) * 1e6
+    if not events:
+        return None, window_us / 1e3
+    busy = sum(b - a for a, b in merged([(e[3], e[4]) for e in events]))
+    span = max(e[4] for e in events) - min(e[3] for e in events)
+    return 1 - busy / max(span, 1e-9), span / 1e3
+
+
+def params_diff(got, want):
+    """(max |diff|, mean |diff|, bit-equal) over two ``{name: tensor}``."""
+    import torch
+    worst, total, count, equal = 0.0, 0.0, 0, True
+    for n, t in want.items():
+        d = (got[n].float() - t.float()).abs()
+        worst = max(worst, float(d.max()))
+        total += float(d.double().sum())
+        count += d.numel()
+        equal = equal and torch.equal(got[n], t)
+    return worst, total / max(count, 1), equal
+
+
+def agree(label, got, want, steps, lr=1e-3):
+    """Fused against per-step from one init: ``got``/``want`` =
+    ``(losses, params)``. Bit-equal, or at phase 6's bounds (losses 1e-4
+    relative, params 2 x steps x lr each and 1e-6 on average); prints
+    which, with the largest difference."""
+    (lf, pf), (lp, pp) = got, want
+    worst, mean, equal = params_diff(pf, pp)
+    loss_equal = lf == lp
+    loss_err = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(lf, lp))
+    print("  %s: losses %s (max rel diff %.3e), params %s (max |diff| "
+          "%.3e, mean %.3e)" % (
+              label, "bit-equal" if loss_equal else "differ",
+              loss_err, "bit-equal" if equal else "differ", worst, mean))
+    if not (loss_equal and equal):
+        if loss_err > 1e-4 or worst > 2 * steps * lr or mean > 1e-6:
+            fail("%s: fused and per-step disagree beyond phase 6's bounds "
+                 "(losses %r vs %r)" % (label, lf, lp))
+    return loss_equal and equal
+
+
+def host_params(runner):
+    return {n: t.detach().clone() for n, t in
+            runner.gather_params().items()}
+
+
+def fused_text_phase(card):
+    """Phase 13 (a): lm1b bf16 on the repository's docs through the native
+    loader, the pinned prefetcher and fit(fuse_steps=4), against the same
+    batches per step. Returns each kernel's launches by design over the
+    fused run (replayed microsteps and the capture's warm-up)."""
+    import math
+    import tempfile
+    import torch
+    from autodist_tpu_torch.data import DevicePrefetcher, RecordFileDataset
+    from autodist_tpu_torch.data import text
+    from autodist_tpu_torch.models import lm
+    cfg = lm.LMConfig.lm1b(dtype=torch.bfloat16)
+    loss_fn, params, batch, _ = lm.make_train_setup(
+        cfg, seq_len=TRAIN_SEQ, batch_size=TRAIN_BATCH, seed=0,
+        attention="flash", lean_head=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "docs.adt")
+        corpus = text.repo_docs_corpus(HERE)
+        t0 = time.perf_counter()
+        records = text.write_lm_records(corpus, path, TRAIN_SEQ)
+        ds = RecordFileDataset(path, TRAIN_BATCH, shuffle=True, seed=0)
+        print("  (a) %d files, %d bytes -> %d records of %d tokens; native "
+              "loader built and opened in %.2f s" % (
+                  len(corpus), sum(os.path.getsize(p) for p in corpus),
+                  records, TRAIN_SEQ + 1, time.perf_counter() - t0))
+        seen = []
+
+        def source():
+            for b in ds:
+                seen.append(b)
+                yield b
+        runner = build_runner(loss_fn, params, batch)
+        dstep = runner.distributed_step
+        pf = DevicePrefetcher(source(), runner, depth=2, stack=FUSE_K)
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        hist = runner.fit(pf, steps=FUSED_MICROSTEPS, fuse_steps=FUSE_K,
+                          metrics_every=METRICS_EVERY)
+        torch.cuda.synchronize()
+        fused_s = time.perf_counter() - t0
+        fused_peak = torch.cuda.max_memory_allocated()
+        launches = launch_counts()
+        fused = ([float(m["loss"]) for m in hist], host_params(runner))
+        stats = runner.step_stats()
+        fused_dispatches, fused_readbacks = dstep.dispatches, \
+            runner.readbacks
+        warm = dstep.warmup_microsteps
+        ds.close()
+    batches = seen[:FUSED_MICROSTEPS]
+    adt_reset()
+    runner = build_runner(loss_fn, params, batch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = [float(runner.run(b)["loss"]) for b in batches]
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    per_step = (losses, host_params(runner))
+    print("  (a) fused: %d microsteps in %d dispatches, %d readbacks, "
+          "supersteps %d / microsteps %d, %.2f s (capture included), peak "
+          "memory %.2f GB; per step: %d dispatches, %d readbacks, %.2f s, "
+          "peak %.2f GB" % (
+              len(hist), fused_dispatches, fused_readbacks,
+              stats["supersteps"], stats["microsteps"], fused_s,
+              fused_peak / 1e9, runner.distributed_step.dispatches,
+              runner.readbacks, step_s,
+              torch.cuda.max_memory_allocated() / 1e9))
+    print("  (a) losses fused %s" % " ".join("%.4f" % x for x in fused[0]))
+    bitwise = agree("(a) lm1b fused vs per step", fused, per_step,
+                    FUSED_MICROSTEPS)
+    if not all(math.isfinite(x) for x in fused[0]) or \
+            not fused[0][-1] < fused[0][0]:
+        fail("phase 13 (a): losses not finite or not falling: %r"
+             % (fused[0],))
+    if len(hist) != FUSED_MICROSTEPS or \
+            fused_dispatches != FUSED_MICROSTEPS // FUSE_K or \
+            runner.distributed_step.dispatches != FUSED_MICROSTEPS:
+        fail("phase 13 (a): %d microsteps in %d dispatches (want %d in %d)"
+             % (len(hist), fused_dispatches, FUSED_MICROSTEPS,
+                FUSED_MICROSTEPS // FUSE_K))
+    want_readbacks = FUSED_MICROSTEPS // FUSE_K // METRICS_EVERY
+    if fused_readbacks != want_readbacks or \
+            runner.readbacks != FUSED_MICROSTEPS:
+        fail("phase 13 (a): %d readbacks fused, %d per step (want %d, %d)"
+             % (fused_readbacks, runner.readbacks, want_readbacks,
+                FUSED_MICROSTEPS))
+    if stats["supersteps"] != FUSED_MICROSTEPS // FUSE_K or \
+            stats["microsteps"] != FUSED_MICROSTEPS:
+        fail("phase 13 (a): step_stats %r" % (stats,))
+    check_launches("phase 13 (a) fused lm1b", launches, cfg.num_layers,
+                   FUSED_MICROSTEPS + warm)
+    print("  (a) launches %r = %d a microstep x (%d replayed + %d warm-up "
+          "microsteps); fused vs per step %s [%s]" % (
+              launches, cfg.num_layers, FUSED_MICROSTEPS, warm,
+              "bit-equal" if bitwise else "within bounds", card))
+    return launches
+
+
+def adt_reset():
+    import gc
+    import torch
+    import autodist_tpu_torch as adt
+    adt.reset()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def user_api_phase(card):
+    """Phase 13 (b): bert_base bf16 through ad.function (3 steps) and
+    create_distributed_session().run (3 more), against build + Runner.run
+    from the same init, bit for bit in deterministic mode."""
+    import torch
+    import autodist_tpu_torch as adt
+    from autodist_tpu_torch import strategy
+    from autodist_tpu_torch.models import bert
+    cfg = bert.BertConfig.base(dtype=torch.bfloat16)
+    loss_fn, params, batch, _ = bert.make_train_setup(
+        cfg, seq_len=BERT_SEQ, batch_size=BERT_BATCH, seed=0,
+        attention="flash")
+    batches = bert_batches(cfg, 6, seed=13)
+    opt = functools.partial(torch.optim.Adam, lr=1e-3)
+    torch.use_deterministic_algorithms(True)
+    try:
+        adt_reset()
+        ad = adt.AutoDist(strategy_builder=strategy.AllReduce())
+        step = ad.function(loss_fn, optimizer=opt, params=params)
+        if step.get_runner() is not None:
+            fail("phase 13 (b): ad.function built before its first call")
+        losses = [float(step(b)["loss"]) for b in batches[:3]]
+        session = ad.create_distributed_session()
+        if session.state is not step.get_runner().state:
+            fail("phase 13 (b): the session does not wrap the function's "
+                 "runner")
+        losses += [float(session.run(b)["loss"]) for b in batches[3:]]
+        api = (losses, host_params(step.get_runner()))
+        adt_reset()
+        runner = build_runner(loss_fn, params, batch)
+        plain = ([float(runner.run(b)["loss"]) for b in batches],
+                 host_params(runner))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    print("  (b) ad.function x3 + session.run x3: losses %s"
+          % " ".join("%.4f" % x for x in api[0]))
+    if not agree("(b) user API vs build + run", api, plain, len(batches)):
+        fail("phase 13 (b): the user API is not bit-equal to build + run "
+             "in deterministic mode")
+    adt_reset()
+
+
+def step_fn_phase(card):
+    """Phase 13 (c): a hand-written step on lm1b (its own Adam) through
+    build_step and fit(fuse_steps=4), against its own per-step loop."""
+    import numpy as np
+    import torch
+    import autodist_tpu_torch as adt
+    from autodist_tpu_torch import strategy
+    from autodist_tpu_torch.models import lm
+    cfg = lm.LMConfig.lm1b(dtype=torch.bfloat16)
+    loss_fn, params, batch, _ = lm.make_train_setup(
+        cfg, seq_len=TRAIN_SEQ, batch_size=TRAIN_BATCH, seed=0,
+        attention="flash", lean_head=True)
+    lr, b1, b2, eps = 1e-3, 0.9, 0.999, 1e-8
+
+    def step_fn(state, batch):
+        p = {n: t.detach().requires_grad_() for n, t in
+             state["params"].items()}
+        loss = loss_fn(p, batch)
+        grads = torch.autograd.grad(loss, list(p.values()))
+        count = state["count"] + 1
+        c1 = 1 - torch.full((), b1, device=count.device).pow(count.float())
+        c2 = 1 - torch.full((), b2, device=count.device).pow(count.float())
+        new = {"params": {}, "mu": {}, "nu": {}, "count": count}
+        for (n, w), g in zip(state["params"].items(), grads):
+            mu = b1 * state["mu"][n] + (1 - b1) * g
+            nu = b2 * state["nu"][n] + (1 - b2) * g * g
+            new["mu"][n], new["nu"][n] = mu, nu
+            new["params"][n] = w - lr * (mu / c1) / ((nu / c2).sqrt() + eps)
+        return new, {"loss": loss.detach()}
+
+    state = {"params": params,
+             "mu": {n: torch.zeros_like(t) for n, t in params.items()},
+             "nu": {n: torch.zeros_like(t) for n, t in params.items()},
+             "count": torch.zeros((), dtype=torch.int32)}
+    rng = np.random.RandomState(17)
+    batches = [{"tokens": rng.randint(0, cfg.vocab_size, (
+        TRAIN_BATCH, TRAIN_SEQ + 1)).astype(np.int32)} for _ in range(8)]
+    got = {}
+    for mode in ("fused", "per step"):
+        adt_reset()
+        ad = adt.AutoDist(strategy_builder=strategy.AllReduce())
+        runner = ad.build_step(step_fn, state, batch)
+        runner.init(state)
+        reset_counts()
+        hist = runner.fit(iter(batches), fuse_steps=FUSE_K if
+                          mode == "fused" else 1)
+        final = runner.gather_params()
+        got[mode] = ([float(m["loss"]) for m in hist],
+                     {n: t.detach().clone()
+                      for n, t in final["params"].items()})
+        if mode == "fused":
+            warm = runner.distributed_step.warmup_microsteps
+            check_launches("phase 13 (c) step_fn fused",
+                           launch_counts(), cfg.num_layers,
+                           len(batches) + warm)
+            if runner.distributed_step.dispatches != len(batches) // FUSE_K \
+                    or int(final["count"]) != len(batches):
+                fail("phase 13 (c): %d dispatches, count %d"
+                     % (runner.distributed_step.dispatches,
+                        int(final["count"])))
+    print("  (c) step_fn losses fused %s"
+          % " ".join("%.4f" % x for x in got["fused"][0]))
+    agree("(c) step_fn fused vs per step", got["fused"], got["per step"],
+          len(batches))
+    adt_reset()
+
+
+def cnn_fused_phase(card):
+    """Phase 13 (d): InceptionV3 and DenseNet121 at batch 64, fused k = 4
+    against the per-step loop, both on a batch already on the card: ms a
+    microstep, the idle share of one superstep (or step) in a device
+    trace, peak memory, BatchNorm statistics bit-equal, losses at the
+    bf16 bound."""
+    import statistics
+    import torch
+    from autodist_tpu_torch import models
+    from autodist_tpu_torch.data.prefetch import stack_batches
+    from autodist_tpu_torch.model_item import BATCH_STATS_PREFIX
+    out = {}
+    for name, image in CNN_FUSED:
+        loss_fn, params, batch, _ = models.make_train_setup(
+            name, image_size=image, batch_size=CNN_BATCH,
+            dtype=torch.bfloat16, seed=0)
+        stats = [n for n in params if n.startswith(BATCH_STATS_PREFIX)]
+        row = {}
+        for mode in ("per step", "fused"):
+            adt_reset()
+            runner = build_runner(loss_fn, params, batch)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            if mode == "fused":
+                feed = runner.remapper.remap_feed_stack(
+                    stack_batches([batch] * FUSE_K))
+
+                def one():
+                    return runner.run_superstep(feed, sync=True)["loss"]
+                per = FUSE_K
+            else:
+                feed = runner.remapper.remap_feed(batch)
+
+                def one():
+                    return [runner.run(feed)["loss"]]
+                per = 1
+            losses, times = [], []
+            for _ in range(2 + 3):        # 2 warm-up (or capture) calls
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses += [float(x) for x in one()]
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) / per)
+            times = times[2:]
+            peak = torch.cuda.max_memory_allocated()
+            idle, window = idle_share(one)
+            final = runner.gather_params()
+            moved = [n for n in stats
+                     if not torch.equal(final[n].cpu(), params[n])]
+            if moved:
+                fail("phase 13 (d) %s %s: BatchNorm statistics moved: %r"
+                     % (name, mode, moved[:5]))
+            row[mode] = losses
+            p50 = statistics.median(times) * 1e3
+            print("  (d) %s %s: %.2f ms a microstep p50 (min %.2f, max "
+                  "%.2f), idle %s of one %s (%.1f ms), peak memory %.2f "
+                  "GB [%s]" % (
+                      name, mode, p50, min(times) * 1e3, max(times) * 1e3,
+                      "not measured" if idle is None else
+                      "%.1f%%" % (100 * idle),
+                      "superstep" if mode == "fused" else "step", window,
+                      peak / 1e9, card))
+            out["%s %s" % (name, mode)] = p50
+            del runner, feed, final
+        lp = row["per step"]
+        lf = row["fused"][:len(lp)]
+        err = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(lf, lp))
+        print("  (d) %s: the first %d losses fused vs per step, max rel "
+              "diff %.3e (bound 2e-2), BatchNorm statistics bit-equal"
+              % (name, len(lp), err))
+        if not all(abs(a - b) <= 2e-2 * abs(b) for a, b in zip(lf, lp)):
+            fail("phase 13 (d) %s: fused losses %r vs per step %r"
+                 % (name, lf, lp))
+    adt_reset()
+    return out
+
+
+def prefetch_phase(card):
+    """Phase 13 (e): resnet50 at batch 256 fed through DevicePrefetcher
+    (pinned, side stream) against the pageable feed, 6 steps of
+    ``fit(metrics_every=6)`` each: each feed's host-to-device copies,
+    their streams, their share of device time and the share of copy time
+    that overlaps kernels on another stream."""
+    import numpy as np
+    import torch
+    from autodist_tpu_torch.data import DevicePrefetcher
+    from autodist_tpu_torch.models import resnet
+    loss_fn, params, batch, _ = resnet.make_train_setup(
+        resnet.ResNet50, image_size=RESNET_IMAGE, batch_size=RESNET_BATCH,
+        dtype=torch.bfloat16, seed=0)
+    rng = np.random.RandomState(5)
+    shape = (RESNET_BATCH, RESNET_IMAGE, RESNET_IMAGE, 3)
+    hosts = [{"image": rng.standard_normal(shape).astype(np.float32),
+              "label": rng.randint(0, 1000, (RESNET_BATCH,)).astype(
+                  np.int32)} for _ in range(2)]
+    adt_reset()
+    runner = build_runner(loss_fn, params, batch)
+    for h in hosts:
+        runner.run(h)                     # warm-up
+    # fit with metrics_every > 1 dispatches without reading back between
+    # steps, so the host runs ahead and the prefetcher's next copy is
+    # queued while the card computes the current step
+    feeds = {
+        "pageable": lambda: runner.fit(iter(hosts * 3), metrics_every=6),
+        "pinned prefetcher": lambda: runner.fit(DevicePrefetcher(
+            iter(hosts * 3), runner, depth=2), metrics_every=6)}
+    for label, run in feeds.items():
+        events = device_trace(run)
+        copies = [e for e in events
+                  if e[0] == "gpu_memcpy" and "HtoD" in e[1]]
+        kernels_ = [e for e in events if e[0] == "kernel"]
+        if not events or not copies:
+            fail("phase 13 (e) %s: the trace shows no host-to-device copy"
+                 % label)
+        busy = merged([(e[3], e[4]) for e in events])
+        busy_us = sum(b - a for a, b in busy)
+        copy_us = sum(e[4] - e[3] for e in copies)
+        copy_streams = sorted({e[2] for e in copies if e[4] - e[3] > 100})
+        kernel_streams = sorted({e[2] for e in kernels_})
+        other = merged([(e[3], e[4]) for e in kernels_
+                        if e[2] not in copy_streams])
+        big = [(e[3], e[4]) for e in copies if e[4] - e[3] > 100]
+        hidden = overlap_us(big, other) / max(sum(b - a for a, b in big),
+                                               1e-9)
+        print("  (e) resnet50 %s: %d host-to-device copies (%s), %.2f ms "
+              "= %.2f%% of device time; the large ones on stream(s) %s, "
+              "kernels on %s; %.1f%% of the large copies' time overlaps "
+              "kernels on another stream [%s]" % (
+                  label, len(copies), ", ".join(sorted({e[1] for e in
+                                                        copies})),
+                  copy_us / 1e3, 100 * copy_us / busy_us, copy_streams,
+                  kernel_streams, 100 * hidden, card))
+        if label != "pageable":
+            if set(copy_streams) & set(kernel_streams) or not copy_streams:
+                fail("phase 13 (e): the prefetcher's copies run on the "
+                     "kernels' stream")
+            if hidden <= 0:
+                fail("phase 13 (e): the prefetcher's copies overlap no "
+                     "kernel")
+    adt_reset()
+
+
+def fused_phase(card):
+    """Phase 13: the user API, fused supersteps as one CUDA graph and the
+    input plane. Returns (a)'s launches."""
+    print("phase 13: (a) lm1b bf16 (seq %d, batch %d, flash, lean head) on "
+          "the repository's docs: RecordFileDataset -> DevicePrefetcher("
+          "stack=%d) -> fit(fuse_steps=%d, metrics_every=%d), %d "
+          "microsteps, vs the same batches per step; (b) bert_base bf16 "
+          "through ad.function and create_distributed_session; (c) "
+          "build_step on lm1b fused; (d) InceptionV3 and DenseNet121 fused; "
+          "(e) resnet50 through the pinned prefetcher"
+          % (TRAIN_SEQ, TRAIN_BATCH, FUSE_K, FUSE_K, METRICS_EVERY,
+             FUSED_MICROSTEPS))
+    launches = fused_text_phase(card)
+    user_api_phase(card)
+    step_fn_phase(card)
+    cnn_fused_phase(card)
+    prefetch_phase(card)
+    return launches
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "autodist_tpu_torch", "csrc")):
         fail("autodist_tpu_torch/ is not beside chip_smoke.py — run it from "
@@ -1812,6 +2323,7 @@ def main():
     dp_launches = dp_phase(card)
     resume_launches = resume_phase(card)
     cnn_phase(card)
+    fused_launches = fused_phase(card)
 
     # flash_fwd runs on the three main paths, serving (decode), lm1b and
     # bert training, the backward kernels on the two training paths. Each
@@ -1847,6 +2359,13 @@ def main():
         rec["by_path"]["bert_resume"] = {
             "launches": sum(resumed.values()),
             "design_launches": resumed.get(rec["design"], 0)}
+        # phase 13 (a)'s fused lm1b run: the graph's replays (8 launches a
+        # microstep, added at each replay) and the capture's warm-up
+        fused = fused_launches.get(name, {})
+        rec["by_path"]["lm1b_fused"] = {
+            "launches": sum(fused.values()),
+            "design_launches": fused.get(rec["design"], 0),
+            "launches_per_microstep_under_replay": LAYERS}
         rec["launches"] = sum(p["launches"] for p in rec["by_path"].values())
         rec["design_launches"] = sum(p["design_launches"]
                                      for p in rec["by_path"].values())

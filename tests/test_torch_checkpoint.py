@@ -530,8 +530,30 @@ def test_fit_save_every(tmp_path, monkeypatch):
     assert [s for s, _ in saver._own_metas()] == [3, 6, 7]
     _, step = saver.restore(runner)
     assert step == 7
-    with pytest.raises(NotImplementedError, match="ROADMAP A item 6"):
-        runner.fit([batch], fuse_steps=2)
+    # fused, save_every rounds up to the superstep boundaries: the steps
+    # the JAX package's fit saves at for the same call from the same step
+    runner.fit([batch] * 7, fuse_steps=2, save_every=3,
+               saver=Saver(directory=str(tmp_path / "fused")))
+    jparams = {n: jnp.asarray(t.numpy()) for n, t in _problem()[0].items()}
+
+    def jloss(p, b):
+        feat = jnp.take(p["emb"], b["ids"], axis=0)
+        return jnp.mean((feat @ p["w"] - b["y"]) ** 2)
+    try:
+        jr = jadt.AutoDist(strategy_builder=jstrategy.AllReduce()).build(
+            jloss, optax.adam(0.05), jparams, batch)
+        jr.init(jparams)
+        for _ in range(7):
+            jr.run(batch)
+        jr.fit([batch] * 7, fuse_steps=2, save_every=3,
+               saver=JSaver(directory=str(tmp_path / "jax_fused")))
+    finally:
+        jadt.reset()
+    jsteps = sorted(int(f[len("ckpt-"):-len(".meta.json")])
+                    for f in os.listdir(tmp_path / "jax_fused")
+                    if f.endswith(".meta.json"))
+    assert [s for s, _ in Saver(directory=str(tmp_path / "fused"))
+            ._own_metas()] == jsteps == [11, 14]
 
 
 def test_saver_atomic_write_checksums_and_latency_hist(tmp_path):

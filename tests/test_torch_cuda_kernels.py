@@ -1,4 +1,6 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+"""The port's CUDA kernels against their plain PyTorch versions, and its
+fused supersteps (one CUDA graph a superstep) against its per-step loop,
+on a card.
 
 Each test is marked ``cuda`` and skips without a card (a CUDA kernel has
 no CPU mode; the CPU tests hold the plain versions to the JAX package).
@@ -215,3 +217,165 @@ def test_cuda_bf16_grads_go_through_the_tensor_core_kernels():
         assert g.dtype == torch.bfloat16
         scale = float(w.float().abs().max())
         assert float((g.float() - w.float()).abs().max()) <= 2e-2 * scale
+
+
+# ------------------------------------------- fused supersteps (CUDA graphs)
+
+
+def _lm_runner(n_batches=8):
+    """A 2-layer lm at head width 64 (the kernels' width) in bf16 with
+    flash attention, on the card, and its batches."""
+    import functools
+
+    import numpy as np
+
+    import autodist_tpu_torch as adt
+    from autodist_tpu_torch import strategy
+    from autodist_tpu_torch.models import lm
+    cfg = lm.LMConfig(vocab_size=128, d_model=128, num_layers=2,
+                      num_heads=2, mlp_dim=256, max_seq_len=64,
+                      dtype=torch.bfloat16)
+    loss_fn, params, example, _ = lm.make_train_setup(
+        cfg, seq_len=64, batch_size=4, attention="flash", lean_head=True)
+    rng = np.random.RandomState(0)
+    batches = [{"tokens": rng.randint(0, 128, (4, 65)).astype(np.int32)}
+               for _ in range(n_batches)]
+
+    def build():
+        adt.reset()
+        ad = adt.AutoDist(strategy_builder=strategy.AllReduce())
+        runner = ad.build(loss_fn, functools.partial(torch.optim.Adam,
+                                                     lr=1e-3),
+                          params, example)
+        runner.init(params)
+        return runner
+    return build, batches, cfg
+
+
+@pytest.mark.cuda
+def test_cuda_superstep_graph_matches_the_per_step_loop():
+    """fit(fuse_steps=4) replays one captured CUDA graph a superstep: bit
+    for bit the per-step loop in deterministic mode, 4x fewer dispatches,
+    and each kernel counted once a layer a microstep (the replays' and the
+    capture's warm-up microstep)."""
+    _need_card()
+    import autodist_tpu_torch as adt
+    build, batches, cfg = _lm_runner()
+    torch.use_deterministic_algorithms(True)
+    try:
+        runner = build()
+        want = [float(m["loss"]) for m in runner.fit(iter(batches))]
+        want_params = {n: t.clone() for n, t in
+                       runner.gather_params().items()}
+        runner = build()
+        before = tfa.launch_counts()
+        got = [float(m["loss"]) for m in runner.fit(
+            iter(batches), fuse_steps=4, metrics_every=2)]
+        dstep = runner.distributed_step
+        assert dstep.dispatches == 2 and len(dstep._graphs) == 1
+        assert got == want
+        for n, t in runner.gather_params().items():
+            assert torch.equal(t, want_params[n]), n
+        micro = len(batches) + dstep.warmup_microsteps
+        for name, by in tfa.launch_counts().items():
+            assert by["mma.sync bf16"] - before[name].get(
+                "mma.sync bf16", 0) == cfg.num_layers * micro, name
+    finally:
+        torch.use_deterministic_algorithms(False)
+        adt.reset()
+
+
+@pytest.mark.cuda
+def test_cuda_step_fn_superstep_matches_its_per_step_loop():
+    """build_step's opaque step (its own SGD over the lm's params, a
+    ``convert.FlaxParams`` inside the state) fused k = 4 over two
+    supersteps, bit for bit its per-step loop in deterministic mode."""
+    _need_card()
+    import autodist_tpu_torch as adt
+    from autodist_tpu_torch import strategy
+    from autodist_tpu_torch.models import lm
+    cfg = lm.LMConfig(vocab_size=128, d_model=128, num_layers=2,
+                      num_heads=2, mlp_dim=256, max_seq_len=64,
+                      dtype=torch.bfloat16)
+    loss_fn, params, example, _ = lm.make_train_setup(
+        cfg, seq_len=64, batch_size=4, attention="flash", lean_head=True)
+
+    def step_fn(state, batch):
+        p = {n: t.detach().requires_grad_() for n, t in
+             state["params"].items()}
+        loss = loss_fn(p, batch)
+        grads = torch.autograd.grad(loss, list(p.values()))
+        return ({"params": {n: w - 0.1 * g for (n, w), g in
+                            zip(state["params"].items(), grads)},
+                 "count": state["count"] + 1}, {"loss": loss.detach()})
+    state = {"params": params, "count": torch.zeros((), dtype=torch.int32)}
+    _, batches, _ = _lm_runner()
+    got = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for fuse in (1, 4):
+            adt.reset()
+            runner = adt.AutoDist(strategy_builder=strategy.AllReduce()) \
+                .build_step(step_fn, state, example)
+            runner.init(state)
+            hist = runner.fit(iter(batches), fuse_steps=fuse)
+            final = runner.gather_params()
+            got[fuse] = ([float(m["loss"]) for m in hist],
+                         {n: t.clone() for n, t in final["params"].items()},
+                         int(final["count"]))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        adt.reset()
+    assert got[4][0] == got[1][0] and got[4][2] == got[1][2] == 8
+    for n, t in got[1][1].items():
+        assert torch.equal(got[4][1][n], t), n
+
+
+@pytest.mark.cuda
+def test_cuda_a_failed_capture_raises():
+    """A step that reads a value back to the host cannot be captured: the
+    superstep raises, and nothing runs the eager loop instead."""
+    _need_card()
+    import autodist_tpu_torch as adt
+    from autodist_tpu_torch import strategy
+
+    def step_fn(state, batch):
+        w = state["w"] * 0.5
+        if float(w.sum()) > 1e30:       # a readback
+            w = w * 0
+        return {"w": w}, {"loss": w.sum()}
+    adt.reset()
+    ad = adt.AutoDist(strategy_builder=strategy.AllReduce())
+    state = {"w": torch.ones(8)}
+    runner = ad.build_step(step_fn, state, {"x": torch.zeros(2)})
+    runner.init(state)
+    with pytest.raises(RuntimeError, match="capturing"):
+        runner.run_superstep({"x": torch.zeros((4, 2))})
+    adt.reset()
+
+
+@pytest.mark.cuda
+def test_cuda_prefetcher_stages_through_pinned_buffers():
+    """On the card the prefetcher copies from reused pinned buffers on a
+    side stream; the batches it yields are the host batches, on the card,
+    and pass through the runner's feed untouched."""
+    _need_card()
+    import numpy as np
+
+    from autodist_tpu_torch.data import DevicePrefetcher
+    build, batches, _ = _lm_runner()
+    runner = build()
+    pf = DevicePrefetcher(iter(batches), runner, depth=2, stack=2)
+    items = list(pf)
+    assert len(items) == 4 and pf._ring is not None
+    bufs = [b for slot, _ in pf._ring._slots for b in slot if b is not None]
+    assert bufs and all(b.is_pinned() for b in bufs)
+    for i, item in enumerate(items):
+        t = item["tokens"]
+        assert t.device.type == "cuda" and t.shape == (2, 4, 65)
+        np.testing.assert_array_equal(
+            t.cpu().numpy(), np.stack([b["tokens"] for b in
+                                       batches[2 * i:2 * i + 2]]))
+        assert runner.remapper.remap_feed_stack(item)["tokens"] is t
+    import autodist_tpu_torch as adt
+    adt.reset()

@@ -1,7 +1,8 @@
 """Multi-process jobs for the port's data-parallel tests, with no JAX.
 
 The tests (``tests/test_torch_collectives.py``,
-``tests/test_torch_data_parallel.py``, ``tests/test_torch_checkpoint.py``)
+``tests/test_torch_data_parallel.py``, ``tests/test_torch_checkpoint.py``,
+``tests/test_torch_fused.py``)
 compute their JAX references in the pytest process and hand numpy arrays
 to :func:`launch`, which starts
 ``world`` processes with the ``spawn`` start method. Each process joins a
@@ -220,4 +221,36 @@ def ckpt_job(payload, device):
     return out
 
 
-JOBS = {"compressors": compressor_job, "train": train_job, "ckpt": ckpt_job}
+def fused_job(payload, device):
+    """``fit(fuse_steps, metrics_every)`` of the port's AllReduce plan on
+    the global batches from the given init; returns the losses, the
+    final params, the dispatches and the runner's readbacks."""
+    import autodist_tpu_torch as adt
+    from autodist_tpu_torch import strategy
+    from autodist_tpu_torch.resource_spec import ResourceSpec
+    world = dist.get_world_size()
+    loss_fn, _, example, _ = _setup(payload["model"], payload["seq_len"],
+                                    payload["batch_size"],
+                                    payload["attention"])
+    init = {n: torch.as_tensor(v) for n, v in payload["init"].items()}
+    spec = ResourceSpec.from_dict({"nodes": [{
+        "address": "127.0.0.1", "chief": True,
+        "cpus": list(range(world))}]})
+    ad = adt.AutoDist(strategy_builder=strategy.AllReduce(),
+                      resource_spec=spec, device=device)
+    runner = ad.build(loss_fn, functools.partial(torch.optim.Adam, lr=LR),
+                      init, example)
+    runner.init(init)
+    hist = runner.fit(iter(payload["batches"]),
+                      fuse_steps=payload["fuse_steps"],
+                      metrics_every=payload["metrics_every"])
+    out = {"losses": [float(m["loss"]) for m in hist],
+           "params": _np(runner.gather_params()),
+           "dispatches": runner.distributed_step.dispatches,
+           "readbacks": runner.readbacks}
+    adt.reset()
+    return out
+
+
+JOBS = {"compressors": compressor_job, "train": train_job, "ckpt": ckpt_job,
+        "fused": fused_job}
