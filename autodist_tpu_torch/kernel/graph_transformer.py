@@ -224,8 +224,8 @@ class DistributedStep:
         # dispatches: a step, or a fused superstep of k microsteps
         self.dispatches = 0
         # the CUDA graphs of the fused supersteps, by (k, feed structure
-        # and shapes, donate), and the eager microsteps their captures ran
-        # first to warm up
+        # and shapes), and the eager microsteps their captures ran first
+        # to warm up
         self._graphs: Dict[tuple, object] = {}
         self.warmup_microsteps = 0
         self.buckets = []
@@ -497,7 +497,7 @@ class DistributedStep:
 
         On ``cuda`` a call replays ONE CUDA graph that holds the k
         microsteps, captured at the first call for each (k, feed
-        structure, shapes and dtypes, donate) — the JAX package's
+        structure, shapes and dtypes) — the JAX package's
         per-shape compile (:class:`~autodist_tpu_torch.kernel.superstep.
         GraphedSuperstep`); a capture that fails raises. On the CPU it is
         the plain k-step loop in one call, the per-step :meth:`_step` k
@@ -543,8 +543,10 @@ class DistributedStep:
     def _graphed(self, state, stacked_batch, k, donate):
         from autodist_tpu_torch.kernel.superstep import GraphedSuperstep
         leaves, spec = pytree.tree_flatten(stacked_batch)
+        # donate is not in the key: the captured body is the same, and
+        # only the replay differs (superstep.py)
         key = (k, str(spec), tuple((tuple(t.shape), t.dtype)
-                                   for t in leaves), donate)
+                                   for t in leaves))
         graph = self._graphs.get(key)
         if graph is None:
             graph = GraphedSuperstep(self, state, stacked_batch, k)

@@ -6,7 +6,8 @@ dispatches it once. On the card the counterpart is one CUDA graph,
 captured once over the k microsteps and replayed: the host launches it
 with one call, and none of the step's kernels waits for the host between
 launches. :class:`GraphedSuperstep` is that graph for one (k, feed
-structure, shapes, donate), with its static tensors:
+structure, shapes), with its static tensors (``donate`` changes only
+what :meth:`GraphedSuperstep.replay` returns, not the graph):
 
 - the **state** (params, optimizer state, compressor state): the graph's
   own copy. A replay whose state is not that copy (the first one, or one
@@ -33,7 +34,9 @@ The flash kernels' wrappers count launches in Python, which a replay
 does not run. The launches a capture records are therefore taken back
 out of the counts (nothing ran during the capture) and added again at
 every replay (:func:`~autodist_tpu_torch.ops.flash_attention.
-launch_counts`), so the counts stay launches on the card.
+add_launch_counts`). Under replay these counts are bookkeeping, not a
+count where the launch happens: ``chip_smoke.py`` phase 13 (a) holds
+them to the kernels counted by name in a device trace of one replay.
 """
 import torch
 from torch.utils import _pytree as pytree
@@ -116,10 +119,19 @@ class GraphedSuperstep:
         the graph's own state tensors, updated; ``donate=False`` returns
         copies, and ``state`` is left as it was."""
         _copy_into(self._batch, stacked_batch)
+        kept = None
+        if not donate:
+            # after a donated replay the caller's tensors are the graph's
+            # own, which the replay writes: keep their values to put back
+            own = {id(t) for t in pytree.tree_leaves(_parts(self._state))}
+            if any(id(t) in own for t in pytree.tree_leaves(_parts(state))):
+                kept = _clone_state(state)
         _copy_into(_parts(self._state), _parts(state))
         self.graph.replay()
         fa.add_launch_counts(self.launches)
         out = self._state if donate else _clone_state(self._state)
+        if kept is not None:
+            _copy_into(_parts(self._state), _parts(kept))
         new_state = TrainState(step=state.step + self.k,
                                params=pytree.tree_map(_same, out.params),
                                opt_state=pytree.tree_map(_same, out.opt_state),

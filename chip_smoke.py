@@ -109,8 +109,9 @@ result line):
    dispatches (replays of one captured CUDA graph) against 16, 2
    readbacks against 16, ``step_stats`` supersteps 4 and microsteps 16,
    each kernel 8 launches a microstep on its tensor-core design (the
-   replays' and the capture's one warm-up microstep), finite and falling
-   losses; the same 16 batches per step from the same init agree in
+   replays' and the capture's one warm-up microstep), and 8 a microstep
+   counted by name in a device trace of one more replay, finite and
+   falling losses; the same 16 batches per step from the same init agree in
    losses and params, bit for bit or at phase 6's bounds (printed which);
    (b) bert_base bf16 (phase 7's batch size) through ``ad.function`` (3
    steps) and ``create_distributed_session().run`` (3 more), bit-equal to
@@ -182,6 +183,11 @@ KERNEL_KINDS = (
     ("elementwise", ("elementwise",)),
 )
 # the CUDA function each kernel's main design runs, as ptxas names it
+# each wrapper's CUDA functions by name in a device trace; group 1 is set
+# for the tensor-core design
+DEVICE_FUNCTIONS = {"flash_fwd": r"\bflash_fwd_(mma_)?kernel\b",
+                    "flash_bwd_dq": r"\bflash_bwd_dq_(mma_)?kernel\b",
+                    "flash_bwd_dkdv": r"\bflash_bwd_dkdv_(mma_)?kernel\b"}
 DESIGN_FUNCTION = {"flash_fwd": "flash_fwd_mma_kernel",
                    "flash_bwd_dq": "flash_bwd_dq_mma_kernel",
                    "flash_bwd_dkdv": "flash_bwd_dkdv_mma_kernel"}
@@ -1733,6 +1739,22 @@ def device_trace(run):
                 "kernel", "gpu_memcpy", "gpu_memset")]
 
 
+def trace_launches(events):
+    """Each kernel's launches by design in a device trace (:func:
+    `device_trace`), its CUDA functions matched by name."""
+    import re
+    counts = {kern.__name__: {} for kern in kernels()}
+    for cat, name, _, _, _ in events:
+        if cat != "kernel":
+            continue
+        for kern, pattern in DEVICE_FUNCTIONS.items():
+            found = re.search(pattern, name)
+            if found:
+                design = ("mma.sync bf16" if found.group(1) else "scalar")
+                counts[kern][design] = counts[kern].get(design, 0) + 1
+    return counts
+
+
 def merged(intervals):
     """The union of ``[(start, end)]`` as disjoint sorted intervals."""
     out = []
@@ -1810,12 +1832,14 @@ def fused_text_phase(card):
     """Phase 13 (a): lm1b bf16 on the repository's docs through the native
     loader, the pinned prefetcher and fit(fuse_steps=4), against the same
     batches per step. Returns each kernel's launches by design over the
-    fused run (replayed microsteps and the capture's warm-up)."""
+    fused run (replayed microsteps and the capture's warm-up), and each
+    kernel's launches a microstep in a device trace of one more replay."""
     import math
     import tempfile
     import torch
     from autodist_tpu_torch.data import DevicePrefetcher, RecordFileDataset
     from autodist_tpu_torch.data import text
+    from autodist_tpu_torch.data.prefetch import stack_batches
     from autodist_tpu_torch.models import lm
     cfg = lm.LMConfig.lm1b(dtype=torch.bfloat16)
     loss_fn, params, batch, _ = lm.make_train_setup(
@@ -1855,6 +1879,16 @@ def fused_text_phase(card):
             runner.readbacks
         warm = dstep.warmup_microsteps
         ds.close()
+        # one more superstep under a device trace: the replay's launches
+        # counted by name on the card, not by the wrappers' bookkeeping
+        # (which adds the capture's recording at every replay)
+        traced = stack_batches(seen[:FUSE_K])
+        reset_counts()
+        on_card = trace_launches(device_trace(
+            lambda: runner.run_superstep(traced, sync=True)))
+        booked = launch_counts()
+        if dstep.warmup_microsteps != warm:
+            fail("phase 13 (a): the traced superstep captured a new graph")
     batches = seen[:FUSED_MICROSTEPS]
     adt_reset()
     runner = build_runner(loss_fn, params, batch)
@@ -1897,11 +1931,20 @@ def fused_text_phase(card):
         fail("phase 13 (a): step_stats %r" % (stats,))
     check_launches("phase 13 (a) fused lm1b", launches, cfg.num_layers,
                    FUSED_MICROSTEPS + warm)
+    check_launches("phase 13 (a) traced replay, device trace", on_card,
+                   cfg.num_layers, FUSE_K)
+    check_launches("phase 13 (a) traced replay, wrappers' counts", booked,
+                   cfg.num_layers, FUSE_K)
+    per_microstep = {name: by[MAIN_DESIGN[name]] / FUSE_K
+                     for name, by in on_card.items()}
     print("  (a) launches %r = %d a microstep x (%d replayed + %d warm-up "
-          "microsteps); fused vs per step %s [%s]" % (
-              launches, cfg.num_layers, FUSED_MICROSTEPS, warm,
-              "bit-equal" if bitwise else "within bounds", card))
-    return launches
+          "microsteps); one traced replay of %d microsteps: %r on the card "
+          "(kernels by name in the device trace), %r counted; fused vs per "
+          "step %s [%s]" % (
+              launches, cfg.num_layers, FUSED_MICROSTEPS, warm, FUSE_K,
+              on_card, booked, "bit-equal" if bitwise else "within bounds",
+              card))
+    return launches, per_microstep
 
 
 def adt_reset():
@@ -2166,7 +2209,8 @@ def prefetch_phase(card):
 
 def fused_phase(card):
     """Phase 13: the user API, fused supersteps as one CUDA graph and the
-    input plane. Returns (a)'s launches."""
+    input plane. Returns (a)'s launches and its launches a microstep
+    under replay."""
     print("phase 13: (a) lm1b bf16 (seq %d, batch %d, flash, lean head) on "
           "the repository's docs: RecordFileDataset -> DevicePrefetcher("
           "stack=%d) -> fit(fuse_steps=%d, metrics_every=%d), %d "
@@ -2176,12 +2220,12 @@ def fused_phase(card):
           "(e) resnet50 through the pinned prefetcher"
           % (TRAIN_SEQ, TRAIN_BATCH, FUSE_K, FUSE_K, METRICS_EVERY,
              FUSED_MICROSTEPS))
-    launches = fused_text_phase(card)
+    launches, per_microstep = fused_text_phase(card)
     user_api_phase(card)
     step_fn_phase(card)
     cnn_fused_phase(card)
     prefetch_phase(card)
-    return launches
+    return launches, per_microstep
 
 
 def main():
@@ -2323,7 +2367,7 @@ def main():
     dp_launches = dp_phase(card)
     resume_launches = resume_phase(card)
     cnn_phase(card)
-    fused_launches = fused_phase(card)
+    fused_launches, replay_per_microstep = fused_phase(card)
 
     # flash_fwd runs on the three main paths, serving (decode), lm1b and
     # bert training, the backward kernels on the two training paths. Each
@@ -2359,13 +2403,16 @@ def main():
         rec["by_path"]["bert_resume"] = {
             "launches": sum(resumed.values()),
             "design_launches": resumed.get(rec["design"], 0)}
-        # phase 13 (a)'s fused lm1b run: the graph's replays (8 launches a
-        # microstep, added at each replay) and the capture's warm-up
+        # phase 13 (a)'s fused lm1b run: the graph's replays (counted by
+        # the capture's recording, added at each replay) and the capture's
+        # warm-up; a microstep's launches under replay from a device trace
+        # of one more replay
         fused = fused_launches.get(name, {})
         rec["by_path"]["lm1b_fused"] = {
             "launches": sum(fused.values()),
             "design_launches": fused.get(rec["design"], 0),
-            "launches_per_microstep_under_replay": LAYERS}
+            "launches_per_microstep_under_replay":
+                replay_per_microstep[name]}
         rec["launches"] = sum(p["launches"] for p in rec["by_path"].values())
         rec["design_launches"] = sum(p["design_launches"]
                                      for p in rec["by_path"].values())

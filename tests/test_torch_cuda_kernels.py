@@ -280,6 +280,15 @@ def test_cuda_superstep_graph_matches_the_per_step_loop():
         for name, by in tfa.launch_counts().items():
             assert by["mma.sync bf16"] - before[name].get(
                 "mma.sync bf16", 0) == cfg.num_layers * micro, name
+        # donate=False replays the same graph and leaves the state as it was
+        from autodist_tpu_torch.data.prefetch import stack_batches
+        placed = runner._remapper.remap_feed_stack(stack_batches(batches[:4]))
+        kept = {n: t.clone() for n, t in runner.state.params.items()}
+        new, _ = dstep.run_multi(runner.state, placed, donate=False)
+        assert len(dstep._graphs) == 1
+        for n, t in runner.state.params.items():
+            assert torch.equal(t, kept[n]), n
+        assert any(not torch.equal(new.params[n], kept[n]) for n in kept)
     finally:
         torch.use_deterministic_algorithms(False)
         adt.reset()
