@@ -230,8 +230,9 @@ class Saver:
         """Write a checkpoint of a Runner (its state) or of a
         DistributedStep and an explicit TrainState; returns its base path
         (``.../ckpt-<step>``), or None where this process does not write.
-        The compressor states' gather is a collective: EVERY rank must
-        call save(); only the file writes are chief-gated."""
+        The gathers of the compressor states and of sharded variables are
+        collectives: EVERY rank must call save(); only the file writes are
+        chief-gated."""
         if hasattr(runner_or_step, "distributed_step"):  # Runner
             dstep = runner_or_step.distributed_step
             state = state if state is not None else runner_or_step.state
@@ -243,25 +244,27 @@ class Saver:
             return None
         healthy = sentinel_health_stamp(runner_or_step)
         item = dstep.model_item
-        # the collective first, on every rank; then the chief's host copy
-        # in the JAX layout, taken before save() returns
+        # the collectives first, on every rank (the compressor states; a
+        # partitioned or ZeRO-sharded variable's shards); then the chief's
+        # host copy in the JAX layout, taken before save() returns
         with tel.span("ckpt.gather", "ckpt"):
             sync = dstep.gather_sync_state(state)
+            opt = dstep.gather_opt_state(state)
+            params = dstep.gather_params(state)
         if step is None:
             step = int(state.step)
         checkpoint_fault("collect", step=step)
         if self.chief_only and not _is_chief(dstep):
             return None
         with tel.span("ckpt.to_host", "ckpt"):
-            opt = dstep.gather_opt_state(state)
             if item.step_fn is not None:
                 # an opaque step's state saves under its own paths, as the
                 # JAX saver flattens it; the step owns its optimizer
-                trees = [(".params.npz", _user_state_to_host(
-                    dstep.gather_params(state))), (".opt.npz", {})]
+                trees = [(".params.npz", _user_state_to_host(params)),
+                         (".opt.npz", {})]
             else:
                 trees = [(".params.npz", convert.params_to_jax(
-                    dstep.gather_params(state), item.flax_shapes)),
+                    params, item.flax_shapes)),
                     (".opt.npz", {} if opt is None else
                      convert.opt_state_to_jax(opt, item.flax_shapes))]
             sync_flat = convert.sync_state_to_jax(sync, item.var_infos,

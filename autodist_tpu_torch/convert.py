@@ -281,6 +281,15 @@ def sync_state_to_jax(sync_state: dict, var_infos: dict,
     as flax lays the variable out."""
     out = {"bucket/" + k: t.detach().to("cpu", copy=True).numpy()
            for k, t in sync_state.get("bucket", {}).items()}
+    # the ZeRO shards: optax.adam's state of each little {"v": shard} tree
+    # (already in flax's element order, zero_synchronizer.py)
+    for n, little in sync_state.get("zero", {}).items():
+        base = "zero/%s/%s" % (var_infos[n].collective_name, _ADAM)
+        out[base + "count"] = little["count"].detach().to(
+            "cpu", copy=True).numpy()
+        for slot in ("mu", "nu"):
+            out["%s%s/v" % (base, slot)] = little[slot]["v"].detach().to(
+                "cpu", copy=True).numpy()
     for n, leaf in sync_state.get("var", {}).items():
         info = var_infos[n]
         fields = leaf.items() if isinstance(leaf, dict) else (("", leaf),)
@@ -308,6 +317,18 @@ def sync_state_from_jax(flat: Dict[str, np.ndarray], var_infos: dict,
         if top == "bucket" and rest:
             out.setdefault("bucket", {})[rest] = torch.from_numpy(
                 np.array(arr, copy=True))
+            continue
+        if top == "zero":
+            jname, _, field = rest.rpartition("/" + _ADAM)
+            if jname not in by_jax or field not in ("count", "mu/v", "nu/v"):
+                raise KeyError("sync state entry %r names no ZeRO shard of "
+                               "this model" % key)
+            little = out.setdefault("zero", {}).setdefault(by_jax[jname], {})
+            t = torch.from_numpy(np.array(arr, copy=True))
+            if field == "count":
+                little["count"] = t
+            else:
+                little[field[:2]] = {"v": t}
             continue
         jname = max((j for j in by_jax if rest == j
                      or rest.startswith(j + "/")), key=len, default=None)

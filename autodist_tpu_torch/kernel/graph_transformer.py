@@ -9,12 +9,19 @@ is a Python callable with the signature the JAX program has.
 :class:`DistributedStep` carries:
 
 - the training step (``__call__``): the JAX ``local_step`` — loss and
-  grads of this rank's shard of the batch, then, with more than one
-  replica, the epilogue gradient sync: the concatenated buckets of
-  compressed variables (``parallel/collectives.py``), then the
-  per-variable synchronizers, each a mean over the replicas; frozen
-  variables held still; the optimizer apply; ``{"loss": ...}`` metrics
-  averaged over the replicas. One replica issues no collective;
+  grads of this rank's shard of the batch (under the plan's compute tier
+  and remat policy, at every replica count), then, with more than one
+  replica, the gradient sync: the ZeRO-sharded variables'
+  reduce-scatters, the concatenated buckets of compressed variables
+  (``parallel/collectives.py``), then the per-variable synchronizers
+  (a reduce-scatter for a partitioned variable), each a mean over the
+  replicas — as one epilogue after the backward, or, with
+  ``overlap=True``, launched from backward hooks in the schedule's
+  reverse layer order; frozen variables held still; the optimizer
+  apply (on each partitioned variable's shard, and on each ZeRO
+  variable's flat shard, whose delta is all-gathered); ``{"loss":
+  ...}`` metrics averaged over the replicas. One replica issues no
+  collective;
 - the fused superstep (:meth:`DistributedStep.multi_step`,
   :meth:`DistributedStep.run_multi`): k microsteps in one dispatch, on
   ``cuda`` one replay of a CUDA graph (``kernel/superstep.py``), on the
@@ -27,10 +34,19 @@ is a Python callable with the signature the JAX program has.
   :meth:`DistributedStep.decode_program`), run under
   ``torch.inference_mode()``, on one replica.
 
+The bf16 compute tier (``graph_config.compute_dtype="bf16"``) casts the
+f32 params and float batch leaves to bf16 inside the loss and the loss
+and bf16 aux back to f32, so gradients reach the f32 masters as f32 and
+every collective accumulates in f32; ``graph_config.remat``
+(``strategy/remat.py``) checkpoints each transformer layer of the loss
+(or the loss whole). Both apply at every replica count, as in the JAX
+lowering.
+
 Lookup-indexed tables that the JAX package would sync over its sparse
-(ids, values) wire are synced dense here, outside the buckets, as that
-wire leaves them (ROADMAP A item 8). With more than one replica the
-transform refuses, by name, the plan features the port has not reached.
+(ids, values) wire are synced dense here, outside the buckets and the
+schedule, as that wire leaves them (ROADMAP A item 8). With more than one
+replica the transform refuses, by name, the plan features the port has
+not reached.
 """
 from typing import Callable, Dict, Optional
 
@@ -39,9 +55,12 @@ import torch
 import torch.distributed as dist
 from torch.utils import _pytree as pytree
 
+from autodist_tpu_torch.kernel.partitioner import VarLayout, VariablePartitioner
 from autodist_tpu_torch.kernel.replicator import ReplicaInfo
 from autodist_tpu_torch.kernel.synchronization.all_reduce_synchronizer \
     import AllReduceSynchronizer
+from autodist_tpu_torch.kernel.synchronization.zero_synchronizer import \
+    ZeroSynchronizer
 from autodist_tpu_torch.kernel.synchronization.synchronizer import \
     all_reduce_sum
 from autodist_tpu_torch.parallel import collectives
@@ -200,6 +219,80 @@ def sparse_wire_vars(item, replicas: ReplicaInfo) -> set:
     return out
 
 
+def _cd_down(x):
+    """The bf16 compute tier's cast into the loss: f32 tensors to bf16,
+    anything else as it is."""
+    if isinstance(x, torch.Tensor) and x.dtype == torch.float32:
+        return x.to(torch.bfloat16)
+    return x
+
+
+def _cd_up(x):
+    """The tier's cast out of the loss: bf16 tensors back to f32."""
+    if isinstance(x, torch.Tensor) and x.dtype == torch.bfloat16:
+        return x.to(torch.float32)
+    return x
+
+
+class _OverlapRun:
+    """One step's overlapped gradient sync (``graph_config.overlap``):
+    a ``Tensor.register_hook`` on each trainable leaf records its
+    gradient as the backward produces it (the hook fires under the
+    ``torch.autograd.grad`` the step uses, where a post-accumulate hook
+    would not), and each unit of the schedule launches its collective,
+    asynchronously where it can, as soon as its last gradient is ready
+    and every earlier stage has launched — so every rank issues the
+    collectives in the schedule's order. :meth:`finish` launches what the
+    backward left (variables with no gradient) and returns the launched
+    units, which the step waits on before the apply. The units are the
+    epilogue's, with its arithmetic, so the values are bit-identical to
+    it."""
+
+    def __init__(self, dstep, full, bucket_state, var_state):
+        self._dstep = dstep
+        self._stages = dstep.schedule.stages
+        self._bucket_state, self._var_state = bucket_state, var_state
+        self.ready: Dict[str, torch.Tensor] = {}
+        self.launched = []
+        # (unit, launched while the backward ran) in launch order
+        self.log = []
+        self._in_backward = True
+        self._next = 0
+        names = {n for st in self._stages for n in st.var_names}
+        self._handles = [full[n].register_hook(self._hook(n))
+                         for n in sorted(names)]
+
+    def _hook(self, name):
+        def hook(grad):
+            self.ready[name] = grad
+            self._advance()
+        return hook
+
+    def _advance(self):
+        while self._next < len(self._stages):
+            stage = self._stages[self._next]
+            if not all(n in self.ready for n in stage.var_names):
+                return
+            for op in stage.ops:
+                self.launched.append(self._dstep._launch_unit(
+                    op.unit, self.ready, self._bucket_state,
+                    self._var_state, async_op=True))
+                self.log.append((op.unit, self._in_backward))
+            self._next += 1
+
+    def disarm(self):
+        for h in self._handles:
+            h.remove()
+        self._handles = []
+
+    def finish(self, grads):
+        self._in_backward = False
+        for n, g in grads.items():
+            self.ready.setdefault(n, g)
+        self._advance()
+        return self.launched
+
+
 class DistributedStep:
     """The executable plan on this process's device: parameter state init,
     the training step with its gradient sync, evaluation and the serving
@@ -228,39 +321,206 @@ class DistributedStep:
         # to warm up
         self._graphs: Dict[tuple, object] = {}
         self.warmup_microsteps = 0
+        gc = strategy.graph_config
+        self.compute_dtype = gc.compute_dtype or "f32"
+        self.remat = gc.remat
         self.buckets = []
+        self._bucketed = set()
         self.sparse_wire = frozenset()
-        if self.num_replicas > 1:
-            self._build_synchronizers()
+        # partitioned variables' layouts and the ZeRO-sharded variables'
+        # kernels (N > 1 only: one replica has nothing to shard)
+        self.layouts: Dict[str, VarLayout] = {}
+        self.zero_syncs: Dict[str, ZeroSynchronizer] = {}
+        self.schedule = None
+        # the last overlapped step's launches: (unit, launched while the
+        # backward ran), in launch order
+        self.overlap_log = []
+        if model_item.step_fn is None:
+            zero_names = self._zero_nodes()
+            if self.num_replicas > 1:
+                self._build_synchronizers(zero_names)
+            self._make_losses()
+        self.metadata.update(self._plan_metadata())
+        self._zero_rs_step = self.metadata.get("zero_rs_bytes_per_step", 0.0)
+        self._zero_ag_step = self.metadata.get("zero_ag_bytes_per_step", 0.0)
+        if self.metadata.get("zero_hbm_saved_bytes"):
+            tel.gauge_set("zero.hbm_saved_bytes",
+                          self.metadata["zero_hbm_saved_bytes"])
+        if self.schedule is not None:
+            tel.counter_add("overlap.buckets", self.schedule.num_stages)
 
-    def _build_synchronizers(self):
-        """Per-variable synchronizer kernels from the node configs, and
-        the buckets of the concatable compressed ones (the JAX
-        ``_build_synchronizers`` and ``make_buckets`` call). NoneCompressor
+    def _zero_nodes(self) -> list:
+        """The trainable variables a ZeroSharded synchronizer names; the
+        combinations the JAX lowering refuses (ADT312) raise here with its
+        messages, at every replica count."""
+        out = []
+        for node in self.strategy.node_config:
+            cfg = node.synchronizer
+            if cfg is None or getattr(cfg, "kind", "") != "ZeroSharded":
+                continue
+            info = self.model_item.var_infos.get(node.var_name)
+            if info is None or not info.trainable:
+                continue
+            if info.sparse:
+                raise ValueError(
+                    "var %s: ZeroSharded on a sparse (gather-indexed) "
+                    "variable — the reduce-scatter would densify its "
+                    "batch-row-sized gradient to the full table every "
+                    "step (ADT312); route it to PS or plain AllReduce"
+                    % node.var_name)
+            if node.mp_axes or node.partitioner:
+                raise ValueError(
+                    "var %s: ZeroSharded cannot combine with %s storage "
+                    "(ADT312) — the sharded update owns the whole flat "
+                    "variable" % (node.var_name,
+                                  "mp_axes" if node.mp_axes
+                                  else "partitioner"))
+            if self.num_replicas <= 1:
+                logging.info("var %s: ZeroSharded on a single data replica "
+                             "degrades to plain AllReduce sync",
+                             node.var_name)
+            out.append(node.var_name)
+        return out
+
+    def _build_synchronizers(self, zero_names):
+        """Per-variable synchronizer kernels from the node configs (the
+        JAX ``_build_synchronizers``): the partitioned layouts, the ZeRO
+        kernels, the per-variable AllReduce kernels (a partitioned
+        variable's reduce-scatters) and the buckets of the concatable
+        compressed unpartitioned ones (``make_buckets``); with
+        ``overlap=True`` the schedule of those units. NoneCompressor
         variables all-reduce one by one; the sparse-wire tables keep out
-        of both, as in the JAX lowering."""
+        of all of them, as in the JAX lowering."""
         N, item = self.num_replicas, self.model_item
-        self.sparse_wire = frozenset(sparse_wire_vars(item, self.replica_info))
+        rank = self.replica_info.rank
+        layouts = VariablePartitioner.apply(self.strategy, item.var_infos, N)
+        self.layouts = {n: lay for n, lay in layouts.items()
+                        if lay.partitioned}
+        for n in zero_names:
+            info = item.var_infos[n]
+            self.zero_syncs[n] = ZeroSynchronizer(
+                n, self.strategy.find(n).synchronizer, info.shape,
+                info.dtype, N, rank, collective_name=info.collective_name)
+        self.sparse_wire = frozenset(
+            sparse_wire_vars(item, self.replica_info) - set(self.layouts))
         for node in self.strategy.node_config:
             info = item.var_infos.get(node.var_name)
             if (info is None or not info.trainable
-                    or node.var_name in self.sparse_wire):
+                    or node.var_name in self.sparse_wire
+                    or node.var_name in self.zero_syncs):
                 continue
+            cfg = node.synchronizer
+            if cfg is None and node.part_configs:
+                cfg = node.part_configs[0].synchronizer
             self.syncs[node.var_name] = AllReduceSynchronizer(
-                node.var_name, node.synchronizer, N,
-                collective_name=info.collective_name)
+                node.var_name, cfg, N,
+                collective_name=info.collective_name,
+                layout=self.layouts.get(node.var_name))
         compressed = {n: s for n, s in self.syncs.items()
-                      if s.compressor.name != "NoneCompressor"}
+                      if s.compressor.name != "NoneCompressor"
+                      and n not in self.layouts}
         self.buckets, _ = collectives.make_buckets(compressed,
                                                    item.var_infos)
         self._bucketed = {n for b in self.buckets for n in b.var_names}
+        self._bucket_by_key = {b.key: b for b in self.buckets}
         # one data axis: the default group, all N ranks
         self._ring_axes = ((None, N),)
+        if self.strategy.graph_config.overlap:
+            self.schedule = collectives.build_grad_sync_schedule(
+                self._units(), {n: i for i, n in enumerate(item.var_infos)})
+
+    def _units(self):
+        """The sync units as the JAX lowering lists them for its schedule:
+        ``(unit, kind, variables, elements, wire, axes)``."""
+        axes = ("data",)
+        units = [("bucket:" + b.key, "reduce", tuple(b.var_names),
+                  b.total_size,
+                  "int8" if b.compressor_name.startswith("Int8")
+                  else "fp32", axes) for b in self.buckets]
+        infos = self.model_item.var_infos
+        units += [("var:" + n, "reduce", (n,), infos[n].num_elements,
+                   "fp32", axes) for n in sorted(self.syncs)
+                  if n not in self._bucketed]
+        units += [("zero:" + n, "reduce_scatter", (n,),
+                   infos[n].num_elements, zs.wire_dtype, axes)
+                  for n, zs in sorted(self.zero_syncs.items())]
+        return units
+
+    def _epilogue_units(self):
+        """The units in the epilogue's order: the ZeRO reduce-scatters,
+        the buckets, then the per-variable syncs."""
+        return (["zero:" + n for n in sorted(self.zero_syncs)]
+                + ["bucket:" + b.key for b in self.buckets]
+                + ["var:" + n for n in self.syncs if n not in self._bucketed])
+
+    def _plan_metadata(self) -> dict:
+        """The JAX lowering's metadata keys for what this plan lowered."""
+        item = self.model_item
+        infos = item.var_infos
+        zero_saved = 0.0
+        if self.zero_syncs and self.optimizer is not None:
+            # Adam's state: a 4-byte count and two f32 moments a variable
+            opt_total = 4.0 + 2 * 4.0 * sum(i.num_elements
+                                            for i in infos.values())
+            params_total = float(item.total_bytes()) or 1.0
+            N = self.num_replicas
+            zero_saved = sum(opt_total * infos[n].byte_size / params_total
+                             * (N - 1) / N for n in self.zero_syncs)
+        sched = self.schedule
+        return {
+            "sparse_wire": sorted(self.sparse_wire),
+            "buckets": [b.key for b in self.buckets],
+            "partitioned": sorted(self.layouts),
+            "zero_sharded": sorted(self.zero_syncs),
+            "zero_wire_int8": sorted(n for n, zs in self.zero_syncs.items()
+                                     if zs.wire_dtype == "int8"),
+            "zero_rs_bytes_per_step": sum(
+                zs.rs_payload_bytes() for zs in self.zero_syncs.values()),
+            "zero_ag_bytes_per_step": sum(
+                zs.ag_payload_bytes() for zs in self.zero_syncs.values()),
+            "zero_hbm_saved_bytes": zero_saved,
+            "compute_dtype": self.compute_dtype,
+            "remat": self.remat,
+            "overlap": sched is not None,
+            "overlap_requested": bool(self.strategy.graph_config.overlap),
+            "overlap_stages": sched.num_stages if sched is not None else 0,
+            "overlap_schedule": sched.describe() if sched is not None
+            else "",
+        }
+
+    def _make_losses(self):
+        """The loss the step differentiates and the one ``evaluate``
+        runs: the user's loss under the compute tier (the JAX
+        ``loss_fn_cd``), and that under the remat policy."""
+        item = self.model_item
+        if item.loss_fn is None:
+            self._loss_cd = self._loss_grad = None
+            return
+        fn, has_aux = item.loss_fn, item.has_aux
+        if self.compute_dtype == "bf16":
+            def loss_cd(params, batch):
+                out = fn(pytree.tree_map(_cd_down, params),
+                         pytree.tree_map(_cd_down, batch))
+                if has_aux:
+                    loss, aux = out
+                    return _cd_up(loss), pytree.tree_map(_cd_up, aux)
+                return _cd_up(out)
+        elif self.compute_dtype == "f32":
+            loss_cd = fn
+        else:
+            raise ValueError("compute_dtype must be 'f32' or 'bf16', got %r"
+                             % (self.compute_dtype,))
+        self._loss_cd = loss_cd
+        self._loss_grad = loss_cd
+        if self.remat:
+            from autodist_tpu_torch.strategy.remat import remat_transform
+            self._loss_grad = remat_transform(self.remat)(loss_cd)
 
     def _sync_state_init(self) -> dict:
-        """Compressor states on the device, one copy per rank (the JAX
-        ``sync_state_init`` without its leading device axis)."""
-        st = {"bucket": {}, "var": {}}
+        """Compressor states and the ZeRO variables' optimizer-state shards
+        on the device, one copy per rank (the JAX ``sync_state_init``
+        without its leading device axis)."""
+        st = {"bucket": {}, "var": {}, "zero": {}}
         for b in self.buckets:
             s = b.make_compressor().state_init((b.total_size,), b.dtype)
             if s is not None:
@@ -273,6 +533,10 @@ class DistributedStep:
             if init is not None:
                 st["var"][n] = pytree.tree_map(
                     lambda t: t.to(self.device), init)
+        if self.optimizer is not None:
+            for n, zs in sorted(self.zero_syncs.items()):
+                st["zero"][n] = zs.opt_state_init(self.optimizer,
+                                                  self.device)
         return {k: v for k, v in st.items() if v}
 
     @staticmethod
@@ -292,12 +556,17 @@ class DistributedStep:
         float32 masters — the JAX package keeps f32 params and casts at
         compute (flax ``param_dtype``), and so does the port — and create
         the optimizer state beside them (or place the given
-        ``opt_state``). The state owns copies: the step updates them in
-        place and the caller's tensors never move. With more than one
-        replica, every replica takes rank 0's params and optimizer state
-        and its own compressor state: row r of a given ``sync_state``
-        (the gathered ``[N, ...]`` tree a checkpoint holds,
-        :meth:`gather_sync_state`) for rank r, or a fresh one. A
+        ``opt_state``). ``params`` and ``opt_state`` come in the original
+        full layout (a checkpoint's). The state owns copies: the step
+        updates them in place and the caller's tensors never move. With
+        more than one replica, every replica takes rank 0's params and
+        optimizer state and keeps its own shard of each partitioned
+        variable and of its moments; a ZeRO-sharded variable's moments
+        live in ``sync_state['zero']``, this rank's flat shard of them
+        (from a given ``opt_state`` when the ``sync_state`` has none).
+        Each replica takes its own compressor state: row r of a given
+        ``sync_state`` (the gathered ``[N, ...]`` tree a checkpoint
+        holds, :meth:`gather_sync_state`) for rank r, or a fresh one. A
         ``sync_state`` whose tree does not fit this plan is replaced by a
         fresh one, with a warning."""
         if self.model_item.step_fn is not None:
@@ -312,18 +581,45 @@ class DistributedStep:
             placed[name] = t.to(self.device,
                                 torch.float32 if t.is_floating_point()
                                 else t.dtype, copy=True).contiguous()
+        if self.num_replicas > 1:
+            self._broadcast(placed)
         if opt_state is not None:
             opt_state = pytree.tree_map(
                 lambda t: (t.to(self.device, copy=True)
                            if isinstance(t, torch.Tensor) else t), opt_state)
-        elif self.optimizer is not None:
-            opt_state = self.optimizer.init(placed)
-        sync = self._sync_state_init() if self.num_replicas > 1 else {}
+            if self.num_replicas > 1:
+                self._broadcast(opt_state)
+        zero_full = {}
+        if opt_state is not None and self.zero_syncs:
+            # a ZeRO variable has no slot in the device optimizer tree
+            opt_state = dict(opt_state)
+            for slot in ("mu", "nu"):
+                opt_state[slot] = dict(opt_state[slot])
+                for n in self.zero_syncs:
+                    zero_full.setdefault(n, {})[slot] = \
+                        opt_state[slot].pop(n)
+        if opt_state is None and self.optimizer is not None:
+            opt_state = self.optimizer.init(
+                {n: t for n, t in placed.items() if n not in self.zero_syncs})
+        rank, N = self.replica_info.rank, self.num_replicas
+        for n, lay in self.layouts.items():
+            placed[n] = lay.local(placed[n], rank, N)
+            for slot in ("mu", "nu"):
+                if opt_state is not None and n in opt_state.get(slot, {}):
+                    opt_state[slot][n] = lay.local(opt_state[slot][n],
+                                                   rank, N)
+        sync = self._sync_state_init() if N > 1 else {}
+        own = None
         if sync_state is not None:
-            sync = self._own_row(sync_state, sync)
-        if self.num_replicas > 1:
-            self._broadcast(placed)
-            self._broadcast(opt_state)
+            own = self._own_row(sync_state, sync)
+        if own is not None:
+            sync = own
+        elif zero_full:
+            for n, zs in self.zero_syncs.items():
+                little = sync["zero"][n]
+                little["count"].copy_(opt_state["count"])
+                for slot in ("mu", "nu"):
+                    little[slot]["v"].copy_(zs.local_shard(zero_full[n][slot]))
         return TrainState(step=0, params=placed, opt_state=opt_state,
                           sync_state=sync)
 
@@ -343,29 +639,54 @@ class DistributedStep:
             self.model_item.params, placed), opt_state={}, sync_state={})
 
     def _own_row(self, gathered, fresh):
-        """This rank's row of a gathered ``[N, ...]`` compressor-state
-        tree, on the device; ``fresh`` when the tree does not fit this
-        plan (other buckets or synchronizers, another replica count)."""
+        """This rank's row of a gathered ``[N, ...]`` sync-state tree, on
+        the device; None when the tree does not fit this plan (other
+        buckets or synchronizers, another replica count). A ZeRO
+        variable's shards saved at another replica count are re-laid for
+        this one (``relayout_zero_sync_leaf``)."""
+        from autodist_tpu_torch.kernel.synchronization.zero_synchronizer \
+            import relayout_zero_sync_leaf
         got, want = _named_leaves(gathered), _named_leaves(fresh)
+        N = self.num_replicas
+        if got.keys() == want.keys():
+            for k, w in want.items():
+                n_old = int(got[k].shape[0]) if got[k].dim() else 0
+                if not k.startswith("zero/") or n_old in (0, N):
+                    continue
+                zs = self.zero_syncs[k.split("/")[1]]
+                laid = relayout_zero_sync_leaf(got[k].cpu().numpy(), n_old,
+                                               zs, N)
+                if laid is not None:
+                    got[k] = torch.from_numpy(laid)
         fits = got.keys() == want.keys() and all(
-            tuple(got[k].shape) == (self.num_replicas,) + tuple(w.shape)
+            tuple(got[k].shape) == (N,) + tuple(w.shape)
             for k, w in want.items())
         if not fits:
             logging.warning(
                 "sync state in checkpoint incompatible with the current "
                 "strategy (%d replicas, buckets %s); reinitializing",
-                self.num_replicas, sorted(fresh.get("bucket", {})))
-            return fresh
+                N, sorted(fresh.get("bucket", {})))
+            return None
         rank = self.replica_info.rank
         return _map_named(lambda k, w: got[k][rank].to(
             self.device, w.dtype, copy=True), fresh)
 
-    def _loss(self, params, batch):
+    def _full_params(self, params) -> dict:
+        """The params with each partitioned variable all-gathered whole
+        (its storage holds this rank's shard)."""
+        if not self.layouts:
+            return params
+        full = dict(params)
+        for n, lay in self.layouts.items():
+            full[n] = lay.gather_full(params[n], None, self.num_replicas)
+        return full
+
+    def _loss(self, params, batch, grad: bool = False):
         if self.model_item.loss_fn is None:
             raise ValueError("this runner lowers an opaque step_fn, which "
                              "has no loss to evaluate: use loss_fn mode "
                              "(AutoDist.build)")
-        out = self.model_item.loss_fn(params, batch)
+        out = (self._loss_grad if grad else self._loss_cd)(params, batch)
         if self.model_item.has_aux:
             return out
         return out, None
@@ -391,47 +712,78 @@ class DistributedStep:
             metrics["aux"] = pytree.tree_map(reduce, aux)
         return metrics
 
-    def _sync_grads(self, grads, sync_state):
-        """The JAX ``local_step`` epilogue over N > 1 replicas: the
-        sparse-wire tables' dense mean, the buckets, then the per-variable
-        synchronizers, each a mean over the replicas; returns the synced
-        gradients and the new ``sync_state``."""
+    def _launch_unit(self, unit: str, grads, bucket_state, var_state,
+                     async_op: bool = False):
+        """Issue one sync unit's collective (``bucket:<key>``,
+        ``var:<name>`` or ``zero:<name>``): a ``collectives.Pending`` of
+        (its synced gradients by name, its new compressor state as
+        ``(kind, key, state)`` or None). The epilogue waits on each
+        launch at once; the overlapped schedule launches from backward
+        hooks and waits before the apply — the same arithmetic either
+        way."""
+        kind, _, name = unit.partition(":")
+        if kind == "bucket":
+            b = self._bucket_by_key[name]
+            out, nst = collectives.bucket_reduce(
+                b, grads, bucket_state.get(b.key), self._psum,
+                self.num_replicas, ring_axes=self._ring_axes)
+            return collectives.done((out, ("bucket", b.key, nst)))
+        if kind == "zero":
+            pending = self.zero_syncs[name].reduce_scatter_launch(
+                grads[name], async_op)
+            return collectives.Pending((), lambda: (
+                {name: pending.wait()}, None))
+        pending = self.syncs[name].launch(grads[name], var_state.get(name),
+                                          async_op)
+
+        def finish():
+            synced, nst = pending.wait()
+            return {name: synced}, ("var", name, nst)
+        return collectives.Pending((), finish)
+
+    def _sync_grads(self, grads, sync_state, overlap=None):
+        """The JAX ``local_step`` gradient sync over N > 1 replicas: the
+        sync units (:meth:`_launch_unit`) — launched here one after the
+        other as the epilogue, or already launched by the overlapped
+        schedule (``overlap``, an :class:`_OverlapRun`), then waited on
+        in order — and the sparse-wire tables' dense mean; returns the
+        synced gradients (a partitioned or ZeRO variable's: this rank's
+        shard) and the new ``sync_state``."""
         N = self.num_replicas
-        new_bucket = dict(sync_state.get("bucket", {}))
-        new_var = dict(sync_state.get("var", {}))
+        new_state = {"bucket": dict(sync_state.get("bucket", {})),
+                     "var": dict(sync_state.get("var", {}))}
+        if overlap is not None:
+            launched = overlap.finish(grads)
+        else:
+            launched = [self._launch_unit(u, grads, new_state["bucket"],
+                                          new_state["var"])
+                        for u in self._epilogue_units()]
         synced = {}
+        for pending in launched:
+            out, nst = pending.wait()
+            synced.update(out)
+            if nst is not None and nst[2] is not None:
+                new_state[nst[0]][nst[1]] = nst[2]
         # the JAX lowering ships these as (ids, values) pairs; the port
         # sends the dense gradient (ROADMAP A item 8), the same mean
         for n in sorted(self.sparse_wire):
             synced[n] = self._psum(grads[n]) / N
-        for b in self.buckets:
-            out, nst = collectives.bucket_reduce(
-                b, grads, new_bucket.get(b.key), self._psum, N,
-                ring_axes=self._ring_axes)
-            synced.update(out)
-            if nst is not None:
-                new_bucket[b.key] = nst
-        for n, s in self.syncs.items():
-            if n in self._bucketed or n in synced:
-                continue
-            synced[n], nst = s.sync(grads[n], new_var.get(n))
-            if nst is not None:
-                new_var[n] = nst
         new_sync = dict(sync_state)
-        for key, value in (("bucket", new_bucket), ("var", new_var)):
+        for key, value in new_state.items():
             if value:
                 new_sync[key] = value
         return synced, new_sync
 
     def _step(self, state: TrainState, batch):
         """One microstep on ``state``, with no span and no dispatch count:
-        ``(new_state, metrics)``. In loss_fn mode the loss and grads of
-        the trainable variables, with more than one replica their sync
-        (:meth:`_sync_grads`), and the optimizer apply, in place on
-        ``state``'s tensors. In step_fn mode the user's ``step_fn(state,
-        batch) -> (new_state, metrics)`` as given (its metrics detached).
-        Nothing here reads a value back to the host, so a CUDA graph can
-        hold it (:mod:`~autodist_tpu_torch.kernel.superstep`)."""
+        ``(new_state, metrics)``. In loss_fn mode the loss (under the
+        compute tier and remat) and grads of the trainable variables,
+        with more than one replica their sync (:meth:`_sync_grads`), and
+        the optimizer apply, in place on ``state``'s tensors. In step_fn
+        mode the user's ``step_fn(state, batch) -> (new_state, metrics)``
+        as given (its metrics detached). Nothing here reads a value back
+        to the host, so a CUDA graph can hold it
+        (:mod:`~autodist_tpu_torch.kernel.superstep`)."""
         item = self.model_item
         if item.step_fn is not None:
             with torch.enable_grad():
@@ -442,27 +794,58 @@ class DistributedStep:
                               sync_state=state.sync_state), \
                 pytree.tree_map(_detach, metrics)
         trainable = item.trainable_var_names
-        full = dict(state.params)
+        full = dict(self._full_params(state.params))
         for n in trainable:
-            full[n] = state.params[n].detach().requires_grad_()
-        with torch.enable_grad():
-            loss, aux = self._loss(full, batch)
-            grads = torch.autograd.grad(
-                loss, [full[n] for n in trainable], allow_unused=True) \
-                if trainable else ()
-        grads = {n: (g if g is not None
-                     else torch.zeros_like(state.params[n]))
-                 for n, g in zip(trainable, grads)}
+            full[n] = full[n].detach().requires_grad_()
         sync_state = state.sync_state
+        overlap = None
+        if self.schedule is not None:
+            overlap = _OverlapRun(self, full,
+                                  dict(sync_state.get("bucket", {})),
+                                  dict(sync_state.get("var", {})))
+        try:
+            with torch.enable_grad():
+                loss, aux = self._loss(full, batch, grad=True)
+                grads = torch.autograd.grad(
+                    loss, [full[n] for n in trainable], allow_unused=True) \
+                    if trainable else ()
+        finally:
+            if overlap is not None:
+                overlap.disarm()
+                self.overlap_log = overlap.log
+        grads = {n: (g if g is not None else torch.zeros_like(full[n]))
+                 for n, g in zip(trainable, grads)}
         with torch.no_grad():
             if self.num_replicas > 1:
-                with tel.span("dstep.grad_sync", "dstep"):
-                    grads, sync_state = self._sync_grads(grads, sync_state)
-            opt_state = self.optimizer.update(grads, state.opt_state,
-                                              state.params)
+                with tel.span("dstep.grad_sync", "dstep",
+                              overlap=overlap is not None):
+                    grads, sync_state = self._sync_grads(grads, sync_state,
+                                                         overlap)
+            opt_state = self.optimizer.update(
+                {n: g for n, g in grads.items() if n not in self.zero_syncs},
+                state.opt_state, state.params)
+            if self.zero_syncs:
+                self._zero_apply(grads, state.params, sync_state)
         return TrainState(step=state.step + 1, params=state.params,
                           opt_state=opt_state,
                           sync_state=sync_state), self._metrics(loss, aux)
+
+    def _zero_apply(self, grads, params, sync_state):
+        """The sharded weight update: the optimizer on each ZeRO
+        variable's owned flat shard (a little ``{"v": shard}`` tree
+        against its state in ``sync_state['zero']``, advanced in place),
+        then the update delta all-gathered and added to the replicated
+        f32 param on every rank."""
+        for n in sorted(self.zero_syncs):
+            zs = self.zero_syncs[n]
+            delta = self.optimizer.delta({"v": grads[n]},
+                                         sync_state["zero"][n])["v"]
+            params[n].add_(zs.gather_update(delta))
+
+    def _count_wire(self, microsteps: int = 1):
+        if self._zero_rs_step or self._zero_ag_step:
+            tel.counter_add("zero.rs_bytes", self._zero_rs_step * microsteps)
+            tel.counter_add("zero.ag_bytes", self._zero_ag_step * microsteps)
 
     def _check_trainable(self):
         if self.optimizer is None and self.model_item.step_fn is None:
@@ -485,6 +868,7 @@ class DistributedStep:
             out = self._step(state, batch)
         self.dispatches += 1
         tel.counter_add("dstep.dispatches")
+        self._count_wire()
         return out
 
     def multi_step(self, k: int, donate: bool = True) -> Callable:
@@ -571,34 +955,54 @@ class DistributedStep:
             new_state, _, _, metrics = fn(state, {}, {}, stacked_batch)
         self.dispatches += 1
         tel.counter_add("dstep.dispatches")
+        self._count_wire(k)
         return new_state, metrics
 
     def evaluate(self, state: TrainState, batch):
-        """Forward-only metrics: no grads, no optimizer."""
+        """Forward-only metrics under the compute tier: no grads, no
+        optimizer."""
         with torch.no_grad(), tel.span("dstep.evaluate", "dstep"):
-            return self._metrics(*self._loss(state.params, batch))
+            return self._metrics(*self._loss(
+                self._full_params(state.params), batch))
 
     def gather_params(self, state: TrainState) -> dict:
-        """The full params in their original names: this replica's, which
-        equal every other's (each device holds them whole, so this is the
-        state's own mapping, copied shallowly); in step_fn mode the user's
-        state tree itself."""
+        """The full params in their original names and layout: this
+        replica's, which equal every other's, with each partitioned
+        variable all-gathered and unpadded (a collective every rank must
+        join); in step_fn mode the user's state tree itself."""
         if self.model_item.step_fn is not None:
             return state.params
-        return dict(state.params)
+        return dict(self._full_params(state.params))
 
     def gather_opt_state(self, state: TrainState):
-        """The optimizer state in the original names and layout: this
-        replica's, which equals every other's (the state's own tensors,
-        on the device)."""
-        return state.opt_state
+        """The optimizer state in the original names and full layout:
+        each partitioned variable's moments all-gathered and unpadded, and
+        each ZeRO-sharded variable's rebuilt from the ranks' shards in
+        ``sync_state['zero']`` (the JAX ``gather_opt_state``). With such
+        variables it is a collective every rank must join; otherwise the
+        state's own tensors, on the device."""
+        opt = state.opt_state
+        if not (self.layouts or self.zero_syncs) or not opt:
+            return opt
+        N = self.num_replicas
+        out = dict(opt)
+        for slot in ("mu", "nu"):
+            out[slot] = dict(opt[slot])
+            for n, lay in self.layouts.items():
+                out[slot][n] = lay.gather_full(opt[slot][n], None, N)
+            for n, zs in sorted(self.zero_syncs.items()):
+                shard = state.sync_state["zero"][n][slot]["v"]
+                out[slot][n] = zs.unshard(
+                    [collectives.all_gather_flat(shard, None, N)])
+        return out
 
     def gather_sync_state(self, state: TrainState):
-        """Every replica's compressor state, each leaf ``[N, ...]`` with
-        row r rank r's (the JAX package keeps this leading device axis in
-        its checkpoints): an ``all_gather`` a leaf with more than one
-        replica, which every rank must join; the state itself with a
-        leading axis of 1 with one replica."""
+        """Every replica's compressor state and ZeRO optimizer-state
+        shards, each leaf ``[N, ...]`` with row r rank r's (the JAX
+        package keeps this leading device axis in its checkpoints): an
+        ``all_gather`` a leaf with more than one replica, which every
+        rank must join; the state itself with a leading axis of 1 with
+        one replica."""
         def gather(t):
             if self.num_replicas == 1:
                 return t[None]
@@ -708,29 +1112,27 @@ class GraphTransformer:
             raise NotImplementedError(
                 "%s with %d replicas is not ported yet (ROADMAP A item %d)"
                 % (what, self._replicas.num_replicas, item))
-        if gc.overlap:
-            refuse("overlap=True (the overlapped gradient-sync schedule)", 7)
-        if (gc.compute_dtype or "f32") != "f32":
-            refuse("compute_dtype=%r" % gc.compute_dtype, 7)
         if gc.mesh_shape or gc.seq_axis or gc.batch_axes:
             refuse("a mesh beyond the data axis (mesh_shape/seq_axis/"
                    "batch_axes)", 9)
         hosts = {r.split(":")[0] for r in gc.replicas}
         for node in self._strategy.node_config:
-            if node.partitioner or node.part_configs:
-                refuse("the partitioned layout of %s" % node.var_name, 7)
-            cfg = node.synchronizer
-            if cfg is None or cfg.kind == "PS":
-                refuse("the PS synchronizer of %s" % node.var_name, 8)
-            if cfg.kind != "AllReduce":
-                refuse("the %s synchronizer of %s" % (cfg.kind,
-                                                      node.var_name), 7)
-            if cfg.schedule == "rhd":
-                refuse("schedule='rhd' on %s" % node.var_name, 7)
-            if (cfg.schedule == "hier" or cfg.spec == "DCN") and \
-                    len(hosts) > 1:
-                refuse("the hierarchical psum (schedule='hier' or "
-                       "spec='DCN' across hosts) on %s" % node.var_name, 7)
+            if node.mp_axes:
+                refuse("the model-parallel layout (mp_axes) of %s"
+                       % node.var_name, 9)
+            cfgs = [node.synchronizer] if node.synchronizer is not None \
+                else [p.synchronizer for p in node.part_configs or ()]
+            for cfg in cfgs or [None]:
+                if cfg is None or cfg.kind == "PS":
+                    refuse("the PS synchronizer of %s" % node.var_name, 8)
+                schedule = getattr(cfg, "schedule", "auto")
+                if schedule == "rhd":
+                    refuse("schedule='rhd' on %s" % node.var_name, 7)
+                if (schedule == "hier" or getattr(cfg, "spec", "") == "DCN") \
+                        and len(hosts) > 1:
+                    refuse("the hierarchical psum (schedule='hier' or "
+                           "spec='DCN' across hosts) on %s" % node.var_name,
+                           7)
 
     def _check_step_fn(self, replicas: int):
         """step_fn mode (the JAX ``_transform_step_fn``'s refusals): the

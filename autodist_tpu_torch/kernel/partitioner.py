@@ -1,0 +1,131 @@
+"""Variable partitioner — sharded storage layouts for variables and their
+optimizer state.
+
+PyTorch counterpart of ``autodist_tpu/kernel/partitioner.py``. A
+partitioned variable is stored as this rank's shard: the split axis is
+zero-padded to a multiple of the replica count (ceil-split, so every
+shard has one shape) and rank r keeps the r-th slice. The step
+all-gathers the full value before the loss (:meth:`VarLayout.gather_full`)
+and reduce-scatters the full gradient back to the shard
+(:meth:`VarLayout.reduce_scatter_grad_launch`, one ``all_to_all_single``
+and a local sum, ``parallel/collectives.py``); the optimizer applies to
+the shard, whose moments are shard-shaped too. Checkpoints hold the
+original, unpadded layout (``DistributedStep.gather_params``).
+
+The split axis indexes the port's tensor (a Dense ``weight`` is ``[out,
+in]``); where it lies does not change the step's values, only which
+rank stores which elements. Model-parallel ``mp_axes`` layouts wait for
+the mesh axes (ROADMAP A item 9); the lowering refuses them by name.
+"""
+import dataclasses
+from typing import Dict
+
+import torch
+import torch.nn.functional as F
+
+from autodist_tpu_torch.parallel import collectives
+from autodist_tpu_torch.strategy.base import Strategy
+from autodist_tpu_torch.utils import logging
+
+
+@dataclasses.dataclass(frozen=True)
+class VarLayout:
+    """Storage layout of one variable over the replicas (``partitioned``:
+    the reference's ``PartitionedVariable``)."""
+    name: str
+    partitioned: bool = False
+    axis: int = 0                 # split axis
+    orig_dim: int = 0             # original size of the split axis
+    padded_dim: int = 0           # padded size (multiple of the replicas)
+
+    def pad(self, t: torch.Tensor) -> torch.Tensor:
+        """Zero-pad the split axis to ``padded_dim`` (full-tensor form)."""
+        if not self.partitioned or self.padded_dim == self.orig_dim:
+            return t
+        widths = [0, 0] * t.dim()
+        # F.pad lists the last dim first
+        widths[2 * (t.dim() - 1 - self.axis) + 1] = \
+            self.padded_dim - self.orig_dim
+        return F.pad(t, widths)
+
+    def unpad(self, t: torch.Tensor) -> torch.Tensor:
+        if not self.partitioned or self.padded_dim == self.orig_dim:
+            return t
+        return t.narrow(self.axis, 0, self.orig_dim)
+
+    def shard_dim(self, n: int) -> int:
+        return self.padded_dim // n
+
+    def local(self, full: torch.Tensor, rank: int, n: int) -> torch.Tensor:
+        """Rank ``rank``'s shard of the full (unpadded) value, as a new
+        contiguous tensor."""
+        if not self.partitioned:
+            return full
+        rows = self.shard_dim(n)
+        return self.pad(full).narrow(self.axis, rank * rows,
+                                     rows).contiguous()
+
+    def gather_full(self, local: torch.Tensor, group, n: int
+                    ) -> torch.Tensor:
+        """All-gather the ranks' shards into the full (unpadded) value."""
+        if not self.partitioned or n <= 1:
+            return local
+        lead = local.movedim(self.axis, 0).contiguous()
+        full = collectives.all_gather_flat(lead.reshape(-1), group, n)
+        full = full.reshape((n * lead.shape[0],) + tuple(lead.shape[1:]))
+        return self.unpad(full.movedim(0, self.axis)).contiguous()
+
+    def reduce_scatter_grad_launch(self, grad_full: torch.Tensor, group,
+                                   n: int, async_op: bool = False):
+        """Launch the pad + reduce-scatter of the full gradient: each rank
+        gets the summed gradient of its own shard (sum, not mean — the
+        caller normalizes). Returns a ``collectives.Pending``."""
+        if not self.partitioned:
+            raise ValueError("reduce_scatter_grad on unpartitioned var %s"
+                             % self.name)
+        rows = self.padded_dim
+        lead = self.pad(grad_full).movedim(self.axis, 0).contiguous()
+        rest = tuple(lead.shape[1:])
+        pending = collectives.reduce_scatter_flat_launch(
+            lead.reshape(-1), group, n, async_op)
+
+        def finish():
+            shard = pending.wait().reshape((rows // n,) + rest)
+            return shard.movedim(0, self.axis).contiguous()
+        return collectives.Pending((), finish)
+
+
+class VariablePartitioner:
+    """Computes ``{var_name: VarLayout}`` from a compiled Strategy:
+    variables whose node has a ``partitioner`` string get a partitioned
+    layout over the replicas; everything else is replicated (the JAX
+    ``VariablePartitioner``)."""
+
+    @staticmethod
+    def apply(strategy: Strategy, var_infos, num_replicas: int
+              ) -> Dict[str, VarLayout]:
+        layouts: Dict[str, VarLayout] = {}
+        for node in strategy.node_config:
+            info = var_infos.get(node.var_name)
+            if info is None:
+                continue
+            axis = node.partition_axis
+            if node.partitioner is None or axis is None or num_replicas <= 1:
+                layouts[node.var_name] = VarLayout(name=node.var_name)
+                continue
+            dim = info.shape[axis]
+            if dim < num_replicas:
+                # fewer rows than replicas: mostly-padding shards gathered
+                # every step for no benefit
+                logging.warning("var %s dim %d < %d replicas; keeping "
+                                "replicated", node.var_name, dim,
+                                num_replicas)
+                layouts[node.var_name] = VarLayout(name=node.var_name)
+                continue
+            padded = -(-dim // num_replicas) * num_replicas
+            layouts[node.var_name] = VarLayout(
+                name=node.var_name, partitioned=True, axis=axis,
+                orig_dim=dim, padded_dim=padded)
+        for name in var_infos:
+            layouts.setdefault(name, VarLayout(name=name))
+        return layouts

@@ -1,32 +1,47 @@
-"""AllReduce synchronizer kernel (PyTorch counterpart of the unpartitioned
-path of ``autodist_tpu/kernel/synchronization/all_reduce_synchronizer.py``).
+"""AllReduce synchronizer kernel (PyTorch counterpart of
+``autodist_tpu/kernel/synchronization/all_reduce_synchronizer.py``).
 
 Replaces each replica's gradient with the mean over the replicas: the
 compressor's reduce around ``dist.all_reduce`` (SUM) on the process
 group, divided by the replica count. ``wire_dtype="int8"`` substitutes
 the ``Int8CompressorEF`` wire codec when no compressor is named; the
 bucketing layer arms it (``parallel/collectives.py::bucket_reduce``).
+A partitioned variable (``layout.partitioned``) takes the
+reduce-scatter path instead: each rank receives the summed gradient of
+its own shard (``kernel/partitioner.py``); a compressor or the int8 wire
+is ignored there, with a warning, as in the JAX kernel.
 ``group`` (the bucket id), ``spec`` and ``schedule`` are recorded for the
 bucketing layer; the lowering refuses the schedules the port has not
 reached (``kernel/graph_transformer.py``).
+
+:meth:`AllReduceSynchronizer.launch` issues the collective and returns a
+``collectives.Pending``; :meth:`sync` is launch-and-wait. The plain
+(NoneCompressor) all-reduce and the reduce-scatter can be asynchronous
+(the overlapped schedule launches them from backward hooks); a
+compressor's reduce runs at launch, as it interleaves collectives with
+local arithmetic.
 """
 from autodist_tpu_torch.kernel.synchronization import \
     compressor as compressor_lib
 from autodist_tpu_torch.kernel.synchronization.synchronizer import \
     Synchronizer
+from autodist_tpu_torch.parallel import collectives
+from autodist_tpu_torch.utils import logging
 
 
 class AllReduceSynchronizer(Synchronizer):
     def __init__(self, var_name, config, num_replicas, process_group=None,
-                 collective_name: str = ""):
+                 collective_name: str = "", layout=None):
         super().__init__(var_name, config, num_replicas, process_group)
+        self.layout = layout
+        partitioned = layout is not None and layout.partitioned
         # PowerSGD seeds its Q from the name: the JAX spelling, so every
         # rank (and the JAX package) derives it from the same string
         key_name = collective_name or var_name
         self.compressor = compressor_lib.create(
             getattr(config, "compressor", None), key_name)
         self.wire_dtype = getattr(config, "wire_dtype", "fp32") or "fp32"
-        if (self.wire_dtype == "int8"
+        if (self.wire_dtype == "int8" and not partitioned
                 and self.compressor.name == "NoneCompressor"):
             self.compressor = compressor_lib.create("Int8CompressorEF",
                                                     key_name)
@@ -34,10 +49,37 @@ class AllReduceSynchronizer(Synchronizer):
         self.spec = getattr(config, "spec", "AUTO")
         self.schedule = (getattr(config, "schedule", "auto")
                          or "auto").lower()
+        if partitioned and self.compressor.name != "NoneCompressor":
+            logging.warning("var %s: compressor %s is ignored on the "
+                            "partitioned (reduce-scatter) path", var_name,
+                            self.compressor.name)
+        if partitioned and self.wire_dtype == "int8":
+            logging.warning("var %s: wire_dtype=int8 is ignored on the "
+                            "partitioned (reduce-scatter) path (ADT310)",
+                            var_name)
 
     def state_init(self, grad_shape, dtype):
+        if self.layout is not None and self.layout.partitioned:
+            return None
         return self.compressor.state_init(grad_shape, dtype)
 
-    def sync(self, grad, state):
+    def launch(self, grad, state, async_op: bool = False):
+        """Issue this variable's collective: a ``collectives.Pending`` of
+        (the mean-reduced gradient — this rank's shard of it when
+        partitioned —, the new state)."""
+        N = self.num_replicas
+        if self.layout is not None and self.layout.partitioned:
+            pending = self.layout.reduce_scatter_grad_launch(
+                grad, self.process_group, N, async_op)
+            return collectives.Pending((), lambda: (pending.wait() / N,
+                                                    state))
+        if self.compressor.name == "NoneCompressor":
+            pending = collectives.all_reduce_sum_launch(
+                grad, self.process_group, async_op)
+            return collectives.Pending((), lambda: (pending.wait() / N,
+                                                    state))
         reduced, new_state = self.compressor.reduce(grad, state, self.psum)
-        return reduced / self.num_replicas, new_state
+        return collectives.done((reduced / N, new_state))
+
+    def sync(self, grad, state):
+        return self.launch(grad, state).wait()

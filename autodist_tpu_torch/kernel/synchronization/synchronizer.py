@@ -14,19 +14,15 @@ the tensors' device raises.
 from abc import ABC, abstractmethod
 
 import torch
-import torch.distributed as dist
 
-from autodist_tpu_torch.telemetry import spans as tel
+from autodist_tpu_torch.parallel import collectives
 
 
 def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
     """Sum of ``x`` over the ranks of ``group`` (None: the default group),
     as a new tensor; ``x`` is left as it was. Counts the payload in
     ``sync.wire_bytes``."""
-    out = x.clone()
-    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
-    tel.counter_add("sync.wire_bytes", out.numel() * out.element_size())
-    return out
+    return collectives.all_reduce_sum_launch(x, group).wait()
 
 
 class Synchronizer(ABC):

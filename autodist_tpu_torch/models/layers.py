@@ -186,6 +186,9 @@ class MultiHeadAttention(nn.Module):
 class TransformerBlock(nn.Module):
     """Pre-LN transformer block: x + MHA(LN(x)), then x + MLP(LN(x))."""
 
+    # a repeated block: remat recomputes each one on its own
+    recompute_unit = True
+
     def __init__(self, d_model: int, num_heads: int, head_dim: int,
                  mlp_dim: int, dtype=torch.float32,
                  attn_fn: Optional[Callable] = None,

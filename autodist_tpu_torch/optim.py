@@ -25,17 +25,16 @@ the moments and the count in place (the JAX step donates its state and
 returns new buffers). Nothing in it reads a value back to the host: the
 count is incremented on the device and the bias corrections ``1 -
 b**count`` are computed there, so one captured CUDA graph of the update
-applies the right correction at every replay. They are computed in
-float64 and applied as float32 reciprocals, the arithmetic the update
-had when the count was a host int (PyTorch's CUDA kernels multiply by
-the reciprocal of a Python float divisor). This departs from optax,
-which computes them in float32 and divides: a parameter moves by up to
-~3e-6 after six steps at lr 0.1 (``tests/test_torch_autodist_api.py``).
-It is an open fault (ROADMAP C4), not a settled choice: optax's float32
-arithmetic made ``chip_smoke.py`` phase 7's fixed-batch bert_base run,
-whose loss spikes at step 10 and oscillates, end above its first loss,
-and that run's "the loss falls" gate decides too little to pick the
-arithmetic by.
+applies the right correction at every replay. They are computed as optax
+computes them: ``b**count`` in float32, and the moments divided by the
+float32 corrections.
+
+The ZeRO-sharded update (``kernel/synchronization/zero_synchronizer.py``)
+applies the same arithmetic to each replica's flat shard of a variable
+through :meth:`OptimizerSpec.delta`, on a little ``{"v": shard}`` tree
+with its own state, and gets the update back instead of a written
+parameter (the JAX lowering's per-variable ``optimizer.update`` whose
+delta it all-gathers).
 """
 import dataclasses
 import functools
@@ -81,9 +80,21 @@ class OptimizerSpec:
         them. The count is incremented in place, saturating at the int32
         maximum as optax's ``safe_increment`` does."""
         names = list(grads)
+        upd = self._updates(names, grads, state)
+        torch._foreach_add_([params[n] for n in names], upd)
+        return dict(state)
+
+    def delta(self, grads: Dict[str, torch.Tensor], state: dict
+              ) -> Dict[str, torch.Tensor]:
+        """optax ``update`` without ``apply_updates``: the moments and the
+        count of ``state`` advance in place, and the updates (the deltas
+        to add to the parameters) are returned by name."""
+        names = list(grads)
+        return dict(zip(names, self._updates(names, grads, state)))
+
+    def _updates(self, names, grads, state):
         count = state["count"]
         count.add_((count < _INT32_MAX).to(count.dtype))
-        ps = [params[n] for n in names]
         gs = [grads[n] for n in names]
         lr = float(self._hp("lr"))
         b1, b2 = (float(x) for x in self._hp("betas"))
@@ -94,31 +105,24 @@ class OptimizerSpec:
         torch._foreach_add_(mus, gs, alpha=1.0 - b1)
         torch._foreach_mul_(nus, b2)
         torch._foreach_addcmul_(nus, gs, gs, value=1.0 - b2)
-        # the bias corrections 1 - b**count, on the device (a replayed
-        # CUDA graph reads the count there), applied as float32
-        # reciprocals of their float64 values: the arithmetic of dividing
-        # by a Python float on the card, as the update did with a host
-        # count; optax's is float32 (ROADMAP C4, the module docstring)
-        upd = torch._foreach_mul(mus, _reciprocal_correction(b1, count))
-        den = torch._foreach_mul(nus, _reciprocal_correction(b2, count))
+        # the bias corrections 1 - b**count in float32 on the device (a
+        # replayed CUDA graph reads the count there), divided by, as
+        # optax's bias_correction does
+        upd = torch._foreach_div(mus, _correction(b1, count))
+        den = torch._foreach_div(nus, _correction(b2, count))
         torch._foreach_sqrt_(den)
         torch._foreach_add_(den, eps)                       # eps outside
         torch._foreach_div_(upd, den)
         del den
         torch._foreach_mul_(upd, -lr)
-        torch._foreach_add_(ps, upd)
-        new = dict(state)
-        new["count"] = count
-        return new
+        return upd
 
 
-def _reciprocal_correction(beta: float, count: torch.Tensor) -> torch.Tensor:
-    """``1 / (1 - beta**count)`` as a float32 0-d tensor beside ``count``,
-    computed in float64."""
-    steps = count.to(torch.float64)
-    corr = 1 - torch.full((), beta, dtype=torch.float64,
-                          device=count.device).pow(steps)
-    return (1 / corr).to(torch.float32)
+def _correction(beta: float, count: torch.Tensor) -> torch.Tensor:
+    """optax's ``1 - beta**count`` as a float32 0-d tensor beside
+    ``count``."""
+    return 1 - torch.full((), beta, dtype=torch.float32,
+                          device=count.device).pow(count.to(torch.float32))
 
 
 def capture(optimizer) -> Optional[OptimizerSpec]:

@@ -16,7 +16,24 @@ PyTorch counterpart of ``autodist_tpu/parallel/collectives.py``:
   to the torch codec and to the JAX package's);
 - **the two-phase quantized all-reduce** (:func:`int8_block_all_reduce`):
   one ``all_to_all`` of the int8 body and one of the f32 scales, a local
-  f32 dequant-accumulate, a requantize and an ``all_gather``.
+  f32 dequant-accumulate, a requantize and an ``all_gather``;
+- **reduce-scatter and all-gather** of a flat vector
+  (:func:`reduce_scatter_flat_launch`, :func:`all_gather_flat`) and their
+  int8 forms (:func:`int8_block_reduce_scatter`,
+  :func:`int8_block_all_gather`), the wire of the ZeRO-sharded update and
+  of the partitioned layouts. The reduce-scatter is one
+  ``all_to_all_single`` and a local sum over the ranks' chunks, one form
+  on every backend and device (gloo runs ``all_to_all_single`` on CUDA
+  tensors; its ``reduce_scatter_tensor`` there is not relied on). The
+  reduce-scatters and the plain all-gather split into a launch that
+  returns a :class:`Pending` and its completion, so the overlapped
+  schedule can issue the collective asynchronously and finish it later
+  with the same arithmetic;
+- **the gradient-sync schedule IR** (:class:`CollectiveOp`,
+  :class:`ScheduleStage`, :class:`GradSyncSchedule`,
+  :func:`build_grad_sync_schedule`): the sync units ordered by reverse
+  layer position, which the overlapped lowering launches from backward
+  hooks (``kernel/graph_transformer.py``).
 
 The JAX codec is plain XLA outside any Pallas kernel; its counterpart
 here is plain torch ops. The collectives run on the process group they
@@ -24,11 +41,11 @@ are given, on whatever device the tensors are on: the same calls serve
 NCCL and gloo (gloo runs ``all_to_all_single``, ``all_gather`` and
 ``all_reduce`` on CUDA tensors by staging them through the host).
 
-The schedule IR, the hierarchical and recursive halving/doubling psums
-and the ring variants of the JAX module are not ported yet.
+The hierarchical and recursive halving/doubling psums and the ring
+variants of the JAX module are not ported yet (ROADMAP A item 7).
 """
 import dataclasses
-from typing import Dict, List, Tuple
+from typing import Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -251,18 +268,58 @@ def int8_wire_payload_bytes(num_elements: int, itemsize: int = 4,
     return nb * block + nb * 4, int(num_elements) * int(itemsize)
 
 
-def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+class Pending:
+    """A launched collective: ``wait()`` blocks on its handles (none for
+    a collective that ran synchronously) and returns ``finish()``'s
+    value, computed once."""
+
+    def __init__(self, handles, finish: Callable):
+        self._handles = [h for h in handles if h is not None]
+        self._finish = finish
+        self._done = False
+        self._value = None
+
+    def wait(self):
+        if not self._done:
+            for h in self._handles:
+                h.wait()
+            self._value = self._finish()
+            self._done = True
+        return self._value
+
+
+def done(value) -> Pending:
+    """A :class:`Pending` of an already computed value."""
+    return Pending((), lambda: value)
+
+
+def _all_to_all(x: torch.Tensor, group, async_op: bool = False) -> Pending:
     out = torch.empty_like(x)
-    dist.all_to_all_single(out, x.contiguous(), group=group)
+    handle = dist.all_to_all_single(out, x.contiguous(), group=group,
+                                    async_op=async_op)
     tel.counter_add("sync.wire_bytes", x.numel() * x.element_size())
-    return out
+    return Pending([handle], lambda: out)
 
 
-def _all_gather(x: torch.Tensor, group, n: int) -> torch.Tensor:
+def _all_gather(x: torch.Tensor, group, n: int,
+                async_op: bool = False) -> Pending:
+    """The ranks' ``x`` stacked in rank order, ``[n, *x.shape]``."""
     parts = [torch.empty_like(x) for _ in range(n)]
-    dist.all_gather(parts, x.contiguous(), group=group)
+    handle = dist.all_gather(parts, x.contiguous(), group=group,
+                             async_op=async_op)
     tel.counter_add("sync.wire_bytes", x.numel() * x.element_size())
-    return torch.stack(parts)
+    return Pending([handle], lambda: torch.stack(parts))
+
+
+def all_reduce_sum_launch(x: torch.Tensor, group=None,
+                          async_op: bool = False) -> Pending:
+    """Launch the sum of ``x`` over the ranks of ``group`` (None: the
+    default group) into a new tensor; ``x`` is left as it was."""
+    out = x.clone()
+    handle = dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group,
+                             async_op=async_op)
+    tel.counter_add("sync.wire_bytes", out.numel() * out.element_size())
+    return Pending([handle], lambda: out)
 
 
 def int8_block_all_reduce(x: torch.Tensor, group, n: int, block: int = 0):
@@ -278,25 +335,15 @@ def int8_block_all_reduce(x: torch.Tensor, group, n: int, block: int = 0):
        all-gathers (int8 + scales); every rank dequantizes the same
        bytes, so the result is bit-identical across ranks.
 
-    Chunks are padded to whole scale blocks, so every chunk's scales are
-    its own. Exactly two quantizations of any element; pair with error
-    feedback (``Int8CompressorEF``) for training."""
-    block = block or wire_block_size()
+    Phases 1-2 are :func:`int8_block_reduce_scatter`, phase 3
+    :func:`int8_block_all_gather`. Chunks are padded to whole scale
+    blocks, so every chunk's scales are its own. Exactly two
+    quantizations of any element; pair with error feedback
+    (``Int8CompressorEF``) for training."""
     if n <= 1:
         return x
-    L = x.shape[0]
-    chunk = -(-(-(-L // n)) // block) * block
-    nb = chunk // block
-    xp = F.pad(x.to(torch.float32), (0, n * chunk - L)).reshape(n, nb, block)
-    q, scale = _quant_rows(xp)
-    q = _all_to_all(q, group)
-    s = _all_to_all(scale, group)
-    acc = (q.to(torch.float32) * s[:, :, None]).sum(dim=0)   # [nb, block]
-    q2, s2 = quant_i8_block(acc.reshape(-1), block)
-    q2g = _all_gather(q2, group, n)                            # [n, nb, block]
-    s2g = _all_gather(s2, group, n)                            # [n, nb]
-    out = q2g.to(torch.float32) * s2g[:, :, None]
-    return out.reshape(-1)[:L]
+    shard = int8_block_reduce_scatter(x, group, n, block)
+    return int8_block_all_gather(shard, group, n, block)[:x.shape[0]]
 
 
 def int8_multi_axis_all_reduce(x: torch.Tensor, axes_sizes, block: int = 0):
@@ -307,3 +354,220 @@ def int8_multi_axis_all_reduce(x: torch.Tensor, axes_sizes, block: int = 0):
         if n > 1:
             x = int8_block_all_reduce(x, group, n, block)
     return x
+
+
+# ------------------------------------------ reduce-scatter and all-gather
+
+
+def reduce_scatter_flat_launch(x: torch.Tensor, group, n: int,
+                               async_op: bool = False) -> Pending:
+    """Launch the sum-reduce-scatter of a flat vector of ``n`` equal
+    chunks over the ``n`` ranks of ``group``: rank r receives chunk r
+    summed over the ranks, ``[len(x) / n]``. One ``all_to_all_single``
+    (chunk j to rank j), then a local sum of the received chunks."""
+    if n <= 1:
+        return done(x)
+    out = _all_to_all(x, group, async_op)
+    return Pending([out], lambda: out.wait().reshape(n, -1).sum(dim=0))
+
+
+def all_gather_flat_launch(x: torch.Tensor, group, n: int,
+                           async_op: bool = False) -> Pending:
+    """Launch the all-gather of each rank's flat chunk: the ``[n *
+    len(x)]`` concatenation in rank order."""
+    if n <= 1:
+        return done(x)
+    parts = _all_gather(x, group, n, async_op)
+    return Pending([parts], lambda: parts.wait().reshape(-1))
+
+
+def all_gather_flat(x: torch.Tensor, group, n: int) -> torch.Tensor:
+    return all_gather_flat_launch(x, group, n).wait()
+
+
+def int8_block_reduce_scatter_launch(x: torch.Tensor, group, n: int,
+                                     block: int = 0,
+                                     async_op: bool = False) -> Pending:
+    """Launch :func:`int8_block_reduce_scatter`: the two ``all_to_all``
+    of the int8 body and the f32 scales; the dequant-accumulate runs at
+    ``wait()``."""
+    block = block or wire_block_size()
+    L = x.shape[0]
+    chunk = -(-(-(-L // n)) // block) * block
+    nb = chunk // block
+    if n <= 1:
+        return done(F.pad(x.to(torch.float32), (0, chunk - L)))
+    xp = F.pad(x.to(torch.float32), (0, n * chunk - L)).reshape(n, nb, block)
+    q, scale = _quant_rows(xp)
+    q = _all_to_all(q, group, async_op)
+    s = _all_to_all(scale, group, async_op)
+    return Pending([q, s], lambda: (
+        q.wait().to(torch.float32) * s.wait()[:, :, None]).sum(
+            dim=0).reshape(-1))
+
+
+def int8_block_reduce_scatter(x: torch.Tensor, group, n: int,
+                              block: int = 0) -> torch.Tensor:
+    """Reduce-scatter a flat f32 vector over the ``n`` ranks of ``group``
+    with a blockwise int8 wire payload — phases 1+2 of the two-phase
+    all-reduce (:func:`int8_block_all_reduce`), stopping before the
+    all-gather: each rank blockwise-quantizes all ``n`` peer chunks,
+    ships them in one ``all_to_all`` (int8 body + f32 scale sidecar),
+    then dequant-accumulates its own chunk locally in f32. Returns this
+    rank's summed chunk of ``ceil-to-block(ceil(L/n))`` elements; chunk
+    ``r`` lands on rank ``r``. The gradient wire of the ZeRO-sharded
+    update."""
+    return int8_block_reduce_scatter_launch(x, group, n, block).wait()
+
+
+def int8_block_all_gather(x: torch.Tensor, group, n: int,
+                          block: int = 0) -> torch.Tensor:
+    """All-gather a flat f32 chunk over the ``n`` ranks of ``group`` with
+    a blockwise int8 wire payload: quantize the local chunk once,
+    all-gather body + scales, and dequantize the SHARED bytes — every
+    rank (the chunk's owner too) reconstructs from the same int8 image,
+    so the result is bit-identical across ranks. Returns the ``[n *
+    padded_chunk]`` concatenation in rank order. The update wire of the
+    ZeRO-sharded update."""
+    block = block or wire_block_size()
+    if n <= 1:
+        return x.to(torch.float32)
+    q, s = quant_i8_block(x.to(torch.float32).reshape(-1), block)
+    qg = _all_gather(q, group, n).wait().reshape(-1, block)   # [n*nb, block]
+    sg = _all_gather(s, group, n).wait().reshape(-1)          # [n*nb]
+    return (qg.to(torch.float32) * sg[:, None]).reshape(-1)
+
+
+# ----------------------------------------------- collective-schedule IR
+
+
+VALID_OP_KINDS = ("reduce", "reduce_scatter", "all_gather")
+
+
+@dataclasses.dataclass(frozen=True)
+class CollectiveOp:
+    """One collective in the gradient-sync schedule: ``kind`` over the
+    named mesh ``axes``, reducing/gathering the sync unit ``unit`` (a
+    bucket key, ``var:<name>`` or ``zero:<name>``)."""
+    kind: str                       # reduce | reduce_scatter | all_gather
+    unit: str
+    axes: Tuple[str, ...]
+    var_names: Tuple[str, ...] = ()
+    payload_elems: int = 0
+    wire_dtype: str = "fp32"
+
+
+@dataclasses.dataclass(frozen=True)
+class ScheduleStage:
+    """An ordered stage of the schedule. ``ready_rank`` is the position
+    in the backward pass (max var index of the unit's gradients, in
+    params-flatten order) after which every op in the stage is launchable
+    — stages are emitted in DESCENDING ready_rank, i.e. reverse layer
+    order, because later layers' gradients materialize first in the
+    backward sweep. ``deps`` names earlier stage indices that must
+    launch before this stage does."""
+    index: int
+    ops: Tuple[CollectiveOp, ...]
+    ready_rank: int = 0
+    deps: Tuple[int, ...] = ()
+
+    @property
+    def var_names(self) -> Tuple[str, ...]:
+        return tuple(n for op in self.ops for n in op.var_names)
+
+
+@dataclasses.dataclass(frozen=True)
+class GradSyncSchedule:
+    """The gradient-synchronization schedule the overlapped lowering
+    executes: ordered stages of collectives with explicit ready
+    dependencies. ``validate()`` is the IR's one structural contract."""
+    stages: Tuple[ScheduleStage, ...]
+
+    @property
+    def num_stages(self) -> int:
+        return len(self.stages)
+
+    @property
+    def num_collectives(self) -> int:
+        return sum(len(st.ops) for st in self.stages)
+
+    def validate(self) -> None:
+        seen_units = set()
+        for pos, st in enumerate(self.stages):
+            if st.index != pos:
+                raise ValueError(
+                    "schedule stage %d carries index %d — stages must be "
+                    "densely numbered in emission order" % (pos, st.index))
+            if not st.ops:
+                raise ValueError("schedule stage %d has no ops" % pos)
+            for dep in st.deps:
+                if not 0 <= dep < pos:
+                    raise ValueError(
+                        "stage %d depends on stage %d which does not "
+                        "precede it" % (pos, dep))
+            for op in st.ops:
+                if op.kind not in VALID_OP_KINDS:
+                    raise ValueError("unknown collective kind %r (stage %d)"
+                                     % (op.kind, pos))
+                if not op.axes:
+                    raise ValueError("op %r reduces over no mesh axes"
+                                     % (op.unit,))
+                if (op.kind, op.unit) in seen_units:
+                    raise ValueError("unit %r scheduled twice for %s"
+                                     % (op.unit, op.kind))
+                seen_units.add((op.kind, op.unit))
+        ranks = [st.ready_rank for st in self.stages]
+        if ranks != sorted(ranks, reverse=True):
+            raise ValueError(
+                "stages are not in reverse-readiness order (ready_rank "
+                "must be non-increasing): %r" % (ranks,))
+
+    def describe(self) -> str:
+        lines = []
+        for st in self.stages:
+            ops = ", ".join("%s(%s%s)" % (
+                op.kind, op.unit,
+                ", int8" if op.wire_dtype == "int8" else "")
+                for op in st.ops)
+            dep = (" after %s" % (",".join(map(str, st.deps)))
+                   if st.deps else "")
+            lines.append("stage %d [ready@%d]%s: %s"
+                         % (st.index, st.ready_rank, dep, ops))
+        return "\n".join(lines)
+
+
+def build_grad_sync_schedule(units, var_positions) -> GradSyncSchedule:
+    """Order gradient-sync units into a :class:`GradSyncSchedule`.
+
+    ``units`` — iterable of ``(unit_id, kind, var_names, payload_elems,
+    wire_dtype, axes)`` — one entry per sync unit the lowering would
+    execute (a concat bucket, a per-var sync, a ZeRO reduce-scatter).
+    ``var_positions`` maps var_name -> index in params-flatten order.
+
+    Stages are emitted one unit each, sorted by DESCENDING max var
+    position (reverse layer order): in the backward sweep the LAST
+    layer's gradients are produced first, so its stage launches first and
+    overlaps with the remaining backward compute. Each stage depends on
+    its predecessor: the collectives launch in stage order on every
+    rank."""
+    entries = []
+    for unit_id, kind, var_names, payload, wire_dtype, axes in units:
+        if kind not in VALID_OP_KINDS:
+            raise ValueError("unknown unit kind %r" % (kind,))
+        rank = max((int(var_positions.get(n, 0)) for n in var_names),
+                   default=0)
+        entries.append((rank, unit_id, kind, tuple(var_names),
+                        int(payload), wire_dtype, tuple(axes)))
+    # descending readiness rank; unit_id tie-break keeps emission stable
+    entries.sort(key=lambda e: (-e[0], e[1]))
+    stages = []
+    for i, (rank, unit_id, kind, names, payload, wire, axes) in enumerate(
+            entries):
+        op = CollectiveOp(kind=kind, unit=unit_id, axes=axes,
+                          var_names=names, payload_elems=payload,
+                          wire_dtype=wire)
+        stages.append(ScheduleStage(index=i, ops=(op,), ready_rank=rank,
+                                    deps=(i - 1,) if i else ()))
+    sched = GradSyncSchedule(stages=tuple(stages))
+    sched.validate()
+    return sched

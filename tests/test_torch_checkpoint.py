@@ -18,7 +18,15 @@ checkpoint crosses between them:
   residuals as ``[2, ...]``, the checkpoint crosses both ways, only rank
   0 writes, and a restore resumes bit for bit with the compressor state;
 - (e) the port's counterparts of the plain-saver cases of
-  ``tests/test_checkpoint.py``.
+  ``tests/test_checkpoint.py``;
+- (f) sharded plans at N = 2 (one 2-rank job, ``ckpt_cross_job``): lm
+  tiny under ``ZeroSharded()`` and ``PartitionedAR()``. The JAX runner on
+  2 virtual devices saves after 2 steps; the port's ranks restore it
+  and gather a state equal, bit for bit, to the JAX files (the ZeRO
+  moments rebuilt whole in ``.opt.npz`` and kept as ``[2, shard]`` rows
+  in ``.sync.npz``; the partitioned variables unpadded), and their step 3
+  is the JAX runner's; the port saves after its 2 steps and the JAX
+  runner restores its files bit for bit and takes step 3.
 
 Bounds of the step after a restore: losses within 1e-5 and params within
 1e-4, the parity tests' bounds (``tests/test_torch_train.py``,
@@ -406,6 +414,104 @@ def test_two_ranks_auto_resume(two_ranks):
     for r in two_ranks["ranks"]:
         assert "refusing to start fresh" in r["resume_empty"]
         assert r["resume_step"] == 2
+
+
+# ------------------------------------ (f) N = 2, ZeroSharded, PartitionedAR
+
+
+SHARDED = ("ZeroSharded", "PartitionedAR")
+
+
+@pytest.fixture(scope="module")
+def sharded_cross(tmp_path_factory):
+    """Per builder: the JAX 2-device runner's save at step 2, its step 3
+    and its restore of the port's save; the port ranks' results."""
+    jl, jvars, example, _, tparams, b = _setup("lm")
+    tmp = tmp_path_factory.mktemp("sharded")
+    out, payload = {}, []
+    for name in SHARDED:
+        jdir, pdir = tmp / ("jax_" + name), tmp / ("port_" + name)
+        jdir.mkdir()
+        pdir.mkdir()
+        try:
+            ad = jadt.AutoDist(strategy_builder=getattr(jstrategy, name)(),
+                               resource_spec=JSpec.from_dict(TWO))
+            runner = ad.build(jl, optax.adam(LR), jvars, example)
+            runner.init(jvars)
+            for x in b[:2]:
+                runner.run(x)
+            out[name] = {"jax_path": JSaver(directory=str(jdir)).save(runner),
+                         "jax_loss3": float(runner.run(b[2])["loss"]),
+                         "jax_params3": _to_port(runner.gather_params())}
+        finally:
+            jadt.reset()
+        payload.append({"model": "lm", "seq_len": LM_SEQ,
+                        "batch_size": LM_BATCH, "attention": "default",
+                        "builder": name, "batches": b, "jax_dir": str(jdir),
+                        "dir": str(pdir),
+                        "init": {n: t.numpy() for n, t in tparams.items()}})
+    ranks = launch("ckpt_cross", 2, tmp, payload)
+    for i, name in enumerate(SHARDED):
+        out[name]["ranks"] = [r[i] for r in ranks]
+        try:
+            ad = jadt.AutoDist(strategy_builder=getattr(jstrategy, name)(),
+                               resource_spec=JSpec.from_dict(TWO))
+            runner = ad.build(jl, optax.adam(LR), jvars, example)
+            runner.init(jvars)
+            path = out[name]["ranks"][0]["path"]
+            _, out[name]["jax_restored_step"] = JSaver(
+                directory=os.path.dirname(path)).restore(runner, path)
+            dstep = runner.distributed_step
+            out[name]["jax_restored"] = {
+                ".params.npz": _tree_to_flat(runner.gather_params()),
+                ".opt.npz": _tree_to_flat(dstep.gather_opt_state(
+                    runner.state)),
+                ".sync.npz": _tree_to_flat(dstep.gather_sync_state(
+                    runner.state))}
+            out[name]["jax_from_port_loss3"] = float(runner.run(b[2])["loss"])
+            out[name]["jax_from_port_params3"] = _to_port(
+                runner.gather_params())
+        finally:
+            jadt.reset()
+    return out
+
+
+@pytest.mark.parametrize("name", SHARDED)
+def test_two_ranks_restore_a_sharded_jax_checkpoint(sharded_cross, name):
+    c = sharded_cross[name]
+    for rank, got in enumerate(c["ranks"]):
+        assert got["step"] == 2
+        for suffix in (".params.npz", ".opt.npz", ".sync.npz"):
+            path = c["jax_path"] + suffix
+            want = _npz(path) if os.path.exists(path) else {}
+            _assert_flat_equal(got["files"][suffix], want)
+        np.testing.assert_allclose(got["loss"], c["jax_loss3"], atol=1e-5,
+                                   rtol=1e-5)
+        _params_close(got["params"], c["jax_params3"])
+    sync = _npz(c["jax_path"] + ".sync.npz") if name == "ZeroSharded" \
+        else {}
+    assert (name == "ZeroSharded") == bool(sync)
+    assert all(k.startswith("zero/") and v.shape[0] == 2
+               for k, v in sync.items())
+    r0 = c["ranks"][0]
+    if name == "PartitionedAR":
+        # each rank stores half of the partitioned variables
+        assert sum(r0["stored"].values()) < 0.6 * sum(
+            v.size for v in r0["params"].values())
+
+
+@pytest.mark.parametrize("name", SHARDED)
+def test_jax_restores_a_sharded_port_checkpoint(sharded_cross, name):
+    c = sharded_cross[name]
+    r0, r1 = c["ranks"]
+    assert r1["path"] is None and r0["path"].endswith("ckpt-2")
+    assert c["jax_restored_step"] == 2
+    for suffix, flat in c["jax_restored"].items():
+        path = r0["path"] + suffix
+        _assert_flat_equal(flat, _npz(path) if os.path.exists(path) else {})
+    np.testing.assert_allclose(c["jax_from_port_loss3"], c["jax_loss3"],
+                               atol=1e-5, rtol=1e-5)
+    _params_close(c["jax_from_port_params3"], c["jax_params3"])
 
 
 # ------------------------------------------- (e) the plain-saver cases

@@ -222,9 +222,10 @@ def test_cuda_bf16_grads_go_through_the_tensor_core_kernels():
 # ------------------------------------------- fused supersteps (CUDA graphs)
 
 
-def _lm_runner(n_batches=8):
+def _lm_runner(n_batches=8, builder=None):
     """A 2-layer lm at head width 64 (the kernels' width) in bf16 with
-    flash attention, on the card, and its batches."""
+    flash attention, on the card, under ``builder()`` (default
+    ``AllReduce()``), and its batches."""
     import functools
 
     import numpy as np
@@ -243,7 +244,7 @@ def _lm_runner(n_batches=8):
 
     def build():
         adt.reset()
-        ad = adt.AutoDist(strategy_builder=strategy.AllReduce())
+        ad = adt.AutoDist(strategy_builder=(builder or strategy.AllReduce)())
         runner = ad.build(loss_fn, functools.partial(torch.optim.Adam,
                                                      lr=1e-3),
                           params, example)
@@ -289,6 +290,48 @@ def test_cuda_superstep_graph_matches_the_per_step_loop():
         for n, t in runner.state.params.items():
             assert torch.equal(t, kept[n]), n
         assert any(not torch.equal(new.params[n], kept[n]) for n in kept)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        adt.reset()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat,compute_dtype", [
+    ("full", "f32"), ("dots", "f32"), (None, "bf16")])
+def test_cuda_superstep_under_remat_and_the_tier_matches_per_step(
+        remat, compute_dtype):
+    """Remat (each layer its own recompute unit) and the bf16 tier inside
+    a captured superstep: fit(fuse_steps=4) bit for bit the per-step
+    loop of the same plan in deterministic mode; under remat the forward
+    kernel launches twice a layer a microstep (the recomputed forward),
+    the backward kernels once."""
+    _need_card()
+    import autodist_tpu_torch as adt
+    from autodist_tpu_torch import strategy
+
+    def builder():
+        b = strategy.AllReduce(compute_dtype=compute_dtype)
+        return strategy.WithRemat(b, remat) if remat else b
+    build, batches, cfg = _lm_runner(builder=builder)
+    torch.use_deterministic_algorithms(True)
+    try:
+        runner = build()
+        want = [float(m["loss"]) for m in runner.fit(iter(batches))]
+        want_params = {n: t.clone() for n, t in
+                       runner.gather_params().items()}
+        runner = build()
+        before = tfa.launch_counts()
+        got = [float(m["loss"]) for m in runner.fit(iter(batches),
+                                                    fuse_steps=4)]
+        dstep = runner.distributed_step
+        assert dstep.dispatches == 2 and got == want
+        for n, t in runner.gather_params().items():
+            assert torch.equal(t, want_params[n]), n
+        micro = len(batches) + dstep.warmup_microsteps
+        for name, by in tfa.launch_counts().items():
+            per = 2 if remat and name == "flash_fwd" else 1
+            assert by["mma.sync bf16"] - before[name].get(
+                "mma.sync bf16", 0) == per * cfg.num_layers * micro, name
     finally:
         torch.use_deterministic_algorithms(False)
         adt.reset()

@@ -239,11 +239,22 @@ def test_plan_replicas_must_equal_the_world_size():
                  params, batch)
 
 
-@pytest.mark.parametrize("kw,roadmap_item", [
-    ({"overlap": True}, 7), ({"compute_dtype": "bf16"}, 7)])
-def test_unported_features_raise_at_two_replicas(kw, roadmap_item):
-    """overlap=True and the bf16 compute tier raise at N > 1, naming the
-    ROADMAP item; nothing is silently ignored."""
+def _rhd(plan):
+    plan.node_config[0].synchronizer.schedule = "rhd"
+
+
+def _ps(plan):
+    from autodist_tpu_torch.strategy.base import PSSynchronizer
+    plan.node_config[0].synchronizer = PSSynchronizer(
+        reduction_destination="127.0.0.1:CPU:0")
+
+
+@pytest.mark.parametrize("mutate,roadmap_item", [(_rhd, 7), (_ps, 8)],
+                         ids=["rhd", "ps"])
+def test_unported_features_raise_at_two_replicas(mutate, roadmap_item):
+    """Features the port has not reached raise at N > 1, naming the
+    ROADMAP item: the rhd all-reduce schedule (item 7) and a PS
+    synchronizer (item 8); nothing is silently ignored."""
     from autodist_tpu_torch.kernel.graph_transformer import GraphTransformer
     from autodist_tpu_torch.kernel.replicator import ReplicaInfo
     from autodist_tpu_torch.model_item import ModelItem
@@ -254,7 +265,8 @@ def test_unported_features_raise_at_two_replicas(kw, roadmap_item):
                      example_batch=batch).prepare()
     spec = ResourceSpec.from_dict(TWO)
     plan = StrategyCompiler(item, spec).compile(
-        strategy.AllReduce(**kw).build(item, spec))
+        strategy.AllReduce().build(item, spec))
+    mutate(plan)
     with pytest.raises(NotImplementedError,
                        match="ROADMAP A item %d" % roadmap_item):
         GraphTransformer(plan, item, "cpu", ReplicaInfo(2, 0)).transform()

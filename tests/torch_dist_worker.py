@@ -2,7 +2,9 @@
 
 The tests (``tests/test_torch_collectives.py``,
 ``tests/test_torch_data_parallel.py``, ``tests/test_torch_checkpoint.py``,
-``tests/test_torch_fused.py``)
+``tests/test_torch_fused.py``, ``tests/test_torch_zero.py``,
+``tests/test_torch_partitioned.py``, ``tests/test_torch_overlap.py``,
+``tests/test_torch_compute_tier.py``)
 compute their JAX references in the pytest process and hand numpy arrays
 to :func:`launch`, which starts
 ``world`` processes with the ``spawn`` start method. Each process joins a
@@ -111,6 +113,19 @@ def _setup(model: str, seq_len: int, batch_size: int, attention: str):
                                  batch_size=batch_size, attention=attention)
 
 
+def builder(spec):
+    """The strategy builder a payload names: ``spec`` is a dict with
+    ``builder`` (a class of ``autodist_tpu_torch.strategy``, default
+    ``AllReduce``), its keyword arguments under ``strategy`` and an
+    optional ``remat`` policy (``WithRemat`` around it)."""
+    from autodist_tpu_torch import strategy
+    b = getattr(strategy, spec.get("builder", "AllReduce"))(
+        **spec.get("strategy", {}))
+    if spec.get("remat"):
+        b = strategy.WithRemat(b, spec["remat"])
+    return b
+
+
 def train_job(payload, device):
     """Each run of ``payload`` (a list) in turn: ``Runner.run`` steps of
     the port's AllReduce plan on the global batches, from the given init.
@@ -123,8 +138,9 @@ def train_job(payload, device):
 
 def _train_one(payload, device):
     import autodist_tpu_torch as adt
-    from autodist_tpu_torch import strategy
     from autodist_tpu_torch.resource_spec import ResourceSpec
+    from autodist_tpu_torch.telemetry import spans as tel
+    tel.reset()
     world = dist.get_world_size()
     loss_fn, _, example, _ = _setup(payload["model"], payload["seq_len"],
                                     payload["batch_size"],
@@ -133,8 +149,8 @@ def _train_one(payload, device):
     spec = ResourceSpec.from_dict({"nodes": [{
         "address": "127.0.0.1", "chief": True,
         "cpus": list(range(world))}]})
-    ad = adt.AutoDist(strategy_builder=strategy.AllReduce(
-        **payload.get("strategy", {})), resource_spec=spec, device=device)
+    ad = adt.AutoDist(strategy_builder=builder(payload), resource_spec=spec,
+                      device=device)
     runner = ad.build(loss_fn, functools.partial(torch.optim.Adam, lr=LR),
                       init, payload.get("example", example))
     runner.init(init)
@@ -142,12 +158,26 @@ def _train_one(payload, device):
     evaluated = runner.evaluate(payload["batches"][:1])["loss"]
     losses = [float(runner.run(b)["loss"]) for b in payload["batches"]]
     state = runner.state
+    opt = dstep.gather_opt_state(state)
     out = {"losses": losses, "eval": float(evaluated),
            "params": _np(runner.gather_params()),
+           "opt": _np({"count": opt["count"], "mu": opt["mu"],
+                       "nu": opt["nu"]}),
            "buckets": [(b.key, list(b.var_names)) for b in dstep.buckets],
            "sparse_wire": sorted(dstep.sparse_wire),
            "sync_state": {k: sorted(v) for k, v in state.sync_state.items()},
-           "steps": runner.step_stats()["steps"]}
+           "steps": runner.step_stats()["steps"],
+           "stored": {n: int(t.numel()) for n, t in state.params.items()},
+           "stored_mu": {n: int(t.numel())
+                         for n, t in state.opt_state["mu"].items()},
+           "zero_shards": {n: int(z["mu"]["v"].numel()) for n, z in
+                           state.sync_state.get("zero", {}).items()},
+           "metadata": {k: v for k, v in dstep.metadata.items()
+                        if isinstance(v, (bool, int, float, str, list))
+                        or v is None},
+           "counters": {k: v for k, v in tel.counters().items()
+                        if k.startswith(("zero.", "overlap."))},
+           "overlap_log": list(dstep.overlap_log)}
     adt.reset()
     return out
 
@@ -160,7 +190,6 @@ def ckpt_job(payload, device):
     ``ADT_AUTO_RESUME`` over an empty directory, then over ``dir``.
     Returns each part's losses, params, saved paths and states."""
     import autodist_tpu_torch as adt
-    from autodist_tpu_torch import strategy
     from autodist_tpu_torch.checkpoint import Saver
     from autodist_tpu_torch.resource_spec import ResourceSpec
     from autodist_tpu_torch.telemetry import spans as tel
@@ -178,8 +207,8 @@ def ckpt_job(payload, device):
     spec = ResourceSpec.from_dict({"nodes": [{
         "address": "127.0.0.1", "chief": True,
         "cpus": list(range(world))}]})
-    ad = adt.AutoDist(strategy_builder=strategy.AllReduce(
-        **payload.get("strategy", {})), resource_spec=spec, device=device)
+    ad = adt.AutoDist(strategy_builder=builder(payload), resource_spec=spec,
+                      device=device)
     runner = ad.build(loss_fn, functools.partial(torch.optim.Adam, lr=LR),
                       init, example)
     out = {}
@@ -221,6 +250,61 @@ def ckpt_job(payload, device):
     return out
 
 
+def ckpt_cross_job(payload, device):
+    """Checkpoints of sharded plans across the packages, each case of
+    ``payload`` (a list; ``train_job``'s keys, a ``builder``, four
+    batches, ``jax_dir`` holding a JAX package checkpoint at step 2 and
+    an empty ``dir``): restore the JAX checkpoint, gather the state in
+    the JAX layout (flat ``{JAX name: numpy}`` as the files hold it) and
+    take step 3; then from ``init`` take 2 steps and save into ``dir``
+    (rank 0 writes). Returns each case's gathered files, step-3 loss and
+    params, and the saved path."""
+    import autodist_tpu_torch as adt
+    from autodist_tpu_torch import convert
+    from autodist_tpu_torch.checkpoint import Saver
+    from autodist_tpu_torch.convert import FlaxParams
+    from autodist_tpu_torch.resource_spec import ResourceSpec
+    world = dist.get_world_size()
+    out = []
+    for case in payload:
+        loss_fn, params, example, _ = _setup(case["model"], case["seq_len"],
+                                             case["batch_size"],
+                                             case["attention"])
+        init = FlaxParams({n: torch.as_tensor(v)
+                           for n, v in case["init"].items()},
+                          flax_shapes=params.flax_shapes)
+        spec = ResourceSpec.from_dict({"nodes": [{
+            "address": "127.0.0.1", "chief": True,
+            "cpus": list(range(world))}]})
+        ad = adt.AutoDist(strategy_builder=builder(case), resource_spec=spec,
+                          device=device)
+        runner = ad.build(loss_fn, functools.partial(torch.optim.Adam, lr=LR),
+                          init, example)
+        dstep, item = runner.distributed_step, runner.distributed_step.model_item
+        runner.init(init)
+        _, step = Saver(case["jax_dir"]).restore(runner)
+        files = {
+            ".params.npz": convert.params_to_jax(runner.gather_params(),
+                                                 item.flax_shapes),
+            ".opt.npz": convert.opt_state_to_jax(
+                dstep.gather_opt_state(runner.state), item.flax_shapes),
+            ".sync.npz": convert.sync_state_to_jax(
+                dstep.gather_sync_state(runner.state), item.var_infos,
+                item.flax_shapes)}
+        got = {"step": step, "files": files,
+               "loss": float(runner.run(case["batches"][2])["loss"]),
+               "params": _np(runner.gather_params()),
+               "stored": {n: int(t.numel())
+                          for n, t in runner.state.params.items()}}
+        runner.init(init)
+        for b in case["batches"][:2]:
+            runner.run(b)
+        got["path"] = Saver(case["dir"]).save(runner)
+        out.append(got)
+        adt.reset()
+    return out
+
+
 def fused_job(payload, device):
     """``fit(fuse_steps, metrics_every)`` of the port's AllReduce plan on
     the global batches from the given init; returns the losses, the
@@ -253,4 +337,4 @@ def fused_job(payload, device):
 
 
 JOBS = {"compressors": compressor_job, "train": train_job, "ckpt": ckpt_job,
-        "fused": fused_job}
+        "ckpt_cross": ckpt_cross_job, "fused": fused_job}
