@@ -1,6 +1,6 @@
 """AutoDist entry point (PyTorch counterpart of ``autodist_tpu/autodist.py``).
 
-    ad = AutoDist(strategy_builder=strategy.AllReduce())          # on cuda
+    ad = AutoDist(strategy_builder=strategy.Parallax())           # on cuda
     runner = ad.build(loss_fn, functools.partial(torch.optim.Adam, lr=1e-3),
                       params, example_batch)
     runner.init(params)
@@ -104,11 +104,10 @@ class AutoDist:
                 "cpu" if self._device.type == "cpu" else "cuda",
                 replicas=self._replicas.num_replicas)
         if strategy_builder is None:
-            # the JAX package defaults to PSLoadBalancing, which the port
-            # has not reached; AllReduce is the builder it has
-            from autodist_tpu_torch.strategy.all_reduce_strategy import \
-                AllReduce
-            strategy_builder = AllReduce()
+            # the default, as in the JAX package and reference autodist.py:70
+            from autodist_tpu_torch.strategy.ps_lb_strategy import \
+                PSLoadBalancing
+            strategy_builder = PSLoadBalancing()
         self._strategy_builder = strategy_builder
         self._runner: Optional[Runner] = None
         set_default_autodist(self)

@@ -16,9 +16,12 @@ Writes go to ``.tmp`` siblings that are ``os.replace``'d into place, the
 meta last: a checkpoint is committed exactly when its meta exists
 (``checkpoint/integrity.py``). Only the chief writes: rank 0 of the
 default ``torch.distributed`` group with more than one replica (every
-rank joins the gathers), else ``const.is_chief()``. The JAX saver's epoch
-fence (``elastic.maybe_fence``) comes with the elastic plane (ROADMAP A
-item 8).
+rank joins the gathers), else ``const.is_chief()``. Host-PS variables
+save from the store, whole, in the same files: the gathers land the
+in-flight push first and read the store's values and Adam moments, and a
+restore's ``init_state`` puts them back into the store. The JAX saver's
+epoch fence (``elastic.maybe_fence``) comes with the elastic plane, item
+8's control plane in ROADMAP A.
 """
 import json
 import os

@@ -10,6 +10,8 @@ PyTorch counterpart of ``autodist_tpu/data/``:
   batches' copies to the device in flight (pinned buffers and a side
   stream on ``cuda``) while the current step computes.
 - ``text``: real text to LM record files.
+- ``movielens``: MovieLens ratings to the NCF pipeline (split, negative
+  sampling, records, HR/NDCG).
 """
 from autodist_tpu_torch.data.record_dataset import (RecordFileDataset,
                                                     RecordFileWriter)

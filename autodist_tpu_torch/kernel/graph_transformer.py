@@ -42,12 +42,21 @@ every collective accumulates in f32; ``graph_config.remat``
 (or the loss whole). Both apply at every replica count, as in the JAX
 lowering.
 
-Lookup-indexed tables that the JAX package would sync over its sparse
-(ids, values) wire are synced dense here, outside the buckets and the
-schedule, as that wire leaves them (ROADMAP A item 8). With more than one
-replica the transform refuses, by name, the plan features the port has
-not reached.
+Host-resident parameter servers (``parallel/ps.py``): a PS variable
+without a proxy rests in the store's host memory with its Adam moments,
+at every replica count. Each step pulls the store's values to the device
+(through :class:`~autodist_tpu_torch.parallel.ps.PSPipeline`, which
+overlaps the pull and the push with compute), runs the loss on the full
+params, and pushes each PS variable's mean gradient back — dense, the
+(ids, values) pairs of a lookup table, or the int8 wire container —
+where the host applies the optimizer. Lookup tables the JAX package
+syncs over its sparse (ids, values) wire (``ops/embedding.py``: the
+taps) take that wire here too: pushed to the store as pairs, or, for an
+AllReduce table at N > 1, all-gathered over the ranks and scatter-added
+into the update. The transform refuses, by name and at every replica
+count, the plan features the port has not reached.
 """
+import collections
 from typing import Callable, Dict, Optional
 
 import numpy as np
@@ -55,15 +64,21 @@ import torch
 import torch.distributed as dist
 from torch.utils import _pytree as pytree
 
+from autodist_tpu_torch import const
+from autodist_tpu_torch.convert import from_jax_layout, to_jax_layout
 from autodist_tpu_torch.kernel.partitioner import VarLayout, VariablePartitioner
 from autodist_tpu_torch.kernel.replicator import ReplicaInfo
 from autodist_tpu_torch.kernel.synchronization.all_reduce_synchronizer \
     import AllReduceSynchronizer
+from autodist_tpu_torch.kernel.synchronization.ps_synchronizer import \
+    PSSynchronizer
 from autodist_tpu_torch.kernel.synchronization.zero_synchronizer import \
     ZeroSynchronizer
 from autodist_tpu_torch.kernel.synchronization.synchronizer import \
     all_reduce_sum
+from autodist_tpu_torch.ops import embedding
 from autodist_tpu_torch.parallel import collectives
+from autodist_tpu_torch.parallel import ps as ps_lib
 from autodist_tpu_torch.strategy.base import Strategy
 from autodist_tpu_torch.telemetry import spans as tel
 from autodist_tpu_torch.train_state import TrainState
@@ -180,17 +195,27 @@ def _step_fn_output(out, template):
     return unflatten_state(template, got), out[1]
 
 
-def sparse_wire_vars(item, replicas: ReplicaInfo) -> set:
-    """The tables the JAX lowering would sync over its sparse (ids,
-    values) wire at ``replicas.num_replicas`` > 1
-    (``autodist_tpu/kernel/graph_transformer.py:1140-1262``): trainable
-    lookup-indexed variables with no other differentiable use, whose
-    gathered pairs — ids looked up per replica x replicas x (features +
-    1) — undercut the dense gradient (rows x features). The lookups are
-    traced against one replica's shard of the example batch."""
-    from autodist_tpu_torch.model_item import trace_lookups
+def sparse_wire_vars(item, replicas: ReplicaInfo, ps_names=frozenset(),
+                     partitioned=frozenset(),
+                     require_sparse: bool = False) -> set:
+    """The lookup tables that sync over the sparse (ids, values) wire, as
+    the JAX lowering picks them
+    (``autodist_tpu/kernel/graph_transformer.py:1141-1262``): trainable
+    lookup-indexed variables that are host-PS (at every replica count:
+    pairs beat a vocab-sized push) or, with more than one replica, not
+    partitioned; whose lookups carry their name
+    (``ops.embedding.embedding_lookup(name=...)``); with no other
+    differentiable use (a tied table stays dense); and whose gathered
+    pairs — ids looked up a replica x replicas x (features + 1) —
+    undercut the dense gradient (rows x features). The lookups are traced
+    on fake tensors against one replica's shard of the example batch.
+    A failed trace leaves every table dense with a warning, or raises
+    under ``require_sparse`` (and ``ADT_IS_TESTING``); an unrouted
+    candidate warns, or raises ``ValueError`` under ``require_sparse``."""
+    N = replicas.num_replicas
     candidates = {n for n, v in item.var_infos.items()
-                  if v.sparse and v.trainable}
+                  if v.sparse and v.trainable
+                  and (n in ps_names or (N > 1 and n not in partitioned))}
     if not candidates or item.example_batch is None:
         return set()
     loss = item.loss_fn
@@ -202,20 +227,42 @@ def sparse_wire_vars(item, replicas: ReplicaInfo) -> set:
         if not shape:
             return leaf
         return leaf[:replicas.local_shape(shape)[0]]
+    routed, out = {}, set()
     try:
-        lookups, dense_uses = trace_lookups(
-            loss, item.params, pytree.tree_map(local, item.example_batch))
+        routed, dense_uses = embedding.discover(
+            loss, item.params, pytree.tree_map(local, item.example_batch),
+            candidates)
+        safe = embedding.safe_sparse_names(routed, dense_uses)
+        tied = sorted(set(routed) - safe)
+        if tied:
+            logging.info("sparse vars %s have dense gradient paths besides "
+                         "their lookups (tied embeddings); keeping them on "
+                         "the dense sync path", tied)
+        for n in sorted(safe):
+            shape = item.var_infos[n].shape
+            feat = max(1, int(np.prod(shape[1:] or (1,))))
+            if sum(routed[n]) * N * (feat + 1) < int(shape[0]) * feat:
+                out.add(n)
     except Exception as e:  # noqa: BLE001 — routing is best-effort
-        logging.warning("sparse-wire discovery failed (%s); every table "
-                        "syncs in the dense plan", e)
-        return set()
-    out = set()
-    for n in sorted(candidates & set(lookups) - dense_uses):
-        shape = item.var_infos[n].shape
-        feat = max(1, int(np.prod(shape[1:] or (1,))))
-        sparse_elems = sum(lookups[n]) * replicas.num_replicas * (feat + 1)
-        if sparse_elems < int(shape[0]) * feat:
-            out.add(n)
+        if require_sparse or const.ENV.ADT_IS_TESTING.val:
+            raise RuntimeError(
+                "sparse-wire discovery failed and the strategy requires "
+                "the sparse gradient path (vars: %s)" % sorted(candidates)
+            ) from e
+        logging.warning("sparse-wire discovery failed (%s); dense sync for "
+                        "all sparse vars", e)
+    uncaptured = sorted(candidates - set(routed))
+    if uncaptured:
+        if require_sparse:
+            raise ValueError(
+                "strategy requires the sparse gradient wire but vars %s are "
+                "not routed through ops.embedding.embedding_lookup(name=...)"
+                " — their gradients would sync DENSE (vocab-sized wire). "
+                "Route the lookups through ops.embedding, or build with "
+                "require_sparse=False." % uncaptured)
+        logging.warning("sparse vars %s not routed through "
+                        "ops.embedding.embedding_lookup(name=...); their "
+                        "gradients sync DENSE (vocab-sized wire)", uncaptured)
     return out
 
 
@@ -308,9 +355,15 @@ class DistributedStep:
         self.metadata = metadata or {}
         self.replica_info = replica_info or ReplicaInfo()
         self.num_replicas = self.replica_info.num_replicas
-        # no host-resident parameter-server variables in this slice: the
-        # serving engine's snapshot is always the empty mapping
-        self.ps_store = None
+        # host-resident PS variables (parallel/ps.py): their values and
+        # optimizer state rest in the store, off the device state
+        self.ps_plans: Dict[str, ps_lib.PSVarPlan] = {}
+        self.ps_names = frozenset()
+        self.ps_store: Optional[ps_lib.PSStore] = None
+        # how many submitted pushes each recent training step's read of
+        # the store lagged behind (at most the plan's staleness)
+        self.ps_read_lags = collections.deque(maxlen=1024)
+        self._ps_pushes = 0
         self._predict_progs: Dict[tuple, ForwardProgram] = {}
         self._decode_progs: Dict[tuple, ForwardProgram] = {}
         self.syncs: Dict[str, AllReduceSynchronizer] = {}
@@ -336,7 +389,21 @@ class DistributedStep:
         # backward ran), in launch order
         self.overlap_log = []
         if model_item.step_fn is None:
+            self.ps_plans = ps_lib.plan_host_ps(strategy, model_item.var_infos)
+            self.ps_names = frozenset(self.ps_plans)
+            if self.ps_plans:
+                self.ps_store = ps_lib.PSStore(
+                    self.ps_plans, model_item.var_infos, self.optimizer,
+                    self.device)
             zero_names = self._zero_nodes()
+            if self.num_replicas > 1:
+                layouts = VariablePartitioner.apply(
+                    strategy, model_item.var_infos, self.num_replicas)
+                self.layouts = {n: lay for n, lay in layouts.items()
+                                if lay.partitioned and n not in self.ps_names}
+            self.sparse_wire = frozenset(sparse_wire_vars(
+                model_item, self.replica_info, self.ps_names,
+                frozenset(self.layouts), gc.require_sparse))
             if self.num_replicas > 1:
                 self._build_synchronizers(zero_names)
             self._make_losses()
@@ -384,35 +451,37 @@ class DistributedStep:
 
     def _build_synchronizers(self, zero_names):
         """Per-variable synchronizer kernels from the node configs (the
-        JAX ``_build_synchronizers``): the partitioned layouts, the ZeRO
-        kernels, the per-variable AllReduce kernels (a partitioned
-        variable's reduce-scatters) and the buckets of the concatable
-        compressed unpartitioned ones (``make_buckets``); with
-        ``overlap=True`` the schedule of those units. NoneCompressor
-        variables all-reduce one by one; the sparse-wire tables keep out
-        of all of them, as in the JAX lowering."""
+        JAX ``_build_synchronizers``): the ZeRO kernels, the per-variable
+        AllReduce kernels (a partitioned variable's reduce-scatters), the
+        proxied PS variables' mean all-reduce (``PSSynchronizer``) and
+        the buckets of the concatable compressed unpartitioned AllReduce
+        variables (``make_buckets``); with ``overlap=True`` the schedule
+        of those units. NoneCompressor variables all-reduce one by one;
+        the host-PS variables and the sparse-wire tables keep out of all
+        of them, as in the JAX lowering."""
         N, item = self.num_replicas, self.model_item
         rank = self.replica_info.rank
-        layouts = VariablePartitioner.apply(self.strategy, item.var_infos, N)
-        self.layouts = {n: lay for n, lay in layouts.items()
-                        if lay.partitioned}
         for n in zero_names:
             info = item.var_infos[n]
             self.zero_syncs[n] = ZeroSynchronizer(
                 n, self.strategy.find(n).synchronizer, info.shape,
                 info.dtype, N, rank, collective_name=info.collective_name)
-        self.sparse_wire = frozenset(
-            sparse_wire_vars(item, self.replica_info) - set(self.layouts))
         for node in self.strategy.node_config:
             info = item.var_infos.get(node.var_name)
             if (info is None or not info.trainable
                     or node.var_name in self.sparse_wire
+                    or node.var_name in self.ps_names
                     or node.var_name in self.zero_syncs):
                 continue
             cfg = node.synchronizer
             if cfg is None and node.part_configs:
                 cfg = node.part_configs[0].synchronizer
-            self.syncs[node.var_name] = AllReduceSynchronizer(
+            if cfg is None:
+                raise ValueError("no synchronizer for var %s"
+                                 % node.var_name)
+            kernel = (PSSynchronizer if cfg.kind == "PS"
+                      else AllReduceSynchronizer)
+            self.syncs[node.var_name] = kernel(
                 node.var_name, cfg, N,
                 collective_name=info.collective_name,
                 layout=self.layouts.get(node.var_name))
@@ -467,7 +536,23 @@ class DistributedStep:
             zero_saved = sum(opt_total * infos[n].byte_size / params_total
                              * (N - 1) / N for n in self.zero_syncs)
         sched = self.schedule
+        proxied = {n: s.reduction_destination for n, s in self.syncs.items()
+                   if isinstance(s, PSSynchronizer)}
+        ps_cfgs = [p for n in self.strategy.node_config
+                   for p in ([n.synchronizer] + [q.synchronizer for q in
+                                                 n.part_configs or ()])
+                   if p is not None and p.kind == "PS"]
         return {
+            # proxied PS vars keep one destination; host-resident plans
+            # carry one owner a shard
+            "ps_assignments": dict(
+                proxied, **{n: list(p.destinations)
+                            for n, p in self.ps_plans.items()}),
+            "ps_host_resident": sorted(self.ps_names),
+            "ps_wire_int8": (self.ps_store.wire_quant
+                             if self.ps_store is not None else []),
+            "staleness": max([c.staleness for c in ps_cfgs], default=0),
+            "async": any(not c.sync for c in ps_cfgs),
             "sparse_wire": sorted(self.sparse_wire),
             "buckets": [b.key for b in self.buckets],
             "partitioned": sorted(self.layouts),
@@ -561,7 +646,9 @@ class DistributedStep:
         updates them in place and the caller's tensors never move. With
         more than one replica, every replica takes rank 0's params and
         optimizer state and keeps its own shard of each partitioned
-        variable and of its moments; a ZeRO-sharded variable's moments
+        variable and of its moments. The host-PS variables and their
+        moments go to the store (every rank's mirror takes rank 0's),
+        and out of the device state. A ZeRO-sharded variable's moments
         live in ``sync_state['zero']``, this rank's flat shard of them
         (from a given ``opt_state`` when the ``sync_state`` has none).
         Each replica takes its own compressor state: row r of a given
@@ -589,6 +676,18 @@ class DistributedStep:
                            if isinstance(t, torch.Tensor) else t), opt_state)
             if self.num_replicas > 1:
                 self._broadcast(opt_state)
+        if self.ps_store is not None:
+            # the store's contents are replaced: a staged pull is stale
+            self.invalidate_ps()
+            self.ps_store.init_params(placed)
+            for n in self.ps_names:
+                del placed[n]
+            if opt_state is not None:
+                self.ps_store.load_opt_from_full(opt_state)
+                opt_state = dict(opt_state)
+                for slot in ("mu", "nu"):
+                    opt_state[slot] = {n: t for n, t in opt_state[slot].items()
+                                       if n not in self.ps_names}
         zero_full = {}
         if opt_state is not None and self.zero_syncs:
             # a ZeRO variable has no slot in the device optimizer tree
@@ -601,6 +700,9 @@ class DistributedStep:
         if opt_state is None and self.optimizer is not None:
             opt_state = self.optimizer.init(
                 {n: t for n, t in placed.items() if n not in self.zero_syncs})
+            # the count lives on the device even when every variable is
+            # host-resident
+            opt_state["count"] = opt_state["count"].to(self.device)
         rank, N = self.replica_info.rank, self.num_replicas
         for n, lay in self.layouts.items():
             placed[n] = lay.local(placed[n], rank, N)
@@ -741,14 +843,15 @@ class DistributedStep:
             return {name: synced}, ("var", name, nst)
         return collectives.Pending((), finish)
 
-    def _sync_grads(self, grads, sync_state, overlap=None):
+    def _sync_grads(self, grads, sync_state, pairs, overlap=None):
         """The JAX ``local_step`` gradient sync over N > 1 replicas: the
         sync units (:meth:`_launch_unit`) — launched here one after the
         other as the epilogue, or already launched by the overlapped
         schedule (``overlap``, an :class:`_OverlapRun`), then waited on
-        in order — and the sparse-wire tables' dense mean; returns the
-        synced gradients (a partitioned or ZeRO variable's: this rank's
-        shard) and the new ``sync_state``."""
+        in order — and the AllReduce sparse-wire tables' gathered
+        ``pairs`` scatter-added into their gradient; returns the synced
+        gradients (a partitioned or ZeRO variable's: this rank's shard)
+        and the new ``sync_state``."""
         N = self.num_replicas
         new_state = {"bucket": dict(sync_state.get("bucket", {})),
                      "var": dict(sync_state.get("var", {}))}
@@ -764,10 +867,14 @@ class DistributedStep:
             synced.update(out)
             if nst is not None and nst[2] is not None:
                 new_state[nst[0]][nst[1]] = nst[2]
-        # the JAX lowering ships these as (ids, values) pairs; the port
-        # sends the dense gradient (ROADMAP A item 8), the same mean
-        for n in sorted(self.sparse_wire):
-            synced[n] = self._psum(grads[n]) / N
+        # the AllReduce sparse-wire tables: their gathered (ids, values)
+        # pairs densified after the wire
+        infos = self.model_item.var_infos
+        for n in sorted(self.sparse_wire - self.ps_names):
+            ids, vals = pairs[n]
+            synced[n] = embedding.scatter_add_dense(
+                ids, vals, int(infos[n].shape[0]),
+                tuple(infos[n].shape[1:]))
         new_sync = dict(sync_state)
         for key, value in new_state.items():
             if value:
@@ -775,14 +882,12 @@ class DistributedStep:
         return synced, new_sync
 
     def _step(self, state: TrainState, batch):
-        """One microstep on ``state``, with no span and no dispatch count:
-        ``(new_state, metrics)``. In loss_fn mode the loss (under the
-        compute tier and remat) and grads of the trainable variables,
-        with more than one replica their sync (:meth:`_sync_grads`), and
-        the optimizer apply, in place on ``state``'s tensors. In step_fn
-        mode the user's ``step_fn(state, batch) -> (new_state, metrics)``
-        as given (its metrics detached). Nothing here reads a value back
-        to the host, so a CUDA graph can hold it
+        """One microstep on ``state`` with no host-PS variable (the fused
+        supersteps refuse those), with no span and no dispatch count:
+        ``(new_state, metrics)`` (:meth:`_train`). In step_fn mode the
+        user's ``step_fn(state, batch) -> (new_state, metrics)`` as given
+        (its metrics detached). Nothing here reads a value back to the
+        host, so a CUDA graph can hold it
         (:mod:`~autodist_tpu_torch.kernel.superstep`)."""
         item = self.model_item
         if item.step_fn is not None:
@@ -793,9 +898,29 @@ class DistributedStep:
                               opt_state=state.opt_state,
                               sync_state=state.sync_state), \
                 pytree.tree_map(_detach, metrics)
+        new_state, _, metrics = self._train(state, batch, {})
+        return new_state, metrics
+
+    def _train(self, state: TrainState, batch, ps_vals):
+        """One loss_fn-mode microstep: ``(new_state, ps_grads, metrics)``.
+        The loss (under the compute tier and remat) on the full params —
+        the device state's with the pulled host-PS values ``ps_vals`` —
+        and the gradients: dense ones of the trainable variables, and,
+        for the sparse-wire tables, those of the lookups' taps, flattened
+        into (ids, values) pairs (all-gathered over the ranks at N > 1,
+        divided by N). With more than one replica the device gradients'
+        sync (:meth:`_sync_grads`); the optimizer apply on the device
+        variables, in place on ``state``'s tensors. ``ps_grads`` holds
+        each host-PS variable's mean gradient for the store: its pairs, or
+        the dense gradient (all-reduced at N > 1), in the int8 wire
+        container where the plan says so."""
+        item = self.model_item
+        N = self.num_replicas
         trainable = item.trainable_var_names
         full = dict(self._full_params(state.params))
-        for n in trainable:
+        full.update(self._ps_dewire(ps_vals))
+        dense_wrt = [n for n in trainable if n not in self.sparse_wire]
+        for n in dense_wrt:
             full[n] = full[n].detach().requires_grad_()
         sync_state = state.sync_state
         overlap = None
@@ -803,32 +928,64 @@ class DistributedStep:
             overlap = _OverlapRun(self, full,
                                   dict(sync_state.get("bucket", {})),
                                   dict(sync_state.get("var", {})))
+        wire = sorted(self.sparse_wire)
         try:
             with torch.enable_grad():
-                loss, aux = self._loss(full, batch, grad=True)
-                grads = torch.autograd.grad(
-                    loss, [full[n] for n in trainable], allow_unused=True) \
-                    if trainable else ()
+                with embedding.capture(wire) as cap:
+                    loss, aux = self._loss(full, batch, grad=True)
+                inputs = [full[n] for n in dense_wrt] + \
+                    embedding.make_taps(cap, wire)
+                out = torch.autograd.grad(loss, inputs, allow_unused=True) \
+                    if inputs else ()
         finally:
             if overlap is not None:
                 overlap.disarm()
                 self.overlap_log = overlap.log
         grads = {n: (g if g is not None else torch.zeros_like(full[n]))
-                 for n, g in zip(trainable, grads)}
+                 for n, g in zip(dense_wrt, out)}
+        tap_grads = list(out[len(dense_wrt):])
+        pairs = {}
         with torch.no_grad():
-            if self.num_replicas > 1:
+            for n in wire:
+                k = len(cap.taps.get(n, []))
+                got = [g if g is not None else torch.zeros_like(t)
+                       for g, t in zip(tap_grads[:k], cap.taps.get(n, []))]
+                del tap_grads[:k]
+                ids, vals = embedding.flatten_pairs(cap.ids.get(n, []), got)
+                if N > 1:
+                    ids, vals = embedding.gather_pairs(ids, vals, N)
+                pairs[n] = (ids, vals / N)
+            ps_grads = {}
+            quant = set(self.ps_store.wire_quant) if self.ps_store else set()
+            for n in sorted(self.ps_names):
+                if n in pairs:
+                    ps_grads[n] = pairs[n]
+                elif N == 1:
+                    ps_grads[n] = grads[n]
+                else:
+                    ps_grads[n] = self._psum(grads[n]) / N
+                if n in quant:
+                    # quantized on the device, in the JAX element order:
+                    # the push's copy carries int8 and scales, dequantized
+                    # at the store
+                    ps_grads[n] = collectives.quant_wire(to_jax_layout(
+                        ps_grads[n], item.var_infos[n].collective_name))
+            device_grads = {n: g for n, g in grads.items()
+                            if n not in self.ps_names}
+            if N > 1:
                 with tel.span("dstep.grad_sync", "dstep",
                               overlap=overlap is not None):
-                    grads, sync_state = self._sync_grads(grads, sync_state,
-                                                         overlap)
+                    device_grads, sync_state = self._sync_grads(
+                        device_grads, sync_state, pairs, overlap)
             opt_state = self.optimizer.update(
-                {n: g for n, g in grads.items() if n not in self.zero_syncs},
+                {n: g for n, g in device_grads.items()
+                 if n not in self.zero_syncs},
                 state.opt_state, state.params)
             if self.zero_syncs:
-                self._zero_apply(grads, state.params, sync_state)
+                self._zero_apply(device_grads, state.params, sync_state)
         return TrainState(step=state.step + 1, params=state.params,
-                          opt_state=opt_state,
-                          sync_state=sync_state), self._metrics(loss, aux)
+                          opt_state=opt_state, sync_state=sync_state), \
+            ps_grads, self._metrics(loss, aux)
 
     def _zero_apply(self, grads, params, sync_state):
         """The sharded weight update: the optimizer on each ZeRO
@@ -865,7 +1022,17 @@ class DistributedStep:
         if not donate:
             state = _clone_state(state)
         with tel.span("dstep.dispatch", "dstep", fused=False):
-            out = self._step(state, batch)
+            if self.model_item.step_fn is not None:
+                out = self._step(state, batch)
+            else:
+                ps_vals = {}
+                if self.ps_store is not None:
+                    ps_vals, version = self._pull_versioned()
+                    self.ps_read_lags.append(self._ps_pushes - version)
+                new_state, ps_grads, metrics = self._train(state, batch,
+                                                           ps_vals)
+                self._push_ps(ps_grads)
+                out = new_state, metrics
         self.dispatches += 1
         tel.counter_add("dstep.dispatches")
         self._count_wire()
@@ -876,8 +1043,9 @@ class DistributedStep:
         ``fused(state, ps_vals, ps_opt, stacked_batch) -> (new_state,
         new_ps_vals, new_ps_opt, stacked_metrics)`` over a stacked ``[k,
         ...]`` batch on the device, with the metrics stacked ``[k, ...]``
-        and left on the device. The port has no host-PS, so ``ps_vals``
-        and ``ps_opt`` are ``{}`` in and out.
+        and left on the device. ``ps_vals``
+        and ``ps_opt`` are ``{}`` in and out: a plan with host-PS
+        variables is refused.
 
         On ``cuda`` a call replays ONE CUDA graph that holds the k
         microsteps, captured at the first call for each (k, feed
@@ -890,6 +1058,13 @@ class DistributedStep:
         if k < 1:
             raise ValueError("multi_step needs k >= 1, got %d" % k)
         self._check_trainable()
+        if self.ps_store is not None:
+            raise NotImplementedError(
+                "fused supersteps (fit(fuse_steps=k), multi_step) with "
+                "host-PS variables %s: the JAX package carries them on the "
+                "device across the microsteps, which the port has not "
+                "reached (ROADMAP A item 14); run per step"
+                % self.ps_store.var_names)
         if self.device.type == "cuda" and self.num_replicas > 1:
             raise NotImplementedError(
                 "fused supersteps with %d replicas on cuda: a CUDA graph "
@@ -898,7 +1073,7 @@ class DistributedStep:
                 "(ROADMAP A item 12)" % self.num_replicas)
 
         def fused(state, ps_vals, ps_opt, stacked_batch):
-            del ps_vals, ps_opt  # no host-PS in the port
+            del ps_vals, ps_opt  # no host-PS variable here (refused above)
             lead = _lead_dims(stacked_batch)
             if lead and lead != {k}:
                 raise ValueError(
@@ -958,33 +1133,50 @@ class DistributedStep:
         self._count_wire(k)
         return new_state, metrics
 
-    def evaluate(self, state: TrainState, batch):
+    def evaluate(self, state: TrainState, batch, ps_vals=None):
         """Forward-only metrics under the compute tier: no grads, no
-        optimizer."""
+        optimizer. ``ps_vals`` (a :meth:`pull_ps` snapshot) lets an eval
+        loop pull the host-PS values once for all its batches; without it
+        this call pulls."""
+        if ps_vals is None:
+            ps_vals = self.pull_ps()
         with torch.no_grad(), tel.span("dstep.evaluate", "dstep"):
-            return self._metrics(*self._loss(
-                self._full_params(state.params), batch))
+            full = dict(self._full_params(state.params))
+            full.update(self._ps_dewire(ps_vals))
+            return self._metrics(*self._loss(full, batch))
 
     def gather_params(self, state: TrainState) -> dict:
         """The full params in their original names and layout: this
         replica's, which equal every other's, with each partitioned
         variable all-gathered and unpadded (a collective every rank must
-        join); in step_fn mode the user's state tree itself."""
+        join) and each host-PS variable from the store (after the
+        in-flight push has landed), on the device; in step_fn mode the
+        user's state tree itself."""
         if self.model_item.step_fn is not None:
             return state.params
-        return dict(self._full_params(state.params))
+        full = dict(self._full_params(state.params))
+        if self.ps_store is None:
+            return full
+        self.flush_ps()
+        for n, t in self.ps_store.full_values().items():
+            full[n] = t.to(self.device)
+        return {n: full[n] for n in self.model_item.params}
 
     def gather_opt_state(self, state: TrainState):
         """The optimizer state in the original names and full layout:
-        each partitioned variable's moments all-gathered and unpadded, and
+        each partitioned variable's moments all-gathered and unpadded,
         each ZeRO-sharded variable's rebuilt from the ranks' shards in
-        ``sync_state['zero']`` (the JAX ``gather_opt_state``). With such
-        variables it is a collective every rank must join; otherwise the
-        state's own tensors, on the device."""
+        ``sync_state['zero']`` and each host-PS variable's from the
+        store's shards (the JAX ``gather_opt_state``). With partitioned
+        or ZeRO variables it is a collective every rank must join;
+        otherwise the state's own tensors, on the device."""
         opt = state.opt_state
-        if not (self.layouts or self.zero_syncs) or not opt:
+        if not (self.layouts or self.zero_syncs or self.ps_store) \
+                or not opt:
             return opt
         N = self.num_replicas
+        if self.ps_store is not None:
+            self.flush_ps()
         out = dict(opt)
         for slot in ("mu", "nu"):
             out[slot] = dict(opt[slot])
@@ -994,6 +1186,9 @@ class DistributedStep:
                 shard = state.sync_state["zero"][n][slot]["v"]
                 out[slot][n] = zs.unshard(
                     [collectives.all_gather_flat(shard, None, N)])
+            for n in self.ps_store.var_names if self.ps_store else ():
+                out[slot][n] = self.ps_store.full_opt_leaf(
+                    slot, n).to(self.device)
         return out
 
     def gather_sync_state(self, state: TrainState):
@@ -1012,12 +1207,100 @@ class DistributedStep:
         return pytree.tree_map(gather, state.sync_state)
 
     def close(self):
-        """Drop the captured supersteps and their memory."""
+        """Drop the captured supersteps and their memory; land the
+        in-flight push and stop the PS pipeline and the store's apply
+        pool."""
         self._graphs.clear()
+        if self.ps_store is not None:
+            self.close_ps()
+            self.ps_store.close()
+
+    # ---------------------------------------------------------- host PS
+
+    @property
+    def _ps_pipe(self) -> Optional[ps_lib.PSPipeline]:
+        """The PSPipeline, made at the first step that pulls (None with
+        no store, or with ``ADT_PS_OVERLAP=0``: the serial path)."""
+        if not hasattr(self, "_ps_pipe_obj"):
+            self._ps_pipe_obj = None
+            if self.ps_store is not None and const.ENV.ADT_PS_OVERLAP.val:
+                self._ps_pipe_obj = ps_lib.PSPipeline(
+                    self.ps_store, self.ps_store.max_staleness() >= 1
+                    or self.ps_store.any_async())
+        return self._ps_pipe_obj
+
+    def _pull_versioned(self):
+        """(the host-PS values on the device, the store version they
+        are)."""
+        with tel.span("dstep.pull_ps", "dstep"):
+            tel.counter_add("dstep.ps_pulls")
+            pipe = self._ps_pipe
+            return (pipe.values() if pipe is not None
+                    else self.ps_store.pull())
 
     def pull_ps(self) -> dict:
-        """Current host-PS values: none in this slice."""
-        return {}
+        """The current host-PS values on the device (the per-step read
+        from the PS; ``{}`` with no host-resident variable). Public: an
+        eval loop pulls once and reuses the snapshot
+        (``Runner.evaluate``)."""
+        if self.ps_store is None:
+            return {}
+        return self._pull_versioned()[0]
+
+    def _ps_dewire(self, ps_vals) -> dict:
+        """The pulled values with each int8-wire variable's ``{"q", "s"}``
+        container (blocks in the JAX element order) dequantized on the
+        device (the device half of the store's codec)."""
+        if not self.ps_store or not self.ps_store.wire_quant:
+            return ps_vals
+        out = dict(ps_vals)
+        for n in self.ps_store.wire_quant:
+            info = self.model_item.var_infos[n]
+            out[n] = from_jax_layout(collectives.dequant_wire(
+                out[n], (info.num_elements,)), info.shape,
+                info.collective_name)
+        return out
+
+    def _push_ps(self, ps_grads: dict) -> None:
+        """Hand a step's PS gradients to the store: pipelined, or at once
+        (``ADT_PS_OVERLAP=0``). On ``cuda`` the copy waits on an event
+        recorded here, after the step's kernels."""
+        if self.ps_store is None or not ps_grads:
+            return
+        self._ps_pushes += 1
+        ready = None
+        if self.device.type == "cuda":
+            ready = torch.cuda.Event()
+            ready.record()
+        if self._ps_pipe is not None:
+            self._ps_pipe.submit(ps_grads, ready)
+        else:
+            self.ps_store.push(ps_grads, ready)
+
+    def flush_ps(self) -> None:
+        """Wait for the in-flight push: every read of the store (a
+        checkpoint, a gather, a digest) must see every submitted gradient
+        applied."""
+        pipe = getattr(self, "_ps_pipe_obj", None)
+        if pipe is not None:
+            with tel.span("dstep.flush_ps", "dstep"):
+                tel.counter_add("dstep.ps_flushes")
+                pipe.flush()
+
+    def invalidate_ps(self) -> None:
+        """Flush, and drop the pipeline's staged pull: the store's
+        contents were replaced (a restore, a re-init)."""
+        pipe = getattr(self, "_ps_pipe_obj", None)
+        if pipe is not None:
+            pipe.invalidate()
+
+    def close_ps(self) -> None:
+        """Flush the pipeline and stop its threads; a new one is made if
+        stepping resumes."""
+        pipe = getattr(self, "_ps_pipe_obj", None)
+        if pipe is not None:
+            pipe.close()
+            del self._ps_pipe_obj
 
     def _one_replica(self, what: str):
         if self.num_replicas > 1:
@@ -1025,10 +1308,14 @@ class DistributedStep:
                 "%s with %d replicas: the port serves on one replica so far "
                 "(ROADMAP A item 10)" % (what, self.num_replicas))
 
-    def _run(self, fn, state, payload):
+    def _run(self, fn, state, ps_vals, payload):
         with torch.inference_mode(), tel.span("dstep.dispatch", "dstep",
                                               fused=False):
-            out = fn(state.params, payload)
+            params = state.params
+            if ps_vals:
+                params = dict(params)
+                params.update(self._ps_dewire(ps_vals))
+            out = fn(params, payload)
         tel.counter_add("dstep.dispatches")
         return out
 
@@ -1036,7 +1323,8 @@ class DistributedStep:
                         donate_batch: bool = True,
                         example_batch=None) -> ForwardProgram:
         """The forward-only FETCH program behind the serving engine:
-        ``serve_fn(full_params, batch)`` with no grads. Returns
+        ``serve_fn(full_params, batch)`` with no grads, the host-PS
+        variables from ``ps_vals`` (a :meth:`pull_ps` snapshot). Returns
         ``fn(state, ps_vals, batch) -> outputs`` with outputs left on the
         device.
 
@@ -1057,7 +1345,7 @@ class DistributedStep:
             rows = _leading_rows(example_batch)
 
             def run(state, ps_vals, batch):
-                return self._run(serve_fn, state, batch)
+                return self._run(serve_fn, state, ps_vals, batch)
 
             def classify(state, ps_vals, batch, out):
                 if _leading_rows(batch) != rows:
@@ -1083,8 +1371,8 @@ class DistributedStep:
         if key not in self._decode_progs:
             slots = _leading_rows(example_dstate)
             self._decode_progs[key] = ForwardProgram(
-                lambda state, ps_vals, dstate: self._run(decode_fn, state,
-                                                         dstate),
+                lambda state, ps_vals, dstate: self._run(
+                    decode_fn, state, ps_vals, dstate),
                 lambda state, ps_vals, dstate, out: _classify(out, slots))
         return self._decode_progs[key]
 
@@ -1104,14 +1392,28 @@ class GraphTransformer:
         self._replicas = replica_info or ReplicaInfo()
 
     def _refuse_unported(self):
-        """Plan features whose N > 1 lowering the port has not reached
-        raise, naming the ROADMAP item that ports them; none is ignored."""
+        """Plan features the port has not reached raise, naming the
+        ROADMAP item that ports them; none is ignored. At every replica
+        count: an async host-PS variable (``sync=False``: the JAX store's
+        serving over the coordination service). With more than one
+        replica: a mesh beyond the data axis, model-parallel layouts,
+        bounded staleness (the Runner's cross-process step window) and
+        the rhd and hierarchical all-reduce schedules."""
         gc = self._strategy.graph_config
+        N = self._replicas.num_replicas
 
-        def refuse(what, item):
+        def refuse(what, item, replicas=True):
             raise NotImplementedError(
-                "%s with %d replicas is not ported yet (ROADMAP A item %d)"
-                % (what, self._replicas.num_replicas, item))
+                "%s%s is not ported yet (ROADMAP A item %d)"
+                % (what, " with %d replicas" % N if replicas else "", item))
+        plans = ps_lib.plan_host_ps(self._strategy, self._item.var_infos)
+        unsynced = sorted(n for n, p in plans.items() if not p.sync)
+        if unsynced:
+            refuse("async host PS (sync=False) on %s: serving over the "
+                   "coordination service (runtime/ps_service.py)"
+                   % unsynced, 8, replicas=False)
+        if N <= 1:
+            return
         if gc.mesh_shape or gc.seq_axis or gc.batch_axes:
             refuse("a mesh beyond the data axis (mesh_shape/seq_axis/"
                    "batch_axes)", 9)
@@ -1122,9 +1424,13 @@ class GraphTransformer:
                        % node.var_name, 9)
             cfgs = [node.synchronizer] if node.synchronizer is not None \
                 else [p.synchronizer for p in node.part_configs or ()]
-            for cfg in cfgs or [None]:
-                if cfg is None or cfg.kind == "PS":
-                    refuse("the PS synchronizer of %s" % node.var_name, 8)
+            for cfg in cfgs:
+                if cfg is None:
+                    continue
+                if getattr(cfg, "staleness", 0) > 0:
+                    refuse("staleness=%d on %s: the Runner's cross-process "
+                           "step window (runtime/coordination.py)"
+                           % (cfg.staleness, node.var_name), 8)
                 schedule = getattr(cfg, "schedule", "auto")
                 if schedule == "rhd":
                     refuse("schedule='rhd' on %s" % node.var_name, 7)
@@ -1185,7 +1491,7 @@ class GraphTransformer:
                 % (replicas, self._replicas.num_replicas))
         if self._item.step_fn is not None:
             self._check_step_fn(replicas)
-        elif replicas > 1:
+        else:
             self._refuse_unported()
         return DistributedStep(strategy=self._strategy,
                                model_item=self._item, device=self._device,

@@ -5,7 +5,7 @@ Every model exposes ``make_train_setup(...) -> (loss_fn, params,
 example_batch, apply_fn)``, plugging directly into
 ``AutoDist.build(loss_fn, optimizer, params, example_batch)``.
 """
-from autodist_tpu_torch.models import bert, cnn, lm, resnet
+from autodist_tpu_torch.models import bert, cnn, dlrm, lm, ncf, resnet
 
 
 def _bert(cfg_ctor, **kw):
@@ -26,6 +26,8 @@ REGISTRY = {
     "bert_base": lambda **kw: _bert(bert.BertConfig.base, **kw),
     "bert_large": lambda **kw: _bert(bert.BertConfig.large, **kw),
     "lm": lambda **kw: lm.make_train_setup(**kw),
+    "ncf": lambda **kw: ncf.make_train_setup(**kw),
+    "dlrm": lambda **kw: dlrm.make_train_setup(**kw),
 }
 
 

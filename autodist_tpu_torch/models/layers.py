@@ -38,19 +38,19 @@ def lecun_normal_(t: torch.Tensor, fan_in: int, gen: torch.Generator):
 
 class Dense(nn.Module):
     """flax ``nn.Dense``/``DenseGeneral`` over the flattened feature axes:
-    ``weight [out, in]`` and ``bias [out]`` in float32, computed in
-    ``dtype``."""
+    ``weight [out, in]`` and ``bias [out]`` (none with ``use_bias=False``)
+    in float32, computed in ``dtype``."""
 
     def __init__(self, in_features: int, out_features: int,
-                 dtype=torch.float32):
+                 dtype=torch.float32, use_bias: bool = True):
         super().__init__()
         self.dtype = dtype
         self.weight = _param(out_features, in_features)
-        self.bias = _param(out_features)
+        self.bias = _param(out_features) if use_bias else None
 
     def forward(self, x):
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype),
-                        self.bias.to(self.dtype))
+        bias = self.bias.to(self.dtype) if self.bias is not None else None
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), bias)
 
 
 class LayerNorm(nn.Module):
@@ -72,18 +72,24 @@ class LayerNorm(nn.Module):
 
 class SparseEmbed(nn.Module):
     """Embedding table lookup (``embedding [num, features]``) cast to
-    ``dtype``. The JAX layer routes the lookup through a named tap for the
-    sparse gradient wire; the port's slice has dense variables only, so
-    this is a plain lookup."""
+    ``dtype``, routed, as the JAX layer routes it, through
+    ``ops.embedding.embedding_lookup`` under the table's parameter name
+    (``param_name``, set by :func:`name_lookups`), so the lowering can
+    sync its gradient as (ids, values) pairs instead of a vocab-sized
+    array. Not for a tied output embedding: a table with another
+    differentiable use is found and kept dense."""
 
     def __init__(self, num_embeddings: int, features: int,
                  dtype=torch.float32):
         super().__init__()
         self.dtype = dtype
         self.embedding = _param(num_embeddings, features)
+        self.param_name = None
 
     def forward(self, ids):
-        return F.embedding(ids.long(), self.embedding).to(self.dtype)
+        from autodist_tpu_torch.ops.embedding import embedding_lookup
+        return embedding_lookup(self.embedding, ids,
+                                name=self.param_name).to(self.dtype)
 
 
 class MultiHeadAttention(nn.Module):
@@ -230,12 +236,23 @@ def flax_shapes(model: nn.Module) -> dict:
     return out
 
 
+def name_lookups(model: nn.Module) -> None:
+    """Give each :class:`SparseEmbed` of ``model`` its table's parameter
+    name (``"<module path>.embedding"``), the name its lookups carry."""
+    for prefix, mod in model.named_modules():
+        if isinstance(mod, SparseEmbed):
+            mod.param_name = prefix + ".embedding" if prefix else "embedding"
+    model.lookups_named = True
+
+
 def apply(module: nn.Module, params: dict, *args, **kwargs):
     """flax-style ``model.apply(params, *args, **kwargs)``: run ``module``
     with the ``{name: tensor}`` mapping as its parameters
     (``torch.func.functional_call``, strict). The call swaps the module's
     parameters for its duration, so calls on one module are serialized
     through the module's ``apply_lock``."""
+    if not getattr(module, "lookups_named", False):
+        name_lookups(module)
     with module.apply_lock:
         return torch.func.functional_call(module, params, args, kwargs,
                                           strict=True)

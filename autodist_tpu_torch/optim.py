@@ -81,7 +81,8 @@ class OptimizerSpec:
         maximum as optax's ``safe_increment`` does."""
         names = list(grads)
         upd = self._updates(names, grads, state)
-        torch._foreach_add_([params[n] for n in names], upd)
+        if names:
+            torch._foreach_add_([params[n] for n in names], upd)
         return dict(state)
 
     def delta(self, grads: Dict[str, torch.Tensor], state: dict
@@ -95,6 +96,10 @@ class OptimizerSpec:
     def _updates(self, names, grads, state):
         count = state["count"]
         count.add_((count < _INT32_MAX).to(count.dtype))
+        if not names:
+            # every variable rests elsewhere (the host PS): the count
+            # still advances, as optax's does on an empty tree
+            return []
         gs = [grads[n] for n in names]
         lr = float(self._hp("lr"))
         b1, b2 = (float(x) for x in self._hp("betas"))

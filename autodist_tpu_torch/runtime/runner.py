@@ -247,6 +247,7 @@ class Runner:
             self._superstep_count += 1
             tel.counter_add("runner.steps")
             tel.counter_add("runner.supersteps")
+            self._maybe_check_mirrors()
             handle = MetricsHandle(metrics, self._remapper, owner=self)
             out = handle.result() if sync else handle
             self._record_step_time(t_begin)
@@ -278,6 +279,34 @@ class Runner:
             out = handle.result() if sync else handle
             self._record_step_time(t_begin)
             return out
+
+    def _maybe_check_mirrors(self):
+        """Sync host PS keeps every rank's mirror of the store bit-equal
+        by determinism; every ``ADT_PS_MIRROR_CHECK_EVERY`` steps (0 =
+        off) the ranks compare an md5 of their mirrors (after the
+        in-flight push lands) and fail fast on a divergence. The JAX
+        runner compares them through the coordination service; the port
+        all-gathers them on the default group (16 bytes a rank, on the
+        runner's device), a collective every rank reaches at the same
+        step."""
+        every = const.ENV.ADT_PS_MIRROR_CHECK_EVERY.val
+        store = self._dstep.ps_store
+        n = self._dstep.num_replicas
+        if (every <= 0 or store is None or n < 2
+                or self._step_count % every != 0):
+            return
+        import torch.distributed as dist
+        self._dstep.flush_ps()
+        mine = torch.tensor(list(bytes.fromhex(store.mirror_digest())),
+                            dtype=torch.uint8, device=self.device)
+        parts = [torch.empty_like(mine) for _ in range(n)]
+        dist.all_gather(parts, mine)
+        digests = [bytes(p.cpu().tolist()).hex() for p in parts]
+        tel.counter_add("ps.mirror_checks")
+        if len(set(digests)) != 1:
+            raise RuntimeError(
+                "PS mirror divergence at step %d: the ranks' digests are %s"
+                % (self._step_count, digests))
 
     def _record_step_time(self, t_begin: float):
         elapsed = time.perf_counter() - t_begin
@@ -322,7 +351,18 @@ class Runner:
             "dispatches": c.get("dstep.dispatches", 0.0),
             "readbacks": c.get("runner.readbacks", 0.0),
             "d2h_bytes": c.get("runner.d2h_bytes", 0.0),
+            "ps_bytes_pulled": c.get("ps.bytes_pulled", 0.0),
+            "ps_bytes_pushed": c.get("ps.bytes_pushed", 0.0),
         }
+        # the host-PS wire and apply, from the spans (recorded while
+        # tracing is on, ADT_TRACE): count and total seconds of each
+        spans = tel.get_recorder().summary() if tel.tracing_enabled() \
+            else {}
+        out["ps_spans"] = {
+            name: {"count": int(spans.get(name, {}).get("count", 0)),
+                   "total_s": round(spans.get(name, {}).get("total_s", 0.0),
+                                    6)}
+            for name in ("ps.pull", "ps.push", "ps.apply")}
         return out
 
     def fit(self, batches, steps: Optional[int] = None,
@@ -366,6 +406,10 @@ class Runner:
                 "fit(fuse_steps=%d) fed a source pre-stacked with stack=%d"
                 " — the stacks must match (DevicePrefetcher(stack=k) pairs"
                 " with fit(fuse_steps=k))" % (fuse_steps, src_k))
+        if fuse_steps > 1:
+            # the fused program's refusals (host-PS variables; N > 1 on
+            # cuda), before any step runs
+            self._dstep.multi_step(fuse_steps)
         if save_every > 0 and saver is None:
             from autodist_tpu_torch.checkpoint.saver import Saver
             saver = Saver(directory=const.ENV.ADT_CKPT_DIR.val,
@@ -490,13 +534,16 @@ class Runner:
         if self.state is None:
             raise RuntimeError("Runner.evaluate before init()")
         totals, weight, skipped = {}, 0.0, set()
+        # one host-PS pull for the whole loop: no push happens between
+        # eval batches, so the values cannot change
+        ps_vals = self._dstep.pull_ps()
         bounded = batches if steps is None else itertools.islice(batches,
                                                                  steps)
         for batch in bounded:
             n = self._batch_examples(batch)
             placed = self._remapper.remap_feed(batch)
             host = self._remapper.remap_fetch(
-                self._dstep.evaluate(self.state, placed))
+                self._dstep.evaluate(self.state, placed, ps_vals=ps_vals))
             for k, v in host.items():
                 if np.ndim(v) == 0:
                     totals[k] = totals.get(k, 0.0) + float(v) * n
@@ -518,8 +565,8 @@ class Runner:
         return 1
 
     def close(self):
-        """Drop the device state and the captured supersteps
-        (idempotent)."""
+        """Drop the device state and the captured supersteps, and land the
+        in-flight PS push and stop the store's threads (idempotent)."""
         self.state = None
         self._dstep.close()
 

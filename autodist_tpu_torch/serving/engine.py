@@ -136,8 +136,9 @@ class InferenceEngine:
             % (n, self.buckets[-1]))
 
     def _snapshot(self):
-        """The host-PS values feed of the next dispatch (empty: the slice
-        has no host-resident variables)."""
+        """The host-PS values feed of the next dispatch: a pull each
+        dispatch (``{}`` with no host-resident variable; the JAX engine's
+        cached snapshot waits with ROADMAP A item 8)."""
         return self._dstep.pull_ps()
 
     def warmup(self):

@@ -1,5 +1,7 @@
-"""Strategy IR and the builders the port has so far: ``AllReduce``,
-``PartitionedAR``, ``RandomAxisPartitionAR``, ``ZeroSharded`` and the
+"""Strategy IR and the builders the port has so far: the AllReduce family
+(``AllReduce``, ``PartitionedAR``, ``RandomAxisPartitionAR``,
+``ZeroSharded``), the PS family (``PS``, ``PSLoadBalancing``,
+``PartitionedPS``, ``UnevenPartitionedPS``, ``Parallax``) and the
 ``WithRemat`` wrapper."""
 from autodist_tpu_torch.strategy.base import (AllReduceSynchronizer,  # noqa: F401
                                               GraphConfig, PSSynchronizer,
@@ -7,10 +9,18 @@ from autodist_tpu_torch.strategy.base import (AllReduceSynchronizer,  # noqa: F4
                                               StrategyCompiler, VarConfig,
                                               ZeroShardedSynchronizer)
 from autodist_tpu_torch.strategy.all_reduce_strategy import AllReduce  # noqa: F401
+from autodist_tpu_torch.strategy.parallax_strategy import Parallax  # noqa: F401
 from autodist_tpu_torch.strategy.partitioned_all_reduce_strategy import \
     PartitionedAR  # noqa: F401
+from autodist_tpu_torch.strategy.partitioned_ps_strategy import \
+    PartitionedPS  # noqa: F401
+from autodist_tpu_torch.strategy.ps_lb_strategy import \
+    PSLoadBalancing  # noqa: F401
+from autodist_tpu_torch.strategy.ps_strategy import PS  # noqa: F401
 from autodist_tpu_torch.strategy.random_axis_partition_all_reduce_strategy \
     import RandomAxisPartitionAR  # noqa: F401
 from autodist_tpu_torch.strategy.remat import WithRemat  # noqa: F401
+from autodist_tpu_torch.strategy.uneven_partition_ps_strategy import \
+    UnevenPartitionedPS  # noqa: F401
 from autodist_tpu_torch.strategy.zero_sharded_strategy import (  # noqa: F401
     ZeroSharded, zero_shardable, zero_wire_quantizable)

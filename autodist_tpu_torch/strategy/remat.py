@@ -89,8 +89,10 @@ def recompute_units(f, *args) -> list:
     with mode:
         fake = pytree.tree_map(fake_leaf, args)
     hook = torch.nn.modules.module.register_module_forward_pre_hook(record)
+    from autodist_tpu_torch.ops.embedding import capture
     try:
-        with mode, torch.no_grad():
+        # an empty capture: a step's sparse-wire taps are not this run's
+        with mode, torch.no_grad(), capture():
             f(*fake)
     finally:
         hook.remove()

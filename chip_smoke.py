@@ -160,7 +160,35 @@ result line):
    "full")`` and ``"dots"`` against plain, 3 steps each, deterministic
    mode: losses and params bit-equal, peak memory below plain's (all
    three printed), and under "full" the forward kernel launches 24 times
-   a step (the recomputed forward runs it again), dQ and dK/dV 12.
+   a step (the recomputed forward runs it again), dQ and dK/dV 12;
+15. the parameter-server family and the sparse (ids, values) wire, with
+   the PS spans recorded (tracing on): (a) DLRM at its default config
+   (8 tables, 1 622 100 x 64, and the MLPs; batch 256, the hot-id batch)
+   under ``Parallax()``, 2 + 10 steps: the 8 tables host-resident (the
+   tables and their moments absent from the device state, the store
+   holding the values and both moments), finite and falling losses, the
+   bytes a pull and a push equal to the plan's (every table whole; each
+   sparse-wire table's (ids, values) pairs, a dense table's gradient
+   whole); step p50 (min-max), examples/s, ``ps.pull``/``ps.push``/
+   ``ps.apply`` ms a step, peak HBM and the device's idle share over 3
+   more steps; (b) ``Parallax()`` against ``AllReduce()`` from one init, 3
+   steps each: losses within 1e-5 relative, params within 2 x steps x lr,
+   the share of elements beyond 1e-6 printed; (c) NCF at its default
+   config under ``PS()`` and under the default builder
+   (``PSLoadBalancing``), the readings of (a); (d) bert_base bf16 (seq
+   128, batch 128, flash) under ``Parallax()``, its three tables
+   host-resident, 2 + 10 steps: each kernel 12 launches a step on its
+   tensor-core design, the loss after 3 steps below the first, the first 3
+   losses within 2e-2 of ``AllReduce()``'s from the same init; (e) DLRM's
+   PS pipeline in deterministic mode: exact (``ADT_PS_OVERLAP=1``) and
+   serial (``0``) ``torch.equal`` after 3 steps, then
+   ``Parallax(staleness=1)`` 2 + 10 steps: finite losses, every read
+   lagging the applies by at most 1, its readings; (f) N = 2 on
+   ``cuda:0`` over gloo (as phase 10), DLRM under ``Parallax()`` and
+   ``AllReduce()`` (the tables on the sparse wire), 3 steps each from one
+   init in deterministic mode: both ranks' losses and params equal, the
+   Parallax ranks' store digests equal, the wire bytes a step a rank
+   printed against the tables' dense bytes.
 
 TF32 is off for the whole run (``torch.backends.cuda.matmul`` and
 ``cudnn``): float32 is computed in float32, as the f32 checks' 2e-5 and
@@ -2743,6 +2771,436 @@ def sync_variants_phase(card):
     return sync_phase(card), tier_phase(card), remat_phase(card)
 
 
+# ------------------------------------------------------------- phase 15
+
+
+PS_WARMUP, PS_STEPS = 2, 10
+PS_BATCH = 256
+PS_PARITY_STEPS = 3
+PS_LOSS_RTOL = 1e-5
+# Adam moves an element whose gradient is 0 in one run and rounding noise
+# in the other by up to lr a step (tests/test_torch_train.py)
+PS_PARAM_DRIFT = 2 * PS_PARITY_STEPS * 1e-3
+PS_SPANS = ("ps.pull", "ps.push", "ps.apply")
+
+
+def ps_runner(loss_fn, params, batch, builder):
+    """Build -> init through the public entry points on the card under
+    ``builder``."""
+    import torch
+    import autodist_tpu_torch as adt
+    adt_reset()
+    ad = adt.AutoDist(strategy_builder=builder)
+    runner = ad.build(loss_fn, functools.partial(torch.optim.Adam, lr=1e-3),
+                      params, batch)
+    runner.init(params)
+    return runner
+
+
+def ps_plan_bytes(dstep, rows):
+    """(bytes a pull, bytes a push) the plan gives at ``rows`` ids a lookup
+    a step: every host-PS variable whole in f32; a push carries each
+    sparse-wire table's (ids, values) pairs — an int32 id and ``features``
+    f32 values a row — and every other host-PS variable's whole f32
+    gradient."""
+    infos = dstep.model_item.var_infos
+    pull = push = 0
+    for n in dstep.ps_store.var_names:
+        info = infos[n]
+        pull += info.byte_size
+        if n in dstep.sparse_wire:
+            feat = info.num_elements // info.shape[0]
+            push += rows * (4 + 4 * feat)
+        else:
+            push += info.byte_size
+    return pull, push
+
+
+def span_totals():
+    """Each host-PS span's (count, total seconds) recorded so far."""
+    from autodist_tpu_torch.telemetry import spans as tel
+    summary = tel.get_recorder().summary()
+    return {n: (summary.get(n, {}).get("count", 0),
+                summary.get(n, {}).get("total_s", 0.0)) for n in PS_SPANS}
+
+
+def ps_readings(label, runner, batch, card, items, rows=None,
+                must_fall=True, unit="examples"):
+    """PS_WARMUP + PS_STEPS steps of a host-PS runner, each ended by a
+    sync, then a device profile of 3 more. Gates: every loss finite and
+    (``must_fall``) the last below the first; the host-PS variables and
+    their moments absent from the device state; the store resident with
+    the values and both moments; with ``rows`` (ids a lookup a step), the
+    bytes a pull and a push equal to the plan's (:func:`ps_plan_bytes`).
+    Prints step p50 (min-max), examples/s, each PS span's ms a step, the
+    bytes a step, peak HBM and the device's idle share. Returns (the
+    p50 in ms, the kernels' launches by design, the losses)."""
+    import math
+    import statistics
+    import torch
+    dstep = runner.distributed_step
+    store = dstep.ps_store
+    names = set(store.var_names)
+    st = runner.state
+    leaked = names & (set(st.params) | set(st.opt_state["mu"])
+                      | set(st.opt_state["nu"]))
+    if leaked:
+        fail("%s: host-PS variables on the device: %s" % (label,
+                                                          sorted(leaked)))
+    values = sum(dstep.model_item.var_infos[n].byte_size for n in names)
+    if store.resident_bytes() != 3 * values:
+        fail("%s: the store holds %d B, not 3 x %d B (values and two "
+             "moments)" % (label, store.resident_bytes(), values))
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for i in range(PS_WARMUP + PS_STEPS):
+        if i == PS_WARMUP:
+            dstep.flush_ps()
+            stats0, spans0 = dict(store.stats), span_totals()
+        t0 = time.perf_counter()
+        losses.append(float(runner.run(batch)["loss"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    dstep.flush_ps()
+    launches = launch_counts()
+    stats1, spans1 = dict(store.stats), span_totals()
+    times = times[PS_WARMUP:]
+    print("  losses: %s" % " ".join("%.5f" % x for x in losses))
+    if not all(math.isfinite(x) for x in losses):
+        fail("%s: a loss is not finite: %r" % (label, losses))
+    if must_fall and not losses[-1] < losses[0]:
+        fail("%s: the loss did not fall (%.5f -> %.5f)"
+             % (label, losses[0], losses[-1]))
+    pulls = stats1["pulls"] - stats0["pulls"]
+    pushes = stats1["pushes"] - stats0["pushes"]
+    if pulls != PS_STEPS or pushes != PS_STEPS:
+        fail("%s: %d pulls and %d pushes over %d steps"
+             % (label, pulls, pushes, PS_STEPS))
+    pulled = (stats1["bytes_pulled"] - stats0["bytes_pulled"]) / pulls
+    pushed = (stats1["bytes_pushed"] - stats0["bytes_pushed"]) / pushes
+    if rows is not None:
+        want = ps_plan_bytes(dstep, rows)
+        if (pulled, pushed) != want:
+            fail("%s: %d B pulled and %d B pushed a step, the plan gives "
+                 "%d and %d" % (label, pulled, pushed, want[0], want[1]))
+    span_ms = {n: 1e3 * (spans1[n][1] - spans0[n][1])
+               / max(spans1[n][0] - spans0[n][0], 1) for n in PS_SPANS}
+    p50 = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print("  %s, %d steps: step p50 %.2f ms (min %.2f, max %.2f), %.0f "
+          "%s/s; a step: ps.pull %.2f ms, ps.push %.2f ms (of which "
+          "ps.apply %.2f), %d B pulled, %d B pushed; store %d B resident "
+          "(values and two moments); peak HBM %.2f GB [%s]"
+          % (label, len(times), p50 * 1e3, min(times) * 1e3,
+             max(times) * 1e3, items / p50, unit, span_ms["ps.pull"],
+             span_ms["ps.push"], span_ms["ps.apply"], pulled, pushed,
+             store.resident_bytes(), peak, card))
+    share, window = idle_share(lambda: [runner.run(batch) for _ in range(3)])
+    print("  device idle share over 3 steps: %s of %.1f ms [%s]"
+          % ("not measured" if share is None else "%.1f%%" % (100 * share),
+             window, card))
+    return p50 * 1e3, launches, losses
+
+
+def dlrm_setup(**cfg_kw):
+    from autodist_tpu_torch.models import dlrm
+    cfg = dlrm.DLRMConfig(**cfg_kw)
+    loss_fn, params, batch, _ = dlrm.make_train_setup(cfg, batch_size=PS_BATCH,
+                                                      seed=0)
+    return cfg, loss_fn, params, batch
+
+
+def dlrm_ps_phase(card):
+    """Phase 15 (a)-(b): DLRM at its default config under Parallax(),
+    then Parallax() against AllReduce() from one init."""
+    import torch
+    from autodist_tpu_torch import strategy
+    cfg, loss_fn, params, batch = dlrm_setup()
+    n_tables = sum(s * cfg.embed_dim for s in cfg.table_sizes)
+    print("phase 15 (a): DLRM default config (%d tables, %d table "
+          "parameters, %d in all), batch %d (the hot-id batch), Parallax(), "
+          "%d + %d steps" % (len(cfg.table_sizes), n_tables,
+                             sum(int(p.numel()) for p in params.values()),
+                             PS_BATCH, PS_WARMUP, PS_STEPS))
+    runner = ps_runner(loss_fn, params, batch, strategy.Parallax())
+    tables = {"table_%d.embedding" % t for t in range(len(cfg.table_sizes))}
+    if set(runner.distributed_step.ps_names) != tables:
+        fail("phase 15 (a): host-PS variables %r are not the 8 tables"
+             % sorted(runner.distributed_step.ps_names))
+    print("  sparse wire: %s; dense pushes: %s"
+          % (sorted(runner.distributed_step.sparse_wire),
+             sorted(tables - runner.distributed_step.sparse_wire)))
+    p50, _, _ = ps_readings("DLRM Parallax", runner, batch, card, PS_BATCH,
+                            rows=PS_BATCH)
+    del runner
+    print("phase 15 (b): DLRM Parallax() vs AllReduce() from one init, %d "
+          "steps each" % PS_PARITY_STEPS)
+    got = {}
+    for label, builder in (("parallax", strategy.Parallax()),
+                           ("allreduce", strategy.AllReduce())):
+        runner = ps_runner(loss_fn, params, batch, builder)
+        losses = [float(runner.run(batch)["loss"])
+                  for _ in range(PS_PARITY_STEPS)]
+        got[label] = (losses, host_params(runner))
+        del runner
+    adt_reset()
+    (lp, pp), (la, pa) = got["parallax"], got["allreduce"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(lp, la))
+    worst, beyond, total = 0.0, 0, 0
+    for n, t in pa.items():
+        d = (pp[n] - t).abs()
+        worst = max(worst, float(d.max()))
+        beyond += int((d > 1e-6).sum())
+        total += d.numel()
+    print("  losses %s vs %s: within %.3e relative (bound %.0e); params "
+          "max |diff| %.3e (bound %.0e = 2 x steps x lr), %.4f%% of %d "
+          "elements beyond 1e-6 [%s]"
+          % (" ".join("%.6f" % x for x in lp),
+             " ".join("%.6f" % x for x in la), loss_err, PS_LOSS_RTOL, worst,
+             PS_PARAM_DRIFT, 100.0 * beyond / total, total, card))
+    if loss_err > PS_LOSS_RTOL or worst > PS_PARAM_DRIFT:
+        fail("phase 15 (b): Parallax and AllReduce disagree (losses %r vs "
+             "%r, params %.3e)" % (lp, la, worst))
+    return p50
+
+
+def ncf_ps_phase(card):
+    """Phase 15 (c): NCF at its default config under PS() and under the
+    default builder (PSLoadBalancing)."""
+    from autodist_tpu_torch import strategy
+    from autodist_tpu_torch.models import ncf
+    cfg = ncf.NCFConfig()
+    loss_fn, params, batch, _ = ncf.make_train_setup(cfg,
+                                                     batch_size=PS_BATCH,
+                                                     seed=0)
+    for label, builder in (("PS()", strategy.PS()), ("default", None)):
+        print("phase 15 (c): NCF default config (%d parameters), batch %d, "
+              "%s, %d + %d steps"
+              % (sum(int(p.numel()) for p in params.values()), PS_BATCH,
+                 label if builder is not None else
+                 "the default builder (PSLoadBalancing)", PS_WARMUP,
+                 PS_STEPS))
+        runner = ps_runner(loss_fn, params, batch, builder)
+        if set(runner.distributed_step.ps_names) != set(params):
+            fail("phase 15 (c) %s: host-PS variables %r are not all %d"
+                 % (label, sorted(runner.distributed_step.ps_names),
+                    len(params)))
+        ps_readings("NCF %s" % label, runner, batch, card, PS_BATCH,
+                    rows=PS_BATCH)
+        del runner
+    adt_reset()
+
+
+def bert_ps_phase(card):
+    """Phase 15 (d): bert_base bf16 (seq 128, batch 128, flash) under
+    Parallax(), the three tables host-resident; then AllReduce() from the
+    same init. Returns the Parallax run's launches by design."""
+    import torch
+    from autodist_tpu_torch import strategy
+    from autodist_tpu_torch.models import bert
+    cfg = bert.BertConfig.base(dtype=torch.bfloat16)
+    loss_fn, params, batch, _ = bert.make_train_setup(
+        cfg, seq_len=BERT_SEQ, batch_size=BERT_BATCH, seed=0,
+        attention="flash")
+    print("phase 15 (d): bert_base bf16 (seq %d, batch %d, flash) under "
+          "Parallax(), %d + %d steps, then AllReduce() %d steps from the "
+          "same init" % (BERT_SEQ, BERT_BATCH, PS_WARMUP, PS_STEPS,
+                         PS_PARITY_STEPS))
+    runner = ps_runner(loss_fn, params, batch, strategy.Parallax())
+    tables = {"encoder.word_embeddings.embedding",
+              "encoder.position_embeddings.embedding",
+              "encoder.token_type_embeddings.embedding"}
+    if set(runner.distributed_step.ps_names) != tables:
+        fail("phase 15 (d): host-PS variables %r are not the 3 tables"
+             % sorted(runner.distributed_step.ps_names))
+    print("  sparse wire: %s" % sorted(runner.distributed_step.sparse_wire))
+    _, launches, losses = ps_readings(
+        "bert_base Parallax", runner, batch, card, BERT_BATCH * BERT_SEQ,
+        must_fall=False, unit="tokens")
+    check_launches("phase 15 (d)", launches, cfg.num_layers,
+                   PS_WARMUP + PS_STEPS)
+    if not losses[3] < losses[0]:
+        fail("phase 15 (d): the loss after 3 steps is not below the first "
+             "(%.4f -> %.4f)" % (losses[0], losses[3]))
+    del runner
+    runner = ps_runner(loss_fn, params, batch, strategy.AllReduce())
+    with uncounted():
+        want = [float(runner.run(batch)["loss"])
+                for _ in range(PS_PARITY_STEPS)]
+    del runner
+    adt_reset()
+    worst = max(abs(a - b) / abs(b) for a, b in zip(losses, want))
+    if worst > 2e-2:
+        fail("phase 15 (d): Parallax's first losses %r are not within 2e-2 "
+             "of AllReduce's %r" % (losses[:PS_PARITY_STEPS], want))
+    print("  first %d losses within %.2e relative of AllReduce's (bound "
+          "2e-2); each kernel %d launches a step [%s]"
+          % (PS_PARITY_STEPS, worst, cfg.num_layers, card))
+    return launches
+
+
+def pipeline_phase(card):
+    """Phase 15 (e): the PS pipeline on DLRM, deterministic mode: exact
+    (ADT_PS_OVERLAP=1) against serial (0), and staleness=1."""
+    import statistics
+    import torch
+    from autodist_tpu_torch import strategy
+    print("phase 15 (e): DLRM Parallax(): the exact pipeline vs the serial "
+          "path (%d steps each, deterministic mode), then staleness=1, "
+          "%d + %d steps" % (PS_PARITY_STEPS, PS_WARMUP, PS_STEPS))
+    _, loss_fn, params, batch = dlrm_setup()
+    torch.use_deterministic_algorithms(True)
+    got = {}
+    try:
+        for label, overlap in (("exact", "1"), ("serial", "0")):
+            os.environ["ADT_PS_OVERLAP"] = overlap
+            runner = ps_runner(loss_fn, params, batch, strategy.Parallax())
+            if (runner.distributed_step._ps_pipe is None) != (overlap == "0"):
+                fail("phase 15 (e): ADT_PS_OVERLAP=%s did not pick its path"
+                     % overlap)
+            losses = [float(runner.run(batch)["loss"])
+                      for _ in range(PS_PARITY_STEPS)]
+            got[label] = (losses, host_params(runner))
+            del runner
+    finally:
+        os.environ.pop("ADT_PS_OVERLAP", None)
+        torch.use_deterministic_algorithms(False)
+    (le, pe), (ls, ps_) = got["exact"], got["serial"]
+    if le != ls or not all(torch.equal(pe[n], t) for n, t in ps_.items()):
+        fail("phase 15 (e): the exact pipeline differs from the serial "
+             "path (losses %r vs %r)" % (le, ls))
+    print("  exact == serial: losses and params torch.equal after %d steps"
+          % PS_PARITY_STEPS)
+    del got
+    runner = ps_runner(loss_fn, params, batch,
+                       strategy.Parallax(staleness=1))
+    p50, _, _ = ps_readings("DLRM Parallax(staleness=1)", runner, batch,
+                            card, PS_BATCH, rows=PS_BATCH)
+    lags = list(runner.distributed_step.ps_read_lags)
+    if max(lags) > 1 or min(lags) < 0:
+        fail("phase 15 (e): stale reads lag %r applies (bound 1)" % lags)
+    print("  staleness=1: reads lag %s applies (bound 1); step p50 %.2f ms "
+          "[%s]" % (sorted(set(lags)), p50, card))
+    del runner
+    adt_reset()
+    return p50
+
+
+def ps_child(rank, store, out_dir):
+    """One rank of phase 15 (f) (spawned): DLRM under Parallax() and under
+    AllReduce() at N = 2 from one init, deterministic mode."""
+    import math
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, HERE)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.use_deterministic_algorithms(True)
+    dist.init_process_group("gloo", store=dist.FileStore(store, DP_RANKS),
+                            rank=rank, world_size=DP_RANKS)
+    import autodist_tpu_torch as adt
+    from autodist_tpu_torch import strategy
+    from autodist_tpu_torch.telemetry import spans as tel
+    _, loss_fn, params, batch = dlrm_setup()
+    out = {"rank": rank}
+    for label, builder in (("parallax", strategy.Parallax()),
+                           ("allreduce", strategy.AllReduce())):
+        runner = sync_runner(loss_fn, params, batch, builder)
+        dstep = runner.distributed_step
+        before = dict(tel.counters())
+        losses = [float(runner.run(batch)["loss"])
+                  for _ in range(PS_PARITY_STEPS)]
+        after = tel.counters()
+        if not all(math.isfinite(x) for x in losses):
+            fail("phase 15 (f) %s: rank %d: a loss is not finite: %r"
+                 % (label, rank, losses))
+        res = {"losses": losses,
+               "sparse_wire": sorted(dstep.sparse_wire),
+               "ps_names": sorted(dstep.ps_names),
+               "wire": (after.get("sync.wire_bytes", 0.0)
+                        - before.get("sync.wire_bytes", 0.0))
+               / PS_PARITY_STEPS,
+               "sparse": (after.get("sync.sparse_wire_bytes", 0.0)
+                          - before.get("sync.sparse_wire_bytes", 0.0))
+               / PS_PARITY_STEPS}
+        final = runner.gather_params()
+        res["params_equal"] = ranks_equal(final)
+        if dstep.ps_store is not None:
+            dstep.flush_ps()
+            res["digest"] = dstep.ps_store.mirror_digest()
+        out[label] = res
+        del runner, dstep, final
+        adt.reset()
+        torch.cuda.empty_cache()
+    with open(os.path.join(out_dir, "ps%d.json" % rank), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def ps_dp_phase(card):
+    """Phase 15 (f): DLRM at N = 2, two ranks on cuda:0 over gloo."""
+    import tempfile
+    import torch.multiprocessing as mp
+    print("phase 15 (f): DLRM at N = %d on cuda:0 over gloo (global batch "
+          "%d), Parallax() and AllReduce() (the tables on the sparse wire), "
+          "%d steps each from one init, deterministic mode"
+          % (DP_RANKS, PS_BATCH, PS_PARITY_STEPS))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            mp.start_processes(ps_child, args=(os.path.join(tmp, "store"),
+                                               tmp),
+                               nprocs=DP_RANKS, start_method="spawn")
+        except Exception as e:  # noqa: BLE001 — a rank failed
+            fail("phase 15 (f): a rank failed: %s" % (str(e).strip()[-2000:],))
+        res = []
+        for r in range(DP_RANKS):
+            with open(os.path.join(tmp, "ps%d.json" % r)) as f:
+                res.append(json.load(f))
+    print("  two ranks ran in %.1f s" % (time.perf_counter() - t0))
+    from autodist_tpu_torch.models import dlrm
+    cfg = dlrm.DLRMConfig()
+    dense = 4 * cfg.embed_dim * sum(cfg.table_sizes)
+    for label in ("parallax", "allreduce"):
+        a, b = (r[label] for r in res)
+        if a["losses"] != b["losses"] or not (a["params_equal"]
+                                              and b["params_equal"]):
+            fail("phase 15 (f) %s: the ranks disagree (losses %r vs %r)"
+                 % (label, a["losses"], b["losses"]))
+        if label == "parallax" and a["digest"] != b["digest"]:
+            fail("phase 15 (f): the ranks' store mirrors differ (%s vs %s)"
+                 % (a["digest"], b["digest"]))
+        if len(a["sparse_wire"]) < 7:
+            fail("phase 15 (f) %s: only %r on the sparse wire"
+                 % (label, a["sparse_wire"]))
+        print("  %-9s losses %s (both ranks, params torch.equal%s); a step a "
+              "rank: sync.wire_bytes %d B, of which the tables' (ids, "
+              "values) pairs %d B, against the tables' dense %d B [%s]"
+              % (label, " ".join("%.6f" % x for x in a["losses"]),
+                 ", store digests equal %s" % a["digest"][:12]
+                 if label == "parallax" else "", a["wire"], a["sparse"],
+                 dense, card))
+
+
+def ps_phase(card):
+    """Phase 15: the parameter-server family and the sparse (ids, values)
+    wire. Returns each kernel's launches in (d), bert_base under
+    Parallax."""
+    from autodist_tpu_torch.telemetry import spans as tel
+    # the PS spans (ps.pull, ps.push, ps.apply) record while tracing is on
+    tel.configure("1")
+    try:
+        dlrm_ps_phase(card)
+        ncf_ps_phase(card)
+        launches = bert_ps_phase(card)
+        pipeline_phase(card)
+        ps_dp_phase(card)
+    finally:
+        tel.configure(None)
+    return launches
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "autodist_tpu_torch", "csrc")):
         fail("autodist_tpu_torch/ is not beside chip_smoke.py — run it from "
@@ -2884,6 +3342,7 @@ def main():
     cnn_phase(card)
     fused_launches, replay_per_microstep = fused_phase(card)
     sync_launches, tier_launches, remat_launches = sync_variants_phase(card)
+    ps_launches = ps_phase(card)
 
     # flash_fwd runs on the three main paths, serving (decode), lm1b and
     # bert training, the backward kernels on the two training paths. Each
@@ -2933,9 +3392,11 @@ def main():
         # steps under the bf16 tier (an f32 config: the f32 design), and
         # (e)'s bert_base steps under remat (the forward kernel launches
         # again in the recomputed forward): launches only
+        # phase 15 (d): bert_base under Parallax, the tables host-resident
         for path, counts in (("bert_sync_variants", sync_launches),
                              ("lm1b_bf16_tier", tier_launches),
-                             ("bert_remat", remat_launches)):
+                             ("bert_remat", remat_launches),
+                             ("bert_parallax", ps_launches)):
             n = counts.get(name, {})
             rec["by_path"][path] = {
                 "launches": sum(n.values()),

@@ -26,7 +26,10 @@ checkpoint crosses between them:
   moments rebuilt whole in ``.opt.npz`` and kept as ``[2, shard]`` rows
   in ``.sync.npz``; the partitioned variables unpadded), and their step 3
   is the JAX runner's; the port saves after its 2 steps and the JAX
-  runner restores its files bit for bit and takes step 3.
+  runner restores its files bit for bit and takes step 3;
+- (g) host-PS plans (``Parallax()``, ``UnevenPartitionedPS()``) on dlrm
+  tiny at N = 1: the store's values and Adam moments save whole in the
+  same files and restore into the store, both ways, bit for bit.
 
 Bounds of the step after a restore: losses within 1e-5 and params within
 1e-4, the parity tests' bounds (``tests/test_torch_train.py``,
@@ -64,6 +67,7 @@ from autodist_tpu_torch.models import lm as tlm
 from autodist_tpu_torch.models import resnet as tresnet
 from autodist_tpu_torch.runtime import faultinject as fi
 from autodist_tpu_torch.telemetry import spans as tel
+from autodist_tpu_torch.resource_spec import ResourceSpec
 from torch_dist_worker import LR, launch
 
 STEPS = 3
@@ -282,6 +286,99 @@ def test_port_files_have_the_jax_files_keys_shapes_and_dtypes(crossed):
     assert metas[0]["healthy"] is True
     for c_path in (c["port_path"], c["jax_path"]):
         assert not os.path.exists(c_path + ".sync.npz")
+
+
+@pytest.fixture(scope="module", params=["Parallax", "UnevenPartitionedPS"])
+def ps_crossed(request, tmp_path_factory):
+    """(g) Host-PS plans both ways at N = 1, dlrm tiny: the PS variables
+    save from the store (values and Adam moments, whole) and restore into
+    it. Each package's 2 steps and save, and each restoring the other's
+    checkpoint and taking step 3."""
+    from autodist_tpu.models import dlrm as jdlrm
+    from autodist_tpu_torch.models import dlrm as tdlrm
+    name = request.param
+    jl, jvars, example, _ = jdlrm.make_train_setup(jdlrm.DLRMConfig.tiny(),
+                                                   batch_size=8)
+    jvars = jax.tree_util.tree_map(np.asarray, jvars)
+    tl = tdlrm.make_train_setup(tdlrm.DLRMConfig.tiny(), batch_size=8)[0]
+    tparams = convert.params_from_jax(jvars)
+    b = [tdlrm.make_train_setup(tdlrm.DLRMConfig.tiny(), batch_size=8,
+                                seed=s)[2] for s in (1, 2, 3)]
+    jdir, pdir = (str(tmp_path_factory.mktemp(name + d))
+                  for d in ("jax", "port"))
+
+    def jax_runner():
+        ad = jadt.AutoDist(strategy_builder=getattr(jstrategy, name)(),
+                           resource_spec=JSpec.from_dict(ONE))
+        runner = ad.build(jl, optax.adam(LR), jvars, example)
+        runner.init(jvars)
+        return runner
+
+    def port_runner():
+        ad = adt.AutoDist(strategy_builder=getattr(strategy, name)(),
+                          resource_spec=ResourceSpec.from_dict(ONE),
+                          device="cpu")
+        runner = ad.build(tl, functools.partial(torch.optim.Adam, lr=LR),
+                          tparams, example)
+        runner.init(tparams)
+        return runner
+
+    def port_flat(runner):
+        dstep = runner.distributed_step
+        item = dstep.model_item
+        return (convert.params_to_jax(runner.gather_params(),
+                                      item.flax_shapes),
+                convert.opt_state_to_jax(
+                    dstep.gather_opt_state(runner.state), item.flax_shapes))
+    out = {}
+    try:
+        runner = jax_runner()
+        for x in b[:2]:
+            runner.run(x)
+        out["jax_path"] = JSaver(directory=jdir).save(runner)
+        out["jax_loss3"] = float(runner.run(b[2])["loss"])
+        out["jax_params3"] = _to_port(runner.gather_params())
+    finally:
+        jadt.reset()
+    runner = port_runner()
+    assert runner.distributed_step.ps_store is not None
+    for x in b[:2]:
+        runner.run(x)
+    out["port_path"] = Saver(directory=pdir).save(runner)
+    adt.reset()
+    runner = port_runner()
+    Saver(directory=jdir).restore(runner)
+    out["port_restored"] = port_flat(runner)
+    out["port_from_jax_loss3"] = float(runner.run(b[2])["loss"])
+    out["port_from_jax_params3"] = {
+        n: t.numpy() for n, t in runner.gather_params().items()}
+    adt.reset()
+    try:
+        runner = jax_runner()
+        JSaver(directory=pdir).restore(runner)
+        out["jax_restored"] = _jax_flat(runner)
+        out["jax_from_port_loss3"] = float(runner.run(b[2])["loss"])
+        out["jax_from_port_params3"] = _to_port(runner.gather_params())
+    finally:
+        jadt.reset()
+    return out
+
+
+@pytest.mark.parametrize("direction", ["port_from_jax", "jax_from_port"])
+def test_a_host_ps_checkpoint_crosses_both_ways(ps_crossed, direction):
+    """(g) The restoring package reads the other's files bit for bit (the
+    host-PS variables' values and moments from and into the store) and
+    its step 3 is the JAX runner's."""
+    c = ps_crossed
+    src = "jax_path" if direction == "port_from_jax" else "port_path"
+    restored = "port_restored" if direction == "port_from_jax" \
+        else "jax_restored"
+    params, opt = c[restored]
+    _assert_flat_equal(params, _npz(c[src] + ".params.npz"))
+    _assert_flat_equal(opt, _npz(c[src] + ".opt.npz"))
+    np.testing.assert_allclose(c[direction + "_loss3"], c["jax_loss3"],
+                               atol=1e-5, rtol=1e-5)
+    _params_close(c[direction + "_params3"], c["jax_params3"])
 
 
 @pytest.mark.parametrize("model", ["lm", "bert", "resnet"])

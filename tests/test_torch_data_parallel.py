@@ -19,9 +19,9 @@ three Adam (1e-3) steps each:
   devices and the port over ranks.
 
 Routes. At N = 2 the JAX lowering sends a lookup table over its sparse
-(ids, values) wire when that undercuts the dense gradient; the port
-syncs such tables dense (ROADMAP A item 8), outside the buckets as that
-wire leaves them. In these setups JAX takes the sparse wire for lm's
+(ids, values) wire when that undercuts the dense gradient, and so does
+the port (``ops/embedding.py``: the pairs all-gathered over the ranks and
+scatter-added), outside the buckets. In these setups JAX takes the sparse wire for lm's
 ``pos_embed`` (16 ids x 2 x 33 < 64 x 32) and keeps ``embed`` dense
 (64 ids x 2 x 33 >= 128 x 32); for bert it keeps every table dense (the
 position table by a hair: 32 ids x 2 x 33 >= 64 x 32). The test reads
@@ -246,7 +246,7 @@ def _rhd(plan):
 def _ps(plan):
     from autodist_tpu_torch.strategy.base import PSSynchronizer
     plan.node_config[0].synchronizer = PSSynchronizer(
-        reduction_destination="127.0.0.1:CPU:0")
+        reduction_destination="127.0.0.1:CPU:0", staleness=2)
 
 
 @pytest.mark.parametrize("mutate,roadmap_item", [(_rhd, 7), (_ps, 8)],
@@ -254,7 +254,8 @@ def _ps(plan):
 def test_unported_features_raise_at_two_replicas(mutate, roadmap_item):
     """Features the port has not reached raise at N > 1, naming the
     ROADMAP item: the rhd all-reduce schedule (item 7) and a PS
-    synchronizer (item 8); nothing is silently ignored."""
+    synchronizer's bounded staleness, the Runner's cross-process step
+    window (item 8's control plane); nothing is silently ignored."""
     from autodist_tpu_torch.kernel.graph_transformer import GraphTransformer
     from autodist_tpu_torch.kernel.replicator import ReplicaInfo
     from autodist_tpu_torch.model_item import ModelItem

@@ -244,7 +244,9 @@ def test_registry_builds_each_model(name, monkeypatch):
           "inceptionv3": dict(image_size=75, batch_size=2),
           "densenet121": dict(image_size=32, batch_size=2),
           "bert_base": dict(seq_len=16, batch_size=2),
-          "lm": dict(seq_len=16, batch_size=2)}
+          "lm": dict(seq_len=16, batch_size=2),
+          "ncf": dict(batch_size=2),
+          "dlrm": dict(batch_size=2)}
     if name == "bert_large":
         from autodist_tpu_torch.models import bert
         seen = {}
@@ -264,4 +266,4 @@ def test_registry_builds_each_model(name, monkeypatch):
 
 def test_registry_rejects_an_unknown_name():
     with pytest.raises(ValueError, match="unknown model"):
-        models.make_train_setup("ncf")
+        models.make_train_setup("wide_and_deep")

@@ -1,6 +1,11 @@
 """autodist_tpu_torch's strategy IR against the JAX package's: for the same
-variable list and resource spec, the AllReduce plan serializes to the same
-JSON bytes (the IR is framework-free, and the port carries a copy)."""
+variable list and resource spec, the AllReduce plan and the PS family's
+(``PS``, ``PSLoadBalancing``, ``PartitionedPS``, ``UnevenPartitionedPS``,
+``Parallax``) serialize to the same JSON bytes (the IR is framework-free,
+and the port carries a copy); the PS family over ncf, dlrm and lm tiny's
+variable lists, on one node and on three (a ``resource_spec.yml``); and
+the port's ``ModelItem`` lists those models' variables, sizes and table
+flags as the JAX item does."""
 import json
 
 import numpy as np
@@ -89,3 +94,118 @@ def test_model_item_default_filter_freezes_batch_stats_as_jax_does():
     item = ModelItem(loss_fn=lambda p, b: 0.0, params=params,
                      trainable_filter=lambda n: True).prepare()
     assert len(item.trainable_var_names) == 3
+
+
+# --------------------------------------------------------------- PS family
+
+THREE_NODES = """
+nodes:
+  - address: 10.0.0.1
+    cpus: [0, 1]
+    chief: true
+  - address: 10.0.0.2
+    cpus: [0]
+  - address: 10.0.0.3
+    cpus: [0]
+"""
+PS_BUILDERS = {"PS": ("PS", {}),
+               "PS_int8": ("PS", {"wire_dtype": "int8"}),
+               "PSLoadBalancing": ("PSLoadBalancing", {}),
+               "PartitionedPS": ("PartitionedPS", {}),
+               "UnevenPartitionedPS": ("UnevenPartitionedPS", {}),
+               "Parallax": ("Parallax", {}),
+               "PS_proxy_stale": ("PS", {"local_proxy_variable": True,
+                                         "staleness": 1})}
+
+
+def _recsys_items(model):
+    """(JAX ModelItem, port ModelItem) of a tiny model from the same JAX
+    init (the port's params converted)."""
+    import jax
+    from autodist_tpu.model_item import ModelItem as JModelItem
+    from autodist_tpu.models import dlrm as jdlrm
+    from autodist_tpu.models import lm as jlm
+    from autodist_tpu.models import ncf as jncf
+    from autodist_tpu_torch.convert import params_from_jax
+    from autodist_tpu_torch.models import dlrm as tdlrm
+    from autodist_tpu_torch.models import lm as tlm
+    from autodist_tpu_torch.models import ncf as tncf
+    if model == "ncf":
+        jl, jp, batch, _ = jncf.make_train_setup(jncf.NCFConfig.tiny(),
+                                                 batch_size=8)
+        tl = tncf.make_train_setup(tncf.NCFConfig.tiny(), batch_size=8)[0]
+    elif model == "dlrm":
+        jl, jp, batch, _ = jdlrm.make_train_setup(jdlrm.DLRMConfig.tiny(),
+                                                  batch_size=8)
+        tl = tdlrm.make_train_setup(tdlrm.DLRMConfig.tiny(),
+                                    batch_size=8)[0]
+    else:
+        jl, jp, batch, _ = jlm.make_train_setup(jlm.LMConfig.tiny(),
+                                                seq_len=16, batch_size=8)
+        tl = tlm.make_train_setup(tlm.LMConfig.tiny(), seq_len=16,
+                                  batch_size=8)[0]
+    jitem = JModelItem(loss_fn=jl, params=jp, example_batch=batch).prepare()
+    init = params_from_jax(jax.tree_util.tree_map(np.asarray, jp))
+    titem = ModelItem(loss_fn=tl, params=init, example_batch=batch).prepare()
+    return jitem, titem
+
+
+@pytest.fixture(scope="module")
+def recsys_items():
+    return {m: _recsys_items(m) for m in ("ncf", "dlrm", "lm")}
+
+
+@pytest.mark.parametrize("model", ["ncf", "dlrm", "lm"])
+def test_model_item_lists_the_jax_variables_and_tables(recsys_items, model):
+    """The port's item: the JAX item's variables in its order, their
+    element counts and their sparse (lookup-table) flags — what the PS
+    builders read."""
+    jitem, titem = recsys_items[model]
+    got = [(v.collective_name, v.num_elements, v.sparse, v.trainable)
+           for v in titem.var_infos.values()]
+    want = [(v.name, int(np.prod(v.shape or (1,))), v.sparse, v.trainable)
+            for v in jitem.var_infos.values()]
+    assert got == want
+    assert any(v.sparse for v in titem.var_infos.values())
+
+
+@pytest.mark.parametrize("spec", ["one", "three"])
+@pytest.mark.parametrize("case", list(PS_BUILDERS))
+@pytest.mark.parametrize("model", ["ncf", "dlrm", "lm"])
+def test_ps_family_plan_bytes_match_jax(recsys_items, tmp_path, model, case,
+                                        spec):
+    """Each PS-family builder over a model's variable list (the JAX
+    item's names, flax shapes and sparse flags) emits the JAX builder's
+    plan, byte for byte, on one node and on three (a PS a node: owners
+    round-robin, shards, uneven sizes)."""
+    from autodist_tpu import strategy as jstrategy
+    from autodist_tpu_torch import strategy
+    jitem, _ = recsys_items[model]
+    jlist = _Item([JVarInfo(v.name, tuple(v.shape), v.dtype,
+                            trainable=v.trainable, sparse=v.sparse)
+                   for v in jitem.var_infos.values()])
+    tlist = _Item([VarInfo(v.name, tuple(v.shape), v.dtype,
+                           trainable=v.trainable, sparse=v.sparse)
+                   for v in jitem.var_infos.values()])
+    if spec == "one":
+        jspec = JSpec.from_dict({"nodes": [{"address": "127.0.0.1",
+                                            "chief": True, "cpus": [0]}]})
+        tspec = ResourceSpec.from_dict({"nodes": [{
+            "address": "127.0.0.1", "chief": True, "cpus": [0]}]})
+    else:
+        path = tmp_path / "resource_spec.yml"
+        path.write_text(THREE_NODES)
+        jspec, tspec = JSpec(str(path)), ResourceSpec(str(path))
+    name, kw = PS_BUILDERS[case]
+    jplan = getattr(jstrategy, name)(**kw).build(jlist, jspec)
+    tplan = getattr(strategy, name)(**kw).build(tlist, tspec)
+    tplan.id = jplan.id
+    dump = lambda p: json.dumps(p.to_dict(), sort_keys=True)  # noqa: E731
+    assert dump(tplan) == dump(jplan)
+    if spec == "three" and "Partitioned" in name:
+        owners = {p.synchronizer.reduction_destination
+                  for n in tplan.node_config for p in n.part_configs}
+        assert len(owners) == 3
+    if case == "UnevenPartitionedPS" and spec == "three":
+        assert any(n.shard_sizes and len(set(n.shard_sizes)) > 1
+                   for n in tplan.node_config)

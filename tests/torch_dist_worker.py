@@ -4,7 +4,8 @@ The tests (``tests/test_torch_collectives.py``,
 ``tests/test_torch_data_parallel.py``, ``tests/test_torch_checkpoint.py``,
 ``tests/test_torch_fused.py``, ``tests/test_torch_zero.py``,
 ``tests/test_torch_partitioned.py``, ``tests/test_torch_overlap.py``,
-``tests/test_torch_compute_tier.py``)
+``tests/test_torch_compute_tier.py``, ``tests/test_torch_recsys.py``,
+``tests/test_torch_ps.py``, ``tests/test_torch_sparse.py``)
 compute their JAX references in the pytest process and hand numpy arrays
 to :func:`launch`, which starts
 ``world`` processes with the ``spawn`` start method. Each process joins a
@@ -103,8 +104,45 @@ def compressor_job(payload, device):
     return _np(out)
 
 
+TOWER_VOCAB, TOWER_DIM = 100_000, 16
+
+
+def tower_setup(named: bool, batch_size: int, vocab: int = TOWER_VOCAB,
+                tied: bool = False):
+    """A DLRM-ish tower (the JAX sparse-wire tests' model): one lookup
+    table, its rows through a dense head, squared error. ``named`` routes
+    the lookup through ``embedding_lookup(name=...)``; ``tied`` also
+    reads the table in the head (a dense use)."""
+    from autodist_tpu_torch.ops.embedding import embedding_lookup
+    rng = np.random.RandomState(0)
+    params = {"emb.table": torch.from_numpy(
+        (rng.randn(vocab, TOWER_DIM) * 0.1).astype(np.float32)),
+        "head.weight": torch.from_numpy(
+            (rng.randn(1, TOWER_DIM) * 0.1).astype(np.float32))}
+
+    def loss_fn(p, batch):
+        rows = embedding_lookup(p["emb.table"], torch.as_tensor(batch["ids"]),
+                                name="emb.table" if named else None)
+        pred = (rows @ p["head.weight"].t())[:, 0]
+        if tied:
+            pred = pred + (rows @ p["emb.table"][:TOWER_DIM]).sum(-1)
+        return torch.mean((pred - torch.as_tensor(batch["y"])) ** 2)
+    batch = {"ids": rng.randint(0, vocab, (batch_size,)).astype(np.int32),
+             "y": rng.randn(batch_size).astype(np.float32)}
+    return loss_fn, params, batch, None
+
+
 def _setup(model: str, seq_len: int, batch_size: int, attention: str):
-    from autodist_tpu_torch.models import bert, lm
+    from autodist_tpu_torch.models import bert, dlrm, lm, ncf
+    if model in ("tower", "tower_unnamed"):
+        return tower_setup(model == "tower", batch_size)
+    if model == "ncf":
+        return ncf.make_train_setup(ncf.NCFConfig.tiny(),
+                                    batch_size=batch_size)
+    if model in ("dlrm", "dlrm_wide"):
+        return dlrm.make_train_setup(
+            dlrm.DLRMConfig.tiny(wide=model == "dlrm_wide"),
+            batch_size=batch_size)
     if model == "lm":
         return lm.make_train_setup(lm.LMConfig.tiny(), seq_len=seq_len,
                                    batch_size=batch_size,
@@ -128,11 +166,12 @@ def builder(spec):
 
 def train_job(payload, device):
     """Each run of ``payload`` (a list) in turn: ``Runner.run`` steps of
-    the port's AllReduce plan on the global batches, from the given init.
-    Returns, for each run, the losses, an ``evaluate`` of the first batch
-    before the steps,
+    the port's plan (``builder``) on the global batches, from the given
+    init. Returns, for each run, the losses, an ``evaluate`` of the first
+    batch before the steps,
     the final params, the bucket keys and members, the sparse-wire
-    tables, the ``sync_state`` keys and the runner's step count."""
+    tables, the ``sync_state`` keys, the runner's step count and, with
+    host-PS variables, the store's names, counters and digest."""
     return [_train_one(run, device) for run in payload]
 
 
@@ -176,8 +215,19 @@ def _train_one(payload, device):
                         if isinstance(v, (bool, int, float, str, list))
                         or v is None},
            "counters": {k: v for k, v in tel.counters().items()
-                        if k.startswith(("zero.", "overlap."))},
+                        if k.startswith(("zero.", "overlap.", "sync.",
+                                         "ps."))},
            "overlap_log": list(dstep.overlap_log)}
+    infos = dstep.model_item.var_infos
+    store = dstep.ps_store
+    out.update(
+        ps_jax_names=sorted(infos[n].collective_name for n in dstep.ps_names),
+        sparse_wire_jax=sorted(infos[n].collective_name
+                               for n in dstep.sparse_wire),
+        stats=({k: store.stats[k] for k in ("pulls", "pushes",
+                                            "bytes_pulled", "bytes_pushed")}
+               if store is not None else None),
+        ps_digest=store.mirror_digest() if store is not None else None)
     adt.reset()
     return out
 
