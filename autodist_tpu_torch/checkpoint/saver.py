@@ -7,8 +7,10 @@ a compressor keeps state) and ``.meta.json`` (``"format":
 each data file's crc32 and bytes). The npz files hold flat arrays keyed
 by the JAX package's variable names, in flax's shapes and element order
 (``convert.params_to_jax``): ``params/...`` and ``batch_stats/...``,
-optax.adam's ``0/count``, ``0/mu/...`` and ``0/nu/...``, and the
-compressor states with their leading rank axis. They load with
+the optax optimizer's state as the JAX saver flattens it (optax.adam's
+``0/count``, ``0/mu/...`` and ``0/nu/...``; sgd with momentum's
+``0/trace/...``; behind a clip, ``1/0/...``), and the compressor states
+with their leading rank axis. They load with
 ``numpy.load`` alone, and a checkpoint either package writes restores
 into the other.
 
@@ -18,8 +20,9 @@ meta last: a checkpoint is committed exactly when its meta exists
 default ``torch.distributed`` group with more than one replica (every
 rank joins the gathers), else ``const.is_chief()``. Host-PS variables
 save from the store, whole, in the same files: the gathers land the
-in-flight push first and read the store's values and Adam moments, and a
-restore's ``init_state`` puts them back into the store. The JAX saver's
+in-flight push and write a fused superstep's device carry back first,
+and read the store's values and optimizer state, and a restore's
+``init_state`` puts them back into the store (and drops any carry). The JAX saver's
 epoch fence (``elastic.maybe_fence``) comes with the elastic plane, item
 8's control plane in ROADMAP A.
 """
@@ -269,9 +272,11 @@ class Saver:
                 trees = [(".params.npz", convert.params_to_jax(
                     params, item.flax_shapes)),
                     (".opt.npz", {} if opt is None else
-                     convert.opt_state_to_jax(opt, item.flax_shapes))]
+                     convert.opt_state_to_jax(opt, item.flax_shapes,
+                                              item.optimizer_spec))]
             sync_flat = convert.sync_state_to_jax(sync, item.var_infos,
-                                                  item.flax_shapes)
+                                                  item.flax_shapes,
+                                                  item.optimizer_spec)
             if sync_flat:
                 trees.append((".sync.npz", sync_flat))
         path = os.path.join(self.directory, "ckpt-%d" % step)
@@ -450,16 +455,18 @@ class Saver:
         if item.optimizer_spec is not None:
             shapes = {n: tuple(t.shape) for n, t in params.items()}
             flat = _flat_to_tree(
-                convert.opt_state_template(shapes, item.flax_shapes),
+                convert.opt_state_template(shapes, item.flax_shapes,
+                                           item.optimizer_spec),
                 _read_npz(path + ".opt.npz"))
             opt_state = convert.opt_state_from_jax(flat, shapes,
-                                                   dstep.device)
+                                                   dstep.device,
+                                                   item.optimizer_spec)
         sync_state = None
         if os.path.exists(path + ".sync.npz"):
             try:
                 sync_state = convert.sync_state_from_jax(
                     _read_npz(path + ".sync.npz"), item.var_infos,
-                    item.flax_shapes)
+                    item.flax_shapes, item.optimizer_spec)
             except (KeyError, ValueError) as e:
                 logging.warning("sync state in checkpoint incompatible with "
                                 "current strategy (%s); reinitializing", e)

@@ -164,6 +164,18 @@ def from_jax_layout(flat: torch.Tensor, shape, name: str) -> torch.Tensor:
     return flat.reshape(shape)
 
 
+def to_flax(t: torch.Tensor, name: str, shape) -> torch.Tensor:
+    """The port's tensor ``t`` of the variable ``name`` as the flax leaf
+    of ``shape`` (its flax shape), in flax's element order."""
+    return to_jax_layout(t, name).reshape(tuple(shape))
+
+
+def from_flax(t: torch.Tensor, shape, name: str) -> torch.Tensor:
+    """Inverse of :func:`to_flax`: the port's contiguous tensor of
+    ``shape``."""
+    return from_jax_layout(t.reshape(-1), shape, name)
+
+
 def flax_shape(name: str, shape, flax_shapes: Optional[dict] = None):
     """The flax shape of the port's variable ``name`` of ``shape``: its
     entry in ``flax_shapes``, else a kernel's ``[out, in]`` as ``[in,
@@ -228,51 +240,72 @@ def jax_shapes(shapes: Dict[str, tuple], flax_shapes: Optional[dict] = None
             for n, s in shapes.items()}
 
 
-# optax.adam's state flattened as the JAX saver writes it: the chain's
-# first element, ``ScaleByAdamState(count, mu, nu)``
-_ADAM = "0/"
+def _layout(optimizer):
+    """The optimizer whose state a conversion reads or writes
+    (``optim.OptimizerSpec``): optax.adam's when none is given."""
+    if optimizer is None:
+        from autodist_tpu_torch import optim
+        optimizer = optim.capture(torch.optim.Adam)
+    return optimizer
 
 
-def opt_state_to_jax(opt_state: dict, flax_shapes: Optional[dict] = None
-                     ) -> Dict[str, np.ndarray]:
-    """The port's Adam state as optax.adam's flattened state: ``0/count``
-    (int32), ``0/mu/<JAX name>`` and ``0/nu/<JAX name>`` in the params'
-    flax shapes."""
-    out = {_ADAM + "count": np.asarray(int(opt_state["count"]), np.int32)}
-    for slot in ("mu", "nu"):
+def opt_state_to_jax(opt_state: dict, flax_shapes: Optional[dict] = None,
+                     optimizer=None) -> Dict[str, np.ndarray]:
+    """The port's optimizer state as the optax state the JAX saver
+    flattens, for ``optimizer`` (an ``optim.OptimizerSpec``; Adam's by
+    default): ``<prefix>count`` (int32) where the optimizer keeps one and
+    ``<prefix><slot>/<JAX name>`` for each slot (Adam's ``mu`` and
+    ``nu``, SGD momentum's ``trace``) in the params' flax shapes, where
+    ``<prefix>`` is the optimizer's place in optax's chain (``0/``, or
+    ``1/0/`` behind a clip)."""
+    opt = _layout(optimizer)
+    pre = opt.jax_prefix
+    out = {}
+    if opt.has_count:
+        out[pre + "count"] = np.asarray(int(opt_state["count"]), np.int32)
+    for slot in opt.slots:
         for n, t in opt_state[slot].items():
-            out["%s%s/%s" % (_ADAM, slot, jax_name(n, t.shape))] = \
+            out["%s%s/%s" % (pre, slot, jax_name(n, t.shape))] = \
                 leaf_to_jax(t, n, flax_shapes)
     return out
 
 
 def opt_state_template(shapes: Dict[str, tuple],
-                       flax_shapes: Optional[dict] = None) -> Dict[str, tuple]:
+                       flax_shapes: Optional[dict] = None,
+                       optimizer=None) -> Dict[str, tuple]:
     """``{name: shape}`` of :func:`opt_state_to_jax` for variables of
     ``shapes``."""
-    out = {_ADAM + "count": ()}
-    for slot in ("mu", "nu"):
-        out.update({"%s%s/%s" % (_ADAM, slot, k): v
+    opt = _layout(optimizer)
+    pre = opt.jax_prefix
+    out = {pre + "count": ()} if opt.has_count else {}
+    for slot in opt.slots:
+        out.update({"%s%s/%s" % (pre, slot, k): v
                     for k, v in jax_shapes(shapes, flax_shapes).items()})
     return out
 
 
 def opt_state_from_jax(flat: Dict[str, np.ndarray],
-                       shapes: Dict[str, tuple], device=None) -> dict:
-    """Inverse of :func:`opt_state_to_jax`: the port's ``{"count", "mu",
-    "nu"}`` for variables of ``shapes``, its tensors on ``device``
-    (:func:`leaf_from_jax`; the count an int32 0-d tensor)."""
-    count = torch.tensor(int(flat[_ADAM + "count"]), dtype=torch.int32)
-    out = {"count": count if device is None else count.to(device)}
-    for slot in ("mu", "nu"):
+                       shapes: Dict[str, tuple], device=None,
+                       optimizer=None) -> dict:
+    """Inverse of :func:`opt_state_to_jax`: the port's state (``count``,
+    and each slot's ``{name: tensor}``) for variables of ``shapes``, its
+    tensors on ``device`` (:func:`leaf_from_jax`; the count an int32 0-d
+    tensor)."""
+    opt = _layout(optimizer)
+    pre = opt.jax_prefix
+    out = {}
+    if opt.has_count:
+        count = torch.tensor(int(flat[pre + "count"]), dtype=torch.int32)
+        out["count"] = count if device is None else count.to(device)
+    for slot in opt.slots:
         out[slot] = {n: leaf_from_jax(
-            flat["%s%s/%s" % (_ADAM, slot, jax_name(n, s))], n, s, device)
+            flat["%s%s/%s" % (pre, slot, jax_name(n, s))], n, s, device)
             for n, s in shapes.items()}
     return out
 
 
 def sync_state_to_jax(sync_state: dict, var_infos: dict,
-                      flax_shapes: Optional[dict] = None
+                      flax_shapes: Optional[dict] = None, optimizer=None
                       ) -> Dict[str, np.ndarray]:
     """The gathered compressor states (every leaf ``[N, ...]``, row r
     rank r's) as the JAX package's flattened sync state: ``bucket/<key>``
@@ -281,13 +314,15 @@ def sync_state_to_jax(sync_state: dict, var_infos: dict,
     as flax lays the variable out."""
     out = {"bucket/" + k: t.detach().to("cpu", copy=True).numpy()
            for k, t in sync_state.get("bucket", {}).items()}
-    # the ZeRO shards: optax.adam's state of each little {"v": shard} tree
-    # (already in flax's element order, zero_synchronizer.py)
+    # the ZeRO shards: the optimizer's state of each little {"v": shard}
+    # tree (already in flax's element order, zero_synchronizer.py)
+    opt = _layout(optimizer)
     for n, little in sync_state.get("zero", {}).items():
-        base = "zero/%s/%s" % (var_infos[n].collective_name, _ADAM)
-        out[base + "count"] = little["count"].detach().to(
-            "cpu", copy=True).numpy()
-        for slot in ("mu", "nu"):
+        base = "zero/%s/%s" % (var_infos[n].collective_name, opt.jax_prefix)
+        if opt.has_count:
+            out[base + "count"] = little["count"].detach().to(
+                "cpu", copy=True).numpy()
+        for slot in opt.slots:
             out["%s%s/v" % (base, slot)] = little[slot]["v"].detach().to(
                 "cpu", copy=True).numpy()
     for n, leaf in sync_state.get("var", {}).items():
@@ -306,11 +341,15 @@ def sync_state_to_jax(sync_state: dict, var_infos: dict,
 
 
 def sync_state_from_jax(flat: Dict[str, np.ndarray], var_infos: dict,
-                        flax_shapes: Optional[dict] = None) -> dict:
+                        flax_shapes: Optional[dict] = None,
+                        optimizer=None) -> dict:
     """Inverse of :func:`sync_state_to_jax`: the port's tree of ``[N,
     ...]`` CPU tensors. Raises ``KeyError`` on a name that is neither a
     bucket nor a variable of ``var_infos``."""
     by_jax = {i.collective_name: n for n, i in var_infos.items()}
+    opt = _layout(optimizer)
+    fields = (("count",) if opt.has_count else ()) + tuple(
+        "%s/v" % slot for slot in opt.slots)
     out: dict = {}
     for key, arr in sorted(flat.items()):
         top, _, rest = key.partition("/")
@@ -319,8 +358,8 @@ def sync_state_from_jax(flat: Dict[str, np.ndarray], var_infos: dict,
                 np.array(arr, copy=True))
             continue
         if top == "zero":
-            jname, _, field = rest.rpartition("/" + _ADAM)
-            if jname not in by_jax or field not in ("count", "mu/v", "nu/v"):
+            jname, _, field = rest.rpartition("/" + opt.jax_prefix)
+            if jname not in by_jax or field not in fields:
                 raise KeyError("sync state entry %r names no ZeRO shard of "
                                "this model" % key)
             little = out.setdefault("zero", {}).setdefault(by_jax[jname], {})
@@ -328,7 +367,7 @@ def sync_state_from_jax(flat: Dict[str, np.ndarray], var_infos: dict,
             if field == "count":
                 little["count"] = t
             else:
-                little[field[:2]] = {"v": t}
+                little[field[:-2]] = {"v": t}
             continue
         jname = max((j for j in by_jax if rest == j
                      or rest.startswith(j + "/")), key=len, default=None)

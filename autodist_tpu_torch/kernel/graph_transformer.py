@@ -25,7 +25,7 @@ is a Python callable with the signature the JAX program has.
 - the fused superstep (:meth:`DistributedStep.multi_step`,
   :meth:`DistributedStep.run_multi`): k microsteps in one dispatch, on
   ``cuda`` one replay of a CUDA graph (``kernel/superstep.py``), on the
-  CPU the k-step loop;
+  CPU the k-step loop, with the host-PS variables in a device carry;
 - in step_fn mode (``AutoDist.build_step``) the user's opaque
   ``step_fn(state, batch) -> (new_state, metrics)`` in place of the
   loss, grads and optimizer, on one replica;
@@ -43,13 +43,17 @@ every collective accumulates in f32; ``graph_config.remat``
 lowering.
 
 Host-resident parameter servers (``parallel/ps.py``): a PS variable
-without a proxy rests in the store's host memory with its Adam moments,
-at every replica count. Each step pulls the store's values to the device
+without a proxy rests in the store's host memory with its optimizer
+state, at every replica count. Each step pulls the store's values to the device
 (through :class:`~autodist_tpu_torch.parallel.ps.PSPipeline`, which
 overlaps the pull and the push with compute), runs the loss on the full
 params, and pushes each PS variable's mean gradient back — dense, the
 (ids, values) pairs of a lookup table, or the int8 wire container —
-where the host applies the optimizer. Lookup tables the JAX package
+where the host applies the optimizer. Fused supersteps instead carry
+the PS variables' values and optimizer state on the device for a run of
+supersteps (:meth:`DistributedStep.run_multi`), emulating the pull, the
+push and the store's apply inside each microstep, and write the carry
+back before the next read of the store. Lookup tables the JAX package
 syncs over its sparse (ids, values) wire (``ops/embedding.py``: the
 taps) take that wire here too: pushed to the store as pairs, or, for an
 AllReduce table at N > 1, all-gathered over the ranks and scatter-added
@@ -364,6 +368,13 @@ class DistributedStep:
         # the store lagged behind (at most the plan's staleness)
         self.ps_read_lags = collections.deque(maxlen=1024)
         self._ps_pushes = 0
+        # the fused supersteps' device-resident PS carry: (values, each
+        # variable's full little optimizer state), loaded at the first
+        # superstep after a flush, written back at the next read of the
+        # store (``_flush_ps_carry``)
+        self._ps_carry = None
+        self._ps_carry_dirty = False
+        self._warned_partitioned_carry = False
         self._predict_progs: Dict[tuple, ForwardProgram] = {}
         self._decode_progs: Dict[tuple, ForwardProgram] = {}
         self.syncs: Dict[str, AllReduceSynchronizer] = {}
@@ -528,9 +539,11 @@ class DistributedStep:
         infos = item.var_infos
         zero_saved = 0.0
         if self.zero_syncs and self.optimizer is not None:
-            # Adam's state: a 4-byte count and two f32 moments a variable
-            opt_total = 4.0 + 2 * 4.0 * sum(i.num_elements
-                                            for i in infos.values())
+            # the optimizer's state: a 4-byte count where it keeps one and
+            # an f32 slot a variable for each of its slots
+            opt_total = 4.0 * self.optimizer.has_count + \
+                4.0 * len(self.optimizer.slots) * sum(
+                    i.num_elements for i in infos.values())
             params_total = float(item.total_bytes()) or 1.0
             N = self.num_replicas
             zero_saved = sum(opt_total * infos[n].byte_size / params_total
@@ -601,6 +614,11 @@ class DistributedStep:
             from autodist_tpu_torch.strategy.remat import remat_transform
             self._loss_grad = remat_transform(self.remat)(loss_cd)
 
+    def _slots(self):
+        """The optimizer state's per-variable fields (none without an
+        optimizer)."""
+        return self.optimizer.slots if self.optimizer is not None else ()
+
     def _sync_state_init(self) -> dict:
         """Compressor states and the ZeRO variables' optimizer-state shards
         on the device, one copy per rank (the JAX ``sync_state_init``
@@ -646,9 +664,10 @@ class DistributedStep:
         updates them in place and the caller's tensors never move. With
         more than one replica, every replica takes rank 0's params and
         optimizer state and keeps its own shard of each partitioned
-        variable and of its moments. The host-PS variables and their
-        moments go to the store (every rank's mirror takes rank 0's),
-        and out of the device state. A ZeRO-sharded variable's moments
+        variable and of its optimizer slots. The host-PS variables and
+        their slots go to the store (every rank's mirror takes rank 0's),
+        and out of the device state; a fused carry is dropped. A
+        ZeRO-sharded variable's slots
         live in ``sync_state['zero']``, this rank's flat shard of them
         (from a given ``opt_state`` when the ``sync_state`` has none).
         Each replica takes its own compressor state: row r of a given
@@ -685,14 +704,14 @@ class DistributedStep:
             if opt_state is not None:
                 self.ps_store.load_opt_from_full(opt_state)
                 opt_state = dict(opt_state)
-                for slot in ("mu", "nu"):
+                for slot in self._slots():
                     opt_state[slot] = {n: t for n, t in opt_state[slot].items()
                                        if n not in self.ps_names}
         zero_full = {}
         if opt_state is not None and self.zero_syncs:
             # a ZeRO variable has no slot in the device optimizer tree
             opt_state = dict(opt_state)
-            for slot in ("mu", "nu"):
+            for slot in self._slots():
                 opt_state[slot] = dict(opt_state[slot])
                 for n in self.zero_syncs:
                     zero_full.setdefault(n, {})[slot] = \
@@ -700,13 +719,14 @@ class DistributedStep:
         if opt_state is None and self.optimizer is not None:
             opt_state = self.optimizer.init(
                 {n: t for n, t in placed.items() if n not in self.zero_syncs})
-            # the count lives on the device even when every variable is
-            # host-resident
-            opt_state["count"] = opt_state["count"].to(self.device)
+            if "count" in opt_state:
+                # the count lives on the device even when every variable
+                # is host-resident
+                opt_state["count"] = opt_state["count"].to(self.device)
         rank, N = self.replica_info.rank, self.num_replicas
         for n, lay in self.layouts.items():
             placed[n] = lay.local(placed[n], rank, N)
-            for slot in ("mu", "nu"):
+            for slot in self._slots():
                 if opt_state is not None and n in opt_state.get(slot, {}):
                     opt_state[slot][n] = lay.local(opt_state[slot][n],
                                                    rank, N)
@@ -719,8 +739,9 @@ class DistributedStep:
         elif zero_full:
             for n, zs in self.zero_syncs.items():
                 little = sync["zero"][n]
-                little["count"].copy_(opt_state["count"])
-                for slot in ("mu", "nu"):
+                if "count" in little:
+                    little["count"].copy_(opt_state["count"])
+                for slot in self._slots():
                     little[slot]["v"].copy_(zs.local_shard(zero_full[n][slot]))
         return TrainState(step=0, params=placed, opt_state=opt_state,
                           sync_state=sync)
@@ -881,14 +902,18 @@ class DistributedStep:
                 new_sync[key] = value
         return synced, new_sync
 
-    def _step(self, state: TrainState, batch):
-        """One microstep on ``state`` with no host-PS variable (the fused
-        supersteps refuse those), with no span and no dispatch count:
-        ``(new_state, metrics)`` (:meth:`_train`). In step_fn mode the
-        user's ``step_fn(state, batch) -> (new_state, metrics)`` as given
-        (its metrics detached). Nothing here reads a value back to the
-        host, so a CUDA graph can hold it
+    def _step(self, state: TrainState, batch, carry=None):
+        """One microstep on ``state``, with no span and no dispatch count:
+        ``(new_state, metrics)`` (:meth:`_train`). With host-PS variables,
+        ``carry`` is the fused supersteps' ``(values, optimizer states)``
+        on the device, which the microstep reads through the emulated
+        wire and updates in place (:meth:`_ps_carry_microstep`). In
+        step_fn mode the user's ``step_fn(state, batch) -> (new_state,
+        metrics)`` as given (its metrics detached). Nothing here reads a
+        value back to the host, so a CUDA graph can hold it
         (:mod:`~autodist_tpu_torch.kernel.superstep`)."""
+        if carry is not None:
+            return self._ps_carry_microstep(state, batch, *carry)
         item = self.model_item
         if item.step_fn is not None:
             with torch.enable_grad():
@@ -987,6 +1012,35 @@ class DistributedStep:
                           opt_state=opt_state, sync_state=sync_state), \
             ps_grads, self._metrics(loss, aux)
 
+    def _ps_carry_microstep(self, state: TrainState, batch, vals, opts):
+        """One fused microstep with the host-PS variables in the device
+        carry (the JAX scan body): the int8-wire variables' values go
+        through the codec in the JAX element order before the loss (the
+        pull's wire), the step runs as per step, and each PS variable's
+        gradient — the wire container dequantized, an (ids, values) pair
+        densified on the device — is applied by the optimizer to the
+        full variable in the carry, in place (the push and the store's
+        apply, per full variable)."""
+        infos = self.model_item.var_infos
+        quant = set(self.ps_store.wire_quant)
+        wire_vals = {n: (collectives.quant_wire(to_jax_layout(
+            v, infos[n].collective_name)) if n in quant else v)
+            for n, v in vals.items()}
+        new_state, ps_grads, metrics = self._train(state, batch, wire_vals)
+        with torch.no_grad():
+            for n in sorted(vals):
+                g, info = ps_grads[n], infos[n]
+                if isinstance(g, dict):
+                    g = from_jax_layout(collectives.dequant_wire(
+                        g, (info.num_elements,)), info.shape,
+                        info.collective_name)
+                elif isinstance(g, tuple):
+                    g = embedding.scatter_add_dense(
+                        g[0], g[1], int(info.shape[0]),
+                        tuple(info.shape[1:]))
+                self.optimizer.update({"v": g}, opts[n], {"v": vals[n]})
+        return new_state, metrics
+
     def _zero_apply(self, grads, params, sync_state):
         """The sharded weight update: the optimizer on each ZeRO
         variable's owned flat shard (a little ``{"v": shard}`` tree
@@ -995,8 +1049,12 @@ class DistributedStep:
         f32 param on every rank."""
         for n in sorted(self.zero_syncs):
             zs = self.zero_syncs[n]
+            # the optimizer's params are this rank's shard of the
+            # variable, as the JAX lowering passes them
+            shard = ({"v": zs.local_shard(params[n])}
+                     if self.optimizer.reads_params else {})
             delta = self.optimizer.delta({"v": grads[n]},
-                                         sync_state["zero"][n])["v"]
+                                         sync_state["zero"][n], shard)["v"]
             params[n].add_(zs.gather_update(delta))
 
     def _count_wire(self, microsteps: int = 1):
@@ -1012,9 +1070,10 @@ class DistributedStep:
     def __call__(self, state: TrainState, batch, donate: bool = True):
         """One training step on this rank's shard of the batch, already on
         the device (:meth:`_step`): ``(new_state, metrics)``.
-        Non-trainable variables get no update, so they and their optimizer
-        moments never move (the JAX step's zero gradients and masked
-        updates, exactly: a zero Adam moment gives a zero update).
+        Non-trainable variables get no update, so they and their
+        optimizer slots never move (the JAX step's zero gradients and
+        masked updates, exactly: a zero slot and a zero gradient give a
+        zero update, with no weight decay).
         ``donate=True`` updates ``state``'s tensors in place (the JAX
         program donates them); ``donate=False`` leaves them as they
         were."""
@@ -1043,28 +1102,30 @@ class DistributedStep:
         ``fused(state, ps_vals, ps_opt, stacked_batch) -> (new_state,
         new_ps_vals, new_ps_opt, stacked_metrics)`` over a stacked ``[k,
         ...]`` batch on the device, with the metrics stacked ``[k, ...]``
-        and left on the device. ``ps_vals``
-        and ``ps_opt`` are ``{}`` in and out: a plan with host-PS
-        variables is refused.
+        and left on the device. ``ps_vals`` and ``ps_opt`` are the
+        host-PS carry: each PS variable's full float32 value and its full
+        little optimizer state on the device (``{}`` without host-PS
+        variables), updated by every microstep (:meth:`_step`). The
+        store's wire and apply are emulated against the superstep-start
+        values, which is exact for a synchronous store only: one with
+        staleness or ``sync=False`` is refused with the JAX package's
+        ``ValueError``, and a partitioned one warns that the carry applies
+        the optimizer per full variable where the store applies it per
+        shard (a clip's norm differs).
 
         On ``cuda`` a call replays ONE CUDA graph that holds the k
-        microsteps, captured at the first call for each (k, feed
-        structure, shapes and dtypes) — the JAX package's
-        per-shape compile (:class:`~autodist_tpu_torch.kernel.superstep.
-        GraphedSuperstep`); a capture that fails raises. On the CPU it is
-        the plain k-step loop in one call, the per-step :meth:`_step` k
-        times. ``donate=False`` leaves ``state`` as it was. Most callers
-        want :meth:`run_multi`, which counts the dispatch."""
+        microsteps, the carry among its static tensors, captured at the
+        first call for each (k, feed structure, shapes and dtypes) — the
+        JAX package's per-shape compile (:class:`~autodist_tpu_torch.
+        kernel.superstep.GraphedSuperstep`); a capture that fails raises.
+        On the CPU it is the plain k-step loop in one call, the per-step
+        :meth:`_step` k times. ``donate=False`` leaves ``state`` and the
+        carry as they were. Most callers want :meth:`run_multi`, which
+        manages the carry and counts the dispatch."""
         if k < 1:
             raise ValueError("multi_step needs k >= 1, got %d" % k)
         self._check_trainable()
-        if self.ps_store is not None:
-            raise NotImplementedError(
-                "fused supersteps (fit(fuse_steps=k), multi_step) with "
-                "host-PS variables %s: the JAX package carries them on the "
-                "device across the microsteps, which the port has not "
-                "reached (ROADMAP A item 14); run per step"
-                % self.ps_store.var_names)
+        self._check_fused_ps()
         if self.device.type == "cuda" and self.num_replicas > 1:
             raise NotImplementedError(
                 "fused supersteps with %d replicas on cuda: a CUDA graph "
@@ -1073,33 +1134,62 @@ class DistributedStep:
                 "(ROADMAP A item 12)" % self.num_replicas)
 
         def fused(state, ps_vals, ps_opt, stacked_batch):
-            del ps_vals, ps_opt  # no host-PS variable here (refused above)
             lead = _lead_dims(stacked_batch)
             if lead and lead != {k}:
                 raise ValueError(
                     "multi_step(k=%d) fed a stacked batch with leading "
                     "dim(s) %s" % (k, sorted(lead)))
+            carry = None
+            if self.ps_store is not None:
+                carry = (ps_vals, ps_opt)
             if self.device.type == "cuda":
-                new_state, metrics = self._graphed(
-                    state, stacked_batch, k, donate)
+                new_state, carry, metrics = self._graphed(
+                    state, stacked_batch, k, donate, carry)
             else:
                 if not donate:
-                    state = _clone_state(state)
-                new_state, metrics = self._loop(state, stacked_batch, k)
-            return new_state, {}, {}, metrics
+                    state, carry = _clone_state(state), _clone(carry)
+                new_state, metrics = self._loop(state, stacked_batch, k,
+                                                carry)
+            vals, opts = carry if carry is not None else ({}, {})
+            return new_state, vals, opts, metrics
         return fused
 
-    def _loop(self, state: TrainState, stacked_batch, k: int):
+    def _check_fused_ps(self):
+        """The JAX ``_fused_fn``'s refusal and warning for host-PS
+        variables in fused supersteps."""
+        store = self.ps_store
+        if store is None:
+            return
+        if store.any_async() or store.max_staleness() > 0:
+            raise ValueError(
+                "fused multi-step requires synchronous host-PS: async "
+                "serving / staleness>0 let peers' applies land BETWEEN "
+                "microsteps, which a scan compiled around a superstep-"
+                "start snapshot cannot observe. Run per-step, or use "
+                "sync=True staleness=0 PS (or an AllReduce strategy).")
+        if not self._warned_partitioned_carry and any(
+                p.partitioned for p in store.plans.values()):
+            self._warned_partitioned_carry = True
+            logging.warning(
+                "fused multi-step with a PARTITIONED host-PS store: the "
+                "device emulation applies the optimizer per full variable "
+                "while the per-step host path applies it per shard — "
+                "identical for elementwise optimizers, but norm-based "
+                "transforms (e.g. clip_by_global_norm) may differ from "
+                "the per-step loop; verify parity for your optimizer")
+
+    def _loop(self, state: TrainState, stacked_batch, k: int, carry=None):
         """k microsteps of :meth:`_step` over the rows of a stacked feed;
         ``(new_state, metrics stacked [k, ...])``."""
         per_step = []
         for i in range(k):
             state, metrics = self._step(
-                state, pytree.tree_map(lambda t, i=i: t[i], stacked_batch))
+                state, pytree.tree_map(lambda t, i=i: t[i], stacked_batch),
+                carry)
             per_step.append(metrics)
         return state, pytree.tree_map(_stack, *per_step)
 
-    def _graphed(self, state, stacked_batch, k, donate):
+    def _graphed(self, state, stacked_batch, k, donate, carry=None):
         from autodist_tpu_torch.kernel.superstep import GraphedSuperstep
         leaves, spec = pytree.tree_flatten(stacked_batch)
         # donate is not in the key: the captured body is the same, and
@@ -1108,30 +1198,71 @@ class DistributedStep:
                                    for t in leaves))
         graph = self._graphs.get(key)
         if graph is None:
-            graph = GraphedSuperstep(self, state, stacked_batch, k)
+            graph = GraphedSuperstep(self, state, stacked_batch, k, carry)
             self._graphs[key] = graph
             self.warmup_microsteps += graph.warmup_microsteps
-        return graph.replay(state, stacked_batch, donate)
+        return graph.replay(state, stacked_batch, donate, carry)
 
     def run_multi(self, state: TrainState, stacked_batch,
                   donate: bool = True):
         """Run one superstep (k = the stacked batch's leading dim) as ONE
-        dispatch (:meth:`multi_step`); returns ``(new_state,
-        stacked_metrics)`` with the metrics still on the device — the
-        caller decides when to pay the readback."""
+        dispatch (:meth:`multi_step`) and manage the host-PS carry (the
+        JAX ``run_multi``): loaded onto the device before the first
+        superstep after a flush, kept there across supersteps, written
+        back to the store only at the next read of it
+        (:meth:`flush_ps`). Returns ``(new_state, stacked_metrics)`` with
+        the metrics still on the device — the caller decides when to pay
+        the readback."""
         lead = _lead_dims(stacked_batch)
         if len(lead) > 1:
             raise ValueError(
                 "stacked batch has mismatched leading (microstep) dims %s"
                 % sorted(lead))
         k = next(iter(lead), 1)
-        fn = self.multi_step(k, donate)
+        fn = self.multi_step(k, donate)   # refuses before any carry pull
         with tel.span("dstep.dispatch", "dstep", fused=True):
-            new_state, _, _, metrics = fn(state, {}, {}, stacked_batch)
+            vals, opts = self._ensure_ps_carry()
+            new_state, vals, opts, metrics = fn(state, vals, opts,
+                                                stacked_batch)
+            if self.ps_store is not None:
+                self._ps_carry = (vals, opts)
+                self._ps_carry_dirty = True
         self.dispatches += 1
         tel.counter_add("dstep.dispatches")
         self._count_wire(k)
         return new_state, metrics
+
+    def _ensure_ps_carry(self):
+        """The device carry for the fused supersteps (the JAX
+        ``_ensure_fused_ps_carry``): at the first superstep after a flush,
+        land the in-flight per-step push, then pull the full values (raw
+        float32, not the wire form: the microsteps apply the codec) and
+        each variable's full little optimizer state onto the device, once
+        for the whole run of supersteps."""
+        if self.ps_store is None:
+            return {}, {}
+        if self._ps_carry is None:
+            with tel.span("dstep.pull_ps", "dstep", fused=True):
+                tel.counter_add("dstep.ps_pulls")
+                self.flush_ps()
+                vals, _ = self.ps_store.pull(wire=False)
+                self._ps_carry = (vals, self.ps_store.pull_little_opts())
+        return self._ps_carry
+
+    def _flush_ps_carry(self) -> None:
+        """Write the fused carry back to the store (values and per-shard
+        optimizer states, ``PSStore.absorb_device_state``) and drop it:
+        the store is authoritative again. The pipeline's staged pull
+        predates the write-back, so it is dropped too."""
+        if not self._ps_carry_dirty:
+            return
+        vals, opts = self._ps_carry
+        self._ps_carry, self._ps_carry_dirty = None, False
+        self.ps_store.absorb_device_state(vals, opts)
+        self._ps_pushes += 1
+        pipe = getattr(self, "_ps_pipe_obj", None)
+        if pipe is not None:
+            pipe.invalidate()
 
     def evaluate(self, state: TrainState, batch, ps_vals=None):
         """Forward-only metrics under the compute tier: no grads, no
@@ -1164,7 +1295,7 @@ class DistributedStep:
 
     def gather_opt_state(self, state: TrainState):
         """The optimizer state in the original names and full layout:
-        each partitioned variable's moments all-gathered and unpadded,
+        each partitioned variable's slots all-gathered and unpadded,
         each ZeRO-sharded variable's rebuilt from the ranks' shards in
         ``sync_state['zero']`` and each host-PS variable's from the
         store's shards (the JAX ``gather_opt_state``). With partitioned
@@ -1178,7 +1309,7 @@ class DistributedStep:
         if self.ps_store is not None:
             self.flush_ps()
         out = dict(opt)
-        for slot in ("mu", "nu"):
+        for slot in self._slots():
             out[slot] = dict(opt[slot])
             for n, lay in self.layouts.items():
                 out[slot][n] = lay.gather_full(opt[slot][n], None, N)
@@ -1231,9 +1362,10 @@ class DistributedStep:
 
     def _pull_versioned(self):
         """(the host-PS values on the device, the store version they
-        are)."""
+        are), after the fused carry, if any, is written back."""
         with tel.span("dstep.pull_ps", "dstep"):
             tel.counter_add("dstep.ps_pulls")
+            self._flush_ps_carry()
             pipe = self._ps_pipe
             return (pipe.values() if pipe is not None
                     else self.ps_store.pull())
@@ -1278,29 +1410,37 @@ class DistributedStep:
             self.ps_store.push(ps_grads, ready)
 
     def flush_ps(self) -> None:
-        """Wait for the in-flight push: every read of the store (a
-        checkpoint, a gather, a digest) must see every submitted gradient
-        applied."""
-        pipe = getattr(self, "_ps_pipe_obj", None)
-        if pipe is not None:
-            with tel.span("dstep.flush_ps", "dstep"):
-                tel.counter_add("dstep.ps_flushes")
+        """Wait for the in-flight push and write the fused carry back:
+        every read of the store (a checkpoint, a gather, a digest) must
+        see every submitted gradient and every microstep applied."""
+        if self.ps_store is None:
+            return
+        with tel.span("dstep.flush_ps", "dstep"):
+            tel.counter_add("dstep.ps_flushes")
+            pipe = getattr(self, "_ps_pipe_obj", None)
+            if pipe is not None:
                 pipe.flush()
+            self._flush_ps_carry()
 
     def invalidate_ps(self) -> None:
-        """Flush, and drop the pipeline's staged pull: the store's
-        contents were replaced (a restore, a re-init)."""
+        """Drop the fused carry without writing it back, then flush and
+        drop the pipeline's staged pull: the store's contents were
+        replaced (a restore, a re-init), and the store, not the carry, is
+        authoritative."""
+        self._ps_carry, self._ps_carry_dirty = None, False
         pipe = getattr(self, "_ps_pipe_obj", None)
         if pipe is not None:
             pipe.invalidate()
 
     def close_ps(self) -> None:
-        """Flush the pipeline and stop its threads; a new one is made if
-        stepping resumes."""
+        """Flush the pipeline and stop its threads, then land the fused
+        carry (a close right after supersteps must not drop their PS
+        updates); a new pipeline is made if stepping resumes."""
         pipe = getattr(self, "_ps_pipe_obj", None)
         if pipe is not None:
             pipe.close()
             del self._ps_pipe_obj
+        self._flush_ps_carry()
 
     def _one_replica(self, what: str):
         if self.num_replicas > 1:

@@ -12,17 +12,23 @@ and a local sum, ``parallel/collectives.py``); the optimizer applies to
 the shard, whose moments are shard-shaped too. Checkpoints hold the
 original, unpadded layout (``DistributedStep.gather_params``).
 
-The split axis indexes the port's tensor (a Dense ``weight`` is ``[out,
-in]``); where it lies does not change the step's values, only which
-rank stores which elements. Model-parallel ``mp_axes`` layouts wait for
-the mesh axes (ROADMAP A item 9); the lowering refuses them by name.
+The split axis indexes the variable in the JAX package's layout (its
+flax shape and element order, ``convert.to_jax_layout``: a Dense
+``weight [out, in]`` splits ``[in, out]``'s axis), so each rank stores
+the elements the JAX package's shard holds, in that layout: a shard is
+what the optimizer sees, and a norm over it (``optim.clip_global_norm``)
+is the JAX one. Model-parallel ``mp_axes`` layouts wait for the mesh
+axes (ROADMAP A item 9); the lowering refuses them by name.
 """
 import dataclasses
 from typing import Dict
 
+from typing import Tuple
+
 import torch
 import torch.nn.functional as F
 
+from autodist_tpu_torch.convert import from_flax, to_flax
 from autodist_tpu_torch.parallel import collectives
 from autodist_tpu_torch.strategy.base import Strategy
 from autodist_tpu_torch.utils import logging
@@ -34,9 +40,26 @@ class VarLayout:
     the reference's ``PartitionedVariable``)."""
     name: str
     partitioned: bool = False
-    axis: int = 0                 # split axis
+    axis: int = 0                 # split axis (of the JAX layout)
     orig_dim: int = 0             # original size of the split axis
     padded_dim: int = 0           # padded size (multiple of the replicas)
+    # the JAX layout of the variable: its JAX name and flax shape, and
+    # the port's shape (none: the port's tensor is split as it is)
+    jax_name: str = ""
+    flax_shape: Tuple[int, ...] = ()
+    shape: Tuple[int, ...] = ()
+
+    def to_flax(self, t: torch.Tensor) -> torch.Tensor:
+        """A full value of the port's layout in the JAX layout."""
+        if not self.flax_shape:
+            return t
+        return to_flax(t, self.jax_name, self.flax_shape)
+
+    def from_flax(self, t: torch.Tensor) -> torch.Tensor:
+        """Inverse of :meth:`to_flax`, a contiguous tensor."""
+        if not self.flax_shape:
+            return t
+        return from_flax(t, self.shape, self.jax_name)
 
     def pad(self, t: torch.Tensor) -> torch.Tensor:
         """Zero-pad the split axis to ``padded_dim`` (full-tensor form)."""
@@ -57,34 +80,38 @@ class VarLayout:
         return self.padded_dim // n
 
     def local(self, full: torch.Tensor, rank: int, n: int) -> torch.Tensor:
-        """Rank ``rank``'s shard of the full (unpadded) value, as a new
-        contiguous tensor."""
+        """Rank ``rank``'s shard of the full (unpadded) value of the
+        port's layout, in the JAX layout, as a new contiguous tensor."""
         if not self.partitioned:
             return full
         rows = self.shard_dim(n)
-        return self.pad(full).narrow(self.axis, rank * rows,
-                                     rows).contiguous()
+        return self.pad(self.to_flax(full)).narrow(
+            self.axis, rank * rows, rows).contiguous()
 
     def gather_full(self, local: torch.Tensor, group, n: int
                     ) -> torch.Tensor:
-        """All-gather the ranks' shards into the full (unpadded) value."""
+        """All-gather the ranks' shards into the full (unpadded) value,
+        in the port's layout."""
         if not self.partitioned or n <= 1:
             return local
         lead = local.movedim(self.axis, 0).contiguous()
         full = collectives.all_gather_flat(lead.reshape(-1), group, n)
         full = full.reshape((n * lead.shape[0],) + tuple(lead.shape[1:]))
-        return self.unpad(full.movedim(0, self.axis)).contiguous()
+        return self.from_flax(
+            self.unpad(full.movedim(0, self.axis)).contiguous())
 
     def reduce_scatter_grad_launch(self, grad_full: torch.Tensor, group,
                                    n: int, async_op: bool = False):
-        """Launch the pad + reduce-scatter of the full gradient: each rank
-        gets the summed gradient of its own shard (sum, not mean — the
-        caller normalizes). Returns a ``collectives.Pending``."""
+        """Launch the pad + reduce-scatter of the full gradient (the
+        port's layout): each rank gets the summed gradient of its own
+        shard, in the JAX layout (sum, not mean — the caller normalizes).
+        Returns a ``collectives.Pending``."""
         if not self.partitioned:
             raise ValueError("reduce_scatter_grad on unpartitioned var %s"
                              % self.name)
         rows = self.padded_dim
-        lead = self.pad(grad_full).movedim(self.axis, 0).contiguous()
+        lead = self.pad(self.to_flax(grad_full)).movedim(
+            self.axis, 0).contiguous()
         rest = tuple(lead.shape[1:])
         pending = collectives.reduce_scatter_flat_launch(
             lead.reshape(-1), group, n, async_op)
@@ -113,7 +140,9 @@ class VariablePartitioner:
             if node.partitioner is None or axis is None or num_replicas <= 1:
                 layouts[node.var_name] = VarLayout(name=node.var_name)
                 continue
-            dim = info.shape[axis]
+            flax_shape = tuple(getattr(info, "flax_shape", None)
+                               or info.shape)
+            dim = flax_shape[axis]
             if dim < num_replicas:
                 # fewer rows than replicas: mostly-padding shards gathered
                 # every step for no benefit
@@ -125,7 +154,9 @@ class VariablePartitioner:
             padded = -(-dim // num_replicas) * num_replicas
             layouts[node.var_name] = VarLayout(
                 name=node.var_name, partitioned=True, axis=axis,
-                orig_dim=dim, padded_dim=padded)
+                orig_dim=dim, padded_dim=padded,
+                jax_name=info.collective_name, flax_shape=flax_shape,
+                shape=tuple(info.shape))
         for name in var_infos:
             layouts.setdefault(name, VarLayout(name=name))
         return layouts

@@ -9,13 +9,17 @@ launches. :class:`GraphedSuperstep` is that graph for one (k, feed
 structure, shapes), with its static tensors (``donate`` changes only
 what :meth:`GraphedSuperstep.replay` returns, not the graph):
 
-- the **state** (params, optimizer state, compressor state): the graph's
-  own copy. A replay whose state is not that copy (the first one, or one
-  after a restore) copies it in first; with ``donate=True`` the new state
-  it returns holds the graph's tensors, so the next replay copies
-  nothing. Steps that write their state in place (loss_fn mode) leave
-  the graph's tensors where they are; a step_fn that returns new tensors
-  has them copied back into the graph's state at the end of the graph;
+- the **state** (params, optimizer state, compressor state) and, with
+  host-PS variables, the **carry** (each PS variable's full value and
+  full optimizer state, ``DistributedStep.run_multi``): the graph's own
+  copy. A replay whose state or carry is not that copy (the first one,
+  or one after a restore or a flush of the carry) copies it in first;
+  with ``donate=True`` the new state and carry it returns hold the
+  graph's tensors, so the next replay copies nothing. Steps that write
+  their state in place (loss_fn mode, and the carry's optimizer apply)
+  leave the graph's tensors where they are; a step_fn that returns new
+  tensors has them copied back into the graph's state at the end of the
+  graph;
 - the **stacked feed** ``[k, ...]``: each replay copies the caller's
   feed into it on the device;
 - the **stacked metrics** ``[k, ...]``: cloned out after each replay, so
@@ -26,9 +30,12 @@ Capture follows PyTorch's rules for a whole training step in a graph: a
 warm-up of one eager microstep on a side stream first (the kernels'
 ``nvcc`` builds, cuBLAS/cuDNN handles and workspaces, the dK/dV kernel's
 shared-memory attribute), on a scratch copy of the state, so the warm-up
-trains nothing the caller sees; then capture in a private memory pool,
-which holds one superstep's activations. A capture that fails raises:
-nothing runs the eager loop on the card instead.
+trains nothing the caller sees (the carry is cloned with it: DLRM's is
+1.2 GB, which the clone holds a second time); then capture in a private
+memory pool, which holds one superstep's activations and, with host-PS
+variables, the densified gradients and the wire codec's buffers. A
+capture that fails raises: nothing runs the eager loop on the card
+instead.
 
 The flash kernels' wrappers count launches in Python, which a replay
 does not run. The launches a capture records are therefore taken back
@@ -50,8 +57,8 @@ def _same(t):
     return t
 
 
-def _parts(state: TrainState):
-    return (state.params, state.opt_state, state.sync_state)
+def _parts(state: TrainState, carry=None):
+    return (state.params, state.opt_state, state.sync_state, carry or ())
 
 
 def _copy_into(dst, src):
@@ -83,22 +90,25 @@ class GraphedSuperstep:
     # eager microsteps run on a scratch state before the capture
     warmup_microsteps = 1
 
-    def __init__(self, dstep, state: TrainState, stacked_batch, k: int):
+    def __init__(self, dstep, state: TrainState, stacked_batch, k: int,
+                 carry=None):
         self.k = k
         self._state = _clone_state(state)
+        self._carry = _clone(carry) if carry is not None else None
         self._batch = _clone(stacked_batch)
         side = torch.cuda.Stream(device=dstep.device)
         side.wait_stream(torch.cuda.current_stream(dstep.device))
         with torch.cuda.stream(side):
             first = pytree.tree_map(lambda t: t[0], self._batch)
-            out, _ = dstep._step(self._state, first)
+            out, _ = dstep._step(self._state, first, self._carry)
             _copy_into(_parts(self._state), _parts(out))
         torch.cuda.current_stream(dstep.device).wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
         before = fa.launch_counts()
         try:
             with torch.cuda.graph(self.graph):
-                out, self._metrics = dstep._loop(self._state, self._batch, k)
+                out, self._metrics = dstep._loop(self._state, self._batch, k,
+                                                 self._carry)
                 _copy_into(_parts(self._state), _parts(out))
         except Exception as e:
             raise RuntimeError(
@@ -113,28 +123,30 @@ class GraphedSuperstep:
                    if n != before[name].get(v, 0)}
             for name, by in recorded.items()}
 
-    def replay(self, state: TrainState, stacked_batch, donate: bool):
-        """One superstep from ``state`` on ``stacked_batch`` (both on the
-        card): ``(new_state, stacked metrics)``. ``donate=True`` returns
-        the graph's own state tensors, updated; ``donate=False`` returns
-        copies, and ``state`` is left as it was."""
+    def replay(self, state: TrainState, stacked_batch, donate: bool,
+               carry=None):
+        """One superstep from ``state`` (and the PS ``carry``) on
+        ``stacked_batch``, all on the card: ``(new_state, new_carry,
+        stacked metrics)``. ``donate=True`` returns the graph's own
+        tensors, updated; ``donate=False`` returns copies, and ``state``
+        and ``carry`` are left as they were."""
         _copy_into(self._batch, stacked_batch)
+        mine, given = _parts(self._state, self._carry), _parts(state, carry)
         kept = None
         if not donate:
             # after a donated replay the caller's tensors are the graph's
             # own, which the replay writes: keep their values to put back
-            own = {id(t) for t in pytree.tree_leaves(_parts(self._state))}
-            if any(id(t) in own for t in pytree.tree_leaves(_parts(state))):
-                kept = _clone_state(state)
-        _copy_into(_parts(self._state), _parts(state))
+            own = {id(t) for t in pytree.tree_leaves(mine)}
+            if any(id(t) in own for t in pytree.tree_leaves(given)):
+                kept = _clone(given)
+        _copy_into(mine, given)
         self.graph.replay()
         fa.add_launch_counts(self.launches)
-        out = self._state if donate else _clone_state(self._state)
+        out = mine if donate else _clone(mine)
         if kept is not None:
-            _copy_into(_parts(self._state), _parts(kept))
-        new_state = TrainState(step=state.step + self.k,
-                               params=pytree.tree_map(_same, out.params),
-                               opt_state=pytree.tree_map(_same, out.opt_state),
-                               sync_state=pytree.tree_map(_same,
-                                                          out.sync_state))
-        return new_state, _clone(self._metrics)
+            _copy_into(mine, kept)
+        params, opt_state, sync_state, new_carry = pytree.tree_map(_same, out)
+        new_state = TrainState(step=state.step + self.k, params=params,
+                               opt_state=opt_state, sync_state=sync_state)
+        return (new_state, new_carry if carry is not None else None,
+                _clone(self._metrics))

@@ -100,9 +100,15 @@ class VarInfo:
     # the JAX item's name for this variable (``convert.jax_name``); the
     # collective keys and the variable order follow it. "" = ``name``
     collective_name: str = ""
+    # the JAX item's shape for it (``convert.flax_shape``: a Dense
+    # ``weight [out, in]`` is ``[in, out]``), which the partitioned PS
+    # builders size their shards from, as the JAX builders do. () =
+    # ``shape``
+    flax_shape: Tuple[int, ...] = ()
 
     def __post_init__(self):
         self.collective_name = self.collective_name or self.name
+        self.flax_shape = tuple(self.flax_shape) or tuple(self.shape)
 
     @property
     def byte_size(self) -> int:
@@ -248,10 +254,11 @@ class ModelItem:
 
     * ``loss_fn`` mode: ``loss_fn(params, batch) -> scalar`` (or
       ``(scalar, aux)`` with ``has_aux``) over a flat ``{name: tensor}``
-      params mapping. ``optimizer`` is a ``torch.optim`` factory; its
-      ``(name, kwargs)`` are recorded (``optimizer_name``/
-      ``optimizer_args``, as ``patch.py`` records optax constructors) in
-      ``optimizer_spec``, which the step applies.
+      params mapping. ``optimizer`` is a ``torch.optim`` factory or an
+      ``optim.chain``; its ``(name, kwargs)`` are recorded
+      (``optimizer_name``/``optimizer_args``, as ``patch.py`` records
+      optax constructors, and nothing for a chain, which ``patch.py``
+      does not capture) in ``optimizer_spec``, which the step applies.
     * ``step_fn`` mode: an opaque ``step_fn(state, batch) -> (new_state,
       metrics)`` over the user's whole training state (``params``: a tree
       of dicts, lists and tuples of tensors, params and optimizer state
@@ -291,7 +298,7 @@ class ModelItem:
         """Collect variable metadata from the params mapping, in the JAX
         item's order, with the sparse flags of a traced forward (when
         there is an example batch to trace with)."""
-        from autodist_tpu_torch.convert import jax_name
+        from autodist_tpu_torch.convert import flax_shape, jax_name
         if self.params is None:
             raise ValueError("ModelItem.prepare() requires params")
         if self.step_fn is not None:
@@ -316,7 +323,9 @@ class ModelItem:
                          dtype=dtype_name(leaf.dtype),
                          trainable=bool(self.trainable_filter(name)),
                          sparse=name in sparse,
-                         collective_name=jax_name(name, tuple(leaf.shape)))
+                         collective_name=jax_name(name, tuple(leaf.shape)),
+                         flax_shape=flax_shape(name, tuple(leaf.shape),
+                                               self.flax_shapes))
                  for name, leaf in self.params.items()]
         self._var_infos = {i.name: i for i in sorted(infos,
                                                      key=_jax_order_key)}
@@ -336,7 +345,7 @@ class ModelItem:
 
     @property
     def optimizer_args(self) -> Dict:
-        return dict(self.optimizer_spec.kwargs) if self.optimizer_spec else {}
+        return self.optimizer_spec.args if self.optimizer_spec else {}
 
     @property
     def opt_state_spec(self) -> Optional[dict]:

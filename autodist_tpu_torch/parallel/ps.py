@@ -5,8 +5,8 @@ The reference places each PS variable and its update op ON a
 parameter-server device, a host CPU, and its workers read and write it
 over the wire every step (reference
 ``autodist/kernel/synchronization/ps_synchronizer.py:171-176``). Here a
-PS variable without a proxy (``local_replication=False``) and its Adam
-moments rest in **host memory**, off the card:
+PS variable without a proxy (``local_replication=False``) and its
+optimizer state rest in **host memory**, off the card:
 
 - at each step the store is **pulled**: the values cross to the device
   and the step's loss sees them beside the device-resident params;
@@ -34,10 +34,18 @@ each step fills them in from the pulled values.
 
 On ``cuda`` the values rest in pinned memory, and the copies run on a
 side stream (:class:`_Wire`): a pull's host-to-device copy is waited on
-by the host before the store may change (Adam updates in place) and
+by the host before the store may change (the update writes in place) and
 recorded on the steps' stream, which uses it; a push's
 device-to-host copy waits on an event the step recorded, lands in
 pinned buffers and is waited on before the host reads it.
+
+Fused supersteps (``DistributedStep.multi_step``) keep the store's
+variables on the device for a run of supersteps instead: the values
+(:meth:`PSStore.pull` with ``wire=False``) and each variable's
+optimizer state as one full-variable tree (:meth:`PSStore.
+full_little_opt`) cross once, the supersteps apply the optimizer there,
+and :meth:`PSStore.absorb_device_state` takes the result back, split by
+shard range, at the next read of the store.
 """
 import collections
 import concurrent.futures
@@ -52,7 +60,8 @@ import torch
 from torch.utils import _pytree as pytree
 
 from autodist_tpu_torch import const
-from autodist_tpu_torch.convert import from_jax_layout, to_jax_layout
+from autodist_tpu_torch.convert import (from_flax, from_jax_layout,
+                                        to_flax, to_jax_layout)
 from autodist_tpu_torch.parallel import collectives
 from autodist_tpu_torch.telemetry import spans as tel
 
@@ -65,7 +74,10 @@ class PSVarPlan:
 
     ``destinations`` has one owner device string a shard (one for an
     unpartitioned variable); ``shard_sizes`` are the TRUE sizes along
-    ``axis`` (uneven allowed). ``wire_dtype="int8"`` quantizes the step's
+    ``axis`` (uneven allowed) of the variable in the JAX package's layout
+    (its flax shape: a Dense ``weight [out, in]`` splits ``[in, out]``'s
+    axis 0), so each shard holds the JAX shard's elements.
+    ``wire_dtype="int8"`` quantizes the step's
     host<->device wire: a pull ships the value as blockwise int8 + f32
     scales (dequantized on the device), a push ships the reduced gradient
     the same way (dequantized at the store before the apply); the store
@@ -93,11 +105,15 @@ class PSVarPlan:
         return ranges
 
 
+def _flax_shape(info) -> Tuple[int, ...]:
+    return tuple(getattr(info, "flax_shape", None) or info.shape)
+
+
 def _even_or_given_sizes(node, info) -> Tuple[int, ...]:
     if node.shard_sizes:
         return tuple(node.shard_sizes)
     n = node.num_shards
-    dim = info.shape[node.partition_axis or 0]
+    dim = _flax_shape(info)[node.partition_axis or 0]
     base, rem = divmod(dim, n)
     return tuple(base + (1 if i < rem else 0) for i in range(n))
 
@@ -228,8 +244,10 @@ class PSStore:
     update applies here on the host CPU (the port's ``optim.py``
     arithmetic, optax's float32, on CPU tensors, in place), and the step
     only ever sees pulled copies. Each shard keeps its own little
-    optimizer state (``{"count", "mu": {"v"}, "nu": {"v"}}``, the JAX
-    store's per-shard ``optimizer.init({"v": shard})``). The apply fans
+    optimizer state (the optimizer's state of ``{"v": shard}``: Adam's
+    ``{"count", "mu": {"v"}, "nu": {"v"}}``, the JAX store's per-shard
+    ``optimizer.init({"v": shard})``), so a clip's norm is the shard's,
+    as in the JAX store. The apply fans
     the shards out over a deterministic round-robin thread pool
     (``ADT_PS_APPLY_THREADS``): each shard's arithmetic is the same in
     any grouping, so the result is bit-exact against one thread.
@@ -279,10 +297,24 @@ class PSStore:
         return full.narrow(plan.axis, lo, hi - lo)
 
     def _split(self, plan: PSVarPlan, full: torch.Tensor):
+        """A full value (the port's layout) as the plan's shards: itself
+        unpartitioned, else views of its JAX layout (``convert.to_flax``)
+        along the plan axis."""
         if not plan.partitioned:
             return [full]
-        return [self._shard_slice(plan, si, full)
+        info = self._var_infos[plan.var_name]
+        flax = to_flax(full, info.collective_name, _flax_shape(info))
+        return [self._shard_slice(plan, si, flax)
                 for si in range(len(plan.shard_ranges()))]
+
+    def _join(self, plan: PSVarPlan, shards) -> torch.Tensor:
+        """Inverse of :meth:`_split`: the shards as one full value of the
+        port's layout (a new tensor when there is more than one)."""
+        if len(shards) == 1:
+            return shards[0]
+        info = self._var_infos[plan.var_name]
+        return from_flax(torch.cat(shards, dim=plan.axis), info.shape,
+                         info.collective_name)
 
     def init_params(self, full_params) -> None:
         """Take copies of the PS variables of a ``{name: tensor}``
@@ -297,50 +329,56 @@ class PSStore:
 
     def load_opt_from_full(self, opt_state) -> None:
         """Each shard's optimizer state from a full-layout optimizer state
-        (``{"count", "mu": {name: t}, "nu": {name: t}}``, a checkpoint's):
-        the moments sliced by shard range, the count copied whole."""
+        (the count, and each slot's ``{name: t}``: a checkpoint's): the
+        slots sliced by shard range, the count copied whole."""
         with self._lock:
             for name, plan in self.plans.items():
-                states = []
-                for si in range(len(self._values[name])):
-                    little = {"count": torch.as_tensor(
-                        opt_state["count"]).to("cpu", torch.int32,
-                                               copy=True)}
-                    for slot in ("mu", "nu"):
-                        full = torch.as_tensor(opt_state[slot][name]).cpu()
-                        part = (self._shard_slice(plan, si, full)
-                                if plan.partitioned else full)
-                        little[slot] = {"v": part.to(
-                            torch.float32, copy=True).contiguous()}
-                    states.append(little)
-                self._opt[name] = states
+                full = {"count": opt_state["count"]} \
+                    if self._optimizer.has_count else {}
+                for slot in self._optimizer.slots:
+                    full[slot] = {"v": opt_state[slot][name]}
+                self._opt[name] = self._split_little(plan, full)
+
+    def _split_little(self, plan: PSVarPlan, little: dict) -> List[dict]:
+        """Each shard's little state from a full variable's: the slots
+        split as the values are (:meth:`_split`; copies, float32,
+        contiguous), the count copied whole to each (the JAX
+        ``load_opt_from_full`` and ``absorb_device_state`` rule)."""
+        states = [{} for _ in plan.shard_ranges()]
+        for st in states:
+            if "count" in little:
+                st["count"] = torch.as_tensor(little["count"]).to(
+                    "cpu", torch.int32, copy=True)
+        for slot in self._optimizer.slots:
+            full = torch.as_tensor(little[slot]["v"]).cpu()
+            for st, part in zip(states, self._split(plan, full)):
+                st[slot] = {"v": self._host(part)}
+        return states
 
     # ------------------------------------------------------------- step i/o
 
     def _local_full(self) -> Dict[str, torch.Tensor]:
-        out = {}
-        for name, plan in self.plans.items():
-            shards = self._values[name]
-            out[name] = (shards[0] if len(shards) == 1
-                         else torch.cat(shards, dim=plan.axis))
-        return out
+        return {name: self._join(plan, self._values[name])
+                for name, plan in self.plans.items()}
 
-    def pull(self) -> Tuple[dict, int]:
+    def pull(self, wire: bool = True) -> Tuple[dict, int]:
         """The current full values on the device (the workers' per-step
-        PS read) and the version they are; each int8-wire variable ships
-        as its ``{"q", "s"}`` container, quantized here with the codec's
-        numpy mirror and dequantized on the device."""
+        PS read) and the version they are. ``wire=True`` ships each
+        int8-wire variable as its ``{"q", "s"}`` container, quantized here
+        with the codec's numpy mirror and dequantized on the device;
+        ``wire=False`` (the fused carry's pull) ships exact float32, and
+        the fused microsteps apply the codec themselves."""
         with tel.span("ps.pull", "ps", step=self.stats["pulls"]):
-            out = self._pull_impl()
+            out = self._pull_impl(wire)
         tel.counter_add("ps.pulls")
         return out
 
-    def _pull_impl(self):
+    def _pull_impl(self, wire: bool):
         nbytes = 0
         with self._lock:
             host = self._local_full()
             for name in sorted(host):
-                if name in self._jax_names:
+                if wire and name in self._jax_names:
                     # blocks in the JAX element order: the same elements
                     # share a scale in both packages
                     w = collectives.quant_wire_np(to_jax_layout(
@@ -467,13 +505,72 @@ class PSStore:
             return {n: t.clone() for n, t in self._local_full().items()}
 
     def full_opt_leaf(self, slot: str, var_name: str) -> torch.Tensor:
-        """One variable's ``mu`` or ``nu`` in its full layout: the
-        shards' moments concatenated along the plan axis."""
+        """One variable's slot (``mu``, ``nu``, ``trace``) in its full
+        layout: the shards' slots concatenated along the plan axis."""
         plan = self.plans[var_name]
         with self._lock:
             parts = [st[slot]["v"] for st in self._opt[var_name]]
             return (parts[0].clone() if len(parts) == 1
-                    else torch.cat(parts, dim=plan.axis))
+                    else self._join(plan, parts))
+
+    def full_little_opt(self, name: str) -> dict:
+        """One variable's optimizer state as a FULL-variable little tree
+        (the structure of ``optimizer.init({"v": full_value})``), copies
+        assembled from the shards' states: the slots concatenated along
+        the plan axis, the count from shard 0 (the JAX
+        ``full_little_opt``). The fused carry; the inverse of
+        :meth:`absorb_device_state`."""
+        out = {}
+        with self._lock:
+            states = list(self._opt[name])
+        if "count" in states[0]:
+            out["count"] = states[0]["count"].clone()
+        for slot in self._optimizer.slots:
+            out[slot] = {"v": self.full_opt_leaf(slot, name)}
+        return out
+
+    def pull_little_opts(self) -> Dict[str, dict]:
+        """Every variable's :meth:`full_little_opt` on the device, through
+        the wire (the fused carry's optimizer half; not counted as a
+        pull, as in the JAX store)."""
+        return self._wire.to_device({n: self.full_little_opt(n)
+                                     for n in self.var_names})
+
+    def absorb_device_state(self, values: Dict[str, torch.Tensor],
+                            opt_states: Dict[str, dict]) -> None:
+        """Take back the state the fused supersteps computed on the device
+        (the JAX ``absorb_device_state``): each full value split by the
+        true shard ranges, each full little optimizer state sliced per
+        shard (:meth:`_split_little`), copied to the host and swapped in
+        under the lock. One write-back replaces the k-microstep pushes,
+        and the counters say so: ``bytes_pushed`` the values' bytes,
+        ``applies`` one a variable, ``pushes`` one."""
+        bytes0 = self.stats["bytes_pushed"]
+        ready = None
+        if self._wire.cuda:
+            # the supersteps' stream produced them: the side stream's
+            # copies wait for it
+            ready = torch.cuda.Event()
+            ready.record()
+        with tel.span("ps.absorb", "ps", vars=len(values)):
+            host = self._wire.to_host({"v": values, "o": opt_states}, ready)
+            for name in sorted(host["v"]):
+                plan = self.plans[name]
+                full = host["v"][name]
+                new_vals = [self._host(p) for p in self._split(plan, full)]
+                new_opt = self._split_little(plan, host["o"][name])
+                self.stats["bytes_pushed"] += _nbytes(full)
+                with self._lock:
+                    self._values[name] = new_vals
+                    self._opt[name] = new_opt
+                self.stats["applies"] += 1
+        if values:
+            with self._lock:
+                self.version += 1
+            self.stats["pushes"] += 1
+            tel.counter_add("ps.pushes")
+            tel.counter_add("ps.bytes_pushed",
+                            self.stats["bytes_pushed"] - bytes0)
 
     # ------------------------------------------------------------ accounting
 
@@ -490,13 +587,18 @@ class PSStore:
         return h.hexdigest()
 
     def resident_bytes(self) -> int:
-        """Host bytes resident in this store: the values and their
-        optimizer moments."""
-        out = 0
-        for name, shards in self._values.items():
-            out += sum(_nbytes(s) for s in shards)
-            out += sum(_nbytes(st[slot]["v"]) for st in self._opt[name]
-                       for slot in ("mu", "nu"))
+        """Host bytes of the values resident in this store (values only,
+        as the JAX store counts them)."""
+        return sum(_nbytes(s) for shards in self._values.values()
+                   for s in shards)
+
+    def resident_bytes_by_destination(self) -> Dict[str, int]:
+        """Each owner's bytes of resident values (the PS load-balancing
+        accounting), summing to :meth:`resident_bytes`."""
+        out: Dict[str, int] = {}
+        for name, plan in self.plans.items():
+            for dest, shard in zip(plan.destinations, self._values[name]):
+                out[dest] = out.get(dest, 0) + _nbytes(shard)
         return out
 
     @property

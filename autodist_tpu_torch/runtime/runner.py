@@ -354,15 +354,16 @@ class Runner:
             "ps_bytes_pulled": c.get("ps.bytes_pulled", 0.0),
             "ps_bytes_pushed": c.get("ps.bytes_pushed", 0.0),
         }
-        # the host-PS wire and apply, from the spans (recorded while
-        # tracing is on, ADT_TRACE): count and total seconds of each
+        # the host-PS wire and apply, and the fused carry's write-back,
+        # from the spans (recorded while tracing is on, ADT_TRACE): count
+        # and total seconds of each
         spans = tel.get_recorder().summary() if tel.tracing_enabled() \
             else {}
         out["ps_spans"] = {
             name: {"count": int(spans.get(name, {}).get("count", 0)),
                    "total_s": round(spans.get(name, {}).get("total_s", 0.0),
                                     6)}
-            for name in ("ps.pull", "ps.push", "ps.apply")}
+            for name in ("ps.pull", "ps.push", "ps.apply", "ps.absorb")}
         return out
 
     def fit(self, batches, steps: Optional[int] = None,
@@ -407,8 +408,8 @@ class Runner:
                 " — the stacks must match (DevicePrefetcher(stack=k) pairs"
                 " with fit(fuse_steps=k))" % (fuse_steps, src_k))
         if fuse_steps > 1:
-            # the fused program's refusals (host-PS variables; N > 1 on
-            # cuda), before any step runs
+            # the fused program's refusals (a stale or async host PS; N >
+            # 1 on cuda), before any step runs
             self._dstep.multi_step(fuse_steps)
         if save_every > 0 and saver is None:
             from autodist_tpu_torch.checkpoint.saver import Saver
@@ -565,8 +566,9 @@ class Runner:
         return 1
 
     def close(self):
-        """Drop the device state and the captured supersteps, and land the
-        in-flight PS push and stop the store's threads (idempotent)."""
+        """Drop the device state and the captured supersteps, land the
+        in-flight PS push and the fused supersteps' PS carry, and stop the
+        store's threads (idempotent)."""
         self.state = None
         self._dstep.close()
 

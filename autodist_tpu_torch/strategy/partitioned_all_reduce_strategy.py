@@ -33,7 +33,9 @@ class PartitionedAR(StrategyBuilder):
         group_counter = 0
         for name in model_item.trainable_var_names:
             info = model_item.var_infos[name]
-            dim0 = info.shape[0] if info.shape else 0
+            # the JAX item's shape: shards split flax's axis 0
+            shape = info.flax_shape
+            dim0 = shape[0] if shape else 0
             num_shards = smallest_divisor_shards(dim0, max_shards)
             group = group_counter // max(self.chunk_size, 1)
             if num_shards <= 1:
@@ -54,7 +56,7 @@ class PartitionedAR(StrategyBuilder):
                 group_counter += 1
             nodes.append(VarConfig(
                 var_name=name,
-                partitioner=make_partition_str(len(info.shape), 0, num_shards),
+                partitioner=make_partition_str(len(shape), 0, num_shards),
                 part_configs=part_configs))
         return Strategy(node_config=nodes,
                         graph_config=GraphConfig(

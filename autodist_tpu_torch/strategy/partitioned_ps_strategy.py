@@ -68,7 +68,8 @@ class PartitionedPS(StrategyBuilder):
         rr = 0  # round-robin pointer across all shards
         for name in model_item.trainable_var_names:
             info = model_item.var_infos[name]
-            dim0 = info.shape[0] if info.shape else 0
+            # the JAX item's shape: shards split flax's axis 0
+            dim0 = info.flax_shape[0] if info.flax_shape else 0
             num_shards = self._num_shards(dim0, n_ps) if dim0 > 1 else 1
             if num_shards <= 1:
                 nodes.append(VarConfig(
@@ -84,7 +85,7 @@ class PartitionedPS(StrategyBuilder):
                 rr += 1
             nodes.append(VarConfig(
                 var_name=name,
-                partitioner=make_partition_str(len(info.shape), 0,
+                partitioner=make_partition_str(len(info.flax_shape), 0,
                                                num_shards),
                 part_configs=part_configs))
         return Strategy(node_config=nodes,

@@ -34,9 +34,11 @@ class RandomAxisPartitionAR(PartitionedAR):
         group_counter = 0
         for name in model_item.trainable_var_names:
             info = model_item.var_infos[name]
-            # candidate axes with a usable divisor
+            # candidate axes with a usable divisor, of the JAX item's
+            # shape (flax's axes)
+            shape = info.flax_shape
             candidates = []
-            for ax, dim in enumerate(info.shape):
+            for ax, dim in enumerate(shape):
                 if smallest_divisor_shards(dim, max_shards) > 1:
                     candidates.append(ax)
             if info.sparse:
@@ -51,7 +53,7 @@ class RandomAxisPartitionAR(PartitionedAR):
                 group_counter += 1
                 continue
             axis = rng.choice(candidates)
-            num_shards = smallest_divisor_shards(info.shape[axis], max_shards)
+            num_shards = smallest_divisor_shards(shape[axis], max_shards)
             part_configs = []
             for shard_idx in range(num_shards):
                 part_configs.append(VarConfig(
@@ -62,7 +64,7 @@ class RandomAxisPartitionAR(PartitionedAR):
                 group_counter += 1
             nodes.append(VarConfig(
                 var_name=name,
-                partitioner=make_partition_str(len(info.shape), axis,
+                partitioner=make_partition_str(len(shape), axis,
                                                num_shards),
                 part_configs=part_configs))
         return Strategy(node_config=nodes,

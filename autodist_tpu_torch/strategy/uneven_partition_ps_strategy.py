@@ -36,7 +36,8 @@ class UnevenPartitionedPS(PartitionedPS):
         rr = 0
         for name in model_item.trainable_var_names:
             info = model_item.var_infos[name]
-            dim0 = info.shape[0] if info.shape else 0
+            # the JAX item's shape: shards split flax's axis 0
+            dim0 = info.flax_shape[0] if info.flax_shape else 0
             num_shards = first_non_divisor_shards(dim0, max(n_ps, 3))
             if num_shards <= 1:
                 nodes.append(VarConfig(
@@ -52,7 +53,7 @@ class UnevenPartitionedPS(PartitionedPS):
                 rr += 1
             nodes.append(VarConfig(
                 var_name=name,
-                partitioner=make_partition_str(len(info.shape), 0,
+                partitioner=make_partition_str(len(info.flax_shape), 0,
                                                num_shards),
                 part_configs=part_configs,
                 shard_sizes=uneven_shard_sizes(dim0, num_shards)))

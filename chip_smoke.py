@@ -165,8 +165,10 @@ result line):
    the PS spans recorded (tracing on): (a) DLRM at its default config
    (8 tables, 1 622 100 x 64, and the MLPs; batch 256, the hot-id batch)
    under ``Parallax()``, 2 + 10 steps: the 8 tables host-resident (the
-   tables and their moments absent from the device state, the store
-   holding the values and both moments), finite and falling losses, the
+   tables and their moments absent from the device state, the store's
+   ``resident_bytes`` the values' bytes, as the JAX store counts, and its
+   moments, counted from its per-shard states, twice that), finite and
+   falling losses, the
    bytes a pull and a push equal to the plan's (every table whole; each
    sparse-wire table's (ids, values) pairs, a dense table's gradient
    whole); step p50 (min-max), examples/s, ``ps.pull``/``ps.push``/
@@ -189,6 +191,33 @@ result line):
    init in deterministic mode: both ranks' losses and params equal, the
    Parallax ranks' store digests equal, the wire bytes a step a rank
    printed against the tables' dense bytes.
+16. host-PS variables inside fused supersteps (the device-resident PS
+   carry) and the optax optimizers (tracing on): (a) DLRM at its default
+   config under ``Parallax()``, batch 256, 8 batches (the hot-id draw
+   from seeds 1-8) per step and then through ``fit(fuse_steps=4,
+   metrics_every=2)`` from the same init: losses and gathered params
+   agree (bit-equal, or phase 6's bounds: losses 1e-4 relative, params 2
+   x steps x lr each and 1e-6 on average); ms a microstep over 3 more
+   supersteps, the idle share of one superstep in a device trace, the
+   carry's bytes and its load (``dstep.pull_ps``) and write-back
+   (``ps.absorb``) ms, peak HBM; the same pair again in deterministic
+   mode, whether it is bit-equal printed; (b) NCF at its default config
+   under ``PS()``, every variable in the carry, (a)'s readings; (c)
+   bert_base bf16 (seq 128, batch 128, flash) under ``Parallax()``,
+   ``fit(fuse_steps=4)`` over 8 microsteps on phase 15 (d)'s batch: the
+   losses within 2e-2 of phase 15 (d)'s per-step ones, each kernel 12
+   launches a microstep on its tensor-core design, counted by name in a
+   device trace of one more replay; (d) the optimizers: resnet50 bf16
+   (batch 256) under ``optim.chain(optim.clip_by_global_norm(1.0),
+   SGD(lr=0.1, momentum=0.9))`` (the imagenet example's optimizer), fused
+   k = 4 against per step over 8 microsteps in deterministic mode
+   (agreement as in (a), whether bit-equal printed), and bert_base bf16
+   under ``AdamW(lr=1e-4, weight_decay=1e-4)`` (the bert example's),
+   3 steps: finite losses, the loss after 3 steps below the first, 12
+   launches a step; for both, the first update on the card against the
+   port's own update run on the CPU from the same gradients, state and
+   params, each element within 1e-5 of the update's largest magnitude
+   plus one float32 ulp of the param.
 
 TF32 is off for the whole run (``torch.backends.cuda.matmul`` and
 ``cudnn``): float32 is computed in float32, as the f32 checks' 2e-5 and
@@ -2784,15 +2813,15 @@ PS_PARAM_DRIFT = 2 * PS_PARITY_STEPS * 1e-3
 PS_SPANS = ("ps.pull", "ps.push", "ps.apply")
 
 
-def ps_runner(loss_fn, params, batch, builder):
+def ps_runner(loss_fn, params, batch, builder, optimizer=None):
     """Build -> init through the public entry points on the card under
-    ``builder``."""
+    ``builder``, with ``optimizer`` (default Adam at 1e-3)."""
     import torch
     import autodist_tpu_torch as adt
     adt_reset()
     ad = adt.AutoDist(strategy_builder=builder)
-    runner = ad.build(loss_fn, functools.partial(torch.optim.Adam, lr=1e-3),
-                      params, batch)
+    runner = ad.build(loss_fn, optimizer or functools.partial(
+        torch.optim.Adam, lr=1e-3), params, batch)
     runner.init(params)
     return runner
 
@@ -2829,8 +2858,10 @@ def ps_readings(label, runner, batch, card, items, rows=None,
     """PS_WARMUP + PS_STEPS steps of a host-PS runner, each ended by a
     sync, then a device profile of 3 more. Gates: every loss finite and
     (``must_fall``) the last below the first; the host-PS variables and
-    their moments absent from the device state; the store resident with
-    the values and both moments; with ``rows`` (ids a lookup a step), the
+    their moments absent from the device state; the store's values
+    (``resident_bytes``, which counts values only, as the JAX store's
+    does) and both moments (counted from its per-shard states) resident;
+    with ``rows`` (ids a lookup a step), the
     bytes a pull and a push equal to the plan's (:func:`ps_plan_bytes`).
     Prints step p50 (min-max), examples/s, each PS span's ms a step, the
     bytes a step, peak HBM and the device's idle share. Returns (the
@@ -2848,9 +2879,16 @@ def ps_readings(label, runner, batch, card, items, rows=None,
         fail("%s: host-PS variables on the device: %s" % (label,
                                                           sorted(leaked)))
     values = sum(dstep.model_item.var_infos[n].byte_size for n in names)
-    if store.resident_bytes() != 3 * values:
-        fail("%s: the store holds %d B, not 3 x %d B (values and two "
-             "moments)" % (label, store.resident_bytes(), values))
+    if store.resident_bytes() != values:
+        fail("%s: the store reports %d B of values resident, not %d B"
+             % (label, store.resident_bytes(), values))
+    # the moments, counted from the store's per-shard states
+    moments = sum(int(st[slot]["v"].numel() * st[slot]["v"].element_size())
+                  for n in names for st in store._opt[n]
+                  for slot in ("mu", "nu"))
+    if moments != 2 * values:
+        fail("%s: the store holds %d B of moments, not 2 x %d B"
+             % (label, moments, values))
     reset_counts()
     torch.cuda.reset_peak_memory_stats()
     losses, times = [], []
@@ -2890,12 +2928,12 @@ def ps_readings(label, runner, batch, card, items, rows=None,
     peak = torch.cuda.max_memory_allocated() / 1e9
     print("  %s, %d steps: step p50 %.2f ms (min %.2f, max %.2f), %.0f "
           "%s/s; a step: ps.pull %.2f ms, ps.push %.2f ms (of which "
-          "ps.apply %.2f), %d B pulled, %d B pushed; store %d B resident "
-          "(values and two moments); peak HBM %.2f GB [%s]"
+          "ps.apply %.2f), %d B pulled, %d B pushed; store %d B of values "
+          "and %d B of moments resident; peak HBM %.2f GB [%s]"
           % (label, len(times), p50 * 1e3, min(times) * 1e3,
              max(times) * 1e3, items / p50, unit, span_ms["ps.pull"],
              span_ms["ps.push"], span_ms["ps.apply"], pulled, pushed,
-             store.resident_bytes(), peak, card))
+             store.resident_bytes(), moments, peak, card))
     share, window = idle_share(lambda: [runner.run(batch) for _ in range(3)])
     print("  device idle share over 3 steps: %s of %.1f ms [%s]"
           % ("not measured" if share is None else "%.1f%%" % (100 * share),
@@ -3037,7 +3075,7 @@ def bert_ps_phase(card):
     print("  first %d losses within %.2e relative of AllReduce's (bound "
           "2e-2); each kernel %d launches a step [%s]"
           % (PS_PARITY_STEPS, worst, cfg.num_layers, card))
-    return launches
+    return launches, losses
 
 
 def pipeline_phase(card):
@@ -3186,19 +3224,452 @@ def ps_dp_phase(card):
 def ps_phase(card):
     """Phase 15: the parameter-server family and the sparse (ids, values)
     wire. Returns each kernel's launches in (d), bert_base under
-    Parallax."""
+    Parallax, and (d)'s per-step losses."""
     from autodist_tpu_torch.telemetry import spans as tel
     # the PS spans (ps.pull, ps.push, ps.apply) record while tracing is on
     tel.configure("1")
     try:
         dlrm_ps_phase(card)
         ncf_ps_phase(card)
-        launches = bert_ps_phase(card)
+        launches, bert_losses = bert_ps_phase(card)
         pipeline_phase(card)
         ps_dp_phase(card)
     finally:
         tel.configure(None)
+    return launches, bert_losses
+
+
+# ------------------------------------------------------------- phase 16
+
+
+CARRY_K, CARRY_MICROSTEPS, CARRY_TIMED = 4, 8, 3
+# the bound of the first update on the card against the CPU's, each
+# element's: 1e-5 of the update's largest magnitude (the same float32
+# arithmetic, in another order for the clip's norm and with the card's
+# pow) plus one float32 ulp of the param, which p + u may round either
+# way when the two updates differ in their last bits
+FIRST_UPDATE_RTOL = 1e-5
+CARRY_SPANS = ("dstep.pull_ps", "ps.absorb")
+
+
+def recsys_batches(name, cfg, n):
+    """``n`` batches of ``name``'s model (``dlrm`` or ``ncf``) at
+    ``cfg``, drawn as its ``make_train_setup`` draws the example batch,
+    from seeds 1..n (without making params again)."""
+    import numpy as np
+    out = []
+    for seed in range(1, n + 1):
+        npr = np.random.RandomState(seed)
+        if name == "ncf":
+            out.append({
+                "user": npr.randint(0, cfg.num_users, (PS_BATCH,)).astype(
+                    np.int32),
+                "item": npr.randint(0, cfg.num_items, (PS_BATCH,)).astype(
+                    np.int32),
+                "label": npr.randint(0, 2, (PS_BATCH,)).astype(np.int32)})
+            continue
+        sparse = np.stack(
+            [np.where(npr.rand(PS_BATCH) < 0.8,
+                      npr.randint(0, max(1, int(size * 0.05)), PS_BATCH),
+                      npr.randint(0, size, PS_BATCH))
+             for size in cfg.table_sizes], axis=1).astype(np.int32)
+        out.append({
+            "dense": npr.randn(PS_BATCH, cfg.num_dense).astype(np.float32),
+            "sparse": sparse,
+            "label": npr.randint(0, 2, (PS_BATCH,)).astype(np.int32)})
+    return out
+
+
+def tree_bytes(tree):
+    from torch.utils import _pytree as pytree
+    return sum(int(t.numel() * t.element_size())
+               for t in pytree.tree_leaves(tree))
+
+
+def carry_span_totals():
+    from autodist_tpu_torch.telemetry import spans as tel
+    summary = tel.get_recorder().summary()
+    return {n: (summary.get(n, {}).get("count", 0),
+                summary.get(n, {}).get("total_s", 0.0))
+            for n in CARRY_SPANS}
+
+
+def fused_ps_pair(label, loss_fn, params, batches, make_builder, card,
+                  items, unit):
+    """Per step over ``batches``, then ``fit(fuse_steps=4,
+    metrics_every=2)`` over them from the same init; then 1 + 3 more
+    supersteps (the first loads the carry again after the gather's
+    write-back; the other 3 timed) and one under a device trace. Gates:
+    :func:`agree`, 2 dispatches, one carry load and one write-back before
+    the gather. Returns (ms a microstep, per-step p50 ms, bit-equal)."""
+    import statistics
+    import torch
+    from autodist_tpu_torch.data.prefetch import stack_batches
+    runner = ps_runner(loss_fn, params, batches[0], make_builder())
+    times = []
+    losses = []
+    for b in batches:
+        t0 = time.perf_counter()
+        losses.append(float(runner.run(b)["loss"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    per_step = (losses, host_params(runner))
+    per_p50 = statistics.median(times[2:]) * 1e3
+    del runner
+    runner = ps_runner(loss_fn, params, batches[0], make_builder())
+    dstep = runner.distributed_step
+    store = dstep.ps_store
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    spans0, stats0 = carry_span_totals(), dict(store.stats)
+    t0 = time.perf_counter()
+    hist = runner.fit(iter(batches), fuse_steps=CARRY_K, metrics_every=2)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    carry = tree_bytes(dstep._ps_carry)
+    values = tree_bytes(dstep._ps_carry[0])
+    if dstep.dispatches != CARRY_MICROSTEPS // CARRY_K or \
+            store.stats["pushes"] != stats0["pushes"] or \
+            store.stats["pulls"] != stats0["pulls"] + 1:
+        fail("%s: %d dispatches, %d pulls and %d pushes of the store in "
+             "the fused fit (want %d, 1, 0: the carry stays on the card)"
+             % (label, dstep.dispatches,
+                store.stats["pulls"] - stats0["pulls"],
+                store.stats["pushes"] - stats0["pushes"],
+                CARRY_MICROSTEPS // CARRY_K))
+    fused = ([float(m["loss"]) for m in hist], host_params(runner))
+    if store.stats["pushes"] != stats0["pushes"] + 1 or \
+            store.stats["bytes_pushed"] - stats0["bytes_pushed"] != values:
+        fail("%s: the gather did not write the carry back once (%d pushes, "
+             "%d B)" % (label, store.stats["pushes"] - stats0["pushes"],
+                        store.stats["bytes_pushed"] - stats0["bytes_pushed"]))
+    peak = torch.cuda.max_memory_allocated()
+    bitwise = agree("%s fused vs per step" % label, fused, per_step,
+                    CARRY_MICROSTEPS)
+    stack = runner.remapper.remap_feed_stack(
+        stack_batches(batches[:CARRY_K]))
+    runner.run_superstep(stack, sync=True)        # loads the carry again
+    steady = []
+    for _ in range(CARRY_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner.run_superstep(stack, sync=True)
+        torch.cuda.synchronize()
+        steady.append((time.perf_counter() - t0) / CARRY_K)
+    idle, window = idle_share(lambda: runner.run_superstep(stack, sync=True))
+    dstep.flush_ps()
+    spans1 = carry_span_totals()
+    span_ms = {n: 1e3 * (spans1[n][1] - spans0[n][1])
+               / max(spans1[n][0] - spans0[n][0], 1) for n in CARRY_SPANS}
+    loads = spans1["dstep.pull_ps"][0] - spans0["dstep.pull_ps"][0]
+    absorbs = spans1["ps.absorb"][0] - spans0["ps.absorb"][0]
+    ms = statistics.median(steady) * 1e3
+    print("  %s: fused %d microsteps in %d dispatches (%.2f s, the capture "
+          "included); %.2f ms a microstep p50 over %d supersteps (min "
+          "%.2f, max %.2f), %.0f %s/s, against %.2f ms a step per step; "
+          "idle %s of one superstep (%.1f ms); the carry %d B (%d B of "
+          "values, the rest the optimizer state), each way once a run of "
+          "supersteps: load (H2D) %.2f ms over %d loads, write-back (D2H, "
+          "ps.absorb) %.2f ms over %d; peak HBM %.2f GB (%.2f GB held "
+          "before the run) [%s]" % (
+              label, len(hist), CARRY_MICROSTEPS // CARRY_K, fit_s, ms,
+              CARRY_TIMED, min(steady) * 1e3, max(steady) * 1e3,
+              items / (ms / 1e3), unit, per_p50,
+              "not measured" if idle is None else "%.1f%%" % (100 * idle),
+              window, carry, values, span_ms["dstep.pull_ps"], loads,
+              span_ms["ps.absorb"], absorbs, peak / 1e9, held / 1e9, card))
+    del runner, stack
+    adt_reset()
+    return ms, per_p50, bitwise
+
+
+def dlrm_fused_phase(card):
+    """Phase 16 (a): DLRM at its default config under Parallax(), fused
+    against per step, in the default mode and in deterministic mode."""
+    import torch
+    from autodist_tpu_torch import strategy
+    cfg, loss_fn, params, _ = dlrm_setup()
+    batches = recsys_batches("dlrm", cfg, CARRY_MICROSTEPS)
+    print("phase 16 (a): DLRM default config (%d parameters), batch %d, "
+          "Parallax(), %d batches per step then fit(fuse_steps=%d, "
+          "metrics_every=2) from the same init"
+          % (sum(int(p.numel()) for p in params.values()), PS_BATCH,
+             CARRY_MICROSTEPS, CARRY_K))
+    fused_ps_pair("DLRM Parallax", loss_fn, params, batches,
+                  strategy.Parallax, card, PS_BATCH, "examples")
+    torch.use_deterministic_algorithms(True)
+    try:
+        _, _, bitwise = fused_ps_pair(
+            "DLRM Parallax, deterministic mode", loss_fn, params, batches,
+            strategy.Parallax, card, PS_BATCH, "examples")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    print("  deterministic mode: fused vs per step %s"
+          % ("bit-equal" if bitwise else "not bit-equal (within bounds)"))
+
+
+def ncf_fused_phase(card):
+    """Phase 16 (b): NCF at its default config under PS(): every variable
+    in the carry."""
+    from autodist_tpu_torch import strategy
+    from autodist_tpu_torch.models import ncf
+    cfg = ncf.NCFConfig()
+    loss_fn, params, _, _ = ncf.make_train_setup(cfg, batch_size=PS_BATCH,
+                                                 seed=0)
+    batches = recsys_batches("ncf", cfg, CARRY_MICROSTEPS)
+    print("phase 16 (b): NCF default config (%d parameters), batch %d, "
+          "PS(), every variable in the carry, %d batches per step then "
+          "fused" % (sum(int(p.numel()) for p in params.values()),
+                     PS_BATCH, CARRY_MICROSTEPS))
+    fused_ps_pair("NCF PS()", loss_fn, params, batches, strategy.PS, card,
+                  PS_BATCH, "examples")
+
+
+def bert_fused_ps_phase(card, per_step_losses):
+    """Phase 16 (c): bert_base bf16 under Parallax() through
+    fit(fuse_steps=4), its losses against phase 15 (d)'s per-step ones,
+    and each kernel's launches a microstep under replay, counted by name
+    in a device trace. Returns the launches and the launches a
+    microstep."""
+    import math
+    import torch
+    from autodist_tpu_torch import strategy
+    from autodist_tpu_torch.data.prefetch import stack_batches
+    from autodist_tpu_torch.models import bert
+    cfg = bert.BertConfig.base(dtype=torch.bfloat16)
+    loss_fn, params, batch, _ = bert.make_train_setup(
+        cfg, seq_len=BERT_SEQ, batch_size=BERT_BATCH, seed=0,
+        attention="flash")
+    print("phase 16 (c): bert_base bf16 (seq %d, batch %d, flash) under "
+          "Parallax(), the three tables in the carry, fit(fuse_steps=%d) "
+          "over %d microsteps on phase 15 (d)'s batch"
+          % (BERT_SEQ, BERT_BATCH, CARRY_K, CARRY_MICROSTEPS))
+    runner = ps_runner(loss_fn, params, batch, strategy.Parallax())
+    dstep = runner.distributed_step
+    reset_counts()
+    hist = runner.fit([batch] * CARRY_MICROSTEPS, fuse_steps=CARRY_K)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    losses = [float(m["loss"]) for m in hist]
+    warm = dstep.warmup_microsteps
+    check_launches("phase 16 (c)", launches, cfg.num_layers,
+                   CARRY_MICROSTEPS + warm)
+    stack = runner.remapper.remap_feed_stack(
+        stack_batches([batch] * CARRY_K))
+    with uncounted():
+        reset_counts()
+        on_card = trace_launches(device_trace(
+            lambda: runner.run_superstep(stack, sync=True)))
+    if dstep.warmup_microsteps != warm:
+        fail("phase 16 (c): the traced superstep captured a new graph")
+    check_launches("phase 16 (c) traced replay, device trace", on_card,
+                   cfg.num_layers, CARRY_K)
+    want = per_step_losses[:CARRY_MICROSTEPS]
+    worst = max(abs(a - b) / abs(b) for a, b in zip(losses, want))
+    print("  losses fused %s; per step (phase 15 (d)) %s: within %.2e "
+          "relative (bound 2e-2); launches %r = %d a microstep x (%d "
+          "replayed + %d warm-up); one traced replay of %d microsteps: %r "
+          "on the card [%s]" % (
+              " ".join("%.4f" % x for x in losses),
+              " ".join("%.4f" % x for x in want), worst, launches,
+              cfg.num_layers, CARRY_MICROSTEPS, warm, CARRY_K, on_card,
+              card))
+    if not all(math.isfinite(x) for x in losses) or worst > 2e-2:
+        fail("phase 16 (c): fused losses %r vs per step %r" % (losses, want))
+    del runner, stack
+    adt_reset()
+    per_microstep = {name: by[MAIN_DESIGN[name]] / CARRY_K
+                     for name, by in on_card.items()}
+    return launches, per_microstep
+
+
+class FirstUpdate:
+    """An optimizer spec that records its first ``update``: copies on the
+    CPU of the gradients, the state and the params it was given, and of
+    the params it left."""
+
+    def __init__(self, spec):
+        self.spec = spec
+        self.seen = None
+
+    def __getattr__(self, key):
+        return getattr(self.spec, key)
+
+    def update(self, grads, state, params):
+        if self.seen is not None:
+            return self.spec.update(grads, state, params)
+        from torch.utils import _pytree as pytree
+
+        def cpu(t):
+            return t.detach().to("cpu", copy=True)
+        before = (pytree.tree_map(cpu, dict(grads)),
+                  pytree.tree_map(cpu, dict(state)),
+                  {n: cpu(params[n]) for n in grads})
+        out = self.spec.update(grads, state, params)
+        self.seen = before + ({n: cpu(params[n]) for n in grads},)
+        return out
+
+
+def first_update_check(label, recorder, card):
+    """The first update on the card against the port's own update run on
+    the CPU from the same gradients, state and params."""
+    import math
+    import torch
+    grads, state, params, after = recorder.seen
+    if recorder.spec.clip is not None:
+        # the clip's global norm, as each device computes it, against a
+        # float64 reference: the one input of the update that is a
+        # reduction over every gradient
+        def norm_on(device):
+            gs = [g.to(device) for g in grads.values()]
+            return float(torch.stack([g.square().sum()
+                                      for g in gs]).sum().sqrt())
+        exact = math.sqrt(sum(float(g.double().square().sum())
+                              for g in grads.values()))
+        card_norm, cpu_norm = norm_on("cuda"), norm_on("cpu")
+        print("  %s: the clip's global norm %.9g on the card, %.9g on the "
+              "CPU, %.9g in float64 (relative %.3e and %.3e); bound %g, "
+              "clipping %s" % (
+                  label, card_norm, cpu_norm, exact,
+                  abs(card_norm - exact) / exact,
+                  abs(cpu_norm - exact) / exact, recorder.spec.clip,
+                  "on" if exact >= recorder.spec.clip else "off"))
+    start = {n: t.clone() for n, t in params.items()}
+    recorder.spec.update(grads, state, params)
+    scale = max(float((after[n] - start[n]).abs().max()) for n in params)
+    ulp = torch.finfo(torch.float32).eps
+    err = worst = 0.0
+    beyond = 0
+    for n in params:
+        d = (params[n] - after[n]).abs()
+        err = max(err, float(d.max()))
+        worst = max(worst, float((d / (FIRST_UPDATE_RTOL * scale + ulp
+                                       * start[n].abs())).max()))
+        beyond += int((d > 0).sum())
+    print("  %s: the first update on the card vs on the CPU from the same "
+          "gradients and state: max |diff| %.3e (%.2f of the bound: %.0e "
+          "of the largest update %.3e plus one ulp of the param), %d of %d "
+          "elements differ, over %d variables [%s]"
+          % (label, err, worst, FIRST_UPDATE_RTOL, scale, beyond,
+             sum(t.numel() for t in params.values()), len(params), card))
+    if not scale > 0 or worst > 1.0:
+        fail("phase 16 (d) %s: the card's first update differs from the "
+             "CPU's by %.3e (%.2f of the bound)" % (label, err, worst))
+
+
+def optimizer_phase(card):
+    """Phase 16 (d): resnet50 under the imagenet example's clip chain,
+    fused against per step in deterministic mode, and bert_base under the
+    bert example's AdamW; the first update of each against the CPU.
+    Returns the bert run's launches."""
+    import math
+    import torch
+    from autodist_tpu_torch import optim, strategy
+    from autodist_tpu_torch.data.prefetch import stack_batches
+    from autodist_tpu_torch.models import bert, resnet
+    chain = optim.chain(optim.clip_by_global_norm(1.0), functools.partial(
+        torch.optim.SGD, lr=0.1, momentum=0.9))
+    loss_fn, params, batch, _ = resnet.make_train_setup(
+        resnet.ResNet50, image_size=RESNET_IMAGE, batch_size=RESNET_BATCH,
+        dtype=torch.bfloat16, seed=0)
+    print("phase 16 (d): resnet50 bf16 (batch %d) under chain("
+          "clip_by_global_norm(1.0), SGD(lr=0.1, momentum=0.9)): per step "
+          "then fit(fuse_steps=%d) over %d microsteps from one init, "
+          "deterministic mode; bert_base bf16 under AdamW(lr=1e-4, "
+          "weight_decay=1e-4), 3 steps" % (RESNET_BATCH, CARRY_K,
+                                           CARRY_MICROSTEPS))
+    torch.use_deterministic_algorithms(True)
+    try:
+        runs = {}
+        for mode in ("per step", "fused"):
+            runner = ps_runner(loss_fn, params, batch, strategy.AllReduce(),
+                               optimizer=chain)
+            dstep = runner.distributed_step
+            if mode == "per step":
+                recorder = FirstUpdate(dstep.optimizer)
+                dstep.optimizer = recorder
+                losses = [float(runner.run(batch)["loss"])
+                          for _ in range(CARRY_MICROSTEPS)]
+            else:
+                losses = [float(m["loss"]) for m in runner.fit(
+                    [batch] * CARRY_MICROSTEPS, fuse_steps=CARRY_K)]
+                if dstep.dispatches != CARRY_MICROSTEPS // CARRY_K:
+                    fail("phase 16 (d): %d dispatches fused"
+                         % dstep.dispatches)
+            # optax.sgd's state: a trace beside each variable, moved for
+            # the trainable ones and zero for the BatchNorm statistics
+            trace = runner.state.opt_state.get("trace", {})
+            trainable = set(dstep.model_item.trainable_var_names)
+            moved = {n for n, t in trace.items() if float(t.abs().max()) > 0}
+            if sorted(runner.state.opt_state) != ["trace"] or \
+                    not moved or not moved <= trainable:
+                fail("phase 16 (d): the SGD momentum state: keys %r, %d of "
+                     "%d traces moved, frozen ones among them: %r" % (
+                         sorted(runner.state.opt_state), len(moved),
+                         len(trace), sorted(moved - trainable)[:5]))
+            runs[mode] = (losses, host_params(runner))
+            del runner
+            adt_reset()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    print("  losses fused %s" % " ".join("%.4f" % x
+                                         for x in runs["fused"][0]))
+    if not all(math.isfinite(x) for x in runs["fused"][0]):
+        fail("phase 16 (d): resnet50 losses not finite")
+    bitwise = agree("(d) resnet50 clip chain fused vs per step",
+                    runs["fused"], runs["per step"], CARRY_MICROSTEPS,
+                    lr=0.1)
+    print("  (d) resnet50 under the clip chain: fused vs per step %s in "
+          "deterministic mode" % ("bit-equal" if bitwise
+                                  else "not bit-equal (within bounds)"))
+    first_update_check("resnet50 clip chain", recorder, card)
+    del params, batch, recorder
+
+    cfg = bert.BertConfig.base(dtype=torch.bfloat16)
+    loss_fn, params, batch, _ = bert.make_train_setup(
+        cfg, seq_len=BERT_SEQ, batch_size=BERT_BATCH, seed=0,
+        attention="flash")
+    adamw = functools.partial(torch.optim.AdamW, lr=1e-4, weight_decay=1e-4)
+    runner = ps_runner(loss_fn, params, batch, strategy.AllReduce(),
+                       optimizer=adamw)
+    recorder = FirstUpdate(runner.distributed_step.optimizer)
+    runner.distributed_step.optimizer = recorder
+    reset_counts()
+    losses = [float(runner.run(batch)["loss"]) for _ in range(3)]
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    check_launches("phase 16 (d) bert_base AdamW", launches, cfg.num_layers,
+                   3)
+    print("  (d) bert_base AdamW losses %s; each kernel %d launches a step "
+          "[%s]" % (" ".join("%.4f" % x for x in losses), cfg.num_layers,
+                    card))
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        fail("phase 16 (d): bert_base AdamW losses %r" % (losses,))
+    del runner
+    adt_reset()
+    first_update_check("bert_base AdamW", recorder, card)
     return launches
+
+
+def carry_phase(card, bert_per_step_losses):
+    """Phase 16: host-PS variables in fused supersteps and the optax
+    optimizers. Returns (c)'s launches and launches a microstep under
+    replay, and (d)'s bert_base launches."""
+    from autodist_tpu_torch.telemetry import spans as tel
+    # the carry's spans (dstep.pull_ps, ps.absorb) record while tracing is
+    # on
+    tel.configure("1")
+    try:
+        dlrm_fused_phase(card)
+        ncf_fused_phase(card)
+        fused_launches, per_microstep = bert_fused_ps_phase(
+            card, bert_per_step_losses)
+    finally:
+        tel.configure(None)
+    adamw_launches = optimizer_phase(card)
+    return fused_launches, per_microstep, adamw_launches
 
 
 def main():
@@ -3342,7 +3813,9 @@ def main():
     cnn_phase(card)
     fused_launches, replay_per_microstep = fused_phase(card)
     sync_launches, tier_launches, remat_launches = sync_variants_phase(card)
-    ps_launches = ps_phase(card)
+    ps_launches, bert_ps_losses = ps_phase(card)
+    carry_launches, carry_per_microstep, adamw_launches = carry_phase(
+        card, bert_ps_losses)
 
     # flash_fwd runs on the three main paths, serving (decode), lm1b and
     # bert training, the backward kernels on the two training paths. Each
@@ -3393,15 +3866,27 @@ def main():
         # (e)'s bert_base steps under remat (the forward kernel launches
         # again in the recomputed forward): launches only
         # phase 15 (d): bert_base under Parallax, the tables host-resident
+        # phase 16 (d): bert_base under AdamW
         for path, counts in (("bert_sync_variants", sync_launches),
                              ("lm1b_bf16_tier", tier_launches),
                              ("bert_remat", remat_launches),
-                             ("bert_parallax", ps_launches)):
+                             ("bert_parallax", ps_launches),
+                             ("bert_adamw", adamw_launches)):
             n = counts.get(name, {})
             rec["by_path"][path] = {
                 "launches": sum(n.values()),
                 "design_launches": n.get(rec["design"], 0),
                 "designs": n}
+        # phase 16 (c): bert_base under Parallax in fused supersteps, the
+        # tables in the device carry: the replays and the capture's
+        # warm-up, and a microstep's launches under replay from a device
+        # trace of one more replay
+        carried = carry_launches.get(name, {})
+        rec["by_path"]["bert_parallax_fused"] = {
+            "launches": sum(carried.values()),
+            "design_launches": carried.get(rec["design"], 0),
+            "launches_per_microstep_under_replay":
+                carry_per_microstep[name]}
         rec["launches"] = sum(p["launches"] for p in rec["by_path"].values())
         rec["design_launches"] = sum(p["design_launches"]
                                      for p in rec["by_path"].values())

@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, and its
-fused supersteps (one CUDA graph a superstep) against its per-step loop,
-on a card.
+fused supersteps (one CUDA graph a superstep, with a host-PS carry or a
+clip chain too) against its per-step loop, on a card.
 
 Each test is marked ``cuda`` and skips without a card (a CUDA kernel has
 no CPU mode; the CPU tests hold the plain versions to the JAX package).
@@ -222,10 +222,11 @@ def test_cuda_bf16_grads_go_through_the_tensor_core_kernels():
 # ------------------------------------------- fused supersteps (CUDA graphs)
 
 
-def _lm_runner(n_batches=8, builder=None):
+def _lm_runner(n_batches=8, builder=None, optimizer=None):
     """A 2-layer lm at head width 64 (the kernels' width) in bf16 with
     flash attention, on the card, under ``builder()`` (default
-    ``AllReduce()``), and its batches."""
+    ``AllReduce()``) and ``optimizer`` (default Adam at 1e-3), and its
+    batches."""
     import functools
 
     import numpy as np
@@ -245,9 +246,8 @@ def _lm_runner(n_batches=8, builder=None):
     def build():
         adt.reset()
         ad = adt.AutoDist(strategy_builder=(builder or strategy.AllReduce)())
-        runner = ad.build(loss_fn, functools.partial(torch.optim.Adam,
-                                                     lr=1e-3),
-                          params, example)
+        runner = ad.build(loss_fn, optimizer or functools.partial(
+            torch.optim.Adam, lr=1e-3), params, example)
         runner.init(params)
         return runner
     return build, batches, cfg
@@ -381,6 +381,97 @@ def test_cuda_step_fn_superstep_matches_its_per_step_loop():
     assert got[4][0] == got[1][0] and got[4][2] == got[1][2] == 8
     for n, t in got[1][1].items():
         assert torch.equal(got[4][1][n], t), n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("builder", ["PS", "UnevenPartitionedPS",
+                                     "Parallax"])
+def test_cuda_superstep_with_a_ps_carry_matches_the_per_step_loop(builder):
+    """DLRM tiny with its host-PS variables in the device carry:
+    fit(fuse_steps=4) replays one graph a superstep, holds the store off
+    the wire until the gather writes the carry back once, and agrees with
+    the per-step loop (whose Adam runs on the host CPU, the carry's on
+    the card; the pairs densify by a scatter-add on the card instead of
+    ``np.add.at``) within 1e-6, in deterministic mode."""
+    _need_card()
+    import functools
+
+    import numpy as np
+
+    import autodist_tpu_torch as adt
+    from autodist_tpu_torch import strategy
+    from autodist_tpu_torch.models import dlrm
+    cfg = dlrm.DLRMConfig.tiny()
+    loss_fn, params, example, _ = dlrm.make_train_setup(cfg, batch_size=16)
+    batches = [dlrm.make_train_setup(cfg, batch_size=16, seed=s)[2]
+               for s in range(1, 9)]
+
+    def build():
+        adt.reset()
+        ad = adt.AutoDist(strategy_builder=getattr(strategy, builder)())
+        runner = ad.build(loss_fn, functools.partial(torch.optim.Adam,
+                                                     lr=1e-2),
+                          params, example)
+        runner.init(params)
+        return runner
+    torch.use_deterministic_algorithms(True)
+    try:
+        runner = build()
+        want = [float(m["loss"]) for m in runner.fit(iter(batches))]
+        want_params = {n: t.clone() for n, t in
+                       runner.gather_params().items()}
+        runner = build()
+        store = runner.distributed_step.ps_store
+        got = [float(m["loss"]) for m in runner.fit(
+            iter(batches), fuse_steps=4, metrics_every=2)]
+        dstep = runner.distributed_step
+        assert dstep.dispatches == 2 and len(dstep._graphs) == 1
+        assert (store.stats["pulls"], store.stats["pushes"]) == (1, 0)
+        got_params = runner.gather_params()
+        assert store.stats["pushes"] == 1
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)
+        for n, t in got_params.items():
+            torch.testing.assert_close(t, want_params[n], rtol=0,
+                                       atol=1e-6, msg=n)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        adt.reset()
+
+
+@pytest.mark.cuda
+def test_cuda_superstep_with_the_clip_chain_matches_the_per_step_loop():
+    """The imagenet example's ``chain(clip_by_global_norm(1.0),
+    SGD(momentum=0.9))``: its norm and choice stay on the card, so one
+    captured graph holds them, bit for bit the per-step loop in
+    deterministic mode."""
+    _need_card()
+    import functools
+
+    import autodist_tpu_torch as adt
+    from autodist_tpu_torch import optim
+    chain = optim.chain(optim.clip_by_global_norm(1.0), functools.partial(
+        torch.optim.SGD, lr=0.1, momentum=0.9))
+    build, batches, _ = _lm_runner(optimizer=chain)
+    torch.use_deterministic_algorithms(True)
+    try:
+        runner = build()
+        want = [float(m["loss"]) for m in runner.fit(iter(batches))]
+        want_state = {n: t.clone() for n, t in
+                      runner.state.opt_state["trace"].items()}
+        want_params = {n: t.clone() for n, t in
+                       runner.gather_params().items()}
+        runner = build()
+        got = [float(m["loss"]) for m in runner.fit(
+            iter(batches), fuse_steps=4, metrics_every=2)]
+        assert runner.distributed_step.dispatches == 2
+        assert got == want
+        for n, t in runner.gather_params().items():
+            assert torch.equal(t, want_params[n]), n
+        for n, t in runner.state.opt_state["trace"].items():
+            assert torch.equal(t, want_state[n]), n
+    finally:
+        torch.use_deterministic_algorithms(False)
+        adt.reset()
 
 
 @pytest.mark.cuda

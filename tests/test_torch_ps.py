@@ -11,10 +11,12 @@ and its lowering, against the JAX package, on the CPU.
   before the port's PS family, the plan compiled and trained every
   variable on the device.
 - The refusals, at every replica count: ``sync=False`` (async serving
-  over the coordination service), ``staleness > 0`` at N > 1 (the
-  Runner's cross-process step window), and fused supersteps with host-PS
-  variables (``fit(fuse_steps=k)``, ``multi_step``), each a
-  ``NotImplementedError`` naming its ROADMAP item.
+  over the coordination service) and ``staleness > 0`` at N > 1 (the
+  Runner's cross-process step window), each a ``NotImplementedError``
+  naming its ROADMAP item; and fused supersteps (``fit(fuse_steps=k)``,
+  ``multi_step``) over a stale store, which the JAX package refuses with
+  its ``ValueError`` (fused supersteps over a synchronous store are
+  ``tests/test_torch_fused_ps.py``'s).
 - The pipeline (``PSPipeline``): exact mode ``torch.equal`` to the serial
   path (``ADT_PS_OVERLAP=0``), and a checkpoint taken with a push in
   flight equal to the serial one; the threaded apply
@@ -197,7 +199,7 @@ def _refusal(case):
     from autodist_tpu_torch.model_item import ModelItem
     from autodist_tpu_torch.strategy.base import StrategyCompiler
     if case.startswith("fused"):
-        ad, loss_fn, params, batch = _lm_port()
+        ad, loss_fn, params, batch = _lm_port(staleness=2)
         runner = ad.build(loss_fn, ADAM, params, batch)
         runner.init(params)
         if case == "fused_fit":
@@ -224,6 +226,13 @@ def _refusal(case):
                                        ("stale_two", 8), ("fused_fit", 14),
                                        ("fused_multi_step", 14)])
 def test_unreached_ps_combinations_raise_with_their_item(case, item):
+    if case.startswith("fused"):
+        # item 14 ported the fused carry; a stale store stays refused, as
+        # the JAX package refuses it (tests/test_fused.py)
+        with pytest.raises(ValueError, match="fused multi-step requires "
+                                             "synchronous host-PS"):
+            _refusal(case)
+        return
     with pytest.raises(NotImplementedError,
                        match="ROADMAP A item %d" % item):
         _refusal(case)
@@ -367,7 +376,36 @@ def test_store_keeps_uneven_shards_ragged_and_applies_as_jax():
     port.load_opt_from_full(full_opt)
     assert torch.equal(port.full_opt_leaf("mu", "w"), full_opt["mu"]["w"])
     assert [int(st["count"]) for st in port._opt["w"]] == [5, 5, 5]
-    assert port.resident_bytes() == 3 * 7 * 3 * 4
+    # the values only, as the JAX store counts them (C7)
+    assert port.resident_bytes() == jstore.resident_bytes() == 7 * 3 * 4
+
+
+@pytest.mark.parametrize("sizes", [None, (3, 2, 2)],
+                         ids=["whole", "uneven"])
+def test_resident_bytes_count_values_by_owner_as_the_jax_store(sizes):
+    """C7: ``resident_bytes`` counts the resident values (not the
+    optimizer state), and ``resident_bytes_by_destination`` each owner's
+    share of them, summing to it; both equal the JAX store's for the same
+    plan, where each shard has its own owner."""
+    infos = {"w": _Info("w", (7, 3)), "v": _Info("v", (5,))}
+    dests = tuple("h%d:CPU:0" % i for i in range(len(sizes or [1])))
+    plans = {"w": dict(var_name="w", destinations=dests,
+                       shard_sizes=sizes),
+             "v": dict(var_name="v", destinations=("h0:CPU:0",))}
+    from autodist_tpu_torch import optim
+    port = tps.PSStore({n: tps.PSVarPlan(**kw) for n, kw in plans.items()},
+                       infos, optim.capture(ADAM))
+    jstore = jps.PSStore({n: jps.PSVarPlan(**kw)
+                          for n, kw in plans.items()}, infos,
+                         optax.adam(LR))
+    full = {"w": np.ones((7, 3), np.float32), "v": np.ones(5, np.float32)}
+    port.init_params({n: torch.from_numpy(v) for n, v in full.items()})
+    jstore.init_params(full)
+    assert port.resident_bytes() == jstore.resident_bytes() == 4 * 26
+    loads = port.resident_bytes_by_destination()
+    assert loads == jstore.resident_bytes_by_destination()
+    assert sum(loads.values()) == port.resident_bytes()
+    assert loads["h0:CPU:0"] == 4 * (5 + (3 * 3 if sizes else 21))
 
 
 def test_store_densifies_repeated_ids_in_order_as_jax():

@@ -133,8 +133,10 @@ def test_optimizer_capture_records_name_and_kwargs():
         optim.capture(functools.partial(torch.optim.Adam, weight_decay=0.1))
     with pytest.raises(ValueError, match="foreach"):   # not silently dropped
         optim.capture(functools.partial(torch.optim.Adam, foreach=True))
-    with pytest.raises(ValueError, match="optax.adam"):
-        optim.capture(torch.optim.SGD)
+    # SGD is optax.sgd now; an option optax.sgd lacks still raises
+    with pytest.raises(ValueError, match="dampening"):
+        optim.capture(functools.partial(torch.optim.SGD, lr=0.1,
+                                        momentum=0.9, dampening=0.5))
     with pytest.raises(TypeError):
         optim.capture(functools.partial(torch.optim.Adam, bogus=1))
     with pytest.raises(TypeError, match="factory|class"):

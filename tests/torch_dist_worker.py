@@ -5,7 +5,8 @@ The tests (``tests/test_torch_collectives.py``,
 ``tests/test_torch_fused.py``, ``tests/test_torch_zero.py``,
 ``tests/test_torch_partitioned.py``, ``tests/test_torch_overlap.py``,
 ``tests/test_torch_compute_tier.py``, ``tests/test_torch_recsys.py``,
-``tests/test_torch_ps.py``, ``tests/test_torch_sparse.py``)
+``tests/test_torch_ps.py``, ``tests/test_torch_sparse.py``,
+``tests/test_torch_optimizers.py``, ``tests/test_torch_fused_ps.py``)
 compute their JAX references in the pytest process and hand numpy arrays
 to :func:`launch`, which starts
 ``world`` processes with the ``spawn`` start method. Each process joins a
@@ -164,19 +165,38 @@ def builder(spec):
     return b
 
 
+def make_optimizer(spec=None):
+    """The optimizer a payload names: ``None`` is Adam at ``LR``; else a
+    dict with the ``torch.optim`` class name under ``cls``, its keywords
+    under ``kw`` and an optional ``clip`` bound (``optim.chain`` of
+    ``optim.clip_by_global_norm`` and the class)."""
+    from autodist_tpu_torch import optim
+    if spec is None:
+        return functools.partial(torch.optim.Adam, lr=LR)
+    factory = functools.partial(getattr(torch.optim, spec["cls"]),
+                                **spec.get("kw", {}))
+    if spec.get("clip") is not None:
+        return optim.chain(optim.clip_by_global_norm(spec["clip"]), factory)
+    return factory
+
+
 def train_job(payload, device):
     """Each run of ``payload`` (a list) in turn: ``Runner.run`` steps of
     the port's plan (``builder``) on the global batches, from the given
-    init. Returns, for each run, the losses, an ``evaluate`` of the first
-    batch before the steps,
-    the final params, the bucket keys and members, the sparse-wire
-    tables, the ``sync_state`` keys, the runner's step count and, with
-    host-PS variables, the store's names, counters and digest."""
+    init, under the payload's ``optimizer`` (:func:`make_optimizer`), or
+    one ``fit(fuse_steps=k)`` over them with ``fuse_steps`` given.
+    Returns, for each run, the losses, an ``evaluate`` of the first batch
+    before the steps, the final params, the optimizer state (as the port
+    keeps it, and as the JAX saver flattens it: ``opt_jax``), the bucket
+    keys and members, the sparse-wire tables, the ``sync_state`` keys,
+    the runner's step count and, with host-PS variables, the store's
+    names, counters and digest."""
     return [_train_one(run, device) for run in payload]
 
 
 def _train_one(payload, device):
     import autodist_tpu_torch as adt
+    from autodist_tpu_torch import convert
     from autodist_tpu_torch.resource_spec import ResourceSpec
     from autodist_tpu_torch.telemetry import spans as tel
     tel.reset()
@@ -190,27 +210,35 @@ def _train_one(payload, device):
         "cpus": list(range(world))}]})
     ad = adt.AutoDist(strategy_builder=builder(payload), resource_spec=spec,
                       device=device)
-    runner = ad.build(loss_fn, functools.partial(torch.optim.Adam, lr=LR),
+    runner = ad.build(loss_fn, make_optimizer(payload.get("optimizer")),
                       init, payload.get("example", example))
     runner.init(init)
     dstep = runner.distributed_step
     evaluated = runner.evaluate(payload["batches"][:1])["loss"]
-    losses = [float(runner.run(b)["loss"]) for b in payload["batches"]]
+    if payload.get("fuse_steps", 1) > 1:
+        losses = [float(m["loss"]) for m in runner.fit(
+            iter(payload["batches"]), fuse_steps=payload["fuse_steps"])]
+    else:
+        losses = [float(runner.run(b)["loss"]) for b in payload["batches"]]
     state = runner.state
     opt = dstep.gather_opt_state(state)
+    item = dstep.model_item
     out = {"losses": losses, "eval": float(evaluated),
            "params": _np(runner.gather_params()),
-           "opt": _np({"count": opt["count"], "mu": opt["mu"],
-                       "nu": opt["nu"]}),
+           "opt": _np(dict(opt)),
+           "opt_jax": convert.opt_state_to_jax(opt, item.flax_shapes,
+                                               item.optimizer_spec),
+           "dispatches": dstep.dispatches,
            "buckets": [(b.key, list(b.var_names)) for b in dstep.buckets],
            "sparse_wire": sorted(dstep.sparse_wire),
            "sync_state": {k: sorted(v) for k, v in state.sync_state.items()},
            "steps": runner.step_stats()["steps"],
            "stored": {n: int(t.numel()) for n, t in state.params.items()},
            "stored_mu": {n: int(t.numel())
-                         for n, t in state.opt_state["mu"].items()},
+                         for n, t in state.opt_state.get("mu", {}).items()},
            "zero_shards": {n: int(z["mu"]["v"].numel()) for n, z in
-                           state.sync_state.get("zero", {}).items()},
+                           state.sync_state.get("zero", {}).items()
+                           if "mu" in z},
            "metadata": {k: v for k, v in dstep.metadata.items()
                         if isinstance(v, (bool, int, float, str, list))
                         or v is None},
@@ -227,6 +255,7 @@ def _train_one(payload, device):
         stats=({k: store.stats[k] for k in ("pulls", "pushes",
                                             "bytes_pulled", "bytes_pushed")}
                if store is not None else None),
+        ps_applies=store.stats["applies"] if store is not None else None,
         ps_digest=store.mirror_digest() if store is not None else None)
     adt.reset()
     return out
