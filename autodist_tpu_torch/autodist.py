@@ -29,6 +29,19 @@ points run on ``cuda`` — ``cuda:<local rank>`` for a rank, the local rank
 being ``LOCAL_RANK`` as torchrun sets it, else the rank — unless the
 caller passes a device, and raise when that card is not visible rather
 than continue on the CPU or another card.
+
+Async PS (``sync=False`` on every host-PS variable) is the exception to
+one replica a rank: each process trains at one replica of its own (the
+reference's between-graph replication) and meets its peers only through
+the parameter service (``runtime/ps_service.py``). With more than one
+process (``ADT_NUM_PROCESSES``, else the default group's world size) that
+service is the native coordination service, which the caller starts
+once, as for bounded staleness at N > 1::
+
+    from autodist_tpu_torch.runtime.coordination import CoordinationServer
+    srv = CoordinationServer(port).start()    # every process:
+                                              # ADT_COORDSVC_PORT=port
+    # each process but the chief: ADT_WORKER=<its resource-spec address>
 """
 import os
 from typing import Callable, Optional
@@ -36,10 +49,16 @@ from typing import Callable, Optional
 import torch
 import torch.distributed as dist
 
+from autodist_tpu_torch import const
 from autodist_tpu_torch.kernel.graph_transformer import GraphTransformer
 from autodist_tpu_torch.kernel.replicator import ReplicaInfo
 from autodist_tpu_torch.model_item import ModelItem
+from autodist_tpu_torch.parallel import ps as ps_lib
 from autodist_tpu_torch.resource_spec import ResourceSpec
+from autodist_tpu_torch.runtime import ps_service as pss
+from autodist_tpu_torch.runtime.coordination import (CoordinationClient,
+                                                     job_processes)
+from autodist_tpu_torch.runtime.resilience import ResilientCoordinationClient
 from autodist_tpu_torch.runtime.runner import Runner, WrappedSession
 from autodist_tpu_torch.strategy.base import Strategy, StrategyCompiler
 from autodist_tpu_torch.utils import logging
@@ -138,10 +157,87 @@ class AutoDist:
         compiled = StrategyCompiler(item, self._resource_spec).compile(
             strategy)
         logging.info("compiled %r", compiled)
-        dstep = GraphTransformer(compiled, item, self._device,
-                                 self._replicas).transform()
+        is_async = self._validate_async(compiled, item)
+        # async PS cannot ride collectives (they are lockstep): each
+        # process builds at one replica of its own
+        dstep = GraphTransformer(
+            compiled, item, self._device,
+            ReplicaInfo() if is_async else self._replicas).transform()
+        if is_async and dstep.ps_store is not None:
+            self._wire_async_ps(dstep)
         self._runner = Runner(dstep)
         return self._runner
+
+    def _validate_async(self, compiled: Strategy, item: ModelItem) -> bool:
+        """True when the strategy asks for async PS, which must be pure
+        host PS (every trainable variable, no proxy, no model-parallel
+        mesh): anything else would need a collective across processes,
+        which async training cannot have. The JAX package's errors."""
+        plans = ps_lib.plan_host_ps(compiled, item.var_infos)
+        if not any(not p.sync for p in plans.values()):
+            return False
+        missing = set(item.trainable_var_names) - set(plans)
+        if missing:
+            raise ValueError(
+                "async PS (sync=False) requires EVERY trainable var on the "
+                "no-proxy PS path; not PS-host-resident: %s" % sorted(missing))
+        still_sync = sorted(n for n, p in plans.items() if p.sync)
+        if still_sync:
+            raise ValueError(
+                "async PS is all-or-nothing: these vars request sync=True "
+                "but the job is async (their deterministic mirror-apply "
+                "semantics cannot be honored): %s" % still_sync)
+        stale = sorted(n for n, p in plans.items() if p.staleness > 0)
+        if stale:
+            raise ValueError(
+                "staleness is a SYNC-training window (coordination-service "
+                "pacing); async PS always reads the latest published "
+                "version — drop staleness on: %s" % stale)
+        if compiled.graph_config.mesh_shape:
+            raise ValueError("async PS cannot combine with model-parallel "
+                             "mesh axes (collectives are lockstep)")
+        return True
+
+    def _wire_async_ps(self, dstep):
+        """Attach the parameter service: one process uses the in-process
+        service; more than one talk to the native coordination service
+        (which async requires) through resilient clients, after one raw
+        ping that says where the service was looked for."""
+        my_host = const.ENV.ADT_WORKER.val or self._resource_spec.chief
+        n = job_processes()
+        if n <= 1:
+            services = {}
+
+            def service_for_host(host):
+                return services.setdefault(host, pss.LocalPSService())
+        else:
+            if self._replicas.rank > 0 and not const.ENV.ADT_WORKER.val:
+                raise ValueError(
+                    "async PS with %d processes: rank %d has no ADT_WORKER, "
+                    "so it would claim the chief's (%s) owner group; set "
+                    "ADT_WORKER to its resource-spec address on every "
+                    "process but the chief" % (n, self._replicas.rank,
+                                               my_host))
+            coord_host = (const.ENV.ADT_COORDINATOR_ADDR.val.split(":")[0]
+                          or self._resource_spec.chief)
+            port = const.ENV.ADT_COORDSVC_PORT.val
+            try:
+                probe = CoordinationClient(coord_host, port)
+                probe.ping()
+                probe.close()
+            except OSError as e:
+                raise RuntimeError(
+                    "async PS requires the native coordination service at "
+                    "%s:%d (%s)" % (coord_host, port, e))
+
+            # per-RPC deadlines, reconnect with backoff and idempotent
+            # retries: a service blip neither double-applies a gradient
+            # blob nor wedges a serving thread (runtime/resilience.py)
+            def service_for_host(host):
+                return pss.CoordPSService(
+                    lambda: ResilientCoordinationClient(coord_host, port),
+                    prefix="ps:" + host)
+        dstep.ps_store.enable_serving(service_for_host, my_host)
 
     def build_step(self, step_fn: Callable, state, example_batch) -> Runner:
         """Opaque-step capture mode: distribute a hand-written
@@ -163,6 +259,9 @@ class AutoDist:
         compiled = StrategyCompiler(item, self._resource_spec).compile(
             strategy)
         logging.info("compiled %r (step_fn mode)", compiled)
+        if self._validate_async(compiled, item):
+            raise ValueError("async host-PS strategies cannot lower an "
+                             "opaque step_fn — use loss_fn mode")
         dstep = GraphTransformer(compiled, item, self._device,
                                  self._replicas).transform()
         self._runner = Runner(dstep)

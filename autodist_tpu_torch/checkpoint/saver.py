@@ -22,9 +22,14 @@ rank joins the gathers), else ``const.is_chief()``. Host-PS variables
 save from the store, whole, in the same files: the gathers land the
 in-flight push and write a fused superstep's device carry back first,
 and read the store's values and optimizer state, and a restore's
-``init_state`` puts them back into the store (and drops any carry). The JAX saver's
-epoch fence (``elastic.maybe_fence``) comes with the elastic plane, item
-8's control plane in ROADMAP A.
+``init_state`` puts them back into the store (and drops any carry).
+Under async PS (a serving store) a save first drains this process's
+owner queues, and each shard another host owns is saved from that
+owner's latest publish: its values, and its optimizer state from the
+owner's side channel (``PSStore._remote_opt_state``), so the checkpoint
+holds the owner's moments, not this process's frozen init. The JAX
+saver's epoch fence (``elastic.maybe_fence``) comes with the elastic
+plane (ROADMAP A item 8.3).
 """
 import json
 import os
@@ -250,6 +255,12 @@ class Saver:
             return None
         healthy = sentinel_health_stamp(runner_or_step)
         item = dstep.model_item
+        store = getattr(dstep, "ps_store", None)
+        if store is not None and store.serving:
+            # every gradient this process queued, applied by its owner
+            # loops, before the state is read
+            dstep.flush_ps()
+            store.drain()
         # the collectives first, on every rank (the compressor states; a
         # partitioned or ZeRO-sharded variable's shards); then the chief's
         # host copy in the JAX layout, taken before save() returns

@@ -57,8 +57,12 @@ back before the next read of the store. Lookup tables the JAX package
 syncs over its sparse (ids, values) wire (``ops/embedding.py``: the
 taps) take that wire here too: pushed to the store as pairs, or, for an
 AllReduce table at N > 1, all-gathered over the ranks and scatter-added
-into the update. The transform refuses, by name and at every replica
-count, the plan features the port has not reached.
+into the update. Async PS (``sync=False``) builds each process at one
+replica of its own and puts the store in serving mode over the
+coordination service (``AutoDist._wire_async_ps``); a stale plan
+(``staleness`` > 0) at N > 1 is paced across processes by the Runner's
+step window. The transform refuses, by name and at every replica count,
+the plan features the port has not reached.
 """
 import collections
 from typing import Callable, Dict, Optional
@@ -505,7 +509,19 @@ class DistributedStep:
         self._bucket_by_key = {b.key: b for b in self.buckets}
         # one data axis: the default group, all N ranks
         self._ring_axes = ((None, N),)
-        if self.strategy.graph_config.overlap:
+        overlap = bool(self.strategy.graph_config.overlap)
+        store = self.ps_store
+        if overlap and store is not None and (
+                store.max_staleness() > 0 or store.any_async()):
+            # a stale or async PS wire is already decoupled from the step:
+            # ordering the collectives against it would pin the schedule
+            # to the slowest (host) path
+            logging.warning(
+                "overlap disarmed: stale/async host-PS plan — the PS wire "
+                "is already decoupled from the step; remove staleness/"
+                "async or drop overlap to silence this")
+            overlap = False
+        if overlap:
             self.schedule = collectives.build_grad_sync_schedule(
                 self._units(), {n: i for i, n in enumerate(item.var_infos)})
 
@@ -564,6 +580,7 @@ class DistributedStep:
             "ps_host_resident": sorted(self.ps_names),
             "ps_wire_int8": (self.ps_store.wire_quant
                              if self.ps_store is not None else []),
+            # the staleness window of the Runner's cross-process pacing
             "staleness": max([c.staleness for c in ps_cfgs], default=0),
             "async": any(not c.sync for c in ps_cfgs),
             "sparse_wire": sorted(self.sparse_wire),
@@ -1522,7 +1539,8 @@ class GraphTransformer:
     process's device (the JAX ``GraphTransformer.transform``).
     ``replica_info`` gives the replica count (the default process group's
     world size) and this process's rank; the plan must name as many
-    replicas."""
+    replicas, except under async PS, where each process trains at one
+    replica of its own and ``replica_info`` must say one."""
 
     def __init__(self, compiled_strategy: Strategy, model_item, device,
                  replica_info: Optional[ReplicaInfo] = None):
@@ -1533,25 +1551,16 @@ class GraphTransformer:
 
     def _refuse_unported(self):
         """Plan features the port has not reached raise, naming the
-        ROADMAP item that ports them; none is ignored. At every replica
-        count: an async host-PS variable (``sync=False``: the JAX store's
-        serving over the coordination service). With more than one
-        replica: a mesh beyond the data axis, model-parallel layouts,
-        bounded staleness (the Runner's cross-process step window) and
+        ROADMAP item that ports them; none is ignored. With more than one
+        replica: a mesh beyond the data axis, model-parallel layouts and
         the rhd and hierarchical all-reduce schedules."""
         gc = self._strategy.graph_config
         N = self._replicas.num_replicas
 
-        def refuse(what, item, replicas=True):
+        def refuse(what, item):
             raise NotImplementedError(
-                "%s%s is not ported yet (ROADMAP A item %d)"
-                % (what, " with %d replicas" % N if replicas else "", item))
-        plans = ps_lib.plan_host_ps(self._strategy, self._item.var_infos)
-        unsynced = sorted(n for n, p in plans.items() if not p.sync)
-        if unsynced:
-            refuse("async host PS (sync=False) on %s: serving over the "
-                   "coordination service (runtime/ps_service.py)"
-                   % unsynced, 8, replicas=False)
+                "%s with %d replicas is not ported yet (ROADMAP A item %d)"
+                % (what, N, item))
         if N <= 1:
             return
         if gc.mesh_shape or gc.seq_axis or gc.batch_axes:
@@ -1567,10 +1576,6 @@ class GraphTransformer:
             for cfg in cfgs:
                 if cfg is None:
                     continue
-                if getattr(cfg, "staleness", 0) > 0:
-                    refuse("staleness=%d on %s: the Runner's cross-process "
-                           "step window (runtime/coordination.py)"
-                           % (cfg.staleness, node.var_name), 8)
                 schedule = getattr(cfg, "schedule", "auto")
                 if schedule == "rhd":
                     refuse("schedule='rhd' on %s" % node.var_name, 7)
@@ -1623,6 +1628,13 @@ class GraphTransformer:
 
     def transform(self) -> DistributedStep:
         replicas = len(self._strategy.graph_config.replicas)
+        if self._item.step_fn is None and any(
+                not p.sync for p in ps_lib.plan_host_ps(
+                    self._strategy, self._item.var_infos).values()):
+            # async PS: each process trains at one replica of its own (the
+            # reference's between-graph replication), coupled to its peers
+            # only through the parameter service
+            replicas = 1
         if replicas != self._replicas.num_replicas:
             raise ValueError(
                 "the plan has %d replicas but the process group has %d "

@@ -20,12 +20,24 @@ optimizer state rest in **host memory**, off the card:
 
 With more than one replica every rank keeps a mirror of the store and
 applies the identical mean gradient, so the mirrors stay bit-equal (the
-reference's "every worker transforms its own graph");
-``reduction_destination`` names the owner, whose copy the JAX package's
-async serving treats as authoritative. That serving mode, its degraded
-reads and the remote optimizer-state channel are the control plane
-(ROADMAP A item 8) and are not here: ``sync=False`` is refused by the
-lowering.
+reference's "every worker transforms its own graph").
+
+Async PS (``sync=False``) puts the store in **serving** mode
+(:meth:`PSStore.enable_serving`, over ``runtime/ps_service.py``):
+``reduction_destination`` names each shard's owner host; this process
+applies the gradient blobs of the shards it owns on an apply thread, one
+blob at a time, and publishes their values after each apply (their
+optimizer state on a side channel that only checkpoints read), and a
+pull fetches the latest published values of the shards other hosts own.
+A pull that cannot reach an owner serves its last fetch for a bounded
+number of pulls (the degraded-serve window), then fails loudly.
+
+An apply computes the new values outside the store's lock and swaps them
+in under it (the JAX store's compute-then-swap), so a pull never waits
+for an apply: the stored value tensors are never written in place, only
+replaced. The optimizer state advances in place on the applying thread,
+which is the only one that reads it while applies run (a checkpoint
+flushes or drains first).
 
 The JAX package carves PS variables out of its pytree state as
 ``PSHole`` nodes; the port's state is keyed by name, so PS variables are
@@ -50,9 +62,11 @@ shard range, at the next read of the store.
 import collections
 import concurrent.futures
 import dataclasses
+import functools
 import hashlib
 import os
 import threading
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -63,7 +77,10 @@ from autodist_tpu_torch import const
 from autodist_tpu_torch.convert import (from_flax, from_jax_layout,
                                         to_flax, to_jax_layout)
 from autodist_tpu_torch.parallel import collectives
+from autodist_tpu_torch.runtime import elastic
+from autodist_tpu_torch.runtime import ps_service as pss
 from autodist_tpu_torch.telemetry import spans as tel
+from autodist_tpu_torch.utils import logging
 
 # ------------------------------------------------------------------- plans
 
@@ -242,21 +259,22 @@ class PSStore:
 
     The store is the reference's PS device: parameters rest here, the
     update applies here on the host CPU (the port's ``optim.py``
-    arithmetic, optax's float32, on CPU tensors, in place), and the step
-    only ever sees pulled copies. Each shard keeps its own little
-    optimizer state (the optimizer's state of ``{"v": shard}``: Adam's
-    ``{"count", "mu": {"v"}, "nu": {"v"}}``, the JAX store's per-shard
+    arithmetic, optax's float32, on CPU tensors), and the step only ever
+    sees pulled copies. Each shard keeps its own little optimizer state
+    (the optimizer's state of ``{"v": shard}``: Adam's ``{"count", "mu":
+    {"v"}, "nu": {"v"}}``, the JAX store's per-shard
     ``optimizer.init({"v": shard})``), so a clip's norm is the shard's,
-    as in the JAX store. The apply fans
-    the shards out over a deterministic round-robin thread pool
-    (``ADT_PS_APPLY_THREADS``): each shard's arithmetic is the same in
-    any grouping, so the result is bit-exact against one thread.
+    as in the JAX store. The apply fans the shards out over a
+    deterministic round-robin thread pool (``ADT_PS_APPLY_THREADS``):
+    each shard's arithmetic is the same in any grouping, so the result is
+    bit-exact against one thread. New values are computed outside the
+    lock and swapped in under it, so a pull reads one version of every
+    variable without waiting for an apply.
 
     ``stats`` counts the wire: pulls and pushes and their bytes, as the
-    JAX store counts them. ``version`` is the number of pushes applied;
-    a pull is tagged with the version it read (:meth:`pull`). One lock
-    orders the apply against the pulls, so a pull reads one version of
-    every variable."""
+    JAX store counts them (in serving mode, the blobs that crossed the
+    service). ``version`` is the number of applies to this store's
+    shards; a pull is tagged with the version it read (:meth:`pull`)."""
 
     def __init__(self, plans: Dict[str, PSVarPlan], var_infos, optimizer,
                  device="cpu"):
@@ -272,7 +290,8 @@ class PSStore:
         self._values: Dict[str, List[torch.Tensor]] = {}
         self._opt: Dict[str, List[dict]] = {}
         self.stats = {"pulls": 0, "pushes": 0, "applies": 0,
-                      "bytes_pulled": 0, "bytes_pushed": 0}
+                      "bytes_pulled": 0, "bytes_pushed": 0,
+                      "degraded_pulls": 0, "dropped_pushes": 0}
         self.version = 0
         self._lock = threading.Lock()
         n = const.ENV.ADT_PS_APPLY_THREADS.val
@@ -280,6 +299,12 @@ class PSStore:
             n = min(4, os.cpu_count() or 1)
         self._apply_threads = n
         self._apply_pool = None  # built at the first parallel apply
+        # async serving (enable_serving): (service_for_host, my_host), and
+        # the owner groups once values exist
+        self._serve_config = None
+        self._serve_groups: Optional[Dict[str, dict]] = None
+        self._my_pushes = 0
+        self._warned_sync_fallback = False
 
     # ------------------------------------------------------------ lifecycle
 
@@ -289,6 +314,12 @@ class PSStore:
         out = torch.as_tensor(t).detach().to("cpu", torch.float32,
                                              copy=True).contiguous()
         return out.pin_memory() if self._wire.cuda else out
+
+    def _host_empty(self, shape) -> torch.Tensor:
+        """An uninitialized float32 host buffer (pinned when the device is
+        a card): the target of an apply's new values."""
+        return torch.empty(shape, dtype=torch.float32,
+                           pin_memory=self._wire.cuda)
 
     @staticmethod
     def _shard_slice(plan: PSVarPlan, si: int, full: torch.Tensor
@@ -318,7 +349,8 @@ class PSStore:
 
     def init_params(self, full_params) -> None:
         """Take copies of the PS variables of a ``{name: tensor}``
-        mapping, with fresh optimizer state."""
+        mapping, with fresh optimizer state; in serving mode, (re)start
+        the owner loops, which publish these values."""
         with self._lock:
             for name, plan in self.plans.items():
                 self._values[name] = [
@@ -326,18 +358,30 @@ class PSStore:
                         plan, torch.as_tensor(full_params[name]))]
                 self._opt[name] = [self._optimizer.init({"v": s})
                                    for s in self._values[name]]
+        if self._serve_config is not None:
+            self._start_serving()
 
     def load_opt_from_full(self, opt_state) -> None:
         """Each shard's optimizer state from a full-layout optimizer state
         (the count, and each slot's ``{name: t}``: a checkpoint's): the
-        slots sliced by shard range, the count copied whole."""
-        with self._lock:
-            for name, plan in self.plans.items():
-                full = {"count": opt_state["count"]} \
-                    if self._optimizer.has_count else {}
-                for slot in self._optimizer.slots:
-                    full[slot] = {"v": opt_state[slot][name]}
-                self._opt[name] = self._split_little(plan, full)
+        slots sliced by shard range, the count copied whole. In serving
+        mode the owner loops are paused across the swap and republish."""
+        workers = self._owner_workers()
+        for w in workers:
+            w.pause()
+        try:
+            with self._lock:
+                for name, plan in self.plans.items():
+                    full = {"count": opt_state["count"]} \
+                        if self._optimizer.has_count else {}
+                    for slot in self._optimizer.slots:
+                        full[slot] = {"v": opt_state[slot][name]}
+                    self._opt[name] = self._split_little(plan, full)
+            for w in workers:
+                w.publish_now()
+        finally:
+            for w in workers:
+                w.resume()
 
     def _split_little(self, plan: PSVarPlan, little: dict) -> List[dict]:
         """Each shard's little state from a full variable's: the slots
@@ -357,8 +401,17 @@ class PSStore:
 
     # ------------------------------------------------------------- step i/o
 
+    def _snapshot(self) -> Tuple[Dict[str, list], int]:
+        """Every variable's shard list and the version they are, read
+        under the lock (the tensors are replaced, never written, so the
+        snapshot stays one version)."""
+        with self._lock:
+            return ({n: list(s) for n, s in self._values.items()},
+                    self.version)
+
     def _local_full(self) -> Dict[str, torch.Tensor]:
-        return {name: self._join(plan, self._values[name])
+        shards, _ = self._snapshot()
+        return {name: self._join(plan, shards[name])
                 for name, plan in self.plans.items()}
 
     def pull(self, wire: bool = True) -> Tuple[dict, int]:
@@ -367,55 +420,255 @@ class PSStore:
         int8-wire variable as its ``{"q", "s"}`` container, quantized here
         with the codec's numpy mirror and dequantized on the device;
         ``wire=False`` (the fused carry's pull) ships exact float32, and
-        the fused microsteps apply the codec themselves."""
-        with tel.span("ps.pull", "ps", step=self.stats["pulls"]):
+        the fused microsteps apply the codec themselves.
+
+        In serving (async) mode the shards other hosts own are fetched
+        from the service, the latest published version, with no barrier
+        (the reference's async read from the PS); the version is then the
+        versions read, summed over the owner groups."""
+        with tel.span("ps.pull", "ps", serving=self.serving,
+                      step=self.stats["pulls"]):
             out = self._pull_impl(wire)
         tel.counter_add("ps.pulls")
         return out
 
     def _pull_impl(self, wire: bool):
         nbytes = 0
-        with self._lock:
-            host = self._local_full()
-            for name in sorted(host):
-                if wire and name in self._jax_names:
-                    # blocks in the JAX element order: the same elements
-                    # share a scale in both packages
-                    w = collectives.quant_wire_np(to_jax_layout(
-                        host[name], self._jax_names[name]).contiguous()
-                        .numpy())
-                    host[name] = {k: torch.from_numpy(v)
-                                  for k, v in w.items()}
-                    qb = _nbytes(host[name]["q"]) + _nbytes(host[name]["s"])
-                    tel.counter_add("wire.bytes_quantized", qb)
-                    tel.counter_add("wire.bytes_saved",
-                                    self._var_infos[name].byte_size - qb)
-                    nbytes += qb
-                else:
-                    nbytes += _nbytes(host[name])
-            staged = self._wire.to_device(host)
-            version = self.version
+        if self._serve_groups is None:
+            shards, version = self._snapshot()
+            host = {name: self._join(plan, shards[name])
+                    for name, plan in self.plans.items()}
+            count = True
+        else:
+            host, version, nbytes = self._serve_pull()
+            count = False   # the fetched blobs were counted
+        for name in sorted(host):
+            if wire and name in self._jax_names:
+                # blocks in the JAX element order: the same elements
+                # share a scale in both packages
+                w = collectives.quant_wire_np(to_jax_layout(
+                    host[name], self._jax_names[name]).contiguous()
+                    .numpy())
+                host[name] = {k: torch.from_numpy(v) for k, v in w.items()}
+                qb = _nbytes(host[name]["q"]) + _nbytes(host[name]["s"])
+                tel.counter_add("wire.bytes_quantized", qb)
+                tel.counter_add("wire.bytes_saved",
+                                self._var_infos[name].byte_size - qb)
+                nbytes += qb if count else 0
+            elif count:
+                nbytes += _nbytes(host[name])
+        staged = self._wire.to_device(host)
         self.stats["bytes_pulled"] += nbytes
         self.stats["pulls"] += 1
         tel.counter_add("ps.bytes_pulled", nbytes)
         return staged, version
 
+    def _serve_pull(self):
+        """Serving mode's read: ``(full values on the host, version,
+        bytes fetched)``. The shards this process owns come from its own
+        store; the others from each owner's latest publish, or, while the
+        owner is unreachable, from the last fetch within the
+        degraded-serve window."""
+        shard_vals: Dict[str, Dict[int, object]] = {}
+        version, nbytes = 0, 0
+        for host, grp in self._serve_groups.items():
+            if grp["owned"]:
+                with self._lock:
+                    blobs = {"%s::%d" % (n, si): self._values[n][si]
+                             for n, si in grp["pairs"]}
+                    version += self.version
+            else:
+                res, fetch_err = None, None
+                try:
+                    deadline = time.monotonic() + 60.0
+                    res = grp["service"].fetch()
+                    while res is None:  # the owner has not published yet
+                        if time.monotonic() > deadline:
+                            break
+                        time.sleep(0.002)
+                        res = grp["service"].fetch()
+                except OSError as e:
+                    fetch_err = e
+                if fetch_err is not None:
+                    blobs = self._serve_stale(host, grp, fetch_err)
+                    if blobs is None:
+                        raise RuntimeError(
+                            "async PS: owner %s unreachable and the "
+                            "degraded-serve window is exhausted — "
+                            "aborting instead of training on "
+                            "unboundedly stale values (%s)"
+                            % (host, fetch_err)) from fetch_err
+                    version += grp.get("last_version", 0)
+                elif res is None:
+                    # reachable, but the owner never published: not a
+                    # transport error, and no stale serving (it would hide
+                    # a wedged owner behind frozen parameters)
+                    raise TimeoutError(
+                        "async PS: owner %s never published" % host)
+                else:
+                    ver, blob = res
+                    blobs = {k: torch.from_numpy(v) for k, v in
+                             pss.unpack_arrays(blob).items()}
+                    nbytes += len(blob)
+                    # the last good fetch: the degraded-serve fallback
+                    grp["last_fetch"] = blobs
+                    grp["last_version"] = ver
+                    grp["degraded"] = 0
+                    version += ver
+            for key, arr in blobs.items():
+                if "!" in key:
+                    continue  # an optimizer-state leaf (checkpoint wire)
+                name, si = key.rsplit("::", 1)
+                shard_vals.setdefault(name, {})[int(si)] = arr
+        return self._assemble(shard_vals), version, nbytes
+
+    def _degraded_bound(self) -> int:
+        """How many consecutive pulls may serve the last fetch while an
+        owner is unreachable: the strategy's staleness bound when one is
+        declared, else the async pacing lag (``ADT_PS_MAX_LAG``)."""
+        return max(self.max_staleness(), const.ENV.ADT_PS_MAX_LAG.val)
+
+    def _serve_stale(self, host: str, grp: dict, err: OSError):
+        """Serve the last fetched values for up to :meth:`_degraded_bound`
+        consecutive pulls; None when the window is used up (the caller
+        fails loudly). No reconnect here: the resilient client reconnects
+        on its own schedule and keeps its breaker state."""
+        bound = self._degraded_bound()
+        cached = grp.get("last_fetch")
+        used = grp.get("degraded", 0)
+        if cached is None or used >= bound:
+            return None
+        grp["degraded"] = used + 1
+        self.stats["degraded_pulls"] += 1
+        tel.counter_add("ps.degraded_pulls")
+        tel.instant("ps.degraded_pull", "ps", host=host, used=used + 1,
+                    bound=bound)
+        logging.warning(
+            "async PS: owner %s unreachable (%s); serving last-fetched "
+            "values (degraded pull %d/%d)", host, err, used + 1, bound)
+        return cached
+
+    def _assemble(self, shard_vals: Dict[str, Dict[int, object]]
+                  ) -> Dict[str, torch.Tensor]:
+        """Full variables from their shards (possibly published by
+        different owners), in plan shard order; a shard nobody published
+        yet comes from the local mirror."""
+        out = {}
+        for name, plan in self.plans.items():
+            pieces = []
+            for si in range(len(plan.shard_ranges())):
+                arr = shard_vals.get(name, {}).get(si)
+                if arr is None:
+                    with self._lock:
+                        arr = self._values[name][si]
+                pieces.append(torch.as_tensor(arr))
+            out[name] = self._join(plan, pieces)
+        return out
+
     def push(self, grads: dict, ready=None) -> None:
         """Hand the mean-reduced gradients to the PS: to the host (after
-        the ``ready`` event), then :meth:`apply_local`. Every rank
-        replays the same deterministic update on its mirror."""
-        with tel.span("ps.push", "ps", step=self.stats["pushes"]):
+        the ``ready`` event), then :meth:`apply_local`; every rank replays
+        the same deterministic update on its mirror. In serving (async)
+        mode each owner group's gradients are packed into a blob and
+        queued on the owner's queue instead; the owner's apply thread
+        applies them, one blob at a time, with no barrier."""
+        # the epoch fence, before any copy: a fenced process's push never
+        # reaches a queue its successor drains
+        elastic.maybe_fence("ps.push")
+        with tel.span("ps.push", "ps", serving=self.serving,
+                      step=self.stats["pushes"]):
             host = self._wire.to_host(grads, ready)
             nbytes = 0
             host_grads = {}
             for name in sorted(host):
                 host_grads[name], b = self._grad_to_host(name, host[name])
                 nbytes += b
+            drops0 = self.stats["dropped_pushes"]
+            if self._serve_groups is None:
+                if self.any_async() and not self._warned_sync_fallback:
+                    self._warned_sync_fallback = True
+                    logging.warning(
+                        "async PS (sync=False) requested but serving is not "
+                        "wired (no AutoDist async build); applying "
+                        "synchronously")
+                self.apply_local(host_grads)
+            else:
+                nbytes = self._serve_push(host_grads)
             self.stats["bytes_pushed"] += nbytes
-            self.apply_local(host_grads)
             self.stats["pushes"] += 1
         tel.counter_add("ps.pushes")
         tel.counter_add("ps.bytes_pushed", nbytes)
+        dropped = self.stats["dropped_pushes"] - drops0
+        if dropped:
+            tel.counter_add("ps.dropped_pushes", dropped)
+
+    def _serve_push(self, host_grads: dict) -> int:
+        """Serving mode's push: one blob an owner group (its shards'
+        slices; a sparse pair whole, which the owner applies to its own
+        shard ranges), behind the ``ADT_PS_MAX_LAG`` backpressure; returns
+        the bytes queued."""
+        nbytes = 0
+        for host, grp in self._serve_groups.items():
+            payload = {}
+            for name, si in grp["pairs"]:
+                if name not in host_grads:
+                    continue
+                g = host_grads[name]
+                plan = self.plans[name]
+                if isinstance(g, tuple):
+                    payload[name + "#idx"] = g[0]
+                    payload[name + "#vals"] = g[1]
+                elif plan.partitioned:
+                    payload["%s::%d" % (name, si)] = self._split(plan, g)[si]
+                else:
+                    payload["%s::0" % name] = g
+            if not payload:
+                continue
+            blob = pss.pack_arrays(payload)
+            # backpressure before the push: at most ADT_PS_MAX_LAG blobs in
+            # flight a queue (0 = unbounded); a queue stuck past a minute
+            # drops this push (counted) — in the JAX package the chief's
+            # heartbeat watchdog (coordinator.py, ROADMAP A item 8.2 here)
+            # is what ends a job whose owner is really gone
+            max_lag = const.ENV.ADT_PS_MAX_LAG.val
+            try:
+                if max_lag > 0:
+                    deadline = time.monotonic() + 60.0
+                    stuck = False
+                    while grp["service"].pending_grads() >= max_lag:
+                        if time.monotonic() > deadline:
+                            logging.warning(
+                                "async PS: owner %s queue stuck at max "
+                                "lag; dropping this push", host)
+                            stuck = True
+                            break
+                        time.sleep(0.001)
+                    if stuck:
+                        self.stats["dropped_pushes"] += 1
+                        continue
+                grp["service"].push_grads(blob)
+            except OSError as e:
+                # a dropped async gradient is legal within the degraded
+                # window; past it the owner is gone and the job fails
+                used = grp.get("push_failures", 0) + 1
+                bound = self._degraded_bound()
+                if used > bound:
+                    raise RuntimeError(
+                        "async PS: pushes to owner %s failed %d "
+                        "consecutive times — aborting instead of "
+                        "silently training without gradient exchange "
+                        "(%s)" % (host, used, e)) from e
+                grp["push_failures"] = used
+                self.stats["dropped_pushes"] += 1
+                logging.warning(
+                    "async PS: push to owner %s failed (%s); dropped "
+                    "this gradient (consecutive failure %d/%d)",
+                    host, e, used, bound)
+                continue
+            grp["push_failures"] = 0
+            nbytes += len(blob)
+        self._my_pushes += 1
+        return nbytes
 
     def _grad_to_host(self, name: str, g):
         """(the host form of one pushed gradient, the bytes that crossed
@@ -449,40 +702,81 @@ class PSStore:
         np.add.at(dense, ids, vals)
         return torch.from_numpy(dense.reshape(shape))
 
-    def apply_local(self, grads: Dict[str, object]) -> None:
-        """The PS-side update op: each gradient (a full dense tensor or a
-        sparse (ids, values) pair, densified) split by shard range and
-        applied through the optimizer to the resident shards, in place,
-        on the host CPU."""
-        work = {}
+    def apply_local(self, grads: Dict[str, object],
+                    shard_filter=None) -> None:
+        """The PS-side update op: each gradient split by shard range and
+        applied through the optimizer to the resident shards on the host
+        CPU. Gradients arrive as full dense tensors (mirror mode), as
+        pre-sliced ``name::si`` shard slices (a serving push), or as
+        sparse (ids, values) pairs, also in their packed
+        ``name#idx``/``name#vals`` form, densified. ``shard_filter``
+        restricts the apply to the given (name, si) set: an owner loop
+        touches only the shards it owns. The new values are computed
+        outside the lock and swapped in under it."""
+        items, slices = {}, {}
         for name, g in grads.items():
+            if name.endswith("#idx"):
+                base = name[:-4]
+                items[base] = (g, grads[base + "#vals"])
+            elif name.endswith("#vals"):
+                continue
+            elif ("::" in name and name not in self.plans
+                  and name.rsplit("::", 1)[0] in self.plans
+                  and name.rsplit("::", 1)[1].isdigit()):
+                # a wire shard-slice key; a variable literally named "w::1"
+                # is in self.plans and takes the dense branch
+                base, si = name.rsplit("::", 1)
+                slices.setdefault(base, {})[int(si)] = g
+            else:
+                items[name] = g
+        work = {}
+
+        def add(name, si, gs):
+            if shard_filter is None or (name, si) in shard_filter:
+                work["%s::%d" % (name, si)] = (
+                    name, si, torch.as_tensor(gs).contiguous())
+        for name, g in items.items():
             plan = self.plans[name]
-            g = self._densify(name, g) if isinstance(g, tuple) else g
+            g = self._densify(name, g) if isinstance(g, tuple) \
+                else torch.as_tensor(g)
             for si, gs in enumerate(self._split(plan, g)):
-                work["%s::%d" % (name, si)] = (name, si, gs.contiguous())
+                add(name, si, gs)
+        for name, by_si in slices.items():
+            for si, gs in sorted(by_si.items()):
+                add(name, si, gs)
         if not work:
             return
-        with self._lock, tel.span("ps.apply", "ps", shards=len(work)):
-            self._apply_sharded(work)
+        with tel.span("ps.apply", "ps", shards=len(work)):
+            fresh = self._apply_sharded(work)
+        with self._lock:
+            for key, (name, si, _) in work.items():
+                shards = list(self._values[name])
+                shards[si] = fresh[key]
+                self._values[name] = shards
             self.version += 1
         tel.counter_add("ps.applies", len(work))
-        self.stats["applies"] += len(grads)
+        self.stats["applies"] += len({n for n, _, _ in work.values()})
 
-    def _apply_sharded(self, work) -> None:
+    def _apply_sharded(self, work) -> Dict[str, torch.Tensor]:
         """The per-shard updates, round-robin over sorted keys: one group
         on the calling thread when the pool is off or there is one shard,
-        else a group a pool thread."""
+        else a group a pool thread. Each shard's optimizer state advances
+        in place; its new value lands in a fresh buffer (returned by key),
+        the same float32 additions as an in-place update."""
         keys = sorted(work)
+        fresh = {}
 
         def run(group):
             for key in group:
                 name, si, g = work[key]
-                self._optimizer.update({"v": g}, self._opt[name][si],
-                                       {"v": self._values[name][si]})
+                v = self._values[name][si]
+                upd = self._optimizer.delta({"v": g}, self._opt[name][si],
+                                            {"v": v})["v"]
+                fresh[key] = torch.add(v, upd, out=self._host_empty(v.shape))
         n = min(self._apply_threads, len(keys))
         if n <= 1:
             run(keys)
-            return
+            return fresh
         if self._apply_pool is None:
             self._apply_pool = concurrent.futures.ThreadPoolExecutor(
                 max_workers=self._apply_threads,
@@ -490,8 +784,139 @@ class PSStore:
         for f in [self._apply_pool.submit(run, keys[i::n])
                   for i in range(n)]:
             f.result()
+        return fresh
+
+    # ---------------------------------------------------- async PS serving
+
+    def enable_serving(self, service_for_host, my_host: str) -> None:
+        """Switch to serving (async) mode: the shards are grouped by owner
+        host (``reduction_destination``); this process runs an apply loop
+        for the group it owns and fetches the others over the service
+        (the reference's sharded-PS deployment, one PS task a
+        destination, ``ps_synchronizer.py:636-762``). May be called
+        before :meth:`init_params`: the owner loops start once values
+        exist."""
+        self._serve_config = (service_for_host, my_host)
+        if self._values:
+            self._start_serving()
+
+    def _start_serving(self) -> None:
+        """Group by owner host a shard: a partitioned variable's shards
+        can be owned (stored, applied, published) by different hosts, and
+        a pull reassembles the variable across its owners' blobs."""
+        service_for_host, my_host = self._serve_config
+        if self._serve_groups is not None:  # re-init: restart the loops
+            self.close()
+        groups: Dict[str, list] = {}
+        for name, plan in sorted(self.plans.items()):
+            for si, dest in enumerate(plan.destinations):
+                host = dest.split(":")[0] if dest else my_host
+                groups.setdefault(host, []).append((name, si))
+        self._serve_groups = {}
+        for host, pairs in sorted(groups.items()):
+            svc = service_for_host(host)
+            owned = host == my_host
+            grp = {"pairs": sorted(pairs), "service": svc, "owned": owned,
+                   "worker": None}
+            if owned:
+                # values on the hot channel (every worker's per-step
+                # pull); the optimizer state on the side channel, read
+                # only by checkpoints
+                grp["worker"] = pss.AsyncPSWorker(
+                    svc,
+                    functools.partial(self.apply_local,
+                                      shard_filter=frozenset(grp["pairs"])),
+                    functools.partial(self._local_shard_blobs, grp["pairs"]),
+                    opt_fn=functools.partial(self._local_opt_blobs,
+                                             grp["pairs"])).start()
+            self._serve_groups[host] = grp
+        logging.info("async PS serving: %d owner groups, this process (%s) "
+                     "owns %s", len(self._serve_groups), my_host,
+                     [h for h, g in self._serve_groups.items() if g["owned"]])
+
+    def _local_shard_blobs(self, pairs) -> Dict[str, torch.Tensor]:
+        """``{'name::si': shard value}`` for the given (name, si) pairs:
+        the owner's publish payload."""
+        with self._lock:
+            return {"%s::%d" % (name, si): self._values[name][si]
+                    for name, si in pairs}
+
+    def _opt_leaves(self, state: dict) -> Dict[str, torch.Tensor]:
+        """A little optimizer state's leaves by the JAX package's
+        flattened names (``0/count``, ``0/mu/v``; ``OptimizerSpec.
+        jax_prefix``)."""
+        prefix = self._optimizer.jax_prefix
+        out = {}
+        if "count" in state:
+            out[prefix + "count"] = state["count"]
+        for slot in self._optimizer.slots:
+            out["%s%s/v" % (prefix, slot)] = state[slot]["v"]
+        return out
+
+    def _local_opt_blobs(self, pairs) -> Dict[str, torch.Tensor]:
+        """``{'name::si!leaf': optimizer leaf}`` for the owned pairs: the
+        side channel a checkpoint on another host reads to hold the
+        owner's moments for shards it does not own."""
+        out = {}
+        with self._lock:
+            for name, si in pairs:
+                for leaf, t in self._opt_leaves(self._opt[name][si]).items():
+                    out["%s::%d!%s" % (name, si, leaf)] = t
+        return out
+
+    def _owner_workers(self) -> list:
+        if self._serve_groups is None:
+            return []
+        return [g["worker"] for g in self._serve_groups.values()
+                if g["worker"] is not None]
+
+    @property
+    def serving(self) -> bool:
+        return self._serve_groups is not None
+
+    def owner_health_errors(self) -> List[Tuple[str, str]]:
+        """(host, error) for every owner apply loop of this process that
+        is dead or past its reconnect budget: the gradients pushed to
+        those groups are never applied again, so the Runner fails the job
+        loudly."""
+        out: List[Tuple[str, str]] = []
+        if self._serve_groups is None:
+            return out
+        for host, grp in self._serve_groups.items():
+            w = grp["worker"]
+            if w is not None and not w.healthy:
+                out.append((host, str(w.last_error or
+                                      "apply thread died unexpectedly")))
+        return out
+
+    def applied_total(self) -> int:
+        """Gradient blobs applied by this process's owner loops (the
+        applies, outside serving mode)."""
+        if self._serve_groups is None:
+            return self.stats["applies"]
+        return sum(w.applied for w in self._owner_workers())
+
+    def drain(self, timeout: float = 30.0) -> None:
+        """Wait for this process's owner queues to empty (checkpoints,
+        paced tests)."""
+        for w in self._owner_workers():
+            w.drain(timeout)
 
     def close(self) -> None:
+        # the owner loops stop before the apply pool: a loop mid-apply
+        # would otherwise build a fresh pool after its shutdown
+        if self._serve_groups is not None:
+            for grp in self._serve_groups.values():
+                stopped = True
+                if grp["worker"] is not None:
+                    stopped = grp["worker"].stop()
+                if stopped:
+                    grp["service"].close()
+                else:
+                    # a wedged apply thread keeps its socket: closing it
+                    # under a live thread mid-publish is worse than a leak
+                    logging.warning("PS owner apply thread did not stop; "
+                                    "leaving its service open")
         if self._apply_pool is not None:
             self._apply_pool.shutdown(wait=True)
             self._apply_pool = None
@@ -500,18 +925,75 @@ class PSStore:
 
     def full_values(self) -> Dict[str, torch.Tensor]:
         """Every variable's full value on the host (copies), for
-        checkpoints and gathers; not counted as wire."""
-        with self._lock:
+        checkpoints and gathers; not counted as wire. In serving mode the
+        shards other hosts own come from their owner's latest publish
+        (the authoritative copy; the local mirror before it)."""
+        if self._serve_groups is None:
             return {n: t.clone() for n, t in self._local_full().items()}
+        shard_vals: Dict[str, Dict[int, object]] = {}
+        for grp in self._serve_groups.values():
+            if grp["owned"]:
+                blobs = self._local_shard_blobs(grp["pairs"])
+            else:
+                res = grp["service"].fetch()
+                if res is None:
+                    continue  # pre-publish: the mirror
+                blobs = {k: torch.from_numpy(v) for k, v in
+                         pss.unpack_arrays(res[1]).items()}
+            for key, arr in blobs.items():
+                name, si = key.rsplit("::", 1)
+                shard_vals.setdefault(name, {})[int(si)] = arr
+        return {n: t.clone() for n, t in self._assemble(shard_vals).items()}
+
+    def _shard_states(self, var_name: str) -> List[dict]:
+        """The variable's per-shard optimizer states: the local ones, and
+        in serving mode the owner's (:meth:`_remote_opt_state`) for the
+        shards other hosts own."""
+        with self._lock:
+            states = list(self._opt[var_name])
+        if self._serve_groups is not None:
+            states = [self._remote_opt_state(var_name, si, st)
+                      for si, st in enumerate(states)]
+        return states
 
     def full_opt_leaf(self, slot: str, var_name: str) -> torch.Tensor:
         """One variable's slot (``mu``, ``nu``, ``trace``) in its full
         layout: the shards' slots concatenated along the plan axis."""
         plan = self.plans[var_name]
-        with self._lock:
-            parts = [st[slot]["v"] for st in self._opt[var_name]]
-            return (parts[0].clone() if len(parts) == 1
-                    else self._join(plan, parts))
+        parts = [st[slot]["v"] for st in self._shard_states(var_name)]
+        return (parts[0].clone() if len(parts) == 1
+                else self._join(plan, parts))
+
+    def _remote_opt_state(self, var_name: str, si: int, local_state: dict):
+        """The authoritative little optimizer state of one shard: the
+        local one when this process owns the shard, else rebuilt from the
+        owner's latest ``name::si!leaf`` publish (the local state before
+        the owner's first publish)."""
+        for grp in self._serve_groups.values():
+            if (var_name, si) not in grp["pairs"]:
+                continue
+            if grp["owned"]:
+                return local_state
+            res = grp["service"].fetch_opt()
+            if res is None:
+                return local_state  # the owner has not published
+            want = "%s::%d!" % (var_name, si)
+            remote = {k[len(want):]: torch.from_numpy(v) for k, v in
+                      pss.unpack_arrays(res[1]).items()
+                      if k.startswith(want)}
+            if not remote:
+                return local_state
+            leaves = self._opt_leaves(local_state)
+            prefix = self._optimizer.jax_prefix
+            out = {}
+            if "count" in local_state:
+                out["count"] = remote.get(prefix + "count",
+                                          leaves[prefix + "count"])
+            for slot in self._optimizer.slots:
+                key = "%s%s/v" % (prefix, slot)
+                out[slot] = {"v": remote.get(key, leaves[key])}
+            return out
+        return local_state
 
     def full_little_opt(self, name: str) -> dict:
         """One variable's optimizer state as a FULL-variable little tree
@@ -577,13 +1059,17 @@ class PSStore:
     def mirror_digest(self) -> str:
         """md5 of every resident value: the ranks' mirrors must stay
         bit-equal (the same mean gradient through the same apply), which
-        ``ADT_PS_MIRROR_CHECK_EVERY`` checks across the ranks."""
+        ``ADT_PS_MIRROR_CHECK_EVERY`` checks across the ranks. Mirror
+        (sync) mode only: a serving store has one authoritative owner
+        copy a shard."""
+        if self.serving:  # not an assert: must hold under python -O too
+            raise RuntimeError("mirror_digest is for sync (mirror) mode")
         h = hashlib.md5()
-        with self._lock:
-            for name in sorted(self._values):
-                h.update(name.encode())
-                for s in self._values[name]:
-                    h.update(s.contiguous().numpy().tobytes())
+        shards, _ = self._snapshot()
+        for name in sorted(shards):
+            h.update(name.encode())
+            for s in shards[name]:
+                h.update(s.contiguous().numpy().tobytes())
         return h.hexdigest()
 
     def resident_bytes(self) -> int:
@@ -624,10 +1110,12 @@ class PSPipeline:
     - **exact** (staleness 0): a step's job is push -> apply -> pull, and
       the next :meth:`values` waits for it — the same calls in the same
       order as the serial path, so the values are bit-identical;
-    - **stale** (``staleness`` s >= 1): the pull runs on its own lane
-      and waits only for the push submitted s steps earlier, so a read
-      lags the newest apply by at most s and the copies overlap the next
-      step.
+    - **stale** (``staleness`` s >= 1, or async serving): the pull runs
+      on its own lane and waits only for the push submitted s (async: 1)
+      steps earlier, so a read lags the newest apply by at most s and
+      the copies overlap the next step. Under async the push job queues
+      the blobs on the owners' queues, and a pull serves whatever the
+      owners published last.
 
     ``ADT_PS_OVERLAP=0`` keeps the serial path."""
 
@@ -680,8 +1168,9 @@ class PSPipeline:
 
     def flush(self) -> None:
         """Wait for the in-flight push (a checkpoint, a gather or a digest
-        must see every submitted gradient applied); the staged values
-        stay pending for the next :meth:`values`."""
+        must see every submitted gradient applied; under async, queued on
+        its owner's queue, which ``PSStore.drain`` then empties); the
+        staged values stay pending for the next :meth:`values`."""
         if self._push_pending is not None:
             self._push_pending.result()
         if self._pending is not None and not self._stale_ok:

@@ -12,7 +12,14 @@ same on every rank;
 runs a forward fetch program, and the serving engines (``serving/``)
 drive the runner's ``distributed_step`` and ``remapper``. Checkpoints
 (``checkpoint/``) are written by ``fit(save_every=...)`` and restored by
-``init`` under ``ADT_AUTO_RESUME``. :meth:`Runner.run_superstep` and
+``init`` under ``ADT_AUTO_RESUME``. After every dispatch the control
+plane runs (:meth:`Runner._after_dispatch`): a stale plan (``staleness``
+s > 0) at more than one process reports its step to the coordination
+service and waits while it is more than s steps ahead of the slowest
+process (the ``runner.barrier`` span); an async job at more than one
+process heartbeats, and every step checks this process's async-PS owner
+loops. A runner that talks to the service says goodbye when it closes,
+or when the interpreter exits. :meth:`Runner.run_superstep` and
 ``fit(fuse_steps=k, metrics_every=n)`` run fused supersteps of k
 microsteps, one dispatch each (on ``cuda``, one replay of a CUDA graph:
 ``kernel/superstep.py``), with the metrics read back every n supersteps.
@@ -21,9 +28,11 @@ microsteps, one dispatch each (on ``cuda``, one replay of a CUDA graph:
 sentinel, elastic and preemption planes belong to later slices of the
 port.
 """
+import atexit
 import itertools
 import statistics
 import time
+import weakref
 from typing import Any, Optional
 
 import numpy as np
@@ -32,6 +41,9 @@ from torch.utils import _pytree as pytree
 
 from autodist_tpu_torch import const
 from autodist_tpu_torch.remapper import Remapper
+from autodist_tpu_torch.runtime.coordination import (CoordinationClient,
+                                                     job_processes)
+from autodist_tpu_torch.runtime.resilience import ResilientCoordinationClient
 from autodist_tpu_torch.telemetry import spans as tel
 from autodist_tpu_torch.train_state import TrainState
 from autodist_tpu_torch.utils import logging
@@ -149,6 +161,76 @@ class Runner:
         self._total_step_s = 0.0
         self._first_step_s: Optional[float] = None
         self._recent_step_s: list = []
+        # the control plane (the JAX runner's): bounded-staleness pacing
+        # is a property across processes, for sync plans only (async PS
+        # paces itself through the parameter service)
+        meta = distributed_step.metadata
+        self._worker = self._worker_name()
+        self._staleness = int(meta.get("staleness", 0))
+        processes = job_processes()
+        self._coord = None
+        if (self._staleness > 0 and processes > 1
+                and not meta.get("async")):
+            self._coord = self._connect_coordination(
+                "staleness pacing (window=%d)" % self._staleness)
+        # async jobs at more than one process heartbeat on the step clock,
+        # so a watchdog can tell a wedged worker from a healthy one
+        self._async_hb = None
+        self._last_hb = 0.0
+        self._hb_enabled = bool(meta.get("async")) and processes > 1
+        if self._hb_enabled:
+            self._async_hb = self._connect_coordination(
+                "async liveness heartbeats")
+        self._atexit_cb = None
+        if self._hb_enabled or self._coord is not None:
+            # goodbye on exit: a worker whose script just ends must
+            # deregister, or its last heartbeat ages into a false death;
+            # through a weakref, so a dropped runner is not kept alive
+            ref = weakref.ref(self)
+
+            def _close_if_alive(_r=ref):
+                runner = _r()
+                if runner is not None:
+                    runner.close()
+            self._atexit_cb = _close_if_alive
+            atexit.register(_close_if_alive)
+
+    @staticmethod
+    def _worker_name() -> str:
+        """This process's name on the coordination service:
+        ``ADT_WORKER``, else ``chief`` on rank 0 of the default group (or
+        with no group) and ``rank<r>`` on the others (every rank a
+        launcher starts reads as the chief in ``const``)."""
+        if const.ENV.ADT_WORKER.val:
+            return const.ENV.ADT_WORKER.val
+        import torch.distributed as dist
+        rank = (dist.get_rank()
+                if dist.is_available() and dist.is_initialized() else 0)
+        return "chief" if rank == 0 else "rank%d" % rank
+
+    @property
+    def _heartbeat_every_s(self) -> float:
+        # a quarter of the watchdog's window: three missable beats
+        return max(0.25, const.ENV.ADT_HEARTBEAT_TIMEOUT_S.val / 4.0)
+
+    def _connect_coordination(self, purpose: str = "staleness pacing"):
+        """A resilient client of the coordination service at
+        ``ADT_COORDINATOR_ADDR``'s host (127.0.0.1 by default) and
+        ``ADT_COORDSVC_PORT``, after one raw connect as the reachability
+        probe; None, with a warning, when it is not there."""
+        host = (const.ENV.ADT_COORDINATOR_ADDR.val.split(":")[0]
+                or "127.0.0.1")
+        port = const.ENV.ADT_COORDSVC_PORT.val
+        try:
+            # the resilient client connects lazily and retries with
+            # backoff: too slow a way to learn there is no service
+            CoordinationClient(host, port).close()
+        except OSError as e:
+            logging.warning("coordination service unreachable (%s); "
+                            "%s disabled", e, purpose)
+            return None
+        logging.info("%s active via %s", purpose, host)
+        return ResilientCoordinationClient(host, port)
 
     @property
     def distributed_step(self):
@@ -239,15 +321,12 @@ class Runner:
                       step=self._step_count):
             with tel.span("runner.feed", "runner"):
                 placed = self._remapper.remap_feed(batch)
+            self._check_ps_owner_health()
             new_state, metrics = self._dstep(st, placed,
                                              donate=state is None)
             if state is None:
                 self.state = new_state
-            self._step_count += 1
-            self._superstep_count += 1
-            tel.counter_add("runner.steps")
-            tel.counter_add("runner.supersteps")
-            self._maybe_check_mirrors()
+            self._after_dispatch(1)
             handle = MetricsHandle(metrics, self._remapper, owner=self)
             out = handle.result() if sync else handle
             self._record_step_time(t_begin)
@@ -269,16 +348,79 @@ class Runner:
         k = int(np.shape(leaves[0])[0]) if leaves else 1
         with tel.span("runner.dispatch", "runner", microsteps=k, sync=sync,
                       step=self._step_count):
+            self._check_ps_owner_health()
             self.state, metrics = self._dstep.run_multi(self.state, placed)
-            self._step_count += k
-            self._superstep_count += 1
-            tel.counter_add("runner.steps", k)
-            tel.counter_add("runner.supersteps")
+            self._after_dispatch(k)
             handle = MetricsHandle(metrics, self._remapper, microsteps=k,
                                    owner=self)
             out = handle.result() if sync else handle
             self._record_step_time(t_begin)
             return out
+
+    def _after_dispatch(self, microsteps: int):
+        """The control plane after a dispatch, counted in microsteps (a
+        fused superstep advances the pacing by its k applies): the step
+        counts, the async heartbeat, the bounded-staleness window across
+        processes and the mirror check."""
+        self._step_count += microsteps
+        self._superstep_count += 1
+        tel.counter_add("runner.steps", microsteps)
+        tel.counter_add("runner.supersteps")
+        self._maybe_heartbeat()
+        if self._coord is not None:
+            # report this step, then wait while more than `staleness`
+            # steps ahead of the slowest process (the reference's size-s
+            # token queues, ps_synchronizer.py:388-458); the span holds
+            # the time a slower peer cost this step
+            self._coord.report_step(self._worker, self._step_count)
+            self._coord.heartbeat(self._worker)
+            with tel.span("runner.barrier", "runner",
+                          step=self._step_count, staleness=self._staleness):
+                self._coord.wait_staleness(self._step_count,
+                                           self._staleness)
+        self._maybe_check_mirrors()
+
+    def _check_ps_owner_health(self):
+        """Fail loudly when an async-PS owner apply loop of this process
+        is dead (its thread died, or its reconnect budget is spent): its
+        queue would back up and training would run on applying nothing.
+        Two attribute reads a step when healthy."""
+        store = getattr(self._dstep, "ps_store", None)
+        if store is None or not getattr(store, "serving", False):
+            return
+        bad = store.owner_health_errors()
+        if bad:
+            raise RuntimeError(
+                "async PS owner apply loop(s) dead — training cannot "
+                "apply gradients: %s"
+                % "; ".join("%s: %s" % (h, e) for h, e in bad))
+
+    def _maybe_heartbeat(self):
+        """The async liveness beat, on the step clock: it means this
+        worker made progress recently (a thread would beat on while the
+        main thread is wedged). A failed beat reconnects at the next due
+        time instead of stopping."""
+        if not self._hb_enabled:
+            return
+        now = time.monotonic()
+        if now - self._last_hb <= self._heartbeat_every_s:
+            return
+        if self._async_hb is None:
+            self._async_hb = self._connect_coordination(
+                "async liveness heartbeats (reconnect)")
+            if self._async_hb is None:
+                return  # retry at the next due beat
+        try:
+            self._async_hb.heartbeat(self._worker)
+            self._last_hb = now
+        except OSError as e:
+            logging.warning("async heartbeat failed (%s); reconnecting at "
+                            "the next beat", e)
+            try:
+                self._async_hb.close()
+            except OSError:
+                pass
+            self._async_hb = None
 
     def _maybe_check_mirrors(self):
         """Sync host PS keeps every rank's mirror of the store bit-equal
@@ -292,7 +434,7 @@ class Runner:
         every = const.ENV.ADT_PS_MIRROR_CHECK_EVERY.val
         store = self._dstep.ps_store
         n = self._dstep.num_replicas
-        if (every <= 0 or store is None or n < 2
+        if (every <= 0 or store is None or store.serving or n < 2
                 or self._step_count % every != 0):
             return
         import torch.distributed as dist
@@ -566,9 +708,30 @@ class Runner:
         return 1
 
     def close(self):
-        """Drop the device state and the captured supersteps, land the
-        in-flight PS push and the fused supersteps' PS carry, and stop the
-        store's threads (idempotent)."""
+        """Say goodbye to the coordination service and close this runner's
+        clients (a finished worker is neither counted dead nor bounds the
+        staleness window), drop the device state and the captured
+        supersteps, land the in-flight PS push and the fused supersteps'
+        PS carry, and stop the store's threads and serving
+        (idempotent)."""
+        self._hb_enabled = False
+        if self._atexit_cb is not None:
+            atexit.unregister(self._atexit_cb)
+            self._atexit_cb = None
+        for attr in ("_coord", "_async_hb"):
+            client = getattr(self, attr)
+            if client is None:
+                continue
+            try:
+                client.goodbye(self._worker)
+            except OSError:
+                pass
+            finally:  # a failed goodbye must not leak the socket
+                try:
+                    client.close()
+                except OSError:
+                    pass
+            setattr(self, attr, None)
         self.state = None
         self._dstep.close()
 

@@ -8,10 +8,13 @@ program per bucket and the buckets bound its compile cache; the eager
 port keeps the same bucket discipline so request shapes, padding and
 fan-out behave as in the JAX package.
 
-The JAX engine also serves host-PS variables from a shared snapshot with a
-bounded degradation window; the port's slice has no host-PS variables, so
-the snapshot is always empty and never degrades — the window logic comes
-with the PS family.
+Host-PS variables are served from one snapshot shared by the requests,
+as in the JAX engine: pulled onto the device, refreshed at most every
+``snapshot_max_age_s``; a refresh that fails (an owner out of reach, the
+store's own degraded window used up) serves the last good snapshot for up
+to ``degraded_batches`` consecutive batches, then sheds with
+:class:`ServingUnavailable` (the engine stays alive and retries the
+refresh at the next batch).
 
 Requests are SINGLE EXAMPLES: pytrees shaped like one row of the feed (no
 leading batch dim). ``stack_batches(..., pad_to=bucket)`` stacks a group
@@ -27,7 +30,9 @@ import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
+from autodist_tpu_torch import const
 from autodist_tpu_torch.telemetry import spans as tel
+from autodist_tpu_torch.utils import logging
 
 
 class ServingUnavailable(RuntimeError):
@@ -43,10 +48,16 @@ class ServingUnavailable(RuntimeError):
 @dataclasses.dataclass
 class ServingConfig:
     """Engine knobs. ``buckets``: padded batch sizes (None = {1, 8, 32,
-    128}). The JAX config's micro-batcher, brownout and host-PS snapshot
-    knobs arrive with the port of those pieces."""
+    128}). ``snapshot_max_age_s``: the host-PS snapshot's refresh
+    period. ``degraded_batches``: consecutive batches that may serve the
+    last good snapshot while refreshes fail (None = max(strategy
+    staleness, ``ADT_PS_MAX_LAG``, 1)). The JAX config's micro-batcher
+    and brownout knobs arrive with ``serving/batcher.py`` (ROADMAP A item
+    10)."""
 
     buckets: Optional[Sequence[int]] = None
+    snapshot_max_age_s: float = 0.1
+    degraded_batches: Optional[int] = None
 
 
 DEFAULT_BUCKETS = (1, 8, 32, 128)
@@ -97,7 +108,12 @@ class InferenceEngine:
             serve_fn, donate_batch=True,
             example_batch=stack_batches([example_request],
                                         pad_to=self.buckets[-1]))
+        # the host-PS snapshot and its degradation state (run_batch holds
+        # the lock around it)
         self._lock = threading.Lock()
+        self._ps_vals = None
+        self._snap_t = 0.0
+        self._degraded_used = 0
         self.stats = {"batches": 0, "padded_rows": 0, "degraded": 0,
                       "snapshot_refreshes": 0}
         self._warmed = False
@@ -135,11 +151,54 @@ class InferenceEngine:
             "request group of %d exceeds the largest bucket %d"
             % (n, self.buckets[-1]))
 
+    @property
+    def _degraded_bound(self) -> int:
+        if self.config.degraded_batches is not None:
+            return self.config.degraded_batches
+        store = self._dstep.ps_store
+        staleness = store.max_staleness() if store is not None else 0
+        return max(staleness, const.ENV.ADT_PS_MAX_LAG.val, 1)
+
     def _snapshot(self):
-        """The host-PS values feed of the next dispatch: a pull each
-        dispatch (``{}`` with no host-resident variable; the JAX engine's
-        cached snapshot waits with ROADMAP A item 8)."""
-        return self._dstep.pull_ps()
+        """The host-PS values feed of the next dispatch (``{}`` with no
+        host-resident variable): the shared device snapshot, pulled again
+        once it is older than ``snapshot_max_age_s``. A failed refresh
+        serves the last good snapshot within the degraded window, then
+        sheds with :class:`ServingUnavailable`."""
+        if self._dstep.ps_store is None:
+            return {}
+        now = time.monotonic()
+        if (self._ps_vals is not None
+                and now - self._snap_t < self.config.snapshot_max_age_s):
+            return self._ps_vals
+        try:
+            vals = self._dstep.pull_ps()
+        except (OSError, RuntimeError, TimeoutError) as e:
+            # an unreachable service (CoordinationUnavailable is an
+            # OSError), the store's used-up degraded window (RuntimeError)
+            # or an owner that never published (TimeoutError)
+            if (self._ps_vals is not None
+                    and self._degraded_used < self._degraded_bound):
+                self._degraded_used += 1
+                self.stats["degraded"] += 1
+                tel.counter_add("serve.degraded")
+                tel.instant("serve.degraded_snapshot", "serve",
+                            used=self._degraded_used,
+                            bound=self._degraded_bound)
+                logging.warning(
+                    "serving: PS snapshot refresh failed (%s); serving "
+                    "last snapshot (degraded batch %d/%d)", e,
+                    self._degraded_used, self._degraded_bound)
+                return self._ps_vals
+            raise ServingUnavailable(
+                "PS snapshot refresh failed and the degraded window "
+                "(%d batches) is exhausted: %s"
+                % (self._degraded_bound, e)) from e
+        self._ps_vals = vals
+        self._snap_t = now
+        self._degraded_used = 0
+        self.stats["snapshot_refreshes"] += 1
+        return vals
 
     def warmup(self):
         """Run every bucket once on repeats of the example request (first

@@ -218,6 +218,27 @@ result line):
    port's own update run on the CPU from the same gradients, state and
    params, each element within 1e-5 of the update's largest magnitude
    plus one float32 ulp of the param.
+17. the coordination service (built from the port's copy of its source,
+   started on a free port, stopped at the end of the phase), async host
+   PS served over it and bounded staleness across ranks (tracing on): (a)
+   bert_base bf16 (seq 128, batch 128, flash) under ``PS(sync=False)``,
+   one process, every variable on the host PS: 8 steps drained
+   (``flush_ps(); store.drain()`` after each, the serial path,
+   deterministic mode) bit-equal in losses to ``PS()`` from the same
+   init, then 2 + 8 steps undrained on the pipeline: ms a step, blobs
+   applied, the reads' lag behind the pushes (bound ``ADT_PS_MAX_LAG`` +
+   2) and the owner queue's length (bound ``ADT_PS_MAX_LAG``), the owner
+   loop's apply and publish ms and bytes; each kernel 12 launches a step
+   on its tensor-core design; (b) DLRM at its default config under
+   ``PSLoadBalancing(sync=False)``, two processes on ``cuda:0`` (owner
+   hosts 127.0.0.1 and localhost; a gloo group that no step may use),
+   Adam at 1e-4, 1 + 6 steps each: ms a step a process, BPUT bytes a publish, BGET bytes
+   a pull, QPUSH bytes a push, each owner's applies, no collective and
+   ``sync.wire_bytes`` 0, each process's loss falling; (c) DLRM under
+   ``Parallax(staleness=2)`` at N = 2 over gloo, paced by the service,
+   1 + 5 steps: the ``runner.barrier`` span's ms a step, the largest
+   step gap on the service (bound 2), both ranks' losses and store
+   digests equal.
 
 TF32 is off for the whole run (``torch.backends.cuda.matmul`` and
 ``cudnn``): float32 is computed in float32, as the f32 checks' 2e-5 and
@@ -3672,6 +3693,456 @@ def carry_phase(card, bert_per_step_losses):
     return fused_launches, per_microstep, adamw_launches
 
 
+# ------------------------------------------------------------- phase 17
+
+
+ASYNC_WARMUP, ASYNC_STEPS = 2, 8
+# (b) and (c) at fewer steps: the phase stays near two minutes on the card
+DLRM_WARMUP, DLRM_STEPS = 1, 6
+STALE_WARMUP, STALE_STEPS = 1, 5
+ASYNC_RANKS = 2
+# two hosts sharing one card: under async each process builds one replica
+# of its own and owns the host-PS groups of its host
+ASYNC_SPEC = {"nodes": [{"address": "127.0.0.1", "chief": True, "gpus": [0]},
+                        {"address": "localhost", "gpus": [0]}]}
+ASYNC_SPANS = ("ps_service.apply", "ps_service.publish", "ps.pull",
+               "ps.push", "runner.barrier")
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def span_ms(names):
+    """Each span's ms an occurrence and its count, recorded so far."""
+    from autodist_tpu_torch.telemetry import spans as tel
+    summary = tel.get_recorder().summary()
+    out = {}
+    for n in names:
+        s = summary.get(n, {})
+        count = int(s.get("count", 0))
+        out[n] = (1e3 * s.get("total_s", 0.0) / max(count, 1), count)
+    return out
+
+
+def count_collectives():
+    """Wrap the default group's collectives with a call counter; returns
+    the one-element list it counts in."""
+    import torch.distributed as dist
+    calls = [0]
+    for name in ("all_reduce", "all_gather", "all_gather_into_tensor",
+                 "reduce_scatter_tensor", "broadcast", "barrier",
+                 "all_to_all", "send", "recv"):
+        fn = getattr(dist, name, None)
+        if fn is None:
+            continue
+
+        def counted(*a, _fn=fn, **kw):
+            calls[0] += 1
+            return _fn(*a, **kw)
+        setattr(dist, name, counted)
+    return calls
+
+
+def bert_async_phase(card):
+    """Phase 17 (a): bert_base at full width under PS(sync=False), one
+    process. Returns the kernels' launches over (a)'s async steps."""
+    import statistics
+    import torch
+    from autodist_tpu_torch import const, strategy
+    from autodist_tpu_torch.models import bert
+    from autodist_tpu_torch.runtime import ps_service as pss
+    cfg = bert.BertConfig.base(dtype=torch.bfloat16)
+    loss_fn, params, batch, _ = bert.make_train_setup(
+        cfg, seq_len=BERT_SEQ, batch_size=BERT_BATCH, seed=0,
+        attention="flash")
+    print("phase 17 (a): bert_base bf16 (seq %d, batch %d, flash) under "
+          "PS(sync=False), one process, every variable on the host PS: %d "
+          "steps drained (flush_ps(); store.drain() after each, serial "
+          "path, deterministic mode) against PS() from the same init, then "
+          "%d + %d steps undrained on the pipeline"
+          % (BERT_SEQ, BERT_BATCH, ASYNC_STEPS, ASYNC_WARMUP, ASYNC_STEPS))
+    torch.use_deterministic_algorithms(True)
+    os.environ["ADT_PS_OVERLAP"] = "0"
+    got = {}
+    try:
+        with uncounted():
+            runner = ps_runner(loss_fn, params, batch, strategy.PS())
+            got["PS()"] = [float(runner.run(batch)["loss"])
+                           for _ in range(ASYNC_STEPS)]
+            del runner
+            adt_reset()
+        # the main path: the async runs, counted from here
+        reset_counts()
+        runner = ps_runner(loss_fn, params, batch, strategy.PS(sync=False))
+        dstep, store = runner.distributed_step, runner.distributed_step.ps_store
+        if not (dstep.metadata["async"] and store.serving
+                and dstep.num_replicas == 1):
+            fail("phase 17 (a): PS(sync=False) did not build an async "
+                 "serving store (metadata %r)" % (dstep.metadata,))
+        losses = []
+        for _ in range(ASYNC_STEPS):
+            losses.append(float(runner.run(batch)["loss"]))
+            dstep.flush_ps()
+            store.drain()
+        got["async drained"] = losses
+        if store.applied_total() != ASYNC_STEPS:
+            fail("phase 17 (a): %d blobs applied over %d drained steps"
+                 % (store.applied_total(), ASYNC_STEPS))
+        del runner, dstep, store
+        adt_reset()
+    finally:
+        os.environ.pop("ADT_PS_OVERLAP", None)
+        torch.use_deterministic_algorithms(False)
+    sync, drained = got["PS()"], got["async drained"]
+    equal = sync == drained
+    worst = max(abs(a - b) / abs(b) for a, b in zip(drained, sync))
+    print("  losses PS(): %s" % " ".join("%.6f" % x for x in sync))
+    print("  losses async drained: %s: %s (largest relative gap %.3e) [%s]"
+          % (" ".join("%.6f" % x for x in drained),
+             "bit-equal" if equal else "NOT bit-equal", worst, card))
+    if not equal:
+        fail("phase 17 (a): drained async parts from PS() per step: the "
+             "serial paths apply the same gradients through the same "
+             "host Adam; no op should part them (losses %r vs %r)"
+             % (drained, sync))
+    runner = ps_runner(loss_fn, params, batch, strategy.PS(sync=False))
+    dstep, store = runner.distributed_step, runner.distributed_step.ps_store
+    if dstep._ps_pipe is None:
+        fail("phase 17 (a): the undrained run is not on the pipeline")
+    grp = next(iter(store._serve_groups.values()))
+    max_lag = const.ENV.ADT_PS_MAX_LAG.val
+    spans0 = span_ms(ASYNC_SPANS)
+    losses, times, queued = [], [], []
+    for i in range(ASYNC_WARMUP + ASYNC_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(runner.run(batch)["loss"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        queued.append(grp["service"].pending_grads())
+    dstep.flush_ps()
+    store.drain()
+    launches = launch_counts()
+    spans1 = span_ms(ASYNC_SPANS)
+    applied = store.applied_total()
+    lags = list(dstep.ps_read_lags)
+    vals = grp["service"].fetch()
+    opts = grp["service"].fetch_opt()
+    values_b = sum(dstep.model_item.var_infos[n].byte_size
+                   for n in store.var_names)
+    del runner, dstep, store, grp
+    adt_reset()
+    check_launches("phase 17 (a)", launches, cfg.num_layers,
+                   2 * ASYNC_STEPS + ASYNC_WARMUP)
+    if not all(x == x for x in losses) or not losses[-1] < losses[0]:
+        fail("phase 17 (a): undrained losses not finite or not falling: %r"
+             % losses)
+    if applied != ASYNC_WARMUP + ASYNC_STEPS:
+        fail("phase 17 (a): %d blobs applied over %d undrained steps"
+             % (applied, ASYNC_WARMUP + ASYNC_STEPS))
+    if max(queued) > max_lag:
+        fail("phase 17 (a): the owner queue held %d blobs (ADT_PS_MAX_LAG "
+             "%d)" % (max(queued), max_lag))
+    if max(lags) > max_lag + 2 or min(lags) < 0:
+        fail("phase 17 (a): reads lag %r applies (bound ADT_PS_MAX_LAG + 2 "
+             "= %d)" % (lags, max_lag + 2))
+
+    def per(name):
+        n = spans1[name][1] - spans0[name][1]
+        total = spans1[name][0] * spans1[name][1] - \
+            spans0[name][0] * spans0[name][1]
+        return total / max(n, 1), n
+    p50 = statistics.median(times[ASYNC_WARMUP:])
+    print("  undrained, %d steps: step p50 %.2f ms (min %.2f, max %.2f), "
+          "%.0f tokens/s; losses %s; %d blobs applied; reads lag %s "
+          "applies (bound ADT_PS_MAX_LAG + 2 = %d: the queue, the blob in "
+          "the apply thread, the push in the pipeline); the owner queue "
+          "held at most %d blobs after a step (ADT_PS_MAX_LAG %d)"
+          % (ASYNC_STEPS, p50 * 1e3, min(times[ASYNC_WARMUP:]) * 1e3,
+             max(times[ASYNC_WARMUP:]) * 1e3,
+             BERT_BATCH * BERT_SEQ / p50,
+             " ".join("%.4f" % x for x in losses), applied,
+             sorted(set(lags)), max_lag + 2, max(queued), max_lag))
+    apply_ms, n_apply = per("ps_service.apply")
+    publish_ms, n_publish = per("ps_service.publish")
+    print("  the owner loop: ps_service.apply %.2f ms a blob (%d), "
+          "ps_service.publish %.2f ms (%d): %d B of values (%d B of "
+          "variables) and %d B of optimizer state a publish; ps.pull "
+          "%.2f ms, ps.push %.2f ms a step; each kernel %d launches a "
+          "step [%s]"
+          % (apply_ms, n_apply, publish_ms, n_publish, len(vals[1]),
+             values_b, len(opts[1]), per("ps.pull")[0], per("ps.push")[0],
+             cfg.num_layers, card))
+    return launches
+
+
+def async_child(rank, store, out_dir, port):
+    """One process of phase 17 (b) (spawned): DLRM under
+    PSLoadBalancing(sync=False), the chief 127.0.0.1 on rank 0 and
+    localhost on rank 1, both on cuda:0. The gloo group exists but no
+    step may use it: its collectives are counted."""
+    import statistics
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, HERE)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(store, ASYNC_RANKS),
+                            rank=rank, world_size=ASYNC_RANKS)
+    os.environ["ADT_NUM_PROCESSES"] = str(ASYNC_RANKS)
+    os.environ["ADT_COORDSVC_PORT"] = str(port)
+    if rank:
+        os.environ["ADT_WORKER"] = "localhost"
+    import autodist_tpu_torch as adt
+    from autodist_tpu_torch import strategy
+    from autodist_tpu_torch.resource_spec import ResourceSpec
+    from autodist_tpu_torch.runtime.coordination import CoordinationClient
+    from autodist_tpu_torch.telemetry import spans as tel
+    tel.configure("1")
+    calls = count_collectives()
+    _, loss_fn, params, batch = dlrm_setup()
+    ad = adt.AutoDist(strategy_builder=strategy.PSLoadBalancing(sync=False),
+                      resource_spec=ResourceSpec.from_dict(ASYNC_SPEC),
+                      device="cuda:0")
+    # Adam at 1e-4: each owner applies both processes' gradients, each
+    # computed on values up to ADT_PS_MAX_LAG + 2 applies old, and at the
+    # 1e-3 of phase 15 the losses rose (an H100 run, PERF.md §6 PR 12)
+    runner = ad.build(loss_fn, functools.partial(torch.optim.Adam, lr=1e-4),
+                      params, batch)
+    runner.init(params)
+    dstep, ps = runner.distributed_step, runner.distributed_step.ps_store
+    coord = CoordinationClient("127.0.0.1", port)
+    coord.barrier("17b/built", ASYNC_RANKS)
+    losses, times = [], []
+    for i in range(DLRM_WARMUP + DLRM_STEPS):
+        if i == DLRM_WARMUP:
+            stats0, spans0 = dict(ps.stats), span_ms(ASYNC_SPANS)
+        t0 = time.perf_counter()
+        losses.append(float(runner.run(batch)["loss"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    stats1, spans1 = dict(ps.stats), span_ms(ASYNC_SPANS)
+    dstep.flush_ps()
+    coord.barrier("17b/pushed", ASYNC_RANKS)
+    ps.drain()
+    coord.barrier("17b/drained", ASYNC_RANKS)
+
+    def per(name):
+        n = spans1[name][1] - spans0[name][1]
+        return (spans1[name][0] * spans1[name][1]
+                - spans0[name][0] * spans0[name][1]) / max(n, 1)
+    pulls = stats1["pulls"] - stats0["pulls"]
+    pushes = stats1["pushes"] - stats0["pushes"]
+    out = {"rank": rank, "losses": losses,
+           "p50_ms": 1e3 * statistics.median(times[DLRM_WARMUP:]),
+           "min_ms": 1e3 * min(times[DLRM_WARMUP:]),
+           "max_ms": 1e3 * max(times[DLRM_WARMUP:]),
+           "applied": ps.applied_total(),
+           "owned": [h for h, g in ps._serve_groups.items() if g["owned"]],
+           "owned_vars": sorted({n for g in ps._serve_groups.values()
+                                 if g["owned"] for n, _ in g["pairs"]}),
+           "bget_bytes": (stats1["bytes_pulled"] - stats0["bytes_pulled"])
+           / max(pulls, 1),
+           "qpush_bytes": (stats1["bytes_pushed"] - stats0["bytes_pushed"])
+           / max(pushes, 1),
+           "apply_ms": per("ps_service.apply"),
+           "publish_ms": per("ps_service.publish"),
+           "pull_ms": per("ps.pull"), "push_ms": per("ps.push"),
+           "dropped": ps.stats["dropped_pushes"],
+           "wire_bytes": tel.counters().get("sync.wire_bytes", 0.0),
+           "collectives": calls[0],
+           "replicas": dstep.num_replicas}
+    with open(os.path.join(out_dir, "async%d.json" % rank), "w") as f:
+        json.dump(out, f)
+    coord.barrier("17b/written", ASYNC_RANKS)
+    coord.close()
+    del runner, dstep, ps
+    adt.reset()
+    dist.destroy_process_group()
+
+
+def stale_child(rank, store, out_dir, port):
+    """One rank of phase 17 (c) (spawned): DLRM under
+    Parallax(staleness=2) at N = 2 over gloo, paced by the coordination
+    service; after each step, how far this rank was ahead of the slowest
+    on the service."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, HERE)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(store, DP_RANKS),
+                            rank=rank, world_size=DP_RANKS)
+    os.environ["ADT_COORDSVC_PORT"] = str(port)
+    os.environ["ADT_PS_MIRROR_CHECK_EVERY"] = "2"
+    import autodist_tpu_torch as adt
+    from autodist_tpu_torch import strategy
+    from autodist_tpu_torch.runtime.coordination import CoordinationClient
+    from autodist_tpu_torch.telemetry import spans as tel
+    tel.configure("1")
+    _, loss_fn, params, batch = dlrm_setup()
+    runner = sync_runner(loss_fn, params, batch,
+                         strategy.Parallax(staleness=2))
+    dstep = runner.distributed_step
+    coord = CoordinationClient("127.0.0.1", port)
+    losses, gaps = [], []
+    for i in range(STALE_WARMUP + STALE_STEPS):
+        if i == STALE_WARMUP:
+            spans0 = span_ms(("runner.barrier",))
+        losses.append(float(runner.run(batch)["loss"]))
+        torch.cuda.synchronize()
+        gaps.append(runner.step_stats()["steps"] - coord.min_step())
+    spans1 = span_ms(("runner.barrier",))
+    n = spans1["runner.barrier"][1] - spans0["runner.barrier"][1]
+    barrier_ms = (spans1["runner.barrier"][0] * spans1["runner.barrier"][1]
+                  - spans0["runner.barrier"][0]
+                  * spans0["runner.barrier"][1]) / max(n, 1)
+    dstep.flush_ps()
+    out = {"rank": rank, "losses": losses, "gaps": gaps,
+           "barrier_ms": barrier_ms, "barriers": n,
+           "paced": runner._coord is not None,
+           "staleness": dstep.metadata["staleness"],
+           "digest": dstep.ps_store.mirror_digest(),
+           "mirror_checks": tel.counters().get("ps.mirror_checks", 0.0)}
+    with open(os.path.join(out_dir, "stale%d.json" % rank), "w") as f:
+        json.dump(out, f)
+    coord.close()
+    del runner, dstep
+    adt.reset()
+    dist.destroy_process_group()
+
+
+def spawn_pair(child, label, port):
+    """Run ``child`` on two spawned processes with a gloo group; returns
+    their JSON results in rank order."""
+    import tempfile
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            mp.start_processes(child, args=(os.path.join(tmp, "store"), tmp,
+                                            port),
+                               nprocs=2, start_method="spawn")
+        except Exception as e:  # noqa: BLE001 — a process failed
+            fail("%s: a process failed: %s" % (label,
+                                                str(e).strip()[-2000:]))
+        res = []
+        for r in range(2):
+            with open(os.path.join(tmp, "%s%d.json" % (
+                    "async" if child is async_child else "stale", r))) as f:
+                res.append(json.load(f))
+    print("  two processes ran in %.1f s" % (time.perf_counter() - t0))
+    return res
+
+
+def dlrm_async_phase(card, port):
+    """Phase 17 (b): DLRM default config under PSLoadBalancing(sync=False),
+    two processes on cuda:0, two owner hosts."""
+    from autodist_tpu_torch.runtime.coordination import CoordinationClient
+    print("phase 17 (b): DLRM default config (batch %d) under "
+          "PSLoadBalancing(sync=False), Adam 1e-4, two processes on "
+          "cuda:0, owner hosts 127.0.0.1 and localhost, %d + %d steps each"
+          % (PS_BATCH, DLRM_WARMUP, DLRM_STEPS))
+    res = spawn_pair(async_child, "phase 17 (b)", port)
+    c = CoordinationClient("127.0.0.1", port)
+    publish = {}
+    for host in ("127.0.0.1", "localhost"):
+        vals, opts = c.bget("ps:%s/vals" % host), c.bget("ps:%s/opt" % host)
+        if vals is None or opts is None:
+            fail("phase 17 (b): owner %s never published" % host)
+        publish[host] = (vals[0], len(vals[1]), len(opts[1]))
+        del vals, opts
+    c.close()
+    owned = [r["owned"] for r in res]
+    if owned != [["127.0.0.1"], ["localhost"]]:
+        fail("phase 17 (b): owners %r (want each process its own host)"
+             % owned)
+    if set(res[0]["owned_vars"]) & set(res[1]["owned_vars"]):
+        fail("phase 17 (b): a variable has two owners: %r"
+             % [r["owned_vars"] for r in res])
+    for r, host in zip(res, ("127.0.0.1", "localhost")):
+        version, vals_b, opt_b = publish[host]
+        print("  process %d (owner %s of %s): losses %s; step p50 %.2f ms "
+              "(min %.2f, max %.2f); %d blobs applied (published version "
+              "%d); a publish: BPUT %d B of values + %d B of optimizer "
+              "state; a pull: BGET %.0f B; a push: QPUSH %.0f B; "
+              "ps_service.apply %.2f ms and publish %.2f ms a blob, "
+              "ps.pull %.2f ms and ps.push %.2f ms a step; %d pushes "
+              "dropped; sync.wire_bytes %d, collectives %d [%s]"
+              % (r["rank"], host, ",".join(r["owned_vars"]),
+                 " ".join("%.5f" % x for x in r["losses"]), r["p50_ms"],
+                 r["min_ms"], r["max_ms"], r["applied"], version, vals_b,
+                 opt_b, r["bget_bytes"], r["qpush_bytes"], r["apply_ms"],
+                 r["publish_ms"], r["pull_ms"], r["push_ms"], r["dropped"],
+                 r["wire_bytes"], r["collectives"], card))
+    for r in res:
+        if r["collectives"] or r["wire_bytes"] or r["replicas"] != 1:
+            fail("phase 17 (b): process %d ran %d collectives (%d B of "
+                 "sync.wire_bytes) at %d replicas" % (
+                     r["rank"], r["collectives"], r["wire_bytes"],
+                     r["replicas"]))
+        if not r["losses"][-1] < r["losses"][0]:
+            fail("phase 17 (b): process %d's loss did not fall: %r"
+                 % (r["rank"], r["losses"]))
+
+
+def dlrm_stale_phase(card, port):
+    """Phase 17 (c): DLRM under Parallax(staleness=2) at N = 2 over
+    gloo."""
+    print("phase 17 (c): DLRM default config under Parallax(staleness=2) at "
+          "N = %d on cuda:0 over gloo (global batch %d), paced by the "
+          "coordination service, %d + %d steps"
+          % (DP_RANKS, PS_BATCH, STALE_WARMUP, STALE_STEPS))
+    res = spawn_pair(stale_child, "phase 17 (c)", port)
+    a, b = res
+    gap = max(max(r["gaps"]) for r in res)
+    if not (a["paced"] and b["paced"]) or a["staleness"] != 2:
+        fail("phase 17 (c): the ranks were not paced (staleness %r)"
+             % a["staleness"])
+    if gap > 2 or min(min(r["gaps"]) for r in res) < 0:
+        fail("phase 17 (c): a rank was %d steps ahead of the slowest "
+             "(bound 2)" % gap)
+    if a["losses"] != b["losses"] or a["digest"] != b["digest"]:
+        fail("phase 17 (c): the ranks disagree (losses %r vs %r, digests "
+             "%s vs %s)" % (a["losses"], b["losses"], a["digest"],
+                            b["digest"]))
+    if not all(x == x for x in a["losses"]):
+        fail("phase 17 (c): a loss is not finite: %r" % a["losses"])
+    print("  losses %s (both ranks); store digests equal %s (%d mirror "
+          "checks a rank); runner.barrier %.3f / %.3f ms a step (%d "
+          "spans a rank); largest step gap on the service %d (bound 2) "
+          "[%s]" % (" ".join("%.5f" % x for x in a["losses"]),
+                    a["digest"][:12], a["mirror_checks"], a["barrier_ms"],
+                    b["barrier_ms"], a["barriers"], gap, card))
+
+
+def async_phase(card):
+    """Phase 17: the coordination service, async host PS served over it
+    and bounded staleness across ranks. The service runs on a free port
+    for the phase and is stopped at its end. Returns (a)'s launches."""
+    from autodist_tpu_torch.runtime.coordination import CoordinationServer
+    from autodist_tpu_torch.telemetry import spans as tel
+    # the spans (ps_service.*, ps.*, runner.barrier) record while tracing
+    # is on
+    tel.configure("1")
+    t0 = time.perf_counter()
+    try:
+        launches = bert_async_phase(card)
+        for sub in (dlrm_async_phase, dlrm_stale_phase):
+            srv = CoordinationServer(free_port()).start()
+            try:
+                sub(card, srv.port)
+            finally:
+                srv.stop()
+    finally:
+        tel.configure(None)
+    print("phase 17: %.1f s" % (time.perf_counter() - t0))
+    return launches
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "autodist_tpu_torch", "csrc")):
         fail("autodist_tpu_torch/ is not beside chip_smoke.py — run it from "
@@ -3816,6 +4287,7 @@ def main():
     ps_launches, bert_ps_losses = ps_phase(card)
     carry_launches, carry_per_microstep, adamw_launches = carry_phase(
         card, bert_ps_losses)
+    async_launches = async_phase(card)
 
     # flash_fwd runs on the three main paths, serving (decode), lm1b and
     # bert training, the backward kernels on the two training paths. Each
@@ -3867,11 +4339,13 @@ def main():
         # again in the recomputed forward): launches only
         # phase 15 (d): bert_base under Parallax, the tables host-resident
         # phase 16 (d): bert_base under AdamW
+        # phase 17 (a): bert_base under PS(sync=False), drained and not
         for path, counts in (("bert_sync_variants", sync_launches),
                              ("lm1b_bf16_tier", tier_launches),
                              ("bert_remat", remat_launches),
                              ("bert_parallax", ps_launches),
-                             ("bert_adamw", adamw_launches)):
+                             ("bert_adamw", adamw_launches),
+                             ("bert_async", async_launches)):
             n = counts.get(name, {})
             rec["by_path"][path] = {
                 "launches": sum(n.values()),

@@ -253,9 +253,10 @@ def _ps(plan):
                          ids=["rhd", "ps"])
 def test_unported_features_raise_at_two_replicas(mutate, roadmap_item):
     """Features the port has not reached raise at N > 1, naming the
-    ROADMAP item: the rhd all-reduce schedule (item 7) and a PS
-    synchronizer's bounded staleness, the Runner's cross-process step
-    window (item 8's control plane); nothing is silently ignored."""
+    ROADMAP item: the rhd all-reduce schedule (item 7); nothing is
+    silently ignored. A PS synchronizer's bounded staleness (item 8's
+    control plane, once refused here) now lowers at two replicas: the
+    Runner paces it across the ranks (tests/test_torch_async_ps.py)."""
     from autodist_tpu_torch.kernel.graph_transformer import GraphTransformer
     from autodist_tpu_torch.kernel.replicator import ReplicaInfo
     from autodist_tpu_torch.model_item import ModelItem
@@ -268,6 +269,13 @@ def test_unported_features_raise_at_two_replicas(mutate, roadmap_item):
     plan = StrategyCompiler(item, spec).compile(
         strategy.AllReduce().build(item, spec))
     mutate(plan)
+    if mutate is _ps:
+        dstep = GraphTransformer(plan, item, "cpu",
+                                 ReplicaInfo(2, 0)).transform()
+        assert dstep.num_replicas == 2
+        assert dstep.metadata["staleness"] == 2
+        assert dstep.metadata["async"] is False
+        return
     with pytest.raises(NotImplementedError,
                        match="ROADMAP A item %d" % roadmap_item):
         GraphTransformer(plan, item, "cpu", ReplicaInfo(2, 0)).transform()

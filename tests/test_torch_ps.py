@@ -10,18 +10,20 @@ and its lowering, against the JAX package, on the CPU.
   on timing, so they are not held to JAX value for value). On the tree
   before the port's PS family, the plan compiled and trained every
   variable on the device.
-- The refusals, at every replica count: ``sync=False`` (async serving
-  over the coordination service) and ``staleness > 0`` at N > 1 (the
-  Runner's cross-process step window), each a ``NotImplementedError``
-  naming its ROADMAP item; and fused supersteps (``fit(fuse_steps=k)``,
-  ``multi_step``) over a stale store, which the JAX package refuses with
-  its ``ValueError`` (fused supersteps over a synchronous store are
-  ``tests/test_torch_fused_ps.py``'s).
+- The combinations once refused: ``sync=False`` now lowers at one
+  replica a process and ``staleness > 0`` at N > 1 lowers too (their
+  training is ``tests/test_torch_async_ps.py``'s); fused supersteps
+  (``fit(fuse_steps=k)``, ``multi_step``) over a stale store stay
+  refused with the JAX package's ``ValueError`` (fused supersteps over a
+  synchronous store are ``tests/test_torch_fused_ps.py``'s).
 - The pipeline (``PSPipeline``): exact mode ``torch.equal`` to the serial
   path (``ADT_PS_OVERLAP=0``), and a checkpoint taken with a push in
   flight equal to the serial one; the threaded apply
   (``ADT_PS_APPLY_THREADS``) bit-exact to one thread; ``Runner.evaluate``
   pulls once for its loop.
+- Compute-then-swap: an apply replaces the values (a staged pull's
+  tensors never change) with the in-place update's bits, and a pull
+  during an apply returns at once with the version before it.
 - The store's pieces against the JAX store: ragged (uneven) shards, the
   optimizer state rebuilt from a full layout and gathered back, the
   ``np.add.at`` densify of repeated ids bit for bit, and the mirror
@@ -36,6 +38,8 @@ Adam turns its rounding noise into a step of up to lr: 2 x steps x lr
 """
 import functools
 import json
+import threading
+import time
 
 import jax
 import numpy as np
@@ -49,11 +53,12 @@ from autodist_tpu.models import lm as jlm
 from autodist_tpu.models import ncf as jncf
 from autodist_tpu.parallel import ps as jps
 from autodist_tpu.resource_spec import ResourceSpec as JSpec
-from autodist_tpu_torch import strategy
+from autodist_tpu_torch import optim, strategy
 from autodist_tpu_torch.convert import params_from_jax
 from autodist_tpu_torch.kernel.common.proxy_variable import ProxyVariable
 from autodist_tpu_torch.models import dlrm as tdlrm
 from autodist_tpu_torch.models import lm as tlm
+from autodist_tpu_torch.model_item import VarInfo
 from autodist_tpu_torch.models import ncf as tncf
 from autodist_tpu_torch.parallel import ps as tps
 from autodist_tpu_torch.resource_spec import ResourceSpec
@@ -219,23 +224,36 @@ def _refusal(case):
     spec = ResourceSpec.from_dict(ONE if n == 1 else TWO)
     plan = StrategyCompiler(item, spec).compile(
         _all_ps(base, stale, sync).build(item, spec))
-    GraphTransformer(plan, item, "cpu", ReplicaInfo(n, 0)).transform()
+    return GraphTransformer(plan, item, "cpu",
+                            ReplicaInfo(n, 0)).transform()
 
 
 @pytest.mark.parametrize("case,item", [("async_one", 8), ("async_two", 8),
                                        ("stale_two", 8), ("fused_fit", 14),
                                        ("fused_multi_step", 14)])
 def test_unreached_ps_combinations_raise_with_their_item(case, item):
+    """The PS combinations the port once refused by their ROADMAP item.
+    Item 8's first part (async PS, staleness at N > 1) is ported: an
+    async plan lowers at one replica a process (``AutoDist`` builds it
+    so), so a transform handed two ranks says the plan trains at one; a
+    stale plan lowers at two replicas (the Runner paces it). Item 14
+    ported the fused carry, and a stale store stays refused there, as the
+    JAX package refuses it (tests/test_fused.py)."""
     if case.startswith("fused"):
-        # item 14 ported the fused carry; a stale store stays refused, as
-        # the JAX package refuses it (tests/test_fused.py)
         with pytest.raises(ValueError, match="fused multi-step requires "
                                              "synchronous host-PS"):
             _refusal(case)
         return
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP A item %d" % item):
-        _refusal(case)
+    if case == "async_two":
+        with pytest.raises(ValueError, match="the plan has 1 replicas but "
+                                             "the process group has 2"):
+            _refusal(case)
+        return
+    dstep = _refusal(case)
+    assert dstep.metadata["async"] == (case == "async_one")
+    assert dstep.metadata["staleness"] == (2 if case == "stale_two" else 0)
+    assert dstep.num_replicas == (1 if case == "async_one" else 2)
+    assert len(dstep.ps_store.var_names) == 38
 
 
 def test_proxied_ps_stays_on_the_device():
@@ -322,6 +340,116 @@ def test_evaluate_pulls_once_for_the_whole_loop():
                                             batch_size=8)
     runner.evaluate(iter([batch] * 5))
     assert store.stats["pulls"] - before <= 1, store.stats
+
+
+def test_a_pull_does_not_wait_for_an_apply(monkeypatch):
+    """Compute-then-swap: while an apply is held inside its optimizer
+    update, a pull returns at once with the version before it; the
+    apply then swaps its values in."""
+    infos = {"w": VarInfo(name="w", shape=(4, 2), dtype="float32")}
+    plans = {"w": tps.PSVarPlan(var_name="w",
+                                destinations=("127.0.0.1:CPU:0",))}
+    opt = optim.capture(functools.partial(torch.optim.SGD, lr=0.1))
+    store = tps.PSStore(plans, infos, opt)
+    store.init_params({"w": torch.ones(4, 2)})
+    entered, release = threading.Event(), threading.Event()
+    real = type(opt).delta
+
+    def held(self, grads, state, params):
+        entered.set()
+        assert release.wait(10)
+        return real(self, grads, state, params)
+    monkeypatch.setattr(type(opt), "delta", held)
+    t = threading.Thread(target=store.apply_local,
+                         args=({"w": torch.ones(4, 2)},))
+    t.start()
+    try:
+        assert entered.wait(10)
+        t0 = time.monotonic()
+        vals, version = store.pull()
+        assert time.monotonic() - t0 < 1.0
+        assert version == 0
+        np.testing.assert_array_equal(vals["w"].numpy(), np.ones((4, 2)))
+    finally:
+        release.set()
+        t.join(10)
+    vals, version = store.pull()
+    assert version == 1
+    np.testing.assert_allclose(vals["w"].numpy(), np.full((4, 2), 0.9))
+    store.close()
+
+
+def test_pulls_read_one_version_while_applies_swap():
+    """Stress: eight threads pull while another applies 300 times, with a
+    short switch interval; every pull's values are the ones of exactly the
+    version it reports, for all four variables (two partitioned): an
+    apply that swapped the variables one at a time, or a version read
+    apart from its values, fails this."""
+    import sys
+    names = ("a", "b", "c", "d")
+    infos = {n: VarInfo(name=n, shape=(6, 2), dtype="float32")
+             for n in names}
+    plans = {n: tps.PSVarPlan(var_name=n, destinations=("h:CPU:0",) * k,
+                              shard_sizes=(4, 2) if k == 2 else None)
+             for n, k in zip(names, (2, 1, 2, 1))}
+    store = tps.PSStore(plans, infos, optim.capture(
+        functools.partial(torch.optim.SGD, lr=0.1)))
+    store.init_params({n: torch.ones(6, 2) for n in names})
+    applies = 300
+    want = [np.float32(1.0)]
+    for _ in range(applies):   # the float32 SGD trajectory of gradient 1
+        want.append(np.float32(want[-1] + np.float32(-0.1)))
+    seen, errors, done = [], [], threading.Event()
+
+    def puller():
+        while not done.is_set():
+            vals, version = store.pull()
+            for name in names:
+                if not np.all(vals[name].numpy() == want[version]):
+                    errors.append((name, version))
+            seen.append(version)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    threads = [threading.Thread(target=puller) for _ in range(8)]
+    try:
+        for t in threads:
+            t.start()
+        for _ in range(applies):
+            store.apply_local({n: torch.ones(6, 2) for n in names})
+    finally:
+        done.set()
+        for t in threads:
+            t.join(10)
+        sys.setswitchinterval(old)
+        store.close()
+    assert not any(t.is_alive() for t in threads)
+    assert not errors, errors[:5]
+    assert store.version == applies and len(set(seen)) > 1
+
+
+def test_an_apply_replaces_the_values_and_never_writes_them():
+    """The values a pull staged stay as they were after an apply (it
+    computes fresh tensors and swaps them in), and the result is the
+    in-place update's, bit for bit (the JAX store's compute-then-swap)."""
+    rng = np.random.RandomState(3)
+    full = rng.randn(7, 3).astype(np.float32)
+    port, jstore = _stores((7, 3), (3, 2, 2))
+    port.init_params({"w": torch.from_numpy(full)})
+    before = list(port._values["w"])
+    copies = [t.clone() for t in before]
+    g = rng.randn(7, 3).astype(np.float32)
+    port.apply_local({"w": torch.from_numpy(g)})
+    for old, copy, new in zip(before, copies, port._values["w"]):
+        assert torch.equal(old, copy) and new is not old
+    # the same update in place, through the optimizer's own update
+    opt = port._optimizer
+    for si, (v, gs) in enumerate(zip(copies, port._split(
+            port.plans["w"], torch.from_numpy(g)))):
+        state = opt.init({"v": v})
+        opt.update({"v": gs.contiguous()}, state, {"v": v})
+        assert torch.equal(v, port._values["w"][si]), si
+    port.close()
 
 
 # ------------------------------------------------------------------- store

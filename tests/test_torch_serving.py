@@ -7,10 +7,14 @@ satisfies) with both decode paths, on the JAX init converted with
 ``params_from_jax``; every result equals greedy full recompute through the
 JAX model, token for token. Also: the scheduler/config probes, the
 package's import isolation from JAX, and the device rule of the entry
-points.
+points. The inference engine's host-PS snapshot: shared by the requests,
+refreshed at most every ``snapshot_max_age_s``, degraded for
+``degraded_batches`` batches, then shed with ``ServingUnavailable``.
 """
+import functools
 import subprocess
 import sys
+import time
 
 import jax
 import numpy as np
@@ -214,3 +218,85 @@ def test_default_device_raises_without_a_card(monkeypatch):
     assert ad.device.type == "cpu"
     with pytest.raises(NotImplementedError, match="one AutoDist"):
         adt.AutoDist(device="cpu")
+
+
+# ------------------------------------------------- the host-PS snapshot
+
+
+def _ps_engine(snapshot_max_age_s, degraded_batches=None):
+    """An engine over a small scorer whose variables rest on the host PS
+    (``PS()``): ``score = emb[ids] @ w``."""
+    rng = np.random.RandomState(0)
+    params = {"emb": torch.from_numpy(rng.randn(32, 4).astype(np.float32)),
+              "w": torch.from_numpy(rng.randn(4, 2).astype(np.float32))}
+
+    def loss_fn(p, b):
+        return torch.mean(p["emb"][torch.as_tensor(b["ids"])] @ p["w"])
+
+    def serve_fn(p, b):
+        return {"score": p["emb"][torch.as_tensor(b["ids"])] @ p["w"]}
+    batch = {"ids": np.arange(8, dtype=np.int64)}
+    ad = adt.AutoDist(strategy_builder=strategy.PS(), device="cpu")
+    runner = ad.build(loss_fn, functools.partial(torch.optim.SGD, lr=0.1),
+                      params, batch)
+    runner.init(params)
+    requests = [{"ids": np.int64(i)} for i in range(8)]
+    engine = InferenceEngine(
+        runner, serve_fn, requests[0],
+        ServingConfig(buckets=(8,), snapshot_max_age_s=snapshot_max_age_s,
+                      degraded_batches=degraded_batches)).warmup()
+    want = (params["emb"][:4] @ params["w"]).numpy()
+    return runner, engine, requests, want
+
+
+def test_engine_snapshot_refreshes_at_most_every_max_age(monkeypatch):
+    """One host-PS snapshot serves the requests until it is
+    ``snapshot_max_age_s`` old (the JAX engine's), instead of a pull each
+    dispatch."""
+    runner, engine, requests, want = _ps_engine(snapshot_max_age_s=0.3)
+    dstep = runner.distributed_step
+    assert dstep.ps_store is not None
+    pulls = []
+    real_pull = dstep.pull_ps
+    monkeypatch.setattr(dstep, "pull_ps",
+                        lambda: pulls.append(1) or real_pull())
+    refreshes = engine.stats["snapshot_refreshes"]
+    for _ in range(5):
+        got, _ = engine.run_batch(requests[:4])
+        np.testing.assert_allclose(got["score"], want, rtol=1e-6)
+    assert len(pulls) <= 1
+    time.sleep(0.35)
+    engine.run_batch(requests[:4])
+    assert len(pulls) >= 1
+    assert engine.stats["snapshot_refreshes"] - refreshes == len(pulls)
+
+
+def test_engine_degraded_window_then_shed_then_recovery(monkeypatch):
+    """Snapshot refresh failures serve the last good snapshot for
+    ``degraded_batches`` batches (counted), then shed with
+    ``ServingUnavailable``; a good refresh resets the window (the JAX
+    ``test_engine_degraded_window_then_shed_then_recovery``)."""
+    from autodist_tpu_torch.telemetry import spans as tel
+    runner, engine, requests, want = _ps_engine(snapshot_max_age_s=0.0,
+                                                degraded_batches=2)
+    good, _ = engine.run_batch(requests[:4])
+    np.testing.assert_allclose(good["score"], want, rtol=1e-6)
+    dstep = runner.distributed_step
+    real_pull = dstep.pull_ps
+
+    def failing_pull():
+        raise OSError("coordination service unreachable")
+
+    c0 = tel.counters().get("serve.degraded", 0.0)
+    monkeypatch.setattr(dstep, "pull_ps", failing_pull)
+    for i in (1, 2):
+        degraded, _ = engine.run_batch(requests[:4])
+        np.testing.assert_array_equal(degraded["score"], good["score"])
+        assert engine.stats["degraded"] == i
+    assert tel.counters()["serve.degraded"] == c0 + 2
+    with pytest.raises(ServingUnavailable, match="degraded window"):
+        engine.run_batch(requests[:4])
+    monkeypatch.setattr(dstep, "pull_ps", real_pull)
+    recovered, _ = engine.run_batch(requests[:4])
+    np.testing.assert_array_equal(recovered["score"], good["score"])
+    assert engine._degraded_used == 0

@@ -6,8 +6,8 @@ The tests (``tests/test_torch_collectives.py``,
 ``tests/test_torch_partitioned.py``, ``tests/test_torch_overlap.py``,
 ``tests/test_torch_compute_tier.py``, ``tests/test_torch_recsys.py``,
 ``tests/test_torch_ps.py``, ``tests/test_torch_sparse.py``,
-``tests/test_torch_optimizers.py``, ``tests/test_torch_fused_ps.py``)
-compute their JAX references in the pytest process and hand numpy arrays
+``tests/test_torch_optimizers.py``, ``tests/test_torch_fused_ps.py``,
+``tests/test_torch_async_ps.py``) compute their JAX references in the pytest process and hand numpy arrays
 to :func:`launch`, which starts
 ``world`` processes with the ``spawn`` start method. Each process joins a
 gloo group made from a ``FileStore`` in the test's temporary directory
@@ -415,5 +415,125 @@ def fused_job(payload, device):
     return out
 
 
+ASYNC_BUILDERS = {
+    "PSAsync": ("PS", {"sync": False}),
+    "PSAsyncLB": ("PSLoadBalancing", {"sync": False}),
+    "PSAsyncPart": ("PartitionedPS", {"sync": False}),
+    "PSStale": ("PS", {"staleness": 2}),
+}
+
+# the group's collectives, counted while the async cases run
+_COLLECTIVES = ("all_reduce", "all_gather", "all_gather_into_tensor",
+                "reduce_scatter_tensor", "broadcast", "barrier", "all_to_all",
+                "all_gather_object", "broadcast_object_list", "send", "recv")
+
+
+def _count_collectives() -> list:
+    """Wrap the default group's collectives with a call counter; returns
+    the one-element list it counts in."""
+    calls = [0]
+    for name in _COLLECTIVES:
+        fn = getattr(dist, name, None)
+        if fn is None or getattr(fn, "_counted", False):
+            continue
+
+        def counted(*a, _fn=fn, **kw):
+            calls[0] += 1
+            return _fn(*a, **kw)
+        counted._counted = True
+        setattr(dist, name, counted)
+    return calls
+
+
+def async_job(payload, device):
+    """Each case of ``payload["cases"]`` in turn (``ASYNC_BUILDERS``),
+    on the coordination service at ``payload["ports"][case]``, as a two
+    host job (rank 0 the chief ``127.0.0.1``, rank 1 ``localhost``):
+    ``Runner.run`` steps on the JAX ``tests/dist_driver.py`` MLP. An async
+    case ends with every push queued, every owner queue drained and a
+    save (``PSAsyncPart``, under Adam); a stale case records, after each
+    step, how far this rank was ahead of the slowest on the service.
+    Returns each case's losses, ownership, counters, collective calls
+    and, for the stale case, the gaps, the barrier spans and the mirror
+    digest."""
+    import autodist_tpu_torch as adt
+    from autodist_tpu_torch.checkpoint import Saver
+    from autodist_tpu_torch.resource_spec import ResourceSpec
+    from autodist_tpu_torch.runtime.coordination import CoordinationClient
+    from autodist_tpu_torch.telemetry import spans as tel
+    from autodist_tpu_torch import strategy
+    rank = dist.get_rank()
+    os.environ["ADT_NUM_PROCESSES"] = "2"
+    os.environ["ADT_PS_MIRROR_CHECK_EVERY"] = "2"
+    if rank:
+        os.environ["ADT_WORKER"] = "localhost"
+    spec = ResourceSpec.from_dict({"nodes": [
+        {"address": "127.0.0.1", "chief": True, "cpus": [0]},
+        {"address": "localhost", "cpus": [0]}]})
+    batch = payload["batch"]
+
+    def loss_fn(p, b):
+        h = torch.tanh(torch.as_tensor(b["x"]) @ p["w1"] + p["b1"])
+        return torch.mean((h @ p["w2"] - torch.as_tensor(b["y"])) ** 2)
+    init = {n: torch.as_tensor(v) for n, v in payload["init"].items()}
+    calls = _count_collectives()
+    out = {}
+    for case in payload["cases"]:
+        port = payload["ports"][case]
+        os.environ["ADT_COORDSVC_PORT"] = str(port)
+        tel.reset()
+        tel.configure("1")
+        cls, kw = ASYNC_BUILDERS[case]
+        opt = (functools.partial(torch.optim.Adam, lr=1e-2)
+               if case == "PSAsyncPart" else
+               functools.partial(torch.optim.SGD, lr=0.1))
+        ad = adt.AutoDist(strategy_builder=getattr(strategy, cls)(**kw),
+                          resource_spec=spec, device=device)
+        runner = ad.build(loss_fn, opt, init, batch)
+        runner.init(init)
+        dstep = runner.distributed_step
+        store = dstep.ps_store
+        coord = CoordinationClient("127.0.0.1", port)
+        calls0 = calls[0]
+        losses, gaps = [], []
+        for _ in range(payload["steps"]):
+            losses.append(float(runner.run(batch)["loss"]))
+            if not dstep.metadata["async"]:
+                gaps.append(runner.step_stats()["steps"] - coord.min_step())
+        res = {"losses": losses, "gaps": gaps,
+               "async": dstep.metadata["async"],
+               "staleness": dstep.metadata["staleness"],
+               "replicas": dstep.num_replicas,
+               "serving": store.serving,
+               "pacing": runner._coord is not None}
+        if store.serving:
+            # every push queued, then every owner's queue empty, before
+            # any process reads the published state
+            dstep.flush_ps()
+            coord.barrier(case + "/pushed", 2)
+            store.drain()
+            coord.barrier(case + "/drained", 2)
+            if case == "PSAsyncPart":
+                Saver(payload["ckpt_dir"]).save(runner)
+            coord.barrier(case + "/saved", 2)
+            res["owned"] = [h for h, g in store._serve_groups.items()
+                            if g["owned"]]
+            res["applied"] = store.applied_total()
+            res["collectives"] = calls[0] - calls0
+        else:
+            dstep.flush_ps()
+            res["digest"] = store.mirror_digest()
+        spans = tel.get_recorder().summary()
+        res["barrier_spans"] = int(spans.get("runner.barrier",
+                                             {}).get("count", 0))
+        res["counters"] = {k: v for k, v in tel.counters().items()
+                           if k.startswith(("sync.", "ps."))}
+        coord.close()
+        adt.reset()
+        tel.configure(None)
+        out[case] = res
+    return out
+
+
 JOBS = {"compressors": compressor_job, "train": train_job, "ckpt": ckpt_job,
-        "ckpt_cross": ckpt_cross_job, "fused": fused_job}
+        "ckpt_cross": ckpt_cross_job, "fused": fused_job, "async": async_job}
