@@ -17,33 +17,46 @@ or, the JAX package's other entry points:
 capture -> strategy build -> compile -> lowering, with the JAX package's
 one-instance-per-process registry.
 
-Data parallelism is one process a replica: the caller creates the default
-``torch.distributed`` process group (``torchrun``, or
-``torch.multiprocessing`` with the ``spawn`` start method and a
-``FileStore`` or TCP address), each process builds its ``AutoDist`` and
-calls the same entry points, and the port runs on the group it finds —
-its rank and world size, its backend (the port never picks one). With no
-group there is one replica. The plan must name one replica a rank (the
-resource spec; ranks sharing one card list its index twice). Entry
-points run on ``cuda`` — ``cuda:<local rank>`` for a rank, the local rank
-being ``LOCAL_RANK`` as torchrun sets it, else the rank — unless the
-caller passes a device, and raise when that card is not visible rather
-than continue on the CPU or another card.
+Data parallelism is one process a replica, in one default
+``torch.distributed`` process group. A multi-node resource spec launches
+from one command on the chief (the JAX package's flow): ``AutoDist()``
+relaunches the user's script for every other device entry of the spec
+(``runtime/coordinator.py``, over ssh, or local ``bash`` for loopback
+nodes), starts the coordination service and joins every process into the
+group (``runtime/server_starter.py``); the chief builds the strategy and
+hands it to the workers (a copied file, or a broadcast under
+``ADT_EXTERNAL_LAUNCH``), and a worker's death ends the job with exit code
+1. A single-node job's processes come from the caller (``torchrun``, or
+``torch.multiprocessing`` with the ``spawn`` start method), who makes the
+group; the port runs on the group it finds. With no group there is one
+replica. The plan must name one replica a rank (the resource spec; ranks
+sharing one card list its index twice). Entry points run on ``cuda`` — a
+launched process on its own entry's card, a caller's rank on
+``cuda:<local rank>`` (``LOCAL_RANK`` as torchrun sets it, else the rank)
+— unless the caller passes a device, and raise when that card is not
+visible rather than continue on the CPU or another card.
 
 Async PS (``sync=False`` on every host-PS variable) is the exception to
 one replica a rank: each process trains at one replica of its own (the
 reference's between-graph replication) and meets its peers only through
 the parameter service (``runtime/ps_service.py``). With more than one
 process (``ADT_NUM_PROCESSES``, else the default group's world size) that
-service is the native coordination service, which the caller starts
-once, as for bounded staleness at N > 1::
+service is the native coordination service: a chief-launched job's chief
+starts it; otherwise the caller starts it once, as for bounded staleness
+at N > 1::
 
     from autodist_tpu_torch.runtime.coordination import CoordinationServer
     srv = CoordinationServer(port).start()    # every process:
                                               # ADT_COORDSVC_PORT=port
     # each process but the chief: ADT_WORKER=<its resource-spec address>
 """
+import atexit
+import collections
+import contextlib
+import datetime
+import json
 import os
+import time
 from typing import Callable, Optional
 
 import torch
@@ -59,8 +72,10 @@ from autodist_tpu_torch.runtime import ps_service as pss
 from autodist_tpu_torch.runtime.coordination import (CoordinationClient,
                                                      job_processes)
 from autodist_tpu_torch.runtime.resilience import ResilientCoordinationClient
+from autodist_tpu_torch.runtime import server_starter
 from autodist_tpu_torch.runtime.runner import Runner, WrappedSession
 from autodist_tpu_torch.strategy.base import Strategy, StrategyCompiler
+from autodist_tpu_torch.telemetry import spans as tel
 from autodist_tpu_torch.utils import logging
 from autodist_tpu_torch.utils.device import resolve_device
 
@@ -108,20 +123,19 @@ class AutoDist:
                  strategy_builder=None,
                  resource_spec: Optional[ResourceSpec] = None,
                  device=None):
-        self._replicas = process_group_replicas()
-        local_rank = None
-        if self._replicas.num_replicas > 1:
-            local_rank = int(os.environ.get("LOCAL_RANK",
-                                            self._replicas.rank))
-        self._device = resolve_device(device, local_rank)
+        const.makedirs()
+        # a launched worker joins the process group from the env the
+        # Coordinator set, before anything reads the group
+        server_starter.maybe_init_distributed(device)
         if resource_spec is not None:
             self._resource_spec = resource_spec
         elif resource_spec_file is not None:
             self._resource_spec = ResourceSpec(resource_spec_file)
         else:
+            kind = "cpu" if device is not None and \
+                torch.device(device).type == "cpu" else "cuda"
             self._resource_spec = ResourceSpec.from_local(
-                "cpu" if self._device.type == "cpu" else "cuda",
-                replicas=self._replicas.num_replicas)
+                kind, replicas=process_group_replicas().num_replicas)
         if strategy_builder is None:
             # the default, as in the JAX package and reference autodist.py:70
             from autodist_tpu_torch.strategy.ps_lb_strategy import \
@@ -129,7 +143,73 @@ class AutoDist:
             strategy_builder = PSLoadBalancing()
         self._strategy_builder = strategy_builder
         self._runner: Optional[Runner] = None
+        self._coordinator = None
+        self._early_launch(device)
+        self._replicas = process_group_replicas()
+        if device is None and const.ENV.ADT_DEVICE.val:
+            # a launched process runs on its own entry's device
+            self._device = resolve_device(const.ENV.ADT_DEVICE.val)
+        else:
+            local_rank = None
+            if self._replicas.num_replicas > 1:
+                local_rank = int(os.environ.get("LOCAL_RANK",
+                                                self._replicas.rank))
+            self._device = resolve_device(device, local_rank)
         set_default_autodist(self)
+
+    def _early_launch(self, device=None):
+        """Chief-launched multi-node jobs: launch the workers and join the
+        process group NOW, at construction, as the JAX package does
+        (its ``jax.distributed`` join must precede any device use): the
+        order is preallocate the strategy id, launch the workers (they
+        relaunch this script; their own ``AutoDist()`` joins from the
+        env), join — which returns once every worker has joined — and
+        only then let the user build; ``_setup`` ships the serialized
+        strategy afterwards (the workers wait in their strategy poll).
+        Nothing launches for a single-node spec, on a worker, under an
+        external launcher, or in a process that is already in a group
+        (the caller made its processes). A dry run (``ADT_DEBUG_REMOTE``)
+        logs each worker's launch command and joins nothing. If the
+        chief's own start fails, the workers it launched are stopped
+        before the error propagates."""
+        if (self._resource_spec.is_single_node() or not const.is_chief()
+                or const.ENV.ADT_EXTERNAL_LAUNCH.val
+                or server_starter.initialized()):
+            return
+        sid = const.ENV.ADT_STRATEGY_ID.val or datetime.datetime.now(
+            datetime.timezone.utc).strftime("%Y%m%dT%H%M%S%f")
+        # the build path reads the preset id from env when serializing
+        os.environ[const.ENV.ADT_STRATEGY_ID.name_str] = sid
+        from autodist_tpu_torch.runtime.cluster import Cluster
+        from autodist_tpu_torch.runtime.coordinator import Coordinator
+        cluster = Cluster(self._resource_spec)
+        self._coordinator = Coordinator(sid, cluster)
+        if const.ENV.ADT_DEBUG_REMOTE.val:
+            # remote_exec logs each command and starts nothing
+            self._coordinator.launch_clients(copy_strategy=False)
+            return
+        # the chief's own card, checked before anything is launched
+        resolve_device(device if device is not None else cluster.device(0))
+        # the chief's own process count and device entry: workers get
+        # theirs from worker_env; multi-process wiring on the chief
+        # (async-PS serving, staleness pacing) reads the same env
+        os.environ[const.ENV.ADT_NUM_PROCESSES.name_str] = str(
+            cluster.num_processes)
+        os.environ[const.ENV.ADT_DEVICE.name_str] = cluster.device(0)
+        try:
+            self._coordinator.launch_clients(copy_strategy=False)
+            # joins as process 0; returns once every worker has joined
+            cluster.start(device)
+        except BaseException:
+            # the watchers must not read the workers' end as a failure
+            self._coordinator.stop_watchdog()
+            cluster.stop_coordination_service()
+            cluster.terminate(grace_s=0.0)
+            raise
+        # atexit runs LIFO: this must fire BEFORE cluster.terminate (the
+        # registration inside start()) so a clean exit flags the watchers
+        # before terminate's SIGTERM makes a trailing worker "die"
+        atexit.register(self._coordinator.stop_watchdog)
 
     @property
     def resource_spec(self) -> ResourceSpec:
@@ -138,6 +218,89 @@ class AutoDist:
     @property
     def device(self) -> torch.device:
         return self._device
+
+    @property
+    def is_chief(self) -> bool:
+        return const.is_chief()
+
+    @contextlib.contextmanager
+    def scope(self):
+        """Capture scope (reference ``autodist.py:309-322``). The port
+        records the optimizer through ``optim.capture`` at build, so the
+        scope patches nothing."""
+        yield self
+
+    def _build_or_load_strategy(self, item: ModelItem) -> Strategy:
+        """Chief builds and serializes; workers load by id (reference
+        ``autodist.py:100-109``).
+
+        Two handoff modes:
+
+        - chief-launched (reference behavior): the chief serializes to
+          disk, the Coordinator copies the file to each worker node, and
+          workers poll for it by ``ADT_STRATEGY_ID``;
+        - externally launched (``ADT_EXTERNAL_LAUNCH``, all processes
+          started together): the strategy travels over a collective
+          broadcast, which by construction cannot deliver a stale file
+          from a previous run sharing the same serialization dir. A
+          preset ``ADT_STRATEGY_ID`` pins the id.
+
+        A job whose processes and group the caller made (torchrun,
+        ``mp.spawn``) hands nothing over: a rank with no
+        ``ADT_STRATEGY_ID`` builds the plan itself, as every rank of such
+        a job does (the builders are deterministic, and an async job's
+        processes must not meet in a collective).
+        """
+        external = (const.ENV.ADT_EXTERNAL_LAUNCH.val
+                    and const.ENV.ADT_NUM_PROCESSES.val > 1)
+        if const.is_chief():
+            strategy = self._strategy_builder.build(item, self._resource_spec)
+            preset_id = const.ENV.ADT_STRATEGY_ID.val
+            if preset_id:
+                strategy.id = preset_id
+            path = strategy.serialize()
+            logging.info("built strategy %s -> %s", strategy.id, path)
+            if external:
+                rank = process_group_replicas().rank
+                if rank != 0:
+                    raise RuntimeError(
+                        "externally-launched jobs must start the chief (no "
+                        "ADT_WORKER) with ADT_PROCESS_ID=0; this chief is "
+                        "process %d" % rank)
+                server_starter.broadcast_bytes(
+                    json.dumps(strategy.to_dict()).encode())
+            return strategy
+        with tel.span("autodist.strategy_load", "launch"):
+            if external:
+                data = server_starter.broadcast_bytes()
+                return Strategy.from_dict(json.loads(data.decode()))
+            strategy_id = const.ENV.ADT_STRATEGY_ID.val
+            if not strategy_id and server_starter.caller_made_group():
+                return self._strategy_builder.build(item, self._resource_spec)
+            if not strategy_id:
+                raise RuntimeError("worker process missing ADT_STRATEGY_ID")
+            # chief-launched workers start BEFORE the strategy exists, so
+            # this poll bounds the chief's whole build + the file copy
+            wait_s = const.ENV.ADT_STRATEGY_WAIT_S.val
+            deadline = time.monotonic() + wait_s
+            while True:
+                try:
+                    return Strategy.deserialize(strategy_id)
+                except (FileNotFoundError, json.JSONDecodeError):
+                    if time.monotonic() > deadline:
+                        raise RuntimeError(
+                            "strategy %s not available after %.0fs; did the "
+                            "chief fail before serializing?"
+                            % (strategy_id, wait_s))
+                    time.sleep(0.2)
+
+    def _setup(self):
+        """Chief-only: ship the strategy to the workers launched at
+        construction (reference ``autodist.py:120-128``), who wait in
+        their strategy poll. Jobs the chief did not launch have nothing
+        to ship."""
+        if self._coordinator is not None:
+            self._coordinator.distribute_strategy()
 
     def build(self, loss_fn: Callable, optimizer, params, example_batch,
               has_aux: bool = False, apply_fn: Optional[Callable] = None,
@@ -152,11 +315,11 @@ class AutoDist:
                          example_batch=example_batch, has_aux=has_aux,
                          apply_fn=apply_fn,
                          trainable_filter=trainable_filter).prepare()
-        strategy: Strategy = self._strategy_builder.build(
-            item, self._resource_spec)
+        strategy = self._build_or_load_strategy(item)
         compiled = StrategyCompiler(item, self._resource_spec).compile(
             strategy)
         logging.info("compiled %r", compiled)
+        self._setup()
         is_async = self._validate_async(compiled, item)
         # async PS cannot ride collectives (they are lockstep): each
         # process builds at one replica of its own
@@ -211,6 +374,16 @@ class AutoDist:
             def service_for_host(host):
                 return services.setdefault(host, pss.LocalPSService())
         else:
+            per_node = collections.Counter(
+                d.host for d in self._resource_spec.devices)
+            crowded = sorted(h for h, c in per_node.items() if c > 1)
+            if crowded:
+                host, c = crowded[0], per_node[crowded[0]]
+                raise ValueError(
+                    "async PS with %d processes: node %s lists %d device "
+                    "entries, so %d processes would claim its one owner "
+                    "group ps:%s (owner groups are per host); list one "
+                    "device entry a node" % (n, host, c, c, host))
             if self._replicas.rank > 0 and not const.ENV.ADT_WORKER.val:
                 raise ValueError(
                     "async PS with %d processes: rank %d has no ADT_WORKER, "
@@ -254,14 +427,14 @@ class AutoDist:
         Runner: ``runner.init(state)``."""
         item = ModelItem(step_fn=step_fn, params=state,
                          example_batch=example_batch).prepare()
-        strategy: Strategy = self._strategy_builder.build(
-            item, self._resource_spec)
+        strategy = self._build_or_load_strategy(item)
         compiled = StrategyCompiler(item, self._resource_spec).compile(
             strategy)
         logging.info("compiled %r (step_fn mode)", compiled)
         if self._validate_async(compiled, item):
             raise ValueError("async host-PS strategies cannot lower an "
                              "opaque step_fn — use loss_fn mode")
+        self._setup()
         dstep = GraphTransformer(compiled, item, self._device,
                                  self._replicas).transform()
         self._runner = Runner(dstep)

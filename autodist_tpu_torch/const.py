@@ -6,9 +6,14 @@ range for the coordination service, replica naming prefixes, group-leader
 identity, and a typed ``ENV`` enum of environment variables.
 """
 import os
+import tempfile
 from enum import Enum
 
-DEFAULT_WORKING_DIR = os.environ.get("ADT_WORKING_DIR", "/tmp/autodist_tpu_torch")
+# under the temporary directory (TMPDIR, else /tmp); launched workers get
+# the chief's through ADT_WORKING_DIR, so a copied strategy lands where they
+# read it
+DEFAULT_WORKING_DIR = os.environ.get(
+    "ADT_WORKING_DIR", os.path.join(tempfile.gettempdir(), "autodist_tpu_torch"))
 DEFAULT_SERIALIZATION_DIR = os.path.join(DEFAULT_WORKING_DIR, "strategies")
 DEFAULT_LOG_DIR = os.path.join(DEFAULT_WORKING_DIR, "logs")
 DEFAULT_TRACE_DIR = os.path.join(DEFAULT_WORKING_DIR, "traces")
@@ -48,6 +53,9 @@ class ENV(Enum):
 
     ADT_WORKER = ("ADT_WORKER", str, "")                  # non-empty => this process is a worker, value = its address
     ADT_STRATEGY_ID = ("ADT_STRATEGY_ID", str, "")        # strategy id assigned by chief
+    # how long a chief-launched worker polls for the chief's strategy file
+    # (seconds): it bounds the chief's whole build and the copy
+    ADT_STRATEGY_WAIT_S = ("ADT_STRATEGY_WAIT_S", float, 600.0)
     ADT_MIN_LOG_LEVEL = ("ADT_MIN_LOG_LEVEL", str, "INFO")
     ADT_IS_TESTING = ("ADT_IS_TESTING", bool, False)      # enables extra invariant checks
     ADT_DEBUG_REMOTE = ("ADT_DEBUG_REMOTE", bool, False)  # suppress real SSH exec (dry-run)
@@ -58,6 +66,10 @@ class ENV(Enum):
     ADT_COORDINATOR_ADDR = ("ADT_COORDINATOR_ADDR", str, "")  # host:port of chief coordination service
     ADT_NUM_PROCESSES = ("ADT_NUM_PROCESSES", int, 1)
     ADT_PROCESS_ID = ("ADT_PROCESS_ID", int, 0)
+    # a launched process's device entry in the resource spec, "cuda:<listed
+    # index>" or "cpu" (runtime/cluster.py worker_env; the chief's own is
+    # set at its launch)
+    ADT_DEVICE = ("ADT_DEVICE", str, "")
     # set (on every process) by external launchers (GKE/mpirun style) that
     # start all processes simultaneously; switches the strategy handoff from
     # chief-writes-file-then-launches-workers to a collective broadcast

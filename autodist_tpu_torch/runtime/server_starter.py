@@ -1,0 +1,162 @@
+"""Distributed-runtime bring-up for one process.
+
+PyTorch counterpart of ``autodist_tpu/runtime/server_starter.py``. Where
+the JAX package joins ``jax.distributed``, a process here joins the
+default ``torch.distributed`` process group: a ``TCPStore`` rendezvous at
+the chief's coordinator address (process 0 is its master, the
+group-leader role), then ``init_process_group`` on that store.
+
+``jax.distributed`` needs no backend choice; ``init_process_group`` does.
+Before the group is made, every process publishes its host name and its
+card's UUID on the rendezvous store, and :func:`choose_backend` picks
+NCCL only when every process has a card of its own (NCCL refuses two
+ranks on one card, and two loopback "nodes" can be one machine), else
+gloo. The choice and its reason are logged.
+
+Elastic bring-up (``ADT_ELASTIC``) is not ported (ROADMAP A item 8.3) and
+raises.
+"""
+import datetime
+import json
+import socket
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+
+from autodist_tpu_torch import const
+from autodist_tpu_torch.telemetry import spans as tel
+from autodist_tpu_torch.utils import logging
+from autodist_tpu_torch.utils.device import resolve_device
+
+_INITIALIZED = False
+# how long the rendezvous waits for every process of the job
+RENDEZVOUS_TIMEOUT = datetime.timedelta(seconds=300)
+
+ELASTIC_REFUSAL = (
+    "ADT_ELASTIC=%d: elastic jobs (worker restarts, shrink and rejoin) are "
+    "not ported to autodist_tpu_torch yet (ROADMAP A item 8.3); unset "
+    "ADT_ELASTIC")
+
+
+def refuse_elastic():
+    """Raise while ``ADT_ELASTIC`` asks for the elastic flow, which the
+    port does not have: a silently ignored restart budget would turn a
+    worker's death into an aborted job the user did not ask for."""
+    if const.ENV.ADT_ELASTIC.val > 0:
+        raise NotImplementedError(ELASTIC_REFUSAL % const.ENV.ADT_ELASTIC.val)
+
+
+def choose_backend(placements: Sequence[Tuple[str, Optional[str]]]
+                   ) -> Tuple[str, str]:
+    """The process group's backend from each rank's ``(host, card UUID)``
+    (UUID None for a rank on the CPU): ``("nccl", reason)`` when every rank
+    has a card of its own, else ``("gloo", reason)``."""
+    for rank, (host, uuid) in enumerate(placements):
+        if uuid is None:
+            return "gloo", "rank %d runs on the CPU" % rank
+    first = {}
+    for rank, place in enumerate(placements):
+        if place in first:
+            return "gloo", ("ranks %d and %d share card %s on %s, and NCCL "
+                            "refuses two ranks on one card"
+                            % (first[place], rank, place[1], place[0]))
+        first[place] = rank
+    return "nccl", "each of the %d ranks has a card of its own" % len(
+        placements)
+
+
+def _placement(device: torch.device) -> Tuple[str, Optional[str]]:
+    if device.type != "cuda":
+        return socket.gethostname(), None
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    return socket.gethostname(), str(
+        torch.cuda.get_device_properties(index).uuid)
+
+
+def init_distributed(coordinator_address: str, num_processes: int,
+                     process_id: int, device=None):
+    """Join the default process group (idempotent; a group the caller
+    made counts as joined). ``device`` is this process's device: the
+    given one, else its launched entry (``ADT_DEVICE``), else ``cuda``;
+    a card that is not visible raises before the rendezvous."""
+    global _INITIALIZED
+    if initialized() or num_processes <= 1:
+        return
+    dev = resolve_device(device if device is not None
+                         else const.ENV.ADT_DEVICE.val or None)
+    host, port = coordinator_address.rsplit(":", 1)
+    logging.info("joining the process group at %s (num_processes=%d, "
+                 "process_id=%d, %s)", coordinator_address, num_processes,
+                 process_id, dev)
+    store = dist.TCPStore(host, int(port), num_processes,
+                          is_master=process_id == 0,
+                          timeout=RENDEZVOUS_TIMEOUT)
+    store.set("adt/placement/%d" % process_id,
+              json.dumps(_placement(dev)))
+    keys = ["adt/placement/%d" % r for r in range(num_processes)]
+    store.wait(keys)
+    placements = [tuple(json.loads(store.get(k))) for k in keys]
+    backend, why = choose_backend(placements)
+    logging.info("process group backend %s: %s", backend, why)
+    if backend == "nccl":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(backend, store=store, rank=process_id,
+                            world_size=num_processes,
+                            timeout=RENDEZVOUS_TIMEOUT)
+    _INITIALIZED = True
+
+
+def initialized() -> bool:
+    """True once this process is in a process group: one it joined here,
+    or one the caller made (torchrun, ``mp.spawn``). Guards AutoDist's
+    chief-launched flow against re-entry and against relaunching the
+    processes of a job that already has them."""
+    return _INITIALIZED or (dist.is_available() and dist.is_initialized())
+
+
+def caller_made_group() -> bool:
+    """True when this process is in a group it did not join here: the
+    caller made the job's processes and their group."""
+    return not _INITIALIZED and dist.is_available() and dist.is_initialized()
+
+
+def maybe_init_distributed(device=None):
+    """Worker-side join from the env the Coordinator set (the chief
+    passes explicit arguments through ``Cluster.start``)."""
+    refuse_elastic()
+    addr = const.ENV.ADT_COORDINATOR_ADDR.val
+    n = const.ENV.ADT_NUM_PROCESSES.val
+    if addr and n > 1:
+        init_distributed(addr, n, const.ENV.ADT_PROCESS_ID.val, device)
+
+
+def broadcast_bytes(payload: Optional[bytes] = None) -> bytes:
+    """Collective broadcast of a byte string from process 0 to every
+    process of the default group.
+
+    The strategy handoff for externally-launched jobs (all processes
+    started together): unlike a shared filesystem, the job's own
+    collective cannot deliver bytes from a *previous* run, so workers can
+    never load a stale strategy. Must be called by ALL processes; only
+    process 0's ``payload`` is used (others pass None)."""
+    import numpy as np
+    is_src = dist.get_rank() == 0
+    if is_src and payload is None:
+        raise ValueError("process 0 must provide the payload")
+    # NCCL moves tensors on this process's card, gloo on the host
+    device = (torch.device("cuda", torch.cuda.current_device())
+              if dist.get_backend() == "nccl" else torch.device("cpu"))
+    with tel.span("server_starter.broadcast_bytes", "launch"):
+        length = torch.tensor([len(payload) if is_src else 0],
+                              dtype=torch.int64, device=device)
+        dist.broadcast(length, src=0)
+        n = int(length.item())
+        if n == 0:
+            return b""
+        buf = (torch.from_numpy(np.frombuffer(payload, np.uint8).copy())
+               if is_src else torch.empty(n, dtype=torch.uint8))
+        buf = buf.to(device)
+        dist.broadcast(buf, src=0)
+        return bytes(buf.cpu().numpy())

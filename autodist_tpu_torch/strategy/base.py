@@ -13,7 +13,7 @@ synchronize gradients (PS or AllReduce, with partitioning, staleness,
 compression, grouping), and per-graph which devices carry data-parallel
 replicas.
 
-Serialization is JSON on disk under ``/tmp/autodist_tpu_torch/strategies/<id>``
+Serialization is JSON on disk under ``<tmp>/autodist_tpu_torch/strategies/<id>``
 (the reference serializes protobuf under ``/tmp/autodist/strategies``,
 reference ``strategy/base.py:78-99``) so the chief can write a strategy and
 every worker can load the identical bytes — all processes then lower the same

@@ -239,6 +239,26 @@ result line):
    1 + 5 steps: the ``runner.barrier`` span's ms a step, the largest
    step gap on the service (bound 2), both ranks' losses and store
    digests equal.
+18. launch and handoff: a user script in a temporary directory, its chief
+   run as a subprocess on free ports (whatever is left of a job is killed
+   at its end): (a) bert_base bf16 (seq 128, global batch 128, flash)
+   under ``AllReduce()`` on a two-node spec (127.0.0.1 the chief,
+   localhost; ``gpus: [0]`` each), one command on the chief: it launches
+   the worker, both join one group on ``cuda:0`` (the backend rule must
+   pick gloo: one card), the file handoff, deterministic mode, 1 + 4
+   steps: both ranks' losses bit-equal, equal to phase 10's fp32-wire
+   losses or the op that parts them named, each kernel 12 launches a step
+   a rank on its tensor-core design; AutoDist() on the chief (launch +
+   join) ms, the worker's strategy wait ms, the first step and the step
+   p50; (b) NCF at its default config under ``PartitionedPS()``, two
+   processes started by the phase with ``ADT_EXTERNAL_LAUNCH``, 3 steps:
+   the worker's strategy byte-equal to the chief's file and no file read
+   on the worker, equal losses, ``broadcast_bytes`` ms; (c) the worker
+   exits 3 after AutoDist(): the chief exits 1 with "aborting job" within
+   60 s and no process is left; (d) NCF under
+   ``PSLoadBalancing(sync=False)`` launched by the chief (the service
+   started by ``Cluster.start`` only), Adam 1e-4, 1 + 3 steps: both hosts
+   publish, each process's loss falls, ms a step a process.
 
 TF32 is off for the whole run (``torch.backends.cuda.matmul`` and
 ``cudnn``): float32 is computed in float32, as the f32 checks' 2e-5 and
@@ -1451,7 +1471,8 @@ def dp_child(rank, store, out_dir):
 
 def dp_phase(card):
     """Phase 10: N = 2 data parallelism, two ranks on cuda:0 over gloo.
-    Returns each kernel's launches over both ranks' bert_base steps."""
+    Returns each kernel's launches over both ranks' bert_base steps, and
+    the fp32-wire losses."""
     import gc
     import tempfile
     import torch
@@ -1538,7 +1559,7 @@ def dp_phase(card):
              " ".join("%.6f" % x for x in two[0])))
     check_parity("phase 10 lm1b 2 ranks vs 1", {"1 rank": one,
                                                  "2 ranks": two}, 3)
-    return launches
+    return launches, res[0]["bert"]["fp32"]["losses"]
 
 
 
@@ -4143,6 +4164,461 @@ def async_phase(card):
     return launches
 
 
+# ------------------------------------------------------------- phase 18
+
+
+LAUNCH_WARMUP, LAUNCH_STEPS = 1, 4
+ASYNC_LAUNCH_STEPS = 3
+EXTERNAL_STEPS = 3
+# two nodes on one machine, one entry each on card 0: the chief
+# 127.0.0.1 launches localhost's process, and both run on cuda:0
+LAUNCH_SPEC = ("nodes:\n"
+               "  - address: 127.0.0.1\n    chief: true\n    gpus: [0]\n"
+               "  - address: localhost\n    gpus: [0]\n")
+
+# The user script of phase 18: the chief runs it from the phase, and the
+# chief relaunches it for its worker. argv: spec, out dir, mode, steps.
+LAUNCH_SCRIPT = r'''
+import functools, json, os, sys, time
+import torch
+import torch.distributed as dist
+import chip_smoke as cs
+import autodist_tpu_torch as adt
+from autodist_tpu_torch import strategy
+from autodist_tpu_torch.strategy.base import Strategy
+from autodist_tpu_torch.telemetry import spans as tel
+
+spec, outdir, mode, steps = (sys.argv[1], sys.argv[2], sys.argv[3],
+                             int(sys.argv[4]))
+worker = bool(os.environ.get("ADT_WORKER"))
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+tel.configure("1")   # the handoff's spans
+if mode == "external" and worker:
+    # the broadcast hands the strategy over: reading a file is a fault
+    def no_file(*a, **kw):
+        raise AssertionError("the worker read a strategy file")
+    Strategy.deserialize = no_file
+builder = {"bert": strategy.AllReduce, "external": strategy.PartitionedPS,
+           "crash": strategy.AllReduce,
+           "async": functools.partial(strategy.PSLoadBalancing,
+                                      sync=False)}[mode]()
+t0 = time.perf_counter()
+ad = adt.AutoDist(resource_spec_file=spec, strategy_builder=builder)
+construct_ms = 1e3 * (time.perf_counter() - t0)
+if mode == "crash" and worker:
+    os._exit(3)  # the supervised worker dies; the chief must fail fast
+rank = dist.get_rank()
+handed = []
+build_or_load = ad._build_or_load_strategy
+def capture(item):
+    handed.append(build_or_load(item))
+    return handed[-1]
+ad._build_or_load_strategy = capture
+if mode == "bert":
+    from autodist_tpu_torch.models import bert
+    torch.use_deterministic_algorithms(True)
+    cfg = bert.BertConfig.base(dtype=torch.bfloat16)
+    loss_fn, params, batch, _ = bert.make_train_setup(
+        cfg, seq_len=cs.BERT_SEQ, batch_size=cs.BERT_BATCH, seed=0,
+        attention="flash")
+    lr = 1e-3
+else:
+    from autodist_tpu_torch.models import ncf
+    loss_fn, params, batch, _ = ncf.make_train_setup(
+        ncf.NCFConfig(), batch_size=cs.PS_BATCH, seed=0)
+    lr = 1e-4 if mode == "async" else 1e-3
+runner = ad.build(loss_fn, functools.partial(torch.optim.Adam, lr=lr),
+                  params, batch)
+runner.init(params)
+cs.reset_counts()
+losses, times = [], []
+for _ in range(steps):
+    t = time.perf_counter()
+    losses.append(float(runner.run(batch)["loss"]))
+    torch.cuda.synchronize()
+    times.append(1e3 * (time.perf_counter() - t))
+launches = cs.launch_counts()
+rec = tel.get_recorder()
+out = {"rank": rank, "losses": losses, "times_ms": times,
+       "construct_ms": construct_ms, "launches": launches,
+       "world": dist.get_world_size(), "device": str(ad.device),
+       "strategy_id": handed[0].id,
+       "strategy_json": json.dumps(handed[0].to_dict(), sort_keys=True,
+                                   indent=1),
+       "strategy_wait_ms": [1e3 * d for d in
+                            rec.durations_s("autodist.strategy_load")],
+       "broadcast_ms": [1e3 * d for d in
+                        rec.durations_s("server_starter.broadcast_bytes")]}
+if mode == "async":
+    from autodist_tpu_torch.runtime.coordination import CoordinationClient
+    dstep = runner.distributed_step
+    store = dstep.ps_store
+    coord = CoordinationClient("127.0.0.1", adt.ENV.ADT_COORDSVC_PORT.val)
+    # every push queued, then every owner queue drained, before the
+    # chief reads what each owner published
+    dstep.flush_ps()
+    coord.barrier("18d/pushed", 2)
+    store.drain()
+    coord.barrier("18d/drained", 2)
+    out["replicas"] = dstep.num_replicas
+    out["applied"] = store.applied_total()
+    out["owned"] = [h for h, g in store._serve_groups.items() if g["owned"]]
+    out["published"] = {}
+    for host in ("127.0.0.1", "localhost"):
+        got = coord.bget("ps:%s/vals" % host)
+        out["published"][host] = None if got is None else [got[0],
+                                                           len(got[1])]
+    coord.barrier("18d/read", 2)
+    coord.close()
+with open(os.path.join(outdir, "out_%d.json" % rank), "w") as f:
+    json.dump(out, f)
+'''
+
+
+def job_pids(marker):
+    """Every live process whose environment carries ``marker``
+    (``NAME=value``)."""
+    pids = []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open("/proc/%s/environ" % entry, "rb") as f:
+                env = f.read().split(b"\0")
+        except OSError:
+            continue
+        if marker.encode() in env:
+            pids.append(int(entry))
+    return pids
+
+
+def kill_job(marker):
+    import signal
+    for pid in job_pids(marker):
+        try:
+            os.kill(pid, signal.SIGKILL)
+        except OSError:
+            pass
+
+
+def launch_env(tmp, marker, **extra):
+    """The environment of one phase 18 job: free ports, its own working
+    dir, the repository on the path, and the marker every process of the
+    job inherits."""
+    env = dict(os.environ)
+    for k in ("ADT_DEBUG_REMOTE", "ADT_WORKER", "ADT_STRATEGY_ID",
+              "ADT_EXTERNAL_LAUNCH", "ADT_NUM_PROCESSES", "ADT_PROCESS_ID",
+              "ADT_DEVICE", "ADT_ELASTIC", "LOCAL_RANK"):
+        env.pop(k, None)
+    env.update({"ADT_COORDINATOR_ADDR": "127.0.0.1:%d" % free_port(),
+                "ADT_COORDSVC_PORT": str(free_port()),
+                "ADT_WORKING_DIR": os.path.join(tmp, "work"),
+                "PYTHONPATH": HERE, "ADT_SMOKE_JOB": marker})
+    env.update(extra)
+    return env
+
+
+def run_launched(tmp, mode, steps, timeout, label):
+    """Run the user script as the chief of a chief-launched job; returns
+    (exit code, stderr, seconds). Whatever is left of the job is killed
+    at the end."""
+    import signal
+    import uuid
+    marker = uuid.uuid4().hex
+    script, spec = os.path.join(tmp, "user_script.py"), os.path.join(
+        tmp, "spec.yml")
+    # files, not pipes: a process the chief leaves behind would hold a
+    # pipe open and hide the chief's own exit
+    logs = [os.path.join(tmp, "chief.out"), os.path.join(tmp, "chief.err")]
+    t0 = time.perf_counter()
+    with open(logs[0], "w") as out_f, open(logs[1], "w") as err_f:
+        proc = subprocess.Popen(
+            [sys.executable, script, spec, tmp, mode, str(steps)], cwd=tmp,
+            env=launch_env(tmp, marker), stdout=out_f, stderr=err_f,
+            text=True, start_new_session=True)
+    try:
+        proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        kill_job("ADT_SMOKE_JOB=" + marker)
+        proc.wait()
+        with open(logs[1]) as f:
+            fail("%s: the job outlived %d s: %s" % (label, timeout,
+                                                   f.read()[-3000:]))
+    finally:
+        wall = time.perf_counter() - t0
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except OSError:
+            pass
+        # a process the chief stopped on its way out may take a moment
+        deadline = time.monotonic() + 5
+        while job_pids("ADT_SMOKE_JOB=" + marker) and \
+                time.monotonic() < deadline:
+            time.sleep(0.1)
+        left = job_pids("ADT_SMOKE_JOB=" + marker)
+        kill_job("ADT_SMOKE_JOB=" + marker)
+    with open(logs[1]) as f:
+        err = f.read()
+    return proc.returncode, err, wall, left
+
+
+def read_outputs(tmp, n, label, log):
+    res = []
+    for r in range(n):
+        path = os.path.join(tmp, "out_%d.json" % r)
+        if not os.path.exists(path):
+            fail("%s: rank %d wrote no result: %s" % (label, r, log[-3000:]))
+        with open(path) as f:
+            res.append(json.load(f))
+        os.remove(path)
+    return res
+
+
+def parting_variables():
+    """The bert_base variables whose gradient differs between PyTorch's
+    deterministic mode and its default, on phase 10's init and batch:
+    ``[(name, max |diff|)]``."""
+    import torch
+    from autodist_tpu_torch.models import bert
+    cfg = bert.BertConfig.base(dtype=torch.bfloat16)
+    loss_fn, params, batch, _ = bert.make_train_setup(
+        cfg, seq_len=BERT_SEQ, batch_size=BERT_BATCH, seed=0,
+        attention="flash")
+    leaves = {n: t.cuda().requires_grad_() for n, t in params.items()}
+    placed = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+    grads = {}
+    with uncounted():
+        for mode in (True, False):
+            torch.use_deterministic_algorithms(mode)
+            try:
+                grads[mode] = torch.autograd.grad(loss_fn(leaves, placed),
+                                                  list(leaves.values()))
+            finally:
+                torch.use_deterministic_algorithms(False)
+    return [(n, max_err(a, b)) for n, a, b in zip(leaves, grads[True],
+                                                 grads[False])
+            if not torch.equal(a, b)]
+
+
+def launched_bert_phase(card, tmp, dp_losses):
+    """Phase 18 (a): bert_base at full width, launched by the chief on two
+    processes of cuda:0. Returns both ranks' launches."""
+    import re
+    import statistics
+    steps = LAUNCH_WARMUP + LAUNCH_STEPS
+    print("phase 18 (a): bert_base bf16 (seq %d, global batch %d, flash) "
+          "under AllReduce(), launched by the chief: nodes 127.0.0.1 and "
+          "localhost, gpus [0] each (two processes on cuda:0), file "
+          "handoff, deterministic mode, %d + %d steps"
+          % (BERT_SEQ, BERT_BATCH, LAUNCH_WARMUP, LAUNCH_STEPS))
+    rc, err, wall, left = run_launched(tmp, "bert", steps, 300,
+                                       "phase 18 (a)")
+    if rc != 0 or left:
+        fail("phase 18 (a): the chief exited %d, %d processes left: %s"
+             % (rc, len(left), err[-3000:]))
+    # the log holds both processes' lines (the worker writes to the
+    # chief's stderr)
+    backend = re.findall(r"process group backend (\w+): (.*)", err)
+    if len(backend) != 2 or backend[0] != backend[1] or \
+            backend[0][0] != "gloo":
+        fail("phase 18 (a): the backend lines %r (want gloo on both: one "
+             "card)" % (backend,))
+    if "local_exec[localhost]" not in err:
+        fail("phase 18 (a): the chief launched no local worker")
+    res = read_outputs(tmp, 2, "phase 18 (a)", err)
+    a, b = res
+    if a["losses"] != b["losses"]:
+        fail("phase 18 (a): the ranks' losses differ: %r vs %r"
+             % (a["losses"], b["losses"]))
+    if not all(x == x for x in a["losses"]):
+        fail("phase 18 (a): a loss is not finite: %r" % a["losses"])
+    if a["strategy_json"] != b["strategy_json"] or \
+            b["strategy_wait_ms"] == [] or a["strategy_wait_ms"] != []:
+        fail("phase 18 (a): the worker did not load the chief's strategy")
+    launches = {}
+    for r in res:
+        if r["world"] != 2 or r["device"] != "cuda:0":
+            fail("phase 18 (a): rank %d ran at world %d on %s"
+                 % (r["rank"], r["world"], r["device"]))
+        check_launches("phase 18 (a) rank %d" % r["rank"], r["launches"],
+                       BERT_LAYERS, steps)
+        for name, by in r["launches"].items():
+            for design, n in by.items():
+                launches.setdefault(name, {})
+                launches[name][design] = launches[name].get(design, 0) + n
+    want = dp_losses
+    got = a["losses"][:len(want)]
+    if got == want:
+        verdict = "bit-equal to phase 10's fp32-wire losses %s" % (
+            " ".join("%.4f" % x for x in want))
+    else:
+        first = next(i for i, (x, y) in enumerate(zip(got, want)) if x != y)
+        differ = parting_variables()
+        if first == 0 or not differ:
+            fail("phase 18 (a): losses %r part from phase 10's %r at step "
+                 "%d, and no gradient differs between deterministic mode "
+                 "and the default" % (got, want, first + 1))
+        verdict = ("not bit-equal to phase 10's fp32-wire losses %s: they "
+                   "part at step %d (the first loss, before any update, is "
+                   "equal); phase 10 runs in the default mode, this phase in "
+                   "deterministic mode, and on the same init and batch the "
+                   "gradients of %d variables differ between the two: %s; "
+                   "the op is F.embedding's backward (index_add on CUDA: "
+                   "atomics in the default mode, an ordered sum in "
+                   "deterministic mode)" % (
+                       " ".join("%.6f" % x for x in want), first + 1,
+                       len(differ), ", ".join("%s (%.3e)" % d
+                                              for d in differ)))
+        if not all(n.endswith(".embedding") for n, _ in differ):
+            fail("phase 18 (a): %s — and not only embedding tables"
+                 % verdict)
+    after = a["times_ms"][LAUNCH_WARMUP:]
+    print("  backend: %s (%s); AutoDist() on the chief (launch + join) "
+          "%.1f ms, on the worker %.1f ms; the worker's strategy wait "
+          "%.1f ms; the job %.1f s from the chief's start to its exit"
+          % (backend[0][0], backend[0][1], a["construct_ms"],
+             b["construct_ms"], b["strategy_wait_ms"][0], wall))
+    print("  losses %s (both ranks, bit-equal), %s; first step %.1f / %.1f "
+          "ms (ranks 0 / 1), step p50 %.1f ms (min %.1f, max %.1f) / %.1f "
+          "ms; each kernel %d launches a step a rank on mma.sync bf16 [%s]"
+          % (" ".join("%.6f" % x for x in a["losses"]), verdict,
+             a["times_ms"][0], b["times_ms"][0], statistics.median(after),
+             min(after), max(after), statistics.median(
+                 b["times_ms"][LAUNCH_WARMUP:]), BERT_LAYERS, card))
+    return launches
+
+
+def external_phase(card, tmp):
+    """Phase 18 (b): NCF under PartitionedPS(), two processes started
+    together by the phase (``ADT_EXTERNAL_LAUNCH``): the strategy over
+    ``broadcast_bytes``."""
+    import signal
+    import uuid
+    print("phase 18 (b): NCF default config (batch %d) under "
+          "PartitionedPS(), two processes started together on cuda:0 "
+          "(ADT_EXTERNAL_LAUNCH: the strategy over broadcast_bytes), %d "
+          "steps" % (PS_BATCH, EXTERNAL_STEPS))
+    marker = uuid.uuid4().hex
+    sid = "smoke-external-%s" % marker[:12]
+    addr, svc = "127.0.0.1:%d" % free_port(), str(free_port())
+    script, spec = os.path.join(tmp, "user_script.py"), os.path.join(
+        tmp, "spec.yml")
+    procs = []
+    try:
+        for r in range(2):
+            extra = {"ADT_COORDINATOR_ADDR": addr, "ADT_COORDSVC_PORT": svc,
+                     "ADT_NUM_PROCESSES": "2", "ADT_PROCESS_ID": str(r),
+                     "ADT_EXTERNAL_LAUNCH": "1", "ADT_STRATEGY_ID": sid,
+                     "ADT_DEVICE": "cuda:0"}
+            if r:
+                extra["ADT_WORKER"] = "localhost"
+                extra["ADT_WORKING_DIR"] = os.path.join(tmp, "worker_work")
+            procs.append(subprocess.Popen(
+                [sys.executable, script, spec, tmp, "external",
+                 str(EXTERNAL_STEPS)], cwd=tmp,
+                env=launch_env(tmp, marker, **extra),
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                start_new_session=True))
+        logs = [p.communicate(timeout=180)[0] for p in procs]
+    except subprocess.TimeoutExpired:
+        fail("phase 18 (b): the pair outlived 180 s")
+    finally:
+        for p in procs:
+            try:
+                os.killpg(p.pid, signal.SIGKILL)
+            except OSError:
+                pass
+        kill_job("ADT_SMOKE_JOB=" + marker)
+    for p, log in zip(procs, logs):
+        if p.returncode != 0:
+            fail("phase 18 (b): a process exited %d: %s" % (p.returncode,
+                                                            log[-3000:]))
+    a, b = read_outputs(tmp, 2, "phase 18 (b)", "\n".join(logs))
+    with open(os.path.join(tmp, "work", "strategies", sid)) as f:
+        written = f.read()
+    if b["strategy_json"] != written or a["strategy_json"] != written:
+        fail("phase 18 (b): the worker's strategy is not the chief's file")
+    if os.path.exists(os.path.join(tmp, "worker_work", "strategies", sid)):
+        fail("phase 18 (b): a strategy file exists on the worker's side")
+    if a["losses"] != b["losses"] or not a["losses"][-1] < a["losses"][0]:
+        fail("phase 18 (b): losses %r vs %r" % (a["losses"], b["losses"]))
+    print("  the worker's strategy (%d B of JSON) byte-equal to the chief's "
+          "file, no file read on the worker; broadcast_bytes %.2f ms on the "
+          "chief, %.2f ms on the worker (its whole strategy load %.2f ms); "
+          "losses %s (both ranks) [%s]"
+          % (len(written), a["broadcast_ms"][0], b["broadcast_ms"][0],
+             b["strategy_wait_ms"][0],
+             " ".join("%.5f" % x for x in a["losses"]), card))
+
+
+def fail_fast_phase(card, tmp):
+    """Phase 18 (c): the launched worker exits 3 after AutoDist(); the
+    chief must exit 1 within 60 s and leave no process."""
+    print("phase 18 (c): the launched worker exits 3 right after "
+          "AutoDist(); the chief must abort the job")
+    rc, err, wall, left = run_launched(tmp, "crash", 1, 60, "phase 18 (c)")
+    if rc != 1 or "exited with code 3 — aborting job" not in err:
+        fail("phase 18 (c): the chief exited %d: %s" % (rc, err[-3000:]))
+    if left:
+        fail("phase 18 (c): %d processes of the job were left" % len(left))
+    print("  the chief exited 1 (\"aborting job\") %.1f s after its start; "
+          "no process of the job left [%s]" % (wall, card))
+
+
+def launched_async_phase(card, tmp):
+    """Phase 18 (d): NCF under PSLoadBalancing(sync=False), launched by
+    the chief, the service started by Cluster.start only."""
+    import statistics
+    steps = LAUNCH_WARMUP + ASYNC_LAUNCH_STEPS
+    print("phase 18 (d): NCF default config (batch %d) under "
+          "PSLoadBalancing(sync=False), Adam 1e-4, launched by the chief "
+          "(owner hosts 127.0.0.1 and localhost on cuda:0; the coordination "
+          "service started by Cluster.start), %d + %d steps"
+          % (PS_BATCH, LAUNCH_WARMUP, ASYNC_LAUNCH_STEPS))
+    rc, err, wall, left = run_launched(tmp, "async", steps, 240,
+                                       "phase 18 (d)")
+    if rc != 0 or left:
+        fail("phase 18 (d): the chief exited %d, %d processes left: %s"
+             % (rc, len(left), err[-3000:]))
+    res = read_outputs(tmp, 2, "phase 18 (d)", err)
+    published = res[0]["published"]
+    for host in ("127.0.0.1", "localhost"):
+        if published[host] is None:
+            fail("phase 18 (d): owner %s never published" % host)
+    for r in res:
+        if r["replicas"] != 1 or not r["losses"][-1] < r["losses"][0]:
+            fail("phase 18 (d): process %d at %d replicas, losses %r"
+                 % (r["rank"], r["replicas"], r["losses"]))
+        after = r["times_ms"][LAUNCH_WARMUP:]
+        print("  process %d (owner of %s): losses %s; step p50 %.2f ms "
+              "(min %.2f, max %.2f); %d blobs applied [%s]"
+              % (r["rank"], ",".join(r["owned"]),
+                 " ".join("%.5f" % x for x in r["losses"]),
+                 statistics.median(after), min(after), max(after),
+                 r["applied"], card))
+    print("  published: %s; the job %.1f s"
+          % (", ".join("%s version %d (%d B)" % (h, v[0], v[1])
+                       for h, v in sorted(published.items())), wall))
+
+
+def launch_phase(card, dp_losses):
+    """Phase 18: launch and handoff. Returns (a)'s launches."""
+    import tempfile
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "user_script.py"), "w") as f:
+            f.write(LAUNCH_SCRIPT)
+        with open(os.path.join(tmp, "spec.yml"), "w") as f:
+            f.write(LAUNCH_SPEC)
+        launches = launched_bert_phase(card, tmp, dp_losses)
+        external_phase(card, tmp)
+        fail_fast_phase(card, tmp)
+        launched_async_phase(card, tmp)
+    print("phase 18: %.1f s" % (time.perf_counter() - t0))
+    return launches
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "autodist_tpu_torch", "csrc")):
         fail("autodist_tpu_torch/ is not beside chip_smoke.py — run it from "
@@ -4279,7 +4755,7 @@ def main():
     bert_launches = bert_train_phase(card)
     resnet_phase(card)
     bert_parity_phase()
-    dp_launches = dp_phase(card)
+    dp_launches, dp_losses = dp_phase(card)
     resume_launches = resume_phase(card)
     cnn_phase(card)
     fused_launches, replay_per_microstep = fused_phase(card)
@@ -4288,6 +4764,7 @@ def main():
     carry_launches, carry_per_microstep, adamw_launches = carry_phase(
         card, bert_ps_losses)
     async_launches = async_phase(card)
+    launched_launches = launch_phase(card, dp_losses)
 
     # flash_fwd runs on the three main paths, serving (decode), lm1b and
     # bert training, the backward kernels on the two training paths. Each
@@ -4340,12 +4817,14 @@ def main():
         # phase 15 (d): bert_base under Parallax, the tables host-resident
         # phase 16 (d): bert_base under AdamW
         # phase 17 (a): bert_base under PS(sync=False), drained and not
+        # phase 18 (a): bert_base launched by the chief, both ranks
         for path, counts in (("bert_sync_variants", sync_launches),
                              ("lm1b_bf16_tier", tier_launches),
                              ("bert_remat", remat_launches),
                              ("bert_parallax", ps_launches),
                              ("bert_adamw", adamw_launches),
-                             ("bert_async", async_launches)):
+                             ("bert_async", async_launches),
+                             ("bert_launched", launched_launches)):
             n = counts.get(name, {})
             rec["by_path"][path] = {
                 "launches": sum(n.values()),

@@ -7,7 +7,7 @@ The tests (``tests/test_torch_collectives.py``,
 ``tests/test_torch_compute_tier.py``, ``tests/test_torch_recsys.py``,
 ``tests/test_torch_ps.py``, ``tests/test_torch_sparse.py``,
 ``tests/test_torch_optimizers.py``, ``tests/test_torch_fused_ps.py``,
-``tests/test_torch_async_ps.py``) compute their JAX references in the pytest process and hand numpy arrays
+``tests/test_torch_async_ps.py``, ``tests/test_torch_launch.py``) compute their JAX references in the pytest process and hand numpy arrays
 to :func:`launch`, which starts
 ``world`` processes with the ``spawn`` start method. Each process joins a
 gloo group made from a ``FileStore`` in the test's temporary directory
@@ -535,5 +535,16 @@ def async_job(payload, device):
     return out
 
 
+def broadcast_bytes_job(payload, device):
+    """``server_starter.broadcast_bytes`` of each byte string of
+    ``payload`` from rank 0 (the other ranks pass None); returns what
+    this rank received."""
+    from autodist_tpu_torch.runtime import server_starter
+    rank = dist.get_rank()
+    return [server_starter.broadcast_bytes(p if rank == 0 else None)
+            for p in payload]
+
+
 JOBS = {"compressors": compressor_job, "train": train_job, "ckpt": ckpt_job,
-        "ckpt_cross": ckpt_cross_job, "fused": fused_job, "async": async_job}
+        "ckpt_cross": ckpt_cross_job, "fused": fused_job, "async": async_job,
+        "broadcast_bytes": broadcast_bytes_job}
