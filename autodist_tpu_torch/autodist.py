@@ -26,7 +26,10 @@ nodes), starts the coordination service and joins every process into the
 group (``runtime/server_starter.py``); the chief builds the strategy and
 hands it to the workers (a copied file, or a broadcast under
 ``ADT_EXTERNAL_LAUNCH``), and a worker's death ends the job with exit code
-1. A single-node job's processes come from the caller (``torchrun``, or
+1 — unless ``ADT_ELASTIC=<budget>`` asks for recovery: a relaunch of the
+dead worker under async PS, or with ``ADT_ELASTIC_SYNC=1`` a restart of
+the whole job from its newest checkpoint (``runtime/coordinator.py``). A
+single-node job's processes come from the caller (``torchrun``, or
 ``torch.multiprocessing`` with the ``spawn`` start method), who makes the
 group; the port runs on the group it finds. With no group there is one
 replica. The plan must name one replica a rank (the resource spec; ranks
@@ -136,6 +139,18 @@ class AutoDist:
                 torch.device(device).type == "cpu" else "cuda"
             self._resource_spec = ResourceSpec.from_local(
                 kind, replicas=process_group_replicas().num_replicas)
+        # a multi-node spec launches from the chief, also once exclusions
+        # have left it one node (its processes are still the chief's to
+        # launch)
+        multi_node = not self._resource_spec.is_single_node()
+        excluded = [a for a in
+                    const.ENV.ADT_ELASTIC_EXCLUDE.val.split(",") if a]
+        if excluded:
+            # permanently lost nodes (the sync-elastic reduced-world
+            # restart): every process sees the same reduced spec, so the
+            # chief builds the strategy for — and the workers join — the
+            # smaller world
+            self._resource_spec = self._resource_spec.without_nodes(excluded)
         if strategy_builder is None:
             # the default, as in the JAX package and reference autodist.py:70
             from autodist_tpu_torch.strategy.ps_lb_strategy import \
@@ -144,7 +159,7 @@ class AutoDist:
         self._strategy_builder = strategy_builder
         self._runner: Optional[Runner] = None
         self._coordinator = None
-        self._early_launch(device)
+        self._early_launch(device, multi_node)
         self._replicas = process_group_replicas()
         if device is None and const.ENV.ADT_DEVICE.val:
             # a launched process runs on its own entry's device
@@ -157,7 +172,7 @@ class AutoDist:
             self._device = resolve_device(device, local_rank)
         set_default_autodist(self)
 
-    def _early_launch(self, device=None):
+    def _early_launch(self, device=None, multi_node: bool = False):
         """Chief-launched multi-node jobs: launch the workers and join the
         process group NOW, at construction, as the JAX package does
         (its ``jax.distributed`` join must precede any device use): the
@@ -166,13 +181,14 @@ class AutoDist:
         env), join — which returns once every worker has joined — and
         only then let the user build; ``_setup`` ships the serialized
         strategy afterwards (the workers wait in their strategy poll).
-        Nothing launches for a single-node spec, on a worker, under an
+        Nothing launches for a single-node spec (``multi_node``: the spec
+        before any ``ADT_ELASTIC_EXCLUDE``), on a worker, under an
         external launcher, or in a process that is already in a group
         (the caller made its processes). A dry run (``ADT_DEBUG_REMOTE``)
         logs each worker's launch command and joins nothing. If the
         chief's own start fails, the workers it launched are stopped
         before the error propagates."""
-        if (self._resource_spec.is_single_node() or not const.is_chief()
+        if (not multi_node or not const.is_chief()
                 or const.ENV.ADT_EXTERNAL_LAUNCH.val
                 or server_starter.initialized()):
             return
@@ -206,10 +222,18 @@ class AutoDist:
             cluster.stop_coordination_service()
             cluster.terminate(grace_s=0.0)
             raise
+        if const.ENV.ADT_ELASTIC.val > 0:
+            # async workers heartbeat on the step clock; the watchdog turns
+            # silence-while-alive (a deadlock) into a kill that the process
+            # watcher answers with a relaunch — or, for sync-elastic jobs,
+            # with the whole-job restart. Sync workers write no heartbeat
+            # records, so for them the watchdog is a no-op
+            self._coordinator.start_watchdog()
         # atexit runs LIFO: this must fire BEFORE cluster.terminate (the
         # registration inside start()) so a clean exit flags the watchers
-        # before terminate's SIGTERM makes a trailing worker "die"
-        atexit.register(self._coordinator.stop_watchdog)
+        # before terminate's SIGTERM makes a trailing worker "die", and an
+        # exit that meets a sync-elastic restart waits for it
+        atexit.register(self._coordinator.at_exit)
 
     @property
     def resource_spec(self) -> ResourceSpec:
@@ -321,6 +345,7 @@ class AutoDist:
         logging.info("compiled %r", compiled)
         self._setup()
         is_async = self._validate_async(compiled, item)
+        self._check_elastic(is_async)
         # async PS cannot ride collectives (they are lockstep): each
         # process builds at one replica of its own
         dstep = GraphTransformer(
@@ -360,6 +385,37 @@ class AutoDist:
             raise ValueError("async PS cannot combine with model-parallel "
                              "mesh axes (collectives are lockstep)")
         return True
+
+    def _check_elastic(self, is_async: bool):
+        """The elastic knobs against the plan (the JAX package's checks
+        and messages). Sync strategies are collective-lockstep: a
+        relaunched worker cannot rejoin mid-run, so elastic means
+        checkpoint-restore orchestration — a worker's death tears the
+        whole job down and the chief re-execs with auto-resume (the
+        Coordinator's ``_restart_whole_job``), which needs periodic saves
+        (``Runner.fit(save_every=...)`` or ``Saver.save``)."""
+        elastic_on = const.ENV.ADT_ELASTIC.val > 0
+        if (elastic_on and not is_async
+                and const.ENV.ADT_NUM_PROCESSES.val > 1):
+            if not const.ENV.ADT_ELASTIC_SYNC.val:
+                raise ValueError(
+                    "ADT_ELASTIC on a sync strategy needs "
+                    "ADT_ELASTIC_SYNC=1 at bring-up (the process group "
+                    "join was skipped for the async-elastic flow and "
+                    "cannot happen retroactively). Set ADT_ELASTIC_SYNC=1 "
+                    "for whole-job checkpoint-restore recovery, or use an "
+                    "async host-PS strategy (e.g. PS(sync=False))")
+            if self._coordinator is not None:
+                self._coordinator.enable_sync_elastic()
+            logging.info(
+                "ADT_ELASTIC on a sync strategy: whole-job checkpoint-"
+                "restore recovery enabled (resume dir: %s)",
+                const.ENV.ADT_CKPT_DIR.val)
+        if is_async and elastic_on and const.ENV.ADT_ELASTIC_SYNC.val:
+            raise ValueError(
+                "ADT_ELASTIC_SYNC is set but the strategy is async PS: "
+                "unset it — async elastic restarts workers individually "
+                "and must not pin the process set with the process group")
 
     def _wire_async_ps(self, dstep):
         """Attach the parameter service: one process uses the in-process
@@ -435,6 +491,7 @@ class AutoDist:
             raise ValueError("async host-PS strategies cannot lower an "
                              "opaque step_fn — use loss_fn mode")
         self._setup()
+        self._check_elastic(False)
         dstep = GraphTransformer(compiled, item, self._device,
                                  self._replicas).transform()
         self._runner = Runner(dstep)

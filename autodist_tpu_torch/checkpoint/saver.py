@@ -28,9 +28,12 @@ owner queues, and each shard another host owns is saved from that
 owner's latest publish: its values, and its optimizer state from the
 owner's side channel (``PSStore._remote_opt_state``), so the checkpoint
 holds the owner's moments, not this process's frozen init. The JAX
-saver's epoch fence (``elastic.maybe_fence``) comes with the elastic
-plane (ROADMAP A item 8.3).
+saver's epoch fence (``elastic.maybe_fence``) comes with in-run shrink
+and grow (ROADMAP A item 8.3b). The writes in flight in this process are
+counted (:func:`wait_for_writes`): the sync-elastic restart waits for
+them before it reads the newest checkpoint.
 """
+import contextlib
 import json
 import os
 import re
@@ -180,6 +183,34 @@ def sentinel_health_stamp(runner_or_step) -> bool:
     return bool(fn()) if callable(fn) else True
 
 
+# this process's checkpoints between their host copy and their commit:
+# the sync-elastic restart (runtime/coordinator.py) waits for them before
+# it reads the newest checkpoint, so a worker that dies while the chief
+# still writes the save before its death restarts the job from that save
+_writes = 0
+_writes_cv = threading.Condition()
+
+
+@contextlib.contextmanager
+def _writing():
+    global _writes
+    with _writes_cv:
+        _writes += 1
+    try:
+        yield
+    finally:
+        with _writes_cv:
+            _writes -= 1
+            _writes_cv.notify_all()
+
+
+def wait_for_writes(timeout: float) -> bool:
+    """Wait up to ``timeout`` s until no save of this process is between
+    its host copy and its commit; True when none is."""
+    with _writes_cv:
+        return _writes_cv.wait_for(lambda: _writes == 0, timeout)
+
+
 class BackgroundWriter:
     """At most one background checkpoint write in flight. ``wait()`` joins
     the pending write and re-raises any error it hit — a failed checkpoint
@@ -273,6 +304,13 @@ class Saver:
         checkpoint_fault("collect", step=step)
         if self.chief_only and not _is_chief(dstep):
             return None
+        with _writing():
+            return self._write(dstep, step, params, opt, sync, healthy)
+
+    def _write(self, dstep, step, params, opt, sync, healthy):
+        """The chief's host copy in the JAX layout, then the files (now or
+        in the background writer)."""
+        item = dstep.model_item
         with tel.span("ckpt.to_host", "ckpt"):
             if item.step_fn is not None:
                 # an opaque step's state saves under its own paths, as the
@@ -294,6 +332,7 @@ class Saver:
         meta = {"step": step, "format": "autodist_tpu.v1",
                 "strategy_id": dstep.strategy.id, "healthy": healthy}
 
+        @_writing()
         def write():
             t_begin = time.monotonic()
             with tel.span("ckpt.write", "ckpt", step=int(step)):

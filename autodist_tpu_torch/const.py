@@ -90,20 +90,20 @@ class ENV(Enum):
     # comma-separated mesh axis names to treat as DCN (cross-host) for the
     # spec=DCN hierarchical reduce; default: detected from process layout
     ADT_DCN_AXES = ("ADT_DCN_AXES", str, "")
-    # elastic async-PS jobs: max RESTARTS per worker before the chief
-    # fail-fasts (0 = reference fail-fast semantics). Elastic jobs skip the
-    # jax.distributed join entirely — async PS couples processes only
-    # through the parameter service, which is what makes a worker
-    # restartable at all; sync strategies are collective-lockstep and stay
-    # fail-fast (resume them from a checkpoint instead).
+    # elastic jobs: max RESTARTS per worker (async PS) or of the whole job
+    # (with ADT_ELASTIC_SYNC) before the chief fail-fasts (0 = reference
+    # fail-fast semantics). Async-elastic jobs join no process group —
+    # async PS couples processes only through the parameter service, which
+    # is what makes a worker restartable at all; sync strategies are
+    # collective-lockstep and restart whole from a checkpoint instead.
     ADT_ELASTIC = ("ADT_ELASTIC", int, 0)
     # liveness window (seconds): workers heartbeat every quarter of it;
     # the chief's watchdog treats silence longer than it as death/deadlock
     ADT_HEARTBEAT_TIMEOUT_S = ("ADT_HEARTBEAT_TIMEOUT_S", float, 60.0)
     # sync-elastic bring-up: with ADT_ELASTIC, declares the job's strategy
-    # SYNCHRONOUS so processes still join jax.distributed (lockstep
-    # collectives need the global mesh; recovery is whole-job re-exec with
-    # a fresh process set, not per-worker rejoin)
+    # SYNCHRONOUS so processes still join the process group (lockstep
+    # collectives need every rank; recovery is whole-job re-exec with a
+    # fresh process set, not per-worker rejoin)
     ADT_ELASTIC_SYNC = ("ADT_ELASTIC_SYNC", bool, False)
     # in-run elastic reconfiguration (runtime/elastic.py): with
     # ADT_ELASTIC_SYNC, a confirmed sync-worker death shrinks the job to
@@ -135,6 +135,14 @@ class ENV(Enum):
     # the coordinator when a worker's death triggers two consecutive
     # whole-job restarts; can also be set by hand to decommission a host.
     ADT_ELASTIC_EXCLUDE = ("ADT_ELASTIC_EXCLUDE", str, "")
+    # what the sync-elastic whole-job restart carries across its re-exec
+    # of the chief (the JAX package reads them as raw os.environ): the
+    # restarts spent so far, and the node whose death caused the last one
+    # with the newest checkpoint step at that time (a second death of the
+    # same node with no newer checkpoint excludes it)
+    ADT_ELASTIC_RESTARTS = ("ADT_ELASTIC_RESTARTS", int, 0)
+    ADT_ELASTIC_LAST_DEAD = ("ADT_ELASTIC_LAST_DEAD", str, "")
+    ADT_ELASTIC_LAST_DEAD_STEP = ("ADT_ELASTIC_LAST_DEAD_STEP", int, -1)
     # ---- preemption plane (runtime/preemption.py): advance-notice
     # graceful departure. Default grace window a SIGTERM notice budgets
     # when the sender attached no explicit deadline (seconds — TPU

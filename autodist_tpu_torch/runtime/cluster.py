@@ -137,7 +137,8 @@ class Cluster:
         service; not under ``ADT_DEBUG_REMOTE``), then the chief's join as
         process 0, which returns once every process has joined. Workers
         join through ``server_starter.maybe_init_distributed`` when their
-        relaunched script constructs AutoDist."""
+        relaunched script constructs AutoDist. An async-elastic job joins
+        no group: the service alone couples its processes."""
         if self._started:
             return
         from autodist_tpu_torch.runtime import server_starter
@@ -152,17 +153,29 @@ class Cluster:
                     subprocess.CalledProcessError) as e:
                 logging.warning("coordination service unavailable: %s", e)
                 self._coordsvc = None
-        server_starter.init_distributed(
-            coordinator_address=self.coordinator_address,
-            num_processes=self.num_processes,
-            process_id=(0 if const.is_chief()
-                        else const.ENV.ADT_PROCESS_ID.val),
-            device=device)
+        if server_starter.async_elastic():
+            # elastic async-PS jobs keep the process set open (workers may
+            # die and be relaunched); a process group would pin it shut.
+            # Sync-elastic (ADT_ELASTIC_SYNC) joins: lockstep collectives
+            # need every rank, and recovery is a whole-job re-exec with a
+            # fresh process set rather than a rejoin.
+            logging.info("elastic mode: chief not joining the process group")
+            server_starter.mark_elastic_started()
+        else:
+            server_starter.init_distributed(
+                coordinator_address=self.coordinator_address,
+                num_processes=self.num_processes,
+                process_id=(0 if const.is_chief()
+                            else const.ENV.ADT_PROCESS_ID.val),
+                device=device)
         atexit.register(self.terminate)
         self._started = True
 
     def stop_coordination_service(self):
-        """Stop the service child this cluster started."""
+        """Stop the service child this cluster started (also before the
+        sync-elastic re-exec: ``os.execv`` skips atexit, and an orphaned
+        server would hold the port and carry the dead incarnation's state
+        into the resumed job)."""
         svc = self._coordsvc
         if svc is not None:
             try:

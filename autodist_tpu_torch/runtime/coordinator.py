@@ -1,30 +1,73 @@
 """Coordinator — the chief launches worker clients and supervises them.
 
-PyTorch counterpart of ``autodist_tpu/runtime/coordinator.py``'s
-non-elastic part (reference ``autodist/coordinator.py:46-110``): on the
-chief, launch *the same user script* for every process of the layout but
-the chief's own, with ``ADT_WORKER=<node>``/``ADT_STRATEGY_ID=<id>`` and
-the process's place in the layout; ship the serialized strategy to every
-worker node; and a watcher thread a launched process fail-fasts the whole
-job (exit code 1) when any worker dies — the reference's supervision
-semantics (``coordinator.py:98-110``).
+PyTorch counterpart of ``autodist_tpu/runtime/coordinator.py`` (reference
+``autodist/coordinator.py:46-110``): on the chief, launch *the same user
+script* for every process of the layout but the chief's own, with
+``ADT_WORKER=<node>``/``ADT_STRATEGY_ID=<id>`` and the process's place in
+the layout; ship the serialized strategy to every worker node; and watch
+each launched process. The relaunched command is ``<this interpreter> -u
+<script> <argv>``: the interpreter that runs the chief
+(``sys.executable``), where the JAX package runs ``python``, which a
+machine with only ``python3`` lacks.
 
-The relaunched command is ``<this interpreter> -u <script> <argv>``: the
-interpreter that runs the chief (``sys.executable``), where the JAX
-package runs ``python``, which a machine with only ``python3`` lacks.
+Supervision (ROADMAP A item 8.3a). Without ``ADT_ELASTIC`` a worker death
+fail-fasts the whole job (exit code 1) — the reference's semantics
+(``coordinator.py:98-110``). With a budget ``ADT_ELASTIC=<n>``:
 
-The elastic paths (heartbeat watchdog, restarts, shrink and rejoin) are
-ROADMAP A item 8.3: ``ADT_ELASTIC > 0`` raises at construction.
+- the heartbeat watchdog (:meth:`Coordinator.start_watchdog`) reads the
+  coordination service's dead workers; a silent worker whose process is
+  alive is killed so the process watcher recovers it, one with no budget
+  left aborts the job;
+- async PS (every variable on async host PS, owned by a surviving node):
+  the process watcher relaunches the dead worker, up to ``n`` times
+  (:meth:`Coordinator._try_restart`); its first pull reads the owners'
+  current values;
+- sync jobs (``ADT_ELASTIC_SYNC=1``): the chief reaps every worker, stops
+  the service and re-execs its own script with ``ADT_AUTO_RESUME=1``, and
+  every process restores the newest checkpoint (``Runner.init``); a node
+  whose worker dies twice with no checkpoint progress in between is
+  excluded and the job resumes without it
+  (:meth:`Coordinator._restart_whole_job`).
+
+A recovery path that fails is logged and degrades to the fail-fast.
+
+Where the JAX package keys its bookkeeping by node address, the port keys
+it by process id: one process runs a device entry, so two processes can
+share an address. The heartbeat name stays the node address (async PS
+allows one process a node), and the exclusion unit stays the node.
+
+How a worker's death reaches the chief differs by backend. Under NCCL, as
+under ``jax.distributed``, the survivors hang in the collective the dead
+worker never re-enters, and only the dead worker's process watcher fires.
+Under gloo the survivors' collectives raise within milliseconds of the
+peer's sockets closing: every surviving worker exits non-zero too, and the
+chief's main thread unwinds. The design covers both: a whole-job restart
+is claimed once an incarnation (later deaths read as its teardown); it
+blames the worker whose exit came first, after a short settle window; and
+the chief's main thread hands a failed collective to
+:func:`collective_failed`, which waits for the restart (the exec replaces
+the process) before any exit handler could read the death as shutdown.
+The restart path touches no card and no process-group call (which may be
+hung under NCCL): before the exec it marks every inherited descriptor
+close-on-exec, so the rendezvous and gloo sockets made in C++ (not all
+close-on-exec) are released and the re-exec'd chief binds its ports
+again.
+
+Left for later items: in-run shrink and grow (the joiner admission and the
+acked shrink, 8.3b), planned departures (8.3c) and the straggler filter
+(item 11).
 """
 import atexit
 import os
 import shlex
+import signal
 import sys
 import threading
-from typing import List
+import time
+from typing import Dict, List, Optional
 
 from autodist_tpu_torch import const
-from autodist_tpu_torch.runtime import server_starter
+from autodist_tpu_torch.runtime import elastic
 from autodist_tpu_torch.runtime.cluster import Cluster
 from autodist_tpu_torch.utils import logging
 
@@ -38,20 +81,305 @@ _PROPAGATED = (const.ENV.ADT_MIN_LOG_LEVEL, const.ENV.ADT_IS_TESTING,
                const.ENV.ADT_ELASTIC_ACK_TIMEOUT_S,
                const.ENV.ADT_HEARTBEAT_TIMEOUT_S)
 
+# a whole-job restart waits this long after the first death it sees, then
+# blames the earliest exit: under gloo the survivors exit within
+# milliseconds to a few hundred of the death that took their collective
+RESTART_SETTLE_S = 1.0
+# how long the restart waits for a checkpoint this process is writing
+# (the save the dead worker made just before it died) to commit
+SAVE_WAIT_S = 120.0
+# how long a collective that failed on the chief waits for a worker's
+# death before the error propagates
+COLLECTIVE_WAIT_S = 30.0
+# how long it then waits for the restart's decision (the exec, or the
+# watcher's fail-fast exit)
+RESTART_DECISION_S = 120.0
+
+
+def _ere_escape(text: str) -> str:
+    """Escape POSIX extended-regex metacharacters only (re.escape also
+    backslashes ordinary characters like spaces, which POSIX ERE leaves
+    undefined)."""
+    return "".join("\\" + c if c in r".[]^$*+?(){}|\\" else c
+                   for c in text)
+
+
+def _reap_pattern(command: str) -> str:
+    """pkill -f pattern matching ``command`` as a cmdline substring but
+    NOT matching the pkill wrapper's own command line (first character
+    wrapped in a regex bracket class, so the pattern text differs from
+    the text it matches)."""
+    esc = _ere_escape(command)
+    return "[%s]%s" % (command[0], esc[len(_ere_escape(command[0])):])
+
+
+def _reap_command(command: str, strategy_id: str) -> str:
+    """Remote kill of a stale worker incarnation, scoped to THIS job.
+
+    ``pkill -f <full command line>`` alone would match any process with
+    the same argv — two concurrent jobs launched from the same script on
+    a shared worker host would reap each other's live workers. The job's
+    identity lives in the worker's environment (``ADT_STRATEGY_ID``, set
+    at launch and inherited by children), not its argv (bash
+    exec-optimizes the env-prefixed remote command, so assignments never
+    appear in /proc cmdline). So: pgrep candidates by command line, then
+    keep only pids whose ``/proc/<pid>/environ`` carries this job's
+    strategy id. Wrapped in ``sh -c`` so the cluster's env prefix (a
+    simple-command prefix) stays legal in front of the ``for`` loop."""
+    script = (
+        "for p in $(pgrep -f %s); do "
+        "tr '\\0' '\\n' < /proc/$p/environ 2>/dev/null | grep -qxF %s "
+        "&& kill -9 $p; done; true"
+        % (shlex.quote(_reap_pattern(command)),
+           shlex.quote("%s=%s" % (const.ENV.ADT_STRATEGY_ID.name_str,
+                                  strategy_id))))
+    return "sh -c %s" % shlex.quote(script)
+
+
+def _close_inherited_on_exec():
+    """Mark every descriptor but stdin, stdout and stderr close-on-exec,
+    so that an ``execv`` leaves none of them open in the new image. Python
+    makes its own non-inheritable; C++ code (gloo's pair sockets, its
+    event loop) does not always. Flags only: a thread still using a
+    descriptor is not disturbed."""
+    for fd in map(int, os.listdir("/proc/self/fd")):
+        if fd > 2:
+            try:
+                os.set_inheritable(fd, False)
+            except OSError:
+                pass  # the listing's own descriptor, closed since
+
+
+def collective_failed(exc: BaseException):
+    """The chief's main thread met a failed collective (``Runner`` hands
+    it its error): under sync elastic this waits until the process
+    watcher has decided the whole-job restart — the exec replaces this
+    process — and returns (the caller re-raises) when no worker death
+    comes. A no-op in a process with no Coordinator (every worker)."""
+    from autodist_tpu_torch.autodist import get_default_autodist
+    coord = getattr(get_default_autodist(), "_coordinator", None)
+    if coord is not None:
+        coord.await_restart(exc)
+
 
 class Coordinator:
-    def __init__(self, strategy, cluster: Cluster):
-        server_starter.refuse_elastic()
+    def __init__(self, strategy, cluster: Cluster,
+                 heartbeat_timeout: Optional[float] = None,
+                 max_restarts: Optional[int] = None):
         # a Strategy object, or just its id — the chief-launched flow
         # preallocates the id and launches workers BEFORE the strategy is
         # built (the chief's join blocks until every worker connects)
         self._strategy_id = getattr(strategy, "id", strategy)
         self._cluster = cluster
         self._threads: List[threading.Thread] = []
+        self._heartbeat_timeout = (
+            const.ENV.ADT_HEARTBEAT_TIMEOUT_S.val
+            if heartbeat_timeout is None else heartbeat_timeout)
         # the cluster owns the service port (it starts the server)
         self._coordsvc_port = cluster.coordsvc_port
         self._stop_watchdog = threading.Event()
+        # the knobs are validated loudly: a typo'd budget must never
+        # silently disable elasticity
+        env_budget, _, _ = elastic.validate_elastic_knobs()
+        self._max_restarts = (env_budget if max_restarts is None
+                              else max_restarts)
+        # keyed by process id (two processes may share a node address)
+        self._restarts: Dict[int, int] = {}       # restarts used
+        self._restart_at: Dict[int, float] = {}   # last relaunch (monotonic)
+        self._launch_cmds: Dict[int, tuple] = {}  # (address, command, env)
+        self._live_procs: Dict[int, object] = {}  # current launcher Popen
+        # sync-elastic (checkpoint-restore orchestration): a worker death
+        # restarts the WHOLE job from the latest checkpoint.
+        # ADT_ELASTIC_SYNC at bring-up declares it from construction — a
+        # worker dying in the join window (before the chief has built the
+        # strategy) must take the whole-job path, not the per-worker
+        # soundness gate; the build path re-confirms via
+        # enable_sync_elastic()
+        self._sync_elastic = (const.ENV.ADT_ELASTIC.val > 0
+                              and const.ENV.ADT_ELASTIC_SYNC.val)
+        # one whole-job restart an incarnation; the exits it blames among
+        self._restart_lock = threading.Lock()
+        self._restart_claimed = False
+        self._exits: Dict[int, tuple] = {}  # pid -> (monotonic stamp, code)
+        self._death_seen = threading.Event()
+        self._restart_done = threading.Event()
         atexit.register(self.join)
+
+    def enable_sync_elastic(self):
+        self._sync_elastic = True
+
+    # --------------------------------------------------------- bookkeeping
+
+    def _pids_of(self, address: str) -> List[int]:
+        return [pid for pid, (a, _c, _e) in self._launch_cmds.items()
+                if a == address]
+
+    def _abort(self):
+        """Fail fast: ``os._exit`` skips the exit handlers, so stop the
+        coordination service and the other workers first — a failed job
+        leaves no process behind."""
+        self._cluster.stop_coordination_service()
+        self._cluster.terminate(grace_s=0.0)
+        os._exit(1)
+
+    # ------------------------------------------------------------ watchdog
+
+    def _in_compile_grace(self, client, worker: str) -> bool:
+        """True while ``worker`` holds a fresh one-shot ``compiling``
+        mark (written by ``Runner._compile_grace_begin`` just before its
+        first dispatch, cleared when the dispatch returns): heartbeat
+        silence during a first dispatch (kernel builds, the CUDA context,
+        a superstep's graph capture) is honest, not a hang. The mark is
+        wall-clock (cross-process; minutes of grace make clock skew noise)
+        and expires after ``ADT_COMPILE_GRACE_S`` or twice the heartbeat
+        window, whichever is larger — a worker that dies mid-dispatch
+        still gets declared dead, just later."""
+        try:
+            mark = client.get("compiling/%s" % worker)
+        except OSError:
+            return False
+        if not mark:
+            return False
+        try:
+            ts = float(mark)
+        except ValueError:
+            return False
+        grace = max(2 * self._heartbeat_timeout,
+                    const.ENV.ADT_COMPILE_GRACE_S.val)
+        if time.time() - ts < grace:
+            logging.info("watchdog: worker %s missed heartbeats but is "
+                         "inside its compile grace window — not aging it",
+                         worker)
+            return True
+        return False
+
+    def _supervised(self, client, dead: List[str]) -> List[str]:
+        """The silent workers the watchdog acts on: not the chief, not
+        inside a fresh incarnation's bring-up grace (twice the heartbeat
+        window after a relaunch: a killed incarnation is deregistered at
+        relaunch, so this covers only records the new one wrote), and not
+        inside a compile grace. Item 11's straggler filter and 8.3c's
+        planned departures join these filters with their writers."""
+        now = time.monotonic()
+        dead = [d for d in dead if d != "chief" and now - max(
+            (self._restart_at.get(p, float("-inf"))
+             for p in self._pids_of(d)), default=float("-inf"))
+            > 2 * self._heartbeat_timeout]
+        return [d for d in dead if not self._in_compile_grace(client, d)]
+
+    def start_watchdog(self):
+        """Heartbeat-based failure detection via the coordination service
+        (it augments the process watcher): a worker that stops
+        heartbeating for ``heartbeat_timeout`` seconds while its process
+        is alive is killed for a restart, or fails the job when its
+        budget is spent. Only async workers heartbeat (on the step
+        clock); for sync workers the watchdog is a no-op, and a wedge
+        surfaces as a collective error or timeout -> process death -> the
+        whole-job restart."""
+        from autodist_tpu_torch.runtime.coordination import \
+            CoordinationClient
+
+        def connect_with_backoff():
+            """(Re)establish the watchdog's client, retrying with capped
+            backoff until connected or the job stops: a single service
+            blip must not disable supervision for good."""
+            delay = 0.5
+            while not self._stop_watchdog.is_set():
+                try:
+                    # finite RPC deadline: a hung (not just dead) service
+                    # must surface as a timeout, not park the watchdog
+                    return CoordinationClient(
+                        "127.0.0.1", self._coordsvc_port,
+                        timeout=max(5.0, self._heartbeat_timeout / 2))
+                except OSError as e:
+                    logging.warning(
+                        "watchdog: coordination service unreachable on "
+                        "port %d (%s) — heartbeat supervision DEGRADED; "
+                        "retrying in %.1fs", self._coordsvc_port, e, delay)
+                    if self._stop_watchdog.wait(delay):
+                        return None
+                    delay = min(delay * 2, self._heartbeat_timeout / 2)
+            return None
+
+        def watch():
+            client = connect_with_backoff()
+            if client is None:
+                return
+            while not self._stop_watchdog.wait(self._heartbeat_timeout / 4):
+                try:
+                    dead = client.dead_workers(self._heartbeat_timeout)
+                except OSError as e:
+                    logging.warning(
+                        "watchdog: lost the coordination service (%s) — "
+                        "supervision degraded until reconnect", e)
+                    try:
+                        client.close()
+                    except OSError:
+                        pass
+                    client = connect_with_backoff()
+                    if client is None:
+                        return
+                    logging.info("watchdog: coordination service client "
+                                 "re-established; supervision resumed")
+                    continue
+                # 8.3b hooks the joiner admission in here, 8.3c the
+                # planned departures
+                dead = self._supervised(client, dead)
+                fatal = [d for d in dead if self._max_restarts <= max(
+                    (self._restarts.get(p, 0) for p in self._pids_of(d)),
+                    default=0)]
+                for d in dead:
+                    if d in fatal:
+                        continue
+                    procs = [self._live_procs.get(p)
+                             for p in self._pids_of(d)]
+                    alive = [p for p in procs
+                             if p is not None and p.poll() is None]
+                    if not alive:
+                        logging.warning(
+                            "worker %s missed heartbeats; restart budget "
+                            "remains — leaving it to the process watcher", d)
+                        continue
+                    # only kill when SOME recovery is sound: a per-worker
+                    # relaunch (async), or the whole-job restart (killing
+                    # the wedged worker routes its death there)
+                    if (not self._sync_elastic
+                            and self._restart_unsound_reason(d) is not None):
+                        logging.warning(
+                            "worker %s missed heartbeats but a restart "
+                            "would be unsound — not killing it", d)
+                        continue
+                    logging.warning(
+                        "worker %s missed heartbeats but its process is "
+                        "alive (deadlock?) — killing it for an elastic "
+                        "restart", d)
+                    try:
+                        for proc in alive:
+                            os.killpg(proc.pid, signal.SIGKILL)
+                            proc.wait(timeout=5)
+                        killed = True
+                    except Exception:  # noqa: BLE001
+                        killed = False
+                        logging.error(
+                            "could not kill wedged worker %s; keeping its "
+                            "liveness record so this stays visible", d)
+                    if killed:
+                        # deregister ONLY once the process is confirmed
+                        # gone: erasing the record of a still-wedged
+                        # worker would hide the hang forever
+                        try:
+                            client.goodbye(d)
+                        except OSError:
+                            pass
+                if fatal:
+                    logging.error("workers %s missed heartbeats — aborting",
+                                  fatal)
+                    self._abort()
+        t = threading.Thread(target=watch, daemon=True)
+        t.start()
+        self._threads.append(t)
+
+    # -------------------------------------------------------------- launch
 
     def distribute_strategy(self):
         """Copy the serialized strategy to every worker node (chief-side;
@@ -92,36 +420,310 @@ class Coordinator:
             env["ADT_WORKING_DIR"] = const.DEFAULT_WORKING_DIR
             command = "%s -u %s %s" % (shlex.quote(sys.executable),
                                        shlex.quote(script), argv_rest)
+            self._launch_cmds[pid] = (address, command, env)
             proc = self._cluster.remote_exec(command, address, env=env)
             if proc is not None:
-                self._proc_wait_async(proc, address)
+                self._live_procs[pid] = proc
+                self._proc_wait_async(proc, pid)
             logging.info("launched worker client on %s (process %d)",
                          address, pid)
 
-    def _proc_wait_async(self, proc, address: str):
-        """Fail-fast watcher (reference ``coordinator.py:98-110``). A
-        worker death after the job finished cleanly (``stop_watchdog``
-        set — e.g. the chief's exit-time terminate SIGTERMing a trailing
-        worker) is shutdown, not failure, and must not abort a successful
-        run with exit code 1. ``os._exit`` skips the exit handlers, so the
-        watcher stops the coordination service and the other workers
-        first: a failed job leaves no process behind."""
+    def _proc_wait_async(self, proc, pid: int):
+        """The process watcher of launched process ``pid``: on a non-zero
+        exit, :meth:`_on_exit` decides between a restart and the
+        fail-fast (reference ``coordinator.py:98-110``)."""
         def watch():
             code = proc.wait()
-            if code != 0 and not self._stop_watchdog.is_set():
-                logging.error("worker %s exited with code %s — aborting job",
-                              address, code)
-                self._cluster.stop_coordination_service()
-                self._cluster.terminate(grace_s=0.0)
-                os._exit(1)
+            if not self._on_exit(pid, code, time.monotonic(), proc):
+                self._abort()
         t = threading.Thread(target=watch, daemon=True)
         t.start()
         self._threads.append(t)
+
+    def _on_exit(self, pid: int, code, stamp: float, proc=None) -> bool:
+        """Process ``pid`` exited with ``code`` at ``stamp``
+        (``time.monotonic()`` when its ``wait`` returned); False when the
+        job must abort. A worker death after the job finished cleanly
+        (``stop_watchdog`` set — the chief's exit-time terminate
+        SIGTERMing a trailing worker, or the restart reaping the
+        incarnation) is shutdown, not failure. With an elastic budget a
+        restartable worker is restarted."""
+        if code == 0:
+            return True
+        self._exits[pid] = (stamp, code)
+        self._death_seen.set()
+        if self._stop_watchdog.is_set():
+            return True
+        address = self._launch_cmds[pid][0]
+        try:
+            if self._try_restart(pid, code, proc):
+                return True
+        except Exception as e:  # noqa: BLE001 — a broken restart path
+            # must degrade to fail-fast, never to a silently dead watcher
+            # (the worker IS down at this point)
+            logging.error("elastic restart of %s failed: %s", address, e)
+        logging.error("worker %s exited with code %s — aborting job",
+                      address, code)
+        return False
+
+    # ----------------------------------------------------- elastic recovery
+
+    def _try_restart(self, pid: int, code, old_proc=None) -> bool:
+        """Relaunch dead process ``pid`` when (a) restart budget remains
+        and (b) the job's strategy makes a restart SOUND; returns True when
+        a relaunch happened (the new process is supervised like the
+        first). A sync-elastic job restarts whole instead."""
+        if self._sync_elastic:
+            return self._restart_whole_job(pid, code)
+        used = self._restarts.get(pid, 0)
+        if self._max_restarts <= used or pid not in self._launch_cmds:
+            return False
+        address, command, env = self._launch_cmds[pid]
+        # reap FIRST — right after proc.wait() returned, before the (file
+        # IO) soundness gate — to keep the pgid-reuse window minimal and
+        # ensure no orphan survivor outlives this decision either way
+        self._reap_incarnation(address, command, old_proc)
+        reason = self._restart_unsound_reason(address)
+        if reason is not None:
+            logging.error("worker %s died (code %s) but elastic restart is "
+                          "unsound for this job: %s — failing fast",
+                          address, code, reason)
+            return False
+        self._restarts[pid] = used + 1
+        self._restart_at[pid] = time.monotonic()
+        # scrub the dead incarnation's liveness records (a crashed or
+        # SIGKILLed worker never said GOODBYE): its stale heartbeat must
+        # not age against the replacement while it starts, and its
+        # compiling mark must not cover the next incarnation
+        try:
+            from autodist_tpu_torch.runtime.coordination import \
+                CoordinationClient
+            c = CoordinationClient("127.0.0.1", self._coordsvc_port)
+            elastic.gc_worker_marks(c, address)
+            c.close()
+        except OSError:
+            pass  # no service (or unreachable): the bring-up grace covers it
+        logging.warning("worker %s exited with code %s — relaunching worker "
+                        "(restart %d/%d)", address, code,
+                        self._restarts[pid], self._max_restarts)
+        proc = self._cluster.remote_exec(command, address, env=env)
+        if proc is None:  # dry-run mode: nothing to supervise
+            return True
+        self._live_procs[pid] = proc
+        self._proc_wait_async(proc, pid)
+        return True
+
+    def _restart_whole_job(self, pid: int, code) -> bool:
+        """Sync-elastic recovery: a worker died mid-lockstep, so the other
+        processes, this chief included, cannot continue. Reap every worker
+        incarnation, stop the service, then re-exec the chief's own script
+        with ``ADT_AUTO_RESUME=1``: the fresh run relaunches the workers
+        and every process restores the latest checkpoint
+        (``Runner.init``). The budget is carried across the exec in
+        ``ADT_ELASTIC_RESTARTS``. Returns False (fail-fast) when the budget
+        is spent or there is nothing to restore.
+
+        One restart an incarnation: the first death claims it, and every
+        later one (the survivors' own exits under gloo) returns True, read
+        as the teardown. The restart waits ``RESTART_SETTLE_S`` and for
+        any checkpoint this process is still writing (the save the dead
+        worker made just before its death), then blames the process whose
+        exit came first."""
+        with self._restart_lock:
+            if self._restart_claimed:
+                return True
+            self._restart_claimed = True
+        time.sleep(RESTART_SETTLE_S)
+        from autodist_tpu_torch import checkpoint
+        if not checkpoint.saver.wait_for_writes(SAVE_WAIT_S):
+            logging.warning("sync-elastic: a checkpoint of this process is "
+                            "still being written after %.0f s; restarting "
+                            "from the newest committed one", SAVE_WAIT_S)
+        pid = min(self._exits, key=lambda p: self._exits[p][0])
+        code = self._exits[pid][1]
+        address = self._launch_cmds[pid][0]
+        used = const.ENV.ADT_ELASTIC_RESTARTS.val
+        if used >= self._max_restarts or not self._launch_cmds:
+            logging.error(
+                "sync-elastic: worker %s died (code %s) but the restart "
+                "budget (%d) is spent — failing fast", address, code,
+                self._max_restarts)
+            return False
+        # the probe the runner's auto-resume uses — the nothing-to-restore
+        # fail-fast here and the actual resume there must agree
+        ckpt_dir = const.ENV.ADT_CKPT_DIR.val
+        found, _saver = checkpoint.latest_checkpoint(ckpt_dir)
+        cur_step = -1 if found is None else found
+        if cur_step < 0:
+            logging.error(
+                "sync-elastic: worker %s died (code %s) before any "
+                "checkpoint landed in %s — nothing to restore, failing "
+                "fast (save at least once per restart window)", address,
+                code, ckpt_dir)
+            return False
+        # permanently-lost detection: a node whose worker's death triggers
+        # two whole-job restarts WITHOUT checkpoint progress in between is
+        # excluded, and the restarted job runs at reduced world size. Any
+        # committed progress resets the "consecutive" condition, so
+        # transient failures hours apart never decommission a healthy host
+        last_dead = const.ENV.ADT_ELASTIC_LAST_DEAD.val
+        last_step = const.ENV.ADT_ELASTIC_LAST_DEAD_STEP.val
+        exclude = [a for a in const.ENV.ADT_ELASTIC_EXCLUDE.val.split(",")
+                   if a]
+        if (address == last_dead and cur_step <= last_step
+                and address not in exclude):
+            if self._cluster.is_chief(address):
+                logging.error(
+                    "sync-elastic: worker %s died twice with no checkpoint "
+                    "progress (still at step %d), but it is the chief's "
+                    "node, which cannot be excluded — failing fast",
+                    address, cur_step)
+                return False
+            exclude.append(address)
+            os.environ[const.ENV.ADT_ELASTIC_EXCLUDE.name_str] = (
+                ",".join(exclude))
+            logging.error(
+                "sync-elastic: worker %s died twice with no checkpoint "
+                "progress (still at step %d) — treating it as PERMANENTLY "
+                "lost; the job restarts at reduced world size without it "
+                "(excluded: %s)", address, cur_step, exclude)
+        os.environ[const.ENV.ADT_ELASTIC_LAST_DEAD.name_str] = address
+        os.environ[const.ENV.ADT_ELASTIC_LAST_DEAD_STEP.name_str] = str(
+            cur_step)
+        logging.warning(
+            "sync-elastic: worker %s died (code %s) mid-lockstep — "
+            "restarting the WHOLE job from the latest checkpoint "
+            "(restart %d/%d)", address, code, used + 1, self._max_restarts)
+        # silence the other watchers first: the reap below kills their
+        # processes, which must read as shutdown, not as fresh failures
+        self._stop_watchdog.set()
+        for p, (addr, command, _env) in sorted(self._launch_cmds.items()):
+            try:
+                self._reap_incarnation(addr, command,
+                                       self._live_procs.get(p))
+            except Exception as e:  # noqa: BLE001 — best-effort teardown
+                logging.warning("reap of %s failed: %s", addr, e)
+        # stop the coordination-service child: exec skips atexit, and an
+        # orphan would hold the port (EADDRINUSE for the resumed job's
+        # fresh server) while carrying stale heartbeat/queue/barrier state
+        self._cluster.stop_coordination_service()
+        os.environ[const.ENV.ADT_ELASTIC_RESTARTS.name_str] = str(used + 1)
+        os.environ[const.ENV.ADT_AUTO_RESUME.name_str] = "1"
+        # scrub what THIS incarnation's _early_launch exported: the fresh
+        # chief must look like a first start (else maybe_init_distributed
+        # joins from the inherited process count BEFORE the workers are
+        # launched and wedges waiting for them)
+        for env in (const.ENV.ADT_NUM_PROCESSES, const.ENV.ADT_STRATEGY_ID,
+                    const.ENV.ADT_DEVICE):
+            os.environ.pop(env.name_str, None)
+        _close_inherited_on_exec()
+        logging.warning("sync-elastic: re-exec %s %s", sys.executable,
+                        " ".join(sys.argv))
+        sys.stdout.flush()
+        sys.stderr.flush()
+        self._restart_done.set()
+        # exec replaces the process image: the main thread (waiting in
+        # collective_failed, or hung in a collective under NCCL), the
+        # group's state and the atexit chain all go with it
+        os.execv(sys.executable, [sys.executable] + sys.argv)
+        return True
+
+    def await_restart(self, exc: Optional[BaseException] = None,
+                      timeout: float = COLLECTIVE_WAIT_S):
+        """Called on the chief's main thread after a collective failed
+        (:func:`collective_failed`) or when it exits with an uncaught
+        error: under sync elastic, wait up to ``timeout`` s for a worker's
+        death, then for the restart's decision (the exec replaces this
+        process; a fail-fast exits it). Returns at once without sync
+        elastic, and after ``timeout`` when no worker died: the error is
+        the caller's, not a worker's."""
+        if not self._sync_elastic or (self._stop_watchdog.is_set()
+                                      and not self._restart_claimed):
+            return
+        logging.warning("sync-elastic: the chief's collective failed (%s) "
+                        "— waiting up to %.0f s for a worker's death and "
+                        "the whole-job restart", exc, timeout)
+        if not self._death_seen.wait(timeout):
+            logging.error("sync-elastic: no worker died within %.0f s of "
+                          "the failed collective — not restarting", timeout)
+            return
+        self._restart_done.wait(RESTART_DECISION_S)
+
+    def _reap_incarnation(self, address: str, command: str, old_proc):
+        """Make sure the PREVIOUS incarnation is really gone before its
+        replacement starts: the watcher observes the LOCAL launcher process
+        (for ssh transport, the ssh client), which can die — network blip,
+        ssh killed — while the remote worker keeps training. Two live
+        incarnations under one worker identity would both push gradients.
+
+        Local transport: SIGKILL the old process group (the launch makes
+        its own session, so pgid == the launcher pid, valid while ANY
+        member survives). Remote transport: kill the exact launched
+        command line on the remote host (the reference's stale-server
+        cleanup approach, ``utils/server_starter.py:29-46``), scoped to
+        this job's strategy id via /proc environ (``_reap_command``)."""
+        if old_proc is not None:
+            try:
+                os.killpg(old_proc.pid, signal.SIGKILL)
+            except (ProcessLookupError, PermissionError, OSError):
+                pass
+        if not self._cluster._is_local(address):
+            self._cluster.remote_exec(
+                _reap_command(command, self._strategy_id), address, wait=True)
+
+    def _restart_unsound_reason(self, address: str) -> Optional[str]:
+        """None when every variable syncs through async host-PS owned by a
+        surviving node; otherwise why a restart would corrupt the job.
+        Sync strategies are collective-lockstep (the peers cannot meet a
+        relaunched worker at the same program point), and any PS group
+        owned by the dead worker took its authoritative state down with
+        it — both must fail fast (resume from a checkpoint instead).
+        Conservative: it reads the raw serialized strategy, so
+        over-strictness degrades to the reference's fail-fast, never to a
+        corrupted run."""
+        from autodist_tpu_torch.strategy.base import PSSynchronizer, Strategy
+        if const.ENV.ADT_ELASTIC.val <= 0:
+            # Coordinator(max_restarts=...) without the ADT_ELASTIC
+            # bring-up: every process joined the process group, whose
+            # pinned process set a relaunched worker cannot re-enter
+            return ("ADT_ELASTIC was not set at bring-up, so processes "
+                    "joined the process group (pinned process set)")
+        try:
+            strategy = Strategy.deserialize(self._strategy_id)
+        except (OSError, ValueError) as e:
+            return "strategy %s unreadable (%s)" % (self._strategy_id, e)
+        if strategy.graph_config.mesh_shape:
+            return "model-parallel mesh axes are collective-lockstep"
+        for node in strategy.node_config:
+            for leaf in node.part_configs or [node]:
+                sync = leaf.synchronizer or node.synchronizer
+                if not isinstance(sync, PSSynchronizer) or sync.sync:
+                    return "var %r is not async host-PS" % node.var_name
+                dest_host = (sync.reduction_destination or "").split(":")[0]
+                if dest_host == address:
+                    return ("dead worker %s OWNS the PS group of %r — its "
+                            "authoritative state died with it"
+                            % (address, node.var_name))
+        return None
+
+    # ------------------------------------------------------------ shutdown
 
     def stop_watchdog(self):
         """Mark the job as finishing cleanly — call BEFORE the workers
         exit, or the watchers read their normal exit as a failure."""
         self._stop_watchdog.set()
+
+    def at_exit(self):
+        """The chief's exit hook (registered after ``Cluster.start``'s, so
+        it runs first): an interpreter exit that an uncaught error started
+        (``sys.last_value``: a collective that failed outside the
+        Runner), or that meets a restart in progress, first waits for the
+        restart's decision under sync elastic; then the job is marked as
+        finishing."""
+        err = getattr(sys, "last_value", None)
+        if err is not None or self._restart_claimed:
+            self.await_restart(err)
+        self.stop_watchdog()
 
     def join(self):
         self.stop_watchdog()

@@ -23,12 +23,20 @@ or when the interpreter exits. :meth:`Runner.run_superstep` and
 ``fit(fuse_steps=k, metrics_every=n)`` run fused supersteps of k
 microsteps, one dispatch each (on ``cuda``, one replay of a CUDA graph:
 ``kernel/superstep.py``), with the metrics read back every n supersteps.
+For the chief's heartbeat watchdog (``runtime/coordinator.py``), the
+first dispatch carries a one-shot ``compiling`` mark: the first use of a
+kernel whose build is not cached, the CUDA context and a superstep's
+graph capture may keep a worker silent for longer than the heartbeat
+window. Under a sync-elastic job a collective that fails on the chief
+goes to the Coordinator before it propagates
+(``coordinator.collective_failed``).
 :class:`WrappedSession` is the session facade
 ``AutoDist.create_distributed_session`` returns. The JAX runner's
-sentinel, elastic and preemption planes belong to later slices of the
-port.
+sentinel, in-run elastic and preemption planes belong to later slices of
+the port.
 """
 import atexit
+import contextlib
 import itertools
 import statistics
 import time
@@ -181,6 +189,9 @@ class Runner:
         if self._hb_enabled:
             self._async_hb = self._connect_coordination(
                 "async liveness heartbeats")
+        # the one-shot "compiling" grace around the first dispatch
+        self._compile_grace_marked = False
+        self._compile_grace_cleared = False
         self._atexit_cb = None
         if self._hb_enabled or self._coord is not None:
             # goodbye on exit: a worker whose script just ends must
@@ -263,7 +274,8 @@ class Runner:
             problem = "no valid checkpoint in %s" % directory
             if saver is not None:
                 try:
-                    _, step = saver.restore(self)
+                    with self._collectives():
+                        _, step = saver.restore(self)
                 except FileNotFoundError as e:
                     # every candidate was skipped as torn/corrupt
                     problem = str(e)
@@ -278,7 +290,8 @@ class Runner:
                     "fresh (`python -m autodist_tpu_torch.checkpoint ls "
                     "--dir %s` inspects it)" % (problem, directory))
             logging.warning("ADT_AUTO_RESUME: %s; starting fresh", problem)
-        self.state = self._dstep.init_state(params, opt_state)
+        with self._collectives():
+            self.state = self._dstep.init_state(params, opt_state)
         return self.state
 
     def gather_params(self) -> dict:
@@ -317,8 +330,10 @@ class Runner:
         st = state if state is not None else self.state
         if st is None:
             raise RuntimeError("Runner.run before init()")
-        with tel.span("runner.dispatch", "runner", microsteps=1, sync=sync,
-                      step=self._step_count):
+        self._compile_grace_begin()
+        with self._collectives(), tel.span(
+                "runner.dispatch", "runner", microsteps=1, sync=sync,
+                step=self._step_count):
             with tel.span("runner.feed", "runner"):
                 placed = self._remapper.remap_feed(batch)
             self._check_ps_owner_health()
@@ -342,12 +357,14 @@ class Runner:
         t_begin = time.perf_counter()
         if self.state is None:
             raise RuntimeError("Runner.run_superstep before init()")
+        self._compile_grace_begin()
         with tel.span("runner.feed", "runner", stacked=True):
             placed = self._remapper.remap_feed_stack(stacked_batch)
         leaves = pytree.tree_leaves(placed)
         k = int(np.shape(leaves[0])[0]) if leaves else 1
-        with tel.span("runner.dispatch", "runner", microsteps=k, sync=sync,
-                      step=self._step_count):
+        with self._collectives(), tel.span(
+                "runner.dispatch", "runner", microsteps=k, sync=sync,
+                step=self._step_count):
             self._check_ps_owner_health()
             self.state, metrics = self._dstep.run_multi(self.state, placed)
             self._after_dispatch(k)
@@ -362,6 +379,7 @@ class Runner:
         fused superstep advances the pacing by its k applies): the step
         counts, the async heartbeat, the bounded-staleness window across
         processes and the mirror check."""
+        self._compile_grace_end()
         self._step_count += microsteps
         self._superstep_count += 1
         tel.counter_add("runner.steps", microsteps)
@@ -379,6 +397,68 @@ class Runner:
                 self._coord.wait_staleness(self._step_count,
                                            self._staleness)
         self._maybe_check_mirrors()
+
+    @contextlib.contextmanager
+    def _collectives(self):
+        """Around the calls that meet the other ranks (a step, the init's
+        and the restore's broadcast): at more than one replica, a
+        ``RuntimeError`` (gloo raises one within milliseconds of a peer's
+        exit) goes to ``coordinator.collective_failed`` first. On a
+        sync-elastic chief that waits for the process watcher's restart
+        decision, which replaces this process, before the error may
+        unwind into interpreter exit, whose hooks would read the worker's
+        death as shutdown; elsewhere it returns at once."""
+        try:
+            yield
+        except RuntimeError as e:
+            if self._dstep.num_replicas > 1:
+                from autodist_tpu_torch.runtime import coordinator
+                coordinator.collective_failed(e)
+            raise
+
+    def _compile_grace_begin(self):
+        """A heartbeat and the one-shot ``compiling`` mark, sent just
+        before the FIRST dispatch on the client that already heartbeats:
+        its kernel builds, the CUDA context and cuBLAS set-up, or a fused
+        superstep's graph capture can outlast ``ADT_HEARTBEAT_TIMEOUT_S``,
+        and the chief's watchdog would age this healthy worker into a
+        false death. The mark (a wall-clock KV record the watchdog reads,
+        ``Coordinator._in_compile_grace``) buys ``ADT_COMPILE_GRACE_S`` of
+        silence and is cleared when the first dispatch returns."""
+        if self._superstep_count > 0 or self._compile_grace_marked:
+            return
+        client = self._async_hb or self._coord
+        if client is None:
+            return
+        try:
+            client.heartbeat(self._worker)
+            # wall clock, not monotonic: the watchdog runs in another
+            # process; the grace window is minutes, so clock skew is noise
+            client.put("compiling/%s" % self._worker, repr(time.time()))
+            self._compile_grace_marked = True
+            self._last_hb = time.monotonic()
+        except (OSError, RuntimeError) as e:
+            # best-effort: a rejected or unreachable mark must never stop
+            # training — at worst the watchdog sees the silence
+            logging.warning("pre-dispatch heartbeat failed (%s); the "
+                            "watchdog may read a long first dispatch as "
+                            "silence", e)
+
+    def _compile_grace_end(self):
+        """Clear the one-shot mark: steady-state silence ages normally
+        again."""
+        if not self._compile_grace_marked or self._compile_grace_cleared:
+            return
+        self._compile_grace_cleared = True
+        client = self._async_hb or self._coord
+        if client is None:
+            return
+        try:
+            # "0" = epoch zero: instantly outside any grace window (the
+            # line protocol needs a non-empty value token)
+            client.put("compiling/%s" % self._worker, "0")
+        except (OSError, RuntimeError):
+            pass  # the mark ages out through the grace window anyway
 
     def _check_ps_owner_health(self):
         """Fail loudly when an async-PS owner apply loop of this process

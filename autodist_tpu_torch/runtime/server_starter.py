@@ -13,8 +13,13 @@ NCCL only when every process has a card of its own (NCCL refuses two
 ranks on one card, and two loopback "nodes" can be one machine), else
 gloo. The choice and its reason are logged.
 
-Elastic bring-up (``ADT_ELASTIC``) is not ported (ROADMAP A item 8.3) and
-raises.
+Elastic bring-up (``ADT_ELASTIC``, the JAX branches): an async-elastic
+process (``ADT_ELASTIC > 0`` without ``ADT_ELASTIC_SYNC``) joins no
+group, because a group pins its process set while the chief relaunches
+dead workers one at a time; such processes meet only through the
+parameter service. A sync-elastic process joins as any other: its
+recovery is a whole-job restart with a fresh group
+(``runtime/coordinator.py``).
 """
 import datetime
 import json
@@ -25,27 +30,16 @@ import torch
 import torch.distributed as dist
 
 from autodist_tpu_torch import const
+from autodist_tpu_torch.runtime import elastic
 from autodist_tpu_torch.telemetry import spans as tel
 from autodist_tpu_torch.utils import logging
 from autodist_tpu_torch.utils.device import resolve_device
 
 _INITIALIZED = False
+# an async-elastic bring-up, which joins no group but counts as started
+_ELASTIC_STARTED = False
 # how long the rendezvous waits for every process of the job
 RENDEZVOUS_TIMEOUT = datetime.timedelta(seconds=300)
-
-ELASTIC_REFUSAL = (
-    "ADT_ELASTIC=%d: elastic jobs (worker restarts, shrink and rejoin) are "
-    "not ported to autodist_tpu_torch yet (ROADMAP A item 8.3); unset "
-    "ADT_ELASTIC")
-
-
-def refuse_elastic():
-    """Raise while ``ADT_ELASTIC`` asks for the elastic flow, which the
-    port does not have: a silently ignored restart budget would turn a
-    worker's death into an aborted job the user did not ask for."""
-    if const.ENV.ADT_ELASTIC.val > 0:
-        raise NotImplementedError(ELASTIC_REFUSAL % const.ENV.ADT_ELASTIC.val)
-
 
 def choose_backend(placements: Sequence[Tuple[str, Optional[str]]]
                    ) -> Tuple[str, str]:
@@ -109,11 +103,18 @@ def init_distributed(coordinator_address: str, num_processes: int,
 
 
 def initialized() -> bool:
-    """True once this process is in a process group: one it joined here,
-    or one the caller made (torchrun, ``mp.spawn``). Guards AutoDist's
-    chief-launched flow against re-entry and against relaunching the
-    processes of a job that already has them."""
-    return _INITIALIZED or (dist.is_available() and dist.is_initialized())
+    """True once this process's distributed bring-up has happened: a
+    group it joined here, one the caller made (torchrun, ``mp.spawn``),
+    or an async-elastic bring-up (which deliberately joins none). Guards
+    AutoDist's chief-launched flow against re-entry and against
+    relaunching the processes of a job that already has them."""
+    return (_INITIALIZED or _ELASTIC_STARTED
+            or (dist.is_available() and dist.is_initialized()))
+
+
+def mark_elastic_started():
+    global _ELASTIC_STARTED
+    _ELASTIC_STARTED = True
 
 
 def caller_made_group() -> bool:
@@ -122,10 +123,34 @@ def caller_made_group() -> bool:
     return not _INITIALIZED and dist.is_available() and dist.is_initialized()
 
 
+def async_elastic() -> bool:
+    """True for an async-elastic job: a restart budget without
+    ``ADT_ELASTIC_SYNC``."""
+    return (const.ENV.ADT_ELASTIC.val > 0
+            and not const.ENV.ADT_ELASTIC_SYNC.val)
+
+
 def maybe_init_distributed(device=None):
     """Worker-side join from the env the Coordinator set (the chief
-    passes explicit arguments through ``Cluster.start``)."""
-    refuse_elastic()
+    passes explicit arguments through ``Cluster.start``), after the
+    elastic knobs are validated. Async-elastic processes never join: a
+    group pins a fixed process set for the job's lifetime, while elastic
+    async PS needs workers to come and go — they couple through the
+    coordination service alone."""
+    elastic.validate_elastic_knobs()
+    if async_elastic():
+        if const.ENV.ADT_EXTERNAL_LAUNCH.val:
+            # external launchers own process lifecycles (no Coordinator to
+            # relaunch anything) AND their strategy handoff is a collective
+            # broadcast that requires the group — silently skipping the
+            # join here would wedge the handoff confusingly
+            raise ValueError(
+                "ADT_ELASTIC requires the chief-launched flow; externally-"
+                "launched jobs (ADT_EXTERNAL_LAUNCH) restart workers "
+                "through their own launcher instead")
+        logging.info("elastic mode: skipping the process group join "
+                     "(process coupling is via the parameter service)")
+        return
     addr = const.ENV.ADT_COORDINATOR_ADDR.val
     n = const.ENV.ADT_NUM_PROCESSES.val
     if addr and n > 1:

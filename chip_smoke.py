@@ -70,7 +70,8 @@ result line):
    it), each through ``AutoDist(...).build`` -> ``Runner.init`` ->
    ``Runner.run`` with the global batch: (a) bert_base bf16 at full width
    (seq 128, global batch 128, 64 a rank, flash, ``AllReduce()`` at chunk
-   128), 3 steps with the fp32 wire, then 3 with ``wire_dtype="int8"``
+   128), 5 steps with the fp32 wire in deterministic mode (phase 19
+   (a)'s uninterrupted reference), then 3 with ``wire_dtype="int8"``
    (two Int8CompressorEF buckets) from a fresh init: every loss finite
    and the same on both ranks, both ranks' params ``torch.equal`` after
    the steps, each kernel launched 12 times a step a rank on its
@@ -134,8 +135,8 @@ result line):
    overlap them);
 14. the sync variants, the bf16 compute tier and remat: (a)-(c) two ranks
    on ``cuda:0`` over gloo (as phase 10), bert_base bf16 at full width
-   (seq 128, global batch 128, flash), 3 steps of each plan from one init
-   on the same 3 batches, in deterministic mode: ``AllReduce()``,
+   (seq 128, global batch 128, flash), 2 steps of each plan from one init
+   on the same 2 batches, in deterministic mode: ``AllReduce()``,
    ``ZeroSharded()`` (losses within 1e-4 and params within 1e-5 relative
    of AllReduce's, ``tests/test_zero_sharded.py``'s bounds; each rank's
    Adam moments of the sharded variables half of AllReduce's plus
@@ -150,7 +151,7 @@ result line):
    stages, the launch order printed); both ranks' params ``torch.equal``
    and each kernel 12 launches a step a rank in every run; (d) lm1b at
    full width in its f32 config (seq 128, batch 64) under
-   ``AllReduce(compute_dtype="bf16")`` against ``AllReduce()``, 2 + 8
+   ``AllReduce(compute_dtype="bf16")`` against ``AllReduce()``, 2 + 4
    steps each from one init: final losses within 5% (``bench.py``'s
    ``ADT_BENCH_BF16_TOL``), step p50 (min-max) of both; the tier rounds
    the params to bf16 while the f32 config computes in f32 (flax's
@@ -158,13 +159,14 @@ result line):
    kernel launches 8 times a step on its ``scalar f32`` design; (e)
    bert_base bf16 at phase 7's shape under ``WithRemat(AllReduce(),
    "full")`` and ``"dots"`` against plain, 3 steps each, deterministic
-   mode: losses and params bit-equal, peak memory below plain's (all
-   three printed), and under "full" the forward kernel launches 24 times
-   a step (the recomputed forward runs it again), dQ and dK/dV 12;
+   mode, 2 steps each: losses and params bit-equal, peak memory below
+   plain's (all three printed), and under "full" the forward kernel
+   launches 24 times a step (the recomputed forward runs it again), dQ
+   and dK/dV 12;
 15. the parameter-server family and the sparse (ids, values) wire, with
    the PS spans recorded (tracing on): (a) DLRM at its default config
    (8 tables, 1 622 100 x 64, and the MLPs; batch 256, the hot-id batch)
-   under ``Parallax()``, 2 + 10 steps: the 8 tables host-resident (the
+   under ``Parallax()``, 2 + 5 steps: the 8 tables host-resident (the
    tables and their moments absent from the device state, the store's
    ``resident_bytes`` the values' bytes, as the JAX store counts, and its
    moments, counted from its per-shard states, twice that), finite and
@@ -179,12 +181,12 @@ result line):
    config under ``PS()`` and under the default builder
    (``PSLoadBalancing``), the readings of (a); (d) bert_base bf16 (seq
    128, batch 128, flash) under ``Parallax()``, its three tables
-   host-resident, 2 + 10 steps: each kernel 12 launches a step on its
+   host-resident, 2 + 5 steps: each kernel 12 launches a step on its
    tensor-core design, the loss after 3 steps below the first, the first 3
    losses within 2e-2 of ``AllReduce()``'s from the same init; (e) DLRM's
    PS pipeline in deterministic mode: exact (``ADT_PS_OVERLAP=1``) and
    serial (``0``) ``torch.equal`` after 3 steps, then
-   ``Parallax(staleness=1)`` 2 + 10 steps: finite losses, every read
+   ``Parallax(staleness=1)`` 2 + 5 steps: finite losses, every read
    lagging the applies by at most 1, its readings; (f) N = 2 on
    ``cuda:0`` over gloo (as phase 10), DLRM under ``Parallax()`` and
    ``AllReduce()`` (the tables on the sparse wire), 3 steps each from one
@@ -222,49 +224,77 @@ result line):
    started on a free port, stopped at the end of the phase), async host
    PS served over it and bounded staleness across ranks (tracing on): (a)
    bert_base bf16 (seq 128, batch 128, flash) under ``PS(sync=False)``,
-   one process, every variable on the host PS: 8 steps drained
+   one process, every variable on the host PS: 3 steps drained
    (``flush_ps(); store.drain()`` after each, the serial path,
    deterministic mode) bit-equal in losses to ``PS()`` from the same
-   init, then 2 + 8 steps undrained on the pipeline: ms a step, blobs
+   init, then 1 + 7 steps undrained on the pipeline: ms a step, blobs
    applied, the reads' lag behind the pushes (bound ``ADT_PS_MAX_LAG`` +
    2) and the owner queue's length (bound ``ADT_PS_MAX_LAG``), the owner
    loop's apply and publish ms and bytes; each kernel 12 launches a step
    on its tensor-core design; (b) DLRM at its default config under
    ``PSLoadBalancing(sync=False)``, two processes on ``cuda:0`` (owner
    hosts 127.0.0.1 and localhost; a gloo group that no step may use),
-   Adam at 1e-4, 1 + 6 steps each: ms a step a process, BPUT bytes a publish, BGET bytes
+   Adam at 1e-4, 1 + 2 steps each at least, then on until its loss
+   falls (at most 12): ms a step a process, BPUT bytes a publish, BGET bytes
    a pull, QPUSH bytes a push, each owner's applies, no collective and
    ``sync.wire_bytes`` 0, each process's loss falling; (c) DLRM under
    ``Parallax(staleness=2)`` at N = 2 over gloo, paced by the service,
-   1 + 5 steps: the ``runner.barrier`` span's ms a step, the largest
+   1 + 3 steps: the ``runner.barrier`` span's ms a step, the largest
    step gap on the service (bound 2), both ranks' losses and store
    digests equal.
 18. launch and handoff: a user script in a temporary directory, its chief
    run as a subprocess on free ports (whatever is left of a job is killed
-   at its end): (a) bert_base bf16 (seq 128, global batch 128, flash)
-   under ``AllReduce()`` on a two-node spec (127.0.0.1 the chief,
-   localhost; ``gpus: [0]`` each), one command on the chief: it launches
-   the worker, both join one group on ``cuda:0`` (the backend rule must
-   pick gloo: one card), the file handoff, deterministic mode, 1 + 4
-   steps: both ranks' losses bit-equal, equal to phase 10's fp32-wire
-   losses or the op that parts them named, each kernel 12 launches a step
-   a rank on its tensor-core design; AutoDist() on the chief (launch +
-   join) ms, the worker's strategy wait ms, the first step and the step
-   p50; (b) NCF at its default config under ``PartitionedPS()``, two
-   processes started by the phase with ``ADT_EXTERNAL_LAUNCH``, 3 steps:
+   at its end) on a two-node spec (127.0.0.1 the chief, localhost; ``gpus:
+   [0]`` each); bert_base launched by the chief, the file handoff, is
+   phase 19 (a) (which was (a) here); (b) NCF at its default config under
+   ``PartitionedPS()``, two processes started by the phase with
+   ``ADT_EXTERNAL_LAUNCH`` (beside (d), in a directory of its own), 3
+   steps:
    the worker's strategy byte-equal to the chief's file and no file read
-   on the worker, equal losses, ``broadcast_bytes`` ms; (c) the worker
-   exits 3 after AutoDist(): the chief exits 1 with "aborting job" within
-   60 s and no process is left; (d) NCF under
+   on the worker, equal losses, ``broadcast_bytes`` ms; (d) NCF under
    ``PSLoadBalancing(sync=False)`` launched by the chief (the service
-   started by ``Cluster.start`` only), Adam 1e-4, 1 + 3 steps: both hosts
-   publish, each process's loss falls, ms a step a process.
+   started by ``Cluster.start`` only), Adam 1e-4, 1 + 3 steps at least,
+   then on until its loss falls (at most 12): both hosts
+   publish, each process's loss falls, ms a step a process (the fail-fast
+   job that was (c) is phase 19 (c)).
+19. supervised recovery, phase 18's way (a user script in a temporary
+   directory, its chief a subprocess on free ports, each process writing
+   its events to a file as it goes, whatever is left killed at the end):
+   (a) bert_base bf16 (seq 128, global batch 128, flash) under
+   ``AllReduce()`` on phase 18's two-node spec, one command on the chief
+   with ``ADT_ELASTIC=1 ADT_ELASTIC_SYNC=1``, a temporary
+   ``ADT_CKPT_DIR``, deterministic mode, seed 0: the chief launches the
+   worker, both join one group on ``cuda:0`` (the backend rule must pick
+   gloo: one card), the worker loads the chief's strategy file; 5 steps
+   with a save after step 2, after which the worker's first incarnation
+   exits 3: the chief re-execs once, launches the worker again, both
+   ranks restore step 3 and run steps 3-4, every loss bit-equal on both
+   ranks and to phase 10 (a)'s uninterrupted fp32-wire run (steps 0-2
+   hold the launch plane to it, 3-4 the restore), each kernel 12 launches
+   a step a rank on its tensor-core design in both incarnations;
+   AutoDist() on the chief (launch + join) ms, the worker's strategy
+   wait, the first incarnation's steps, the save's ms, the worker's death
+   to the chief's ``execv``, the ``execv`` to the resumed job's first
+   step, the restore's ms, the whole recovery and the resumed steps' ms;
+   (b) NCF at its default config under
+   ``PS(sync=False)`` launched by the chief with
+   ``ADT_HEARTBEAT_TIMEOUT_S=6``: the worker's first incarnation stops
+   heartbeating at step 2 and sleeps; the watchdog kills it once, the
+   process watcher relaunches it once, the relaunched incarnation's first
+   dispatch lasts 10 s more (past the bring-up grace) and the watchdog
+   reads its compile-grace mark instead of killing it; both processes'
+   losses fall (the relaunched one over 6 steps); the last heartbeat to
+   the kill and the kill to the new incarnation's first dispatch and
+   step; (c), run beside (b), a sync-elastic worker exits 3 right after
+   AutoDist(), before any checkpoint: the chief exits 1 ("nothing to
+   restore", "aborting job") and no process is left.
 
 TF32 is off for the whole run (``torch.backends.cuda.matmul`` and
 ``cudnn``): float32 is computed in float32, as the f32 checks' 2e-5 and
 parity bounds need; the bf16 paths are not affected except their float32
 GEMMs (the lm1b and bert heads), which run as full float32.
 
+Each phase from 5 on prints its seconds, and the end the whole smoke's.
 The last two lines of standard output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
 """
@@ -278,6 +308,7 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+T_SMOKE = 0.0   # the smoke's start (perf_counter), set by main
 
 # H100 SXM published peaks (NVIDIA data sheet, dense rates): memory rate, and
 # the dense bf16 tensor-core rate
@@ -1311,6 +1342,9 @@ def bert_parity_phase():
 
 
 DP_RANKS = 2
+# phase 10 (a)'s steps: the fp32 wire's, in deterministic mode, are phase
+# 19 (a)'s uninterrupted reference, so it runs as many as 19 (a)
+DP_STEPS = {"fp32": 5, "int8": 3}
 # two replicas of one card: the index listed once a rank, never inferred
 DP_SPEC = {"nodes": [{"address": "127.0.0.1", "chief": True,
                       "gpus": [0] * DP_RANKS}]}
@@ -1400,19 +1434,23 @@ def dp_child(rank, store, out_dir):
         cfg, seq_len=BERT_SEQ, batch_size=BERT_BATCH, seed=0,
         attention="flash")
     for wire in ("fp32", "int8"):
+        steps = DP_STEPS[wire]
+        # F.embedding's CUDA backward sums a repeated index's rows in a
+        # varying order outside deterministic mode
+        torch.use_deterministic_algorithms(wire == "fp32")
         runner = dp_runner(loss_fn, params, batch, wire_dtype=wire)
         dstep = runner.distributed_step
         reset_counts()
         sent = tel.counters().get("sync.wire_bytes", 0.0)
         losses, times = [], []
-        for _ in range(3):
+        for _ in range(steps):
             t0 = time.perf_counter()
             losses.append(float(runner.run(batch)["loss"]))
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
         launches = launch_counts()
         check_launches("phase 10 bert_base %s wire, rank %d" % (wire, rank),
-                       launches, cfg.num_layers, 3)
+                       launches, cfg.num_layers, steps)
         if not all(math.isfinite(x) for x in losses):
             fail("phase 10: rank %d %s wire: a loss is not finite: %r"
                  % (rank, wire, losses))
@@ -1422,7 +1460,7 @@ def dp_child(rank, store, out_dir):
             "losses": losses, "p50_ms": statistics.median(times) * 1e3,
             "times_ms": [t * 1e3 for t in times], "launches": launches,
             "wire_bytes_per_step": (tel.counters().get(
-                "sync.wire_bytes", 0.0) - sent) / 3,
+                "sync.wire_bytes", 0.0) - sent) / steps,
             "buckets": [(b.key, len(b.var_names), b.total_size)
                         for b in dstep.buckets],
             "tables_in_buckets": tables,
@@ -1432,6 +1470,7 @@ def dp_child(rank, store, out_dir):
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
         del runner, dstep
         adt.reset()
+    torch.use_deterministic_algorithms(False)
     del params
     torch.cuda.empty_cache()
     # (b) the int8 two-phase codec on CUDA, one bucket's length
@@ -1480,9 +1519,11 @@ def dp_phase(card):
     import autodist_tpu_torch as adt
     from autodist_tpu_torch.models import lm
     print("phase 10: N = %d data parallelism on cuda:0 over gloo: bert_base "
-          "bf16 (seq %d, global batch %d) fp32 then int8 wire; the int8 "
-          "two-phase codec; lm1b f32 (global batch 8) 2 ranks vs 1"
-          % (DP_RANKS, BERT_SEQ, BERT_BATCH))
+          "bf16 (seq %d, global batch %d) fp32 wire (%d steps, deterministic "
+          "mode) then int8 wire (%d steps); the int8 two-phase codec; lm1b "
+          "f32 (global batch 8) 2 ranks vs 1"
+          % (DP_RANKS, BERT_SEQ, BERT_BATCH, DP_STEPS["fp32"],
+             DP_STEPS["int8"]))
     # (c)'s one-rank reference, in this process, first
     cfg = lm.LMConfig.lm1b()
     loss_fn, params, batch, _ = lm.make_train_setup(
@@ -2381,7 +2422,7 @@ def fused_phase(card):
 # ------------------------------------------------------------- phase 14
 
 
-SYNC_STEPS = 3
+SYNC_STEPS = 2
 # test_zero_sharded.py's bounds for ZeroSharded against AllReduce
 SYNC_LOSS_RTOL, SYNC_PARAM_RTOL, SYNC_ATOL = 1e-4, 1e-5, 1e-6
 # ZeroSharded(int8) against AllReduce: the losses' relative gap, and the
@@ -2695,7 +2736,7 @@ def sync_phase(card):
     return launches
 
 
-TIER_WARMUP, TIER_STEPS = 2, 8
+TIER_WARMUP, TIER_STEPS = 2, 4
 
 
 def tier_phase(card):
@@ -2845,7 +2886,7 @@ def sync_variants_phase(card):
 # ------------------------------------------------------------- phase 15
 
 
-PS_WARMUP, PS_STEPS = 2, 10
+PS_WARMUP, PS_STEPS = 2, 5
 PS_BATCH = 256
 PS_PARITY_STEPS = 3
 PS_LOSS_RTOL = 1e-5
@@ -3717,10 +3758,17 @@ def carry_phase(card, bert_per_step_losses):
 # ------------------------------------------------------------- phase 17
 
 
-ASYNC_WARMUP, ASYNC_STEPS = 2, 8
+ASYNC_WARMUP, ASYNC_STEPS = 1, 7
+# drained steps of phase 17 (a), each against PS()'s
+ASYNC_DRAINED = 3
 # (b) and (c) at fewer steps: the phase stays near two minutes on the card
-DLRM_WARMUP, DLRM_STEPS = 1, 6
-STALE_WARMUP, STALE_STEPS = 1, 5
+# phase 17 (b) and 18 (d): async steps at least (warm-up + steps), then
+# on until the process's loss has fallen, at most ASYNC_MAX_STEPS: a
+# process's own owner applies and publishes behind its steps, so when
+# its loss first moves depends on the host's speed
+DLRM_WARMUP, DLRM_STEPS = 1, 2
+ASYNC_MAX_STEPS = 12
+STALE_WARMUP, STALE_STEPS = 1, 3
 ASYNC_RANKS = 2
 # two hosts sharing one card: under async each process builds one replica
 # of its own and owns the host-PS groups of its host
@@ -3785,7 +3833,7 @@ def bert_async_phase(card):
           "steps drained (flush_ps(); store.drain() after each, serial "
           "path, deterministic mode) against PS() from the same init, then "
           "%d + %d steps undrained on the pipeline"
-          % (BERT_SEQ, BERT_BATCH, ASYNC_STEPS, ASYNC_WARMUP, ASYNC_STEPS))
+          % (BERT_SEQ, BERT_BATCH, ASYNC_DRAINED, ASYNC_WARMUP, ASYNC_STEPS))
     torch.use_deterministic_algorithms(True)
     os.environ["ADT_PS_OVERLAP"] = "0"
     got = {}
@@ -3793,7 +3841,7 @@ def bert_async_phase(card):
         with uncounted():
             runner = ps_runner(loss_fn, params, batch, strategy.PS())
             got["PS()"] = [float(runner.run(batch)["loss"])
-                           for _ in range(ASYNC_STEPS)]
+                           for _ in range(ASYNC_DRAINED)]
             del runner
             adt_reset()
         # the main path: the async runs, counted from here
@@ -3805,14 +3853,14 @@ def bert_async_phase(card):
             fail("phase 17 (a): PS(sync=False) did not build an async "
                  "serving store (metadata %r)" % (dstep.metadata,))
         losses = []
-        for _ in range(ASYNC_STEPS):
+        for _ in range(ASYNC_DRAINED):
             losses.append(float(runner.run(batch)["loss"]))
             dstep.flush_ps()
             store.drain()
         got["async drained"] = losses
-        if store.applied_total() != ASYNC_STEPS:
+        if store.applied_total() != ASYNC_DRAINED:
             fail("phase 17 (a): %d blobs applied over %d drained steps"
-                 % (store.applied_total(), ASYNC_STEPS))
+                 % (store.applied_total(), ASYNC_DRAINED))
         del runner, dstep, store
         adt_reset()
     finally:
@@ -3857,7 +3905,7 @@ def bert_async_phase(card):
     del runner, dstep, store, grp
     adt_reset()
     check_launches("phase 17 (a)", launches, cfg.num_layers,
-                   2 * ASYNC_STEPS + ASYNC_WARMUP)
+                   ASYNC_DRAINED + ASYNC_STEPS + ASYNC_WARMUP)
     if not all(x == x for x in losses) or not losses[-1] < losses[0]:
         fail("phase 17 (a): undrained losses not finite or not falling: %r"
              % losses)
@@ -3938,13 +3986,15 @@ def async_child(rank, store, out_dir, port):
     coord = CoordinationClient("127.0.0.1", port)
     coord.barrier("17b/built", ASYNC_RANKS)
     losses, times = [], []
-    for i in range(DLRM_WARMUP + DLRM_STEPS):
+    for i in range(ASYNC_MAX_STEPS):
         if i == DLRM_WARMUP:
             stats0, spans0 = dict(ps.stats), span_ms(ASYNC_SPANS)
         t0 = time.perf_counter()
         losses.append(float(runner.run(batch)["loss"]))
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
+        if i + 1 >= DLRM_WARMUP + DLRM_STEPS and losses[-1] < losses[0]:
+            break
     stats1, spans1 = dict(ps.stats), span_ms(ASYNC_SPANS)
     dstep.flush_ps()
     coord.barrier("17b/pushed", ASYNC_RANKS)
@@ -4065,8 +4115,9 @@ def dlrm_async_phase(card, port):
     from autodist_tpu_torch.runtime.coordination import CoordinationClient
     print("phase 17 (b): DLRM default config (batch %d) under "
           "PSLoadBalancing(sync=False), Adam 1e-4, two processes on "
-          "cuda:0, owner hosts 127.0.0.1 and localhost, %d + %d steps each"
-          % (PS_BATCH, DLRM_WARMUP, DLRM_STEPS))
+          "cuda:0, owner hosts 127.0.0.1 and localhost, %d + %d steps "
+          "each at least, on until its loss falls (at most %d)"
+          % (PS_BATCH, DLRM_WARMUP, DLRM_STEPS, ASYNC_MAX_STEPS))
     res = spawn_pair(async_child, "phase 17 (b)", port)
     c = CoordinationClient("127.0.0.1", port)
     publish = {}
@@ -4167,7 +4218,7 @@ def async_phase(card):
 # ------------------------------------------------------------- phase 18
 
 
-LAUNCH_WARMUP, LAUNCH_STEPS = 1, 4
+LAUNCH_WARMUP = 1
 ASYNC_LAUNCH_STEPS = 3
 EXTERNAL_STEPS = 3
 # two nodes on one machine, one entry each on card 0: the chief
@@ -4199,8 +4250,7 @@ if mode == "external" and worker:
     def no_file(*a, **kw):
         raise AssertionError("the worker read a strategy file")
     Strategy.deserialize = no_file
-builder = {"bert": strategy.AllReduce, "external": strategy.PartitionedPS,
-           "crash": strategy.AllReduce,
+builder = {"external": strategy.PartitionedPS, "crash": strategy.AllReduce,
            "async": functools.partial(strategy.PSLoadBalancing,
                                       sync=False)}[mode]()
 t0 = time.perf_counter()
@@ -4215,29 +4265,23 @@ def capture(item):
     handed.append(build_or_load(item))
     return handed[-1]
 ad._build_or_load_strategy = capture
-if mode == "bert":
-    from autodist_tpu_torch.models import bert
-    torch.use_deterministic_algorithms(True)
-    cfg = bert.BertConfig.base(dtype=torch.bfloat16)
-    loss_fn, params, batch, _ = bert.make_train_setup(
-        cfg, seq_len=cs.BERT_SEQ, batch_size=cs.BERT_BATCH, seed=0,
-        attention="flash")
-    lr = 1e-3
-else:
-    from autodist_tpu_torch.models import ncf
-    loss_fn, params, batch, _ = ncf.make_train_setup(
-        ncf.NCFConfig(), batch_size=cs.PS_BATCH, seed=0)
-    lr = 1e-4 if mode == "async" else 1e-3
+from autodist_tpu_torch.models import ncf
+loss_fn, params, batch, _ = ncf.make_train_setup(
+    ncf.NCFConfig(), batch_size=cs.PS_BATCH, seed=0)
+lr = 1e-4 if mode == "async" else 1e-3
 runner = ad.build(loss_fn, functools.partial(torch.optim.Adam, lr=lr),
                   params, batch)
 runner.init(params)
 cs.reset_counts()
 losses, times = [], []
-for _ in range(steps):
+for i in range(cs.ASYNC_MAX_STEPS if mode == "async" else steps):
     t = time.perf_counter()
     losses.append(float(runner.run(batch)["loss"]))
     torch.cuda.synchronize()
     times.append(1e3 * (time.perf_counter() - t))
+    # async: on past the steps until this process's loss has fallen
+    if i + 1 >= steps and (mode != "async" or losses[-1] < losses[0]):
+        break
 launches = cs.launch_counts()
 rec = tel.get_recorder()
 out = {"rank": rank, "losses": losses, "times_ms": times,
@@ -4319,48 +4363,70 @@ def launch_env(tmp, marker, **extra):
     return env
 
 
-def run_launched(tmp, mode, steps, timeout, label):
-    """Run the user script as the chief of a chief-launched job; returns
-    (exit code, stderr, seconds). Whatever is left of the job is killed
-    at the end."""
-    import signal
+def start_launched(tmp, mode, steps, script="user_script.py", **extra):
+    """Start a user script (phase 18's, or ``script`` in ``tmp``) as the
+    chief of a chief-launched job, ``extra`` added to its environment;
+    :func:`finish_launched` waits for it."""
+    import threading
     import uuid
-    marker = uuid.uuid4().hex
-    script, spec = os.path.join(tmp, "user_script.py"), os.path.join(
-        tmp, "spec.yml")
+    job = {"marker": uuid.uuid4().hex,
+           "logs": [os.path.join(tmp, "chief.out"),
+                    os.path.join(tmp, "chief.err")]}
+    script, spec = os.path.join(tmp, script), os.path.join(tmp, "spec.yml")
+    job["t0"] = time.perf_counter()
     # files, not pipes: a process the chief leaves behind would hold a
     # pipe open and hide the chief's own exit
-    logs = [os.path.join(tmp, "chief.out"), os.path.join(tmp, "chief.err")]
-    t0 = time.perf_counter()
-    with open(logs[0], "w") as out_f, open(logs[1], "w") as err_f:
-        proc = subprocess.Popen(
+    with open(job["logs"][0], "w") as out_f, \
+            open(job["logs"][1], "w") as err_f:
+        job["proc"] = subprocess.Popen(
             [sys.executable, script, spec, tmp, mode, str(steps)], cwd=tmp,
-            env=launch_env(tmp, marker), stdout=out_f, stderr=err_f,
-            text=True, start_new_session=True)
+            env=launch_env(tmp, job["marker"], **extra), stdout=out_f,
+            stderr=err_f, text=True, start_new_session=True)
+
+    def stamp_exit():
+        job["proc"].wait()
+        job["end"] = time.perf_counter()
+    threading.Thread(target=stamp_exit, daemon=True).start()
+    return job
+
+
+def finish_launched(job, timeout, label):
+    """Wait for a job :func:`start_launched` started, at most ``timeout``
+    s from its start; returns (exit code, stderr, seconds from its start
+    to the chief's exit, the job's processes left). Whatever is left of
+    the job is killed at the end."""
+    import signal
+    marker, proc = "ADT_SMOKE_JOB=" + job["marker"], job["proc"]
     try:
-        proc.wait(timeout=timeout)
+        proc.wait(timeout=max(0.0, job["t0"] + timeout - time.perf_counter()))
     except subprocess.TimeoutExpired:
-        kill_job("ADT_SMOKE_JOB=" + marker)
+        kill_job(marker)
         proc.wait()
-        with open(logs[1]) as f:
+        with open(job["logs"][1]) as f:
             fail("%s: the job outlived %d s: %s" % (label, timeout,
                                                    f.read()[-3000:]))
     finally:
-        wall = time.perf_counter() - t0
+        wall = job.get("end", time.perf_counter()) - job["t0"]
         try:
             os.killpg(proc.pid, signal.SIGKILL)
         except OSError:
             pass
         # a process the chief stopped on its way out may take a moment
         deadline = time.monotonic() + 5
-        while job_pids("ADT_SMOKE_JOB=" + marker) and \
-                time.monotonic() < deadline:
+        while job_pids(marker) and time.monotonic() < deadline:
             time.sleep(0.1)
-        left = job_pids("ADT_SMOKE_JOB=" + marker)
-        kill_job("ADT_SMOKE_JOB=" + marker)
-    with open(logs[1]) as f:
+        left = job_pids(marker)
+        kill_job(marker)
+    with open(job["logs"][1]) as f:
         err = f.read()
     return proc.returncode, err, wall, left
+
+
+def run_launched(tmp, mode, steps, timeout, label, script="user_script.py",
+                 **extra):
+    """:func:`start_launched`, then :func:`finish_launched`."""
+    return finish_launched(start_launched(tmp, mode, steps, script, **extra),
+                           timeout, label)
 
 
 def read_outputs(tmp, n, label, log):
@@ -4375,152 +4441,47 @@ def read_outputs(tmp, n, label, log):
     return res
 
 
-def parting_variables():
-    """The bert_base variables whose gradient differs between PyTorch's
-    deterministic mode and its default, on phase 10's init and batch:
-    ``[(name, max |diff|)]``."""
-    import torch
-    from autodist_tpu_torch.models import bert
-    cfg = bert.BertConfig.base(dtype=torch.bfloat16)
-    loss_fn, params, batch, _ = bert.make_train_setup(
-        cfg, seq_len=BERT_SEQ, batch_size=BERT_BATCH, seed=0,
-        attention="flash")
-    leaves = {n: t.cuda().requires_grad_() for n, t in params.items()}
-    placed = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
-    grads = {}
-    with uncounted():
-        for mode in (True, False):
-            torch.use_deterministic_algorithms(mode)
-            try:
-                grads[mode] = torch.autograd.grad(loss_fn(leaves, placed),
-                                                  list(leaves.values()))
-            finally:
-                torch.use_deterministic_algorithms(False)
-    return [(n, max_err(a, b)) for n, a, b in zip(leaves, grads[True],
-                                                 grads[False])
-            if not torch.equal(a, b)]
-
-
-def launched_bert_phase(card, tmp, dp_losses):
-    """Phase 18 (a): bert_base at full width, launched by the chief on two
-    processes of cuda:0. Returns both ranks' launches."""
-    import re
-    import statistics
-    steps = LAUNCH_WARMUP + LAUNCH_STEPS
-    print("phase 18 (a): bert_base bf16 (seq %d, global batch %d, flash) "
-          "under AllReduce(), launched by the chief: nodes 127.0.0.1 and "
-          "localhost, gpus [0] each (two processes on cuda:0), file "
-          "handoff, deterministic mode, %d + %d steps"
-          % (BERT_SEQ, BERT_BATCH, LAUNCH_WARMUP, LAUNCH_STEPS))
-    rc, err, wall, left = run_launched(tmp, "bert", steps, 300,
-                                       "phase 18 (a)")
-    if rc != 0 or left:
-        fail("phase 18 (a): the chief exited %d, %d processes left: %s"
-             % (rc, len(left), err[-3000:]))
-    # the log holds both processes' lines (the worker writes to the
-    # chief's stderr)
-    backend = re.findall(r"process group backend (\w+): (.*)", err)
-    if len(backend) != 2 or backend[0] != backend[1] or \
-            backend[0][0] != "gloo":
-        fail("phase 18 (a): the backend lines %r (want gloo on both: one "
-             "card)" % (backend,))
-    if "local_exec[localhost]" not in err:
-        fail("phase 18 (a): the chief launched no local worker")
-    res = read_outputs(tmp, 2, "phase 18 (a)", err)
-    a, b = res
-    if a["losses"] != b["losses"]:
-        fail("phase 18 (a): the ranks' losses differ: %r vs %r"
-             % (a["losses"], b["losses"]))
-    if not all(x == x for x in a["losses"]):
-        fail("phase 18 (a): a loss is not finite: %r" % a["losses"])
-    if a["strategy_json"] != b["strategy_json"] or \
-            b["strategy_wait_ms"] == [] or a["strategy_wait_ms"] != []:
-        fail("phase 18 (a): the worker did not load the chief's strategy")
-    launches = {}
-    for r in res:
-        if r["world"] != 2 or r["device"] != "cuda:0":
-            fail("phase 18 (a): rank %d ran at world %d on %s"
-                 % (r["rank"], r["world"], r["device"]))
-        check_launches("phase 18 (a) rank %d" % r["rank"], r["launches"],
-                       BERT_LAYERS, steps)
-        for name, by in r["launches"].items():
-            for design, n in by.items():
-                launches.setdefault(name, {})
-                launches[name][design] = launches[name].get(design, 0) + n
-    want = dp_losses
-    got = a["losses"][:len(want)]
-    if got == want:
-        verdict = "bit-equal to phase 10's fp32-wire losses %s" % (
-            " ".join("%.4f" % x for x in want))
-    else:
-        first = next(i for i, (x, y) in enumerate(zip(got, want)) if x != y)
-        differ = parting_variables()
-        if first == 0 or not differ:
-            fail("phase 18 (a): losses %r part from phase 10's %r at step "
-                 "%d, and no gradient differs between deterministic mode "
-                 "and the default" % (got, want, first + 1))
-        verdict = ("not bit-equal to phase 10's fp32-wire losses %s: they "
-                   "part at step %d (the first loss, before any update, is "
-                   "equal); phase 10 runs in the default mode, this phase in "
-                   "deterministic mode, and on the same init and batch the "
-                   "gradients of %d variables differ between the two: %s; "
-                   "the op is F.embedding's backward (index_add on CUDA: "
-                   "atomics in the default mode, an ordered sum in "
-                   "deterministic mode)" % (
-                       " ".join("%.6f" % x for x in want), first + 1,
-                       len(differ), ", ".join("%s (%.3e)" % d
-                                              for d in differ)))
-        if not all(n.endswith(".embedding") for n, _ in differ):
-            fail("phase 18 (a): %s — and not only embedding tables"
-                 % verdict)
-    after = a["times_ms"][LAUNCH_WARMUP:]
-    print("  backend: %s (%s); AutoDist() on the chief (launch + join) "
-          "%.1f ms, on the worker %.1f ms; the worker's strategy wait "
-          "%.1f ms; the job %.1f s from the chief's start to its exit"
-          % (backend[0][0], backend[0][1], a["construct_ms"],
-             b["construct_ms"], b["strategy_wait_ms"][0], wall))
-    print("  losses %s (both ranks, bit-equal), %s; first step %.1f / %.1f "
-          "ms (ranks 0 / 1), step p50 %.1f ms (min %.1f, max %.1f) / %.1f "
-          "ms; each kernel %d launches a step a rank on mma.sync bf16 [%s]"
-          % (" ".join("%.6f" % x for x in a["losses"]), verdict,
-             a["times_ms"][0], b["times_ms"][0], statistics.median(after),
-             min(after), max(after), statistics.median(
-                 b["times_ms"][LAUNCH_WARMUP:]), BERT_LAYERS, card))
-    return launches
-
-
-def external_phase(card, tmp):
-    """Phase 18 (b): NCF under PartitionedPS(), two processes started
-    together by the phase (``ADT_EXTERNAL_LAUNCH``): the strategy over
-    ``broadcast_bytes``."""
-    import signal
+def start_external(tmp):
+    """Start phase 18 (b)'s two processes together (``ADT_EXTERNAL_LAUNCH``)
+    in ``tmp``; :func:`external_phase` waits for them."""
     import uuid
-    print("phase 18 (b): NCF default config (batch %d) under "
-          "PartitionedPS(), two processes started together on cuda:0 "
-          "(ADT_EXTERNAL_LAUNCH: the strategy over broadcast_bytes), %d "
-          "steps" % (PS_BATCH, EXTERNAL_STEPS))
-    marker = uuid.uuid4().hex
-    sid = "smoke-external-%s" % marker[:12]
+    job = {"marker": uuid.uuid4().hex, "tmp": tmp, "procs": [], "logs": []}
+    job["sid"] = "smoke-external-%s" % job["marker"][:12]
     addr, svc = "127.0.0.1:%d" % free_port(), str(free_port())
     script, spec = os.path.join(tmp, "user_script.py"), os.path.join(
         tmp, "spec.yml")
-    procs = []
-    try:
-        for r in range(2):
-            extra = {"ADT_COORDINATOR_ADDR": addr, "ADT_COORDSVC_PORT": svc,
-                     "ADT_NUM_PROCESSES": "2", "ADT_PROCESS_ID": str(r),
-                     "ADT_EXTERNAL_LAUNCH": "1", "ADT_STRATEGY_ID": sid,
-                     "ADT_DEVICE": "cuda:0"}
-            if r:
-                extra["ADT_WORKER"] = "localhost"
-                extra["ADT_WORKING_DIR"] = os.path.join(tmp, "worker_work")
-            procs.append(subprocess.Popen(
+    for r in range(2):
+        extra = {"ADT_COORDINATOR_ADDR": addr, "ADT_COORDSVC_PORT": svc,
+                 "ADT_NUM_PROCESSES": "2", "ADT_PROCESS_ID": str(r),
+                 "ADT_EXTERNAL_LAUNCH": "1", "ADT_STRATEGY_ID": job["sid"],
+                 "ADT_DEVICE": "cuda:0"}
+        if r:
+            extra["ADT_WORKER"] = "localhost"
+            extra["ADT_WORKING_DIR"] = os.path.join(tmp, "worker_work")
+        job["logs"].append(os.path.join(tmp, "external_%d.log" % r))
+        with open(job["logs"][-1], "w") as log:
+            job["procs"].append(subprocess.Popen(
                 [sys.executable, script, spec, tmp, "external",
                  str(EXTERNAL_STEPS)], cwd=tmp,
-                env=launch_env(tmp, marker, **extra),
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                env=launch_env(tmp, job["marker"], **extra), stdout=log,
+                stderr=subprocess.STDOUT, text=True,
                 start_new_session=True))
-        logs = [p.communicate(timeout=180)[0] for p in procs]
+    return job
+
+
+def external_phase(card, job):
+    """Phase 18 (b): NCF under PartitionedPS(), the two processes
+    :func:`start_external` started: the strategy over
+    ``broadcast_bytes``."""
+    import signal
+    print("phase 18 (b): NCF default config (batch %d) under "
+          "PartitionedPS(), two processes started together on cuda:0 "
+          "(ADT_EXTERNAL_LAUNCH: the strategy over broadcast_bytes), %d "
+          "steps, run beside (d)" % (PS_BATCH, EXTERNAL_STEPS))
+    tmp, sid, procs = job["tmp"], job["sid"], job["procs"]
+    try:
+        for p in procs:
+            p.wait(timeout=180)
     except subprocess.TimeoutExpired:
         fail("phase 18 (b): the pair outlived 180 s")
     finally:
@@ -4529,7 +4490,11 @@ def external_phase(card, tmp):
                 os.killpg(p.pid, signal.SIGKILL)
             except OSError:
                 pass
-        kill_job("ADT_SMOKE_JOB=" + marker)
+        kill_job("ADT_SMOKE_JOB=" + job["marker"])
+    logs = []
+    for name in job["logs"]:
+        with open(name) as f:
+            logs.append(f.read())
     for p, log in zip(procs, logs):
         if p.returncode != 0:
             fail("phase 18 (b): a process exited %d: %s" % (p.returncode,
@@ -4552,20 +4517,6 @@ def external_phase(card, tmp):
              " ".join("%.5f" % x for x in a["losses"]), card))
 
 
-def fail_fast_phase(card, tmp):
-    """Phase 18 (c): the launched worker exits 3 after AutoDist(); the
-    chief must exit 1 within 60 s and leave no process."""
-    print("phase 18 (c): the launched worker exits 3 right after "
-          "AutoDist(); the chief must abort the job")
-    rc, err, wall, left = run_launched(tmp, "crash", 1, 60, "phase 18 (c)")
-    if rc != 1 or "exited with code 3 — aborting job" not in err:
-        fail("phase 18 (c): the chief exited %d: %s" % (rc, err[-3000:]))
-    if left:
-        fail("phase 18 (c): %d processes of the job were left" % len(left))
-    print("  the chief exited 1 (\"aborting job\") %.1f s after its start; "
-          "no process of the job left [%s]" % (wall, card))
-
-
 def launched_async_phase(card, tmp):
     """Phase 18 (d): NCF under PSLoadBalancing(sync=False), launched by
     the chief, the service started by Cluster.start only."""
@@ -4574,8 +4525,9 @@ def launched_async_phase(card, tmp):
     print("phase 18 (d): NCF default config (batch %d) under "
           "PSLoadBalancing(sync=False), Adam 1e-4, launched by the chief "
           "(owner hosts 127.0.0.1 and localhost on cuda:0; the coordination "
-          "service started by Cluster.start), %d + %d steps"
-          % (PS_BATCH, LAUNCH_WARMUP, ASYNC_LAUNCH_STEPS))
+          "service started by Cluster.start), %d + %d steps at least, on "
+          "until each process's loss falls (at most %d)"
+          % (PS_BATCH, LAUNCH_WARMUP, ASYNC_LAUNCH_STEPS, ASYNC_MAX_STEPS))
     rc, err, wall, left = run_launched(tmp, "async", steps, 240,
                                        "phase 18 (d)")
     if rc != 0 or left:
@@ -4602,8 +4554,9 @@ def launched_async_phase(card, tmp):
                        for h, v in sorted(published.items())), wall))
 
 
-def launch_phase(card, dp_losses):
-    """Phase 18: launch and handoff. Returns (a)'s launches."""
+def launch_phase(card):
+    """Phase 18: launch and handoff; bert_base launched by the chief is
+    phase 19 (a)'s first incarnation."""
     import tempfile
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -4611,15 +4564,415 @@ def launch_phase(card, dp_losses):
             f.write(LAUNCH_SCRIPT)
         with open(os.path.join(tmp, "spec.yml"), "w") as f:
             f.write(LAUNCH_SPEC)
-        launches = launched_bert_phase(card, tmp, dp_losses)
-        external_phase(card, tmp)
-        fail_fast_phase(card, tmp)
+        # (b) runs beside (d), in a directory of its own: both are short
+        # NCF jobs whose checks do not depend on the host's load
+        btmp = os.path.join(tmp, "b")
+        os.makedirs(btmp)
+        for name in ("user_script.py", "spec.yml"):
+            with open(os.path.join(tmp, name)) as src, \
+                    open(os.path.join(btmp, name), "w") as dst:
+                dst.write(src.read())
+        external = start_external(btmp)
         launched_async_phase(card, tmp)
+        external_phase(card, external)
     print("phase 18: %.1f s" % (time.perf_counter() - t0))
+
+
+# ---------------------------------------------------------------- phase 19
+
+# 19 (a): steps 0-4 (phase 10's fp32-wire steps); the save after step 2
+ELASTIC_STEPS = DP_STEPS["fp32"]
+ELASTIC_SAVE_AFTER = 2
+ELASTIC_HB_TIMEOUT_S = 6    # 19 (b): the JAX deadlock test's window
+ELASTIC_HANG_STEPS = 6      # 19 (b): the relaunched worker's steps
+# 19 (b): the relaunched worker's first dispatch sleeps this long, past
+# the watchdog's bring-up grace (2 x 6 s after the relaunch) and a
+# heartbeat window, so that only its compile-grace mark keeps it alive
+ELASTIC_SLOW_FIRST_S = 10
+
+# The user script of phase 19: the chief runs it from the phase, and
+# relaunches it for its worker (and re-execs it to restart the job).
+# Each process appends its events to <out dir>/<mode>_<role>.jsonl, as
+# the steps go: a process may die or be replaced at any point. argv: spec,
+# out dir, mode ("sync" or "hang").
+ELASTIC_SCRIPT = r"""
+import functools, json, os, sys, time
+T_START = time.time()
+import torch
+import torch.distributed as dist
+import chip_smoke as cs
+import autodist_tpu_torch as adt
+from autodist_tpu_torch import strategy
+from autodist_tpu_torch.telemetry import spans as tel
+
+spec, outdir, mode = sys.argv[1], sys.argv[2], sys.argv[3]
+worker = os.environ.get("ADT_WORKER", "")
+resumed = bool(os.environ.get("ADT_AUTO_RESUME"))
+tel.configure("1")   # the handoff's spans
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+events = open(os.path.join(outdir, "%s_%s.jsonl"
+                           % (mode, "worker" if worker else "chief")), "a")
+
+def record(event, **kw):
+    kw.update(event=event, t=time.time(), resumed=resumed,
+              pid=os.getpid())
+    events.write(json.dumps(kw) + "\n")
+    events.flush()
+
+record("start", t_start=T_START)
+builder = strategy.AllReduce() if mode == "sync" else strategy.PS(sync=False)
+t = time.perf_counter()
+ad = adt.AutoDist(resource_spec_file=spec, strategy_builder=builder)
+construct_ms = 1e3 * (time.perf_counter() - t)
+handed = []
+build_or_load = ad._build_or_load_strategy
+
+def capture(item):
+    handed.append(build_or_load(item))
+    return handed[-1]
+ad._build_or_load_strategy = capture
+if mode == "sync":
+    from autodist_tpu_torch.checkpoint import Saver
+    from autodist_tpu_torch.models import bert
+    torch.use_deterministic_algorithms(True)
+    cfg = bert.BertConfig.base(dtype=torch.bfloat16)
+    loss_fn, params, batch, _ = bert.make_train_setup(
+        cfg, seq_len=cs.BERT_SEQ, batch_size=cs.BERT_BATCH, seed=0,
+        attention="flash")
+    runner = ad.build(loss_fn, functools.partial(torch.optim.Adam, lr=1e-3),
+                      params, batch)
+    t = time.perf_counter()
+    runner.init(params)  # ADT_AUTO_RESUME restores on the re-exec'd run
+    torch.cuda.synchronize()
+    start = int(runner.state.step)
+    record("init", ms=1e3 * (time.perf_counter() - t), step=start,
+           rank=dist.get_rank(), world=dist.get_world_size(),
+           device=str(ad.device), construct_ms=construct_ms,
+           strategy_json=json.dumps(handed[0].to_dict(), sort_keys=True),
+           strategy_wait_ms=[1e3 * d for d in tel.get_recorder().durations_s(
+               "autodist.strategy_load")])
+    saver = Saver(directory=os.environ["ADT_CKPT_DIR"])
+    marker = os.path.join(outdir, "sync_died")
+    cs.reset_counts()
+    for i in range(start, cs.ELASTIC_STEPS):
+        t = time.perf_counter()
+        loss = float(runner.run(batch)["loss"])
+        torch.cuda.synchronize()
+        record("step", step=i, loss=loss, ms=1e3 * (time.perf_counter() - t),
+               launches=cs.launch_counts(), rank=dist.get_rank())
+        cs.reset_counts()
+        if i == cs.ELASTIC_SAVE_AFTER:
+            t = time.perf_counter()
+            saver.save(runner)  # every rank calls it; rank 0 writes
+            record("save", ms=1e3 * (time.perf_counter() - t),
+                   rank=dist.get_rank())
+            if worker and not os.path.exists(marker):
+                open(marker, "w").close()
+                record("death")
+                os._exit(3)  # the first worker incarnation dies
+    record("done", rank=dist.get_rank())
+else:
+    from autodist_tpu_torch.models import ncf
+    from autodist_tpu_torch.runtime.coordination import CoordinationClient
+    base_loss, params, batch, _ = ncf.make_train_setup(
+        ncf.NCFConfig(), batch_size=cs.PS_BATCH, seed=0)
+    slow = []
+
+    def loss_fn(p, b):
+        if slow:
+            time.sleep(slow.pop())
+        return base_loss(p, b)
+    runner = ad.build(loss_fn, functools.partial(torch.optim.Adam, lr=1e-4),
+                      params, batch)
+    runner.init(params)
+    marker = os.path.join(outdir, "hang_once")
+    if worker:
+        restarted = os.path.exists(marker)
+        if restarted:
+            slow.append(cs.ELASTIC_SLOW_FIRST_S)
+        for i in range(cs.ELASTIC_HANG_STEPS):
+            record("dispatch", step=i, restarted=restarted)
+            loss = float(runner.run(batch)["loss"])
+            torch.cuda.synchronize()
+            record("step", step=i, loss=loss, restarted=restarted)
+            if i == 2 and not restarted:
+                open(marker, "w").close()
+                # the last heartbeat, then silence while alive
+                c = CoordinationClient("127.0.0.1",
+                                       adt.ENV.ADT_COORDSVC_PORT.val)
+                c.heartbeat(worker)
+                record("silent")
+                time.sleep(3600)
+        record("done", restarted=restarted)
+        open(os.path.join(outdir, "hang_done"), "w").close()
+    else:
+        done = os.path.join(outdir, "hang_done")
+        deadline = time.monotonic() + 150
+        i = 0
+        while time.monotonic() < deadline and not os.path.exists(done):
+            loss = float(runner.run(batch)["loss"])
+            torch.cuda.synchronize()
+            record("step", step=i, loss=loss)
+            i += 1
+            time.sleep(0.05)
+        record("done", worker_done=os.path.exists(done))
+"""
+
+
+def read_events(tmp, mode, role):
+    path = os.path.join(tmp, "%s_%s.jsonl" % (mode, role))
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def log_time(err, text):
+    """The wall-clock time of the first log line of ``err`` holding
+    ``text`` (the port's logging format starts each line with its local
+    time to the millisecond)."""
+    import datetime
+    for line in err.splitlines():
+        if text in line:
+            stamp = " ".join(line.split()[:2])
+            return datetime.datetime.strptime(
+                stamp, "%Y-%m-%d %H:%M:%S,%f").timestamp()
+    return None
+
+
+def elastic_sync_phase(card, tmp, dp_losses):
+    """Phase 19 (a): bert_base at full width under AllReduce(), launched by
+    the chief on two processes of cuda:0 (the launch plane's checks: the
+    relaunch, the join over gloo, the file handoff), sync-elastic: the
+    worker dies after step 2's save, the chief re-execs and both ranks
+    resume at step 3, every loss bit-equal to phase 10's uninterrupted
+    fp32-wire run. Returns both ranks' launches over both incarnations."""
+    import re
+    import statistics
+    print("phase 19 (a): bert_base bf16 (seq %d, global batch %d, flash) "
+          "under AllReduce(), launched by the chief on 127.0.0.1 and "
+          "localhost (gpus [0] each: two processes on cuda:0), file "
+          "handoff, ADT_ELASTIC=1 ADT_ELASTIC_SYNC=1, deterministic mode, "
+          "%d steps with a save after step %d; the worker's first "
+          "incarnation exits 3 after that save"
+          % (BERT_SEQ, BERT_BATCH, ELASTIC_STEPS, ELASTIC_SAVE_AFTER))
+    rc, err, wall, left = run_launched(
+        tmp, "sync", 0, 400, "phase 19 (a)", script="elastic_script.py",
+        ADT_ELASTIC="1", ADT_ELASTIC_SYNC="1",
+        ADT_CKPT_DIR=os.path.join(tmp, "ckpt_sync"))
+    if rc != 0 or left:
+        fail("phase 19 (a): the chief exited %d, %d processes left: %s"
+             % (rc, len(left), err[-4000:]))
+    if err.count("sync-elastic: re-exec") != 1 or \
+            "restarting the WHOLE job" not in err:
+        fail("phase 19 (a): the chief did not re-exec once: %s"
+             % err[-4000:])
+    if err.count("local_exec[localhost]") != 2:
+        fail("phase 19 (a): the chief did not launch its worker once an "
+             "incarnation")
+    # the log holds every process's lines (the workers write to the
+    # chief's stderr); the backend rule must pick gloo (one card)
+    backend = re.findall(r"process group backend (\w+): (.*)", err)
+    if len(backend) != 4 or {b for b, _ in backend} != {"gloo"}:
+        fail("phase 19 (a): the backend lines %r (want gloo in each of the "
+             "4 processes: one card)" % (backend,))
+    chief, wk = read_events(tmp, "sync", "chief"), read_events(
+        tmp, "sync", "worker")
+    inits = {(e["resumed"], e["rank"]): e for e in chief + wk
+             if e["event"] == "init"}
+    for (again, rank), e in sorted(inits.items()):
+        want = ELASTIC_SAVE_AFTER + 1 if again else 0
+        if e["world"] != 2 or e["device"] != "cuda:0" or e["step"] != want:
+            fail("phase 19 (a): %s rank %d at world %d on %s started at "
+                 "step %d (want 2, cuda:0, %d)" % (
+                     "resumed" if again else "first", rank, e["world"],
+                     e["device"], e["step"], want))
+        if e["strategy_json"] != inits[(again, 0)]["strategy_json"] or \
+                bool(e["strategy_wait_ms"]) != bool(rank):
+            fail("phase 19 (a): the %s worker did not load the chief's "
+                 "strategy file" % ("resumed" if again else "first"))
+    if sorted(inits) != [(False, 0), (False, 1), (True, 0), (True, 1)]:
+        fail("phase 19 (a): the ranks that started: %r" % sorted(inits))
+    steps = {}
+    launches = {}
+    for e in chief + wk:
+        if e["event"] != "step":
+            continue
+        steps.setdefault((e["resumed"], e["rank"]), {})[e["step"]] = e
+        check_launches("phase 19 (a) %s rank %d step %d" % (
+            "resumed" if e["resumed"] else "first", e["rank"], e["step"]),
+            e["launches"], BERT_LAYERS, 1)
+        for name, by in e["launches"].items():
+            for design, n in by.items():
+                launches.setdefault(name, {})
+                launches[name][design] = launches[name].get(design, 0) + n
+    first = [sorted(steps.get((False, r), {})) for r in (0, 1)]
+    again = [sorted(steps.get((True, r), {})) for r in (0, 1)]
+    want_first = list(range(ELASTIC_SAVE_AFTER + 1))
+    want_again = list(range(ELASTIC_SAVE_AFTER + 1, ELASTIC_STEPS))
+    if first != [want_first] * 2 or again != [want_again] * 2:
+        fail("phase 19 (a): steps run %r before and %r after the restart"
+             % (first, again))
+    by_rank = [[steps[(i > ELASTIC_SAVE_AFTER, r)][i]["loss"]
+                for i in range(ELASTIC_STEPS)] for r in (0, 1)]
+    if by_rank[0] != by_rank[1]:
+        fail("phase 19 (a): the ranks' losses differ: %r" % (by_rank,))
+    got = by_rank[0]
+    # phase 10's fp32 wire is the same program, uninterrupted: two ranks
+    # on cuda:0 over gloo, deterministic mode. Steps 0-2 hold the launch
+    # plane to it, steps 3-4 the restore (which must be exact)
+    want = list(dp_losses[:ELASTIC_STEPS])
+    if got != want:
+        part = next(i for i, (x, y) in enumerate(zip(got, want)) if x != y)
+        fail("phase 19 (a): losses %r part from phase 10's uninterrupted "
+             "fp32-wire run %r at step %d: %s" % (
+                 got, want, part,
+                 "the restore from the checkpoint is not exact"
+                 if part > ELASTIC_SAVE_AFTER else
+                 "the launched job differs from the spawned one before "
+                 "the restart"))
+    death = next(e["t"] for e in wk if e["event"] == "death")
+    execv = log_time(err, "sync-elastic: re-exec")
+    resumed_first = steps[(True, 0)][ELASTIC_SAVE_AFTER + 1]
+    save = next(e for e in chief if e["event"] == "save")
+    started = min(e["t_start"] for e in chief if e["event"] == "start")
+    t_first = [steps[(False, r)][i]["ms"] for r in (0, 1)
+               for i in want_first]
+    t_again = [steps[(True, 0)][i]["ms"] for i in want_again]
+    print("  backend: gloo in all 4 processes (%s); AutoDist() on the chief "
+          "(launch + join) %.1f ms, %.1f ms after the restart; the worker's "
+          "strategy wait %.1f / %.1f ms [%s]"
+          % (backend[0][1], inits[(False, 0)]["construct_ms"],
+             inits[(True, 0)]["construct_ms"],
+             inits[(False, 1)]["strategy_wait_ms"][0],
+             inits[(True, 1)]["strategy_wait_ms"][0], card))
+    print("  losses %s (both ranks, both incarnations), bit-equal to phase "
+          "10's uninterrupted fp32-wire run; each kernel 12 launches a step "
+          "a rank on mma.sync bf16 in both incarnations (%d rank-steps); "
+          "the first incarnation's steps %s ms (ranks 0 and 1) [%s]"
+          % (" ".join("%.6f" % x for x in got),
+             sum(len(v) for v in steps.values()),
+             " ".join("%.1f" % x for x in t_first), card))
+    print("  the worker died %.2f s after the chief's start; the save %.1f "
+          "ms (rank 0, in save()); the worker's death to the chief's execv "
+          "%.2f s; the execv to the resumed job's first step %.2f s "
+          "(launch, join, restore); the restore (Runner.init under "
+          "ADT_AUTO_RESUME) %.1f ms; the whole recovery %.2f s; the "
+          "resumed steps %s ms (p50 %.1f); the job %.1f s [%s]"
+          % (death - started, save["ms"], execv - death,
+             resumed_first["t"] - execv, inits[(True, 0)]["ms"],
+             resumed_first["t"] - death,
+             " ".join("%.1f" % x for x in t_again),
+             statistics.median(t_again), wall, card))
+    return launches
+
+
+def elastic_hang_phase(card, tmp):
+    """Phase 19 (b): NCF under PS(sync=False) launched by the chief; the
+    worker's first incarnation goes silent at step 2, the watchdog kills
+    it and the process watcher relaunches it."""
+    print("phase 19 (b): NCF default config (batch %d) under PS(sync=False), "
+          "Adam 1e-4, launched by the chief, ADT_ELASTIC=1 "
+          "ADT_HEARTBEAT_TIMEOUT_S=%d: the worker's first incarnation stops "
+          "heartbeating at step 2 and sleeps; the relaunched one's first "
+          "dispatch lasts %d s more, %d steps"
+          % (PS_BATCH, ELASTIC_HB_TIMEOUT_S, ELASTIC_SLOW_FIRST_S,
+             ELASTIC_HANG_STEPS))
+    rc, err, wall, left = run_launched(
+        tmp, "hang", 0, 300, "phase 19 (b)", script="elastic_script.py",
+        ADT_ELASTIC="1",
+        ADT_HEARTBEAT_TIMEOUT_S=str(ELASTIC_HB_TIMEOUT_S))
+    if rc != 0 or left:
+        fail("phase 19 (b): the chief exited %d, %d processes left: %s"
+             % (rc, len(left), err[-4000:]))
+    for text, n in (("killing it for an elastic restart", 1),
+                    ("relaunching worker", 1)):
+        if err.count(text) != n:
+            fail("phase 19 (b): %r %d times in the log (want %d): %s"
+                 % (text, err.count(text), n, err[-4000:]))
+    if "inside its compile grace window" not in err:
+        fail("phase 19 (b): the watchdog never read the relaunched "
+             "worker's compile-grace mark: %s" % err[-4000:])
+    chief, wk = read_events(tmp, "hang", "chief"), read_events(
+        tmp, "hang", "worker")
+    again = [e["loss"] for e in wk if e["event"] == "step" and e["restarted"]]
+    mine = [e["loss"] for e in chief if e["event"] == "step"]
+    if len(again) != ELASTIC_HANG_STEPS or not again[-1] < again[0] or \
+            not mine[-1] < mine[0]:
+        fail("phase 19 (b): the relaunched worker's losses %r, the chief's "
+             "%r (both must fall)" % (again, mine))
+    silent = next(e["t"] for e in wk if e["event"] == "silent")
+    killed = log_time(err, "killing it for an elastic restart")
+    dispatch = next(e["t"] for e in wk
+                    if e["event"] == "dispatch" and e["restarted"])
+    first = next(e["t"] for e in wk
+                 if e["event"] == "step" and e["restarted"])
+    print("  the last heartbeat to the kill %.2f s (window %d s); the kill "
+          "to the new incarnation's first dispatch %.2f s, to its first "
+          "step %.2f s (%d s of it the deliberate sleep); its losses %s; "
+          "the chief's %d steps %.5f -> %.5f; the job %.1f s [%s]"
+          % (killed - silent, ELASTIC_HB_TIMEOUT_S, dispatch - killed,
+             first - killed, ELASTIC_SLOW_FIRST_S,
+             " ".join("%.5f" % x for x in again), len(mine), mine[0],
+             mine[-1], wall, card))
+
+
+def start_fail_fast(tmp):
+    """Start phase 19 (c)'s job in ``tmp``: a sync-elastic worker exits 3
+    right after AutoDist(), before any checkpoint."""
+    return start_launched(tmp, "crash", 1, ADT_ELASTIC="1",
+                          ADT_ELASTIC_SYNC="1",
+                          ADT_CKPT_DIR=os.path.join(tmp, "ckpt_none"))
+
+
+def elastic_fail_fast_phase(card, job):
+    """Phase 19 (c): nothing to restore, so the chief still fails fast
+    (exit 1) and leaves no process."""
+    print("phase 19 (c): the launched worker exits 3 right after "
+          "AutoDist(), ADT_ELASTIC=1 ADT_ELASTIC_SYNC=1, no checkpoint "
+          "(run beside (b)): the chief must abort the job")
+    rc, err, wall, left = finish_launched(job, 90, "phase 19 (c)")
+    if rc != 1 or "nothing to restore, failing fast" not in err or \
+            "exited with code 3 — aborting job" not in err:
+        fail("phase 19 (c): the chief exited %d: %s" % (rc, err[-3000:]))
+    if left:
+        fail("phase 19 (c): %d processes of the job were left" % len(left))
+    print("  the chief exited 1 (\"nothing to restore\", \"aborting job\") "
+          "%.1f s after its start; no process of the job left [%s]"
+          % (wall, card))
+
+
+def elastic_phase(card, dp_losses):
+    """Phase 19: supervised recovery. Returns (a)'s launches."""
+    import tempfile
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "user_script.py"), "w") as f:
+            f.write(LAUNCH_SCRIPT)
+        with open(os.path.join(tmp, "elastic_script.py"), "w") as f:
+            f.write(ELASTIC_SCRIPT)
+        with open(os.path.join(tmp, "spec.yml"), "w") as f:
+            f.write(LAUNCH_SPEC)
+        launches = elastic_sync_phase(card, tmp, dp_losses)
+        # (c) runs beside (b): its two processes start and end while
+        # (b)'s first incarnation starts, long before (b)'s readings
+        ctmp = os.path.join(tmp, "c")
+        os.makedirs(ctmp)
+        for name in ("user_script.py", "spec.yml"):
+            with open(os.path.join(tmp, name)) as src, \
+                    open(os.path.join(ctmp, name), "w") as dst:
+                dst.write(src.read())
+        fail_fast = start_fail_fast(ctmp)
+        elastic_hang_phase(card, tmp)
+        elastic_fail_fast_phase(card, fail_fast)
+    print("phase 19: %.1f s" % (time.perf_counter() - t0))
     return launches
 
 
 def main():
+    global T_SMOKE
+    T_SMOKE = time.perf_counter()
     if not os.path.isdir(os.path.join(HERE, "autodist_tpu_torch", "csrc")):
         fail("autodist_tpu_torch/ is not beside chip_smoke.py — run it from "
              "a checkout of the repository")
@@ -4750,21 +5103,35 @@ def main():
         torch.ones((BERT_BATCH, BERT_SEQ), dtype=torch.int32, device="cuda"),
         "[128,128,12,64] all-ones mask")
 
-    train_launches = train_phase(card)
-    train_parity_phase()
-    bert_launches = bert_train_phase(card)
-    resnet_phase(card)
-    bert_parity_phase()
-    dp_launches, dp_losses = dp_phase(card)
-    resume_launches = resume_phase(card)
-    cnn_phase(card)
-    fused_launches, replay_per_microstep = fused_phase(card)
-    sync_launches, tier_launches, remat_launches = sync_variants_phase(card)
-    ps_launches, bert_ps_losses = ps_phase(card)
-    carry_launches, carry_per_microstep, adamw_launches = carry_phase(
-        card, bert_ps_losses)
-    async_launches = async_phase(card)
-    launched_launches = launch_phase(card, dp_losses)
+    seconds = {}
+
+    def timed_phase(label, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[label] = time.perf_counter() - t
+        print("(phase %s took %.1f s)" % (label, seconds[label]), flush=True)
+        return out
+
+    train_launches = timed_phase("5", train_phase, card)
+    timed_phase("6", train_parity_phase)
+    bert_launches = timed_phase("7", bert_train_phase, card)
+    timed_phase("8", resnet_phase, card)
+    timed_phase("9", bert_parity_phase)
+    dp_launches, dp_losses = timed_phase("10", dp_phase, card)
+    resume_launches = timed_phase("11", resume_phase, card)
+    timed_phase("12", cnn_phase, card)
+    fused_launches, replay_per_microstep = timed_phase("13", fused_phase,
+                                                       card)
+    sync_launches, tier_launches, remat_launches = timed_phase(
+        "14", sync_variants_phase, card)
+    ps_launches, bert_ps_losses = timed_phase("15", ps_phase, card)
+    carry_launches, carry_per_microstep, adamw_launches = timed_phase(
+        "16", carry_phase, card, bert_ps_losses)
+    async_launches = timed_phase("17", async_phase, card)
+    timed_phase("18", launch_phase, card)
+    elastic_launches = timed_phase("19", elastic_phase, card, dp_losses)
+    print("phases 5-19: %s s" % ", ".join(
+        "%s %.1f" % kv for kv in seconds.items()))
 
     # flash_fwd runs on the three main paths, serving (decode), lm1b and
     # bert training, the backward kernels on the two training paths. Each
@@ -4817,14 +5184,15 @@ def main():
         # phase 15 (d): bert_base under Parallax, the tables host-resident
         # phase 16 (d): bert_base under AdamW
         # phase 17 (a): bert_base under PS(sync=False), drained and not
-        # phase 18 (a): bert_base launched by the chief, both ranks
+        # phase 19 (a): bert_base launched by the chief, sync-elastic,
+        # both ranks, both incarnations (the steps that completed)
         for path, counts in (("bert_sync_variants", sync_launches),
                              ("lm1b_bf16_tier", tier_launches),
                              ("bert_remat", remat_launches),
                              ("bert_parallax", ps_launches),
                              ("bert_adamw", adamw_launches),
                              ("bert_async", async_launches),
-                             ("bert_launched", launched_launches)):
+                             ("bert_elastic", elastic_launches)):
             n = counts.get(name, {})
             rec["by_path"][path] = {
                 "launches": sum(n.values()),
@@ -4850,6 +5218,7 @@ def main():
 
     import autodist_tpu_torch as adt
     adt.reset()
+    print("the whole smoke: %.1f s" % (time.perf_counter() - T_SMOKE))
     print("card: %s" % card_line())
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {

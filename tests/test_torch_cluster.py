@@ -27,6 +27,7 @@ def _debug_remote(monkeypatch):
     monkeypatch.setenv(const.ENV.ADT_DEBUG_REMOTE.name_str, "1")
     for k in ("ADT_WORKER", "ADT_COORDINATOR_ADDR", "ADT_NUM_PROCESSES",
               "ADT_PROCESS_ID", "ADT_DEVICE", "ADT_ELASTIC",
+              "ADT_ELASTIC_SYNC", "ADT_ELASTIC_INRUN",
               "ADT_EXTERNAL_LAUNCH", "ADT_STRATEGY_ID"):
         monkeypatch.delenv(k, raising=False)
     yield
@@ -235,8 +236,15 @@ def _elastic_autodist():
     _elastic_autodist], ids=["coordinator", "maybe_init_distributed",
                              "autodist"])
 def test_elastic_is_refused_naming_its_roadmap_item(monkeypatch, construct):
+    """``ADT_ELASTIC=1`` (supervised recovery, item 8.3a) no longer
+    refuses; in-run shrink and grow (``ADT_ELASTIC_INRUN=1``, with the
+    knobs it needs) still does, naming its item 8.3b."""
     monkeypatch.setenv("ADT_ELASTIC", "1")
-    with pytest.raises(NotImplementedError, match="ROADMAP A item 8.3"):
+    construct()
+    adt.reset()
+    monkeypatch.setenv("ADT_ELASTIC_SYNC", "1")
+    monkeypatch.setenv("ADT_ELASTIC_INRUN", "1")
+    with pytest.raises(NotImplementedError, match="ROADMAP A item 8.3b"):
         construct()
 
 
