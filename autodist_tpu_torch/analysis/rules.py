@@ -1,10 +1,11 @@
-"""The plan rules the port's first slice runs: copies of
+"""The plan rules the port runs: copies of
 ``autodist_tpu/analysis/rules.py::missing_trainable_configs`` (ADT101, the
-compile path's hard failure) and ``verify_decode`` (ADT442, the decode
-engine's cache-vs-memory projection)."""
-from typing import List, Optional
+compile path's hard failure), ``check_mp_axes_node`` (ADT205/206/207, the
+partitioner's model-parallel layout check) and ``verify_decode`` (ADT442,
+the decode engine's cache-vs-memory projection)."""
+from typing import Dict, List, Optional
 
-from autodist_tpu_torch.analysis.diagnostics import Diagnostic, warning
+from autodist_tpu_torch.analysis.diagnostics import Diagnostic, error, warning
 
 GIB = float(1 << 30)
 
@@ -16,6 +17,44 @@ def missing_trainable_configs(strategy, trainable_names) -> List[str]:
     ``StrategyCompiler.compile``'s hard failure."""
     have = {n.var_name for n in strategy.node_config}
     return sorted(set(trainable_names) - have)
+
+
+def check_mp_axes_node(var_name: str, mp_axes: Dict[int, str], shape,
+                       mesh_axis_sizes: Dict[str, int]) -> List[Diagnostic]:
+    """ADT205/206/207 for one node's model-parallel ``mp_axes`` spec.
+
+    The function ``kernel/partitioner.VariablePartitioner`` raises from,
+    so the lint table and the compile error agree."""
+    out: List[Diagnostic] = []
+    seen_axes: Dict[str, int] = {}
+    for dim, ax_name in sorted(mp_axes.items()):
+        size = mesh_axis_sizes.get(ax_name)
+        if size is None:
+            out.append(error(
+                "ADT205",
+                "mp axis %r not in mesh %s" % (ax_name, mesh_axis_sizes),
+                var=var_name,
+                fixit="add the axis to graph_config.mesh_shape or shard "
+                      "over an existing axis"))
+            continue
+        if ax_name in seen_axes:
+            out.append(error(
+                "ADT207",
+                "mesh axis %r shards both dim %d and dim %d of the same "
+                "variable" % (ax_name, seen_axes[ax_name], dim),
+                var=var_name,
+                fixit="shard each mesh axis over at most one tensor dim"))
+        seen_axes[ax_name] = dim
+        if shape is not None and (dim >= len(shape)
+                                  or shape[dim] % size != 0):
+            out.append(error(
+                "ADT206",
+                "dim %d (shape %s) not divisible by mesh axis %r size %d"
+                % (dim, tuple(shape), ax_name, size), var=var_name,
+                fixit="model-parallel storage needs exact divisibility "
+                      "(no padding): adjust the mesh axis size or the "
+                      "model dimension"))
+    return out
 
 
 def verify_decode(cache_bytes: float, param_bytes: float = 0.0,

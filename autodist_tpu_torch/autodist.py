@@ -138,7 +138,7 @@ class AutoDist:
             kind = "cpu" if device is not None and \
                 torch.device(device).type == "cpu" else "cuda"
             self._resource_spec = ResourceSpec.from_local(
-                kind, replicas=process_group_replicas().num_replicas)
+                kind, replicas=process_group_replicas().num_processes)
         # a multi-node spec launches from the chief, also once exclusions
         # have left it one node (its processes are still the chief's to
         # launch)
@@ -166,9 +166,9 @@ class AutoDist:
             self._device = resolve_device(const.ENV.ADT_DEVICE.val)
         else:
             local_rank = None
-            if self._replicas.num_replicas > 1:
+            if self._replicas.num_processes > 1:
                 local_rank = int(os.environ.get("LOCAL_RANK",
-                                                self._replicas.rank))
+                                                self._replicas.process_rank))
             self._device = resolve_device(device, local_rank)
         set_default_autodist(self)
 
@@ -285,7 +285,7 @@ class AutoDist:
             path = strategy.serialize()
             logging.info("built strategy %s -> %s", strategy.id, path)
             if external:
-                rank = process_group_replicas().rank
+                rank = process_group_replicas().process_rank
                 if rank != 0:
                     raise RuntimeError(
                         "externally-launched jobs must start the chief (no "
@@ -440,12 +440,13 @@ class AutoDist:
                     "entries, so %d processes would claim its one owner "
                     "group ps:%s (owner groups are per host); list one "
                     "device entry a node" % (n, host, c, c, host))
-            if self._replicas.rank > 0 and not const.ENV.ADT_WORKER.val:
+            if (self._replicas.process_rank > 0
+                    and not const.ENV.ADT_WORKER.val):
                 raise ValueError(
                     "async PS with %d processes: rank %d has no ADT_WORKER, "
                     "so it would claim the chief's (%s) owner group; set "
                     "ADT_WORKER to its resource-spec address on every "
-                    "process but the chief" % (n, self._replicas.rank,
+                    "process but the chief" % (n, self._replicas.process_rank,
                                                my_host))
             coord_host = (const.ENV.ADT_COORDINATOR_ADDR.val.split(":")[0]
                           or self._resource_spec.chief)

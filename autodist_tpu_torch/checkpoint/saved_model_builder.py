@@ -28,7 +28,7 @@ class SavedModelBuilder:
         item = dstep.model_item
         np.savez(os.path.join(self.export_dir, "params.npz"),
                  **convert.params_to_jax(dstep.gather_params(runner.state),
-                                         item.flax_shapes))
+                                         item.flax_shapes, item.jax_names))
         spec = item.to_spec_dict()
         spec["signature"] = signature or {}
         fn = apply_fn or item.apply_fn

@@ -60,7 +60,7 @@ def _is_chief(dstep) -> bool:
     is true on every rank the group's launcher starts); with one replica,
     the process that ``const.is_chief()`` names."""
     if dstep.num_replicas > 1:
-        return dstep.replica_info.rank == 0
+        return dstep.replica_info.process_rank == 0
     return const.is_chief()
 
 
@@ -319,10 +319,11 @@ class Saver:
                          (".opt.npz", {})]
             else:
                 trees = [(".params.npz", convert.params_to_jax(
-                    params, item.flax_shapes)),
+                    params, item.flax_shapes, item.jax_names)),
                     (".opt.npz", {} if opt is None else
                      convert.opt_state_to_jax(opt, item.flax_shapes,
-                                              item.optimizer_spec))]
+                                              item.optimizer_spec,
+                                              item.jax_names))]
             sync_flat = convert.sync_state_to_jax(sync, item.var_infos,
                                                   item.flax_shapes,
                                                   item.optimizer_spec)
@@ -435,11 +436,12 @@ class Saver:
         if path is None:
             raise FileNotFoundError("no checkpoint in %s" % self.directory)
         shapes = {n: tuple(t.shape) for n, t in params_template.items()}
+        names = getattr(params_template, "jax_names", None)
         template = convert.jax_shapes(
-            shapes, getattr(params_template, "flax_shapes", None))
+            shapes, getattr(params_template, "flax_shapes", None), names)
         flat = _flat_to_tree(template, _read_npz(path + ".params.npz"))
-        return {n: convert.leaf_from_jax(flat[convert.jax_name(n, s)], n, s,
-                                         device)
+        return {n: convert.leaf_from_jax(flat[convert.jax_name(n, s, names)],
+                                         n, s, device)
                 for n, s in shapes.items()}
 
     def restore(self, runner, path: Optional[str] = None) -> Tuple[Any, int]:
@@ -506,11 +508,13 @@ class Saver:
             shapes = {n: tuple(t.shape) for n, t in params.items()}
             flat = _flat_to_tree(
                 convert.opt_state_template(shapes, item.flax_shapes,
-                                           item.optimizer_spec),
+                                           item.optimizer_spec,
+                                           item.jax_names),
                 _read_npz(path + ".opt.npz"))
             opt_state = convert.opt_state_from_jax(flat, shapes,
                                                    dstep.device,
-                                                   item.optimizer_spec)
+                                                   item.optimizer_spec,
+                                                   item.jax_names)
         sync_state = None
         if os.path.exists(path + ".sync.npz"):
             try:

@@ -33,6 +33,12 @@ not say how flax shaped it (``[H*D, d]`` is a ``[d, H, D]`` DenseGeneral
 kernel only with the head count), so the params the port's models make
 and :func:`params_from_jax` returns are a :class:`FlaxParams`, which
 remembers those shapes (``flax_shapes``); ``ModelItem`` keeps them.
+
+A model written over a plain JAX pytree rather than flax modules
+(``models/tp_lm.py``) keeps the JAX item's names and shapes as they are:
+its params are a :func:`jax_named` mapping, whose ``jax_names`` map each
+name to itself, and every conversion here takes them as given
+(:func:`tp_lm_params_from_jax` reads the JAX model's tree so).
 """
 from typing import Dict, Optional
 
@@ -87,12 +93,29 @@ class FlaxParams(dict):
     """A port params mapping (``{name: tensor}``) that remembers
     ``flax_shapes``: the flax shape of each leaf whose shape the generic
     rule of :func:`flax_shape` does not give back (DenseGeneral kernels
-    and biases). ``dict(params)`` drops them."""
+    and biases), and ``jax_names``: the JAX item's name of each leaf whose
+    name the rule of :func:`jax_name` does not give. ``dict(params)``
+    drops them."""
 
-    def __init__(self, *args, flax_shapes: Optional[dict] = None, **kw):
+    def __init__(self, *args, flax_shapes: Optional[dict] = None,
+                 jax_names: Optional[dict] = None, **kw):
         super().__init__(*args, **kw)
         self.flax_shapes = {n: tuple(s) for n, s in (flax_shapes or {}
                                                      ).items()}
+        self.jax_names = dict(jax_names or {})
+
+
+def jax_named(params: dict) -> FlaxParams:
+    """``params`` already named and shaped as the JAX item names and
+    shapes them (a plain pytree's ``/``-joined paths)."""
+    return FlaxParams(params, jax_names={n: n for n in params})
+
+
+def tp_lm_params_from_jax(np_tree) -> FlaxParams:
+    """``models/tp_lm.py``'s params from the JAX model's numpy tree: the
+    JAX item's names, float32 tensors."""
+    return jax_named({"/".join(path): torch.from_numpy(np.array(
+        arr, np.float32)) for path, arr in _flatten(np_tree)})
 
 
 def params_from_jax(np_tree) -> FlaxParams:
@@ -119,14 +142,17 @@ def params_from_jax(np_tree) -> FlaxParams:
     return out
 
 
-def jax_name(name: str, shape) -> str:
+def jax_name(name: str, shape, jax_names: Optional[dict] = None) -> str:
     """The JAX package's variable name for the port's ``name`` (of a
-    variable of ``shape``), as its ``ModelItem`` spells it over a flax
-    variables tree: ``.`` becomes ``/`` under the collection
-    (``params/``, or ``batch_stats/`` for names under
-    ``BATCH_STATS_PREFIX``), and a ``weight`` leaf becomes ``scale`` when
-    it is 1-D (LayerNorm, BatchNorm) and ``kernel`` otherwise (Dense,
-    DenseGeneral, Conv) — the inverse of :func:`_param_leaf`'s names."""
+    variable of ``shape``): its entry in ``jax_names``, else as the JAX
+    ``ModelItem`` spells it over a flax variables tree: ``.`` becomes
+    ``/`` under the collection (``params/``, or ``batch_stats/`` for
+    names under ``BATCH_STATS_PREFIX``), and a ``weight`` leaf becomes
+    ``scale`` when it is 1-D (LayerNorm, BatchNorm) and ``kernel``
+    otherwise (Dense, DenseGeneral, Conv) — the inverse of
+    :func:`_param_leaf`'s names."""
+    if jax_names and name in jax_names:
+        return jax_names[name]
     collection = "params"
     if name.startswith(BATCH_STATS_PREFIX):
         collection, name = "batch_stats", name[len(BATCH_STATS_PREFIX):]
@@ -220,23 +246,25 @@ def leaf_from_jax(arr: np.ndarray, name: str, shape,
     return from_jax_layout(flat, shape, jax_name(name, shape))
 
 
-def params_to_jax(params: dict, flax_shapes: Optional[dict] = None
-                  ) -> Dict[str, np.ndarray]:
+def params_to_jax(params: dict, flax_shapes: Optional[dict] = None,
+                  jax_names: Optional[dict] = None) -> Dict[str, np.ndarray]:
     """The port's params as the flat ``{JAX name: numpy}`` mapping the JAX
     package's saver writes (``params/...``, ``batch_stats/...``), in
     flax's shapes: Dense kernels ``[in, out]``, DenseGeneral kernels 3-D,
-    convs HWIO, LayerNorm/BatchNorm ``scale``. ``flax_shapes`` defaults to
-    the mapping's own (:class:`FlaxParams`)."""
+    convs HWIO, LayerNorm/BatchNorm ``scale``. ``flax_shapes`` and
+    ``jax_names`` default to the mapping's own (:class:`FlaxParams`)."""
     if flax_shapes is None:
         flax_shapes = getattr(params, "flax_shapes", {})
-    return {jax_name(n, t.shape): leaf_to_jax(t, n, flax_shapes)
+    if jax_names is None:
+        jax_names = getattr(params, "jax_names", {})
+    return {jax_name(n, t.shape, jax_names): leaf_to_jax(t, n, flax_shapes)
             for n, t in params.items()}
 
 
-def jax_shapes(shapes: Dict[str, tuple], flax_shapes: Optional[dict] = None
-               ) -> Dict[str, tuple]:
+def jax_shapes(shapes: Dict[str, tuple], flax_shapes: Optional[dict] = None,
+               jax_names: Optional[dict] = None) -> Dict[str, tuple]:
     """``{JAX name: flax shape}`` of the port's ``{name: shape}``."""
-    return {jax_name(n, s): flax_shape(n, s, flax_shapes)
+    return {jax_name(n, s, jax_names): flax_shape(n, s, flax_shapes)
             for n, s in shapes.items()}
 
 
@@ -250,7 +278,8 @@ def _layout(optimizer):
 
 
 def opt_state_to_jax(opt_state: dict, flax_shapes: Optional[dict] = None,
-                     optimizer=None) -> Dict[str, np.ndarray]:
+                     optimizer=None, jax_names: Optional[dict] = None
+                     ) -> Dict[str, np.ndarray]:
     """The port's optimizer state as the optax state the JAX saver
     flattens, for ``optimizer`` (an ``optim.OptimizerSpec``; Adam's by
     default): ``<prefix>count`` (int32) where the optimizer keeps one and
@@ -265,14 +294,16 @@ def opt_state_to_jax(opt_state: dict, flax_shapes: Optional[dict] = None,
         out[pre + "count"] = np.asarray(int(opt_state["count"]), np.int32)
     for slot in opt.slots:
         for n, t in opt_state[slot].items():
-            out["%s%s/%s" % (pre, slot, jax_name(n, t.shape))] = \
-                leaf_to_jax(t, n, flax_shapes)
+            key = jax_name(n, t.shape, jax_names)
+            out["%s%s/%s" % (pre, slot, key)] = leaf_to_jax(t, n,
+                                                            flax_shapes)
     return out
 
 
 def opt_state_template(shapes: Dict[str, tuple],
                        flax_shapes: Optional[dict] = None,
-                       optimizer=None) -> Dict[str, tuple]:
+                       optimizer=None, jax_names: Optional[dict] = None
+                       ) -> Dict[str, tuple]:
     """``{name: shape}`` of :func:`opt_state_to_jax` for variables of
     ``shapes``."""
     opt = _layout(optimizer)
@@ -280,13 +311,15 @@ def opt_state_template(shapes: Dict[str, tuple],
     out = {pre + "count": ()} if opt.has_count else {}
     for slot in opt.slots:
         out.update({"%s%s/%s" % (pre, slot, k): v
-                    for k, v in jax_shapes(shapes, flax_shapes).items()})
+                    for k, v in jax_shapes(shapes, flax_shapes,
+                                           jax_names).items()})
     return out
 
 
 def opt_state_from_jax(flat: Dict[str, np.ndarray],
                        shapes: Dict[str, tuple], device=None,
-                       optimizer=None) -> dict:
+                       optimizer=None, jax_names: Optional[dict] = None
+                       ) -> dict:
     """Inverse of :func:`opt_state_to_jax`: the port's state (``count``,
     and each slot's ``{name: tensor}``) for variables of ``shapes``, its
     tensors on ``device`` (:func:`leaf_from_jax`; the count an int32 0-d
@@ -299,7 +332,8 @@ def opt_state_from_jax(flat: Dict[str, np.ndarray],
         out["count"] = count if device is None else count.to(device)
     for slot in opt.slots:
         out[slot] = {n: leaf_from_jax(
-            flat["%s%s/%s" % (pre, slot, jax_name(n, s))], n, s, device)
+            flat["%s%s/%s" % (pre, slot, jax_name(n, s, jax_names))], n, s,
+            device)
             for n, s in shapes.items()}
     return out
 

@@ -61,8 +61,18 @@ into the update. Async PS (``sync=False``) builds each process at one
 replica of its own and puts the store in serving mode over the
 coordination service (``AutoDist._wire_async_ps``); a stale plan
 (``staleness`` > 0) at N > 1 is paced across processes by the Runner's
-step window. The transform refuses, by name and at every replica count,
-the plan features the port has not reached.
+step window.
+
+A TensorParallel plan lays the processes out as its ``{data, model}``
+mesh (``parallel/mesh.py``): the data axis splits the batch
+(``kernel/replicator.py``), each model-parallel variable rests as this
+rank's slice (``VarLayout.mp_axes``) and the loss consumes the slices
+with the model axis bound (``parallel/tensor.py``), its backward
+included. Those variables sync by the sum over the other mesh axes'
+groups, every other variable by the buckets and synchronizers over all
+ranks, each divided by N, every process (the JAX lowering's
+``psum(complement) / N``). The transform refuses, by name and at every
+replica count, the plan features the port has not reached.
 """
 import collections
 from typing import Callable, Dict, Optional
@@ -86,6 +96,7 @@ from autodist_tpu_torch.kernel.synchronization.synchronizer import \
     all_reduce_sum
 from autodist_tpu_torch.ops import embedding
 from autodist_tpu_torch.parallel import collectives
+from autodist_tpu_torch.parallel import mesh as mesh_lib
 from autodist_tpu_torch.parallel import ps as ps_lib
 from autodist_tpu_torch.strategy.base import Strategy
 from autodist_tpu_torch.telemetry import spans as tel
@@ -205,13 +216,14 @@ def _step_fn_output(out, template):
 
 def sparse_wire_vars(item, replicas: ReplicaInfo, ps_names=frozenset(),
                      partitioned=frozenset(),
-                     require_sparse: bool = False) -> set:
+                     require_sparse: bool = False,
+                     model_parallel=frozenset()) -> set:
     """The lookup tables that sync over the sparse (ids, values) wire, as
     the JAX lowering picks them
     (``autodist_tpu/kernel/graph_transformer.py:1141-1262``): trainable
     lookup-indexed variables that are host-PS (at every replica count:
-    pairs beat a vocab-sized push) or, with more than one replica, not
-    partitioned; whose lookups carry their name
+    pairs beat a vocab-sized push) or, with more than one process, neither
+    partitioned nor model-parallel; whose lookups carry their name
     (``ops.embedding.embedding_lookup(name=...)``); with no other
     differentiable use (a tied table stays dense); and whose gathered
     pairs — ids looked up a replica x replicas x (features + 1) —
@@ -220,10 +232,11 @@ def sparse_wire_vars(item, replicas: ReplicaInfo, ps_names=frozenset(),
     A failed trace leaves every table dense with a warning, or raises
     under ``require_sparse`` (and ``ADT_IS_TESTING``); an unrouted
     candidate warns, or raises ``ValueError`` under ``require_sparse``."""
-    N = replicas.num_replicas
+    N = replicas.num_processes
     candidates = {n for n, v in item.var_infos.items()
                   if v.sparse and v.trainable
-                  and (n in ps_names or (N > 1 and n not in partitioned))}
+                  and (n in ps_names or (N > 1 and n not in partitioned
+                                         and n not in model_parallel))}
     if not candidates or item.example_batch is None:
         return set()
     loss = item.loss_fn
@@ -362,7 +375,15 @@ class DistributedStep:
         self.device = torch.device(device)
         self.metadata = metadata or {}
         self.replica_info = replica_info or ReplicaInfo()
-        self.num_replicas = self.replica_info.num_replicas
+        # the JAX lowering's N: every process (device) of the job; the
+        # data replicas, which split the batch, are replica_info's
+        self.num_replicas = self.replica_info.num_processes
+        self.rank = self.replica_info.process_rank
+        # the data x model mesh of a TensorParallel plan, its groups made
+        # here by every rank (parallel/mesh.py); None without a mesh
+        self.mesh = self.replica_info.mesh
+        if self.mesh is not None and self.num_replicas > 1:
+            self.mesh.build_groups()
         # host-resident PS variables (parallel/ps.py): their values and
         # optimizer state rest in the store, off the device state
         self.ps_plans: Dict[str, ps_lib.PSVarPlan] = {}
@@ -396,8 +417,10 @@ class DistributedStep:
         self._bucketed = set()
         self.sparse_wire = frozenset()
         # partitioned variables' layouts and the ZeRO-sharded variables'
-        # kernels (N > 1 only: one replica has nothing to shard)
+        # kernels (N > 1 only: one replica has nothing to shard); the
+        # model-parallel variables' layouts (a model axis of size > 1)
         self.layouts: Dict[str, VarLayout] = {}
+        self.mp_layouts: Dict[str, VarLayout] = {}
         self.zero_syncs: Dict[str, ZeroSynchronizer] = {}
         self.schedule = None
         # the last overlapped step's launches: (unit, launched while the
@@ -411,14 +434,18 @@ class DistributedStep:
                     self.ps_plans, model_item.var_infos, self.optimizer,
                     self.device)
             zero_names = self._zero_nodes()
+            layouts = VariablePartitioner.apply(
+                strategy, model_item.var_infos, self.num_replicas,
+                self._mesh_axis_sizes())
+            self.mp_layouts = {n: lay for n, lay in layouts.items()
+                               if lay.mp_axes}
             if self.num_replicas > 1:
-                layouts = VariablePartitioner.apply(
-                    strategy, model_item.var_infos, self.num_replicas)
                 self.layouts = {n: lay for n, lay in layouts.items()
                                 if lay.partitioned and n not in self.ps_names}
             self.sparse_wire = frozenset(sparse_wire_vars(
                 model_item, self.replica_info, self.ps_names,
-                frozenset(self.layouts), gc.require_sparse))
+                frozenset(self.layouts), gc.require_sparse,
+                frozenset(self.mp_layouts)))
             if self.num_replicas > 1:
                 self._build_synchronizers(zero_names)
             self._make_losses()
@@ -430,6 +457,13 @@ class DistributedStep:
                           self.metadata["zero_hbm_saved_bytes"])
         if self.schedule is not None:
             tel.counter_add("overlap.buckets", self.schedule.num_stages)
+
+    def _mesh_axis_sizes(self) -> dict:
+        """``{axis: size}`` of the plan's mesh: the data axis alone (every
+        process) without one."""
+        if self.mesh is not None:
+            return dict(self.mesh.axes)
+        return {const.DATA_AXIS: self.num_replicas}
 
     def _zero_nodes(self) -> list:
         """The trainable variables a ZeroSharded synchronizer names; the
@@ -475,7 +509,7 @@ class DistributedStep:
         the host-PS variables and the sparse-wire tables keep out of all
         of them, as in the JAX lowering."""
         N, item = self.num_replicas, self.model_item
-        rank = self.replica_info.rank
+        rank = self.rank
         for n in zero_names:
             info = item.var_infos[n]
             self.zero_syncs[n] = ZeroSynchronizer(
@@ -487,6 +521,18 @@ class DistributedStep:
                     or node.var_name in self.sparse_wire
                     or node.var_name in self.ps_names
                     or node.var_name in self.zero_syncs):
+                continue
+            if node.var_name in self.mp_layouts:
+                # model-parallel vars sync by the complement-axes sum in
+                # the step (_mp_sync), not a synchronizer kernel; a
+                # configured compressor cannot apply to them
+                comp = getattr(node.synchronizer, "compressor",
+                               "NoneCompressor")
+                if comp != "NoneCompressor":
+                    logging.warning(
+                        "var %s: compressor %s ignored — model-parallel "
+                        "(mp_axes) gradients reduce uncompressed over the "
+                        "complement axes", node.var_name, comp)
                 continue
             cfg = node.synchronizer
             if cfg is None and node.part_configs:
@@ -584,6 +630,8 @@ class DistributedStep:
             "staleness": max([c.staleness for c in ps_cfgs], default=0),
             "async": any(not c.sync for c in ps_cfgs),
             "sparse_wire": sorted(self.sparse_wire),
+            "mesh": dict(self.mesh.axes) if self.mesh is not None else None,
+            "model_parallel": sorted(self.mp_layouts),
             "buckets": [b.key for b in self.buckets],
             "partitioned": sorted(self.layouts),
             "zero_sharded": sorted(self.zero_syncs),
@@ -740,13 +788,22 @@ class DistributedStep:
                 # the count lives on the device even when every variable
                 # is host-resident
                 opt_state["count"] = opt_state["count"].to(self.device)
-        rank, N = self.replica_info.rank, self.num_replicas
+        rank, N = self.rank, self.num_replicas
         for n, lay in self.layouts.items():
             placed[n] = lay.local(placed[n], rank, N)
             for slot in self._slots():
                 if opt_state is not None and n in opt_state.get(slot, {}):
                     opt_state[slot][n] = lay.local(opt_state[slot][n],
                                                    rank, N)
+        # each model-parallel variable keeps this rank's slice of the
+        # host-global value, and so do its slots (the JAX package's
+        # make_array_from_callback over the same global value)
+        for n, lay in self.mp_layouts.items():
+            placed[n] = lay.mp_local(placed[n], self.mesh)
+            for slot in self._slots():
+                if opt_state is not None and n in opt_state.get(slot, {}):
+                    opt_state[slot][n] = lay.mp_local(opt_state[slot][n],
+                                                      self.mesh)
         sync = self._sync_state_init() if N > 1 else {}
         own = None
         if sync_state is not None:
@@ -807,7 +864,7 @@ class DistributedStep:
                 "strategy (%d replicas, buckets %s); reinitializing",
                 N, sorted(fresh.get("bucket", {})))
             return None
-        rank = self.replica_info.rank
+        rank = self.rank
         return _map_named(lambda k, w: got[k][rank].to(
             self.device, w.dtype, copy=True), fresh)
 
@@ -881,6 +938,18 @@ class DistributedStep:
             return {name: synced}, ("var", name, nst)
         return collectives.Pending((), finish)
 
+    def _mp_sync(self, name, grad):
+        """A model-parallel variable's gradient sync (the JAX lowering's):
+        the sum over the groups of the mesh axes it is not sharded over,
+        divided by N, every process. Its backward summed the cotangents
+        over the model axis (``parallel/tensor.py``), so the /N over all
+        devices, not over the data replicas, gives the mean."""
+        sharded = set(self.mp_layouts[name].mp_axis_names)
+        for axis, size in self.mesh.axes.items():
+            if axis not in sharded and size > 1:
+                grad = all_reduce_sum(grad, self.mesh.group(axis))
+        return grad / self.num_replicas
+
     def _sync_grads(self, grads, sync_state, pairs, overlap=None):
         """The JAX ``local_step`` gradient sync over N > 1 replicas: the
         sync units (:meth:`_launch_unit`) — launched here one after the
@@ -905,6 +974,9 @@ class DistributedStep:
             synced.update(out)
             if nst is not None and nst[2] is not None:
                 new_state[nst[0]][nst[1]] = nst[2]
+        for n in sorted(self.mp_layouts):
+            if n in grads:
+                synced[n] = self._mp_sync(n, grads[n])
         # the AllReduce sparse-wire tables: their gathered (ids, values)
         # pairs densified after the wire
         infos = self.model_item.var_infos
@@ -972,7 +1044,9 @@ class DistributedStep:
                                   dict(sync_state.get("var", {})))
         wire = sorted(self.sparse_wire)
         try:
-            with torch.enable_grad():
+            # the model axis is bound while the loss and its backward run
+            # (the JAX step's shard_map scope)
+            with torch.enable_grad(), mesh_lib.bind(self.mesh):
                 with embedding.capture(wire) as cap:
                     loss, aux = self._loss(full, batch, grad=True)
                 inputs = [full[n] for n in dense_wrt] + \
@@ -1288,7 +1362,8 @@ class DistributedStep:
         this call pulls."""
         if ps_vals is None:
             ps_vals = self.pull_ps()
-        with torch.no_grad(), tel.span("dstep.evaluate", "dstep"):
+        with torch.no_grad(), tel.span("dstep.evaluate", "dstep"), \
+                mesh_lib.bind(self.mesh):
             full = dict(self._full_params(state.params))
             full.update(self._ps_dewire(ps_vals))
             return self._metrics(*self._loss(full, batch))
@@ -1296,13 +1371,16 @@ class DistributedStep:
     def gather_params(self, state: TrainState) -> dict:
         """The full params in their original names and layout: this
         replica's, which equal every other's, with each partitioned
-        variable all-gathered and unpadded (a collective every rank must
-        join) and each host-PS variable from the store (after the
+        variable all-gathered and unpadded and each model-parallel one
+        all-gathered over its mesh axes (collectives every rank must
+        join), and each host-PS variable from the store (after the
         in-flight push has landed), on the device; in step_fn mode the
         user's state tree itself."""
         if self.model_item.step_fn is not None:
             return state.params
         full = dict(self._full_params(state.params))
+        for n, lay in self.mp_layouts.items():
+            full[n] = lay.mp_gather(full[n], self.mesh)
         if self.ps_store is None:
             return full
         self.flush_ps()
@@ -1312,15 +1390,16 @@ class DistributedStep:
 
     def gather_opt_state(self, state: TrainState):
         """The optimizer state in the original names and full layout:
-        each partitioned variable's slots all-gathered and unpadded,
-        each ZeRO-sharded variable's rebuilt from the ranks' shards in
+        each partitioned variable's slots all-gathered and unpadded, each
+        model-parallel variable's all-gathered over its mesh axes, each
+        ZeRO-sharded variable's rebuilt from the ranks' shards in
         ``sync_state['zero']`` and each host-PS variable's from the
         store's shards (the JAX ``gather_opt_state``). With partitioned
         or ZeRO variables it is a collective every rank must join;
         otherwise the state's own tensors, on the device."""
         opt = state.opt_state
-        if not (self.layouts or self.zero_syncs or self.ps_store) \
-                or not opt:
+        if not (self.layouts or self.mp_layouts or self.zero_syncs
+                or self.ps_store) or not opt:
             return opt
         N = self.num_replicas
         if self.ps_store is not None:
@@ -1330,6 +1409,8 @@ class DistributedStep:
             out[slot] = dict(opt[slot])
             for n, lay in self.layouts.items():
                 out[slot][n] = lay.gather_full(opt[slot][n], None, N)
+            for n, lay in self.mp_layouts.items():
+                out[slot][n] = lay.mp_gather(opt[slot][n], self.mesh)
             for n, zs in sorted(self.zero_syncs.items()):
                 shard = state.sync_state["zero"][n][slot]["v"]
                 out[slot][n] = zs.unshard(
@@ -1552,10 +1633,13 @@ class GraphTransformer:
     def _refuse_unported(self):
         """Plan features the port has not reached raise, naming the
         ROADMAP item that ports them; none is ignored. With more than one
-        replica: a mesh beyond the data axis, model-parallel layouts and
+        process: a mesh axis other than data and model, the sequence
+        axis and explicit batch axes (sequence parallelism), mp axes
+        named pipe or expert (pipeline and expert parallelism), a model
+        axis of size > 1 beside host PS, ZeRO or partitioned storage, and
         the rhd and hierarchical all-reduce schedules."""
         gc = self._strategy.graph_config
-        N = self._replicas.num_replicas
+        N = self._replicas.num_processes
 
         def refuse(what, item):
             raise NotImplementedError(
@@ -1563,16 +1647,30 @@ class GraphTransformer:
                 % (what, N, item))
         if N <= 1:
             return
-        if gc.mesh_shape or gc.seq_axis or gc.batch_axes:
-            refuse("a mesh beyond the data axis (mesh_shape/seq_axis/"
-                   "batch_axes)", 9)
+        if gc.seq_axis or gc.batch_axes:
+            refuse("sequence parallelism (seq_axis/batch_axes)", 9)
+        mesh = dict(gc.mesh_shape or {})
+        other = sorted(set(mesh) - {const.DATA_AXIS, const.MODEL_AXIS})
+        if other:
+            refuse("the mesh axes %s (pipeline, expert or sequence "
+                   "parallelism)" % other, 9)
+        tp = mesh.get(const.MODEL_AXIS, 1) > 1
         hosts = {r.split(":")[0] for r in gc.replicas}
         for node in self._strategy.node_config:
-            if node.mp_axes:
-                refuse("the model-parallel layout (mp_axes) of %s"
-                       % node.var_name, 9)
+            for axis in sorted(set((node.mp_axes or {}).values())
+                               & {const.PIPELINE_AXIS, const.EXPERT_AXIS}):
+                refuse("the %s-parallel layout (mp_axes) of %s"
+                       % ("pipeline" if axis == const.PIPELINE_AXIS
+                          else "expert", node.var_name), 9)
             cfgs = [node.synchronizer] if node.synchronizer is not None \
                 else [p.synchronizer for p in node.part_configs or ()]
+            if tp and (node.partitioner or any(
+                    c is not None and c.kind in ("PS", "ZeroSharded")
+                    for c in cfgs)):
+                refuse("a model axis of size %d beside the %s of %s"
+                       % (mesh[const.MODEL_AXIS],
+                          "partitioned storage" if node.partitioner
+                          else "host-PS or ZeRO sync", node.var_name), 9)
             for cfg in cfgs:
                 if cfg is None:
                     continue
@@ -1635,16 +1733,22 @@ class GraphTransformer:
             # reference's between-graph replication), coupled to its peers
             # only through the parameter service
             replicas = 1
-        if replicas != self._replicas.num_replicas:
+        if replicas != self._replicas.num_processes:
             raise ValueError(
                 "the plan has %d replicas but the process group has %d "
                 "ranks: describe one replica a rank in the resource spec "
                 "(two ranks sharing one card list its index twice)"
-                % (replicas, self._replicas.num_replicas))
+                % (replicas, self._replicas.num_processes))
         if self._item.step_fn is not None:
             self._check_step_fn(replicas)
         else:
             self._refuse_unported()
+        mesh_shape = self._strategy.graph_config.mesh_shape
+        if mesh_shape:
+            # the plan's mesh over the processes: the data axis splits the
+            # batch, the model axis shards the mp variables' storage
+            self._replicas = self._replicas.with_mesh(mesh_lib.ProcessMesh(
+                mesh_shape, self._replicas.process_rank))
         return DistributedStep(strategy=self._strategy,
                                model_item=self._item, device=self._device,
                                metadata={"replicas": replicas},

@@ -17,17 +17,26 @@ flax shape and element order, ``convert.to_jax_layout``: a Dense
 ``weight [out, in]`` splits ``[in, out]``'s axis), so each rank stores
 the elements the JAX package's shard holds, in that layout: a shard is
 what the optimizer sees, and a norm over it (``optim.clip_global_norm``)
-is the JAX one. Model-parallel ``mp_axes`` layouts wait for the mesh
-axes (ROADMAP A item 9); the lowering refuses them by name.
+is the JAX one.
+
+A model-parallel layout (``mp_axes``: ``((dim, mesh axis), ...)``, the
+JAX ``VarLayout.mp_axes``) stores this rank's slice of each listed dim,
+cut evenly by its index on that mesh axis (``parallel/mesh.py``), and
+the compute consumes the slice as it is (``parallel/tensor.py``): no
+gather before the loss, no padding (the sizes must divide: ADT206). The
+dims index the JAX layout, which must be the port's too (a model written
+over the JAX pytree, ``models/tp_lm.py``). A size-1 axis leaves the
+variable replicated, as in the JAX package.
 """
 import dataclasses
-from typing import Dict
-
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from autodist_tpu_torch import const
+from autodist_tpu_torch.analysis.diagnostics import DiagnosticError, Severity
+from autodist_tpu_torch.analysis.rules import check_mp_axes_node
 from autodist_tpu_torch.convert import from_flax, to_flax
 from autodist_tpu_torch.parallel import collectives
 from autodist_tpu_torch.strategy.base import Strategy
@@ -48,6 +57,32 @@ class VarLayout:
     jax_name: str = ""
     flax_shape: Tuple[int, ...] = ()
     shape: Tuple[int, ...] = ()
+    mp_axes: Tuple[Tuple[int, str], ...] = ()   # ((dim, mesh axis), ...)
+
+    @property
+    def mp_axis_names(self) -> Tuple[str, ...]:
+        return tuple(a for _, a in self.mp_axes)
+
+    def mp_local(self, full: torch.Tensor, mesh) -> torch.Tensor:
+        """This rank's slice of the full value (or of a state leaf of its
+        shape), as a new contiguous tensor."""
+        for dim, axis in self.mp_axes:
+            n = full.shape[dim] // mesh.axis_size(axis)
+            full = full.narrow(dim, mesh.axis_index(axis) * n, n)
+        return full.contiguous()
+
+    def mp_gather(self, local: torch.Tensor, mesh) -> torch.Tensor:
+        """The full value from the slices of this rank's lines: an
+        all-gather over each mesh axis's group, concatenated on its dim
+        (a collective every rank of those groups must join)."""
+        for dim, axis in reversed(self.mp_axes):
+            n = mesh.axis_size(axis)
+            lead = local.movedim(dim, 0).contiguous()
+            full = collectives.all_gather_flat(lead.reshape(-1),
+                                               mesh.group(axis), n)
+            local = full.reshape((n * lead.shape[0],) + tuple(
+                lead.shape[1:])).movedim(0, dim).contiguous()
+        return local
 
     def to_flax(self, t: torch.Tensor) -> torch.Tensor:
         """A full value of the port's layout in the JAX layout."""
@@ -122,19 +157,53 @@ class VarLayout:
         return collectives.Pending((), finish)
 
 
+def _mp_layout(node, info, mesh_axis_sizes: Dict[str, int]) -> VarLayout:
+    """The model-parallel layout of a node's ``mp_axes`` (the JAX
+    ``VariablePartitioner._mp_layout``): checked by the rule function the
+    linter runs (ADT205/206/207, raised as a ``DiagnosticError``); axes
+    of size 1 dropped; ``mp_axes`` wins over a ``partitioner``, with the
+    JAX warning."""
+    bad = [d for d in check_mp_axes_node(node.var_name, node.mp_axes,
+                                         tuple(info.shape), mesh_axis_sizes)
+           if d.severity >= Severity.ERROR]
+    if bad:
+        raise DiagnosticError(bad[0])
+    flax_shape = tuple(getattr(info, "flax_shape", None) or info.shape)
+    if flax_shape != tuple(info.shape):
+        raise ValueError(
+            "var %s: mp_axes index the JAX layout %s, and the port holds "
+            "this variable as %s; write the model over the JAX layout "
+            "(as models/tp_lm.py does) to shard it"
+            % (node.var_name, flax_shape, tuple(info.shape)))
+    mp = tuple((dim, axis) for dim, axis in sorted(node.mp_axes.items())
+               if mesh_axis_sizes[axis] > 1)
+    if node.partitioner is not None:
+        logging.warning("var %s: mp_axes and partitioner both set; "
+                        "mp_axes wins (ZeRO+MP on one var unsupported)",
+                        node.var_name)
+    return VarLayout(name=node.var_name, mp_axes=mp)
+
+
 class VariablePartitioner:
     """Computes ``{var_name: VarLayout}`` from a compiled Strategy:
+    variables whose node has ``mp_axes`` get a model-parallel layout over
+    the mesh (``mesh_axis_sizes``, by default the data axis alone);
     variables whose node has a ``partitioner`` string get a partitioned
     layout over the replicas; everything else is replicated (the JAX
     ``VariablePartitioner``)."""
 
     @staticmethod
-    def apply(strategy: Strategy, var_infos, num_replicas: int
+    def apply(strategy: Strategy, var_infos, num_replicas: int,
+              mesh_axis_sizes: Optional[Dict[str, int]] = None
               ) -> Dict[str, VarLayout]:
+        sizes = mesh_axis_sizes or {const.DATA_AXIS: num_replicas}
         layouts: Dict[str, VarLayout] = {}
         for node in strategy.node_config:
             info = var_infos.get(node.var_name)
             if info is None:
+                continue
+            if node.mp_axes:
+                layouts[node.var_name] = _mp_layout(node, info, sizes)
                 continue
             axis = node.partition_axis
             if node.partitioner is None or axis is None or num_replicas <= 1:

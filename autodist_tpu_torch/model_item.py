@@ -292,6 +292,9 @@ class ModelItem:
         # flax's shapes of the leaves the port flattens (DenseGeneral),
         # from a ``convert.FlaxParams``: checkpoints and exports write them
         self.flax_shapes = dict(getattr(params, "flax_shapes", None) or {})
+        # and the JAX names of a model written over a plain JAX pytree
+        # (``convert.jax_named``)
+        self.jax_names = dict(getattr(params, "jax_names", None) or {})
         self._var_infos: Optional[Dict[str, VarInfo]] = None
 
     def prepare(self) -> "ModelItem":
@@ -323,7 +326,8 @@ class ModelItem:
                          dtype=dtype_name(leaf.dtype),
                          trainable=bool(self.trainable_filter(name)),
                          sparse=name in sparse,
-                         collective_name=jax_name(name, tuple(leaf.shape)),
+                         collective_name=jax_name(name, tuple(leaf.shape),
+                                                  self.jax_names),
                          flax_shape=flax_shape(name, tuple(leaf.shape),
                                                self.flax_shapes))
                  for name, leaf in self.params.items()]

@@ -548,9 +548,12 @@ class Runner:
         (first-use kernel builds and a first capture included), the
         ``steady_*`` percentiles over recent dispatches, ``goodput`` (the
         share of total stepping time the dispatches would have needed at
-        the steady median) and ``telemetry`` counters. The shape is
-        stable: ``steady_*``/``goodput`` are None before a second
-        dispatch."""
+        the steady median), ``telemetry`` counters (with the
+        tensor-parallel forward all-reduces and their bytes) and
+        ``param_bytes``, the bytes of the params this rank stores (a
+        model-parallel variable's slice; None before ``init``). The
+        shape is stable: ``steady_*``/``goodput`` are None before a
+        second dispatch."""
         micro, sup = self._step_count, self._superstep_count
         out = {"steps": micro, "supersteps": sup, "microsteps": micro,
                "total_s": round(self._total_step_s, 6),
@@ -575,7 +578,12 @@ class Runner:
             "d2h_bytes": c.get("runner.d2h_bytes", 0.0),
             "ps_bytes_pulled": c.get("ps.bytes_pulled", 0.0),
             "ps_bytes_pushed": c.get("ps.bytes_pushed", 0.0),
+            "tp_fwd_allreduces": c.get("tp.fwd_allreduces", 0.0),
+            "tp_fwd_allreduce_bytes": c.get("tp.fwd_allreduce_bytes", 0.0),
         }
+        out["param_bytes"] = (None if self.state is None else sum(
+            t.numel() * t.element_size() for t in pytree.tree_leaves(
+                self.state.params) if isinstance(t, torch.Tensor)))
         # the host-PS wire and apply, and the fused carry's write-back,
         # from the spans (recorded while tracing is on, ADT_TRACE): count
         # and total seconds of each

@@ -1,8 +1,8 @@
 """Strategy IR and the builders the port has so far: the AllReduce family
 (``AllReduce``, ``PartitionedAR``, ``RandomAxisPartitionAR``,
 ``ZeroSharded``), the PS family (``PS``, ``PSLoadBalancing``,
-``PartitionedPS``, ``UnevenPartitionedPS``, ``Parallax``) and the
-``WithRemat`` wrapper."""
+``PartitionedPS``, ``UnevenPartitionedPS``, ``Parallax``),
+``TensorParallel`` and the ``WithRemat`` wrapper."""
 from autodist_tpu_torch.strategy.base import (AllReduceSynchronizer,  # noqa: F401
                                               GraphConfig, PSSynchronizer,
                                               Strategy, StrategyBuilder,
@@ -20,6 +20,8 @@ from autodist_tpu_torch.strategy.ps_strategy import PS  # noqa: F401
 from autodist_tpu_torch.strategy.random_axis_partition_all_reduce_strategy \
     import RandomAxisPartitionAR  # noqa: F401
 from autodist_tpu_torch.strategy.remat import WithRemat  # noqa: F401
+from autodist_tpu_torch.strategy.tensor_parallel_strategy import \
+    TensorParallel  # noqa: F401
 from autodist_tpu_torch.strategy.uneven_partition_ps_strategy import \
     UnevenPartitionedPS  # noqa: F401
 from autodist_tpu_torch.strategy.zero_sharded_strategy import (  # noqa: F401

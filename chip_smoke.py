@@ -288,6 +288,22 @@ result line):
    step; (c), run beside (b), a sync-elastic worker exits 3 right after
    AutoDist(), before any checkpoint: the chief exits 1 ("nothing to
    restore", "aborting job") and no process is left.
+20. tensor parallelism: tp_lm at ``TPLMConfig.flagship()`` (vocab 32 768,
+   d 1 024, 12 layers, 16 heads, mlp 4 096, bf16, 185 722 880 parameters
+   from seed 0), seq 1 024, batch 8, the JAX model's loss with the flash
+   kernels in its ``attn_fn`` slot, Adam 1e-3. First the three kernels at
+   its causal shapes [8, 1024, 16, 64] and [8, 1024, 8, 64] vs their plain
+   versions (bf16 2e-2) and timed beside SDPA and their bounds; the first
+   loss through flash vs the plain causal attention (2e-2). (a) one
+   process under ``TensorParallel(1, tp_rules())``, 2 + 5 steps: step
+   p50, tokens/s, MFU, 12 launches a step of each kernel, then a device
+   profile of 3 more steps; (b)
+   ``TensorParallel(2, tp_rules())`` on two processes of ``cuda:0`` over
+   gloo (as phase 10), 5 steps: each rank stores half of every
+   model-parallel variable's bytes, 2 x layers + 5 forward all-reduces a
+   step (and their bytes), the flash slot sees [8, 1024, 8, 64] only, the
+   ranks' losses equal and the first 3 within 2e-2 of (a)'s, step p50,
+   one save (ms, bytes).
 
 TF32 is off for the whole run (``torch.backends.cuda.matmul`` and
 ``cudnn``): float32 is computed in float32, as the f32 checks' 2e-5 and
@@ -4970,6 +4986,300 @@ def elastic_phase(card, dp_losses):
     return launches
 
 
+# ------------------------------------------------------------- phase 20
+
+
+TP_SEQ, TP_BATCH, TP_RANKS = 1024, 8, 2
+# (a): warm-up and timed steps; (b): steps a rank, the first 3 held to
+# (a)'s, the last 3 timed
+TP_WARMUP, TP_TIMED, TP2_STEPS = 2, 5, 5
+TP_PARAMS = 185722880          # TPLMConfig.flagship()'s parameters
+TP_SPEC_ONE = {"nodes": [{"address": "127.0.0.1", "chief": True,
+                          "gpus": [0]}]}
+# two ranks of one card: the index listed once a rank
+TP_SPEC = {"nodes": [{"address": "127.0.0.1", "chief": True,
+                      "gpus": [0] * TP_RANKS}]}
+
+
+def tp_setup(shapes=None):
+    """tp_lm at ``TPLMConfig.flagship()``: (cfg, the JAX model's loss with
+    the flash kernels in its ``attn_fn`` slot, the plain loss, params
+    from seed 0, the seq-1024 batch of 8). ``shapes`` collects the q
+    shapes the flash slot sees."""
+    from autodist_tpu_torch.models import tp_lm
+    from autodist_tpu_torch.ops.flash_attention import make_flash_attn_fn
+    cfg = tp_lm.TPLMConfig.flagship()
+    plain, params, batch, _ = tp_lm.make_train_setup(
+        cfg, seq_len=TP_SEQ, batch_size=TP_BATCH, seed=0)
+    flash = make_flash_attn_fn(causal=True)
+
+    def attn(q, k, v):
+        if shapes is not None:
+            shapes.add(tuple(q.shape))
+        return flash(q, k, v)
+    return cfg, tp_lm.make_loss(cfg, attn_fn=attn), plain, params, batch
+
+
+def tp_runner(tp, spec, loss_fn, params, batch):
+    """``TensorParallel(tp, tp_rules())`` built and initialized on
+    ``cuda:0`` through the public entry points, Adam 1e-3."""
+    import torch
+    import autodist_tpu_torch as adt
+    from autodist_tpu_torch import strategy
+    from autodist_tpu_torch.models import tp_lm
+    from autodist_tpu_torch.resource_spec import ResourceSpec
+    adt.reset()
+    ad = adt.AutoDist(strategy_builder=strategy.TensorParallel(
+        tp, tp_lm.tp_rules()), resource_spec=ResourceSpec.from_dict(spec),
+        device="cuda:0")
+    runner = ad.build(loss_fn, functools.partial(torch.optim.Adam, lr=1e-3),
+                      params, batch)
+    runner.init(params)
+    return runner
+
+
+def stored_bytes(runner):
+    """(bytes this rank stores of the variables the plan shards over the
+    model axis, bytes of all its params)."""
+    mp = {n.var_name for n in runner.distributed_step.strategy.node_config
+          if n.mp_axes}
+    size = {n: t.numel() * t.element_size()
+            for n, t in runner.state.params.items()}
+    return sum(size[n] for n in mp), sum(size.values())
+
+
+def tp_kernel_check(shape):
+    """The three kernels at tp_lm's causal ``shape`` in bf16 vs their plain
+    versions (2e-2; the backward's relative to the plain version's
+    largest magnitude); returns each kernel's errors."""
+    import torch
+    from autodist_tpu_torch.ops import flash_attention as fa
+    errs = {"flash_fwd": [], "flash_bwd_dq": [], "flash_bwd_dkdv": []}
+    what = "bf16 [%d,%d,%d,%d] causal (mma.sync bf16)" % shape
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    with uncounted():
+        out, lse = fa.flash_fwd(q, k, v, causal=True)
+        ref, ref_lse = fa.flash_fwd_reference(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        errs["flash_fwd"].append(max(
+            check_close("out " + what, out, ref, 2e-2),
+            check_close("lse " + what, lse, ref_lse, 2e-2)))
+        args = (q, k, v, do, lse, fa.flash_bwd_delta(out, do))
+        dq = fa.flash_bwd_dq(*args, causal=True)
+        dk, dv = fa.flash_bwd_dkdv(*args, causal=True)
+        dq_ref = fa.flash_bwd_dq_reference(*args, causal=True)
+        dk_ref, dv_ref = fa.flash_bwd_dkdv_reference(*args, causal=True)
+        torch.cuda.synchronize()
+    errs["flash_bwd_dq"].append(check_rel("dq " + what, dq, dq_ref, 2e-2))
+    for g, r, grad in ((dk, dk_ref, "dk"), (dv, dv_ref, "dv")):
+        errs["flash_bwd_dkdv"].append(check_rel(grad + " " + what, g, r,
+                                                2e-2))
+    return errs
+
+
+def tp_flops_per_step(cfg, n_params):
+    """Closed-form training FLOPs of one tp_lm step: 6 x tokens x the
+    parameters outside ``pos_embed`` (a slice; the tied table counts once,
+    as the head's matmul) plus the attention products, 12 x layers x seq
+    x d_model a token (PaLM's count, which ignores the causal half)."""
+    tokens = TP_BATCH * TP_SEQ
+    dense = n_params - cfg.max_seq_len * cfg.d_model
+    return 6 * tokens * dense + 12 * cfg.num_layers * TP_SEQ * \
+        cfg.d_model * tokens
+
+
+def tp_child(rank, store, out_dir):
+    """One rank of phase 20 (b) (spawned): join the gloo group, train
+    tp_lm flagship under ``TensorParallel(2)`` on cuda:0, save once,
+    write this rank's results to ``out_dir``."""
+    import statistics
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, HERE)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(store, TP_RANKS),
+                            rank=rank, world_size=TP_RANKS)
+    import autodist_tpu_torch as adt
+    from autodist_tpu_torch.checkpoint import Saver
+    from autodist_tpu_torch.telemetry import spans as tel
+    shapes = set()
+    cfg, loss_fn, _, params, batch = tp_setup(shapes)
+    t0 = time.perf_counter()
+    runner = tp_runner(TP_RANKS, TP_SPEC, loss_fn, params, batch)
+    init_s = time.perf_counter() - t0
+    del params
+    # the build traces the loss on fake tensors over the whole params;
+    # the steps' shapes are the ones to read
+    shapes.clear()
+    reset_counts()
+    before = tel.counters()
+    losses, times = [], []
+    for _ in range(TP2_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(runner.run(batch)["loss"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = launch_counts()
+    after = tel.counters()
+
+    def per_step(key):
+        return (after.get(key, 0.0) - before.get(key, 0.0)) / TP2_STEPS
+    mp_b, all_b = stored_bytes(runner)
+    stats = runner.step_stats()
+    out = {"rank": rank, "losses": losses,
+           "times_ms": [t * 1e3 for t in times],
+           "p50_ms": statistics.median(times[-3:]) * 1e3,
+           "launches": launches, "shapes": sorted(shapes),
+           "init_s": init_s,
+           "fwd_allreduces": per_step("tp.fwd_allreduces"),
+           "fwd_allreduce_bytes": per_step("tp.fwd_allreduce_bytes"),
+           "mp_bytes": mp_b, "param_bytes": all_b,
+           "stats_param_bytes": stats["param_bytes"],
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    ckpt = os.path.join(out_dir, "ckpt")
+    t0 = time.perf_counter()
+    path = Saver(ckpt).save(runner)
+    out["save_ms"] = (time.perf_counter() - t0) * 1e3
+    if path is not None:
+        out["save_bytes"] = sum(
+            os.path.getsize(os.path.join(ckpt, f)) for f in os.listdir(ckpt))
+    adt.reset()
+    with open(os.path.join(out_dir, "rank%d.json" % rank), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def tp_phase(card):
+    """Phase 20: tp_lm flagship through TensorParallel, the flash kernels
+    in its attention slot. Returns (each kernel's launches in (a), in (b)
+    over both ranks, the kernels' records at the 16-head and the 8-head
+    shape)."""
+    import gc
+    import math
+    import tempfile
+    import torch
+    import torch.multiprocessing as mp
+    import autodist_tpu_torch as adt
+    print("phase 20: tp_lm flagship (bf16, seq %d, batch %d) through "
+          "TensorParallel, flash through attn_fn: (a) tp 1, one process; "
+          "(b) tp 2, %d processes of cuda:0 over gloo"
+          % (TP_SEQ, TP_BATCH, TP_RANKS))
+    shape16 = (TP_BATCH, TP_SEQ, 16, HEAD_DIM)
+    shape8 = (TP_BATCH, TP_SEQ, 16 // TP_RANKS, HEAD_DIM)
+    errs16, errs8 = tp_kernel_check(shape16), tp_kernel_check(shape8)
+    rec16 = kernel_timing(card, errs16, shape16, True, None,
+                          "[8,1024,16,64] causal")
+    rec8 = kernel_timing(card, errs8, shape8, True, None,
+                         "[8,1024,8,64] causal")
+    cfg, loss_fn, plain, params, batch = tp_setup()
+    n_params = sum(int(t.numel()) for t in params.values())
+    if n_params != TP_PARAMS:
+        fail("phase 20: tp_lm flagship has %d parameters (want %d)"
+             % (n_params, TP_PARAMS))
+    # the first loss through the flash slot vs the plain causal attention
+    with uncounted(), torch.no_grad():
+        dev = {n: t.to("cuda") for n, t in params.items()}
+        feed = {"tokens": torch.as_tensor(batch["tokens"], device="cuda")}
+        first = (float(loss_fn(dev, feed)), float(plain(dev, feed)))
+        del dev, feed
+    torch.cuda.empty_cache()
+    print("  first loss: flash %.6f, plain causal attention %.6f"
+          % first)
+    if not abs(first[0] - first[1]) <= 2e-2 * max(1.0, abs(first[1])):
+        fail("phase 20: the first loss through flash %.6f is not within 2e-2"
+             " of the plain attention's %.6f" % first)
+    # (a) one process, TensorParallel(1)
+    t0 = time.perf_counter()
+    runner = tp_runner(1, TP_SPEC_ONE, loss_fn, params, batch)
+    print("  (a) build + init %.1f s; %d parameters (random, seed 0)"
+          % (time.perf_counter() - t0, n_params))
+    losses = []
+    times, launches_a = timed_steps(runner, batch, "phase 20 (a)",
+                                    warmup=TP_WARMUP, steps=TP_TIMED,
+                                    losses_out=losses)
+    check_launches("phase 20 (a)", launches_a, cfg.num_layers,
+                   TP_WARMUP + TP_TIMED)
+    report_steps("(a) tp_lm flagship TensorParallel(1)", times,
+                 TP_BATCH * TP_SEQ, "tokens",
+                 tp_flops_per_step(cfg, n_params), card, launches_a)
+    mp_a, all_a = stored_bytes(runner)
+    with uncounted():
+        profile_steps(runner, batch, "(a) tp_lm")
+    del runner, params
+    adt.reset()
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (b) two processes, TensorParallel(2)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            mp.start_processes(tp_child, args=(os.path.join(tmp, "store"),
+                                               tmp),
+                               nprocs=TP_RANKS, start_method="spawn")
+        except Exception as e:  # noqa: BLE001 — a rank failed
+            fail("phase 20 (b): a rank failed: %s"
+                 % (str(e).strip()[-2000:],))
+        res = []
+        for r in range(TP_RANKS):
+            with open(os.path.join(tmp, "rank%d.json" % r)) as f:
+                res.append(json.load(f))
+    print("  (b) two ranks ran in %.1f s" % (time.perf_counter() - t0))
+    launches_b = {}
+    for r in res:
+        label = "phase 20 (b) rank %d" % r["rank"]
+        check_launches(label, r["launches"], cfg.num_layers, TP2_STEPS)
+        for name, by in r["launches"].items():
+            for design, n in by.items():
+                launches_b.setdefault(name, {})
+                launches_b[name][design] = launches_b[name].get(design,
+                                                                0) + n
+        if r["shapes"] != [list(shape8)]:
+            fail("%s: the flash slot saw q shapes %r (want %r)"
+                 % (label, r["shapes"], [list(shape8)]))
+        if 2 * r["mp_bytes"] != mp_a or r["param_bytes"] != \
+                r["stats_param_bytes"]:
+            fail("%s: stores %d bytes of the model-parallel variables (a "
+                 "single process: %d)" % (label, r["mp_bytes"], mp_a))
+        want = 2 * cfg.num_layers + 5
+        if r["fwd_allreduces"] != want:
+            fail("%s: %.1f forward all-reduces a step (want %d)"
+                 % (label, r["fwd_allreduces"], want))
+        if not all(math.isfinite(x) for x in r["losses"]):
+            fail("%s: a loss is not finite: %r" % (label, r["losses"]))
+    if res[0]["losses"] != res[1]["losses"]:
+        fail("phase 20 (b): the ranks' losses differ: %r vs %r"
+             % (res[0]["losses"], res[1]["losses"]))
+    for i, (got, want) in enumerate(zip(res[0]["losses"][:3], losses[:3])):
+        if not abs(got - want) <= 2e-2 * max(1.0, abs(want)):
+            fail("phase 20 (b): step %d loss %.6f is not within 2e-2 of "
+                 "(a)'s %.6f" % (i, got, want))
+    r0 = res[0]
+    print("  (b) losses %s (both ranks; (a)'s first 3: %s, within 2e-2); "
+          "flash q shape a rank %r"
+          % (" ".join("%.4f" % x for x in r0["losses"]),
+             " ".join("%.4f" % x for x in losses[:3]), r0["shapes"][0]))
+    print("  (b) params a rank: %.1f MB of the model-parallel variables "
+          "(a single process: %.1f MB, half: %s), %.1f MB in all (a single "
+          "process: %.1f MB); peak %.2f GB a rank"
+          % (r0["mp_bytes"] / 1e6, mp_a / 1e6, 2 * r0["mp_bytes"] == mp_a,
+             r0["param_bytes"] / 1e6, all_a / 1e6, r0["peak_gb"]))
+    print("  (b) %d forward all-reduces a step (2 x %d layers, the "
+          "embedding's 2, the xent's 3), %.1f MB a step a rank; step p50 "
+          "%.1f / %.1f ms (ranks 0 / 1, steps %s ms); build + init %.1f s "
+          "[%s]"
+          % (r0["fwd_allreduces"], cfg.num_layers,
+             r0["fwd_allreduce_bytes"] / 1e6, r0["p50_ms"], res[1]["p50_ms"],
+             " ".join("%.1f" % t for t in r0["times_ms"]), r0["init_s"],
+             card))
+    print("  (b) one save (whole params and Adam moments in the JAX layout, "
+          "gathered over the model axis): %.1f ms on rank 0, %.1f MB [%s]"
+          % (r0["save_ms"], r0["save_bytes"] / 1e6, card))
+    return launches_a, launches_b, rec16, rec8
+
+
 def main():
     global T_SMOKE
     T_SMOKE = time.perf_counter()
@@ -5130,7 +5440,8 @@ def main():
     async_launches = timed_phase("17", async_phase, card)
     timed_phase("18", launch_phase, card)
     elastic_launches = timed_phase("19", elastic_phase, card, dp_losses)
-    print("phases 5-19: %s s" % ", ".join(
+    tp_a, tp_b, tp16, tp8 = timed_phase("20", tp_phase, card)
+    print("phases 5-20: %s s" % ", ".join(
         "%s %.1f" % kv for kv in seconds.items()))
 
     # flash_fwd runs on the three main paths, serving (decode), lm1b and
@@ -5146,6 +5457,10 @@ def main():
     for name, paths in by_path.items():
         paths["train"] = (train_launches[name], train_records[name])
         paths["bert"] = (bert_launches[name], bert_records[name])
+        # phase 20: tp_lm flagship at tp 1 ([8, 1024, 16, 64] causal) and
+        # at tp 2 (both ranks, [8, 1024, 8, 64] causal)
+        paths["tp_lm"] = (tp_a[name], tp16[name])
+        paths["tp_lm_tp2"] = (tp_b[name], tp8[name])
     records = {}
     for name, paths in by_path.items():
         rec = dict(next(iter(paths.values()))[1], max_abs_err=max(

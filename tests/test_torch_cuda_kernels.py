@@ -189,6 +189,36 @@ def test_cuda_forward_designs_match_plain_version(dtype, tol, case, segments):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_cuda_kernels_at_the_tp_lm_shape(dtype, tol):
+    """The three kernels at tp_lm's causal shape under 2-way tensor
+    parallelism, [2, 1024, 8, 64] (16 key tiles, the causal skip over
+    them), against their plain versions: out and lse, dQ, dK and dV
+    (the backward's errors relative to the plain version's largest
+    magnitude)."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    q, k, v, do = (torch.randn((2, 1024, 8, 64), generator=gen,
+                               device="cuda").to(dtype) for _ in range(4))
+    before = [fn.launches for fn in tfa.COUNTED]
+    out, lse = tfa.flash_fwd(q, k, v, causal=True)
+    ref, ref_lse = tfa.flash_fwd_reference(q, k, v, causal=True)
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, ref_lse, atol=tol, rtol=tol)
+    delta = tfa.flash_bwd_delta(ref, do)
+    args = (q, k, v, do, ref_lse, delta)
+    got = (tfa.flash_bwd_dq(*args, causal=True),
+           *tfa.flash_bwd_dkdv(*args, causal=True))
+    want = (tfa.flash_bwd_dq_reference(*args, causal=True),
+            *tfa.flash_bwd_dkdv_reference(*args, causal=True))
+    for g, w in zip(got, want):
+        scale = float(w.float().abs().max())
+        assert float((g.float() - w.float()).abs().max()) <= tol * scale
+    assert [fn.launches for fn in tfa.COUNTED] == [n + 1 for n in before]
+
+
+@pytest.mark.cuda
 def test_cuda_bf16_grads_go_through_the_tensor_core_kernels():
     """Autograd through flash_attention in bf16 with a strided dO: the
     forward, dQ and dK/dV all run their tensor-core designs, and the

@@ -7,7 +7,9 @@ The tests (``tests/test_torch_collectives.py``,
 ``tests/test_torch_compute_tier.py``, ``tests/test_torch_recsys.py``,
 ``tests/test_torch_ps.py``, ``tests/test_torch_sparse.py``,
 ``tests/test_torch_optimizers.py``, ``tests/test_torch_fused_ps.py``,
-``tests/test_torch_async_ps.py``, ``tests/test_torch_launch.py``) compute their JAX references in the pytest process and hand numpy arrays
+``tests/test_torch_async_ps.py``, ``tests/test_torch_launch.py``,
+``tests/test_torch_tensor_parallel.py``) compute their JAX references in
+the pytest process and hand numpy arrays
 to :func:`launch`, which starts
 ``world`` processes with the ``spawn`` start method. Each process joins a
 gloo group made from a ``FileStore`` in the test's temporary directory
@@ -545,6 +547,94 @@ def broadcast_bytes_job(payload, device):
             for p in payload]
 
 
+MLP_RULES = [(r"fc1/w$", {1: "model"}), (r"fc1/b$", {0: "model"}),
+             (r"fc2/w$", {0: "model"})]
+
+
+def mlp_loss(p, batch):
+    """The JAX tensor-parallel tests' MLP (``tests/test_tensor_parallel.py``
+    ``_mlp_loss``) over the port's ``parallel/tensor.py``."""
+    from autodist_tpu_torch.parallel import tensor
+    h = torch.relu(tensor.column_parallel_dense(
+        torch.as_tensor(batch["x"]), p["fc1/w"], p["fc1/b"]))
+    y = tensor.row_parallel_dense(h, p["fc2/w"], p["fc2/b"])
+    return ((y - torch.as_tensor(batch["y"])) ** 2).mean()
+
+
+def tp_job(payload, device):
+    """Each case of ``payload`` (a list) on this rank: ``"ops"`` — the
+    vocab-parallel embed, logits and xent with the vocab sharded over
+    every rank (the mesh's model axis), and the xent's gradient on this
+    rank's logits; ``"train"`` — ``TensorParallel(tp)`` over the MLP or
+    ``tp_lm`` (``cfg``: ``TPLMConfig.tiny`` keywords) from ``init``, Adam
+    at ``lr`` over ``batches`` (``freeze``: a variable kept frozen;
+    ``save_dir``: a checkpoint saved after the steps). Returns each
+    case's values."""
+    return [_tp_case(case, device) for case in payload]
+
+
+def _tp_case(case, device):
+    import autodist_tpu_torch as adt
+    from autodist_tpu_torch import strategy
+    from autodist_tpu_torch.checkpoint import Saver
+    from autodist_tpu_torch.convert import jax_named
+    from autodist_tpu_torch.models import tp_lm
+    from autodist_tpu_torch.parallel import mesh, tensor
+    from autodist_tpu_torch.resource_spec import ResourceSpec
+    from autodist_tpu_torch.telemetry import spans as tel
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if case["kind"] == "ops":
+        m = mesh.ProcessMesh({"model": world}, rank)
+        m.build_groups()
+        table = torch.as_tensor(case["table"])
+        rows = table.shape[0] // world
+        shard = table[rank * rows:(rank + 1) * rows]
+        logits = tensor.vocab_parallel_logits(torch.as_tensor(case["x"]),
+                                              shard).requires_grad_()
+        with mesh.bind(m):
+            emb = tensor.vocab_parallel_embed(shard, case["ids"])
+            nll = tensor.vocab_parallel_xent(logits, case["targets"])
+            grad, = torch.autograd.grad(nll.sum(), logits)
+        return {"emb": _np(emb), "nll": _np(nll), "grad": _np(grad),
+                "logits": _np(logits)}
+    tel.reset()
+    params = jax_named({n: torch.as_tensor(v)
+                        for n, v in case["init"].items()})
+    if case["model"] == "mlp":
+        loss_fn, rules = mlp_loss, MLP_RULES
+    else:
+        loss_fn = tp_lm.make_loss(tp_lm.TPLMConfig.tiny(**case["cfg"]))
+        rules = tp_lm.tp_rules()
+    spec = ResourceSpec.from_dict({"nodes": [{
+        "address": "127.0.0.1", "chief": True,
+        "cpus": list(range(world))}]})
+    ad = adt.AutoDist(strategy_builder=strategy.TensorParallel(
+        case["tp"], rules), resource_spec=spec, device=device)
+    freeze = case.get("freeze")
+    runner = ad.build(loss_fn, functools.partial(torch.optim.Adam,
+                                                 lr=case["lr"]),
+                      params, case["batches"][0],
+                      trainable_filter=(lambda n: n != freeze)
+                      if freeze else None)
+    runner.init(params)
+    dstep = runner.distributed_step
+    losses = [float(runner.run(b)["loss"]) for b in case["batches"]]
+    out = {"losses": losses, "params": _np(runner.gather_params()),
+           "mp_axes": {n: lay.mp_axes for n, lay in dstep.mp_layouts.items()},
+           "local_shapes": {n: tuple(t.shape)
+                            for n, t in runner.state.params.items()},
+           "opt_shapes": {n: tuple(t.shape) for n, t in
+                          runner.state.opt_state["mu"].items()},
+           "metadata": {k: dstep.metadata[k] for k in
+                        ("mesh", "model_parallel", "buckets")},
+           "stats": runner.step_stats(),
+           "coords": dict(dstep.mesh.coords)}
+    if case.get("save_dir"):
+        out["saved"] = Saver(case["save_dir"]).save(runner)
+    adt.reset()
+    return out
+
+
 JOBS = {"compressors": compressor_job, "train": train_job, "ckpt": ckpt_job,
         "ckpt_cross": ckpt_cross_job, "fused": fused_job, "async": async_job,
-        "broadcast_bytes": broadcast_bytes_job}
+        "broadcast_bytes": broadcast_bytes_job, "tp": tp_job}
