@@ -1,10 +1,13 @@
 """The plan rules the port runs: copies of
 ``autodist_tpu/analysis/rules.py::missing_trainable_configs`` (ADT101, the
 compile path's hard failure), ``check_mp_axes_node`` (ADT205/206/207, the
-partitioner's model-parallel layout check) and ``verify_decode`` (ADT442,
-the decode engine's cache-vs-memory projection)."""
+partitioner's model-parallel layout check), ``verify_sentinel``
+(ADT420/421, the health sentinel against the lowered step) and
+``verify_decode`` (ADT442, the decode engine's cache-vs-memory
+projection)."""
 from typing import Dict, List, Optional
 
+from autodist_tpu_torch import const
 from autodist_tpu_torch.analysis.diagnostics import Diagnostic, error, warning
 
 GIB = float(1 << 30)
@@ -96,4 +99,45 @@ def verify_decode(cache_bytes: float, param_bytes: float = 0.0,
                 per_device / GIB, budget / GIB),
             fixit="shrink slots or max_len, serve a smaller model, or "
                   "spread the slot dim over more batch replicas"))
+    return out
+
+
+def verify_sentinel(policy, metadata: dict) -> List[Diagnostic]:
+    """ADT42x — health-sentinel configuration hazards, checked against a
+    lowered step's metadata (``DistributedStep.metadata``); the Runner
+    runs this whenever a policy is armed.
+
+    - ``ADT420``: the policy is active but the step carries no health
+      guards (step_fn capture mode) — NaN/Inf detection and the skip
+      inside the step are unavailable; the sentinel degrades to host-side
+      loss monitoring, which can only roll back, never skip.
+    - ``ADT421``: a stale/async PS apply window larger than the
+      sentinel's skip window — a peer's delayed push can land a poisoned
+      gradient AFTER the window that judged those steps closed, so a bad
+      update can slip past the skip budget's accounting.
+    """
+    out: List[Diagnostic] = []
+    if policy is None or not getattr(policy, "enabled", False):
+        return out
+    metadata = metadata or {}
+    if not metadata.get("sentinel_guards", False):
+        out.append(warning(
+            "ADT420",
+            "sentinel policy is active but the lowered program has no "
+            "in-graph health guards — gradient/param NaN detection and "
+            "the in-graph skip are unavailable (loss-only monitoring)",
+            fixit="build with loss_fn mode (AutoDist.build) so the "
+                  "guards compile into the step"))
+    window = int(metadata.get("staleness", 0) or 0)
+    if metadata.get("async"):
+        window = max(window, int(const.ENV.ADT_PS_MAX_LAG.val))
+    if window > int(policy.window_steps):
+        out.append(warning(
+            "ADT421",
+            "PS apply window (%d steps stale/async lag) exceeds the "
+            "sentinel skip window (%d steps) — a delayed poisoned push "
+            "can apply after its window's verdict accounting closed"
+            % (window, policy.window_steps),
+            fixit="raise SentinelPolicy.window_steps above the "
+                  "staleness/lag bound, or tighten the PS window"))
     return out

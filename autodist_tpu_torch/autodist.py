@@ -328,13 +328,21 @@ class AutoDist:
 
     def build(self, loss_fn: Callable, optimizer, params, example_batch,
               has_aux: bool = False, apply_fn: Optional[Callable] = None,
-              trainable_filter: Optional[Callable] = None) -> Runner:
+              trainable_filter: Optional[Callable] = None,
+              sentinel=None) -> Runner:
         """Capture + strategy build + compile + lowering; returns an
         uninitialized Runner. ``optimizer`` is a ``torch.optim`` factory
         (``functools.partial(torch.optim.Adam, lr=1e-3)``, or None for a
         runner that only serves): the model item records its ``(name,
         kwargs)`` and the lowered step applies it (``optim.py``). Raises
-        when the plan's replica count is not the group's world size."""
+        when the plan's replica count is not the group's world size.
+        ``sentinel`` arms the training health sentinel
+        (``runtime/sentinel.py``): ``None`` defers to ``ADT_SENTINEL``,
+        ``True`` is the default ``SentinelPolicy``, a policy is used as
+        it is, ``False`` is off — the health guards are then built into
+        the step."""
+        from autodist_tpu_torch.runtime.sentinel import resolve_policy
+        policy = resolve_policy(sentinel)
         item = ModelItem(loss_fn=loss_fn, optimizer=optimizer, params=params,
                          example_batch=example_batch, has_aux=has_aux,
                          apply_fn=apply_fn,
@@ -350,10 +358,12 @@ class AutoDist:
         # process builds at one replica of its own
         dstep = GraphTransformer(
             compiled, item, self._device,
-            ReplicaInfo() if is_async else self._replicas).transform()
+            ReplicaInfo() if is_async else self._replicas,
+            sentinel=policy).transform()
         if is_async and dstep.ps_store is not None:
             self._wire_async_ps(dstep)
-        self._runner = Runner(dstep)
+        self._runner = Runner(dstep, sentinel=policy if policy is not None
+                              else False)
         return self._runner
 
     def _validate_async(self, compiled: Strategy, item: ModelItem) -> bool:
@@ -469,7 +479,8 @@ class AutoDist:
                     prefix="ps:" + host)
         dstep.ps_store.enable_serving(service_for_host, my_host)
 
-    def build_step(self, step_fn: Callable, state, example_batch) -> Runner:
+    def build_step(self, step_fn: Callable, state, example_batch,
+                   sentinel=None) -> Runner:
         """Opaque-step capture mode: distribute a hand-written
         ``step_fn(state, batch) -> (new_state, metrics)`` over the user's
         whole training state (params and optimizer state bundled however
@@ -481,7 +492,11 @@ class AutoDist:
         refused and compressors are ignored (warned), as in the JAX
         package; with more than one replica the port cannot sync them at
         all and refuses (ROADMAP A item 13). Returns an uninitialized
-        Runner: ``runner.init(state)``."""
+        Runner: ``runner.init(state)``. ``sentinel`` as in :meth:`build`:
+        the opaque step has no guards, so the sentinel watches the loss
+        only (ADT420)."""
+        from autodist_tpu_torch.runtime.sentinel import resolve_policy
+        policy = resolve_policy(sentinel)
         item = ModelItem(step_fn=step_fn, params=state,
                          example_batch=example_batch).prepare()
         strategy = self._build_or_load_strategy(item)
@@ -494,8 +509,9 @@ class AutoDist:
         self._setup()
         self._check_elastic(False)
         dstep = GraphTransformer(compiled, item, self._device,
-                                 self._replicas).transform()
-        self._runner = Runner(dstep)
+                                 self._replicas, sentinel=policy).transform()
+        self._runner = Runner(dstep, sentinel=policy if policy is not None
+                              else False)
         return self._runner
 
     def function(self, loss_fn: Callable, *, optimizer, params,

@@ -156,8 +156,7 @@ def sentinel_save_vetoed(runner_or_step) -> bool:
     In a job of more than one process only a runner whose verdicts are
     computed inside the step (``metadata["sentinel_guards"]``, the same
     on every rank) may veto: a divergent veto would strand the peers in
-    the gather. The port has no sentinel yet (ROADMAP A item 7), so no
-    runner vetoes."""
+    the gather (``runtime/sentinel.py``: the Runner's quarantine)."""
     veto = getattr(runner_or_step, "sentinel_save_veto", None)
     if not (callable(veto) and veto()):
         return False
@@ -535,6 +534,9 @@ class Saver:
                            opt_state=state.opt_state,
                            sync_state=state.sync_state)
         runner.state = state
+        notify = getattr(runner, "notify_state_restored", None)
+        if callable(notify):
+            notify()  # re-sync the process-local LR scales
         tel.counter_add("ckpt.restores")
         logging.info("restored checkpoint %s (step %d)", path, step)
         return state, step

@@ -343,9 +343,10 @@ def sync_state_to_jax(sync_state: dict, var_infos: dict,
                       ) -> Dict[str, np.ndarray]:
     """The gathered compressor states (every leaf ``[N, ...]``, row r
     rank r's) as the JAX package's flattened sync state: ``bucket/<key>``
-    (buckets are already in the flax element order) and ``var/<JAX
-    name>[/<field>]``, whose leaves of the variable's shape are laid out
-    as flax lays the variable out."""
+    (buckets are already in the flax element order), ``zero/...`` (the
+    ZeRO shards), ``sentinel/lr_scale`` (the health sentinel's LR scale)
+    and ``var/<JAX name>[/<field>]``, whose leaves of the variable's
+    shape are laid out as flax lays the variable out."""
     out = {"bucket/" + k: t.detach().to("cpu", copy=True).numpy()
            for k, t in sync_state.get("bucket", {}).items()}
     # the ZeRO shards: the optimizer's state of each little {"v": shard}
@@ -359,6 +360,9 @@ def sync_state_to_jax(sync_state: dict, var_infos: dict,
         for slot in opt.slots:
             out["%s%s/v" % (base, slot)] = little[slot]["v"].detach().to(
                 "cpu", copy=True).numpy()
+    for k, t in sync_state.get("sentinel", {}).items():
+        # the health sentinel's LR scale, one a rank
+        out["sentinel/" + k] = t.detach().to("cpu", copy=True).numpy()
     for n, leaf in sync_state.get("var", {}).items():
         info = var_infos[n]
         fields = leaf.items() if isinstance(leaf, dict) else (("", leaf),)
@@ -387,8 +391,8 @@ def sync_state_from_jax(flat: Dict[str, np.ndarray], var_infos: dict,
     out: dict = {}
     for key, arr in sorted(flat.items()):
         top, _, rest = key.partition("/")
-        if top == "bucket" and rest:
-            out.setdefault("bucket", {})[rest] = torch.from_numpy(
+        if top in ("bucket", "sentinel") and rest:
+            out.setdefault(top, {})[rest] = torch.from_numpy(
                 np.array(arr, copy=True))
             continue
         if top == "zero":

@@ -73,6 +73,23 @@ groups, every other variable by the buckets and synchronizers over all
 ranks, each divided by N, every process (the JAX lowering's
 ``psum(complement) / N``). The transform refuses, by name and at every
 replica count, the plan features the port has not reached.
+
+With a health-sentinel policy (``runtime/sentinel.py``) the step guards
+its own update (the JAX ``_health_verdict``): the global gradient L2
+norm (sharded storage adds ``local * S/N`` in one stacked all-reduce),
+the NaN/Inf counts of the synced gradients (the PS wire included) and
+of the updated params, and the loss's finiteness make a verdict that
+rides the metrics; a bad one keeps the params, the optimizer state and
+the compressor state as they were (``torch.where``) and suppresses the
+host-PS push, all on the device, in every microstep of a fused
+superstep too. The optimizer's updates are scaled by the state's
+``sync_state["sentinel"]["lr_scale"]`` (the sentinel's LR halving).
+``ADT_GRAD_FAULT_PLAN`` (``runtime/faultinject.py``) corrupts named
+gradients before the sync, keyed on a step counter kept on the device.
+The ``rhd`` and ``hier`` all-reduce schedules (``schedule=`` or
+``spec="DCN"`` on a synchronizer) lower to ``collectives.rhd_psum`` and
+``collectives.hierarchical_psum`` over the resource spec's hosts
+(``parallel/mesh.py::HostGroups``).
 """
 import collections
 from typing import Callable, Dict, Optional
@@ -98,6 +115,7 @@ from autodist_tpu_torch.ops import embedding
 from autodist_tpu_torch.parallel import collectives
 from autodist_tpu_torch.parallel import mesh as mesh_lib
 from autodist_tpu_torch.parallel import ps as ps_lib
+from autodist_tpu_torch.runtime import faultinject
 from autodist_tpu_torch.strategy.base import Strategy
 from autodist_tpu_torch.telemetry import spans as tel
 from autodist_tpu_torch.train_state import TrainState
@@ -183,6 +201,33 @@ def _clone_state(state: TrainState) -> TrainState:
 
 def _detach(leaf):
     return leaf.detach() if isinstance(leaf, torch.Tensor) else leaf
+
+
+def _select(ok, new_tree, old_tree):
+    """Keep ``new_tree``'s tensors where ``ok`` (a 0-d bool tensor) holds,
+    else write ``old_tree``'s values (the same structure) back into them,
+    in place: the sentinel's discard of a bad update, on the device."""
+    new, old = _named_leaves(new_tree), _named_leaves(old_tree)
+    for k, t in new.items():
+        o = old.get(k)
+        if isinstance(t, torch.Tensor) and isinstance(o, torch.Tensor) \
+                and o is not t:
+            torch.where(ok, t, o, out=t)
+
+
+def _health_stats(tensors):
+    """(sum of squares, nonfinite count) over ``tensors``, float32 0-d
+    tensors on their device: one concatenation, then one reduction each
+    (the JAX verdict sums each leaf's squares and adds the sums; the
+    order differs, within float32 rounding)."""
+    ts = [t.detach().reshape(-1) for t in tensors]
+    if not ts:
+        return None, None
+    flat = ts[0] if len(ts) == 1 else torch.cat(
+        [t.to(torch.float32) for t in ts])
+    flat = flat.to(torch.float32)
+    return flat.square().sum(), (~torch.isfinite(flat)).sum().to(
+        torch.float32)
 
 
 def _stack(*leaves):
@@ -332,7 +377,8 @@ class _OverlapRun:
 
     def _hook(self, name):
         def hook(grad):
-            self.ready[name] = grad
+            # the gradient faults land before the sync, as in the epilogue
+            self.ready[name] = self._dstep._fault_one(name, grad)
             self._advance()
         return hook
 
@@ -368,7 +414,8 @@ class DistributedStep:
 
     def __init__(self, *, strategy: Strategy, model_item, device,
                  metadata: Optional[dict] = None,
-                 replica_info: Optional[ReplicaInfo] = None):
+                 replica_info: Optional[ReplicaInfo] = None,
+                 sentinel=None):
         self.strategy = strategy
         self.model_item = model_item
         self.optimizer = model_item.optimizer_spec
@@ -411,6 +458,24 @@ class DistributedStep:
         self._graphs: Dict[tuple, object] = {}
         self.warmup_microsteps = 0
         gc = strategy.graph_config
+        # the health sentinel's guards and the gradient fault plan, fixed
+        # here as the JAX lowering fixes them at transform time
+        self.guard = sentinel is not None and model_item.step_fn is None
+        self._grad_norm_limit = (getattr(sentinel, "grad_norm_limit", None)
+                                 if self.guard else None)
+        self._grad_plan = (faultinject.GradFaultPlan.from_env()
+                           if model_item.step_fn is None
+                           else faultinject.GradFaultPlan())
+        # the TrainState step on the device, which the gradient faults
+        # read: set from the host step before each dispatch, advanced by
+        # each microstep (also inside a captured superstep)
+        self._step_t = (torch.zeros((), dtype=torch.int64,
+                                    device=self.device)
+                        if self._grad_plan.rules else None)
+        # the resource spec's hosts of the ranks, for the hierarchical
+        # schedule's groups (built with the synchronizers)
+        self._replica_hosts = [r.split(":")[0] for r in gc.replicas]
+        self.host_groups: Optional[mesh_lib.HostGroups] = None
         self.compute_dtype = gc.compute_dtype or "f32"
         self.remat = gc.remat
         self.buckets = []
@@ -449,6 +514,16 @@ class DistributedStep:
             if self.num_replicas > 1:
                 self._build_synchronizers(zero_names)
             self._make_losses()
+            self._check_grad_plan()
+        # sharded storage's share of the verdict's sums: a leaf sharded
+        # over mesh axes of total size S is held by N/S ranks, so the sum
+        # over the ranks of local * S/N is the global value
+        self._shard_frac = {n: 1.0 for n in self.layouts}
+        self._shard_frac.update({n: 1.0 for n in self.zero_syncs})
+        for n, lay in self.mp_layouts.items():
+            self._shard_frac[n] = float(np.prod(
+                [self.mesh.axis_size(a) for a in lay.mp_axis_names])
+            ) / self.num_replicas
         self.metadata.update(self._plan_metadata())
         self._zero_rs_step = self.metadata.get("zero_rs_bytes_per_step", 0.0)
         self._zero_ag_step = self.metadata.get("zero_ag_bytes_per_step", 0.0)
@@ -457,6 +532,40 @@ class DistributedStep:
                           self.metadata["zero_hbm_saved_bytes"])
         if self.schedule is not None:
             tel.counter_add("overlap.buckets", self.schedule.num_stages)
+
+    def _check_grad_plan(self):
+        """The JAX lowering's warnings for a gradient fault plan."""
+        plan = self._grad_plan
+        if not plan.rules:
+            return
+        infos = self.model_item.var_infos
+        unknown = sorted({r.var for r in plan.rules if r.var not in infos})
+        if unknown:
+            logging.warning("ADT_GRAD_FAULT_PLAN names unknown variables %s "
+                            "— those rules never fire", unknown)
+        on_wire = sorted({r.var for r in plan.rules
+                          if r.var in self.sparse_wire})
+        if on_wire:
+            logging.warning(
+                "ADT_GRAD_FAULT_PLAN targets sparse-wire vars %s: the fault "
+                "lands on the (unused) dense gradient — route those vars "
+                "dense to observe the fault", on_wire)
+        logging.warning("gradient fault plan built into the step: %s",
+                        plan.describe())
+
+    def _fault_one(self, name, grad):
+        """``grad`` of variable ``name`` with the fault plan applied at
+        the device step (itself without a plan)."""
+        if self._step_t is None:
+            return grad
+        return faultinject.apply_grad_faults(
+            self._grad_plan, self._step_t, {name: grad})[name]
+
+    def _set_step(self, step) -> None:
+        """Put the host step on the device for the gradient faults (a fill
+        kernel, no read back)."""
+        if self._step_t is not None:
+            self._step_t.fill_(int(step))
 
     def _mesh_axis_sizes(self) -> dict:
         """``{axis: size}`` of the plan's mesh: the data axis alone (every
@@ -546,6 +655,9 @@ class DistributedStep:
                 node.var_name, cfg, N,
                 collective_name=info.collective_name,
                 layout=self.layouts.get(node.var_name))
+            if kernel is AllReduceSynchronizer and \
+                    self._wants_hier(cfg.spec, cfg.schedule):
+                self.syncs[node.var_name].host_groups = self._host_groups()
         compressed = {n: s for n, s in self.syncs.items()
                       if s.compressor.name != "NoneCompressor"
                       and n not in self.layouts}
@@ -553,6 +665,9 @@ class DistributedStep:
                                                    item.var_infos)
         self._bucketed = {n for b in self.buckets for n in b.var_names}
         self._bucket_by_key = {b.key: b for b in self.buckets}
+        for b in self.buckets:
+            if self._wants_hier(b.spec, b.schedule):
+                self._host_groups()
         # one data axis: the default group, all N ranks
         self._ring_axes = ((None, N),)
         overlap = bool(self.strategy.graph_config.overlap)
@@ -570,6 +685,32 @@ class DistributedStep:
         if overlap:
             self.schedule = collectives.build_grad_sync_schedule(
                 self._units(), {n: i for i, n in enumerate(item.var_infos)})
+
+    @staticmethod
+    def _wants_hier(spec, schedule) -> bool:
+        return (spec or "") == "DCN" or (schedule or "auto") == "hier"
+
+    def _host_groups(self):
+        """The intra-host and inter-host groups of the hierarchical
+        schedule over the resource spec's hosts, made once, by every rank
+        in one order (None when the ranks sit on one host)."""
+        if self.host_groups is None and len(set(self._replica_hosts)) > 1:
+            self.host_groups = mesh_lib.HostGroups(self._replica_hosts,
+                                                   self.rank)
+        return self.host_groups
+
+    def _bucket_psum(self, bucket):
+        """The sum a bucket's reduce goes through: the schedule the
+        bucket's synchronizers name (the JAX ``_run_bucket``): the
+        hierarchical psum for ``spec="DCN"`` or ``schedule="hier"`` across
+        hosts, ``rhd`` as reduce-scatter + all-gather, else the ring."""
+        hg = self.host_groups
+        if self._wants_hier(bucket.spec, bucket.schedule) and hg is not None:
+            return lambda x: collectives.hierarchical_psum(x, hg)
+        if (bucket.schedule or "auto") == "rhd":
+            return lambda x: collectives.rhd_psum(x, None,
+                                                  self.num_replicas)
+        return self._psum
 
     def _units(self):
         """The sync units as the JAX lowering lists them for its schedule:
@@ -649,6 +790,10 @@ class DistributedStep:
             "overlap_stages": sched.num_stages if sched is not None else 0,
             "overlap_schedule": sched.describe() if sched is not None
             else "",
+            # health guards built into the step? (the ADT420 lint and the
+            # Runner's policy read it; savers gate a multi-process veto)
+            "sentinel_guards": self.guard,
+            "grad_fault_plan": self._grad_plan.describe(),
         }
 
     def _make_losses(self):
@@ -705,6 +850,11 @@ class DistributedStep:
             for n, zs in sorted(self.zero_syncs.items()):
                 st["zero"][n] = zs.opt_state_init(self.optimizer,
                                                   self.device)
+        if self.guard:
+            # the sentinel's effective-LR scale: state, not a rebuild, so
+            # halving it is an edit of the state (checkpoints keep it)
+            st["sentinel"] = {"lr_scale": torch.ones(
+                (), dtype=torch.float32, device=self.device)}
         return {k: v for k, v in st.items() if v}
 
     @staticmethod
@@ -804,7 +954,7 @@ class DistributedStep:
                 if opt_state is not None and n in opt_state.get(slot, {}):
                     opt_state[slot][n] = lay.mp_local(opt_state[slot][n],
                                                       self.mesh)
-        sync = self._sync_state_init() if N > 1 else {}
+        sync = self._sync_state_init()
         own = None
         if sync_state is not None:
             own = self._own_row(sync_state, sync)
@@ -843,6 +993,22 @@ class DistributedStep:
         this one (``relayout_zero_sync_leaf``)."""
         from autodist_tpu_torch.kernel.synchronization.zero_synchronizer \
             import relayout_zero_sync_leaf
+        if "sentinel" in fresh or "sentinel" in gathered:
+            # the sentinel's scale is judged apart from the compressor
+            # and ZeRO state: a checkpoint of an unguarded run keeps its
+            # ZeRO shards under a guarded one (the scale starts at 1)
+            rest = self._own_row(
+                {k: v for k, v in gathered.items() if k != "sentinel"},
+                {k: v for k, v in fresh.items() if k != "sentinel"})
+            if rest is None:
+                return None
+            if "sentinel" in fresh:
+                rest["sentinel"] = fresh["sentinel"]
+                scale = gathered.get("sentinel", {}).get("lr_scale")
+                if scale is not None:
+                    fresh["sentinel"]["lr_scale"].fill_(
+                        float(torch.as_tensor(scale).reshape(-1)[0]))
+            return rest
         got, want = _named_leaves(gathered), _named_leaves(fresh)
         N = self.num_replicas
         if got.keys() == want.keys():
@@ -922,7 +1088,7 @@ class DistributedStep:
         if kind == "bucket":
             b = self._bucket_by_key[name]
             out, nst = collectives.bucket_reduce(
-                b, grads, bucket_state.get(b.key), self._psum,
+                b, grads, bucket_state.get(b.key), self._bucket_psum(b),
                 self.num_replicas, ring_axes=self._ring_axes)
             return collectives.done((out, ("bucket", b.key, nst)))
         if kind == "zero":
@@ -1059,6 +1225,11 @@ class DistributedStep:
                 self.overlap_log = overlap.log
         grads = {n: (g if g is not None else torch.zeros_like(full[n]))
                  for n, g in zip(dense_wrt, out)}
+        if self._step_t is not None:
+            # chaos: the LOCAL gradients corrupted before the sync, so NaN
+            # spreads through the all-reduce as a real fault would
+            grads = faultinject.apply_grad_faults(self._grad_plan,
+                                                  self._step_t, grads)
         tap_grads = list(out[len(dense_wrt):])
         pairs = {}
         with torch.no_grad():
@@ -1088,20 +1259,106 @@ class DistributedStep:
                         ps_grads[n], item.var_infos[n].collective_name))
             device_grads = {n: g for n, g in grads.items()
                             if n not in self.ps_names}
+            old_sync = state.sync_state
             if N > 1:
                 with tel.span("dstep.grad_sync", "dstep",
                               overlap=overlap is not None):
                     device_grads, sync_state = self._sync_grads(
                         device_grads, sync_state, pairs, overlap)
+            metrics = self._metrics(loss, aux)
+            scale = snap = None
+            if self.guard:
+                # the update writes in place: keep the values it may have
+                # to give back (the compressor states are new tensors)
+                scale = sync_state["sentinel"]["lr_scale"]
+                snap = _clone((state.params, state.opt_state,
+                               sync_state.get("zero", {})))
             opt_state = self.optimizer.update(
                 {n: g for n, g in device_grads.items()
                  if n not in self.zero_syncs},
-                state.opt_state, state.params)
+                state.opt_state, state.params, scale=scale)
             if self.zero_syncs:
-                self._zero_apply(device_grads, state.params, sync_state)
+                self._zero_apply(device_grads, state.params, sync_state,
+                                 scale)
+            if self.guard:
+                verdict = self._health_verdict(device_grads, ps_grads,
+                                               state.params, metrics["loss"])
+                metrics["sentinel"] = verdict
+                # a bad verdict discards the whole update, on the device
+                okb = verdict["ok"].bool()
+                _select(okb, state.params, snap[0])
+                _select(okb, opt_state, snap[1])
+                _select(okb, sync_state.get("zero", {}), snap[2])
+                for key in ("bucket", "var"):
+                    _select(okb, sync_state.get(key, {}),
+                            old_sync.get(key, {}))
+            if self._step_t is not None:
+                self._step_t.add_(1)
         return TrainState(step=state.step + 1, params=state.params,
                           opt_state=opt_state, sync_state=sync_state), \
-            ps_grads, self._metrics(loss, aux)
+            ps_grads, metrics
+
+    def _health_verdict(self, synced, ps_grads, new_params, loss):
+        """The sentinel's verdict on one microstep (the JAX
+        ``_health_verdict``): ``{"ok", "grad_norm", "bad_grads",
+        "bad_params"}`` as 0-d tensors on the device. Replicated gradients
+        are already global on every rank; sharded ones (partitioned, ZeRO,
+        model-parallel) add ``local * S/N`` through ONE stacked all-reduce,
+        so a plan with no sharded storage pays no collective. Every input
+        is the same on every rank, so every rank takes the same
+        branch."""
+        infos = self.model_item.var_infos
+        frac = self._shard_frac
+        zero = torch.zeros((), dtype=torch.float32, device=self.device)
+        local_g, shared_g, shared_p = [], {}, {}
+        for n in sorted(synced):
+            v = synced[n]
+            if not v.is_floating_point():
+                continue
+            f = frac.get(n)
+            (local_g if f is None else shared_g.setdefault(f, [])).append(v)
+        for n in sorted(ps_grads):
+            gv = ps_grads[n]
+            if isinstance(gv, dict):
+                # the wire-quantized gradient judged by its dequantized
+                # image (what the store applies); a NaN poisons its block
+                # scales, so the count still fires
+                gv = collectives.dequant_wire(gv, (infos[n].num_elements,))
+            elif isinstance(gv, tuple):
+                gv = gv[1]
+            local_g.append(gv)
+        local_p = []
+        for n in sorted(new_params):
+            t = new_params[n]
+            if not t.is_floating_point():
+                continue
+            f = frac.get(n)
+            (local_p if f is None else shared_p.setdefault(f, [])).append(t)
+        sq, bad_g = _health_stats(local_g)
+        _, bad_p = _health_stats(local_p)
+        sq = zero if sq is None else sq
+        bad_g = zero if bad_g is None else bad_g
+        bad_p = zero if bad_p is None else bad_p
+        if shared_g or shared_p:
+            red = [zero, zero, zero]
+            for f, ts in shared_g.items():
+                s_sq, s_bad = _health_stats(ts)
+                red[0] = red[0] + s_sq * f
+                red[1] = red[1] + s_bad * f
+            for f, ts in shared_p.items():
+                red[2] = red[2] + _health_stats(ts)[1] * f
+            red = torch.stack(red)
+            if self.num_replicas > 1:
+                red = self._psum(red)
+            sq, bad_g, bad_p = sq + red[0], bad_g + red[1], bad_p + red[2]
+        grad_norm = sq.sqrt()
+        loss = torch.as_tensor(loss, device=self.device)
+        ok = ((bad_g == 0) & (bad_p == 0) & torch.isfinite(loss).all()
+              & torch.isfinite(grad_norm))
+        if self._grad_norm_limit is not None:
+            ok = ok & (grad_norm <= float(self._grad_norm_limit))
+        return {"ok": ok.to(torch.int32), "grad_norm": grad_norm,
+                "bad_grads": bad_g, "bad_params": bad_p}
 
     def _ps_carry_microstep(self, state: TrainState, batch, vals, opts):
         """One fused microstep with the host-PS variables in the device
@@ -1119,6 +1376,13 @@ class DistributedStep:
             for n, v in vals.items()}
         new_state, ps_grads, metrics = self._train(state, batch, wire_vals)
         with torch.no_grad():
+            scale = snap = None
+            if self.guard:
+                # the microstep's verdict gates the carry's apply as it
+                # gates the per-step push: a bad microstep's PS update is
+                # discarded and the carry flows on unchanged
+                scale = state.sync_state["sentinel"]["lr_scale"]
+                snap = _clone((vals, opts))
             for n in sorted(vals):
                 g, info = ps_grads[n], infos[n]
                 if isinstance(g, dict):
@@ -1129,15 +1393,21 @@ class DistributedStep:
                     g = embedding.scatter_add_dense(
                         g[0], g[1], int(info.shape[0]),
                         tuple(info.shape[1:]))
-                self.optimizer.update({"v": g}, opts[n], {"v": vals[n]})
+                self.optimizer.update({"v": g}, opts[n], {"v": vals[n]},
+                                      scale=scale)
+            if self.guard:
+                okb = metrics["sentinel"]["ok"].bool()
+                _select(okb, vals, snap[0])
+                _select(okb, opts, snap[1])
         return new_state, metrics
 
-    def _zero_apply(self, grads, params, sync_state):
+    def _zero_apply(self, grads, params, sync_state, scale=None):
         """The sharded weight update: the optimizer on each ZeRO
         variable's owned flat shard (a little ``{"v": shard}`` tree
         against its state in ``sync_state['zero']``, advanced in place),
-        then the update delta all-gathered and added to the replicated
-        f32 param on every rank."""
+        then the update delta — scaled by the sentinel's ``scale`` before
+        the gather, as the JAX lowering scales it — all-gathered and
+        added to the replicated f32 param on every rank."""
         for n in sorted(self.zero_syncs):
             zs = self.zero_syncs[n]
             # the optimizer's params are this rank's shard of the
@@ -1146,6 +1416,8 @@ class DistributedStep:
                      if self.optimizer.reads_params else {})
             delta = self.optimizer.delta({"v": grads[n]},
                                          sync_state["zero"][n], shard)["v"]
+            if scale is not None:
+                delta = delta * scale
             params[n].add_(zs.gather_update(delta))
 
     def _count_wire(self, microsteps: int = 1):
@@ -1179,9 +1451,13 @@ class DistributedStep:
                 if self.ps_store is not None:
                     ps_vals, version = self._pull_versioned()
                     self.ps_read_lags.append(self._ps_pushes - version)
+                self._set_step(state.step)
                 new_state, ps_grads, metrics = self._train(state, batch,
                                                            ps_vals)
-                self._push_ps(ps_grads)
+                # a guarded step's verdict gates the push (the one update
+                # the host applies), read with the push's own copy
+                self._push_ps(ps_grads, metrics.get("sentinel", {}).get(
+                    "ok"))
                 out = new_state, metrics
         self.dispatches += 1
         tel.counter_add("dstep.dispatches")
@@ -1237,6 +1513,7 @@ class DistributedStep:
                 new_state, carry, metrics = self._graphed(
                     state, stacked_batch, k, donate, carry)
             else:
+                self._set_step(state.step)
                 if not donate:
                     state, carry = _clone_state(state), _clone(carry)
                 new_state, metrics = self._loop(state, stacked_batch, k,
@@ -1292,6 +1569,8 @@ class DistributedStep:
             graph = GraphedSuperstep(self, state, stacked_batch, k, carry)
             self._graphs[key] = graph
             self.warmup_microsteps += graph.warmup_microsteps
+        # after a capture's warm-up, which advanced the device step
+        self._set_step(state.step)
         return graph.replay(state, stacked_batch, donate, carry)
 
     def run_multi(self, state: TrainState, stacked_batch,
@@ -1491,10 +1770,12 @@ class DistributedStep:
                 info.collective_name)
         return out
 
-    def _push_ps(self, ps_grads: dict) -> None:
+    def _push_ps(self, ps_grads: dict, ok=None) -> None:
         """Hand a step's PS gradients to the store: pipelined, or at once
         (``ADT_PS_OVERLAP=0``). On ``cuda`` the copy waits on an event
-        recorded here, after the step's kernels."""
+        recorded here, after the step's kernels. ``ok`` is the sentinel's
+        verdict (a device scalar, or None unguarded): it crosses with the
+        gradients, and a bad one suppresses the push at the store."""
         if self.ps_store is None or not ps_grads:
             return
         self._ps_pushes += 1
@@ -1503,9 +1784,9 @@ class DistributedStep:
             ready = torch.cuda.Event()
             ready.record()
         if self._ps_pipe is not None:
-            self._ps_pipe.submit(ps_grads, ready)
+            self._ps_pipe.submit(ps_grads, ready, ok=ok)
         else:
-            self.ps_store.push(ps_grads, ready)
+            self.ps_store.push(ps_grads, ready, ok=ok)
 
     def flush_ps(self) -> None:
         """Wait for the in-flight push and write the fused carry back:
@@ -1624,11 +1905,15 @@ class GraphTransformer:
     replica of its own and ``replica_info`` must say one."""
 
     def __init__(self, compiled_strategy: Strategy, model_item, device,
-                 replica_info: Optional[ReplicaInfo] = None):
+                 replica_info: Optional[ReplicaInfo] = None,
+                 sentinel=None):
         self._strategy = compiled_strategy
         self._item = model_item
         self._device = device
         self._replicas = replica_info or ReplicaInfo()
+        # the resolved health-sentinel policy (runtime/sentinel.py): its
+        # guards are built into the step; None builds none
+        self._sentinel = sentinel
 
     def _refuse_unported(self):
         """Plan features the port has not reached raise, naming the
@@ -1636,8 +1921,7 @@ class GraphTransformer:
         process: a mesh axis other than data and model, the sequence
         axis and explicit batch axes (sequence parallelism), mp axes
         named pipe or expert (pipeline and expert parallelism), a model
-        axis of size > 1 beside host PS, ZeRO or partitioned storage, and
-        the rhd and hierarchical all-reduce schedules."""
+        axis of size > 1 beside host PS, ZeRO or partitioned storage."""
         gc = self._strategy.graph_config
         N = self._replicas.num_processes
 
@@ -1655,7 +1939,6 @@ class GraphTransformer:
             refuse("the mesh axes %s (pipeline, expert or sequence "
                    "parallelism)" % other, 9)
         tp = mesh.get(const.MODEL_AXIS, 1) > 1
-        hosts = {r.split(":")[0] for r in gc.replicas}
         for node in self._strategy.node_config:
             for axis in sorted(set((node.mp_axes or {}).values())
                                & {const.PIPELINE_AXIS, const.EXPERT_AXIS}):
@@ -1671,17 +1954,6 @@ class GraphTransformer:
                        % (mesh[const.MODEL_AXIS],
                           "partitioned storage" if node.partitioner
                           else "host-PS or ZeRO sync", node.var_name), 9)
-            for cfg in cfgs:
-                if cfg is None:
-                    continue
-                schedule = getattr(cfg, "schedule", "auto")
-                if schedule == "rhd":
-                    refuse("schedule='rhd' on %s" % node.var_name, 7)
-                if (schedule == "hier" or getattr(cfg, "spec", "") == "DCN") \
-                        and len(hosts) > 1:
-                    refuse("the hierarchical psum (schedule='hier' or "
-                           "spec='DCN' across hosts) on %s" % node.var_name,
-                           7)
 
     def _check_step_fn(self, replicas: int):
         """step_fn mode (the JAX ``_transform_step_fn``'s refusals): the
@@ -1749,7 +2021,15 @@ class GraphTransformer:
             # batch, the model axis shards the mp variables' storage
             self._replicas = self._replicas.with_mesh(mesh_lib.ProcessMesh(
                 mesh_shape, self._replicas.process_rank))
+        if self._sentinel is not None and self._item.step_fn is not None:
+            # the opaque step hides the gradients the guards judge: the
+            # Runner's sentinel degrades to loss-only monitoring (ADT420)
+            logging.warning(
+                "sentinel requested but step_fn capture mode builds no "
+                "health guards into the step: the sentinel watches the "
+                "loss only (ADT420)")
         return DistributedStep(strategy=self._strategy,
                                model_item=self._item, device=self._device,
                                metadata={"replicas": replicas},
-                               replica_info=self._replicas)
+                               replica_info=self._replicas,
+                               sentinel=self._sentinel)

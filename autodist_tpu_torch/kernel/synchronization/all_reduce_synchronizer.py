@@ -11,8 +11,11 @@ reduce-scatter path instead: each rank receives the summed gradient of
 its own shard (``kernel/partitioner.py``); a compressor or the int8 wire
 is ignored there, with a warning, as in the JAX kernel.
 ``group`` (the bucket id), ``spec`` and ``schedule`` are recorded for the
-bucketing layer; the lowering refuses the schedules the port has not
-reached (``kernel/graph_transformer.py``).
+bucketing layer, and pick this variable's sum (:meth:`psum`, the JAX
+kernel's): ``schedule="rhd"`` is the reduce-scatter + all-gather
+composition, ``spec="DCN"`` or ``schedule="hier"`` the hierarchical sum
+over the resource spec's hosts (``host_groups``, set by the lowering
+when the ranks span hosts; on one host it is the ring).
 
 :meth:`AllReduceSynchronizer.launch` issues the collective and returns a
 ``collectives.Pending``; :meth:`sync` is launch-and-wait. The plain
@@ -30,6 +33,10 @@ from autodist_tpu_torch.utils import logging
 
 
 class AllReduceSynchronizer(Synchronizer):
+    # the hosts' groups of the hierarchical schedule (set by the lowering
+    # when the ranks span more than one host)
+    host_groups = None
+
     def __init__(self, var_name, config, num_replicas, process_group=None,
                  collective_name: str = "", layout=None):
         super().__init__(var_name, config, num_replicas, process_group)
@@ -58,6 +65,24 @@ class AllReduceSynchronizer(Synchronizer):
                             "partitioned (reduce-scatter) path (ADT310)",
                             var_name)
 
+    def psum(self, x):
+        """The sum over the replicas this variable's schedule names (the
+        JAX kernel's ``psum``): ``DCN`` or ``hier`` across hosts lowers
+        to the hierarchical form, ``rhd`` to reduce-scatter + all-gather,
+        anything else (``hier`` on one host included) to the ring."""
+        if (self.spec == "DCN" or self.schedule == "hier") \
+                and self.host_groups is not None:
+            return collectives.hierarchical_psum(x, self.host_groups)
+        if self.schedule == "rhd":
+            return collectives.rhd_psum(x, self.process_group,
+                                        self.num_replicas)
+        return super().psum(x)
+
+    def _scheduled(self) -> bool:
+        return self.schedule == "rhd" or (
+            self.host_groups is not None
+            and (self.spec == "DCN" or self.schedule == "hier"))
+
     def state_init(self, grad_shape, dtype):
         if self.layout is not None and self.layout.partitioned:
             return None
@@ -73,6 +98,8 @@ class AllReduceSynchronizer(Synchronizer):
                 grad, self.process_group, N, async_op)
             return collectives.Pending((), lambda: (pending.wait() / N,
                                                     state))
+        if self.compressor.name == "NoneCompressor" and self._scheduled():
+            return collectives.done((self.psum(grad) / N, state))
         if self.compressor.name == "NoneCompressor":
             pending = collectives.all_reduce_sum_launch(
                 grad, self.process_group, async_op)

@@ -145,16 +145,20 @@ class OptimizerSpec:
         return out
 
     def update(self, grads: Dict[str, torch.Tensor], state: dict,
-               params: Dict[str, torch.Tensor]) -> dict:
+               params: Dict[str, torch.Tensor], scale=None) -> dict:
         """Apply one step to the variables named in ``grads``, in place on
         ``params`` and ``state``; returns the state. Variables outside
         ``grads`` (not trainable) and their slots stay as they are, as the
         JAX step's zero gradients and masked updates leave them (a zero
         slot and a zero gradient keep the slot zero). The count is
         incremented in place, saturating at the int32 maximum as optax's
-        ``safe_increment`` does."""
+        ``safe_increment`` does. ``scale`` (a float32 0-d tensor: the
+        health sentinel's LR scale) multiplies the updates before they
+        are added, as the JAX step scales optax's updates."""
         names = list(grads)
         upd = self._updates(names, grads, state, params)
+        if names and scale is not None:
+            torch._foreach_mul_(upd, scale)
         if names:
             torch._foreach_add_([params[n] for n in names], upd)
         return dict(state)

@@ -359,6 +359,52 @@ def int8_multi_axis_all_reduce(x: torch.Tensor, axes_sizes, block: int = 0):
 # ------------------------------------------ reduce-scatter and all-gather
 
 
+def _pad_flat(x: torch.Tensor, n: int):
+    """``x`` flattened and zero-padded to a multiple of ``n``; the
+    unpadded length."""
+    flat = x.reshape(-1)
+    length = flat.shape[0]
+    pad = (-length) % n
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    return flat, length
+
+
+def rhd_psum(x: torch.Tensor, group, n: int) -> torch.Tensor:
+    """Recursive-halving/doubling all-reduce over the ``n`` ranks of
+    ``group`` (None: the default group), as the reduce-scatter +
+    all-gather composition (JAX ``collectives.rhd_psum``): the flat value
+    zero-padded to a multiple of ``n``, each rank's chunk summed over the
+    ranks, the chunks all-gathered. Every element is summed once, on one
+    rank, and broadcast as it is, so the ranks' copies cannot drift."""
+    if n <= 1:
+        return x
+    flat, length = _pad_flat(x, n)
+    shard = reduce_scatter_flat_launch(flat, group, n).wait()
+    return all_gather_flat(shard, group, n)[:length].reshape(x.shape)
+
+
+def hierarchical_psum(x: torch.Tensor, hosts) -> torch.Tensor:
+    """Bandwidth-hierarchical sum over every rank (JAX
+    ``collectives.hierarchical_psum``), on ``hosts``
+    (``parallel/mesh.py::HostGroups``): reduce-scatter within each host's
+    group, all-reduce the 1/n_intra shard across the hosts (the group of
+    the ranks with this rank's local index), then all-gather within the
+    host, so the links between hosts carry 1/n_intra of the payload. One
+    rank a host is the plain all-reduce across them, one host the plain
+    all-reduce within it."""
+    if hosts.n_inter <= 1:
+        return all_reduce_sum_launch(x, hosts.intra).wait()
+    if hosts.n_intra <= 1:
+        return all_reduce_sum_launch(x, hosts.inter).wait()
+    n = hosts.n_intra
+    flat, length = _pad_flat(x, n)
+    shard = reduce_scatter_flat_launch(flat, hosts.intra, n).wait()
+    shard = all_reduce_sum_launch(shard, hosts.inter).wait()
+    return all_gather_flat(shard, hosts.intra, n)[:length].reshape(x.shape)
+
+
+
 def reduce_scatter_flat_launch(x: torch.Tensor, group, n: int,
                                async_op: bool = False) -> Pending:
     """Launch the sum-reduce-scatter of a flat vector of ``n`` equal

@@ -20,6 +20,12 @@ ops reduce over its group; outside (tracing, one process, evaluation
 before a build) it is unbound and the same ops compute the plain,
 unsharded function, so one model definition serves all of them. A size-1
 axis is never bound: its collectives would be identities.
+
+:class:`HostGroups` splits the ranks by the host the resource spec puts
+them on, for the hierarchical all-reduce schedule
+(``collectives.hierarchical_psum``): one group a host (the JAX
+package's ICI axes) and one group a local index across the hosts (its
+DCN axes, JAX ``dcn_axes``).
 """
 import contextlib
 import dataclasses
@@ -96,6 +102,45 @@ class ProcessMesh:
     def __repr__(self):
         return "ProcessMesh(%s, rank=%d, coords=%s)" % (self.axes, self.rank,
                                                         self.coords)
+
+
+class HostGroups:
+    """The intra-host and inter-host process groups of ranks laid out as
+    ``hosts`` (rank r on ``hosts[r]``): the ranks of each host, in rank
+    order, and, across hosts in order of first appearance, the ranks
+    holding the same local index. Every rank makes every group, in one
+    order (hosts, then local indexes), as ``new_group`` requires. Each
+    host must hold as many ranks as every other (a JAX mesh's ICI axes
+    are the same size on every host), else ``ValueError``."""
+
+    def __init__(self, hosts: Sequence[str], rank: int):
+        order: Dict[str, List[int]] = {}
+        for r, h in enumerate(hosts):
+            order.setdefault(h, []).append(r)
+        per_host = {len(v) for v in order.values()}
+        if len(per_host) != 1:
+            raise ValueError(
+                "the hierarchical all-reduce needs the same number of ranks "
+                "on every host; the resource spec has %s"
+                % {h: len(v) for h, v in order.items()})
+        self.intra_ranks = list(order.values())
+        self.n_intra = per_host.pop()
+        self.inter_ranks = [[ranks[i] for ranks in self.intra_ranks]
+                            for i in range(self.n_intra)]
+        self.n_inter = len(self.intra_ranks)
+        self.intra = self.inter = None
+        for ranks in self.intra_ranks:
+            group = dist.new_group(ranks) if self.n_intra > 1 else None
+            if rank in ranks:
+                self.intra = group
+        for ranks in self.inter_ranks:
+            group = dist.new_group(ranks) if self.n_inter > 1 else None
+            if rank in ranks:
+                self.inter = group
+
+    def __repr__(self):
+        return "HostGroups(%d hosts x %d ranks)" % (self.n_inter,
+                                                    self.n_intra)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -305,6 +305,10 @@ class PSStore:
         self._serve_groups: Optional[Dict[str, dict]] = None
         self._my_pushes = 0
         self._warned_sync_fallback = False
+        # the effective-LR scale every update is multiplied by (the health
+        # sentinel's escalation ladder, runtime/sentinel.py); 1.0 leaves
+        # the updates as they are
+        self.update_scale = 1.0
 
     # ------------------------------------------------------------ lifecycle
 
@@ -565,16 +569,27 @@ class PSStore:
             out[name] = self._join(plan, pieces)
         return out
 
-    def push(self, grads: dict, ready=None) -> None:
+    def push(self, grads: dict, ready=None, ok=None) -> None:
         """Hand the mean-reduced gradients to the PS: to the host (after
         the ``ready`` event), then :meth:`apply_local`; every rank replays
         the same deterministic update on its mirror. In serving (async)
         mode each owner group's gradients are packed into a blob and
         queued on the owner's queue instead; the owner's apply thread
-        applies them, one blob at a time, with no barrier."""
+        applies them, one blob at a time, with no barrier. ``ok``, the
+        health sentinel's verdict of the step that made the gradients (a
+        device scalar), crosses in the same copy; a bad one suppresses
+        the push: the store never sees the poisoned gradient and its
+        optimizer state stays as it was."""
         # the epoch fence, before any copy: a fenced process's push never
         # reaches a queue its successor drains
         elastic.maybe_fence("ps.push")
+        if ok is not None:
+            moved = self._wire.to_host({"g": grads, "ok": ok}, ready)
+            if not bool(moved["ok"]):
+                tel.counter_add("sentinel.ps_suppressed")
+                logging.warning("sentinel: PS push suppressed (bad verdict)")
+                return
+            grads, ready = moved["g"], None
         with tel.span("ps.push", "ps", serving=self.serving,
                       step=self.stats["pushes"]):
             host = self._wire.to_host(grads, ready)
@@ -627,9 +642,9 @@ class PSStore:
             blob = pss.pack_arrays(payload)
             # backpressure before the push: at most ADT_PS_MAX_LAG blobs in
             # flight a queue (0 = unbounded); a queue stuck past a minute
-            # drops this push (counted) — in the JAX package the chief's
-            # heartbeat watchdog (coordinator.py, ROADMAP A item 8.2 here)
-            # is what ends a job whose owner is really gone
+            # drops this push (counted) — the chief's heartbeat watchdog
+            # (runtime/coordinator.py, under ADT_ELASTIC) is what ends a
+            # job whose owner is really gone
             max_lag = const.ENV.ADT_PS_MAX_LAG.val
             try:
                 if max_lag > 0:
@@ -772,6 +787,11 @@ class PSStore:
                 v = self._values[name][si]
                 upd = self._optimizer.delta({"v": g}, self._opt[name][si],
                                             {"v": v})["v"]
+                if self.update_scale != 1.0:
+                    # the sentinel's LR scale, as the JAX store's apply
+                    # multiplies its updates (x 1.0 changes nothing)
+                    upd = upd * torch.tensor(self.update_scale,
+                                             dtype=upd.dtype)
                 fresh[key] = torch.add(v, upd, out=self._host_empty(v.shape))
         n = min(self._apply_threads, len(keys))
         if n <= 1:
@@ -922,6 +942,111 @@ class PSStore:
             self._apply_pool = None
 
     # ---------------------------------------------------------- checkpoints
+
+    # ------------------------------------------------ sharded checkpoints
+
+    def checkpoint_pairs(self, is_chief: bool) -> List[Tuple[str, int]]:
+        """(var, shard) pairs THIS process writes in a sharded checkpoint
+        (the JAX ``checkpoint_pairs``). Serving (async) mode: the shards
+        this process owns — its state is the authoritative copy of
+        exactly those. Mirror (sync) mode: every process holds the same
+        state, so the chief writes all of them and everyone else none."""
+        if self._serve_groups is not None:
+            out: List[Tuple[str, int]] = []
+            for grp in self._serve_groups.values():
+                if grp["owned"]:
+                    out.extend(grp["pairs"])
+            return sorted(out)
+        if not is_chief:
+            return []
+        out = []
+        for name, plan in sorted(self.plans.items()):
+            n = len(plan.shard_ranges()) if plan.partitioned else 1
+            out.extend((name, si) for si in range(n))
+        return out
+
+    def _to_jax(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """A shard-shaped tensor of ``name`` in the JAX layout: a
+        partitioned variable's shards already are; an unpartitioned one's
+        single shard is the port's full tensor (``convert.to_flax``)."""
+        if self.plans[name].partitioned or t.dim() == 0:
+            return t
+        info = self._var_infos[name]
+        return to_flax(t, info.collective_name, _flax_shape(info))
+
+    def _from_jax(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        if self.plans[name].partitioned or t.dim() == 0:
+            return t
+        info = self._var_infos[name]
+        return from_flax(t, info.shape, info.collective_name)
+
+    def shard_state(self, name: str, si: int
+                    ) -> Tuple[np.ndarray, Dict[str, np.ndarray]]:
+        """(value, optimizer-state leaves by the JAX flattened names:
+        ``0/count``, ``0/mu/v``) of one shard, in the JAX layout — an
+        atomic snapshot against a concurrent apply (copies taken under
+        the store's lock)."""
+        with self._lock:
+            value = self._to_jax(name, self._values[name][si])
+            leaves = self._opt_leaves(self._opt[name][si])
+            opt_flat = {k: np.array(self._to_jax(name, t).numpy())
+                        for k, t in leaves.items()}
+            value = np.array(value.numpy())
+        return value, opt_flat
+
+    def load_shard_states(self, provider) -> None:
+        """Reload every shard from ``provider(name, si) -> (value,
+        opt_flat)`` (the sharded-checkpoint restore; the JAX
+        ``load_shard_states``). Every shard loads in every process (the
+        owned ones authoritative; the rest seed the mirror a pull falls
+        back to before the owners publish). An optimizer leaf the
+        checkpoint lacks keeps the fresh init, with a warning. In serving
+        mode the owner loops pause across the swap and republish after
+        it; a serving store with no values yet (an auto-resume restores
+        before any init) starts serving now."""
+        workers = self._owner_workers()
+        for w in workers:
+            w.pause()
+        prefix = self._optimizer.jax_prefix
+        try:
+            for name, plan in sorted(self.plans.items()):
+                n = len(plan.shard_ranges()) if plan.partitioned else 1
+                new_vals, new_opts = [], []
+                for si in range(n):
+                    value, opt_flat = provider(name, si)
+                    value = self._host(self._from_jax(name, torch.from_numpy(
+                        np.array(value, np.float32))))
+                    fresh = self._optimizer.init({"v": value})
+                    state = {}
+                    for key, tmpl in self._opt_leaves(fresh).items():
+                        src = opt_flat.get(key)
+                        if src is None:
+                            logging.warning(
+                                "PS sharded restore: opt leaf %r for %s[%d] "
+                                "not in checkpoint; keeping fresh init",
+                                key, name, si)
+                            src = tmpl
+                        t = torch.as_tensor(np.array(src)).to(tmpl.dtype)
+                        if key in opt_flat:
+                            t = self._from_jax(name, t)
+                        leaf = key[len(prefix):]
+                        if leaf == "count":
+                            state["count"] = t.clone()
+                        else:
+                            state[leaf[:-2]] = {"v": self._host(t)}
+                    new_vals.append(value)
+                    new_opts.append(state)
+                with self._lock:
+                    self._values[name] = new_vals
+                    self._opt[name] = new_opts
+                    self.version += 1
+            for w in workers:
+                w.publish_now()
+        finally:
+            for w in workers:
+                w.resume()
+        if self._serve_config is not None and self._serve_groups is None:
+            self._start_serving()
 
     def full_values(self) -> Dict[str, torch.Tensor]:
         """Every variable's full value on the host (copies), for
@@ -1140,8 +1265,10 @@ class PSPipeline:
         fut, self._pending = self._pending, None
         return fut.result()
 
-    def submit(self, ps_grads: dict, ready=None) -> None:
-        """Queue this step's push and the next step's pull."""
+    def submit(self, ps_grads: dict, ready=None, ok=None) -> None:
+        """Queue this step's push and the next step's pull. ``ok`` is the
+        sentinel's verdict, read with the push's copy on the worker
+        (:meth:`PSStore.push`)."""
         store = self._store
         if self._stale_ok:
             barrier = (self._push_hist[0]
@@ -1157,12 +1284,12 @@ class PSPipeline:
             def push_job():
                 if prev is not None:
                     prev.result()        # pushes stay ordered
-                store.push(ps_grads, ready)
+                store.push(ps_grads, ready, ok=ok)
             self._push_pending = self._exec.submit(push_job)
             self._push_hist.append(self._push_pending)
         else:
             def job():
-                store.push(ps_grads, ready)
+                store.push(ps_grads, ready, ok=ok)
                 return store.pull()
             self._pending = self._exec.submit(job)
 

@@ -1,10 +1,11 @@
-"""Deterministic fault injection for the checkpoint plane.
+"""Deterministic fault injection for the checkpoint plane and the
+gradients.
 
-PyTorch counterpart of the checkpoint part of
-``autodist_tpu/runtime/faultinject.py`` (that module imports nothing of
-JAX; the port keeps its own copy of this part). The coordination-wire
-proxy and the gradient faults come with the control plane (ROADMAP A
-item 8).
+PyTorch counterpart of the checkpoint and gradient parts of
+``autodist_tpu/runtime/faultinject.py`` (that module's checkpoint part
+imports nothing of JAX; the port keeps its own copy of it, and writes the
+gradient faults over torch tensors). The coordination-wire proxy comes
+with the control plane (ROADMAP A item 8.3b).
 """
 import json
 import os
@@ -35,7 +36,7 @@ from autodist_tpu_torch.utils import logging
 # - ``collect``   — state gathered to host, nothing on disk yet
 # - ``write``     — data fully written to ``.tmp`` files, none replaced
 # - ``index``     — shard npz replaced into place, index not yet written
-#   (the JAX package's sharded saver only)
+#   (the sharded savers only)
 # - ``meta``      — all data + index files final, meta (the commit point)
 #   not yet written
 # - ``committed`` — meta replaced: the checkpoint is durable
@@ -205,3 +206,154 @@ def checkpoint_fault(phase: str, path: Optional[str] = None,
             _ckpt_plan_raw = raw
         plan = _ckpt_plan
     plan.fire(phase, path=path, step=step)
+
+
+# ======================================================== gradient faults
+#
+# Silent-data-corruption chaos for the training health sentinel
+# (``runtime/sentinel.py``): deterministic, step-keyed corruption of a
+# named variable's LOCAL gradient, applied inside the step before the
+# gradient sync, so NaN spreads through the all-reduce exactly as a real
+# on-device fault would. The plan comes from ``ADT_GRAD_FAULT_PLAN``
+# (inline JSON, ``@/path``, or a path)::
+#
+#     {"faults": [
+#         {"var": "dense/kernel", "mode": "nan",     "step": 3},
+#         {"var": "dense/bias",   "mode": "inf",     "step": 5,
+#          "until": 40, "every": 2},
+#         {"var": "embed",        "mode": "bitflip", "step": 7,
+#          "bit": 30, "index": 0},
+#         {"var": "dense/kernel", "mode": "scale",   "step": 9,
+#          "factor": 1e6}
+#     ]}
+#
+# The injection reads the step from a tensor on the device (the step
+# keeps it, ``DistributedStep._step_t``), so it is the same at every
+# step, inside a captured superstep (a CUDA graph) and on replay after a
+# rollback, with no read back to the host.
+#
+# Rule fields: ``var`` (exact variable name, required), ``mode`` in
+# ``nan | inf | bitflip | scale``, ``step`` (0-based TrainState step the
+# fault arms at), ``until`` (inclusive last step; default = ``step``, so
+# a bare rule is a one-step transient), ``every`` (within [step, until]
+# fire only when (step - rule.step) % every == 0), ``factor`` (scale
+# mode, default 1e6), ``bit``/``index`` (bitflip mode: XOR bit ``bit`` of
+# the flat element at ``index``; bit 30 flips a float32 exponent MSB —
+# the classic silent-data-corruption blowup).
+
+
+class GradFaultRule:
+    """One declarative gradient fault (see the section comment above).
+
+    Unknown fields are REJECTED, not ignored: the wire/ckpt grammars'
+    ``nth``/``repeat``/``prob`` knobs do not exist here (injection is
+    keyed on the step counter, with no runtime roll), and a silently
+    dropped field would make the chaos run test something other than
+    what the plan declares."""
+
+    _MODES = ("nan", "inf", "bitflip", "scale")
+    _FIELDS = frozenset(("var", "mode", "step", "until", "every",
+                         "factor", "bit", "index"))
+
+    def __init__(self, spec: dict):
+        unknown = sorted(set(spec) - self._FIELDS)
+        if unknown:
+            raise ValueError(
+                "unknown gradient fault field(s) %s — the grad plan is "
+                "step-keyed (fields: %s); nth/repeat/prob belong to the "
+                "wire/checkpoint plans (docs/failure_model.md)"
+                % (unknown, ", ".join(sorted(self._FIELDS))))
+        self.var = spec["var"]
+        self.mode = spec.get("mode", "nan")
+        if self.mode not in self._MODES:
+            raise ValueError("unknown gradient fault mode %r (one of %s)"
+                             % (self.mode, ", ".join(self._MODES)))
+        self.step = int(spec.get("step", 0))
+        self.until = int(spec.get("until", self.step))
+        if self.until < self.step:
+            raise ValueError("gradient fault until=%d precedes step=%d"
+                             % (self.until, self.step))
+        self.every = max(1, int(spec.get("every", 1)))
+        self.factor = float(spec.get("factor", 1e6))
+        self.bit = int(spec.get("bit", 30))
+        self.index = int(spec.get("index", 0))
+
+    def describe(self) -> str:
+        window = ("step %d" % self.step if self.until == self.step
+                  else "steps %d..%d/%d" % (self.step, self.until,
+                                            self.every))
+        return "%s(%s @ %s)" % (self.mode, self.var, window)
+
+
+class GradFaultPlan:
+    """Parsed ``ADT_GRAD_FAULT_PLAN``, read by ``GraphTransformer`` when
+    it builds the step. A top-level ``seed`` is tolerated for symmetry
+    with the other grammars but means nothing: the injection is fully
+    deterministic (step-keyed, no rng)."""
+
+    def __init__(self, spec: Optional[dict] = None):
+        spec = spec or {}
+        self.rules: List[GradFaultRule] = [GradFaultRule(r)
+                                           for r in spec.get("faults", ())]
+
+    @classmethod
+    def from_env(cls) -> "GradFaultPlan":
+        raw = const.ENV.ADT_GRAD_FAULT_PLAN.val
+        if not raw:
+            return cls()
+        if raw.startswith("@"):
+            with open(raw[1:]) as f:
+                raw = f.read()
+        elif os.path.exists(raw):
+            with open(raw) as f:
+                raw = f.read()
+        return cls(json.loads(raw))
+
+    def describe(self) -> str:
+        return ", ".join(r.describe() for r in self.rules)
+
+
+def _uint_like(dtype):
+    """The integer dtype of ``dtype``'s width, for a bitcast (bitflip
+    mode). torch's unsigned 16/32/64-bit types lack ``^``, so the signed
+    type of the same width carries the bits: the XOR is the same."""
+    import torch
+    return {2: torch.int16, 4: torch.int32, 8: torch.int64}[
+        torch.empty((), dtype=dtype).element_size()]
+
+
+def apply_grad_faults(plan: GradFaultPlan, step, grads: dict) -> dict:
+    """The plan applied to a name->gradient dict, ``step`` being the
+    TrainState step as a 0-d integer tensor on the gradients' device:
+    every matching rule contributes a data-dependent select, so the step
+    injects at exactly the planned steps with no read back to the host
+    (a CUDA graph can hold it). Rules naming absent variables are
+    skipped (the transformer warns about them once when it builds)."""
+    import torch
+    out = dict(grads)
+    for rule in plan.rules:
+        g = out.get(rule.var)
+        if g is None or not g.is_floating_point():
+            continue
+        hit = (step >= rule.step) & (step <= rule.until)
+        if rule.every > 1:
+            hit = hit & ((step - rule.step) % rule.every == 0)
+        if rule.mode in ("nan", "inf"):
+            bad = float("nan") if rule.mode == "nan" else float("inf")
+            out[rule.var] = g + torch.where(hit, g.new_full((), bad),
+                                            g.new_zeros(()))
+        elif rule.mode == "scale":
+            out[rule.var] = g * torch.where(hit, g.new_full((), rule.factor),
+                                            g.new_ones(()))
+        else:  # bitflip: XOR one bit of one element — silent corruption
+            flat = g.reshape(-1).clone()
+            idx = rule.index % int(flat.shape[0])
+            idt = _uint_like(g.dtype)
+            width = 8 * torch.empty((), dtype=idt).element_size()
+            bit = rule.bit % width
+            mask = (1 << bit) if bit < width - 1 else -(1 << bit)
+            elem = flat[idx:idx + 1]
+            flipped = (elem.view(idt) ^ mask).view(g.dtype)
+            flat[idx:idx + 1] = torch.where(hit, flipped, elem)
+            out[rule.var] = flat.reshape(g.shape)
+    return out

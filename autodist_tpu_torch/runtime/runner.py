@@ -30,10 +30,18 @@ graph capture may keep a worker silent for longer than the heartbeat
 window. Under a sync-elastic job a collective that fails on the chief
 goes to the Coordinator before it propagates
 (``coordinator.collective_failed``).
+The training health sentinel (``runtime/sentinel.py``, armed by
+``AutoDist.build(sentinel=)`` or ``ADT_SENTINEL``) takes each microstep's
+verdict from the metrics as they are read back (the handle's observer)
+and acts only at safe points, before a dispatch or at a readback
+boundary of ``fit``: a rollback restores the newest healthy checkpoint
+and replaces the state; the savers ask :meth:`Runner.sentinel_save_veto`
+and :meth:`Runner.sentinel_healthy`; every restore re-syncs the LR scale
+(:meth:`Runner.notify_state_restored`).
 :class:`WrappedSession` is the session facade
-``AutoDist.create_distributed_session`` returns. The JAX runner's
-sentinel, in-run elastic and preemption planes belong to later slices of
-the port.
+``AutoDist.create_distributed_session`` returns. The JAX runner's in-run
+elastic and preemption planes belong to later slices of the port
+(ROADMAP A items 8.3b and 8.3c).
 """
 import atexit
 import contextlib
@@ -65,16 +73,21 @@ class MetricsHandle:
     need not wait on the device between them, and one readback at a
     ``metrics_every`` boundary materializes many steps' metrics."""
 
-    __slots__ = ("_device", "_remapper", "_host", "microsteps", "_owner")
+    __slots__ = ("_device", "_remapper", "_host", "microsteps", "_owner",
+                 "_observer")
 
     def __init__(self, device_metrics, remapper, microsteps: int = 1,
-                 owner=None):
+                 owner=None, observer=None):
         self._device = device_metrics
         self._remapper = remapper
         self._host = None
         self.microsteps = microsteps
         # the Runner whose ``readbacks`` count this handle's readback
         self._owner = owner
+        # called once a MICROSTEP, in order, when the handle is read back
+        # (the sentinel's intake of its verdicts); consumed by the first
+        # read, so reading again observes nothing twice
+        self._observer = observer
 
     @property
     def materialized(self) -> bool:
@@ -94,6 +107,11 @@ class MetricsHandle:
             tel.counter_add("runner.d2h_bytes", sum(
                 getattr(leaf, "nbytes", 0)
                 for leaf in pytree.tree_leaves(self._host)))
+            if self._observer is not None:
+                # consumed BEFORE calling: unstack() reads result() again
+                obs, self._observer = self._observer, None
+                for m in self.unstack():
+                    obs(m)
         return self._host
 
     @staticmethod
@@ -106,6 +124,8 @@ class MetricsHandle:
         list."""
         if len(handles) == 1:
             return handles[0]
+        if any(h._observer != handles[0]._observer for h in handles):
+            return handles  # (bound methods of one sentinel are equal)
         trees, spec = [], None
         for h in handles:
             leaves, sp = pytree.tree_flatten(h._device)
@@ -119,7 +139,7 @@ class MetricsHandle:
         return MetricsHandle(pytree.tree_unflatten(cat, spec),
                              handles[0]._remapper,
                              sum(h.microsteps for h in handles),
-                             handles[0]._owner)
+                             handles[0]._owner, handles[0]._observer)
 
     def unstack(self) -> list:
         """Per-microstep host metrics: ``microsteps`` dicts of unstacked
@@ -154,7 +174,7 @@ class Runner:
     # recent per-step wall times kept for the steady_* percentiles
     _RECENT_WINDOW = 1024
 
-    def __init__(self, distributed_step):
+    def __init__(self, distributed_step, sentinel=None):
         self._dstep = distributed_step
         self._remapper = Remapper(distributed_step.device,
                                   distributed_step.replica_info)
@@ -189,6 +209,19 @@ class Runner:
         if self._hb_enabled:
             self._async_hb = self._connect_coordination(
                 "async liveness heartbeats")
+        # the training health sentinel: None defers to ADT_SENTINEL; an
+        # active policy reads the step's verdicts at readback boundaries
+        # and drives the skip budget, rollback and save quarantine
+        from autodist_tpu_torch.runtime import sentinel as sentinel_lib
+        policy = sentinel_lib.resolve_policy(sentinel)
+        self._sentinel = (sentinel_lib.Sentinel(policy, self)
+                          if policy is not None else None)
+        self._sentinel_diags = []
+        if self._sentinel is not None:
+            from autodist_tpu_torch.analysis import rules as rules_lib
+            self._sentinel_diags = rules_lib.verify_sentinel(policy, meta)
+            for d in self._sentinel_diags:
+                logging.warning("%s", d)
         # the one-shot "compiling" grace around the first dispatch
         self._compile_grace_marked = False
         self._compile_grace_cleared = False
@@ -281,7 +314,8 @@ class Runner:
                     problem = str(e)
                 else:
                     logging.warning("ADT_AUTO_RESUME: restored step %d "
-                                    "from %s", step, directory)
+                                    "from %s (%s)", step, directory,
+                                    type(saver).__name__)
                     return self.state
             if self._dstep.num_replicas > 1:
                 raise RuntimeError(
@@ -292,7 +326,62 @@ class Runner:
             logging.warning("ADT_AUTO_RESUME: %s; starting fresh", problem)
         with self._collectives():
             self.state = self._dstep.init_state(params, opt_state)
+        self.notify_state_restored()  # a fresh init resets the LR scale
         return self.state
+
+    # ------------------------------------------------------------ sentinel
+
+    def _maybe_sentinel_act(self):
+        """Perform a pending sentinel rollback (or raise the typed
+        ``TrainingDiverged``) at a SAFE point — before a dispatch or after
+        a readback boundary, never from inside a metrics readback."""
+        if self._sentinel is not None:
+            with self._collectives():
+                self._sentinel.maybe_act()
+
+    def _sentinel_observer(self):
+        return self._sentinel.observe if self._sentinel is not None else None
+
+    def sentinel_save_veto(self) -> bool:
+        """Asked by the checkpoint savers: True while the sentinel
+        quarantines saves (the last verdict bad, or a rollback pending) —
+        a poisoned state must never become the newest committed
+        checkpoint."""
+        return self._sentinel is not None and self._sentinel.quarantined
+
+    def sentinel_healthy(self) -> bool:
+        """The ``healthy`` stamp a checkpoint committed now carries (True
+        without a sentinel: an unguarded run has no evidence of ill
+        health)."""
+        return self._sentinel is None or self._sentinel.healthy()
+
+    @property
+    def sentinel(self):
+        """The active :class:`~autodist_tpu_torch.runtime.sentinel.
+        Sentinel` (None when no policy is armed)."""
+        return self._sentinel
+
+    def notify_state_restored(self):
+        """Re-sync the process-local halves of the sentinel's LR scale
+        with the copy in the (restored or freshly initialized) state's
+        ``sync_state["sentinel"]["lr_scale"]``, which checkpoints keep:
+        ``PSStore.update_scale`` (the host applies) and
+        ``Sentinel.lr_scale`` (the ladder's accounting). Without it an
+        auto-resume after an escalation would train host-PS and device
+        variables at different learning rates. Called by the savers'
+        restores and by :meth:`init` (one read of a device scalar)."""
+        scale = 1.0
+        sync = getattr(self.state, "sync_state", None)
+        if isinstance(sync, dict) and "sentinel" in sync:
+            scale = float(sync["sentinel"]["lr_scale"].reshape(-1)[0])
+        store = getattr(self._dstep, "ps_store", None)
+        if store is not None:
+            store.update_scale = scale
+        sen = self._sentinel
+        if sen is not None and sen.lr_scale != scale:
+            logging.info("sentinel: lr_scale re-synced to %.4g from the "
+                         "restored state", scale)
+            sen.lr_scale = scale
 
     def gather_params(self) -> dict:
         """The full params in their original names: this replica's, which
@@ -327,6 +416,7 @@ class Runner:
         its execution. With ``state`` given, that state is stepped without
         being modified and ``(new_state, metrics)`` is returned."""
         t_begin = time.perf_counter()
+        self._maybe_sentinel_act()  # a pending rollback replaces the state
         st = state if state is not None else self.state
         if st is None:
             raise RuntimeError("Runner.run before init()")
@@ -342,7 +432,8 @@ class Runner:
             if state is None:
                 self.state = new_state
             self._after_dispatch(1)
-            handle = MetricsHandle(metrics, self._remapper, owner=self)
+            handle = MetricsHandle(metrics, self._remapper, owner=self,
+                                   observer=self._sentinel_observer())
             out = handle.result() if sync else handle
             self._record_step_time(t_begin)
             return (new_state, out) if state is not None else out
@@ -355,6 +446,7 @@ class Runner:
         a lazily materialized :class:`MetricsHandle` (``sync=True`` reads
         them back before returning)."""
         t_begin = time.perf_counter()
+        self._maybe_sentinel_act()  # a pending rollback replaces the state
         if self.state is None:
             raise RuntimeError("Runner.run_superstep before init()")
         self._compile_grace_begin()
@@ -369,7 +461,8 @@ class Runner:
             self.state, metrics = self._dstep.run_multi(self.state, placed)
             self._after_dispatch(k)
             handle = MetricsHandle(metrics, self._remapper, microsteps=k,
-                                   owner=self)
+                                   owner=self,
+                                   observer=self._sentinel_observer())
             out = handle.result() if sync else handle
             self._record_step_time(t_begin)
             return out
@@ -581,6 +674,11 @@ class Runner:
             "tp_fwd_allreduces": c.get("tp.fwd_allreduces", 0.0),
             "tp_fwd_allreduce_bytes": c.get("tp.fwd_allreduce_bytes", 0.0),
         }
+        # the key exists whether or not a sentinel policy is armed
+        sen = self._sentinel
+        out["sentinel"] = (sen.stats() if sen is not None else
+                           {"skips": 0, "rollbacks": 0,
+                            "last_grad_norm": None, "quarantined": False})
         out["param_bytes"] = (None if self.state is None else sum(
             t.numel() * t.element_size() for t in pytree.tree_leaves(
                 self.state.params) if isinstance(t, torch.Tensor)))
@@ -645,6 +743,9 @@ class Runner:
             from autodist_tpu_torch.checkpoint.saver import Saver
             saver = Saver(directory=const.ENV.ADT_CKPT_DIR.val,
                           async_save=True)
+        if self._sentinel is not None and saver is not None:
+            # a rollback restores from where fit checkpoints
+            self._sentinel.attach_saver(saver)
         if fuse_steps > 1 or metrics_every > 1:
             return self._fit_pipelined(batches, steps, callbacks, save_every,
                                        saver, max(1, fuse_steps),
@@ -660,6 +761,9 @@ class Runner:
                     cb(i, metrics)
                 if save_every > 0 and (i + 1) % save_every == 0:
                     saver.save(self)
+            # the LAST step's verdict may have pended a rollback: act
+            # before the trailing save, so a failure surfaces from fit
+            self._maybe_sentinel_act()
             if save_every > 0 and history and \
                     len(history) % save_every != 0:
                 saver.save(self)  # the final partial window
@@ -738,12 +842,14 @@ class Runner:
                 supersteps += 1
                 if supersteps % metrics_every == 0:
                     materialize()
+                    self._maybe_sentinel_act()
                 if save_every > 0 and micro_done - last_save >= save_every:
                     # rounded up to the superstep boundary: the save holds
                     # every microstep dispatched so far
                     saver.save(self)
                     last_save = micro_done
             materialize()
+            self._maybe_sentinel_act()
             if save_every > 0 and micro_done > last_save:
                 saver.save(self)  # the final partial window
         finally:

@@ -304,6 +304,25 @@ result line):
    step (and their bytes), the flash slot sees [8, 1024, 8, 64] only, the
    ranks' losses equal and the first 3 within 2e-2 of (a)'s, step p50,
    one save (ms, bytes).
+21. sharded checkpoints, the health sentinel, the rhd and hierarchical
+   all-reduce schedules. (a) tp_lm flagship under ``TensorParallel(2)``
+   on two processes of ``cuda:0`` over gloo, deterministic mode: 2 steps,
+   ``ShardedSaver.save`` (its ms, each rank's bytes, no all-gather), a
+   gathered ``Saver.save`` at the same step (phase 20 (b)'s kind), 2 more
+   steps; the sharded restore at tp 2 repeats those 2 steps' losses bit
+   for bit, and at tp 1 (one process) the params and both Adam moments
+   are bit-equal to the gathered save's. (b) bert_base (bf16, seq 128,
+   batch 128, flash, ``AllReduce()``, one process): the sentinel armed
+   and unarmed, per step and in fused supersteps of 4, paired in
+   alternating order (p50s, the same dispatches, readbacks and launches a
+   step); ``ADT_GRAD_FAULT_PLAN`` NaN at step 3: verdicts [1, 1, 1, 0, 1,
+   1], one skip, the params unchanged by it; NaN at steps 3-5 with a
+   budget of one skip: two rollbacks to the step-2 checkpoint (their ms),
+   the second halving the LR, the run on to step 8. (c) bert_base under
+   ``AllReduce()`` pinned to ``schedule="rhd"`` at N = 2 (losses within
+   2e-2 of phase 10's fp32 wire) and to ``"hier"`` at N = 4 on two
+   loopback nodes of two ranks (within 2e-2 of the ring's), deterministic
+   mode, the ranks bit-equal, step p50s (gloo's speed).
 
 TF32 is off for the whole run (``torch.backends.cuda.matmul`` and
 ``cudnn``): float32 is computed in float32, as the f32 checks' 2e-5 and
@@ -3595,9 +3614,9 @@ class FirstUpdate:
     def __getattr__(self, key):
         return getattr(self.spec, key)
 
-    def update(self, grads, state, params):
+    def update(self, grads, state, params, scale=None):
         if self.seen is not None:
-            return self.spec.update(grads, state, params)
+            return self.spec.update(grads, state, params, scale=scale)
         from torch.utils import _pytree as pytree
 
         def cpu(t):
@@ -3605,7 +3624,7 @@ class FirstUpdate:
         before = (pytree.tree_map(cpu, dict(grads)),
                   pytree.tree_map(cpu, dict(state)),
                   {n: cpu(params[n]) for n in grads})
-        out = self.spec.update(grads, state, params)
+        out = self.spec.update(grads, state, params, scale=scale)
         self.seen = before + ({n: cpu(params[n]) for n in grads},)
         return out
 
@@ -5277,7 +5296,593 @@ def tp_phase(card):
     print("  (b) one save (whole params and Adam moments in the JAX layout, "
           "gathered over the model axis): %.1f ms on rank 0, %.1f MB [%s]"
           % (r0["save_ms"], r0["save_bytes"] / 1e6, card))
-    return launches_a, launches_b, rec16, rec8
+    return launches_a, launches_b, rec16, rec8, r0["save_ms"]
+
+
+# ------------------------------------------------------------- phase 21
+
+
+SHARD_STEPS = 2              # 21 (a): steps before the save, and after
+SENT_WARMUP, SENT_TIMED = 2, 6   # 21 (b): paired per-step steps
+SENT_FUSE, SENT_SUPERSTEPS = 4, 3    # 21 (b): fused, after the capture
+SENT_VAR = "encoder.layer_0.MultiHeadAttention_0.query.weight"
+SCHED_STEPS = 3              # 21 (c): hier and ring steps at N = 4
+HIER_RANKS = 4
+# 21 (c): phase 19 (a)'s two loopback nodes, two ranks of cuda:0 each
+HIER_SPEC = {"nodes": [{"address": "127.0.0.1", "chief": True,
+                        "gpus": [0, 0]},
+                       {"address": "localhost", "gpus": [0, 0]}]}
+
+
+class GatherCount:
+    """Counts the all-gathers issued inside the block: every all-gather
+    of the port goes through ``collectives._all_gather`` (a partitioned or
+    model-parallel variable's gather among them) or
+    ``torch.distributed.all_gather`` (the sync state's)."""
+
+    def __enter__(self):
+        import torch.distributed as dist
+        from autodist_tpu_torch.parallel import collectives
+        self.n = 0
+        self._saved = (collectives._all_gather, dist.all_gather)
+
+        def wrap(fn):
+            def counted(*a, **kw):
+                self.n += 1
+                return fn(*a, **kw)
+            return counted
+        collectives._all_gather = wrap(self._saved[0])
+        dist.all_gather = wrap(self._saved[1])
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+        from autodist_tpu_torch.parallel import collectives
+        collectives._all_gather, dist.all_gather = self._saved
+        return False
+
+
+def dir_bytes(path, prefix=""):
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path) if f.startswith(prefix))
+
+
+def shard_child(rank, store, out_dir):
+    """One rank of phase 21 (a) (spawned): tp_lm flagship under
+    ``TensorParallel(2)`` on cuda:0 in deterministic mode; 2 steps, a
+    ``ShardedSaver`` save (its ms, this rank's bytes, the all-gathers it
+    issued), a gathered ``Saver`` save at the same step (phase 20 (b)'s
+    kind of save, the reference), 2 more steps, then the sharded restore
+    and the same 2 steps again."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, HERE)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(store, TP_RANKS),
+                            rank=rank, world_size=TP_RANKS)
+    import autodist_tpu_torch as adt
+    from autodist_tpu_torch.checkpoint import Saver, ShardedSaver
+    torch.use_deterministic_algorithms(True)
+    cfg, loss_fn, _, params, batch = tp_setup()
+    runner = tp_runner(TP_RANKS, TP_SPEC, loss_fn, params, batch)
+    del params
+    reset_counts()
+    out = {"rank": rank}
+    losses = [float(runner.run(batch)["loss"]) for _ in range(SHARD_STEPS)]
+    torch.cuda.synchronize()
+    sharded_dir = os.path.join(out_dir, "sharded")
+    saver = ShardedSaver(sharded_dir)
+    with GatherCount() as gathers:
+        t0 = time.perf_counter()
+        base = saver.save(runner)
+        out["save_ms"] = (time.perf_counter() - t0) * 1e3
+    out["save_gathers"] = gathers.n
+    out["save_bytes"] = dir_bytes(sharded_dir,
+                                  "ckpt-%d.shard-p%d." % (SHARD_STEPS, rank))
+    plain_dir = os.path.join(out_dir, "plain")
+    with GatherCount() as gathers:
+        t0 = time.perf_counter()
+        Saver(plain_dir).save(runner)
+        out["plain_save_ms"] = (time.perf_counter() - t0) * 1e3
+    out["plain_gathers"] = gathers.n
+    if rank == 0:
+        out["plain_bytes"] = dir_bytes(plain_dir)
+    losses += [float(runner.run(batch)["loss"])
+               for _ in range(SHARD_STEPS)]
+    t0 = time.perf_counter()
+    _, step = saver.restore(runner, base)
+    torch.cuda.synchronize()
+    out["restore_ms"] = (time.perf_counter() - t0) * 1e3
+    out["restored_step"] = step
+    out["resumed"] = [float(runner.run(batch)["loss"])
+                      for _ in range(SHARD_STEPS)]
+    out["losses"] = losses
+    out["launches"] = launch_counts()
+    out["base"] = base
+    adt.reset()
+    torch.use_deterministic_algorithms(False)
+    with open(os.path.join(out_dir, "rank%d.json" % rank), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def sharded_phase(card, gathered_ms):
+    """Phase 21 (a): tp_lm flagship's sharded checkpoint at tp 2 (two
+    processes), restored at tp 1 in this process and compared with the
+    gathered save. Returns the two ranks' launches."""
+    import gc
+    import tempfile
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+    import autodist_tpu_torch as adt
+    from autodist_tpu_torch.checkpoint import ShardedSaver
+    print("phase 21 (a): tp_lm flagship (bf16, seq %d, batch %d) at tp 2 on "
+          "%d processes of cuda:0 over gloo: %d steps, ShardedSaver.save, "
+          "%d more; restored at tp 2 (the same %d steps again) and at tp 1 "
+          "(one process)" % (TP_SEQ, TP_BATCH, TP_RANKS, SHARD_STEPS,
+                             SHARD_STEPS, SHARD_STEPS))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            mp.start_processes(shard_child, args=(os.path.join(tmp, "store"),
+                                                  tmp),
+                               nprocs=TP_RANKS, start_method="spawn")
+        except Exception as e:  # noqa: BLE001 — a rank failed
+            fail("phase 21 (a): a rank failed: %s"
+                 % (str(e).strip()[-2000:],))
+        res = []
+        for r in range(TP_RANKS):
+            with open(os.path.join(tmp, "rank%d.json" % r)) as f:
+                res.append(json.load(f))
+        print("  (a) two ranks ran in %.1f s" % (time.perf_counter() - t0))
+        cfg, loss_fn, _, params, batch = tp_setup()
+        for r in res:
+            label = "phase 21 (a) rank %d" % r["rank"]
+            check_launches(label, r["launches"], cfg.num_layers,
+                           3 * SHARD_STEPS)
+            if r["save_gathers"] != 0:
+                fail("%s: the sharded save issued %d all-gathers (want 0)"
+                     % (label, r["save_gathers"]))
+            if r["resumed"] != r["losses"][SHARD_STEPS:]:
+                fail("%s: the steps after the tp 2 restore %r are not the "
+                     "uninterrupted run's %r"
+                     % (label, r["resumed"], r["losses"][SHARD_STEPS:]))
+        if res[0]["losses"] != res[1]["losses"]:
+            fail("phase 21 (a): the ranks' losses differ")
+        # the tp 2 save restored at tp 1, one process
+        runner = tp_runner(1, TP_SPEC_ONE, loss_fn, params, batch)
+        del params
+        sharded = os.path.join(tmp, "sharded")
+        t1 = time.perf_counter()
+        _, step = ShardedSaver(sharded).restore(runner)
+        torch.cuda.synchronize()
+        tp1_ms = (time.perf_counter() - t1) * 1e3
+        base = os.path.join(tmp, "plain", "ckpt-%d" % SHARD_STEPS)
+        with np.load(base + ".params.npz") as z:
+            want_p = {k: z[k] for k in z.files}
+        with np.load(base + ".opt.npz") as z:
+            want_o = {k: z[k] for k in z.files}
+        st = runner.state
+        bad = [n for n, t in st.params.items()
+               if not np.array_equal(t.cpu().numpy(), want_p[n])]
+        for slot in ("mu", "nu"):
+            bad += ["%s/%s" % (slot, n) for n, t in
+                    st.opt_state[slot].items()
+                    if not np.array_equal(t.cpu().numpy(),
+                                          want_o["0/%s/%s" % (slot, n)])]
+        if int(st.opt_state["count"]) != int(want_o["0/count"]):
+            bad.append("count")
+        if step != SHARD_STEPS or bad or len(st.params) != len(want_p):
+            fail("phase 21 (a): the tp 1 restore of the sharded save is not "
+                 "bit-equal to the gathered save at step %d: %r"
+                 % (SHARD_STEPS, bad[:8]))
+        del runner, st
+        adt.reset()
+        gc.collect()
+        torch.cuda.empty_cache()
+    r0, r1 = res
+    launches = {}
+    for r in res:
+        for name, by in r["launches"].items():
+            for design, n in by.items():
+                launches.setdefault(name, {})
+                launches[name][design] = launches[name].get(design, 0) + n
+    print("  (a) losses %s, then restored at tp 2: %s (the uninterrupted "
+          "run's, bit for bit, both ranks)"
+          % (" ".join("%.4f" % x for x in r0["losses"]),
+             " ".join("%.4f" % x for x in r0["resumed"])))
+    print("  (a) ShardedSaver.save: %.1f / %.1f ms (ranks 0 / 1), %.1f / "
+          "%.1f MB a rank (%.1f MB in all), %d / %d all-gathers; the "
+          "gathered Saver.save at the same step: %.1f ms on rank 0, %.1f MB, "
+          "%d all-gathers a rank; phase 20 (b)'s gathered save in this run "
+          "%.1f ms [%s]"
+          % (r0["save_ms"], r1["save_ms"], r0["save_bytes"] / 1e6,
+             r1["save_bytes"] / 1e6,
+             (r0["save_bytes"] + r1["save_bytes"]) / 1e6,
+             r0["save_gathers"], r1["save_gathers"], r0["plain_save_ms"],
+             r0["plain_bytes"] / 1e6, r0["plain_gathers"], gathered_ms,
+             card))
+    print("  (a) restore: at tp 2 %.1f / %.1f ms (ranks 0 / 1); at tp 1 "
+          "(one process, slices assembled across the two files) %.1f ms, "
+          "params and both Adam moments bit-equal to the gathered save at "
+          "step %d [%s]"
+          % (r0["restore_ms"], r1["restore_ms"], tp1_ms, SHARD_STEPS, card))
+    return launches
+
+
+def sentinel_runner(loss_fn, params, batch, sentinel, plan=None, ad=None):
+    """bert_base built on cuda:0 with ``sentinel`` (a policy, True, or
+    False) and, with ``plan``, ``ADT_GRAD_FAULT_PLAN`` in the environment
+    for the build; by ``ad`` when given (one AutoDist builds several
+    runners), else by a new ``AutoDist(AllReduce())``."""
+    import torch
+    import autodist_tpu_torch as adt
+    from autodist_tpu_torch import strategy
+    if ad is None:
+        adt.reset()
+        ad = adt.AutoDist(strategy_builder=strategy.AllReduce())
+    if plan:
+        os.environ["ADT_GRAD_FAULT_PLAN"] = json.dumps({"faults": plan})
+    try:
+        runner = ad.build(loss_fn, functools.partial(torch.optim.Adam,
+                                                     lr=1e-3),
+                          params, batch, sentinel=sentinel)
+    finally:
+        os.environ.pop("ADT_GRAD_FAULT_PLAN", None)
+    runner.init(params)
+    return runner
+
+
+def paired_p50(label, runners, step, n_warm, n_timed):
+    """Steps of each runner in alternating order (A B, B A, ...), each
+    ended by a sync; (each runner's p50 in ms over its timed steps, the
+    dispatches and readbacks a step of each)."""
+    import statistics
+    import torch
+    times = {k: [] for k in runners}
+    names = list(runners)
+    for i in range(n_warm + n_timed):
+        for k in (names if i % 2 == 0 else names[::-1]):
+            t0 = time.perf_counter()
+            step(runners[k])
+            torch.cuda.synchronize()
+            if i >= n_warm:
+                times[k].append(time.perf_counter() - t0)
+    return {k: statistics.median(v) * 1e3 for k, v in times.items()}
+
+
+def sentinel_phase(card):
+    """Phase 21 (b): the health sentinel on bert_base, one process: its
+    cost per step and fused (armed and unarmed, paired), one NaN skipped,
+    and a sustained fault rolled back twice with the LR halved. Returns
+    each kernel's launches over the phase."""
+    import gc
+    import math
+    import tempfile
+    import numpy as np
+    import torch
+    import autodist_tpu_torch as adt
+    from autodist_tpu_torch.checkpoint import Saver
+    from autodist_tpu_torch.models import bert
+    from autodist_tpu_torch.runtime.sentinel import SentinelPolicy
+    print("phase 21 (b): the health sentinel on bert_base (bf16, seq %d, "
+          "batch %d, flash, AllReduce(), one process): per step and "
+          "fit(fuse_steps=%d), armed vs unarmed; a NaN at step 3; a "
+          "sustained NaN" % (BERT_SEQ, BERT_BATCH, SENT_FUSE))
+    cfg = bert.BertConfig.base(dtype=torch.bfloat16)
+    loss_fn, params, batch, _ = bert.make_train_setup(
+        cfg, seq_len=BERT_SEQ, batch_size=BERT_BATCH, seed=0,
+        attention="flash")
+    launches = {}
+
+    def add_launches():
+        for name, by in launch_counts().items():
+            for design, n in by.items():
+                launches.setdefault(name, {})
+                launches[name][design] = launches[name].get(design, 0) + n
+    # per step, paired: two runners of one AutoDist
+    from autodist_tpu_torch import strategy
+    adt.reset()
+    ad = adt.AutoDist(strategy_builder=strategy.AllReduce())
+    runners = {k: sentinel_runner(loss_fn, params, batch, k == "armed",
+                                  ad=ad) for k in ("unarmed", "armed")}
+    reset_counts()
+    before = {k: (r.distributed_step.dispatches, r.readbacks)
+              for k, r in runners.items()}
+    p50 = paired_p50("per step", runners, lambda r: r.run(batch),
+                     SENT_WARMUP, SENT_TIMED)
+    steps = SENT_WARMUP + SENT_TIMED
+    check_launches("phase 21 (b) per step", launch_counts(), cfg.num_layers,
+                   2 * steps)
+    add_launches()
+    per = {k: ((r.distributed_step.dispatches - before[k][0]) / steps,
+               (r.readbacks - before[k][1]) / steps)
+           for k, r in runners.items()}
+    if per["armed"] != per["unarmed"] or per["armed"] != (1.0, 1.0):
+        fail("phase 21 (b): dispatches and readbacks a step %r (want the "
+             "unarmed run's (1, 1))" % (per,))
+    v = runners["armed"].step_stats()["sentinel"]
+    if v["skips"] or v["last_grad_norm"] is None or not math.isfinite(
+            v["last_grad_norm"]):
+        fail("phase 21 (b): the clean armed run's sentinel stats %r" % (v,))
+    # fused, paired (the capture first, untimed)
+    stack = {k: np.stack([a] * SENT_FUSE) for k, a in batch.items()}
+    for r in runners.values():
+        r.run_superstep(stack, sync=True)
+    reset_counts()
+    before = {k: (r.distributed_step.dispatches, r.readbacks)
+              for k, r in runners.items()}
+    fused = paired_p50("fused", runners,
+                       lambda r: r.run_superstep(stack, sync=True), 0,
+                       SENT_SUPERSTEPS)
+    check_launches("phase 21 (b) fused", launch_counts(), cfg.num_layers,
+                   2 * SENT_FUSE * SENT_SUPERSTEPS)
+    add_launches()
+    per_f = {k: ((r.distributed_step.dispatches - before[k][0])
+                 / SENT_SUPERSTEPS, (r.readbacks - before[k][1])
+                 / SENT_SUPERSTEPS) for k, r in runners.items()}
+    if per_f["armed"] != per_f["unarmed"] or per_f["armed"] != (1.0, 1.0):
+        fail("phase 21 (b): fused dispatches and readbacks a superstep %r "
+             "(want the unarmed run's (1, 1))" % (per_f,))
+    warm = sum(r.distributed_step.warmup_microsteps
+               for r in runners.values())
+    print("  (b) per step: p50 %.2f ms armed vs %.2f unarmed (%+.1f%%), "
+          "paired over %d steps each; fused k=%d: %.2f vs %.2f ms a "
+          "superstep (%.2f vs %.2f a microstep, %+.1f%%); dispatches and "
+          "readbacks a step %r, a superstep %r, both as unarmed; each "
+          "kernel %d launches a step (the captures' %d warm-up microsteps "
+          "aside) [%s]"
+          % (p50["armed"], p50["unarmed"],
+             100 * (p50["armed"] / p50["unarmed"] - 1), SENT_TIMED,
+             SENT_FUSE, fused["armed"], fused["unarmed"],
+             fused["armed"] / SENT_FUSE, fused["unarmed"] / SENT_FUSE,
+             100 * (fused["armed"] / fused["unarmed"] - 1), per["armed"],
+             per_f["armed"], cfg.num_layers, warm, card))
+    for r in runners.values():
+        r.close()
+    del runners, ad
+    adt.reset()
+    gc.collect()
+    torch.cuda.empty_cache()
+    # a NaN at step 3: one skip, the update discarded
+    runner = sentinel_runner(loss_fn, params, batch, True,
+                             [{"var": SENT_VAR, "mode": "nan", "step": 3}])
+    reset_counts()
+    oks, losses = [], []
+    for i in range(6):
+        if i == 3:
+            kept = {n: t.clone() for n, t in runner.state.params.items()}
+        m = runner.run(batch)
+        oks.append(int(m["sentinel"]["ok"]))
+        losses.append(float(m["loss"]))
+        if i == 3:
+            moved = [n for n, t in runner.state.params.items()
+                     if not torch.equal(t, kept[n])]
+            del kept
+    check_launches("phase 21 (b) NaN", launch_counts(), cfg.num_layers, 6)
+    add_launches()
+    stats = runner.step_stats()["sentinel"]
+    if oks != [1, 1, 1, 0, 1, 1] or stats["skips"] != 1 or moved or \
+            not all(math.isfinite(x) for x in losses[4:]):
+        fail("phase 21 (b): a NaN at step 3 gave verdicts %r, %d skips, "
+             "%d params moved by the skipped step, losses %r"
+             % (oks, stats["skips"], len(moved), losses))
+    print("  (b) NaN in %s's gradient at step 3: verdicts %s, 1 skip, the "
+          "params after it bit-equal to those before it, losses %s"
+          % (SENT_VAR, oks, " ".join("%.4f" % x for x in losses)))
+    del runner
+    adt.reset()
+    gc.collect()
+    torch.cuda.empty_cache()
+    # a sustained NaN (steps 3-5): two rollbacks to the step-2 save, the
+    # second halving the LR, then the widened budget skips through
+    with tempfile.TemporaryDirectory() as ckdir:
+        runner = sentinel_runner(
+            loss_fn, params, batch,
+            SentinelPolicy(max_skips_per_window=1, window_steps=50),
+            [{"var": SENT_VAR, "mode": "nan", "step": 3, "until": 5}])
+        saver = Saver(ckdir)
+        runner.sentinel.attach_saver(saver)
+        reset_counts()
+        sen = runner.sentinel
+        rollback_ms, steps_run, losses = [], 0, []
+        for i in range(15):
+            rb = sen.rollbacks
+            m = runner.run(batch)
+            steps_run += 1
+            losses.append(float(m["loss"]))
+            if sen.rollbacks > rb:
+                rollback_ms.append(sen.last_rollback_ms)
+            if i == 1:
+                saver.save(runner)
+        check_launches("phase 21 (b) sustained", launch_counts(),
+                       cfg.num_layers, steps_run)
+        add_launches()
+        scale = float(runner.state.sync_state["sentinel"]["lr_scale"])
+        if (sen.rollbacks, sen.lr_halvings, sen.lr_scale, scale) != \
+                (2, 1, 0.5, 0.5) or runner.state.step != 8 or \
+                not all(math.isfinite(x) for x in losses[-2:]):
+            fail("phase 21 (b): the sustained fault gave %d rollbacks, %d LR "
+                 "halvings, scale %r (state %r), step %r, losses %r"
+                 % (sen.rollbacks, sen.lr_halvings, sen.lr_scale, scale,
+                    runner.state.step, losses))
+        print("  (b) sustained NaN at steps 3-5 (budget 1 skip): rollback "
+              "#1 to the step-2 checkpoint in %.1f ms, rollback #2 in %.1f "
+              "ms, then the LR halved (scale %.2f on the card and on the "
+              "host), %d skips in all, the run at step %d with losses %s "
+              "[%s]" % (rollback_ms[0], rollback_ms[1], scale, sen.skips,
+                        runner.state.step,
+                        " ".join("%.4f" % x for x in losses), card))
+        del runner
+        adt.reset()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def pinned_builder(schedule):
+    """``AllReduce()`` with every synchronizer pinned to ``schedule``: how
+    a user picks an all-reduce schedule."""
+    from autodist_tpu_torch import strategy
+    from autodist_tpu_torch.strategy.base import StrategyBuilder
+
+    class Pinned(StrategyBuilder):
+        def build(self, model_item, resource_spec):
+            plan = strategy.AllReduce().build(model_item, resource_spec)
+            for node in plan.node_config:
+                if node.synchronizer is not None:
+                    node.synchronizer.schedule = schedule
+            return plan
+    return Pinned()
+
+
+def schedule_child(rank, world, store, out_dir, runs):
+    """One rank of phase 21 (c) (spawned): bert_base bf16 on cuda:0 over
+    gloo under ``AllReduce()`` pinned to each (schedule, steps) of
+    ``runs``, in deterministic mode; writes each run's losses, times,
+    launches and whether the ranks' params are bit-equal."""
+    import statistics
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, HERE)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    import autodist_tpu_torch as adt
+    from autodist_tpu_torch.models import bert
+    from autodist_tpu_torch.resource_spec import ResourceSpec
+    torch.use_deterministic_algorithms(True)
+    cfg = bert.BertConfig.base(dtype=torch.bfloat16)
+    loss_fn, params, batch, _ = bert.make_train_setup(
+        cfg, seq_len=BERT_SEQ, batch_size=BERT_BATCH, seed=0,
+        attention="flash")
+    spec = DP_SPEC if world == DP_RANKS else HIER_SPEC
+    out = {"rank": rank}
+    for schedule, steps in runs:
+        adt.reset()
+        ad = adt.AutoDist(strategy_builder=pinned_builder(schedule),
+                          resource_spec=ResourceSpec.from_dict(spec),
+                          device="cuda:0")
+        runner = ad.build(loss_fn, functools.partial(torch.optim.Adam,
+                                                     lr=1e-3),
+                          params, batch)
+        runner.init(params)
+        dstep = runner.distributed_step
+        reset_counts()
+        losses, times = [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            losses.append(float(runner.run(batch)["loss"]))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        out[schedule] = {
+            "losses": losses, "times_ms": [t * 1e3 for t in times],
+            "p50_ms": statistics.median(times) * 1e3,
+            "launches": launch_counts(),
+            "scheduled": sum(s._scheduled() for s in dstep.syncs.values()),
+            "syncs": len(dstep.syncs),
+            "host_groups": repr(dstep.host_groups),
+            "params_equal": ranks_equal(runner.gather_params())}
+        del runner, dstep
+    adt.reset()
+    torch.use_deterministic_algorithms(False)
+    with open(os.path.join(out_dir, "rank%d.json" % rank), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def spawn_ranks(label, child, world, *args):
+    """Run ``child(rank, world, store, out_dir, *args)`` on ``world``
+    spawned ranks; returns their results in rank order."""
+    import tempfile
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            mp.start_processes(child, args=(world, os.path.join(tmp, "store"),
+                                            tmp) + args,
+                               nprocs=world, start_method="spawn")
+        except Exception as e:  # noqa: BLE001 — a rank failed
+            fail("%s: a rank failed: %s" % (label, str(e).strip()[-2000:]))
+        res = []
+        for r in range(world):
+            with open(os.path.join(tmp, "rank%d.json" % r)) as f:
+                res.append(json.load(f))
+    print("  %s: %d ranks ran in %.1f s" % (label, world,
+                                            time.perf_counter() - t0))
+    return res
+
+
+def schedules_phase(card, dp_losses):
+    """Phase 21 (c): the rhd schedule at N = 2 and the hierarchical one at
+    N = 4 (two loopback nodes of two ranks) on bert_base over gloo.
+    Returns each kernel's launches over every rank's steps."""
+    print("phase 21 (c): all-reduce schedules on bert_base (bf16, seq %d, "
+          "global batch %d, flash) over gloo on cuda:0: rhd at N = %d (%d "
+          "steps), hier and ring at N = %d on two loopback nodes (%d steps "
+          "each), deterministic mode"
+          % (BERT_SEQ, BERT_BATCH, DP_RANKS, DP_STEPS["fp32"], HIER_RANKS,
+             SCHED_STEPS))
+    two = spawn_ranks("(c) rhd", schedule_child, DP_RANKS,
+                      [("rhd", DP_STEPS["fp32"])])
+    four = spawn_ranks("(c) hier", schedule_child, HIER_RANKS,
+                       [("hier", SCHED_STEPS), ("ring", SCHED_STEPS)])
+    launches = {}
+    for res, runs in ((two, ("rhd",)), (four, ("hier", "ring"))):
+        for sched in runs:
+            for r in res:
+                run = r[sched]
+                label = "phase 21 (c) %s rank %d" % (sched, r["rank"])
+                check_launches(label, run["launches"], BERT_LAYERS,
+                               len(run["losses"]))
+                if not run["params_equal"]:
+                    fail("%s: the ranks' params are not bit-equal" % label)
+                if run["losses"] != res[0][sched]["losses"]:
+                    fail("%s: the ranks' losses differ" % label)
+                if sched != "ring" and run["scheduled"] != run["syncs"]:
+                    fail("%s: %d of %d synchronizers run the schedule"
+                         % (label, run["scheduled"], run["syncs"]))
+                for name, by in run["launches"].items():
+                    for design, n in by.items():
+                        launches.setdefault(name, {})
+                        launches[name][design] = \
+                            launches[name].get(design, 0) + n
+    rhd = two[0]["rhd"]
+    for got, want in zip(rhd["losses"], dp_losses):
+        if not abs(got - want) <= 2e-2 * max(1.0, abs(want)):
+            fail("phase 21 (c): rhd losses %r are not within 2e-2 of phase "
+                 "10's fp32 wire %r" % (rhd["losses"], dp_losses))
+    hier, ring = four[0]["hier"], four[0]["ring"]
+    for got, want in zip(hier["losses"], ring["losses"]):
+        if not abs(got - want) <= 2e-2 * max(1.0, abs(want)):
+            fail("phase 21 (c): hier losses %r are not within 2e-2 of the "
+                 "ring's %r" % (hier["losses"], ring["losses"]))
+    print("  (c) rhd, N = %d: losses %s (phase 10's fp32 wire: %s; equal: "
+          "%s), ranks bit-equal; step p50 %.1f / %.1f ms (ranks 0 / 1) "
+          "[%s]"
+          % (DP_RANKS, " ".join("%.4f" % x for x in rhd["losses"]),
+             " ".join("%.4f" % x for x in dp_losses),
+             rhd["losses"] == list(dp_losses), rhd["p50_ms"],
+             two[1]["rhd"]["p50_ms"], card))
+    print("  (c) hier, N = %d (%s): losses %s, ring %s, ranks bit-equal; "
+          "step p50 hier %s ms, ring %s ms (ranks 0-3) [%s]"
+          % (HIER_RANKS, hier["host_groups"],
+             " ".join("%.4f" % x for x in hier["losses"]),
+             " ".join("%.4f" % x for x in ring["losses"]),
+             " / ".join("%.1f" % r["hier"]["p50_ms"] for r in four),
+             " / ".join("%.1f" % r["ring"]["p50_ms"] for r in four), card))
+    return launches
+
+
+def health_phase(card, dp_losses, gathered_ms):
+    """Phase 21: sharded checkpoints of tp_lm, the health sentinel and the
+    rhd and hierarchical schedules on bert_base. Returns (a)'s, (b)'s
+    and (c)'s launches."""
+    return (sharded_phase(card, gathered_ms), sentinel_phase(card),
+            schedules_phase(card, dp_losses))
 
 
 def main():
@@ -5440,8 +6045,10 @@ def main():
     async_launches = timed_phase("17", async_phase, card)
     timed_phase("18", launch_phase, card)
     elastic_launches = timed_phase("19", elastic_phase, card, dp_losses)
-    tp_a, tp_b, tp16, tp8 = timed_phase("20", tp_phase, card)
-    print("phases 5-20: %s s" % ", ".join(
+    tp_a, tp_b, tp16, tp8, gathered_ms = timed_phase("20", tp_phase, card)
+    shard_launches, sentinel_launches, sched_launches = timed_phase(
+        "21", health_phase, card, dp_losses, gathered_ms)
+    print("phases 5-21: %s s" % ", ".join(
         "%s %.1f" % kv for kv in seconds.items()))
 
     # flash_fwd runs on the three main paths, serving (decode), lm1b and
@@ -5501,13 +6108,20 @@ def main():
         # phase 17 (a): bert_base under PS(sync=False), drained and not
         # phase 19 (a): bert_base launched by the chief, sync-elastic,
         # both ranks, both incarnations (the steps that completed)
+        # phase 21: (a) tp_lm at tp 2, both ranks (the steps around the
+        # sharded save and restore); (b) bert_base with the sentinel
+        # armed and unarmed, per step and fused, and its fault runs; (c)
+        # bert_base under the rhd and hierarchical schedules, every rank
         for path, counts in (("bert_sync_variants", sync_launches),
                              ("lm1b_bf16_tier", tier_launches),
                              ("bert_remat", remat_launches),
                              ("bert_parallax", ps_launches),
                              ("bert_adamw", adamw_launches),
                              ("bert_async", async_launches),
-                             ("bert_elastic", elastic_launches)):
+                             ("bert_elastic", elastic_launches),
+                             ("tp_lm_sharded", shard_launches),
+                             ("bert_sentinel", sentinel_launches),
+                             ("bert_schedules", sched_launches)):
             n = counts.get(name, {})
             rec["by_path"][path] = {
                 "launches": sum(n.values()),

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, and its
-fused supersteps (one CUDA graph a superstep, with a host-PS carry or a
-clip chain too) against its per-step loop, on a card.
+fused supersteps (one CUDA graph a superstep, with a host-PS carry, a
+clip chain or the health sentinel's guards too) against its per-step
+loop, and a sharded checkpoint's save and restore, on a card.
 
 Each test is marked ``cuda`` and skips without a card (a CUDA kernel has
 no CPU mode; the CPU tests hold the plain versions to the JAX package).
@@ -252,11 +253,11 @@ def test_cuda_bf16_grads_go_through_the_tensor_core_kernels():
 # ------------------------------------------- fused supersteps (CUDA graphs)
 
 
-def _lm_runner(n_batches=8, builder=None, optimizer=None):
+def _lm_runner(n_batches=8, builder=None, optimizer=None, sentinel=None):
     """A 2-layer lm at head width 64 (the kernels' width) in bf16 with
     flash attention, on the card, under ``builder()`` (default
-    ``AllReduce()``) and ``optimizer`` (default Adam at 1e-3), and its
-    batches."""
+    ``AllReduce()``), ``optimizer`` (default Adam at 1e-3) and
+    ``sentinel`` (the health sentinel's policy), and its batches."""
     import functools
 
     import numpy as np
@@ -277,7 +278,7 @@ def _lm_runner(n_batches=8, builder=None, optimizer=None):
         adt.reset()
         ad = adt.AutoDist(strategy_builder=(builder or strategy.AllReduce)())
         runner = ad.build(loss_fn, optimizer or functools.partial(
-            torch.optim.Adam, lr=1e-3), params, example)
+            torch.optim.Adam, lr=1e-3), params, example, sentinel=sentinel)
         runner.init(params)
         return runner
     return build, batches, cfg
@@ -499,6 +500,80 @@ def test_cuda_superstep_with_the_clip_chain_matches_the_per_step_loop():
             assert torch.equal(t, want_params[n]), n
         for n, t in runner.state.opt_state["trace"].items():
             assert torch.equal(t, want_state[n]), n
+    finally:
+        torch.use_deterministic_algorithms(False)
+        adt.reset()
+
+
+@pytest.mark.cuda
+def test_cuda_guarded_superstep_skips_the_faulted_microstep(monkeypatch):
+    """The sentinel's guards inside a captured superstep: a NaN gradient at
+    step 2 (read from the step counter on the card, inside the graph)
+    gives the stacked verdicts [1, 1, 0, 1, 1, 1, 1, 1] over two
+    replays, discards that microstep's update on the card, and matches
+    the guarded per-step loop bit for bit (deterministic mode), with as
+    many dispatches and readbacks as the unguarded fused run."""
+    _need_card()
+    import json
+
+    import autodist_tpu_torch as adt
+    monkeypatch.setenv("ADT_GRAD_FAULT_PLAN", json.dumps(
+        {"faults": [{"var": "final_ln.weight", "mode": "nan", "step": 2}]}))
+    build, batches, cfg = _lm_runner(sentinel=True)
+    build_plain, _, _ = _lm_runner()
+    torch.use_deterministic_algorithms(True)
+    try:
+        runner = build()
+        assert "final_ln.weight" in runner.distributed_step.model_item.params
+        want = [float(m["loss"]) for m in runner.fit(iter(batches))]
+        want_params = {n: t.clone() for n, t in
+                       runner.gather_params().items()}
+        runner = build()
+        hist = runner.fit(iter(batches), fuse_steps=4, metrics_every=2)
+        oks = [int(m["sentinel"]["ok"]) for m in hist]
+        assert oks == [1, 1, 0, 1, 1, 1, 1, 1]
+        assert [float(m["loss"]) for m in hist] == want
+        for n, t in runner.gather_params().items():
+            assert torch.equal(t, want_params[n]), n
+        assert runner.step_stats()["sentinel"]["skips"] == 1
+        dispatches = runner.distributed_step.dispatches
+        readbacks = runner.readbacks
+        plain = build_plain()
+        plain.fit(iter(batches), fuse_steps=4, metrics_every=2)
+        assert (plain.distributed_step.dispatches, plain.readbacks) == (
+            dispatches, readbacks)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        adt.reset()
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_save_and_restore(tmp_path):
+    """``ShardedSaver`` on ``cuda:0``: a save after two steps, two more
+    steps, a restore; the params and Adam moments come back bit-equal,
+    on the card, and the next steps repeat the losses after the save
+    (deterministic mode)."""
+    _need_card()
+    import autodist_tpu_torch as adt
+    from autodist_tpu_torch.checkpoint import ShardedSaver
+    build, batches, _ = _lm_runner()
+    torch.use_deterministic_algorithms(True)
+    try:
+        runner = build()
+        for b in batches[:2]:
+            runner.run(b)
+        saver = ShardedSaver(str(tmp_path))
+        saver.save(runner)
+        kept = {n: t.clone() for n, t in runner.gather_params().items()}
+        mu = {n: t.clone() for n, t in runner.state.opt_state["mu"].items()}
+        after = [float(runner.run(b)["loss"]) for b in batches[2:4]]
+        _, step = saver.restore(runner)
+        assert step == 2
+        for n, t in runner.gather_params().items():
+            assert t.is_cuda and torch.equal(t, kept[n]), n
+        for n, t in runner.state.opt_state["mu"].items():
+            assert torch.equal(t, mu[n]), n
+        assert [float(runner.run(b)["loss"]) for b in batches[2:4]] == after
     finally:
         torch.use_deterministic_algorithms(False)
         adt.reset()

@@ -252,11 +252,13 @@ def _ps(plan):
 @pytest.mark.parametrize("mutate,roadmap_item", [(_rhd, 7), (_ps, 8)],
                          ids=["rhd", "ps"])
 def test_unported_features_raise_at_two_replicas(mutate, roadmap_item):
-    """Features the port has not reached raise at N > 1, naming the
-    ROADMAP item: the rhd all-reduce schedule (item 7); nothing is
-    silently ignored. A PS synchronizer's bounded staleness (item 8's
-    control plane, once refused here) now lowers at two replicas: the
-    Runner paces it across the ranks (tests/test_torch_async_ps.py)."""
+    """Features once refused at N > 1 by their ROADMAP item now lower:
+    the rhd all-reduce schedule (item 7's second half) becomes the
+    synchronizer's reduce-scatter + all-gather sum
+    (tests/test_torch_schedules.py holds it to the JAX ``rhd_psum``), and
+    a PS synchronizer's bounded staleness (item 8's control plane) is
+    paced by the Runner across the ranks
+    (tests/test_torch_async_ps.py)."""
     from autodist_tpu_torch.kernel.graph_transformer import GraphTransformer
     from autodist_tpu_torch.kernel.replicator import ReplicaInfo
     from autodist_tpu_torch.model_item import ModelItem
@@ -276,9 +278,14 @@ def test_unported_features_raise_at_two_replicas(mutate, roadmap_item):
         assert dstep.metadata["staleness"] == 2
         assert dstep.metadata["async"] is False
         return
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP A item %d" % roadmap_item):
-        GraphTransformer(plan, item, "cpu", ReplicaInfo(2, 0)).transform()
+    dstep = GraphTransformer(plan, item, "cpu",
+                             ReplicaInfo(2, 0)).transform()
+    # the first variable is the embedding: a sparse-wire table here,
+    # whose (ids, values) wire no schedule touches, as in the JAX lowering
+    first = plan.node_config[0].var_name
+    rhd = [n for n, s in dstep.syncs.items() if s.schedule == "rhd"]
+    assert first in rhd or first in dstep.sparse_wire
+    assert all(dstep.syncs[n]._scheduled() for n in rhd)
 
 
 def test_a_missing_card_raises_and_never_falls_back(monkeypatch):

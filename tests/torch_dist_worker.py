@@ -8,7 +8,9 @@ The tests (``tests/test_torch_collectives.py``,
 ``tests/test_torch_ps.py``, ``tests/test_torch_sparse.py``,
 ``tests/test_torch_optimizers.py``, ``tests/test_torch_fused_ps.py``,
 ``tests/test_torch_async_ps.py``, ``tests/test_torch_launch.py``,
-``tests/test_torch_tensor_parallel.py``) compute their JAX references in
+``tests/test_torch_tensor_parallel.py``, ``tests/test_torch_sentinel.py``,
+``tests/test_torch_schedules.py``,
+``tests/test_torch_sharded_checkpoint.py``) compute their JAX references in
 the pytest process and hand numpy arrays
 to :func:`launch`, which starts
 ``world`` processes with the ``spawn`` start method. Each process joins a
@@ -635,6 +637,191 @@ def _tp_case(case, device):
     return out
 
 
+def lin_loss(p, batch):
+    """The JAX sentinel tests' linear problem (``tests/test_sentinel.py``
+    ``_problem``)."""
+    x, y = torch.as_tensor(batch["x"]), torch.as_tensor(batch["y"])
+    return ((x @ p["w"] + p["b"] - y) ** 2).mean()
+
+
+def big_loss(p, batch):
+    """The JAX sentinel tests' sharded-storage problem."""
+    x, y = torch.as_tensor(batch["x"]), torch.as_tensor(batch["y"])
+    return (((x @ p["big"]) @ p["w"] - y) ** 2).mean()
+
+
+def pinned(schedule: str = "auto", spec: str = "AUTO"):
+    """``AllReduce()`` with every synchronizer's ``schedule`` (and
+    ``spec``) pinned, as a user picks an all-reduce schedule."""
+    from autodist_tpu_torch import strategy
+    from autodist_tpu_torch.strategy.base import StrategyBuilder
+
+    class Pinned(StrategyBuilder):
+        def build(self, model_item, resource_spec):
+            plan = strategy.AllReduce(all_reduce_spec=spec).build(
+                model_item, resource_spec)
+            for node in plan.node_config:
+                if node.synchronizer is not None:
+                    node.synchronizer.schedule = schedule
+            return plan
+    return Pinned()
+
+
+def _case_runner(case, device):
+    """Build -> init one case of the sentinel, schedule and sharded jobs:
+    ``loss`` (``lin``, ``big``, ``mlp`` or ``tp_lm``), the builder
+    (``pinned`` schedule, ``tp`` degree, or :func:`builder`'s keys), the
+    optimizer (:func:`make_optimizer`), ``sentinel``, the resource spec's
+    ``hosts`` (one node a host, the ranks split evenly) and ``init``.
+    A gradient fault ``plan`` is in the environment for the build."""
+    import json as _json
+    import autodist_tpu_torch as adt
+    from autodist_tpu_torch import strategy
+    from autodist_tpu_torch.convert import jax_named
+    from autodist_tpu_torch.models import tp_lm
+    from autodist_tpu_torch.resource_spec import ResourceSpec
+    world = dist.get_world_size()
+    hosts = case.get("hosts", ["127.0.0.1"])
+    per = world // len(hosts)
+    spec = ResourceSpec.from_dict({"nodes": [
+        dict({"address": h, "cpus": list(range(per))},
+             **({"chief": True} if i == 0 else {}))
+        for i, h in enumerate(hosts)]})
+    loss_fn = {"lin": lin_loss, "big": big_loss, "mlp": mlp_loss}.get(
+        case["loss"])
+    rules = MLP_RULES
+    if case["loss"] == "tp_lm":
+        loss_fn = tp_lm.make_loss(tp_lm.TPLMConfig.tiny())
+        rules = tp_lm.tp_rules()
+    if "schedule" in case:
+        b = pinned(case["schedule"], case.get("spec", "AUTO"))
+    elif "tp" in case:
+        b = strategy.TensorParallel(case["tp"], rules)
+    else:
+        b = builder(case)
+    params = jax_named({n: torch.as_tensor(v)
+                        for n, v in case["init"].items()})
+    if case.get("plan"):
+        os.environ["ADT_GRAD_FAULT_PLAN"] = _json.dumps(
+            {"faults": case["plan"]})
+    try:
+        ad = adt.AutoDist(strategy_builder=b, resource_spec=spec,
+                          device=device)
+        runner = ad.build(loss_fn, make_optimizer(case.get("optimizer")),
+                          params, case["batches"][0],
+                          sentinel=case.get("sentinel", False))
+    finally:
+        os.environ.pop("ADT_GRAD_FAULT_PLAN", None)
+    runner.init(params)
+    return runner
+
+
+def _verdicts(metrics):
+    v = metrics.get("sentinel")
+    return None if v is None else {k: float(t) for k, t in v.items()}
+
+
+def sentinel_job(payload, device):
+    """Each case of ``payload`` (:func:`_case_runner`'s keys, ``batches``):
+    ``Runner.run`` over the batches; returns the losses, each step's
+    verdict, the gathered params and whether the ranks' params are
+    bit-equal."""
+    import autodist_tpu_torch as adt
+    out = []
+    for case in payload:
+        runner = _case_runner(case, device)
+        ms = [runner.run(b) for b in case["batches"]]
+        params = runner.gather_params()
+        flat = torch.cat([t.reshape(-1) for t in params.values()])
+        ref = flat.clone()
+        dist.broadcast(ref, src=0)
+        out.append({"losses": [float(m["loss"]) for m in ms],
+                    "verdicts": [_verdicts(m) for m in ms],
+                    "params": _np(params),
+                    "ranks_equal": bool(torch.equal(flat, ref)),
+                    "metadata": {k: runner.distributed_step.metadata[k]
+                                 for k in ("sentinel_guards",
+                                           "partitioned", "zero_sharded",
+                                           "model_parallel")}})
+        adt.reset()
+    return out
+
+
+def schedule_job(payload, device):
+    """Each case of ``payload``: ``"psum"`` — this rank's row of ``x``
+    summed by ``collectives.rhd_psum``, ``collectives.hierarchical_psum``
+    over the ``hosts`` (a host a rank) and the ring; ``"train"`` —
+    :func:`sentinel_job`'s run under a pinned ``schedule``."""
+    from autodist_tpu_torch.parallel import collectives, mesh
+    from autodist_tpu_torch.kernel.synchronization.synchronizer import \
+        all_reduce_sum
+    rank, world = dist.get_rank(), dist.get_world_size()
+    out = []
+    for case in payload:
+        if case["kind"] == "psum":
+            x = torch.as_tensor(case["x"][rank]).to(device)
+            hg = mesh.HostGroups(case["hosts"], rank)
+            out.append({"rhd": _np(collectives.rhd_psum(x, None, world)),
+                        "hier": _np(collectives.hierarchical_psum(x, hg)),
+                        "ring": _np(all_reduce_sum(x)),
+                        "groups": (hg.n_inter, hg.n_intra)})
+        else:
+            res = sentinel_job([case], device)[0]
+            out.append(res)
+    return out
+
+
+def sharded_job(payload, device):
+    """Sharded checkpoints at N ranks, each case of ``payload``
+    (:func:`_case_runner`'s keys, ``batches``): ``restore`` (a checkpoint
+    base path, read by ``ShardedSaver``), then ``steps`` steps, then a
+    save into ``save_dir`` when given, then ``more`` steps. Returns the
+    losses, the gathered params and optimizer state after the restore
+    (or the init) and after the steps, the state in the JAX layout, and
+    the saved path and this rank's file bytes."""
+    import autodist_tpu_torch as adt
+    from autodist_tpu_torch import convert
+    from autodist_tpu_torch.checkpoint import ShardedSaver
+    out = []
+    for case in payload:
+        runner = _case_runner(case, device)
+        dstep = runner.distributed_step
+        item = dstep.model_item
+        res = {}
+
+        def jax_state():
+            # copies: on the CPU a tensor's numpy() shares its memory,
+            # which the next steps update in place
+            opt = dstep.gather_opt_state(runner.state)
+            return {"params": {n: t.detach().cpu().numpy().copy() for n, t
+                               in runner.gather_params().items()},
+                    "opt_jax": convert.opt_state_to_jax(
+                        opt, item.flax_shapes, item.optimizer_spec,
+                        item.jax_names)}
+        if case.get("restore"):
+            saver = ShardedSaver(os.path.dirname(case["restore"]))
+            _, res["restored_step"] = saver.restore(runner, case["restore"])
+            res["restored"] = jax_state()
+        batches = case["batches"]
+        steps = case.get("steps", 0)
+        res["losses"] = [float(runner.run(b)["loss"])
+                         for b in batches[:steps]]
+        if case.get("save_dir"):
+            saver = ShardedSaver(case["save_dir"])
+            res["saved"] = saver.save(runner)
+            res["at_save"] = jax_state()
+        res["more"] = [float(runner.run(b)["loss"])
+                       for b in batches[steps:steps + case.get("more", 0)]]
+        res["final"] = jax_state()
+        res["local_shapes"] = {n: tuple(t.shape)
+                               for n, t in runner.state.params.items()}
+        out.append(res)
+        adt.reset()
+    return out
+
+
 JOBS = {"compressors": compressor_job, "train": train_job, "ckpt": ckpt_job,
         "ckpt_cross": ckpt_cross_job, "fused": fused_job, "async": async_job,
-        "broadcast_bytes": broadcast_bytes_job, "tp": tp_job}
+        "broadcast_bytes": broadcast_bytes_job, "tp": tp_job,
+        "sentinel": sentinel_job, "schedule": schedule_job,
+        "sharded": sharded_job}
