@@ -2,9 +2,11 @@
 ``autodist_tpu/analysis/rules.py::missing_trainable_configs`` (ADT101, the
 compile path's hard failure), ``check_mp_axes_node`` (ADT205/206/207, the
 partitioner's model-parallel layout check), ``verify_sentinel``
-(ADT420/421, the health sentinel against the lowered step) and
+(ADT420/421, the health sentinel against the lowered step),
 ``verify_decode`` (ADT442, the decode engine's cache-vs-memory
-projection)."""
+projection), and ``fail_fast_model_axes`` with ``verify_elastic``
+(ADT430/431, whether a topology can shrink in-run: the build-time lint
+and the coordinator's shrink decision both read them)."""
 from typing import Dict, List, Optional
 
 from autodist_tpu_torch import const
@@ -140,4 +142,57 @@ def verify_sentinel(policy, metadata: dict) -> List[Diagnostic]:
             % (window, policy.window_steps),
             fixit="raise SentinelPolicy.window_steps above the "
                   "staleness/lag bound, or tighten the PS window"))
+    return out
+
+
+def fail_fast_model_axes(strategy) -> dict:
+    """The model-parallel mesh axes (of size > 1) that make a topology
+    fail-fast for in-run shrink (ADT430): one predicate, so the lint and
+    the coordinator's runtime shrink decision never disagree about what
+    "fail-fast" means."""
+    mesh_shape = strategy.graph_config.mesh_shape or {}
+    return {ax: n for ax, n in mesh_shape.items()
+            if ax != const.DATA_AXIS and int(n) > 1}
+
+
+def verify_elastic(strategy, dead_worker: str = "") -> List[Diagnostic]:
+    """ADT43x — can this job's topology survive an in-run elastic shrink
+    (``runtime/elastic.py``)? Shared by the build-time lint and the
+    coordinator's runtime shrink decision (``_shrink_unsound_reason``).
+
+    - ``ADT430``: the strategy pins model-parallel mesh axes — the
+      program spans the whole mesh, and removing a process removes
+      shards no survivor replicates. Recovery goes through the whole-job
+      checkpoint restart instead.
+    - ``ADT431``: a PS group's ``reduction_destination`` lives on the dead
+      worker — its host-resident state died with it, so the shrink is
+      sound only with a committed checkpoint to fall back to.
+    """
+    out: List[Diagnostic] = []
+    model_axes = fail_fast_model_axes(strategy)
+    if model_axes:
+        out.append(warning(
+            "ADT430",
+            "strategy partitions state over model-parallel mesh axes %s — "
+            "removing a process removes shards no survivor replicates, so "
+            "the job cannot shrink in-run" % (model_axes,),
+            fixit="rely on the whole-job checkpoint restart "
+                  "(ADT_ELASTIC_SYNC without ADT_ELASTIC_INRUN), or use a "
+                  "data-parallel strategy for in-run elasticity"))
+    dead_host = (dead_worker or "").split(":")[0]
+    for node in strategy.node_config:
+        for leaf in (node.part_configs or [node]):
+            sync = leaf.synchronizer or node.synchronizer
+            dest = getattr(sync, "reduction_destination", "") or ""
+            if dead_host and dest.split(":")[0] == dead_host:
+                out.append(warning(
+                    "ADT431",
+                    "PS group of %r is owned by dying worker %s — its "
+                    "host-resident state has no live replica; the shrink "
+                    "must re-shard that state from the last-good "
+                    "checkpoint" % (node.var_name, dead_worker),
+                    var=node.var_name,
+                    fixit="keep PS destinations on the chief, or "
+                          "checkpoint at least once per restart window"))
+                break
     return out

@@ -28,7 +28,11 @@ hands it to the workers (a copied file, or a broadcast under
 ``ADT_EXTERNAL_LAUNCH``), and a worker's death ends the job with exit code
 1 — unless ``ADT_ELASTIC=<budget>`` asks for recovery: a relaunch of the
 dead worker under async PS, or with ``ADT_ELASTIC_SYNC=1`` a restart of
-the whole job from its newest checkpoint (``runtime/coordinator.py``). A
+the whole job from its newest checkpoint (``runtime/coordinator.py``), or
+with ``ADT_ELASTIC_INRUN=1`` as well an in-run shrink to the survivors and
+a grow when the relaunched worker is admitted back (``runtime/elastic.py``;
+``build`` arms the membership and :meth:`AutoDist._elastic_reconfigure`
+rebuilds the step for each new world). A
 single-node job's processes come from the caller (``torchrun``, or
 ``torch.multiprocessing`` with the ``spawn`` start method), who makes the
 group; the port runs on the group it finds. With no group there is one
@@ -100,8 +104,8 @@ def get_default_autodist():
 
 def reset():
     """Clear process-global state: the AutoDist registry (closing the
-    registered instance's runner), live decode engines and the telemetry
-    recorder."""
+    registered instance's runner), live decode engines, the telemetry
+    recorder and the installed elastic membership (and its socket)."""
     inst = _DEFAULT_AUTODIST.get(0)
     _DEFAULT_AUTODIST.clear()
     if inst is not None:
@@ -111,6 +115,20 @@ def reset():
         engine.close()
     from autodist_tpu_torch.telemetry import spans as _tspans
     _tspans.reset()
+    from autodist_tpu_torch.runtime import elastic as _elastic
+    _elastic.clear()
+
+
+def _strategy_for_roster(strategy: Strategy, roster) -> Strategy:
+    """The compiled strategy for the processes of an elastic roster: a
+    copy whose replicas are the launch plan's on the roster's nodes, in
+    the plan's order (the same rule on every member)."""
+    import copy
+    keep = set(roster)
+    out = copy.deepcopy(strategy)
+    out.graph_config.replicas = [r for r in strategy.graph_config.replicas
+                                 if r.split(":")[0] in keep]
+    return out
 
 
 def process_group_replicas() -> ReplicaInfo:
@@ -354,17 +372,145 @@ class AutoDist:
         self._setup()
         is_async = self._validate_async(compiled, item)
         self._check_elastic(is_async)
+        # in-run elastic: the epoch-fenced membership is installed before
+        # the Runner, which binds to it; a joiner admitted into a running
+        # job holds its epoch's membership already, and its plan keeps
+        # the roster's replicas
+        inrun = const.ENV.ADT_ELASTIC_INRUN.val and not is_async
+        plan = compiled
+        if inrun:
+            self._arm_inrun_elastic(compiled)
+            from autodist_tpu_torch.runtime import elastic
+            m = elastic.current()
+            if m is not None and m.epoch > 1:
+                plan = _strategy_for_roster(compiled, m.roster)
         # async PS cannot ride collectives (they are lockstep): each
         # process builds at one replica of its own
         dstep = GraphTransformer(
-            compiled, item, self._device,
+            plan, item, self._device,
             ReplicaInfo() if is_async else self._replicas,
             sentinel=policy).transform()
         if is_async and dstep.ps_store is not None:
             self._wire_async_ps(dstep)
         self._runner = Runner(dstep, sentinel=policy if policy is not None
                               else False)
+        if inrun:
+            # the rebuild's inputs: a new world recompiles nothing, it
+            # transforms the launch plan for the roster's processes
+            self._last_build = {"strategy": compiled, "item": item,
+                                "policy": policy}
+            self._runner.set_reconfigure_handler(self._elastic_reconfigure)
         return self._runner
+
+    def _arm_inrun_elastic(self, strategy: Strategy):
+        """Install this process's epoch-fenced membership: the chief
+        publishes the launch epoch (1, every node of the spec), a worker
+        reads it; a joiner admitted by grow-on-join holds one already.
+        The topology is linted here (ADT430/431): a job that can never
+        shrink in-run says so at build, not at the first death."""
+        from autodist_tpu_torch.analysis import rules as rules_lib
+        from autodist_tpu_torch.runtime import elastic
+        # a single-node job constructs no Coordinator: validate here too
+        elastic.validate_elastic_knobs()
+        for d in rules_lib.verify_elastic(strategy):
+            logging.warning("elastic: %s", d.format())
+        self._orig_spec = getattr(self, "_orig_spec", self._resource_spec)
+        if elastic.current() is not None:
+            elastic.current().entries = elastic.spec_entries(
+                self._orig_spec)
+            return  # admitted by grow-on-join: the membership is live
+        spec = self._resource_spec
+        roster = elastic.roster_layout(list(spec.node_addresses), spec.chief)
+        worker = const.ENV.ADT_WORKER.val or spec.chief
+        membership = elastic.Membership(worker, 1, roster)
+        membership.entries = elastic.spec_entries(spec)
+        try:
+            if const.is_chief():
+                info = membership._with_client(elastic.read_epoch)
+                if info is None:
+                    membership._with_client(
+                        lambda c: elastic.publish_epoch(c, 1, roster))
+                else:
+                    membership.adopt(*info)
+            else:
+                info = membership.peek()
+                if info is not None:
+                    membership.adopt(*info)
+        except OSError as e:
+            logging.warning("elastic: coordination service unreachable "
+                            "(%s); the membership starts at the launch "
+                            "epoch", e)
+        elastic.install(membership)
+        logging.info("elastic: in-run membership armed — %s at epoch %d "
+                     "(roster %s)", worker, membership.epoch,
+                     ",".join(membership.roster))
+
+    def _elastic_reconfigure(self, runner, epoch, roster, snapshot):
+        """The rebuild half of an in-run reconfiguration (the Runner's
+        ``_maybe_reconfigure`` drives the protocol half): join the epoch's
+        process group as the roster's processes, transform the launch plan
+        for that world, and place the state — the snapshot (this
+        process's own copy, on the card), or the newest checkpoint when it
+        is None. On a grow the chief's snapshot goes to the joiner
+        (``elastic.broadcast_state``, then ``init_state``'s broadcast);
+        its bytes and time are the ``elastic.broadcast`` span and the
+        ``elastic.broadcast_bytes`` counter."""
+        from autodist_tpu_torch.analysis import rules as rules_lib
+        from autodist_tpu_torch.runtime import elastic
+        membership = elastic.current()
+        grew = (membership is not None
+                and len(roster) > len(membership.roster))
+        info = self._last_build
+        # the topology gate before any teardown, with verify_elastic's
+        # rule: a refusal leaves the old group for the whole-job restart
+        axes = rules_lib.fail_fast_model_axes(info["strategy"])
+        if axes:
+            raise RuntimeError(
+                "in-run reconfigure reached a model-parallel strategy "
+                "(ADT430 should have refused the shrink): mesh axes %s"
+                % axes)
+        orig = self._orig_spec
+        excluded = [a for a in orig.node_addresses if a not in roster]
+        self._resource_spec = (orig.without_nodes(excluded) if excluded
+                               else orig)
+        if self._coordinator is not None:
+            self._coordinator._cluster.reconfigure(roster, epoch)
+        else:
+            elastic.rejoin_process_set(roster, epoch,
+                                       elastic.spec_entries(orig),
+                                       chief=orig.chief)
+        self._replicas = process_group_replicas()
+        old = runner.distributed_step
+        dstep = GraphTransformer(
+            _strategy_for_roster(info["strategy"], roster), info["item"],
+            self._device, self._replicas,
+            sentinel=info["policy"]).transform()
+        runner.adopt_distributed_step(dstep)
+        old.close()
+        if grew and self._replicas.num_processes > 1:
+            with tel.span("elastic.broadcast", "elastic", epoch=epoch,
+                          joiner=False):
+                snapshot = elastic.broadcast_state(snapshot, self._device)
+                self._place(runner, snapshot)
+            if snapshot is not None:
+                tel.counter_add("elastic.broadcast_bytes", float(sum(
+                    t.numel() * t.element_size() for t in
+                    torch.utils._pytree.tree_leaves(
+                        (snapshot["params"], snapshot["opt_state"],
+                         snapshot["sync_state"]))
+                    if isinstance(t, torch.Tensor))))
+        else:
+            self._place(runner, snapshot)
+
+    @staticmethod
+    def _place(runner, snapshot):
+        from autodist_tpu_torch.runtime import elastic
+        if snapshot is None:
+            # no whole copy of some state on this process (sharded across
+            # processes, or a torn step): the newest checkpoint
+            runner._restore_newest("reconfigure")
+        else:
+            elastic.adopt_snapshot(runner, snapshot)
 
     def _validate_async(self, compiled: Strategy, item: ModelItem) -> bool:
         """True when the strategy asks for async PS, which must be pure
@@ -398,12 +544,13 @@ class AutoDist:
 
     def _check_elastic(self, is_async: bool):
         """The elastic knobs against the plan (the JAX package's checks
-        and messages). Sync strategies are collective-lockstep: a
-        relaunched worker cannot rejoin mid-run, so elastic means
-        checkpoint-restore orchestration — a worker's death tears the
-        whole job down and the chief re-execs with auto-resume (the
-        Coordinator's ``_restart_whole_job``), which needs periodic saves
-        (``Runner.fit(save_every=...)`` or ``Saver.save``)."""
+        and messages). Sync strategies are collective-lockstep, so elastic
+        means either checkpoint-restore orchestration — a worker's death
+        tears the whole job down and the chief re-execs with auto-resume
+        (the Coordinator's ``_restart_whole_job``), which needs periodic
+        saves (``Runner.fit(save_every=...)`` or ``Saver.save``) — or,
+        with ``ADT_ELASTIC_INRUN=1``, the in-run shrink and grow, which
+        falls back to that restart where it cannot shrink."""
         elastic_on = const.ENV.ADT_ELASTIC.val > 0
         if (elastic_on and not is_async
                 and const.ENV.ADT_NUM_PROCESSES.val > 1):
@@ -418,8 +565,11 @@ class AutoDist:
             if self._coordinator is not None:
                 self._coordinator.enable_sync_elastic()
             logging.info(
-                "ADT_ELASTIC on a sync strategy: whole-job checkpoint-"
-                "restore recovery enabled (resume dir: %s)",
+                "ADT_ELASTIC on a sync strategy: %s (resume dir: %s)",
+                "in-run shrink and grow, whole-job checkpoint-restore "
+                "recovery where it cannot shrink"
+                if const.ENV.ADT_ELASTIC_INRUN.val else
+                "whole-job checkpoint-restore recovery enabled",
                 const.ENV.ADT_CKPT_DIR.val)
         if is_async and elastic_on and const.ENV.ADT_ELASTIC_SYNC.val:
             raise ValueError(

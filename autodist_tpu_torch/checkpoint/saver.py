@@ -27,9 +27,10 @@ Under async PS (a serving store) a save first drains this process's
 owner queues, and each shard another host owns is saved from that
 owner's latest publish: its values, and its optimizer state from the
 owner's side channel (``PSStore._remote_opt_state``), so the checkpoint
-holds the owner's moments, not this process's frozen init. The JAX
-saver's epoch fence (``elastic.maybe_fence``) comes with in-run shrink
-and grow (ROADMAP A item 8.3b). The writes in flight in this process are
+holds the owner's moments, not this process's frozen init. The epoch
+fence (``elastic.maybe_fence``) runs before any work of a save and again
+at its commit point: a zombie's late save leaves the directory as it
+was (``runtime/elastic.py``). The writes in flight in this process are
 counted (:func:`wait_for_writes`): the sync-elastic restart waits for
 them before it reads the newest checkpoint.
 """
@@ -281,6 +282,10 @@ class Saver:
             dstep = runner_or_step
         if state is None:
             raise ValueError("no state to save")
+        # the epoch fence before any work (and any file): a zombie
+        # worker's late save must leave the directory as it was
+        from autodist_tpu_torch.runtime import elastic
+        elastic.maybe_fence("ckpt.save")
         if sentinel_save_vetoed(runner_or_step):
             return None
         healthy = sentinel_health_stamp(runner_or_step)
@@ -353,7 +358,11 @@ class Saver:
                 for tmp, final in finals:
                     os.replace(tmp, final)
                 meta["files"] = file_meta
-                # meta last, atomically: the commit point
+                # meta last, atomically: the commit point, fenced again
+                # (an epoch can change between an async save's submit
+                # and its write)
+                from autodist_tpu_torch.runtime import elastic
+                elastic.maybe_fence("ckpt.commit")
                 checkpoint_fault("meta", path=path, step=int(step))
                 with open(path + ".meta.json.tmp", "w") as f:
                     json.dump(meta, f)

@@ -74,6 +74,7 @@ from autodist_tpu_torch.checkpoint.saver import (
     BackgroundWriter, _skip_unhealthy, _user_state_to_host, _writing,
     scan_checkpoint_metas, sentinel_health_stamp, sentinel_save_vetoed)
 from autodist_tpu_torch.model_item import flatten_state, unflatten_state
+from autodist_tpu_torch.runtime import elastic
 from autodist_tpu_torch.runtime.faultinject import checkpoint_fault
 from autodist_tpu_torch.telemetry import spans as tel
 from autodist_tpu_torch.train_state import TrainState
@@ -354,6 +355,9 @@ class ShardedSaver:
             dstep = runner_or_step
         if state is None:
             raise ValueError("no state to save")
+        # the epoch fence before any file: a zombie's late shard save
+        # must leave the checkpoint directory untouched
+        elastic.maybe_fence("ckpt.save")
         if sentinel_save_vetoed(runner_or_step):
             return None
         healthy = sentinel_health_stamp(runner_or_step)
@@ -477,6 +481,10 @@ class ShardedSaver:
                               kind="index-files"):
                     key_owner = self._await_indexes(base, nproc)
                 tel.counter_add("ckpt.barrier_s", time.monotonic() - t_bar)
+                # fenced again at the commit point: an epoch can change
+                # between the save's start and the meta (the shard debris
+                # stays uncommitted)
+                elastic.maybe_fence("ckpt.commit")
                 meta["keys"] = key_owner
                 tmp = base + ".shard-meta.json.tmp"
                 with open(tmp, "w") as f:

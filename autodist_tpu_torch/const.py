@@ -121,6 +121,11 @@ class ENV(Enum):
     # how often the Runner polls the membership epoch at readback
     # boundaries (seconds; bounds reconfiguration downtime from above)
     ADT_ELASTIC_POLL_S = ("ADT_ELASTIC_POLL_S", float, 0.5)
+    # in-run elastic: each node's number of device entries in the job's
+    # resource spec (``node=count,...``), which the chief passes to the
+    # processes it launches, so that a relaunched worker expands an
+    # epoch's roster of nodes into ranks before it has read the spec
+    ADT_ELASTIC_ENTRIES = ("ADT_ELASTIC_ENTRIES", str, "")
     # sync-elastic recovery (runtime/coordinator.py _restart_whole_job):
     # set on the re-exec'd job so Runner.init restores the latest
     # checkpoint from ADT_CKPT_DIR instead of starting fresh. Users can

@@ -452,6 +452,13 @@ class DistributedStep:
         self.syncs: Dict[str, AllReduceSynchronizer] = {}
         # dispatches: a step, or a fused superstep of k microsteps
         self.dispatches = 0
+        # set when the running dispatch begins to write its state in
+        # place (the first optimizer apply), cleared when one starts: a
+        # collective that fails before it leaves the state as it was, so
+        # the in-run elastic plane may run the step again on a new world;
+        # one that fails after it leaves the state torn
+        # (``Runner._inrun_recover`` restores a checkpoint instead)
+        self.writes_begun = False
         # the CUDA graphs of the fused supersteps, by (k, feed structure
         # and shapes), and the eager microsteps their captures ran first
         # to warm up
@@ -1171,6 +1178,7 @@ class DistributedStep:
             return self._ps_carry_microstep(state, batch, *carry)
         item = self.model_item
         if item.step_fn is not None:
+            self.writes_begun = True  # the opaque step writes where it will
             with torch.enable_grad():
                 new_user, metrics = _step_fn_output(
                     item.step_fn(state.params, batch), item.params)
@@ -1273,6 +1281,8 @@ class DistributedStep:
                 scale = sync_state["sentinel"]["lr_scale"]
                 snap = _clone((state.params, state.opt_state,
                                sync_state.get("zero", {})))
+            # every collective before this point left the state as it was
+            self.writes_begun = True
             opt_state = self.optimizer.update(
                 {n: g for n, g in device_grads.items()
                  if n not in self.zero_syncs},
@@ -1441,6 +1451,7 @@ class DistributedStep:
         program donates them); ``donate=False`` leaves them as they
         were."""
         self._check_trainable()
+        self.writes_begun = False
         if not donate:
             state = _clone_state(state)
         with tel.span("dstep.dispatch", "dstep", fused=False):
@@ -1590,6 +1601,7 @@ class DistributedStep:
                 % sorted(lead))
         k = next(iter(lead), 1)
         fn = self.multi_step(k, donate)   # refuses before any carry pull
+        self.writes_begun = False
         with tel.span("dstep.dispatch", "dstep", fused=True):
             vals, opts = self._ensure_ps_carry()
             new_state, vals, opts, metrics = fn(state, vals, opts,

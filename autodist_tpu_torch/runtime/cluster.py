@@ -9,7 +9,9 @@ PyTorch counterpart of ``autodist_tpu/runtime/cluster.py``
 - the deployment plane: SSH/SCP helpers to ship files and launch remote
   commands, honoring ``ADT_DEBUG_REMOTE`` for dry-runs; loopback nodes
   (and ``transport: local``) run through local ``bash``/``cp``;
-- teardown: terminating launched process groups at exit.
+- teardown: terminating launched process groups at exit;
+- in-run elastic reconfiguration (:meth:`Cluster.reconfigure`): the
+  layout follows an epoch's roster of nodes.
 
 What differs from the JAX module: there one process per node owns every
 device of the node; here one process is one replica. So the layout has
@@ -116,6 +118,31 @@ class Cluster:
             return const.is_chief()
         return address == self._spec.chief
 
+    @property
+    def entries_per_node(self) -> Dict[str, int]:
+        """Each node's number of device entries (processes) in the
+        launch spec, which the elastic roster expansion reads."""
+        from autodist_tpu_torch.runtime import elastic
+        return elastic.spec_entries(self._spec)
+
+    def reconfigure(self, roster: List[str], epoch: int):
+        """Adopt an elastic epoch's roster as this job's process set (the
+        chief's half of ``elastic.rejoin_process_set``): the layout keeps
+        the launch spec's entries of the roster's nodes, in the roster's
+        order, then this process leaves its group and joins the epoch's
+        as the smaller (shrink) or larger (grow) world. Workers hold no
+        Cluster; they call ``rejoin_process_set`` with the same rule, so
+        every member computes the same ranks."""
+        from autodist_tpu_torch.runtime import elastic
+        entries = self.entries_per_node
+        layout = elastic.roster_layout(roster, self._spec.chief)
+        self._nodes = layout
+        self._entries = [d for a in layout for d in self._spec.devices
+                         if d.host == a]
+        self.epoch = epoch
+        elastic.rejoin_process_set(layout, epoch, entries,
+                                   chief=self._spec.chief)
+
     def worker_env(self, address: str, local_rank: int = 0) -> Dict[str, str]:
         """Env vars that turn a launched script into the ``local_rank``-th
         process of node ``address``."""
@@ -126,6 +153,9 @@ class Cluster:
             const.ENV.ADT_NUM_PROCESSES.name_str: str(self.num_processes),
             const.ENV.ADT_PROCESS_ID.name_str: str(pid),
             const.ENV.ADT_DEVICE.name_str: self.device(pid),
+            const.ENV.ADT_ELASTIC_ENTRIES.name_str: ",".join(
+                "%s=%d" % kv for kv in sorted(
+                    self.entries_per_node.items())),
             "LOCAL_RANK": str(local_rank),
         }
 

@@ -29,6 +29,17 @@ fail-fasts the whole job (exit code 1) — the reference's semantics
   excluded and the job resumes without it
   (:meth:`Coordinator._restart_whole_job`).
 
+- in-run shrink and grow (``ADT_ELASTIC_INRUN=1`` with
+  ``ADT_ELASTIC_SYNC=1``, ROADMAP A item 8.3b): a sync worker's death
+  publishes the survivors' roster at the next cluster epoch
+  (:meth:`Coordinator._shrink_to_survivors`); the survivors re-form their
+  process group in-run (``runtime/elastic.py``) and the dead worker is
+  relaunched, announces itself, and is admitted at the epoch after
+  (:meth:`Coordinator._maybe_admit_joiners`, from the watchdog). A
+  topology that cannot shrink (ADT430/431, ``analysis/rules.py``), or
+  survivors that never ack the epoch within ``ADT_ELASTIC_ACK_TIMEOUT_S``
+  (:meth:`Coordinator._watch_acks`), take the whole-job restart instead.
+
 A recovery path that fails is logged and degrades to the fail-fast.
 
 Where the JAX package keys its bookkeeping by node address, the port keys
@@ -53,8 +64,8 @@ close-on-exec, so the rendezvous and gloo sockets made in C++ (not all
 close-on-exec) are released and the re-exec'd chief binds its ports
 again.
 
-Left for later items: in-run shrink and grow (the joiner admission and the
-acked shrink, 8.3b), planned departures (8.3c) and the straggler filter
+Left for later items: planned departures (8.3c: the departure sets and
+``preemption.clear_notice`` of the admission) and the straggler filter
 (item 11).
 """
 import atexit
@@ -69,6 +80,7 @@ from typing import Dict, List, Optional
 from autodist_tpu_torch import const
 from autodist_tpu_torch.runtime import elastic
 from autodist_tpu_torch.runtime.cluster import Cluster
+from autodist_tpu_torch.telemetry import spans as tel
 from autodist_tpu_torch.utils import logging
 
 # the debugging/testing knobs a worker inherits from the chief when they
@@ -150,6 +162,15 @@ def _close_inherited_on_exec():
                 pass  # the listing's own descriptor, closed since
 
 
+def whole_job_restart_claimed() -> bool:
+    """True when this process's Coordinator (the chief's) has claimed the
+    whole-job restart: the exec that replaces the process is coming, so a
+    step waiting for an in-run shrink epoch stops waiting."""
+    from autodist_tpu_torch.autodist import get_default_autodist
+    coord = getattr(get_default_autodist(), "_coordinator", None)
+    return coord is not None and coord._restart_claimed
+
+
 def collective_failed(exc: BaseException):
     """The chief's main thread met a failed collective (``Runner`` hands
     it its error): under sync elastic this waits until the process
@@ -180,7 +201,7 @@ class Coordinator:
         self._stop_watchdog = threading.Event()
         # the knobs are validated loudly: a typo'd budget must never
         # silently disable elasticity
-        env_budget, _, _ = elastic.validate_elastic_knobs()
+        env_budget, _, self._inrun = elastic.validate_elastic_knobs()
         self._max_restarts = (env_budget if max_restarts is None
                               else max_restarts)
         # keyed by process id (two processes may share a node address)
@@ -305,7 +326,12 @@ class Coordinator:
             client = connect_with_backoff()
             if client is None:
                 return
-            while not self._stop_watchdog.wait(self._heartbeat_timeout / 4):
+            # under the in-run plane the loop also admits joiners, so it
+            # ticks at least every ADT_ELASTIC_POLL_S
+            tick = self._heartbeat_timeout / 4
+            if self._inrun:
+                tick = min(tick, max(0.05, const.ENV.ADT_ELASTIC_POLL_S.val))
+            while not self._stop_watchdog.wait(tick):
                 try:
                     dead = client.dead_workers(self._heartbeat_timeout)
                 except OSError as e:
@@ -322,8 +348,13 @@ class Coordinator:
                     logging.info("watchdog: coordination service client "
                                  "re-established; supervision resumed")
                     continue
-                # 8.3b hooks the joiner admission in here, 8.3c the
-                # planned departures
+                # grow-on-join: a relaunched worker announced itself —
+                # publish the grown roster at the next epoch (8.3c hooks
+                # the planned departures in here)
+                try:
+                    self._maybe_admit_joiners(client)
+                except OSError:
+                    pass  # a service blip: the next tick retries
                 dead = self._supervised(client, dead)
                 fatal = [d for d in dead if self._max_restarts <= max(
                     (self._restarts.get(p, 0) for p in self._pids_of(d)),
@@ -472,8 +503,17 @@ class Coordinator:
         """Relaunch dead process ``pid`` when (a) restart budget remains
         and (b) the job's strategy makes a restart SOUND; returns True when
         a relaunch happened (the new process is supervised like the
-        first). A sync-elastic job restarts whole instead."""
+        first). A sync-elastic job shrinks in-run under
+        ``ADT_ELASTIC_INRUN`` (:meth:`_shrink_to_survivors`), and restarts
+        whole when that is off or unsound, or fails."""
         if self._sync_elastic:
+            try:
+                if self._shrink_to_survivors(pid, code):
+                    return True
+            except Exception as e:  # noqa: BLE001 — a broken shrink path
+                # degrades to the proven whole-job restart
+                logging.error("in-run elastic shrink failed (%s); falling "
+                              "back to the whole-job restart", e)
             return self._restart_whole_job(pid, code)
         used = self._restarts.get(pid, 0)
         if self._max_restarts <= used or pid not in self._launch_cmds:
@@ -512,6 +552,211 @@ class Coordinator:
         self._live_procs[pid] = proc
         self._proc_wait_async(proc, pid)
         return True
+
+    # -------------------------------------------- in-run elastic (8.3b)
+
+    def _coordsvc_client(self):
+        from autodist_tpu_torch.runtime.coordination import \
+            CoordinationClient
+        return CoordinationClient("127.0.0.1", self._coordsvc_port,
+                                  timeout=max(5.0,
+                                              self._heartbeat_timeout / 2))
+
+    def _shrink_unsound_reason(self, address: str) -> Optional[str]:
+        """None when the survivors can re-form a smaller process group
+        in-run after ``address`` dies; otherwise why not (the caller then
+        takes the whole-job restart). The analysis plane's ADT430/431
+        rules decide (``analysis/rules.py::verify_elastic``), so the
+        build-time lint and this decision never disagree."""
+        from autodist_tpu_torch.analysis import rules as rules_lib
+        from autodist_tpu_torch.strategy.base import Strategy
+        try:
+            strategy = Strategy.deserialize(self._strategy_id)
+        except (OSError, ValueError) as e:
+            return "strategy %s unreadable (%s)" % (self._strategy_id, e)
+        diags = rules_lib.verify_elastic(strategy, dead_worker=address)
+        errors = [d for d in diags if d.code == "ADT430"]
+        if errors:
+            return errors[0].message
+        if any(d.code == "ADT431" for d in diags):
+            # the dead worker owned PS state: no survivor holds it, so the
+            # shrink is sound only with a committed checkpoint to restore
+            from autodist_tpu_torch.checkpoint import latest_checkpoint
+            found, _ = latest_checkpoint(const.ENV.ADT_CKPT_DIR.val)
+            if found is None:
+                return ("worker %s owns PS state (ADT431) and no committed "
+                        "checkpoint exists for the fallback restore"
+                        % address)
+        return None
+
+    def _relaunch(self, pid: int):
+        """Start process ``pid``'s launch command again, supervised."""
+        address, command, env = self._launch_cmds[pid]
+        proc = self._cluster.remote_exec(command, address, env=env)
+        if proc is not None:
+            self._live_procs[pid] = proc
+            self._proc_wait_async(proc, pid)
+
+    def _shrink_to_survivors(self, pid: int, code) -> bool:
+        """In-run shrink: publish ``epoch + 1`` with the survivors'
+        roster, so that every survivor re-forms the smaller process group
+        at its next step boundary (``Runner._maybe_reconfigure``), or at
+        once when its step's collective failed. One restart of the budget
+        a reconfiguration. Returns False when in-run elasticity is off or
+        unsound (the caller restarts the whole job). The dead worker is
+        relaunched afterwards, budget permitting, to join again through
+        the admission protocol. The roster holds nodes: a death removes
+        its node, and a process of that node that survives is fenced out
+        at its reconfigure and relaunched in turn."""
+        if not self._inrun or pid not in self._launch_cmds:
+            return False
+        address = self._launch_cmds[pid][0]
+        used = self._restarts.get(pid, 0)
+        if self._max_restarts <= used:
+            logging.error("in-run elastic: worker %s died (code %s) but "
+                          "its restart budget (%d) is spent", address,
+                          code, self._max_restarts)
+            return False
+        reason = self._shrink_unsound_reason(address)
+        if reason is not None:
+            logging.error("in-run elastic: cannot shrink past worker %s: "
+                          "%s — falling back to the whole-job restart",
+                          address, reason)
+            return False
+        # the dead incarnation must really be gone before its peers adopt
+        # a roster without it: the fence would be the only defense else
+        command = self._launch_cmds[pid][1]
+        self._reap_incarnation(address, command, self._live_procs.get(pid))
+        client = self._coordsvc_client()
+        try:
+            elastic.gc_worker_marks(client, address)
+            info = elastic.read_epoch(client)
+            if info is None:
+                logging.error("in-run elastic: no epoch was ever published "
+                              "(the build did not arm the membership) — "
+                              "falling back to the whole-job restart")
+                return False
+            epoch, roster = info
+            if address not in roster:
+                # shrunk away already (its relaunch died before admission,
+                # or a second process of the node): the roster is right —
+                # a restart goes on another relaunch, no epoch
+                self._restarts[pid] = used + 1
+                self._restart_at[pid] = time.monotonic()
+                self._relaunch(pid)
+                logging.warning(
+                    "in-run elastic: process %d on %s, outside the roster, "
+                    "exited (code %s) — relaunching it (restart %d/%d)",
+                    pid, address, code, used + 1, self._max_restarts)
+                return True
+            survivors = [a for a in roster if a != address]
+            if not survivors:
+                return False
+            elastic.publish_epoch(client, epoch + 1, survivors)
+        finally:
+            try:
+                client.close()
+            except OSError:
+                pass
+        self._restarts[pid] = used + 1
+        self._restart_at[pid] = time.monotonic()
+        tel.counter_add("elastic.shrinks")
+        logging.warning(
+            "in-run elastic: worker %s died (code %s) — published epoch %d "
+            "with %d survivor(s); the job shrinks at the next boundary "
+            "(restart %d/%d)", address, code, epoch + 1, len(survivors),
+            self._restarts[pid], self._max_restarts)
+        # survivors that never ack (wedged in a collective the dead worker
+        # will never enter again) escalate to the whole-job restart
+        t = threading.Thread(target=self._watch_acks,
+                             args=(epoch + 1, survivors, pid, code),
+                             daemon=True)
+        t.start()
+        self._threads.append(t)
+        # relaunched, it announces itself and grows the job back
+        self._relaunch(pid)
+        logging.info("in-run elastic: relaunched %s for grow-on-join",
+                     address)
+        return True
+
+    def _watch_acks(self, epoch: int, roster, pid: int, code):
+        """Wait for every survivor's ``elastic/ack/<epoch>/<worker>``;
+        escalate to the whole-job restart when the shrink does not
+        complete within ``ADT_ELASTIC_ACK_TIMEOUT_S``."""
+        timeout = const.ENV.ADT_ELASTIC_ACK_TIMEOUT_S.val
+        deadline = time.monotonic() + timeout
+        pending = set(roster)
+        client = None
+        while not self._stop_watchdog.is_set():
+            if client is None:
+                try:
+                    client = self._coordsvc_client()
+                except OSError:
+                    if self._stop_watchdog.wait(1.0):
+                        return
+                    continue
+            try:
+                for w in sorted(pending):
+                    if client.get("elastic/ack/%d/%s" % (epoch, w)):
+                        pending.discard(w)
+            except OSError:
+                try:
+                    client.close()
+                except OSError:
+                    pass
+                client = None
+            if not pending:
+                logging.info("in-run elastic: every survivor acked "
+                             "epoch %d", epoch)
+                tel.counter_add("elastic.reconfigs_acked")
+                if client is not None:
+                    client.close()
+                return
+            if time.monotonic() > deadline:
+                logging.error(
+                    "in-run elastic: survivors %s never acked epoch %d "
+                    "within %.0fs — escalating to the whole-job restart",
+                    sorted(pending), epoch, timeout)
+                if client is not None:
+                    client.close()
+                if not self._restart_whole_job(pid, code):
+                    self._abort()
+                return
+            if self._stop_watchdog.wait(0.25):
+                return
+
+    def _maybe_admit_joiners(self, client):
+        """Grow-on-join: admit the relaunched workers that announced
+        themselves (``elastic/join/<worker>``) by publishing the grown
+        roster at the next epoch. The candidates are the nodes this chief
+        launched that the current roster leaves out; one of them with no
+        fresh announcement has its stale liveness marks scrubbed."""
+        if not self._inrun:
+            return
+        info = elastic.read_epoch(client)
+        if info is None:
+            return
+        epoch, roster = info
+        outsiders = sorted({a for a, _c, _e in self._launch_cmds.values()
+                            if a not in roster})
+        joiners = []
+        for a in outsiders:
+            if elastic.pending_join(client, a):
+                joiners.append(a)
+            else:
+                elastic.gc_worker_marks(client, a)
+        if not joiners:
+            return
+        for a in joiners:
+            elastic.clear_join(client, a)
+            elastic.gc_worker_marks(client, a)
+        grown = roster + joiners
+        elastic.publish_epoch(client, epoch + 1, grown)
+        tel.counter_add("elastic.grows")
+        logging.warning(
+            "in-run elastic: admitted %s — published epoch %d with %d "
+            "member(s); the job grows at the next boundary",
+            ",".join(joiners), epoch + 1, len(grown))
 
     def _restart_whole_job(self, pid: int, code) -> bool:
         """Sync-elastic recovery: a worker died mid-lockstep, so the other

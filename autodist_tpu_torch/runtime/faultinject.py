@@ -1,21 +1,430 @@
-"""Deterministic fault injection for the checkpoint plane and the
-gradients.
+"""Deterministic fault injection for the coordination wire, the
+checkpoint plane and the gradients.
 
-PyTorch counterpart of the checkpoint and gradient parts of
-``autodist_tpu/runtime/faultinject.py`` (that module's checkpoint part
-imports nothing of JAX; the port keeps its own copy of it, and writes the
-gradient faults over torch tensors). The coordination-wire proxy comes
-with the control plane (ROADMAP A item 8.3b).
+PyTorch counterpart of ``autodist_tpu/runtime/faultinject.py`` (its wire
+and checkpoint parts import nothing of JAX; the port keeps its own copy
+of them, and writes the gradient faults over torch tensors).
+
+:class:`FaultyProxy` is a TCP proxy between coordination clients and the
+real ``coordination_service`` process that executes a seeded,
+declarative fault plan (``ADT_FAULT_PLAN``, inline JSON, ``@path`` or a
+path; or passed directly)::
+
+    {"seed": 1234,
+     "faults": [{"op": "delay",     "match": "QPUSHB", "nth": 2,
+                 "delay_s": 0.5},
+                {"op": "reset",     "match": "*", "nth": 5, "repeat": true},
+                {"op": "truncate",  "match": "BGETB", "nth": 1, "bytes": 64},
+                {"op": "partition", "match": "INC", "nth": 1,
+                 "duration_s": 0.8},
+                {"op": "restart",   "at_step": 3}]}
+
+``delay`` holds the matched request; ``reset`` hard-closes the client
+connection (before forwarding, or with ``"when": "after"`` after it — the
+ambiguous drop); ``truncate`` relays at most ``bytes`` of the reply;
+``partition`` holds every proxied request, on every connection, for
+``duration_s`` and then delivers it late (the zombie-revival timing the
+elastic epoch fence must beat); ``restart`` calls the proxy's
+``restart_fn`` when a ``STEP`` with step >= ``at_step`` passes. ``match``
+prefix-matches the command word (``"*"`` any but PING), ``nth`` fires on
+the n-th match, ``repeat`` every n-th, ``prob`` with the plan's seeded
+probability. The advance-notice eviction (the ``preempt`` op and
+``deliver_preemption``) belongs to the preemption plane (ROADMAP A item
+8.3c).
 """
 import json
 import os
 import random
 import signal
+import socket
+import struct
 import threading
-from typing import List, Optional
+import time
+from typing import Callable, List, Optional
 
 from autodist_tpu_torch import const
 from autodist_tpu_torch.utils import logging
+
+# commands whose header declares a raw payload length in this 0-based arg
+_BINARY_LEN_ARG = {"BPUTB": 3, "QPUSHB": 2}
+
+
+class FaultRule:
+    """One declarative fault. See the module docstring for fields."""
+
+    def __init__(self, spec: dict):
+        self.op = spec["op"]
+        if self.op not in ("delay", "reset", "truncate", "restart",
+                           "partition"):
+            raise ValueError("unknown fault op %r" % self.op)
+        self.match = spec.get("match", "*")
+        self.nth = int(spec.get("nth", 1))
+        self.repeat = bool(spec.get("repeat", False))
+        self.prob = spec.get("prob")
+        self.delay_s = float(spec.get("delay_s", 0.0))
+        # partition: how long the proxy blackholes ALL traffic once this
+        # rule fires (the zombie-revival harness — see FaultyProxy)
+        self.duration_s = float(spec.get("duration_s", 0.0))
+        self.bytes = int(spec.get("bytes", 0))
+        self.when = spec.get("when", "before")
+        self.at_step = spec.get("at_step")
+        self._matched = 0
+        self._spent = False
+
+    def _matches_cmd(self, cmd: str) -> bool:
+        if cmd == "PING":
+            return False
+        return self.match == "*" or cmd.startswith(self.match)
+
+    def should_fire(self, cmd: str, step_arg: Optional[int],
+                    rng) -> bool:
+        """Called under the plan lock, once per parsed RPC."""
+        if self._spent:
+            return False
+        if self.op == "restart":
+            if self.at_step is None or cmd != "STEP" or step_arg is None:
+                return False
+            if step_arg >= int(self.at_step):
+                self._spent = True  # one restart per rule
+                return True
+            return False
+        if not self._matches_cmd(cmd):
+            return False
+        if self.prob is not None:
+            return rng.random() < float(self.prob)
+        self._matched += 1
+        if self._matched >= self.nth:
+            if self.repeat:
+                self._matched = 0
+            else:
+                self._spent = True
+            return True
+        return False
+
+
+class FaultPlan:
+    """The parsed ``ADT_FAULT_PLAN``: rules + the seeded RNG + counters."""
+
+    def __init__(self, spec: Optional[dict] = None):
+        spec = spec or {}
+        self.seed = int(spec.get("seed", 0))
+        self.rules: List[FaultRule] = [FaultRule(r)
+                                       for r in spec.get("faults", ())]
+        self.rng = random.Random(self.seed)
+        self.lock = threading.Lock()
+        self.injected: List[str] = []  # audit log: what fired, in order
+        # network-partition window (monotonic deadline): while set, every
+        # proxied RPC — on every connection — is HELD until the window
+        # heals, then delivered late. This is the zombie-revival fault:
+        # the partitioned worker is alive but silent (declared dead,
+        # fenced out of the next epoch), and its delayed writes arrive
+        # only after its replacement took over — exactly what the
+        # epoch fence must reject.
+        self.partition_until = 0.0
+
+    @classmethod
+    def from_env(cls) -> "FaultPlan":
+        raw = const.ENV.ADT_FAULT_PLAN.val
+        if not raw:
+            return cls()
+        if raw.startswith("@"):
+            with open(raw[1:]) as f:
+                raw = f.read()
+        elif os.path.exists(raw):
+            with open(raw) as f:
+                raw = f.read()
+        return cls(json.loads(raw))
+
+    def decide(self, cmd: str, step_arg: Optional[int]) -> List[FaultRule]:
+        """All rules that fire for this RPC (deterministic order)."""
+        with self.lock:
+            fired = [r for r in self.rules
+                     if r.should_fire(cmd, step_arg, self.rng)]
+            for r in fired:
+                self.injected.append("%s:%s" % (r.op, cmd))
+            return fired
+
+
+class _ConnState:
+    """Client->upstream stream parser state for one proxied connection."""
+
+    def __init__(self):
+        self.buf = b""
+        self.bin_need = 0      # payload bytes still owed to the last header
+        self.pending = b""     # complete RPC bytes awaiting forwarding
+
+
+class FaultyProxy:
+    """TCP proxy executing a :class:`FaultPlan` on the real wire path.
+
+    ``restart_fn`` (optional) is invoked for ``restart`` faults — it must
+    bounce the REAL service (e.g. ``server.stop(); server.start()``); the
+    proxy keeps its own listening port, so clients reconnect through the
+    same address and find the fresh service."""
+
+    def __init__(self, upstream_host: str, upstream_port: int,
+                 listen_port: int = 0, plan: Optional[FaultPlan] = None,
+                 restart_fn: Optional[Callable[[], None]] = None):
+        self._upstream = (upstream_host, upstream_port)
+        self._plan = plan if plan is not None else FaultPlan.from_env()
+        self._restart_fn = restart_fn
+        self._listen = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        self._listen.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        self._listen.bind(("127.0.0.1", listen_port))
+        self._listen.listen(128)
+        self.port = self._listen.getsockname()[1]
+        self._stop = threading.Event()
+        self._threads: List[threading.Thread] = []
+        self._conns_lock = threading.Lock()
+        self._conns: List[socket.socket] = []
+        self._accept_thread = threading.Thread(
+            target=self._accept_loop, name="adt-faultproxy", daemon=True)
+
+    @property
+    def plan(self) -> FaultPlan:
+        return self._plan
+
+    def start(self) -> "FaultyProxy":
+        self._accept_thread.start()
+        return self
+
+    def stop(self):
+        self._stop.set()
+        try:
+            self._listen.close()
+        except OSError:
+            pass
+        with self._conns_lock:
+            conns, self._conns = self._conns, []
+        for s in conns:
+            try:
+                s.close()
+            except OSError:
+                pass
+        for t in self._threads:
+            t.join(timeout=2)
+
+    def __enter__(self):
+        return self.start()
+
+    def __exit__(self, *exc):
+        self.stop()
+
+    # ------------------------------------------------------------ internals
+
+    def _accept_loop(self):
+        while not self._stop.is_set():
+            try:
+                client, _ = self._listen.accept()
+            except OSError:
+                return  # listener closed
+            t = threading.Thread(target=self._serve, args=(client,),
+                                 daemon=True)
+            t.start()
+            self._threads.append(t)
+
+    def _track(self, sock: socket.socket):
+        with self._conns_lock:
+            self._conns.append(sock)
+
+    @staticmethod
+    def _hard_reset(sock: socket.socket):
+        """Close with SO_LINGER 0: the peer sees a TCP RST (ECONNRESET),
+        the rudest real-world failure mode — not a clean FIN."""
+        try:
+            sock.setsockopt(socket.SOL_SOCKET, socket.SO_LINGER,
+                            struct.pack("ii", 1, 0))
+        except OSError:
+            pass
+        try:
+            sock.close()
+        except OSError:
+            pass
+
+    def _serve(self, client: socket.socket):
+        self._track(client)
+        try:
+            upstream = socket.create_connection(self._upstream, timeout=5)
+        except OSError:
+            self._hard_reset(client)
+            return
+        self._track(upstream)
+        # reply pump: upstream -> client, with optional truncation budget.
+        # budget[0] is None (no cap) or bytes still allowed through.
+        budget = [None]
+        budget_lock = threading.Lock()
+        done = threading.Event()
+
+        def pump_replies():
+            try:
+                while True:
+                    data = upstream.recv(262144)
+                    if not data:
+                        break
+                    with budget_lock:
+                        cap = budget[0]
+                        if cap is not None:
+                            data = data[:cap]
+                            budget[0] = cap - len(data)
+                    if data:
+                        client.sendall(data)
+                    with budget_lock:
+                        if budget[0] is not None and budget[0] <= 0:
+                            break  # truncation: cut the reply mid-payload
+            except OSError:
+                pass
+            finally:
+                done.set()
+                with budget_lock:
+                    faulted = budget[0] is not None
+                if faulted:
+                    # a truncate/reset fault engaged: the cut must look
+                    # like the violent failure it models (TCP RST)
+                    self._hard_reset(client)
+                else:
+                    # fault-free upstream close (e.g. SHUTDOWN): relay a
+                    # clean FIN — the proxy must never inject resets the
+                    # plan did not declare
+                    try:
+                        client.close()
+                    except OSError:
+                        pass
+                try:
+                    upstream.close()
+                except OSError:
+                    pass
+
+        rt = threading.Thread(target=pump_replies, daemon=True)
+        rt.start()
+        state = _ConnState()
+        try:
+            while not done.is_set():
+                data = client.recv(262144)
+                if not data:
+                    break
+                state.buf += data
+                if not self._drain_rpcs(state, client, upstream,
+                                        budget, budget_lock):
+                    return  # connection was reset by a fault
+        except OSError:
+            pass
+        finally:
+            try:
+                upstream.shutdown(socket.SHUT_WR)  # EOF propagates upstream
+            except OSError:
+                pass
+            done.wait(timeout=5)
+            try:
+                client.close()
+            except OSError:
+                pass
+
+    def _drain_rpcs(self, state: _ConnState, client, upstream,
+                    budget, budget_lock) -> bool:
+        """Carve complete RPCs out of ``state.buf``, applying faults at
+        each boundary. Returns False when a fault reset the connection."""
+        while True:
+            if state.bin_need > 0:
+                take = min(state.bin_need, len(state.buf))
+                state.pending += state.buf[:take]
+                state.buf = state.buf[take:]
+                state.bin_need -= take
+                if state.bin_need > 0:
+                    return True  # payload incomplete: wait for more bytes
+                if not self._dispatch(state, client, upstream,
+                                      budget, budget_lock):
+                    return False
+                continue
+            pos = state.buf.find(b"\n")
+            if pos < 0:
+                return True
+            header = state.buf[:pos + 1]
+            state.buf = state.buf[pos + 1:]
+            parts = header.decode("latin-1").split()
+            state.pending += header
+            need_arg = _BINARY_LEN_ARG.get(parts[0] if parts else "")
+            if need_arg is not None and len(parts) > need_arg:
+                try:
+                    state.bin_need = max(0, int(parts[need_arg]))
+                except ValueError:
+                    state.bin_need = 0  # server will reject; just forward
+                if state.bin_need > 0:
+                    continue  # accumulate the payload first
+            if not self._dispatch(state, client, upstream,
+                                  budget, budget_lock):
+                return False
+
+    def _dispatch(self, state: _ConnState, client, upstream,
+                  budget, budget_lock) -> bool:
+        """One complete RPC is in ``state.pending``: decide faults, then
+        forward (or not). Returns False when the connection was reset."""
+        rpc, state.pending = state.pending, b""
+        parts = rpc.split(b"\n", 1)[0].decode("latin-1").split()
+        cmd = parts[0] if parts else ""
+        step_arg = None
+        if cmd == "STEP" and len(parts) >= 3:
+            try:
+                step_arg = int(parts[2])
+            except ValueError:
+                pass
+        fired = self._plan.decide(cmd, step_arg)
+        reset_after = False
+        for rule in fired:
+            if rule.op == "delay":
+                logging.info("faultinject: delaying %s by %.3fs",
+                             cmd, rule.delay_s)
+                time.sleep(rule.delay_s)
+            elif rule.op == "reset" and rule.when == "before":
+                # drop the request entirely: it never reached the service
+                logging.info("faultinject: reset (before) on %s", cmd)
+                self._hard_reset(client)
+                self._hard_reset(upstream)
+                return False
+            elif rule.op == "reset":
+                # cut the reply path BEFORE forwarding: the request must
+                # reach the service, the reply must never reach the client
+                # — the ambiguous drop, with no race against the pump
+                with budget_lock:
+                    budget[0] = 0
+                reset_after = True
+            elif rule.op == "truncate":
+                with budget_lock:
+                    budget[0] = rule.bytes
+                logging.info("faultinject: truncating reply of %s to %d "
+                             "bytes", cmd, rule.bytes)
+            elif rule.op == "partition":
+                with self._plan.lock:
+                    self._plan.partition_until = (time.monotonic()
+                                                  + rule.duration_s)
+                logging.warning("faultinject: PARTITION for %.1fs starting "
+                                "at %s", rule.duration_s, cmd)
+            elif rule.op == "restart" and self._restart_fn is not None:
+                logging.warning("faultinject: restarting service at %s %s",
+                                cmd, step_arg)
+                self._restart_fn()
+        with self._plan.lock:
+            hold = self._plan.partition_until - time.monotonic()
+        if hold > 0:
+            # the partition window: hold (don't drop) — delivery resumes
+            # the instant the partition heals, i.e. the zombie's writes
+            # arrive LATE rather than never
+            logging.info("faultinject: holding %s for %.1fs (partition)",
+                         cmd, hold)
+            time.sleep(hold)
+        try:
+            upstream.sendall(rpc)
+        except OSError:
+            self._hard_reset(client)
+            return False
+        if reset_after:
+            # the AMBIGUOUS drop: request forwarded (the graceful upstream
+            # close in _serve's finally lets the service read and apply
+            # it), but the client connection dies reply-less
+            logging.info("faultinject: reset (after) on %s", cmd)
+            self._hard_reset(client)
+            return False
+        return True
+
 
 # ===================================================== checkpoint lifecycle
 #

@@ -39,9 +39,21 @@ and replaces the state; the savers ask :meth:`Runner.sentinel_save_veto`
 and :meth:`Runner.sentinel_healthy`; every restore re-syncs the LR scale
 (:meth:`Runner.notify_state_restored`).
 :class:`WrappedSession` is the session facade
-``AutoDist.create_distributed_session`` returns. The JAX runner's in-run
-elastic and preemption planes belong to later slices of the port
-(ROADMAP A items 8.3b and 8.3c).
+``AutoDist.create_distributed_session`` returns.
+
+The in-run elastic plane (``runtime/elastic.py``, ``ADT_ELASTIC_INRUN``):
+with a membership installed, step boundaries poll the cluster epoch
+(:meth:`Runner._poll_epoch`); a newer one parks a reconfigure that runs
+before the next dispatch (:meth:`Runner._maybe_reconfigure`: the members'
+barrier, the state snapshot on the card, the wired handler's rejoin and
+rebuild — ``AutoDist._elastic_reconfigure`` — and the ack). Where the
+JAX runtime hangs in a collective a dead peer never enters, gloo raises:
+a step whose collective fails waits for the chief's shrink epoch,
+reconfigures and runs again on the new world (:meth:`Runner.run`), when
+the step had not begun to write its state (``writes_begun``); a torn
+step restores the newest checkpoint in the rebuild instead. The JAX
+runner's preemption plane belongs to a later slice (ROADMAP A item
+8.3c).
 """
 import atexit
 import contextlib
@@ -63,6 +75,17 @@ from autodist_tpu_torch.runtime.resilience import ResilientCoordinationClient
 from autodist_tpu_torch.telemetry import spans as tel
 from autodist_tpu_torch.train_state import TrainState
 from autodist_tpu_torch.utils import logging
+
+# how long a step whose collective failed at more than one replica waits
+# for the chief's shrink epoch before the error goes on (the chief
+# publishes it once its process watcher has seen the death, which gloo's
+# errors precede by milliseconds)
+INRUN_EPOCH_WAIT_S = 30.0
+
+
+class _Rerun(Exception):
+    """Internal: the in-run plane reconfigured this process after its
+    step's collective failed; the step runs again on the new world."""
 
 
 class MetricsHandle:
@@ -225,6 +248,17 @@ class Runner:
         # the one-shot "compiling" grace around the first dispatch
         self._compile_grace_marked = False
         self._compile_grace_cleared = False
+        # the in-run elastic plane: the membership installed at build
+        # (None otherwise), the rebuild handler AutoDist wires, and a
+        # pending (epoch, roster) awaiting the next safe point
+        from autodist_tpu_torch.runtime import elastic as elastic_lib
+        self._membership = elastic_lib.current()
+        self._reconfigure_fn = None
+        self._reconfig_pending = None
+        self._reconfig_torn = False
+        self._epoch_poll_at = 0.0
+        self._last_reconfigure_s = None
+        self._reconfigs = 0
         self._atexit_cb = None
         if self._hb_enabled or self._coord is not None:
             # goodbye on exit: a worker whose script just ends must
@@ -299,7 +333,11 @@ class Runner:
         restore falls back further if damage only shows while reading.
         With no valid checkpoint one replica warns and starts fresh; more
         than one raise, since peers restoring different steps would
-        diverge."""
+        diverge. A worker admitted into a running in-run elastic job takes
+        the chief's state instead (:meth:`_init_joined_late`)."""
+        m = self._membership
+        if m is not None and m.joined_late:
+            return self._init_joined_late(m)
         if const.ENV.ADT_AUTO_RESUME.val:
             from autodist_tpu_torch.checkpoint import latest_checkpoint
             directory = const.ENV.ADT_CKPT_DIR.val
@@ -328,6 +366,167 @@ class Runner:
             self.state = self._dstep.init_state(params, opt_state)
         self.notify_state_restored()  # a fresh init resets the LR scale
         return self.state
+
+    def _init_joined_late(self, m):
+        """Grow-on-join: this worker was admitted into a running job, so
+        it takes the run's state from the chief, whose reconfigure sends
+        it (``elastic.broadcast_state``, then ``init_state``'s broadcast),
+        or — when the chief has no whole copy — restores the newest
+        checkpoint with it; a fresh init would diverge from the run."""
+        from autodist_tpu_torch.runtime import elastic as elastic_lib
+        with self._collectives(), tel.span("elastic.broadcast", "elastic",
+                                           epoch=m.epoch, joiner=True):
+            snap = elastic_lib.broadcast_state(None, self.device)
+            if snap is None:
+                self._restore_newest("grow-on-join")
+            else:
+                elastic_lib.adopt_snapshot(self, snap)
+        m.joined_late = False
+        try:
+            m.ack(m.epoch)
+        except OSError:
+            pass
+        self._step_count = int(self.state.step)
+        logging.warning("elastic: adopted the chief's state at step %d "
+                        "(grow-on-join, epoch %d)", self._step_count, m.epoch)
+        return self.state
+
+    def _restore_newest(self, why: str):
+        """Restore the newest committed checkpoint in ``ADT_CKPT_DIR``
+        (the in-run plane's fallback when no whole copy of the state is
+        at hand)."""
+        from autodist_tpu_torch.checkpoint import latest_checkpoint
+        found, saver = latest_checkpoint(const.ENV.ADT_CKPT_DIR.val)
+        if saver is None:
+            raise RuntimeError(
+                "elastic %s: the state is not locally whole and no committed "
+                "checkpoint exists in %s" % (why, const.ENV.ADT_CKPT_DIR.val))
+        saver.restore(self)
+        tel.counter_add("elastic.ckpt_fallbacks")
+        logging.warning("elastic %s: restored checkpoint step %s (no whole "
+                        "copy of the state)", why, found)
+
+    # ------------------------------------------------ in-run elastic plane
+
+    def set_reconfigure_handler(self, fn):
+        """Wire the rebuild half of an in-run reconfiguration:
+        ``fn(runner, epoch, roster, snapshot)`` joins the epoch's process
+        group, rebuilds the step for it and places the state (from
+        ``snapshot``, or from the newest checkpoint when it is None).
+        ``AutoDist._elastic_reconfigure`` is the standard handler."""
+        self._reconfigure_fn = fn
+
+    def adopt_distributed_step(self, dstep):
+        """Swap in a rebuilt DistributedStep (after a reconfigure): the
+        remapper and the staleness follow the new world; the step counts
+        and telemetry go on, since it is the same run."""
+        self._dstep = dstep
+        self._remapper = Remapper(dstep.device, dstep.replica_info)
+        self._staleness = int(dstep.metadata.get("staleness", 0))
+
+    def _poll_epoch(self):
+        """The boundary's membership poll (at most every
+        ``ADT_ELASTIC_POLL_S``): a published epoch newer than ours parks a
+        reconfigure for the next safe point."""
+        m = self._membership
+        if m is None or self._reconfig_pending is not None:
+            return
+        now = time.monotonic()
+        if now < self._epoch_poll_at:
+            return
+        self._epoch_poll_at = now + max(0.01,
+                                        const.ENV.ADT_ELASTIC_POLL_S.val)
+        info = m.peek()
+        if info is not None and info[0] > m.epoch:
+            self._reconfig_pending = info
+            logging.warning(
+                "elastic: cluster epoch %d published (we are at %d) — "
+                "reconfiguring to %d member(s) at the next boundary",
+                info[0], m.epoch, len(info[1]))
+
+    def _maybe_reconfigure(self):
+        """Carry out a pending membership change at a safe point (no
+        dispatch running): the snapshot of this process's state (none
+        after a torn step), the barrier of the new epoch's members, the
+        handler's rejoin and rebuild, and the ack. Its time is the
+        ``elastic.reconfigure`` span."""
+        if self._reconfig_pending is None:
+            return
+        (epoch, roster), self._reconfig_pending = \
+            self._reconfig_pending, None
+        torn, self._reconfig_torn = self._reconfig_torn, False
+        m = self._membership
+        from autodist_tpu_torch.runtime import elastic as elastic_lib
+        if m.worker not in roster:
+            # declared dead, yet alive: a zombie. Every write path is
+            # fenced already; this is the loud exit
+            raise elastic_lib.FencedOut("reconfigure", m.epoch, epoch,
+                                        m.worker, roster)
+        if self._reconfigure_fn is None:
+            raise RuntimeError(
+                "elastic epoch %d published but no reconfigure handler is "
+                "wired on this Runner (AutoDist.build arms it for in-run "
+                "elastic jobs)" % epoch)
+        t0 = time.perf_counter()
+        with tel.span("elastic.reconfigure", "elastic", epoch=epoch,
+                      world=len(roster), from_world=len(m.roster),
+                      step=self._step_count, torn=torn):
+            snapshot = None
+            if not torn:
+                self._dstep.flush_ps()
+                snapshot = elastic_lib.snapshot_runner_state(self)
+            # the new epoch's members meet at a step boundary: nobody
+            # leaves its group while a peer is still in a collective
+            m.barrier_reconf(epoch, m.world(roster))
+            self._reconfigure_fn(self, epoch, roster, snapshot)
+            m.adopt(epoch, roster)
+            try:
+                m.ack(epoch)
+            except OSError:
+                logging.warning("elastic: ack for epoch %d failed (the "
+                                "chief may escalate)", epoch)
+        self._last_reconfigure_s = time.perf_counter() - t0
+        self._reconfigs += 1
+        tel.counter_add("elastic.reconfigs")
+        tel.gauge_set("elastic.epoch", float(epoch))
+        logging.warning(
+            "elastic: reconfigured to epoch %d (%d member(s), %d "
+            "replica(s)) in %.3fs", epoch, len(roster),
+            self._dstep.num_replicas, self._last_reconfigure_s)
+
+    def _inrun_recover(self, exc) -> bool:
+        """A collective of this process's step failed under the in-run
+        plane: wait (``INRUN_EPOCH_WAIT_S`` at more than one replica; at
+        one, only an epoch already published counts) for a newer epoch
+        and reconfigure to it. True when this process reconfigured: the
+        caller runs its step again. A step that had begun to write its
+        state (``writes_begun``) reconfigures with no snapshot, so the
+        rebuild restores the newest checkpoint."""
+        m = self._membership
+        if m is None or self._reconfigure_fn is None:
+            return False
+        torn = bool(getattr(self._dstep, "writes_begun", True))
+        wait = INRUN_EPOCH_WAIT_S if self._dstep.num_replicas > 1 else 0.0
+        logging.warning("elastic: a collective of step %d failed (%s) — "
+                        "waiting up to %.0f s for the shrink epoch (state "
+                        "%s)", self._step_count, exc, wait,
+                        "torn: the rebuild restores a checkpoint" if torn
+                        else "intact: the step runs again")
+        from autodist_tpu_torch.runtime import coordinator
+        deadline = time.monotonic() + wait
+        while True:
+            info = m.peek(fresh=True)
+            if info is not None and info[0] > m.epoch:
+                break
+            if time.monotonic() >= deadline or \
+                    coordinator.whole_job_restart_claimed():
+                return False
+            time.sleep(0.05)
+        self._reconfig_pending = info
+        self._reconfig_torn = torn
+        tel.counter_add("elastic.step_reruns")
+        self._maybe_reconfigure()
+        return True
 
     # ------------------------------------------------------------ sentinel
 
@@ -417,26 +616,33 @@ class Runner:
         being modified and ``(new_state, metrics)`` is returned."""
         t_begin = time.perf_counter()
         self._maybe_sentinel_act()  # a pending rollback replaces the state
-        st = state if state is not None else self.state
-        if st is None:
-            raise RuntimeError("Runner.run before init()")
-        self._compile_grace_begin()
-        with self._collectives(), tel.span(
-                "runner.dispatch", "runner", microsteps=1, sync=sync,
-                step=self._step_count):
-            with tel.span("runner.feed", "runner"):
-                placed = self._remapper.remap_feed(batch)
-            self._check_ps_owner_health()
-            new_state, metrics = self._dstep(st, placed,
-                                             donate=state is None)
-            if state is None:
-                self.state = new_state
-            self._after_dispatch(1)
-            handle = MetricsHandle(metrics, self._remapper, owner=self,
-                                   observer=self._sentinel_observer())
-            out = handle.result() if sync else handle
-            self._record_step_time(t_begin)
-            return (new_state, out) if state is not None else out
+        self._poll_epoch()
+        self._maybe_reconfigure()   # a pending epoch re-forms the world
+        while True:
+            st = state if state is not None else self.state
+            if st is None:
+                raise RuntimeError("Runner.run before init()")
+            self._compile_grace_begin()
+            try:
+                with self._collectives(rerun=state is None), tel.span(
+                        "runner.dispatch", "runner", microsteps=1,
+                        sync=sync, step=self._step_count):
+                    with tel.span("runner.feed", "runner"):
+                        placed = self._remapper.remap_feed(batch)
+                    self._check_ps_owner_health()
+                    new_state, metrics = self._dstep(st, placed,
+                                                     donate=state is None)
+                    if state is None:
+                        self.state = new_state
+                    self._after_dispatch(1)
+                    handle = MetricsHandle(
+                        metrics, self._remapper, owner=self,
+                        observer=self._sentinel_observer())
+                    out = handle.result() if sync else handle
+                    self._record_step_time(t_begin)
+                    return (new_state, out) if state is not None else out
+            except _Rerun:
+                continue  # the world was re-formed: the step again
 
     def run_superstep(self, stacked_batch, sync: bool = False):
         """One FUSED superstep: k microsteps (k = the stacked feed's
@@ -447,25 +653,34 @@ class Runner:
         them back before returning)."""
         t_begin = time.perf_counter()
         self._maybe_sentinel_act()  # a pending rollback replaces the state
+        self._poll_epoch()
+        self._maybe_reconfigure()   # a pending epoch re-forms the world
         if self.state is None:
             raise RuntimeError("Runner.run_superstep before init()")
-        self._compile_grace_begin()
-        with tel.span("runner.feed", "runner", stacked=True):
-            placed = self._remapper.remap_feed_stack(stacked_batch)
-        leaves = pytree.tree_leaves(placed)
-        k = int(np.shape(leaves[0])[0]) if leaves else 1
-        with self._collectives(), tel.span(
-                "runner.dispatch", "runner", microsteps=k, sync=sync,
-                step=self._step_count):
-            self._check_ps_owner_health()
-            self.state, metrics = self._dstep.run_multi(self.state, placed)
-            self._after_dispatch(k)
-            handle = MetricsHandle(metrics, self._remapper, microsteps=k,
-                                   owner=self,
-                                   observer=self._sentinel_observer())
-            out = handle.result() if sync else handle
-            self._record_step_time(t_begin)
-            return out
+        while True:
+            self._compile_grace_begin()
+            # placed by the live world's remapper: a re-formed world
+            # takes other rows a rank
+            with tel.span("runner.feed", "runner", stacked=True):
+                placed = self._remapper.remap_feed_stack(stacked_batch)
+            leaves = pytree.tree_leaves(placed)
+            k = int(np.shape(leaves[0])[0]) if leaves else 1
+            try:
+                with self._collectives(rerun=True), tel.span(
+                        "runner.dispatch", "runner", microsteps=k,
+                        sync=sync, step=self._step_count):
+                    self._check_ps_owner_health()
+                    self.state, metrics = self._dstep.run_multi(self.state,
+                                                                placed)
+                    self._after_dispatch(k)
+                    handle = MetricsHandle(
+                        metrics, self._remapper, microsteps=k, owner=self,
+                        observer=self._sentinel_observer())
+                    out = handle.result() if sync else handle
+                    self._record_step_time(t_begin)
+                    return out
+            except _Rerun:
+                continue  # the world was re-formed: the superstep again
 
     def _after_dispatch(self, microsteps: int):
         """The control plane after a dispatch, counted in microsteps (a
@@ -477,6 +692,7 @@ class Runner:
         self._superstep_count += 1
         tel.counter_add("runner.steps", microsteps)
         tel.counter_add("runner.supersteps")
+        self._poll_epoch()
         self._maybe_heartbeat()
         if self._coord is not None:
             # report this step, then wait while more than `staleness`
@@ -492,7 +708,7 @@ class Runner:
         self._maybe_check_mirrors()
 
     @contextlib.contextmanager
-    def _collectives(self):
+    def _collectives(self, rerun: bool = False):
         """Around the calls that meet the other ranks (a step, the init's
         and the restore's broadcast): at more than one replica, a
         ``RuntimeError`` (gloo raises one within milliseconds of a peer's
@@ -500,10 +716,15 @@ class Runner:
         sync-elastic chief that waits for the process watcher's restart
         decision, which replaces this process, before the error may
         unwind into interpreter exit, whose hooks would read the worker's
-        death as shutdown; elsewhere it returns at once."""
+        death as shutdown; elsewhere it returns at once. With ``rerun``
+        (a step) under the in-run plane, the error first waits for the
+        shrink epoch (:meth:`_inrun_recover`); once this process has
+        reconfigured, :class:`_Rerun` tells the step to run again."""
         try:
             yield
         except RuntimeError as e:
+            if rerun and self._inrun_recover(e):
+                raise _Rerun() from e
             if self._dstep.num_replicas > 1:
                 from autodist_tpu_torch.runtime import coordinator
                 coordinator.collective_failed(e)
@@ -673,6 +894,17 @@ class Runner:
             "ps_bytes_pushed": c.get("ps.bytes_pushed", 0.0),
             "tp_fwd_allreduces": c.get("tp.fwd_allreduces", 0.0),
             "tp_fwd_allreduce_bytes": c.get("tp.fwd_allreduce_bytes", 0.0),
+        }
+        # the in-run elastic plane (a stable shape): the epoch, the
+        # reconfigures and the last one's time, the fenced writes
+        m = self._membership
+        out["elastic"] = {
+            "epoch": m.epoch if m is not None else None,
+            "reconfigs": self._reconfigs,
+            "last_reconfigure_s": (round(self._last_reconfigure_s, 6)
+                                   if self._last_reconfigure_s is not None
+                                   else None),
+            "fenced_writes": c.get("elastic.fenced_writes", 0.0),
         }
         # the key exists whether or not a sentinel policy is armed
         sen = self._sentinel

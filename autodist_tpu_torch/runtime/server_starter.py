@@ -19,10 +19,15 @@ group, because a group pins its process set while the chief relaunches
 dead workers one at a time; such processes meet only through the
 parameter service. A sync-elastic process joins as any other: its
 recovery is a whole-job restart with a fresh group
-(``runtime/coordinator.py``).
+(``runtime/coordinator.py``), or under ``ADT_ELASTIC_INRUN`` an in-run
+reconfiguration (``runtime/elastic.py``): :func:`reinit_distributed`
+leaves the group and joins the next epoch's, and a relaunched worker
+that finds a published epoch without itself in it waits for admission
+and joins the epoch that admits it (:func:`maybe_init_distributed`).
 """
 import datetime
 import json
+import os
 import socket
 from typing import Optional, Sequence, Tuple
 
@@ -102,6 +107,32 @@ def init_distributed(coordinator_address: str, num_processes: int,
     _INITIALIZED = True
 
 
+def reinit_distributed(coordinator_address: str, num_processes: int,
+                       process_id: int, device=None):
+    """Leave this process's default group and join a new one: the
+    in-run elastic reconfiguration (``elastic.rejoin_process_set``). Every
+    group of the old world is invalid afterwards; the caller holds its
+    state and rebuilds its step for the new world. A world of one process
+    joins no group, as :func:`init_distributed` joins none."""
+    global _INITIALIZED
+    if dist.is_available() and dist.is_initialized():
+        try:
+            dist.destroy_process_group()
+        except Exception as e:  # noqa: BLE001 — a dead peer may fail the
+            # teardown; the local state is what matters
+            logging.warning("destroy_process_group during the elastic "
+                            "rejoin: %s (continuing)", e)
+    _INITIALIZED = False
+    if num_processes <= 1:
+        logging.warning("elastic rejoin: a single process — no process "
+                        "group")
+        return
+    logging.warning("elastic rejoin: joining the process group at %s "
+                    "(num_processes=%d, process_id=%d)",
+                    coordinator_address, num_processes, process_id)
+    init_distributed(coordinator_address, num_processes, process_id, device)
+
+
 def initialized() -> bool:
     """True once this process's distributed bring-up has happened: a
     group it joined here, one the caller made (torchrun, ``mp.spawn``),
@@ -151,10 +182,59 @@ def maybe_init_distributed(device=None):
         logging.info("elastic mode: skipping the process group join "
                      "(process coupling is via the parameter service)")
         return
+    if const.ENV.ADT_ELASTIC_INRUN.val and const.is_worker():
+        _join_admitted(device)
+        if initialized():
+            return
     addr = const.ENV.ADT_COORDINATOR_ADDR.val
     n = const.ENV.ADT_NUM_PROCESSES.val
     if addr and n > 1:
         init_distributed(addr, n, const.ENV.ADT_PROCESS_ID.val, device)
+
+
+def _join_admitted(device=None):
+    """An in-run elastic worker's bring-up: a relaunched worker whose
+    roster no longer holds it must not join the launch group (its
+    environment is stale); it announces itself, waits until the chief
+    admits it, and joins the epoch that does. Its rank comes from the
+    roster expanded over the resource spec's entries of each node,
+    which the chief passes in ``ADT_ELASTIC_ENTRIES``. Nothing happens
+    before any epoch was published (the first launch)."""
+    worker = const.ENV.ADT_WORKER.val
+    info = elastic.wait_for_admission(worker)
+    if info is None:
+        return
+    epoch, roster = info
+    chief = const.ENV.ADT_COORDINATOR_ADDR.val.split(":")[0] or roster[0]
+    if chief not in roster:
+        chief = roster[0]
+    procs = elastic.roster_processes(roster, elastic_entries(), chief)
+    # this process is the LOCAL_RANK-th entry of its node
+    me = (worker, int(os.environ.get("LOCAL_RANK", "0") or 0))
+    if epoch > 1:
+        membership = elastic.install(elastic.Membership(worker, epoch,
+                                                        roster))
+        membership.joined_late = True
+        membership.entries = elastic_entries()
+        # the members' reconfiguration barrier, which counts the whole
+        # new world, this joiner included
+        membership.barrier_reconf(epoch, len(procs))
+    os.environ[const.ENV.ADT_NUM_PROCESSES.name_str] = str(len(procs))
+    os.environ[const.ENV.ADT_PROCESS_ID.name_str] = str(procs.index(me))
+    init_distributed(elastic.epoch_coordinator_address(epoch), len(procs),
+                     procs.index(me), device)
+
+
+def elastic_entries() -> dict:
+    """Each node's number of device entries in the job's resource spec,
+    as the chief wrote them into ``ADT_ELASTIC_ENTRIES``
+    (``node=count,...``); empty when it is not set."""
+    out = {}
+    for part in const.ENV.ADT_ELASTIC_ENTRIES.val.split(","):
+        if "=" in part:
+            node, n = part.rsplit("=", 1)
+            out[node] = int(n)
+    return out
 
 
 def broadcast_bytes(payload: Optional[bytes] = None) -> bytes:

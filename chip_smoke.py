@@ -340,6 +340,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -411,6 +412,61 @@ def ptxas_usage(log):
 def fail(msg):
     print("chip_smoke FAILED: %s" % msg, file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+class _ThreadStdout:
+    """``sys.stdout`` that holds back what a :class:`Beside` thread
+    prints, so that its lines come out as one block when it is joined."""
+
+    def __init__(self, real):
+        self.real = real
+        self.held = {}
+
+    def write(self, text):
+        held = self.held.get(threading.get_ident())
+        if held is None:
+            return self.real.write(text)
+        held.append(text)
+        return len(text)
+
+    def flush(self):
+        self.real.flush()
+
+    def __getattr__(self, name):
+        return getattr(self.real, name)
+
+
+class Beside:
+    """Run ``fn(*args)`` in a thread beside the main thread's phases (the
+    two drive processes of their own, on the one card): :meth:`result`
+    joins it, prints what it printed, and returns its value or raises its
+    error (a ``fail`` inside exits the smoke)."""
+
+    def __init__(self, fn, *args):
+        self._out, self._exc, self._held = None, None, []
+        if not isinstance(sys.stdout, _ThreadStdout):
+            sys.stdout = _ThreadStdout(sys.stdout)
+
+        def run():
+            sys.stdout.held[threading.get_ident()] = self._held
+            try:
+                self._out = fn(*args)
+            except BaseException as e:  # noqa: BLE001 — re-raised in join
+                self._exc = e
+            finally:
+                sys.stdout.held.pop(threading.get_ident(), None)
+        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread.start()
+
+    def result(self):
+        self._thread.join()
+        # through the proxy: a Beside joined inside another's thread
+        # holds its lines in that thread's block
+        sys.stdout.write("".join(self._held))
+        sys.stdout.flush()
+        if self._exc is not None:
+            raise self._exc
+        return self._out
 
 
 def card_line():
@@ -2640,7 +2696,8 @@ def sync_phase(card):
     print("phase 14 (a)-(c): N = %d on cuda:0 over gloo, bert_base bf16 "
           "(seq %d, global batch %d, flash), %d steps of each plan from one "
           "init, deterministic mode: AllReduce, ZeroSharded, "
-          "ZeroSharded(int8), PartitionedAR, AllReduce(overlap=True)"
+          "ZeroSharded(int8), PartitionedAR, AllReduce(overlap=True) (run "
+          "beside phase 10)"
           % (DP_RANKS, BERT_SEQ, BERT_BATCH, SYNC_STEPS))
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -2912,10 +2969,12 @@ def remat_phase(card):
     return launches
 
 
-def sync_variants_phase(card):
-    """Phase 14: the sync variants, the bf16 compute tier and remat.
-    Returns each kernel's launches over (a)-(c), (d) and (e)."""
-    return sync_phase(card), tier_phase(card), remat_phase(card)
+def sync_variants_phase(card, sync_ac):
+    """Phase 14: the sync variants (``sync_ac``, the :class:`Beside` of
+    :func:`sync_phase`, started beside phase 10), the bf16 compute tier
+    and remat. Returns each kernel's launches over (a)-(c), (d) and
+    (e)."""
+    return sync_ac.result(), tier_phase(card), remat_phase(card)
 
 
 # ------------------------------------------------------------- phase 15
@@ -3300,7 +3359,8 @@ def ps_dp_phase(card):
     import torch.multiprocessing as mp
     print("phase 15 (f): DLRM at N = %d on cuda:0 over gloo (global batch "
           "%d), Parallax() and AllReduce() (the tables on the sparse wire), "
-          "%d steps each from one init, deterministic mode"
+          "%d steps each from one init, deterministic mode (run beside "
+          "(a)-(e))"
           % (DP_RANKS, PS_BATCH, PS_PARITY_STEPS))
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -3346,13 +3406,16 @@ def ps_phase(card):
     from autodist_tpu_torch.telemetry import spans as tel
     # the PS spans (ps.pull, ps.push, ps.apply) record while tracing is on
     tel.configure("1")
+    # (f)'s two ranks run beside (a)-(e) (their gates are exactness and
+    # bounds; their step times are informational)
+    ranks = Beside(ps_dp_phase, card)
     try:
         dlrm_ps_phase(card)
         ncf_ps_phase(card)
         launches, bert_losses = bert_ps_phase(card)
         pipeline_phase(card)
-        ps_dp_phase(card)
     finally:
+        ranks.result()
         tel.configure(None)
     return launches, bert_losses
 
@@ -3796,6 +3859,9 @@ def carry_phase(card, bert_per_step_losses):
 ASYNC_WARMUP, ASYNC_STEPS = 1, 7
 # drained steps of phase 17 (a), each against PS()'s
 ASYNC_DRAINED = 3
+# 17 (a): bert_base's depth there (the host's Adam over every variable
+# sets its time; full width, 2 of the 12 layers)
+ASYNC_LAYERS = 2
 # (b) and (c) at fewer steps: the phase stays near two minutes on the card
 # phase 17 (b) and 18 (d): async steps at least (warm-up + steps), then
 # on until the process's loss has fallen, at most ASYNC_MAX_STEPS: a
@@ -3852,23 +3918,26 @@ def count_collectives():
 
 
 def bert_async_phase(card):
-    """Phase 17 (a): bert_base at full width under PS(sync=False), one
-    process. Returns the kernels' launches over (a)'s async steps."""
+    """Phase 17 (a): bert_base at full width, cut to ``ASYNC_LAYERS``
+    layers, under PS(sync=False), one process. Returns the kernels'
+    launches over (a)'s async steps."""
     import statistics
     import torch
     from autodist_tpu_torch import const, strategy
     from autodist_tpu_torch.models import bert
     from autodist_tpu_torch.runtime import ps_service as pss
-    cfg = bert.BertConfig.base(dtype=torch.bfloat16)
+    cfg = bert.BertConfig.base(dtype=torch.bfloat16, num_layers=ASYNC_LAYERS)
     loss_fn, params, batch, _ = bert.make_train_setup(
         cfg, seq_len=BERT_SEQ, batch_size=BERT_BATCH, seed=0,
         attention="flash")
-    print("phase 17 (a): bert_base bf16 (seq %d, batch %d, flash) under "
-          "PS(sync=False), one process, every variable on the host PS: %d "
-          "steps drained (flush_ps(); store.drain() after each, serial "
-          "path, deterministic mode) against PS() from the same init, then "
-          "%d + %d steps undrained on the pipeline"
-          % (BERT_SEQ, BERT_BATCH, ASYNC_DRAINED, ASYNC_WARMUP, ASYNC_STEPS))
+    print("phase 17 (a): bert_base bf16 at full width, %d of its 12 layers "
+          "(seq %d, batch %d, flash) under PS(sync=False), one process, "
+          "every variable on the host PS: %d steps drained (flush_ps(); "
+          "store.drain() after each, serial path, deterministic mode) "
+          "against PS() from the same init, then %d + %d steps undrained on "
+          "the pipeline"
+          % (ASYNC_LAYERS, BERT_SEQ, BERT_BATCH, ASYNC_DRAINED, ASYNC_WARMUP,
+             ASYNC_STEPS))
     torch.use_deterministic_algorithms(True)
     os.environ["ADT_PS_OVERLAP"] = "0"
     got = {}
@@ -4201,7 +4270,7 @@ def dlrm_stale_phase(card, port):
     gloo."""
     print("phase 17 (c): DLRM default config under Parallax(staleness=2) at "
           "N = %d on cuda:0 over gloo (global batch %d), paced by the "
-          "coordination service, %d + %d steps"
+          "coordination service, %d + %d steps (run beside (b))"
           % (DP_RANKS, PS_BATCH, STALE_WARMUP, STALE_STEPS))
     res = spawn_pair(stale_child, "phase 17 (c)", port)
     a, b = res
@@ -4238,11 +4307,14 @@ def async_phase(card):
     t0 = time.perf_counter()
     try:
         launches = bert_async_phase(card)
-        for sub in (dlrm_async_phase, dlrm_stale_phase):
-            srv = CoordinationServer(free_port()).start()
-            try:
-                sub(card, srv.port)
-            finally:
+        # (c) runs beside (b), each on a service of its own
+        srvs = [CoordinationServer(free_port()).start() for _ in range(2)]
+        try:
+            stale = Beside(dlrm_stale_phase, card, srvs[1].port)
+            dlrm_async_phase(card, srvs[0].port)
+            stale.result()
+        finally:
+            for srv in srvs:
                 srv.stop()
     finally:
         tel.configure(None)
@@ -4900,10 +4972,18 @@ def elastic_sync_phase(card, tmp, dp_losses):
              resumed_first["t"] - death,
              " ".join("%.1f" % x for x in t_again),
              statistics.median(t_again), wall, card))
-    return launches
+    return launches, resumed_first["t"] - death
 
 
-def elastic_hang_phase(card, tmp):
+def start_hang(tmp):
+    """Start phase 19 (b)'s job in ``tmp``; :func:`elastic_hang_phase`
+    finishes it."""
+    return start_launched(tmp, "hang", 0, script="elastic_script.py",
+                          ADT_ELASTIC="1",
+                          ADT_HEARTBEAT_TIMEOUT_S=str(ELASTIC_HB_TIMEOUT_S))
+
+
+def elastic_hang_phase(card, tmp, job):
     """Phase 19 (b): NCF under PS(sync=False) launched by the chief; the
     worker's first incarnation goes silent at step 2, the watchdog kills
     it and the process watcher relaunches it."""
@@ -4911,13 +4991,10 @@ def elastic_hang_phase(card, tmp):
           "Adam 1e-4, launched by the chief, ADT_ELASTIC=1 "
           "ADT_HEARTBEAT_TIMEOUT_S=%d: the worker's first incarnation stops "
           "heartbeating at step 2 and sleeps; the relaunched one's first "
-          "dispatch lasts %d s more, %d steps"
+          "dispatch lasts %d s more, %d steps (run beside phases 18 and 22)"
           % (PS_BATCH, ELASTIC_HB_TIMEOUT_S, ELASTIC_SLOW_FIRST_S,
              ELASTIC_HANG_STEPS))
-    rc, err, wall, left = run_launched(
-        tmp, "hang", 0, 300, "phase 19 (b)", script="elastic_script.py",
-        ADT_ELASTIC="1",
-        ADT_HEARTBEAT_TIMEOUT_S=str(ELASTIC_HB_TIMEOUT_S))
+    rc, err, wall, left = finish_launched(job, 300, "phase 19 (b)")
     if rc != 0 or left:
         fail("phase 19 (b): the chief exited %d, %d processes left: %s"
              % (rc, len(left), err[-4000:]))
@@ -4978,8 +5055,11 @@ def elastic_fail_fast_phase(card, job):
           % (wall, card))
 
 
-def elastic_phase(card, dp_losses):
-    """Phase 19: supervised recovery. Returns (a)'s launches."""
+def elastic_phase(card, dp_losses, beside=None):
+    """Phase 19: supervised recovery; ``beside(recovery_s)`` (phases 18
+    and 22) runs while (b)'s and (c)'s jobs run. Returns (a)'s launches,
+    its whole-job recovery time (the death to the resumed first step,
+    s) and what ``beside`` returned."""
     import tempfile
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -4989,7 +5069,7 @@ def elastic_phase(card, dp_losses):
             f.write(ELASTIC_SCRIPT)
         with open(os.path.join(tmp, "spec.yml"), "w") as f:
             f.write(LAUNCH_SPEC)
-        launches = elastic_sync_phase(card, tmp, dp_losses)
+        launches, recovery_s = elastic_sync_phase(card, tmp, dp_losses)
         # (c) runs beside (b): its two processes start and end while
         # (b)'s first incarnation starts, long before (b)'s readings
         ctmp = os.path.join(tmp, "c")
@@ -4999,10 +5079,12 @@ def elastic_phase(card, dp_losses):
                     open(os.path.join(ctmp, name), "w") as dst:
                 dst.write(src.read())
         fail_fast = start_fail_fast(ctmp)
-        elastic_hang_phase(card, tmp)
+        hang = start_hang(tmp)
+        out = beside(recovery_s) if beside is not None else None
+        elastic_hang_phase(card, tmp, hang)
         elastic_fail_fast_phase(card, fail_fast)
     print("phase 19: %.1f s" % (time.perf_counter() - t0))
-    return launches
+    return launches, recovery_s, out
 
 
 # ------------------------------------------------------------- phase 20
@@ -5231,8 +5313,9 @@ def tp_phase(card):
     adt.reset()
     gc.collect()
     torch.cuda.empty_cache()
-    # (b) two processes, TensorParallel(2)
+    # (b) two processes, TensorParallel(2), beside phase 21 (a)'s two
     t0 = time.perf_counter()
+    shard = Beside(shard_spawn)
     with tempfile.TemporaryDirectory() as tmp:
         try:
             mp.start_processes(tp_child, args=(os.path.join(tmp, "store"),
@@ -5296,7 +5379,7 @@ def tp_phase(card):
     print("  (b) one save (whole params and Adam moments in the JAX layout, "
           "gathered over the model axis): %.1f ms on rank 0, %.1f MB [%s]"
           % (r0["save_ms"], r0["save_bytes"] / 1e6, card))
-    return launches_a, launches_b, rec16, rec8, r0["save_ms"]
+    return launches_a, launches_b, rec16, rec8, r0["save_ms"], shard
 
 
 # ------------------------------------------------------------- phase 21
@@ -5306,7 +5389,7 @@ SHARD_STEPS = 2              # 21 (a): steps before the save, and after
 SENT_WARMUP, SENT_TIMED = 2, 6   # 21 (b): paired per-step steps
 SENT_FUSE, SENT_SUPERSTEPS = 4, 3    # 21 (b): fused, after the capture
 SENT_VAR = "encoder.layer_0.MultiHeadAttention_0.query.weight"
-SCHED_STEPS = 3              # 21 (c): hier and ring steps at N = 4
+SCHED_STEPS = 2              # 21 (c): hier and ring steps at N = 4
 HIER_RANKS = 4
 # 21 (c): phase 19 (a)'s two loopback nodes, two ranks of cuda:0 each
 HIER_SPEC = {"nodes": [{"address": "127.0.0.1", "chief": True,
@@ -5407,36 +5490,46 @@ def shard_child(rank, store, out_dir):
     dist.destroy_process_group()
 
 
-def sharded_phase(card, gathered_ms):
-    """Phase 21 (a): tp_lm flagship's sharded checkpoint at tp 2 (two
-    processes), restored at tp 1 in this process and compared with the
-    gathered save. Returns the two ranks' launches."""
-    import gc
+def shard_spawn():
+    """Phase 21 (a)'s two ranks, run beside phase 20 (b)'s: returns (the
+    directory of their checkpoints and results, the results, seconds)."""
     import tempfile
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp()
+    try:
+        mp.start_processes(shard_child, args=(os.path.join(tmp, "store"),
+                                              tmp),
+                           nprocs=TP_RANKS, start_method="spawn")
+    except Exception as e:  # noqa: BLE001 — a rank failed
+        fail("phase 21 (a): a rank failed: %s" % (str(e).strip()[-2000:],))
+    res = []
+    for r in range(TP_RANKS):
+        with open(os.path.join(tmp, "rank%d.json" % r)) as f:
+            res.append(json.load(f))
+    return tmp, res, time.perf_counter() - t0
+
+
+def sharded_phase(card, gathered_ms, spawned):
+    """Phase 21 (a): tp_lm flagship's sharded checkpoint at tp 2 (two
+    processes, ``spawned``: the :class:`Beside` of :func:`shard_spawn`),
+    restored at tp 1 in this process and compared with the gathered
+    save. Returns the two ranks' launches."""
+    import gc
+    import shutil
     import numpy as np
     import torch
-    import torch.multiprocessing as mp
     import autodist_tpu_torch as adt
     from autodist_tpu_torch.checkpoint import ShardedSaver
     print("phase 21 (a): tp_lm flagship (bf16, seq %d, batch %d) at tp 2 on "
-          "%d processes of cuda:0 over gloo: %d steps, ShardedSaver.save, "
-          "%d more; restored at tp 2 (the same %d steps again) and at tp 1 "
-          "(one process)" % (TP_SEQ, TP_BATCH, TP_RANKS, SHARD_STEPS,
-                             SHARD_STEPS, SHARD_STEPS))
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        try:
-            mp.start_processes(shard_child, args=(os.path.join(tmp, "store"),
-                                                  tmp),
-                               nprocs=TP_RANKS, start_method="spawn")
-        except Exception as e:  # noqa: BLE001 — a rank failed
-            fail("phase 21 (a): a rank failed: %s"
-                 % (str(e).strip()[-2000:],))
-        res = []
-        for r in range(TP_RANKS):
-            with open(os.path.join(tmp, "rank%d.json" % r)) as f:
-                res.append(json.load(f))
-        print("  (a) two ranks ran in %.1f s" % (time.perf_counter() - t0))
+          "%d processes of cuda:0 over gloo (run beside phase 20 (b)): %d "
+          "steps, ShardedSaver.save, %d more; restored at tp 2 (the same %d "
+          "steps again) and at tp 1 (one process)"
+          % (TP_SEQ, TP_BATCH, TP_RANKS, SHARD_STEPS, SHARD_STEPS,
+             SHARD_STEPS))
+    tmp, res, seconds = spawned.result()
+    try:
+        print("  (a) two ranks ran in %.1f s" % seconds)
         cfg, loss_fn, _, params, batch = tp_setup()
         for r in res:
             label = "phase 21 (a) rank %d" % r["rank"]
@@ -5482,6 +5575,8 @@ def sharded_phase(card, gathered_ms):
         adt.reset()
         gc.collect()
         torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     r0, r1 = res
     launches = {}
     for r in res:
@@ -5822,14 +5917,17 @@ def schedules_phase(card, dp_losses):
     Returns each kernel's launches over every rank's steps."""
     print("phase 21 (c): all-reduce schedules on bert_base (bf16, seq %d, "
           "global batch %d, flash) over gloo on cuda:0: rhd at N = %d (%d "
-          "steps), hier and ring at N = %d on two loopback nodes (%d steps "
-          "each), deterministic mode"
+          "steps), run beside hier and ring at N = %d on two loopback nodes "
+          "(%d steps each), deterministic mode"
           % (BERT_SEQ, BERT_BATCH, DP_RANKS, DP_STEPS["fp32"], HIER_RANKS,
              SCHED_STEPS))
-    two = spawn_ranks("(c) rhd", schedule_child, DP_RANKS,
-                      [("rhd", DP_STEPS["fp32"])])
+    # the rhd job runs beside the hier job (their readings are losses and
+    # informational step times)
+    two = Beside(spawn_ranks, "(c) rhd", schedule_child, DP_RANKS,
+                 [("rhd", DP_STEPS["fp32"])])
     four = spawn_ranks("(c) hier", schedule_child, HIER_RANKS,
                        [("hier", SCHED_STEPS), ("ring", SCHED_STEPS)])
+    two = two.result()
     launches = {}
     for res, runs in ((two, ("rhd",)), (four, ("hier", "ring"))):
         for sched in runs:
@@ -5877,12 +5975,249 @@ def schedules_phase(card, dp_losses):
     return launches
 
 
-def health_phase(card, dp_losses, gathered_ms):
+def health_phase(card, dp_losses, gathered_ms, shard):
     """Phase 21: sharded checkpoints of tp_lm, the health sentinel and the
-    rhd and hierarchical schedules on bert_base. Returns (a)'s, (b)'s
-    and (c)'s launches."""
-    return (sharded_phase(card, gathered_ms), sentinel_phase(card),
-            schedules_phase(card, dp_losses))
+    rhd and hierarchical schedules on bert_base; (c)'s ranks run beside
+    (b), whose readings are deterministic counts and paired timings.
+    Returns (a)'s, (b)'s and (c)'s launches."""
+    sharded = sharded_phase(card, gathered_ms, shard)
+    schedules = Beside(schedules_phase, card, dp_losses)
+    return sharded, sentinel_phase(card), schedules.result()
+
+
+# ------------------------------------------------------------- phase 22
+
+
+INRUN_STEPS = DP_STEPS["fp32"]   # 5: phase 10's fp32-wire run's steps
+INRUN_DIE_AFTER = 1              # the worker's first incarnation dies here
+INRUN_ADMIT_WAIT_S = 120         # the chief's bound on the grow's wait
+
+# The user script of phase 22: the chief runs it from the phase, and
+# relaunches it for its worker (twice: at launch, and after the in-run
+# shrink for grow-on-join). Each process appends its events to <out
+# dir>/inrun_<role>.jsonl as the steps go. argv: spec, out dir.
+INRUN_SCRIPT = r"""
+import functools, hashlib, json, os, sys, time
+T_START = time.time()
+import torch
+import torch.distributed as dist
+import chip_smoke as cs
+import autodist_tpu_torch as adt
+from autodist_tpu_torch import strategy
+from autodist_tpu_torch.runtime import elastic
+from autodist_tpu_torch.telemetry import spans as tel
+
+spec, outdir = sys.argv[1], sys.argv[2]
+worker = os.environ.get("ADT_WORKER", "")
+died = os.path.join(outdir, "inrun_died")
+joiner = bool(worker) and os.path.exists(died)
+tel.configure("1")   # the reconfigure and broadcast spans
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+events = open(os.path.join(outdir, "inrun_%s.jsonl"
+                           % ("worker" if worker else "chief")), "a")
+
+def record(event, **kw):
+    kw.update(event=event, t=time.time(), joiner=joiner, pid=os.getpid())
+    events.write(json.dumps(kw) + "\n")
+    events.flush()
+
+def wait_epoch(m, bound):
+    # the chief stays out of a step until the next epoch is published
+    t = time.monotonic()
+    while time.monotonic() - t < bound:
+        info = m.peek(fresh=True)
+        if info is not None and info[0] > m.epoch:
+            return time.monotonic() - t
+        time.sleep(0.05)
+    return None
+
+record("start", t_start=T_START)
+ad = adt.AutoDist(resource_spec_file=spec,
+                  strategy_builder=strategy.AllReduce())
+from autodist_tpu_torch.models import bert
+torch.use_deterministic_algorithms(True)
+cfg = bert.BertConfig.base(dtype=torch.bfloat16)
+loss_fn, params, batch, _ = bert.make_train_setup(
+    cfg, seq_len=cs.BERT_SEQ, batch_size=cs.BERT_BATCH, seed=0,
+    attention="flash")
+runner = ad.build(loss_fn, functools.partial(torch.optim.Adam, lr=1e-3),
+                  params, batch)
+t = time.perf_counter()
+runner.init(params)  # a joiner takes the chief's state here
+torch.cuda.synchronize()
+start = int(runner.state.step)
+rec = tel.get_recorder()
+record("init", ms=1e3 * (time.perf_counter() - t), step=start,
+       rank=runner.distributed_step.rank,
+       world=runner.distributed_step.num_replicas, device=str(ad.device),
+       broadcast_ms=[1e3 * d for d in rec.durations_s("elastic.broadcast")])
+m = elastic.current()
+cs.reset_counts()
+for i in range(start, cs.INRUN_STEPS):
+    if not worker and i == cs.INRUN_DIE_AFTER + 1:
+        # out of the step's collective until the shrink epoch lands (the
+        # JAX in-run test's pacing): the shrink then runs at the boundary
+        record("shrink_wait", s=wait_epoch(m, 60))
+    if not worker and i == cs.INRUN_DIE_AFTER + 2:
+        record("admit_wait", s=wait_epoch(m, cs.INRUN_ADMIT_WAIT_S))
+    t = time.perf_counter()
+    loss = float(runner.run(batch)["loss"])
+    torch.cuda.synchronize()
+    dstep = runner.distributed_step
+    record("step", step=i, loss=loss, ms=1e3 * (time.perf_counter() - t),
+           launches=cs.launch_counts(), rank=dstep.rank,
+           world=dstep.num_replicas, epoch=m.epoch)
+    cs.reset_counts()
+    if worker and not joiner and i == cs.INRUN_DIE_AFTER:
+        open(died, "w").close()
+        record("death")
+        os._exit(3)  # the worker's first incarnation dies
+full = runner.gather_params()
+digest = hashlib.md5()
+for name in sorted(full):
+    digest.update(full[name].detach().float().cpu().numpy().tobytes())
+c = tel.counters()
+record("done", rank=runner.distributed_step.rank, digest=digest.hexdigest(),
+       epoch=m.epoch, reconfigs=runner.step_stats()["elastic"]["reconfigs"],
+       reconfigure_ms=[1e3 * d for d in rec.durations_s(
+           "elastic.reconfigure")],
+       broadcast_ms=[1e3 * d for d in rec.durations_s("elastic.broadcast")],
+       broadcast_bytes=c.get("elastic.broadcast_bytes", 0.0))
+"""
+
+
+def inrun_phase(card, dp_losses, whole_job_s):
+    """Phase 22: in-run shrink and grow. bert_base at full width under
+    AllReduce(), launched by the chief on two processes of cuda:0 (phase
+    19 (a)'s job), ADT_ELASTIC=2 ADT_ELASTIC_SYNC=1 ADT_ELASTIC_INRUN=1:
+    steps 0-1 at N = 2; the worker's first incarnation exits 3; step 2
+    at N = 1 after the in-run shrink; the chief waits (at most 120 s)
+    until the relaunched worker is admitted; steps 3-4 at N = 2 after the
+    grow. Returns every rank-step's launches."""
+    import tempfile
+    print("phase 22: bert_base bf16 (seq %d, global batch %d, flash) under "
+          "AllReduce(), launched by the chief on 127.0.0.1 and localhost "
+          "(gpus [0] each: two processes on cuda:0), ADT_ELASTIC=2 "
+          "ADT_ELASTIC_SYNC=1 ADT_ELASTIC_INRUN=1, deterministic mode, %d "
+          "steps: the worker's first incarnation exits 3 after step %d, the "
+          "job shrinks in-run to one process, then grows back when the "
+          "relaunched worker is admitted (run beside phase 18 and phase 19 "
+          "(b)'s and (c)'s jobs)"
+          % (BERT_SEQ, BERT_BATCH, INRUN_STEPS, INRUN_DIE_AFTER))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "inrun_script.py"), "w") as f:
+            f.write(INRUN_SCRIPT)
+        with open(os.path.join(tmp, "spec.yml"), "w") as f:
+            f.write(LAUNCH_SPEC)
+        rc, err, wall, left = run_launched(
+            tmp, "inrun", 0, 240, "phase 22", script="inrun_script.py",
+            ADT_ELASTIC="2", ADT_ELASTIC_SYNC="1", ADT_ELASTIC_INRUN="1",
+            ADT_ELASTIC_POLL_S="0.05",
+            ADT_CKPT_DIR=os.path.join(tmp, "ckpt"))
+        chief = read_events(tmp, "inrun", "chief")
+        wk = read_events(tmp, "inrun", "worker")
+    if rc != 0 or left:
+        fail("phase 22: the chief exited %d, %d processes left: %s"
+             % (rc, len(left), err[-4000:]))
+    if "restarting the WHOLE job" in err:
+        fail("phase 22: the chief restarted the whole job: %s" % err[-4000:])
+    for text in ("published cluster epoch 2", "published cluster epoch 3",
+                 "in-run elastic: admitted localhost"):
+        if text not in err:
+            fail("phase 22: %r not in the log: %s" % (text, err[-4000:]))
+    steps = {}
+    launches = {}
+    for e in chief + wk:
+        if e["event"] != "step":
+            continue
+        role = "chief" if e in chief else ("joiner" if e["joiner"]
+                                           else "worker")
+        steps.setdefault(role, {})[e["step"]] = e
+        check_launches("phase 22 %s step %d (N = %d)" % (
+            role, e["step"], e["world"]), e["launches"], BERT_LAYERS, 1)
+        for name, by in e["launches"].items():
+            for design, n in by.items():
+                launches.setdefault(name, {})
+                launches[name][design] = launches[name].get(design, 0) + n
+    die = INRUN_DIE_AFTER
+    want = {"chief": list(range(INRUN_STEPS)),
+            "worker": list(range(die + 1)),
+            "joiner": list(range(die + 2, INRUN_STEPS))}
+    got = {r: sorted(steps.get(r, {})) for r in want}
+    if got != want:
+        fail("phase 22: the steps each process ran %r (want %r)"
+             % (got, want))
+    worlds = [steps["chief"][i]["world"] for i in range(INRUN_STEPS)]
+    want_worlds = [2] * (die + 1) + [1] + [2] * (INRUN_STEPS - die - 2)
+    if worlds != want_worlds:
+        fail("phase 22: the chief's worlds %r (want %r)"
+             % (worlds, want_worlds))
+    losses = [steps["chief"][i]["loss"] for i in range(INRUN_STEPS)]
+    for role, first in (("worker", 0), ("joiner", die + 2)):
+        mine = [steps[role][i]["loss"] for i in want[role]]
+        if mine != losses[first:first + len(mine)]:
+            fail("phase 22: the %s's losses %r differ from the chief's %r"
+                 % (role, mine, losses))
+    if losses[:die + 1] != list(dp_losses[:die + 1]):
+        fail("phase 22: steps 0-%d %r are not bit-equal to phase 10's "
+             "uninterrupted fp32-wire run %r" % (die, losses, dp_losses))
+    for i in range(die + 1, INRUN_STEPS):
+        if not abs(losses[i] - dp_losses[i]) <= 2e-2 * max(
+                1.0, abs(dp_losses[i])):
+            fail("phase 22: step %d's loss %r is not within 2e-2 of phase "
+                 "10's %r" % (i, losses[i], dp_losses[i]))
+    done = {("chief" if e in chief else "joiner"): e
+            for e in chief + wk if e["event"] == "done"}
+    if sorted(done) != ["chief", "joiner"] or \
+            done["chief"]["digest"] != done["joiner"]["digest"]:
+        fail("phase 22: the ranks' params after the grow are not bit-equal "
+             "(%r)" % ({r: e.get("digest") for r, e in done.items()},))
+    ch = done["chief"]
+    if ch["epoch"] != 3 or ch["reconfigs"] != 2 or \
+            len(ch["reconfigure_ms"]) != 2 or done["joiner"]["epoch"] != 3:
+        fail("phase 22: the chief ended at epoch %r after %r reconfigures "
+             "(spans %r), the joiner at %r (want 3, 2, 2 spans, 3)"
+             % (ch["epoch"], ch["reconfigs"], ch["reconfigure_ms"],
+                done["joiner"]["epoch"]))
+    death = next(e["t"] for e in wk if e["event"] == "death")
+    shrunk = steps["chief"][die + 1]
+    joined = next(e for e in wk if e["event"] == "init" and e["joiner"])
+    jstart = next(e for e in wk if e["event"] == "start" and e["joiner"])
+    admit = next(e for e in chief if e["event"] == "admit_wait")
+    shrink_ms, grow_ms = ch["reconfigure_ms"]
+    print("  losses %s (chief), steps 0-%d bit-equal to phase 10's "
+          "uninterrupted fp32-wire run, steps %d-%d within 2e-2 of it "
+          "(%s); the worker's and the joiner's losses equal the chief's; "
+          "the ranks' params bit-equal after the grow (md5 %s); each kernel "
+          "12 launches a rank-step on mma.sync bf16 at N = 1 and N = 2 (%d "
+          "rank-steps) [%s]"
+          % (" ".join("%.6f" % x for x in losses), die, die + 1,
+             INRUN_STEPS - 1, " ".join("%.6f" % x for x in dp_losses),
+             ch["digest"][:12], sum(len(v) for v in steps.values()), card))
+    print("  shrink: the worker's death to the chief's first step at N = 1 "
+          "%.2f s (the reconfigure %.1f ms of it, the step %.1f ms); phase "
+          "19 (a)'s whole-job recovery in this run %s; grow: the relaunched "
+          "worker started %.2f s after the death, the chief waited %.2f s "
+          "for its admission, the reconfigure %.1f ms (of it the broadcast "
+          "of %.1f MB of params and Adam moments to the joiner: %.1f ms on "
+          "the joiner, %.1f ms on the chief, which waits there for the "
+          "joiner's build); the steps at N = 1 and after the grow %s ms; "
+          "the job %.1f s [%s]"
+          % (shrunk["t"] - death, shrink_ms, shrunk["ms"],
+             "%.2f s" % whole_job_s if whole_job_s is not None else
+             "not measured", jstart["t_start"] - death, admit["s"] or -1.0,
+             grow_ms, ch["broadcast_bytes"] / 1e6,
+             (joined["broadcast_ms"] or [0.0])[0],
+             (ch["broadcast_ms"] or [0.0])[0],
+             " ".join("%.1f" % steps["chief"][i]["ms"]
+                      for i in range(die + 1, INRUN_STEPS)), wall, card))
+    print("phase 22: %.1f s" % (time.perf_counter() - t0))
+    return launches, {"shrink_ms": shrink_ms, "grow_ms": grow_ms,
+                      "death_to_step_s": shrunk["t"] - death,
+                      "broadcast_bytes": ch["broadcast_bytes"],
+                      "broadcast_ms": (joined["broadcast_ms"] or [None])[0]}
 
 
 def main():
@@ -6032,23 +6367,35 @@ def main():
     bert_launches = timed_phase("7", bert_train_phase, card)
     timed_phase("8", resnet_phase, card)
     timed_phase("9", bert_parity_phase)
+    # phase 14 (a)-(c)'s two ranks run beside phase 10's (both read
+    # losses and informational step times); joined in phase 14
+    sync_ac = Beside(sync_phase, card)
     dp_launches, dp_losses = timed_phase("10", dp_phase, card)
     resume_launches = timed_phase("11", resume_phase, card)
     timed_phase("12", cnn_phase, card)
     fused_launches, replay_per_microstep = timed_phase("13", fused_phase,
                                                        card)
     sync_launches, tier_launches, remat_launches = timed_phase(
-        "14", sync_variants_phase, card)
+        "14", sync_variants_phase, card, sync_ac)
     ps_launches, bert_ps_losses = timed_phase("15", ps_phase, card)
     carry_launches, carry_per_microstep, adamw_launches = timed_phase(
         "16", carry_phase, card, bert_ps_losses)
     async_launches = timed_phase("17", async_phase, card)
-    timed_phase("18", launch_phase, card)
-    elastic_launches = timed_phase("19", elastic_phase, card, dp_losses)
-    tp_a, tp_b, tp16, tp8, gathered_ms = timed_phase("20", tp_phase, card)
+    # phase 19 (a) first, then phases 18 and 22 beside 19 (b)'s and (c)'s
+    # jobs
+    def beside_19(whole_job_s):
+        launched = Beside(launch_phase, card)
+        try:
+            return inrun_phase(card, dp_losses, whole_job_s)[0]
+        finally:
+            launched.result()
+    elastic_launches, whole_job_s, inrun_launches = timed_phase(
+        "19 with 18 and 22", elastic_phase, card, dp_losses, beside_19)
+    tp_a, tp_b, tp16, tp8, gathered_ms, shard = timed_phase("20", tp_phase,
+                                                            card)
     shard_launches, sentinel_launches, sched_launches = timed_phase(
-        "21", health_phase, card, dp_losses, gathered_ms)
-    print("phases 5-21: %s s" % ", ".join(
+        "21", health_phase, card, dp_losses, gathered_ms, shard)
+    print("phases 5-22: %s s" % ", ".join(
         "%s %.1f" % kv for kv in seconds.items()))
 
     # flash_fwd runs on the three main paths, serving (decode), lm1b and
@@ -6112,6 +6459,9 @@ def main():
         # sharded save and restore); (b) bert_base with the sentinel
         # armed and unarmed, per step and fused, and its fault runs; (c)
         # bert_base under the rhd and hierarchical schedules, every rank
+        # phase 22: bert_base launched by the chief, in-run elastic: the
+        # first worker's steps, the chief's at N = 1 and N = 2, the
+        # joiner's
         for path, counts in (("bert_sync_variants", sync_launches),
                              ("lm1b_bf16_tier", tier_launches),
                              ("bert_remat", remat_launches),
@@ -6121,7 +6471,8 @@ def main():
                              ("bert_elastic", elastic_launches),
                              ("tp_lm_sharded", shard_launches),
                              ("bert_sentinel", sentinel_launches),
-                             ("bert_schedules", sched_launches)):
+                             ("bert_schedules", sched_launches),
+                             ("bert_inrun", inrun_launches)):
             n = counts.get(name, {})
             rec["by_path"][path] = {
                 "launches": sum(n.values()),

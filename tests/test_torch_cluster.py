@@ -2,9 +2,10 @@
 worker env, the remote helpers and the Coordinator's launch, held to the
 JAX package's ``tests/test_cluster.py`` cases where both packages give
 the same answer; then the port's own: one process a device entry, the
-backend rule, the address helpers against the JAX ones, and the
-refusals."""
+backend rule, the address helpers against the JAX ones, the elastic
+bring-up (in-run shrink and grow accepted) and the refusals."""
 import functools
+import os
 import socket
 
 import numpy as np
@@ -224,11 +225,50 @@ def test_backend_rule(placements, backend, reason):
 
 
 def _elastic_coordinator():
-    Coordinator("sid", Cluster(ResourceSpec.from_dict(_spec_dict())))
+    coord = Coordinator("sid", Cluster(ResourceSpec.from_dict(_spec_dict())))
+    # in-run shrink is tried before any whole-job restart
+    assert coord._inrun == bool(const.ENV.ADT_ELASTIC_INRUN.val)
 
 
 def _elastic_autodist():
-    adt.AutoDist(strategy_builder=strategy.AllReduce(), device="cpu")
+    """Construct, build and init a one-process job: under the in-run knobs
+    its membership is armed at the launch epoch on the job's service."""
+    import functools
+    import numpy as np
+    import torch
+    from autodist_tpu_torch.runtime import elastic
+    from autodist_tpu_torch.runtime.coordination import CoordinationServer
+    inrun = const.ENV.ADT_ELASTIC_INRUN.val
+    srv = None
+    if inrun:
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            srv = CoordinationServer(port=sock.getsockname()[1])
+    try:
+        if srv is not None:
+            srv.start()
+            os.environ[const.ENV.ADT_COORDSVC_PORT.name_str] = str(srv.port)
+        ad = adt.AutoDist(strategy_builder=strategy.AllReduce(),
+                          device="cpu")
+        params = {"w": torch.ones(4, 2)}
+        batch = {"x": np.ones((4, 4), np.float32)}
+        runner = ad.build(lambda p, b: (torch.as_tensor(b["x"])
+                                        @ p["w"]).sum(),
+                          functools.partial(torch.optim.SGD, lr=0.1),
+                          params, batch)
+        runner.init(params)
+        m = elastic.current()
+        if inrun:
+            assert m is not None and m.epoch == 1 and m.roster == [
+                "127.0.0.1"], m
+            assert runner.step_stats()["elastic"]["epoch"] == 1
+        else:
+            assert m is None
+    finally:
+        os.environ.pop(const.ENV.ADT_COORDSVC_PORT.name_str, None)
+        adt.reset()
+        if srv is not None:
+            srv.stop()
 
 
 @pytest.mark.parametrize("construct", [
@@ -236,16 +276,17 @@ def _elastic_autodist():
     _elastic_autodist], ids=["coordinator", "maybe_init_distributed",
                              "autodist"])
 def test_elastic_is_refused_naming_its_roadmap_item(monkeypatch, construct):
-    """``ADT_ELASTIC=1`` (supervised recovery, item 8.3a) no longer
-    refuses; in-run shrink and grow (``ADT_ELASTIC_INRUN=1``, with the
-    knobs it needs) still does, naming its item 8.3b."""
+    """``ADT_ELASTIC=1`` (supervised recovery, item 8.3a) is accepted, and
+    so, since item 8.3b is ported, is in-run shrink and grow
+    (``ADT_ELASTIC_INRUN=1`` with the knobs it needs): the Coordinator
+    comes up with its in-run plane on, the bring-up joins as before, and
+    AutoDist arms the membership at epoch 1."""
     monkeypatch.setenv("ADT_ELASTIC", "1")
     construct()
     adt.reset()
     monkeypatch.setenv("ADT_ELASTIC_SYNC", "1")
     monkeypatch.setenv("ADT_ELASTIC_INRUN", "1")
-    with pytest.raises(NotImplementedError, match="ROADMAP A item 8.3b"):
-        construct()
+    construct()
 
 
 def _two_cpu_nodes():

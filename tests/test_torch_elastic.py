@@ -9,7 +9,8 @@ service, the watchdog's filters, supervision across a service bounce (the
 JAX ``tests/test_faults.py`` case, in a subprocess), then the port's own:
 the whole-job restart's once-guard and earliest-exit blame under gloo's
 fast errors, the chief's wait on a failed collective, the ``build``
-refusals and the refusal of in-run shrink and grow (ROADMAP A item 8.3b).
+refusals, and the acceptance of in-run shrink and grow (ROADMAP A item
+8.3b; ``test_torch_elastic_epoch.py`` holds its plane).
 """
 import os
 import re
@@ -92,6 +93,8 @@ KNOB_CASES = [
     ({"ADT_ELASTIC": "0", "ADT_ELASTIC_SYNC": "1", "ADT_ELASTIC_INRUN": "1"},
      "config", "ADT_ELASTIC_INRUN"),
     ({"ADT_ELASTIC": "2", "ADT_ELASTIC_SYNC": "1"}, None, (2, True, False)),
+    ({"ADT_ELASTIC": "2", "ADT_ELASTIC_SYNC": "1", "ADT_ELASTIC_INRUN": "1"},
+     None, (2, True, True)),
     ({"ADT_ELASTIC": "3"}, None, (3, False, False)),
     ({}, None, (0, False, False)),
 ]
@@ -101,7 +104,7 @@ KNOB_CASES = [
 @pytest.mark.parametrize("env, error, knob", KNOB_CASES,
                          ids=["negative", "not_int", "sync_not_bool",
                               "inrun_without_sync", "inrun_without_budget",
-                              "sync", "async", "unset"])
+                              "sync", "inrun", "async", "unset"])
 def test_elastic_knobs_validated_loudly(monkeypatch, pkg, env, error, knob):
     """Garbage knobs raise ``ElasticConfigError`` naming the knob, with
     the same message in both packages; valid ones parse alike."""
@@ -122,21 +125,21 @@ def test_elastic_knobs_validated_loudly(monkeypatch, pkg, env, error, knob):
 
 
 def test_inrun_refused_naming_its_item(monkeypatch):
-    """A valid in-run request (the JAX package returns ``(2, True,
-    True)``) is refused by the port, naming ROADMAP A item 8.3b, at the
-    knobs, at ``AutoDist()`` and at a Coordinator's construction."""
+    """A valid in-run request is no longer refused (ROADMAP A item 8.3b
+    is ported): the knobs parse to the JAX package's ``(2, True, True)``,
+    ``AutoDist()`` comes up, and a Coordinator comes up with its in-run
+    plane on (it shrinks in-run before any whole-job restart)."""
     for k, v in (("ADT_ELASTIC", "2"), ("ADT_ELASTIC_SYNC", "1"),
                  ("ADT_ELASTIC_INRUN", "1")):
         monkeypatch.setenv(k, v)
     from autodist_tpu.runtime import elastic as jax_elastic
     assert jax_elastic.validate_elastic_knobs() == (2, True, True)
-    for construct in (port_elastic.validate_elastic_knobs,
-                      lambda: adt.AutoDist(device="cpu"),
-                      lambda: port_coordinator.Coordinator(
-                          "sid", Cluster(ResourceSpec.from_dict(SPEC)))):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP A item 8.3b"):
-            construct()
+    assert port_elastic.validate_elastic_knobs() == (2, True, True)
+    adt.AutoDist(device="cpu")
+    coord = port_coordinator.Coordinator(
+        "sid", Cluster(ResourceSpec.from_dict(SPEC)))
+    assert coord._inrun is True
+    assert coord._sync_elastic
 
 
 @pytest.mark.parametrize("pkg", PACKAGES)

@@ -7,7 +7,12 @@ spec, and ``ADT_ELASTIC=<budget>`` makes a worker's death recoverable —
 a relaunch of the dead worker under async PS (crashed or wedged: the
 heartbeat watchdog), a re-exec of the whole job from its newest
 checkpoint under ``ADT_ELASTIC_SYNC=1`` (at full world, and at reduced
-world once a node is found permanently lost). A spent budget or a job
+world once a node is found permanently lost), or with
+``ADT_ELASTIC_INRUN=1`` an in-run shrink to the survivor and a grow when
+the relaunched worker is admitted back (the JAX ``tests/test_elastic.py``
+in-run case), which falls back to the whole-job restart when the
+survivors never ack the shrink or the topology cannot shrink (a
+``TensorParallel`` mesh, ADT430). A spent budget or a job
 with nothing to restore still fails fast with exit code 1. Every job runs
 its chief as a subprocess on free ports under a timeout, on the CPU over
 gloo; each process of a job carries a marker in its environment (the
@@ -160,6 +165,79 @@ with open(os.path.join(outdir, "out_%d.json" % rank), "w") as f:
                "world": torch.distributed.get_world_size(),
                "params": runner.gather_params()["w"].tolist()}, f)
 print("DONE rank=%d start=%d" % (rank, start), flush=True)
+'''
+
+
+# The in-run job (the JAX INRUN_CHAOS_SCRIPT): SGD at 0.05, 8 rows, a save
+# after every step; the localhost worker's first incarnation exits 3 after
+# step 2. argv: spec, out dir, mode — "grow": the chief, after step 3,
+# waits (at most 60 s) until the relaunched worker is admitted; "noack":
+# the chief's first incarnation sleeps 8 s after step 2, past the ack
+# timeout, so the shrink escalates to the whole-job restart; "tp": under
+# TensorParallel(2) (a model axis of size 2, ADT430), which cannot
+# shrink in-run.
+INRUN_SCRIPT = r'''
+import functools, json, os, sys, time
+import numpy as np
+spec, outdir, mode = sys.argv[1], sys.argv[2], sys.argv[3]
+worker = os.environ.get("ADT_WORKER") == "localhost"
+resumed = bool(os.environ.get("ADT_AUTO_RESUME"))
+import torch
+import autodist_tpu_torch as adt
+from autodist_tpu_torch import strategy
+from autodist_tpu_torch.checkpoint import Saver
+from autodist_tpu_torch.runtime import elastic
+from autodist_tpu_torch.telemetry import spans as tel
+
+tel.configure("1")
+builder = (strategy.TensorParallel(2, []) if mode == "tp"
+           else strategy.AllReduce())
+ad = adt.AutoDist(resource_spec_file=spec, strategy_builder=builder,
+                  device="cpu")
+rng = np.random.RandomState(0)
+params = {"w": torch.from_numpy((rng.randn(8, 4) * 0.3).astype(np.float32))}
+batch = {"x": rng.randn(8, 8).astype(np.float32),
+         "y": rng.randn(8, 4).astype(np.float32)}
+
+def loss_fn(p, b):
+    return torch.mean((torch.as_tensor(b["x"]) @ p["w"]
+                       - torch.as_tensor(b["y"])) ** 2)
+
+runner = ad.build(loss_fn, functools.partial(torch.optim.SGD, lr=0.05),
+                  params, batch)
+runner.init(params)  # a joiner adopts the chief's state here
+start = int(runner.state.step)
+saver = Saver(directory=os.environ["ADT_CKPT_DIR"])
+marker = os.path.join(outdir, "died_once")
+losses, worlds = {}, {}
+for i in range(start, 8):
+    losses[i] = float(runner.run(batch)["loss"])
+    worlds[i] = runner.distributed_step.num_replicas
+    saver.save(runner)  # every process calls it; rank 0 writes
+    if worker and i == 2 and not os.path.exists(marker):
+        open(marker, "w").close()
+        os._exit(3)  # the first incarnation dies after step 2
+    if not worker and i == 2 and mode == "noack" and not resumed:
+        time.sleep(8)  # never at a boundary while the ack timer runs
+    if not worker and i == 3 and mode == "grow":
+        m = elastic.current()
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline:
+            info = m.peek(fresh=True)
+            if info is not None and info[0] > m.epoch:
+                break
+            time.sleep(0.05)
+m = elastic.current()
+role = "worker" if worker else "chief"
+with open(os.path.join(outdir, "inrun_%s_%d.json" % (role, start)),
+          "w") as f:
+    json.dump({"start": start, "losses": losses, "worlds": worlds,
+               "reconfigs": runner.step_stats()["elastic"]["reconfigs"],
+               "epoch": m.epoch if m is not None else None,
+               "spans": tel.get_recorder().durations_s(
+                   "elastic.reconfigure"),
+               "params": runner.gather_params()["w"].tolist()}, f)
+print("DONE", role, start, flush=True)
 '''
 
 
@@ -406,4 +484,76 @@ def test_sync_elastic_still_fails_fast(tmp_path, mode, budget, message):
     assert res.returncode == 1, (res.returncode, res.stderr[-6000:])
     assert message in res.stderr, res.stderr[-6000:]
     assert "aborting job" in res.stderr, res.stderr[-4000:]
+    assert not left
+
+
+# ------------------------------------------------------ in-run shrink/grow
+
+_INRUN_ENV = {"ADT_ELASTIC": "2", "ADT_ELASTIC_SYNC": "1",
+              "ADT_ELASTIC_INRUN": "1", "ADT_ELASTIC_POLL_S": "0.05"}
+
+
+def test_inrun_shrink_to_the_survivor_then_grow_on_join(tmp_path):
+    """The in-run acceptance path: the worker exits 3 after step 2; the
+    chief publishes epoch 2, its step 3 (whose collective failed) runs
+    again at one process, in-run — no whole-job restart; the relaunched
+    worker announces itself, is admitted at epoch 3, adopts the chief's
+    state by broadcast, and both train steps 4-7 at two processes. The
+    chief's losses are within 1e-5 of the JAX package's uninterrupted run
+    (a data-parallel step is world-size invariant on a fixed global
+    batch), and the worker's equal the chief's."""
+    res, left = _run_chief(tmp_path, INRUN_SCRIPT, ["grow"], **_INRUN_ENV)
+    log = res.stdout + res.stderr
+    assert res.returncode == 0, log[-6000:]
+    err = res.stderr
+    assert "published cluster epoch 2" in err, err[-6000:]
+    assert "published cluster epoch 3" in err, err[-6000:]
+    assert "restarting the WHOLE job" not in err, err[-6000:]
+    chief = _read(tmp_path, "inrun_chief_0.json", log)
+    assert chief["reconfigs"] == 2 and chief["epoch"] == 3, chief
+    assert len(chief["spans"]) == 2, chief
+    assert [chief["worlds"][str(i)] for i in range(8)] == \
+        [2, 2, 2, 1, 2, 2, 2, 2], chief["worlds"]
+    joined = [f for f in os.listdir(tmp_path)
+              if f.startswith("inrun_worker_") and f != "inrun_worker_0.json"]
+    assert joined == ["inrun_worker_4.json"], os.listdir(tmp_path)
+    worker = _read(tmp_path, joined[0], log)
+    assert worker["start"] == 4 and worker["epoch"] == 3, worker
+    ref_losses, ref_w = _jax_run(8)
+    for i in range(8):
+        np.testing.assert_allclose(chief["losses"][str(i)], ref_losses[i],
+                                   rtol=1e-5, atol=1e-7)
+    for i_str, loss in worker["losses"].items():
+        assert loss == chief["losses"][i_str], (i_str, worker, chief)
+    assert worker["params"] == chief["params"]
+    np.testing.assert_allclose(chief["params"], ref_w, rtol=1e-5, atol=1e-7)
+    assert not left
+
+
+@pytest.mark.parametrize("mode, message", [
+    ("noack", "never acked epoch 2"),
+    ("tp", "cannot shrink past worker localhost")],
+    ids=["survivors_never_ack", "tensor_parallel"])
+def test_inrun_falls_back_to_the_whole_job_restart(tmp_path, mode, message):
+    """Where the in-run shrink cannot complete, the job still recovers by
+    the whole-job restart: survivors that never ack the shrink epoch
+    within ``ADT_ELASTIC_ACK_TIMEOUT_S`` (the chief sleeps past it), and
+    a ``TensorParallel`` tp 2 job, whose model axis fails ADT430. Every
+    rank resumes at step 3 from the checkpoint of step 2."""
+    res, left = _run_chief(tmp_path, INRUN_SCRIPT, [mode],
+                           ADT_ELASTIC_ACK_TIMEOUT_S="2", **_INRUN_ENV)
+    log = res.stdout + res.stderr
+    assert res.returncode == 0, log[-6000:]
+    assert message in res.stderr, res.stderr[-6000:]
+    assert "restarting the WHOLE job" in res.stderr, res.stderr[-6000:]
+    assert res.stderr.count("sync-elastic: re-exec") == 1, \
+        res.stderr[-6000:]
+    chief = _read(tmp_path, "inrun_chief_3.json", log)
+    worker = _read(tmp_path, "inrun_worker_3.json", log)
+    assert sorted(map(int, chief["losses"])) == [3, 4, 5, 6, 7]
+    assert chief["losses"] == worker["losses"]
+    ref_losses, _ = _jax_run(8)
+    for i in range(3, 8):
+        np.testing.assert_allclose(chief["losses"][str(i)], ref_losses[i],
+                                   rtol=1e-5, atol=1e-7)
     assert not left
