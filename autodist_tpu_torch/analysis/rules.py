@@ -6,7 +6,9 @@ partitioner's model-parallel layout check), ``verify_sentinel``
 ``verify_decode`` (ADT442, the decode engine's cache-vs-memory
 projection), and ``fail_fast_model_axes`` with ``verify_elastic``
 (ADT430/431, whether a topology can shrink in-run: the build-time lint
-and the coordinator's shrink decision both read them)."""
+and the coordinator's shrink decision both read them), and
+``verify_preemption`` (ADT432, a planned handoff armed on a topology that
+cannot shrink)."""
 from typing import Dict, List, Optional
 
 from autodist_tpu_torch import const
@@ -195,4 +197,29 @@ def verify_elastic(strategy, dead_worker: str = "") -> List[Diagnostic]:
                     fixit="keep PS destinations on the chief, or "
                           "checkpoint at least once per restart window"))
                 break
+    return out
+
+
+def verify_preemption(strategy) -> List[Diagnostic]:
+    """ADT432 — preemption handoff armed on a topology the elasticity
+    matrix marks fail-fast. The planned-handoff path
+    (``runtime/preemption.py``) rides the in-run elastic shrink, and a
+    model-parallel strategy cannot shrink (ADT430): every announced
+    departure then degrades to rescue-checkpoint + whole-job restart —
+    legal, but the operator armed a graceful-handoff feature that can
+    never actually hand off. Warned at BUILD time, not at the first
+    eviction."""
+    out: List[Diagnostic] = []
+    model_axes = fail_fast_model_axes(strategy)
+    if model_axes:
+        out.append(warning(
+            "ADT432",
+            "preemption handoff is armed but the strategy partitions "
+            "state over model-parallel mesh axes %s — the elasticity "
+            "matrix marks this family fail-fast, so every planned "
+            "departure degrades to rescue-checkpoint + whole-job "
+            "restart instead of a live handoff" % (model_axes,),
+            fixit="use a data-parallel strategy for live handoffs, or "
+                  "accept the checkpoint-restart path and size "
+                  "ADT_PREEMPT_DEADLINE_S to cover a full save"))
     return out

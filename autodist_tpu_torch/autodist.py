@@ -105,7 +105,10 @@ def get_default_autodist():
 def reset():
     """Clear process-global state: the AutoDist registry (closing the
     registered instance's runner), live decode engines, the telemetry
-    recorder and the installed elastic membership (and its socket)."""
+    recorder, the flight recorder's events and logs, the installed elastic
+    membership (and its socket), and the preemption plane's signal notice
+    and armed guards; the SIGTERM handler the plane and the flight
+    recorder installed is put back."""
     inst = _DEFAULT_AUTODIST.get(0)
     _DEFAULT_AUTODIST.clear()
     if inst is not None:
@@ -115,8 +118,12 @@ def reset():
         engine.close()
     from autodist_tpu_torch.telemetry import spans as _tspans
     _tspans.reset()
+    from autodist_tpu_torch.telemetry import blackbox as _bb
+    _bb.reset()
     from autodist_tpu_torch.runtime import elastic as _elastic
     _elastic.clear()
+    from autodist_tpu_torch.runtime import preemption as _preemption
+    _preemption.reset()
 
 
 def _strategy_for_roster(strategy: Strategy, roster) -> Strategy:
@@ -406,14 +413,21 @@ class AutoDist:
         """Install this process's epoch-fenced membership: the chief
         publishes the launch epoch (1, every node of the spec), a worker
         reads it; a joiner admitted by grow-on-join holds one already.
-        The topology is linted here (ADT430/431): a job that can never
-        shrink in-run says so at build, not at the first death."""
+        The topology is linted here (ADT430/431, and ADT432 for the
+        preemption plane's handoff, which rides the shrink): a job that
+        can never shrink in-run says so at build, not at the first death;
+        the preemption knobs are validated here too."""
         from autodist_tpu_torch.analysis import rules as rules_lib
-        from autodist_tpu_torch.runtime import elastic
+        from autodist_tpu_torch.runtime import elastic, preemption
         # a single-node job constructs no Coordinator: validate here too
         elastic.validate_elastic_knobs()
+        preemption.validate_preempt_knobs()
         for d in rules_lib.verify_elastic(strategy):
             logging.warning("elastic: %s", d.format())
+        # the planned handoff rides the in-run shrink, so arming it on a
+        # fail-fast (model-parallel) family warns at build time
+        for d in rules_lib.verify_preemption(strategy):
+            logging.warning("preemption: %s", d.format())
         self._orig_spec = getattr(self, "_orig_spec", self._resource_spec)
         if elastic.current() is not None:
             elastic.current().entries = elastic.spec_entries(

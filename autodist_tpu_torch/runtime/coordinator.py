@@ -64,9 +64,18 @@ close-on-exec, so the rendezvous and gloo sockets made in C++ (not all
 close-on-exec) are released and the re-exec'd chief binds its ports
 again.
 
-Left for later items: planned departures (8.3c: the departure sets and
-``preemption.clear_notice`` of the admission) and the straggler filter
-(item 11).
+Planned departures (``runtime/preemption.py``): a rostered worker's
+advance notice (SIGTERM, maintenance file, operator drain) makes the
+watchdog publish the survivors' roster at the next epoch while the leaver
+is alive (:meth:`Coordinator._maybe_plan_departures`): no reap, no
+relaunch, no restart of the budget. The watchdog never declares an
+announced leaver dead (:meth:`Coordinator._is_departing`), nor a worker
+that marked itself a slow-but-alive straggler
+(:meth:`Coordinator._is_straggling`), and the process watcher reads a
+shrunk-for leaver's exit as the end of its departure. A departure the
+chief could not shrink for (a fail-fast topology, the chief itself)
+recovers by the whole-job restart when the leaver exits, whatever its
+code.
 """
 import atexit
 import os
@@ -91,7 +100,9 @@ _PROPAGATED = (const.ENV.ADT_MIN_LOG_LEVEL, const.ENV.ADT_IS_TESTING,
                const.ENV.ADT_CKPT_DIR, const.ENV.ADT_ELASTIC_EXCLUDE,
                const.ENV.ADT_ELASTIC_INRUN, const.ENV.ADT_ELASTIC_POLL_S,
                const.ENV.ADT_ELASTIC_ACK_TIMEOUT_S,
-               const.ENV.ADT_HEARTBEAT_TIMEOUT_S)
+               const.ENV.ADT_HEARTBEAT_TIMEOUT_S,
+               const.ENV.ADT_PREEMPT_DEADLINE_S, const.ENV.ADT_PREEMPT_POLL_S,
+               const.ENV.ADT_DRAIN_RETRY_AFTER_S)
 
 # a whole-job restart waits this long after the first death it sees, then
 # blames the earliest exit: under gloo the survivors exit within
@@ -209,6 +220,19 @@ class Coordinator:
         self._restart_at: Dict[int, float] = {}   # last relaunch (monotonic)
         self._launch_cmds: Dict[int, tuple] = {}  # (address, command, env)
         self._live_procs: Dict[int, object] = {}  # current launcher Popen
+        # the preemption plane, keyed by node address: an announced
+        # departure's deadline (wall clock) — a node here is LEAVING ON
+        # PURPOSE, its silence is expected (filled by the shrink planner
+        # and by _is_departing's reads, so it is not the "shrink decided"
+        # memory: that is _departures_handled); and the nodes whose
+        # survivors' epoch was published, the only ones whose exit the
+        # process watcher reads as the end of a departure
+        self._planned_departures: Dict[str, float] = {}
+        self._departures_handled: set = set()
+        self._departures_shrunk: set = set()
+        # the preempt/seq cursor: the planner scans the per-worker marks
+        # only when a publish moved it (one GET a tick otherwise)
+        self._preempt_seq_seen = ""
         # sync-elastic (checkpoint-restore orchestration): a worker death
         # restarts the WHOLE job from the latest checkpoint.
         # ADT_ELASTIC_SYNC at bring-up declares it from construction — a
@@ -274,19 +298,75 @@ class Coordinator:
             return True
         return False
 
+    def _is_straggling(self, client, worker: str) -> bool:
+        """True while ``worker`` holds a fresh slow-but-alive mark
+        (written by ``Runner._observe_straggler`` while its dispatch wall
+        time is flagged; "0" once it recovers). Heartbeats ride the step
+        clock, so a straggler's beats slow with its steps: the mark tells
+        "degraded but progressing" (leave it) from "dead" (recycle it).
+        Bounded like the compile mark: a straggler that then dies stops
+        refreshing it and is declared dead one window later."""
+        try:
+            mark = client.get("straggler/%s" % worker)
+        except OSError:
+            return False
+        if not mark:
+            return False
+        try:
+            ts = float(mark)
+        except ValueError:
+            return False
+        if ts <= 0:
+            return False  # "0": cleared
+        if time.time() - ts < 2 * self._heartbeat_timeout:
+            logging.warning(
+                "watchdog: worker %s missed heartbeats but marked itself "
+                "a straggler (slow-but-alive) — not recycling it", worker)
+            return True
+        return False
+
+    def _is_departing(self, client, worker: str) -> bool:
+        """True while ``worker`` holds a live preemption notice (or its
+        announced deadline has not aged out): its silence and its exit are
+        an announced departure mid-handoff, and the unplanned-death path
+        (a kill, a shrink, the marks' collection) would race it. Read
+        before any death is declared."""
+        deadline = self._planned_departures.get(worker)
+        if deadline is None:
+            from autodist_tpu_torch.runtime import preemption
+            try:
+                notice = preemption.read_notice(client, worker)
+            except OSError:
+                return False
+            if notice is None:
+                return False
+            deadline = notice.deadline
+            self._planned_departures[worker] = deadline
+        # a grace past the deadline: the platform's SIGKILL and the exit
+        # take a moment; afterwards the next incarnation is supervised
+        if time.time() < deadline + 2 * self._heartbeat_timeout:
+            logging.info(
+                "watchdog: worker %s missed heartbeats but announced its "
+                "departure — expected, not escalating", worker)
+            return True
+        self._planned_departures.pop(worker, None)
+        return False
+
     def _supervised(self, client, dead: List[str]) -> List[str]:
         """The silent workers the watchdog acts on: not the chief, not
         inside a fresh incarnation's bring-up grace (twice the heartbeat
         window after a relaunch: a killed incarnation is deregistered at
-        relaunch, so this covers only records the new one wrote), and not
-        inside a compile grace. Item 11's straggler filter and 8.3c's
-        planned departures join these filters with their writers."""
+        relaunch, so this covers only records the new one wrote), not
+        inside a compile grace, not a slow-but-alive straggler and not an
+        announced leaver (the planned shrink owns its recovery)."""
         now = time.monotonic()
         dead = [d for d in dead if d != "chief" and now - max(
             (self._restart_at.get(p, float("-inf"))
              for p in self._pids_of(d)), default=float("-inf"))
             > 2 * self._heartbeat_timeout]
-        return [d for d in dead if not self._in_compile_grace(client, d)]
+        dead = [d for d in dead if not self._in_compile_grace(client, d)]
+        dead = [d for d in dead if not self._is_straggling(client, d)]
+        return [d for d in dead if not self._is_departing(client, d)]
 
     def start_watchdog(self):
         """Heartbeat-based failure detection via the coordination service
@@ -348,10 +428,11 @@ class Coordinator:
                     logging.info("watchdog: coordination service client "
                                  "re-established; supervision resumed")
                     continue
-                # grow-on-join: a relaunched worker announced itself —
-                # publish the grown roster at the next epoch (8.3c hooks
-                # the planned departures in here)
+                # the planned shrink for an announced leaver, and
+                # grow-on-join for a relaunched worker that announced
+                # itself: each publishes the next epoch
                 try:
+                    self._maybe_plan_departures(client)
                     self._maybe_admit_joiners(client)
                 except OSError:
                     pass  # a service blip: the next tick retries
@@ -478,14 +559,33 @@ class Coordinator:
         (``stop_watchdog`` set — the chief's exit-time terminate
         SIGTERMing a trailing worker, or the restart reaping the
         incarnation) is shutdown, not failure. With an elastic budget a
-        restartable worker is restarted."""
-        if code == 0:
+        restartable worker is restarted. An announced leaver's exit ends
+        its departure when its survivors' epoch was published, and takes
+        the whole-job restart when it was not (whatever its code)."""
+        address = self._launch_cmds.get(pid, ("",))[0]
+        if address in self._departures_shrunk:
+            # an announced leaver whose survivors' epoch was published:
+            # its exit ends the departure — even a non-zero code (the
+            # platform's deadline SIGKILL) aborts nothing and spends no
+            # restart; its liveness records are collected
+            logging.warning(
+                "preemption: announced leaver %s exited with code %s — "
+                "planned departure complete", address, code)
+            try:
+                c = self._coordsvc_client()
+                elastic.gc_worker_marks(c, address)
+                c.close()
+            except OSError:
+                pass
             return True
+        if code == 0 and address not in self._departures_handled:
+            return True
+        # (a departure the chief could not shrink for takes the whole-job
+        # restart its log promised when the leaver exits, zero or not)
         self._exits[pid] = (stamp, code)
         self._death_seen.set()
         if self._stop_watchdog.is_set():
             return True
-        address = self._launch_cmds[pid][0]
         try:
             if self._try_restart(pid, code, proc):
                 return True
@@ -725,6 +825,79 @@ class Coordinator:
             if self._stop_watchdog.wait(0.25):
                 return
 
+    def _maybe_plan_departures(self, client):
+        """The planned handoff, chief side: a rostered worker published a
+        preemption notice — publish the survivors' roster at epoch + 1
+        now, while the leaver is alive and in lockstep. The survivors
+        reconfigure from their own live state (no checkpoint fallback, no
+        detection latency); the leaver, out of the new roster, departs
+        gracefully instead of the zombie fence-out. No reap, no relaunch,
+        no restart of the budget: the host is being taken away, not
+        recovered. One membership change a tick."""
+        from autodist_tpu_torch.runtime import preemption
+        if not self._inrun:
+            return
+        # the steady state reads one key; the cursor is consumed only
+        # after a scan that published nothing, so a second notice is
+        # planned at the next tick
+        seq = client.get(preemption.SEQ_KEY) or ""
+        if seq == self._preempt_seq_seen:
+            return
+        info = elastic.read_epoch(client)
+        if info is None:
+            return
+        epoch, roster = info
+        for addr in roster:
+            if addr in self._departures_handled:
+                continue  # this departure's shrink decision is made
+            notice = preemption.read_notice(client, addr)
+            if notice is None or preemption.has_left(client, addr):
+                continue
+            self._departures_handled.add(addr)
+            self._planned_departures[addr] = notice.deadline
+            if addr == "chief" or self._cluster.is_chief(addr):
+                logging.error(
+                    "preemption: the CHIEF announced departure (%s) — a "
+                    "chief handoff needs external re-election; relying on "
+                    "the rescue checkpoint + ADT_AUTO_RESUME relaunch",
+                    notice.reason)
+                continue
+            reason = self._shrink_unsound_reason(addr)
+            if reason is not None:
+                logging.error(
+                    "preemption: %s announced departure but the topology "
+                    "cannot shrink past it (%s) — it departs with its "
+                    "rescue checkpoint and the job takes the whole-job "
+                    "restart when it exits", addr, reason)
+                continue
+            survivors = [a for a in roster if a != addr]
+            if not survivors:
+                continue  # the last worker standing: nothing to shrink to
+            elastic.publish_epoch(client, epoch + 1, survivors)
+            self._departures_shrunk.add(addr)
+            tel.counter_add("preempt.planned_shrinks")
+            tel.instant("preempt.planned_shrink", "preempt", worker=addr,
+                        epoch=epoch + 1, world=len(survivors),
+                        reason=notice.reason)
+            logging.warning(
+                "preemption: planned shrink for announced leaver %s (%s, "
+                "%.1fs of grace) — published epoch %d with %d "
+                "survivor(s); the leaver hands off ALIVE at the rescue "
+                "plan's boundary", addr, notice.reason,
+                max(notice.remaining_s(), 0.0), epoch + 1, len(survivors))
+            # the unplanned shrink's escalation: survivors that never ack
+            # get the whole-job restart
+            pids = self._pids_of(addr)
+            if pids:
+                t = threading.Thread(
+                    target=self._watch_acks,
+                    args=(epoch + 1, survivors, pids[0], "preempted"),
+                    daemon=True)
+                t.start()
+                self._threads.append(t)
+            return  # one membership change a tick (cursor unconsumed)
+        self._preempt_seq_seen = seq
+
     def _maybe_admit_joiners(self, client):
         """Grow-on-join: admit the relaunched workers that announced
         themselves (``elastic/join/<worker>``) by publishing the grown
@@ -747,9 +920,17 @@ class Coordinator:
                 elastic.gc_worker_marks(client, a)
         if not joiners:
             return
+        from autodist_tpu_torch.runtime import preemption
         for a in joiners:
             elastic.clear_join(client, a)
             elastic.gc_worker_marks(client, a)
+            # an earlier incarnation's notice must not make the watchdog
+            # read the new one as leaving, and a later departure of the
+            # address must be planned afresh
+            preemption.clear_notice(client, a)
+            self._planned_departures.pop(a, None)
+            self._departures_handled.discard(a)
+            self._departures_shrunk.discard(a)
         grown = roster + joiners
         elastic.publish_epoch(client, epoch + 1, grown)
         tel.counter_add("elastic.grows")
@@ -784,8 +965,9 @@ class Coordinator:
             logging.warning("sync-elastic: a checkpoint of this process is "
                             "still being written after %.0f s; restarting "
                             "from the newest committed one", SAVE_WAIT_S)
-        pid = min(self._exits, key=lambda p: self._exits[p][0])
-        code = self._exits[pid][1]
+        if self._exits:  # (a planned departure's escalation has none)
+            pid = min(self._exits, key=lambda p: self._exits[p][0])
+            code = self._exits[pid][1]
         address = self._launch_cmds[pid][0]
         used = const.ENV.ADT_ELASTIC_RESTARTS.val
         if used >= self._max_restarts or not self._launch_cmds:

@@ -281,8 +281,8 @@ class Membership:
         # resource spec; a node absent from it runs one process
         self.entries: dict = {}
         # the wall-clock deadline of an announced departure of this
-        # worker (the preemption plane's, ROADMAP A item 8.3c): until it
-        # passes, the fence lets the leaver finish its last boundary
+        # worker (runtime/preemption.py): until it passes, the fence lets
+        # the leaver finish its last boundary
         self._departure_until = 0.0
 
     @staticmethod
@@ -347,11 +347,12 @@ class Membership:
         if time.time() < self._departure_until:
             return  # an announced leaver finishing its last boundary
         if epoch > self.epoch and self.worker not in roster:
-            # (the JAX fence also writes a black-box record:
-            # telemetry/blackbox.py comes with ROADMAP A item 11)
+            from autodist_tpu_torch.telemetry import blackbox
             tel.counter_add("elastic.fenced_writes")
             tel.instant("elastic.fenced_write", "elastic", op=op,
                         mine=self.epoch, current=epoch, worker=self.worker)
+            blackbox.record("elastic.fenced_write", op=op, mine=self.epoch,
+                            current=epoch, worker=self.worker)
             raise FencedOut(op, self.epoch, epoch, self.worker, roster)
 
     def adopt(self, epoch: int, roster: Sequence[str]):

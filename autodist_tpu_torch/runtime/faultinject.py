@@ -17,7 +17,9 @@ path; or passed directly)::
                 {"op": "truncate",  "match": "BGETB", "nth": 1, "bytes": 64},
                 {"op": "partition", "match": "INC", "nth": 1,
                  "duration_s": 0.8},
-                {"op": "restart",   "at_step": 3}]}
+                {"op": "restart",   "at_step": 3},
+                {"op": "preempt",   "match": "STEP", "nth": 20,
+                 "deadline_s": 5}]}
 
 ``delay`` holds the matched request; ``reset`` hard-closes the client
 connection (before forwarding, or with ``"when": "after"`` after it — the
@@ -28,9 +30,12 @@ elastic epoch fence must beat); ``restart`` calls the proxy's
 ``restart_fn`` when a ``STEP`` with step >= ``at_step`` passes. ``match``
 prefix-matches the command word (``"*"`` any but PING), ``nth`` fires on
 the n-th match, ``repeat`` every n-th, ``prob`` with the plan's seeded
-probability. The advance-notice eviction (the ``preempt`` op and
-``deliver_preemption``) belongs to the preemption plane (ROADMAP A item
-8.3c).
+probability. ``preempt`` is the advance-notice eviction of a supervised
+process: a real SIGTERM to the rule's ``pid`` (or the proxy's
+``preempt_pid``) when it fires, then a real SIGKILL ``deadline_s`` later
+(:func:`deliver_preemption`, also callable on its own) — the spot or
+maintenance timing the preemption plane (``runtime/preemption.py``) must
+beat.
 """
 import json
 import os
@@ -55,7 +60,7 @@ class FaultRule:
     def __init__(self, spec: dict):
         self.op = spec["op"]
         if self.op not in ("delay", "reset", "truncate", "restart",
-                           "partition"):
+                           "partition", "preempt"):
             raise ValueError("unknown fault op %r" % self.op)
         self.match = spec.get("match", "*")
         self.nth = int(spec.get("nth", 1))
@@ -68,6 +73,11 @@ class FaultRule:
         self.bytes = int(spec.get("bytes", 0))
         self.when = spec.get("when", "before")
         self.at_step = spec.get("at_step")
+        # preempt: a real SIGTERM to the target when the rule fires, then a
+        # real SIGKILL deadline_s later (deliver_preemption); pid defaults
+        # to the proxy's preempt_pid
+        self.deadline_s = spec.get("deadline_s")
+        self.pid = spec.get("pid")
         self._matched = 0
         self._spent = False
 
@@ -164,10 +174,14 @@ class FaultyProxy:
 
     def __init__(self, upstream_host: str, upstream_port: int,
                  listen_port: int = 0, plan: Optional[FaultPlan] = None,
-                 restart_fn: Optional[Callable[[], None]] = None):
+                 restart_fn: Optional[Callable[[], None]] = None,
+                 preempt_pid: Optional[int] = None):
         self._upstream = (upstream_host, upstream_port)
         self._plan = plan if plan is not None else FaultPlan.from_env()
         self._restart_fn = restart_fn
+        # the target of "preempt" rules without a pid of their own (the
+        # training process a chaos harness supervises)
+        self.preempt_pid = preempt_pid
         self._listen = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self._listen.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
         self._listen.bind(("127.0.0.1", listen_port))
@@ -398,6 +412,16 @@ class FaultyProxy:
                                                   + rule.duration_s)
                 logging.warning("faultinject: PARTITION for %.1fs starting "
                                 "at %s", rule.duration_s, cmd)
+            elif rule.op == "preempt":
+                pid = rule.pid if rule.pid is not None else self.preempt_pid
+                if pid is None:
+                    logging.error(
+                        "faultinject: preempt rule fired at %s but no "
+                        "target pid is configured (rule 'pid' or "
+                        "FaultyProxy(preempt_pid=)) — skipping", cmd)
+                else:
+                    deliver_preemption(int(pid), rule.deadline_s,
+                                       reason="faultinject@%s" % cmd)
             elif rule.op == "restart" and self._restart_fn is not None:
                 logging.warning("faultinject: restarting service at %s %s",
                                 cmd, step_arg)
@@ -424,6 +448,49 @@ class FaultyProxy:
             self._hard_reset(client)
             return False
         return True
+
+
+# ====================================================== preemption delivery
+#
+# A planned eviction is a real SIGTERM followed, one grace window later, by
+# a real SIGKILL — what a spot VM or a maintenance event delivers. It is a
+# wire-plan op (``{"op": "preempt", "match": "STEP", "nth": 20,
+# "deadline_s": 5}`` on a FaultyProxy that supervises a training process)
+# and, directly, :func:`deliver_preemption` for harnesses that schedule the
+# eviction on wall time. The target's preemption plane must rescue and hand
+# off inside the window; the SIGKILL is unconditional.
+
+
+def deliver_preemption(pid: int, deadline_s: Optional[float] = None,
+                       reason: str = "faultinject") -> threading.Thread:
+    """SIGTERM ``pid`` now; SIGKILL it ``deadline_s`` seconds later if it
+    is still alive (a process that departed gracefully — exit 0 inside the
+    window — is never touched). Returns the (daemon) killer thread, so a
+    harness can join it."""
+    if deadline_s is None:
+        deadline_s = const.ENV.ADT_PREEMPT_DEADLINE_S.val
+    deadline_s = float(deadline_s)
+    logging.warning("faultinject: PREEMPT pid %d — SIGTERM now, SIGKILL "
+                    "in %.1fs (%s)", pid, deadline_s, reason)
+    try:
+        os.kill(pid, signal.SIGTERM)
+    except ProcessLookupError:
+        logging.warning("faultinject: preempt target pid %d already gone",
+                        pid)
+
+    def kill_at_deadline():
+        time.sleep(deadline_s)
+        try:
+            os.kill(pid, signal.SIGKILL)
+            logging.warning("faultinject: preempt deadline hit — SIGKILLed "
+                            "pid %d", pid)
+        except ProcessLookupError:
+            pass  # departed inside the window: the graceful path won
+
+    t = threading.Thread(target=kill_at_deadline,
+                         name="adt-preempt-killer", daemon=True)
+    t.start()
+    return t
 
 
 # ===================================================== checkpoint lifecycle

@@ -1,10 +1,9 @@
 """Resilient control-plane RPC: deadlines, reconnect, idempotent retry.
 
 PyTorch counterpart of ``autodist_tpu/runtime/resilience.py`` (that
-module imports nothing of JAX; the port keeps its own copy). The JAX
-client also writes a black-box dump when its breaker opens
-(``telemetry/blackbox.py``, ROADMAP A item 11); the port records the
-same counter, instant and warning.
+module imports nothing of JAX; the port keeps its own copy). A breaker
+that opens records the event in the flight recorder and dumps it
+(``telemetry/blackbox.py``).
 
 The raw :class:`~autodist_tpu_torch.runtime.coordination.CoordinationClient` is a
 thin blocking socket — any dropped TCP connection, hung RPC, or service
@@ -151,6 +150,15 @@ class ResilientCoordinationClient:
                 "transport failures to %s:%d",
                 self._breaker_cooldown_s, self._consecutive_failures,
                 self._host, self._port)
+            # a breaker that opens is a black-box trigger: the dump keeps
+            # the retry trail and the registry at the moment the control
+            # plane was declared down
+            from autodist_tpu_torch.telemetry import blackbox
+            blackbox.record("coord.breaker_open",
+                            target="%s:%d" % (self._host, self._port),
+                            failures=self._consecutive_failures,
+                            cooldown_s=self._breaker_cooldown_s)
+            blackbox.dump("breaker_open")
 
     def _check_breaker(self):
         remaining = self._breaker_open_until - time.monotonic()

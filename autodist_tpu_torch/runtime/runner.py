@@ -51,9 +51,23 @@ JAX runtime hangs in a collective a dead peer never enters, gloo raises:
 a step whose collective fails waits for the chief's shrink epoch,
 reconfigures and runs again on the new world (:meth:`Runner.run`), when
 the step had not begun to write its state (``writes_begun``); a torn
-step restores the newest checkpoint in the rebuild instead. The JAX
-runner's preemption plane belongs to a later slice (ROADMAP A item
-8.3c).
+step restores the newest checkpoint in the rebuild instead.
+
+The preemption plane (``runtime/preemption.py``): every Runner arms a
+``PreemptionGuard``. A SIGTERM, a maintenance file or an operator drain
+parks a notice that the step boundaries consume — the cluster-agreed,
+deadline-budgeted rescue checkpoint, then the planned handoff: the
+survivors reconfigure from a snapshot staged before the
+``elastic.reconfigure`` span (:meth:`Runner._prestage_snapshot`, the
+span's ``planned`` flag) and the leaver departs through
+``PlannedDeparture`` instead of the zombie fence-out. At more than one
+replica a reconfigure to an epoch without the announced leaver is held
+until the plan's step, so the shrink lands at one boundary on every
+member. Every Runner also arms the flight recorder
+(``telemetry/blackbox.py``) and feeds each dispatch's wall time to the
+straggler detector (``telemetry/goodput.py``), whose flag it marks on the
+coordination service for the chief's watchdog
+(:meth:`Runner._observe_straggler`).
 """
 import atexit
 import contextlib
@@ -259,6 +273,20 @@ class Runner:
         self._epoch_poll_at = 0.0
         self._last_reconfigure_s = None
         self._reconfigs = 0
+        # the preemption plane: a notice (SIGTERM, maintenance file,
+        # operator drain) the boundaries consume — rescue checkpoint, then
+        # the planned handoff; (step, snapshot) staged for the survivors'
+        # reconfigure, outside its span
+        from autodist_tpu_torch.runtime import preemption as preemption_lib
+        self._preempt = preemption_lib.PreemptionGuard(self)
+        self._prestaged = None
+        # the flight recorder (its SIGTERM and exit hooks per
+        # ADT_BLACKBOX*) and the online straggler detector
+        from autodist_tpu_torch.telemetry import blackbox as blackbox_lib
+        from autodist_tpu_torch.telemetry import goodput as goodput_lib
+        blackbox_lib.arm()
+        self._straggler = goodput_lib.StragglerEwma()
+        self._straggler_mark_at = 0.0
         self._atexit_cb = None
         if self._hb_enabled or self._coord is not None:
             # goodbye on exit: a worker whose script just ends must
@@ -444,20 +472,62 @@ class Runner:
                 "reconfiguring to %d member(s) at the next boundary",
                 info[0], m.epoch, len(info[1]))
 
-    def _maybe_reconfigure(self):
+    def _maybe_preempt_act(self):
+        """Drive a pending preemption notice at a SAFE point (beside the
+        sentinel and reconfigure hooks): the step-start notice read at
+        more than one replica, the cluster-agreed rescue checkpoint, the
+        snapshot's staging and — for a leaver with no survivors' epoch to
+        wait for — the graceful exit itself."""
+        self._preempt.poll(at_start=True)
+        if self._preempt.pending:
+            with self._collectives():
+                self._preempt.maybe_act()
+
+    def _prestage_snapshot(self):
+        """Stage the state snapshot for an ANNOUNCED membership change
+        (once a boundary step): the leaver is known in advance, so the
+        survivors take the flush and snapshot here, outside the
+        reconfigure span — the planned handoff's recorded downtime carries
+        less work than an unplanned shrink's."""
+        if (self._prestaged is not None
+                and self._prestaged[0] == self._step_count):
+            return
+        from autodist_tpu_torch.runtime import elastic as elastic_lib
+        self._dstep.flush_ps()
+        self._prestaged = (self._step_count,
+                           elastic_lib.snapshot_runner_state(self))
+
+    def _maybe_reconfigure(self, hold: bool = True):
         """Carry out a pending membership change at a safe point (no
-        dispatch running): the snapshot of this process's state (none
-        after a torn step), the barrier of the new epoch's members, the
-        handler's rejoin and rebuild, and the ack. Its time is the
-        ``elastic.reconfigure`` span."""
+        dispatch running): the snapshot of this process's state (staged in
+        advance for a planned departure, none after a torn step), the
+        barrier of the new epoch's members, the handler's rejoin and
+        rebuild, and the ack. Its time is the ``elastic.reconfigure``
+        span. With ``hold``, an epoch without an announced leaver waits
+        for the rescue plan's step (the preemption plane's lockstep
+        rule); a failed collective's recovery does not wait."""
         if self._reconfig_pending is None:
+            return
+        if hold and self._preempt.holds_reconfigure(
+                self._reconfig_pending[1]):
             return
         (epoch, roster), self._reconfig_pending = \
             self._reconfig_pending, None
         torn, self._reconfig_torn = self._reconfig_torn, False
         m = self._membership
         from autodist_tpu_torch.runtime import elastic as elastic_lib
+        from autodist_tpu_torch.telemetry import blackbox
         if m.worker not in roster:
+            # unthrottled notice check: the shrink epoch can outrun the
+            # notice poll, and an announced leaver must never take the
+            # zombie path — it hands off alive and exits gracefully
+            if self._preempt.check_departure_now():
+                if hold and self._preempt.defers_departure(roster):
+                    # at more than one replica the leaver runs on to the
+                    # plan's step, where its peers meet the same epoch
+                    self._reconfig_pending = (epoch, roster)
+                    return
+                self._preempt.depart(epoch, roster)
             # declared dead, yet alive: a zombie. Every write path is
             # fenced already; this is the loud exit
             raise elastic_lib.FencedOut("reconfigure", m.epoch, epoch,
@@ -468,13 +538,20 @@ class Runner:
                 "wired on this Runner (AutoDist.build arms it for in-run "
                 "elastic jobs)" % epoch)
         t0 = time.perf_counter()
+        planned = (not torn and self._prestaged is not None
+                   and self._prestaged[0] == self._step_count)
         with tel.span("elastic.reconfigure", "elastic", epoch=epoch,
                       world=len(roster), from_world=len(m.roster),
-                      step=self._step_count, torn=torn):
+                      step=self._step_count, torn=torn, planned=planned):
             snapshot = None
-            if not torn:
+            if planned:
+                # an announced departure: the snapshot was staged at this
+                # boundary, outside the span
+                snapshot = self._prestaged[1]
+            elif not torn:
                 self._dstep.flush_ps()
                 snapshot = elastic_lib.snapshot_runner_state(self)
+            self._prestaged = None
             # the new epoch's members meet at a step boundary: nobody
             # leaves its group while a peer is still in a collective
             m.barrier_reconf(epoch, m.world(roster))
@@ -489,6 +566,9 @@ class Runner:
         self._reconfigs += 1
         tel.counter_add("elastic.reconfigs")
         tel.gauge_set("elastic.epoch", float(epoch))
+        blackbox.record("elastic.reconfigure", epoch=epoch,
+                        world=len(roster), planned=planned,
+                        downtime_s=round(self._last_reconfigure_s, 6))
         logging.warning(
             "elastic: reconfigured to epoch %d (%d member(s), %d "
             "replica(s)) in %.3fs", epoch, len(roster),
@@ -525,7 +605,7 @@ class Runner:
         self._reconfig_pending = info
         self._reconfig_torn = torn
         tel.counter_add("elastic.step_reruns")
-        self._maybe_reconfigure()
+        self._maybe_reconfigure(hold=False)
         return True
 
     # ------------------------------------------------------------ sentinel
@@ -617,6 +697,7 @@ class Runner:
         t_begin = time.perf_counter()
         self._maybe_sentinel_act()  # a pending rollback replaces the state
         self._poll_epoch()
+        self._maybe_preempt_act()   # a pending notice rescues / hands off
         self._maybe_reconfigure()   # a pending epoch re-forms the world
         while True:
             st = state if state is not None else self.state
@@ -654,6 +735,7 @@ class Runner:
         t_begin = time.perf_counter()
         self._maybe_sentinel_act()  # a pending rollback replaces the state
         self._poll_epoch()
+        self._maybe_preempt_act()   # a pending notice rescues / hands off
         self._maybe_reconfigure()   # a pending epoch re-forms the world
         if self.state is None:
             raise RuntimeError("Runner.run_superstep before init()")
@@ -693,6 +775,7 @@ class Runner:
         tel.counter_add("runner.steps", microsteps)
         tel.counter_add("runner.supersteps")
         self._poll_epoch()
+        self._preempt.poll()
         self._maybe_heartbeat()
         if self._coord is not None:
             # report this step, then wait while more than `staleness`
@@ -853,6 +936,57 @@ class Runner:
             self._recent_step_s.append(elapsed)
             if len(self._recent_step_s) > self._RECENT_WINDOW:
                 del self._recent_step_s[:len(self._recent_step_s) // 2]
+            self._observe_straggler(elapsed)
+
+    def _observe_straggler(self, elapsed: float):
+        """Online slow-but-alive detection: sustained EWMA z-score
+        outliers in this worker's dispatch wall time flip the
+        ``telemetry.straggler`` gauge, emit an instant and, with a
+        coordination client, mark ``straggler/<worker>`` on the service —
+        the chief's watchdog reads the mark to tell a degraded but
+        progressing worker from a dead one instead of recycling it
+        (``Coordinator._is_straggling``)."""
+        from autodist_tpu_torch.telemetry import blackbox
+        transition = self._straggler.observe(elapsed)
+        if transition is None:
+            # refresh the mark while still flagged: the watchdog's
+            # freshness window (twice the heartbeat timeout) must see a
+            # live mark for as long as the degradation lasts
+            if (self._straggler.flagged
+                    and time.monotonic() - self._straggler_mark_at
+                    > self._heartbeat_every_s):
+                self._write_straggler_mark(repr(time.time()))
+            return
+        if transition == "flag":
+            z = self._straggler.last_z
+            tel.gauge_set("telemetry.straggler", round(z, 3))
+            tel.counter_add("telemetry.straggler_flags")
+            tel.instant("telemetry.straggler", "runner", z=round(z, 3),
+                        step=self._step_count,
+                        dispatch_s=round(elapsed, 6))
+            blackbox.record("runner.straggler", z=round(z, 3),
+                            step=self._step_count,
+                            dispatch_s=round(elapsed, 6))
+            logging.warning(
+                "straggler: dispatch wall time %.4gs is %.1f sigma over "
+                "the EWMA baseline for %d consecutive dispatches — "
+                "flagging this worker slow-but-alive",
+                elapsed, z, self._straggler.patience)
+            self._write_straggler_mark(repr(time.time()))
+        else:  # "clear"
+            tel.gauge_set("telemetry.straggler", 0.0)
+            tel.instant("telemetry.straggler_clear", "runner",
+                        step=self._step_count)
+            self._write_straggler_mark("0")
+
+    def _write_straggler_mark(self, mark: str):
+        self._straggler_mark_at = time.monotonic()
+        client = self._async_hb or self._coord
+        if client is not None:
+            try:  # best-effort: the mark is advisory, never worth a stall
+                client.put("straggler/%s" % self._worker, mark)
+            except (OSError, RuntimeError):
+                pass
 
     def step_stats(self) -> dict:
         """Wall-time statistics over this runner's steps (each rank times
@@ -906,6 +1040,9 @@ class Runner:
                                    else None),
             "fenced_writes": c.get("elastic.fenced_writes", 0.0),
         }
+        # the preemption plane (a stable shape): the notice, the rescue
+        # saves and skips, the handoffs and the last one's time
+        out["preempt"] = self._preempt.stats()
         # the key exists whether or not a sentinel policy is armed
         sen = self._sentinel
         out["sentinel"] = (sen.stats() if sen is not None else
@@ -978,6 +1115,9 @@ class Runner:
         if self._sentinel is not None and saver is not None:
             # a rollback restores from where fit checkpoints
             self._sentinel.attach_saver(saver)
+        if saver is not None:
+            # the rescue checkpoint commits where fit checkpoints too
+            self._preempt.attach_saver(saver)
         if fuse_steps > 1 or metrics_every > 1:
             return self._fit_pipelined(batches, steps, callbacks, save_every,
                                        saver, max(1, fuse_steps),
@@ -1141,6 +1281,7 @@ class Runner:
         PS carry, and stop the store's threads and serving
         (idempotent)."""
         self._hb_enabled = False
+        self._preempt.close()
         if self._atexit_cb is not None:
             atexit.unregister(self._atexit_cb)
             self._atexit_cb = None

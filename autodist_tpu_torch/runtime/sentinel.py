@@ -39,9 +39,10 @@ checkpoint write succeeds. Two halves, split by where the work happens:
   committed checkpoint carries a ``healthy`` stamp, so auto-resume and
   rollback never restore a poisoned state.
 
-The JAX module also records each bad verdict in its black box
-(``telemetry/blackbox.py``), which the port takes with ROADMAP A item 11;
-here the same events go to the log and the telemetry counters.
+Every bad verdict, pending rollback, rollback and divergence is recorded
+in the flight recorder (``telemetry/blackbox.py``), and a completed
+rollback and the divergence dump it, so a run that dies leaves the
+trail on disk.
 ``ADT_GRAD_FAULT_PLAN`` (``runtime/faultinject.py``) injects the faults
 that drive the ladder end to end.
 """
@@ -52,6 +53,7 @@ import math
 from typing import Optional
 
 from autodist_tpu_torch import const
+from autodist_tpu_torch.telemetry import blackbox
 from autodist_tpu_torch.telemetry import spans as tel
 from autodist_tpu_torch.utils import logging
 
@@ -201,6 +203,13 @@ class Sentinel:
             tel.counter_add("sentinel.nan_steps")
         tel.instant("sentinel.skip", "sentinel", micro=self._micro,
                     grad_norm=self.last_grad_norm)
+        # the black box keeps every BAD verdict (bounded): a postmortem
+        # reads the health trajectory into the fatal verdict even when
+        # tracing was off
+        blackbox.record("sentinel.verdict", ok=False, micro=self._micro,
+                        grad_norm=self.last_grad_norm,
+                        bad_grads=float(verdict.get("bad_grads", 0)),
+                        bad_params=float(verdict.get("bad_params", 0)))
         self._skip_steps.append(self._micro)
         horizon = self._micro - self.policy.window_steps
         while self._skip_steps and self._skip_steps[0] <= horizon:
@@ -247,6 +256,8 @@ class Sentinel:
             self._pending_rollback = reason
             tel.instant("sentinel.rollback_pending", "sentinel",
                         reason=reason, micro=self._micro)
+            blackbox.record("sentinel.rollback_pending", reason=reason,
+                            micro=self._micro)
 
     # ---------------------------------------------------------------- act
 
@@ -305,6 +316,8 @@ class Sentinel:
                               % (step, count - 1, reason))
             logging.warning("sentinel: ROLLBACK #%d to checkpoint step %d "
                             "(%s)", count, step, reason)
+            blackbox.record("sentinel.rollback", step=int(step),
+                            count=count, reason=reason)
             t0 = time.perf_counter()
             _, restored_step = saver.restore(self._runner)
             self.last_rollback_ms = (time.perf_counter() - t0) * 1e3
@@ -321,10 +334,18 @@ class Sentinel:
                 self._halve_lr()
             self.rollbacks += 1
             tel.counter_add("sentinel.rollbacks")
+        # a completed rollback is a black-box trigger: a run that later
+        # dies (or quietly mistrains) leaves the what, when and why on disk
+        blackbox.dump("sentinel rollback #%d" % self.rollbacks)
 
     def _diverge(self, message: str):
-        """Record the fatal verdict and raise the typed failure."""
+        """Record the fatal verdict, dump the black box (the postmortem
+        artifact: its events carry the rollback and verdict trail, its
+        span tail the last ``sentinel.rollback`` span when tracing was
+        on), and raise the typed failure."""
         tel.instant("sentinel.diverged", "sentinel", reason=message)
+        blackbox.record("sentinel.diverged", reason=message)
+        blackbox.dump("training_diverged")
         raise TrainingDiverged(message)
 
     def _halve_lr(self) -> None:

@@ -323,6 +323,31 @@ result line):
    2e-2 of phase 10's fp32 wire) and to ``"hier"`` at N = 4 on two
    loopback nodes of two ranks (within 2e-2 of the ring's), deterministic
    mode, the ranks bit-equal, step p50s (gloo's speed).
+23. the preemption plane (``runtime/preemption.py``). (a) bert_base bf16
+   (seq 128, global batch 128, flash) under ``AllReduce()``, launched by
+   the chief on two processes of ``cuda:0`` over gloo (phase 22's job)
+   with ``ADT_ELASTIC_INRUN=1``, a flight recorder directory and
+   deterministic mode, 6 steps: after step 1 the chief evicts its worker
+   with ``faultinject.deliver_preemption`` (a real SIGTERM, a SIGKILL at
+   60 s). Both processes commit the rescue checkpoint at the agreed step,
+   the chief publishes the survivors' epoch while the worker is alive, the
+   worker exits 0 through ``PlannedDeparture`` with ``preempt/left``
+   stamped and its SIGTERM dump holding the notice before the ``signal``
+   record, and the chief runs on at N = 1 with ``planned`` on its
+   reconfigure span, no step re-run, no checkpoint fallback and no
+   whole-job restart; the steps at N = 2 bit-equal to phase 10's fp32
+   wire, those at N = 1 within 1e-3 of it; 12 launches of each kernel a
+   rank-step on ``mma.sync bf16``; the notice to the exit, the rescue
+   save's ms, the planned reconfigure beside phase 22's unplanned one,
+   the notice to the first step at N = 1 and the steps lost. (b) beside
+   (a), one process of bert_base at 2 of its 12 layers: after a measured
+   save, a maintenance file whose grace is below that save's p99 x 1.5 —
+   the rescue save skipped, no torn checkpoint directory, exit 0 through
+   the solo departure. (c) phase 3's lm1b decode engine (bf16, flash, 32
+   slots) with 32 sequences in flight and 32 queued when
+   ``preemption.drain_serving`` runs: the 32 complete on the card, the 32
+   queued shed with the typed Retry-After, and 32 is returned. Phase 21
+   runs beside (a) too.
 
 TF32 is off for the whole run (``torch.backends.cuda.matmul`` and
 ``cudnn``): float32 is computed in float32, as the f32 checks' 2e-5 and
@@ -6220,6 +6245,462 @@ def inrun_phase(card, dp_losses, whole_job_s):
                       "broadcast_ms": (joined["broadcast_ms"] or [None])[0]}
 
 
+# ------------------------------------------------------------- phase 23
+
+
+PREEMPT_STEPS = DP_STEPS["fp32"] + 1  # 6; steps 0-4 held to phase 10's
+PREEMPT_AFTER = 1          # the chief evicts its worker after this step
+PREEMPT_DEADLINE_S = 60    # the SIGTERM's grace, then the SIGKILL
+SKIP_LAYERS = 2            # (b): bert_base at 2 of its 12 layers
+DRAIN_RETRY_S = 2.5        # (c): the shed requests' Retry-After
+
+# The user script of phase 23 (a): the chief runs it from the phase and
+# relaunches it for its worker. Each process appends its events to <out
+# dir>/preempt_<role>.jsonl as the steps go. argv: spec, out dir.
+PREEMPT_SCRIPT = r"""
+import functools, json, os, sys, time
+T_START = time.time()
+import torch
+import chip_smoke as cs
+import autodist_tpu_torch as adt
+from autodist_tpu_torch import strategy
+from autodist_tpu_torch.checkpoint import latest_checkpoint
+from autodist_tpu_torch.runtime import elastic, faultinject, preemption
+from autodist_tpu_torch.runtime.coordination import CoordinationClient
+from autodist_tpu_torch.telemetry import blackbox
+from autodist_tpu_torch.telemetry import spans as tel
+
+spec, outdir = sys.argv[1], sys.argv[2]
+worker = bool(os.environ.get("ADT_WORKER", ""))
+role = "worker" if worker else "chief"
+tel.configure("1")   # the rescue, handoff and reconfigure spans
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+events = open(os.path.join(outdir, "preempt_%s.jsonl" % role), "a")
+
+def record(event, **kw):
+    kw.update(event=event, t=time.time(), pid=os.getpid())
+    events.write(json.dumps(kw) + "\n")
+    events.flush()
+
+def counters():
+    c = tel.counters()
+    return {k: c.get(k, 0.0) for k in (
+        "elastic.step_reruns", "elastic.ckpt_fallbacks", "ckpt.fallback",
+        "preempt.rescue_saves", "preempt.rescue_skips", "preempt.handoffs",
+        "preempt.planned_shrinks")}
+
+record("start", t_start=T_START)
+ad = adt.AutoDist(resource_spec_file=spec,
+                  strategy_builder=strategy.AllReduce())
+from autodist_tpu_torch.models import bert
+torch.use_deterministic_algorithms(True)
+cfg = bert.BertConfig.base(dtype=torch.bfloat16)
+loss_fn, params, batch, _ = bert.make_train_setup(
+    cfg, seq_len=cs.BERT_SEQ, batch_size=cs.BERT_BATCH, seed=0,
+    attention="flash")
+runner = ad.build(loss_fn, functools.partial(torch.optim.Adam, lr=1e-3),
+                  params, batch)
+runner.init(params)
+torch.cuda.synchronize()
+m = elastic.current()
+rec = tel.get_recorder()
+record("init")
+cs.reset_counts()
+try:
+    for i in range(cs.PREEMPT_STEPS):
+        t = time.perf_counter()
+        loss = float(runner.run(batch)["loss"])
+        torch.cuda.synchronize()
+        dstep = runner.distributed_step
+        record("step", step=i, loss=loss,
+               ms=1e3 * (time.perf_counter() - t),
+               launches=cs.launch_counts(), world=dstep.num_replicas,
+               epoch=m.epoch)
+        cs.reset_counts()
+        if not worker and i == cs.PREEMPT_AFTER:
+            path = os.path.join(outdir, "preempt_worker.jsonl")
+            pid = None
+            while pid is None:
+                if os.path.exists(path):
+                    with open(path) as f:
+                        pid = next((json.loads(line)["pid"] for line in f
+                                    if '"init"' in line), None)
+                time.sleep(0.01)
+            record("evict", worker_pid=pid)
+            faultinject.deliver_preemption(pid, cs.PREEMPT_DEADLINE_S)
+except preemption.PlannedDeparture as e:
+    sig = preemption.signal_notice()
+    record("departed", code=e.code, reason=e.reason,
+           announced=sig.announced if sig is not None else None,
+           counters=counters(), epoch=m.epoch,
+           rescue_ms=[1e3 * d for d in rec.durations_s("preempt.rescue_save")],
+           handoff_s=runner._preempt.last_handoff_s,
+           dump=blackbox.dump("departure"))
+    raise
+c = CoordinationClient("127.0.0.1", int(os.environ["ADT_COORDSVC_PORT"]))
+t = time.monotonic()   # the leaver stamps preempt/left as it exits
+while not preemption.has_left(c, "localhost") and time.monotonic() - t < 60:
+    time.sleep(0.05)
+plan = preemption.read_plan(c, "localhost")
+record("done", counters=counters(), epoch=m.epoch,
+       left=preemption.has_left(c, "localhost"),
+       rescue_step=plan["rescue_step"] if plan else None,
+       committed=latest_checkpoint(os.environ["ADT_CKPT_DIR"])[0],
+       reconfigs=runner.step_stats()["elastic"]["reconfigs"],
+       reconfigure_ms=[1e3 * d for d in rec.durations_s(
+           "elastic.reconfigure")],
+       planned=[bool(e.args.get("planned")) for e in rec.events()
+                if e.name == "elastic.reconfigure"],
+       rescue_ms=[1e3 * d for d in rec.durations_s("preempt.rescue_save")])
+c.close()
+"""
+
+
+def start_preempt(tmp):
+    """Start phase 23 (a)'s job in ``tmp``; :func:`planned_departure_check`
+    waits for it."""
+    with open(os.path.join(tmp, "preempt_script.py"), "w") as f:
+        f.write(PREEMPT_SCRIPT)
+    with open(os.path.join(tmp, "spec.yml"), "w") as f:
+        f.write(LAUNCH_SPEC)
+    return start_launched(
+        tmp, "preempt", 0, script="preempt_script.py", ADT_ELASTIC="1",
+        ADT_ELASTIC_SYNC="1", ADT_ELASTIC_INRUN="1",
+        ADT_ELASTIC_POLL_S="0.05", ADT_PREEMPT_POLL_S="0.05",
+        ADT_PREEMPT_DEADLINE_S=str(PREEMPT_DEADLINE_S), ADT_BLACKBOX="1",
+        ADT_BLACKBOX_DIR=os.path.join(tmp, "bb"),
+        ADT_CKPT_DIR=os.path.join(tmp, "ckpt"))
+
+
+def planned_departure_check(card, tmp, job, dp_losses, unplanned_ms):
+    """Phase 23 (a)'s gates and readings, once its job has ended. Returns
+    both ranks' launches."""
+    from autodist_tpu_torch.telemetry import blackbox
+    rc, err, wall, left = finish_launched(job, 300, "phase 23 (a)")
+    chief = read_events(tmp, "preempt", "chief")
+    wk = read_events(tmp, "preempt", "worker")
+    if rc != 0 or left:
+        fail("phase 23 (a): the chief exited %d, %d processes left: %s"
+             % (rc, len(left), err[-4000:]))
+    if "restarting the WHOLE job" in err:
+        fail("phase 23 (a): the chief restarted the whole job: %s"
+             % err[-4000:])
+    for text in ("planned shrink for announced leaver localhost",
+                 "announced leaver localhost exited with code 0 — planned "
+                 "departure complete", "rescue checkpoint committed"):
+        if text not in err:
+            fail("phase 23 (a): %r not in the log: %s" % (text, err[-4000:]))
+    gone = next((e for e in wk if e["event"] == "departed"), None)
+    done = next((e for e in chief if e["event"] == "done"), None)
+    if gone is None or done is None:
+        fail("phase 23 (a): the worker's departure or the chief's end was "
+             "not recorded: %s" % err[-4000:])
+    if gone["code"] != 0 or gone["reason"] != "sigterm" or not done["left"]:
+        fail("phase 23 (a): the worker left with code %r (%r), preempt/left "
+             "%r (want 0, sigterm, True)"
+             % (gone["code"], gone["reason"], done["left"]))
+    # the survivors' epoch was published while the worker was alive
+    shrink_t = log_time(err, "planned shrink for announced leaver")
+    if shrink_t is None or shrink_t >= gone["t"]:
+        fail("phase 23 (a): the survivors' epoch (%r) was not published "
+             "before the worker's departure (%r)" % (shrink_t, gone["t"]))
+    cc, wc = done["counters"], gone["counters"]
+    r = done["rescue_step"]
+    if cc["preempt.rescue_saves"] != 1 or wc["preempt.rescue_saves"] != 1 \
+            or done["committed"] != r:
+        fail("phase 23 (a): rescue saves %r / %r, plan step %r, newest "
+             "committed checkpoint %r (want 1, 1 at the plan's step)"
+             % (cc["preempt.rescue_saves"], wc["preempt.rescue_saves"], r,
+                done["committed"]))
+    for who, c in (("chief", cc), ("worker", wc)):
+        if c["elastic.step_reruns"] or c["elastic.ckpt_fallbacks"] or \
+                c["ckpt.fallback"]:
+            fail("phase 23 (a): the %s re-ran or restored: %r" % (who, c))
+    if done["planned"] != [True] or done["reconfigs"] != 1 or \
+            done["epoch"] != 2:
+        fail("phase 23 (a): the chief's reconfigures %r (planned %r), epoch "
+             "%r (want one planned, epoch 2)"
+             % (done["reconfigs"], done["planned"], done["epoch"]))
+    dumps = [blackbox.load_dump(os.path.join(tmp, "bb", f))
+             for f in sorted(os.listdir(os.path.join(tmp, "bb")))
+             if f.endswith(".json")]
+    sig = [d for d in dumps if d["pid"] == gone["pid"]
+           and d["trigger"] == "fatal signal SIGTERM"]
+    kinds = [e["kind"] for e in sig[0]["events"]] if sig else []
+    if "preempt.notice" not in kinds or "signal" not in kinds or \
+            kinds.index("preempt.notice") > kinds.index("signal"):
+        fail("phase 23 (a): the worker's SIGTERM dump holds %r (want the "
+             "notice before the signal)" % (kinds,))
+    steps, launches = {}, {}
+    for role, evs in (("chief", chief), ("worker", wk)):
+        for e in evs:
+            if e["event"] != "step":
+                continue
+            steps.setdefault(role, {})[e["step"]] = e
+            check_launches("phase 23 (a) %s step %d (N = %d)" % (
+                role, e["step"], e["world"]), e["launches"], BERT_LAYERS, 1)
+            for name, by in e["launches"].items():
+                for design, n in by.items():
+                    launches.setdefault(name, {})
+                    launches[name][design] = launches[name].get(design, 0) + n
+    want = {"chief": list(range(PREEMPT_STEPS)), "worker": list(range(r))}
+    got = {k: sorted(steps.get(k, {})) for k in want}
+    if got != want:
+        fail("phase 23 (a): the steps each process ran %r (want %r)"
+             % (got, want))
+    worlds = [steps["chief"][i]["world"] for i in range(PREEMPT_STEPS)]
+    if worlds != [2] * r + [1] * (PREEMPT_STEPS - r) or r >= len(dp_losses):
+        fail("phase 23 (a): the chief's worlds %r (plan step %r)"
+             % (worlds, r))
+    losses = [steps["chief"][i]["loss"] for i in range(PREEMPT_STEPS)]
+    if [steps["worker"][i]["loss"] for i in range(r)] != losses[:r]:
+        fail("phase 23 (a): the worker's losses differ from the chief's")
+    if losses[:r] != list(dp_losses[:r]):
+        fail("phase 23 (a): steps 0-%d %r are not bit-equal to phase 10's "
+             "uninterrupted fp32-wire run %r" % (r - 1, losses, dp_losses))
+    for i in range(r, len(dp_losses)):
+        if not abs(losses[i] - dp_losses[i]) <= 1e-3 * abs(dp_losses[i]):
+            fail("phase 23 (a): step %d's loss %r at N = 1 is not within "
+                 "1e-3 of phase 10's %r" % (i, losses[i], dp_losses[i]))
+    if not all(abs(x) < float("inf") for x in losses):
+        fail("phase 23 (a): a loss is not finite: %r" % losses)
+    evict = next(e for e in chief if e["event"] == "evict")
+    first_one = steps["chief"][r]
+    lost = (len([e for e in chief if e["event"] == "step"]) - PREEMPT_STEPS
+            + int(cc["elastic.step_reruns"]))
+    print("  losses %s (chief), steps 0-%d at N = 2 bit-equal to phase 10's "
+          "uninterrupted fp32-wire run, steps %d-%d at N = 1 within 1e-3 of "
+          "it (%s); the worker's equal the chief's; each kernel 12 launches "
+          "a rank-step on mma.sync bf16 (%d rank-steps) [%s]"
+          % (" ".join("%.6f" % x for x in losses), r - 1, r,
+             len(dp_losses) - 1, " ".join("%.6f" % x for x in dp_losses),
+             sum(len(v) for v in steps.values()), card))
+    print("  the worker: SIGTERM %.3f s after the chief's step %d, exit 0 "
+          "(PlannedDeparture, sigterm) %.2f s after its notice, preempt/left "
+          "stamped, its SIGTERM dump holds the notice before the signal; the "
+          "chief published epoch 2 %.2f s before the departure; both saved "
+          "the rescue checkpoint at step %d (the chief %s ms, the worker %s "
+          "ms: rank 0 writes); handoff %.1f ms [%s]"
+          % (evict["t"] - steps["chief"][PREEMPT_AFTER]["t"], PREEMPT_AFTER,
+             gone["t"] - gone["announced"], gone["t"] - shrink_t, r,
+             " ".join("%.1f" % x for x in done["rescue_ms"]),
+             " ".join("%.1f" % x for x in gone["rescue_ms"]),
+             1e3 * (gone["handoff_s"] or 0.0), card))
+    print("  the survivor's planned reconfigure %.1f ms (phase 22's unplanned "
+          "shrink in this run: %s); the notice to the chief's first step at "
+          "N = 1 %.2f s; steps lost %d (step re-runs %d, checkpoint "
+          "fallbacks %d); the steps at N = 1 %s ms; the job %.1f s [%s]"
+          % (done["reconfigure_ms"][0],
+             "%.1f ms" % unplanned_ms if unplanned_ms is not None else
+             "not measured", first_one["t"] - gone["announced"], lost,
+             int(cc["elastic.step_reruns"]),
+             int(cc["elastic.ckpt_fallbacks"]),
+             " ".join("%.1f" % steps["chief"][i]["ms"]
+                      for i in range(r, PREEMPT_STEPS)), wall, card))
+    return launches
+
+
+def rescue_skip_phase(card):
+    """Phase 23 (b): one process of bert_base at 2 of its 12 layers, full
+    width, a maintenance file whose grace is below the measured save's
+    p99 x 1.5: the rescue save is skipped, no checkpoint directory is
+    torn, and the run departs solo with exit code 0. Returns its
+    launches."""
+    import tempfile
+    import torch
+    import autodist_tpu_torch as adt
+    from autodist_tpu_torch import strategy
+    from autodist_tpu_torch.checkpoint import integrity
+    from autodist_tpu_torch.checkpoint.saver import Saver
+    from autodist_tpu_torch.models import bert
+    from autodist_tpu_torch.runtime import preemption
+    from autodist_tpu_torch.telemetry import spans as tel
+    adt_reset()
+    tmp = tempfile.mkdtemp()
+    maint = os.path.join(tmp, "maintenance.json")
+    os.environ["ADT_MAINTENANCE_FILE"] = maint
+    try:
+        cfg = bert.BertConfig.base(dtype=torch.bfloat16,
+                                   num_layers=SKIP_LAYERS)
+        loss_fn, params, batch, _ = bert.make_train_setup(
+            cfg, seq_len=BERT_SEQ, batch_size=BERT_BATCH, seed=0,
+            attention="flash")
+        ad = adt.AutoDist(strategy_builder=strategy.AllReduce())
+        runner = ad.build(loss_fn, functools.partial(torch.optim.Adam,
+                                                     lr=1e-3), params, batch)
+        runner.init(params)
+        reset_counts()
+        runner.run(batch)
+        ckpt = os.path.join(tmp, "ckpt")
+        saver = Saver(directory=ckpt)
+        saver.save(runner)   # the measured save the budget reads
+        saver.wait()
+        p99_s = tel.hist_quantile("ckpt.save_ms", 0.99) / 1e3
+        grace = min(1.0, p99_s)
+        with open(maint, "w") as f:
+            json.dump({"deadline_s": grace, "reason": "maintenance"}, f)
+        skips = tel.counters().get("preempt.rescue_skips", 0.0)
+        steps = 1
+        try:
+            for _ in range(5):
+                runner.run(batch)
+                steps += 1
+            fail("phase 23 (b): no departure within 5 steps of the notice")
+        except preemption.PlannedDeparture as e:
+            code, reason = e.code, e.reason
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        stats = runner.step_stats()["preempt"]
+        scans = integrity.scan(ckpt)
+    finally:
+        os.environ.pop("ADT_MAINTENANCE_FILE", None)
+    if code != 0 or reason != "maintenance" or \
+            tel.counters().get("preempt.rescue_skips", 0.0) != skips + 1 \
+            or stats["rescue_saves"] != 0 or stats["handoffs"] != 1:
+        fail("phase 23 (b): exit %r (%r), rescue skips %r, saves %r, "
+             "handoffs %r (want 0, maintenance, 1, 0, 1)"
+             % (code, reason, tel.counters().get("preempt.rescue_skips"),
+                stats["rescue_saves"], stats["handoffs"]))
+    if [s.state for s in scans] != ["committed"] or \
+            any(f.endswith(".tmp") for f in os.listdir(ckpt)):
+        fail("phase 23 (b): the checkpoint directory holds %r (want the one "
+             "committed save)" % sorted(os.listdir(ckpt)))
+    check_launches("phase 23 (b)", launches, SKIP_LAYERS, steps)
+    print("  (b) bert_base at %d layers: the save measured %.0f ms (p99), a "
+          "maintenance file with %.2f s of grace: the rescue save skipped "
+          "(x%.1f safety), no torn directory, exit 0 after %d steps, handoff "
+          "%.1f ms [%s]"
+          % (SKIP_LAYERS, 1e3 * p99_s, grace,
+             preemption.RESCUE_SAFETY_FACTOR, steps,
+             1e3 * stats["last_handoff_s"], card))
+    adt_reset()
+    return launches
+
+
+def serve_drain_phase(card):
+    """Phase 23 (c): phase 3's lm1b decode engine (full width, bf16, flash
+    decode, 32 slots): 32 prompts in flight and 32 queued when
+    ``preemption.drain_serving`` runs — the sequences in flight complete
+    on the card, every queued one sheds with the typed Retry-After, and
+    the shed count is returned. Returns flash_fwd's launches."""
+    import numpy as np
+    import torch
+    import autodist_tpu_torch as adt
+    from autodist_tpu_torch import strategy
+    from autodist_tpu_torch.models import lm
+    from autodist_tpu_torch.runtime import preemption
+    from autodist_tpu_torch.serving.decode import DecodeConfig, DecodeEngine
+    from autodist_tpu_torch.serving.engine import ServingUnavailable
+    adt_reset()
+    cfg = lm.LMConfig.lm1b(dtype=torch.bfloat16)
+    loss_fn, params, batch, _ = lm.make_train_setup(cfg, seq_len=64,
+                                                    batch_size=8, seed=0)
+    ad = adt.AutoDist(strategy_builder=strategy.AllReduce())
+    runner = ad.build(loss_fn, functools.partial(torch.optim.Adam, lr=1e-3),
+                      params, batch)
+    runner.init(params)
+    dcfg = DecodeConfig(slots=32, max_new_tokens=32, prefill_len=64)
+    engine = DecodeEngine(runner, lm.make_decode_setup(cfg, "flash"), dcfg)
+    engine.warmup()
+    torch.cuda.synchronize()
+    rng = np.random.RandomState(1)
+    prompts = [rng.randint(0, cfg.vocab_size, (1 + (i * 37) % 64,)).astype(
+        np.int32) for i in range(2 * dcfg.slots)]
+    hold, held = threading.Event(), threading.Event()
+    step = engine._dispatch_step
+
+    def held_step():
+        held.set()
+        hold.wait(timeout=60)
+        return step()
+    engine._dispatch_step = held_step
+    reset_counts()
+    t0 = time.perf_counter()
+    in_flight = [engine.submit(p) for p in prompts[:dcfg.slots]]
+    deadline = time.monotonic() + 120
+    while len(engine.scheduler.live_slots()) < dcfg.slots and \
+            time.monotonic() < deadline:
+        time.sleep(0.005)
+    live = len(engine.scheduler.live_slots())
+    queued = [engine.submit(p) for p in prompts[dcfg.slots:]]
+    threading.Timer(0.2, hold.set).start()
+    shed = preemption.drain_serving(retry_after_s=DRAIN_RETRY_S)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()["flash_fwd"]
+    stats = engine.stats()
+    results = [f.result(timeout=60) for f in in_flight]
+    typed = 0
+    for f in queued:
+        try:
+            f.result(timeout=1)
+        except ServingUnavailable as e:
+            typed += e.retry_after_s == DRAIN_RETRY_S
+    try:
+        engine.submit(prompts[0])
+        late = None
+    except ServingUnavailable as e:
+        late = e.retry_after_s
+    if live != dcfg.slots or shed != len(queued) or typed != len(queued) \
+            or late != DRAIN_RETRY_S or stats["drained"] != dcfg.slots:
+        fail("phase 23 (c): %d live at the drain, shed %r of %d (%d typed), "
+             "a late submit's Retry-After %r, drained %r"
+             % (live, shed, len(queued), typed, late, stats["drained"]))
+    for r in results:
+        toks = np.asarray(r["tokens"])
+        if toks.shape != (32,) or toks.min() < 0 or \
+                toks.max() >= cfg.vocab_size:
+            fail("phase 23 (c): an in-flight result is wrong: %r" % (r,))
+    want = {MAIN_DESIGN["flash_fwd"]: cfg.num_layers * stats["steps"]}
+    if launches != want or stats["steps"] == 0:
+        fail("phase 23 (c): flash_fwd launched %r over %d decode steps "
+             "(want %r)" % (launches, stats["steps"], want))
+    print("  (c) lm1b bf16 decode, %d slots: %d sequences in flight "
+          "completed on the card (%d decode steps, flash_fwd %r), %d queued "
+          "shed with ServingUnavailable(retry_after_s=%.1f), a submit after "
+          "the drain shed the same; drain_serving returned %d; the drain "
+          "%.2f s [%s]"
+          % (dcfg.slots, len(results), stats["steps"], launches, len(queued),
+             DRAIN_RETRY_S, shed, wall, card))
+    adt_reset()
+    return {"flash_fwd": launches}
+
+
+def preempt_phase(card, dp_losses, unplanned_ms, beside=None):
+    """Phase 23: the preemption plane. (a) runs beside (b), (c) and
+    ``beside()`` (phase 21); returns (a)'s and (b)'s launches, (c)'s, and
+    what ``beside`` returned."""
+    import shutil
+    import tempfile
+    print("phase 23: the preemption plane — (a) bert_base bf16 (seq %d, "
+          "global batch %d, flash) under AllReduce(), launched by the chief "
+          "on 127.0.0.1 and localhost (two processes on cuda:0, gloo), "
+          "ADT_ELASTIC_INRUN=1, deterministic mode, %d steps: the chief "
+          "evicts the worker after step %d (SIGTERM, SIGKILL at %d s); (b) "
+          "the rescue-skip branch; (c) the serving drain (run beside phase "
+          "21)" % (BERT_SEQ, BERT_BATCH, PREEMPT_STEPS, PREEMPT_AFTER,
+                   PREEMPT_DEADLINE_S))
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp()
+    job = start_preempt(tmp)
+    try:
+        skip_launches = rescue_skip_phase(card)
+        drain_launches = serve_drain_phase(card)
+        out = beside() if beside is not None else None
+        launches = planned_departure_check(card, tmp, job, dp_losses,
+                                           unplanned_ms)
+    finally:
+        kill_job("ADT_SMOKE_JOB=" + job["marker"])
+        shutil.rmtree(tmp, ignore_errors=True)
+    for name, by in skip_launches.items():
+        for design, n in by.items():
+            launches.setdefault(name, {})
+            launches[name][design] = launches[name].get(design, 0) + n
+    print("phase 23: %.1f s" % (time.perf_counter() - t0))
+    return launches, drain_launches, out
+
+
 def main():
     global T_SMOKE
     T_SMOKE = time.perf_counter()
@@ -6386,16 +6867,20 @@ def main():
     def beside_19(whole_job_s):
         launched = Beside(launch_phase, card)
         try:
-            return inrun_phase(card, dp_losses, whole_job_s)[0]
+            return inrun_phase(card, dp_losses, whole_job_s)
         finally:
             launched.result()
-    elastic_launches, whole_job_s, inrun_launches = timed_phase(
+    elastic_launches, whole_job_s, (inrun_launches, inrun) = timed_phase(
         "19 with 18 and 22", elastic_phase, card, dp_losses, beside_19)
     tp_a, tp_b, tp16, tp8, gathered_ms, shard = timed_phase("20", tp_phase,
                                                             card)
-    shard_launches, sentinel_launches, sched_launches = timed_phase(
-        "21", health_phase, card, dp_losses, gathered_ms, shard)
-    print("phases 5-22: %s s" % ", ".join(
+    # phase 23 (a)'s two processes run beside its (b) and (c) and phase 21
+    preempt_launches, drain_launches, (
+        shard_launches, sentinel_launches, sched_launches) = timed_phase(
+            "21 with 23", preempt_phase, card, dp_losses,
+            inrun["shrink_ms"],
+            lambda: health_phase(card, dp_losses, gathered_ms, shard))
+    print("phases 5-23: %s s" % ", ".join(
         "%s %.1f" % kv for kv in seconds.items()))
 
     # flash_fwd runs on the three main paths, serving (decode), lm1b and
@@ -6462,6 +6947,9 @@ def main():
         # phase 22: bert_base launched by the chief, in-run elastic: the
         # first worker's steps, the chief's at N = 1 and N = 2, the
         # joiner's
+        # phase 23: (a) bert_base launched by the chief, the planned
+        # departure: the worker's steps, the chief's at N = 2 and N = 1;
+        # (b) bert_base at 2 layers, the rescue-skip branch
         for path, counts in (("bert_sync_variants", sync_launches),
                              ("lm1b_bf16_tier", tier_launches),
                              ("bert_remat", remat_launches),
@@ -6472,7 +6960,8 @@ def main():
                              ("tp_lm_sharded", shard_launches),
                              ("bert_sentinel", sentinel_launches),
                              ("bert_schedules", sched_launches),
-                             ("bert_inrun", inrun_launches)):
+                             ("bert_inrun", inrun_launches),
+                             ("bert_preempt", preempt_launches)):
             n = counts.get(name, {})
             rec["by_path"][path] = {
                 "launches": sum(n.values()),
@@ -6488,6 +6977,12 @@ def main():
             "design_launches": carried.get(rec["design"], 0),
             "launches_per_microstep_under_replay":
                 carry_per_microstep[name]}
+        if name == "flash_fwd":
+            # phase 23 (c): lm1b decode under the serving drain
+            n = drain_launches["flash_fwd"]
+            rec["by_path"]["serve_drain"] = {
+                "launches": sum(n.values()),
+                "design_launches": n.get(rec["design"], 0), "designs": n}
         rec["launches"] = sum(p["launches"] for p in rec["by_path"].values())
         rec["design_launches"] = sum(p["design_launches"]
                                      for p in rec["by_path"].values())

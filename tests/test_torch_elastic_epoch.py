@@ -13,13 +13,18 @@ fault holding then delivering), the ADT430/431 rules, the ZeRO re-layout
 of the snapshot's sync state, a single-process reconfigure end to end
 (the losses bit-equal to an uninterrupted run) and the re-run rule: a
 step whose collective fails before its first write runs again from the
-live state, one that fails after it restores the newest checkpoint. The
-two-process shrink and grow is in ``test_torch_elastic_launch.py``.
+live state, one that fails after it restores the newest checkpoint; a
+straggler flag that does not carry into the next epoch's incarnation, and
+a planned shrink, published while its leaver is alive, held until the
+rescue plan's step at more than one replica. The two-process shrink and
+grow is in ``test_torch_elastic_launch.py``, the preemption plane's
+planned departure in ``test_torch_preemption.py``.
 """
 import functools
 import os
 import socket
 import time
+import types
 
 import numpy as np
 import pytest
@@ -651,3 +656,100 @@ def test_a_failed_step_reruns_or_restores(monkeypatch, server, tmp_path,
         # the checkpoint held step 2: the failed call ran step 2 again
         assert losses[:3] == ref[:3] and losses[3:] == ref[2:4]
         assert int(runner.state.step) == 4 and fallbacks == 1
+
+
+# ------------------------------------------ straggler marks across epochs
+
+
+def _mini_coordinator(tmp_path, monkeypatch, server):
+    monkeypatch.setenv("ADT_COORDSVC_PORT", str(server.port))
+    from autodist_tpu_torch.resource_spec import ResourceSpec
+    from autodist_tpu_torch.runtime.cluster import Cluster
+    from autodist_tpu_torch.runtime.coordinator import Coordinator
+    spec = tmp_path / "spec.yml"
+    spec.write_text(
+        "nodes:\n  - address: 127.0.0.1\n    chief: true\n    cpus: [0]\n"
+        "  - address: localhost\n    cpus: [0]\n")
+    return Coordinator("sid-epoch", Cluster(ResourceSpec(str(spec))),
+                       heartbeat_timeout=5.0, max_restarts=0)
+
+
+def test_straggler_flag_does_not_carry_across_epochs(server, tmp_path,
+                                                     monkeypatch):
+    """A worker flagged straggling in epoch N does not carry the flag
+    into its epoch N + 1 incarnation: the admission path collects the
+    marks, and the new incarnation's own compile-grace mark still works
+    from a clean slate (the JAX test's sequence, answered alike by the
+    JAX coordinator on the same service)."""
+    from autodist_tpu.runtime.coordinator import Coordinator as JCoordinator
+    coord = _mini_coordinator(tmp_path, monkeypatch, server)
+    jcoord = types.SimpleNamespace(_heartbeat_timeout=5.0)
+    answers = []
+
+    def ask(c):
+        mine = (coord._is_straggling(c, "wsx"),
+                coord._in_compile_grace(c, "wsx"))
+        theirs = (JCoordinator._is_straggling(jcoord, c, "wsx"),
+                  mine[1])
+        answers.append((mine, theirs))
+        return mine
+    c = _client(server)
+    c.put("straggler/wsx", repr(time.time()))
+    c.put("compiling/wsx", repr(time.time()))
+    assert ask(c) == (True, True)
+    # epoch N + 1: wsx died, was shrunk away, relaunched and admitted —
+    # the admission (Coordinator._maybe_admit_joiners) collects its marks
+    elastic.gc_worker_marks(c, "wsx")
+    assert ask(c) == (False, False)
+    c.put("compiling/wsx", repr(time.time()))
+    assert ask(c) == (False, True)
+    assert all(m[0] == t[0] for m, t in answers)
+    coord.stop_watchdog()
+    c.close()
+
+
+def test_a_planned_shrink_waits_for_the_rescue_step(monkeypatch, server):
+    """The lockstep rule at the Runner: with a rescue plan for an
+    announced leaver at a later step, a parked epoch without the leaver
+    is held (more than one replica) until that step, while an epoch that
+    keeps it, or one replica, is not; and a leaver that sees its own
+    exclusion first runs on to the plan's step, then departs."""
+    from autodist_tpu_torch.runtime import preemption
+    runner, _ = _tiny_runner()
+    guard = runner._preempt
+    guard._notice = preemption.PreemptionNotice("peer", time.time() + 30,
+                                                "drain")
+    guard._plan = {"rescue_step": 5}
+    guard._plan_shared = True
+    runner._step_count = 3
+    assert not guard.holds_reconfigure(["127.0.0.1"])  # one replica
+    monkeypatch.setattr(runner.distributed_step.replica_info,
+                        "num_processes", 2)
+    assert guard.holds_reconfigure(["127.0.0.1"])
+    assert not guard.holds_reconfigure(["127.0.0.1", "peer"])
+    runner._reconfig_pending = (9, ["127.0.0.1"])
+    runner._maybe_reconfigure()
+    assert runner._reconfig_pending == (9, ["127.0.0.1"])  # held
+    runner._step_count = 5
+    assert not guard.holds_reconfigure(["127.0.0.1"])
+    runner._reconfig_pending = None
+    # the leaver's own exclusion seen before its notice poll: it agrees the
+    # plan there and runs on to the plan's step instead of departing
+    me = guard.worker
+    runner._membership = types.SimpleNamespace(
+        worker=me, epoch=8, roster=[me, "other"],
+        _with_client=lambda fn: None)
+    guard._notice = preemption.PreemptionNotice(me, time.time() + 30,
+                                                "drain")
+    guard._plan = None
+
+    def agree(notice):
+        guard._plan_shared = True
+        return {"rescue_step": 7}
+    monkeypatch.setattr(guard, "_agree_plan", agree)
+    runner._reconfig_pending = (9, ["other"])
+    runner._maybe_reconfigure()
+    assert runner._reconfig_pending == (9, ["other"])  # held, not departed
+    runner._step_count = 7
+    with pytest.raises(preemption.PlannedDeparture):
+        runner._maybe_reconfigure()
