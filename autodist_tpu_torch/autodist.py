@@ -138,6 +138,38 @@ def _strategy_for_roster(strategy: Strategy, roster) -> Strategy:
     return out
 
 
+def _check_pipeline_knobs(compiled: Strategy, mp_meta) -> None:
+    """The JAX ``build``'s guard: the pipeline knobs are baked into the
+    loss when the model builds it, so a plan that wants other ones than
+    ``mp_meta`` declares would train another program than the one it
+    describes (or, for the interleaved ``pp_shards``, another logical
+    layer order than every unbound trace emulates). Raises with the
+    rebuild instruction, in the JAX words."""
+    meta = mp_meta or {}
+    gc = compiled.graph_config
+    picked_checks = [
+        ("pp_schedule", gc.pp_schedule, "schedule"),
+        ("pp_microbatches", gc.pp_microbatches, "n_microbatches"),
+        ("pp_virtual", gc.pp_virtual, "virtual_stages"),
+        ("pp_shards",
+         (gc.mesh_shape or {}).get(const.PIPELINE_AXIS), "pp_shards"),
+    ]
+    for key, picked, setup_kw in picked_checks:
+        declared = meta.get(key)
+        if key == "pp_shards" and meta.get("pp_schedule") != "interleaved":
+            # gpipe/1f1b losses read S off the mesh axis at run time; only
+            # the interleaved loss bakes the stage count
+            continue
+        if (declared is not None and picked is not None
+                and declared != picked):
+            raise ValueError(
+                "the strategy wants pipeline %s=%r but the loss was "
+                "built with %r — rebuild the model's loss "
+                "(make_train_setup(%s=%r)) and declare it via "
+                "mp_meta[%r]"
+                % (key, picked, declared, setup_kw, picked, key))
+
+
 def process_group_replicas() -> ReplicaInfo:
     """This process's rank and the world size of the default process
     group; one replica when no group is initialized."""
@@ -354,7 +386,7 @@ class AutoDist:
     def build(self, loss_fn: Callable, optimizer, params, example_batch,
               has_aux: bool = False, apply_fn: Optional[Callable] = None,
               trainable_filter: Optional[Callable] = None,
-              sentinel=None) -> Runner:
+              mp_rules=None, mp_meta=None, sentinel=None) -> Runner:
         """Capture + strategy build + compile + lowering; returns an
         uninitialized Runner. ``optimizer`` is a ``torch.optim`` factory
         (``functools.partial(torch.optim.Adam, lr=1e-3)``, or None for a
@@ -365,17 +397,24 @@ class AutoDist:
         (``runtime/sentinel.py``): ``None`` defers to ``ADT_SENTINEL``,
         ``True`` is the default ``SentinelPolicy``, a policy is used as
         it is, ``False`` is off — the health guards are then built into
-        the step."""
+        the step. ``mp_rules`` (``models.tp_lm.tp_rules()``) records the
+        model's model-parallel sharding map; ``mp_meta`` declares the
+        pipeline knobs the loss was built with (``pp_schedule``,
+        ``pp_microbatches``, ``pp_virtual``, and ``pp_shards`` for the
+        interleaved schedule): a plan that wants other ones raises the
+        JAX ``ValueError``."""
         from autodist_tpu_torch.runtime.sentinel import resolve_policy
         policy = resolve_policy(sentinel)
         item = ModelItem(loss_fn=loss_fn, optimizer=optimizer, params=params,
                          example_batch=example_batch, has_aux=has_aux,
                          apply_fn=apply_fn,
-                         trainable_filter=trainable_filter).prepare()
+                         trainable_filter=trainable_filter,
+                         mp_rules=mp_rules, mp_meta=mp_meta).prepare()
         strategy = self._build_or_load_strategy(item)
         compiled = StrategyCompiler(item, self._resource_spec).compile(
             strategy)
         logging.info("compiled %r", compiled)
+        _check_pipeline_knobs(compiled, item.mp_meta)
         self._setup()
         is_async = self._validate_async(compiled, item)
         self._check_elastic(is_async)

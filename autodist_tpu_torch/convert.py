@@ -38,7 +38,8 @@ A model written over a plain JAX pytree rather than flax modules
 (``models/tp_lm.py``) keeps the JAX item's names and shapes as they are:
 its params are a :func:`jax_named` mapping, whose ``jax_names`` map each
 name to itself, and every conversion here takes them as given
-(:func:`tp_lm_params_from_jax` reads the JAX model's tree so).
+(:func:`tp_lm_params_from_jax` and :func:`pipe_lm_params_from_jax` read
+the JAX models' trees so).
 """
 from typing import Dict, Optional
 
@@ -111,11 +112,22 @@ def jax_named(params: dict) -> FlaxParams:
     return FlaxParams(params, jax_names={n: n for n in params})
 
 
-def tp_lm_params_from_jax(np_tree) -> FlaxParams:
-    """``models/tp_lm.py``'s params from the JAX model's numpy tree: the
+def _pytree_params_from_jax(np_tree) -> FlaxParams:
+    """A plain-pytree model's params from the JAX model's numpy tree: the
     JAX item's names, float32 tensors."""
     return jax_named({"/".join(path): torch.from_numpy(np.array(
         arr, np.float32)) for path, arr in _flatten(np_tree)})
+
+
+def tp_lm_params_from_jax(np_tree) -> FlaxParams:
+    """``models/tp_lm.py``'s params from the JAX ``tp_lm``'s numpy tree."""
+    return _pytree_params_from_jax(np_tree)
+
+
+def pipe_lm_params_from_jax(np_tree) -> FlaxParams:
+    """``models/pipe_lm.py``'s params from the JAX ``pipe_lm``'s numpy
+    tree (the blocks stacked ``[L, ...]`` under ``blocks/``)."""
+    return _pytree_params_from_jax(np_tree)
 
 
 def params_from_jax(np_tree) -> FlaxParams:

@@ -63,12 +63,14 @@ coordination service (``AutoDist._wire_async_ps``); a stale plan
 (``staleness`` > 0) at N > 1 is paced across processes by the Runner's
 step window.
 
-A TensorParallel plan lays the processes out as its ``{data, model}``
-mesh (``parallel/mesh.py``): the data axis splits the batch
-(``kernel/replicator.py``), each model-parallel variable rests as this
-rank's slice (``VarLayout.mp_axes``) and the loss consumes the slices
-with the model axis bound (``parallel/tensor.py``), its backward
-included. Those variables sync by the sum over the other mesh axes'
+A TensorParallel or PipelineParallel plan lays the processes out as
+its ``{data, model}`` or ``{pipe, data[, model]}`` mesh
+(``parallel/mesh.py``): the data axis alone splits the batch
+(``kernel/replicator.py``; the pipe and model ranks of one data index
+see the same rows), each model-parallel variable rests as this rank's
+slice (``VarLayout.mp_axes``) and the loss consumes the slices with the
+model and pipe axes bound (``parallel/tensor.py``,
+``parallel/pipeline.py``), its backward included. Those variables sync by the sum over the other mesh axes'
 groups, every other variable by the buckets and synchronizers over all
 ranks, each divided by N, every process (the JAX lowering's
 ``psum(complement) / N``). The transform refuses, by name and at every
@@ -426,8 +428,9 @@ class DistributedStep:
         # data replicas, which split the batch, are replica_info's
         self.num_replicas = self.replica_info.num_processes
         self.rank = self.replica_info.process_rank
-        # the data x model mesh of a TensorParallel plan, its groups made
-        # here by every rank (parallel/mesh.py); None without a mesh
+        # the mesh of a TensorParallel or PipelineParallel plan, its
+        # groups made here by every rank (parallel/mesh.py); None without
+        # a mesh
         self.mesh = self.replica_info.mesh
         if self.mesh is not None and self.num_replicas > 1:
             self.mesh.build_groups()
@@ -1115,8 +1118,10 @@ class DistributedStep:
         """A model-parallel variable's gradient sync (the JAX lowering's):
         the sum over the groups of the mesh axes it is not sharded over,
         divided by N, every process. Its backward summed the cotangents
-        over the model axis (``parallel/tensor.py``), so the /N over all
-        devices, not over the data replicas, gives the mean."""
+        over the model axis (``parallel/tensor.py``) and the pipe axis
+        (``parallel/pipeline.py``'s broadcast of the last stage), so the
+        /N over all devices, not over the data replicas, gives the
+        mean."""
         sharded = set(self.mp_layouts[name].mp_axis_names)
         for axis, size in self.mesh.axes.items():
             if axis not in sharded and size > 1:
@@ -1218,8 +1223,8 @@ class DistributedStep:
                                   dict(sync_state.get("var", {})))
         wire = sorted(self.sparse_wire)
         try:
-            # the model axis is bound while the loss and its backward run
-            # (the JAX step's shard_map scope)
+            # the model and pipe axes are bound while the loss and its
+            # backward run (the JAX step's shard_map scope)
             with torch.enable_grad(), mesh_lib.bind(self.mesh):
                 with embedding.capture(wire) as cap:
                     loss, aux = self._loss(full, batch, grad=True)
@@ -1930,10 +1935,10 @@ class GraphTransformer:
     def _refuse_unported(self):
         """Plan features the port has not reached raise, naming the
         ROADMAP item that ports them; none is ignored. With more than one
-        process: a mesh axis other than data and model, the sequence
-        axis and explicit batch axes (sequence parallelism), mp axes
-        named pipe or expert (pipeline and expert parallelism), a model
-        axis of size > 1 beside host PS, ZeRO or partitioned storage."""
+        process: a mesh axis other than data, model and pipe, the
+        sequence axis and explicit batch axes (sequence parallelism), mp
+        axes named expert (expert parallelism), a model or pipe axis of
+        size > 1 beside host PS, ZeRO or partitioned storage."""
         gc = self._strategy.graph_config
         N = self._replicas.num_processes
 
@@ -1946,24 +1951,24 @@ class GraphTransformer:
         if gc.seq_axis or gc.batch_axes:
             refuse("sequence parallelism (seq_axis/batch_axes)", 9)
         mesh = dict(gc.mesh_shape or {})
-        other = sorted(set(mesh) - {const.DATA_AXIS, const.MODEL_AXIS})
+        other = sorted(set(mesh) - {const.DATA_AXIS, const.MODEL_AXIS,
+                                    const.PIPELINE_AXIS})
         if other:
-            refuse("the mesh axes %s (pipeline, expert or sequence "
-                   "parallelism)" % other, 9)
-        tp = mesh.get(const.MODEL_AXIS, 1) > 1
+            refuse("the mesh axes %s (expert or sequence parallelism)"
+                   % other, 9)
+        sharded = [a for a in (const.MODEL_AXIS, const.PIPELINE_AXIS)
+                   if mesh.get(a, 1) > 1]
         for node in self._strategy.node_config:
-            for axis in sorted(set((node.mp_axes or {}).values())
-                               & {const.PIPELINE_AXIS, const.EXPERT_AXIS}):
-                refuse("the %s-parallel layout (mp_axes) of %s"
-                       % ("pipeline" if axis == const.PIPELINE_AXIS
-                          else "expert", node.var_name), 9)
+            if const.EXPERT_AXIS in (node.mp_axes or {}).values():
+                refuse("the expert-parallel layout (mp_axes) of %s"
+                       % node.var_name, 9)
             cfgs = [node.synchronizer] if node.synchronizer is not None \
                 else [p.synchronizer for p in node.part_configs or ()]
-            if tp and (node.partitioner or any(
+            if sharded and (node.partitioner or any(
                     c is not None and c.kind in ("PS", "ZeroSharded")
                     for c in cfgs)):
-                refuse("a model axis of size %d beside the %s of %s"
-                       % (mesh[const.MODEL_AXIS],
+                refuse("a %s axis of size %d beside the %s of %s"
+                       % (sharded[0], mesh[sharded[0]],
                           "partitioned storage" if node.partitioner
                           else "host-PS or ZeRO sync", node.var_name), 9)
 

@@ -276,7 +276,8 @@ class ModelItem:
                  has_aux: bool = False,
                  apply_fn: Optional[Callable] = None,
                  trainable_filter: Optional[Callable[[str], bool]] = None,
-                 step_fn: Optional[Callable] = None):
+                 step_fn: Optional[Callable] = None,
+                 mp_rules=None, mp_meta=None):
         if loss_fn is None and step_fn is None:
             raise ValueError("ModelItem needs loss_fn or step_fn")
         self.loss_fn = loss_fn
@@ -287,6 +288,14 @@ class ModelItem:
         self.params = params
         self.example_batch = example_batch
         self.has_aux = has_aux
+        # the model family's model-parallel sharding rules
+        # (``models.tp_lm.tp_rules()``), recorded for the strategy search
+        # (AutoStrategy, ROADMAP A item 11), and the knobs the loss was
+        # built with (``pp_schedule``, ``pp_microbatches``,
+        # ``pp_virtual``, ``pp_shards``), which ``AutoDist.build`` holds
+        # the plan to
+        self.mp_rules = list(mp_rules) if mp_rules else None
+        self.mp_meta = dict(mp_meta) if mp_meta else None
         self.trainable_filter = trainable_filter or (
             default_trainable if step_fn is None else step_fn_trainable)
         # flax's shapes of the leaves the port flattens (DenseGeneral),

@@ -15,8 +15,10 @@ mesh's order, lines by their lowest rank. An axis that spans every rank
 uses the default group.
 
 The binding stands for the JAX ``shard_map`` scope: inside the training
-step the model axis is bound (:func:`bind`), and ``parallel/tensor.py``'s
-ops reduce over its group; outside (tracing, one process, evaluation
+step the model and pipe axes are bound (:func:`bind`), and
+``parallel/tensor.py``'s ops reduce over the model axis's group and
+``parallel/pipeline.py``'s schedules move activations along the pipe
+axis's; outside (tracing, one process, evaluation
 before a build) it is unbound and the same ops compute the plain,
 unsharded function, so one model definition serves all of them. A size-1
 axis is never bound: its collectives would be identities.
@@ -169,7 +171,8 @@ def binding(name: str) -> Optional[AxisBinding]:
 
 @contextlib.contextmanager
 def bind(mesh: Optional[ProcessMesh],
-         names: Sequence[str] = (const.MODEL_AXIS,)) -> Iterator[None]:
+         names: Sequence[str] = (const.MODEL_AXIS, const.PIPELINE_AXIS)
+         ) -> Iterator[None]:
     """Bind ``names`` of ``mesh`` (those of size > 1) for the body; the
     previous bindings come back on the way out. ``mesh`` None binds
     nothing."""

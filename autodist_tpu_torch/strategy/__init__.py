@@ -2,7 +2,7 @@
 (``AllReduce``, ``PartitionedAR``, ``RandomAxisPartitionAR``,
 ``ZeroSharded``), the PS family (``PS``, ``PSLoadBalancing``,
 ``PartitionedPS``, ``UnevenPartitionedPS``, ``Parallax``),
-``TensorParallel`` and the ``WithRemat`` wrapper."""
+``TensorParallel``, ``PipelineParallel`` and the ``WithRemat`` wrapper."""
 from autodist_tpu_torch.strategy.base import (AllReduceSynchronizer,  # noqa: F401
                                               GraphConfig, PSSynchronizer,
                                               Strategy, StrategyBuilder,
@@ -14,6 +14,8 @@ from autodist_tpu_torch.strategy.partitioned_all_reduce_strategy import \
     PartitionedAR  # noqa: F401
 from autodist_tpu_torch.strategy.partitioned_ps_strategy import \
     PartitionedPS  # noqa: F401
+from autodist_tpu_torch.strategy.pipeline_parallel_strategy import \
+    PipelineParallel  # noqa: F401
 from autodist_tpu_torch.strategy.ps_lb_strategy import \
     PSLoadBalancing  # noqa: F401
 from autodist_tpu_torch.strategy.ps_strategy import PS  # noqa: F401

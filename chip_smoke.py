@@ -348,6 +348,24 @@ result line):
    ``preemption.drain_serving`` runs: the 32 complete on the card, the 32
    queued shed with the typed Retry-After, and 32 is returned. Phase 21
    runs beside (a) too.
+24. pipeline parallelism: pipe_lm (the stacked-blocks tp_lm) at
+   ``TPLMConfig.flagship()`` (185 722 880 parameters, bf16, seq 1024,
+   global batch 8, Adam 1e-3, the flash kernels through ``attn_fn``).
+   (a) the three kernels held to their plain versions and timed at
+   (b)'s microbatch shape [2, 1024, 16, 64] causal, then
+   ``PipelineParallel(pp_shards=1)``, one process: the parameter
+   count, the first loss within 2e-2 of the plain attention's on the
+   card, 2 warm-up and 10 timed steps with 12 launches of each kernel a
+   step; step p50 (min-max), tokens/s and MFU beside phase 20 (a)'s
+   tp_lm. (b) ``PipelineParallel(pp_shards=2, n_microbatches=4)`` on two
+   processes of ``cuda:0`` over gloo, beside phases 21 and 23: gpipe,
+   1f1b and interleaved (V = 2) in turn in the same two processes, 2
+   warm-up and 3 timed steps each: the ranks' losses equal, the first
+   within 2e-2 of the same setup's unbound loss on the card (the hint's
+   layer order for interleaved), every loss finite, each kernel's
+   launches a rank-step as the schedule predicts (at the microbatch
+   shape [2, 1024, 16, 64]); step p50, ``pp.p2p_bytes`` a step and each
+   rank's peak memory (reset between schedules).
 
 TF32 is off for the whole run (``torch.backends.cuda.matmul`` and
 ``cudnn``): float32 is computed in float32, as the f32 checks' 2e-5 and
@@ -370,6 +388,7 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 T_SMOKE = 0.0   # the smoke's start (perf_counter), set by main
+READINGS = {}   # numbers a later phase compares with
 
 # H100 SXM published peaks (NVIDIA data sheet, dense rates): memory rate, and
 # the dense bf16 tensor-core rate
@@ -5328,9 +5347,9 @@ def tp_phase(card):
                                     losses_out=losses)
     check_launches("phase 20 (a)", launches_a, cfg.num_layers,
                    TP_WARMUP + TP_TIMED)
-    report_steps("(a) tp_lm flagship TensorParallel(1)", times,
-                 TP_BATCH * TP_SEQ, "tokens",
-                 tp_flops_per_step(cfg, n_params), card, launches_a)
+    READINGS["tp_lm_a_p50_ms"] = report_steps(
+        "(a) tp_lm flagship TensorParallel(1)", times, TP_BATCH * TP_SEQ,
+        "tokens", tp_flops_per_step(cfg, n_params), card, launches_a)
     mp_a, all_a = stored_bytes(runner)
     with uncounted():
         profile_steps(runner, batch, "(a) tp_lm")
@@ -6701,6 +6720,293 @@ def preempt_phase(card, dp_losses, unplanned_ms, beside=None):
     return launches, drain_launches, out
 
 
+# ------------------------------------------------------------- phase 24
+
+
+PP_MICRO, PP_RANKS = 4, 2
+PP_WARMUP, PP_TIMED = 2, 10          # (a)
+PP2_WARMUP, PP2_TIMED = 2, 3         # (b), each schedule
+PP_SCHEDULES = ("gpipe", "1f1b", "interleaved")
+PP_SPEC = {"nodes": [{"address": "127.0.0.1", "chief": True,
+                      "gpus": [0] * PP_RANKS}]}
+
+
+def pp_model():
+    """pipe_lm at ``TPLMConfig.flagship()``: (cfg, params from seed 0, the
+    seq-1024 batch of 8)."""
+    from autodist_tpu_torch.models import pipe_lm
+    cfg = pipe_lm.TPLMConfig.flagship()
+    _, params, batch, _ = pipe_lm.make_train_setup(
+        cfg, seq_len=TP_SEQ, batch_size=TP_BATCH, seed=0)
+    return cfg, params, batch
+
+
+def pp_losses(cfg, schedule, pp, shapes=None):
+    """pipe_lm's loss under ``schedule`` with ``PP_MICRO`` microbatches
+    (the interleaved loss built for ``pp`` stages, V = 2): (the loss with
+    the flash kernels in its ``attn_fn`` slot, the plain-attention loss).
+    ``shapes`` collects the q shapes the flash slot sees."""
+    from autodist_tpu_torch.models import pipe_lm
+    from autodist_tpu_torch.ops.flash_attention import make_flash_attn_fn
+    flash = make_flash_attn_fn(causal=True)
+
+    def attn(q, k, v):
+        if shapes is not None:
+            shapes.add(tuple(q.shape))
+        return flash(q, k, v)
+    kw = dict(n_microbatches=PP_MICRO, schedule=schedule, virtual_stages=2,
+              pp_shards=pp if schedule == "interleaved" else 0)
+    return pipe_lm.make_loss(cfg, attn_fn=attn, **kw), \
+        pipe_lm.make_loss(cfg, **kw)
+
+
+def pp_runner(pp, spec, schedule, loss_fn, params, batch):
+    """``PipelineParallel(pp, pp_rules(), n_microbatches=PP_MICRO,
+    schedule)`` built and initialized on ``cuda:0`` through the public
+    entry points, Adam 1e-3, the loss's knobs declared in ``mp_meta``."""
+    import torch
+    import autodist_tpu_torch as adt
+    from autodist_tpu_torch import strategy
+    from autodist_tpu_torch.models import pipe_lm
+    from autodist_tpu_torch.resource_spec import ResourceSpec
+    adt.reset()
+    ad = adt.AutoDist(strategy_builder=strategy.PipelineParallel(
+        pp_shards=pp, n_microbatches=PP_MICRO, schedule=schedule,
+        mp_rules=pipe_lm.pp_rules()),
+        resource_spec=ResourceSpec.from_dict(spec), device="cuda:0")
+    meta = {"pp_schedule": schedule, "pp_microbatches": PP_MICRO}
+    runner = ad.build(loss_fn, functools.partial(torch.optim.Adam, lr=1e-3),
+                      params, batch, mp_meta=meta)
+    runner.init(params)
+    return runner
+
+
+def pp_launches(schedule, rank, layers):
+    """Each kernel's launches a rank-step that ``schedule`` makes at
+    ``PP_RANKS`` stages of ``PP_MICRO`` microbatches: every rank runs its
+    layers' forward and backward once a microbatch; under 1F1B a rank
+    that sends its activations on also runs each forward twice (its
+    forward tick, then the backward tick's recompute), the last rank once
+    (its forward output is never sent)."""
+    per = layers // PP_RANKS * PP_MICRO
+    fwd = 2 * per if (schedule == "1f1b" and rank < PP_RANKS - 1) else per
+    return {"flash_fwd": fwd, "flash_bwd_dq": per, "flash_bwd_dkdv": per}
+
+
+def first_loss_check(label, got, want):
+    if not abs(got - want) <= 2e-2 * max(1.0, abs(want)):
+        fail("%s: the first loss %.6f is not within 2e-2 of %.6f"
+             % (label, got, want))
+
+
+def pp_child(rank, store, out_dir, env):
+    """One rank of phase 24 (b) (spawned): take the environment ``env``,
+    join the gloo group, then for each schedule in turn: the same setup's
+    unbound loss on the card, ``PipelineParallel(2)`` over pipe_lm
+    flagship, 2 warm-up and 3 timed steps; write this rank's results to
+    ``out_dir``."""
+    # the smoke's environment when the phase began: the phases beside it
+    # set variables of their own in this process's parent for a while (23
+    # (b)'s maintenance file would make these ranks depart)
+    os.environ.clear()
+    os.environ.update(env)
+    import statistics
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, HERE)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(store, PP_RANKS),
+                            rank=rank, world_size=PP_RANKS)
+    import autodist_tpu_torch as adt
+    from autodist_tpu_torch.telemetry import spans as tel
+    out = {"rank": rank, "schedules": {}}
+    cfg, params, batch = pp_model()
+    for schedule in PP_SCHEDULES:
+        shapes = set()
+        loss_fn, _ = pp_losses(cfg, schedule, PP_RANKS, shapes)
+        with torch.no_grad(), uncounted():
+            dev = {n: t.to("cuda") for n, t in params.items()}
+            unbound = float(loss_fn(dev, {"tokens": torch.as_tensor(
+                batch["tokens"], device="cuda")}))
+            del dev
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        runner = pp_runner(PP_RANKS, PP_SPEC, schedule, loss_fn, params,
+                           batch)
+        init_s = time.perf_counter() - t0
+        shapes.clear()
+        reset_counts()
+        before = tel.counters()
+        losses, times = [], []
+        for _ in range(PP2_WARMUP + PP2_TIMED):
+            t0 = time.perf_counter()
+            losses.append(float(runner.run(batch)["loss"]))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        launches = launch_counts()
+        after = tel.counters()
+        steps = PP2_WARMUP + PP2_TIMED
+        out["schedules"][schedule] = {
+            "unbound": unbound, "losses": losses,
+            "times_ms": [t * 1e3 for t in times],
+            "p50_ms": statistics.median(times[PP2_WARMUP:]) * 1e3,
+            "launches": launches, "shapes": sorted(shapes),
+            "init_s": init_s, "layers": cfg.num_layers,
+            "p2p_sends": (after.get("pp.p2p_sends", 0.0)
+                          - before.get("pp.p2p_sends", 0.0)) / steps,
+            "p2p_bytes": (after.get("pp.p2p_bytes", 0.0)
+                          - before.get("pp.p2p_bytes", 0.0)) / steps,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "local_wq": list(runner.state.params["blocks/attn/wq"].shape)}
+        del runner
+        adt.reset()
+        torch.cuda.empty_cache()
+    with open(os.path.join(out_dir, "rank%d.json" % rank), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def pp_one_phase(card):
+    """Phase 24 (a): the kernels' records at (b)'s microbatch shape, then
+    pipe_lm flagship through ``PipelineParallel(1)`` in this process.
+    Returns (the records, each kernel's launches by design over the
+    steps)."""
+    import gc
+    import torch
+    import autodist_tpu_torch as adt
+    print("phase 24 (a): pipe_lm flagship (bf16, seq %d, batch %d) through "
+          "PipelineParallel(pp_shards=1), flash through attn_fn, one "
+          "process" % (TP_SEQ, TP_BATCH))
+    records = pp_kernel_records(card)
+    cfg, params, batch = pp_model()
+    loss_fn, plain = pp_losses(cfg, "gpipe", 1)
+    n_params = sum(int(t.numel()) for t in params.values())
+    if n_params != TP_PARAMS:
+        fail("phase 24: pipe_lm flagship has %d parameters (want %d)"
+             % (n_params, TP_PARAMS))
+    with uncounted(), torch.no_grad():
+        dev = {n: t.to("cuda") for n, t in params.items()}
+        feed = {"tokens": torch.as_tensor(batch["tokens"], device="cuda")}
+        first = (float(loss_fn(dev, feed)), float(plain(dev, feed)))
+        del dev, feed
+    torch.cuda.empty_cache()
+    print("  first loss: flash %.6f, plain causal attention %.6f" % first)
+    first_loss_check("phase 24 (a)", *first)
+    t0 = time.perf_counter()
+    runner = pp_runner(1, TP_SPEC_ONE, "gpipe", loss_fn, params, batch)
+    print("  (a) build + init %.1f s; %d parameters (random, seed 0)"
+          % (time.perf_counter() - t0, n_params))
+    times, launches = timed_steps(runner, batch, "phase 24 (a)",
+                                  warmup=PP_WARMUP, steps=PP_TIMED)
+    check_launches("phase 24 (a)", launches, cfg.num_layers,
+                   PP_WARMUP + PP_TIMED)
+    p50 = report_steps("(a) pipe_lm flagship PipelineParallel(1)", times,
+                       TP_BATCH * TP_SEQ, "tokens",
+                       tp_flops_per_step(cfg, n_params), card, launches)
+    tp = READINGS.get("tp_lm_a_p50_ms")
+    if tp:
+        print("  (a) step p50 %.2f ms against phase 20 (a)'s tp_lm %.2f ms "
+              "(x %.3f) [%s]" % (p50, tp, p50 / tp, card))
+    del runner, params
+    adt.reset()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return records, launches
+
+
+def pp_two_phase(card, env):
+    """Phase 24 (b): pipe_lm flagship through ``PipelineParallel(2)`` on
+    two processes of ``cuda:0`` in the environment ``env``, the three
+    schedules in turn. Returns {schedule: each kernel's launches by
+    design over both ranks}."""
+    import math
+    import tempfile
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            mp.start_processes(pp_child, args=(os.path.join(tmp, "store"),
+                                               tmp, env),
+                               nprocs=PP_RANKS, start_method="spawn")
+        except Exception as e:  # noqa: BLE001 — a rank failed
+            fail("phase 24 (b): a rank failed: %s"
+                 % (str(e).strip()[-2000:],))
+        res = []
+        for r in range(PP_RANKS):
+            with open(os.path.join(tmp, "rank%d.json" % r)) as f:
+                res.append(json.load(f))
+    print("phase 24 (b): pipe_lm flagship through PipelineParallel("
+          "pp_shards=%d, n_microbatches=%d), %d processes of cuda:0 over "
+          "gloo, beside phases 21 and 23: %.1f s"
+          % (PP_RANKS, PP_MICRO, PP_RANKS, time.perf_counter() - t0))
+    shape = [TP_BATCH // PP_MICRO, TP_SEQ, 16, HEAD_DIM]
+    steps = PP2_WARMUP + PP2_TIMED
+    out = {}
+    for schedule in PP_SCHEDULES:
+        label = "phase 24 (b) %s" % schedule
+        runs = [r["schedules"][schedule] for r in res]
+        if runs[0]["losses"] != runs[1]["losses"]:
+            fail("%s: the ranks' losses differ: %r vs %r"
+                 % (label, runs[0]["losses"], runs[1]["losses"]))
+        for rank, run in enumerate(runs):
+            first_loss_check("%s rank %d" % (label, rank),
+                             run["losses"][0], run["unbound"])
+            if not all(math.isfinite(x) for x in run["losses"]):
+                fail("%s: a loss is not finite: %r" % (label, run["losses"]))
+            want = pp_launches(schedule, rank, run["layers"])
+            for name, n in want.items():
+                got = run["launches"][name]
+                if got != {MAIN_DESIGN[name]: n * steps}:
+                    fail("%s rank %d: %s launched %r over %d steps (want "
+                         "%d a step on %s)" % (label, rank, name, got,
+                                               steps, n, MAIN_DESIGN[name]))
+            if run["shapes"] != [shape]:
+                fail("%s rank %d: the flash slot saw q shapes %r (want %r)"
+                     % (label, rank, run["shapes"], [shape]))
+        launches = {}
+        for run in runs:
+            for name, by in run["launches"].items():
+                for design, n in by.items():
+                    launches.setdefault(name, {})
+                    launches[name][design] = launches[name].get(design,
+                                                                0) + n
+        out[schedule] = launches
+        r0, r1 = runs
+        print("  (b) %s: losses %s (both ranks; unbound on the card %.4f, "
+              "within 2e-2); step p50 %.1f / %.1f ms (ranks 0 / 1, steps %s "
+              "ms); pp.p2p_bytes a step %.1f / %.1f MB in %.0f / %.0f "
+              "sends; peak memory %.2f / %.2f GB; launches a rank-step "
+              "fwd/dq/dkdv %s / %s; build + init %.1f s; wq a rank %r [%s]"
+              % (schedule, " ".join("%.4f" % x for x in r0["losses"]),
+                 r0["unbound"], r0["p50_ms"], r1["p50_ms"],
+                 " ".join("%.1f" % t for t in r0["times_ms"]),
+                 r0["p2p_bytes"] / 1e6, r1["p2p_bytes"] / 1e6,
+                 r0["p2p_sends"], r1["p2p_sends"], r0["peak_gb"],
+                 r1["peak_gb"],
+                 "/".join(str(pp_launches(schedule, 0, r0["layers"])[k])
+                          for k in KERNEL_SOURCES),
+                 "/".join(str(pp_launches(schedule, 1, r1["layers"])[k])
+                          for k in KERNEL_SOURCES),
+                 r0["init_s"], r0["local_wq"], card))
+    peaks = {s: max(r["schedules"][s]["peak_gb"] for r in res)
+             for s in PP_SCHEDULES}
+    print("  (b) peak memory a rank: gpipe %.2f GB, 1f1b %.2f GB, "
+          "interleaved %.2f GB (1f1b below gpipe: %s)"
+          % (peaks["gpipe"], peaks["1f1b"], peaks["interleaved"],
+             peaks["1f1b"] < peaks["gpipe"]))
+    return out
+
+
+def pp_kernel_records(card):
+    """The three kernels at (b)'s microbatch shape [2, 1024, 16, 64]
+    causal: held to their plain versions and timed."""
+    shape = (TP_BATCH // PP_MICRO, TP_SEQ, 16, HEAD_DIM)
+    return kernel_timing(card, tp_kernel_check(shape), shape, True, None,
+                         "[2,1024,16,64] causal")
+
+
 def main():
     global T_SMOKE
     T_SMOKE = time.perf_counter()
@@ -6874,13 +7180,19 @@ def main():
         "19 with 18 and 22", elastic_phase, card, dp_losses, beside_19)
     tp_a, tp_b, tp16, tp8, gathered_ms, shard = timed_phase("20", tp_phase,
                                                             card)
-    # phase 23 (a)'s two processes run beside its (b) and (c) and phase 21
+    pp2_records, pp1_launches = timed_phase("24 (a)", pp_one_phase, card)
+    # phase 24 (b)'s two processes run beside phases 21 and 23; phase 23
+    # (a)'s two processes run beside its (b) and (c) and phase 21
+    pp_two = Beside(pp_two_phase, card, dict(os.environ))
     preempt_launches, drain_launches, (
         shard_launches, sentinel_launches, sched_launches) = timed_phase(
             "21 with 23", preempt_phase, card, dp_losses,
             inrun["shrink_ms"],
             lambda: health_phase(card, dp_losses, gathered_ms, shard))
-    print("phases 5-23: %s s" % ", ".join(
+    t = time.perf_counter()
+    pp2_launches = pp_two.result()
+    seconds["24 (b) after 21 with 23"] = time.perf_counter() - t
+    print("phases 5-24: %s s" % ", ".join(
         "%s %.1f" % kv for kv in seconds.items()))
 
     # flash_fwd runs on the three main paths, serving (decode), lm1b and
@@ -6900,6 +7212,13 @@ def main():
         # at tp 2 (both ranks, [8, 1024, 8, 64] causal)
         paths["tp_lm"] = (tp_a[name], tp16[name])
         paths["tp_lm_tp2"] = (tp_b[name], tp8[name])
+        # phase 24: pipe_lm flagship at pp 1 ([8, 1024, 16, 64] causal)
+        # and at pp 2 under each schedule (both ranks, microbatches of 2:
+        # [2, 1024, 16, 64] causal)
+        paths["pipe_lm_pp1"] = (pp1_launches[name], tp16[name])
+        for schedule in PP_SCHEDULES:
+            paths["pipe_lm_pp2_" + schedule] = (
+                pp2_launches[schedule][name], pp2_records[name])
     records = {}
     for name, paths in by_path.items():
         rec = dict(next(iter(paths.values()))[1], max_abs_err=max(

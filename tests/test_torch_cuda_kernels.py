@@ -220,6 +220,38 @@ def test_cuda_kernels_at_the_tp_lm_shape(dtype, tol):
 
 
 @pytest.mark.cuda
+def test_pipe_lm_block_with_flash_matches_plain_attention():
+    """One pipe_lm block at TPLMConfig.flagship's width and the pipeline's
+    microbatch shape [2, 1024, 1024] in bf16, the flash kernels in its
+    ``attn_fn`` slot against the same block with the plain causal
+    attention: the output and the gradients of the input and of every
+    block parameter within 2e-2 of the plain block's largest magnitude;
+    each kernel launched once."""
+    _need_card()
+    from autodist_tpu_torch.models import pipe_lm
+    cfg = pipe_lm.TPLMConfig.flagship(num_layers=1)
+    params = pipe_lm.init_params(cfg, seed=0)
+    block = {n[len(pipe_lm.BLOCKS):]: t[0].cuda().requires_grad_()
+             for n, t in params.items() if n.startswith(pipe_lm.BLOCKS)}
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    x = torch.randn((2, 1024, cfg.d_model), generator=gen,
+                    device="cuda").to(torch.bfloat16).requires_grad_()
+    dout = torch.randn((2, 1024, cfg.d_model), generator=gen,
+                       device="cuda").to(torch.bfloat16)
+    flash = tfa.make_flash_attn_fn(causal=True)
+    inputs = [x] + list(block.values())
+    before = [fn.launches for fn in tfa.COUNTED]
+    got = pipe_lm._block(block, x, torch.bfloat16, "model", flash)
+    got_grads = torch.autograd.grad(got, inputs, dout)
+    assert [fn.launches for fn in tfa.COUNTED] == [n + 1 for n in before]
+    want = pipe_lm._block(block, x, torch.bfloat16, "model")
+    want_grads = torch.autograd.grad(want, inputs, dout)
+    for g, w in zip((got,) + got_grads, (want,) + want_grads):
+        scale = float(w.float().abs().max())
+        assert float((g.float() - w.float()).abs().max()) <= 2e-2 * scale
+
+
+@pytest.mark.cuda
 def test_cuda_bf16_grads_go_through_the_tensor_core_kernels():
     """Autograd through flash_attention in bf16 with a strided dO: the
     forward, dQ and dK/dV all run their tensor-core designs, and the

@@ -426,12 +426,16 @@ def test_a_tp2_checkpoint_restores_at_tp1_and_in_jax(refs, runs, ckpt_dir):
 
 
 def test_process_mesh_is_the_jax_device_grid():
-    """Rank r of a {data, model} mesh sits where the JAX package's
-    build_mesh puts device r (row-major, major to minor); the lines of
-    each axis are the JAX mesh's rows and columns."""
+    """Rank r of a {data, model} mesh, and of a PipelineParallel {pipe,
+    data[, model]} mesh, sits where the JAX package's build_mesh puts
+    device r (row-major, major to minor); the lines of each axis are the
+    JAX mesh's rows and columns."""
     from autodist_tpu.parallel import mesh as jmesh
     for axes in ({"data": 2, "model": 2}, {"data": 4, "model": 2},
-                 {"data": 1, "model": 4}, {"data": 8}):
+                 {"data": 1, "model": 4}, {"data": 8},
+                 {"pipe": 2, "data": 4}, {"pipe": 4, "data": 2},
+                 {"pipe": 2, "data": 2, "model": 2},
+                 {"pipe": 2, "data": 1, "model": 2}):
         devs = jmesh.ordered_devices(int(np.prod(list(axes.values()))))
         jm = jmesh.build_mesh(axes=dict(axes), devices=devs)
         ids = np.vectorize(lambda d: devs.index(d))(jm.devices)
@@ -513,8 +517,9 @@ def _refusal(case):
     return {
         "seq_axis": _plan(w, {"data": 2, "seq": 2}, seq_axis="seq"),
         "batch_axes": _plan(w, tp2, batch_axes=["data"]),
-        "pipe_axis": _plan([("w", {"mp_axes": {1: "pipe"}})],
-                           {"pipe": 2, "data": 2}),
+        "pipe_beside_zero": _plan([("w", {"mp_axes": {0: "pipe"}}), ("b", {
+            "synchronizer": ZeroShardedSynchronizer()})],
+            {"pipe": 2, "data": 2}),
         "expert_axis": _plan([("w", {"mp_axes": {1: "expert"}})],
                              {"data": 2, "expert": 2}),
         "zero_beside_tp": _plan(w + [("b", {
@@ -526,11 +531,12 @@ def _refusal(case):
     }[case]
 
 
-@pytest.mark.parametrize("case", ["seq_axis", "batch_axes", "pipe_axis",
-                                  "expert_axis", "zero_beside_tp",
-                                  "ps_beside_tp", "partitioned_beside_tp"])
+@pytest.mark.parametrize("case", ["seq_axis", "batch_axes",
+                                  "pipe_beside_zero", "expert_axis",
+                                  "zero_beside_tp", "ps_beside_tp",
+                                  "partitioned_beside_tp"])
 def test_unported_mesh_features_raise_naming_item_9(case):
-    """Sequence parallelism, the pipe and expert axes, and a model axis
+    """Sequence parallelism, the expert axis, and a model or pipe axis
     beside host PS, ZeRO or partitioned storage raise at 4 processes,
     naming ROADMAP A item 9; nothing is ignored."""
     from autodist_tpu_torch.kernel.graph_transformer import GraphTransformer

@@ -9,6 +9,7 @@ The tests (``tests/test_torch_collectives.py``,
 ``tests/test_torch_optimizers.py``, ``tests/test_torch_fused_ps.py``,
 ``tests/test_torch_async_ps.py``, ``tests/test_torch_launch.py``,
 ``tests/test_torch_tensor_parallel.py``, ``tests/test_torch_sentinel.py``,
+``tests/test_torch_pipeline_parallel.py``,
 ``tests/test_torch_schedules.py``,
 ``tests/test_torch_sharded_checkpoint.py``) compute their JAX references in
 the pytest process and hand numpy arrays
@@ -820,8 +821,167 @@ def sharded_job(payload, device):
     return out
 
 
+def pp_job(payload, device):
+    """Each case of ``payload`` (a list) on this rank, the pipe axis over
+    every rank unless a case says otherwise: ``"ppermute"`` — forward
+    and gradient of ``sum(ppermute(x, perm) * w)`` for each ``perm``;
+    ``"gpipe"`` / ``"interleaved"`` — the loss ``sum(y ** 2)`` of the
+    primitive over ``ws`` (this rank's slice) and ``x`` and its
+    gradients, with ``remat`` the saved-tensor bytes with and without
+    ``remat_chunks``; ``"1f1b"`` — ``pipeline_loss_1f1b``'s loss and its
+    gradients, and the stash's slots and peak; ``"train"`` —
+    :func:`_pp_train`. Returns each case's values."""
+    from autodist_tpu_torch.parallel import mesh
+    rank, world = dist.get_rank(), dist.get_world_size()
+    out = []
+    for case in payload:
+        if case["kind"] == "train":
+            out.append(_pp_train(case, device))
+            continue
+        m = mesh.ProcessMesh({"pipe": world}, rank)
+        m.build_groups()
+        with mesh.bind(m):
+            out.append(_pp_primitive(case, rank, world))
+    return out
+
+
+def _pp_block(w, h):
+    return torch.tanh(h @ w)
+
+
+def _pp_primitive(case, rank, world):
+    from autodist_tpu_torch.parallel import pipeline
+    from autodist_tpu_torch.telemetry import spans as tel
+    kind = case["kind"]
+    if kind == "ppermute":
+        x = torch.as_tensor(case["x"][rank]).requires_grad_()
+        w = torch.as_tensor(case["w"][rank])
+        res = []
+        for perm in case["perms"]:
+            y = pipeline.ppermute(x, perm)
+            g, = torch.autograd.grad((y * w).sum(), x)
+            res.append({"y": _np(y), "g": _np(g)})
+        return res
+    per = case["ws"].shape[0] // world
+    ws = torch.as_tensor(case["ws"][rank * per:(rank + 1) * per]
+                         ).requires_grad_()
+    x = torch.as_tensor(case["x"]).requires_grad_()
+
+    def stage_fn(w, h):
+        return pipeline.stacked_scan(_pp_block, w, h)
+    M = case["M"]
+    if kind == "1f1b":
+        hw = torch.as_tensor(case["hw"]).requires_grad_()
+        tel.reset()
+
+        def head_fn(hp, h, y):
+            return ((h @ hp - y) ** 2).mean()
+        loss = pipeline.pipeline_loss_1f1b(stage_fn, head_fn, ws, hw, x,
+                                           torch.as_tensor(case["y"]), M)
+        dws, dhw, dx = torch.autograd.grad(loss, (ws, hw, x))
+        gauges = tel.gauges()
+        return {"loss": _np(loss), "dstage": _np(dws), "dhead": _np(dhw),
+                "dx": _np(dx), "stash_slots": gauges["pp.stash_slots"],
+                "stash_peak": gauges["pp.stash_peak"]}
+
+    def run(remat=False):
+        saved = [0]
+
+        def pack(t):
+            saved[0] += t.numel() * t.element_size()
+            return t
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            if kind == "gpipe":
+                y = pipeline.pipeline_apply(stage_fn, ws, x, M)
+            else:
+                y = pipeline.pipeline_apply_interleaved(
+                    stage_fn, ws, x, M, case["V"], remat_chunks=remat)
+            loss = (y ** 2).sum()
+        dws, dx = torch.autograd.grad(loss, (ws, x))
+        return {"y": _np(y), "loss": _np(loss), "dstage": _np(dws),
+                "dx": _np(dx), "saved_bytes": saved[0],
+                "stages": pipeline.num_stages()}
+    res = run()
+    if case.get("remat"):
+        res["remat"] = run(remat=True)
+    return res
+
+
+def _pp_train(case, device):
+    """``PipelineParallel(pp, tp, n_microbatches, schedule)`` over
+    ``pipe_lm`` (``TPLMConfig.tiny(num_layers=layers)``) from ``init``,
+    Adam at ``lr`` and ``eps`` over ``batches``; ``sentinel`` with a gradient fault
+    ``plan`` on the ranks ``plan_ranks`` (every rank by default); a
+    ``ShardedSaver`` restore of ``restore_dir`` before the steps (none
+    run then) or a save into ``save_dir`` after them."""
+    import json as _json
+    import autodist_tpu_torch as adt
+    from autodist_tpu_torch import strategy
+    from autodist_tpu_torch.checkpoint import ShardedSaver
+    from autodist_tpu_torch.convert import jax_named
+    from autodist_tpu_torch.models import pipe_lm
+    from autodist_tpu_torch.resource_spec import ResourceSpec
+    from autodist_tpu_torch.telemetry import spans as tel
+    world = dist.get_world_size()
+    tel.reset()
+    sched, pp, tp, M = case["schedule"], case["pp"], case["tp"], case["M"]
+    cfg = pipe_lm.TPLMConfig.tiny(num_layers=case["layers"])
+    model_axis = "model" if tp > 1 else None
+    loss_fn = pipe_lm.make_loss(
+        cfg, M, schedule=sched, virtual_stages=2,
+        pp_shards=pp if sched == "interleaved" else 0)
+    params = jax_named({n: torch.as_tensor(v)
+                        for n, v in case["init"].items()})
+    spec = ResourceSpec.from_dict({"nodes": [{
+        "address": "127.0.0.1", "chief": True,
+        "cpus": list(range(world))}]})
+    ad = adt.AutoDist(strategy_builder=strategy.PipelineParallel(
+        pp_shards=pp, tp_shards=tp, n_microbatches=M, schedule=sched,
+        mp_rules=pipe_lm.pp_rules(model_axis=model_axis)),
+        resource_spec=spec, device=device)
+    if case.get("plan") and dist.get_rank() in case.get(
+            "plan_ranks", range(world)):
+        os.environ["ADT_GRAD_FAULT_PLAN"] = _json.dumps(
+            {"faults": case["plan"]})
+    try:
+        runner = ad.build(loss_fn, functools.partial(
+            torch.optim.Adam, lr=case["lr"], eps=case["eps"]),
+                          params, case["batches"][0],
+                          mp_meta={"pp_schedule": sched,
+                                   "pp_microbatches": M},
+                          sentinel=case.get("sentinel", False))
+    finally:
+        os.environ.pop("ADT_GRAD_FAULT_PLAN", None)
+    runner.init(params)
+    dstep = runner.distributed_step
+    restored = None
+    if case.get("restore_dir"):
+        _, restored = ShardedSaver(case["restore_dir"]).restore(runner)
+    metrics = [runner.run(b) for b in case["batches"]] \
+        if restored is None else []
+    gathered = runner.gather_params()
+    flat = torch.cat([t.reshape(-1) for t in gathered.values()])
+    ref = flat.clone()
+    dist.broadcast(ref, src=0)
+    out = {"losses": [float(mt["loss"]) for mt in metrics],
+           "verdicts": [_verdicts(mt) for mt in metrics],
+           "params": _np(gathered),
+           "ranks_equal": bool(torch.equal(flat, ref)),
+           "mp_axes": {n: lay.mp_axes for n, lay in dstep.mp_layouts.items()},
+           "local_shapes": {n: tuple(t.shape)
+                            for n, t in runner.state.params.items()},
+           "opt_shapes": {n: tuple(t.shape) for n, t in
+                          runner.state.opt_state["mu"].items()},
+           "mesh": dict(dstep.mesh.axes), "coords": dict(dstep.mesh.coords),
+           "counters": tel.counters(), "restored_step": restored}
+    if case.get("save_dir"):
+        out["saved"] = ShardedSaver(case["save_dir"]).save(runner)
+    adt.reset()
+    return out
+
+
 JOBS = {"compressors": compressor_job, "train": train_job, "ckpt": ckpt_job,
         "ckpt_cross": ckpt_cross_job, "fused": fused_job, "async": async_job,
         "broadcast_bytes": broadcast_bytes_job, "tp": tp_job,
         "sentinel": sentinel_job, "schedule": schedule_job,
-        "sharded": sharded_job}
+        "sharded": sharded_job, "pp": pp_job}
