@@ -130,6 +130,12 @@ def pipe_lm_params_from_jax(np_tree) -> FlaxParams:
     return _pytree_params_from_jax(np_tree)
 
 
+def moe_lm_params_from_jax(np_tree) -> FlaxParams:
+    """``models/moe_lm.py``'s params from the JAX ``moe_lm``'s numpy tree
+    (the experts stacked ``[E, ...]`` under ``layer_<i>/moe/``)."""
+    return _pytree_params_from_jax(np_tree)
+
+
 def params_from_jax(np_tree) -> FlaxParams:
     if hasattr(np_tree, "get") and "params" in np_tree:
         collections = dict(np_tree)

@@ -63,14 +63,19 @@ coordination service (``AutoDist._wire_async_ps``); a stale plan
 (``staleness`` > 0) at N > 1 is paced across processes by the Runner's
 step window.
 
-A TensorParallel or PipelineParallel plan lays the processes out as
-its ``{data, model}`` or ``{pipe, data[, model]}`` mesh
-(``parallel/mesh.py``): the data axis alone splits the batch
-(``kernel/replicator.py``; the pipe and model ranks of one data index
-see the same rows), each model-parallel variable rests as this rank's
-slice (``VarLayout.mp_axes``) and the loss consumes the slices with the
-model and pipe axes bound (``parallel/tensor.py``,
-``parallel/pipeline.py``), its backward included. Those variables sync by the sum over the other mesh axes'
+A TensorParallel, PipelineParallel, SequenceParallelAR or
+ExpertParallel plan lays the processes out as its mesh
+(``parallel/mesh.py``: ``{data, model}``, ``{pipe, data[, model]}``,
+``{data, seq[, model]}``, ``{data, expert}``): the batch axes split the
+batch (``kernel/replicator.py``; the data axis alone, or data and expert
+jointly; the pipe, model and seq ranks of one batch index see the same
+rows) and the seq axis a sequence leaf's dim 1, each model-parallel
+variable rests as this rank's slice (``VarLayout.mp_axes``) and the loss
+consumes the slices with the model, pipe, seq and expert axes bound
+(``parallel/tensor.py``, ``parallel/pipeline.py``,
+``ops/attention.py``'s ring and Ulysses attention,
+``parallel/sequence.py``, ``parallel/expert.py``), its backward
+included. Those variables sync by the sum over the other mesh axes'
 groups, every other variable by the buckets and synchronizers over all
 ranks, each divided by N, every process (the JAX lowering's
 ``psum(complement) / N``). The transform refuses, by name and at every
@@ -117,6 +122,7 @@ from autodist_tpu_torch.ops import embedding
 from autodist_tpu_torch.parallel import collectives
 from autodist_tpu_torch.parallel import mesh as mesh_lib
 from autodist_tpu_torch.parallel import ps as ps_lib
+from autodist_tpu_torch.remapper import path_name
 from autodist_tpu_torch.runtime import faultinject
 from autodist_tpu_torch.strategy.base import Strategy
 from autodist_tpu_torch.telemetry import spans as tel
@@ -275,7 +281,8 @@ def sparse_wire_vars(item, replicas: ReplicaInfo, ps_names=frozenset(),
     differentiable use (a tied table stays dense); and whose gathered
     pairs — ids looked up a replica x replicas x (features + 1) —
     undercut the dense gradient (rows x features). The lookups are traced
-    on fake tensors against one replica's shard of the example batch.
+    on fake tensors against one replica's shard of the example batch (its
+    rows, and its chunk of a sequence leaf), the mesh axes unbound.
     A failed trace leaves every table dense with a warning, or raises
     under ``require_sparse`` (and ``ADT_IS_TESTING``); an unrouted
     candidate warns, or raises ``ValueError`` under ``require_sparse``."""
@@ -290,15 +297,17 @@ def sparse_wire_vars(item, replicas: ReplicaInfo, ps_names=frozenset(),
     if item.has_aux:
         loss = lambda p, b: item.loss_fn(p, b)[0]  # noqa: E731
 
-    def local(leaf):
+    def local(path, leaf):
         shape = np.shape(leaf)
         if not shape:
             return leaf
-        return leaf[:replicas.local_shape(shape)[0]]
+        want = replicas.local_shape(shape, path_name(path))
+        return leaf[tuple(slice(0, n) for n in want[:2])]
     routed, out = {}, set()
     try:
         routed, dense_uses = embedding.discover(
-            loss, item.params, pytree.tree_map(local, item.example_batch),
+            loss, item.params,
+            pytree.tree_map_with_path(local, item.example_batch),
             candidates)
         safe = embedding.safe_sparse_names(routed, dense_uses)
         tied = sorted(set(routed) - safe)
@@ -1223,7 +1232,7 @@ class DistributedStep:
                                   dict(sync_state.get("var", {})))
         wire = sorted(self.sparse_wire)
         try:
-            # the model and pipe axes are bound while the loss and its
+            # the model-parallel axes are bound while the loss and its
             # backward run (the JAX step's shard_map scope)
             with torch.enable_grad(), mesh_lib.bind(self.mesh):
                 with embedding.capture(wire) as cap:
@@ -1935,10 +1944,9 @@ class GraphTransformer:
     def _refuse_unported(self):
         """Plan features the port has not reached raise, naming the
         ROADMAP item that ports them; none is ignored. With more than one
-        process: a mesh axis other than data, model and pipe, the
-        sequence axis and explicit batch axes (sequence parallelism), mp
-        axes named expert (expert parallelism), a model or pipe axis of
-        size > 1 beside host PS, ZeRO or partitioned storage."""
+        process: a mesh axis other than data, model, pipe, seq and expert,
+        and a model, pipe, seq or expert axis of size > 1 beside host PS,
+        ZeRO or partitioned storage."""
         gc = self._strategy.graph_config
         N = self._replicas.num_processes
 
@@ -1948,20 +1956,14 @@ class GraphTransformer:
                 % (what, N, item))
         if N <= 1:
             return
-        if gc.seq_axis or gc.batch_axes:
-            refuse("sequence parallelism (seq_axis/batch_axes)", 9)
         mesh = dict(gc.mesh_shape or {})
-        other = sorted(set(mesh) - {const.DATA_AXIS, const.MODEL_AXIS,
-                                    const.PIPELINE_AXIS})
+        other = sorted(set(mesh) - {const.DATA_AXIS} -
+                       set(mesh_lib.MODEL_PARALLEL_AXES))
         if other:
-            refuse("the mesh axes %s (expert or sequence parallelism)"
-                   % other, 9)
-        sharded = [a for a in (const.MODEL_AXIS, const.PIPELINE_AXIS)
+            refuse("the mesh axes %s" % other, 9)
+        sharded = [a for a in mesh_lib.MODEL_PARALLEL_AXES
                    if mesh.get(a, 1) > 1]
         for node in self._strategy.node_config:
-            if const.EXPERT_AXIS in (node.mp_axes or {}).values():
-                refuse("the expert-parallel layout (mp_axes) of %s"
-                       % node.var_name, 9)
             cfgs = [node.synchronizer] if node.synchronizer is not None \
                 else [p.synchronizer for p in node.part_configs or ()]
             if sharded and (node.partitioner or any(
@@ -2032,12 +2034,20 @@ class GraphTransformer:
             self._check_step_fn(replicas)
         else:
             self._refuse_unported()
-        mesh_shape = self._strategy.graph_config.mesh_shape
+        gc = self._strategy.graph_config
+        mesh_shape = gc.mesh_shape
+        if gc.seq_axis and gc.seq_axis not in (mesh_shape or {}):
+            raise ValueError("strategy seq_axis %r not in mesh axes %s"
+                             % (gc.seq_axis, tuple(mesh_shape or ())))
         if mesh_shape:
-            # the plan's mesh over the processes: the data axis splits the
-            # batch, the model axis shards the mp variables' storage
-            self._replicas = self._replicas.with_mesh(mesh_lib.ProcessMesh(
-                mesh_shape, self._replicas.process_rank))
+            # the plan's mesh over the processes: the batch axes split the
+            # batch, the seq axis a sequence leaf's dim 1, the model-
+            # parallel axes shard the mp variables' storage
+            self._replicas = self._replicas.with_mesh(
+                mesh_lib.ProcessMesh(mesh_shape,
+                                     self._replicas.process_rank),
+                seq_axis=gc.seq_axis, seq_keys=gc.seq_feed_keys,
+                batch_axes=gc.batch_axes)
         if self._sentinel is not None and self._item.step_fn is not None:
             # the opaque step hides the gradients the guards judge: the
             # Runner's sentinel degrades to loss-only monitoring (ADT420)

@@ -63,10 +63,12 @@ class TransformerLM(nn.Module):
     method=TransformerLM.prefill)``."""
 
     def __init__(self, config: LMConfig, attn_fn=None,
-                 decode_attn: str = "reference"):
+                 decode_attn: str = "reference", seq_parallel: bool = False):
         super().__init__()
         cfg = self.config = config
         self.attn_fn = attn_fn
+        # offset positions by the seq shard (parallel/sequence.py)
+        self.seq_parallel = seq_parallel
         self.apply_lock = threading.Lock()
         self.embed = SparseEmbed(cfg.vocab_size, cfg.d_model, cfg.dtype)
         self.pos_embed = SparseEmbed(cfg.max_seq_len, cfg.d_model, cfg.dtype)
@@ -91,10 +93,16 @@ class TransformerLM(nn.Module):
         return x + self.pos_embed(positions)
 
     def hidden(self, input_ids):
-        """Final-layer-norm hidden states [B, S, d]."""
+        """Final-layer-norm hidden states [B, S, d]; under
+        ``seq_parallel`` ``S`` is the local chunk and positions start at
+        the shard's offset. With an ``attn_fn`` the causal structure is
+        the attention's own (a local mask would be wrong)."""
         seq_len = input_ids.shape[-1]
-        x = self._embed(input_ids,
-                        torch.arange(seq_len, device=input_ids.device)[None])
+        positions = torch.arange(seq_len, device=input_ids.device)
+        if self.seq_parallel:
+            from autodist_tpu_torch.parallel import sequence
+            positions = positions + sequence.position_offset(seq_len)
+        x = self._embed(input_ids, positions[None])
         mask = (None if self.attn_fn is not None
                 else causal_mask(seq_len, input_ids.device))
         for block in self._blocks():
@@ -165,10 +173,12 @@ def init_params(config: LMConfig, seed: int = 0) -> dict:
 
 
 def make_model(config: LMConfig, attn_fn=None,
-               decode_attn: str = "reference") -> TransformerLM:
+               decode_attn: str = "reference",
+               seq_parallel: bool = False) -> TransformerLM:
     """A parameterless (``meta``) model to apply params through."""
     with torch.device("meta"):
-        return TransformerLM(config, attn_fn=attn_fn, decode_attn=decode_attn)
+        return TransformerLM(config, attn_fn=attn_fn, decode_attn=decode_attn,
+                             seq_parallel=seq_parallel)
 
 
 def make_train_setup(config: Optional[LMConfig] = None, seq_len: int = 128,
@@ -223,6 +233,53 @@ def make_train_setup(config: Optional[LMConfig] = None, seq_len: int = 128,
     npr = np.random.RandomState(seed)
     example_batch = {"tokens": npr.randint(
         0, cfg.vocab_size, (batch_size, seq_len + 1)).astype(np.int32)}
+
+    def apply_fn(p, ids):
+        return apply(model, p, torch.as_tensor(ids))
+    return loss_fn, params, example_batch, apply_fn
+
+
+def make_sp_train_setup(config: Optional[LMConfig] = None,
+                        seq_len: int = 128, batch_size: int = 32,
+                        seed: int = 0, attention: str = "ring"):
+    """The sequence-parallel train setup (the JAX ``make_sp_train_setup``):
+    tokens arrive ``[B, S]`` with S sharded over the ``seq`` mesh axis
+    (``strategy.SequenceParallelAR``); attention runs ring or Ulysses
+    (``ops.attention.make_attn_fn``, causal); next-token targets cross
+    shard boundaries through ``sequence.shift_left``; the final global
+    position is masked out with the SP-exact weighted mean."""
+    from autodist_tpu_torch import const
+    from autodist_tpu_torch.ops.attention import make_attn_fn
+    from autodist_tpu_torch.parallel import sequence
+
+    cfg = config or LMConfig()
+    if seq_len > cfg.max_seq_len:
+        raise ValueError("seq_len %d exceeds config.max_seq_len %d"
+                         % (seq_len, cfg.max_seq_len))
+    attn_fn = make_attn_fn(attention, const.SEQUENCE_AXIS, causal=True)
+    model = make_model(cfg, seq_parallel=True)
+    sp_model = make_model(cfg, attn_fn=attn_fn, seq_parallel=True)
+    params = init_params(cfg, seed)
+
+    def loss_fn(params, batch):
+        tokens = torch.as_tensor(batch["tokens"])     # the local chunk [B, C]
+        local_len = tokens.shape[1]
+        logits = apply(sp_model, params, tokens)
+        targets = sequence.shift_left(tokens, const.SEQUENCE_AXIS, axis=1)
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
+        # mask the final GLOBAL position (its target wrapped around)
+        pos = torch.arange(local_len, device=tokens.device) + \
+            sequence.position_offset(local_len, const.SEQUENCE_AXIS)
+        total_len = local_len * sequence.axis_size(const.SEQUENCE_AXIS)
+        weights = (pos < total_len - 1).to(nll.dtype)[None, :]
+        weights = weights.expand(nll.shape)
+        return sequence.global_weighted_mean(nll, weights,
+                                             const.SEQUENCE_AXIS)
+
+    npr = np.random.RandomState(seed)
+    example_batch = {"tokens": npr.randint(
+        0, cfg.vocab_size, (batch_size, seq_len)).astype(np.int32)}
 
     def apply_fn(p, ids):
         return apply(model, p, torch.as_tensor(ids))

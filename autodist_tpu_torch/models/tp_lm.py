@@ -19,9 +19,12 @@ from ``parallel/tensor.py``:
 
 ``forward``'s ``attn_fn(q, k, v)`` slot takes the flash kernels
 (``ops.flash_attention.make_flash_attn_fn(causal=True)``), where the JAX
-package puts its Pallas flash. Sequence parallelism (``attention="ring"``
-or ``"ulysses"``) is not ported and raises. ``tp_lm`` is not in the model
-registry, as in the JAX package.
+package puts its Pallas flash, or ring or Ulysses attention under
+sequence parallelism (``make_train_setup(attention="ring" | "ulysses")``
+with ``TensorParallel(tp, rules, seq_shards=n)``): the tokens arrive
+seq-sharded, positions start at the shard's offset, next-token targets
+cross shard boundaries and the final global position is masked.
+``tp_lm`` is not in the model registry, as in the JAX package.
 """
 import dataclasses
 from typing import Dict, List, Optional, Tuple
@@ -32,7 +35,7 @@ import torch.nn.functional as F
 
 from autodist_tpu_torch import const
 from autodist_tpu_torch.convert import FlaxParams, jax_named
-from autodist_tpu_torch.parallel import tensor
+from autodist_tpu_torch.parallel import sequence, tensor
 
 
 @dataclasses.dataclass
@@ -151,17 +154,25 @@ def forward(params, input_ids, cfg: TPLMConfig, attn_fn=None,
             seq_parallel: bool = False,
             model_axis: str = const.MODEL_AXIS):
     """Logits over the (possibly vocab-sharded) vocabulary.
-    ``attn_fn(q, k, v)`` replaces the plain causal attention."""
-    if seq_parallel:
-        raise NotImplementedError(
-            "tp_lm.forward(seq_parallel=True): sequence parallelism is not "
-            "ported yet (ROADMAP A item 9)")
+    ``attn_fn(q, k, v)`` replaces the plain causal attention;
+    ``input_ids`` is the LOCAL sequence chunk under ``seq_parallel``."""
     dt = cfg.dtype
     seq_len = input_ids.shape[-1]
     x = tensor.vocab_parallel_embed(params["embed"], input_ids, model_axis)
     x = (x * float(np.sqrt(cfg.d_model))).to(dt)
-    # a static slice, not a gather: every position row is used each step
-    x = x + params["pos_embed"][:seq_len].to(dt)[None]
+    if seq_parallel:
+        # each seq shard reads its own row range (a real gather); the
+        # named lookup keeps it on the sparse surface, where the cost gate
+        # keeps it dense (every row is read)
+        from autodist_tpu_torch.ops.embedding import embedding_lookup
+        positions = torch.arange(seq_len, device=input_ids.device) + \
+            sequence.position_offset(seq_len)
+        x = x + embedding_lookup(params["pos_embed"], positions,
+                                 name="pos_embed").to(dt)[None]
+    else:
+        # a static slice, not a gather: every position row is used each
+        # step
+        x = x + params["pos_embed"][:seq_len].to(dt)[None]
     for i in range(cfg.num_layers):
         p = "layer_%d/" % i
         h = _layer_norm(x, params, p + "ln1")
@@ -187,10 +198,34 @@ def forward(params, input_ids, cfg: TPLMConfig, attn_fn=None,
 
 
 def make_loss(cfg: TPLMConfig, attn_fn=None,
-              model_axis: str = const.MODEL_AXIS):
+              model_axis: str = const.MODEL_AXIS,
+              attention: Optional[str] = None):
     """The JAX ``make_train_setup``'s loss: the mean next-token NLL of
     ``batch["tokens"]`` ``[B, S + 1]``, with ``attn_fn`` in the attention
-    slot."""
+    slot. ``attention`` ``"ring"``/``"ulysses"``: the sequence-parallel
+    loss over ``[B, S]`` tokens sharded over the ``seq`` axis (the final
+    global position masked, ``sequence.global_weighted_mean``), with that
+    attention, causal, in the slot."""
+    if attention in ("ring", "ulysses"):
+        from autodist_tpu_torch.ops.attention import make_attn_fn
+        sp_attn = make_attn_fn(attention, const.SEQUENCE_AXIS, causal=True)
+
+        def sp_loss(p, batch):
+            tokens = torch.as_tensor(batch["tokens"])
+            logits = forward(p, tokens, cfg,
+                             attn_fn=lambda q, k, v: sp_attn(q, k, v, None),
+                             seq_parallel=True, model_axis=model_axis)
+            targets = sequence.shift_left(tokens, const.SEQUENCE_AXIS,
+                                          axis=1)
+            nll = tensor.vocab_parallel_xent(logits, targets, model_axis)
+            local_len = tokens.shape[1]
+            pos = torch.arange(local_len, device=tokens.device) + \
+                sequence.position_offset(local_len)
+            total = local_len * sequence.axis_size(const.SEQUENCE_AXIS)
+            w = (pos < total - 1).to(nll.dtype)[None, :].expand(nll.shape)
+            return sequence.global_weighted_mean(nll, w)
+        return sp_loss
+
     def loss_fn(p, batch):
         tokens = torch.as_tensor(batch["tokens"])
         logits = forward(p, tokens[:, :-1], cfg, attn_fn=attn_fn,
@@ -205,20 +240,20 @@ def make_train_setup(cfg: Optional[TPLMConfig] = None, seq_len: int = 128,
                      attention: Optional[str] = None,
                      model_axis: str = const.MODEL_AXIS):
     """(loss_fn, params, example_batch, apply_fn) for the AutoDist stack,
-    the JAX function's: the plain causal attention, a ``[batch_size,
-    seq_len + 1]`` int32 token batch drawn from ``seed``. ``attention``
-    ``"ring"``/``"ulysses"`` (sequence parallelism) raises."""
-    if attention in ("ring", "ulysses"):
-        raise NotImplementedError(
-            "tp_lm attention=%r: sequence parallelism is not ported yet "
-            "(ROADMAP A item 9)" % attention)
+    the JAX function's: ``attention`` None, the plain causal attention
+    over a ``[batch_size, seq_len + 1]`` int32 token batch drawn from
+    ``seed``; ``"ring"``/``"ulysses"``, the sequence-parallel loss
+    (:func:`make_loss`) over ``[batch_size, seq_len]`` tokens."""
     cfg = cfg or TPLMConfig()
     params = init_params(cfg, seed)
+    seq_parallel = attention in ("ring", "ulysses")
     npr = np.random.RandomState(seed)
+    extra = 0 if seq_parallel else 1
     example_batch = {"tokens": npr.randint(
-        0, cfg.vocab_size, (batch_size, seq_len + 1)).astype(np.int32)}
+        0, cfg.vocab_size, (batch_size, seq_len + extra)).astype(np.int32)}
 
     def apply_fn(p, ids):
         return forward(p, ids, cfg, model_axis=model_axis)
-    return make_loss(cfg, model_axis=model_axis), params, example_batch, \
-        apply_fn
+    return make_loss(cfg, model_axis=model_axis,
+                     attention=attention if seq_parallel else None), \
+        params, example_batch, apply_fn

@@ -15,13 +15,32 @@ mesh's order, lines by their lowest rank. An axis that spans every rank
 uses the default group.
 
 The binding stands for the JAX ``shard_map`` scope: inside the training
-step the model and pipe axes are bound (:func:`bind`), and
-``parallel/tensor.py``'s ops reduce over the model axis's group and
+step the model, pipe, seq and expert axes are bound (:func:`bind`), and
+``parallel/tensor.py``'s ops reduce over the model axis's group,
 ``parallel/pipeline.py``'s schedules move activations along the pipe
-axis's; outside (tracing, one process, evaluation
-before a build) it is unbound and the same ops compute the plain,
-unsharded function, so one model definition serves all of them. A size-1
-axis is never bound: its collectives would be identities.
+axis's, ``ops/attention.py``'s ring and Ulysses attention and
+``parallel/sequence.py`` exchange over the seq axis's, and
+``parallel/expert.py`` routes tokens over the expert axis's; outside
+(tracing, one process, evaluation before a build) it is unbound and the
+same ops compute the plain, unsharded function, so one model definition
+serves all of them. A size-1 axis is never bound: its collectives would
+be identities.
+
+The exchanges over a bound axis live here, so that every family of
+model parallelism shares them: :func:`ppermute` (the JAX
+``lax.ppermute``), :func:`all_to_all` (``lax.all_to_all(...,
+tiled=True)``) and :func:`psum`, each differentiable. A permute and an
+all-to-all are each ONE ``all_to_all_single`` over the axis's group
+(:func:`_move`), with zero-sized splits to the ranks that get nothing:
+a collective, so a two-way exchange cannot deadlock, and gloo runs it on
+CUDA tensors (two ranks share one card, where NCCL refuses them; gloo's
+``send`` of a CUDA tensor aborts the process). The moves are counted in
+telemetry counters named by the axis (``pp.*`` on the pipe axis,
+``sp.*`` on the seq axis, ``ep.*`` on the expert axis):
+``<p>.p2p_sends`` and ``<p>.p2p_bytes`` for each non-empty payload a
+permute sends, ``<p>.a2a_calls`` and ``<p>.a2a_bytes`` for each
+all-to-all and the bytes of the tensor that enters it, forward and
+backward alike.
 
 :class:`HostGroups` splits the ranks by the host the resource spec puts
 them on, for the hierarchical all-reduce schedule
@@ -31,12 +50,16 @@ DCN axes, JAX ``dcn_axes``).
 """
 import contextlib
 import dataclasses
-from typing import Dict, Iterator, List, Optional, Sequence
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 import torch.distributed as dist
 
 from autodist_tpu_torch import const
+from autodist_tpu_torch.telemetry import spans as tel
+
+Perm = Sequence[Tuple[int, int]]
 
 
 class ProcessMesh:
@@ -169,10 +192,14 @@ def binding(name: str) -> Optional[AxisBinding]:
     return _BOUND.get(name)
 
 
+#: the axes a training step binds (the JAX step's shard_map scope)
+MODEL_PARALLEL_AXES = (const.MODEL_AXIS, const.PIPELINE_AXIS,
+                       const.SEQUENCE_AXIS, const.EXPERT_AXIS)
+
+
 @contextlib.contextmanager
 def bind(mesh: Optional[ProcessMesh],
-         names: Sequence[str] = (const.MODEL_AXIS, const.PIPELINE_AXIS)
-         ) -> Iterator[None]:
+         names: Sequence[str] = MODEL_PARALLEL_AXES) -> Iterator[None]:
     """Bind ``names`` of ``mesh`` (those of size > 1) for the body; the
     previous bindings come back on the way out. ``mesh`` None binds
     nothing."""
@@ -188,3 +215,160 @@ def bind(mesh: Optional[ProcessMesh],
     finally:
         _BOUND.clear()
         _BOUND.update(saved)
+
+
+# --------------------------------------------------------- the exchanges
+
+_COUNTER_PREFIX = {const.PIPELINE_AXIS: "pp", const.SEQUENCE_AXIS: "sp",
+                   const.EXPERT_AXIS: "ep"}
+
+
+def _prefix(b: AxisBinding) -> str:
+    return _COUNTER_PREFIX.get(b.name, b.name)
+
+
+def _move(sends: Dict[int, torch.Tensor], recvs: Dict[int, torch.Size],
+          like: torch.Tensor, b: AxisBinding,
+          count: bool = True) -> Dict[int, torch.Tensor]:
+    """One exchange over the axis's group: this rank sends ``sends[dst]``
+    to axis index ``dst`` and receives a tensor of ``recvs[src]``'s shape
+    from axis index ``src`` (every payload of ``like``'s dtype and
+    device), as one ``all_to_all_single``. Every rank of the line must
+    call it with matching ends. ``count`` adds each payload to the
+    axis's ``p2p`` counters."""
+    in_splits, out_splits = [0] * b.size, [0] * b.size
+    parts = []
+    for dst in sorted(sends):
+        t = sends[dst].reshape(-1).to(like.dtype)
+        in_splits[dst] = t.numel()
+        parts.append(t)
+        if count:
+            tel.counter_add(_prefix(b) + ".p2p_sends")
+            tel.counter_add(_prefix(b) + ".p2p_bytes",
+                            t.numel() * t.element_size())
+    for src, shape in recvs.items():
+        out_splits[src] = int(torch.Size(shape).numel())
+    inp = torch.cat(parts) if parts else like.new_empty(0)
+    out = like.new_empty(sum(out_splits))
+    dist.all_to_all_single(out, inp, out_splits, in_splits, group=b.group)
+    got, at = {}, 0
+    for src in range(b.size):
+        if src in recvs:
+            got[src] = out[at:at + out_splits[src]].view(recvs[src])
+        at += out_splits[src]
+    return got
+
+
+def _permute(x: Optional[torch.Tensor], perm: Perm, like: torch.Tensor,
+             b: AxisBinding) -> Optional[torch.Tensor]:
+    """``lax.ppermute`` of ``x`` over the pairs ``perm`` (``(src, dst)``
+    axis indexes, each at most once a side): the tensor from this rank's
+    source, or None when no pair ends here. A rank that is no pair's
+    source passes None. No gradient."""
+    index = b.index
+    sends = {dst: x for src, dst in perm if src == index}
+    recvs = {src: like.shape for src, dst in perm if dst == index}
+    return _move(sends, recvs, like, b).get(next(iter(recvs), None))
+
+
+def _inverse(perm: Perm) -> List[Tuple[int, int]]:
+    return [(dst, src) for src, dst in perm]
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, perm, b):
+        ctx.perm, ctx.b = perm, b
+        out = _permute(x, perm, x, b)
+        return out if out is not None else torch.zeros_like(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        out = _permute(grad, _inverse(ctx.perm), grad, ctx.b)
+        return (out if out is not None else torch.zeros_like(grad)), \
+            None, None
+
+
+def ppermute(x: torch.Tensor, perm: Perm, axis_name: str) -> torch.Tensor:
+    """The JAX ``lax.ppermute`` over the bound axis ``axis_name``: rank
+    ``dst`` of each pair ``(src, dst)`` gets rank ``src``'s ``x``, a rank
+    that is no pair's destination gets zeros; the backward moves the
+    cotangent along the inverse permutation."""
+    return _PPermute.apply(x, list(perm), binding(axis_name))
+
+
+def _all_to_all(x: torch.Tensor, b: AxisBinding, split_axis: int,
+                concat_axis: int) -> torch.Tensor:
+    """The tiled all-to-all: chunk j of ``x`` along ``split_axis`` goes to
+    axis index j, and the chunks received are concatenated along
+    ``concat_axis`` in the order of their sources. One ``_move`` with
+    equal splits."""
+    n = b.size
+    if x.shape[split_axis] % n != 0:
+        raise ValueError("all_to_all: dim %d of %s is not divisible by the "
+                         "%d ranks of axis %r" % (split_axis,
+                                                  tuple(x.shape), n, b.name))
+    tel.counter_add(_prefix(b) + ".a2a_calls")
+    tel.counter_add(_prefix(b) + ".a2a_bytes", x.numel() * x.element_size())
+    chunks = x.chunk(n, dim=split_axis)
+    got = _move(dict(enumerate(chunks)), {j: chunks[0].shape
+                                          for j in range(n)},
+                x, b, count=False)
+    return torch.cat([got[j] for j in range(n)], dim=concat_axis)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, b, split_axis, concat_axis):
+        ctx.b, ctx.axes = b, (split_axis, concat_axis)
+        return _all_to_all(x, b, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        split_axis, concat_axis = ctx.axes
+        return _all_to_all(grad, ctx.b, concat_axis, split_axis), \
+            None, None, None
+
+
+def all_to_all(x: torch.Tensor, axis_name: str, split_axis: int,
+               concat_axis: int) -> torch.Tensor:
+    """The JAX ``lax.all_to_all(x, axis_name, split_axis, concat_axis,
+    tiled=True)`` over the bound axis: ``x``'s ``split_axis`` shrinks by
+    the axis size and its ``concat_axis`` grows by it. The backward is
+    the inverse all-to-all. Unbound: ``x``."""
+    b = binding(axis_name)
+    if b is None:
+        return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _AllToAll.apply(x, b, split_axis, concat_axis)
+    return _all_to_all(x, b, split_axis, concat_axis)
+
+
+def _all_reduce(x: torch.Tensor, b: AxisBinding) -> torch.Tensor:
+    out = x.contiguous().clone()
+    dist.all_reduce(out, group=b.group)
+    return out
+
+
+class _PSum(torch.autograd.Function):
+    """The sum over the axis's group; the backward sums the cotangent over
+    it too (the transpose of ``psum`` under ``shard_map``)."""
+
+    @staticmethod
+    def forward(ctx, x, b):
+        ctx.b = b
+        return _all_reduce(x, b)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce(grad, ctx.b), None
+
+
+def psum(x: torch.Tensor, axis_name: str) -> torch.Tensor:
+    """The JAX ``lax.psum`` over the bound axis; ``x`` when unbound."""
+    b = binding(axis_name)
+    if b is None:
+        return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _PSum.apply(x, b)
+    return _all_reduce(x, b)

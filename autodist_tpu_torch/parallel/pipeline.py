@@ -22,13 +22,14 @@ tick:
 
 The rank-to-rank move is the JAX ``lax.ppermute``: :func:`ppermute`, an
 autograd function whose backward moves the cotangent along the inverse
-permutation. Each move is one ``all_to_all_single`` over the pipe group
-with zero-sized splits to the ranks that get nothing: a collective, so
-1F1B's two-way exchange (down and up on one tick, one call) cannot
-deadlock, and gloo runs it on CUDA tensors (two ranks share one card,
-where NCCL refuses them). Moves are counted in the telemetry counters
-``pp.p2p_sends`` and ``pp.p2p_bytes`` (each non-empty payload a rank
-sends, forward and backward).
+permutation (``parallel/mesh.py``, shared with the seq and expert axes).
+Each move is one ``all_to_all_single`` over the pipe group with
+zero-sized splits to the ranks that get nothing: a collective, so 1F1B's
+two-way exchange (down and up on one tick, one call) cannot deadlock,
+and gloo runs it on CUDA tensors (two ranks share one card, where NCCL
+refuses them). Moves on the pipe axis are counted in the telemetry
+counters ``pp.p2p_sends`` and ``pp.p2p_bytes`` (each non-empty payload a
+rank sends, forward and backward).
 
 The schedules are autograd functions of their own. GPipe and interleaved
 keep each tick's stage graph from the forward and, in the backward, walk
@@ -53,7 +54,7 @@ function computes the JAX degenerate path: a plain sequential apply, or
 for the interleaved schedule with ``pp_shards_hint`` the logical layer
 order of the pipelined program.
 """
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -64,7 +65,7 @@ from autodist_tpu_torch import const
 from autodist_tpu_torch.parallel import mesh
 from autodist_tpu_torch.telemetry import spans as tel
 
-Perm = Sequence[Tuple[int, int]]
+Perm = mesh.Perm
 
 
 def num_stages(axis_name: str = const.PIPELINE_AXIS) -> int:
@@ -84,85 +85,24 @@ def stacked_scan(block_fn: Callable, stacked_params, h):
 
 
 # ------------------------------------------------------------- the move
-
-
-def _move(sends: Dict[int, torch.Tensor], recvs: Dict[int, torch.Size],
-          like: torch.Tensor, b: mesh.AxisBinding) -> Dict[int, torch.Tensor]:
-    """One exchange over the pipe group: this rank sends ``sends[dst]`` to
-    pipe index ``dst`` and receives a tensor of ``recvs[src]``'s shape
-    from pipe index ``src`` (every payload of ``like``'s dtype and
-    device), as one ``all_to_all_single``. Every rank of the line must
-    call it with matching ends."""
-    in_splits, out_splits = [0] * b.size, [0] * b.size
-    parts = []
-    for dst in sorted(sends):
-        t = sends[dst].reshape(-1).to(like.dtype)
-        in_splits[dst] = t.numel()
-        parts.append(t)
-        tel.counter_add("pp.p2p_sends")
-        tel.counter_add("pp.p2p_bytes", t.numel() * t.element_size())
-    for src, shape in recvs.items():
-        out_splits[src] = int(torch.Size(shape).numel())
-    inp = torch.cat(parts) if parts else like.new_empty(0)
-    out = like.new_empty(sum(out_splits))
-    dist.all_to_all_single(out, inp, out_splits, in_splits, group=b.group)
-    got, at = {}, 0
-    for src in range(b.size):
-        if src in recvs:
-            got[src] = out[at:at + out_splits[src]].view(recvs[src])
-        at += out_splits[src]
-    return got
-
-
-def _permute(x: Optional[torch.Tensor], perm: Perm, like: torch.Tensor,
-             b: mesh.AxisBinding) -> Optional[torch.Tensor]:
-    """``lax.ppermute`` of ``x`` over the pairs ``perm`` (``(src, dst)``
-    pipe indexes, each at most once a side): the tensor from this rank's
-    source, or None when no pair ends here. A rank that is no pair's
-    source passes None."""
-    index = b.index
-    sends = {dst: x for src, dst in perm if src == index}
-    recvs = {src: like.shape for src, dst in perm if dst == index}
-    return _move(sends, recvs, like, b).get(next(iter(recvs), None))
-
-
-def _inverse(perm: Perm) -> List[Tuple[int, int]]:
-    return [(dst, src) for src, dst in perm]
-
-
-class _PPermute(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, perm, b):
-        ctx.perm, ctx.b = perm, b
-        out = _permute(x, perm, x, b)
-        return out if out is not None else torch.zeros_like(x)
-
-    @staticmethod
-    def backward(ctx, grad):
-        out = _permute(grad, _inverse(ctx.perm), grad, ctx.b)
-        return (out if out is not None else torch.zeros_like(grad)), \
-            None, None
+# The rank-to-rank move lives in parallel/mesh.py, shared with the seq and
+# expert axes; these names are re-exported for the schedules below and
+# for callers of this module.
+_move, _permute, _inverse = mesh._move, mesh._permute, mesh._inverse
+_PPermute, _psum = mesh._PPermute, mesh._all_reduce
 
 
 def ppermute(x: torch.Tensor, perm: Perm,
              axis_name: str = const.PIPELINE_AXIS) -> torch.Tensor:
-    """The JAX ``lax.ppermute`` over the bound axis ``axis_name``: rank
-    ``dst`` of each pair ``(src, dst)`` gets rank ``src``'s ``x``, a rank
-    that is no pair's destination gets zeros; the backward moves the
-    cotangent along the inverse permutation."""
-    return _PPermute.apply(x, list(perm), mesh.binding(axis_name))
+    """The JAX ``lax.ppermute`` over the bound axis ``axis_name`` (the
+    pipe axis by default): :func:`parallel.mesh.ppermute`."""
+    return mesh.ppermute(x, perm, axis_name)
 
 
 def _broadcast_last(outs: torch.Tensor, b: mesh.AxisBinding) -> torch.Tensor:
     """The JAX ``psum(where(rank == S-1, outs, 0))``: the last pipe rank's
     ``outs`` on every rank of the line."""
     out = outs.clone() if b.index == b.size - 1 else torch.zeros_like(outs)
-    dist.all_reduce(out, group=b.group)
-    return out
-
-
-def _psum(t: torch.Tensor, b: mesh.AxisBinding) -> torch.Tensor:
-    out = t.contiguous().clone()
     dist.all_reduce(out, group=b.group)
     return out
 

@@ -5,11 +5,14 @@ process (``kernel/replicator.py::ReplicaInfo``):
 
 - **feed**: the host-global batch, as the JAX ``Runner.run`` takes it.
   Rank r takes rows ``[r*B/N, (r+1)*B/N)`` of every leaf with a leading
-  dim (the block order of the JAX package's ``P(batch_axes)``); an
-  indivisible leading dim raises the JAX package's ``ValueError``;
-  scalars are replicated. numpy leaves (and Python scalars) become
-  tensors on the runner's device; tensors are moved there when they live
-  elsewhere. With one replica nothing is split. A stacked ``[k, ...]``
+  dim (the block order of the JAX package's ``P(batch_axes)``, r its
+  index over the batch axes); under a sequence axis, its chunk of dim 1
+  of each sequence leaf (``P(batch_axes, seq_axis)``; the leaves
+  ``seq_keys`` names, by their ``/``-joined path, or every leaf of rank
+  two or more); an indivisible dim raises the JAX package's
+  ``ValueError``; scalars are replicated. numpy leaves (and Python
+  scalars) become tensors on the runner's device; tensors are moved
+  there when they live elsewhere. With one replica nothing is split. A stacked ``[k, ...]``
   feed of the fused superstep splits from dim 1 (:meth:`Remapper.
   remap_feed_stack`), and a rank may feed its own shard
   (:meth:`Remapper.remap_feed_local`). Tensors this remapper placed
@@ -30,6 +33,18 @@ from torch.utils import _pytree as pytree
 from autodist_tpu_torch.kernel.replicator import ReplicaInfo
 
 
+def path_name(path) -> str:
+    """A pytree key path as the JAX package names a batch leaf:
+    ``/``-joined keys (``tokens``, ``inputs/ids``)."""
+    parts = []
+    for k in path:
+        for attr in ("key", "idx", "name"):
+            if hasattr(k, attr):
+                parts.append(str(getattr(k, attr)))
+                break
+    return "/".join(parts)
+
+
 class Remapper:
     def __init__(self, device, replica_info: Optional[ReplicaInfo] = None):
         self.device = torch.device(device)
@@ -38,13 +53,23 @@ class Remapper:
         # marks the tensors this remapper placed, with their layout
         self._token = object()
 
-    def _local(self, leaf, dim: int = 0):
-        """This rank's rows of a leaf along ``dim`` (the leaf itself with
-        one replica, or a leaf with no such dim)."""
-        if self.num_replicas == 1 or np.ndim(leaf) <= dim:
+    def _local(self, leaf, dim: int = 0, name: Optional[str] = None):
+        """This rank's rows of a leaf along ``dim`` and, for a sequence
+        leaf, its chunk of dim ``dim + 1`` (the leaf itself when nothing
+        splits)."""
+        info = self.replica_info
+        ndim = np.ndim(leaf)
+        if ndim <= dim:
             return leaf
-        rows = self.replica_info.local_rows(np.shape(leaf)[dim])
-        return leaf[(slice(None),) * dim + (rows,)]
+        shape = np.shape(leaf)
+        index = [slice(None)] * (dim + 2)
+        if self.num_replicas > 1:
+            index[dim] = info.local_rows(shape[dim])
+        if info.seq_factor > 1 and info.seq_applies(ndim - dim, name):
+            index[dim + 1] = info.local_cols(shape[dim + 1], name)
+        if all(i == slice(None) for i in index):
+            return leaf
+        return leaf[tuple(index[:ndim])]
 
     def _placed(self, leaf, layout: str) -> bool:
         """True for a tensor this remapper placed on its device in
@@ -63,34 +88,39 @@ class Remapper:
                 leaf._adt_layout = (self._token, layout)
         return tree
 
+    def _shard_leaf(self, leaf, dim: int, name: str):
+        if isinstance(leaf, torch.Tensor):
+            return self._local(leaf, dim, name)
+        if isinstance(leaf, (np.ndarray, np.generic, int, float, bool)):
+            return np.asarray(self._local(np.asarray(leaf), dim, name))
+        return leaf
+
     def shard_host(self, batch, stacked: bool = False):
         """This rank's shard of every leaf of ``batch``, where it lives:
         rows split from dim 0, or from dim 1 of a ``stacked`` ``[k, ...]``
-        feed, whose dim 0 is the microstep dim and is never split."""
+        feed, whose dim 0 is the microstep dim and is never split (and a
+        sequence leaf's next dim over the sequence axis)."""
         dim = 1 if stacked else 0
-
-        def shard(leaf):
-            if isinstance(leaf, torch.Tensor):
-                return self._local(leaf, dim)
-            if isinstance(leaf, (np.ndarray, np.generic, int, float, bool)):
-                return np.asarray(self._local(np.asarray(leaf), dim))
-            return leaf
-        return pytree.tree_map(shard, batch)
+        return pytree.tree_map_with_path(
+            lambda path, leaf: self._shard_leaf(leaf, dim, path_name(path)),
+            batch)
 
     def _place(self, batch, layout: str, split: bool):
         stacked = layout == "stacked"
 
-        def place(leaf):
+        def place(path, leaf):
             if self._placed(leaf, layout):
                 return leaf
             if split:
-                leaf = self.shard_host(leaf, stacked)
+                leaf = self._shard_leaf(leaf, 1 if stacked else 0,
+                                        path_name(path))
             if isinstance(leaf, torch.Tensor):
                 return leaf.to(self.device)
             if isinstance(leaf, np.ndarray):
                 return torch.as_tensor(leaf, device=self.device)
             return leaf
-        return self.mark_placed(pytree.tree_map(place, batch), stacked)
+        return self.mark_placed(pytree.tree_map_with_path(place, batch),
+                                stacked)
 
     def remap_feed(self, batch) -> Any:
         """This rank's shard of every leaf of ``batch``, on the device.

@@ -6,8 +6,9 @@ model's partition rules are stored and consumed sharded
 (``VarConfig.mp_axes``; ``parallel/tensor.py`` reduces their partial
 products), the rest ride the AllReduce data-parallel path. The plan is
 framework-free, so the builder emits the JAX builder's plan, byte for
-byte, for the same variable list and spec. Sequence parallelism
-(``seq_shards > 1``) is not ported and raises.
+byte, for the same variable list and spec. ``seq_shards > 1`` adds the
+``seq`` axis for TP x SP long-context runs (the model then attends with
+ring or Ulysses attention, ``ops/attention.py``).
 """
 import re
 from typing import Dict, List, Tuple
@@ -50,8 +51,9 @@ class TensorParallel(AllReduce):
 
     ``mp_rules`` comes from the model family (``models.tp_lm.tp_rules()``);
     unmatched variables stay replicated with AllReduce gradient sync.
-    ``attention`` is metadata, as in the JAX builder; ``seq_shards > 1``
-    (the JAX TP x SP mesh) raises ``NotImplementedError``."""
+    ``seq_shards`` adds sequence parallelism: the mesh is ``{data, seq,
+    model}``, outer to inner; ``attention`` is metadata, as in the JAX
+    builder."""
 
     def __init__(self, tp_shards: int, mp_rules: MpRules,
                  seq_shards: int = 1, attention: str = "ring",
@@ -60,11 +62,6 @@ class TensorParallel(AllReduce):
         super().__init__(chunk_size, all_reduce_spec, compressor)
         if tp_shards < 1 or seq_shards < 1:
             raise ValueError("tp_shards/seq_shards must be >= 1")
-        if seq_shards > 1:
-            raise NotImplementedError(
-                "TensorParallel(seq_shards=%d): sequence parallelism (the "
-                "seq mesh axis, ring/Ulysses attention) is not ported yet "
-                "(ROADMAP A item 9)" % seq_shards)
         self.tp_shards = tp_shards
         self.seq_shards = seq_shards
         self.mp_rules = list(mp_rules)
@@ -77,11 +74,14 @@ class TensorParallel(AllReduce):
         if n_devices % denom != 0:
             raise ValueError("%d devices not divisible by tp*sp=%d"
                              % (n_devices, denom))
-        # axes outer -> inner: data, model (the innermost axis holds the
-        # per-layer reductions)
-        strategy.graph_config.mesh_shape = {
-            const.DATA_AXIS: n_devices // denom,
-            const.MODEL_AXIS: self.tp_shards}
+        # axes outer -> inner: data, seq, model (the innermost axis holds
+        # the per-layer reductions)
+        mesh_shape = {const.DATA_AXIS: n_devices // denom}
+        if self.seq_shards > 1:
+            mesh_shape[const.SEQUENCE_AXIS] = self.seq_shards
+            strategy.graph_config.seq_axis = const.SEQUENCE_AXIS
+        mesh_shape[const.MODEL_AXIS] = self.tp_shards
+        strategy.graph_config.mesh_shape = mesh_shape
         add_frozen_nodes(strategy, model_item)
         n = apply_mp_rules(strategy, self.mp_rules)
         logging.info("TensorParallel: %d/%d vars model-sharded over %d-way "

@@ -366,6 +366,27 @@ result line):
    launches a rank-step as the schedule predicts (at the microbatch
    shape [2, 1024, 16, 64]); step p50, ``pp.p2p_bytes`` a step and each
    rank's peak memory (reset between schedules).
+25. sequence and expert parallelism (no flash kernel on these paths: the
+   ring and Ulysses attention and the MoE experts are plain PyTorch, as
+   the JAX package computes them outside any Pallas kernel; each part
+   checks that none of the three kernels launched). (a) moe_lm at
+   ``MoEConfig()`` (70 724 608 parameters, 33 603 584 of them
+   expert-stacked, f32, seq 256, batch 16, Adam 1e-3) through
+   ``ExpertParallel(ep_shards=1, mp_rules=ep_rules())``, one process,
+   right after phase 24 (a): the counts, the first loss, 2 warm-up and 8
+   timed steps, the loss falling; step p50 (min-max), tokens/s. (b) and
+   (c) on two processes of ``cuda:0`` over gloo, beside phases 11-12:
+   (b) moe_lm under ``ExpertParallel(ep_shards=2)`` on the same batch:
+   the ranks' losses equal, the first the mean of the unbound loss on
+   each rank's 8 rows within 2e-5 (each rank's capacity, 512, is the
+   unbound one on 8 rows), each rank holding its ``[4, ...]`` expert
+   slice; ``ep.a2a_bytes`` a rank-step, step p50, peak memory a rank. (c)
+   tp_lm flagship (bf16, seq 1024, batch 8) under
+   ``TensorParallel(tp_shards=1, seq_shards=2)``, ``attention="ring"``,
+   then ``"ulysses"``: the ranks' losses equal, the first within 2e-2
+   of the one-process plain-attention loss over the same S - 1 targets;
+   ``sp.p2p_bytes`` (ring) or ``sp.a2a_bytes`` (Ulysses) a rank-step,
+   step p50, peak memory a rank.
 
 TF32 is off for the whole run (``torch.backends.cuda.matmul`` and
 ``cudnn``): float32 is computed in float32, as the f32 checks' 2e-5 and
@@ -7007,6 +7028,276 @@ def pp_kernel_records(card):
                          "[2,1024,16,64] causal")
 
 
+MOE_SEQ, MOE_BATCH = 256, 16
+MOE_PARAMS, MOE_EXPERT_PARAMS = 70724608, 33603584   # MoEConfig()'s
+MOE_WARMUP, MOE_TIMED = 2, 8         # (a)
+SPEP_RANKS = 2
+SPEP_WARMUP, SPEP_TIMED = 2, 3       # (b), (c): each part
+SPEP_SPEC = {"nodes": [{"address": "127.0.0.1", "chief": True,
+                        "gpus": [0] * SPEP_RANKS}]}
+
+
+def moe_model():
+    """moe_lm at ``MoEConfig()``: (cfg, its loss, params from seed 0, the
+    seq-256 batch of 16)."""
+    from autodist_tpu_torch.models import moe_lm
+    cfg = moe_lm.MoEConfig()
+    loss_fn, params, batch, _ = moe_lm.make_train_setup(
+        cfg, seq_len=MOE_SEQ, batch_size=MOE_BATCH, seed=0)
+    return cfg, loss_fn, params, batch
+
+
+def mp_runner(builder, spec, loss_fn, params, batch):
+    """``builder`` built and initialized on ``cuda:0`` through the public
+    entry points, Adam 1e-3."""
+    import torch
+    import autodist_tpu_torch as adt
+    from autodist_tpu_torch.resource_spec import ResourceSpec
+    adt.reset()
+    ad = adt.AutoDist(strategy_builder=builder,
+                      resource_spec=ResourceSpec.from_dict(spec),
+                      device="cuda:0")
+    runner = ad.build(loss_fn, functools.partial(torch.optim.Adam, lr=1e-3),
+                      params, batch)
+    runner.init(params)
+    return runner
+
+
+def moe_runner(ep, spec, loss_fn, params, batch):
+    from autodist_tpu_torch import strategy
+    from autodist_tpu_torch.models import moe_lm
+    return mp_runner(strategy.ExpertParallel(
+        ep_shards=ep, mp_rules=moe_lm.ep_rules()), spec, loss_fn, params,
+        batch)
+
+
+def moe_flops_per_step(cfg, n_params):
+    """Closed-form training FLOPs of one moe_lm step: 6 x tokens x the
+    parameters a token uses (outside the two tables, one expert of each
+    stack; the head included) plus the attention products, 12 x layers x
+    seq x d_model a token. The dense dispatch also runs the capacity's
+    empty slots; they are not counted."""
+    tokens = MOE_BATCH * MOE_SEQ
+    active = n_params - (cfg.vocab_size + cfg.max_seq_len) * cfg.d_model \
+        - MOE_EXPERT_PARAMS * (cfg.num_experts - 1) // cfg.num_experts
+    return 6 * tokens * active + 12 * cfg.num_layers * MOE_SEQ * \
+        cfg.d_model * tokens
+
+
+def no_kernel_launched(label, launches):
+    """The path ran none of the three kernels (its attention and experts
+    are plain PyTorch, as in the JAX package)."""
+    if any(sum(by.values()) for by in launches.values()):
+        fail("%s: the flash kernels launched on a path that has none: %r"
+             % (label, launches))
+
+
+def moe_one_phase(card):
+    """Phase 25 (a): moe_lm at full width through ``ExpertParallel(1)`` in
+    this process."""
+    import gc
+    import torch
+    import autodist_tpu_torch as adt
+    print("phase 25 (a): moe_lm MoEConfig() (f32, seq %d, batch %d, 8 "
+          "experts, capacity factor 2) through ExpertParallel(ep_shards=1),"
+          " one process" % (MOE_SEQ, MOE_BATCH))
+    cfg, loss_fn, params, batch = moe_model()
+    n_params = sum(int(t.numel()) for t in params.values())
+    n_expert = sum(int(t.numel()) for n, t in params.items()
+                   if "/moe/" in n and n.rsplit("/", 1)[1] in
+                   ("w1", "b1", "w2", "b2"))
+    if (n_params, n_expert) != (MOE_PARAMS, MOE_EXPERT_PARAMS):
+        fail("phase 25 (a): moe_lm has %d parameters, %d expert-stacked "
+             "(want %d, %d)" % (n_params, n_expert, MOE_PARAMS,
+                                MOE_EXPERT_PARAMS))
+    t0 = time.perf_counter()
+    runner = moe_runner(1, TP_SPEC_ONE, loss_fn, params, batch)
+    print("  (a) build + init %.1f s; %d parameters (random, seed 0), %d "
+          "expert-stacked" % (time.perf_counter() - t0, n_params, n_expert))
+    times, launches = timed_steps(runner, batch, "phase 25 (a)",
+                                  warmup=MOE_WARMUP, steps=MOE_TIMED)
+    no_kernel_launched("phase 25 (a)", launches)
+    report_steps("(a) moe_lm ExpertParallel(1)", times, MOE_BATCH * MOE_SEQ,
+                 "tokens", moe_flops_per_step(cfg, n_params), card,
+                 "none")
+    del runner, params
+    adt.reset()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def spep_steps(runner, batch, counters):
+    """``SPEP_WARMUP`` + ``SPEP_TIMED`` steps on this rank: the losses,
+    each step's ms, the timed steps' p50, ``counters`` a step, the peak
+    memory and each kernel's launches."""
+    import statistics
+    import torch
+    from autodist_tpu_torch.telemetry import spans as tel
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    before = tel.counters()
+    losses, times = [], []
+    for _ in range(SPEP_WARMUP + SPEP_TIMED):
+        t0 = time.perf_counter()
+        losses.append(float(runner.run(batch)["loss"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    after = tel.counters()
+    steps = SPEP_WARMUP + SPEP_TIMED
+    return {"losses": losses, "times_ms": [t * 1e3 for t in times],
+            "p50_ms": statistics.median(times[SPEP_WARMUP:]) * 1e3,
+            "per_step": {k: (after.get(k, 0.0) - before.get(k, 0.0)) / steps
+                         for k in counters},
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": launch_counts()}
+
+
+def spep_child(rank, store, out_dir, env):
+    """One rank of phase 25 (b)-(c) (spawned): take the environment
+    ``env``, join the gloo group; (b) moe_lm under ``ExpertParallel(2)``
+    after the unbound loss of each rank's rows; (c) tp_lm flagship under
+    ``TensorParallel(1, seq_shards=2)`` with ring, then Ulysses attention
+    (rank 0 first computes the one-process plain-attention loss); write
+    this rank's results to ``out_dir``."""
+    os.environ.clear()
+    os.environ.update(env)
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, HERE)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(store, SPEP_RANKS),
+                            rank=rank, world_size=SPEP_RANKS)
+    import autodist_tpu_torch as adt
+    from autodist_tpu_torch import strategy
+    from autodist_tpu_torch.models import tp_lm
+    out = {"rank": rank}
+    # (b)
+    _, loss_fn, params, batch = moe_model()
+    rows = MOE_BATCH // SPEP_RANKS
+    with torch.no_grad(), uncounted():
+        dev = {n: t.to("cuda") for n, t in params.items()}
+        out["moe_unbound"] = [float(loss_fn(dev, {"tokens": torch.as_tensor(
+            batch["tokens"][r * rows:(r + 1) * rows], device="cuda")}))
+            for r in range(SPEP_RANKS)]
+        del dev
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    runner = moe_runner(SPEP_RANKS, SPEP_SPEC, loss_fn, params, batch)
+    init_s = time.perf_counter() - t0
+    out["moe"] = dict(spep_steps(runner, batch, ("ep.a2a_bytes",
+                                                 "ep.a2a_calls")),
+                      init_s=init_s,
+                      w1=list(runner.state.params["layer_0/moe/w1"].shape),
+                      sparse=sorted(runner.distributed_step.sparse_wire))
+    del runner, params
+    adt.reset()
+    torch.cuda.empty_cache()
+    # (c)
+    cfg = tp_lm.TPLMConfig.flagship()
+    plain, params, batch, _ = tp_lm.make_train_setup(
+        cfg, seq_len=TP_SEQ, batch_size=TP_BATCH, seed=0)
+    tokens = {"tokens": batch["tokens"][:, :TP_SEQ]}
+    if rank == 0:
+        with torch.no_grad(), uncounted():
+            dev = {n: t.to("cuda") for n, t in params.items()}
+            # over tokens[:, :-1] -> tokens[:, 1:]: the S - 1 targets the
+            # sequence-parallel loss keeps
+            out["sp_plain"] = float(plain(dev, {"tokens": torch.as_tensor(
+                tokens["tokens"], device="cuda")}))
+            del dev
+        torch.cuda.empty_cache()
+    for attention in ("ring", "ulysses"):
+        loss_fn = tp_lm.make_loss(cfg, attention=attention)
+        t0 = time.perf_counter()
+        runner = mp_runner(strategy.TensorParallel(
+            1, tp_lm.tp_rules(), seq_shards=SPEP_RANKS,
+            attention=attention), SPEP_SPEC, loss_fn, params, tokens)
+        init_s = time.perf_counter() - t0
+        out[attention] = dict(spep_steps(runner, tokens, (
+            "sp.p2p_sends", "sp.p2p_bytes", "sp.a2a_calls",
+            "sp.a2a_bytes")), init_s=init_s,
+            mesh=dict(runner.distributed_step.mesh.axes))
+        del runner
+        adt.reset()
+        torch.cuda.empty_cache()
+    with open(os.path.join(out_dir, "rank%d.json" % rank), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def spep_phase(card, env):
+    """Phase 25 (b)-(c): the two processes of ``spep_child`` on ``cuda:0``
+    in the environment ``env``; the gates and the readings."""
+    import math
+    import tempfile
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            mp.start_processes(spep_child, args=(os.path.join(tmp, "store"),
+                                                 tmp, env),
+                               nprocs=SPEP_RANKS, start_method="spawn")
+        except Exception as e:  # noqa: BLE001 — a rank failed
+            fail("phase 25 (b)-(c): a rank failed: %s"
+                 % (str(e).strip()[-2000:],))
+        res = []
+        for r in range(SPEP_RANKS):
+            with open(os.path.join(tmp, "rank%d.json" % r)) as f:
+                res.append(json.load(f))
+    print("phase 25 (b)-(c): %d processes of cuda:0 over gloo, beside "
+          "phases 11-12: %.1f s" % (SPEP_RANKS, time.perf_counter() - t0))
+    for part in ("moe", "ring", "ulysses"):
+        label = "phase 25 %s" % ("(b) moe_lm ep 2" if part == "moe"
+                                 else "(c) tp_lm sp 2 " + part)
+        runs = [r[part] for r in res]
+        if runs[0]["losses"] != runs[1]["losses"]:
+            fail("%s: the ranks' losses differ: %r vs %r"
+                 % (label, runs[0]["losses"], runs[1]["losses"]))
+        losses = runs[0]["losses"]
+        if not all(math.isfinite(x) for x in losses):
+            fail("%s: a loss is not finite: %r" % (label, losses))
+        for rank, run in enumerate(runs):
+            no_kernel_launched("%s rank %d" % (label, rank),
+                               run["launches"])
+        if part == "moe":
+            want = sum(res[0]["moe_unbound"]) / SPEP_RANKS
+            if not abs(losses[0] - want) <= 2e-5 * max(1.0, abs(want)):
+                fail("%s: the first loss %.7f is not within 2e-5 of the "
+                     "unbound losses' mean %.7f (%r)"
+                     % (label, losses[0], want, res[0]["moe_unbound"]))
+            for rank, run in enumerate(runs):
+                if run["w1"] != [4, 512, 1024]:
+                    fail("%s rank %d: layer_0/moe/w1 is %r a rank (want "
+                         "[4, 512, 1024])" % (label, rank, run["w1"]))
+            ref = "unbound mean %.6f (%s)" % (want, ", ".join(
+                "%.6f" % x for x in res[0]["moe_unbound"]))
+            moved = "ep.a2a_bytes a step %.2f / %.2f MB in %.0f calls" % (
+                runs[0]["per_step"]["ep.a2a_bytes"] / 1e6,
+                runs[1]["per_step"]["ep.a2a_bytes"] / 1e6,
+                runs[0]["per_step"]["ep.a2a_calls"])
+            extra = "; w1 a rank %r; the sparse wire: %s" % (
+                runs[0]["w1"], runs[0]["sparse"] or "none")
+        else:
+            want = res[0]["sp_plain"]
+            first_loss_check(label, losses[0], want)
+            ref = "one-process plain attention %.6f" % want
+            key = "sp.p2p_bytes" if part == "ring" else "sp.a2a_bytes"
+            calls = "sp.p2p_sends" if part == "ring" else "sp.a2a_calls"
+            moved = "%s a step %.2f / %.2f MB in %.0f calls" % (
+                key, runs[0]["per_step"][key] / 1e6,
+                runs[1]["per_step"][key] / 1e6, runs[0]["per_step"][calls])
+            extra = "; mesh %r" % (runs[0]["mesh"],)
+        print("  %s: losses %s (both ranks; %s); step p50 %.1f / %.1f ms "
+              "(ranks 0 / 1, steps %s ms); %s; peak memory %.2f / %.2f GB;"
+              " build + init %.1f s%s; no flash kernel launched [%s]"
+              % (label, " ".join("%.4f" % x for x in losses), ref,
+                 runs[0]["p50_ms"], runs[1]["p50_ms"],
+                 " ".join("%.1f" % t for t in runs[0]["times_ms"]), moved,
+                 runs[0]["peak_gb"], runs[1]["peak_gb"], runs[0]["init_s"],
+                 extra, card))
+
+
 def main():
     global T_SMOKE
     T_SMOKE = time.perf_counter()
@@ -7158,8 +7449,15 @@ def main():
     # losses and informational step times); joined in phase 14
     sync_ac = Beside(sync_phase, card)
     dp_launches, dp_losses = timed_phase("10", dp_phase, card)
+    # phase 25 (b)-(c)'s two ranks run beside phases 11 and 12, and are
+    # joined before phase 13, whose device trace of a replay counts
+    # launches
+    spep = Beside(spep_phase, card, dict(os.environ))
     resume_launches = timed_phase("11", resume_phase, card)
     timed_phase("12", cnn_phase, card)
+    t = time.perf_counter()
+    spep.result()
+    seconds["25 (b)-(c) after 12"] = time.perf_counter() - t
     fused_launches, replay_per_microstep = timed_phase("13", fused_phase,
                                                        card)
     sync_launches, tier_launches, remat_launches = timed_phase(
@@ -7181,6 +7479,7 @@ def main():
     tp_a, tp_b, tp16, tp8, gathered_ms, shard = timed_phase("20", tp_phase,
                                                             card)
     pp2_records, pp1_launches = timed_phase("24 (a)", pp_one_phase, card)
+    timed_phase("25 (a)", moe_one_phase, card)
     # phase 24 (b)'s two processes run beside phases 21 and 23; phase 23
     # (a)'s two processes run beside its (b) and (c) and phase 21
     pp_two = Beside(pp_two_phase, card, dict(os.environ))
@@ -7192,7 +7491,7 @@ def main():
     t = time.perf_counter()
     pp2_launches = pp_two.result()
     seconds["24 (b) after 21 with 23"] = time.perf_counter() - t
-    print("phases 5-24: %s s" % ", ".join(
+    print("phases 5-25: %s s" % ", ".join(
         "%s %.1f" % kv for kv in seconds.items()))
 
     # flash_fwd runs on the three main paths, serving (decode), lm1b and

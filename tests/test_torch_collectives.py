@@ -314,7 +314,45 @@ def test_replica_info():
     assert info.local_shape((8, 16)) == (2, 16)
     assert info.local_shape((6, 16)) == (6, 16)   # indivisible: unsplit
     assert info.local_rows(8) == slice(6, 8)
-    with pytest.raises(NotImplementedError, match="sequence"):
-        ReplicaInfo(2, 0, seq_keys=["tokens"])
     with pytest.raises(ValueError, match="rank 2"):
         ReplicaInfo(2, 2)
+    # a sequence axis and joint batch axes name axes of a mesh, and their
+    # blocks are the JAX Remapper's, device r for rank r
+    from jax.sharding import Mesh
+    from autodist_tpu.remapper import Remapper as JRemapper
+    from autodist_tpu_torch.parallel.mesh import ProcessMesh
+    with pytest.raises(ValueError, match="axes of a mesh"):
+        ReplicaInfo(2, 0, seq_axis="seq")
+    batch = {"tokens": np.arange(8 * 12, dtype=np.int32).reshape(8, 12),
+             "labels": np.arange(8 * 3, dtype=np.float32).reshape(8, 3),
+             "scale": np.float32(2.0)}
+    for axes, kw, jkw in (
+            ({"data": 2, "seq": 2}, {"seq_axis": "seq",
+                                     "seq_keys": ["tokens"]},
+             {"seq_axis": "seq", "seq_keys": ["tokens"]}),
+            ({"data": 2, "expert": 2}, {"batch_axes": ["data", "expert"]},
+             {"batch_axes": ["data", "expert"]})):
+        jmesh = Mesh(np.array(jax.devices()[:4]).reshape(2, 2), tuple(axes))
+        placed = JRemapper(jmesh, "data", **jkw).remap_feed(batch)
+        for rank in range(4):
+            info = ReplicaInfo(4, rank, mesh=ProcessMesh(axes, rank), **kw)
+            got = Remapper("cpu", info).remap_feed(batch)
+            dev = jmesh.devices.flat[rank]
+            for k in ("tokens", "labels"):
+                want = next(s.data for s in placed[k].addressable_shards
+                            if s.device == dev)
+                np.testing.assert_array_equal(got[k].numpy(),
+                                              np.asarray(want))
+            assert float(got["scale"]) == 2.0
+        assert info.local_shape((8, 12), "tokens") == \
+            ((4, 6) if "seq_axis" in kw else (2, 12))
+    # an indivisible sequence dim raises the JAX Remapper's error
+    info = ReplicaInfo(2, 0, mesh=ProcessMesh({"data": 1, "seq": 2}, 0),
+                       seq_axis="seq")
+    with pytest.raises(ValueError) as err:
+        Remapper("cpu", info).remap_feed({"labels": np.zeros((2, 5))})
+    jmesh = Mesh(np.array(jax.devices()[:2]).reshape(1, 2), ("data", "seq"))
+    with pytest.raises(ValueError) as jerr:
+        JRemapper(jmesh, "data", seq_axis="seq").remap_feed(
+            {"labels": np.zeros((2, 5))})
+    assert str(err.value) == str(jerr.value)

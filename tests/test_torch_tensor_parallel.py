@@ -514,14 +514,19 @@ def _refusal(case):
                                                   ZeroShardedSynchronizer)
     w = [("w", {"mp_axes": {1: "model"}})]
     tp2 = {"data": 2, "model": 2}
+    sp2 = {"data": 2, "seq": 2}
     return {
-        "seq_axis": _plan(w, {"data": 2, "seq": 2}, seq_axis="seq"),
-        "batch_axes": _plan(w, tp2, batch_axes=["data"]),
+        "zero_beside_seq": _plan([("b", {
+            "synchronizer": ZeroShardedSynchronizer()})], sp2,
+            seq_axis="seq"),
+        "ps_beside_expert": _plan([("w", {"mp_axes": {0: "expert"}}), ("b", {
+            "synchronizer": PSSynchronizer()})], {"data": 2, "expert": 2},
+            batch_axes=["data", "expert"]),
         "pipe_beside_zero": _plan([("w", {"mp_axes": {0: "pipe"}}), ("b", {
             "synchronizer": ZeroShardedSynchronizer()})],
             {"pipe": 2, "data": 2}),
-        "expert_axis": _plan([("w", {"mp_axes": {1: "expert"}})],
-                             {"data": 2, "expert": 2}),
+        "partitioned_beside_seq": _plan([("b", {"partitioner": "2,1"})],
+                                        sp2, seq_axis="seq"),
         "zero_beside_tp": _plan(w + [("b", {
             "synchronizer": ZeroShardedSynchronizer()})], tp2),
         "ps_beside_tp": _plan(w + [("b", {
@@ -531,14 +536,15 @@ def _refusal(case):
     }[case]
 
 
-@pytest.mark.parametrize("case", ["seq_axis", "batch_axes",
-                                  "pipe_beside_zero", "expert_axis",
+@pytest.mark.parametrize("case", ["zero_beside_seq", "ps_beside_expert",
+                                  "pipe_beside_zero",
+                                  "partitioned_beside_seq",
                                   "zero_beside_tp", "ps_beside_tp",
                                   "partitioned_beside_tp"])
 def test_unported_mesh_features_raise_naming_item_9(case):
-    """Sequence parallelism, the expert axis, and a model or pipe axis
-    beside host PS, ZeRO or partitioned storage raise at 4 processes,
-    naming ROADMAP A item 9; nothing is ignored."""
+    """A model, pipe, seq or expert axis beside host PS, ZeRO or
+    partitioned storage raises at 4 processes, naming ROADMAP A item 9;
+    nothing is ignored."""
     from autodist_tpu_torch.kernel.graph_transformer import GraphTransformer
     from autodist_tpu_torch.kernel.replicator import ReplicaInfo
     from autodist_tpu_torch.model_item import ModelItem
@@ -551,16 +557,55 @@ def test_unported_mesh_features_raise_naming_item_9(case):
 
 
 def test_sequence_parallel_entry_points_raise_naming_item_9():
-    with pytest.raises(NotImplementedError, match="ROADMAP A item 9"):
-        strategy.TensorParallel(2, tp_lm.tp_rules(), seq_shards=2)
+    """The sequence-parallel entry points that raised before they were
+    ported now build and match JAX: ``TensorParallel(seq_shards=2)``'s
+    plan, byte for byte (mesh ``{data, seq, model}``); ``make_train_setup(
+    attention="ring" | "ulysses")``'s params and ``[B, S]`` tokens; the
+    unbound loss (JAX's on a one-device seq mesh) and
+    ``forward(seq_parallel=True)``, 1e-5. (The
+    multi-process runs: ``tests/test_torch_sequence_parallel.py``.)"""
+    from autodist_tpu.model_item import ModelItem as JModelItem
+    from autodist_tpu_torch.model_item import ModelItem
+    cfg, jcfg = tp_lm.TPLMConfig.tiny(), jtp_lm.TPLMConfig.tiny()
     for attention in ("ring", "ulysses"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A item 9"):
-            tp_lm.make_train_setup(tp_lm.TPLMConfig.tiny(),
-                                   attention=attention)
-    params = tp_lm.init_params(tp_lm.TPLMConfig.tiny())
-    with pytest.raises(NotImplementedError, match="ROADMAP A item 9"):
-        tp_lm.forward(params, torch.zeros(1, 4, dtype=torch.long),
-                      tp_lm.TPLMConfig.tiny(), seq_parallel=True)
+        jloss, jparams, jbatch, _ = jtp_lm.make_train_setup(
+            jcfg, seq_len=16, batch_size=8, attention=attention)
+        loss, params, batch, _ = tp_lm.make_train_setup(
+            cfg, seq_len=16, batch_size=8, attention=attention)
+        np.testing.assert_array_equal(batch["tokens"], jbatch["tokens"])
+        assert batch["tokens"].shape == (8, 16)
+        want = convert.tp_lm_params_from_jax(jparams)
+        assert all(torch.equal(params[n], want[n]) for n in want)
+        with torch.no_grad():
+            got = float(loss(params, batch))
+        # the JAX loss needs its seq axis bound: a one-device seq mesh
+        one = jax.jit(jax.shard_map(
+            jloss, mesh=Mesh(np.array(jax.devices()[:1]), ("seq",)),
+            in_specs=(P(), P()), out_specs=P(), check_vma=False))
+        np.testing.assert_allclose(got, float(one(jparams, jbatch)),
+                                   rtol=1e-5)
+    jplan = jstrategy.TensorParallel(
+        2, jtp_lm.tp_rules(), seq_shards=2).build(
+            JModelItem(loss_fn=jloss, params=jparams,
+                       example_batch=jbatch).prepare(),
+            JSpec.from_dict(_spec(4)))
+    tplan = strategy.TensorParallel(2, tp_lm.tp_rules(), seq_shards=2).build(
+        ModelItem(loss_fn=loss, params=params,
+                  example_batch=batch).prepare(),
+        ResourceSpec.from_dict(_spec(4)))
+    tplan.id = jplan.id
+    assert json.dumps(tplan.to_dict(), sort_keys=True) == \
+        json.dumps(jplan.to_dict(), sort_keys=True)
+    assert tplan.graph_config.mesh_shape == {"data": 1, "seq": 2,
+                                             "model": 2}
+    ids = batch["tokens"][:2]
+    with torch.no_grad():
+        got = tp_lm.forward(params, torch.as_tensor(ids), cfg,
+                            seq_parallel=True)
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(jtp_lm.forward(jparams, ids, jcfg,
+                                               seq_parallel=True)),
+        rtol=1e-5, atol=1e-5)
 
 
 def test_mp_axes_on_a_port_layout_that_is_not_the_jax_one_raise():

@@ -10,6 +10,8 @@ The tests (``tests/test_torch_collectives.py``,
 ``tests/test_torch_async_ps.py``, ``tests/test_torch_launch.py``,
 ``tests/test_torch_tensor_parallel.py``, ``tests/test_torch_sentinel.py``,
 ``tests/test_torch_pipeline_parallel.py``,
+``tests/test_torch_sequence_parallel.py``,
+``tests/test_torch_expert_parallel.py``,
 ``tests/test_torch_schedules.py``,
 ``tests/test_torch_sharded_checkpoint.py``) compute their JAX references in
 the pytest process and hand numpy arrays
@@ -980,8 +982,221 @@ def _pp_train(case, device):
     return out
 
 
+def _counted(name):
+    from autodist_tpu_torch.telemetry import spans as tel
+    return tel.counters().get(name, 0.0)
+
+
+def sp_job(payload, device):
+    """Each case of ``payload`` (a list) on this rank, the seq axis over
+    every rank for the primitives: ``"ring"`` / ``"ulysses"`` — the
+    attention of this rank's chunks of ``q``, ``k``, ``v`` (``causal``;
+    ``mask`` for Ulysses through ``make_attn_fn``), the gradients of
+    ``sum(out ** 2)`` and the permutes counted in the forward and the
+    backward (``expect_error``: Ulysses' ``ValueError`` text instead);
+    ``"shift"`` — ``shift_left`` of this rank's chunk of ``tokens`` (int)
+    and of ``x`` (float, with the gradient of ``sum(y * w)``);
+    ``"wmean"`` — ``global_weighted_mean`` and ``global_mean`` of
+    this rank's chunks and the gradient of the former; ``"train"`` —
+    :func:`_mp_train`. Returns each case's values."""
+    return [_mp_train(case, device) if case["kind"] == "train"
+            else _sp_primitive(case) for case in payload]
+
+
+def _sp_primitive(case):
+    from autodist_tpu_torch.ops import attention
+    from autodist_tpu_torch.parallel import mesh, sequence
+    rank, world = dist.get_rank(), dist.get_world_size()
+    m = mesh.ProcessMesh({"seq": world}, rank)
+    m.build_groups()
+
+    def chunk(a):
+        t = torch.as_tensor(a)
+        c = t.shape[1] // world
+        return t[:, rank * c:(rank + 1) * c].clone()
+    kind = case["kind"]
+    with mesh.bind(m):
+        if kind in ("ring", "ulysses"):
+            q, k, v = [chunk(case[n]).requires_grad_() for n in "qkv"]
+            if case.get("expect_error"):
+                try:
+                    attention.ulysses_attention(q, k, v)
+                except ValueError as e:
+                    return {"error": str(e)}
+                return {"error": None}
+            sends = _counted("sp.p2p_sends")
+            if case.get("mask") is not None:
+                fn = attention.make_attn_fn(kind, causal=case["causal"])
+                out = fn(q, k, v, torch.as_tensor(case["mask"]))
+            elif kind == "ring":
+                out = attention.ring_attention(q, k, v, causal=case["causal"])
+            else:
+                out = attention.ulysses_attention(q, k, v,
+                                                  causal=case["causal"])
+            fwd = _counted("sp.p2p_sends") - sends
+            grads = torch.autograd.grad((out.float() ** 2).sum(), (q, k, v))
+            bwd = _counted("sp.p2p_sends") - sends - fwd
+            return {"out": _np(out), "grads": _np(list(grads)),
+                    "fwd_sends": fwd, "bwd_sends": bwd,
+                    "offset": sequence.position_offset(q.shape[1]),
+                    "size": sequence.axis_size("seq")}
+        if kind == "shift":
+            tokens = chunk(case["tokens"])
+            x = chunk(case["x"]).requires_grad_()
+            y = sequence.shift_left(x)
+            g, = torch.autograd.grad((y * chunk(case["w"])).sum(), x)
+            return {"tokens": _np(sequence.shift_left(tokens)),
+                    "y": _np(y), "g": _np(g)}
+        vals = chunk(case["values"]).requires_grad_()
+        wm = sequence.global_weighted_mean(vals, chunk(case["weights"]))
+        g, = torch.autograd.grad(wm, vals)
+        return {"wmean": _np(wm), "mean": _np(sequence.global_mean(vals)),
+                "g": _np(g)}
+
+
+def ep_job(payload, device):
+    """Each case of ``payload`` (a list) on this rank, the expert axis
+    over every rank for the primitive: ``"moe"`` — ``moe_ffn`` of this
+    rank's rows of ``x`` with its slice of the expert stacks at
+    ``capacity_factor``, the gradients of ``sum(out ** 2)`` (``x``, the
+    router, this rank's ``w1``) and the all-to-all bytes; ``"train"`` —
+    :func:`_mp_train`. Returns each case's values."""
+    from autodist_tpu_torch.parallel import expert, mesh
+    rank, world = dist.get_rank(), dist.get_world_size()
+    out = []
+    for case in payload:
+        if case["kind"] == "train":
+            out.append(_mp_train(case, device))
+            continue
+        m = mesh.ProcessMesh({"expert": world}, rank)
+        m.build_groups()
+        x = torch.as_tensor(case["x"])
+        rows = x.shape[0] // world
+        x = x[rank * rows:(rank + 1) * rows].clone().requires_grad_()
+        per = case["w1"].shape[0] // world
+        w = {n: torch.as_tensor(case[n][rank * per:(rank + 1) * per]
+                                ).clone().requires_grad_()
+             for n in ("w1", "b1", "w2", "b2")}
+        router = torch.as_tensor(case["router_w"]).requires_grad_()
+        before = _counted("ep.a2a_bytes")
+        with mesh.bind(m):
+            y, aux = expert.moe_ffn(x, router, w["w1"], w["b1"], w["w2"],
+                                    w["b2"],
+                                    capacity_factor=case["capacity_factor"])
+            gx, gr, gw1 = torch.autograd.grad((y ** 2).sum(),
+                                              (x, router, w["w1"]))
+        out.append({"y": _np(y), "aux": _np(aux), "gx": _np(gx),
+                    "grouter": _np(gr), "gw1": _np(gw1),
+                    "a2a_bytes": _counted("ep.a2a_bytes") - before})
+    return out
+
+
+def seq_keys_loss(p, batch):
+    """The JAX ``test_seq_keys_exempt_non_sequence_leaves`` loss: tokens
+    [B, S] through a per-position feature, scaled per example by the mean
+    of ``class_weights`` [B, C] (dim 1 classes, not a sequence)."""
+    feat = torch.as_tensor(batch["tokens"])[..., None].float() @ \
+        torch.ones((1, 8))
+    pred = feat @ p["w"]
+    w = torch.as_tensor(batch["class_weights"]).mean(dim=1)
+    return ((pred ** 2).mean(dim=(1, 2)) * w).mean()
+
+
+def _mp_setup(case):
+    """(loss_fn, params, rules) of a training case's ``model``: ``lm``
+    (``make_sp_train_setup``), ``tp_lm`` (``make_train_setup(attention=
+    ...)``), ``moe_lm`` or ``seq_keys`` (:func:`seq_keys_loss`), with the
+    case's config keywords; the params from the JAX package's numpy tree
+    ``init``."""
+    import dataclasses
+    from autodist_tpu_torch import convert
+    from autodist_tpu_torch.models import lm, moe_lm, tp_lm
+    model, init = case["model"], case["init"]
+    if model == "lm":
+        cfg = dataclasses.replace(lm.LMConfig.tiny(), **case["cfg"])
+        loss_fn = lm.make_sp_train_setup(
+            cfg, seq_len=case["seq_len"], batch_size=8,
+            attention=case["attention"])[0]
+        return loss_fn, convert.params_from_jax(init), None
+    if model == "tp_lm":
+        loss_fn = tp_lm.make_loss(tp_lm.TPLMConfig.tiny(**case["cfg"]),
+                                  attention=case["attention"])
+        return loss_fn, convert.tp_lm_params_from_jax(init), \
+            tp_lm.tp_rules()
+    if model == "moe_lm":
+        loss_fn = moe_lm.make_loss(moe_lm.MoEConfig.tiny(**case["cfg"]),
+                                   aux_coef=case.get("aux_coef"))
+        return loss_fn, convert.moe_lm_params_from_jax(init), \
+            moe_lm.ep_rules()
+    return seq_keys_loss, convert.jax_named(
+        {n: torch.as_tensor(v) for n, v in init.items()}), None
+
+
+def _mp_train(case, device):
+    """A builder of ``autodist_tpu_torch.strategy`` (``builder``, its
+    keywords ``kw``; ``rules`` the model's mp rules) over the case's
+    model (:func:`_mp_setup`), Adam at ``lr`` and ``eps`` over
+    ``batches`` (``frozen``: a name suffix kept frozen); ``expect_error``:
+    the first step's ``ValueError`` text instead; a ``ShardedSaver`` save into ``save_dir`` after the steps.
+    Returns the losses, the gathered params, whether every rank gathered
+    the same, the layouts, each rank's shapes and mesh place, the
+    counters, the first batch's shard on this rank."""
+    import autodist_tpu_torch as adt
+    from autodist_tpu_torch import strategy
+    from autodist_tpu_torch.checkpoint import ShardedSaver
+    from autodist_tpu_torch.resource_spec import ResourceSpec
+    from autodist_tpu_torch.telemetry import spans as tel
+    world = dist.get_world_size()
+    tel.reset()
+    loss_fn, params, rules = _mp_setup(case)
+    kw = dict(case.get("kw", {}))
+    if rules is not None:
+        kw["mp_rules"] = rules
+    spec = ResourceSpec.from_dict({"nodes": [{
+        "address": "127.0.0.1", "chief": True,
+        "cpus": list(range(world))}]})
+    ad = adt.AutoDist(strategy_builder=getattr(strategy, case["builder"])(
+        **kw), resource_spec=spec, device=device)
+    frozen = case.get("frozen")
+    runner = ad.build(loss_fn, functools.partial(
+        torch.optim.Adam, lr=case["lr"], eps=case["eps"]), params,
+        case["batches"][0],
+        trainable_filter=(lambda n: not n.endswith(frozen))
+        if frozen else None)
+    runner.init(params)
+    dstep = runner.distributed_step
+    if case.get("expect_error"):
+        try:
+            runner.run(case["batches"][0])
+            err = None
+        except ValueError as e:
+            err = str(e)
+        adt.reset()
+        return {"error": err}
+    losses = [float(runner.run(b)["loss"]) for b in case["batches"]]
+    gathered = runner.gather_params()
+    flat = torch.cat([t.reshape(-1) for t in gathered.values()])
+    ref = flat.clone()
+    dist.broadcast(ref, src=0)
+    out = {"losses": losses, "params": _np(gathered),
+           "ranks_equal": bool(torch.equal(flat, ref)),
+           "mp_axes": {n: lay.mp_axes for n, lay in dstep.mp_layouts.items()},
+           "local_shapes": {n: tuple(t.shape)
+                            for n, t in runner.state.params.items()},
+           "opt_shapes": {n: tuple(t.shape) for n, t in
+                          runner.state.opt_state["mu"].items()},
+           "mesh": dict(dstep.mesh.axes), "coords": dict(dstep.mesh.coords),
+           "counters": tel.counters(),
+           "shard": _np(runner.remapper.remap_feed(case["batches"][0])),
+           "sparse_wire": sorted(dstep.sparse_wire)}
+    if case.get("save_dir"):
+        out["saved"] = ShardedSaver(case["save_dir"]).save(runner)
+    adt.reset()
+    return out
+
+
 JOBS = {"compressors": compressor_job, "train": train_job, "ckpt": ckpt_job,
         "ckpt_cross": ckpt_cross_job, "fused": fused_job, "async": async_job,
         "broadcast_bytes": broadcast_bytes_job, "tp": tp_job,
         "sentinel": sentinel_job, "schedule": schedule_job,
-        "sharded": sharded_job, "pp": pp_job}
+        "sharded": sharded_job, "pp": pp_job, "sp": sp_job, "ep": ep_job}
