@@ -8,7 +8,8 @@ projection), and ``fail_fast_model_axes`` with ``verify_elastic``
 (ADT430/431, whether a topology can shrink in-run: the build-time lint
 and the coordinator's shrink decision both read them), and
 ``verify_preemption`` (ADT432, a planned handoff armed on a topology that
-cannot shrink)."""
+cannot shrink), and ``verify_autoscale`` (ADT440/441, a serving
+autoscaler's bounds against the strategy it scales)."""
 from typing import Dict, List, Optional
 
 from autodist_tpu_torch import const
@@ -222,4 +223,81 @@ def verify_preemption(strategy) -> List[Diagnostic]:
             fixit="use a data-parallel strategy for live handoffs, or "
                   "accept the checkpoint-restart path and size "
                   "ADT_PREEMPT_DEADLINE_S to cover a full save"))
+    return out
+
+
+def verify_autoscale(policy, strategy=None,
+                     max_queue: Optional[int] = None) -> List[Diagnostic]:
+    """ADT44x — are a serving autoscaler's bounds sound for the strategy
+    it will scale (``serving/autoscale.py``)? Run at controller
+    construction, so an unsound clamp fails loudly at deploy time, not
+    at the 3 a.m. shrink that would have fallen back to a checkpoint.
+
+    - ``ADT440`` (error): the bounds arm a move the elasticity matrix
+      forbids. A fail-fast model-parallel family (ADT430) cannot change
+      replica count in-run at all, so any ``min_replicas <
+      max_replicas`` would eventually command an impossible resize; a
+      PS-backed family's floor is its distinct reduction-destination
+      host count — shrinking below it retires a PS owner, and ADT431
+      prices that as a checkpoint fallback, the exact thing the
+      planned-departure contract promises to avoid.
+    - ``ADT441`` (warning): thresholds that cannot fire or cannot
+      settle — a grow trigger at/above ``max_queue`` (the tier sheds
+      before the controller ever arms), or a zero sustain window with
+      zero cooldowns (every sample may scale; the hysteresis band is
+      the only flap guard left).
+    """
+    out: List[Diagnostic] = []
+    if strategy is not None:
+        model_axes = fail_fast_model_axes(strategy)
+        if model_axes and policy.min_replicas < policy.max_replicas:
+            out.append(error(
+                "ADT440",
+                "autoscale bounds [%d, %d] arm replica-count changes on "
+                "a strategy that partitions state over model-parallel "
+                "mesh axes %s — this family is fail-fast (ADT430): it "
+                "can neither shrink nor grow in-run, so the first scale "
+                "decision commands an impossible resize"
+                % (policy.min_replicas, policy.max_replicas,
+                   model_axes),
+                fixit="pin min_replicas == max_replicas for this "
+                      "family, or serve it from a data-parallel "
+                      "strategy"))
+        ps_hosts = set()
+        for node in strategy.node_config:
+            for leaf in (node.part_configs or [node]):
+                sync = leaf.synchronizer or node.synchronizer
+                dest = getattr(sync, "reduction_destination", "") or ""
+                if dest:
+                    ps_hosts.add(dest.split(":")[0])
+        if ps_hosts and policy.min_replicas < len(ps_hosts):
+            out.append(error(
+                "ADT440",
+                "min_replicas %d is below the PS-owner floor %d (distinct "
+                "reduction-destination hosts %s) — an idle shrink would "
+                "retire an owner and its authoritative host-resident "
+                "state with it, forcing the checkpoint fallback (ADT431) "
+                "the planned-departure path exists to avoid"
+                % (policy.min_replicas, len(ps_hosts),
+                   sorted(ps_hosts)),
+                fixit="raise min_replicas to the PS-owner host count, "
+                      "or concentrate reduction_destination on fewer "
+                      "hosts"))
+    if max_queue is not None and policy.queue_high >= max_queue:
+        out.append(warning(
+            "ADT441",
+            "queue_high %.0f >= max_queue %d — submits shed at the "
+            "queue bound before the grow trigger can ever arm, so the "
+            "controller only ever observes a post-shed queue"
+            % (policy.queue_high, max_queue),
+            fixit="set queue_high well below max_queue (e.g. half) so "
+                  "overload grows the fleet before it sheds clients"))
+    if (policy.sustain_s == 0 and policy.grow_cooldown_s == 0
+            and policy.shrink_cooldown_s == 0):
+        out.append(warning(
+            "ADT441",
+            "sustain_s and both cooldowns are 0 — every poll may scale, "
+            "leaving the hysteresis band as the only flap guard",
+            fixit="give the policy a sustain window (seconds) or "
+                  "non-zero per-direction cooldowns"))
     return out

@@ -104,7 +104,8 @@ def get_default_autodist():
 
 def reset():
     """Clear process-global state: the AutoDist registry (closing the
-    registered instance's runner), live decode engines, the telemetry
+    registered instance's runner), live decode engines and the serving
+    planes this rank leads (their followers' loops end), the telemetry
     recorder, the flight recorder's events and logs, the installed elastic
     membership (and its socket), and the preemption plane's signal notice
     and armed guards; the SIGTERM handler the plane and the flight
@@ -116,6 +117,15 @@ def reset():
     from autodist_tpu_torch.serving import decode as _decode
     for engine in _decode.active_decoders():
         engine.close()
+    from autodist_tpu_torch.serving import plane as _plane
+    for plane in _plane.active_planes():
+        if plane.chief:
+            try:
+                plane.stop()
+            except Exception as e:  # noqa: BLE001 — the group is gone
+                # (destroyed, or a follower died): nothing is left to stop
+                logging.warning("serving plane %s: stop failed (%s)",
+                                plane.name, e)
     from autodist_tpu_torch.telemetry import spans as _tspans
     _tspans.reset()
     from autodist_tpu_torch.telemetry import blackbox as _bb

@@ -122,7 +122,7 @@ from autodist_tpu_torch.ops import embedding
 from autodist_tpu_torch.parallel import collectives
 from autodist_tpu_torch.parallel import mesh as mesh_lib
 from autodist_tpu_torch.parallel import ps as ps_lib
-from autodist_tpu_torch.remapper import path_name
+from autodist_tpu_torch.remapper import CACHE_KEYS, path_name
 from autodist_tpu_torch.runtime import faultinject
 from autodist_tpu_torch.strategy.base import Strategy
 from autodist_tpu_torch.telemetry import spans as tel
@@ -148,6 +148,45 @@ def _classify(out, rows: int):
         out)
 
 
+def _status_agree(code: int, group, device) -> int:
+    """The largest of the ranks' dispatch status codes (0 ok, 1 a typed
+    shed, 2 another error) over ``group``: a rank whose local part failed
+    still takes part in this one reduction, and then no rank enters the
+    gathers, so none is left waiting in one."""
+    on = device if dist.get_backend(group) == "nccl" else "cpu"
+    flag = torch.tensor([code], dtype=torch.int32, device=on)
+    dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=group)
+    return int(flag.item())
+
+
+def _gather_rows(x: torch.Tensor, group, n: int) -> torch.Tensor:
+    """The ranks' ``[rows, ...]`` blocks of one leaf, concatenated in rank
+    order (the block order of ``P(batch_axes)``)."""
+    x = x.detach().contiguous()
+    wire = x.to(torch.uint8) if x.dtype == torch.bool else x
+    parts = [torch.empty_like(wire) for _ in range(n)]
+    dist.all_gather(parts, wire, group=group)
+    out = torch.cat(parts)
+    return out.to(torch.bool) if x.dtype == torch.bool else out
+
+
+def _reduce_replicated(x, group, n: int):
+    """A non-batch leaf reduced as the JAX lowering reduces it (eval
+    metrics' rule): the mean over the ranks for floating types, the max
+    otherwise."""
+    if not isinstance(x, torch.Tensor):
+        return x
+    flat = x.detach().reshape(-1).clone()
+    if flat.is_floating_point():
+        dist.all_reduce(flat, group=group)
+        flat = flat / n
+    else:
+        wire = flat.to(torch.uint8) if flat.dtype == torch.bool else flat
+        dist.all_reduce(wire, op=dist.ReduceOp.MAX, group=group)
+        flat = wire.to(flat.dtype)
+    return flat.reshape(x.shape)
+
+
 class ForwardProgram:
     """A forward-only fetch program plus its per-leaf batch classification
     (the JAX ``ForwardProgram``).
@@ -156,18 +195,76 @@ class ForwardProgram:
     per-example rows, False for anything else. Serving's padded-row
     masking and per-request fan-out consult it instead of comparing
     shapes at each call. JAX classifies from abstract shapes at lowering
-    time; the eager port classifies at the first call (``classify``)."""
+    time; the eager port classifies at the first call (``classify``), on
+    this rank's rows.
 
-    def __init__(self, fn: Callable, classify: Callable):
+    With ``world`` > 1 ranks a call is SPMD over ``group``: each rank runs
+    :meth:`local` on its rows, the ranks agree on their status, then
+    :meth:`collect` all-gathers the per-example leaves in rank order
+    (those under a top-level key in ``keep_local`` stay on their rank:
+    the decode caches) and reduces the others as the JAX lowering does
+    (``pmean`` for floating types, ``pmax`` otherwise)."""
+
+    def __init__(self, fn: Callable, classify: Callable, group=None,
+                 world: int = 1, device=None, keep_local=()):
         self.fn = fn
         self._classify = classify
         self._mask = None
+        self.group = group
+        self.world = int(world)
+        self.device = device
+        self.keep_local = frozenset(keep_local)
 
-    def __call__(self, state, ps_vals, batch):
+    def local(self, state, ps_vals, batch):
+        """This rank's outputs on its rows, nothing gathered."""
         out = self.fn(state, ps_vals, batch)
         if self._mask is None:
             self._mask = self._classify(state, ps_vals, batch, out)
         return out
+
+    def collect(self, out, error: Optional[BaseException] = None):
+        """The global fetch tree from this rank's :meth:`local` outputs (or
+        the ``error`` its local part raised). Every rank calls it for every
+        dispatch; if any rank failed, every rank raises (the typed shed
+        when the failure was one)."""
+        if self.world <= 1:
+            if error is not None:
+                raise error
+            return out
+        from autodist_tpu_torch.serving.engine import ServingUnavailable
+        code = 0 if error is None else (
+            1 if isinstance(error, ServingUnavailable) else 2)
+        worst = _status_agree(code, self.group, self.device)
+        if error is not None:
+            raise error
+        if worst == 1:
+            raise ServingUnavailable("a serving dispatch shed on another "
+                                     "rank (its PS snapshot window ran out)")
+        if worst:
+            raise RuntimeError("a serving dispatch failed on another rank")
+
+        def get(path, is_batch, leaf):
+            if not isinstance(leaf, torch.Tensor):
+                return leaf
+            if is_batch:
+                top = path_name(path[:1])
+                if top in self.keep_local:
+                    return leaf
+                return _gather_rows(leaf, self.group, self.world)
+            return _reduce_replicated(leaf, self.group, self.world)
+        with torch.inference_mode():
+            return pytree.tree_map_with_path(
+                lambda path, is_batch, leaf: get(path, is_batch, leaf),
+                self._mask, out)
+
+    def __call__(self, state, ps_vals, batch):
+        if self.world <= 1:
+            return self.local(state, ps_vals, batch)
+        try:
+            out, error = self.local(state, ps_vals, batch), None
+        except Exception as e:  # noqa: BLE001 — agreed in collect()
+            out, error = None, e
+        return self.collect(out, error)
 
     @property
     def batch_mask(self):
@@ -1053,14 +1150,15 @@ class DistributedStep:
         return _map_named(lambda k, w: got[k][rank].to(
             self.device, w.dtype, copy=True), fresh)
 
-    def _full_params(self, params) -> dict:
+    def _full_params(self, params, group=None) -> dict:
         """The params with each partitioned variable all-gathered whole
-        (its storage holds this rank's shard)."""
+        (its storage holds this rank's shard), over ``group`` (the
+        default group when None)."""
         if not self.layouts:
             return params
         full = dict(params)
         for n, lay in self.layouts.items():
-            full[n] = lay.gather_full(params[n], None, self.num_replicas)
+            full[n] = lay.gather_full(params[n], group, self.num_replicas)
         return full
 
     def _loss(self, params, batch, grad: bool = False):
@@ -1847,16 +1945,37 @@ class DistributedStep:
             del self._ps_pipe_obj
         self._flush_ps_carry()
 
-    def _one_replica(self, what: str):
-        if self.num_replicas > 1:
+    def _serving_refusals(self, what: str):
+        """A serving program over a model, pipe, seq or expert axis of size
+        > 1 raises, naming the ROADMAP item that ports it: each rank then
+        holds a slice of the model, which the data-parallel serving split
+        does not gather."""
+        if self.mesh is None or self.num_replicas <= 1:
+            return
+        axes = {a: n for a, n in self.mesh.axes.items()
+                if a != const.DATA_AXIS and n > 1}
+        if axes:
             raise NotImplementedError(
-                "%s with %d replicas: the port serves on one replica so far "
-                "(ROADMAP A item 10)" % (what, self.num_replicas))
+                "%s under the mesh axes %s with %d replicas is not ported "
+                "yet (ROADMAP A item 16)" % (what, axes, self.num_replicas))
 
-    def _run(self, fn, state, ps_vals, payload):
+    def local_slots(self, slots: int) -> int:
+        """This rank's share of a decode engine's ``slots`` (the slot dim
+        shards over the batch axes, rank r holding slots ``[r*S/N,
+        (r+1)*S/N)``); the JAX lowering's ``ValueError`` when ``slots``
+        does not divide."""
+        n = self.replica_info.num_replicas
+        if slots % n:
+            raise ValueError(
+                "decode slot count %d is not divisible by the batch-axes "
+                "mesh extent %d — pick slots as a multiple of the "
+                "data-parallel degree" % (slots, n))
+        return slots // n
+
+    def _run(self, fn, state, ps_vals, payload, group=None):
         with torch.inference_mode(), tel.span("dstep.dispatch", "dstep",
                                               fused=False):
-            params = state.params
+            params = self._full_params(state.params, group)
             if ps_vals:
                 params = dict(params)
                 params.update(self._ps_dewire(ps_vals))
@@ -1866,59 +1985,89 @@ class DistributedStep:
 
     def predict_program(self, serve_fn: Callable,
                         donate_batch: bool = True,
-                        example_batch=None) -> ForwardProgram:
+                        example_batch=None, group=None,
+                        keep_local=()) -> ForwardProgram:
         """The forward-only FETCH program behind the serving engine:
         ``serve_fn(full_params, batch)`` with no grads, the host-PS
         variables from ``ps_vals`` (a :meth:`pull_ps` snapshot). Returns
         ``fn(state, ps_vals, batch) -> outputs`` with outputs left on the
         device.
 
+        With N replicas the call is SPMD: ``batch`` is this rank's rows
+        (the remapper's split of the global batch), each rank runs them
+        on the full params (partitioned variables all-gathered) plus the
+        PS values, and the per-example outputs come back as the global
+        batch on every rank; the others reduce like eval metrics. Its
+        collectives run on ``group`` (the default group when None; a
+        serving engine passes its plane's), and ``keep_local`` names
+        top-level fetch keys whose per-example leaves stay on their rank.
+
         ``example_batch`` fixes the feed structure and classifies the
-        outputs: an output leaf whose leading dim equals the example's
-        row count is per-example, judged on the example's own outputs
-        (the JAX lowering judges the same rule on abstract shapes; a
-        large example makes the leading dim distinctive). ``donate_batch``
-        is accepted for signature parity: eager programs free a request's
-        buffers when the caller drops them."""
+        outputs: an output leaf whose leading dim equals this rank's row
+        count of the example is per-example, judged on the example's own
+        outputs (the JAX lowering judges the same rule on abstract local
+        shapes; a large example makes the leading dim distinctive).
+        ``donate_batch`` is accepted for signature parity: eager programs
+        free a request's buffers when the caller drops them."""
         del donate_batch
-        self._one_replica("predict_program")
+        self._serving_refusals("predict_program")
         if example_batch is None:
             example_batch = self.model_item.example_batch
         _, spec = pytree.tree_flatten(example_batch)
-        key = (serve_fn, str(spec))
+        key = (serve_fn, str(spec), id(group), tuple(sorted(keep_local)))
         if key not in self._predict_progs:
-            rows = _leading_rows(example_batch)
+            from autodist_tpu_torch.remapper import Remapper
+            remapper = Remapper(self.device, self.replica_info)
+            rows = _leading_rows(remapper.shard_host(example_batch))
 
             def run(state, ps_vals, batch):
-                return self._run(serve_fn, state, ps_vals, batch)
+                return self._run(serve_fn, state, ps_vals, batch, group)
 
             def classify(state, ps_vals, batch, out):
                 if _leading_rows(batch) != rows:
-                    from autodist_tpu_torch.remapper import Remapper
                     out = run(state, ps_vals,
-                              Remapper(self.device).remap_feed(example_batch))
+                              remapper.remap_feed(example_batch))
                 return _classify(out, rows)
-            self._predict_progs[key] = ForwardProgram(run, classify)
+            self._predict_progs[key] = ForwardProgram(
+                run, classify, group=group, world=self.num_replicas,
+                device=self.device, keep_local=keep_local)
         return self._predict_progs[key]
 
-    def decode_program(self, decode_fn: Callable,
-                       example_dstate) -> ForwardProgram:
+    def decode_program(self, decode_fn: Callable, example_dstate,
+                       slots: Optional[int] = None,
+                       group=None) -> ForwardProgram:
         """The decode-STEP program behind continuous batching:
         ``decode_fn(full_params, dstate)`` where ``dstate`` carries the
         slot-major KV caches and per-slot token/cursor/alive. The caches
         are updated IN PLACE (the JAX program donates them and returns
         new buffers; eager PyTorch writes the new rows into the same
         storage, so steady-state decode holds one cache allocation).
-        Output leaves whose leading dim is the slot count are per-slot."""
-        self._one_replica("decode_program")
+        Output leaves whose leading dim is this rank's slot count are
+        per-slot.
+
+        ``example_dstate`` is this rank's state: ``slots`` (the engine's
+        whole slot count; the example's with one replica) shards over the
+        batch axes, rank r holding slots ``[r*S/N, (r+1)*S/N)``, and an
+        indivisible count raises the JAX ``ValueError``. With N replicas
+        the per-slot outputs come back whole on every rank (all-gathered
+        over ``group`` in rank order) but the caches (the remapper's
+        ``CACHE_KEYS``), which stay on their rank; the rest reduces like
+        eval metrics."""
+        self._serving_refusals("decode_program")
+        local = _leading_rows(example_dstate)
+        if slots is not None and self.local_slots(int(slots)) != local:
+            raise ValueError(
+                "decode state holds %d slots; this rank's share of %d "
+                "slots is %d" % (local, slots, self.local_slots(slots)))
         _, spec = pytree.tree_flatten(example_dstate)
-        key = (decode_fn, str(spec))
+        key = (decode_fn, str(spec), id(group))
         if key not in self._decode_progs:
-            slots = _leading_rows(example_dstate)
             self._decode_progs[key] = ForwardProgram(
                 lambda state, ps_vals, dstate: self._run(
-                    decode_fn, state, ps_vals, dstate),
-                lambda state, ps_vals, dstate, out: _classify(out, slots))
+                    decode_fn, state, ps_vals, dstate, group),
+                lambda state, ps_vals, dstate, out: _classify(out, local),
+                group=group, world=self.num_replicas, device=self.device,
+                keep_local=CACHE_KEYS)
         return self._decode_progs[key]
 
 

@@ -12,7 +12,10 @@ process (``kernel/replicator.py::ReplicaInfo``):
   two or more); an indivisible dim raises the JAX package's
   ``ValueError``; scalars are replicated. numpy leaves (and Python
   scalars) become tensors on the runner's device; tensors are moved
-  there when they live elsewhere. With one replica nothing is split. A stacked ``[k, ...]``
+  there when they live elsewhere. With one replica nothing is split. A
+  decode state is slot-major (:meth:`Remapper.remap_dstate`): its per-slot
+  leaves split their slot dim alone, and its caches, which each rank
+  already holds for its own slots only, are never split. A stacked ``[k, ...]``
   feed of the fused superstep splits from dim 1 (:meth:`Remapper.
   remap_feed_stack`), and a rank may feed its own shard
   (:meth:`Remapper.remap_feed_local`). Tensors this remapper placed
@@ -31,6 +34,10 @@ import torch
 from torch.utils import _pytree as pytree
 
 from autodist_tpu_torch.kernel.replicator import ReplicaInfo
+
+# the decode state's top-level leaves each rank holds for its own slots
+# only: the KV caches of ``serving/decode.py``'s ``DecodeSetup`` contract
+CACHE_KEYS = ("k", "v")
 
 
 def path_name(path) -> str:
@@ -149,6 +156,27 @@ class Remapper:
         is marked placed, so ``run``/``remap_feed`` pass it through. With
         one replica, the same as :meth:`remap_feed`."""
         return self._place(local_batch, "step", split=False)
+
+    def remap_dstate(self, dstate) -> Any:
+        """Place a continuous-batching decode state: the per-slot leaves
+        (``token``, ``cursor``, ``alive``: the engine's whole ``[slots]``
+        arrays) give this rank its rows ``[r*S/N, (r+1)*S/N)`` of the slot
+        dim — never a sequence chunk, whatever the plan's sequence axis —
+        and the :data:`CACHE_KEYS` leaves, the KV caches each rank
+        holds for its own slots only, pass through as they are (the JAX
+        lowering shards every slot-major leaf over the batch axes; here
+        the caches are born sharded)."""
+        def place(path, leaf):
+            if path_name(path[:1]) in CACHE_KEYS:
+                return leaf
+            if self.num_replicas > 1 and np.ndim(leaf) >= 1:
+                leaf = leaf[self.replica_info.local_rows(np.shape(leaf)[0])]
+            if isinstance(leaf, np.ndarray):
+                return torch.as_tensor(leaf, device=self.device)
+            if isinstance(leaf, torch.Tensor):
+                return leaf.to(self.device)
+            return leaf
+        return pytree.tree_map_with_path(place, dstate)
 
     def remap_fetch(self, fetched) -> Any:
         """Bring step outputs to the host as numpy arrays."""

@@ -69,9 +69,9 @@ collective another will not enter. With more than one process:
 
 A single process (whatever its roster) keeps the JAX
 package's timing: the plan names its current step and the reconfigure
-runs whenever the epoch lands. The JAX module also drains its serving
-micro-batchers (``serving/batcher.py``), which the port does not have
-yet (ROADMAP A item 10); :func:`drain_serving` drains the decode engines.
+runs whenever the epoch lands. :func:`drain_serving` drains the serving
+micro-batchers, then the decode engines, as the JAX module does; at N > 1
+a chief's drain also ends its followers' serving loops.
 
 Protocol keys (all on the native coordination service):
 
@@ -977,17 +977,34 @@ class PreemptionGuard:
 
 
 def drain_serving(retry_after_s: Optional[float] = None) -> int:
-    """Drain every live decode engine of this process: the sequences in
-    flight complete, queued requests shed with the typed Retry-After.
-    Returns the number of shed requests."""
+    """Drain every live serving micro-batcher AND decode engine in this
+    process: in-flight groups/sequences complete, queued requests shed
+    with the typed Retry-After. Returns the number of shed requests. At
+    N > 1 the chief's drain then stops every serving plane it leads, so
+    its followers' loops end with it."""
+    from autodist_tpu_torch.serving import batcher as batcher_lib
     from autodist_tpu_torch.serving import decode as decode_lib
+    from autodist_tpu_torch.serving import plane as plane_lib
     shed = 0
+    for mb in batcher_lib.active_batchers():
+        try:
+            shed += mb.drain(retry_after_s=retry_after_s)
+        except Exception as e:  # noqa: BLE001 — one wedged batcher must
+            # not block the departure of the whole process
+            logging.warning("preemption: serving drain failed (%s)", e)
     for de in decode_lib.active_decoders():
         try:
             shed += de.drain(retry_after_s=retry_after_s)
-        except Exception as e:  # noqa: BLE001 — a wedged engine must not
-            # block the departure of the whole process
+        except Exception as e:  # noqa: BLE001 — same contract for the
+            # decode tier: a wedged engine must not block departure
             logging.warning("preemption: decode drain failed (%s)", e)
+    for plane in plane_lib.active_planes():
+        if plane.chief:
+            try:
+                plane.stop()
+            except Exception as e:  # noqa: BLE001 — as above
+                logging.warning("preemption: serving plane stop failed "
+                                "(%s)", e)
     return shed
 
 

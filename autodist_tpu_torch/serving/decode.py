@@ -23,6 +23,17 @@ Shutdown is drain-aware: :meth:`drain` stops admitting, sheds the queue
 typed with a Retry-After computed from the measured completion rate, and
 lets in-flight sequences run to completion.
 
+At N > 1 ranks the slot dim shards over the batch replicas: rank r holds
+the caches of slots ``[r*S/N, (r+1)*S/N)`` and no other. The chief (rank
+0) owns the queue and the :class:`SlotScheduler`, and drives every rank
+through the engine's serving plane (``serving/plane.py``): an admission
+header carries the prompts in rank blocks, each rank's block holding the
+prompts bound to its own slots, so each rank prefills and inserts only
+its own rows and the caches never cross ranks; a step header carries the
+per-slot token/cursor/alive arrays; every rank runs its slots and the
+next tokens come back whole. A follower's loop runs the headers from the
+engine's construction until the chief's drain or close.
+
 Telemetry: ``serve.token_ms`` histogram (per-step wall time — the
 per-token latency each live slot observed), ``serve.tokens`` /
 ``serve.prefill_admits`` / ``serve.evictions`` counters, and the
@@ -40,8 +51,10 @@ import numpy as np
 import torch
 
 from autodist_tpu_torch import const
+from autodist_tpu_torch.remapper import CACHE_KEYS
 from autodist_tpu_torch.serving.engine import (InferenceEngine, ServingConfig,
-                                         ServingUnavailable)
+                                               ServingUnavailable)
+from autodist_tpu_torch.serving.plane import ServingPlane
 from autodist_tpu_torch.telemetry import spans as tel
 from autodist_tpu_torch.utils import logging
 
@@ -94,8 +107,10 @@ class DecodeConfig:
     "continuous" (admit into any freed slot between steps) or "static"
     (admit only when ALL slots are free — the baseline bench compares
     against). ``max_queue``: backpressure bound on queued prompts.
-    ``hbm_budget_bytes``: arms the ADT442 cache-vs-device-memory
-    projection lint at construction (None skips it)."""
+    ``snapshot_max_age_s``: the prefill engine's host-PS snapshot refresh
+    period (:class:`ServingConfig`'s). ``hbm_budget_bytes``: arms the
+    ADT442 cache-vs-device-memory projection lint at construction (None
+    skips it)."""
 
     slots: int = 8
     max_new_tokens: int = 32
@@ -104,6 +119,7 @@ class DecodeConfig:
     eos_id: Optional[int] = None
     admission: str = "continuous"
     max_queue: int = 1024
+    snapshot_max_age_s: float = 0.1
     hbm_budget_bytes: Optional[float] = None
 
     def __post_init__(self):
@@ -209,6 +225,12 @@ class DecodeEngine:
                 "prefill_len %d exceeds the model's max_len %d"
                 % (cfg.prefill_len, setup.max_len))
         self.scheduler = SlotScheduler(cfg.slots, cfg.admission)
+        dstep = self._dstep
+        self.world, self.rank = dstep.num_replicas, dstep.rank
+        # this rank's slots (the JAX ValueError when they do not divide)
+        self._per = dstep.local_slots(cfg.slots)
+        self._plane = (ServingPlane(self.rank, self.world, "decode")
+                       if self.world > 1 else None)
 
         # prefill rides the bucketed forward path
         replicas = runner.remapper.num_replicas
@@ -221,20 +243,24 @@ class DecodeEngine:
                        "length": np.zeros((), np.int32)}
         self._prefill = InferenceEngine(
             runner, setup.prefill_fn, example_req,
-            ServingConfig(buckets=buckets))
+            ServingConfig(buckets=buckets,
+                          snapshot_max_age_s=cfg.snapshot_max_age_s),
+            plane=self._plane, keep_local=CACHE_KEYS)
 
         # the ONE decode-step program (fixed shapes, caches updated in
-        # place) and its device-resident state: the two cache halves live
-        # on the device for the engine's life; the per-slot arrays are
-        # host-managed and placed per dispatch
-        example_dstate = setup.init_dstate(cfg.slots, device=runner.device)
-        self._decode_prog = self._dstep.decode_program(
-            setup.decode_fn, example_dstate)
+        # place) and its device-resident state: the two cache halves of
+        # this rank's slots live on the device for the engine's life; the
+        # per-slot arrays (all slots) are host-managed and placed per
+        # dispatch
+        example_dstate = setup.init_dstate(self._per, device=runner.device)
+        self._decode_prog = dstep.decode_program(
+            setup.decode_fn, example_dstate, slots=cfg.slots,
+            group=self._plane.group if self._plane is not None else None)
         self._dev_k = example_dstate["k"]
         self._dev_v = example_dstate["v"]
-        self._token = example_dstate["token"].cpu().numpy()
-        self._cursor = example_dstate["cursor"].cpu().numpy()
-        self._alive = example_dstate["alive"].cpu().numpy()
+        self._token, self._cursor, self._alive = (
+            np.zeros(cfg.slots, example_dstate[k].cpu().numpy().dtype)
+            for k in ("token", "cursor", "alive"))
 
         self._cv = threading.Condition()
         self._pending: "collections.deque" = collections.deque()
@@ -250,11 +276,24 @@ class DecodeEngine:
         self._peak_occupancy = 0.0
         self._warmed = False
         self._lint_hbm()
-        self._worker = threading.Thread(target=self._run,
-                                        name="adt-serve-decode",
-                                        daemon=True)
-        self._worker.start()
+        if self._plane is not None and not self._plane.chief:
+            # a follower's worker is the plane's loop: the chief's headers
+            self._plane.on("admit", self._prefill_rows)
+            self._plane.on("step", self._step_rows)
+            self._plane.start_follower()
+            self._worker = None
+        else:
+            self._worker = threading.Thread(target=self._run,
+                                            name="adt-serve-decode",
+                                            daemon=True)
+            self._worker.start()
         _ACTIVE.add(self)
+
+    @property
+    def chief(self) -> bool:
+        """Whether this rank owns the queue and the scheduler (always, at
+        one replica)."""
+        return self._plane is None or self._plane.chief
 
     # ----------------------------------------------------------- lint
 
@@ -265,7 +304,9 @@ class DecodeEngine:
         if self.config.hbm_budget_bytes is None:
             return
         from autodist_tpu_torch.analysis import rules
-        cache_bytes = 2 * self._dev_k.numel() * self._dev_k.element_size()
+        # the global allocation: each of the N ranks holds its slots' share
+        cache_bytes = (2 * self._dev_k.numel() * self._dev_k.element_size()
+                       * self.world)
         param_bytes = float(self._dstep.model_item.total_bytes())
         for d in rules.verify_decode(
                 cache_bytes, param_bytes=param_bytes,
@@ -280,11 +321,14 @@ class DecodeEngine:
         """Run every prefill bucket once and one decode step on the empty
         all-dead state (no cache row changes), so first-use costs — the
         kernel build, allocator growth — land here and not on the first
-        request."""
+        request. On a follower, nothing: the chief's warmup runs there
+        through the loop."""
+        if not self.chief:
+            return self
         self._prefill.warmup()
         with self._cv:
             with tel.span("serve.decode_warmup", "serve"):
-                self._dispatch_step()
+                self._dispatch_step(warmup=True)
             # warmup's fake step must not leak into the accounting the
             # smoke legs assert on
             self.stats_local["steps"] = 0
@@ -307,7 +351,13 @@ class DecodeEngine:
         with :class:`ServingUnavailable` (Retry-After from the measured
         completion rate) when the queue is full or the engine is
         draining. Prompts longer than ``prefill_len`` are rejected —
-        the prefill program's shape is fixed."""
+        the prefill program's shape is fixed. At N > 1 only the chief
+        accepts prompts."""
+        if not self.chief:
+            raise ValueError(
+                "submit on a follower (rank %d): at N > 1 the chief (rank 0) "
+                "takes the prompts and each follower's loop runs its slots"
+                % self.rank)
         req = _Request(prompt, max_new_tokens or self.config.max_new_tokens)
         n = req.prompt.shape[0]
         if not 1 <= n <= self.config.prefill_len:
@@ -360,6 +410,15 @@ class DecodeEngine:
     # ---------------------------------------------------------- worker
 
     def _run(self):
+        try:
+            self._loop()
+        finally:
+            # the chief's loop is over (drain or close): so are its
+            # followers'
+            if self._plane is not None:
+                self._plane.stop()
+
+    def _loop(self):
         while True:
             with self._cv:
                 while (not self._pending and not self.scheduler.live_slots()
@@ -368,12 +427,12 @@ class DecodeEngine:
                 if (self._closing and not self._pending
                         and not self.scheduler.live_slots()):
                     break
-                n_adm = self.scheduler.admissible(len(self._pending))
-                n_adm = min(n_adm, self._prefill.max_batch)
-                group = [self._pending.popleft() for _ in range(n_adm)]
+                dst = self._pick_slots(
+                    self.scheduler.admissible(len(self._pending)))
+                group = [self._pending.popleft() for _ in dst]
             try:
                 if group:
-                    self._admit(group)
+                    self._admit(group, dst)
                 if self.scheduler.live_slots():
                     self._step()
             except ServingUnavailable as e:
@@ -398,50 +457,104 @@ class DecodeEngine:
 
     # -------------------------------------------------------- admission
 
-    def _admit(self, group):
+    def _pick_slots(self, n: int) -> list:
+        """The free slots the next ``n`` admissions go to: in order of the
+        local slot index, then the rank (rank r holds slots ``[r*S/N,
+        (r+1)*S/N)``), so that the ranks prefill about as many rows each,
+        and at most the largest prefill bucket's share a rank (at one
+        replica: the lowest free slots, at most a bucket of them)."""
+        per = self._per
+        cap = max(self._prefill.max_batch // self.world, 1)
+        taken = [0] * self.world
+        out = []
+        for s in sorted(self.scheduler.free_slots(),
+                        key=lambda s: (s % per, s // per)):
+            if len(out) == n:
+                break
+            if taken[s // per] < cap:
+                taken[s // per] += 1
+                out.append(s)
+        return out
+
+    def _admit(self, group, dst):
         """Prefill a request group through the bucketed forward path and
-        copy the caches into freed slots (in-flight batching: live slots
-        keep decoding across this boundary untouched)."""
-        cfg = self.config
-        feeds = []
-        for r in group:
-            toks = np.zeros(cfg.prefill_len, np.int32)
-            toks[:r.prompt.shape[0]] = r.prompt
-            feeds.append({"tokens": toks,
-                          "length": np.asarray(r.prompt.shape[0], np.int32)})
+        copy the caches into the freed slots ``dst`` (in-flight batching:
+        live slots keep decoding across this boundary untouched). The
+        prefill feed is laid out in rank blocks: rank r's block holds the
+        prompts bound to its slots, padded by repeating its last (the
+        first prompt when it has none), so each rank prefills exactly the
+        rows it keeps."""
+        cfg, per, world = self.config, self._per, self.world
+        mine = [[j for j, s in enumerate(dst) if s // per == r]
+                for r in range(world)]
+        block = self._prefill.bucket_for(
+            max(len(m) for m in mine) * world) // world
+        tokens = np.zeros((block * world, cfg.prefill_len), np.int32)
+        length = np.zeros(block * world, np.int32)
+        slot = np.full(block * world, -1, np.int64)
+        row_of = {}
+        for r, js in enumerate(mine):
+            for i in range(block):
+                j = js[min(i, len(js) - 1)] if js else 0
+                row = r * block + i
+                prompt = group[j].prompt
+                tokens[row, :prompt.shape[0]] = prompt
+                length[row] = prompt.shape[0]
+                if i < len(js):
+                    slot[row] = dst[j]
+                    row_of[j] = row
+        payload = {"tokens": tokens, "length": length, "slot": slot,
+                   "n": len(group), "refresh": self._prefill._refresh_due()}
         with tel.span("serve.prefill", "serve", n=len(group)):
-            fetched, n = self._prefill.run_batch(feeds, to_host=False)
-        first_tokens = fetched["next_token"].cpu().numpy()
-        free = self.scheduler.free_slots()
-        src, dst = [], []
-        for j, r in enumerate(group):
-            first = int(first_tokens[j])
-            plen = r.prompt.shape[0]
-            slot = _Slot(r, first)
-            # a request satisfied by its prefill alone (cap of 1, or EOS
-            # first token) never occupies a slot
-            done = self._finished(slot, plen)
-            if done:
-                self._resolve(slot, plen, done)
+            if self._plane is None:
+                first_tokens = self._prefill_rows(payload)
             else:
-                s = free[len(dst)]
-                src.append(j)
-                dst.append(s)
-                self.scheduler.occupy(s, slot)
+                first_tokens = self._plane.dispatch("admit", payload,
+                                                    self._prefill_rows)
+        for j, r in enumerate(group):
+            first = int(first_tokens[row_of[j]])
+            plen = r.prompt.shape[0]
+            sl = _Slot(r, first)
+            # a request satisfied by its prefill alone (cap of 1, or EOS
+            # first token) never occupies a slot (its rows were written
+            # there; a dead slot's rows are never read)
+            done = self._finished(sl, plen)
+            if done:
+                self._resolve(sl, plen, done)
+            else:
+                s = dst[j]
+                self.scheduler.occupy(s, sl)
                 self._token[s] = first
                 self._cursor[s] = plen
                 self._alive[s] = True
-        if dst:
-            self._dispatch_insert(dst, src, fetched["k"], fetched["v"])
         self.stats_local["prefill_admits"] += len(group)
         tel.counter_add("serve.prefill_admits", len(group))
         # every prefill emits each request's first token
         self.stats_local["tokens"] += len(group)
         tel.counter_add("serve.tokens", len(group))
 
+    def _prefill_rows(self, payload):
+        """Every rank's part of an admission: its block of the prefill feed
+        through the prefill program (the first tokens of the whole feed
+        come back; the caches stay here), then its rows copied into its
+        slots. Returns the first tokens on the host."""
+        block = payload["tokens"].shape[0] // self.world
+        fetched = self._prefill._dispatch(
+            {"tokens": payload["tokens"], "length": payload["length"]},
+            payload["refresh"], payload["n"], block * self.world,
+            to_host=False)
+        lo, base = self.rank * block, self.rank * self._per
+        rows = [(i, int(s) - base) for i, s in
+                enumerate(payload["slot"][lo:lo + block]) if s >= 0]
+        if rows:
+            self._dispatch_insert([d for _, d in rows], [i for i, _ in rows],
+                                  fetched["k"], fetched["v"])
+        return fetched["next_token"].cpu().numpy()
+
     def _dispatch_insert(self, dst, src, pk, pv):
-        """Copy prefilled cache rows ``src`` of ``pk``/``pv`` into slots
-        ``dst`` of the live caches, in place."""
+        """Copy prefilled cache rows ``src`` of ``pk``/``pv`` into this
+        rank's slots ``dst`` (local indexes) of the live caches, in
+        place."""
         dev = self._dev_k.device
         dst_t = torch.as_tensor(dst, dtype=torch.long, device=dev)
         src_t = torch.as_tensor(src, dtype=torch.long, device=dev)
@@ -484,22 +597,40 @@ class DecodeEngine:
 
     # ------------------------------------------------------------ step
 
-    def _dispatch_step(self) -> np.ndarray:
+    def _dispatch_step(self, warmup: bool = False) -> np.ndarray:
         """One decode-step dispatch on the current state; returns the
         [slots] next-token vector (the step's ONLY readback — one int32
-        per slot)."""
-        state = self._runner.state
-        if state is None:
-            raise RuntimeError("DecodeEngine over an uninitialized Runner "
-                               "— call runner.init() first")
-        ps_vals = self._prefill._snapshot()
-        dstate = self._runner.remapper.remap_feed(
-            {"k": self._dev_k, "v": self._dev_v,
-             "token": self._token.copy(),
-             "cursor": self._cursor.copy(),
-             "alive": self._alive.copy()})
-        out = self._decode_prog(state, ps_vals, dstate)
+        per slot). A ``warmup`` step counts on no rank."""
+        payload = {"token": self._token.copy(), "cursor": self._cursor.copy(),
+                   "alive": self._alive.copy(), "warmup": warmup,
+                   "refresh": self._prefill._refresh_due()}
+        if self._plane is None:
+            return self._step_rows(payload)
+        return self._plane.dispatch("step", payload, self._step_rows)
+
+    def _step_rows(self, payload):
+        """Every rank's part of a decode step: its slots through the step
+        program, the caches updated in place; the next tokens of every
+        slot on the host (on the chief; None on a follower)."""
+        try:
+            state = self._runner.state
+            if state is None:
+                raise RuntimeError("DecodeEngine over an uninitialized "
+                                   "Runner — call runner.init() first")
+            ps_vals = self._prefill._snapshot(payload["refresh"])
+            dstate = self._runner.remapper.remap_dstate(
+                {"k": self._dev_k, "v": self._dev_v,
+                 "token": payload["token"], "cursor": payload["cursor"],
+                 "alive": payload["alive"]})
+            out, error = self._decode_prog.local(state, ps_vals,
+                                                 dstate), None
+        except Exception as e:  # noqa: BLE001 — agreed in collect()
+            out, error = None, e
+        out = self._decode_prog.collect(out, error)
         self._dev_k, self._dev_v = out["k"], out["v"]
+        if not self.chief:
+            self.stats_local["steps"] += not payload["warmup"]
+            return None
         return out["next_token"].cpu().numpy()
 
     def _step(self):
@@ -572,7 +703,13 @@ class DecodeEngine:
         shed typed), shed everything still QUEUED with the Retry-After,
         and let the IN-FLIGHT sequences decode to completion — their
         futures resolve normally. Returns the shed count. Idempotent; a
-        drained engine is closed."""
+        drained engine is closed. At N > 1 the chief's drain ends its
+        followers' loops once the in-flight sequences are done; a
+        follower's holds no queue (0)."""
+        if not self.chief:
+            with self._cv:
+                self._closing = True
+            return 0
         retry = (const.ENV.ADT_DRAIN_RETRY_AFTER_S.val
                  if retry_after_s is None else float(retry_after_s))
         with self._cv:
@@ -607,9 +744,21 @@ class DecodeEngine:
 
     def close(self, timeout: float = 30.0):
         """Drain (in-flight sequences complete, queue sheds typed) and
-        join the worker. Idempotent."""
+        join the worker. Idempotent. On a follower: wait up to ``timeout``
+        for the chief's drain or close to end the loop."""
         self.drain(timeout=timeout)
-        self._worker.join(timeout=timeout)
+        if self._worker is not None:
+            self._worker.join(timeout=timeout)
+        else:
+            self._plane.stop(timeout)
+
+    def follow(self, timeout: Optional[float] = None) -> bool:
+        """On a follower: wait until the chief's drain or close ends this
+        engine's loop (True) or ``timeout`` passes (False). Elsewhere:
+        True."""
+        if self.chief:
+            return True
+        return self._plane.follow(timeout)
 
     def __enter__(self):
         return self

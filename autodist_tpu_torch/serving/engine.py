@@ -17,9 +17,19 @@ to ``degraded_batches`` consecutive batches, then sheds with
 refresh at the next batch).
 
 Requests are SINGLE EXAMPLES: pytrees shaped like one row of the feed (no
-leading batch dim). ``stack_batches(..., pad_to=bucket)`` stacks a group
-into the bucket's ``[bucket, ...]`` feed; rows past the real request
-count repeat the last example and are masked out of the fetches.
+leading batch dim), as host (numpy) leaves. ``stack_batches(...,
+pad_to=bucket)`` stacks a group into the bucket's ``[bucket, ...]`` feed;
+rows past the real request count repeat the last example and are masked
+out of the fetches.
+
+At N > 1 ranks the engine is one controller and N - 1 executors
+(``serving/plane.py``): every rank builds it, in the same order as its
+other engines; the chief (rank 0) dispatches — :meth:`run_batch`
+broadcasts the padded bucket and its snapshot-refresh decision, then each
+rank runs its ``bucket / N`` rows and the per-example outputs come back
+whole — while each follower's loop runs the chief's headers from the
+engine's construction until the chief's :meth:`close`. A follower's
+:meth:`follow` waits for that.
 """
 import dataclasses
 import threading
@@ -31,6 +41,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from autodist_tpu_torch import const
+from autodist_tpu_torch.serving.plane import ServingPlane
 from autodist_tpu_torch.telemetry import spans as tel
 from autodist_tpu_torch.utils import logging
 
@@ -47,17 +58,46 @@ class ServingUnavailable(RuntimeError):
 
 @dataclasses.dataclass
 class ServingConfig:
-    """Engine knobs. ``buckets``: padded batch sizes (None = {1, 8, 32,
-    128}). ``snapshot_max_age_s``: the host-PS snapshot's refresh
-    period. ``degraded_batches``: consecutive batches that may serve the
-    last good snapshot while refreshes fail (None = max(strategy
-    staleness, ``ADT_PS_MAX_LAG``, 1)). The JAX config's micro-batcher
-    and brownout knobs arrive with ``serving/batcher.py`` (ROADMAP A item
-    10)."""
+    """Engine and micro-batcher knobs (the JAX ``ServingConfig``).
+
+    ``buckets``: padded batch sizes, each a multiple of the batch replica
+    count (None = {1, 8, 32, 128} rounded up to multiples).
+    ``max_delay_ms``: the batching deadline — how long the first request
+    of a group may wait for company. ``max_queue``: backpressure bound;
+    submits past it shed. ``snapshot_max_age_s``: the host-PS snapshot's
+    refresh period. ``degraded_batches``: consecutive batches that may
+    serve the last good snapshot while refreshes fail (None = max(strategy
+    staleness, ``ADT_PS_MAX_LAG``, 1)).
+
+    Brownout: when the queue sits above ``brownout_queue_frac *
+    max_queue`` for ``brownout_sustain_s``, the micro-batcher widens the
+    group deadline by ``brownout_delay_factor`` so that dispatches run at
+    full buckets; ``brownout_delay_factor=1.0`` disables it."""
 
     buckets: Optional[Sequence[int]] = None
+    max_delay_ms: float = 2.0
+    max_queue: int = 1024
     snapshot_max_age_s: float = 0.1
     degraded_batches: Optional[int] = None
+    brownout_queue_frac: float = 0.75
+    brownout_sustain_s: float = 1.0
+    brownout_delay_factor: float = 4.0
+
+    def __post_init__(self):
+        if self.max_delay_ms < 0:
+            raise ValueError("max_delay_ms must be >= 0")
+        if self.max_queue < 1:
+            raise ValueError("max_queue must be >= 1")
+        if (self.degraded_batches is not None
+                and self.degraded_batches < 0):
+            raise ValueError("degraded_batches must be >= 0")
+        if not 0.0 < self.brownout_queue_frac <= 1.0:
+            raise ValueError("brownout_queue_frac must be in (0, 1]")
+        if self.brownout_sustain_s < 0:
+            raise ValueError("brownout_sustain_s must be >= 0")
+        if self.brownout_delay_factor < 1.0:
+            raise ValueError("brownout_delay_factor must be >= 1.0 "
+                             "(1.0 disables brownout)")
 
 
 DEFAULT_BUCKETS = (1, 8, 32, 128)
@@ -91,10 +131,13 @@ class InferenceEngine:
     """Bucketed forward-only inference over a built (initialized) Runner.
 
     ``serve_fn(full_params, batch) -> fetches`` defines the fetch set;
-    ``example_request`` is ONE example fixing the feed structure."""
+    ``example_request`` is ONE example fixing the feed structure. ``plane``
+    and ``keep_local`` serve the decode engine's prefill: it runs on the
+    decode engine's plane, and its caches stay on their rank."""
 
     def __init__(self, runner, serve_fn: Callable, example_request,
-                 config: Optional[ServingConfig] = None):
+                 config: Optional[ServingConfig] = None, plane=None,
+                 keep_local=()):
         self._runner = runner
         self._dstep = runner.distributed_step
         self._serve_fn = serve_fn
@@ -102,12 +145,19 @@ class InferenceEngine:
         self.config = config or ServingConfig()
         replicas = runner.remapper.num_replicas
         self.buckets = self._resolve_buckets(self.config.buckets, replicas)
+        self._owns_plane = plane is None and self._dstep.num_replicas > 1
+        if self._owns_plane:
+            plane = ServingPlane(self._dstep.rank, self._dstep.num_replicas,
+                                 "engine")
+        self._plane = plane
         # built at the LARGEST bucket: its row count is what classifies
         # per-example outputs (distinctive where a bucket of 1 is not)
         self._program = self._dstep.predict_program(
             serve_fn, donate_batch=True,
             example_batch=stack_batches([example_request],
-                                        pad_to=self.buckets[-1]))
+                                        pad_to=self.buckets[-1]),
+            group=plane.group if plane is not None else None,
+            keep_local=keep_local)
         # the host-PS snapshot and its degradation state (run_batch holds
         # the lock around it)
         self._lock = threading.Lock()
@@ -117,6 +167,15 @@ class InferenceEngine:
         self.stats = {"batches": 0, "padded_rows": 0, "degraded": 0,
                       "snapshot_refreshes": 0}
         self._warmed = False
+        if plane is not None:
+            plane.on("forward", self._on_forward)
+            if self._owns_plane and not plane.chief:
+                plane.start_follower()
+
+    @property
+    def chief(self) -> bool:
+        """Whether this rank dispatches (always, at one replica)."""
+        return self._plane is None or self._plane.chief
 
     @staticmethod
     def _resolve_buckets(buckets, replicas: int) -> Tuple[int, ...]:
@@ -133,7 +192,8 @@ class InferenceEngine:
         if bad:
             raise ValueError(
                 "bucket sizes %s are not multiples of the %d batch "
-                "replicas" % (bad, replicas))
+                "replicas — padded bucket batches must split evenly "
+                "over the mesh" % (bad, replicas))
         return buckets
 
     @property
@@ -159,17 +219,25 @@ class InferenceEngine:
         staleness = store.max_staleness() if store is not None else 0
         return max(staleness, const.ENV.ADT_PS_MAX_LAG.val, 1)
 
-    def _snapshot(self):
+    def _refresh_due(self) -> bool:
+        """The chief's refresh decision: the host-PS snapshot is missing or
+        ``snapshot_max_age_s`` old."""
+        return self._dstep.ps_store is not None and (
+            self._ps_vals is None or time.monotonic() - self._snap_t
+            >= self.config.snapshot_max_age_s)
+
+    def _snapshot(self, refresh: Optional[bool] = None):
         """The host-PS values feed of the next dispatch (``{}`` with no
         host-resident variable): the shared device snapshot, pulled again
-        once it is older than ``snapshot_max_age_s``. A failed refresh
-        serves the last good snapshot within the degraded window, then
-        sheds with :class:`ServingUnavailable`."""
+        when ``refresh`` (the chief's decision; None decides here: once it
+        is ``snapshot_max_age_s`` old). A failed refresh serves the last
+        good snapshot within the degraded window, then sheds with
+        :class:`ServingUnavailable`."""
         if self._dstep.ps_store is None:
             return {}
-        now = time.monotonic()
-        if (self._ps_vals is not None
-                and now - self._snap_t < self.config.snapshot_max_age_s):
+        if refresh is None:
+            refresh = self._refresh_due()
+        if not refresh and self._ps_vals is not None:
             return self._ps_vals
         try:
             vals = self._dstep.pull_ps()
@@ -195,7 +263,7 @@ class InferenceEngine:
                 "(%d batches) is exhausted: %s"
                 % (self._degraded_bound, e)) from e
         self._ps_vals = vals
-        self._snap_t = now
+        self._snap_t = time.monotonic()
         self._degraded_used = 0
         self.stats["snapshot_refreshes"] += 1
         return vals
@@ -203,7 +271,10 @@ class InferenceEngine:
     def warmup(self):
         """Run every bucket once on repeats of the example request (first
         kernel builds and allocator growth happen here, not on the first
-        request)."""
+        request). On a follower, nothing: the chief's warmup runs there
+        through the loop."""
+        if not self.chief:
+            return self
         for b in self.buckets:
             with tel.span("serve.warmup", "serve", bucket=b):
                 self.run_batch([self._example_request] * b)
@@ -216,28 +287,32 @@ class InferenceEngine:
         JAX engine's stats contract)."""
         return 0
 
-    def run_batch(self, requests, to_host: bool = True) -> Tuple[dict, int]:
-        """Execute one request group: pad to the nearest bucket, run the
-        program, mask the padded rows. Returns ``(fetches, n)`` with every
-        per-example leaf sliced to the ``n`` real requests — as numpy on
-        the host, or with ``to_host=False`` as tensors left on the device
-        (the decode engine keeps prefilled caches there)."""
-        n = len(requests)
-        bucket = self.bucket_for(n)
-        host = stack_batches(list(requests), pad_to=bucket)
+    def _dispatch(self, host, refresh: Optional[bool], n: int, bucket: int,
+                  to_host: bool):
+        """The part of a dispatch every rank runs: this rank's rows of the
+        padded bucket ``host`` (``n`` real requests in ``bucket`` rows)
+        through the program; the fetches (whole per-example leaves) on the
+        host, or on the device with ``to_host=False``."""
         with self._lock:
             if bucket > n:
                 self.stats["padded_rows"] += bucket - n
                 tel.counter_add("serve.padded_rows", bucket - n)
-            state = self._runner.state
-            if state is None:
-                raise RuntimeError("InferenceEngine over an uninitialized "
-                                   "Runner — call runner.init() first")
             t0 = time.perf_counter()
             with tel.span("serve.dispatch", "serve", n=n, bucket=bucket):
-                ps_vals = self._snapshot()
-                placed = self._runner.remapper.remap_feed(host)
-                device_out = self._program(state, ps_vals, placed)
+                try:
+                    state = self._runner.state
+                    if state is None:
+                        raise RuntimeError(
+                            "InferenceEngine over an uninitialized Runner "
+                            "— call runner.init() first")
+                    ps_vals = self._snapshot(refresh)
+                    placed = self._runner.remapper.remap_feed(host)
+                    out, error = self._program.local(state, ps_vals,
+                                                     placed), None
+                except Exception as e:  # noqa: BLE001 — agreed by the
+                    # ranks in collect(), which raises it
+                    out, error = None, e
+                device_out = self._program.collect(out, error)
             t1 = time.perf_counter()
             with tel.span("serve.readback", "serve", n=n, bucket=bucket):
                 fetched = (self._runner.remapper.remap_fetch(device_out)
@@ -247,6 +322,38 @@ class InferenceEngine:
                              (time.perf_counter() - t1) * 1e3)
             self.stats["batches"] += 1
         tel.counter_add("serve.batches")
+        return fetched
+
+    def _on_forward(self, payload):
+        """A follower's part of the chief's :meth:`run_batch`."""
+        self._dispatch(payload["host"], payload["refresh"], payload["n"],
+                       payload["bucket"], to_host=False)
+
+    def run_batch(self, requests, to_host: bool = True) -> Tuple[dict, int]:
+        """Execute one request group: pad to the nearest bucket, run the
+        program, mask the padded rows. Returns ``(fetches, n)`` with every
+        per-example leaf sliced to the ``n`` real requests — as numpy on
+        the host, or with ``to_host=False`` as tensors left on the device
+        (the decode engine keeps prefilled caches there). At N > 1 only
+        the chief calls it: it broadcasts the bucket, and every rank runs
+        its rows."""
+        if not self.chief:
+            raise ValueError(
+                "run_batch on a follower (rank %d): at N > 1 the chief "
+                "dispatches and each follower's loop runs what it sends"
+                % self._plane.rank)
+        n = len(requests)
+        bucket = self.bucket_for(n)
+        host = stack_batches(list(requests), pad_to=bucket)
+        if self._plane is None:
+            fetched = self._dispatch(host, None, n, bucket, to_host)
+        else:
+            with self._plane.lock:
+                fetched = self._plane.dispatch(
+                    "forward", {"host": host, "n": n, "bucket": bucket,
+                                "refresh": self._refresh_due()},
+                    lambda p: self._dispatch(p["host"], p["refresh"], n,
+                                             bucket, to_host))
         masked = pytree.tree_map(
             lambda is_batch, a: a[:n] if is_batch else a,
             self._program.batch_mask, fetched)
@@ -264,3 +371,17 @@ class InferenceEngine:
             lambda is_batch, a, _i=i: a[_i] if is_batch else a,
             self._program.batch_mask, fetched)
             for i in range(n)]
+
+    def follow(self, timeout: Optional[float] = None) -> bool:
+        """On a follower: wait until the chief stops this engine's loop
+        (True) or ``timeout`` passes (False). Elsewhere: True."""
+        if self.chief:
+            return True
+        return self._plane.follow(timeout)
+
+    def close(self, timeout: Optional[float] = 30.0):
+        """At N > 1: the chief stops its followers' loops (idempotent; a
+        later :meth:`run_batch` sheds); a follower waits up to ``timeout``
+        for that. Nothing at one replica."""
+        if self._owns_plane:
+            self._plane.stop(timeout)

@@ -388,6 +388,39 @@ result line):
    ``sp.p2p_bytes`` (ring) or ``sp.a2a_bytes`` (Ulysses) a rank-step,
    step p50, peak memory a rank.
 
+26. serving at N = 2: two processes of ``cuda:0`` over gloo, one
+   controller (rank 0) and one executor, run last. (b) lm1b f32 at 2 of its
+   8 layers, flash decode, 8 slots (4 a rank), phase 4's 8 prompts: the
+   tokens equal greedy full recompute on the card, token for token, and
+   flash_fwd launches 2 a decode step on each rank, all ``scalar f32``. (a)
+   lm1b bf16 at full width under ``AllReduce()``, ``DecodeEngine(
+   decode_attn="flash")`` with phase 3's ``DecodeConfig`` (32 slots, 16 a
+   rank): the chief submits phase 3's 64 prompts; every future resolves
+   with no error; both ranks run the same decode steps, each holding 16
+   slots, and flash_fwd launches 8 times a decode step on each rank, all
+   on ``mma.sync bf16``; each rank holds the kernel to its plain version at
+   its shape [16, 1, 256, 16, 64] (bf16 2e-2) and the chief times it;
+   tokens/s, token p50/p99 and the share of sequences equal to phase 3's
+   are printed. (c) a ``MicroBatcher`` over an ``InferenceEngine`` on (a)'s
+   runner (the prefill's next_token, buckets (2, 16, 64), ``max_queue``
+   256): 4 closed-loop client threads on the chief send 512 requests; every
+   future resolves, every group's rows are bit-equal to the same program
+   called directly on the same padded bucket; one burst past
+   ``max_queue`` behind a held dispatch sheds typed, each with a
+   ``retry_after_s``, and enters brownout; the follower's batcher refuses a
+   request; QPS, latency p50/p99 (``serve.latency_ms``) and batch fill. (d)
+   a ``FleetAutoscaler`` on the chief, on the port's coordination service,
+   over the live batcher's signals, the phantom-peer ramp of ``bench.py``'s
+   autoscale leg (roster [me, replica-b], pool [replica-c, replica-d]): at
+   least one grow and one planned shrink (an ``autoscale-idle`` notice and
+   the survivors' epoch), no ``ckpt.fallback``; a synthetic 15 ms a batch
+   only if the real forward drains every burst before the sustain window
+   (printed). Last, with both engines held at their next dispatch, 48
+   prompts on the decode engine (16 queued) and 11 requests on the batcher
+   (10 queued): ``preemption.drain_serving`` completes the in-flight work,
+   sheds the 26 queued with the typed Retry-After, returns 26, and ends
+   both engines' follower loops.
+
 TF32 is off for the whole run (``torch.backends.cuda.matmul`` and
 ``cudnn``): float32 is computed in float32, as the f32 checks' 2e-5 and
 parity bounds need; the bf16 paths are not affected except their float32
@@ -683,17 +716,17 @@ def check_close(name, got, want, tol):
 # ------------------------------------------------------------- phase 2
 
 
-def decode_inputs(dtype, seed):
+def decode_inputs(dtype, seed, slots=DECODE_SLOTS):
     """A full-size layer-stacked KV cache [slots, layers, T, H, D], one
     query per slot, cursors spread over [0, T-1] with both ends present."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    shape = (DECODE_SLOTS, LAYERS, DECODE_T, HEADS, HEAD_DIM)
+    shape = (slots, LAYERS, DECODE_T, HEADS, HEAD_DIM)
     k = torch.randn(shape, generator=gen, device="cuda").to(dtype)
     v = torch.randn(shape, generator=gen, device="cuda").to(dtype)
-    q = torch.randn((DECODE_SLOTS, HEADS, HEAD_DIM), generator=gen,
+    q = torch.randn((slots, HEADS, HEAD_DIM), generator=gen,
                     device="cuda").to(dtype)
-    cursor = torch.randint(0, DECODE_T, (DECODE_SLOTS,), generator=gen,
+    cursor = torch.randint(0, DECODE_T, (slots,), generator=gen,
                            device="cuda")
     cursor[0], cursor[1] = 0, DECODE_T - 1
     return q, k, v, cursor.int()
@@ -758,17 +791,18 @@ def kernel_phase():
     return max(errs)
 
 
-def decode_timing(card, err):
-    """flash_fwd at the decode shape, timed beside its plain version, SDPA
-    and its bound; returns its record (``err`` its largest error, without
-    its main-path launch count). ``card`` tags the timing line."""
+def decode_timing(card, err, slots=DECODE_SLOTS):
+    """flash_fwd at the decode shape of ``slots`` slots, timed beside its
+    plain version, SDPA and its bound; returns its record (``err`` its
+    largest error, without its main-path launch count). ``card`` tags the
+    timing line."""
     import torch
     import torch.nn.functional as F
     from autodist_tpu_torch.ops import flash_attention as fa
 
     # bf16, rotating over the 8 layers' cache slices as the main path does
-    # (268 MB per cache half > the 50 MB L2)
-    q, k, v, cursor = decode_inputs(torch.bfloat16, seed=3)
+    # (268 MB per cache half at 32 slots > the 50 MB L2)
+    q, k, v, cursor = decode_inputs(torch.bfloat16, seed=3, slots=slots)
     q_seg, kv_seg = segs_for(cursor)
     q1 = q[:, None]
     mask = (torch.arange(DECODE_T, device="cuda")[None, :]
@@ -798,17 +832,17 @@ def decode_timing(card, err):
     live_rows = int((cursor.long() + 1).sum())
     itemsize = 2
     bytes_moved = (2 * live_rows * HEADS * HEAD_DIM * itemsize    # K, V
-                   + 2 * DECODE_SLOTS * HEADS * HEAD_DIM * itemsize  # q, o
-                   + DECODE_SLOTS * HEADS * 4                       # lse
-                   + DECODE_SLOTS * (1 + DECODE_T) * 4)             # seg ids
+                   + 2 * slots * HEADS * HEAD_DIM * itemsize        # q, o
+                   + slots * HEADS * 4                              # lse
+                   + slots * (1 + DECODE_T) * 4)                    # seg ids
     flops = 4 * live_rows * HEADS * HEAD_DIM
     t_bytes = bytes_moved / H100_BYTES_PER_S * 1e3
     t_ops = flops / H100_BF16_FLOPS * 1e3
     bound_ms = max(t_bytes, t_ops)
-    print("  decode bf16 [32,1,256,16,64] (%d live rows), device ms (a call "
+    print("  decode bf16 [%d,1,256,16,64] (%d live rows), device ms (a call "
           "with host dispatch): kernel (%s) %.4f (%.4f); plain %.4f; sdpa "
           "%.4f (%.4f); bound %.4f (%s) [%s]"
-          % (live_rows, fa._fwd_variant(torch.bfloat16), ms, call_ms,
+          % (slots, live_rows, fa._fwd_variant(torch.bfloat16), ms, call_ms,
              plain_ms, library_ms, library_call_ms, bound_ms,
              "bytes" if t_bytes >= t_ops else "operations", card))
     return record("flash_fwd", err, ms, plain_ms, library_ms, t_bytes, t_ops,
@@ -7298,9 +7332,638 @@ def spep_phase(card, env):
                  extra, card))
 
 
+# ------------------------------------------------------------- phase 26
+
+
+SERVE_RANKS = 2
+SERVE_PROMPTS = 64                 # (a): phase 3's prompts through 32 slots
+SERVE_PARITY_LAYERS = 2            # (b): lm1b f32 at 2 of its 8 layers
+MB_REQUESTS, MB_CLIENTS, MB_WAVE = 512, 4, 16     # (c)
+MB_BUCKETS, MB_MAX_QUEUE = (2, 16, 64), 256
+SERVE_DRAIN_RETRY_S = 2.5
+SERVE_SPEC = {"nodes": [{"address": "127.0.0.1", "chief": True,
+                         "gpus": [0] * SERVE_RANKS}]}
+
+
+def serve_prompts(cfg):
+    """Phase 3's 64 prompts (lengths 1-64, seed 0)."""
+    import numpy as np
+    rng = np.random.RandomState(0)
+    lengths = [1 + (i * 37) % 64 for i in range(SERVE_PROMPTS)]
+    lengths[0], lengths[1] = 1, 64
+    return [rng.randint(0, cfg.vocab_size, (n,)).astype(np.int32)
+            for n in lengths]
+
+
+def serve_runner(cfg):
+    """lm1b's runner under ``AllReduce()`` at SERVE_RANKS replicas of
+    ``cuda:0`` (no optimizer: it serves)."""
+    import autodist_tpu_torch as adt
+    from autodist_tpu_torch import strategy
+    from autodist_tpu_torch.models import lm
+    from autodist_tpu_torch.resource_spec import ResourceSpec
+    adt_reset()
+    loss_fn, params, batch, _ = lm.make_train_setup(cfg, seq_len=64,
+                                                    batch_size=8, seed=0)
+    ad = adt.AutoDist(strategy_builder=strategy.AllReduce(),
+                      resource_spec=ResourceSpec.from_dict(SERVE_SPEC),
+                      device="cuda:0")
+    runner = ad.build(loss_fn, None, params, batch)
+    runner.init(params)
+    return runner
+
+
+def serve_parity_part(rank, out):
+    """(b): lm1b f32 at 2 layers, flash decode at N = 2 (8 slots, 4 a
+    rank, phase 4's 8 prompts): the chief's tokens against greedy full
+    recompute on the card."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from autodist_tpu_torch.models import lm
+    from autodist_tpu_torch.models.layers import apply
+    from autodist_tpu_torch.ops import flash_attention as fa
+    from autodist_tpu_torch.serving.decode import DecodeConfig, DecodeEngine
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(lm.LMConfig.lm1b(),
+                              num_layers=SERVE_PARITY_LAYERS)
+    runner = serve_runner(cfg)
+    engine = DecodeEngine(runner, lm.make_decode_setup(cfg, "flash"),
+                          DecodeConfig(slots=8, max_new_tokens=8,
+                                       prefill_len=64))
+    engine.warmup()
+    torch.cuda.synchronize()
+    dist.barrier()
+    reset_counts()
+    steps0 = engine.stats_local["steps"]
+    dist.barrier()
+    if rank == 0:
+        prompts = serve_prompts(cfg)[:8]
+        res = [f.result(timeout=600)
+               for f in [engine.submit(p) for p in prompts]]
+        engine.close()
+        got = [list(map(int, r["tokens"])) for r in res]
+        params = runner.gather_params()
+        model = lm.make_model(cfg)
+        want = []
+        with torch.inference_mode(), uncounted():
+            for p, toks in zip(prompts, got):
+                ids, seq = list(map(int, p)), []
+                for _ in range(len(toks)):
+                    logits = apply(model, params,
+                                   torch.tensor([ids], device="cuda"))
+                    seq.append(int(torch.argmax(logits[0, -1])))
+                    ids.append(seq[-1])
+                want.append(seq)
+        out["parity"] = {"got": got, "want": want}
+    else:
+        engine.follow(timeout=600)
+        engine.close()
+    torch.cuda.synchronize()
+    out["parity_launches"] = dict(fa.flash_fwd.launches_by_variant)
+    out["parity_steps"] = engine.stats_local["steps"] - steps0
+    out["parity_s"] = time.perf_counter() - t0
+    adt_reset()
+
+
+def serve_decode_part(rank, out, cfg, runner):
+    """(a): the decode engine at N = 2 on ``runner`` (32 slots, 16 a
+    rank): the chief submits phase 3's 64 prompts; each rank's flash_fwd
+    launches over the run; the kernel held to its plain version at the
+    rank's shape on each rank, and timed on the chief. Returns the
+    engine (it serves on in (c)-(d) and drains there)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from autodist_tpu_torch.models import lm
+    from autodist_tpu_torch.ops import flash_attention as fa
+    from autodist_tpu_torch.serving.decode import DecodeConfig, DecodeEngine
+    t0 = time.perf_counter()
+    engine = DecodeEngine(runner, lm.make_decode_setup(cfg, "flash"),
+                          DecodeConfig(slots=32, max_new_tokens=32,
+                                       prefill_len=64))
+    engine.warmup()
+    torch.cuda.synchronize()
+    dist.barrier()
+    reset_counts()
+    steps0 = engine.stats_local["steps"]
+    dist.barrier()
+    if rank == 0:
+        prompts = serve_prompts(cfg)
+        t1 = time.perf_counter()
+        results = [f.result(timeout=600)
+                   for f in [engine.submit(p) for p in prompts]]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        stats = engine.stats()
+        out["decode"] = {
+            "tokens": [list(map(int, r["tokens"])) for r in results],
+            "prompt_lens": [int(r["prompt_len"]) for r in results],
+            "wall": wall, "errors": stats["errors"],
+            "completed": stats["completed"],
+            "p50": stats["token_p50_ms"], "p99": stats["token_p99_ms"]}
+    dist.barrier()       # the chief's steps are over on every rank
+    torch.cuda.synchronize()
+    out["launches"] = dict(fa.flash_fwd.launches_by_variant)
+    out["steps"] = engine.stats_local["steps"] - steps0
+    out["cache_slots"] = int(engine._dev_k.shape[0])
+    # the kernel at this rank's shape [16, 1, 256, 16, 64], bf16
+    with uncounted():
+        q, k, v, cursor = decode_inputs(torch.bfloat16, seed=5,
+                                        slots=engine._per)
+        q_seg, kv_seg = segs_for(cursor)
+        got_o, got_l = fa.flash_fwd(q[:, None], k[:, 3], v[:, 3], q_seg,
+                                    kv_seg)
+        ref_o, ref_l = fa.flash_fwd_reference(q[:, None], k[:, 3], v[:, 3],
+                                              q_seg, kv_seg)
+        torch.cuda.synchronize()
+        out["kernel_err"] = max(
+            check_close("rank %d decode out [%d,1,256,16,64] (bf16)"
+                        % (rank, engine._per), got_o, ref_o, 2e-2),
+            check_close("rank %d decode lse (bf16)" % rank, got_l, ref_l,
+                        2e-2))
+        del q, k, v
+    dist.barrier()
+    if rank == 0:
+        out["record"] = decode_timing(card_line(), out["kernel_err"],
+                                      slots=engine._per)
+    dist.barrier()
+    out["decode_s"] = time.perf_counter() - t0
+    return engine
+
+
+def mb_requests(cfg, n, seed):
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        length = int(rng.randint(1, 65))
+        toks = np.zeros(64, np.int32)
+        toks[:length] = rng.randint(0, cfg.vocab_size, (length,))
+        out.append({"tokens": toks, "length": np.int32(length)})
+    return out
+
+
+def serve_batcher_part(out, cfg, runner, engine, batcher):
+    """(c) on the chief: four closed-loop clients send MB_REQUESTS
+    requests in waves of MB_WAVE; each group's rows against the same
+    program called directly on the same padded bucket (bit-equal); then
+    one burst past ``max_queue`` behind a held dispatch (typed sheds with
+    Retry-After, brownout entered)."""
+    import numpy as np
+    from autodist_tpu_torch.serving import ServingUnavailable
+    from autodist_tpu_torch.serving.engine import stack_batches
+    reqs = mb_requests(cfg, MB_REQUESTS, seed=7)
+    groups = []
+    real_run = engine.run_batch
+
+    def recording(requests, to_host=True):
+        fetched, n = real_run(requests, to_host)
+        groups.append((list(requests), np.array(fetched["next_token"])))
+        return fetched, n
+    engine.run_batch = recording
+    rows = [None] * len(reqs)
+    errors = []
+
+    def client(c):
+        mine = list(range(c, len(reqs), MB_CLIENTS))
+        try:
+            for lo in range(0, len(mine), MB_WAVE):
+                wave = mine[lo:lo + MB_WAVE]
+                futs = [(i, batcher.submit(reqs[i])) for i in wave]
+                for i, f in futs:
+                    rows[i] = int(f.result(timeout=600)["next_token"])
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(repr(e))
+    lat0 = dict(batcher.stats_local)
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(MB_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    stats = batcher.stats()
+    engine.run_batch = real_run
+    # the same program, called directly on each group's padded bucket (the
+    # follower runs its rows through the engine's loop)
+    mismatched = 0
+    plane = engine._plane
+    for group, tokens in groups:
+        bucket = engine.bucket_for(len(group))
+        host = stack_batches(group, pad_to=bucket)
+        with plane.lock:
+            direct = plane.dispatch(
+                "forward", {"host": host, "n": len(group), "bucket": bucket,
+                            "refresh": False},
+                lambda p: engine._program(
+                    runner.state, engine._snapshot(False),
+                    runner.remapper.remap_feed(p["host"])))
+        direct = runner.remapper.remap_fetch(direct)["next_token"]
+        mismatched += not np.array_equal(direct[:len(group)], tokens)
+    out["batcher"] = {
+        "errors": errors, "resolved": sum(r is not None for r in rows),
+        "wall": wall, "groups": len(groups), "mismatched": mismatched,
+        "requests": stats["requests"] - lat0["requests"],
+        "batches": stats["batches"] - lat0["batches"],
+        "fan_out": stats["fan_out"] - lat0["fan_out"],
+        "p50": stats["p50_ms"], "p99": stats["p99_ms"],
+        "queue_p50": stats["goodput"]["queue_p50_ms"],
+        "dispatch_p50": stats["goodput"]["dispatch_p50_ms"]}
+    # one burst past max_queue behind a held dispatch
+    hold = threading.Event()
+
+    def held(requests, to_host=True):
+        hold.wait(timeout=120)
+        return real_run(requests, to_host)
+    engine.run_batch = held
+    burst = mb_requests(cfg, MB_MAX_QUEUE + 32, seed=8)
+    futures, sheds = [], []
+    futures.append(batcher.submit(burst[0]))
+    while batcher.queue_depth():
+        time.sleep(0.005)
+    time.sleep(0.05)               # the worker is inside the held dispatch
+    half = MB_MAX_QUEUE // 2 + 8
+    for r in burst[1:1 + half]:
+        futures.append(batcher.submit(r))
+    time.sleep(0.1)                # past brownout_sustain_s above the line
+    for r in burst[1 + half:]:
+        try:
+            futures.append(batcher.submit(r))
+        except ServingUnavailable as e:
+            sheds.append(e.retry_after_s)
+    brownout = batcher.stats()["brownout"]
+    hold.set()
+    resolved = 0
+    for f in futures:
+        f.result(timeout=600)
+        resolved += 1
+    engine.run_batch = real_run
+    out["burst"] = {"sheds": sheds, "submitted": len(burst),
+                    "resolved": resolved, "brownout": brownout}
+
+
+def serve_autoscale_part(out, cfg, batcher, engine):
+    """(d) on the chief: a FleetAutoscaler on the port's coordination
+    service over the live batcher's signals, the phantom-peer ramp
+    (roster [me, replica-b], pool [replica-c, replica-d]): bursts until a
+    grow, then idle until a planned shrink. A synthetic per-batch service
+    time is used only when the real forward drains every burst before the
+    policy's sustain window."""
+    from autodist_tpu_torch.runtime import elastic
+    from autodist_tpu_torch.runtime.coordination import (CoordinationClient,
+                                                         CoordinationServer)
+    from autodist_tpu_torch.serving import (AutoscalePolicy,
+                                            FleetAutoscaler,
+                                            ServingUnavailable)
+    from autodist_tpu_torch.telemetry import spans as tel
+    server = CoordinationServer(port=free_port())
+    server.start()
+    client = CoordinationClient("127.0.0.1", server.port)
+    me = "127.0.0.1"
+    real_run = engine.run_batch
+    try:
+        elastic.publish_epoch(client, 1, [me, "replica-b"])
+        policy = AutoscalePolicy(min_replicas=2, max_replicas=4,
+                                 queue_high=8, queue_low=2, sustain_s=0.05,
+                                 grow_cooldown_s=0.02,
+                                 shrink_cooldown_s=0.02)
+        scaler = FleetAutoscaler(client, policy, me,
+                                 pool=["replica-c", "replica-d"],
+                                 notice_deadline_s=60.0,
+                                 max_queue=MB_MAX_QUEUE)
+        fallback0 = tel.counters().get("ckpt.fallback", 0.0)
+        reqs = mb_requests(cfg, 64, seed=9)
+        futures, sheds = [], 0
+        synthetic = False
+        t0 = time.perf_counter()
+        for attempt in ("real", "synthetic"):
+            if attempt == "synthetic":
+                synthetic = True
+
+                def slow(requests, to_host=True):
+                    time.sleep(0.015)
+                    return real_run(requests, to_host)
+                engine.run_batch = slow
+            deadline = time.perf_counter() + 5.0
+            while (scaler.stats()["grows"] < 1
+                   and time.perf_counter() < deadline):
+                for r in reqs:
+                    try:
+                        futures.append(batcher.submit(r))
+                    except ServingUnavailable:
+                        sheds += 1
+                scaler.step()
+                time.sleep(0.01)
+            if scaler.stats()["grows"] >= 1:
+                break
+        for f in futures:
+            f.result(timeout=600)
+        engine.run_batch = real_run
+        grow_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        deadline = time.perf_counter() + 10.0
+        while (scaler.stats()["shrinks"] < 1
+               and time.perf_counter() < deadline):
+            scaler.step()
+            time.sleep(0.02)
+        st = scaler.stats()
+        info = elastic.read_epoch(client)
+        notice = None
+        if info is not None:
+            from autodist_tpu_torch.runtime import preemption
+            left = [w for w in ("replica-b", "replica-c", "replica-d")
+                    if w not in info[1]]
+            notice = [getattr(preemption.read_notice(client, w), "reason",
+                              None) for w in left]
+        out["autoscale"] = {
+            "grows": st["grows"], "shrinks": st["shrinks"],
+            "holds": st["holds"], "refusals": st["refusals"],
+            "decisions": st["decisions"], "epoch": info[0] if info else None,
+            "roster": info[1] if info else None, "notices": notice,
+            "fallback": tel.counters().get("ckpt.fallback", 0.0) - fallback0,
+            "synthetic": synthetic, "sheds": sheds,
+            "requests": len(futures), "grow_s": grow_s,
+            "shrink_s": time.perf_counter() - t1}
+    finally:
+        engine.run_batch = real_run
+        client.close()
+        server.stop()
+
+
+def serve_drain_part(out, cfg, decoder, batcher, engine):
+    """The drain, on the chief, with both engines held at their next
+    dispatch: 48 prompts on the decode engine (32 admitted, 16 queued)
+    and 1 + 10 requests on the batcher (1 in flight, 10 queued); then
+    ``preemption.drain_serving``: the held work is released, the in-flight
+    work completes, every queued request sheds with the typed
+    Retry-After, the count returned is the sheds, and both engines'
+    followers leave their loops."""
+    from autodist_tpu_torch.runtime import preemption
+    from autodist_tpu_torch.serving import ServingUnavailable
+    hold = threading.Event()
+    step = decoder._dispatch_step
+    real_run = engine.run_batch
+
+    def held_step(warmup=False):
+        hold.wait(timeout=120)
+        return step(warmup)
+
+    def held_run(requests, to_host=True):
+        hold.wait(timeout=120)
+        return real_run(requests, to_host)
+    decoder._dispatch_step = held_step
+    engine.run_batch = held_run
+    prompts = serve_prompts(cfg)
+    with decoder._cv:       # one admission takes the first 32
+        dfuts = [decoder.submit(p) for p in prompts[:48]]
+    deadline = time.monotonic() + 120
+    while len(decoder.scheduler.live_slots()) < 32 and \
+            time.monotonic() < deadline:
+        time.sleep(0.005)
+    queued_decode = decoder.queue_depth()
+    reqs = mb_requests(cfg, 11, seed=10)
+    bfuts = [batcher.submit(reqs[0])]
+    while batcher.queue_depth():
+        time.sleep(0.005)
+    time.sleep(0.05)        # the worker is inside the held dispatch
+    bfuts += [batcher.submit(r) for r in reqs[1:]]
+    queued_batcher = batcher.queue_depth()
+    threading.Timer(0.2, hold.set).start()
+    t0 = time.perf_counter()
+    shed = preemption.drain_serving(retry_after_s=SERVE_DRAIN_RETRY_S)
+    drain_s = time.perf_counter() - t0
+    typed = done = 0
+    for f in dfuts + bfuts:
+        try:
+            f.result(timeout=600)
+            done += 1
+        except ServingUnavailable as e:
+            typed += e.retry_after_s == SERVE_DRAIN_RETRY_S
+    out["drain"] = {"shed": shed, "typed": typed, "done": done,
+                    "queued_decode": queued_decode,
+                    "queued_batcher": queued_batcher, "drain_s": drain_s,
+                    "stopped": [decoder._plane.stopped,
+                                engine._plane.stopped]}
+
+
+def serve_child(rank, store, out_dir, env):
+    """One rank of phase 26 (spawned): take the environment ``env``, join
+    the gloo group; (b), then (a), (c), (d) and the drain on one lm1b
+    runner; write this rank's results to ``out_dir``."""
+    os.environ.clear()
+    os.environ.update(env)
+    # what a rank prints comes out in the phase's block, rank by rank
+    sys.stdout = open(os.path.join(out_dir, "stdout%d.txt" % rank), "w",
+                      buffering=1)
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, HERE)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(store, SERVE_RANKS),
+                            rank=rank, world_size=SERVE_RANKS)
+    from autodist_tpu_torch.models import lm
+    from autodist_tpu_torch.serving import (InferenceEngine, MicroBatcher,
+                                            ServingConfig)
+    out = {"rank": rank}
+    serve_parity_part(rank, out)
+    t0 = time.perf_counter()
+    cfg = lm.LMConfig.lm1b(dtype=torch.bfloat16)
+    runner = serve_runner(cfg)
+    out["runner_s"] = time.perf_counter() - t0
+    decoder = serve_decode_part(rank, out, cfg, runner)
+    t0 = time.perf_counter()
+    prefill = lm.make_decode_setup(cfg).prefill_fn
+
+    def serve_fn(p, batch):
+        return {"next_token": prefill(p, batch)["next_token"]}
+    engine = InferenceEngine(
+        runner, serve_fn, {"tokens": np.zeros(64, np.int32),
+                           "length": np.int32(1)},
+        ServingConfig(buckets=MB_BUCKETS, max_delay_ms=2.0,
+                      max_queue=MB_MAX_QUEUE, brownout_queue_frac=0.5,
+                      brownout_sustain_s=0.05)).warmup()
+    batcher = MicroBatcher(engine)
+    if rank == 0:
+        serve_batcher_part(out, cfg, runner, engine, batcher)
+        out["batcher_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        serve_autoscale_part(out, cfg, batcher, engine)
+        out["autoscale_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        serve_drain_part(out, cfg, decoder, batcher, engine)
+        out["drain_s"] = time.perf_counter() - t0
+    else:
+        try:
+            batcher.submit({"tokens": np.zeros(64, np.int32),
+                            "length": np.int32(1)})
+        except ValueError as e:
+            out["follower_submit"] = str(e)
+        out["followed"] = [engine.follow(timeout=900),
+                           decoder.follow(timeout=900)]
+    with open(os.path.join(out_dir, "rank%d.json" % rank), "w") as f:
+        json.dump(out, f)
+    adt_reset()
+    dist.destroy_process_group()
+
+
+def serve_phase(card, env, phase3_tokens):
+    """Phase 26: the two processes of ``serve_child`` on ``cuda:0`` in the
+    environment ``env``; the gates and the readings. Returns flash_fwd's
+    launches by design in (a) (both ranks) and (b), and (a)'s record at
+    the rank's shape."""
+    import tempfile
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            mp.start_processes(serve_child, args=(os.path.join(tmp, "store"),
+                                                  tmp, env),
+                               nprocs=SERVE_RANKS, start_method="spawn")
+        except Exception as e:  # noqa: BLE001 — a rank failed
+            fail("phase 26: a rank failed: %s" % (str(e).strip()[-2000:],))
+        res, printed = [], []
+        for r in range(SERVE_RANKS):
+            with open(os.path.join(tmp, "rank%d.json" % r)) as f:
+                res.append(json.load(f))
+            with open(os.path.join(tmp, "stdout%d.txt" % r)) as f:
+                printed.append(f.read())
+    total_s = time.perf_counter() - t0
+    chief, follower = res
+    layers = LAYERS
+    # (b) parity
+    par = chief["parity"]
+    if par["got"] != par["want"]:
+        fail("phase 26 (b): flash decode at N = 2 differs from greedy full "
+             "recompute: %r vs %r" % (par["got"], par["want"]))
+    for rank, r in enumerate(res):
+        want = {"scalar f32": SERVE_PARITY_LAYERS * r["parity_steps"]}
+        if r["parity_launches"] != want or r["parity_steps"] == 0:
+            fail("phase 26 (b) rank %d: flash_fwd launched %r over %d steps "
+                 "(want %r)" % (rank, r["parity_launches"],
+                                r["parity_steps"], want))
+    # (a) decode
+    dec = chief["decode"]
+    if dec["errors"] or dec["completed"] != SERVE_PROMPTS:
+        fail("phase 26 (a): %d errors, %d of %d completed"
+             % (dec["errors"], dec["completed"], SERVE_PROMPTS))
+    lens = [1 + (i * 37) % 64 for i in range(SERVE_PROMPTS)]
+    lens[0], lens[1] = 1, 64
+    for toks, plen, want_len in zip(dec["tokens"], dec["prompt_lens"], lens):
+        if len(toks) != 32 or min(toks) < 0 or max(toks) >= 793470 // 8 \
+                or plen != want_len:
+            fail("phase 26 (a): a result has the wrong shape or ids")
+    if follower["steps"] != chief["steps"] or chief["steps"] == 0:
+        fail("phase 26 (a): the ranks ran %d and %d decode steps"
+             % (chief["steps"], follower["steps"]))
+    for rank, r in enumerate(res):
+        want = {MAIN_DESIGN["flash_fwd"]: layers * r["steps"]}
+        if r["launches"] != want:
+            fail("phase 26 (a) rank %d: flash_fwd launched %r over %d decode "
+                 "steps (want %r)" % (rank, r["launches"], r["steps"], want))
+        if r["cache_slots"] != 16:
+            fail("phase 26 (a) rank %d holds %d slots (want 16)"
+                 % (rank, r["cache_slots"]))
+    same = sum(a == b for a, b in zip(dec["tokens"], phase3_tokens))
+    generated = sum(len(t) for t in dec["tokens"])
+    # (c) the micro-batcher
+    mb, burst = chief["batcher"], chief["burst"]
+    if mb["errors"] or mb["resolved"] != MB_REQUESTS or \
+            mb["fan_out"] != MB_REQUESTS or mb["mismatched"]:
+        fail("phase 26 (c): errors %r, %d of %d resolved, fan-out %d, %d of "
+             "%d groups not bit-equal to the program called directly"
+             % (mb["errors"], mb["resolved"], MB_REQUESTS, mb["fan_out"],
+                mb["mismatched"], mb["groups"]))
+    if not burst["sheds"] or any(h is None for h in burst["sheds"]) or \
+            burst["resolved"] + len(burst["sheds"]) != burst["submitted"] \
+            or burst["brownout"]["entries"] < 1:
+        fail("phase 26 (c): the burst past max_queue %d: %d sheds (hints "
+             "%r), %d resolved of %d, brownout %r"
+             % (MB_MAX_QUEUE, len(burst["sheds"]), burst["sheds"][:4],
+                burst["resolved"], burst["submitted"], burst["brownout"]))
+    if "on a follower" not in follower.get("follower_submit", ""):
+        fail("phase 26 (c): the follower's batcher took a request")
+    # (d) the autoscaler
+    auto = chief["autoscale"]
+    if auto["grows"] < 1 or auto["shrinks"] < 1 or auto["fallback"] or \
+            "autoscale-idle" not in (auto["notices"] or []) or \
+            auto["roster"] != ["127.0.0.1", "replica-b"]:
+        fail("phase 26 (d): %r" % (auto,))
+    # the drain
+    dr = chief["drain"]
+    if (dr["queued_decode"], dr["queued_batcher"]) != (16, 10) or \
+            dr["shed"] != dr["typed"] or dr["typed"] != 16 + 10 or \
+            dr["done"] != 32 + 1 or not all(dr["stopped"]) \
+            or follower["followed"] != [True, True]:
+        fail("phase 26 drain: %r; the follower's loops ended: %r"
+             % (dr, follower["followed"]))
+    print("phase 26: serving at N = 2 — two processes of cuda:0 over gloo, "
+          "one controller and one executor: %.1f s [%s]" % (total_s, card))
+    for text in printed:
+        sys.stdout.write(text)
+    print("  (b) lm1b f32 at %d of its %d layers, flash decode, 8 slots (4 a "
+          "rank): 8 prompts token for token equal to greedy full recompute "
+          "on the card; flash_fwd %r / %r (ranks 0 / 1); %.1f s"
+          % (SERVE_PARITY_LAYERS, layers, chief["parity_launches"],
+             follower["parity_launches"], chief["parity_s"]))
+    print("  (a) lm1b bf16 full width, 32 slots (16 a rank): %d prompts, %d "
+          "tokens in %.3f s: %.1f tokens/s, %d decode steps, token p50 %.3f "
+          "ms p99 %.3f ms; flash_fwd %r / %r (= %d x %d steps a rank); %d of "
+          "%d sequences equal phase 3's; runner %.1f s, (a) %.1f s [%s]"
+          % (SERVE_PROMPTS, generated, dec["wall"], generated / dec["wall"],
+             chief["steps"], dec["p50"], dec["p99"], chief["launches"],
+             follower["launches"], layers, chief["steps"], same,
+             SERVE_PROMPTS, chief["runner_s"], chief["decode_s"], card))
+    print("  (c) MicroBatcher over an InferenceEngine (prefill next_token, "
+          "buckets %r): %d requests from %d clients in %.3f s: %.1f QPS, "
+          "latency p50 %.3f ms p99 %.3f ms (serve.latency_ms), queue p50 "
+          "%.3f ms, dispatch p50 %.3f ms, %d batches (fill %.2f); all %d "
+          "groups bit-equal to the program called directly; a burst of %d "
+          "past max_queue %d: %d typed sheds (Retry-After %.3f-%.3f s), "
+          "brownout %r; %.1f s"
+          % (MB_BUCKETS, MB_REQUESTS, MB_CLIENTS, mb["wall"],
+             MB_REQUESTS / mb["wall"], mb["p50"], mb["p99"], mb["queue_p50"],
+             mb["dispatch_p50"], mb["batches"],
+             mb["fan_out"] / max(mb["batches"], 1), mb["groups"],
+             burst["submitted"], MB_MAX_QUEUE, len(burst["sheds"]),
+             min(burst["sheds"]), max(burst["sheds"]), burst["brownout"],
+             chief["batcher_s"]))
+    print("  (d) FleetAutoscaler (phantom peers): %d grow(s) in %.2f s, %d "
+          "planned shrink(s) in %.2f s (notice reason %r), %d holds, %d "
+          "decisions, final epoch %r roster %r, ckpt.fallback +%d, %d "
+          "requests (%d shed); synthetic service time: %s; %.1f s"
+          % (auto["grows"], auto["grow_s"], auto["shrinks"], auto["shrink_s"],
+             auto["notices"], auto["holds"], auto["decisions"],
+             auto["epoch"], auto["roster"], auto["fallback"],
+             auto["requests"], auto["sheds"],
+             "yes (15 ms a batch)" if auto["synthetic"] else "no",
+             chief["autoscale_s"]))
+    print("  drain_serving: %d queued decode prompts and %d queued batcher "
+          "requests shed typed (Retry-After %.1f s), %d returned, %d "
+          "in-flight completed, both engines' follower loops ended; %.2f s"
+          % (dr["queued_decode"], dr["queued_batcher"], SERVE_DRAIN_RETRY_S,
+             dr["shed"], dr["done"], dr["drain_s"]))
+    record = chief["record"]
+    launches = {}
+    for r in res:
+        for design, n in r["launches"].items():
+            launches[design] = launches.get(design, 0) + n
+    f32 = {}
+    for r in res:
+        for design, n in r["parity_launches"].items():
+            f32[design] = f32.get(design, 0) + n
+    return launches, f32, record
+
+
 def main():
     global T_SMOKE
     T_SMOKE = time.perf_counter()
+    # the environment phase 26's ranks take (phase 23 (b) sets a knob in
+    # this process meanwhile)
+    env0 = dict(os.environ)
     if not os.path.isdir(os.path.join(HERE, "autodist_tpu_torch", "csrc")):
         fail("autodist_tpu_torch/ is not beside chip_smoke.py — run it from "
              "a checkout of the repository")
@@ -7373,6 +8036,7 @@ def main():
         fail("flash_fwd launched %r over %d decode steps (want %r)"
              % (launches, steps, want))
     serve_launches = launches
+    phase3_tokens = [list(map(int, r["tokens"])) for r in results]
     generated = sum(len(r["tokens"]) for r in results)
     print("  %d prompts, %d tokens in %.3f s: %.1f tokens/s, %d decode "
           "steps, token p50 %.3f ms p99 %.3f ms, flash_fwd launches %r "
@@ -7491,7 +8155,9 @@ def main():
     t = time.perf_counter()
     pp2_launches = pp_two.result()
     seconds["24 (b) after 21 with 23"] = time.perf_counter() - t
-    print("phases 5-25: %s s" % ", ".join(
+    n2_launches, n2_f32_launches, n2_record = timed_phase(
+        "26", serve_phase, card, env0, phase3_tokens)
+    print("phases 5-26: %s s" % ", ".join(
         "%s %.1f" % kv for kv in seconds.items()))
 
     # flash_fwd runs on the three main paths, serving (decode), lm1b and
@@ -7601,6 +8267,17 @@ def main():
             rec["by_path"]["serve_drain"] = {
                 "launches": sum(n.values()),
                 "design_launches": n.get(rec["design"], 0), "designs": n}
+            # phase 26 (a): lm1b bf16 decode at N = 2, both ranks, timed
+            # at a rank's shape [16, 1, 256, 16, 64]; (b): f32 at 2
+            # layers, both ranks (the scalar f32 design)
+            rec["by_path"]["serve_n2"] = dict(
+                {"launches": sum(n2_launches.values()),
+                 "design_launches": n2_launches.get(rec["design"], 0)},
+                **{key: n2_record[key] for key in keys})
+            rec["by_path"]["serve_n2_f32"] = {
+                "launches": sum(n2_f32_launches.values()),
+                "design_launches": n2_f32_launches.get(rec["design"], 0),
+                "designs": n2_f32_launches}
         rec["launches"] = sum(p["launches"] for p in rec["by_path"].values())
         rec["design_launches"] = sum(p["design_launches"]
                                      for p in rec["by_path"].values())

@@ -300,3 +300,22 @@ def test_engine_degraded_window_then_shed_then_recovery(monkeypatch):
     recovered, _ = engine.run_batch(requests[:4])
     np.testing.assert_array_equal(recovered["score"], good["score"])
     assert engine._degraded_used == 0
+
+
+def test_decode_config_snapshot_max_age_reaches_the_prefill_engine(lm_setup):
+    """C14: the port's ``DecodeConfig`` has the JAX config's fields (among
+    them ``snapshot_max_age_s``, default 0.1) and passes the snapshot
+    period to its prefill engine, as the JAX engine does."""
+    import dataclasses
+    from autodist_tpu.serving.decode import DecodeConfig as JDecodeConfig
+    assert [(f.name, f.default) for f in dataclasses.fields(DecodeConfig)] \
+        == [(f.name, f.default) for f in dataclasses.fields(JDecodeConfig)]
+    runner, cfg = _runner(lm_setup[0])
+    engine = DecodeEngine(runner, tlm.make_decode_setup(cfg),
+                          DecodeConfig(slots=8, max_new_tokens=2,
+                                       prefill_len=8,
+                                       snapshot_max_age_s=0.75))
+    try:
+        assert engine._prefill.config.snapshot_max_age_s == 0.75
+    finally:
+        engine.close()

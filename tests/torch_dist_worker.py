@@ -13,7 +13,8 @@ The tests (``tests/test_torch_collectives.py``,
 ``tests/test_torch_sequence_parallel.py``,
 ``tests/test_torch_expert_parallel.py``,
 ``tests/test_torch_schedules.py``,
-``tests/test_torch_sharded_checkpoint.py``) compute their JAX references in
+``tests/test_torch_sharded_checkpoint.py``,
+``tests/test_torch_serving_dist.py``) compute their JAX references in
 the pytest process and hand numpy arrays
 to :func:`launch`, which starts
 ``world`` processes with the ``spawn`` start method. Each process joins a
@@ -1195,8 +1196,305 @@ def _mp_train(case, device):
     return out
 
 
+# ------------------------------------------------------------ serving
+
+
+def scorer_fns():
+    """``tests/test_serving.py``'s embedding scorer in torch: the loss, and
+    a serve_fn with one per-example leaf (``score``) and two scalars — a
+    float mean and an int max — that reduce over the ranks."""
+    def loss_fn(p, batch):
+        feat = p["emb"][torch.as_tensor(batch["ids"]).long()]
+        pred = feat @ p["w"] + p["b"]
+        return torch.mean((pred - torch.as_tensor(batch["y"])) ** 2)
+
+    def serve_fn(p, batch):
+        ids = torch.as_tensor(batch["ids"])
+        score = p["emb"][ids.long()] @ p["w"] + p["b"]
+        return {"score": score, "mean": torch.mean(score),
+                "top": torch.max(ids)}
+    return loss_fn, serve_fn
+
+
+def _serve_runner(builder_name, loss_fn, params, batch, device,
+                  optimizer=True):
+    import autodist_tpu_torch as adt
+    from autodist_tpu_torch import strategy
+    from autodist_tpu_torch.resource_spec import ResourceSpec
+    world = dist.get_world_size()
+    spec = ResourceSpec.from_dict({"nodes": [{
+        "address": "127.0.0.1", "chief": True,
+        "cpus": list(range(world))}]})
+    ad = adt.AutoDist(strategy_builder=getattr(strategy, builder_name)(),
+                      resource_spec=spec, device=device)
+    runner = ad.build(loss_fn, make_optimizer() if optimizer else None,
+                      params, batch)
+    runner.init(params)
+    return runner
+
+
+def _serve_engine_case(case, device):
+    """``InferenceEngine`` at N ranks under ``case["builder"]``: the chief
+    runs each request group of ``case["groups"]`` (the follower's loop
+    serves them); every rank first calls ``Runner.predict`` and
+    ``WrappedSession.predict`` on the whole batch (SPMD, the default
+    group); the default buckets and a non-multiple bucket's error."""
+    from autodist_tpu_torch.runtime.runner import WrappedSession
+    from autodist_tpu_torch.serving import InferenceEngine, ServingConfig
+    rank = dist.get_rank()
+    loss_fn, serve_fn = scorer_fns()
+    params = {n: torch.as_tensor(v) for n, v in case["params"].items()}
+    runner = _serve_runner(case["builder"], loss_fn, params, case["batch"],
+                           device)
+    feats = {"ids": case["batch"]["ids"]}
+    out = {"predict": runner.predict(feats, serve_fn),
+           "session": WrappedSession(runner).predict(feats, serve_fn)}
+    requests = case["requests"]
+    try:
+        InferenceEngine(runner, serve_fn, requests[0],
+                        ServingConfig(buckets=(3,)))
+    except ValueError as e:
+        out["bad_bucket"] = str(e)
+    default = InferenceEngine(runner, serve_fn, requests[0])
+    out["default_buckets"] = list(default.buckets)
+    default.close()
+    engine = InferenceEngine(runner, serve_fn, requests[0],
+                             ServingConfig(buckets=tuple(case["buckets"])))
+    engine.warmup()
+    if rank == 0:
+        out["groups"] = [engine.run_batch(requests[:n])[0]
+                         for n in case["groups"]]
+        out["rows"] = engine.predict(requests[:3])
+        engine.close()
+    else:
+        try:
+            engine.run_batch(requests[:1])
+        except ValueError as e:
+            out["follower_run_batch"] = str(e)
+        out["followed"] = engine.follow(timeout=120)
+    out["batches"] = engine.stats["batches"]
+    return _np(out)
+
+
+def _serve_decode_case(case, device):
+    """``DecodeEngine`` at N ranks on lm.tiny from the converted JAX init:
+    the chief submits ``case["prompts"]`` (caps, EOS) and collects the
+    tokens; every rank's stats; an indivisible slot count's error."""
+    from autodist_tpu_torch.convert import params_from_jax
+    from autodist_tpu_torch.models import lm
+    from autodist_tpu_torch.serving.decode import DecodeConfig, DecodeEngine
+    rank = dist.get_rank()
+    cfg = lm.LMConfig.tiny()
+    loss_fn, _, batch, _ = lm.make_train_setup(cfg, seq_len=16,
+                                               batch_size=8)
+    params = params_from_jax(case["jax_params"])
+    runner = _serve_runner("AllReduce", loss_fn, params, batch, device,
+                           optimizer=False)
+    setup = lm.make_decode_setup(cfg, case["decode_attn"])
+    out = {}
+    try:
+        DecodeEngine(runner, setup, DecodeConfig(slots=3, prefill_len=8))
+    except ValueError as e:
+        out["bad_slots"] = str(e)
+    engine = DecodeEngine(runner, setup, DecodeConfig(
+        slots=8, max_new_tokens=8, prefill_len=8, eos_id=case["eos_id"]))
+    engine.warmup()
+    if rank == 0:
+        futures = [engine.submit(p, max_new_tokens=m)
+                   for p, m in zip(case["prompts"], case["caps"])]
+        out["results"] = [f.result(timeout=120) for f in futures]
+        engine.close()
+    else:
+        try:
+            engine.submit(case["prompts"][0])
+        except ValueError as e:
+            out["follower_submit"] = str(e)
+        out["followed"] = engine.follow(timeout=120)
+        engine.close()
+    out["stats"] = {k: v for k, v in engine.stats().items()
+                    if isinstance(v, (int, float)) or v is None}
+    out["cache_slots"] = int(engine._dev_k.shape[0])
+    return _np(out)
+
+
+def _serve_batcher_case(case, device):
+    """``MicroBatcher`` at N ranks: four client threads on the chief
+    submit ``case["requests"]`` concurrently; then, with the chief's
+    dispatches held, a queue builds and ``preemption.drain_serving`` on
+    the chief sheds it and stops the follower's loop."""
+    import threading
+    from autodist_tpu_torch.runtime import preemption
+    from autodist_tpu_torch.serving import (InferenceEngine, MicroBatcher,
+                                            ServingConfig, ServingUnavailable)
+    rank = dist.get_rank()
+    loss_fn, serve_fn = scorer_fns()
+    params = {n: torch.as_tensor(v) for n, v in case["params"].items()}
+    runner = _serve_runner(case["builder"], loss_fn, params, case["batch"],
+                           device)
+    requests = case["requests"]
+    engine = InferenceEngine(runner, serve_fn, requests[0], ServingConfig(
+        buckets=(2, 8), max_delay_ms=5.0)).warmup()
+    mb = MicroBatcher(engine)
+    out = {}
+    if rank != 0:
+        try:
+            mb.submit(requests[0])
+        except ValueError as e:
+            out["follower_submit"] = str(e)
+        out["followed"] = engine.follow(timeout=120)
+        out["drained"] = mb.drain()
+        return _np(out)
+    rows = [None] * len(requests)
+
+    def client(lo):
+        for i in range(lo, len(requests), 4):
+            rows[i] = mb.submit(requests[i]).result(timeout=60)["score"]
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    out["rows"] = rows
+    out["stats"] = {k: mb.stats()[k] for k in ("requests", "fan_out",
+                                                "batches", "errors", "shed")}
+    hold = threading.Event()
+    real_run = engine.run_batch
+
+    def held(reqs):
+        hold.wait(timeout=60)
+        return real_run(reqs)
+    engine.run_batch = held
+    first = mb.submit(requests[0])
+    while mb.queue_depth():
+        threading.Event().wait(0.005)
+    threading.Event().wait(0.1)     # the worker is inside the held run
+    queued = [mb.submit(r) for r in requests[1:6]]
+    threading.Timer(0.2, hold.set).start()
+    out["shed"] = preemption.drain_serving(retry_after_s=2.5)
+    out["first"] = first.result(timeout=60)["score"]
+    typed = []
+    for f in queued:
+        try:
+            f.result(timeout=10)
+            typed.append(None)
+        except ServingUnavailable as e:
+            typed.append(e.retry_after_s)
+    out["typed"] = typed
+    try:
+        mb.submit(requests[0])
+    except ServingUnavailable as e:
+        out["late"] = e.retry_after_s
+    out["plane_stopped"] = engine._plane.stopped
+    return _np(out)
+
+
+def _serve_storage_case(case, device):
+    """Serving over stored shards: the sentinel tests' sharded-storage
+    problem under ``PartitionedAR()`` (each rank stores half of ``big``,
+    gathered whole on the engine's group for each dispatch), and the
+    tensor-parallel MLP under ``TensorParallel(2)``, whose serving
+    programs refuse (a model axis)."""
+    from autodist_tpu_torch.serving import InferenceEngine, ServingConfig
+    rank = dist.get_rank()
+    runner = _case_runner(dict(loss="big", init=case["big"],
+                               batches=[case["big_batch"]],
+                               builder="PartitionedAR"), device)
+
+    def serve_fn(p, batch):
+        return {"y": (torch.as_tensor(batch["x"]) @ p["big"]) @ p["w"]}
+    xs = case["big_batch"]["x"]
+    engine = InferenceEngine(runner, serve_fn, {"x": xs[0]},
+                             ServingConfig(buckets=(4, 8))).warmup()
+    out = {"stored": list(runner.state.params["big"].shape)}
+    if rank == 0:
+        out["y"] = engine.run_batch([{"x": x} for x in xs[:5]])[0]["y"]
+        engine.close()
+    else:
+        engine.follow(timeout=120)
+    import autodist_tpu_torch as adt
+    adt.reset()
+    runner = _case_runner(dict(loss="mlp", tp=2, init=case["mlp"],
+                               batches=[case["mlp_batch"]]), device)
+    dstep = runner.distributed_step
+    for what, build in (
+            ("predict", lambda: dstep.predict_program(
+                mlp_loss, example_batch=case["mlp_batch"])),
+            ("decode", lambda: dstep.decode_program(
+                mlp_loss, {"token": torch.zeros(4, dtype=torch.int32)}))):
+        try:
+            build()
+        except NotImplementedError as e:
+            out["refused_" + what] = str(e)
+    return _np(out)
+
+
+def _serve_faults_case(case, device):
+    """Failures at N ranks under ``PS()``, every rank refreshing the
+    snapshot at each dispatch (``snapshot_max_age_s=0``, one degraded
+    batch): the follower's store pull fails at its 3rd and 4th pulls —
+    the chief's 2nd request group then serves the follower's last
+    snapshot, the 3rd sheds typed on every rank, the 4th recovers; a
+    request that is not the feed's tree fails on every rank, and the
+    next group serves."""
+    from autodist_tpu_torch.serving import (InferenceEngine, ServingConfig,
+                                            ServingUnavailable)
+    rank = dist.get_rank()
+    loss_fn, serve_fn = scorer_fns()
+    params = {n: torch.as_tensor(v) for n, v in case["params"].items()}
+    runner = _serve_runner("PS", loss_fn, params, case["batch"], device)
+    dstep = runner.distributed_step
+    if rank != 0:
+        real_pull, pulls = dstep.pull_ps, []
+
+        def pull():
+            pulls.append(1)
+            if len(pulls) in (3, 4):
+                raise OSError("coordination service unreachable")
+            return real_pull()
+        dstep.pull_ps = pull
+    requests = case["requests"]
+    engine = InferenceEngine(runner, serve_fn, requests[0], ServingConfig(
+        buckets=(4,), snapshot_max_age_s=0.0, degraded_batches=1)).warmup()
+    out = {}
+    if rank == 0:
+        got = []
+        for group in ([requests[:3]] * 4 + [[{"user": np.int64(0)}]]
+                      + [requests[:3]]):
+            try:
+                got.append(engine.run_batch(group)[0]["score"])
+            except ServingUnavailable as e:
+                got.append("shed: %s" % e)
+            except Exception as e:  # noqa: BLE001 — recorded
+                got.append("error: %s" % type(e).__name__)
+        out["got"] = got
+        engine.close()
+    else:
+        out["followed"] = engine.follow(timeout=120)
+    out["stats"] = dict(engine.stats)
+    return _np(out)
+
+
+SERVE_CASES = {"engine": _serve_engine_case, "decode": _serve_decode_case,
+               "faults": _serve_faults_case,
+               "batcher": _serve_batcher_case,
+               "storage": _serve_storage_case}
+
+
+def serve_job(payload, device):
+    """Each case of ``payload`` (a list) in the same processes, in turn:
+    ``{"name", "kind": engine | decode | batcher, ...}``; returns ``{name:
+    this rank's result}``."""
+    import autodist_tpu_torch as adt
+    out = {}
+    for case in payload:
+        out[case["name"]] = SERVE_CASES[case["kind"]](case, device)
+        adt.reset()
+    return out
+
+
 JOBS = {"compressors": compressor_job, "train": train_job, "ckpt": ckpt_job,
         "ckpt_cross": ckpt_cross_job, "fused": fused_job, "async": async_job,
         "broadcast_bytes": broadcast_bytes_job, "tp": tp_job,
         "sentinel": sentinel_job, "schedule": schedule_job,
-        "sharded": sharded_job, "pp": pp_job, "sp": sp_job, "ep": ep_job}
+        "sharded": sharded_job, "pp": pp_job, "sp": sp_job, "ep": ep_job,
+        "serve": serve_job}
