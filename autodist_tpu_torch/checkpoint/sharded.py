@@ -225,6 +225,18 @@ def _sharded_local(dstep, name: str) -> bool:
     return (lay is not None and lay.partitioned) or name in dstep.mp_layouts
 
 
+def _data_rows(meta) -> Tuple[int, int]:
+    """(data-axis size, its row stride) of a saved ``[N, ...]`` sync
+    leaf: data index i of the save's mesh sits at row ``i * stride``, the
+    stride the product of the axes after the data axis (the JAX
+    ``leading_stride``); a mesh without a data axis counts as one."""
+    axes, shape = meta["mesh"]["axes"], meta["mesh"]["shape"]
+    if const.DATA_AXIS not in axes:
+        return 1, int(np.prod(shape or [1]))
+    p = list(axes).index(const.DATA_AXIS)
+    return int(shape[p]), int(np.prod(shape[p + 1:] or [1]))
+
+
 def _slot_vars(dstep) -> List[str]:
     """The variables with a slot in the device optimizer tree: every
     device variable but the ZeRO ones (their slots are ZeRO rows)."""
@@ -972,9 +984,10 @@ class ShardedSaver:
                 tuple(lm["shape"]), reader, groups, "")
             var = max((j for j in by_jax if jname.startswith(
                 "zero/%s/" % j)), key=len)
-            laid = relayout_zero_sync_leaf(saved, int(saved.shape[0]),
+            n_old, stride = _data_rows(meta)
+            laid = relayout_zero_sync_leaf(saved, n_old,
                                            dstep.zero_syncs[by_jax[var]],
-                                           topo.size)
+                                           topo.size, old_stride=stride)
             if laid is None:
                 reset.append(jname)
                 continue

@@ -32,7 +32,9 @@ is a Python callable with the signature the JAX program has.
 - :meth:`DistributedStep.evaluate`: forward-only metrics;
 - the serving programs (:meth:`DistributedStep.predict_program`,
   :meth:`DistributedStep.decode_program`), run under
-  ``torch.inference_mode()``, on one replica.
+  ``torch.inference_mode()`` with the mesh's axes bound; at N > 1 a
+  bucket (or the slots) splits over the batch axes only, and the rows
+  come back over the batch axes' group.
 
 The bf16 compute tier (``graph_config.compute_dtype="bf16"``) casts the
 f32 params and float batch leaves to bf16 inside the loss and the loss
@@ -78,8 +80,14 @@ consumes the slices with the model, pipe, seq and expert axes bound
 included. Those variables sync by the sum over the other mesh axes'
 groups, every other variable by the buckets and synchronizers over all
 ranks, each divided by N, every process (the JAX lowering's
-``psum(complement) / N``). The transform refuses, by name and at every
-replica count, the plan features the port has not reached.
+``psum(complement) / N``). Sharded storage lives on the data axis, as in
+the JAX lowering: a partitioned variable's shards and a ZeRO variable's
+flat optimizer shards split over the data axis's group, so the ranks of
+one data index hold the same shard; their gradients reduce-scatter there
+and then sum over the groups of the other axes, over N. A host-PS
+gradient is the mean over every rank, whatever the mesh. The transform
+refuses, by name and at every replica count, the plan features the port
+has not reached.
 
 With a health-sentinel policy (``runtime/sentinel.py``) the step guards
 its own update (the JAX ``_health_verdict``): the global gradient L2
@@ -200,13 +208,17 @@ class ForwardProgram:
 
     With ``world`` > 1 ranks a call is SPMD over ``group``: each rank runs
     :meth:`local` on its rows, the ranks agree on their status, then
-    :meth:`collect` all-gathers the per-example leaves in rank order
-    (those under a top-level key in ``keep_local`` stay on their rank:
-    the decode caches) and reduces the others as the JAX lowering does
-    (``pmean`` for floating types, ``pmax`` otherwise)."""
+    :meth:`collect` all-gathers the per-example leaves over
+    ``rows_group`` (the batch axes' block of ``rows_world`` ranks, in
+    its order; every rank of ``group`` without a mesh) — the ranks of one
+    model, pipe, seq or expert line ran the same rows — (those under a
+    top-level key in ``keep_local`` stay on their rank: the decode
+    caches) and reduces the others over ``group`` as the JAX lowering
+    does (``pmean`` for floating types, ``pmax`` otherwise)."""
 
     def __init__(self, fn: Callable, classify: Callable, group=None,
-                 world: int = 1, device=None, keep_local=()):
+                 world: int = 1, device=None, keep_local=(), *,
+                 rows_group, rows_world: int):
         self.fn = fn
         self._classify = classify
         self._mask = None
@@ -214,6 +226,7 @@ class ForwardProgram:
         self.world = int(world)
         self.device = device
         self.keep_local = frozenset(keep_local)
+        self.rows_group, self.rows_world = rows_group, int(rows_world)
 
     def local(self, state, ps_vals, batch):
         """This rank's outputs on its rows, nothing gathered."""
@@ -248,9 +261,9 @@ class ForwardProgram:
                 return leaf
             if is_batch:
                 top = path_name(path[:1])
-                if top in self.keep_local:
+                if top in self.keep_local or self.rows_world <= 1:
                     return leaf
-                return _gather_rows(leaf, self.group, self.world)
+                return _gather_rows(leaf, self.rows_group, self.rows_world)
             return _reduce_replicated(leaf, self.group, self.world)
         with torch.inference_mode():
             return pytree.tree_map_with_path(
@@ -539,7 +552,14 @@ class DistributedStep:
         # a mesh
         self.mesh = self.replica_info.mesh
         if self.mesh is not None and self.num_replicas > 1:
-            self.mesh.build_groups()
+            # the batch axes' blocks too: the serving rows gather there
+            self.mesh.build_groups(joint=[self.replica_info.batch_axes])
+        # the data axis, where sharded storage (partitioned, ZeRO) lives:
+        # its size and this rank's index on it (every process without a
+        # mesh)
+        self.n_data = self._mesh_axis_sizes().get(const.DATA_AXIS, 1)
+        self.data_rank = (self.mesh.axis_index(const.DATA_AXIS)
+                          if self.mesh is not None else self.rank)
         # host-resident PS variables (parallel/ps.py): their values and
         # optimizer state rest in the store, off the device state
         self.ps_plans: Dict[str, ps_lib.PSVarPlan] = {}
@@ -616,7 +636,7 @@ class DistributedStep:
                     self.device)
             zero_names = self._zero_nodes()
             layouts = VariablePartitioner.apply(
-                strategy, model_item.var_infos, self.num_replicas,
+                strategy, model_item.var_infos, self.n_data,
                 self._mesh_axis_sizes())
             self.mp_layouts = {n: lay for n, lay in layouts.items()
                                if lay.mp_axes}
@@ -633,9 +653,11 @@ class DistributedStep:
             self._check_grad_plan()
         # sharded storage's share of the verdict's sums: a leaf sharded
         # over mesh axes of total size S is held by N/S ranks, so the sum
-        # over the ranks of local * S/N is the global value
-        self._shard_frac = {n: 1.0 for n in self.layouts}
-        self._shard_frac.update({n: 1.0 for n in self.zero_syncs})
+        # over the ranks of local * S/N is the global value (partitioned
+        # and ZeRO storage: S is the data axis)
+        data_frac = float(self.n_data) / self.num_replicas
+        self._shard_frac = {n: data_frac for n in self.layouts}
+        self._shard_frac.update({n: data_frac for n in self.zero_syncs})
         for n, lay in self.mp_layouts.items():
             self._shard_frac[n] = float(np.prod(
                 [self.mesh.axis_size(a) for a in lay.mp_axis_names])
@@ -690,6 +712,36 @@ class DistributedStep:
             return dict(self.mesh.axes)
         return {const.DATA_AXIS: self.num_replicas}
 
+    def _data_group(self, mesh=None, group=None):
+        """The data axis's group on ``mesh`` (this plan's when None; a
+        data axis over every process takes the mesh's full group);
+        ``group`` (None: the default group) without a mesh or a data axis
+        of more than one rank."""
+        mesh = mesh if mesh is not None else self.mesh
+        if mesh is None or self.n_data <= 1:
+            return group
+        return mesh.group(const.DATA_AXIS)
+
+    def _extra_groups(self) -> list:
+        """The groups of the mesh's axes of size > 1 other than the data
+        axis, in the mesh's order: sharded storage's gradient sums over
+        them after the data axis's reduce-scatter."""
+        if self.mesh is None:
+            return []
+        return [self.mesh.group(a) for a, n in self.mesh.axes.items()
+                if a != const.DATA_AXIS and n > 1]
+
+    def _zero_stride(self) -> int:
+        """The data axis's row stride in the ``[N, ...]`` rows of a
+        gathered sync state: the product of the axes after it (the JAX
+        ``leading_stride``)."""
+        if self.mesh is None:
+            return 1
+        axes = list(self.mesh.axes)
+        after = axes[axes.index(const.DATA_AXIS) + 1:] \
+            if const.DATA_AXIS in axes else []
+        return int(np.prod([self.mesh.axes[a] for a in after] or [1]))
+
     def _zero_nodes(self) -> list:
         """The trainable variables a ZeroSharded synchronizer names; the
         combinations the JAX lowering refuses (ADT312) raise here with its
@@ -716,10 +768,13 @@ class DistributedStep:
                     "variable" % (node.var_name,
                                   "mp_axes" if node.mp_axes
                                   else "partitioner"))
-            if self.num_replicas <= 1:
+            if self.n_data <= 1:
+                # one data replica: nothing to shard; the node syncs by
+                # the plain mean all-reduce (_build_synchronizers)
                 logging.info("var %s: ZeroSharded on a single data replica "
                              "degrades to plain AllReduce sync",
                              node.var_name)
+                continue
             out.append(node.var_name)
         return out
 
@@ -734,12 +789,15 @@ class DistributedStep:
         the host-PS variables and the sparse-wire tables keep out of all
         of them, as in the JAX lowering."""
         N, item = self.num_replicas, self.model_item
-        rank = self.rank
+        data_group, extra = self._data_group(), self._extra_groups()
         for n in zero_names:
             info = item.var_infos[n]
             self.zero_syncs[n] = ZeroSynchronizer(
                 n, self.strategy.find(n).synchronizer, info.shape,
-                info.dtype, N, rank, collective_name=info.collective_name)
+                info.dtype, self.n_data, self.data_rank, N,
+                collective_name=info.collective_name,
+                process_group=data_group, extra_groups=extra,
+                leading_stride=self._zero_stride())
         for node in self.strategy.node_config:
             info = item.var_infos.get(node.var_name)
             if (info is None or not info.trainable
@@ -765,12 +823,20 @@ class DistributedStep:
             if cfg is None:
                 raise ValueError("no synchronizer for var %s"
                                  % node.var_name)
+            if cfg.kind == "ZeroSharded":
+                # one data replica (_zero_nodes): the plain mean
+                # all-reduce is the same update with nothing to shard
+                from autodist_tpu_torch.strategy.base import \
+                    AllReduceSynchronizer as ARConfig
+                cfg = ARConfig()
             kernel = (PSSynchronizer if cfg.kind == "PS"
                       else AllReduceSynchronizer)
             self.syncs[node.var_name] = kernel(
                 node.var_name, cfg, N,
                 collective_name=info.collective_name,
-                layout=self.layouts.get(node.var_name))
+                layout=self.layouts.get(node.var_name),
+                data_group=data_group, n_data=self.n_data,
+                extra_groups=extra)
             if kernel is AllReduceSynchronizer and \
                     self._wants_hier(cfg.spec, cfg.schedule):
                 self.syncs[node.var_name].host_groups = self._host_groups()
@@ -864,7 +930,7 @@ class DistributedStep:
                 4.0 * len(self.optimizer.slots) * sum(
                     i.num_elements for i in infos.values())
             params_total = float(item.total_bytes()) or 1.0
-            N = self.num_replicas
+            N = self.n_data
             zero_saved = sum(opt_total * infos[n].byte_size / params_total
                              * (N - 1) / N for n in self.zero_syncs)
         sched = self.schedule
@@ -1054,7 +1120,8 @@ class DistributedStep:
                 # the count lives on the device even when every variable
                 # is host-resident
                 opt_state["count"] = opt_state["count"].to(self.device)
-        rank, N = self.rank, self.num_replicas
+        # a partitioned variable keeps its data index's shard
+        rank, N = self.data_rank, self.n_data
         for n, lay in self.layouts.items():
             placed[n] = lay.local(placed[n], rank, N)
             for slot in self._slots():
@@ -1076,7 +1143,9 @@ class DistributedStep:
             own = self._own_row(sync_state, sync)
         if own is not None:
             sync = own
-        elif zero_full:
+        if zero_full:
+            # the full moments re-shard exactly, whatever mesh the saved
+            # rows were laid out on (a plain checkpoint does not say)
             for n, zs in self.zero_syncs.items():
                 little = sync["zero"][n]
                 if "count" in little:
@@ -1106,7 +1175,9 @@ class DistributedStep:
         the device; None when the tree does not fit this plan (other
         buckets or synchronizers, another replica count). A ZeRO
         variable's shards saved at another replica count are re-laid for
-        this one (``relayout_zero_sync_leaf``)."""
+        this one, the saved rows taken as data shards
+        (``relayout_zero_sync_leaf``; :meth:`init_state` re-shards the
+        full moments instead where it has them)."""
         from autodist_tpu_torch.kernel.synchronization.zero_synchronizer \
             import relayout_zero_sync_leaf
         if "sentinel" in fresh or "sentinel" in gathered:
@@ -1150,15 +1221,16 @@ class DistributedStep:
         return _map_named(lambda k, w: got[k][rank].to(
             self.device, w.dtype, copy=True), fresh)
 
-    def _full_params(self, params, group=None) -> dict:
+    def _full_params(self, params, group=None, mesh=None) -> dict:
         """The params with each partitioned variable all-gathered whole
-        (its storage holds this rank's shard), over ``group`` (the
-        default group when None)."""
+        (its storage holds its data index's shard) over the data axis's
+        group (:meth:`_data_group` of ``mesh`` and ``group``)."""
         if not self.layouts:
             return params
         full = dict(params)
+        data = self._data_group(mesh, group)
         for n, lay in self.layouts.items():
-            full[n] = lay.gather_full(params[n], group, self.num_replicas)
+            full[n] = lay.gather_full(params[n], data, self.n_data)
         return full
 
     def _loss(self, params, batch, grad: bool = False):
@@ -1804,20 +1876,20 @@ class DistributedStep:
         if not (self.layouts or self.mp_layouts or self.zero_syncs
                 or self.ps_store) or not opt:
             return opt
-        N = self.num_replicas
+        n_data, data = self.n_data, self._data_group()
         if self.ps_store is not None:
             self.flush_ps()
         out = dict(opt)
         for slot in self._slots():
             out[slot] = dict(opt[slot])
             for n, lay in self.layouts.items():
-                out[slot][n] = lay.gather_full(opt[slot][n], None, N)
+                out[slot][n] = lay.gather_full(opt[slot][n], data, n_data)
             for n, lay in self.mp_layouts.items():
                 out[slot][n] = lay.mp_gather(opt[slot][n], self.mesh)
             for n, zs in sorted(self.zero_syncs.items()):
                 shard = state.sync_state["zero"][n][slot]["v"]
                 out[slot][n] = zs.unshard(
-                    [collectives.all_gather_flat(shard, None, N)])
+                    [collectives.all_gather_flat(shard, data, n_data)])
             for n in self.ps_store.var_names if self.ps_store else ():
                 out[slot][n] = self.ps_store.full_opt_leaf(
                     slot, n).to(self.device)
@@ -1945,25 +2017,24 @@ class DistributedStep:
             del self._ps_pipe_obj
         self._flush_ps_carry()
 
-    def _serving_refusals(self, what: str):
-        """A serving program over a model, pipe, seq or expert axis of size
-        > 1 raises, naming the ROADMAP item that ports it: each rank then
-        holds a slice of the model, which the data-parallel serving split
-        does not gather."""
-        if self.mesh is None or self.num_replicas <= 1:
-            return
-        axes = {a: n for a, n in self.mesh.axes.items()
-                if a != const.DATA_AXIS and n > 1}
-        if axes:
-            raise NotImplementedError(
-                "%s under the mesh axes %s with %d replicas is not ported "
-                "yet (ROADMAP A item 16)" % (what, axes, self.num_replicas))
+    def _serving_groups(self, group=None, mesh=None):
+        """``(mesh, rows_group, rows_world)`` of a serving program: the
+        mesh whose axes its calls bind (``mesh``, a serving plane's copy
+        of this plan's whose full group is ``group``, or this plan's), and
+        the group of this rank's block of the batch axes, over which its
+        rows gather, with its size B (``group`` without a mesh)."""
+        mesh = mesh if mesh is not None else self.mesh
+        if mesh is None:
+            return None, group, self.num_replicas
+        B = self.replica_info.num_replicas
+        rows = mesh.group_of(self.replica_info.batch_axes) if B > 1 else None
+        return mesh, rows, B
 
     def local_slots(self, slots: int) -> int:
         """This rank's share of a decode engine's ``slots`` (the slot dim
-        shards over the batch axes, rank r holding slots ``[r*S/N,
-        (r+1)*S/N)``); the JAX lowering's ``ValueError`` when ``slots``
-        does not divide."""
+        shards over the B batch replicas, the rank at batch index b
+        holding slots ``[b*S/B, (b+1)*S/B)``); the JAX lowering's
+        ``ValueError`` when ``slots`` does not divide."""
         n = self.replica_info.num_replicas
         if slots % n:
             raise ValueError(
@@ -1972,10 +2043,15 @@ class DistributedStep:
                 "data-parallel degree" % (slots, n))
         return slots // n
 
-    def _run(self, fn, state, ps_vals, payload, group=None):
+    def _run(self, fn, state, ps_vals, payload, group=None, mesh=None):
+        """``fn(full params, payload)`` with ``mesh``'s model-parallel
+        axes bound (the JAX ``shard_map`` scope): each partitioned
+        variable gathered over the data axis, each model-parallel one
+        left as this rank's slice, the host-PS values filled in."""
         with torch.inference_mode(), tel.span("dstep.dispatch", "dstep",
-                                              fused=False):
-            params = self._full_params(state.params, group)
+                                              fused=False), \
+                mesh_lib.bind(mesh):
+            params = self._full_params(state.params, group, mesh)
             if ps_vals:
                 params = dict(params)
                 params.update(self._ps_dewire(ps_vals))
@@ -1986,7 +2062,7 @@ class DistributedStep:
     def predict_program(self, serve_fn: Callable,
                         donate_batch: bool = True,
                         example_batch=None, group=None,
-                        keep_local=()) -> ForwardProgram:
+                        keep_local=(), mesh=None) -> ForwardProgram:
         """The forward-only FETCH program behind the serving engine:
         ``serve_fn(full_params, batch)`` with no grads, the host-PS
         variables from ``ps_vals`` (a :meth:`pull_ps` snapshot). Returns
@@ -1994,13 +2070,20 @@ class DistributedStep:
         device.
 
         With N replicas the call is SPMD: ``batch`` is this rank's rows
-        (the remapper's split of the global batch), each rank runs them
-        on the full params (partitioned variables all-gathered) plus the
-        PS values, and the per-example outputs come back as the global
-        batch on every rank; the others reduce like eval metrics. Its
-        collectives run on ``group`` (the default group when None; a
-        serving engine passes its plane's), and ``keep_local`` names
-        top-level fetch keys whose per-example leaves stay on their rank.
+        (the remapper's split of the global batch over the batch axes:
+        the ranks of one model, pipe or seq line take the same rows),
+        each rank runs them on its params (partitioned variables
+        all-gathered over the data axis, model-parallel ones as this
+        rank's slices, the mesh's axes bound, as the JAX program's
+        ``shard_map`` binds them) plus the PS values, and the
+        per-example outputs come back as the global batch on every rank,
+        gathered over the batch axes' group; the others reduce like eval
+        metrics over every rank. Its status and reductions run on
+        ``group`` (the default group when None; a serving engine passes
+        its plane's) and its axes on ``mesh``'s groups (this plan's mesh
+        when None; a serving engine passes its plane's copy), and
+        ``keep_local`` names top-level fetch keys whose per-example
+        leaves stay on their rank.
 
         ``example_batch`` fixes the feed structure and classifies the
         outputs: an output leaf whose leading dim equals this rank's row
@@ -2010,18 +2093,21 @@ class DistributedStep:
         ``donate_batch`` is accepted for signature parity: eager programs
         free a request's buffers when the caller drops them."""
         del donate_batch
-        self._serving_refusals("predict_program")
         if example_batch is None:
             example_batch = self.model_item.example_batch
         _, spec = pytree.tree_flatten(example_batch)
-        key = (serve_fn, str(spec), id(group), tuple(sorted(keep_local)))
+        key = (serve_fn, str(spec), id(group), tuple(sorted(keep_local)),
+               id(mesh))
         if key not in self._predict_progs:
             from autodist_tpu_torch.remapper import Remapper
             remapper = Remapper(self.device, self.replica_info)
             rows = _leading_rows(remapper.shard_host(example_batch))
+            bound, rows_group, rows_world = self._serving_groups(group,
+                                                                 mesh)
 
             def run(state, ps_vals, batch):
-                return self._run(serve_fn, state, ps_vals, batch, group)
+                return self._run(serve_fn, state, ps_vals, batch, group,
+                                 bound)
 
             def classify(state, ps_vals, batch, out):
                 if _leading_rows(batch) != rows:
@@ -2030,12 +2116,13 @@ class DistributedStep:
                 return _classify(out, rows)
             self._predict_progs[key] = ForwardProgram(
                 run, classify, group=group, world=self.num_replicas,
-                device=self.device, keep_local=keep_local)
+                device=self.device, keep_local=keep_local,
+                rows_group=rows_group, rows_world=rows_world)
         return self._predict_progs[key]
 
     def decode_program(self, decode_fn: Callable, example_dstate,
                        slots: Optional[int] = None,
-                       group=None) -> ForwardProgram:
+                       group=None, mesh=None) -> ForwardProgram:
         """The decode-STEP program behind continuous batching:
         ``decode_fn(full_params, dstate)`` where ``dstate`` carries the
         slot-major KV caches and per-slot token/cursor/alive. The caches
@@ -2047,27 +2134,31 @@ class DistributedStep:
 
         ``example_dstate`` is this rank's state: ``slots`` (the engine's
         whole slot count; the example's with one replica) shards over the
-        batch axes, rank r holding slots ``[r*S/N, (r+1)*S/N)``, and an
-        indivisible count raises the JAX ``ValueError``. With N replicas
-        the per-slot outputs come back whole on every rank (all-gathered
-        over ``group`` in rank order) but the caches (the remapper's
-        ``CACHE_KEYS``), which stay on their rank; the rest reduces like
-        eval metrics."""
-        self._serving_refusals("decode_program")
+        B batch replicas, batch index b holding slots ``[b*S/B,
+        (b+1)*S/B)`` (the ranks of one model line hold the same slots),
+        and an indivisible count raises the JAX ``ValueError``. With N
+        replicas the per-slot outputs come back whole on every rank
+        (all-gathered over the batch axes' group in its order) but the
+        caches (the remapper's ``CACHE_KEYS``), which stay on their rank;
+        the rest reduces like eval metrics over ``group``; the mesh's axes
+        are bound as in :meth:`predict_program`."""
         local = _leading_rows(example_dstate)
         if slots is not None and self.local_slots(int(slots)) != local:
             raise ValueError(
                 "decode state holds %d slots; this rank's share of %d "
                 "slots is %d" % (local, slots, self.local_slots(slots)))
         _, spec = pytree.tree_flatten(example_dstate)
-        key = (decode_fn, str(spec), id(group))
+        key = (decode_fn, str(spec), id(group), id(mesh))
         if key not in self._decode_progs:
+            bound, rows_group, rows_world = self._serving_groups(group,
+                                                                 mesh)
             self._decode_progs[key] = ForwardProgram(
                 lambda state, ps_vals, dstate: self._run(
-                    decode_fn, state, ps_vals, dstate, group),
+                    decode_fn, state, ps_vals, dstate, group, bound),
                 lambda state, ps_vals, dstate, out: _classify(out, local),
                 group=group, world=self.num_replicas, device=self.device,
-                keep_local=CACHE_KEYS)
+                keep_local=CACHE_KEYS, rows_group=rows_group,
+                rows_world=rows_world)
         return self._decode_progs[key]
 
 
@@ -2093,9 +2184,8 @@ class GraphTransformer:
     def _refuse_unported(self):
         """Plan features the port has not reached raise, naming the
         ROADMAP item that ports them; none is ignored. With more than one
-        process: a mesh axis other than data, model, pipe, seq and expert,
-        and a model, pipe, seq or expert axis of size > 1 beside host PS,
-        ZeRO or partitioned storage."""
+        process: a mesh axis other than data, model, pipe, seq and expert
+        (the JAX package has no other either)."""
         gc = self._strategy.graph_config
         N = self._replicas.num_processes
 
@@ -2110,18 +2200,6 @@ class GraphTransformer:
                        set(mesh_lib.MODEL_PARALLEL_AXES))
         if other:
             refuse("the mesh axes %s" % other, 9)
-        sharded = [a for a in mesh_lib.MODEL_PARALLEL_AXES
-                   if mesh.get(a, 1) > 1]
-        for node in self._strategy.node_config:
-            cfgs = [node.synchronizer] if node.synchronizer is not None \
-                else [p.synchronizer for p in node.part_configs or ()]
-            if sharded and (node.partitioner or any(
-                    c is not None and c.kind in ("PS", "ZeroSharded")
-                    for c in cfgs)):
-                refuse("a %s axis of size %d beside the %s of %s"
-                       % (sharded[0], mesh[sharded[0]],
-                          "partitioned storage" if node.partitioner
-                          else "host-PS or ZeRO sync", node.var_name), 9)
 
     def _check_step_fn(self, replicas: int):
         """step_fn mode (the JAX ``_transform_step_fn``'s refusals): the

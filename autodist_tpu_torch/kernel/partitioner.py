@@ -3,8 +3,13 @@ optimizer state.
 
 PyTorch counterpart of ``autodist_tpu/kernel/partitioner.py``. A
 partitioned variable is stored as this rank's shard: the split axis is
-zero-padded to a multiple of the replica count (ceil-split, so every
-shard has one shape) and rank r keeps the r-th slice. The step
+zero-padded to a multiple of the data axis's size (every process without
+a mesh; ceil-split, so every shard has one shape) and the rank at data
+index i keeps the i-th slice: the ranks of one data index (a model, pipe,
+seq or expert line) hold the same shard, as on the JAX mesh, whose
+layouts live on its data axis. The partitioner string's shard count is
+kept as metadata (``num_shards``), as in the JAX package, even where it
+is smaller than the axis. The step
 all-gathers the full value before the loss (:meth:`VarLayout.gather_full`)
 and reduce-scatters the full gradient back to the shard
 (:meth:`VarLayout.reduce_scatter_grad_launch`, one ``all_to_all_single``
@@ -51,7 +56,8 @@ class VarLayout:
     partitioned: bool = False
     axis: int = 0                 # split axis (of the JAX layout)
     orig_dim: int = 0             # original size of the split axis
-    padded_dim: int = 0           # padded size (multiple of the replicas)
+    padded_dim: int = 0           # padded size (multiple of the axis size)
+    num_shards: int = 1           # the strategy's shard count (metadata)
     # the JAX layout of the variable: its JAX name and flax shape, and
     # the port's shape (none: the port's tensor is split as it is)
     jax_name: str = ""
@@ -189,8 +195,8 @@ class VariablePartitioner:
     variables whose node has ``mp_axes`` get a model-parallel layout over
     the mesh (``mesh_axis_sizes``, by default the data axis alone);
     variables whose node has a ``partitioner`` string get a partitioned
-    layout over the replicas; everything else is replicated (the JAX
-    ``VariablePartitioner``)."""
+    layout over the data axis, of ``num_replicas`` ranks (its size);
+    everything else is replicated (the JAX ``VariablePartitioner``)."""
 
     @staticmethod
     def apply(strategy: Strategy, var_infos, num_replicas: int,
@@ -224,6 +230,7 @@ class VariablePartitioner:
             layouts[node.var_name] = VarLayout(
                 name=node.var_name, partitioned=True, axis=axis,
                 orig_dim=dim, padded_dim=padded,
+                num_shards=node.num_shards,
                 jax_name=info.collective_name, flax_shape=flax_shape,
                 shape=tuple(info.shape))
         for name in var_infos:

@@ -8,8 +8,11 @@ the ``Int8CompressorEF`` wire codec when no compressor is named; the
 bucketing layer arms it (``parallel/collectives.py::bucket_reduce``).
 A partitioned variable (``layout.partitioned``) takes the
 reduce-scatter path instead: each rank receives the summed gradient of
-its own shard (``kernel/partitioner.py``); a compressor or the int8 wire
-is ignored there, with a warning, as in the JAX kernel.
+its own shard (``kernel/partitioner.py``) over the data axis's group
+(``data_group``, ``n_data``), then its sum over the groups of the mesh's
+other axes of size > 1 (``extra_groups``), divided by every process (the
+JAX kernel's ``psum_extra`` of the reduce-scatter); a compressor or the
+int8 wire is ignored there, with a warning, as in the JAX kernel.
 ``group`` (the bucket id), ``spec`` and ``schedule`` are recorded for the
 bucketing layer, and pick this variable's sum (:meth:`psum`, the JAX
 kernel's): ``schedule="rhd"`` is the reduce-scatter + all-gather
@@ -38,9 +41,11 @@ class AllReduceSynchronizer(Synchronizer):
     host_groups = None
 
     def __init__(self, var_name, config, num_replicas, process_group=None,
-                 collective_name: str = "", layout=None):
+                 collective_name: str = "", layout=None, *, n_data: int,
+                 data_group=None, extra_groups=()):
         super().__init__(var_name, config, num_replicas, process_group)
         self.layout = layout
+        self._set_data_axis(data_group, n_data, extra_groups)
         partitioned = layout is not None and layout.partitioned
         # PowerSGD seeds its Q from the name: the JAX spelling, so every
         # rank (and the JAX package) derives it from the same string
@@ -64,6 +69,13 @@ class AllReduceSynchronizer(Synchronizer):
             logging.warning("var %s: wire_dtype=int8 is ignored on the "
                             "partitioned (reduce-scatter) path (ADT310)",
                             var_name)
+
+    def _set_data_axis(self, data_group, n_data, extra_groups):
+        """Where a partitioned variable's reduce-scatter runs: over the
+        data axis (``n_data`` ranks of ``data_group``, None: the default
+        group), then the sum over each extra axis's group."""
+        self.data_group, self.n_data = data_group, int(n_data)
+        self.extra_groups = tuple(extra_groups)
 
     def psum(self, x):
         """The sum over the replicas this variable's schedule names (the
@@ -95,9 +107,15 @@ class AllReduceSynchronizer(Synchronizer):
         N = self.num_replicas
         if self.layout is not None and self.layout.partitioned:
             pending = self.layout.reduce_scatter_grad_launch(
-                grad, self.process_group, N, async_op)
-            return collectives.Pending((), lambda: (pending.wait() / N,
-                                                    state))
+                grad, self.data_group, self.n_data, async_op)
+
+            def finish():
+                local = pending.wait()
+                for extra in self.extra_groups:
+                    local = collectives.all_reduce_sum_launch(
+                        local, extra).wait()
+                return local / N, state
+            return collectives.Pending((), finish)
         if self.compressor.name == "NoneCompressor" and self._scheduled():
             return collectives.done((self.psum(grad) / N, state))
         if self.compressor.name == "NoneCompressor":

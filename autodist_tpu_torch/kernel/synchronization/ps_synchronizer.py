@@ -24,10 +24,12 @@ from autodist_tpu_torch.utils import logging
 
 class PSSynchronizer(AllReduceSynchronizer):
     def __init__(self, var_name, config, num_replicas, process_group=None,
-                 collective_name: str = "", layout=None):
+                 collective_name: str = "", layout=None, *, n_data: int,
+                 data_group=None, extra_groups=()):
         Synchronizer.__init__(self, var_name, config, num_replicas,
                               process_group)
         self.layout = layout
+        self._set_data_axis(data_group, n_data, extra_groups)
         self.compressor = compressor_lib.create(None, collective_name
                                                 or var_name)
         self.wire_dtype = "fp32"

@@ -10,9 +10,11 @@ phases:
 1. :meth:`ZeroSynchronizer.reduce_scatter_launch` — the full gradient
    flattens in the JAX package's element order (``convert.to_jax_layout``:
    a Dense ``weight [out, in]`` as flax's ``[in, out]``), pads to
-   ``n_data`` uniform flat shards and reduce-scatters over the replicas
-   (each rank receives the summed gradient of the shard it owns), then
-   mean-normalizes;
+   ``n_data`` uniform flat shards and reduce-scatters over the data axis
+   (each rank receives the summed gradient of the shard it owns), sums
+   that shard over the groups of the mesh's other axes of size > 1, then
+   divides by every process (the JAX ``psum_scatter`` over the data axis
+   and ``psum`` over the extra axes, over all devices);
 2. the lowering applies the optimizer to the owned shard only
    (``optim.OptimizerSpec.delta`` on a little ``{"v": shard}`` tree),
    against the variable's optimizer-state shard, created sharded in
@@ -25,7 +27,12 @@ phases:
 Because the flat order is the JAX package's, each rank's shard holds the
 same elements as the JAX replica's at that data index: the
 ``sync_state['zero']`` leaves are the JAX package's as they are, and the
-int8 wire's scale blocks cover the same elements in both packages.
+int8 wire's scale blocks cover the same elements in both packages. Under
+a mesh (``parallel/mesh.py``) the shards follow the data axis alone: the
+ranks of one data index (a model, pipe, seq or expert line) hold the same
+shard, and the ``[N, ...]`` rows of a checkpoint put data index i at row
+``i * leading_stride`` (the JAX ``leading_stride``: the product of the
+axes after the data axis).
 
 ``wire_dtype="int8"`` swaps both crossings for the blockwise-quantized
 forms (``collectives.int8_block_reduce_scatter`` /
@@ -72,24 +79,32 @@ def zero_wire_payload_bytes(num_elements: int, n_data: int,
     return float(padded) * 4.0
 
 
-def relayout_zero_sync_leaf(saved, n_old: int, zs, n_new: int):
-    """Re-lay one saved ``sync_state['zero']`` leaf (``[n_old, ...]``,
-    row r rank r's) for ``n_new`` ranks: concatenate the saved shard rows
-    into the global flat value, re-pad to the new shard size, and split
-    into one row a new rank. Returns the ``[n_new, ...]`` array, or
-    ``None`` when the leaf cannot be re-laid (the caller starts fresh).
-    ``zs`` is the new plan's :class:`ZeroSynchronizer` of the variable."""
+def relayout_zero_sync_leaf(saved, n_old: int, zs, n_new: int,
+                            old_stride: int = 1):
+    """Re-lay one saved ``sync_state['zero']`` leaf (``[rows, ...]``, row
+    r rank r's) for ``n_new`` ranks: concatenate the saved shards of the
+    ``n_old`` data indexes (data index i at row ``i * old_stride``) into
+    the global flat value, re-pad to the new shard size, and give rank r
+    the shard of its data index (``(r // zs.leading_stride) %
+    zs.n_data``, the JAX function's rule). Returns the ``[n_new, ...]``
+    array, or ``None`` when the leaf cannot be re-laid (the caller starts
+    fresh). ``zs`` is the new plan's :class:`ZeroSynchronizer` of the
+    variable."""
     saved = np.asarray(saved)
     if saved.ndim == 1:
         # shared little leaf (the optimizer count): replica-identical
         return np.broadcast_to(saved[:1], (n_new,)).copy()
-    if saved.ndim != 2 or saved.shape[0] != n_old:
+    old_stride = max(int(old_stride), 1)
+    if saved.ndim != 2 or saved.shape[0] < n_old * old_stride:
         return None
-    flat_old = saved.reshape(-1)
-    flat_new = np.zeros(n_new * zs.shard_elems, saved.dtype)
+    flat_old = np.concatenate([saved[i * old_stride]
+                               for i in range(n_old)])
+    flat_new = np.zeros(zs.n_data * zs.shard_elems, saved.dtype)
     m = min(flat_old.shape[0], flat_new.shape[0], zs.num_elements)
     flat_new[:m] = flat_old[:m]
-    return flat_new.reshape(n_new, zs.shard_elems)
+    blocks = flat_new.reshape(zs.n_data, zs.shard_elems)
+    return np.stack([blocks[(r // zs.leading_stride) % zs.n_data]
+                     for r in range(n_new)])
 
 
 class ZeroSynchronizer:
@@ -98,16 +113,26 @@ class ZeroSynchronizer:
     phases of the step."""
 
     def __init__(self, var_name: str, config, shape, dtype: str,
-                 n_data: int, rank: int, collective_name: str = "",
-                 process_group=None):
+                 n_data: int, rank: int, total: int,
+                 collective_name: str = "", process_group=None,
+                 extra_groups=(), leading_stride: int = 1):
         self.var_name = var_name
         self.shape = tuple(int(d) for d in shape)
         self.dtype = dtype
+        # the data axis: its size, this rank's index on it and its group
+        # (None: the default group)
         self.n_data = max(int(n_data), 1)
         self.rank = int(rank)
         # the JAX name: the flat element order is that variable's in flax
         self.collective_name = collective_name or var_name
         self.process_group = process_group
+        # the groups of the mesh's other axes of size > 1, whose ranks
+        # hold the same shard, and every process of the job (the mean's
+        # divisor)
+        self.extra_groups = tuple(extra_groups)
+        self.total = int(total)
+        # the data axis's row stride in a checkpoint's [N, ...] rows
+        self.leading_stride = max(int(leading_stride), 1)
         self.wire_dtype = getattr(config, "wire_dtype", "fp32") or "fp32"
         self.num_elements = int(np.prod(self.shape or (1,)))
         self.shard_elems = zero_shard_elems(self.num_elements, self.n_data,
@@ -124,7 +149,9 @@ class ZeroSynchronizer:
     def reduce_scatter_launch(self, grad_full: torch.Tensor,
                               async_op: bool = False):
         """Launch phase 1: full gradient -> this rank's mean-normalized
-        ``[shard_elems]`` flat chunk (a ``collectives.Pending``)."""
+        ``[shard_elems]`` flat chunk (a ``collectives.Pending``): the
+        reduce-scatter over the data axis, then the sum over each extra
+        axis's group, over every process."""
         flat = self._pad_flat(grad_full)
         n, group = self.n_data, self.process_group
         if self.wire_dtype == "int8":
@@ -133,8 +160,14 @@ class ZeroSynchronizer:
         else:
             pending = collectives.reduce_scatter_flat_launch(
                 flat, group, n, async_op)
-        return collectives.Pending((), lambda: (
-            pending.wait()[:self.shard_elems] / self.n_data))
+
+        def finish():
+            local = pending.wait()[:self.shard_elems]
+            for extra in self.extra_groups:
+                local = collectives.all_reduce_sum_launch(local,
+                                                          extra).wait()
+            return local / self.total
+        return collectives.Pending((), finish)
 
     def local_shard(self, param_full: torch.Tensor) -> torch.Tensor:
         """This rank's owned ``[shard_elems]`` flat f32 slice of a full

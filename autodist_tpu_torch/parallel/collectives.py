@@ -41,8 +41,10 @@ are given, on whatever device the tensors are on: the same calls serve
 NCCL and gloo (gloo runs ``all_to_all_single``, ``all_gather`` and
 ``all_reduce`` on CUDA tensors by staging them through the host).
 
-The hierarchical and recursive halving/doubling psums and the ring
-variants of the JAX module are not ported yet (ROADMAP A item 7).
+The recursive halving/doubling psum (:func:`rhd_psum`) and the
+hierarchical one over the resource spec's hosts (:func:`hierarchical_psum`)
+are ported; of the JAX module's collectives only the int8 ring variant
+(``int8_ring_all_reduce``) is not ported yet (ROADMAP A item 7).
 """
 import dataclasses
 from typing import Callable, Dict, List, Tuple

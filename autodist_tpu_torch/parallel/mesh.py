@@ -11,8 +11,12 @@ mesh sits at data index r // T and model index r % T, where the JAX
 package's device r does. Each line of ranks along an axis (the ranks that
 agree on every other coordinate) is one process group, made with
 ``torch.distributed.new_group`` by every rank, in one order: axes in the
-mesh's order, lines by their lowest rank. An axis that spans every rank
-uses the default group.
+mesh's order, lines by their lowest rank; so is each block spanned by a
+set of axes the caller names (the batch axes, ``(data, expert)`` under
+``ExpertParallel``, over which serving gathers its rows). An axis, or a
+set, that spans every rank uses the default group (or the group the
+caller gives: a serving plane's copy of the mesh has gloo groups of its
+own).
 
 The binding stands for the JAX ``shard_map`` scope: inside the training
 step the model, pipe, seq and expert axes are bound (:func:`bind`), and
@@ -91,38 +95,70 @@ class ProcessMesh:
     def lines(self, name: str) -> List[List[int]]:
         """Every line of ranks along axis ``name``, ordered by their lowest
         rank; each line in the axis's index order."""
-        axis = list(self.axes).index(name)
-        moved = np.moveaxis(self._grid, axis, -1).reshape(
-            -1, self.axes[name])
-        return sorted((list(map(int, row)) for row in moved),
-                      key=lambda line: line[0])
+        return self.blocks((name,))
 
-    def build_groups(self) -> None:
-        """Create the process groups of every axis of size > 1: one
-        ``new_group`` a line, called by every rank in the same order (a
-        rank outside a line calls it too, as ``new_group`` requires); an
-        axis over every rank takes the default group. Idempotent."""
+    def _key(self, names: Sequence[str]) -> Tuple[str, ...]:
+        """The axes of ``names`` of size > 1, in the mesh's order."""
+        want = set(names)
+        return tuple(a for a, n in self.axes.items() if a in want and n > 1)
+
+    def blocks(self, names: Sequence[str]) -> List[List[int]]:
+        """Every block of ranks spanned jointly by the axes ``names`` (the
+        ranks that agree on every other coordinate), ordered by their
+        lowest rank; each block in the joint index order, the first axis
+        of ``names`` major (the block order of ``P(names)``)."""
+        names = list(names)
+        order = [list(self.axes).index(a) for a in names]
+        rest = [i for i in range(len(self.axes)) if i not in order]
+        moved = np.transpose(self._grid, rest + order).reshape(
+            -1, int(np.prod([self.axes[a] for a in names] or [1])))
+        return sorted((list(map(int, row)) for row in moved),
+                      key=lambda block: block[0])
+
+    def size_of(self, names: Sequence[str]) -> int:
+        """The joint size of the axes ``names``."""
+        return int(np.prod([self.axis_size(a) for a in names] or [1]))
+
+    def build_groups(self, joint: Sequence[Sequence[str]] = (),
+                     backend: Optional[str] = None,
+                     full_group=None) -> None:
+        """Create the process groups of every axis of size > 1, and of each
+        set of axes in ``joint`` spanning more than one of them: one
+        ``new_group`` a line (or block), called by every rank in the same
+        order (a rank outside a line calls it too, as ``new_group``
+        requires), of ``backend`` (None: the default group's); an axis, or
+        a set, over every rank takes ``full_group`` (None: the default
+        group). Idempotent."""
         if self._groups is not None:
             return
-        groups: Dict[str, object] = {}
-        for name, size in self.axes.items():
-            if size <= 1:
+        groups: Dict[object, object] = {}
+        sets = [(name,) for name, size in self.axes.items() if size > 1]
+        for names in joint:
+            key = self._key(names)
+            if len(key) > 1 and key not in sets:
+                sets.append(key)
+        for key in sets:
+            if self.size_of(key) == self.size:
+                groups[key] = full_group
                 continue
-            if size == self.size:
-                groups[name] = None
-                continue
-            for ranks in self.lines(name):
-                group = dist.new_group(ranks)
+            for ranks in self.blocks(key):
+                group = dist.new_group(ranks, backend=backend)
                 if self.rank in ranks:
-                    groups[name] = group
+                    groups[key] = group
         self._groups = groups
 
     def group(self, name: str):
         """The process group of this rank's line along ``name`` (None: the
-        default group)."""
+        default group, or the mesh's ``full_group``)."""
+        return self.group_of((name,))
+
+    def group_of(self, names: Sequence[str]):
+        """The process group of this rank's block over the axes ``names``
+        (one axis, or a set :meth:`build_groups` was given), its axes of
+        size 1 left out."""
         if self._groups is None:
             raise RuntimeError("ProcessMesh.build_groups() first")
-        return self._groups[name]
+        return self._groups[self._key(names)]
 
     def __repr__(self):
         return "ProcessMesh(%s, rank=%d, coords=%s)" % (self.axes, self.rank,

@@ -23,15 +23,18 @@ Shutdown is drain-aware: :meth:`drain` stops admitting, sheds the queue
 typed with a Retry-After computed from the measured completion rate, and
 lets in-flight sequences run to completion.
 
-At N > 1 ranks the slot dim shards over the batch replicas: rank r holds
-the caches of slots ``[r*S/N, (r+1)*S/N)`` and no other. The chief (rank
+At N > 1 ranks the slot dim shards over the B batch replicas (the batch
+axes' size: B = N under a data-parallel plan): the ranks at batch index b
+hold the caches of slots ``[b*S/B, (b+1)*S/B)`` and no other, the ranks
+of one model, pipe, seq or expert line the same slots. The chief (rank
 0) owns the queue and the :class:`SlotScheduler`, and drives every rank
 through the engine's serving plane (``serving/plane.py``): an admission
-header carries the prompts in rank blocks, each rank's block holding the
+header carries the prompts in batch-index blocks, each block holding the
 prompts bound to its own slots, so each rank prefills and inserts only
 its own rows and the caches never cross ranks; a step header carries the
-per-slot token/cursor/alive arrays; every rank runs its slots and the
-next tokens come back whole. A follower's loop runs the headers from the
+per-slot token/cursor/alive arrays; every rank runs its slots (with the
+plan's axes bound) and the next tokens come back whole over the batch
+axes' group. A follower's loop runs the headers from the
 engine's construction until the chief's drain or close.
 
 Telemetry: ``serve.token_ms`` histogram (per-step wall time — the
@@ -227,9 +230,15 @@ class DecodeEngine:
         self.scheduler = SlotScheduler(cfg.slots, cfg.admission)
         dstep = self._dstep
         self.world, self.rank = dstep.num_replicas, dstep.rank
+        # the batch replicas the slots split over, and this rank's batch
+        # index (the process count and rank without a mesh)
+        self._n_batch = dstep.replica_info.num_replicas
+        self._b_rank = dstep.replica_info.rank
         # this rank's slots (the JAX ValueError when they do not divide)
         self._per = dstep.local_slots(cfg.slots)
-        self._plane = (ServingPlane(self.rank, self.world, "decode")
+        self._plane = (ServingPlane(self.rank, self.world, "decode",
+                                    dstep.mesh,
+                                    dstep.replica_info.batch_axes)
                        if self.world > 1 else None)
 
         # prefill rides the bucketed forward path
@@ -255,7 +264,8 @@ class DecodeEngine:
         example_dstate = setup.init_dstate(self._per, device=runner.device)
         self._decode_prog = dstep.decode_program(
             setup.decode_fn, example_dstate, slots=cfg.slots,
-            group=self._plane.group if self._plane is not None else None)
+            group=self._plane.group if self._plane is not None else None,
+            mesh=self._plane.mesh if self._plane is not None else None)
         self._dev_k = example_dstate["k"]
         self._dev_v = example_dstate["v"]
         self._token, self._cursor, self._alive = (
@@ -459,13 +469,14 @@ class DecodeEngine:
 
     def _pick_slots(self, n: int) -> list:
         """The free slots the next ``n`` admissions go to: in order of the
-        local slot index, then the rank (rank r holds slots ``[r*S/N,
-        (r+1)*S/N)``), so that the ranks prefill about as many rows each,
-        and at most the largest prefill bucket's share a rank (at one
-        replica: the lowest free slots, at most a bucket of them)."""
+        local slot index, then the batch index (index b holds slots
+        ``[b*S/B, (b+1)*S/B)``), so that the batch replicas prefill about
+        as many rows each, and at most the largest prefill bucket's share
+        a replica (at one replica: the lowest free slots, at most a bucket
+        of them)."""
         per = self._per
-        cap = max(self._prefill.max_batch // self.world, 1)
-        taken = [0] * self.world
+        cap = max(self._prefill.max_batch // self._n_batch, 1)
+        taken = [0] * self._n_batch
         out = []
         for s in sorted(self.scheduler.free_slots(),
                         key=lambda s: (s % per, s // per)):
@@ -480,11 +491,11 @@ class DecodeEngine:
         """Prefill a request group through the bucketed forward path and
         copy the caches into the freed slots ``dst`` (in-flight batching:
         live slots keep decoding across this boundary untouched). The
-        prefill feed is laid out in rank blocks: rank r's block holds the
-        prompts bound to its slots, padded by repeating its last (the
-        first prompt when it has none), so each rank prefills exactly the
-        rows it keeps."""
-        cfg, per, world = self.config, self._per, self.world
+        prefill feed is laid out in batch-index blocks: block b holds the
+        prompts bound to batch index b's slots, padded by repeating its
+        last (the first prompt when it has none), so each rank prefills
+        exactly the rows it keeps."""
+        cfg, per, world = self.config, self._per, self._n_batch
         mine = [[j for j, s in enumerate(dst) if s // per == r]
                 for r in range(world)]
         block = self._prefill.bucket_for(
@@ -538,12 +549,12 @@ class DecodeEngine:
         through the prefill program (the first tokens of the whole feed
         come back; the caches stay here), then its rows copied into its
         slots. Returns the first tokens on the host."""
-        block = payload["tokens"].shape[0] // self.world
+        block = payload["tokens"].shape[0] // self._n_batch
         fetched = self._prefill._dispatch(
             {"tokens": payload["tokens"], "length": payload["length"]},
-            payload["refresh"], payload["n"], block * self.world,
+            payload["refresh"], payload["n"], block * self._n_batch,
             to_host=False)
-        lo, base = self.rank * block, self.rank * self._per
+        lo, base = self._b_rank * block, self._b_rank * self._per
         rows = [(i, int(s) - base) for i, s in
                 enumerate(payload["slot"][lo:lo + block]) if s >= 0]
         if rows:

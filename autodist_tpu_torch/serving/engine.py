@@ -26,7 +26,9 @@ At N > 1 ranks the engine is one controller and N - 1 executors
 (``serving/plane.py``): every rank builds it, in the same order as its
 other engines; the chief (rank 0) dispatches — :meth:`run_batch`
 broadcasts the padded bucket and its snapshot-refresh decision, then each
-rank runs its ``bucket / N`` rows and the per-example outputs come back
+rank runs its ``bucket / B`` rows (B the batch replicas: the batch axes'
+size, so the ranks of one model, pipe, seq or expert line run the same
+rows, with that plan's axes bound) and the per-example outputs come back
 whole — while each follower's loop runs the chief's headers from the
 engine's construction until the chief's :meth:`close`. A follower's
 :meth:`follow` waits for that.
@@ -148,7 +150,8 @@ class InferenceEngine:
         self._owns_plane = plane is None and self._dstep.num_replicas > 1
         if self._owns_plane:
             plane = ServingPlane(self._dstep.rank, self._dstep.num_replicas,
-                                 "engine")
+                                 "engine", self._dstep.mesh,
+                                 self._dstep.replica_info.batch_axes)
         self._plane = plane
         # built at the LARGEST bucket: its row count is what classifies
         # per-example outputs (distinctive where a bucket of 1 is not)
@@ -157,7 +160,8 @@ class InferenceEngine:
             example_batch=stack_batches([example_request],
                                         pad_to=self.buckets[-1]),
             group=plane.group if plane is not None else None,
-            keep_local=keep_local)
+            keep_local=keep_local,
+            mesh=plane.mesh if plane is not None else None)
         # the host-PS snapshot and its degradation state (run_batch holds
         # the lock around it)
         self._lock = threading.Lock()

@@ -18,7 +18,14 @@ never reads a clock or a request queue.
 Each plane has a gloo process group of every rank, made with
 ``new_group`` when its engine is built (every rank builds its engines in
 the same order), so serving's collectives never interleave with a
-training step's or the elastic plane's on the default group. A header is
+training step's or the elastic plane's on the default group. Under a
+plan's mesh (``parallel/mesh.py``) the plane also holds a copy of that
+mesh with gloo groups of its own (each axis's lines and the batch axes'
+blocks; an axis or a set over every rank takes the plane's group): the
+programs bind its axes while they run and gather their rows over its
+batch axes, so a model, pipe, seq or expert axis's collectives stay off
+the training step's groups too. The status reduction stays on the
+plane's group of every rank, so a failure on any rank raises on all. A header is
 one broadcast of a fixed :data:`HEADER_BYTES` buffer (the length and the
 pickled message), and a second broadcast when the message is longer.
 """
@@ -54,10 +61,18 @@ class ServingPlane:
     (:meth:`start_follower`) calls the handler registered for each op
     (:meth:`on`) until the chief's :meth:`stop`."""
 
-    def __init__(self, rank: int, world: int, name: str):
+    def __init__(self, rank: int, world: int, name: str, mesh=None,
+                 batch_axes=()):
         self.rank, self.world, self.name = int(rank), int(world), name
         self.chief = self.rank == 0
         self.group = dist.new_group(backend="gloo")
+        # the plan's mesh, with the plane's own groups (None without one)
+        self.mesh = None
+        if mesh is not None:
+            from autodist_tpu_torch.parallel.mesh import ProcessMesh
+            self.mesh = ProcessMesh(mesh.axes, self.rank)
+            self.mesh.build_groups(joint=[batch_axes], backend="gloo",
+                                   full_group=self.group)
         self.lock = threading.RLock()
         self.stopped = False
         self.error: Optional[BaseException] = None

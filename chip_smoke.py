@@ -231,7 +231,8 @@ result line):
    applied, the reads' lag behind the pushes (bound ``ADT_PS_MAX_LAG`` +
    2) and the owner queue's length (bound ``ADT_PS_MAX_LAG``), the owner
    loop's apply and publish ms and bytes; each kernel 12 launches a step
-   on its tensor-core design; (b) DLRM at its default config under
+   on its tensor-core design; (b), run beside phases 16 and 17 (a), DLRM
+   at its default config under
    ``PSLoadBalancing(sync=False)``, two processes on ``cuda:0`` (owner
    hosts 127.0.0.1 and localhost; a gloo group that no step may use),
    Adam at 1e-4, 1 + 2 steps each at least, then on until its loss
@@ -276,16 +277,17 @@ result line):
    wait, the first incarnation's steps, the save's ms, the worker's death
    to the chief's ``execv``, the ``execv`` to the resumed job's first
    step, the restore's ms, the whole recovery and the resumed steps' ms;
-   (b) NCF at its default config under
-   ``PS(sync=False)`` launched by the chief with
-   ``ADT_HEARTBEAT_TIMEOUT_S=6``: the worker's first incarnation stops
+   (b), run beside (a) and phases 18 and 22, NCF at its default config
+   under ``PS(sync=False)`` launched by the chief with
+   ``ADT_HEARTBEAT_TIMEOUT_S=15``: the worker's first incarnation stops
    heartbeating at step 2 and sleeps; the watchdog kills it once, the
    process watcher relaunches it once, the relaunched incarnation's first
-   dispatch lasts 10 s more (past the bring-up grace) and the watchdog
-   reads its compile-grace mark instead of killing it; both processes'
-   losses fall (the relaunched one over 6 steps); the last heartbeat to
-   the kill and the kill to the new incarnation's first dispatch and
-   step; (c), run beside (b), a sync-elastic worker exits 3 right after
+   dispatch lasts 24 s more (past the bring-up grace) and the watchdog
+   reads its compile-grace mark instead of killing it; the chief steps
+   until that incarnation is done; both processes' losses fall (the
+   relaunched one over 6 steps); the last heartbeat to the kill and the
+   kill to the new incarnation's first dispatch and step; (c), run beside
+   (a) and (b), a sync-elastic worker exits 3 right after
    AutoDist(), before any checkpoint: the chief exits 1 ("nothing to
    restore", "aborting job") and no process is left.
 20. tensor parallelism: tp_lm at ``TPLMConfig.flagship()`` (vocab 32 768,
@@ -420,6 +422,27 @@ result line):
    (10 queued): ``preemption.drain_serving`` completes the in-flight work,
    sheds the 26 queued with the typed Retry-After, returns 26, and ends
    both engines' follower loops.
+27. storage and serving beside a model axis: tp_lm flagship (bf16, seq
+   1024, global batch 8, Adam 1e-3, flash through ``attn_fn``) on four
+   processes of ``cuda:0`` over gloo, ``{data: 2, model: 2}``, started
+   right after phase 20 and run beside phases 24 (a) and 25 (a) (one
+   process each). (a) ``TensorParallel(2, tp_rules())`` with every
+   LayerNorm and post-reduce bias (``ln1``, ``ln2``, ``final_ln``,
+   ``bo``, ``b2``) on ``ZeroShardedSynchronizer`` and ``pos_embed``
+   partitioned ``"2,1"``, phase 20 (b)'s steps on its batch: the ranks'
+   losses equal and within 2e-2 of phase 20 (b)'s; each rank stores half
+   of each ZeRO moment and half of ``pos_embed`` (its data index's); 12
+   launches of each kernel a rank-step on ``mma.sync bf16``; step p50
+   (min-max), peak memory a rank, ``zero.rs_bytes``, ``zero.ag_bytes``
+   and ``tp.fwd_allreduces`` a rank-step. (b) the same four ranks serve an
+   ``InferenceEngine`` over (a)'s trained state (the last position's
+   logits over the whole vocabulary, the model line's columns put
+   together in the serve function; buckets (2, 8), 256-token requests):
+   every row within 2e-2 (relative to the largest magnitude) of
+   ``tp_lm.forward`` on the params ``gather_params`` returns, run in the
+   chief's process unbound with the plain attention; flash_fwd launches
+   12 a dispatch on each rank (and 12 for the first call's classifying
+   forward on the example bucket); QPS and latency p50/p99.
 
 TF32 is off for the whole run (``torch.backends.cuda.matmul`` and
 ``cudnn``): float32 is computed in float32, as the f32 checks' 2e-5 and
@@ -555,6 +578,10 @@ class Beside:
                 sys.stdout.held.pop(threading.get_ident(), None)
         self._thread = threading.Thread(target=run, daemon=True)
         self._thread.start()
+
+    def wait(self):
+        """Join the thread, holding its prints for :meth:`result`."""
+        self._thread.join()
 
     def result(self):
         self._thread.join()
@@ -4319,7 +4346,8 @@ def dlrm_async_phase(card, port):
     print("phase 17 (b): DLRM default config (batch %d) under "
           "PSLoadBalancing(sync=False), Adam 1e-4, two processes on "
           "cuda:0, owner hosts 127.0.0.1 and localhost, %d + %d steps "
-          "each at least, on until its loss falls (at most %d)"
+          "each at least, on until its loss falls (at most %d) (run beside "
+          "phases 16 and 17 (a))"
           % (PS_BATCH, DLRM_WARMUP, DLRM_STEPS, ASYNC_MAX_STEPS))
     res = spawn_pair(async_child, "phase 17 (b)", port)
     c = CoordinationClient("127.0.0.1", port)
@@ -4394,11 +4422,27 @@ def dlrm_stale_phase(card, port):
                     b["barrier_ms"], a["barriers"], gap, card))
 
 
-def async_phase(card):
-    """Phase 17: the coordination service, async host PS served over it
-    and bounded staleness across ranks. The service runs on a free port
-    for the phase and is stopped at its end. Returns (a)'s launches."""
+def async_pair_phase(card):
+    """Phase 17 (b) and, beside it, (c): two processes each, on a
+    coordination service of its own (a free port, stopped at the end)."""
     from autodist_tpu_torch.runtime.coordination import CoordinationServer
+    t0 = time.perf_counter()
+    srvs = [CoordinationServer(free_port()).start() for _ in range(2)]
+    try:
+        stale = Beside(dlrm_stale_phase, card, srvs[1].port)
+        dlrm_async_phase(card, srvs[0].port)
+        stale.result()
+    finally:
+        for srv in srvs:
+            srv.stop()
+    print("phase 17 (b)-(c): %.1f s" % (time.perf_counter() - t0))
+
+
+def async_phase(card, pair):
+    """Phase 17: the coordination service, async host PS served over it
+    and bounded staleness across ranks: (a) here, then ``pair`` (a
+    :class:`Beside` of :func:`async_pair_phase`, started before phase 16)
+    joined. Returns (a)'s launches."""
     from autodist_tpu_torch.telemetry import spans as tel
     # the spans (ps_service.*, ps.*, runner.barrier) record while tracing
     # is on
@@ -4406,17 +4450,9 @@ def async_phase(card):
     t0 = time.perf_counter()
     try:
         launches = bert_async_phase(card)
-        # (c) runs beside (b), each on a service of its own
-        srvs = [CoordinationServer(free_port()).start() for _ in range(2)]
-        try:
-            stale = Beside(dlrm_stale_phase, card, srvs[1].port)
-            dlrm_async_phase(card, srvs[0].port)
-            stale.result()
-        finally:
-            for srv in srvs:
-                srv.stop()
     finally:
         tel.configure(None)
+    pair.result()
     print("phase 17: %.1f s" % (time.perf_counter() - t0))
     return launches
 
@@ -4789,12 +4825,19 @@ def launch_phase(card):
 # 19 (a): steps 0-4 (phase 10's fp32-wire steps); the save after step 2
 ELASTIC_STEPS = DP_STEPS["fp32"]
 ELASTIC_SAVE_AFTER = 2
-ELASTIC_HB_TIMEOUT_S = 6    # 19 (b): the JAX deadlock test's window
+# 19 (b): the watchdog's window. An NCF step beside phase 19's other jobs
+# takes up to about 2 s and, on a slower shared host, more: a window of
+# 6 s (the JAX deadlock test's) is missed by a live worker, whose budget
+# is spent after its one relaunch, and the chief aborts the job
+ELASTIC_HB_TIMEOUT_S = 15
 ELASTIC_HANG_STEPS = 6      # 19 (b): the relaunched worker's steps
 # 19 (b): the relaunched worker's first dispatch sleeps this long, past
-# the watchdog's bring-up grace (2 x 6 s after the relaunch) and a
+# the watchdog's bring-up grace (2 x 15 s after the relaunch) and a
 # heartbeat window, so that only its compile-grace mark keeps it alive
-ELASTIC_SLOW_FIRST_S = 10
+ELASTIC_SLOW_FIRST_S = 24
+# 19 (b): the chief steps until the relaunched worker is done, at most
+# this long from its start (the phase waits 300 s for the whole job)
+ELASTIC_HANG_WAIT_S = 250
 
 # The user script of phase 19: the chief runs it from the phase, and
 # relaunches it for its worker (and re-execs it to restart the job).
@@ -4914,9 +4957,9 @@ else:
         open(os.path.join(outdir, "hang_done"), "w").close()
     else:
         done = os.path.join(outdir, "hang_done")
-        deadline = time.monotonic() + 150
         i = 0
-        while time.monotonic() < deadline and not os.path.exists(done):
+        while time.time() < T_START + cs.ELASTIC_HANG_WAIT_S and \
+                not os.path.exists(done):
             loss = float(runner.run(batch)["loss"])
             torch.cuda.synchronize()
             record("step", step=i, loss=loss)
@@ -5090,7 +5133,8 @@ def elastic_hang_phase(card, tmp, job):
           "Adam 1e-4, launched by the chief, ADT_ELASTIC=1 "
           "ADT_HEARTBEAT_TIMEOUT_S=%d: the worker's first incarnation stops "
           "heartbeating at step 2 and sleeps; the relaunched one's first "
-          "dispatch lasts %d s more, %d steps (run beside phases 18 and 22)"
+          "dispatch lasts %d s more, %d steps (run beside (a) and phases 18 "
+          "and 22)"
           % (PS_BATCH, ELASTIC_HB_TIMEOUT_S, ELASTIC_SLOW_FIRST_S,
              ELASTIC_HANG_STEPS))
     rc, err, wall, left = finish_launched(job, 300, "phase 19 (b)")
@@ -5107,6 +5151,10 @@ def elastic_hang_phase(card, tmp, job):
              "worker's compile-grace mark: %s" % err[-4000:])
     chief, wk = read_events(tmp, "hang", "chief"), read_events(
         tmp, "hang", "worker")
+    if not any(e["event"] == "done" and e["worker_done"] for e in chief):
+        fail("phase 19 (b): the chief stopped stepping %d s after its start "
+             "before the relaunched worker was done: %s"
+             % (ELASTIC_HANG_WAIT_S, err[-4000:]))
     again = [e["loss"] for e in wk if e["event"] == "step" and e["restarted"]]
     mine = [e["loss"] for e in chief if e["event"] == "step"]
     if len(again) != ELASTIC_HANG_STEPS or not again[-1] < again[0] or \
@@ -5142,7 +5190,7 @@ def elastic_fail_fast_phase(card, job):
     (exit 1) and leaves no process."""
     print("phase 19 (c): the launched worker exits 3 right after "
           "AutoDist(), ADT_ELASTIC=1 ADT_ELASTIC_SYNC=1, no checkpoint "
-          "(run beside (b)): the chief must abort the job")
+          "(run beside (a) and (b)): the chief must abort the job")
     rc, err, wall, left = finish_launched(job, 90, "phase 19 (c)")
     if rc != 1 or "nothing to restore, failing fast" not in err or \
             "exited with code 3 — aborting job" not in err:
@@ -5155,10 +5203,11 @@ def elastic_fail_fast_phase(card, job):
 
 
 def elastic_phase(card, dp_losses, beside=None):
-    """Phase 19: supervised recovery; ``beside(recovery_s)`` (phases 18
-    and 22) runs while (b)'s and (c)'s jobs run. Returns (a)'s launches,
-    its whole-job recovery time (the death to the resumed first step,
-    s) and what ``beside`` returned."""
+    """Phase 19: supervised recovery; (b)'s and (c)'s jobs and
+    ``beside(recovery)`` (phases 18 and 22) run beside (a), where
+    ``recovery()`` waits for (a) and returns its whole-job recovery time.
+    Returns (a)'s launches, that time (the death to the resumed first
+    step, s) and what ``beside`` returned."""
     import tempfile
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -5168,22 +5217,37 @@ def elastic_phase(card, dp_losses, beside=None):
             f.write(ELASTIC_SCRIPT)
         with open(os.path.join(tmp, "spec.yml"), "w") as f:
             f.write(LAUNCH_SPEC)
-        launches, recovery_s = elastic_sync_phase(card, tmp, dp_losses)
-        # (c) runs beside (b): its two processes start and end while
-        # (b)'s first incarnation starts, long before (b)'s readings
-        ctmp = os.path.join(tmp, "c")
-        os.makedirs(ctmp)
-        for name in ("user_script.py", "spec.yml"):
-            with open(os.path.join(tmp, name)) as src, \
-                    open(os.path.join(ctmp, name), "w") as dst:
-                dst.write(src.read())
+        # (b)'s and (c)'s jobs and ``beside`` run beside (a), the jobs each
+        # in a directory of its own: (c)'s two processes start and end
+        # while (b)'s first incarnation starts, and (b), which waits out a
+        # heartbeat window and a slow first dispatch, ends about when (a)
+        # does
+        btmp, ctmp = os.path.join(tmp, "b"), os.path.join(tmp, "c")
+        for sub, names in ((btmp, ("elastic_script.py", "spec.yml")),
+                           (ctmp, ("user_script.py", "spec.yml"))):
+            os.makedirs(sub)
+            for name in names:
+                with open(os.path.join(tmp, name)) as src, \
+                        open(os.path.join(sub, name), "w") as dst:
+                    dst.write(src.read())
         fail_fast = start_fail_fast(ctmp)
-        hang = start_hang(tmp)
-        out = beside(recovery_s) if beside is not None else None
-        elastic_hang_phase(card, tmp, hang)
+        hang = start_hang(btmp)
+        recovery, known = {}, threading.Event()
+
+        def recovery_s():
+            known.wait()
+            return recovery.get("s")
+        side = Beside(beside, recovery_s) if beside is not None else None
+        try:
+            launches, recovery["s"] = elastic_sync_phase(card, tmp,
+                                                         dp_losses)
+        finally:
+            known.set()
+        elastic_hang_phase(card, btmp, hang)
         elastic_fail_fast_phase(card, fail_fast)
+        out = side.result() if side is not None else None
     print("phase 19: %.1f s" % (time.perf_counter() - t0))
-    return launches, recovery_s, out
+    return launches, recovery["s"], out
 
 
 # ------------------------------------------------------------- phase 20
@@ -5193,6 +5257,10 @@ TP_SEQ, TP_BATCH, TP_RANKS = 1024, 8, 2
 # (a): warm-up and timed steps; (b): steps a rank, the first 3 held to
 # (a)'s, the last 3 timed
 TP_WARMUP, TP_TIMED, TP2_STEPS = 2, 5, 5
+# phase 27 (a)'s ZeRO-sharded and partitioned variables whose Adam moments
+# are held to phase 20 (b)'s after the same steps
+OPT_CHECK = ("layer_0/ln1/scale", "layer_0/attn/bo", "layer_0/mlp/b2",
+             "layer_11/ln2/bias", "final_ln/scale", "pos_embed")
 TP_PARAMS = 185722880          # TPLMConfig.flagship()'s parameters
 TP_SPEC_ONE = {"nodes": [{"address": "127.0.0.1", "chief": True,
                           "gpus": [0]}]}
@@ -5346,10 +5414,24 @@ def tp_child(rank, store, out_dir):
     if path is not None:
         out["save_bytes"] = sum(
             os.path.getsize(os.path.join(ckpt, f)) for f in os.listdir(ckpt))
+    # phase 27 (a) holds its gathered Adam moments to these (a collective)
+    opt = opt_leaves(runner)
+    if rank == 0:
+        torch.save(opt, os.path.join(out_dir, "opt.pt"))
     adt.reset()
     with open(os.path.join(out_dir, "rank%d.json" % rank), "w") as f:
         json.dump(out, f)
     dist.destroy_process_group()
+
+
+def opt_leaves(runner):
+    """The Adam moments of :data:`OPT_CHECK`'s variables, gathered whole
+    (``gather_opt_state``, which every rank joins), in f32 on the CPU."""
+    import torch
+    dstep = runner.distributed_step
+    opt = dstep.gather_opt_state(runner.state)
+    return {slot: {n: opt[slot][n].detach().to("cpu", torch.float32)
+                   for n in OPT_CHECK} for slot in ("mu", "nu")}
 
 
 def tp_phase(card):
@@ -5427,6 +5509,7 @@ def tp_phase(card):
         for r in range(TP_RANKS):
             with open(os.path.join(tmp, "rank%d.json" % r)) as f:
                 res.append(json.load(f))
+        opt = torch.load(os.path.join(tmp, "opt.pt"))
     print("  (b) two ranks ran in %.1f s" % (time.perf_counter() - t0))
     launches_b = {}
     for r in res:
@@ -5478,7 +5561,8 @@ def tp_phase(card):
     print("  (b) one save (whole params and Adam moments in the JAX layout, "
           "gathered over the model axis): %.1f ms on rank 0, %.1f MB [%s]"
           % (r0["save_ms"], r0["save_bytes"] / 1e6, card))
-    return launches_a, launches_b, rec16, rec8, r0["save_ms"], shard
+    return launches_a, launches_b, rec16, rec8, r0["save_ms"], shard, \
+        (r0["losses"], opt)
 
 
 # ------------------------------------------------------------- phase 21
@@ -6193,7 +6277,8 @@ def inrun_phase(card, dp_losses, whole_job_s):
     steps 0-1 at N = 2; the worker's first incarnation exits 3; step 2
     at N = 1 after the in-run shrink; the chief waits (at most 120 s)
     until the relaunched worker is admitted; steps 3-4 at N = 2 after the
-    grow. Returns every rank-step's launches."""
+    grow. ``whole_job_s()`` gives phase 19 (a)'s whole-job recovery (s),
+    printed beside the shrink's. Returns every rank-step's launches."""
     import tempfile
     print("phase 22: bert_base bf16 (seq %d, global batch %d, flash) under "
           "AllReduce(), launched by the chief on 127.0.0.1 and localhost "
@@ -6201,8 +6286,8 @@ def inrun_phase(card, dp_losses, whole_job_s):
           "ADT_ELASTIC_SYNC=1 ADT_ELASTIC_INRUN=1, deterministic mode, %d "
           "steps: the worker's first incarnation exits 3 after step %d, the "
           "job shrinks in-run to one process, then grows back when the "
-          "relaunched worker is admitted (run beside phase 18 and phase 19 "
-          "(b)'s and (c)'s jobs)"
+          "relaunched worker is admitted (run beside phase 18 and phase 19's "
+          "jobs)"
           % (BERT_SEQ, BERT_BATCH, INRUN_STEPS, INRUN_DIE_AFTER))
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -6305,7 +6390,7 @@ def inrun_phase(card, dp_losses, whole_job_s):
           "joiner's build); the steps at N = 1 and after the grow %s ms; "
           "the job %.1f s [%s]"
           % (shrunk["t"] - death, shrink_ms, shrunk["ms"],
-             "%.2f s" % whole_job_s if whole_job_s is not None else
+             "%.2f s" % whole_job_s() if whole_job_s is not None else
              "not measured", jstart["t_start"] - death, admit["s"] or -1.0,
              grow_ms, ch["broadcast_bytes"] / 1e6,
              (joined["broadcast_ms"] or [0.0])[0],
@@ -7958,6 +8043,348 @@ def serve_phase(card, env, phase3_tokens):
     return launches, f32, record
 
 
+# ------------------------------------------------------------- phase 27
+
+
+MESH_RANKS = 4                 # {data: 2, model: 2} on cuda:0
+MESH_SPEC = {"nodes": [{"address": "127.0.0.1", "chief": True,
+                        "gpus": [0] * MESH_RANKS}]}
+# the LayerNorms and the biases added after a reduce: ZeRO-sharded
+MESH_ZERO = re.compile(r"(^|/)(ln1|ln2|final_ln)/(scale|bias)$|"
+                       r"/attn/bo$|/mlp/b2$")
+MESH_PART = {"pos_embed": "2,1"}
+MESH_BUCKETS = (2, 8)
+MESH_REQUESTS = 24             # (b): requests, in groups of 1-8
+MESH_PROMPT = 256              # (b): tokens a request
+
+
+def mesh_builder():
+    """``TensorParallel(2, tp_rules())`` with its plan's nodes pinned as a
+    user pins storage: the :data:`MESH_ZERO` variables on
+    ``ZeroShardedSynchronizer``, ``pos_embed`` partitioned."""
+    from autodist_tpu_torch import strategy
+    from autodist_tpu_torch.models import tp_lm
+    from autodist_tpu_torch.strategy.base import (AllReduceSynchronizer,
+                                                  StrategyBuilder, VarConfig,
+                                                  ZeroShardedSynchronizer)
+
+    class Pinned(StrategyBuilder):
+        def build(self, model_item, resource_spec):
+            plan = strategy.TensorParallel(2, tp_lm.tp_rules()).build(
+                model_item, resource_spec)
+            for node in plan.node_config:
+                n = node.var_name
+                if MESH_ZERO.search(n):
+                    node.synchronizer = ZeroShardedSynchronizer()
+                elif n in MESH_PART:
+                    node.partitioner = MESH_PART[n]
+                    node.part_configs = [
+                        VarConfig(var_name="%s/part_%d" % (n, i),
+                                  synchronizer=AllReduceSynchronizer())
+                        for i in range(node.num_shards)]
+            return plan
+    return Pinned()
+
+
+def mesh_serve_fn(cfg, attn_fn):
+    """The last position's logits of tp_lm over the whole vocabulary:
+    under the bound model axis each rank's vocab columns are put in place
+    and summed over the axis."""
+    import torch
+    from autodist_tpu_torch.models import tp_lm
+    from autodist_tpu_torch.parallel import mesh
+
+    def serve(p, batch):
+        logits = tp_lm.forward(p, torch.as_tensor(batch["tokens"]), cfg,
+                               attn_fn=attn_fn)[:, -1]
+        b = mesh.binding("model")
+        if b is not None:
+            v = logits.shape[-1]
+            full = logits.new_zeros(logits.shape[0], v * b.size)
+            full[:, b.index * v:(b.index + 1) * v] = logits
+            logits = mesh.psum(full, "model")
+        return {"logits": logits}
+    return serve
+
+
+def mesh_requests(cfg):
+    import numpy as np
+    rng = np.random.RandomState(27)
+    return [{"tokens": rng.randint(0, cfg.vocab_size, (MESH_PROMPT,))
+             .astype(np.int32)} for _ in range(MESH_REQUESTS)]
+
+
+def mesh_child(rank, store, out_dir, env):
+    """One rank of phase 27 (spawned): take the environment ``env``, join
+    the gloo group, (a) train, (b) serve; write this rank's results to
+    ``out_dir``."""
+    os.environ.clear()
+    os.environ.update(env)
+    import statistics
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, HERE)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(store, MESH_RANKS),
+                            rank=rank, world_size=MESH_RANKS)
+    import autodist_tpu_torch as adt
+    from autodist_tpu_torch.models import tp_lm
+    from autodist_tpu_torch.ops.flash_attention import make_flash_attn_fn
+    from autodist_tpu_torch.resource_spec import ResourceSpec
+    from autodist_tpu_torch.serving import InferenceEngine, ServingConfig
+    from autodist_tpu_torch.telemetry import spans as tel
+    shapes = set()
+    cfg, loss_fn, _, params, batch = tp_setup(shapes)
+    t0 = time.perf_counter()
+    runner = adt.AutoDist(strategy_builder=mesh_builder(),
+                          resource_spec=ResourceSpec.from_dict(MESH_SPEC),
+                          device="cuda:0").build(
+        loss_fn, functools.partial(torch.optim.Adam, lr=1e-3), params, batch)
+    runner.init(params)
+    init_s = time.perf_counter() - t0
+    del params
+    dstep = runner.distributed_step
+    shapes.clear()
+    tel.reset()
+    reset_counts()
+    losses, times = [], []
+    for _ in range(TP2_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(runner.run(batch)["loss"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = launch_counts()
+    counters = tel.counters()
+    zero = runner.state.sync_state["zero"]
+    opt = opt_leaves(runner)
+    if rank == 0:
+        torch.save(opt, os.path.join(out_dir, "opt.pt"))
+    del opt
+    out = {"rank": rank, "losses": losses,
+           "times_ms": [t * 1e3 for t in times],
+           "p50_ms": statistics.median(times[-3:]) * 1e3,
+           "launches": launches, "shapes": sorted(shapes), "init_s": init_s,
+           "coords": dict(dstep.mesh.coords),
+           "zero": {n: [int(zero[n][slot]["v"].numel()) for slot in
+                        ("mu", "nu")] for n in sorted(zero)},
+           "zero_full": {n: int(dstep.model_item.var_infos[n].num_elements)
+                         for n in sorted(zero)},
+           "pos_embed": list(runner.state.params["pos_embed"].shape),
+           "pos_embed_full": list(
+               dstep.model_item.var_infos["pos_embed"].shape),
+           "layers": cfg.num_layers, "vocab": cfg.vocab_size,
+           "per_step": {k: counters.get(k, 0.0) / TP2_STEPS for k in (
+               "zero.rs_bytes", "zero.ag_bytes", "tp.fwd_allreduces")},
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    # (b): the trained state served by the same four ranks
+    gathered = runner.gather_params()
+    flash = make_flash_attn_fn(causal=True)
+    serve_shapes = set()
+
+    def attn(q, k, v):
+        serve_shapes.add(tuple(q.shape))
+        return flash(q, k, v)
+    reqs = mesh_requests(cfg)
+    engine = InferenceEngine(runner, mesh_serve_fn(cfg, attn), reqs[0],
+                             ServingConfig(buckets=MESH_BUCKETS))
+    reset_counts()
+    if rank == 0:
+        engine.warmup()
+        rows, lat = [], []
+        t_all = time.perf_counter()
+        i, n = 0, 1
+        while i < len(reqs):
+            group = reqs[i:i + n]
+            t0 = time.perf_counter()
+            got, k = engine.run_batch(group)
+            lat.append((time.perf_counter() - t0) * 1e3)
+            rows.append(torch.as_tensor(got["logits"][:k]))
+            i, n = i + len(group), n % MESH_BUCKETS[-1] + 1
+        wall = time.perf_counter() - t_all
+        engine.close()
+        logits = torch.cat(rows)
+        # the reference: tp_lm.forward on the gathered params, unbound, in
+        # this process, with the plain attention
+        ids = torch.as_tensor(np.stack([r["tokens"] for r in reqs]),
+                              device="cuda")
+        with uncounted(), torch.inference_mode():
+            ref = torch.cat([tp_lm.forward(gathered, ids[j:j + 8], cfg)[
+                :, -1].float().cpu() for j in range(0, len(reqs), 8)])
+        err = max_err(logits, ref)
+        out.update(serve_err=err, serve_scale=float(ref.abs().max()),
+                   serve_rows=list(logits.shape), qps=len(reqs) / wall,
+                   lat_p50_ms=float(np.percentile(lat, 50)),
+                   lat_p99_ms=float(np.percentile(lat, 99)),
+                   groups=len(lat))
+    else:
+        engine.follow(timeout=600)
+    out["serve_launches"] = launch_counts()
+    out["serve_batches"] = engine.stats["batches"]
+    out["serve_shapes"] = sorted(serve_shapes)
+    adt.reset()
+    with open(os.path.join(out_dir, "rank%d.json" % rank), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def mesh_shapes():
+    """A rank's flash q shapes in phase 27: (a) training, [4, 1024, 8, 64]
+    (the data axis halves the batch, the model axis the heads); (b) each
+    serving bucket, [1 or 4, 256, 8, 64]."""
+    heads = 16 // 2
+    train = (TP_BATCH // 2, TP_SEQ, heads, HEAD_DIM)
+    serve = [(b // 2, MESH_PROMPT, heads, HEAD_DIM) for b in MESH_BUCKETS]
+    return train, serve
+
+
+def mesh_kernel_records(card):
+    """The three kernels at phase 27's rank shapes, causal: held to their
+    plain versions at (a)'s shape and at each of (b)'s, and timed at (a)'s
+    and at (b)'s largest. Returns (the records at (a)'s, at (b)'s)."""
+    train, serve = mesh_shapes()
+    for shape in serve[:-1]:
+        tp_kernel_check(shape)
+    return (kernel_timing(card, tp_kernel_check(train), train, True, None,
+                          "[%d,%d,%d,%d] causal" % train),
+            kernel_timing(card, tp_kernel_check(serve[-1]), serve[-1], True,
+                          None, "[%d,%d,%d,%d] causal" % serve[-1]))
+
+
+def mesh_phase(card, env, tp2):
+    """Phase 27: the four processes of ``mesh_child`` on ``cuda:0`` in the
+    environment ``env``; (a)'s losses and gathered Adam moments held to
+    phase 20 (b)'s (``tp2``: its losses, its moments). Returns each
+    kernel's launches over the ranks in (a) and in (b)."""
+    import math
+    import tempfile
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            mp.start_processes(mesh_child, args=(os.path.join(tmp, "store"),
+                                                 tmp, env),
+                               nprocs=MESH_RANKS, start_method="spawn")
+        except Exception as e:  # noqa: BLE001 — a rank failed
+            fail("phase 27: a rank failed: %s" % (str(e).strip()[-2000:],))
+        res = []
+        for r in range(MESH_RANKS):
+            with open(os.path.join(tmp, "rank%d.json" % r)) as f:
+                res.append(json.load(f))
+        import torch
+        opt = torch.load(os.path.join(tmp, "opt.pt"))
+    tp2_losses, tp2_opt = tp2
+    print("phase 27: tp_lm flagship at {data: 2, model: 2}, %d processes of "
+          "cuda:0 over gloo, beside phases 24 (a) and 25 (a): %.1f s"
+          % (MESH_RANKS, time.perf_counter() - t0))
+    layers = res[0]["layers"]
+    shape_a, shapes_b = mesh_shapes()
+    train, serve = {}, {}
+    for r in res:
+        label = "phase 27 (a) rank %d" % r["rank"]
+        check_launches(label, r["launches"], layers, TP2_STEPS)
+        if r["shapes"] != [list(shape_a)]:
+            fail("%s: the flash slot saw q shapes %r (want %r)"
+                 % (label, r["shapes"], [list(shape_a)]))
+        if r["serve_shapes"] != [list(x) for x in shapes_b]:
+            fail("phase 27 (b) rank %d: the flash slot saw q shapes %r "
+                 "(want %r)" % (r["rank"], r["serve_shapes"],
+                                [list(x) for x in shapes_b]))
+        if r["losses"] != res[0]["losses"]:
+            fail("phase 27 (a): the ranks' losses differ: %r vs %r"
+                 % (r["losses"], res[0]["losses"]))
+        if not all(math.isfinite(x) for x in r["losses"]):
+            fail("%s: a loss is not finite: %r" % (label, r["losses"]))
+        for n, (mu, nu) in r["zero"].items():
+            half = -(-r["zero_full"][n] // 2)
+            if mu != half or nu != half:
+                fail("%s: stores %d / %d elements of %s's Adam moments "
+                     "(want half: %d)" % (label, mu, nu, n, half))
+        if len(r["zero"]) != 6 * layers + 2:
+            fail("%s: %d ZeRO-sharded variables (want %d)"
+                 % (label, len(r["zero"]), 6 * layers + 2))
+        rows, width = r["pos_embed_full"]
+        if r["pos_embed"] != [rows // 2, width]:
+            fail("%s: stores pos_embed as %r (want half its rows)"
+                 % (label, r["pos_embed"]))
+        # the program's first call ran a bucket of 2 rows and so also ran
+        # the example bucket once, to classify its outputs: one forward
+        # more than the dispatches
+        want = {MAIN_DESIGN["flash_fwd"]: layers * (r["serve_batches"] + 1)}
+        if r["serve_launches"]["flash_fwd"] != want or any(
+                r["serve_launches"][k] for k in ("flash_bwd_dq",
+                                                 "flash_bwd_dkdv")):
+            fail("phase 27 (b) rank %d: launched %r over %d dispatches "
+                 "(want flash_fwd %r)" % (r["rank"], r["serve_launches"],
+                                          r["serve_batches"], want))
+        for into, counts in ((train, r["launches"]),
+                             (serve, r["serve_launches"])):
+            for name, by in counts.items():
+                for design, n in by.items():
+                    into.setdefault(name, {})
+                    into[name][design] = into[name].get(design, 0) + n
+    losses = res[0]["losses"]
+    for i, (got, ref) in enumerate(zip(losses, tp2_losses)):
+        if not abs(got - ref) <= 2e-2 * max(1.0, abs(ref)):
+            fail("phase 27 (a): step %d loss %.6f is not within 2e-2 of "
+                 "phase 20 (b)'s %.6f" % (i, got, ref))
+    # a gradient scaled by 2 (a missing sum over the model axis, a mean
+    # over the data axis alone) leaves Adam's steps and so the losses as
+    # they are; the moments scale with it
+    opt_err = {}
+    for slot in ("mu", "nu"):
+        for n in OPT_CHECK:
+            got, want = opt[slot][n], tp2_opt[slot][n]
+            scale = float(want.abs().max())
+            if tuple(got.shape) != tuple(want.shape):
+                fail("phase 27 (a): %s's %s has shape %r (phase 20 (b): %r)"
+                     % (n, slot, tuple(got.shape), tuple(want.shape)))
+            err = max_err(got, want)
+            opt_err[slot] = max(opt_err.get(slot, 0.0), err / scale)
+            if not scale > 0 or not err <= 2e-2 * scale:
+                fail("phase 27 (a): %s's %s max err %.4e against phase 20 "
+                     "(b)'s after %d steps (max|ref| %.4e; want 2e-2 of it)"
+                     % (n, slot, err, TP2_STEPS, scale))
+    r0, chief = res[0], res[0]
+    if chief["serve_rows"] != [MESH_REQUESTS, chief["vocab"]]:
+        fail("phase 27 (b): served logits of shape %r" % chief["serve_rows"])
+    if not chief["serve_err"] <= 2e-2 * chief["serve_scale"]:
+        fail("phase 27 (b): logits max err %.4e against tp_lm.forward on the "
+             "gathered params (max|ref| %.4e)"
+             % (chief["serve_err"], chief["serve_scale"]))
+    print("  (a) losses %s (every rank; phase 20 (b): %s, within 2e-2); "
+          "flash q shape a rank %r; the gathered Adam moments of %s after "
+          "%d steps against phase 20 (b)'s: mu max err %.3e, nu %.3e of "
+          "max|ref| (want 2e-2)"
+          % (" ".join("%.4f" % x for x in losses),
+             " ".join("%.4f" % x for x in tp2_losses), r0["shapes"],
+             ", ".join(OPT_CHECK), TP2_STEPS, opt_err["mu"], opt_err["nu"]))
+    print("  (a) each rank stores half of each of %d ZeRO-sharded variables' "
+          "Adam moments and pos_embed as %r; step p50 %s ms (min %.1f, max "
+          "%.1f, ranks 0-3, steps %s ms); peak %s GB a rank; a rank-step: "
+          "zero.rs_bytes %.0f, zero.ag_bytes %.0f, tp.fwd_allreduces %.1f; "
+          "build + init %.1f s [%s]"
+          % (len(r0["zero"]), r0["pos_embed"],
+             " / ".join("%.1f" % r["p50_ms"] for r in res),
+             min(min(r["times_ms"]) for r in res),
+             max(max(r["times_ms"]) for r in res),
+             " ".join("%.1f" % t for t in r0["times_ms"]),
+             " / ".join("%.2f" % r["peak_gb"] for r in res),
+             r0["per_step"]["zero.rs_bytes"], r0["per_step"]["zero.ag_bytes"],
+             r0["per_step"]["tp.fwd_allreduces"], r0["init_s"], card))
+    print("  (b) %d requests of %d tokens in %d groups (buckets %r): %.1f "
+          "QPS, latency p50 %.3f ms p99 %.3f ms; logits max err %.4e "
+          "(max|ref| %.4e) against tp_lm.forward on the gathered params; "
+          "flash_fwd %d a dispatch on each rank (%d dispatches and the "
+          "first call's classifying forward), q shapes a rank %r [%s]"
+          % (MESH_REQUESTS, MESH_PROMPT, chief["groups"], MESH_BUCKETS,
+             chief["qps"], chief["lat_p50_ms"], chief["lat_p99_ms"],
+             chief["serve_err"], chief["serve_scale"], layers,
+             chief["serve_batches"], chief["serve_shapes"], card))
+    return train, serve
+
+
 def main():
     global T_SMOKE
     T_SMOKE = time.perf_counter()
@@ -8127,11 +8554,13 @@ def main():
     sync_launches, tier_launches, remat_launches = timed_phase(
         "14", sync_variants_phase, card, sync_ac)
     ps_launches, bert_ps_losses = timed_phase("15", ps_phase, card)
+    # phase 17 (b)-(c)'s four processes run beside phases 16 and 17 (a)
+    # (one process each)
+    async_pair = Beside(async_pair_phase, card)
     carry_launches, carry_per_microstep, adamw_launches = timed_phase(
         "16", carry_phase, card, bert_ps_losses)
-    async_launches = timed_phase("17", async_phase, card)
-    # phase 19 (a) first, then phases 18 and 22 beside 19 (b)'s and (c)'s
-    # jobs
+    async_launches = timed_phase("17", async_phase, card, async_pair)
+    # phase 19 (a) beside 19 (b)'s and (c)'s jobs and phases 18 and 22
     def beside_19(whole_job_s):
         launched = Beside(launch_phase, card)
         try:
@@ -8140,10 +8569,23 @@ def main():
             launched.result()
     elastic_launches, whole_job_s, (inrun_launches, inrun) = timed_phase(
         "19 with 18 and 22", elastic_phase, card, dp_losses, beside_19)
-    tp_a, tp_b, tp16, tp8, gathered_ms, shard = timed_phase("20", tp_phase,
-                                                            card)
+    tp_a, tp_b, tp16, tp8, gathered_ms, shard, tp2 = timed_phase(
+        "20", tp_phase, card)
+
+    # phase 27's four processes start once phase 21 (a)'s two have ended,
+    # and run beside phases 24 (a) and 25 (a) (one process each)
+    def mesh_after_shard():
+        shard.wait()
+        return mesh_phase(card, env0, tp2)
+    mesh27 = Beside(mesh_after_shard)
     pp2_records, pp1_launches = timed_phase("24 (a)", pp_one_phase, card)
     timed_phase("25 (a)", moe_one_phase, card)
+    t = time.perf_counter()
+    mesh_train, mesh_serve = mesh27.result()
+    seconds["27 after 25 (a)"] = time.perf_counter() - t
+    # its kernels at its rank shapes, with nothing beside
+    mesh_a_rec, mesh_b_rec = timed_phase("27 kernels", mesh_kernel_records,
+                                         card)
     # phase 24 (b)'s two processes run beside phases 21 and 23; phase 23
     # (a)'s two processes run beside its (b) and (c) and phase 21
     pp_two = Beside(pp_two_phase, card, dict(os.environ))
@@ -8157,7 +8599,7 @@ def main():
     seconds["24 (b) after 21 with 23"] = time.perf_counter() - t
     n2_launches, n2_f32_launches, n2_record = timed_phase(
         "26", serve_phase, card, env0, phase3_tokens)
-    print("phases 5-26: %s s" % ", ".join(
+    print("phases 5-27: %s s" % ", ".join(
         "%s %.1f" % kv for kv in seconds.items()))
 
     # flash_fwd runs on the three main paths, serving (decode), lm1b and
@@ -8184,6 +8626,9 @@ def main():
         for schedule in PP_SCHEDULES:
             paths["pipe_lm_pp2_" + schedule] = (
                 pp2_launches[schedule][name], pp2_records[name])
+        # phase 27 (a): tp_lm flagship at {data: 2, model: 2} with ZeRO
+        # and a partitioned pos_embed, every rank ([4, 1024, 8, 64] causal)
+        paths["tp_lm_mesh"] = (mesh_train.get(name, {}), mesh_a_rec[name])
     records = {}
     for name, paths in by_path.items():
         rec = dict(next(iter(paths.values()))[1], max_abs_err=max(
@@ -8278,6 +8723,13 @@ def main():
                 "launches": sum(n2_f32_launches.values()),
                 "design_launches": n2_f32_launches.get(rec["design"], 0),
                 "designs": n2_f32_launches}
+            # phase 27 (b): tp_lm flagship served at {data: 2, model: 2},
+            # every rank's dispatches, timed at [4, 256, 8, 64] causal
+            n = mesh_serve.get("flash_fwd", {})
+            rec["by_path"]["tp_lm_mesh_serve"] = dict(
+                {"launches": sum(n.values()),
+                 "design_launches": n.get(rec["design"], 0), "designs": n},
+                **{key: mesh_b_rec["flash_fwd"][key] for key in keys})
         rec["launches"] = sum(p["launches"] for p in rec["by_path"].values())
         rec["design_launches"] = sum(p["design_launches"]
                                      for p in rec["by_path"].values())

@@ -150,7 +150,7 @@ def test_make_buckets_matches_jax(compressor, wire, chunk):
         n.var_name: JSync(n.var_name, n.synchronizer, 2)
         for n in jplan.node_config}), jitem.var_infos)
     tb, _ = tcoll.make_buckets(concat({
-        n.var_name: TSync(n.var_name, n.synchronizer, 2)
+        n.var_name: TSync(n.var_name, n.synchronizer, 2, n_data=2)
         for n in tplan.node_config}), titem.var_infos)
     assert [b.key for b in tb] == [b.key for b in jb] and jb
     for t, j in zip(tb, jb):

@@ -358,6 +358,8 @@ def test_async_worker_survives_service_blip():
               "no republish after the blip")
         svc.push_grads(pss.pack_arrays({"g": np.ones(2, np.float32) * 2}))
         _wait(lambda: len(applied) >= 2, "applies did not resume")
+        # the apply's publish follows its apply_fn call
+        _wait(lambda: svc.fetch()[0] == 2, "no publish after the apply")
         assert worker.healthy and worker.last_error is None
         assert svc.reconnects >= 1
         # the republished values are the port's tensors, packed

@@ -27,8 +27,10 @@ one executor:
   serves the next group.
 - Stored shards: ``PartitionedAR()`` serves from each rank's half of a
   variable, gathered whole for each dispatch (within 1e-5 of numpy); a
-  ``TensorParallel(2)`` plan's serving programs raise, naming ROADMAP A
-  item 16.
+  ``TensorParallel(2)`` plan serves under its model axis (``Runner.
+  predict`` on each rank's slices, within 1e-5 of numpy) and builds its
+  decode program (the engines under a model or expert axis:
+  ``tests/test_torch_serving_mesh.py``).
 """
 import jax
 import jax.numpy as jnp
@@ -103,6 +105,8 @@ def job(tmp_path_factory):
     cases.append({"name": "storage", "kind": "storage", "big": big,
                   "big_batch": big_batch, "mlp": mlp, "mlp_batch": mlp_batch})
     want["storage"] = (big_batch["x"][:5] @ big["big"]) @ big["w"]
+    h = np.maximum(mlp_batch["x"] @ mlp["fc1/w"] + mlp["fc1/b"], 0)
+    want["tp_y"] = h @ mlp["fc2/w"] + mlp["fc2/b"]
     ranks = launch("serve", 2, tmp_path_factory.mktemp("serve"), cases)
     return ranks, want, params, requests
 
@@ -206,14 +210,17 @@ def test_batcher_at_two_ranks_and_the_chiefs_drain(job):
 
 
 def test_storage_shards_serve_and_model_axes_refuse(job):
+    """Partitioned storage serves, and so does a model axis: the name is
+    older than the model axis's serving, which once refused."""
     ranks, want, _, _ = job
     _close(ranks[0]["storage"]["y"], want["storage"], 1e-5)
     for rank in ranks:
         got = rank["storage"]
         assert got["stored"] == [32, 8]     # half of big's 64 rows
-        for what in ("predict", "decode"):
-            assert "item 16" in got["refused_" + what]
-            assert "'model': 2" in got["refused_" + what]
+        # a model axis no longer refuses: each rank serves its slices
+        assert got["tp_w1"] == [8, 8]       # half of fc1's 16 columns
+        _close(got["tp_y"], want["tp_y"], 1e-5)
+        assert got["decode_local"] is True
 
 
 def test_follower_snapshot_window_and_errors_reach_the_chief(job):

@@ -336,9 +336,9 @@ def test_zero_shards_relay_across_replica_counts_as_jax_does():
     from autodist_tpu_torch.strategy.base import ZeroShardedSynchronizer
     shape = (7, 5)
     old = ZeroSynchronizer("w", ZeroShardedSynchronizer(), shape, "float32",
-                           4, 0)
+                           4, 0, 4)
     new = ZeroSynchronizer("w", ZeroShardedSynchronizer(), shape, "float32",
-                           2, 0)
+                           2, 0, 2)
     jnew = JZero("w", JCfg(), shape, np.float32, "data", 2, (), 2)
     saved = np.arange(4 * old.shard_elems, dtype=np.float32).reshape(4, -1)
     saved[-1, 35 - 3 * old.shard_elems:] = 0     # the padding is zeros

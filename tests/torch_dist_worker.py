@@ -14,7 +14,8 @@ The tests (``tests/test_torch_collectives.py``,
 ``tests/test_torch_expert_parallel.py``,
 ``tests/test_torch_schedules.py``,
 ``tests/test_torch_sharded_checkpoint.py``,
-``tests/test_torch_serving_dist.py``) compute their JAX references in
+``tests/test_torch_serving_dist.py``, ``tests/test_torch_mesh_storage.py``,
+``tests/test_torch_serving_mesh.py``) compute their JAX references in
 the pytest process and hand numpy arrays
 to :func:`launch`, which starts
 ``world`` processes with the ``spawn`` start method. Each process joins a
@@ -1273,6 +1274,7 @@ def _serve_engine_case(case, device):
             out["follower_run_batch"] = str(e)
         out["followed"] = engine.follow(timeout=120)
     out["batches"] = engine.stats["batches"]
+    out["refreshes"] = engine.stats["snapshot_refreshes"]
     return _np(out)
 
 
@@ -1392,8 +1394,9 @@ def _serve_storage_case(case, device):
     """Serving over stored shards: the sentinel tests' sharded-storage
     problem under ``PartitionedAR()`` (each rank stores half of ``big``,
     gathered whole on the engine's group for each dispatch), and the
-    tensor-parallel MLP under ``TensorParallel(2)``, whose serving
-    programs refuse (a model axis)."""
+    tensor-parallel MLP under ``TensorParallel(2)``, served under its
+    model axis by ``Runner.predict`` on every rank (each rank's slices,
+    the axis bound), and its decode program built."""
     from autodist_tpu_torch.serving import InferenceEngine, ServingConfig
     rank = dist.get_rank()
     runner = _case_runner(dict(loss="big", init=case["big"],
@@ -1416,16 +1419,22 @@ def _serve_storage_case(case, device):
     runner = _case_runner(dict(loss="mlp", tp=2, init=case["mlp"],
                                batches=[case["mlp_batch"]]), device)
     dstep = runner.distributed_step
-    for what, build in (
-            ("predict", lambda: dstep.predict_program(
-                mlp_loss, example_batch=case["mlp_batch"])),
-            ("decode", lambda: dstep.decode_program(
-                mlp_loss, {"token": torch.zeros(4, dtype=torch.int32)}))):
-        try:
-            build()
-        except NotImplementedError as e:
-            out["refused_" + what] = str(e)
+    out["tp_y"] = runner.predict({"x": case["mlp_batch"]["x"]},
+                                 mlp_serve)["y"]
+    out["tp_w1"] = list(runner.state.params["fc1/w"].shape)
+    out["decode_local"] = dstep.decode_program(
+        mlp_loss, {"token": torch.zeros(4, dtype=torch.int32)},
+        slots=4) is not None
     return _np(out)
+
+
+def mlp_serve(p, batch):
+    """The tensor-parallel MLP's output (:func:`mlp_loss`'s prediction)."""
+    from autodist_tpu_torch.parallel import tensor
+    h = torch.relu(tensor.column_parallel_dense(
+        torch.as_tensor(batch["x"]), p["fc1/w"], p["fc1/b"]))
+    return {"y": tensor.row_parallel_dense(h, p["fc2/w"], p["fc2/b"])}
+
 
 
 def _serve_faults_case(case, device):
@@ -1474,6 +1483,263 @@ def _serve_faults_case(case, device):
     return _np(out)
 
 
+# ------------------------------------ sharded storage beside a mesh axis
+
+
+def storage_plan(base, zero=(), ps=(), part=None):
+    """``base`` (a ``StrategyBuilder``) with its plan's nodes edited as a
+    user pins storage: the variables in ``zero`` on
+    ``ZeroShardedSynchronizer``, those in ``ps`` on host-resident PS, and
+    each of ``part`` (``{name: partitioner}``) partitioned, each shard on
+    the plain AllReduce."""
+    from autodist_tpu_torch.strategy.base import (AllReduceSynchronizer,
+                                                  PSSynchronizer,
+                                                  StrategyBuilder, VarConfig,
+                                                  ZeroShardedSynchronizer)
+    part = dict(part or {})
+
+    class Pinned(StrategyBuilder):
+        def build(self, model_item, resource_spec):
+            plan = base.build(model_item, resource_spec)
+            for node in plan.node_config:
+                n = node.var_name
+                if n in zero:
+                    node.synchronizer = ZeroShardedSynchronizer()
+                elif n in ps:
+                    node.synchronizer = PSSynchronizer(
+                        reduction_destination="127.0.0.1")
+                elif n in part:
+                    node.partitioner = part[n]
+                    node.part_configs = [
+                        VarConfig(var_name="%s/part_%d" % (n, i),
+                                  synchronizer=AllReduceSynchronizer())
+                        for i in range(node.num_shards)]
+            return plan
+    return Pinned()
+
+
+def _mesh_builder(case):
+    """The case's base builder (``TensorParallel``, ``PipelineParallel``,
+    ``ExpertParallel`` or ``SequenceParallelAR`` with ``kw``) under its
+    storage pins, and the loss: ``tp_lm``, ``tp_lm`` with the ring
+    attention, ``pipe_lm`` or ``moe_lm`` at their tiny configs (``lm``:
+    ``TensorParallel`` with no rule, and no loss)."""
+    from autodist_tpu_torch import strategy
+    from autodist_tpu_torch.models import moe_lm, pipe_lm, tp_lm
+    model, kw, loss_fn = case["model"], dict(case.get("kw", {})), None
+    if model == "lm":
+        kw["mp_rules"] = []         # the model axis shards nothing
+    elif model == "pipe_lm":
+        cfg = pipe_lm.TPLMConfig.tiny(num_layers=case["layers"])
+        loss_fn = pipe_lm.make_loss(cfg, kw["n_microbatches"],
+                                    schedule=kw["schedule"])
+        kw["mp_rules"] = pipe_lm.pp_rules(model_axis=None)
+    elif model == "moe_lm":
+        loss_fn = moe_lm.make_loss(moe_lm.MoEConfig.tiny(**case["cfg"]),
+                                   aux_coef=0.0)
+        kw["mp_rules"] = moe_lm.ep_rules()
+    else:
+        loss_fn = tp_lm.make_loss(tp_lm.TPLMConfig.tiny(),
+                                  attention=case.get("attention"))
+        if case["builder"] == "TensorParallel":
+            kw["mp_rules"] = tp_lm.tp_rules()
+    base = getattr(strategy, case["builder"])(**kw)
+    return storage_plan(base, case.get("zero", ()), case.get("ps", ()),
+                        case.get("part")), loss_fn
+
+
+def _mesh_train(case, device):
+    """Adam at ``lr``/``eps`` over ``batches`` from ``init`` (the JAX
+    names) under :func:`_mesh_builder`'s plan, per step or (``fuse``) as
+    one fused superstep; a ``ShardedSaver`` save into ``save_dir`` after
+    the steps. Returns the losses, the gathered
+    params and optimizer state (the JAX saver's names), the layouts each
+    rank stores, its ZeRO moments' shard size, the wire counters and the
+    PS store's names."""
+    import autodist_tpu_torch as adt
+    from autodist_tpu_torch import convert
+    from autodist_tpu_torch.checkpoint import ShardedSaver
+    from autodist_tpu_torch.resource_spec import ResourceSpec
+    from autodist_tpu_torch.telemetry import spans as tel
+    world = dist.get_world_size()
+    tel.reset()
+    b, loss_fn = _mesh_builder(case)
+    params = convert.jax_named({n: torch.as_tensor(v)
+                                for n, v in case["init"].items()})
+    spec = ResourceSpec.from_dict({"nodes": [{
+        "address": "127.0.0.1", "chief": True,
+        "cpus": list(range(world))}]})
+    meta = ({"pp_schedule": case["kw"]["schedule"],
+             "pp_microbatches": case["kw"]["n_microbatches"]}
+            if case["model"] == "pipe_lm" else None)
+    runner = adt.AutoDist(strategy_builder=b, resource_spec=spec,
+                          device=device).build(
+        loss_fn, functools.partial(torch.optim.Adam, lr=case["lr"],
+                                   eps=case["eps"]),
+        params, case["batches"][0], mp_meta=meta)
+    runner.init(params)
+    dstep = runner.distributed_step
+    if case.get("fuse"):
+        # one fused superstep over the batches: the host-PS variables in
+        # the device carry, written back at the gathers below
+        losses = [float(m["loss"]) for m in runner.fit(
+            iter(case["batches"]), fuse_steps=len(case["batches"]))]
+    else:
+        losses = [float(runner.run(b)["loss"]) for b in case["batches"]]
+    item = dstep.model_item
+    opt = dstep.gather_opt_state(runner.state)
+    zero = runner.state.sync_state.get("zero", {})
+    out = {"losses": losses, "params": _np(runner.gather_params()),
+           "opt_jax": convert.opt_state_to_jax(
+               opt, item.flax_shapes, item.optimizer_spec, item.jax_names),
+           "mesh": dict(dstep.mesh.axes), "coords": dict(dstep.mesh.coords),
+           "partitioned": {n: tuple(runner.state.params[n].shape)
+                           for n in dstep.layouts},
+           "zero_shard": {n: tuple(zero[n]["mu"]["v"].shape)
+                          for n in sorted(zero)},
+           "ps": sorted(dstep.ps_names),
+           "metadata": {k: dstep.metadata[k] for k in
+                        ("zero_sharded", "partitioned", "ps_host_resident",
+                         "model_parallel", "zero_rs_bytes_per_step")},
+           "counters": {k: v for k, v in tel.counters().items()
+                        if k.startswith("zero.")}}
+    if case.get("save_dir"):
+        out["saved"] = ShardedSaver(case["save_dir"]).save(runner)
+    adt.reset()
+    return out
+
+
+def tp_serve_fn(cfg):
+    """The last position's logits of ``tp_lm`` over the whole vocabulary:
+    under a bound model axis each rank's vocab columns are put in place
+    and summed over the axis (an all-gather in user code)."""
+    from autodist_tpu_torch.models import tp_lm
+    from autodist_tpu_torch.parallel import mesh
+
+    def serve(p, batch):
+        logits = tp_lm.forward(p, torch.as_tensor(batch["tokens"]),
+                               cfg)[:, -1]
+        b = mesh.binding("model")
+        if b is not None:
+            v = logits.shape[-1]
+            full = logits.new_zeros(logits.shape[0], v * b.size)
+            full[:, b.index * v:(b.index + 1) * v] = logits
+            logits = mesh.psum(full, "model")
+        return {"logits": logits}
+    return serve
+
+
+def moe_serve_fn(cfg):
+    """The last position's logits of ``moe_lm`` (its experts routed over
+    a bound expert axis)."""
+    from autodist_tpu_torch.models import moe_lm
+
+    def serve(p, batch):
+        return {"logits": moe_lm.forward(
+            p, torch.as_tensor(batch["tokens"]), cfg)[0][:, -1]}
+    return serve
+
+
+def _mesh_runner(case, device, loss_fn, params, batch):
+    import autodist_tpu_torch as adt
+    from autodist_tpu_torch.resource_spec import ResourceSpec
+    world = dist.get_world_size()
+    spec = ResourceSpec.from_dict({"nodes": [{
+        "address": "127.0.0.1", "chief": True,
+        "cpus": list(range(world))}]})
+    b, _ = _mesh_builder(case)
+    # the host store keeps its variables' optimizer state: a PS plan
+    # takes the optimizer it trained under
+    runner = adt.AutoDist(strategy_builder=b, resource_spec=spec,
+                          device=device).build(
+        loss_fn, make_optimizer() if case.get("ps") else None, params,
+        batch)
+    runner.init(params)
+    return runner
+
+
+def _mesh_engine(case, device):
+    """``InferenceEngine`` under the case's mesh plan over ``tp_lm`` or
+    ``moe_lm`` from ``init``: the chief runs each group of ``requests``
+    (its followers' loops serve them); every rank's rows a dispatch, its
+    batch index and dispatch count."""
+    from autodist_tpu_torch import convert
+    from autodist_tpu_torch.models import moe_lm, tp_lm
+    from autodist_tpu_torch.serving import InferenceEngine, ServingConfig
+    rank = dist.get_rank()
+    params = convert.jax_named({n: torch.as_tensor(v)
+                                for n, v in case["init"].items()})
+    if case["model"] == "moe_lm":
+        cfg = moe_lm.MoEConfig.tiny(**case["cfg"])
+        serve, loss_fn = moe_serve_fn(cfg), moe_lm.make_loss(cfg)
+    else:
+        cfg = tp_lm.TPLMConfig.tiny()
+        serve, loss_fn = tp_serve_fn(cfg), tp_lm.make_loss(cfg)
+    runner = _mesh_runner(case, device, loss_fn, params,
+                          case["batch"])
+    engine = InferenceEngine(runner, serve, case["requests"][0],
+                             ServingConfig(buckets=case["buckets"]))
+    out = {"replicas": runner.remapper.num_replicas,
+           "batch_index": runner.remapper.replica_info.rank,
+           "ps": sorted(runner.distributed_step.ps_names)}
+    if rank == 0:
+        out["groups"] = [engine.run_batch(case["requests"][:n])[0]
+                         for n in case["groups"]]
+        engine.close()
+    else:
+        out["followed"] = engine.follow(timeout=120)
+    out["batches"] = engine.stats["batches"]
+    out["refreshes"] = engine.stats["snapshot_refreshes"]
+    return _np(out)
+
+
+def _mesh_decode(case, device):
+    """``DecodeEngine`` on lm.tiny under ``TensorParallel(tp, [])`` (the
+    model axis shards nothing): the chief submits the prompts; every
+    rank's slots and steps."""
+    from autodist_tpu_torch.convert import params_from_jax
+    from autodist_tpu_torch.models import lm
+    from autodist_tpu_torch.serving.decode import DecodeConfig, DecodeEngine
+    rank = dist.get_rank()
+    cfg = lm.LMConfig.tiny()
+    loss_fn, _, batch, _ = lm.make_train_setup(cfg, seq_len=16,
+                                               batch_size=8)
+    params = params_from_jax(case["jax_params"])
+    runner = _mesh_runner(case, device, loss_fn, params, batch)
+    engine = DecodeEngine(runner, lm.make_decode_setup(cfg, "flash"),
+                          DecodeConfig(slots=8, max_new_tokens=8,
+                                       prefill_len=8))
+    engine.warmup()
+    out = {}
+    if rank == 0:
+        futures = [engine.submit(p, max_new_tokens=m)
+                   for p, m in zip(case["prompts"], case["caps"])]
+        out["results"] = [f.result(timeout=120) for f in futures]
+        engine.close()
+    else:
+        out["followed"] = engine.follow(timeout=120)
+        engine.close()
+    out["steps"] = engine.stats_local["steps"]
+    out["cache_slots"] = int(engine._dev_k.shape[0])
+    return _np(out)
+
+
+MESH_CASES = {"train": _mesh_train, "engine": _mesh_engine,
+              "decode": _mesh_decode}
+
+
+def mesh_job(payload, device):
+    """Each case of ``payload`` (a list) in the same processes, in turn:
+    ``{"name", "kind": train | engine | decode, ...}``; returns ``{name:
+    this rank's result}``."""
+    import autodist_tpu_torch as adt
+    out = {}
+    for case in payload:
+        out[case["name"]] = MESH_CASES[case["kind"]](case, device)
+        adt.reset()
+    return out
+
+
 SERVE_CASES = {"engine": _serve_engine_case, "decode": _serve_decode_case,
                "faults": _serve_faults_case,
                "batcher": _serve_batcher_case,
@@ -1497,4 +1763,4 @@ JOBS = {"compressors": compressor_job, "train": train_job, "ckpt": ckpt_job,
         "broadcast_bytes": broadcast_bytes_job, "tp": tp_job,
         "sentinel": sentinel_job, "schedule": schedule_job,
         "sharded": sharded_job, "pp": pp_job, "sp": sp_job, "ep": ep_job,
-        "serve": serve_job}
+        "serve": serve_job, "mesh": mesh_job}
