@@ -192,7 +192,14 @@ class AutoDist:
     def __init__(self, resource_spec_file: Optional[str] = None,
                  strategy_builder=None,
                  resource_spec: Optional[ResourceSpec] = None,
-                 device=None):
+                 device=None, validate: str = "warn"):
+        if validate not in ("error", "warn", "off"):
+            raise ValueError("validate must be 'error', 'warn' or 'off', "
+                             "got %r" % (validate,))
+        # the pre-compile strategy verifier's mode (analysis/rules.py):
+        # "error" raises StrategyVerificationError before the lowering
+        # sees the plan, "warn" logs the diagnostics, "off" skips the pass
+        self._validate = validate
         const.makedirs()
         # a launched worker joins the process group from the env the
         # Coordinator set, before anything reads the group
@@ -225,6 +232,9 @@ class AutoDist:
             strategy_builder = PSLoadBalancing()
         self._strategy_builder = strategy_builder
         self._runner: Optional[Runner] = None
+        # the plan-level memory report of the last build (None before one,
+        # with validate="off", or when the gate could not price the plan)
+        self.last_memory_report: Optional[dict] = None
         self._coordinator = None
         self._early_launch(device, multi_node)
         self._replicas = process_group_replicas()
@@ -320,6 +330,49 @@ class AutoDist:
         records the optimizer through ``optim.capture`` at build, so the
         scope patches nothing."""
         yield self
+
+    def _verify_strategy(self, strategy: Strategy, item: ModelItem,
+                         sentinel_policy=None):
+        """Static verification before the plan is compiled and lowered
+        (the JAX ``AutoDist._verify_strategy``): the rules of
+        ``analysis/rules.py`` (malformed partitioners, dangling PS
+        destinations, sync/compressor mismatches, the bf16 tier's
+        numerics), the sentinel-aware numerics warnings that ``verify``
+        did not already give (ADT603/604), and the plan-level memory gate
+        of ``analysis/memory.py`` (ADT501/502: a projected per-device OOM
+        against the card's memory), each a typed diagnostic. The memory
+        gate is best-effort, as in JAX: a failure to price the plan skips
+        it (``last_memory_report`` stays None)."""
+        self.last_memory_report = None
+        if self._validate == "off":
+            return
+        from autodist_tpu_torch.analysis import memory as memory_lib
+        from autodist_tpu_torch.analysis.diagnostics import (
+            Severity, StrategyVerificationError)
+        from autodist_tpu_torch.analysis.rules import verify, verify_numerics
+        diags = list(verify(strategy, item, self._resource_spec))
+        seen = {(d.code, d.message) for d in diags}
+        diags += [d for d in verify_numerics(
+            strategy, item, self._resource_spec,
+            sentinel_policy=sentinel_policy)
+            if (d.code, d.message) not in seen]
+        try:
+            report = memory_lib.plan_memory_report(
+                strategy, item, self._resource_spec)
+        except Exception as e:  # noqa: BLE001 — the memory gate is
+            # best-effort: a model the cost heuristics cannot price must
+            # not fail an otherwise verifiable build
+            logging.debug("plan-level memory gate skipped: %s", e)
+        else:
+            self.last_memory_report = report
+            diags += report["diagnostics"]
+        errors = [d for d in diags if d.severity >= Severity.ERROR]
+        for d in diags:
+            log = (logging.warning if d.severity >= Severity.WARNING
+                   else logging.debug)
+            log("strategy verifier: %s", d.format())
+        if errors and self._validate == "error":
+            raise StrategyVerificationError(errors)
 
     def _build_or_load_strategy(self, item: ModelItem) -> Strategy:
         """Chief builds and serializes; workers load by id (reference
@@ -421,6 +474,7 @@ class AutoDist:
                          trainable_filter=trainable_filter,
                          mp_rules=mp_rules, mp_meta=mp_meta).prepare()
         strategy = self._build_or_load_strategy(item)
+        self._verify_strategy(strategy, item, sentinel_policy=policy)
         compiled = StrategyCompiler(item, self._resource_spec).compile(
             strategy)
         logging.info("compiled %r", compiled)
@@ -713,6 +767,7 @@ class AutoDist:
         item = ModelItem(step_fn=step_fn, params=state,
                          example_batch=example_batch).prepare()
         strategy = self._build_or_load_strategy(item)
+        self._verify_strategy(strategy, item, sentinel_policy=policy)
         compiled = StrategyCompiler(item, self._resource_spec).compile(
             strategy)
         logging.info("compiled %r (step_fn mode)", compiled)

@@ -4,13 +4,17 @@ PyTorch counterpart of ``autodist_tpu/model_item.py``. The JAX module
 flattens a params pytree and mines a jaxpr for gather-indexed (sparse)
 variables; here params arrive as a flat mapping of names to tensors (a
 ``state_dict``), and the sparse variables are found by a traced forward
-(:func:`trace_lookups`). Each variable also carries its name in the JAX
+(:func:`trace_lookups`); the same one run, at ``prepare``, also takes the
+cost model's trace inputs (:func:`trace_forward`, :class:`TraceCosts`:
+the forward's FLOPs, activation bytes and model-parallel collectives).
+Each variable also carries its name in the JAX
 package's spelling (``VarInfo.collective_name``, ``convert.jax_name``):
 the variables are listed in the JAX item's order (sorted-pytree order of
 those names), and collectives are keyed on them, so the two packages'
 plans bucket the same variables in the same order.
 """
 import dataclasses
+import math
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -18,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch.overrides import TorchFunctionMode
 from torch.utils import _pytree as pytree
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from autodist_tpu_torch import optim
 from autodist_tpu_torch.utils import logging
@@ -169,15 +174,102 @@ class _LookupTap(TorchFunctionMode):
         return out
 
 
-def trace_lookups(loss_fn: Callable, params, example_batch
-                  ) -> Tuple[Dict[str, List[int]], set]:
-    """Trace ``loss_fn(params, example_batch)`` once on fake tensors (no
-    data, no device work, no kernel launch: every tensor reports the CPU,
-    so the ops' plain versions run as shape functions) and return
-    ``(lookups, dense_uses)``: for each variable that is the table of a
-    lookup, the ids count of each lookup; and the variables with any
-    other tensor-producing use. The counterpart of the JAX package's
-    ``detect_sparse_vars`` jaxpr walk and its sparse-wire tap shapes."""
+# ------------------------------------------------------------ trace costs
+
+
+@dataclasses.dataclass
+class TraceCosts:
+    """What one forward of the loss costs, from the fake-tensor run of
+    :func:`trace_forward` — the inputs the JAX cost model reads off its
+    loss jaxpr (``simulator/cost_model.py``):
+
+    - ``flops``: the forward's matmul and convolution FLOPs, exact (2 x M
+      x N x K a product, 2 x outputs x kernel taps x C_in / groups a
+      convolution; the JAX ``count_flops_estimate`` approximates);
+    - ``act_bytes``: the bytes of every op's outputs, views and
+      shape-only ops left out (the JAX ``_FUSED_OPS`` rule), and
+      ``dot_bytes`` the products' and convolutions' share of them;
+    - ``batch_bytes``: the example batch's bytes;
+    - ``collectives``: ``{axis: {cost class: output bytes}}`` of the
+      model-parallel collectives (``parallel/mesh.py::recording``)."""
+    flops: float = 0.0
+    act_bytes: float = 0.0
+    dot_bytes: float = 0.0
+    batch_bytes: float = 0.0
+    collectives: Dict[str, Dict[str, float]] = dataclasses.field(
+        default_factory=dict)
+
+
+_aten = torch.ops.aten
+_PRODUCTS = frozenset({_aten.mm, _aten.addmm, _aten.bmm, _aten.baddbmm,
+                       _aten.mv, _aten.dot, _aten.convolution})
+_ATTENTION = frozenset(
+    getattr(_aten, n) for n in (
+        "_scaled_dot_product_flash_attention",
+        "_scaled_dot_product_flash_attention_for_cpu",
+        "_scaled_dot_product_efficient_attention",
+        "_scaled_dot_product_cudnn_attention") if hasattr(_aten, n))
+# shape-only ops, which hold no value of their own (views aside): the
+# JAX cost model's _FUSED_OPS (convert_element_type, copy, broadcast,
+# rev) and the factories of constants
+_SHAPE_ONLY = frozenset(
+    getattr(_aten, n) for n in (
+        "_to_copy", "clone", "copy_", "contiguous", "expand_copy",
+        "flip", "lift_fresh", "lift_fresh_copy", "empty", "empty_like",
+        "new_empty", "new_empty_strided", "empty_strided", "zeros",
+        "zeros_like", "new_zeros", "ones", "ones_like", "new_ones",
+        "full", "full_like", "new_full", "scalar_tensor", "fill_",
+        "zero_", "detach", "alias", "_unsafe_view")
+    if hasattr(_aten, n))
+
+
+def _product_flops(packet, args, out) -> float:
+    """FLOPs of one product or convolution dispatched as ``packet``."""
+    if packet in (_aten.mm, _aten.bmm, _aten.mv, _aten.dot):
+        a = args[0]
+    elif packet in (_aten.addmm, _aten.baddbmm):
+        a = args[1]
+    else:   # convolution(input, weight, bias, stride, padding, dilation,
+        # transposed, output_padding, groups)
+        weight, transposed = args[1], bool(args[6])
+        taps = math.prod(weight.shape[2:])
+        if transposed:   # each input element meets C_out/groups x taps
+            return 2.0 * args[0].numel() * weight.shape[1] * taps
+        return 2.0 * out.numel() * weight.shape[1] * taps
+    # a product: 2 x outputs x the contraction length
+    return 2.0 * out.numel() * a.shape[-1]
+
+
+class _CostTap(TorchDispatchMode):
+    """Counts a fake-tensor forward's :class:`TraceCosts` at the aten ops
+    it dispatches (after the composite ops decompose: a ``linear``
+    arrives as ``addmm``, an ``einsum`` as ``bmm``)."""
+
+    def __init__(self):
+        super().__init__()
+        self.costs = TraceCosts()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        packet = func.overloadpacket
+        if packet in _PRODUCTS:
+            self.costs.flops += _product_flops(packet, args, out)
+        elif packet in _ATTENTION:   # q [B, H, Sq, D], k [B, H, Sk, D]
+            q, k = args[0], args[1]
+            self.costs.flops += 4.0 * q.numel() * k.shape[-2]
+        if func.is_view or packet in _SHAPE_ONLY:
+            return out
+        nbytes = sum(leaf.numel() * leaf.element_size()
+                     for leaf in pytree.tree_leaves(out)
+                     if isinstance(leaf, torch.Tensor))
+        self.costs.act_bytes += nbytes
+        if packet in _PRODUCTS or packet in _ATTENTION:
+            self.costs.dot_bytes += nbytes
+        return out
+
+
+def _fake_inputs(params, example_batch):
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     def fake_leaf(leaf):
@@ -189,10 +281,47 @@ def trace_lookups(loss_fn: Callable, params, example_batch
     with mode:
         fake = {n: fake_leaf(t) for n, t in params.items()}
         batch = pytree.tree_map(fake_leaf, example_batch)
+    return mode, fake, batch
+
+
+def trace_lookups(loss_fn: Callable, params, example_batch
+                  ) -> Tuple[Dict[str, List[int]], set]:
+    """Trace ``loss_fn(params, example_batch)`` once on fake tensors (no
+    data, no device work, no kernel launch: every tensor reports the CPU,
+    so the ops' plain versions run as shape functions) and return
+    ``(lookups, dense_uses)``: for each variable that is the table of a
+    lookup, the ids count of each lookup; and the variables with any
+    other tensor-producing use. The counterpart of the JAX package's
+    ``detect_sparse_vars`` jaxpr walk and its sparse-wire tap shapes."""
+    mode, fake, batch = _fake_inputs(params, example_batch)
     tap = _LookupTap({id(t): n for n, t in fake.items()})
     with mode, tap, torch.no_grad():
         loss_fn(fake, batch)
     return tap.lookups, tap.dense_uses
+
+
+def trace_forward(loss_fn: Callable, params, example_batch
+                  ) -> Tuple[Dict[str, List[int]], set, TraceCosts]:
+    """:func:`trace_lookups`'s run, costed: ``(lookups, dense_uses,
+    costs)``. The model-parallel axes are bound at size 1 for it
+    (``parallel/mesh.py::recording``, as the JAX package traces its loss
+    under ``bound_axes``), so the collectives of the bound code paths
+    are recorded in ``costs.collectives``; the same run counts the
+    FLOPs and the activation bytes (:class:`_CostTap`). The one trace
+    ``ModelItem.prepare`` runs."""
+    from autodist_tpu_torch.parallel import mesh
+    mode, fake, batch = _fake_inputs(params, example_batch)
+    tap = _LookupTap({id(t): n for n, t in fake.items()})
+    with mode, tap, _CostTap() as cost, mesh.recording() as record, \
+            torch.no_grad():
+        loss_fn(fake, batch)
+    costs = cost.costs
+    costs.collectives = record.profile
+    costs.batch_bytes = float(sum(
+        leaf.numel() * leaf.element_size()
+        if isinstance(leaf, torch.Tensor) else np.asarray(leaf).nbytes
+        for leaf in pytree.tree_leaves(example_batch)))
+    return tap.lookups, tap.dense_uses, costs
 
 
 def trace_step_fn(step_fn: Callable, state, example_batch):
@@ -230,16 +359,25 @@ def detect_sparse_vars(loss_fn: Callable, params, example_batch) -> set:
     """Names of params that are the table of a lookup in the forward pass.
     Best-effort, as in the JAX package: a loss that cannot be traced on
     fake tensors leaves every variable dense, with a warning."""
+    return _sparse_and_costs(loss_fn, params, example_batch)[0]
+
+
+def _sparse_and_costs(loss_fn: Callable, params, example_batch
+                      ) -> Tuple[set, Optional[TraceCosts]]:
+    """:func:`trace_forward`'s tables and costs; a loss that cannot be
+    traced on fake tensors gives no tables and no costs (the cost model
+    then falls back to its params-based bounds, as JAX's does when its
+    trace fails), with a warning."""
     try:
-        lookups, _ = trace_lookups(loss_fn, params, example_batch)
+        lookups, _, costs = trace_forward(loss_fn, params, example_batch)
     except Exception as e:  # noqa: BLE001 — detection is best-effort
         logging.warning(
             "sparse-var detection failed (%s: %s); treating ALL vars dense "
             "— embedding tables then take the int8 wire when it is asked "
             "for; fix the trace failure or mark them via VarInfo.sparse",
             type(e).__name__, e)
-        return set()
-    return set(lookups)
+        return set(), None
+    return set(lookups), costs
 
 
 def _jax_order_key(info: "VarInfo"):
@@ -305,6 +443,9 @@ class ModelItem:
         # (``convert.jax_named``)
         self.jax_names = dict(getattr(params, "jax_names", None) or {})
         self._var_infos: Optional[Dict[str, VarInfo]] = None
+        # the costs of the forward's one fake-tensor run at prepare (None
+        # when nothing was traced): the cost model's trace inputs
+        self.trace_costs: Optional[TraceCosts] = None
 
     def prepare(self) -> "ModelItem":
         """Collect variable metadata from the params mapping, in the JAX
@@ -329,7 +470,8 @@ class ModelItem:
             loss = self.loss_fn
             if self.has_aux:
                 loss = lambda p, b: self.loss_fn(p, b)[0]  # noqa: E731
-            sparse = detect_sparse_vars(loss, self.params, self.example_batch)
+            sparse, self.trace_costs = _sparse_and_costs(
+                loss, self.params, self.example_batch)
         infos = [VarInfo(name=name,
                          shape=tuple(leaf.shape),
                          dtype=dtype_name(leaf.dtype),

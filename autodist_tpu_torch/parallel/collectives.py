@@ -41,10 +41,14 @@ are given, on whatever device the tensors are on: the same calls serve
 NCCL and gloo (gloo runs ``all_to_all_single``, ``all_gather`` and
 ``all_reduce`` on CUDA tensors by staging them through the host).
 
-The recursive halving/doubling psum (:func:`rhd_psum`) and the
+The recursive halving/doubling psum (:func:`rhd_psum`), the
 hierarchical one over the resource spec's hosts (:func:`hierarchical_psum`)
-are ported; of the JAX module's collectives only the int8 ring variant
-(``int8_ring_all_reduce``) is not ported yet (ROADMAP A item 7).
+and the int8 ring (:func:`int8_ring_all_reduce`, n - 1 quantized hops
+over ``parallel/mesh.py``'s permute, then a quantized all-gather) are
+here too, with the topology pass's candidate synthesis
+(:func:`synthesize_collective_candidates`, :func:`reduction_equivalent`).
+The JAX module's ``wire_avals``, ``overlap_token`` and ``barrier_chain``
+are tracing aids of XLA with no counterpart in an eager program.
 """
 import dataclasses
 from typing import Callable, Dict, List, Tuple
@@ -358,6 +362,56 @@ def int8_multi_axis_all_reduce(x: torch.Tensor, axes_sizes, block: int = 0):
     return x
 
 
+def _quant_i8(c: torch.Tensor):
+    """Symmetric per-tensor int8 quantization of ``c``: ``(q, scale)``,
+    the JAX ``_quant_i8`` (a non-finite input poisons the scale)."""
+    q, s = _quant_rows(c.reshape(1, -1))
+    return q.reshape(c.shape), s.reshape(())
+
+
+def _dequant_i8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.to(torch.float32) * scale
+
+
+def int8_ring_all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    """Sum a flat f32 vector over the n ranks of ``group`` with an
+    int8 wire payload, as an explicit ring (the JAX
+    ``int8_ring_all_reduce``, EQuARX-style): a reduce-scatter of n - 1
+    hops, each shipping one int8-quantized chunk and its f32 scale to the
+    next rank while the accumulation stays f32 locally, then an
+    all-gather of the completed chunks, quantized once. The owner of a
+    chunk takes its own dequantized copy too, so every rank holds
+    bit-identical sums. Each hop is two :func:`parallel.mesh._permute`
+    exchanges (the body and its scale) over ``group``."""
+    from autodist_tpu_torch.parallel import mesh
+    n = dist.get_world_size(group)
+    if n <= 1:
+        return x
+    b = mesh.AxisBinding("ring", n, dist.get_rank(group), group)
+    L = x.shape[0]
+    chunk = -(-L // n)
+    acc = F.pad(x.to(torch.float32), (0, n * chunk - L)).reshape(n, chunk)
+    idx = b.index
+    perm = [(i, (i + 1) % n) for i in range(n)]
+
+    def hop(q, s):
+        return (mesh._permute(q, perm, q, b),
+                mesh._permute(s.reshape(1), perm, s.reshape(1), b)[0])
+
+    for t in range(n - 1):
+        q, s = hop(*_quant_i8(acc[(idx - t) % n]))
+        recv = (idx - t - 1) % n
+        acc[recv] = acc[recv] + _dequant_i8(q, s)
+    own = (idx + 1) % n  # this rank's fully reduced chunk
+    q, s = _quant_i8(acc[own])
+    out = torch.zeros_like(acc)
+    out[own] = _dequant_i8(q, s)
+    for t in range(1, n):
+        q, s = hop(q, s)
+        out[(own - t) % n] = _dequant_i8(q, s)
+    return out.reshape(-1)[:L]
+
+
 # ------------------------------------------ reduce-scatter and all-gather
 
 
@@ -619,3 +673,74 @@ def build_grad_sync_schedule(units, var_positions) -> GradSyncSchedule:
     sched = GradSyncSchedule(stages=tuple(stages))
     sched.validate()
     return sched
+
+
+# The gradient-sync algorithms the schedule IR can place (JAX
+# ``SCHEDULE_ALGORITHMS``): ring (one reduce), rhd (reduce-scatter +
+# all-gather, :func:`rhd_psum`) and hier (the two-level
+# :func:`hierarchical_psum`).
+SCHEDULE_ALGORITHMS = ("ring", "rhd", "hier")
+
+
+def synthesize_collective_candidates(unit: str, axes, intra_axes=(),
+                                     inter_axes=(), payload_elems: int = 0,
+                                     wire_dtype: str = "fp32",
+                                     var_names=()):
+    """The candidate stage compositions for one ``reduce`` sync unit over
+    named mesh ``axes`` (the JAX function): ``{algorithm: (CollectiveOp,
+    ...)}`` for the three algorithms the lowering can execute; ``hier``
+    exists only when both an intra- and an inter-host axis are named.
+    Every candidate is reduction-equivalent to the flat reduce it
+    replaces (:func:`reduction_equivalent`, which the ADT522 lint
+    re-checks)."""
+    axes = tuple(axes)
+    intra = tuple(a for a in (intra_axes or ()) if a in axes)
+    inter = tuple(a for a in (inter_axes or ()) if a in axes)
+    names = tuple(var_names)
+
+    def op(kind, over, elems=payload_elems):
+        return CollectiveOp(kind=kind, unit=unit, axes=tuple(over),
+                            var_names=names, payload_elems=int(elems),
+                            wire_dtype=wire_dtype)
+
+    out = {
+        "ring": (op("reduce", axes),),
+        "rhd": (op("reduce_scatter", axes),
+                op("all_gather", axes)),
+    }
+    if intra and inter:
+        out["hier"] = (op("reduce_scatter", intra),
+                       op("reduce", inter),
+                       op("all_gather", intra))
+    return out
+
+
+def reduction_equivalent(stages, target) -> bool:
+    """True when a stage composition computes exactly the reduction
+    ``target`` (a ``reduce`` :class:`CollectiveOp`, or anything with
+    ``.axes``) does — the ADT522 contract, as in JAX: it reduces over
+    exactly the target's axes, each once; every reduce_scatter is matched
+    by a later all_gather over the same axes; nothing else is
+    interleaved."""
+    want = tuple(target.axes)
+    ops = tuple(stages)
+    if not ops:
+        return False
+    reduced = []           # axes whose reduction has been applied
+    open_scatters = []     # reduce_scatter axes awaiting their all_gather
+    for op in ops:
+        if op.kind == "reduce":
+            reduced.extend(op.axes)
+        elif op.kind == "reduce_scatter":
+            reduced.extend(op.axes)
+            open_scatters.append(tuple(op.axes))
+        elif op.kind == "all_gather":
+            if not open_scatters or open_scatters[-1] != tuple(op.axes):
+                return False  # gathers a shard nothing scattered
+            open_scatters.pop()
+        else:
+            return False
+    if open_scatters:
+        return False  # a shard never came back: not an all-reduce
+    return sorted(reduced) == sorted(want) and len(set(reduced)) == len(
+        reduced)

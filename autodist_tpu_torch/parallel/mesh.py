@@ -27,8 +27,11 @@ axis's, ``ops/attention.py``'s ring and Ulysses attention and
 ``parallel/expert.py`` routes tokens over the expert axis's; outside
 (tracing, one process, evaluation before a build) it is unbound and the
 same ops compute the plain, unsharded function, so one model definition
-serves all of them. A size-1 axis is never bound: its collectives would
-be identities.
+serves all of them. A size-1 axis is never bound for a step: its
+collectives would be identities. A costed trace binds the axes at size 1
+all the same (:func:`recording`, as the JAX package's cost model traces
+its loss), so that every collective the bound code paths issue records
+its axis, cost class and bytes, moving nothing and counting nothing.
 
 The exchanges over a bound axis live here, so that every family of
 model parallelism shares them: :func:`ppermute` (the JAX
@@ -233,6 +236,65 @@ MODEL_PARALLEL_AXES = (const.MODEL_AXIS, const.PIPELINE_AXIS,
                        const.SEQUENCE_AXIS, const.EXPERT_AXIS)
 
 
+class CollectiveRecord:
+    """The collectives one traced forward issues, by mesh axis and cost
+    class (``{axis: {class: bytes}}``; the JAX
+    ``collective_comm_profile``'s shape): the cost model's input for
+    model-parallel communication. Filled inside :func:`recording`."""
+
+    def __init__(self):
+        self.profile: Dict[str, Dict[str, float]] = {}
+
+    def add(self, axis: str, kind: str, t: torch.Tensor) -> None:
+        by_kind = self.profile.setdefault(axis, {})
+        by_kind[kind] = by_kind.get(kind, 0.0) + float(
+            t.numel() * t.element_size())
+
+
+@dataclasses.dataclass(frozen=True)
+class _Recording:
+    """The ``group`` of an axis bound by :func:`recording`: its
+    collectives record their output bytes and move nothing."""
+    record: CollectiveRecord
+    axis: str
+
+    def add(self, kind: str, t: torch.Tensor) -> None:
+        self.record.add(self.axis, kind, t)
+
+
+def recording_group(group) -> Optional[_Recording]:
+    """``group`` when it is an axis bound by :func:`recording`."""
+    return group if isinstance(group, _Recording) else None
+
+
+@contextlib.contextmanager
+def recording() -> Iterator[CollectiveRecord]:
+    """Bind each of :data:`MODEL_PARALLEL_AXES` that is not bound at size
+    1, with a group that records instead of moving (the JAX package's
+    trace at bound size-1 axes, ``utils/axis_env.py::bound_axes``): the
+    model's bound
+    code paths run, and every :func:`psum`, :func:`all_to_all`,
+    :func:`ppermute` (and the tensor and pipeline modules' reductions)
+    adds the axis, its cost class (``reduce``, ``alltoall``,
+    ``permute``) and its output bytes to the yielded
+    :class:`CollectiveRecord`, returning what a one-rank collective
+    returns. The telemetry counters and gauges count nothing in the body:
+    a recording moves nothing. Only for a trace: the values are those of
+    one rank."""
+    record = CollectiveRecord()
+    saved = dict(_BOUND)
+    try:
+        for name in MODEL_PARALLEL_AXES:
+            if name not in _BOUND:
+                _BOUND[name] = AxisBinding(name, 1, 0,
+                                           _Recording(record, name))
+        with tel.muted():
+            yield record
+    finally:
+        _BOUND.clear()
+        _BOUND.update(saved)
+
+
 @contextlib.contextmanager
 def bind(mesh: Optional[ProcessMesh],
          names: Sequence[str] = MODEL_PARALLEL_AXES) -> Iterator[None]:
@@ -285,6 +347,9 @@ def _move(sends: Dict[int, torch.Tensor], recvs: Dict[int, torch.Size],
     for src, shape in recvs.items():
         out_splits[src] = int(torch.Size(shape).numel())
     inp = torch.cat(parts) if parts else like.new_empty(0)
+    if recording_group(b.group) is not None:
+        # one rank: what it sends itself is what it receives
+        return {src: inp.view(recvs[src]) for src in recvs}
     out = like.new_empty(sum(out_splits))
     dist.all_to_all_single(out, inp, out_splits, in_splits, group=b.group)
     got, at = {}, 0
@@ -300,7 +365,14 @@ def _permute(x: Optional[torch.Tensor], perm: Perm, like: torch.Tensor,
     """``lax.ppermute`` of ``x`` over the pairs ``perm`` (``(src, dst)``
     axis indexes, each at most once a side): the tensor from this rank's
     source, or None when no pair ends here. A rank that is no pair's
-    source passes None. No gradient."""
+    source passes None. No gradient. An empty ``perm`` moves nothing; a
+    recording records it all the same (the JAX scan's ppermute of every
+    tick)."""
+    rec = recording_group(b.group)
+    if rec is not None:
+        rec.add("permute", like)
+    elif not perm:
+        return None
     index = b.index
     sends = {dst: x for src, dst in perm if src == index}
     recvs = {src: like.shape for src, dst in perm if dst == index}
@@ -344,6 +416,9 @@ def _all_to_all(x: torch.Tensor, b: AxisBinding, split_axis: int,
         raise ValueError("all_to_all: dim %d of %s is not divisible by the "
                          "%d ranks of axis %r" % (split_axis,
                                                   tuple(x.shape), n, b.name))
+    rec = recording_group(b.group)
+    if rec is not None:
+        rec.add("alltoall", x)
     tel.counter_add(_prefix(b) + ".a2a_calls")
     tel.counter_add(_prefix(b) + ".a2a_bytes", x.numel() * x.element_size())
     chunks = x.chunk(n, dim=split_axis)
@@ -380,10 +455,20 @@ def all_to_all(x: torch.Tensor, axis_name: str, split_axis: int,
     return _all_to_all(x, b, split_axis, concat_axis)
 
 
-def _all_reduce(x: torch.Tensor, b: AxisBinding) -> torch.Tensor:
-    out = x.contiguous().clone()
-    dist.all_reduce(out, group=b.group)
+def all_reduce_(out: torch.Tensor, group,
+                op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """``dist.all_reduce`` of ``out`` in place over ``group``, or, over
+    an axis bound by :func:`recording`, the record of a ``reduce``."""
+    rec = recording_group(group)
+    if rec is not None:
+        rec.add("reduce", out)
+    else:
+        dist.all_reduce(out, op=op, group=group)
     return out
+
+
+def _all_reduce(x: torch.Tensor, b: AxisBinding) -> torch.Tensor:
+    return all_reduce_(x.contiguous().clone(), b.group)
 
 
 class _PSum(torch.autograd.Function):

@@ -57,7 +57,6 @@ order of the pipelined program.
 from typing import Callable, List, Optional, Tuple
 
 import torch
-import torch.distributed as dist
 from torch.utils import _pytree as pytree
 from torch.utils.checkpoint import checkpoint
 
@@ -103,8 +102,7 @@ def _broadcast_last(outs: torch.Tensor, b: mesh.AxisBinding) -> torch.Tensor:
     """The JAX ``psum(where(rank == S-1, outs, 0))``: the last pipe rank's
     ``outs`` on every rank of the line."""
     out = outs.clone() if b.index == b.size - 1 else torch.zeros_like(outs)
-    dist.all_reduce(out, group=b.group)
-    return out
+    return mesh.all_reduce_(out, b.group)
 
 
 # ------------------------------------------- GPipe and interleaved ticks
@@ -178,9 +176,7 @@ def _run_ticks(sch: _Schedule, x_mb, trees, keep: bool):
                 graphs[t] = (m, c, inp, out)
             if r == S - 1 and c == V - 1:
                 outs[m] = out.detach()
-        perm = _tick_perm(t, S, M, V)
-        if perm:
-            recv = _permute(out, perm, x_mb[0], b)
+        recv = _permute(out, _tick_perm(t, S, M, V), x_mb[0], b)
     return outs, graphs
 
 

@@ -37,9 +37,7 @@ def _count(t: torch.Tensor) -> None:
 
 
 def _all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM):
-    out = x.contiguous().clone()
-    dist.all_reduce(out, op=op, group=group)
-    return out
+    return mesh.all_reduce_(x.contiguous().clone(), group, op)
 
 
 class _AllReduce(torch.autograd.Function):

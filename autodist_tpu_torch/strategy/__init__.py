@@ -3,13 +3,15 @@
 ``ZeroSharded``), the PS family (``PS``, ``PSLoadBalancing``,
 ``PartitionedPS``, ``UnevenPartitionedPS``, ``Parallax``),
 ``TensorParallel``, ``PipelineParallel``, ``SequenceParallelAR``,
-``ExpertParallel`` and the ``WithRemat`` wrapper."""
+``ExpertParallel``, the ``WithRemat`` wrapper, and ``AutoStrategy``, which
+ranks the others' plans with the simulator and a per-variable search."""
 from autodist_tpu_torch.strategy.base import (AllReduceSynchronizer,  # noqa: F401
                                               GraphConfig, PSSynchronizer,
                                               Strategy, StrategyBuilder,
                                               StrategyCompiler, VarConfig,
                                               ZeroShardedSynchronizer)
 from autodist_tpu_torch.strategy.all_reduce_strategy import AllReduce  # noqa: F401
+from autodist_tpu_torch.strategy.auto_strategy import AutoStrategy  # noqa: F401
 from autodist_tpu_torch.strategy.expert_parallel_strategy import \
     ExpertParallel  # noqa: F401
 from autodist_tpu_torch.strategy.parallax_strategy import Parallax  # noqa: F401

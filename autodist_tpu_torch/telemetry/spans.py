@@ -27,6 +27,7 @@ so logs can correlate with traces (``utils/logging.py`` JSON mode embeds
 live in the JAX package's ``telemetry/export.py`` (not yet ported).
 """
 import collections
+import contextlib
 import itertools
 import os
 import threading
@@ -511,13 +512,32 @@ def instant(name: str, cat: str = "app", **args):
     get_recorder().instant(name, cat, **args)
 
 
+# a thread inside muted() sets no counter and no gauge
+_MUTE = threading.local()
+
+
+@contextlib.contextmanager
+def muted():
+    """The calling thread's counters and gauges stay as they are in the
+    body (a costed trace, which moves nothing, runs the instrumented
+    collectives)."""
+    was = getattr(_MUTE, "on", False)
+    _MUTE.on = True
+    try:
+        yield
+    finally:
+        _MUTE.on = was
+
+
 def counter_add(name: str, value: float = 1.0):
     """Always-on registry increment (works with tracing disabled)."""
-    get_recorder().counter_add(name, value)
+    if not getattr(_MUTE, "on", False):
+        get_recorder().counter_add(name, value)
 
 
 def gauge_set(name: str, value: float):
-    get_recorder().gauge_set(name, value)
+    if not getattr(_MUTE, "on", False):
+        get_recorder().gauge_set(name, value)
 
 
 def hist_observe(name: str, value: float, bounds=None):

@@ -443,6 +443,27 @@ result line):
    chief's process unbound with the plain attention; flash_fwd launches
    12 a dispatch on each rank (and 12 for the first call's classifying
    forward on the example bucket); QPS and latency p50/p99.
+28. the plan verifier and the cost model: (a) for the plans phases 5, 7
+   (flash), 8 and 20 (a) ran (lm1b, bert_base, resnet50, the tp_lm
+   flagship), the port's ``CostModel`` on the card's spec — the predicted
+   step time, the projected peak memory and the traced step FLOPs —
+   beside each phase's step p50, ``torch.cuda.max_memory_allocated`` and
+   its closed-form FLOPs, with their ratios (estimates: no bound); fatal
+   if ``verify`` gives an error on one of those plans, if the build's
+   memory gate did not run or gave ADT501, or if the traced FLOPs of
+   lm1b or bert_base are not within 10% of the closed form. (b)
+   ``AutoDist(strategy_builder=AutoStrategy(), validate="error")`` on
+   bert_base (bf16, seq 128, batch 128): the top five labels with their
+   estimated ms, the pick, the candidates the search scored and the
+   build's ms; a second build gives the same strategy JSON bytes; then 1
+   + 5 steps: the loss falls, each kernel launches 12 times a step on
+   ``mma.sync bf16``, the step p50 beside phase 7's. (c) bert_base's plan
+   with one PS destination on a host the spec lacks, under
+   ``validate="error"``: ``StrategyVerificationError`` with ADT303, no
+   flash kernel launched. (d) (printed from phase 14's ranks)
+   ``int8_ring_all_reduce`` of 2^22 f32 elements a rank at N = 2 over
+   gloo: both ranks' sums bit-identical and within 3% median relative
+   error of the exact sum; the ms a call.
 
 TF32 is off for the whole run (``torch.backends.cuda.matmul`` and
 ``cudnn``): float32 is computed in float32, as the f32 checks' 2e-5 and
@@ -1324,8 +1345,10 @@ def train_phase(card):
              if not torch.equal(final[n].cpu(), params[n])]
     if len(moved) != 5:
         fail("training: some params did not move (moved: %r)" % moved)
-    report_steps("lm1b", times, TRAIN_BATCH * TRAIN_SEQ, "tokens",
-                 train_flops_per_step(cfg, n_params), card, launches)
+    flops = train_flops_per_step(cfg, n_params)
+    note_plan("lm1b (phase 5)", runner, flops, report_steps(
+        "lm1b", times, TRAIN_BATCH * TRAIN_SEQ, "tokens", flops, card,
+        launches))
     stats = runner.step_stats()
     print("  step_stats: first_step_s %s steady_median_s %s goodput %s"
           % (stats["first_step_s"], stats["steady_median_s"],
@@ -1454,9 +1477,13 @@ def bert_train_phase(card):
                      "mlm_output.weight"):
             if torch.equal(final[name].cpu(), params[name]):
                 fail("%s: %s did not move" % (label, name))
+        flops = bert_flops_per_step(cfg, n_params)
         p50[attention] = report_steps(
-            label, times, BERT_BATCH * BERT_SEQ, "tokens",
-            bert_flops_per_step(cfg, n_params), card, launches)
+            label, times, BERT_BATCH * BERT_SEQ, "tokens", flops, card,
+            launches)
+        if attention == "flash":
+            note_plan("bert_base (phase 7)", runner, flops, p50[attention])
+            READINGS["bert_flash_p50_ms"] = p50[attention]
         profile_steps(runner, batch, label)
         if attention == "flash":
             # the wrapper turns each layer's [B, 1, 1, S] mask into segment
@@ -1538,8 +1565,8 @@ def resnet_phase(card):
     print("  %d BatchNorm mean/var tensors bit-equal before and after the "
           "steps" % len(stats))
     flops = 3 * RESNET_BATCH * forward_flops_per_image(model)
-    report_steps("resnet50", times, RESNET_BATCH, "images", flops, card,
-                 launches)
+    note_plan("resnet50 (phase 8)", runner, flops, report_steps(
+        "resnet50", times, RESNET_BATCH, "images", flops, card, launches))
     profile_steps(runner, batch, "resnet50")
 
 
@@ -2808,9 +2835,45 @@ def sync_child(rank, store, out_dir):
         del runner, dstep, final
         adt.reset()
         torch.cuda.empty_cache()
+    out["ring"] = ring_child(rank)
     with open(os.path.join(out_dir, "sync%d.json" % rank), "w") as f:
         json.dump(out, f)
     dist.destroy_process_group()
+
+
+RING_ELEMS, RING_CALLS = 1 << 22, 5
+
+
+def ring_child(rank, device="cuda:0"):
+    """Phase 28 (d) in a rank of phase 14's child: ``int8_ring_all_reduce``
+    of 2^22 f32 elements a rank over the gloo group, on cuda:0. Every rank
+    makes both ranks' rows from their seeds, so it holds the exact sum;
+    returns the sum's digest, its median relative error against the exact
+    sum and the ms a call (a warm-up call, then ``RING_CALLS`` timed)."""
+    import hashlib
+    import statistics
+    import torch
+    import torch.distributed as dist
+    from autodist_tpu_torch.parallel import collectives
+    rows = [torch.randn(RING_ELEMS, generator=torch.Generator().manual_seed(
+        280 + r)) for r in range(DP_RANKS)]
+    x = rows[rank].to(device)
+    exact = torch.stack(rows).double().sum(0)
+    times = []
+    for i in range(RING_CALLS + 1):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = collectives.int8_ring_all_reduce(x, None)
+        torch.cuda.synchronize()
+        if i:
+            times.append((time.perf_counter() - t0) * 1e3)
+    host = got.cpu()
+    rel = (host.double() - exact).abs() / (exact.abs() + 1e-6)
+    return {"digest": hashlib.sha256(host.numpy().tobytes()).hexdigest(),
+            "median_rel_err": float(rel.median()),
+            "finite": bool(torch.isfinite(host).all()),
+            "ms": statistics.median(times), "times_ms": times}
 
 
 def sync_phase(card):
@@ -2945,6 +3008,7 @@ def sync_phase(card):
                        ", ".join(order[-3:])))
     print("  (c) step p50 overlap %.1f ms vs epilogue %.1f ms [%s]"
           % (ov["p50_ms"], ar["p50_ms"], card))
+    ring_phase(card, [r["ring"] for r in res])
     launches = {}
     for r in res:
         for name, by in r["launches"].items():
@@ -2952,6 +3016,26 @@ def sync_phase(card):
                 launches.setdefault(name, {})
                 launches[name][design] = launches[name].get(design, 0) + n
     return launches
+
+
+def ring_phase(card, rings):
+    """Phase 28 (d): the int8 ring's sums from phase 14's two ranks:
+    bit-identical on both, within the JAX test's 3% median relative error
+    of the exact sum (tests/test_compressor.py)."""
+    a, b = rings
+    print("phase 28 (d): int8_ring_all_reduce of %d f32 elements a rank at "
+          "N = %d over gloo on cuda:0 (in phase 14's ranks): median "
+          "relative error %.4f (bound 0.03), both ranks' sums bit-identical:"
+          " %s; %.2f ms a call (calls %s ms) [%s]"
+          % (RING_ELEMS, DP_RANKS, a["median_rel_err"],
+             a["digest"] == b["digest"], a["ms"],
+             " ".join("%.2f" % x for x in a["times_ms"]), card))
+    if a["digest"] != b["digest"]:
+        fail("phase 28 (d): the ranks' int8 ring sums differ")
+    if not (a["finite"] and a["median_rel_err"] < 0.03):
+        fail("phase 28 (d): the int8 ring's median relative error is %.4f "
+             "(bound 0.03; finite: %s)" % (a["median_rel_err"],
+                                           a["finite"]))
 
 
 TIER_WARMUP, TIER_STEPS = 2, 4
@@ -5484,9 +5568,12 @@ def tp_phase(card):
                                     losses_out=losses)
     check_launches("phase 20 (a)", launches_a, cfg.num_layers,
                    TP_WARMUP + TP_TIMED)
+    flops = tp_flops_per_step(cfg, n_params)
     READINGS["tp_lm_a_p50_ms"] = report_steps(
         "(a) tp_lm flagship TensorParallel(1)", times, TP_BATCH * TP_SEQ,
-        "tokens", tp_flops_per_step(cfg, n_params), card, launches_a)
+        "tokens", flops, card, launches_a)
+    note_plan("tp_lm flagship (phase 20 (a))", runner, flops,
+              READINGS["tp_lm_a_p50_ms"])
     mp_a, all_a = stored_bytes(runner)
     with uncounted():
         profile_steps(runner, batch, "(a) tp_lm")
@@ -8385,6 +8472,232 @@ def mesh_phase(card, env, tp2):
     return train, serve
 
 
+# ------------------------------------------------------------- phase 28
+
+PLAN_READINGS = {}   # phase 28 (a)'s inputs, by the phase that ran them
+
+
+def note_plan(label, runner, formula_flops, p50_ms):
+    """Phase 28 (a)'s inputs, taken right after a phase's timed steps: the
+    port's cost model on the card's spec for the plan the phase's build
+    compiled, the verifier's errors and the build's memory report, beside
+    the phase's step p50, peak memory (since its timed steps began) and
+    closed-form FLOPs."""
+    import torch
+    from autodist_tpu_torch.analysis.diagnostics import Severity
+    from autodist_tpu_torch.analysis.rules import verify
+    from autodist_tpu_torch.autodist import get_default_autodist
+    from autodist_tpu_torch.simulator.cost_model import CostModel
+    from autodist_tpu_torch.analysis.memory import plan_memory_report
+    from autodist_tpu_torch.analysis.rules import verify_numerics
+    ad = get_default_autodist()
+    dstep = runner.distributed_step
+    item, plan, spec = dstep.model_item, dstep.strategy, ad.resource_spec
+    # what the build's gate ran, timed again: verify, the numerics
+    # warnings, the plan memory report (its own cost model)
+    t0 = time.perf_counter()
+    errors = [d.format() for d in verify(plan, item, spec)
+              if d.severity >= Severity.ERROR]
+    verify_numerics(plan, item, spec)
+    plan_memory_report(plan, item, spec)
+    gate_ms = (time.perf_counter() - t0) * 1e3
+    cm = CostModel(item, spec)
+    est = cm.estimate(plan)
+    report = ad.last_memory_report
+    PLAN_READINGS[label] = {
+        "predicted_ms": est.step_time_s * 1e3, "p50_ms": p50_ms,
+        "predicted_peak": est.hbm_bytes,
+        "peak": torch.cuda.max_memory_allocated(),
+        "trace_flops": (3 * item.trace_costs.flops
+                        if item.trace_costs is not None else None),
+        "formula_flops": formula_flops, "errors": errors,
+        "gate": None if report is None else [
+            d.code for d in report["diagnostics"]],
+        "chip": cm._chip, "gate_ms": gate_ms}
+
+
+def plan_readings_phase(card):
+    """Phase 28 (a): the cost model's figures beside the measurements."""
+    print("phase 28 (a): the port's CostModel on the card's spec beside "
+          "the measured step p50 and peak memory of the plans phases 5, 7, "
+          "8 and 20 (a) ran (estimates: printed with their ratios, no "
+          "bound)")
+    want = ("lm1b (phase 5)", "bert_base (phase 7)", "resnet50 (phase 8)",
+            "tp_lm flagship (phase 20 (a))")
+    missing = [label for label in want if label not in PLAN_READINGS]
+    if missing:
+        fail("phase 28 (a): no readings of %r" % (missing,))
+    for label in want:
+        r = PLAN_READINGS[label]
+        if r["trace_flops"] is None:
+            fail("phase 28 (a): %s: the build traced no costs" % label)
+        ratio = r["trace_flops"] / r["formula_flops"]
+        print("  %s: predicted step %.2f ms vs p50 %.2f ms (x%.3f); "
+              "projected peak %.2f GB vs max_memory_allocated %.2f GB "
+              "(x%.3f); traced step %.3f TFLOP vs the closed form %.3f "
+              "(x%.4f); chip %r; the build's gate %.1f ms; verify errors %d; "
+              "memory gate %s [%s]"
+              % (label, r["predicted_ms"], r["p50_ms"],
+                 r["predicted_ms"] / r["p50_ms"], r["predicted_peak"] / 1e9,
+                 r["peak"] / 1e9, r["predicted_peak"] / r["peak"],
+                 r["trace_flops"] / 1e12, r["formula_flops"] / 1e12, ratio,
+                 r["chip"], r["gate_ms"], len(r["errors"]),
+                 "not run" if r["gate"] is None
+                 else (r["gate"] or "clean"), card))
+        if r["errors"]:
+            fail("phase 28 (a): %s: verify gives errors: %s"
+                 % (label, r["errors"]))
+        if r["gate"] is None or "ADT501" in r["gate"]:
+            fail("phase 28 (a): %s: the memory gate %s"
+                 % (label, "did not run" if r["gate"] is None
+                    else "projects an OOM (ADT501)"))
+        if label.split()[0] in ("lm1b", "bert_base") and \
+                not 0.9 <= ratio <= 1.1:
+            fail("phase 28 (a): %s: the traced FLOPs are x%.4f of the "
+                 "closed form (bound 10%%)" % (label, ratio))
+
+
+def launched_now():
+    """The kernels with a launch since the counts were last set to 0."""
+    return {n: c for n, c in launch_counts().items() if any(c.values())}
+
+
+def _plan_json(plan):
+    d = plan.to_dict()
+    d.pop("id")
+    return json.dumps(d, sort_keys=True)
+
+
+def auto_phase(card, cfg, loss_fn, params, batch):
+    """Phase 28 (b): AutoStrategy on bert_base through AutoDist, twice;
+    then steps under the pick. Returns each kernel's launches by design."""
+    import gc
+    import math
+    import torch
+    import autodist_tpu_torch as adt
+    from autodist_tpu_torch.strategy import AutoStrategy
+    print("phase 28 (b): bert_base full width (bf16, seq %d, batch %d, "
+          "flash) through AutoDist(strategy_builder=AutoStrategy(), "
+          "validate='error'), built twice" % (BERT_SEQ, BERT_BATCH))
+    adam = functools.partial(torch.optim.Adam, lr=1e-3)
+    picked, runner = [], None
+    for build in range(2):
+        adt.reset()
+        auto = AutoStrategy()
+        ad = adt.AutoDist(strategy_builder=auto, validate="error")
+        reset_counts()
+        t0 = time.perf_counter()
+        runner = ad.build(loss_fn, adam, params, batch)
+        build_ms = (time.perf_counter() - t0) * 1e3
+        ranking = auto.last_ranking
+        picked.append(_plan_json(ranking[0].strategy))
+        trace = ranking.search_trace
+        print("  build %d: %.0f ms (%d variables); pick %s (%s) at %.3f "
+              "ms/step (est); the search scored %d candidates (%d pruned), "
+              "skipped builders %d; top five: %s"
+              % (build + 1, build_ms, len(runner.distributed_step.model_item
+                                          .var_infos),
+                 ranking[0].label,
+                 trace.result.get("plan", "-") if trace else "-",
+                 ranking[0].step_time_s * 1e3,
+                 trace.result.get("candidates", 0) if trace else 0,
+                 trace.result.get("pruned", 0) if trace else 0,
+                 len(ranking.skipped),
+                 ", ".join("%s %.3f ms" % (r.label, r.step_time_s * 1e3)
+                           for r in ranking[:5])))
+        if launched_now():
+            fail("phase 28 (b): a kernel launched during the build: %r"
+                 % (launched_now(),))
+        if trace is None or not trace.result.get("candidates"):
+            fail("phase 28 (b): the search scored no candidate")
+        if build == 0:
+            del runner
+            gc.collect()
+    if picked[0] != picked[1]:
+        fail("phase 28 (b): the two builds picked different plans")
+    print("  the two builds' strategy JSON: %d bytes each, equal"
+          % len(picked[0]))
+    runner.init(params)
+    losses = []
+    # the fixed batch's loss oscillates after a few steps (phase 7): the
+    # loss after 3 steps must be below the first
+    times, launches = timed_steps(runner, batch, "phase 28 (b)", warmup=1,
+                                  steps=5, must_fall=False,
+                                  losses_out=losses)
+    if not (all(math.isfinite(x) for x in losses)
+            and losses[3] < losses[0]):
+        fail("phase 28 (b): the loss did not fall: %r" % (losses,))
+    check_launches("phase 28 (b)", launches, cfg.num_layers, 1 + len(times))
+    p50 = sorted(times)[len(times) // 2] * 1e3
+    print("  step p50 %.2f ms vs phase 7's %.2f ms under AllReduce; "
+          "launches %r [%s]"
+          % (p50, READINGS.get("bert_flash_p50_ms", float("nan")),
+             launches, card))
+    del runner
+    adt.reset()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def refuse_phase(card, loss_fn, params, batch):
+    """Phase 28 (c): validate='error' refuses a bad plan before any
+    kernel runs."""
+    import torch
+    import autodist_tpu_torch as adt
+    from autodist_tpu_torch import strategy
+    from autodist_tpu_torch.analysis.diagnostics import \
+        StrategyVerificationError
+    from autodist_tpu_torch.strategy.base import (PSSynchronizer,
+                                                  StrategyBuilder)
+
+    class OffSpec(StrategyBuilder):
+        """AllReduce's plan with one PS destination off the spec."""
+
+        def build(self, model_item, resource_spec):
+            plan = strategy.AllReduce().build(model_item, resource_spec)
+            plan.node_config[0].synchronizer = PSSynchronizer(
+                reduction_destination="10.9.9.9:CPU:0")
+            return plan
+
+    adt.reset()
+    ad = adt.AutoDist(strategy_builder=OffSpec(), validate="error")
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        ad.build(loss_fn, functools.partial(torch.optim.Adam, lr=1e-3),
+                 params, batch)
+    except StrategyVerificationError as e:
+        codes = sorted({d.code for d in e.diagnostics})
+        refused_ms = (time.perf_counter() - t0) * 1e3
+    else:
+        fail("phase 28 (c): a plan with a PS destination off the spec built")
+    launched = launched_now()
+    print("phase 28 (c): bert_base's plan with a PS destination on "
+          "10.9.9.9 under validate='error': StrategyVerificationError %s "
+          "in %.0f ms, flash launches %r [%s]"
+          % (codes, refused_ms, launched, card))
+    if codes != ["ADT303"] or launched:
+        fail("phase 28 (c): refused with %r (want ['ADT303']), launches %r"
+             % (codes, launched))
+    adt.reset()
+
+
+def plan_phase(card):
+    """Phase 28 (a)-(c); (d) is printed from phase 14's ranks. Returns (b)'s
+    launches by design."""
+    import torch
+    from autodist_tpu_torch.models import bert
+    plan_readings_phase(card)
+    cfg = bert.BertConfig.base(dtype=torch.bfloat16)
+    loss_fn, params, batch, _ = bert.make_train_setup(
+        cfg, seq_len=BERT_SEQ, batch_size=BERT_BATCH, seed=0,
+        attention="flash")
+    launches = auto_phase(card, cfg, loss_fn, params, batch)
+    refuse_phase(card, loss_fn, params, batch)
+    return launches
+
+
 def main():
     global T_SMOKE
     T_SMOKE = time.perf_counter()
@@ -8599,7 +8912,8 @@ def main():
     seconds["24 (b) after 21 with 23"] = time.perf_counter() - t
     n2_launches, n2_f32_launches, n2_record = timed_phase(
         "26", serve_phase, card, env0, phase3_tokens)
-    print("phases 5-27: %s s" % ", ".join(
+    auto_launches = timed_phase("28", plan_phase, card)
+    print("phases 5-28: %s s" % ", ".join(
         "%s %.1f" % kv for kv in seconds.items()))
 
     # flash_fwd runs on the three main paths, serving (decode), lm1b and
@@ -8679,6 +8993,7 @@ def main():
         # phase 23: (a) bert_base launched by the chief, the planned
         # departure: the worker's steps, the chief's at N = 2 and N = 1;
         # (b) bert_base at 2 layers, the rescue-skip branch
+        # phase 28 (b): bert_base under the plan AutoStrategy picked
         for path, counts in (("bert_sync_variants", sync_launches),
                              ("lm1b_bf16_tier", tier_launches),
                              ("bert_remat", remat_launches),
@@ -8690,7 +9005,8 @@ def main():
                              ("bert_sentinel", sentinel_launches),
                              ("bert_schedules", sched_launches),
                              ("bert_inrun", inrun_launches),
-                             ("bert_preempt", preempt_launches)):
+                             ("bert_preempt", preempt_launches),
+                             ("bert_autostrategy", auto_launches)):
             n = counts.get(name, {})
             rec["by_path"][path] = {
                 "launches": sum(n.values()),

@@ -277,6 +277,111 @@ def test_powersgd_state_seeds_the_same_q_on_every_rank():
     assert comp.state_init((8,), torch.float32) is None
 
 
+# ------------------------------------------------------- the int8 ring
+
+# lengths: a multiple of every rank count, a ragged one (padding), one
+# with a NaN (the scale poisons, as in JAX)
+RING_CASES = {"even": 1024, "ragged": 1000, "nan": 700}
+
+
+def _ring_inputs(world):
+    out = {}
+    for name, length in RING_CASES.items():
+        x = np.random.RandomState(length + world).randn(
+            world, length).astype(np.float32)
+        if name == "nan":
+            x[1, 5] = np.nan
+        out[name] = x
+    return out
+
+
+def _jax_ring(x, jit):
+    """The JAX ring inside ``shard_map`` over ``len(x)`` devices, jitted
+    or op by op (``jax.disable_jit``)."""
+    from jax.sharding import Mesh, PartitionSpec as P
+    n, length = x.shape
+    mesh = Mesh(np.array(jax.devices()[:n]), ("data",))
+    fn = jax.shard_map(
+        lambda xs: jcoll.int8_ring_all_reduce(xs.reshape(-1), "data", n),
+        mesh=mesh, in_specs=P("data"), out_specs=P("data"),
+        check_vma=False)
+    if jit:
+        out = jax.jit(fn)(x.reshape(-1))
+    else:
+        with jax.disable_jit():
+            out = fn(x.reshape(-1))
+    return np.asarray(out).reshape(n, length)
+
+
+@pytest.fixture(scope="module")
+def rings(tmp_path_factory):
+    """{world: (inputs, each rank's {case: reduced})} at 2 and 4 ranks."""
+    out = {}
+    for world in (2, 4):
+        inputs = _ring_inputs(world)
+        out[world] = (inputs, launch("ring", world, tmp_path_factory.mktemp(
+            "ring%d" % world), inputs))
+    return out
+
+
+@pytest.mark.parametrize("case", list(RING_CASES))
+@pytest.mark.parametrize("world", [2, 4])
+def test_int8_ring_all_reduce_is_bit_equal_to_jax(rings, world, case):
+    """Every rank holds bit-identical sums, equal to the JAX ring run op
+    by op (on the ragged case: an eager ``shard_map`` takes 10-30 s a
+    call); the jitted JAX ring agrees within
+    1e-6 of the sums' scale (XLA's CPU backend contracts the
+    dequant-accumulate into an FMA, ROADMAP's drift point), and the sums
+    are within the JAX test's 3% median relative error of the exact
+    sum."""
+    inputs, ranks = rings[world]
+    x = inputs[case]
+    got = np.stack([r[case] for r in ranks])
+    assert np.array_equal(got, got[:1].repeat(world, 0), equal_nan=True)
+    if case == "ragged":
+        assert np.array_equal(got, _jax_ring(x, jit=False), equal_nan=True)
+    jitted = _jax_ring(x, jit=True)
+    if case == "nan":   # the NaN poisons its chunk's scale only
+        assert np.isnan(got).any() and not np.isnan(got).all()
+        assert np.array_equal(np.isnan(got), np.isnan(jitted))
+        return
+    scale = np.abs(x).sum(0).max()
+    np.testing.assert_allclose(got, jitted, rtol=0, atol=1e-6 * scale)
+    exact = x.sum(0)
+    rel = np.abs(got[0] - exact) / (np.abs(exact) + 1e-6)
+    assert np.median(rel) < 0.03, np.median(rel)
+
+
+def test_candidate_synthesis_equals_jax():
+    """``synthesize_collective_candidates`` and ``reduction_equivalent``
+    (the topology pass's ADT522 contract) give the JAX functions'
+    answers."""
+    for axes, intra, inter in [(("ici", "dcn"), ("ici",), ("dcn",)),
+                               (("data",), (), ())]:
+        want = jcoll.synthesize_collective_candidates(
+            "g0", axes, intra_axes=intra, inter_axes=inter,
+            payload_elems=1024, var_names=("w",))
+        got = tcoll.synthesize_collective_candidates(
+            "g0", axes, intra_axes=intra, inter_axes=inter,
+            payload_elems=1024, var_names=("w",))
+        assert {k: [vars(op) for op in v] for k, v in got.items()} == \
+            {k: [vars(op) for op in v] for k, v in want.items()}
+        target = got["ring"][0]
+        for stages in got.values():
+            assert tcoll.reduction_equivalent(stages, target)
+    assert tcoll.SCHEDULE_ALGORITHMS == jcoll.SCHEDULE_ALGORITHMS
+    got_hier = tcoll.synthesize_collective_candidates(
+        "g0", ("ici", "dcn"), intra_axes=("ici",), inter_axes=("dcn",))
+    target = got_hier["ring"][0]
+    jhier = jcoll.synthesize_collective_candidates(
+        "g0", ("ici", "dcn"), intra_axes=("ici",), inter_axes=("dcn",))
+    for stages, jstages in [(got_hier["hier"][:2], jhier["hier"][:2]),
+                            (got_hier["hier"][::-1], jhier["hier"][::-1]),
+                            ((), ())]:
+        assert tcoll.reduction_equivalent(stages, target) == \
+            jcoll.reduction_equivalent(jstages, jhier["ring"][0]) is False
+
+
 # ------------------------------------------------- replicas and the feed
 
 

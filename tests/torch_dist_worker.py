@@ -114,6 +114,16 @@ def compressor_job(payload, device):
     return _np(out)
 
 
+def ring_job(payload, device):
+    """``int8_ring_all_reduce`` of this rank's row of each case's ``x``
+    over the default group; returns ``{case: reduced}``."""
+    from autodist_tpu_torch.parallel import collectives
+    rank = dist.get_rank()
+    return _np({name: collectives.int8_ring_all_reduce(
+        torch.as_tensor(x[rank]).to(device), None)
+        for name, x in payload.items()})
+
+
 TOWER_VOCAB, TOWER_DIM = 100_000, 16
 
 
@@ -1758,7 +1768,8 @@ def serve_job(payload, device):
     return out
 
 
-JOBS = {"compressors": compressor_job, "train": train_job, "ckpt": ckpt_job,
+JOBS = {"compressors": compressor_job, "ring": ring_job, "train": train_job,
+        "ckpt": ckpt_job,
         "ckpt_cross": ckpt_cross_job, "fused": fused_job, "async": async_job,
         "broadcast_bytes": broadcast_bytes_job, "tp": tp_job,
         "sentinel": sentinel_job, "schedule": schedule_job,
