@@ -192,7 +192,8 @@ class AutoDist:
     def __init__(self, resource_spec_file: Optional[str] = None,
                  strategy_builder=None,
                  resource_spec: Optional[ResourceSpec] = None,
-                 device=None, validate: str = "warn"):
+                 device=None, validate: str = "warn",
+                 tracing: bool = False):
         if validate not in ("error", "warn", "off"):
             raise ValueError("validate must be 'error', 'warn' or 'off', "
                              "got %r" % (validate,))
@@ -200,6 +201,9 @@ class AutoDist:
         # "error" raises StrategyVerificationError before the lowering
         # sees the plan, "warn" logs the diagnostics, "off" skips the pass
         self._validate = validate
+        # the runner's first step captures a torch.profiler trace under
+        # const.DEFAULT_TRACE_DIR (the JAX AutoDist(tracing=))
+        self._tracing = tracing
         const.makedirs()
         # a launched worker joins the process group from the env the
         # Coordinator set, before anything reads the group
@@ -503,7 +507,7 @@ class AutoDist:
         if is_async and dstep.ps_store is not None:
             self._wire_async_ps(dstep)
         self._runner = Runner(dstep, sentinel=policy if policy is not None
-                              else False)
+                              else False, tracing=self._tracing)
         if inrun:
             # the rebuild's inputs: a new world recompiles nothing, it
             # transforms the launch plan for the roster's processes
@@ -779,7 +783,7 @@ class AutoDist:
         dstep = GraphTransformer(compiled, item, self._device,
                                  self._replicas, sentinel=policy).transform()
         self._runner = Runner(dstep, sentinel=policy if policy is not None
-                              else False)
+                              else False, tracing=self._tracing)
         return self._runner
 
     def function(self, loss_fn: Callable, *, optimizer, params,

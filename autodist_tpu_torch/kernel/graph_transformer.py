@@ -2242,6 +2242,22 @@ class GraphTransformer:
             return
         _step_fn_output(out, item.params)
 
+    def _snapshot_loss(self):
+        """Stage ``0-original-loss`` under ``ADT_SNAPSHOT``: the aten op
+        listing of the item's one fake-tensor run (the JAX lowering logs
+        the loss's jaxpr here; the reference writes its ``0-original``
+        TensorBoard graph)."""
+        from autodist_tpu_torch.utils import visualization_util
+        costs = self._item.trace_costs
+        if not visualization_util.enabled():
+            return
+        if costs is None or costs.listing is None:
+            logging.warning("snapshot 0-original-loss: the item's trace ran "
+                            "without the op listing (ADT_SNAPSHOT was off "
+                            "at prepare, or the trace failed)")
+            return
+        visualization_util.log_program("0-original-loss", costs.listing)
+
     def transform(self) -> DistributedStep:
         replicas = len(self._strategy.graph_config.replicas)
         if self._item.step_fn is None and any(
@@ -2261,6 +2277,7 @@ class GraphTransformer:
             self._check_step_fn(replicas)
         else:
             self._refuse_unported()
+            self._snapshot_loss()
         gc = self._strategy.graph_config
         mesh_shape = gc.mesh_shape
         if gc.seq_axis and gc.seq_axis not in (mesh_shape or {}):

@@ -198,6 +198,9 @@ class TraceCosts:
     batch_bytes: float = 0.0
     collectives: Dict[str, Dict[str, float]] = dataclasses.field(
         default_factory=dict)
+    # the run's aten ops, one line each (``trace_forward(listing=True)``,
+    # under ``ADT_SNAPSHOT``: the snapshot of the user's loss)
+    listing: Optional[str] = None
 
 
 _aten = torch.ops.aten
@@ -245,13 +248,18 @@ class _CostTap(TorchDispatchMode):
     it dispatches (after the composite ops decompose: a ``linear``
     arrives as ``addmm``, an ``einsum`` as ``bmm``)."""
 
-    def __init__(self):
+    def __init__(self, listing: bool = False):
         super().__init__()
         self.costs = TraceCosts()
+        self.lines = [] if listing else None
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
+        if self.lines is not None and func.namespace == "aten":
+            self.lines.append("%s(%s) -> %s" % (
+                func, ", ".join(_describe(a) for a in args),
+                ", ".join(_describe(o) for o in pytree.tree_leaves(out))))
         packet = func.overloadpacket
         if packet in _PRODUCTS:
             self.costs.flops += _product_flops(packet, args, out)
@@ -267,6 +275,16 @@ class _CostTap(TorchDispatchMode):
         if packet in _PRODUCTS or packet in _ATTENTION:
             self.costs.dot_bytes += nbytes
         return out
+
+
+def _describe(value) -> str:
+    """One argument or output of an op in the snapshot listing: a tensor
+    as its dtype and shape, anything else as its repr."""
+    if isinstance(value, torch.Tensor):
+        return "%s%s" % (dtype_name(value.dtype), list(value.shape))
+    if isinstance(value, (list, tuple)):
+        return "[%s]" % ", ".join(_describe(v) for v in value)
+    return repr(value)
 
 
 def _fake_inputs(params, example_batch):
@@ -300,22 +318,26 @@ def trace_lookups(loss_fn: Callable, params, example_batch
     return tap.lookups, tap.dense_uses
 
 
-def trace_forward(loss_fn: Callable, params, example_batch
+def trace_forward(loss_fn: Callable, params, example_batch,
+                  listing: bool = False
                   ) -> Tuple[Dict[str, List[int]], set, TraceCosts]:
     """:func:`trace_lookups`'s run, costed: ``(lookups, dense_uses,
     costs)``. The model-parallel axes are bound at size 1 for it
     (``parallel/mesh.py::recording``, as the JAX package traces its loss
     under ``bound_axes``), so the collectives of the bound code paths
     are recorded in ``costs.collectives``; the same run counts the
-    FLOPs and the activation bytes (:class:`_CostTap`). The one trace
-    ``ModelItem.prepare`` runs."""
+    FLOPs and the activation bytes (:class:`_CostTap`) and, with
+    ``listing``, lists the ops it dispatched (``costs.listing``). The one
+    trace ``ModelItem.prepare`` runs."""
     from autodist_tpu_torch.parallel import mesh
     mode, fake, batch = _fake_inputs(params, example_batch)
     tap = _LookupTap({id(t): n for n, t in fake.items()})
-    with mode, tap, _CostTap() as cost, mesh.recording() as record, \
-            torch.no_grad():
+    with mode, tap, _CostTap(listing) as cost, \
+            mesh.recording() as record, torch.no_grad():
         loss_fn(fake, batch)
     costs = cost.costs
+    if cost.lines is not None:
+        costs.listing = "\n".join(cost.lines) + "\n"
     costs.collectives = record.profile
     costs.batch_bytes = float(sum(
         leaf.numel() * leaf.element_size()
@@ -368,8 +390,11 @@ def _sparse_and_costs(loss_fn: Callable, params, example_batch
     traced on fake tensors gives no tables and no costs (the cost model
     then falls back to its params-based bounds, as JAX's does when its
     trace fails), with a warning."""
+    from autodist_tpu_torch.utils import visualization_util
     try:
-        lookups, _, costs = trace_forward(loss_fn, params, example_batch)
+        lookups, _, costs = trace_forward(
+            loss_fn, params, example_batch,
+            listing=visualization_util.enabled())
     except Exception as e:  # noqa: BLE001 — detection is best-effort
         logging.warning(
             "sparse-var detection failed (%s: %s); treating ALL vars dense "

@@ -352,6 +352,18 @@ class Coordinator:
         self._planned_departures.pop(worker, None)
         return False
 
+    def _still_silent(self, client, dead: List[str]) -> List[str]:
+        """``dead`` less the workers that beat since it was read. A
+        worker clears its compile mark only after a heartbeat
+        (``Runner._compile_grace_end``), so one whose mark was cleared
+        between the silent list's read and the mark reads has beaten by
+        now: a second read of the list drops it, where the first would
+        declare a live worker dead at the end of its first dispatch."""
+        if not dead:
+            return dead
+        again = set(client.dead_workers(self._heartbeat_timeout))
+        return [d for d in dead if d in again]
+
     def _supervised(self, client, dead: List[str]) -> List[str]:
         """The silent workers the watchdog acts on: not the chief, not
         inside a fresh incarnation's bring-up grace (twice the heartbeat
@@ -436,7 +448,11 @@ class Coordinator:
                     self._maybe_admit_joiners(client)
                 except OSError:
                     pass  # a service blip: the next tick retries
-                dead = self._supervised(client, dead)
+                try:
+                    dead = self._still_silent(
+                        client, self._supervised(client, dead))
+                except OSError:
+                    continue  # a service blip: the next tick reads again
                 fatal = [d for d in dead if self._max_restarts <= max(
                     (self._restarts.get(p, 0) for p in self._pids_of(d)),
                     default=0)]

@@ -68,10 +68,21 @@ member. Every Runner also arms the flight recorder
 straggler detector (``telemetry/goodput.py``), whose flag it marks on the
 coordination service for the chief's watchdog
 (:meth:`Runner._observe_straggler`).
+
+Profiling (``telemetry/cluster.py``): ``Runner(tracing=True)`` (from
+``AutoDist(tracing=True)``) runs the first dispatch under
+``torch.profiler``, and a fleet window (``ADT_PROFILE_STEPS=N:M``, or the
+flag the chief posts on the coordination service, polled at
+``ADT_PROFILE_POLL_S``) the dispatches of steps N to M; each profile
+stops once the device has finished its last step and is written as
+Chrome JSON under ``const.DEFAULT_TRACE_DIR``. With tracing on
+(``ADT_TRACE``), :meth:`Runner.goodput_report` decomposes the recorded
+wall time into buckets (``telemetry/goodput.py``).
 """
 import atexit
 import contextlib
 import itertools
+import os
 import statistics
 import time
 import weakref
@@ -211,8 +222,16 @@ class Runner:
     # recent per-step wall times kept for the steady_* percentiles
     _RECENT_WINDOW = 1024
 
-    def __init__(self, distributed_step, sentinel=None):
+    def __init__(self, distributed_step, sentinel=None,
+                 tracing: bool = False):
         self._dstep = distributed_step
+        # tracing=True: the first dispatch runs under a torch.profiler
+        # trace written as Chrome JSON under const.DEFAULT_TRACE_DIR
+        # (armed until a dispatch takes it)
+        self._tracing = tracing
+        # the last profile written (the first-step trace or a fleet
+        # window's Chrome JSON), None before one
+        self.last_profile_path: Optional[str] = None
         self._remapper = Remapper(distributed_step.device,
                                   distributed_step.replica_info)
         self.state: Optional[TrainState] = None
@@ -283,10 +302,23 @@ class Runner:
         # the flight recorder (its SIGTERM and exit hooks per
         # ADT_BLACKBOX*) and the online straggler detector
         from autodist_tpu_torch.telemetry import blackbox as blackbox_lib
+        from autodist_tpu_torch.telemetry import cluster as cluster_lib
         from autodist_tpu_torch.telemetry import goodput as goodput_lib
         blackbox_lib.arm()
         self._straggler = goodput_lib.StragglerEwma()
         self._straggler_mark_at = 0.0
+        # the fleet-profiling window: (seq, first_step, last_step) from the
+        # coordination-service flag (polled at ADT_PROFILE_POLL_S) or the
+        # serviceless ADT_PROFILE_STEPS; seq 0 is the env's window
+        env_window = cluster_lib.parse_profile_env(
+            const.ENV.ADT_PROFILE_STEPS.val)
+        self._profile_window = ((0,) + env_window) if env_window else None
+        # the one running profile, the first-step trace's or a window's:
+        # (profiler, directory, seq or None for the first-step trace,
+        # the last step it covers)
+        self._profile_prof = None
+        self._profile_done_seq = -1
+        self._profile_poll_at = 0.0
         self._atexit_cb = None
         if self._hb_enabled or self._coord is not None:
             # goodbye on exit: a worker whose script just ends must
@@ -337,6 +369,134 @@ class Runner:
             return None
         logging.info("%s active via %s", purpose, host)
         return ResilientCoordinationClient(host, port)
+
+    # ------------------------------------------- torch.profiler traces
+
+    def _profile_client(self):
+        """A coordination client to poll the fleet profiling flag with:
+        whatever this runner already opened (pacing, liveness); never a
+        connection dialled for profiling alone."""
+        for client in (self._coord, self._async_hb):
+            if client is not None:
+                return client
+        return None
+
+    def _maybe_start_profile(self):
+        """Start the profile the NEXT dispatch runs under, if one is due.
+
+        The fleet-profiling window: the chief posts "profile steps N..M"
+        on the coordination service (``telemetry.request_profile`` /
+        ``python -m autodist_tpu_torch.telemetry profile N M``), every
+        worker polls the flag at ``ADT_PROFILE_POLL_S``, and each
+        captures a ``torch.profiler`` trace of the SAME steps into
+        ``DEFAULT_TRACE_DIR/fleet-<seq>-<worker>/trace.json``;
+        ``ADT_PROFILE_STEPS=N:M`` arms the same window locally without a
+        service. ``tracing=True`` is a window over the first dispatch,
+        written to ``DEFAULT_TRACE_DIR/<time>/``; a fleet window that
+        covers that step goes first and the first-step trace takes the
+        next free dispatch.
+
+        Touches local state only: it runs inside the dispatch span; the
+        KV poll lives in :meth:`_poll_profile_window`, in
+        ``_after_dispatch`` with the other control-plane calls, so a
+        retrying poll neither lands in the goodput decomposition's
+        compute nor feeds the straggler EWMA a false outlier."""
+        if self._profile_prof is not None:
+            return
+        step = self._step_count  # the step the NEXT dispatch runs
+        if self._profile_window is not None:
+            seq, first, last = self._profile_window
+            if first <= step <= last:
+                out = os.path.join(
+                    const.DEFAULT_TRACE_DIR,
+                    "fleet-%d-%s" % (seq, self._worker.replace(":", "_")))
+                self._start_profile(out, seq, last)
+                tel.counter_add("profiler.windows")
+                tel.instant("profiler.window_start", "runner", seq=seq,
+                            step=step, first=first, last=last)
+                logging.info("fleet profiling: capturing steps %d..%d "
+                             "into %s", first, last, out)
+                return
+            if step > last:
+                # the window is already behind this worker (posted too
+                # late, or a rollback rewound past it): it never arms
+                self._profile_done_seq = max(self._profile_done_seq, seq)
+                self._profile_window = None
+        if self._tracing:
+            self._tracing = False   # the first step only
+            self._start_profile(os.path.join(
+                const.DEFAULT_TRACE_DIR, time.strftime("%Y%m%d-%H%M%S")),
+                None, step)
+
+    def _start_profile(self, directory: str, seq, last: int):
+        """Start ``torch.profiler`` over this runner's device (CPU and CUDA
+        activities on ``cuda``, the CPU alone when the caller asked for
+        the CPU) for the dispatches up to step ``last``."""
+        from torch.profiler import ProfilerActivity, profile
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        os.makedirs(directory, exist_ok=True)
+        prof = profile(activities=activities)
+        prof.start()
+        self._profile_prof = (prof, directory, seq, last)
+
+    def _maybe_stop_profile(self):
+        """Close the running profile after the dispatch that ran its last
+        step, once the device has finished that step
+        (``torch.cuda.synchronize``, where the JAX runner blocks on the
+        metrics), and write it as Chrome JSON, ``trace.json`` in its
+        directory. On ``cuda`` a profile that holds no CUDA kernel event
+        is an error: a missing device trace (no CUPTI) must show, not
+        pass as a CPU-only one."""
+        if self._profile_prof is None \
+                or self._step_count <= self._profile_prof[3]:
+            return
+        import json
+        (prof, directory, seq, _last), self._profile_prof = \
+            self._profile_prof, None
+        cuda = self.device.type == "cuda"
+        if cuda:
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        path = os.path.join(directory, "trace.json")
+        prof.export_chrome_trace(path)
+        self.last_profile_path = path
+        if seq is not None:
+            self._profile_done_seq = max(self._profile_done_seq, seq)
+            self._profile_window = None
+            tel.instant("profiler.window_stop", "runner", seq=seq,
+                        step=self._step_count)
+        if cuda:
+            with open(path) as f:
+                events = json.load(f).get("traceEvents", [])
+            if not any(e.get("cat") == "kernel" for e in events):
+                raise RuntimeError(
+                    "torch.profiler recorded no CUDA kernel event on %s "
+                    "(%s): the device trace is missing (is CUPTI "
+                    "available?)" % (self.device, path))
+        logging.info("profiler trace -> %s", path)
+
+    def _poll_profile_window(self):
+        """Poll the coordination-service profiling flag (at most every
+        ``ADT_PROFILE_POLL_S``; 0 disables) and arm a fresh window for the
+        NEXT dispatch."""
+        poll_s = const.ENV.ADT_PROFILE_POLL_S.val
+        if (self._profile_window is not None
+                or self._profile_prof is not None or poll_s <= 0
+                or time.monotonic() < self._profile_poll_at):
+            return
+        self._profile_poll_at = time.monotonic() + poll_s
+        client = self._profile_client()
+        if client is None:
+            return
+        from autodist_tpu_torch.telemetry import cluster as cluster_lib
+        with tel.span("runner.profile_poll", "runner"):
+            window = cluster_lib.read_profile_window(client)
+        if window is not None and window[0] > self._profile_done_seq:
+            self._profile_window = window
+            logging.info("fleet profiling window #%d armed: steps %d..%d",
+                         *window)
 
     @property
     def distributed_step(self):
@@ -710,6 +870,7 @@ class Runner:
                         sync=sync, step=self._step_count):
                     with tel.span("runner.feed", "runner"):
                         placed = self._remapper.remap_feed(batch)
+                    self._maybe_start_profile()
                     self._check_ps_owner_health()
                     new_state, metrics = self._dstep(st, placed,
                                                      donate=state is None)
@@ -751,6 +912,7 @@ class Runner:
                 with self._collectives(rerun=True), tel.span(
                         "runner.dispatch", "runner", microsteps=k,
                         sync=sync, step=self._step_count):
+                    self._maybe_start_profile()
                     self._check_ps_owner_health()
                     self.state, metrics = self._dstep.run_multi(self.state,
                                                                 placed)
@@ -774,6 +936,8 @@ class Runner:
         self._superstep_count += 1
         tel.counter_add("runner.steps", microsteps)
         tel.counter_add("runner.supersteps")
+        self._maybe_stop_profile()
+        self._poll_profile_window()
         self._poll_epoch()
         self._preempt.poll()
         self._maybe_heartbeat()
@@ -842,8 +1006,12 @@ class Runner:
                             "silence", e)
 
     def _compile_grace_end(self):
-        """Clear the one-shot mark: steady-state silence ages normally
-        again."""
+        """A heartbeat, then clear the one-shot mark: steady-state
+        silence ages normally again. The beat goes first: a long first
+        dispatch left the last beat older than the window, and between a
+        clear and the next beat the watchdog would read the silence as a
+        death (``Coordinator._still_silent`` reads the list again after
+        the marks)."""
         if not self._compile_grace_marked or self._compile_grace_cleared:
             return
         self._compile_grace_cleared = True
@@ -851,6 +1019,8 @@ class Runner:
         if client is None:
             return
         try:
+            client.heartbeat(self._worker)
+            self._last_hb = time.monotonic()
             # "0" = epoch zero: instantly outside any grace window (the
             # line protocol needs a non-empty value token)
             client.put("compiling/%s" % self._worker, "0")
@@ -999,9 +1169,11 @@ class Runner:
         the steady median), ``telemetry`` counters (with the
         tensor-parallel forward all-reduces and their bytes) and
         ``param_bytes``, the bytes of the params this rank stores (a
-        model-parallel variable's slice; None before ``init``). The
-        shape is stable: ``steady_*``/``goodput`` are None before a
-        second dispatch."""
+        model-parallel variable's slice; None before ``init``),
+        ``straggler`` (the online detector's stats) and
+        ``goodput_breakdown`` (:meth:`goodput_report`'s buckets in
+        seconds, None with tracing off). The shape is stable:
+        ``steady_*``/``goodput`` are None before a second dispatch."""
         micro, sup = self._step_count, self._superstep_count
         out = {"steps": micro, "supersteps": sup, "microsteps": micro,
                "total_s": round(self._total_step_s, 6),
@@ -1048,6 +1220,15 @@ class Runner:
         out["sentinel"] = (sen.stats() if sen is not None else
                            {"skips": 0, "rollbacks": 0,
                             "last_grad_norm": None, "quarantined": False})
+        # attributed goodput (telemetry/goodput.py): WHERE the wall time
+        # went, None with tracing off (the decomposition needs the span
+        # tree); the straggler detector's stats are always there (it runs
+        # on the dispatch wall times)
+        out["straggler"] = self._straggler.stats()
+        report = self.goodput_report()
+        out["goodput_breakdown"] = (
+            {k: round(v, 6) for k, v in report.buckets.items()}
+            if report is not None else None)
         out["param_bytes"] = (None if self.state is None else sum(
             t.numel() * t.element_size() for t in pytree.tree_leaves(
                 self.state.params) if isinstance(t, torch.Tensor)))
@@ -1062,6 +1243,27 @@ class Runner:
                                     6)}
             for name in ("ps.pull", "ps.push", "ps.apply", "ps.absorb")}
         return out
+
+    def goodput_report(self):
+        """The attributed wall-time decomposition of this process's
+        training thread (:class:`telemetry.goodput.GoodputReport`):
+        compute / collective-wait / PS-wire / host-input / readback /
+        checkpoint / rollback-replay buckets that sum to the recorded
+        wall time by construction. None when tracing is off (the
+        decomposition needs the span tree); under ``ADT_TRACE=sampled``
+        (or after ring-buffer drops) the report is flagged
+        ``approximate``. A ``sync=True`` step waits for the device inside
+        ``runner.readback`` (the metrics' copy to the host), so on
+        ``cuda`` a synchronous step's device time can land in
+        ``readback`` rather than ``compute`` (the JAX rules, kept as they
+        are)."""
+        if not tel.tracing_enabled():
+            return None
+        from autodist_tpu_torch.telemetry import goodput as goodput_lib
+        report = goodput_lib.build_report()
+        if report.wall_s <= 0:
+            return None
+        return report
 
     def fit(self, batches, steps: Optional[int] = None,
             callbacks: Optional[list] = None, save_every: int = 0,

@@ -21,8 +21,9 @@ Public surface:
   memory-gate scoring (``scoring.py``);
 - :class:`SearchTrace` — the deterministic, dumpable run record
   (``trace.py``);
-- ``python -m autodist_tpu.search`` — the JAX package's search CLI, whose
-  counterpart here comes with the analysis CLI (ROADMAP A item 11).
+- ``python -m autodist_tpu_torch.search`` — the search CLI
+  (``cli.py``), which compares the searched plan with the zoo's best
+  (``scoring.zoo_best``).
 
 ``AutoStrategy(search=...)`` (``strategy/auto_strategy.py``) wires this in
 as the default builder for unseen models: zoo candidates seed the search,

@@ -18,9 +18,8 @@ module closes the loop:
   clock-injectable, so the unit matrix drives it without threads.
 - :class:`FleetAutoscaler` — the actuating controller. Reads the live
   signals (the ``serve.queue_depth`` gauge, ``serve.latency_ms`` p99,
-  batch fill from the live micro-batchers; the per-worker
-  ``scrape_age_s`` of ``export.scrape_cluster`` is ROADMAP A item 11, and
-  ``scrape_workers`` raises until then), asks the policy, and drives the
+  batch fill from the live micro-batchers, per-worker ``scrape_age_s``
+  via ``export.scrape_cluster``), asks the policy, and drives the
   existing actuators: **grow** publishes a grown-roster epoch
   (:func:`~autodist_tpu_torch.runtime.elastic.admit_worker` — the same
   grow-on-join admission a relaunched worker gets), **shrink**
@@ -269,12 +268,11 @@ class FleetAutoscaler:
     ``client`` is a coordination client on the service holding the
     membership epoch; ``worker`` is this controller's identity (the
     chief — never chosen as a shrink victim); ``pool`` the spare worker
-    addresses eligible for grow-on-join. ``scrape_workers`` arms the
-    per-worker ``scrape_age_s`` signal via ``export.scrape_cluster`` in
-    the JAX package; the port has no ``telemetry/export.py`` yet (ROADMAP A
-    item 11), so giving it raises ``NotImplementedError``.
-    ``signals_fn`` overrides signal collection entirely (tests, remote
-    controllers)."""
+    addresses eligible for grow-on-join. ``scrape_workers`` (optional)
+    arms the per-worker ``scrape_age_s`` signal via
+    ``export.scrape_cluster``; a failed scrape logs a warning and the
+    decision runs on the local signals. ``signals_fn`` overrides signal
+    collection entirely (tests, remote controllers)."""
 
     def __init__(self, client, policy: AutoscalePolicy, worker: str,
                  pool: Sequence[str] = (),
@@ -282,15 +280,12 @@ class FleetAutoscaler:
                  signals_fn: Optional[Callable[[], AutoscaleSignals]] = None,
                  notice_deadline_s: Optional[float] = None,
                  strategy=None, max_queue: Optional[int] = None):
-        if scrape_workers:
-            raise NotImplementedError(
-                "FleetAutoscaler(scrape_workers=...): the fleet scrape "
-                "(telemetry/export.scrape_cluster) is not ported yet "
-                "(ROADMAP A item 11)")
         self._client = client
         self.policy = policy
         self.worker = worker
         self.pool = list(pool)
+        self._scrape_workers = (list(scrape_workers)
+                                if scrape_workers else None)
         self._signals_fn = signals_fn or self._default_signals
         self._notice_deadline_s = notice_deadline_s
         self._stop: Optional[threading.Event] = None
@@ -343,7 +338,20 @@ class FleetAutoscaler:
             slot_occupancy=occupancy)
 
     def signals(self) -> AutoscaleSignals:
-        return self._signals_fn()
+        sig = self._signals_fn()
+        if self._scrape_workers and not sig.scrape_ages:
+            try:
+                from autodist_tpu_torch.telemetry import export
+                scrape = export.scrape_cluster(self._client,
+                                               self._scrape_workers)
+                sig.scrape_ages = {
+                    w: float(a) for w, a in
+                    (scrape.get("scrape_age_s") or {}).items()
+                    if a is not None}
+            except (OSError, RuntimeError) as e:
+                logging.warning("autoscale: fleet scrape failed (%s) — "
+                                "deciding on local signals", e)
+        return sig
 
     # -------------------------------------------------------------- loop
 

@@ -24,7 +24,7 @@ Cost model, enforced by tests (``tests/test_telemetry.py``):
 Span ids are per-recorder monotonic ints carried on a thread-local stack,
 so logs can correlate with traces (``utils/logging.py`` JSON mode embeds
 ``current_span_id()``) and children record their parent. Export formats
-live in the JAX package's ``telemetry/export.py`` (not yet ported).
+live in :mod:`autodist_tpu_torch.telemetry.export`.
 """
 import collections
 import contextlib

@@ -417,7 +417,13 @@ result line):
    least one grow and one planned shrink (an ``autoscale-idle`` notice and
    the survivors' epoch), no ``ckpt.fallback``; a synthetic 15 ms a batch
    only if the real forward drains every burst before the sustain window
-   (printed). Last, with both engines held at their next dispatch, 48
+   (printed). The scaler scrapes the executor (``scrape_workers``): the
+   chief runs a ``ClockSyncResponder`` on the service from the start, the
+   executor runs ``sync_recorder_clock`` against it (its error bound,
+   rtt/2, under 5 ms on one host) and publishes its telemetry, the chief
+   publishes its own, ``scrape_cluster``s both and merges them (a trace
+   that validates, with two pid tracks), and the scaler's signals carry
+   ``max_scrape_age_s``. Last, with both engines held at their next dispatch, 48
    prompts on the decode engine (16 queued) and 11 requests on the batcher
    (10 queued): ``preemption.drain_serving`` completes the in-flight work,
    sheds the 26 queued with the typed Retry-After, returns 26, and ends
@@ -464,6 +470,37 @@ result line):
    ``int8_ring_all_reduce`` of 2^22 f32 elements a rank at N = 2 over
    gloo: both ranks' sums bit-identical and within 3% median relative
    error of the exact sum; the ms a call.
+
+29. the observability plane and the plan CLIs on bert_base (bf16, seq 128,
+   batch 128, flash, ``AllReduce()``): (a) ``AutoDist(tracing=True)``
+   with ``ADT_TRACE=1``, ``ADT_SNAPSHOT=1`` and ``ADT_PROFILE_STEPS=4:5``,
+   10 ``Runner.run`` steps: the first step's ``torch.profiler`` trace
+   holds CUDA kernel events of the three flash kernels; the fleet
+   window's profile covers steps 4 and 5 only (its instants, one Adam
+   update a step in its CPU ops, at most 2 x 12 device events of each
+   kernel) with ``profiler.windows`` 1, and the wrappers count 12 x 2
+   launches of each kernel in it; the goodput buckets sum to the
+   recorded wall within 2%; the exported Chrome trace validates;
+   ``metrics_text`` has the ``adt_`` counters; the snapshot
+   ``0-original-loss`` is written; readings: the buckets a step of the
+   untraced and of the traced steps, and the step p50 outside the traced
+   steps beside phase 7's. The two variables but ``ADT_TRACE`` are gone
+   once (a)'s runner is built. (b) ``report_for_runner`` on (a), and on 6
+   traced steps of bert_base under the plan phase 28 (b) picked (its
+   strategy JSON), which write no profile; ``fit_calibration``
+   over the two, then ``AutoStrategy(calibration=...)`` builds bert_base:
+   every scale finite, each report's measured step within 10% of the
+   timed p50 of the same steps; readings: predicted over measured before
+   and after the calibration, the plan picked. (c) the CLIs as
+   subprocesses, each with the exit code the CPU gives: ``analysis tp_lm
+   --strategy TensorParallel --hbm-budget 80 --format json``, ``search
+   lm1b --budget 50 --dump-plan`` then ``analysis lm1b --strategy-json``
+   on the plan, and ``telemetry validate``, ``inspect`` and ``goodput``
+   on (a)'s trace. Each ``python -m`` compiles torch's sources anew (some
+   20 s a command there), so the search and the tp_lm linter run beside
+   phases 1-2b (builds and checks, no timed step) and are joined before
+   phase 3; the others start after (b)'s last timed step, beside its
+   calibration and ``AutoStrategy`` build.
 
 TF32 is off for the whole run (``torch.backends.cuda.matmul`` and
 ``cudnn``): float32 is computed in float32, as the f32 checks' 2e-5 and
@@ -2151,17 +2188,29 @@ FUSE_K, FUSED_MICROSTEPS, METRICS_EVERY = 4, 16, 2
 CNN_FUSED = (("inceptionv3", 299), ("densenet121", 224))
 
 
-def device_trace(run):
-    """Run ``run()`` under torch.profiler and return the device events of
-    its trace, ``[(category, name, stream, start us, end us)]``: kernels,
+# torch.profiler can lose the device records of the kernels that run in
+# its first moments (a run of the first forward's kernels of phase 13
+# (a)'s traced replay): the card idles this long at each edge of a
+# profile. ``python3 chip_smoke.py --trace-edges 100`` counts the traces
+# that come up short with and without it (PERF.md §6)
+TRACE_EDGE_S = 0.05
+
+
+def device_trace(run, edge_s=TRACE_EDGE_S):
+    """Run ``run()`` under torch.profiler, the card idle for ``edge_s``
+    at each edge of the profile, and return the device events of its
+    trace, ``[(category, name, stream, start us, end us)]``: kernels,
     copies and fills."""
     import tempfile
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        time.sleep(edge_s)
         run()
         torch.cuda.synchronize()
+        time.sleep(edge_s)
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
@@ -2188,6 +2237,52 @@ def trace_launches(events):
                 design = ("mma.sync bf16" if found.group(1) else "scalar")
                 counts[kern][design] = counts[kern].get(design, 0) + 1
     return counts
+
+
+def trace_edges(n):
+    """``python3 chip_smoke.py --trace-edges N``: phase 13 (a)'s lm1b
+    superstep (bf16, fuse_steps=4) captured once, then N traced replays
+    with the card idle at the profile's edges and N without; a replay
+    launches the same kernels each time, so a trace short of the largest
+    kernel count lost device records. Prints the counts of each set-up."""
+    import collections
+    import torch
+    from autodist_tpu_torch.data import DevicePrefetcher
+    from autodist_tpu_torch.data.prefetch import stack_batches
+    from autodist_tpu_torch.models import lm
+    from autodist_tpu_torch.utils import cuda_build
+    cuda_build.build()
+    cfg = lm.LMConfig.lm1b(dtype=torch.bfloat16)
+    loss_fn, params, batch, _ = lm.make_train_setup(
+        cfg, seq_len=TRAIN_SEQ, batch_size=TRAIN_BATCH, seed=0,
+        attention="flash", lean_head=True)
+    runner = build_runner(loss_fn, params, batch)
+    pf = DevicePrefetcher(iter([batch] * FUSED_MICROSTEPS), runner, depth=2,
+                          stack=FUSE_K)
+    runner.fit(pf, steps=FUSED_MICROSTEPS, fuse_steps=FUSE_K,
+               metrics_every=METRICS_EVERY)
+    warm = runner.distributed_step.warmup_microsteps
+    traced = stack_batches([batch] * FUSE_K)
+    counts = {}
+    for label, edge in (("no idle edges", 0.0),
+                        ("%g s idle edges" % TRACE_EDGE_S, TRACE_EDGE_S)):
+        rows = []
+        for _ in range(n):
+            events = device_trace(
+                lambda: runner.run_superstep(traced, sync=True), edge)
+            rows.append((sum(cat == "kernel" for cat, *_ in events),
+                         sum(trace_launches(events)["flash_fwd"].values())))
+        counts[label] = rows
+    if runner.distributed_step.warmup_microsteps != warm:
+        fail("--trace-edges: a traced replay captured a new graph")
+    top = max(k for rows in counts.values() for k, _ in rows)
+    for label, rows in counts.items():
+        print("%s: %d of %d traces short of %d kernel events; kernel events "
+              "%r; flash_fwd events %r [%s]" % (
+                  label, sum(k < top for k, _ in rows), n, top,
+                  sorted(collections.Counter(k for k, _ in rows).items()),
+                  sorted(collections.Counter(f for _, f in rows).items()),
+                  card_line()))
 
 
 def merged(intervals):
@@ -4663,6 +4758,18 @@ def job_pids(marker):
     return pids
 
 
+def supervision_lines(err, n=30):
+    """The last ``n`` lines of a chief's log that carry its supervision
+    verdicts (the watchdog's, the process watcher's, an abort), for a
+    failure message: a worker's traceback at the end of the log can hide
+    why the chief ended the job under it."""
+    keys = ("watchdog", "missed heartbeats", "abort", "relaunching",
+            "exited with code", "killing", "SIGTERM", "compile grace")
+    lines = [line for line in err.splitlines()
+             if any(k in line for k in keys)]
+    return "\n".join(lines[-n:])
+
+
 def kill_job(marker):
     import signal
     for pid in job_pids(marker):
@@ -4857,8 +4964,9 @@ def launched_async_phase(card, tmp):
     rc, err, wall, left = run_launched(tmp, "async", steps, 240,
                                        "phase 18 (d)")
     if rc != 0 or left:
-        fail("phase 18 (d): the chief exited %d, %d processes left: %s"
-             % (rc, len(left), err[-3000:]))
+        fail("phase 18 (d): the chief exited %d, %d processes left: %s\n"
+             "-- the chief's supervision lines:\n%s"
+             % (rc, len(left), err[-3000:], supervision_lines(err)))
     res = read_outputs(tmp, 2, "phase 18 (d)", err)
     published = res[0]["published"]
     for host in ("127.0.0.1", "localhost"):
@@ -5223,8 +5331,9 @@ def elastic_hang_phase(card, tmp, job):
              ELASTIC_HANG_STEPS))
     rc, err, wall, left = finish_launched(job, 300, "phase 19 (b)")
     if rc != 0 or left:
-        fail("phase 19 (b): the chief exited %d, %d processes left: %s"
-             % (rc, len(left), err[-4000:]))
+        fail("phase 19 (b): the chief exited %d, %d processes left: %s\n"
+             "-- the chief's supervision lines:\n%s"
+             % (rc, len(left), err[-4000:], supervision_lines(err)))
     for text, n in (("killing it for an elastic restart", 1),
                     ("relaunching worker", 1)):
         if err.count(text) != n:
@@ -7776,25 +7885,35 @@ def serve_batcher_part(out, cfg, runner, engine, batcher):
                     "resolved": resolved, "brownout": brownout}
 
 
-def serve_autoscale_part(out, cfg, batcher, engine):
+def serve_autoscale_part(out, cfg, batcher, engine, client):
     """(d) on the chief: a FleetAutoscaler on the port's coordination
-    service over the live batcher's signals, the phantom-peer ramp
-    (roster [me, replica-b], pool [replica-c, replica-d]): bursts until a
-    grow, then idle until a planned shrink. A synthetic per-batch service
-    time is used only when the real forward drains every burst before the
-    policy's sustain window."""
+    service (``client``) over the live batcher's signals and the
+    executor's scraped telemetry, the phantom-peer ramp (roster [me,
+    replica-b], pool [replica-c, replica-d]): bursts until a grow, then
+    idle until a planned shrink. A synthetic per-batch service time is
+    used only when the real forward drains every burst before the
+    policy's sustain window. First the chief publishes its telemetry and
+    scrapes both processes' into one merged trace."""
     from autodist_tpu_torch.runtime import elastic
-    from autodist_tpu_torch.runtime.coordination import (CoordinationClient,
-                                                         CoordinationServer)
     from autodist_tpu_torch.serving import (AutoscalePolicy,
                                             FleetAutoscaler,
                                             ServingUnavailable)
+    from autodist_tpu_torch.telemetry import export
     from autodist_tpu_torch.telemetry import spans as tel
-    server = CoordinationServer(port=free_port())
-    server.start()
-    client = CoordinationClient("127.0.0.1", server.port)
     me = "127.0.0.1"
     real_run = engine.run_batch
+    export.publish_telemetry(client, "controller")
+    t0 = time.perf_counter()
+    scraped = export.scrape_cluster(client, ["controller", "executor"])
+    out["scrape"] = {
+        "ms": (time.perf_counter() - t0) * 1e3,
+        "workers": scraped["workers"], "missing": scraped["missing"],
+        "pids": sorted({e["pid"] for e in scraped["trace"]["traceEvents"]
+                        if "pid" in e}),
+        "events": len(scraped["trace"]["traceEvents"]),
+        "violations": export.validate_chrome_trace(scraped["trace"]),
+        "ages": scraped["scrape_age_s"], "clocks": scraped["clocks"],
+        "metrics_lines": len(scraped["metrics_text"].splitlines())}
     try:
         elastic.publish_epoch(client, 1, [me, "replica-b"])
         policy = AutoscalePolicy(min_replicas=2, max_replicas=4,
@@ -7803,6 +7922,7 @@ def serve_autoscale_part(out, cfg, batcher, engine):
                                  shrink_cooldown_s=0.02)
         scaler = FleetAutoscaler(client, policy, me,
                                  pool=["replica-c", "replica-d"],
+                                 scrape_workers=["executor"],
                                  notice_deadline_s=60.0,
                                  max_queue=MB_MAX_QUEUE)
         fallback0 = tel.counters().get("ckpt.fallback", 0.0)
@@ -7857,11 +7977,10 @@ def serve_autoscale_part(out, cfg, batcher, engine):
             "fallback": tel.counters().get("ckpt.fallback", 0.0) - fallback0,
             "synthetic": synthetic, "sheds": sheds,
             "requests": len(futures), "grow_s": grow_s,
-            "shrink_s": time.perf_counter() - t1}
+            "shrink_s": time.perf_counter() - t1,
+            "signals": scaler.signals().to_dict()}
     finally:
         engine.run_batch = real_run
-        client.close()
-        server.stop()
 
 
 def serve_drain_part(out, cfg, decoder, batcher, engine):
@@ -7920,10 +8039,13 @@ def serve_drain_part(out, cfg, decoder, batcher, engine):
                                 engine._plane.stopped]}
 
 
-def serve_child(rank, store, out_dir, env):
+def serve_child(rank, store, out_dir, env, port):
     """One rank of phase 26 (spawned): take the environment ``env``, join
     the gloo group; (b), then (a), (c), (d) and the drain on one lm1b
-    runner; write this rank's results to ``out_dir``."""
+    runner; write this rank's results to ``out_dir``. The chief serves
+    the coordination service on ``port`` with a clock-sync responder; the
+    executor syncs its recorder's clock against it and publishes its
+    telemetry before it follows the chief."""
     os.environ.clear()
     os.environ.update(env)
     # what a rank prints comes out in the phase's block, rank by rank
@@ -7938,9 +8060,17 @@ def serve_child(rank, store, out_dir, env):
     dist.init_process_group("gloo", store=dist.FileStore(store, SERVE_RANKS),
                             rank=rank, world_size=SERVE_RANKS)
     from autodist_tpu_torch.models import lm
+    from autodist_tpu_torch.runtime.coordination import (CoordinationClient,
+                                                         CoordinationServer)
     from autodist_tpu_torch.serving import (InferenceEngine, MicroBatcher,
                                             ServingConfig)
+    from autodist_tpu_torch import const
+    from autodist_tpu_torch.telemetry import cluster, export
     out = {"rank": rank}
+    server = None
+    if rank == 0:
+        server = CoordinationServer(port=port)
+        server.start()
     serve_parity_part(rank, out)
     t0 = time.perf_counter()
     cfg = lm.LMConfig.lm1b(dtype=torch.bfloat16)
@@ -7960,15 +8090,36 @@ def serve_child(rank, store, out_dir, env):
                       brownout_sustain_s=0.05)).warmup()
     batcher = MicroBatcher(engine)
     if rank == 0:
+        # answer the executor's clock-sync rounds (sent before it follows),
+        # then stop polling the service
+        client = CoordinationClient("127.0.0.1", port)
+        answering = CoordinationClient("127.0.0.1", port)
+        responder = cluster.ClockSyncResponder(answering).start()
+        rounds = const.ENV.ADT_CLOCKSYNC_ROUNDS.val
+        deadline = time.monotonic() + 60
+        while responder.answered < rounds and time.monotonic() < deadline:
+            time.sleep(0.005)
+        responder.stop()
+        answering.close()
+        out["clock_answered"] = responder.answered
         serve_batcher_part(out, cfg, runner, engine, batcher)
         out["batcher_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        serve_autoscale_part(out, cfg, batcher, engine)
+        serve_autoscale_part(out, cfg, batcher, engine, client)
         out["autoscale_s"] = time.perf_counter() - t0
+        client.close()
         t0 = time.perf_counter()
         serve_drain_part(out, cfg, decoder, batcher, engine)
         out["drain_s"] = time.perf_counter() - t0
+        server.stop()
     else:
+        client = CoordinationClient("127.0.0.1", port)
+        t0 = time.perf_counter()
+        est = cluster.sync_recorder_clock(client, "executor")
+        out["clock"] = dict(est.to_dict(),
+                            ms=(time.perf_counter() - t0) * 1e3)
+        export.publish_telemetry(client, "executor")
+        client.close()
         try:
             batcher.submit({"tokens": np.zeros(64, np.int32),
                             "length": np.int32(1)})
@@ -7993,7 +8144,7 @@ def serve_phase(card, env, phase3_tokens):
     with tempfile.TemporaryDirectory() as tmp:
         try:
             mp.start_processes(serve_child, args=(os.path.join(tmp, "store"),
-                                                  tmp, env),
+                                                  tmp, env, free_port()),
                                nprocs=SERVE_RANKS, start_method="spawn")
         except Exception as e:  # noqa: BLE001 — a rank failed
             fail("phase 26: a rank failed: %s" % (str(e).strip()[-2000:],))
@@ -8058,7 +8209,18 @@ def serve_phase(card, env, phase3_tokens):
                 burst["resolved"], burst["submitted"], burst["brownout"]))
     if "on a follower" not in follower.get("follower_submit", ""):
         fail("phase 26 (c): the follower's batcher took a request")
-    # (d) the autoscaler
+    # (d) the clock sync, the scrape and the autoscaler
+    clock, scrape = follower["clock"], chief["scrape"]
+    if clock["error_ns"] >= 5e6 or clock["rounds"] < 1:
+        fail("phase 26 (d): the executor's clock sync %r (bound: error "
+             "under 5 ms)" % (clock,))
+    if scrape["violations"] or len(scrape["pids"]) != 2 or \
+            scrape["missing"] or \
+            scrape["workers"] != ["controller", "executor"]:
+        fail("phase 26 (d): the merged scrape %r" % (scrape,))
+    if chief["autoscale"]["signals"].get("max_scrape_age_s") is None:
+        fail("phase 26 (d): the scaler's signals carry no scrape age: %r"
+             % (chief["autoscale"]["signals"],))
     auto = chief["autoscale"]
     if auto["grows"] < 1 or auto["shrinks"] < 1 or auto["fallback"] or \
             "autoscale-idle" not in (auto["notices"] or []) or \
@@ -8113,6 +8275,16 @@ def serve_phase(card, env, phase3_tokens):
              auto["requests"], auto["sheds"],
              "yes (15 ms a batch)" if auto["synthetic"] else "no",
              chief["autoscale_s"]))
+    print("  (d) telemetry: the executor's clock offset %+.3f ms, error "
+          "bound %.3f ms (rtt/2), %d rounds in %.1f ms (%d answered by the "
+          "chief's responder); the chief's scrape of controller + executor "
+          "in %.1f ms: %d events on pid tracks %r, valid, %d metric lines, "
+          "ages %r s; the scaler's signals: max_scrape_age_s %s"
+          % (clock["offset_ns"] / 1e6, clock["error_ns"] / 1e6,
+             clock["rounds"], clock["ms"], chief["clock_answered"],
+             scrape["ms"], scrape["events"], scrape["pids"],
+             scrape["metrics_lines"], scrape["ages"],
+             auto["signals"]["max_scrape_age_s"]))
     print("  drain_serving: %d queued decode prompts and %d queued batcher "
           "requests shed typed (Retry-After %.1f s), %d returned, %d "
           "in-flight completed, both engines' follower loops ended; %.2f s"
@@ -8615,6 +8787,8 @@ def auto_phase(card, cfg, loss_fn, params, batch):
             gc.collect()
     if picked[0] != picked[1]:
         fail("phase 28 (b): the two builds picked different plans")
+    # phase 29 (b) builds bert_base again from this plan's JSON
+    READINGS["auto_plan"] = ranking[0].strategy
     print("  the two builds' strategy JSON: %d bytes each, equal"
           % len(picked[0]))
     runner.init(params)
@@ -8698,6 +8872,411 @@ def plan_phase(card):
     return launches
 
 
+# ------------------------------------------------------------- phase 29
+
+
+OBS_STEPS = 10          # (a): traced bert_base steps
+OBS_WINDOW = (4, 5)     # (a): the fleet window's steps (ADT_PROFILE_STEPS)
+OBS_PLAN_STEPS = 6      # (b): traced steps under phase 28 (b)'s plan
+
+
+def start_cli(args):
+    """``python -m <args>`` started from the checkout's root; :func:`
+    finish_cli` waits for it."""
+    return (subprocess.Popen([sys.executable, "-m"] + list(args), cwd=HERE,
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                             text=True), time.perf_counter())
+
+
+def start_static_clis(directory):
+    """Phase 29 (c)'s two commands that read neither the card nor anything
+    of the run: the plan linter on tp_lm under TensorParallel with the
+    memory gate at 80 GiB, and the search on lm1b, its plan dumped into
+    ``directory`` for (c)'s linter. Each ``python -m`` compiles torch's
+    sources anew (some 20 s a command on the card's host), so these start
+    before phase 1 and run beside phases 1-2b, which build and check the
+    kernels and time no step; main joins them before phase 3."""
+    return {"tp_lm": start_cli([
+        "autodist_tpu_torch.analysis", "tp_lm", "--strategy",
+        "TensorParallel", "--hbm-budget", "80", "--format", "json"]),
+        "search": start_cli([
+            "autodist_tpu_torch.search", "lm1b", "--budget", "50",
+            "--dump-plan", os.path.join(directory, "search_plan.json")])}
+
+
+def stop_clis(clis, directory=None):
+    """Kill what of ``clis`` (name -> :func:`start_cli`'s) still runs, and
+    remove ``directory``."""
+    import shutil
+    for proc, _ in clis.values():
+        if proc.poll() is None:
+            proc.kill()
+    if directory is not None:
+        shutil.rmtree(directory, ignore_errors=True)
+
+
+def finish_cli(started, timeout=300):
+    """(exit code, stdout, stderr, seconds) of a :func:`start_cli`."""
+    proc, t0 = started
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+    return proc.returncode, out, err, time.perf_counter() - t0
+
+
+def kernel_events(path):
+    """Each flash kernel's device events in a torch.profiler Chrome trace
+    (by CUDA function name), and the trace's count of Adam's one
+    ``_foreach_sqrt_`` a step (a CPU op)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    counts = {name: 0 for name in DEVICE_FUNCTIONS}
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") == "kernel":
+            for name, pattern in DEVICE_FUNCTIONS.items():
+                if re.search(pattern, e.get("name", "")):
+                    counts[name] += 1
+    updates = sum(e.get("name") == "aten::_foreach_sqrt_" for e in events)
+    return counts, updates
+
+
+def steps_with_launches(runner, batch, n):
+    """``n`` synchronous steps: (seconds of each, each kernel's launches by
+    design in each, the losses)."""
+    import copy
+    import torch
+    times, per_step, losses = [], [], []
+    for _ in range(n):
+        before = copy.deepcopy(launch_counts())
+        t0 = time.perf_counter()
+        metrics = runner.run(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+        after = launch_counts()
+        per_step.append({k: {d: c - before[k].get(d, 0)
+                             for d, c in after[k].items()}
+                         for k in after})
+    return times, per_step, losses
+
+
+def dispatch_buckets(steps):
+    """The goodput buckets (seconds) of the recorded dispatches of
+    ``steps`` alone, and their number: each such ``runner.dispatch`` span
+    with every span under it, through ``goodput.breakdown_from_events``."""
+    from autodist_tpu_torch.telemetry import goodput
+    from autodist_tpu_torch.telemetry import spans as tel
+    events = tel.get_recorder().events()
+    parent = {e.span_id: e.parent_id for e in events}
+    roots = {e.span_id for e in events if e.name == "runner.dispatch"
+             and (e.args or {}).get("step") in steps}
+
+    def under_root(span_id):
+        while span_id not in roots and span_id in parent:
+            span_id = parent[span_id]
+        return span_id in roots
+    mine = [{"name": e.name, "cat": e.cat, "ts": e.ts_ns / 1e3,
+             "dur": e.dur_ns / 1e3, "tid": e.tid, "pid": 0,
+             "id": e.span_id, "parent": e.parent_id}
+            for e in events if under_root(e.span_id)]
+    report = goodput.breakdown_from_events(mine)
+    return report.buckets, report.num_dispatches
+
+
+def summed(per_step):
+    out = {}
+    for step in per_step:
+        for name, designs in step.items():
+            for d, c in designs.items():
+                out.setdefault(name, {}).setdefault(d, 0)
+                out[name][d] += c
+    return out
+
+
+def observe_phase(card, static_results, cli_dir):
+    """Phase 29 (a)-(c); ``static_results`` are :func:`start_static_clis`'
+    commands, finished, and ``cli_dir`` holds the search's plan. Returns
+    each kernel's launches by design in (a) and (b). (a)'s environment
+    (``ADT_PROFILE_STEPS``, ``ADT_SNAPSHOT``) reaches its build alone, and
+    (c)'s other command lines start after (b)'s last timed step, so that
+    no step-time reading runs beside a command."""
+    import gc
+    import math
+    import shutil
+    import statistics
+    import tempfile
+    import torch
+    import autodist_tpu_torch as adt
+    from autodist_tpu_torch import const, strategy, telemetry
+    from autodist_tpu_torch.models import bert
+    from autodist_tpu_torch.simulator.cost_model import CostModel
+    from autodist_tpu_torch.strategy.base import Strategy, StrategyBuilder
+    from autodist_tpu_torch.telemetry import export
+    from autodist_tpu_torch.telemetry import spans as tel
+    from autodist_tpu_torch.utils import visualization_util
+    tmp = tempfile.mkdtemp(prefix="adt-observe-")
+    env_keys = ("ADT_TRACE", "ADT_SNAPSHOT", "ADT_PROFILE_STEPS")
+    saved = ({k: os.environ.get(k) for k in env_keys},
+             const.DEFAULT_TRACE_DIR, const.DEFAULT_SNAPSHOT_DIR)
+    os.environ.update(ADT_TRACE="1", ADT_SNAPSHOT="1",
+                      ADT_PROFILE_STEPS="%d:%d" % OBS_WINDOW)
+    const.DEFAULT_TRACE_DIR = os.path.join(tmp, "traces")
+    const.DEFAULT_SNAPSHOT_DIR = os.path.join(tmp, "snapshots")
+    visualization_util._RUN_DIR = None
+    adam = functools.partial(torch.optim.Adam, lr=1e-3)
+    cfg = bert.BertConfig.base(dtype=torch.bfloat16)
+    loss_fn, params, batch, _ = bert.make_train_setup(
+        cfg, seq_len=BERT_SEQ, batch_size=BERT_BATCH, seed=0,
+        attention="flash")
+    layers = cfg.num_layers
+    clis = {}     # (c)'s command lines: name -> start_cli's
+    try:
+        # (a) tracing, the fleet window, goodput, export, the snapshot
+        print("phase 29 (a): bert_base full width (bf16, seq %d, batch %d, "
+              "flash, AllReduce()) through AutoDist(tracing=True) with "
+              "ADT_TRACE=1, ADT_SNAPSHOT=1, ADT_PROFILE_STEPS=%d:%d: %d "
+              "steps" % ((BERT_SEQ, BERT_BATCH) + OBS_WINDOW + (OBS_STEPS,)))
+        adt.reset()
+        tel.configure("1")
+        ad = adt.AutoDist(strategy_builder=strategy.AllReduce(),
+                          tracing=True)
+        t0 = time.perf_counter()
+        runner = ad.build(loss_fn, adam, params, batch)
+        # the build wrote the snapshot and the Runner read its window:
+        # neither variable reaches (b) or the AutoStrategy build
+        for key in ("ADT_PROFILE_STEPS", "ADT_SNAPSHOT"):
+            os.environ.pop(key)
+        runner.init(params)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        tel.reset()
+        windows0 = tel.counters().get("profiler.windows", 0.0)
+        times, per_step, losses = steps_with_launches(runner, batch,
+                                                      OBS_STEPS)
+        trace_dir = const.DEFAULT_TRACE_DIR
+        dirs = sorted(os.listdir(trace_dir))
+        window_dir = "fleet-0-%s" % runner._worker
+        first_dirs = [d for d in dirs if d != window_dir]
+        if len(first_dirs) != 1 or window_dir not in dirs:
+            fail("phase 29 (a): trace directories %r (want one first-step "
+                 "trace and %s)" % (dirs, window_dir))
+        first_path = os.path.join(trace_dir, first_dirs[0], "trace.json")
+        window_path = os.path.join(trace_dir, window_dir, "trace.json")
+        if not all(math.isfinite(x) for x in losses) or \
+                not losses[3] < losses[0]:
+            fail("phase 29 (a): losses %r" % (losses,))
+        first_k, first_upd = kernel_events(first_path)
+        win_k, win_upd = kernel_events(window_path)
+        inst = {e.name: e.args for e in tel.get_recorder().events()
+                if e.name.startswith("profiler.window_")}
+        windows = tel.counters().get("profiler.windows", 0.0) - windows0
+        win_launches = summed(per_step[OBS_WINDOW[0]:OBS_WINDOW[1] + 1])
+        check_launches("phase 29 (a) window", win_launches, layers,
+                       OBS_WINDOW[1] - OBS_WINDOW[0] + 1)
+        all_launches = summed(per_step)
+        check_launches("phase 29 (a)", all_launches, layers, OBS_STEPS)
+        n_win = OBS_WINDOW[1] - OBS_WINDOW[0] + 1
+        print("  build + init %.1f s; first-step trace %s: flash kernel "
+              "events %r, Adam updates %d; window %s: %r, Adam updates %d, "
+              "instants %r, profiler.windows %d; wrapper launches in the "
+              "window %r" % (build_s, os.path.relpath(first_path, tmp),
+                             first_k, first_upd,
+                             os.path.relpath(window_path, tmp), win_k,
+                             win_upd, inst, windows, win_launches))
+        if not all(first_k.values()) or first_upd != 1:
+            fail("phase 29 (a): the first-step trace holds %r flash kernel "
+                 "events and %d Adam updates (want each kernel > 0, 1 "
+                 "update)" % (first_k, first_upd))
+        if win_upd != n_win or windows != 1 or \
+                not all(0 < c <= layers * n_win for c in win_k.values()) or \
+                inst.get("profiler.window_start", {}).get("step") != \
+                OBS_WINDOW[0] or inst.get("profiler.window_stop", {}).get(
+                    "step") != OBS_WINDOW[1] + 1:
+            fail("phase 29 (a): the window's profile is not steps %d-%d: "
+                 "%d Adam updates, kernel events %r, instants %r, windows "
+                 "%d" % (OBS_WINDOW + (win_upd, win_k, inst, windows)))
+        report = runner.goodput_report()
+        if report is None or abs(report.coverage - 1.0) > 0.02:
+            fail("phase 29 (a): goodput coverage %r (bound 2%%)"
+                 % (report and report.coverage,))
+        trace_path = export.write_trace(os.path.join(tmp, "telemetry.json"))
+        violations = export.validate_chrome_trace(
+            export.load_trace(trace_path))
+        text = export.metrics_text()
+        if violations or "adt_runner_steps_total %d" % OBS_STEPS not in \
+                text or "adt_profiler_windows_total 1" not in text:
+            fail("phase 29 (a): the export: violations %r, adt_ counters "
+                 "missing" % (violations,))
+        snaps = os.listdir(const.DEFAULT_SNAPSHOT_DIR)
+        snap = os.path.join(const.DEFAULT_SNAPSHOT_DIR, snaps[0],
+                            "0-original-loss.txt") if snaps else ""
+        if not snaps or not os.path.exists(snap) or \
+                os.path.getsize(snap) == 0:
+            fail("phase 29 (a): no 0-original-loss snapshot in %r" % snaps)
+        traced = {0} | set(range(OBS_WINDOW[0], OBS_WINDOW[1] + 1))
+        plain = [t for i, t in enumerate(times) if i not in traced]
+        p50 = statistics.median(plain) * 1e3
+
+        def buckets_line(steps):
+            buckets, n = dispatch_buckets(steps)
+            return "%d dispatches, a step: %s" % (n, ", ".join(
+                "%s %.2f ms" % (k, v / n * 1e3)
+                for k, v in buckets.items() if v))
+        print("  goodput over %d dispatches: coverage %.4f; the untraced "
+              "steps: %s; the traced steps (0, %d-%d): %s; first step "
+              "%.1f ms (its trace), window steps %.1f, %.1f ms, the %d "
+              "others' p50 %.2f ms vs phase 7's %.2f ms; the exported "
+              "trace (%d events) validates; metrics_text %d lines; "
+              "snapshot %d aten ops [%s]"
+              % (report.num_dispatches, report.coverage,
+                 buckets_line(set(range(OBS_STEPS)) - traced),
+                 OBS_WINDOW[0], OBS_WINDOW[1], buckets_line(traced),
+                 times[0] * 1e3, times[OBS_WINDOW[0]] * 1e3,
+                 times[OBS_WINDOW[1]] * 1e3, len(plain), p50,
+                 READINGS.get("bert_flash_p50_ms", float("nan")),
+                 len(export.load_trace(trace_path)["traceEvents"]),
+                 len(text.splitlines()),
+                 sum(1 for _ in open(snap)), card))
+
+        # (b) the drift report, twice, and the calibration
+        def report_check(label, rep, step_times):
+            timed_p50 = statistics.median(step_times)
+            ratio = rep.measured_step_s / timed_p50
+            print("  %s: %d dispatches, measured step %.2f ms vs timed p50 "
+                  "%.2f ms (x%.4f); predicted %.3f ms (predicted/measured "
+                  "%.4f); terms %s"
+                  % (label, rep.num_steps, rep.measured_step_s * 1e3,
+                     timed_p50 * 1e3, ratio, rep.predicted_step_s * 1e3,
+                     rep.predicted_step_s / rep.measured_step_s,
+                     ", ".join("%s %.3g/%s" % (
+                         t.term, t.predicted_s,
+                         "-" if t.measured_s is None
+                         else "%.3g" % t.measured_s) for t in rep.terms)))
+            if not 0.9 <= ratio <= 1.1:
+                fail("phase 29 (b): %s's measured step is x%.4f of the "
+                     "timed p50 (bound 10%%)" % (label, ratio))
+        print("phase 29 (b): report_for_runner on (a) and on %d traced "
+              "steps under phase 28 (b)'s plan; fit_calibration; "
+              "AutoStrategy(calibration=...)" % OBS_PLAN_STEPS)
+        rep_a = telemetry.report_for_runner(runner)
+        report_check("AllReduce (a)", rep_a, times)
+        item_a, plan_a = runner.distributed_step.model_item, \
+            runner.distributed_step.strategy
+        del runner
+        adt.reset()
+        tel.configure("1")
+        gc.collect()
+        plan_path = READINGS["auto_plan"].serialize(
+            os.path.join(tmp, "auto_plan.json"))
+
+        class FromJson(StrategyBuilder):
+            def build(self, model_item, resource_spec):
+                return Strategy.deserialize(path=plan_path)
+        runner = adt.AutoDist(strategy_builder=FromJson()).build(
+            loss_fn, adam, params, batch)
+        runner.init(params)
+        runner.run(batch)               # its first use, untraced
+        torch.cuda.synchronize()
+        tel.reset()
+        times_b, per_step_b, losses_b = steps_with_launches(
+            runner, batch, OBS_PLAN_STEPS)
+        check_launches("phase 29 (b)", summed(per_step_b), layers,
+                       OBS_PLAN_STEPS)
+        # (c)'s other command lines start now, after the last timed step:
+        # the linter on the search's dumped plan, the telemetry CLI on
+        # (a)'s trace
+        clis["lint"] = start_cli([
+            "autodist_tpu_torch.analysis", "lm1b", "--strategy-json",
+            os.path.join(cli_dir, "search_plan.json")])
+        for cmd in ("validate", "inspect", "goodput"):
+            clis[cmd] = start_cli(["autodist_tpu_torch.telemetry", cmd,
+                                   trace_path])
+        if sorted(os.listdir(trace_dir)) != dirs:
+            fail("phase 29 (b): a profile was written: %r (after (a): %r)"
+                 % (sorted(os.listdir(trace_dir)), dirs))
+        rep_b = telemetry.report_for_runner(runner)
+        report_check("phase 28 (b)'s plan", rep_b, times_b)
+        item_b, plan_b = runner.distributed_step.model_item, \
+            runner.distributed_step.strategy
+        del runner
+        adt.reset()
+        gc.collect()
+        cal = telemetry.fit_calibration([rep_a, rep_b])
+        scales = cal.to_dict()
+        if not all(math.isfinite(v) for v in scales.values()):
+            fail("phase 29 (b): calibration scales %r" % (scales,))
+        from autodist_tpu_torch.resource_spec import ResourceSpec
+        spec = ResourceSpec.from_local("cuda")
+        for label, item, plan, rep in (("AllReduce", item_a, plan_a, rep_a),
+                                       ("28 (b)'s plan", item_b, plan_b,
+                                        rep_b)):
+            after = CostModel(item, spec, calibration=cal).estimate(
+                plan).step_time_s
+            print("  %s: predicted/measured %.4f before the calibration, "
+                  "%.4f after" % (label, rep.predicted_step_s
+                                  / rep.measured_step_s,
+                                  after / rep.measured_step_s))
+        auto = strategy.AutoStrategy(calibration=cal)
+        t0 = time.perf_counter()
+        runner = adt.AutoDist(strategy_builder=auto).build(
+            loss_fn, adam, params, batch)
+        ranking = auto.last_ranking
+        trace = ranking.search_trace
+        print("  calibration %s; AutoStrategy(calibration=...) picks %s "
+              "(%s) at %.3f ms/step (est) in %.0f ms; top three: %s [%s]"
+              % (", ".join("%s %.4g" % kv for kv in scales.items()),
+                 ranking[0].label,
+                 trace.result.get("plan", "-") if trace else "-",
+                 ranking[0].step_time_s * 1e3,
+                 (time.perf_counter() - t0) * 1e3,
+                 ", ".join("%s %.3f ms" % (r.label, r.step_time_s * 1e3)
+                           for r in ranking[:3]), card))
+        del runner
+        adt.reset()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c) the command lines
+        results = dict(static_results, **{
+            key: finish_cli(job) for key, job in clis.items()})
+        print("phase 29 (c): the CLIs as subprocesses (python -m "
+              "autodist_tpu_torch.<cli>; search and tp_lm beside phases "
+              "1-2b, the others after (b)): %s"
+              % ", ".join("%s exit %d (%.1f s)" % (k, v[0], v[3])
+                          for k, v in results.items()))
+        for key, (rc, out, err, _) in results.items():
+            if rc != 0:
+                fail("phase 29 (c): %s exited %d (the CPU gives 0): %s"
+                     % (key, rc, (out + err)[-1500:]))
+        doc = json.loads(results["tp_lm"][1])
+        if doc["errors"] or doc["strategy"] != "TensorParallel":
+            fail("phase 29 (c): analysis tp_lm: %r" % (doc,))
+        if "valid chrome trace" not in results["validate"][1] or \
+                "runner.dispatch" not in results["inspect"][1] or \
+                "compute" not in results["goodput"][1]:
+            fail("phase 29 (c): the telemetry CLI's output")
+        print("  analysis tp_lm: %d errors, memory %r; search: %s; lint of "
+              "the dumped plan: %s"
+              % (doc["errors"], doc.get("memory"),
+                 results["search"][1].strip().splitlines()[0],
+                 results["lint"][1].strip().splitlines()[-1]))
+        return summed([all_launches, summed(per_step_b)])
+    finally:
+        stop_clis(clis)
+        env, const.DEFAULT_TRACE_DIR, const.DEFAULT_SNAPSHOT_DIR = saved
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        tel.configure(None)
+        adt.reset()
+        visualization_util._RUN_DIR = None
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main():
     global T_SMOKE
     T_SMOKE = time.perf_counter()
@@ -8718,6 +9297,15 @@ def main():
     card = card_line()
     print("device: %s | nvidia-smi: %s | torch %s cuda %s"
           % (kind, card, torch.__version__, torch.version.cuda), flush=True)
+    if sys.argv[1:2] == ["--trace-edges"]:
+        trace_edges(int(sys.argv[2]) if len(sys.argv) > 2 else 100)
+        return
+    # phase 29 (c)'s static commands, beside phases 1-2b
+    import atexit
+    import tempfile
+    cli_dir = tempfile.mkdtemp(prefix="adt-cli-")
+    static_clis = start_static_clis(cli_dir)
+    atexit.register(stop_clis, static_clis, cli_dir)
 
     # phase 1 — build every kernel of the path, all nvcc runs together
     from autodist_tpu_torch.utils import cuda_build
@@ -8739,6 +9327,14 @@ def main():
     fwd_err = kernel_phase()
     bwd_errs = bwd_kernel_phase()
     bert_errs = bert_kernel_phase()
+    t = time.perf_counter()
+    static_results = {key: finish_cli(job)
+                      for key, job in static_clis.items()}
+    print("phase 29 (c)'s search and tp_lm linter, beside phases 1-2b: "
+          "%s; joined in %.1f s" % (", ".join(
+              "%s exit %d (%.1f s)" % (k, v[0], v[3])
+              for k, v in static_results.items()),
+              time.perf_counter() - t))
 
     # phase 3 — lm1b at full width, bf16, flash decode
     import numpy as np
@@ -8913,7 +9509,9 @@ def main():
     n2_launches, n2_f32_launches, n2_record = timed_phase(
         "26", serve_phase, card, env0, phase3_tokens)
     auto_launches = timed_phase("28", plan_phase, card)
-    print("phases 5-28: %s s" % ", ".join(
+    observe_launches = timed_phase("29", observe_phase, card,
+                                   static_results, cli_dir)
+    print("phases 5-29: %s s" % ", ".join(
         "%s %.1f" % kv for kv in seconds.items()))
 
     # flash_fwd runs on the three main paths, serving (decode), lm1b and
@@ -8994,6 +9592,8 @@ def main():
         # departure: the worker's steps, the chief's at N = 2 and N = 1;
         # (b) bert_base at 2 layers, the rescue-skip branch
         # phase 28 (b): bert_base under the plan AutoStrategy picked
+        # phase 29: (a) bert_base traced (tracing=True, the fleet window),
+        # 10 steps; (b) 6 traced steps under 28 (b)'s plan
         for path, counts in (("bert_sync_variants", sync_launches),
                              ("lm1b_bf16_tier", tier_launches),
                              ("bert_remat", remat_launches),
@@ -9006,7 +9606,8 @@ def main():
                              ("bert_schedules", sched_launches),
                              ("bert_inrun", inrun_launches),
                              ("bert_preempt", preempt_launches),
-                             ("bert_autostrategy", auto_launches)):
+                             ("bert_autostrategy", auto_launches),
+                             ("bert_observe", observe_launches)):
             n = counts.get(name, {})
             rec["by_path"][path] = {
                 "launches": sum(n.values()),

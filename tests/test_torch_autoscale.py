@@ -12,9 +12,13 @@
   actuation cases of ``tests/test_autoscale.py`` (grow-on-join, the
   announced joiner first, the refusal onto a pending notice, the planned
   drain-then-shrink, the controller never retired, the epoch fence, the
-  construction lint), and ``scrape_workers`` raising, naming item 11.
+  construction lint), and ``scrape_workers`` wired to
+  ``export.scrape_cluster`` as in JAX: the scraped ages reach the
+  signals, a stale one forces a hold, and a failed scrape decides on the
+  local signals.
 - The serving modules import neither JAX nor the JAX package.
 """
+import json
 import socket
 import subprocess
 import sys
@@ -302,9 +306,46 @@ def test_step_without_epoch_and_construction_lint(server):
     assert elastic.admit_worker(client, W2) == 2   # already a member
 
 
-def test_scrape_workers_raises_naming_item_11():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        FleetAutoscaler(None, _policy(), CHIEF, scrape_workers=[W2])
+def test_scrape_workers_raises_naming_item_11(monkeypatch):
+    """The refusal this test pinned is gone (the fleet scrape is ported):
+    ``scrape_workers`` now builds, and a scrape that fails (no service)
+    logs the JAX warning and leaves the decision to the local signals."""
+    class Down:
+        def bget(self, key):
+            raise OSError("connection refused")
+
+    from autodist_tpu_torch.serving import autoscale
+    warned = []
+    monkeypatch.setattr(autoscale.logging, "warning",
+                        lambda msg, *a: warned.append(msg % a))
+    sc = FleetAutoscaler(Down(), _policy(), CHIEF, scrape_workers=[W2],
+                         signals_fn=lambda: _sig(3))
+    sig = sc.signals()
+    assert sig.queue_depth == 3 and sig.scrape_ages == {}
+    assert warned == ["autoscale: fleet scrape failed (connection "
+                      "refused) — deciding on local signals"]
+
+
+def test_a_stale_scrape_age_forces_a_hold(server):
+    from autodist_tpu_torch.telemetry import export
+    client = CoordinationClient("127.0.0.1", server)
+    elastic.publish_epoch(client, 1, [CHIEF])
+    rec = tel.TraceRecorder(capacity=16, pid=4242, host="w2")
+    rec.counter_add("runner.steps", 3.0)
+    export.publish_telemetry(client, W2, recorder=rec)
+    sc = FleetAutoscaler(client, _policy(sustain_s=0.0, stale_signal_s=5.0),
+                         CHIEF, pool=[W3], scrape_workers=[W2],
+                         signals_fn=lambda: _sig(50))
+    fresh = sc.signals()
+    assert set(fresh.scrape_ages) == {W2} and fresh.scrape_ages[W2] < 5.0
+    assert fresh.to_dict()["max_scrape_age_s"] is not None
+    # the worker's blob ages past stale_signal_s: the same overload holds
+    blob = export.fetch_telemetry(client, W2)
+    blob["published_at"] -= 60.0
+    client.bput(export.TELEMETRY_KEY % W2, 99, json.dumps(blob).encode())
+    d = sc.step()
+    assert d.direction == "hold" and "stale" in d.reason
+    assert elastic.read_epoch(client) == (1, [CHIEF])
 
 
 def test_serving_modules_leave_jax_and_the_jax_package_out():

@@ -19,6 +19,7 @@ import subprocess
 import sys
 import threading
 import time
+import types
 
 import numpy as np
 import pytest
@@ -314,6 +315,62 @@ def test_compile_grace(pkg, age_s, mark, in_grace):
     assert coord._in_compile_grace(client, "w") is in_grace
 
 
+def _silent_worker(service, name, window_s):
+    """A watchdog on ``service`` and a client, with ``name`` silent past
+    ``window_s`` while its compile mark is fresh (a long first
+    dispatch)."""
+    from autodist_tpu_torch.runtime.coordination import CoordinationClient
+    coord = port_coordinator.Coordinator(
+        "sid-" + name, Cluster(ResourceSpec.from_dict(SPEC),
+                               coordsvc_port=service.port),
+        heartbeat_timeout=window_s, max_restarts=0)
+    c = CoordinationClient("127.0.0.1", service.port)
+    c.heartbeat(name)
+    c.put("compiling/%s" % name, repr(time.time()))
+    time.sleep(window_s + 0.2)
+    return coord, c
+
+
+def test_the_end_of_a_long_first_dispatch_is_no_death(service):
+    """The watchdog reads the silent list, then the worker's first
+    dispatch returns (``Runner._compile_grace_end``: a beat, then the
+    mark cleared), then the watchdog reads the marks: the cleared mark no
+    longer shields the worker, but the list read again after the marks
+    (``Coordinator._still_silent``) drops it, so a live worker is not
+    declared dead at the end of a first dispatch longer than the
+    window."""
+    from autodist_tpu_torch.runtime.runner import Runner
+    coord, c = _silent_worker(service, "wend", 1.0)
+    try:
+        dead = [d for d in c.dead_workers(1.0) if d == "wend"]
+        assert dead == ["wend"]
+        runner = types.SimpleNamespace(
+            _compile_grace_marked=True, _compile_grace_cleared=False,
+            _async_hb=c, _coord=None, _worker="wend", _last_hb=0.0)
+        Runner._compile_grace_end(runner)
+        assert c.get("compiling/wend") == "0" and runner._last_hb > 0
+        assert coord._supervised(c, dead) == ["wend"]
+        assert coord._still_silent(c, coord._supervised(c, dead)) == []
+    finally:
+        port_elastic.gc_worker_marks(c, "wend")
+        c.close()
+
+
+def test_a_worker_silent_on_both_reads_stays_dead(service):
+    """The second read keeps a worker that stayed silent: with its mark
+    cleared and no beat since, the watchdog acts on it."""
+    coord, c = _silent_worker(service, "wstill", 1.0)
+    try:
+        c.put("compiling/wstill", "0")
+        dead = [d for d in c.dead_workers(1.0) if d == "wstill"]
+        assert coord._still_silent(c, coord._supervised(c, dead)) == [
+            "wstill"]
+        assert coord._still_silent(c, []) == []
+    finally:
+        port_elastic.gc_worker_marks(c, "wstill")
+        c.close()
+
+
 def test_watchdog_filters_bring_up_grace_and_the_chief():
     """The watchdog leaves alone the chief, a worker whose relaunch is
     younger than twice the heartbeat window, and one in its compile
@@ -343,6 +400,7 @@ def test_supervision_resumes_after_a_service_bounce(tmp_path):
     script = tmp_path / "watchdog_bounce.py"
     script.write_text("""
 import time
+import types
 PORT = %d
 from autodist_tpu_torch.resource_spec import ResourceSpec
 from autodist_tpu_torch.runtime.cluster import Cluster
