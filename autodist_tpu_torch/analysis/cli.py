@@ -25,9 +25,13 @@ errors plus the sentinel-aware ADT603/604 warnings) — and
 
     python -m autodist_tpu_torch.analysis lm1b --strategy AllReduce --numerics --compute-dtype bf16
 
-``--programs`` (the JAX CLI's lint of saved lowered-program dumps) needs
-the lowered-program passes, which the port does not have yet (ROADMAP A
-item 11): it exits 2 naming that item.
+``--programs`` lints saved program dumps instead (``Runner.lowered_text``
+written to a file: the step recorded as a program, ``kernel/lowering.py``)
+— memory, donation, communication and numerics per program, and the
+cross-program schedule checks (ADT510/511/605) against the FIRST file;
+dumps of one program at several ranks are compared for ADT407:
+
+    python -m autodist_tpu_torch.analysis --programs train.txt eval.txt --format json
 """
 import argparse
 import json
@@ -270,9 +274,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "resident PS carry into the memory gate (and the "
                         "donation check in --programs mode)")
     p.add_argument("--programs", nargs="+", metavar="FILE", default=None,
-                   help="lint saved lowered-program dumps instead of "
-                        "building a plan (the JAX CLI's mode; not ported "
-                        "yet: exits 2)")
+                   help="lint saved program dumps (Runner.lowered_text) "
+                        "instead of building a plan: per-program memory + "
+                        "communication + numerics findings, plus cross-"
+                        "program collective-schedule checks (ADT510/511/"
+                        "605) against the FIRST file")
     p.add_argument("--numerics", action="store_true",
                    help="add the plan-level numerics-safety gate "
                         "(rules.verify_numerics): ADT601/602 errors plus "
@@ -290,13 +296,95 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _programs_mode(args) -> int:
-    """The JAX CLI lints saved lowered-program dumps here; the port has
-    no lowered-program passes yet, so the mode refuses (exit 2)."""
-    print("error: --programs needs the lowered-program passes "
-          "(analysis/hlo.py, lowered.py, numerics.py and memory.py's text "
-          "half), which are not ported yet (ROADMAP A item 11)",
-          file=sys.stderr)
-    return 2
+    """Lint recorded program dumps: memory/donation/communication/
+    numerics per program, cross-program schedule consistency vs the first
+    (reference) program, ADT407 across dumps of one program at several
+    ranks, and — with ``--topology`` — the per-link-level ADT52x pass
+    over every program's collective schedule. Exit 1 on any ADT error."""
+    import dataclasses as _dc
+
+    from autodist_tpu_torch.analysis import memory as memory_lib
+    from autodist_tpu_torch.analysis import numerics as numerics_lib
+    from autodist_tpu_torch.analysis import program as program_lib
+    from autodist_tpu_torch.analysis.diagnostics import (Severity,
+                                                         format_table,
+                                                         sort_diagnostics)
+    from autodist_tpu_torch.analysis.lowered import (compare_ranks,
+                                                     lint_lowered_text)
+    budget = (args.hbm_budget * memory_lib.GIB
+              if args.hbm_budget is not None else None)
+    topology, topo_diag = _load_topology(args)
+    if topo_diag is not None:
+        print(format_table([topo_diag]))
+        return 1
+
+    def _attribute(diags, path):
+        # every finding names its file
+        return [d if d.var else _dc.replace(d, var=path) for d in diags]
+
+    per_program = []
+    by_program: Dict[tuple, Dict[int, object]] = {}
+    for path in args.programs:
+        try:
+            with open(path) as f:
+                text = f.read()
+        except OSError as e:
+            print("error: cannot read %s: %s" % (path, e), file=sys.stderr)
+            return 2
+        label = path
+        prog = program_lib.parse_program_text(text)
+        est = memory_lib.estimate_from_text(prog)
+        sched = program_lib.collective_schedule(prog)
+        diags = list(lint_lowered_text(prog))
+        diags += numerics_lib.lint_text(prog, label=label)
+        diags += memory_lib.donation_diagnostics(
+            prog, fuse_steps=args.fuse_steps)
+        if budget is not None:
+            diags += memory_lib.budget_diagnostics(
+                est.peak_hbm_bytes, budget, source="lowered-program")
+        if topology is not None:
+            from autodist_tpu_torch.analysis.topology import lint_schedule
+            diags += lint_schedule(sched, topology, label=label)
+        per_program.append((label, est, sched, _attribute(diags, path)))
+        if prog.entry is not None:
+            key = (prog.entry.name, prog.fuse_steps)
+            by_program.setdefault(key, {})[int(prog.attrs.get("rank", 0))] \
+                = prog
+    ref_label, _, ref_sched, _ = per_program[0]
+    cross = []
+    for label, _, sched, _ in per_program[1:]:
+        batch = program_lib.compare_schedules(ref_sched, sched,
+                                              ref_label, label)
+        batch += numerics_lib.compare_schedule_dtypes(ref_sched, sched,
+                                                      ref_label, label)
+        cross += _attribute(batch, label)
+    for ranks in by_program.values():
+        cross += compare_ranks(ranks)
+    all_diags = [d for (_, _, _, ds) in per_program for d in ds] + cross
+    n_errors = sum(1 for d in all_diags if d.severity >= Severity.ERROR)
+    if args.format == "json":
+        print(json.dumps({
+            "programs": [{
+                "program": label,
+                "memory": est.to_dict(),
+                "collectives": len(sched),
+                "diagnostics": [d.to_dict()
+                                for d in sort_diagnostics(diags)],
+            } for label, est, sched, diags in per_program],
+            "schedule_check": {
+                "reference": ref_label,
+                "diagnostics": [d.to_dict()
+                                for d in sort_diagnostics(cross)],
+            },
+            "errors": n_errors,
+        }, indent=1, sort_keys=True))
+    elif all_diags or not args.quiet:
+        for label, est, sched, diags in per_program:
+            print("%s: peak %.4f GiB, %d collective(s)"
+                  % (label, est.peak_hbm_bytes / memory_lib.GIB,
+                     len(sched)))
+        print(format_table(all_diags))
+    return 1 if n_errors else 0
 
 
 def main(argv=None) -> int:

@@ -506,8 +506,10 @@ class AutoDist:
             sentinel=policy).transform()
         if is_async and dstep.ps_store is not None:
             self._wire_async_ps(dstep)
-        self._runner = Runner(dstep, sentinel=policy if policy is not None
-                              else False, tracing=self._tracing)
+        self._runner = Runner(
+            dstep, sentinel=policy if policy is not None else False,
+            tracing=self._tracing,
+            hbm_budget_bytes=self._resource_spec.chip_hbm_bytes())
         if inrun:
             # the rebuild's inputs: a new world recompiles nothing, it
             # transforms the launch plan for the roster's processes
@@ -782,8 +784,10 @@ class AutoDist:
         self._check_elastic(False)
         dstep = GraphTransformer(compiled, item, self._device,
                                  self._replicas, sentinel=policy).transform()
-        self._runner = Runner(dstep, sentinel=policy if policy is not None
-                              else False, tracing=self._tracing)
+        self._runner = Runner(
+            dstep, sentinel=policy if policy is not None else False,
+            tracing=self._tracing,
+            hbm_budget_bytes=self._resource_spec.chip_hbm_bytes())
         return self._runner
 
     def function(self, loss_fn: Callable, *, optimizer, params,

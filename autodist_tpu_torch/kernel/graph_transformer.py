@@ -116,6 +116,7 @@ from torch.utils import _pytree as pytree
 
 from autodist_tpu_torch import const
 from autodist_tpu_torch.convert import from_jax_layout, to_jax_layout
+from autodist_tpu_torch.kernel import lowering
 from autodist_tpu_torch.kernel.partitioner import VarLayout, VariablePartitioner
 from autodist_tpu_torch.kernel.replicator import ReplicaInfo
 from autodist_tpu_torch.kernel.synchronization.all_reduce_synchronizer \
@@ -1746,9 +1747,10 @@ class DistributedStep:
         ``(new_state, metrics stacked [k, ...])``."""
         per_step = []
         for i in range(k):
-            state, metrics = self._step(
-                state, pytree.tree_map(lambda t, i=i: t[i], stacked_batch),
-                carry)
+            with lowering.microstep(i):
+                state, metrics = self._step(
+                    state, pytree.tree_map(lambda t, i=i: t[i],
+                                           stacked_batch), carry)
             per_step.append(metrics)
         return state, pytree.tree_map(_stack, *per_step)
 
@@ -1842,6 +1844,40 @@ class DistributedStep:
             full = dict(self._full_params(state.params))
             full.update(self._ps_dewire(ps_vals))
             return self._metrics(*self._loss(full, batch))
+
+    def lowered_text(self, state: TrainState, batch, fuse_steps: int = 1,
+                     program: str = "train", donate: bool = False,
+                     rank: Optional[int] = None) -> str:
+        """The program text of the step (the JAX ``lowered_text``): the
+        step run once on fake tensors and recorded op by op
+        (``kernel/lowering.py``), the input of the analyses in
+        ``analysis/program.py``, ``memory.py``, ``lowered.py`` and
+        ``numerics.py``. Nothing runs on the device and nothing changes:
+        the host-PS values enter as fakes, as the JAX package enters them
+        as avals. ``batch`` is this rank's placed feed.
+        ``program="eval"`` records the forward-only :meth:`evaluate`;
+        ``fuse_steps=k > 1`` the fused superstep of k microsteps (the
+        microstep feed ``batch`` stacked k times); ``donate=True`` the
+        variant that updates the state in place, the one that runs in
+        steady state; ``rank`` the program of another rank of the mesh
+        (ADT407)."""
+        return lowering.record_step(self, state, batch, fuse_steps=fuse_steps,
+                                    program=program, donate=donate,
+                                    rank=rank)
+
+    def snapshot_lowered(self, state: TrainState, batch):
+        """Write the transformed program's text as snapshot stage
+        ``3-transformed-program`` (the JAX ``3-transformed-stablehlo``,
+        the reference's '3-transformed' TensorBoard snapshot); returns its
+        path, None when it could not be written."""
+        from autodist_tpu_torch.utils import visualization_util
+        try:
+            text = self.lowered_text(state, batch)
+            return visualization_util.log_program("3-transformed-program",
+                                                  text, force=True)
+        except Exception as e:  # noqa: BLE001 — diagnostics must not break runs
+            logging.warning("snapshot_lowered failed: %s", e)
+            return None
 
     def gather_params(self, state: TrainState) -> dict:
         """The full params in their original names and layout: this

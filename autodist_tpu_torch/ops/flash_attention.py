@@ -27,7 +27,11 @@ operands to TF32, and the f32 paths are held to 2e-5). Nothing picks a
 design on a failure.
 
 Each wrapper takes the plain version only for CPU tensors. For CUDA
-tensors it launches the kernel or raises; nothing falls back. Each launch
+tensors it launches the kernel or raises; nothing falls back. The CUDA
+route of each is a custom op (``adt::flash_fwd``, ``adt::flash_bwd_dq``,
+``adt::flash_bwd_dkdv``) with a fake implementation, so a fake-tensor
+recording of the step (``kernel/lowering.py``) sees each kernel as one op
+with its true outputs. Each launch
 adds one to the wrapper's ``launches`` count and to its
 ``launches_by_variant[variant]``; a replayed CUDA graph adds the
 launches its capture recorded (:func:`add_launch_counts`).
@@ -303,6 +307,13 @@ def _cuda_args(name, q, k, v, q_seg, kv_seg, *more):
             kv_seg.to(torch.int32).contiguous())
 
 
+def _on_cuda(name, q):
+    """The custom ops take CUDA tensors (real or fake) only."""
+    if q.device.type != "cuda":
+        raise ValueError("%s runs on cuda or cpu tensors, got %s"
+                         % (name, q.device))
+
+
 def _launch(name, *args):
     rc = _kernel(name)(*args)
     if rc != 0:
@@ -319,12 +330,20 @@ def flash_fwd(q, k, v, q_seg=None, kv_seg=None, causal: bool = False):
     for q ``[B, Sq, H, D]`` and k/v ``[B, Sk, H, D]`` (f32 or bf16, D = 64
     on CUDA; any strides with d contiguous), optional int32 segment ids
     ``[B, Sq]``/``[B, Sk]``. CPU tensors take :func:`flash_fwd_reference`;
-    CUDA tensors launch ``csrc/flash_fwd.cu`` in the design
+    other tensors go through the custom op ``adt::flash_fwd``, whose CUDA
+    implementation launches ``csrc/flash_fwd.cu`` in the design
     :func:`_fwd_variant` picks (each launch adds one to
     ``flash_fwd.launches`` and ``flash_fwd.launches_by_variant``)."""
     if q.device.type == "cpu":
         return flash_fwd_reference(q, k, v, q_seg, kv_seg, causal)
     _check(q, k, v, q_seg, kv_seg)
+    _on_cuda("flash_fwd", q)
+    return torch.ops.adt.flash_fwd(q, k, v, q_seg, kv_seg, bool(causal))
+
+
+def _flash_fwd_cuda(q, k, v, q_seg, kv_seg, causal):
+    """``adt::flash_fwd`` on CUDA tensors: the launch of
+    ``csrc/flash_fwd.cu``."""
     q_seg, kv_seg = _cuda_args("flash_fwd", q, k, v, q_seg, kv_seg)
     variant = _fwd_variant(q.dtype)
     B, Sq, H, D = q.shape
@@ -373,13 +392,23 @@ def flash_bwd_dq(q, k, v, do, lse, delta, q_seg=None, kv_seg=None,
                  causal: bool = False):
     """dQ of flash attention (``_dq_kernel``) from the forward's inputs,
     its lse ``[B, H, Sq]`` and delta = rowsum(dO * O) ``[B, H, Sq]`` (both
-    f32). CPU tensors take :func:`flash_bwd_dq_reference`; CUDA tensors
-    launch ``csrc/flash_bwd.cu``'s dQ kernel in the design
-    :func:`_dq_variant` picks (each launch adds one to
+    f32). CPU tensors take :func:`flash_bwd_dq_reference`; other tensors
+    go through the custom op ``adt::flash_bwd_dq``, whose CUDA
+    implementation launches ``csrc/flash_bwd.cu``'s dQ kernel in the
+    design :func:`_dq_variant` picks (each launch adds one to
     ``flash_bwd_dq.launches`` and ``flash_bwd_dq.launches_by_variant``)."""
     if q.device.type == "cpu":
         return flash_bwd_dq_reference(q, k, v, do, lse, delta, q_seg, kv_seg,
                                       causal)
+    _check_bwd(q, k, v, do, lse, delta, q_seg, kv_seg)
+    _on_cuda("flash_bwd_dq", q)
+    return torch.ops.adt.flash_bwd_dq(q, k, v, do, lse, delta, q_seg, kv_seg,
+                                      bool(causal))
+
+
+def _flash_bwd_dq_cuda(q, k, v, do, lse, delta, q_seg, kv_seg, causal):
+    """``adt::flash_bwd_dq`` on CUDA tensors: the launch of
+    ``csrc/flash_bwd.cu``'s dQ kernel."""
     args = _bwd_launch_args("flash_bwd_dq", q, k, v, do, lse, delta, q_seg,
                             kv_seg)
     if args is None:
@@ -403,13 +432,23 @@ def flash_bwd_dkdv(q, k, v, do, lse, delta, q_seg=None, kv_seg=None,
                    causal: bool = False):
     """``(dK, dV)`` of flash attention (``_dkdv_kernel``), inputs as
     :func:`flash_bwd_dq`. CPU tensors take
-    :func:`flash_bwd_dkdv_reference`; CUDA tensors launch
+    :func:`flash_bwd_dkdv_reference`; other tensors go through the custom
+    op ``adt::flash_bwd_dkdv``, whose CUDA implementation launches
     ``csrc/flash_bwd.cu``'s dK/dV kernel in the design
     :func:`_dkdv_variant` picks (each launch adds one to
     ``flash_bwd_dkdv.launches`` and ``flash_bwd_dkdv.launches_by_variant``)."""
     if q.device.type == "cpu":
         return flash_bwd_dkdv_reference(q, k, v, do, lse, delta, q_seg,
                                         kv_seg, causal)
+    _check_bwd(q, k, v, do, lse, delta, q_seg, kv_seg)
+    _on_cuda("flash_bwd_dkdv", q)
+    return torch.ops.adt.flash_bwd_dkdv(q, k, v, do, lse, delta, q_seg,
+                                        kv_seg, bool(causal))
+
+
+def _flash_bwd_dkdv_cuda(q, k, v, do, lse, delta, q_seg, kv_seg, causal):
+    """``adt::flash_bwd_dkdv`` on CUDA tensors: the launch of
+    ``csrc/flash_bwd.cu``'s dK/dV kernel."""
     args = _bwd_launch_args("flash_bwd_dkdv", q, k, v, do, lse, delta, q_seg,
                             kv_seg)
     if args is None:
@@ -433,6 +472,59 @@ flash_bwd_dkdv.launches_by_variant = {}
 
 # the wrappers that count their kernels' launches
 COUNTED = (flash_fwd, flash_bwd_dq, flash_bwd_dkdv)
+
+
+# The CUDA routes as custom ops: the dispatcher runs each op's CUDA
+# implementation (the ctypes launch above) on CUDA tensors, and its fake
+# implementation on fake tensors, so a recording of the step on the card
+# (kernel/lowering.py) lists each kernel as one op with its true outputs
+# (out and the f32 lse; dQ; dK and dV), never the plain version's
+# [B, H, Sq, Sk] scores. Neither implementation counts a launch but the
+# CUDA one's.
+_SCHEMAS = {
+    "flash_fwd": ("(Tensor q, Tensor k, Tensor v, Tensor? q_seg, "
+                  "Tensor? kv_seg, bool causal) -> (Tensor, Tensor)",
+                  _flash_fwd_cuda),
+    "flash_bwd_dq": ("(Tensor q, Tensor k, Tensor v, Tensor dout, "
+                     "Tensor lse, Tensor delta, Tensor? q_seg, "
+                     "Tensor? kv_seg, bool causal) -> Tensor",
+                     _flash_bwd_dq_cuda),
+    "flash_bwd_dkdv": ("(Tensor q, Tensor k, Tensor v, Tensor dout, "
+                       "Tensor lse, Tensor delta, Tensor? q_seg, "
+                       "Tensor? kv_seg, bool causal) -> (Tensor, Tensor)",
+                       _flash_bwd_dkdv_cuda),
+}
+
+
+def _fwd_fake(q, k, v, q_seg, kv_seg, causal):
+    B, Sq, H, _ = q.shape
+    return q.new_empty(q.shape), q.new_empty((B, H, Sq), dtype=torch.float32)
+
+
+def _dq_fake(q, k, v, dout, lse, delta, q_seg, kv_seg, causal):
+    return q.new_empty(q.shape)
+
+
+def _dkdv_fake(q, k, v, dout, lse, delta, q_seg, kv_seg, causal):
+    return k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+_FAKES = {"flash_fwd": _fwd_fake, "flash_bwd_dq": _dq_fake,
+          "flash_bwd_dkdv": _dkdv_fake}
+
+
+def _define_ops():
+    if hasattr(torch.ops.adt, "flash_fwd"):
+        return None     # this module was imported once already
+    lib = torch.library.Library("adt", "DEF")
+    for name, (schema, cuda_impl) in _SCHEMAS.items():
+        lib.define(name + schema)
+        lib.impl(name, cuda_impl, "CUDA")
+        torch.library.register_fake("adt::" + name, _FAKES[name], lib=lib)
+    return lib
+
+
+_LIB = _define_ops()
 
 
 def launch_counts() -> dict:

@@ -51,7 +51,8 @@ The JAX module's ``wire_avals``, ``overlap_token`` and ``barrier_chain``
 are tracing aids of XLA with no counterpart in an eager program.
 """
 import dataclasses
-from typing import Callable, Dict, List, Tuple
+import threading
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -299,10 +300,27 @@ def done(value) -> Pending:
     return Pending((), lambda: value)
 
 
-def _all_to_all(x: torch.Tensor, group, async_op: bool = False) -> Pending:
+# the cost class a program recording (kernel/lowering.py) gives the
+# all_to_all being issued, where the op alone would mislead: the one that
+# carries a reduce-scatter is the JAX lowering's reduce_scatter
+_CARRIED_KIND = threading.local()
+
+
+def carried_kind() -> Optional[str]:
+    """The cost class of the ``all_to_all`` being issued, when it is not
+    ``"alltoall"``; None otherwise."""
+    return getattr(_CARRIED_KIND, "kind", None)
+
+
+def _all_to_all(x: torch.Tensor, group, async_op: bool = False,
+                kind: Optional[str] = None) -> Pending:
     out = torch.empty_like(x)
-    handle = dist.all_to_all_single(out, x.contiguous(), group=group,
-                                    async_op=async_op)
+    _CARRIED_KIND.kind = kind
+    try:
+        handle = dist.all_to_all_single(out, x.contiguous(), group=group,
+                                        async_op=async_op)
+    finally:
+        _CARRIED_KIND.kind = None
     tel.counter_add("sync.wire_bytes", x.numel() * x.element_size())
     return Pending([handle], lambda: out)
 
@@ -469,7 +487,7 @@ def reduce_scatter_flat_launch(x: torch.Tensor, group, n: int,
     (chunk j to rank j), then a local sum of the received chunks."""
     if n <= 1:
         return done(x)
-    out = _all_to_all(x, group, async_op)
+    out = _all_to_all(x, group, async_op, kind="scatter")
     return Pending([out], lambda: out.wait().reshape(n, -1).sum(dim=0))
 
 

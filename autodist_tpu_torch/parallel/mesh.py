@@ -282,17 +282,10 @@ def recording() -> Iterator[CollectiveRecord]:
     a recording moves nothing. Only for a trace: the values are those of
     one rank."""
     record = CollectiveRecord()
-    saved = dict(_BOUND)
-    try:
-        for name in MODEL_PARALLEL_AXES:
-            if name not in _BOUND:
-                _BOUND[name] = AxisBinding(name, 1, 0,
-                                           _Recording(record, name))
-        with tel.muted():
-            yield record
-    finally:
-        _BOUND.clear()
-        _BOUND.update(saved)
+    with _bound({name: AxisBinding(name, 1, 0, _Recording(record, name))
+                 for name in MODEL_PARALLEL_AXES if name not in _BOUND}), \
+            tel.muted():
+        yield record
 
 
 @contextlib.contextmanager
@@ -301,18 +294,31 @@ def bind(mesh: Optional[ProcessMesh],
     """Bind ``names`` of ``mesh`` (those of size > 1) for the body; the
     previous bindings come back on the way out. ``mesh`` None binds
     nothing."""
-    saved = dict(_BOUND)
+    bindings = {}
+    if mesh is not None:
+        bindings = {name: AxisBinding(name, mesh.axis_size(name),
+                                      mesh.axis_index(name), mesh.group(name))
+                    for name in names if mesh.axis_size(name) > 1}
+    with _bound(bindings):
+        yield
+
+
+@contextlib.contextmanager
+def _bound(bindings: Dict[str, AxisBinding]) -> Iterator[None]:
+    """Set ``bindings`` for the body, then put back what each of their
+    names held before, and only those names: a thread that binds nothing
+    (a recording of a step without a mesh, ``kernel/lowering.py``, beside
+    a build's trace) leaves the other thread's bindings as they are."""
+    saved = {name: _BOUND.get(name) for name in bindings}
+    _BOUND.update(bindings)
     try:
-        if mesh is not None:
-            for name in names:
-                if mesh.axis_size(name) > 1:
-                    _BOUND[name] = AxisBinding(name, mesh.axis_size(name),
-                                               mesh.axis_index(name),
-                                               mesh.group(name))
         yield
     finally:
-        _BOUND.clear()
-        _BOUND.update(saved)
+        for name, prev in saved.items():
+            if prev is None:
+                _BOUND.pop(name, None)
+            else:
+                _BOUND[name] = prev
 
 
 # --------------------------------------------------------- the exchanges

@@ -80,6 +80,7 @@ Chrome JSON under ``const.DEFAULT_TRACE_DIR``. With tracing on
 wall time into buckets (``telemetry/goodput.py``).
 """
 import atexit
+import collections
 import contextlib
 import itertools
 import os
@@ -106,6 +107,15 @@ from autodist_tpu_torch.utils import logging
 # publishes it once its process watcher has seen the death, which gloo's
 # errors precede by milliseconds)
 INRUN_EPOCH_WAIT_S = 30.0
+
+
+def _structure(tree) -> tuple:
+    """Each tensor leaf of ``tree`` by path, shape, dtype and device: all
+    of a tree that a recorded program depends on."""
+    flat, _ = pytree.tree_flatten_with_path(tree)
+    return tuple((pytree.keystr(path), tuple(t.shape), str(t.dtype),
+                  str(t.device)) for path, t in flat
+                 if isinstance(t, torch.Tensor))
 
 
 class _Rerun(Exception):
@@ -221,10 +231,26 @@ class Runner:
 
     # recent per-step wall times kept for the steady_* percentiles
     _RECENT_WINDOW = 1024
+    # recorded programs kept (lowered_text); a full-width text is ~1 MB
+    _PROGRAMS_KEPT = 8
 
     def __init__(self, distributed_step, sentinel=None,
-                 tracing: bool = False):
+                 tracing: bool = False,
+                 hbm_budget_bytes: Optional[float] = None):
         self._dstep = distributed_step
+        # per-device HBM budget of memory_report(): AutoDist passes the
+        # resource spec's card capacity; a bare Runner has none, and
+        # memory_report only estimates (no ADT501/502 gate)
+        self._hbm_budget = hbm_budget_bytes
+        # ADT_SNAPSHOT at build: the first step writes the 3-transformed
+        # stage (the 0-original stage was written by the transform)
+        from autodist_tpu_torch.utils import visualization_util
+        self._snapshot_due = visualization_util.enabled()
+        # the recorded programs (lowered_text), by what determines them:
+        # the arguments and the structure of the state and the feed (a
+        # recording runs on fake tensors, so values never enter it)
+        self._programs: "collections.OrderedDict[tuple, str]" = \
+            collections.OrderedDict()
         # tracing=True: the first dispatch runs under a torch.profiler
         # trace written as Chrome JSON under const.DEFAULT_TRACE_DIR
         # (armed until a dispatch takes it)
@@ -611,6 +637,7 @@ class Runner:
         self._dstep = dstep
         self._remapper = Remapper(dstep.device, dstep.replica_info)
         self._staleness = int(dstep.metadata.get("staleness", 0))
+        self._programs.clear()
 
     def _poll_epoch(self):
         """The boundary's membership poll (at most every
@@ -870,6 +897,7 @@ class Runner:
                         sync=sync, step=self._step_count):
                     with tel.span("runner.feed", "runner"):
                         placed = self._remapper.remap_feed(batch)
+                    self._maybe_snapshot(placed)
                     self._maybe_start_profile()
                     self._check_ps_owner_health()
                     new_state, metrics = self._dstep(st, placed,
@@ -908,6 +936,8 @@ class Runner:
                 placed = self._remapper.remap_feed_stack(stacked_batch)
             leaves = pytree.tree_leaves(placed)
             k = int(np.shape(leaves[0])[0]) if leaves else 1
+            if self._snapshot_due:
+                self._maybe_snapshot(pytree.tree_map(lambda t: t[0], placed))
             try:
                 with self._collectives(rerun=True), tel.span(
                         "runner.dispatch", "runner", microsteps=k,
@@ -1157,6 +1187,150 @@ class Runner:
                 client.put("straggler/%s" % self._worker, mark)
             except (OSError, RuntimeError):
                 pass
+
+    # ------------------------------------------------ the program passes
+
+    def lowered_text(self, batch, state: Optional[TrainState] = None,
+                     fuse_steps: int = 1, program: str = "train",
+                     donate: bool = False, rank: Optional[int] = None) -> str:
+        """The program text of the step for the host ``batch`` (the JAX
+        ``Runner.lowered_text``): the step recorded op by op on fake
+        tensors (``kernel/lowering.py``), the input of the lint pass
+        (``analysis/lowered.py``) and of the memory and schedule
+        analyzers (``analysis/memory.py``, ``analysis/program.py``).
+        Nothing runs on the device: the host-PS values enter as fakes.
+        ``program="eval"`` records the forward-only evaluation;
+        ``fuse_steps=k > 1`` the fused k-microstep superstep (the feed
+        stacked k times); ``donate=True`` the variant that updates the
+        state in place, the one that runs in steady state; ``rank``
+        another rank's program (ADT407). A program is recorded once for
+        its arguments and the structure of the state and the feed (the
+        passes below ask for the same one)."""
+        st = state if state is not None else self.state
+        if st is None:
+            raise RuntimeError("Runner.lowered_text before init()")
+        placed = self._remapper.remap_feed(batch)
+        key = (fuse_steps, program, donate, rank,
+               _structure((st.params, st.opt_state, st.sync_state)),
+               _structure(placed))
+        text = self._programs.get(key)
+        if text is None:
+            text = self._dstep.lowered_text(st, placed, fuse_steps=fuse_steps,
+                                            program=program, donate=donate,
+                                            rank=rank)
+            self._programs[key] = text
+            while len(self._programs) > self._PROGRAMS_KEPT:
+                self._programs.popitem(last=False)
+        return text
+
+    def lint_lowered(self, batch, state: Optional[TrainState] = None,
+                     fuse_steps: int = 1):
+        """The recorded program's communication checks (ADT405-409) and
+        its numerics pass (ADT60x) for ``batch``; with ``fuse_steps=k``
+        the fused program's, where a host transfer in a microstep is
+        ADT408 — found before any CUDA-graph capture."""
+        from autodist_tpu_torch.analysis import lowered as lowered_lib
+        return lowered_lib.lint_runner(self, batch, state,
+                                       fuse_steps=fuse_steps)
+
+    def memory_report(self, batch, state: Optional[TrainState] = None,
+                      fuse_steps: int = 1,
+                      hbm_budget_bytes: Optional[float] = None,
+                      donate: bool = True) -> dict:
+        """Static per-device peak-HBM report of the step for ``batch``
+        (the JAX ``Runner.memory_report``): the recorded program's entry
+        buffers (donation-aware) plus the liveness sweep of its
+        temporaries (``analysis/memory.py``), checked against the card's
+        HBM budget (``ResourceSpec.chip_hbm_bytes()`` via AutoDist, or
+        ``hbm_budget_bytes``). Nothing runs and nothing allocates: an OOM
+        surfaces as ``ADT501``. ``donate=True`` (default) reports the
+        program that runs in steady state; ``fuse_steps=k`` the fused
+        superstep, whose un-donated carry is ``ADT503``."""
+        from autodist_tpu_torch.analysis import memory as memory_lib
+        from autodist_tpu_torch.analysis import program as program_lib
+        text = self.lowered_text(batch, state, fuse_steps=fuse_steps,
+                                 donate=donate)
+        prog = program_lib.parse_program_text(text)
+        est = memory_lib.estimate_from_text(prog)
+        schedule = program_lib.collective_schedule(prog)
+        budget = (hbm_budget_bytes if hbm_budget_bytes is not None
+                  else self._hbm_budget)
+        diags = memory_lib.donation_diagnostics(prog, fuse_steps=fuse_steps)
+        report = {
+            "program": {"fuse_steps": fuse_steps, "donated": donate,
+                        "num_partitions": est.num_partitions},
+            "estimate": est.to_dict(),
+            "peak_hbm_bytes": round(est.peak_hbm_bytes),
+            "peak_hbm_gib": round(est.peak_hbm_bytes / memory_lib.GIB, 4),
+            "collectives": {
+                "count": len(schedule),
+                "per_step_count": len(schedule.per_step()),
+                "per_class_payload_bytes":
+                    schedule.per_step().class_payload_bytes(),
+            },
+        }
+        if budget is not None:
+            diags = diags + memory_lib.budget_diagnostics(
+                est.peak_hbm_bytes, budget, source="lowered-program")
+            report.update(
+                budget_bytes=round(budget),
+                budget_gib=round(budget / memory_lib.GIB, 4),
+                utilization=(round(est.peak_hbm_bytes / budget, 4)
+                             if budget else None))
+        report["diagnostics"] = diags
+        return report
+
+    def collective_schedule(self, batch, state: Optional[TrainState] = None,
+                            program: str = "train", fuse_steps: int = 1):
+        """The ordered collective schedule (cost class, group, payload,
+        microstep) of one of this runner's programs
+        (``analysis/program.py``)."""
+        from autodist_tpu_torch.analysis import program as program_lib
+        text = self.lowered_text(batch, state, fuse_steps=fuse_steps,
+                                 program=program)
+        return program_lib.collective_schedule(text)
+
+    def static_profile(self, batch, state: Optional[TrainState] = None,
+                       fuse_steps: int = 1, topology=None):
+        """The per-collective bytes the step really moves, as a
+        ``StaticCollectiveProfile`` for a ``Simulator``/``CostModel``
+        (``attach_static_profile``) in place of the traced heuristics;
+        with the resource spec's ``topology``, each group's ring edges
+        attributed to the link level they cross (``level_wire_bytes``)."""
+        from autodist_tpu_torch.simulator.cost_model import \
+            StaticCollectiveProfile
+        schedule = self.collective_schedule(batch, state,
+                                            fuse_steps=fuse_steps)
+        return StaticCollectiveProfile.from_schedule(
+            schedule, default_group_size=max(self._dstep.num_replicas, 1),
+            topology=topology)
+
+    def lint_schedules(self, batch, state: Optional[TrainState] = None,
+                       fuse_steps: int = 1):
+        """Cross-program collective-schedule consistency (ADT510/511):
+        the eval program — and, with ``fuse_steps=k > 1``, the fused
+        superstep's per-microstep schedule — must embed into the train
+        step's, or ranks running different programs on one mesh block in
+        different collectives."""
+        from autodist_tpu_torch.analysis import program as program_lib
+        train = self.collective_schedule(batch, state)
+        diags = list(program_lib.compare_schedules(
+            train, self.collective_schedule(batch, state, program="eval"),
+            "train", "eval"))
+        if fuse_steps > 1:
+            diags += program_lib.compare_schedules(
+                train, self.collective_schedule(batch, state,
+                                                fuse_steps=fuse_steps),
+                "train", "fused")
+        return diags
+
+    def _maybe_snapshot(self, placed):
+        """``ADT_SNAPSHOT`` at build: the first step writes snapshot stage
+        ``3-transformed-program``, the step recorded as a program on this
+        rank's feed ``placed``."""
+        if self._snapshot_due and self.state is not None:
+            self._snapshot_due = False
+            self._dstep.snapshot_lowered(self.state, placed)
 
     def step_stats(self) -> dict:
         """Wall-time statistics over this runner's steps (each rank times

@@ -24,10 +24,10 @@ Reports serialize to JSON (``save``/``load``) and pretty-print as a
 table (``format_table``; also ``python -m autodist_tpu_torch.telemetry drift
 report.json``).
 
-The port's runner has no static profile of its program yet (the
-lowered-program passes, ROADMAP A item 11): :func:`report_for_runner`
-builds the report from the timing terms, as the JAX function does
-without a ``batch``.
+:func:`report_for_runner` takes the static profile from the runner's own
+program (``Runner.static_profile``, the step recorded op by op) when
+given a ``batch``, and builds the report from the timing terms alone
+without one, as the JAX function does.
 """
 import dataclasses
 import json
@@ -367,24 +367,21 @@ def report_for_runner(runner, resource_spec=None, batch=None,
                       ) -> DriftReport:
     """Convenience join for a live Runner: builds the CostModel from its
     model item + ``resource_spec`` (default: the local machine of the
-    runner's device) and reads the global recorder. With ``batch`` the
-    JAX function takes the static profile of the runner's own lowering;
-    the port has no such profile yet, so ``batch`` is refused."""
+    runner's device), takes the static profile from the runner's own
+    program when ``batch`` is given (``Runner.static_profile``, with the
+    spec's topology), and reads the global recorder."""
     from autodist_tpu_torch.resource_spec import ResourceSpec
     from autodist_tpu_torch.simulator.cost_model import CostModel
-    if batch is not None:
-        raise NotImplementedError(
-            "report_for_runner(batch=...): the static collective profile "
-            "of the runner's lowered program is not ported yet (the "
-            "lowered-program passes, ROADMAP A item 11); call it without "
-            "batch for the timing terms")
     dstep = runner.distributed_step
     spec = resource_spec or ResourceSpec.from_local(
         "cpu" if dstep.device.type == "cpu" else "cuda",
         replicas=dstep.num_replicas)
     cm = CostModel(dstep.model_item, spec)
+    topo = spec.topology() if hasattr(spec, "topology") else None
+    profile = (runner.static_profile(batch, topology=topo)
+               if batch is not None else None)
     return build_report(cm, dstep.strategy, recorder=recorder,
-                        static_profile=None)
+                        static_profile=profile)
 
 
 # ------------------------------------------------------------ calibration

@@ -500,8 +500,9 @@ def tracing_enabled() -> bool:
 
 def span(name: str, cat: str = "app", **args):
     """Module-level span helper — THE instrumented-code entry point.
-    Disabled mode returns a shared no-op after one flag check."""
-    if not _TRACING:
+    Disabled mode returns a shared no-op after one flag check; so does a
+    thread inside :func:`muted`."""
+    if not _TRACING or getattr(_MUTE, "on", False):
         return _NOOP
     return get_recorder().span(name, cat, **args)
 
@@ -512,15 +513,15 @@ def instant(name: str, cat: str = "app", **args):
     get_recorder().instant(name, cat, **args)
 
 
-# a thread inside muted() sets no counter and no gauge
+# a thread inside muted() sets no counter and no gauge, and opens no span
 _MUTE = threading.local()
 
 
 @contextlib.contextmanager
 def muted():
     """The calling thread's counters and gauges stay as they are in the
-    body (a costed trace, which moves nothing, runs the instrumented
-    collectives)."""
+    body, and it records no span (a costed trace or a recorded program,
+    which move nothing, run the instrumented collectives)."""
     was = getattr(_MUTE, "on", False)
     _MUTE.on = True
     try:

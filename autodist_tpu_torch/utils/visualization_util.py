@@ -8,9 +8,9 @@ loss is the aten op listing of ``ModelItem.prepare``'s one fake-tensor
 run (``model_item.trace_forward``): ``log_program`` writes it as text
 under ``const.DEFAULT_SNAPSHOT_DIR/<run>/<stage>.txt``, gated by the
 ``ADT_SNAPSHOT`` env var. The lowering writes stage
-``0-original-loss``; the JAX package's ``3-transformed`` stage (the
-lowered program's text) waits for the port's lowered-program passes
-(ROADMAP A item 11).
+``0-original-loss``, and the Runner's first step stage
+``3-transformed-program``: the step recorded as a program
+(``DistributedStep.snapshot_lowered``, ``kernel/lowering.py``).
 """
 import os
 import time
@@ -34,10 +34,10 @@ def enabled() -> bool:
     return os.environ.get("ADT_SNAPSHOT", "") not in ("", "0")
 
 
-def log_program(stage: str, text: str):
+def log_program(stage: str, text: str, force: bool = False):
     """Write one stage's program text; returns its path (None when
-    snapshots are off)."""
-    if not enabled():
+    snapshots are off and ``force`` is not given)."""
+    if not (force or enabled()):
         return None
     path = os.path.join(_run_dir(), "%s.txt" % stage)
     with open(path, "w") as f:

@@ -482,7 +482,9 @@ result line):
    launches of each kernel in it; the goodput buckets sum to the
    recorded wall within 2%; the exported Chrome trace validates;
    ``metrics_text`` has the ``adt_`` counters; the snapshot
-   ``0-original-loss`` is written; readings: the buckets a step of the
+   ``0-original-loss`` is written, and at the first step
+   ``3-transformed-program``, whose program holds one ``adt::flash_fwd``
+   op a layer; readings: the buckets a step of the
    untraced and of the traced steps, and the step p50 outside the traced
    steps beside phase 7's. The two variables but ``ADT_TRACE`` are gone
    once (a)'s runner is built. (b) ``report_for_runner`` on (a), and on 6
@@ -501,6 +503,22 @@ result line):
    phases 1-2b (builds and checks, no timed step) and are joined before
    phase 3; the others start after (b)'s last timed step, beside its
    calibration and ``AutoStrategy`` build.
+30. the lowered-program passes: each build's step recorded as a program on
+   fake CUDA tensors (``Runner.lowered_text``; host time only, no step
+   added), its readings taken right after the timed steps of phases 5,
+   7 and 20 (a) (lm1b, bert_base, the tp_lm flagship at tp 1):
+   ``memory_report``'s ``peak_hbm_bytes`` within 20% of the steps'
+   measured peak (``max_memory_allocated`` less what the card held at
+   their start but the runner's state), printed beside the build's plan
+   memory gate; each flash custom op's count in the program equal to one
+   step's launches; ``lint_lowered`` clean. On phase 13 (a)'s fused
+   build (``fuse_steps=4``): ``donate=False`` gives ADT503,
+   ``lint_schedules`` is clean, and a build of the same model whose loss
+   reads ``.item()`` gives ADT408 with no capture. In phase 10's ranks:
+   ``static_profile``'s bytes a step equal ``sync.wire_bytes`` a step, and
+   under the fp32 wire its reduce bytes that less the tables' (ids,
+   values) pairs. Then each flash wrapper's host cost a call through its
+   custom op and through the ctypes launch alone.
 
 TF32 is off for the whole run (``torch.backends.cuda.matmul`` and
 ``cudnn``): float32 is computed in float32, as the f32 checks' 2e-5 and
@@ -1289,6 +1307,7 @@ def timed_steps(runner, batch, label, warmup=2, steps=10, must_fall=True,
     import torch
     reset_counts()
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     losses, times = [], []
     for _ in range(warmup + steps):
         t0 = time.perf_counter()
@@ -1297,6 +1316,8 @@ def timed_steps(runner, batch, label, warmup=2, steps=10, must_fall=True,
         times.append(time.perf_counter() - t0)
         losses.append(float(metrics["loss"]))
     launches = launch_counts()
+    LAST_TIMED.update(base=base, peak=torch.cuda.max_memory_allocated(),
+                      steps=warmup + steps)
     if losses_out is not None:
         losses_out.extend(losses)
     print("  losses: %s" % " ".join("%.4f" % x for x in losses))
@@ -1306,6 +1327,11 @@ def timed_steps(runner, batch, label, warmup=2, steps=10, must_fall=True,
         fail("%s: the loss did not fall (%.4f -> %.4f)"
              % (label, losses[0], losses[-1]))
     return times[warmup:], launches
+
+
+# the memory at the start of the last timed_steps (its state and what
+# earlier phases left), its peak and its steps: phase 30's measured peak
+LAST_TIMED = {}
 
 
 def check_launches(label, launches, per_step, steps, design=None):
@@ -1386,11 +1412,14 @@ def train_phase(card):
     note_plan("lm1b (phase 5)", runner, flops, report_steps(
         "lm1b", times, TRAIN_BATCH * TRAIN_SEQ, "tokens", flops, card,
         launches))
+    record = note_program("lm1b (phase 5)", runner, batch, launches)
     stats = runner.step_stats()
     print("  step_stats: first_step_s %s steady_median_s %s goodput %s"
           % (stats["first_step_s"], stats["steady_median_s"],
              stats["goodput"]))
     profile_steps(runner, batch, "training")
+    # phase 30's recordings of this build, beside phase 6
+    program_work(record, beside=True)
     return launches
 
 
@@ -1520,6 +1549,8 @@ def bert_train_phase(card):
             launches)
         if attention == "flash":
             note_plan("bert_base (phase 7)", runner, flops, p50[attention])
+            program_work(note_program("bert_base (phase 7)", runner, batch,
+                                      launches))
             READINGS["bert_flash_p50_ms"] = p50[attention]
         profile_steps(runner, batch, label)
         if attention == "flash":
@@ -1723,6 +1754,7 @@ def dp_child(rank, store, out_dir):
         dstep = runner.distributed_step
         reset_counts()
         sent = tel.counters().get("sync.wire_bytes", 0.0)
+        sparse = tel.counters().get("sync.sparse_wire_bytes", 0.0)
         losses, times = [], []
         for _ in range(steps):
             t0 = time.perf_counter()
@@ -1749,6 +1781,17 @@ def dp_child(rank, store, out_dir):
                 len(b.var_names) for b in dstep.buckets),
             "params_equal": ranks_equal(runner.gather_params()),
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        if wire == "fp32":
+            # phase 30: the bytes the recorded program hands to each class
+            # of collective a step, beside the wire counter's (the tables'
+            # (ids, values) pairs are the gathers)
+            t0 = time.perf_counter()
+            prof = runner.static_profile(batch)
+            out["bert"][wire].update(
+                static_bytes=dict(prof.class_payload_bytes),
+                static_s=time.perf_counter() - t0,
+                sparse_wire_bytes_per_step=(tel.counters().get(
+                    "sync.sparse_wire_bytes", 0.0) - sparse) / steps)
         del runner, dstep
         adt.reset()
     torch.use_deterministic_algorithms(False)
@@ -1864,6 +1907,25 @@ def dp_phase(card):
                  r0["wire_bytes_per_step"] / 1e6, len(r0["buckets"]),
                  [(k, n) for k, n, _ in r0["buckets"]],
                  r0["per_var_syncs"], r0["peak_gb"], card))
+    for r in res:
+        got = r["bert"]["fp32"]
+        static, counted = got["static_bytes"], got["wire_bytes_per_step"]
+        # the counter counts each collective's payload as it is handed
+        # over; the program's collectives a step must hand over as much,
+        # the reduces all of it but the tables' pairs
+        pairs = got["sparse_wire_bytes_per_step"]
+        if sum(static.values()) != counted or \
+                static.get("reduce", 0) != counted - pairs:
+            fail("phase 10 fp32 wire, rank %d: static_profile's bytes a "
+                 "step %r, sync.wire_bytes %.0f of which the tables' pairs "
+                 "%.0f" % (r["rank"], static, counted, pairs))
+    r0 = res[0]["bert"]["fp32"]
+    PROGRAM_READINGS["phase 10 fp32"] = r0
+    print("  phase 30: bert_base fp32 wire, static_profile a step %s B "
+          "(recorded in %.1f s) = sync.wire_bytes %.0f B a step, of which "
+          "the tables' (ids, values) pairs %.0f B, on both ranks"
+          % (r0["static_bytes"], r0["static_s"], r0["wire_bytes_per_step"],
+             r0["sparse_wire_bytes_per_step"]))
     for r in res:
         codec = r["codec"]
         if not (codec["two_phase_equal"] and codec["quant_equal"]
@@ -2223,6 +2285,73 @@ def device_trace(run, edge_s=TRACE_EDGE_S):
                 "kernel", "gpu_memcpy", "gpu_memset")]
 
 
+# torch.profiler loses device records in the full smoke, edges or not:
+# from phase 13 on, a profile's first 14-15 records (phase 13 (a)'s traced
+# replay once showed 31 of its 32 flash_fwd launches). A trace that counts
+# launches runs spin kernels inside the profile before the counted work,
+# the last of them long (the marker), and after it; only a trace that
+# holds the marker and every trailing guard is read (:func:`counted_trace`)
+LEAD_GUARDS = 64
+TRAIL_GUARDS = 16
+GUARD_CYCLES = 1000         # about 1.4 us on the card
+MARKER_CYCLES = 50000       # about 25 us
+MARKER_US = 10.0
+TRACE_ATTEMPTS = 3
+
+
+def guarded_trace(run):
+    """A device trace of ``run()`` with :data:`LEAD_GUARDS` spin kernels
+    before it (the marker last) and :data:`TRAIL_GUARDS` after it inside
+    the profile: ``(events of run() alone, the guards seen before its
+    first kernel, whether the marker is among them, the guards seen after
+    its last)``."""
+    import torch
+
+    def guarded():
+        for _ in range(LEAD_GUARDS - 1):
+            torch.cuda._sleep(GUARD_CYCLES)
+        torch.cuda._sleep(MARKER_CYCLES)
+        torch.cuda.synchronize()
+        run()
+        torch.cuda.synchronize()
+        for _ in range(TRAIL_GUARDS):
+            torch.cuda._sleep(GUARD_CYCLES)
+    events = device_trace(guarded)
+    work = [e for e in events if "spin_kernel" not in e[1]]
+    starts = [e[3] for e in work if e[0] == "kernel"]
+    guards = [e for e in events if "spin_kernel" in e[1]]
+    first, last = min(starts, default=0.0), max(starts, default=0.0)
+    lead = [e for e in guards if e[3] < first]
+    return (work, len(lead),
+            any(e[4] - e[3] >= MARKER_US for e in lead),
+            sum(e[3] > last for e in guards))
+
+
+def counted_trace(label, run):
+    """The device events of ``run()`` (a replay of a captured graph,
+    which launches the same kernels each time) from a trace shown
+    complete: the profiler loses a prefix of a profile's records, so a
+    trace that holds the marker of :func:`guarded_trace` (the last guard
+    before ``run()``) and every guard after it lost none of ``run()``'s.
+    Otherwise ``run()`` is traced again, up to :data:`TRACE_ATTEMPTS`
+    times. Prints each trace that lost guards."""
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        work, lead, marker, trail = guarded_trace(run)
+        whole = marker and trail == TRAIL_GUARDS
+        if lead < LEAD_GUARDS or not whole:
+            print("  %s: trace %d of %d lost device records: %d of %d guard "
+                  "kernels before the work (the marker %s), %d of %d after "
+                  "it, %d kernel events of the work%s" % (
+                      label, attempt, TRACE_ATTEMPTS, lead, LEAD_GUARDS,
+                      "seen" if marker else "lost", trail, TRAIL_GUARDS,
+                      sum(e[0] == "kernel" for e in work),
+                      "" if whole else "; traced again"))
+        if whole:
+            return work
+    fail("%s: none of %d traces held the marker and every trailing guard "
+         "(torch.profiler lost device records)" % (label, TRACE_ATTEMPTS))
+
+
 def trace_launches(events):
     """Each kernel's launches by design in a device trace (:func:
     `device_trace`), its CUDA functions matched by name."""
@@ -2242,9 +2371,13 @@ def trace_launches(events):
 def trace_edges(n):
     """``python3 chip_smoke.py --trace-edges N``: phase 13 (a)'s lm1b
     superstep (bf16, fuse_steps=4) captured once, then N traced replays
-    with the card idle at the profile's edges and N without; a replay
+    with the card idle at the profile's edges, N without, and N with the
+    edges and the guard kernels of :func:`guarded_trace`; a replay
     launches the same kernels each time, so a trace short of the largest
-    kernel count lost device records. Prints the counts of each set-up."""
+    kernel count lost device records. Prints the counts of each set-up,
+    and for the guarded one the traces that lost guards and the traces
+    short while the marker and the trailing guards were seen (which
+    :func:`counted_trace` would read)."""
     import collections
     import torch
     from autodist_tpu_torch.data import DevicePrefetcher
@@ -2273,6 +2406,14 @@ def trace_edges(n):
             rows.append((sum(cat == "kernel" for cat, *_ in events),
                          sum(trace_launches(events)["flash_fwd"].values())))
         counts[label] = rows
+    guarded = []
+    for _ in range(n):
+        work, lead, marker, trail = guarded_trace(
+            lambda: runner.run_superstep(traced, sync=True))
+        guarded.append((sum(cat == "kernel" for cat, *_ in work),
+                        sum(trace_launches(work)["flash_fwd"].values()),
+                        lead + trail, marker and trail == TRAIL_GUARDS))
+    counts["edges and guards"] = [(k, f) for k, f, _, _ in guarded]
     if runner.distributed_step.warmup_microsteps != warm:
         fail("--trace-edges: a traced replay captured a new graph")
     top = max(k for rows in counts.values() for k, _ in rows)
@@ -2283,6 +2424,11 @@ def trace_edges(n):
                   sorted(collections.Counter(k for k, _ in rows).items()),
                   sorted(collections.Counter(f for _, f in rows).items()),
                   card_line()))
+    print("guarded: %d of %d traces lost guard kernels; %d held the marker "
+          "and the trailing guards, %d of them short of %d kernel events"
+          % (sum(g < LEAD_GUARDS + TRAIL_GUARDS for _, _, g, _ in guarded),
+             n, sum(whole for *_, whole in guarded),
+             sum(k < top and whole for k, _, _, whole in guarded), top))
 
 
 def merged(intervals):
@@ -2409,16 +2555,21 @@ def fused_text_phase(card):
             runner.readbacks
         warm = dstep.warmup_microsteps
         ds.close()
-        # one more superstep under a device trace: the replay's launches
-        # counted by name on the card, not by the wrappers' bookkeeping
+        # one more superstep under a device trace shown complete: the
+        # replay's launches counted by name on the card, not by the
+        # wrappers' bookkeeping
         # (which adds the capture's recording at every replay)
         traced = stack_batches(seen[:FUSE_K])
-        reset_counts()
-        on_card = trace_launches(device_trace(
-            lambda: runner.run_superstep(traced, sync=True)))
+
+        def replay():
+            reset_counts()
+            runner.run_superstep(traced, sync=True)
+        on_card = trace_launches(counted_trace(
+            "phase 13 (a) traced replay", replay))
         booked = launch_counts()
         if dstep.warmup_microsteps != warm:
             fail("phase 13 (a): the traced superstep captured a new graph")
+        note_fused_program(runner, cfg, batch)
     batches = seen[:FUSED_MICROSTEPS]
     adt_reset()
     runner = build_runner(loss_fn, params, batch)
@@ -2428,6 +2579,7 @@ def fused_text_phase(card):
     torch.cuda.synchronize()
     step_s = time.perf_counter() - t0
     per_step = (losses, host_params(runner))
+    join_program_work()     # phase 30's work on the fused build
     print("  (a) fused: %d microsteps in %d dispatches, %d readbacks, "
           "supersteps %d / microsteps %d, %.2f s (capture included), peak "
           "memory %.2f GB; per step: %d dispatches, %d readbacks, %.2f s, "
@@ -3945,7 +4097,8 @@ def bert_fused_ps_phase(card, per_step_losses):
         stack_batches([batch] * CARRY_K))
     with uncounted():
         reset_counts()
-        on_card = trace_launches(device_trace(
+        on_card = trace_launches(counted_trace(
+            "phase 16 (c) traced replay",
             lambda: runner.run_superstep(stack, sync=True)))
     if dstep.warmup_microsteps != warm:
         fail("phase 16 (c): the traced superstep captured a new graph")
@@ -5683,6 +5836,8 @@ def tp_phase(card):
         "tokens", flops, card, launches_a)
     note_plan("tp_lm flagship (phase 20 (a))", runner, flops,
               READINGS["tp_lm_a_p50_ms"])
+    record = note_program("tp_lm flagship (phase 20 (a))", runner, batch,
+                          launches_a)
     mp_a, all_a = stored_bytes(runner)
     with uncounted():
         profile_steps(runner, batch, "(a) tp_lm")
@@ -5690,6 +5845,8 @@ def tp_phase(card):
     adt.reset()
     gc.collect()
     torch.cuda.empty_cache()
+    # phase 30's recordings of (a), beside (b)
+    program_work(record, beside=True)
     # (b) two processes, TensorParallel(2), beside phase 21 (a)'s two
     t0 = time.perf_counter()
     shard = Beside(shard_spawn)
@@ -5707,6 +5864,7 @@ def tp_phase(card):
                 res.append(json.load(f))
         opt = torch.load(os.path.join(tmp, "opt.pt"))
     print("  (b) two ranks ran in %.1f s" % (time.perf_counter() - t0))
+    join_program_work()
     launches_b = {}
     for r in res:
         label = "phase 20 (b) rank %d" % r["rank"]
@@ -9115,6 +9273,22 @@ def observe_phase(card, static_results, cli_dir):
         if not snaps or not os.path.exists(snap) or \
                 os.path.getsize(snap) == 0:
             fail("phase 29 (a): no 0-original-loss snapshot in %r" % snaps)
+        # the first step's stage: the step recorded as a program, whose
+        # flash ops are the custom ops with their true outputs
+        from autodist_tpu_torch.analysis import program as program_lib
+        snap3 = os.path.join(const.DEFAULT_SNAPSHOT_DIR, snaps[0],
+                             "3-transformed-program.txt")
+        if not os.path.exists(snap3):
+            fail("phase 29 (a): no 3-transformed-program snapshot in %r"
+                 % os.listdir(os.path.join(const.DEFAULT_SNAPSHOT_DIR,
+                                           snaps[0])))
+        with open(snap3) as f:
+            snap_ops = [st.op for st in program_lib.parse_program_text(
+                f.read()).entry.statements]
+        if snap_ops.count("adt.flash_fwd.default") != layers:
+            fail("phase 29 (a): the 3-transformed-program snapshot holds "
+                 "%d adt.flash_fwd ops (want %d)" % (
+                     snap_ops.count("adt.flash_fwd.default"), layers))
         traced = {0} | set(range(OBS_WINDOW[0], OBS_WINDOW[1] + 1))
         plain = [t for i, t in enumerate(times) if i not in traced]
         p50 = statistics.median(plain) * 1e3
@@ -9275,6 +9449,277 @@ def observe_phase(card, static_results, cli_dir):
         adt.reset()
         visualization_util._RUN_DIR = None
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ------------------------------------------------------------- phase 30
+
+PROGRAM_READINGS = {}   # phase 30's readings, by the build they are of
+PROGRAM_BESIDE = []     # phase 30's work running beside other work
+PROGRAM_ADDED_S = [0.0]  # the wall time phase 30's work added
+# the lowered estimate's bound against the measured peak (the JAX
+# package's own bar against XLA, tests/test_hlo_analysis.py)
+PROGRAM_BAND = 0.20
+FLASH_OPS = {"flash_fwd": "adt.flash_fwd.default",
+             "flash_bwd_dq": "adt.flash_bwd_dq.default",
+             "flash_bwd_dkdv": "adt.flash_bwd_dkdv.default"}
+
+
+def state_bytes(runner):
+    """Bytes of the runner's state on the card, each storage once."""
+    import torch
+    from torch.utils import _pytree as pytree
+    st, seen, total = runner.state, set(), 0
+    for t in pytree.tree_leaves((st.params, st.opt_state, st.sync_state)):
+        if isinstance(t, torch.Tensor) and t.is_cuda:
+            storage = t.untyped_storage()
+            if storage.data_ptr() not in seen:
+                seen.add(storage.data_ptr())
+                total += storage.nbytes()
+    return total
+
+
+def note_program(label, runner, batch, launches):
+    """Phase 30's reading of one build, right after its timed steps
+    (``timed_steps``): the peak the steps measured —
+    ``max_memory_allocated`` less what the card held at their start but
+    the runner's state — and one step's launches, taken now, and the
+    build's plan memory gate. Returns the recordings, to run inline or
+    beside other work (:func:`program_work`): the step recorded as a
+    program on fake CUDA tensors (host time only), its memory report, its
+    flash custom ops and its lints."""
+    from autodist_tpu_torch.autodist import get_default_autodist
+    gate = get_default_autodist().last_memory_report
+    # the state as the steps left it: a later adt.reset() closes the runner
+    # (its state None), and the recordings go on from this one
+    state = runner.state
+    reading = {
+        "plan_peak": gate["peak_hbm_bytes"] if gate is not None else None,
+        "measured_peak": (LAST_TIMED["peak"] - LAST_TIMED["base"]
+                          + state_bytes(runner)),
+        "max_memory_allocated": LAST_TIMED["peak"],
+        "launches_per_step": {name: sum(by.values()) / LAST_TIMED["steps"]
+                              for name, by in launches.items()}}
+
+    def record():
+        import collections
+        from autodist_tpu_torch.analysis import program as program_lib
+        t0 = time.perf_counter()
+        report = runner.memory_report(batch, state)
+        text = runner.lowered_text(batch, state, donate=True)  # the report's
+        lints = [d.code for d in runner.lint_lowered(batch, state)]
+        prog = program_lib.parse_program_text(text)
+        ops = collections.Counter(st.op for st in prog.entry.statements)
+        reading.update(
+            lowered_peak=report["peak_hbm_bytes"],
+            estimate=report["estimate"],
+            ops={name: ops.get(op, 0) for name, op in FLASH_OPS.items()},
+            statements=len(prog.entry.statements), lints=lints,
+            diagnostics=[d.code for d in report["diagnostics"]],
+            host_s=time.perf_counter() - t0)
+        PROGRAM_READINGS[label] = reading
+    return record
+
+
+def program_work(fn, beside=False):
+    """Run phase 30's ``fn`` inline (its seconds count as added wall time)
+    or start it beside other work (a :class:`Beside`, joined by
+    :func:`join_program_work`, whose wait counts)."""
+    if beside:
+        PROGRAM_BESIDE.append(Beside(fn))
+        return
+    t0 = time.perf_counter()
+    fn()
+    PROGRAM_ADDED_S[0] += time.perf_counter() - t0
+
+
+def join_program_work():
+    """Join the phase-30 work started beside other work; the wait counts
+    as added wall time."""
+    t0 = time.perf_counter()
+    while PROGRAM_BESIDE:
+        PROGRAM_BESIDE.pop(0).result()
+    PROGRAM_ADDED_S[0] += time.perf_counter() - t0
+
+
+def seeded_item_loss(loss_fn):
+    """``loss_fn`` with a host read of its loss in each call (``.item()``):
+    ADT408 in a fused program, and a failed CUDA-graph capture."""
+    def loss(p, b):
+        out = loss_fn(p, b)
+        return out * (1.0 + 0.0 * float(out.detach().float().item()))
+    return loss
+
+
+def note_fused_program(runner, cfg, batch):
+    """Phase 30 on phase 13 (a)'s fused build, after its last superstep:
+    a build of the same model at 2 of its layers whose loss reads
+    ``.item()`` lints ADT408 in its fused program, found with no capture
+    (its dstep holds no graph and ran no warm-up; inline); then, beside
+    the per-step run that follows, the fused build's superstep program
+    un-donated (ADT503) and its schedules against the step's and the eval
+    program's (clean)."""
+    import dataclasses
+    from autodist_tpu_torch.models import lm
+    # the state as the superstep left it: the seeded build's reset closes
+    # the runner (its state None), and the recordings go on from this one
+    state = runner.state
+    t0 = time.perf_counter()
+    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    loss2, params2, _, _ = lm.make_train_setup(
+        cfg2, seq_len=TRAIN_SEQ, batch_size=TRAIN_BATCH, seed=0,
+        attention="flash", lean_head=True)
+    seeded = build_runner(seeded_item_loss(loss2), params2, batch)
+    seeded_lints = [d.code for d in seeded.lint_lowered(batch,
+                                                        fuse_steps=FUSE_K)]
+    dstep = seeded.distributed_step
+    reading = {"seeded": seeded_lints,
+               "seeded_captured": bool(dstep._graphs)
+               or dstep.warmup_microsteps,
+               "seeded_s": time.perf_counter() - t0}
+    PROGRAM_ADDED_S[0] += reading["seeded_s"]
+    del seeded, dstep, params2
+
+    def record():
+        t1 = time.perf_counter()
+        nodonate = runner.memory_report(batch, state, fuse_steps=FUSE_K,
+                                        donate=False)
+        reading.update(
+            nodonate=[d.code for d in nodonate["diagnostics"]],
+            nodonate_peak=nodonate["peak_hbm_bytes"],
+            schedules=[d.code for d in runner.lint_schedules(
+                batch, state, fuse_steps=FUSE_K)],
+            host_s=time.perf_counter() - t1)
+        PROGRAM_READINGS["lm1b fused (phase 13 (a))"] = reading
+    program_work(record, beside=True)
+
+
+def wrapper_host_us(fn, n=500, repeats=3):
+    """Host microseconds a call of ``fn`` (the median over ``repeats`` of
+    ``n`` calls queued without a sync, over n), the card idle before."""
+    import statistics
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        times.append((time.perf_counter() - t0) / n * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def flash_host_costs():
+    """Each flash wrapper's host cost a call, through its custom op (the
+    wrapper as the step calls it) and through the ctypes launch the
+    wrapper called directly before (``_flash_*_cuda``), interleaved in one
+    process, at the decode shape (one query row over 64 keys) and a
+    backward at [1, 64, 1, 64]: kernels of microseconds, so the host's
+    time is what is measured."""
+    import torch
+    from autodist_tpu_torch.ops import flash_attention as fa
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=g, device="cuda",
+                           dtype=torch.bfloat16)
+    q1, k, v = rand(1, 1, 1, 64), rand(1, 64, 1, 64), rand(1, 64, 1, 64)
+    q, do = rand(1, 64, 1, 64), rand(1, 64, 1, 64)
+    out, lse = fa.flash_fwd(q, k, v, causal=True)
+    delta = fa.flash_bwd_delta(out, do)
+    calls = {
+        "flash_fwd": (lambda: fa.flash_fwd(q1, k, v),
+                      lambda: fa._flash_fwd_cuda(q1, k, v, None, None,
+                                                 False)),
+        "flash_bwd_dq": (
+            lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, causal=True),
+            lambda: fa._flash_bwd_dq_cuda(q, k, v, do, lse, delta, None,
+                                          None, True)),
+        "flash_bwd_dkdv": (
+            lambda: fa.flash_bwd_dkdv(q, k, v, do, lse, delta, causal=True),
+            lambda: fa._flash_bwd_dkdv_cuda(q, k, v, do, lse, delta, None,
+                                            None, True))}
+    out = {}
+    with uncounted():
+        for name, (op, direct) in calls.items():
+            a, b = [], []
+            for _ in range(2):
+                b.append(wrapper_host_us(direct))
+                a.append(wrapper_host_us(op))
+            out[name] = {"custom_op_us": min(a), "direct_us": min(b)}
+    return out
+
+
+def program_phase(card):
+    """Phase 30: the lowered-program passes on the card (readings taken by
+    :func:`note_program` in phases 5, 7 and 20 (a), by
+    :func:`note_fused_program` in 13 (a) and by phase 10's ranks)."""
+    print("phase 30: the step recorded as a program on fake CUDA tensors "
+          "(Runner.lowered_text / memory_report / lint_lowered / "
+          "lint_schedules / static_profile)")
+    join_program_work()
+    for label in ("lm1b (phase 5)", "bert_base (phase 7)",
+                  "tp_lm flagship (phase 20 (a))"):
+        r = PROGRAM_READINGS.get(label)
+        if r is None:
+            fail("phase 30: no reading of %s" % label)
+        ratio = r["lowered_peak"] / r["measured_peak"]
+        print("  %s: peak plan gate %.3f GB, lowered estimate %.3f GB (args "
+              "%.3f, temporaries %.3f), measured %.3f GB (x%.3f; "
+              "max_memory_allocated %.3f GB); %d ops; flash ops %r, launches "
+              "a step %r; lints %s; recorded in %.2f s [%s]"
+              % (label, (r["plan_peak"] or 0) / 1e9, r["lowered_peak"] / 1e9,
+                 r["estimate"]["args_bytes"] / 1e9,
+                 r["estimate"]["peak_temp_bytes"] / 1e9,
+                 r["measured_peak"] / 1e9, ratio,
+                 r["max_memory_allocated"] / 1e9, r["statements"],
+                 r["ops"], r["launches_per_step"], r["lints"] or "clean",
+                 r["host_s"], card))
+        if abs(ratio - 1.0) > PROGRAM_BAND:
+            fail("phase 30: %s: the lowered peak %.3f GB is not within %d%% "
+                 "of the measured %.3f GB" % (
+                     label, r["lowered_peak"] / 1e9, PROGRAM_BAND * 100,
+                     r["measured_peak"] / 1e9))
+        if r["ops"] != r["launches_per_step"]:
+            fail("phase 30: %s: the program's flash ops %r, one step's "
+                 "launches %r" % (label, r["ops"], r["launches_per_step"]))
+        if r["lints"] or r["diagnostics"]:
+            fail("phase 30: %s: an honest build lints %r, its report %r"
+                 % (label, r["lints"], r["diagnostics"]))
+    f = PROGRAM_READINGS.get("lm1b fused (phase 13 (a))")
+    if f is None:
+        fail("phase 30: no reading of phase 13 (a)'s fused build")
+    print("  lm1b fused (phase 13 (a), fuse_steps=%d): donate=False %s at "
+          "%.3f GB; lint_schedules %s (%.2f s, beside the per-step run); "
+          "the loss with .item() at 2 layers: lint_lowered %s, no capture "
+          "(%.2f s with its build)"
+          % (FUSE_K, f["nodonate"], f["nodonate_peak"] / 1e9,
+             f["schedules"] or "clean", f["host_s"], f["seeded"],
+             f["seeded_s"]))
+    if f["nodonate"] != ["ADT503"] or f["schedules"]:
+        fail("phase 30: phase 13 (a)'s fused program: donate=False %r, "
+             "schedules %r (want ADT503, clean)"
+             % (f["nodonate"], f["schedules"]))
+    if "ADT408" not in f["seeded"] or f["seeded_captured"]:
+        fail("phase 30: the .item() loss's fused program lints %r (want "
+             "ADT408) or its build captured a graph" % (f["seeded"],))
+    if "phase 10 fp32" not in PROGRAM_READINGS:
+        fail("phase 30: no reading of phase 10's fp32 wire")
+    t0 = time.perf_counter()
+    costs = flash_host_costs()
+    PROGRAM_ADDED_S[0] += time.perf_counter() - t0
+    for name, c in costs.items():
+        print("  %s host cost a call: %.1f us through the custom op "
+              "adt::%s, %.1f us through the ctypes launch alone (the route "
+              "before) [%s]" % (name, c["custom_op_us"], name,
+                                c["direct_us"], card))
+    PROGRAM_READINGS["host_costs"] = costs
+    print("  phase 30 added %.1f s of wall time in this process (its work "
+          "inline, and its waits for the work beside other phases); phase "
+          "10's ranks recorded for %.1f s" % (
+              PROGRAM_ADDED_S[0],
+              PROGRAM_READINGS["phase 10 fp32"]["static_s"]))
 
 
 def main():
@@ -9442,6 +9887,7 @@ def main():
 
     train_launches = timed_phase("5", train_phase, card)
     timed_phase("6", train_parity_phase)
+    join_program_work()     # phase 30's recordings of phase 5, beside 6
     bert_launches = timed_phase("7", bert_train_phase, card)
     timed_phase("8", resnet_phase, card)
     timed_phase("9", bert_parity_phase)
@@ -9511,6 +9957,7 @@ def main():
     auto_launches = timed_phase("28", plan_phase, card)
     observe_launches = timed_phase("29", observe_phase, card,
                                    static_results, cli_dir)
+    timed_phase("30", program_phase, card)
     print("phases 5-29: %s s" % ", ".join(
         "%s %.1f" % kv for kv in seconds.items()))
 

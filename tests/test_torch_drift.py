@@ -10,7 +10,8 @@ memory capacity), the same recorded spans and counters
   (the per-level rows), with and without the static profile;
 - ``format_table`` gives the same text, ``save``/``load``/``from_dict``
   round-trip, and ``fit_calibration`` fits the same scales;
-- ``report_for_runner(batch=...)`` refuses, naming ROADMAP A item 11.
+- ``report_for_runner(batch=...)`` takes its collective rows from the
+  runner's ``static_profile(batch)``, asked with the spec's topology.
 """
 import math
 
@@ -147,7 +148,25 @@ def test_report_round_trip_and_refusals(tmp_path):
     with pytest.raises(ValueError, match="no report carries"):
         drift.fit_calibration([empty])
 
+    # with a batch, the report's collective rows come from the runner's
+    # own static profile (Runner.static_profile), asked with the spec's
+    # topology
+    prof = StaticCollectiveProfile(dict(CLASSES), dict(CLASSES), 3)
+    asked = []
+
+    class _DStep:
+        model_item, strategy = cm._item, plan
+        device, num_replicas = torch.device("cpu"), 1
+
     class _Runner:
-        distributed_step = None
-    with pytest.raises(NotImplementedError, match="ROADMAP A item 11"):
-        drift.report_for_runner(_Runner(), batch={"x": 1})
+        distributed_step = _DStep()
+
+        def static_profile(self, batch, topology=None):
+            asked.append((batch, topology))
+            return prof
+    got = drift.report_for_runner(_Runner(), resource_spec=cm._spec,
+                                  batch={"x": 1}, recorder=rec)
+    assert asked == [({"x": 1}, cm._spec.topology())]
+    want = drift.build_report(cm, plan, recorder=rec, static_profile=prof)
+    assert got.collectives and \
+        got.to_dict()["collectives"] == want.to_dict()["collectives"]

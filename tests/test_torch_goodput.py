@@ -174,9 +174,15 @@ def test_goodput_real_fit_coverage_within_two_percent(tmp_path):
         dr = drift.report_for_runner(runner, resource_spec=spec)
         assert dr.goodput is not None
         assert {t.term: t for t in dr.terms}["compute"].measured_s > 0
-        with pytest.raises(NotImplementedError, match="ROADMAP A item 11"):
-            drift.report_for_runner(runner, resource_spec=spec,
-                                    batch=batches[0])
+        # with a batch the static rows come from the runner's own
+        # program: one replica issues no collective, so every measured
+        # row is 0 and the timing terms are the batch-less report's
+        prof = runner.static_profile(batches[0])
+        assert prof.num_collectives == 0 and prof.class_wire_bytes == {}
+        dr_b = drift.report_for_runner(runner, resource_spec=spec,
+                                       batch=batches[0])
+        assert all(c.measured_wire_bytes == 0 for c in dr_b.collectives)
+        assert dr_b.predicted_step_s == dr.predicted_step_s
         path = export.write_trace(str(tmp_path / "trace.json"))
         (pid, from_file), = goodput.report_from_trace(
             export.load_trace(path)).items()

@@ -12,7 +12,9 @@
   model is given JAX's activation estimate). ``--numerics``,
   ``--compute-dtype``, ``--topology`` (ADT524 for a malformed file),
   ``--strategy-json`` (ADT301 at deserialize), ``--list`` and the usage
-  errors match too; ``--programs`` exits 2 naming ROADMAP A item 11.
+  errors match too; ``--programs`` lints the port's own recorded dumps
+  (exit 0, ADT503 on a fused un-donated dump, ADT501 on a tiny budget;
+  its parity with the JAX CLI: ``tests/test_torch_program_lints.py``).
 - ``autodist_tpu_torch.search``: equal JSON (timings aside) on the
   examples whose products are all 2-D (linear_regression,
   sentiment_classifier); on the others the drift point "Exact FLOPs"
@@ -188,12 +190,40 @@ def test_analysis_topology_and_strategy_json_equal_jax(tmp_path):
         assert json.loads(out) == json.loads(jout)
 
 
-def test_programs_exits_2_naming_item_11(tmp_path):
-    dump = tmp_path / "train.hlo"
-    dump.write_text("module @m {}\n")
-    rc, out, err = _run(cli.main, ["--programs", str(dump)])
-    assert (rc, out) == (2, "")
-    assert "ROADMAP A item 11" in err
+def test_programs_mode_lints_a_recorded_dump(tmp_path):
+    """``--programs`` on the port's own dumps (``Runner.lowered_text``
+    written to files): a clean step exits 0 and prints its peak; the fused
+    ``donate=False`` superstep under ``--fuse-steps 2`` warns ADT503 (exit
+    0), as the JAX CLI does; a 1e-6 GiB budget is ADT501 (exit 1)."""
+    import autodist_tpu_torch as adt
+    from autodist_tpu_torch import strategy
+    from autodist_tpu_torch.models import lm
+    loss_fn, params, batch, _ = lm.make_train_setup(
+        lm.LMConfig.tiny(), seq_len=16, batch_size=8)
+    adt.reset()
+    try:
+        runner = adt.AutoDist(strategy_builder=strategy.AllReduce(),
+                              device="cpu").build(
+            loss_fn, functools.partial(torch.optim.Adam, lr=1e-3), params,
+            batch)
+        runner.init(params)
+        step = tmp_path / "step.txt"
+        step.write_text(runner.lowered_text(batch, donate=True))
+        fused = tmp_path / "fused.txt"
+        fused.write_text(runner.lowered_text(batch, fuse_steps=2))
+    finally:
+        adt.reset()
+    rc, out, _ = _run(cli.main, ["--programs", str(step)])
+    assert rc == 0 and out.startswith("%s: peak " % step)
+    rc, out, _ = _run(cli.main, ["--programs", str(fused), "--fuse-steps",
+                                 "2", "--format", "json"])
+    doc = json.loads(out)
+    assert rc == 0 and doc["errors"] == 0
+    assert [d["code"] for d in doc["programs"][0]["diagnostics"]] == \
+        ["ADT503"]
+    rc, out, _ = _run(cli.main, ["--programs", str(step), "--hbm-budget",
+                                 "0.000001"])
+    assert rc == 1 and "ADT501" in out
 
 
 def _search(main, argv):
